@@ -15,62 +15,53 @@
 // (2 KB at block = 512), written out once.
 //
 // One thread block per row; its threads stride over the row's W slots with
-// coalesced loads. The OR entry writes flags (idempotent, bit-exact). The
-// sum entry adds with shared-memory atomics, whose order varies from run to
-// run: exact on integer-valued signals below 2^24, otherwise held to
-// rtol = atol = 1e-5 against the plain version (ops/segsum.py).
+// coalesced loads (segsum.cuh). The OR entry writes flags (idempotent,
+// bit-exact). The sum entry adds with shared-memory atomics, whose order
+// varies from run to run: exact on integer-valued signals below 2^24,
+// otherwise held to rtol = atol = 1e-5 against the plain version
+// (ops/segsum.py).
+//
+// The ring (parallel/sharded.py) runs the same rows on all S shards of a
+// stacked [S, B] signal in one launch: n_shards, rows_per_shard and the two
+// strides place each row (segsum.cuh). One shard with signal_stride 0 is
+// the single-device call.
 //
 // Plain C interface for ctypes; each entry returns cudaGetLastError().
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "segsum.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __global__ void segsum_or_kernel(const uint8_t* __restrict__ signal,
                                  const int32_t* __restrict__ src,
                                  const int32_t* __restrict__ local_dst,
                                  const uint8_t* __restrict__ mask,
-                                 uint8_t* __restrict__ out,
-                                 int width, int block) {
+                                 uint8_t* __restrict__ out, int rows_per_shard,
+                                 int width, int block, int64_t bucket_stride,
+                                 int64_t signal_stride) {
   extern __shared__ uint32_t flags[];
-  for (int b = threadIdx.x; b < block; b += blockDim.x) flags[b] = 0u;
-  __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * width;
-  for (int w = threadIdx.x; w < width; w += blockDim.x) {
-    if (mask[base + w] && signal[src[base + w]]) {
-      flags[local_dst[base + w]] = 1u;
-    }
-  }
-  __syncthreads();
-  uint8_t* row = out + static_cast<int64_t>(blockIdx.x) * block;
-  for (int b = threadIdx.x; b < block; b += blockDim.x) {
-    row[b] = flags[b] != 0u;
-  }
+  const p2p::RowRef at = p2p::row_ref(blockIdx.x, rows_per_shard, width,
+                                      bucket_stride, signal_stride);
+  p2p::segsum_or_row(signal + at.signal, src + at.slots,
+                     local_dst + at.slots, mask + at.slots,
+                     out + static_cast<int64_t>(blockIdx.x) * block, width,
+                     block, flags);
 }
 
 __global__ void segsum_sum_kernel(const float* __restrict__ signal,
                                   const int32_t* __restrict__ src,
                                   const int32_t* __restrict__ local_dst,
                                   const uint8_t* __restrict__ mask,
-                                  float* __restrict__ out,
-                                  int width, int block) {
+                                  float* __restrict__ out, int rows_per_shard,
+                                  int width, int block, int64_t bucket_stride,
+                                  int64_t signal_stride) {
   extern __shared__ float acc[];
-  for (int b = threadIdx.x; b < block; b += blockDim.x) acc[b] = 0.0f;
-  __syncthreads();
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * width;
-  for (int w = threadIdx.x; w < width; w += blockDim.x) {
-    // signal * mask, as the reference computes it: a masked slot adds a
-    // zero (skipped: +-0 never changes an accumulator that starts at +0),
-    // but a non-finite signal behind a masked slot still adds NaN.
-    const float v = signal[src[base + w]] * (mask[base + w] ? 1.0f : 0.0f);
-    if (v != 0.0f) atomicAdd(&acc[local_dst[base + w]], v);
-  }
-  __syncthreads();
-  float* row = out + static_cast<int64_t>(blockIdx.x) * block;
-  for (int b = threadIdx.x; b < block; b += blockDim.x) row[b] = acc[b];
+  const p2p::RowRef at = p2p::row_ref(blockIdx.x, rows_per_shard, width,
+                                      bucket_stride, signal_stride);
+  p2p::segsum_sum_row(signal + at.signal, src + at.slots,
+                      local_dst + at.slots, mask + at.slots,
+                      out + static_cast<int64_t>(blockIdx.x) * block, width,
+                      block, acc);
 }
 
 }  // namespace
@@ -78,30 +69,36 @@ __global__ void segsum_sum_kernel(const float* __restrict__ signal,
 extern "C" {
 
 int p2p_segsum_or(const void* signal, const void* src, const void* local_dst,
-                  const void* mask, void* out, int n_rows, int width,
-                  int block, int device, void* stream) {
+                  const void* mask, void* out, int n_shards,
+                  int rows_per_shard, int width, int block,
+                  int64_t bucket_stride, int64_t signal_stride, int device,
+                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  segsum_or_kernel<<<n_rows, kThreads, block * sizeof(uint32_t),
+  segsum_or_kernel<<<n_shards * rows_per_shard, p2p::kThreads,
+                     block * sizeof(uint32_t),
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(signal), static_cast<const int32_t*>(src),
       static_cast<const int32_t*>(local_dst),
-      static_cast<const uint8_t*>(mask), static_cast<uint8_t*>(out), width,
-      block);
+      static_cast<const uint8_t*>(mask), static_cast<uint8_t*>(out),
+      rows_per_shard, width, block, bucket_stride, signal_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
 int p2p_segsum_sum(const void* signal, const void* src, const void* local_dst,
-                   const void* mask, void* out, int n_rows, int width,
-                   int block, int device, void* stream) {
+                   const void* mask, void* out, int n_shards,
+                   int rows_per_shard, int width, int block,
+                   int64_t bucket_stride, int64_t signal_stride, int device,
+                   void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  segsum_sum_kernel<<<n_rows, kThreads, block * sizeof(float),
+  segsum_sum_kernel<<<n_shards * rows_per_shard, p2p::kThreads,
+                      block * sizeof(float),
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(signal), static_cast<const int32_t*>(src),
       static_cast<const int32_t*>(local_dst),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), width,
-      block);
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out),
+      rows_per_shard, width, block, bucket_stride, signal_stride);
   return static_cast<int>(cudaGetLastError());
 }
 

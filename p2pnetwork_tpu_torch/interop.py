@@ -1,10 +1,11 @@
-"""Carry a graph or a flood state across from the JAX package.
+"""Carry a graph, a sharded graph or a flood state across from the JAX
+package.
 
 The port imports nothing of ``p2pnetwork_tpu``; the caller turns the JAX
 objects into plain dicts of numpy arrays and ints (the dataclass fields by
 name, nested dicts for ``blocked`` and ``hybrid``) and these functions
 build the port's objects from them on ``device``. The tests use this to
-run both packages on the very same graph and state.
+run both packages on the very same graph, shards and state.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from p2pnetwork_tpu_torch.models.adaptive_flood import AdaptiveFloodState
 from p2pnetwork_tpu_torch.models.flood import FloodState
 from p2pnetwork_tpu_torch.ops.blocked import BlockedEdges
 from p2pnetwork_tpu_torch.ops.diag import HybridEdges
+from p2pnetwork_tpu_torch.parallel.mesh import RingMesh
+from p2pnetwork_tpu_torch.parallel.sharded import ShardedGraph
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 
@@ -71,3 +74,34 @@ def flood_state_from_numpy(fields: dict, device=None):
     cls = AdaptiveFloodState if "fidx" in fields else FloodState
     return cls(**{f.name: _t(fields[f.name], dev)
                   for f in dataclasses.fields(cls)})
+
+
+#: ``ShardedGraph`` fields the port does not read: carried as None.
+_SHARDED_UNPORTED = ("neighbors", "neighbors_mask", "csr_pos", "csr_offsets")
+
+
+def sharded_graph_from_numpy(fields: dict, mesh: RingMesh) -> ShardedGraph:
+    """The port's :class:`ShardedGraph` on ``mesh.device`` from a reference
+    ``ShardedGraph``'s fields: the global ``[S, ...]`` arrays (``np.asarray``
+    of a sharded JAX array gathers them), the static ints and
+    ``diag_pieces``. The neighbor table and the sender-CSR view are
+    dropped (nothing ported reads them); a live dynamic region is
+    refused."""
+    if fields.get("dyn_src") is not None:
+        raise NotImplementedError(
+            "the dynamic edge region (runtime connects) is not ported yet")
+    if fields["n_shards"] != mesh.n_shards:
+        raise ValueError(f"the fields are sharded {fields['n_shards']} ways, "
+                         f"the mesh has {mesh.n_shards} shards")
+    kw = {}
+    for f in dataclasses.fields(ShardedGraph):
+        if f.name not in fields or f.name in _SHARDED_UNPORTED:
+            continue
+        v = fields[f.name]
+        if f.name == "diag_pieces":
+            kw[f.name] = tuple((int(t), int(r)) for t, r in v)
+        elif isinstance(v, np.ndarray):
+            kw[f.name] = _t(v, mesh.device)
+        else:
+            kw[f.name] = v
+    return ShardedGraph(**kw)

@@ -26,6 +26,13 @@ Two entry points:
   against the plain version (the reference's own tolerance for its
   kernel, ``tests/test_blocked_pallas.py``).
 
+Both also take the ring's stacked form (``parallel/sharded.py``): a
+signal ``[S, B]`` and buckets ``[S, NB, W]`` give ``out [S, NB * block]``,
+shard ``d``'s rows reading ``signal[d]``, in one launch. The buckets may
+be a strided slice (``[:, t]`` of the ring's ``[S, S, NB, W]`` arrays):
+the kernel takes the shard stride, so no copy is made; each shard's
+``[NB, W]`` rows must be contiguous.
+
 A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
 tensor goes to the plain version. ``LAUNCHES`` counts kernel launches.
 """
@@ -54,30 +61,88 @@ def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
         lib = _build.library()
-        p, i = ctypes.c_void_p, ctypes.c_int
+        p, i, q = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         for fn in (lib.p2p_segsum_or, lib.p2p_segsum_sum):
-            fn.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            fn.argtypes = [p, p, p, p, p, i, i, i, i, q, q, i, p]
             fn.restype = i
         _bound = lib
     return _bound
 
 
+def _gather(signal, src):
+    """``signal[src]``, per shard for a stacked ``[S, B]`` signal."""
+    if signal.dim() == 1:
+        return signal[src]
+    flat = src.reshape(src.shape[0], -1).long()
+    return signal.gather(1, flat).reshape(src.shape)
+
+
+def _reduce(contrib, local_dst, block: int) -> torch.Tensor:
+    """``out[..., n, b] = sum_w contrib[..., n, w] * (local_dst == b)``,
+    flattened to ``[..., NB * block]``."""
+    out = torch.zeros(*contrib.shape[:-1], block, dtype=contrib.dtype,
+                      device=contrib.device)
+    out.scatter_add_(-1, local_dst.long(), contrib)
+    return out.flatten(-2)
+
+
 def segsum_or_plain(signal, src, local_dst, mask, block: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`segsum_or`: bool[NB * block]."""
-    contrib = (signal[src] & mask).to(torch.float32)
-    out = torch.zeros(src.shape[0], block, dtype=torch.float32,
-                      device=src.device)
-    out.scatter_add_(1, local_dst.long(), contrib)
-    return (out > 0).reshape(-1)
+    """Plain PyTorch version of :func:`segsum_or`: bool[NB * block], or
+    bool[S, NB * block] for a stacked signal."""
+    contrib = (_gather(signal, src) & mask).to(torch.float32)
+    return _reduce(contrib, local_dst, block) > 0
 
 
 def segsum_sum_plain(signal, src, local_dst, mask, block: int) -> torch.Tensor:
-    """Plain PyTorch version of :func:`segsum_sum`: f32[NB * block]."""
-    contrib = signal[src] * mask.to(signal.dtype)
-    out = torch.zeros(src.shape[0], block, dtype=signal.dtype,
-                      device=src.device)
-    out.scatter_add_(1, local_dst.long(), contrib)
-    return out.reshape(-1)
+    """Plain PyTorch version of :func:`segsum_sum`: f32[NB * block], or
+    f32[S, NB * block] for a stacked signal."""
+    contrib = _gather(signal, src) * mask.to(signal.dtype)
+    return _reduce(contrib, local_dst, block)
+
+
+def bucket_geometry(name: str, signal, src, local_dst, mask, block: int):
+    """Check a kernel's operands (device, dtypes, shapes, layout) and
+    return ``(n_shards, rows_per_shard, width, bucket_stride,
+    signal_stride)`` in elements. A 1-D signal with ``[NB, W]`` buckets is
+    one shard; a ``[S, B]`` signal takes ``[S, NB, W]`` buckets whose
+    per-shard rows are contiguous (any shard stride). The device type is
+    checked last, so every other refusal shows on ``meta`` tensors."""
+    dev = signal.device
+    for t, what in ((src, "src"), (local_dst, "local_dst"), (mask, "mask")):
+        if t.device != dev:
+            raise ValueError(f"{name}: {what} is on {t.device}, signal on {dev}")
+    if src.dtype != torch.int32 or src.dim() != signal.dim() + 1:
+        raise ValueError(f"{name}: src must be i32[NB, W] for a 1-D signal "
+                         f"or i32[S, NB, W] for an [S, B] one")
+    if local_dst.dtype != torch.int32 or local_dst.shape != src.shape:
+        raise ValueError(f"{name}: local_dst must be i32 of src's shape")
+    if mask.dtype != torch.bool or mask.shape != src.shape:
+        raise ValueError(f"{name}: mask must be bool of src's shape")
+    if not 0 < block <= MAX_BLOCK:
+        raise ValueError(f"{name}: block must be in [1, {MAX_BLOCK}], got {block}")
+    if not signal.is_contiguous():
+        raise ValueError(f"{name}: signal must be contiguous")
+    if signal.dim() == 1:
+        if not all(t.is_contiguous() for t in (src, local_dst, mask)):
+            raise ValueError(f"{name}: operands must be contiguous")
+        nb, w = src.shape
+        geometry = 1, nb, w, nb * w, 0
+    elif signal.dim() != 2 or src.shape[0] != signal.shape[0]:
+        raise ValueError(f"{name}: a stacked signal is [S, B] with "
+                         f"[S, NB, W] buckets, got {tuple(signal.shape)} and "
+                         f"{tuple(src.shape)}")
+    else:
+        s, nb, w = src.shape
+        strides = src.stride()
+        if local_dst.stride() != strides or mask.stride() != strides or (
+                nb > 1 and strides[1] != w) or (w > 1 and strides[2] != 1):
+            raise ValueError(f"{name}: each shard's [NB, W] rows must be "
+                             f"contiguous, with one stride for src, "
+                             f"local_dst and mask")
+        geometry = s, nb, w, strides[0], signal.stride(0)
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expected CPU or CUDA tensors, got {dev}")
+    return geometry
 
 
 def _launch(name: str, signal, src, local_dst, mask, block: int,
@@ -85,33 +150,20 @@ def _launch(name: str, signal, src, local_dst, mask, block: int,
     """Check the operands, allocate the output and launch the kernel on
     the current stream."""
     global LAUNCHES
+    if signal.dtype != signal_dtype:
+        raise ValueError(f"{name}: signal must be {signal_dtype}, got "
+                         f"{signal.dtype}")
+    s, nb, w, bucket_stride, signal_stride = bucket_geometry(
+        name, signal, src, local_dst, mask, block)
     dev = signal.device
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: expected CPU or CUDA tensors, got {dev}")
-    for t, what in ((src, "src"), (local_dst, "local_dst"), (mask, "mask")):
-        if t.device != dev:
-            raise ValueError(f"{name}: {what} is on {t.device}, signal on {dev}")
-    if signal.dtype != signal_dtype or signal.dim() != 1:
-        raise ValueError(f"{name}: signal must be 1-D {signal_dtype}, got "
-                         f"{signal.dtype} of shape {tuple(signal.shape)}")
-    if src.dim() != 2 or src.dtype != torch.int32:
-        raise ValueError(f"{name}: src must be i32[NB, W]")
-    if local_dst.dtype != torch.int32 or local_dst.shape != src.shape:
-        raise ValueError(f"{name}: local_dst must be i32 of src's shape")
-    if mask.dtype != torch.bool or mask.shape != src.shape:
-        raise ValueError(f"{name}: mask must be bool of src's shape")
-    if not 0 < block <= MAX_BLOCK:
-        raise ValueError(f"{name}: block must be in [1, {MAX_BLOCK}], got {block}")
-    if not all(t.is_contiguous() for t in (signal, src, local_dst, mask)):
-        raise ValueError(f"{name}: operands must be contiguous")
-    nb, w = src.shape
-    out = torch.empty(nb * block, dtype=out_dtype, device=dev)
-    if nb == 0:
+    out = torch.empty(*src.shape[:-2], nb * block, dtype=out_dtype, device=dev)
+    if s * nb == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_lib(), "p2p_" + name)(
         signal.data_ptr(), src.data_ptr(), local_dst.data_ptr(),
-        mask.data_ptr(), out.data_ptr(), nb, w, block, dev.index or 0, stream)
+        mask.data_ptr(), out.data_ptr(), s, nb, w, block, bucket_stride,
+        signal_stride, dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
     LAUNCHES += 1
@@ -120,7 +172,8 @@ def _launch(name: str, signal, src, local_dst, mask, block: int,
 
 def segsum_or(signal, src, local_dst, mask, block: int) -> torch.Tensor:
     """``out[n*block + b] = any(signal[src[n, w]] & mask[n, w]
-    for w with local_dst[n, w] == b)`` — bool[NB * block]."""
+    for w with local_dst[n, w] == b)`` — bool[NB * block], or
+    bool[S, NB * block] for a stacked ``[S, B]`` signal."""
     if signal.device.type == "cpu":
         return segsum_or_plain(signal, src, local_dst, mask, block)
     return _launch("segsum_or", signal, src, local_dst, mask, block,
@@ -129,7 +182,8 @@ def segsum_or(signal, src, local_dst, mask, block: int) -> torch.Tensor:
 
 def segsum_sum(signal, src, local_dst, mask, block: int) -> torch.Tensor:
     """``out[n*block + b] = sum(signal[src[n, w]] * mask[n, w]
-    for w with local_dst[n, w] == b)`` — f32[NB * block]."""
+    for w with local_dst[n, w] == b)`` — f32[NB * block], or
+    f32[S, NB * block] for a stacked ``[S, B]`` signal."""
     if signal.device.type == "cpu":
         return segsum_sum_plain(signal, src, local_dst, mask, block)
     return _launch("segsum_sum", signal, src, local_dst, mask, block,

@@ -11,6 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from p2pnetwork_tpu_torch import _device, interop  # noqa: E402
+from p2pnetwork_tpu_torch.parallel.mesh import ring_mesh  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -42,12 +43,15 @@ def test_no_jax_or_reference_imports(path):
 def test_the_walk_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"graph.py", "engine.py", "segsum.py", "adaptive_flood.py",
-            "interop.py", "chip_smoke.py"} <= names
+            "interop.py", "chip_smoke.py", "ring.py", "sharded.py",
+            "mesh.py", "auto.py"} <= names
+    assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
 def test_import_leaves_jax_unloaded():
     code = ("import sys, p2pnetwork_tpu_torch.sim.engine, "
             "p2pnetwork_tpu_torch.models.adaptive_flood, "
+            "p2pnetwork_tpu_torch.parallel.sharded, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'p2pnetwork_tpu')]; "
@@ -62,7 +66,9 @@ def test_import_leaves_jax_unloaded():
     lambda: TG.from_edges([0], [1], 2, device="cuda"),
     lambda: interop.graph_from_numpy({}),
     lambda: _device.resolve(None),
-], ids=["default-device", "explicit-cuda", "interop", "resolve"])
+    lambda: ring_mesh(8),
+], ids=["default-device", "explicit-cuda", "interop", "resolve",
+        "ring-mesh"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")

@@ -96,3 +96,177 @@ def test_kernel_matches_plain_on_card(nb, w, block):
     xi = torch.round(x * 8)
     assert torch.equal(segsum.segsum_sum(xi, src, dst, mask, block),
                        segsum.segsum_sum_plain(xi, src, dst, mask, block))
+
+
+# ---------------------------------------------------------------- the ring
+#
+# Kernels B2 (``ring.ring_shift``) and B3 (``ring.ring_segment_sum_*``) and
+# B1's stacked-shard entry, on the ring's layout: buckets are the strided
+# step slice ``[:, t]`` of ``[S, S, NB, W]`` arrays. The hop and OR are
+# bit-exact; B3's f32 sum has B1's tolerance (shared-memory atomics).
+
+from p2pnetwork_tpu_torch.ops import ring  # noqa: E402
+
+
+def _ring_buckets(rng, s, nb, w, block, b, step=1):
+    """Bucket ``step`` of random ``[S, S, NB, W]`` ring arrays (strided
+    views, as the ring passes them) and a bool/f32/int-valued ``rot``."""
+    src = torch.from_numpy(rng.integers(0, b, (s, s, nb, w)).astype(np.int32))
+    dst = torch.from_numpy(
+        rng.integers(0, block, (s, s, nb, w)).astype(np.int32))
+    mask = torch.from_numpy(rng.random((s, s, nb, w)) < 0.7)
+    flags = torch.from_numpy(rng.random((s, b)) < 0.3)
+    vals = torch.from_numpy(rng.standard_normal((s, b)).astype(np.float32))
+    ints = torch.from_numpy(rng.integers(-8, 8, (s, b)).astype(np.float32))
+    return (src[:, step], dst[:, step], mask[:, step]), flags, vals, ints
+
+
+def _loop_ring_segsum(rot, src, dst, mask, block):
+    rot, src, dst, mask = (t.numpy() for t in (rot, src, dst, mask))
+    s, nb, _ = src.shape
+    out = np.stack([_loop_segsum(rot[d].astype(np.float64), src[d], dst[d],
+                                 mask[d], block) for d in range(s)])
+    return out.reshape(s, nb * block)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bool, (8, 48)), (torch.float32, (3, 37)), (torch.int32, (5, 2, 7)),
+])
+def test_ring_shift_plain_matches_a_loop(reverse, dtype, shape):
+    x = torch.arange(int(np.prod(shape))).reshape(shape).to(dtype)
+    got = ring.ring_shift(x, reverse=reverse)
+    s = shape[0]
+    for d in range(s):
+        src = (d + 1) % s if reverse else (d - 1) % s
+        assert torch.equal(got[d], x[src])
+
+
+def test_ring_shift_single_shard_is_identity():
+    x = torch.arange(8.0)[None]
+    assert ring.ring_shift(x) is x and ring.ring_shift(x, reverse=True) is x
+
+
+@pytest.mark.parametrize("block", [128, 512])
+def test_ring_segment_sum_plain_matches_a_loop(block):
+    rng = np.random.default_rng(block + 1)
+    (src, dst, mask), flags, _, ints = _ring_buckets(rng, 4, 3, 256, block, 96)
+    rot_next, got = ring.ring_segment_sum_or(flags, src, dst, mask, block)
+    assert torch.equal(rot_next, torch.roll(flags, 1, 0))
+    np.testing.assert_array_equal(
+        got.numpy(), _loop_ring_segsum(flags, src, dst, mask, block) > 0)
+    rot_next, got = ring.ring_segment_sum_sum(ints, src, dst, mask, block)
+    assert torch.equal(rot_next, torch.roll(ints, 1, 0))
+    np.testing.assert_array_equal(
+        got.numpy(), _loop_ring_segsum(ints, src, dst, mask, block))
+
+
+def test_stacked_segsum_plain_matches_per_shard_calls():
+    rng = np.random.default_rng(5)
+    (src, dst, mask), flags, vals, _ = _ring_buckets(rng, 3, 2, 128, 128, 64)
+    assert not src.is_contiguous()  # the ring's strided step slice
+    got_or = segsum.segsum_or(flags, src, dst, mask, 128)
+    got_sum = segsum.segsum_sum(vals, src, dst, mask, 128)
+    for d in range(3):
+        args = (src[d].contiguous(), dst[d].contiguous(), mask[d].contiguous())
+        assert torch.equal(got_or[d], segsum.segsum_or(flags[d], *args, 128))
+        assert torch.equal(got_sum[d], segsum.segsum_sum(vals[d], *args, 128))
+
+
+@pytest.mark.parametrize("rot", [torch.zeros(1, 64, dtype=torch.bool),
+                                 torch.zeros(64, dtype=torch.bool)],
+                         ids=["one-shard", "no-shard-axis"])
+def test_ring_segment_sum_refuses_fewer_than_two_shards(rot):
+    b = torch.zeros(1, 1, 128, dtype=torch.int32)
+    with pytest.raises(ValueError, match="ring of >= 2"):
+        ring.ring_segment_sum_or(rot, b, b, b.bool(), 128)
+
+
+def _meta(*shape, dtype):
+    return torch.zeros(*shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("call,match", [
+    (lambda: ring.ring_shift(_meta(4, 8, dtype=torch.bool)), "CPU or CUDA"),
+    (lambda: ring.ring_shift(_meta(8, 4, dtype=torch.bool).t()),
+     "contiguous"),
+    (lambda: ring.ring_segment_sum_or(
+        _meta(4, 64, dtype=torch.bool), _meta(4, 2, 128, dtype=torch.int32),
+        _meta(4, 2, 128, dtype=torch.int32),
+        _meta(4, 2, 128, dtype=torch.bool), 128), "CPU or CUDA"),
+    (lambda: ring.ring_segment_sum_sum(
+        _meta(4, 64, dtype=torch.bool), _meta(4, 2, 128, dtype=torch.int32),
+        _meta(4, 2, 128, dtype=torch.int32),
+        _meta(4, 2, 128, dtype=torch.bool), 128), "must be torch.float32"),
+    (lambda: ring.ring_segment_sum_or(
+        _meta(4, 64, dtype=torch.bool),
+        _meta(4, 128, 2, dtype=torch.int32).transpose(1, 2),
+        _meta(4, 128, 2, dtype=torch.int32).transpose(1, 2),
+        _meta(4, 128, 2, dtype=torch.bool).transpose(1, 2), 128),
+     "rows must be contiguous"),
+    (lambda: segsum.segsum_or(
+        _meta(4, 64, dtype=torch.bool), _meta(3, 2, 128, dtype=torch.int32),
+        _meta(3, 2, 128, dtype=torch.int32),
+        _meta(3, 2, 128, dtype=torch.bool), 128), "stacked signal"),
+    (lambda: segsum.segsum_sum(
+        _meta(64, dtype=torch.float32), _meta(2, 2, 128, dtype=torch.int32),
+        _meta(2, 2, 128, dtype=torch.int32),
+        _meta(2, 2, 128, dtype=torch.bool), 128), "src must be"),
+], ids=["shift-device", "shift-layout", "segsum-device", "segsum-dtype",
+        "segsum-rows", "stacked-shards", "stacked-dims"])
+def test_ring_wrappers_refuse_what_the_kernels_do_not_take(call, match):
+    with pytest.raises(ValueError, match=match):
+        call()
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc (run via chip_smoke.py)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.bool, (8, 125008)), (torch.float32, (8, 125008)),
+    (torch.uint8, (3, 37)), (torch.int32, (5, 7)), (torch.int32, (8, 3, 64)),
+], ids=["bool-1M", "f32-1M", "bytes", "words", "lanes"])
+def test_ring_shift_kernel_matches_plain_on_card(reverse, dtype, shape):
+    _card()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randint(0, 100, shape, generator=g, device="cuda").to(dtype)
+    before = ring.SHIFT_LAUNCHES
+    got = ring.ring_shift(x, reverse=reverse)
+    assert ring.SHIFT_LAUNCHES == before + 1
+    assert torch.equal(got, ring.ring_shift_plain(x, reverse=reverse))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s,nb,w,block,b", [(8, 4, 640, 512, 2000),
+                                            (3, 5, 256, 128, 300)])
+def test_ring_segment_sum_kernel_matches_plain_on_card(s, nb, w, block, b):
+    _card()
+    rng = np.random.default_rng(s)
+    (src, dst, mask), flags, vals, ints = (
+        tuple(t.cuda() for t in x) if isinstance(x, tuple) else x.cuda()
+        for x in _ring_buckets(rng, s, nb, w, block, b))
+    before = ring.SEGSUM_LAUNCHES
+    got = ring.ring_segment_sum_or(flags, src, dst, mask, block)
+    assert ring.SEGSUM_LAUNCHES == before + 1
+    want = ring.ring_segment_sum_or_plain(flags, src, dst, mask, block)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    got = ring.ring_segment_sum_sum(vals, src, dst, mask, block)
+    want = ring.ring_segment_sum_sum_plain(vals, src, dst, mask, block)
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+    got = ring.ring_segment_sum_sum(ints, src, dst, mask, block)
+    want = ring.ring_segment_sum_sum_plain(ints, src, dst, mask, block)
+    assert torch.equal(got[1], want[1])
+    # B1's stacked entry on the same strided buckets.
+    before = segsum.LAUNCHES
+    assert torch.equal(segsum.segsum_or(flags, src, dst, mask, block),
+                       segsum.segsum_or_plain(flags, src, dst, mask, block))
+    torch.testing.assert_close(
+        segsum.segsum_sum(vals, src, dst, mask, block),
+        segsum.segsum_sum_plain(vals, src, dst, mask, block),
+        rtol=RTOL, atol=ATOL)
+    assert segsum.LAUNCHES == before + 2
