@@ -17,12 +17,23 @@ Phases, in order; any failure exits non-zero before the result line:
      entry on the ring's hybrid buckets ``[8, 245, 128]`` (a strided step
      slice). OR bit-equal, f32 sum within ``rtol = atol = 1e-5``, exact on
      integer values. Library call: ``scatter_add_`` on pre-gathered terms.
+     Beside the two single-device layouts, ``local_src_ms``: the same rows
+     with sources drawn from ``LOCAL_SOURCES`` nodes, whose gathers stay
+     in L1/L2 (the gap to ``ms`` is the cost of gathers spread over the
+     whole signal).
    - B2, the ring hop, on bool and f32 ``[8, 125008]``, both directions:
      bit-equal. Library call: ``torch.roll``.
    - B3, the fused ring step, on ``rot [8, 125008]`` with the ``mxu``
      layout's buckets ``[8, 245, 4864]``, block 512: OR and ``rot_next``
      bit-equal, sum within tolerance, integer sum exact. Library call:
      ``scatter_add_`` on pre-gathered terms.
+   Then the row engine's edge geometries, each against its plain version
+   (OR bit-equal, integer sums exact, f32 sums within tolerance): B1 at
+   an odd width (1407), rows not 16-byte aligned, narrow rows (W = 128,
+   32), ``block`` 1 and ``MAX_BLOCK``, row counts that leave the
+   persistent grid's last block one row, and a strided, unaligned stacked
+   slice (with B3); B2 at per-shard sizes that are not multiples of 16
+   bytes, both directions.
 4. Main path: the 1M-node Watts–Strogatz graph flooded from node 0 to 99%
    coverage by ``run_until_coverage`` with ``Flood(pallas)``,
    ``Flood(hybrid)``, ``AdaptiveFlood(hybrid, k=1024)`` and ``k=2048``.
@@ -90,6 +101,31 @@ HBM_BYTES_PER_S = 3.35e12
 VECTOR_OPS_PER_S = 67e12
 
 RTOL = ATOL = 1e-5
+
+#: B1's edge geometries (label, NB, W, block, offset in elements of the
+#: rows into their buffers). At block 1 a row's ~26 live slots all sum
+#: into one element, about the blocked layout's 10 terms per output: a
+#: row of hundreds of N(0, 1) terms would leave f32 rounding of an
+#: unordered sum above rtol = atol = 1e-5 on either side. Row counts 2 * 132 * m - 1 leave the
+#: persistent grid's last block one row whatever the residency m (blocks
+#: per SM, at most 8) on 132 SMs; 132 * m + 1 give its first block one row
+#: more than the others.
+B1_EDGES = [("odd-width", 300, 1407, 128, 0),
+            ("rows-unaligned", 300, 1408, 128, 1),
+            ("mask-unaligned", 300, 1408, 128, 4),
+            ("narrow-128", 245, 128, 512, 0),
+            ("narrow-32", 245, 32, 512, 0),
+            ("block-1", 64, 32, 1, 0),
+            ("block-max", 64, 640, None, 0),
+            ("block-max-narrow", 64, 128, None, 0),
+            *[(f"grid-last-one-{m}", 2 * 132 * m - 1, 640, 128, 0)
+              for m in range(1, 9)],
+            *[(f"grid-first-extra-{m}", 132 * m + 1, 640, 128, 0)
+              for m in range(1, 9)]]
+#: B2's per-shard payloads that are not multiples of 16 bytes.
+B2_EDGES = [(torch.bool, (RING_SHARDS, RING_BLOCK - 1)),
+            (torch.uint8, (RING_SHARDS, 17)),
+            (torch.int32, (RING_SHARDS, 3, 31))]
 
 
 def fail(msg: str):
@@ -246,6 +282,11 @@ def ring_kernel_phase(ring, segsum, flush):
     return rows, max_err
 
 
+#: Sources drawn from this many nodes only, for ``local_src_ms``: the
+#: same rows with gathers that stay in L1/L2.
+LOCAL_SOURCES = 4096
+
+
 def kernel_phase(segsum, flush):
     """Phase 3: kernel vs plain version at the main path's layouts."""
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -281,6 +322,7 @@ def kernel_phase(segsum, flush):
         contrib_sum = x[src] * mask.to(torch.float32)
         lib_out = torch.zeros(nb, block, device=dev)
         dst64 = dst.long()
+        local_src = src % LOCAL_SOURCES
         live_slots = int(mask.sum().item())
         for entry, sig, sig_bytes, out_bytes, contrib in (
                 ("or", flags, N_PAD, nb * block, contrib_or),
@@ -297,9 +339,99 @@ def kernel_phase(segsum, flush):
                 "library_ms": cuda_times(
                     lambda: lib_out.scatter_add_(1, dst64, contrib), 50,
                     flush),
+                "local_src_ms": cuda_times(
+                    lambda: kernel(sig, local_src, dst, mask, block), 50,
+                    flush),
                 "bound_ms": least, "bound_by": bound_by,
             })
     return rows, max_err
+
+
+def check_b1(segsum, label, flags, x, xi, src, dst, mask, block) -> float:
+    """B1 (single or stacked) against its plain version on one geometry:
+    OR bit-equal, f32 sum within tolerance, integer-valued sum exact.
+    Returns the sum's max abs error."""
+    args = (src, dst, mask, block)
+    if not torch.equal(segsum.segsum_or(flags, *args),
+                       segsum.segsum_or_plain(flags, *args)):
+        fail(f"segsum_or differs from its plain version ({label})")
+    got, want = segsum.segsum_sum(x, *args), segsum.segsum_sum_plain(x, *args)
+    err = (got - want).abs().max().item() if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        fail(f"segsum_sum outside rtol=atol={RTOL} ({label}): {err}")
+    if not torch.equal(segsum.segsum_sum(xi, *args),
+                       segsum.segsum_sum_plain(xi, *args)):
+        fail(f"segsum_sum inexact on integer values ({label})")
+    return err
+
+
+def edge_phase(ring, segsum) -> dict:
+    """Phase 3, the row engine's edge geometries and B2's odd payloads,
+    each against its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    dev = torch.device("cuda")
+    flags = torch.rand(N_PAD, generator=gen, device=dev) < 0.1
+    x = torch.randn(N_PAD, generator=gen, device=dev)
+    xi = torch.randint(-8, 8, (N_PAD,), generator=gen,
+                       device=dev).to(torch.float32)
+    errs = {}
+    for label, nb, w, block, offset in B1_EDGES:
+        block = block or segsum.MAX_BLOCK
+
+        def rows(t):  # contiguous [nb, w] rows `offset` elements in
+            flat = torch.empty(offset + nb * w, dtype=t.dtype, device=dev)
+            flat[offset:] = t.reshape(-1)
+            return flat[offset:].view(nb, w)
+
+        src = rows(torch.randint(0, N_PAD, (nb, w), generator=gen,
+                                 device=dev, dtype=torch.int32))
+        dst = rows(torch.randint(0, block, (nb, w), generator=gen,
+                                 device=dev, dtype=torch.int32))
+        mask = rows(torch.rand(nb, w, generator=gen, device=dev) < 0.8)
+        errs[label] = check_b1(segsum, label, flags, x, xi, src, dst, mask,
+                               block)
+
+    # A stacked step slice [:, 1] of [3, 3, 5, 130] buckets: W = 130 and
+    # the slice 650 elements in, so no row is 16-byte aligned. B1's
+    # stacked entry and B3.
+    s, nb, w, block, b = 3, 5, 130, 128, 300
+    shape = (s, s, nb, w)
+    src = torch.randint(0, b, shape, generator=gen, device=dev,
+                        dtype=torch.int32)[:, 1]
+    dst = torch.randint(0, block, shape, generator=gen, device=dev,
+                        dtype=torch.int32)[:, 1]
+    mask = (torch.rand(shape, generator=gen, device=dev) < 0.7)[:, 1]
+    rot = torch.rand(s, b, generator=gen, device=dev) < 0.3
+    rx = torch.randn(s, b, generator=gen, device=dev)
+    rxi = torch.randint(-8, 8, (s, b), generator=gen,
+                        device=dev).to(torch.float32)
+    errs["stacked-unaligned"] = check_b1(segsum, "stacked-unaligned", rot,
+                                         rx, rxi, src, dst, mask, block)
+    for entry, sig in (("or", rot), ("sum", rx), ("sum", rxi)):
+        fn = getattr(ring, f"ring_segment_sum_{entry}")
+        plain = getattr(ring, f"ring_segment_sum_{entry}_plain")
+        (nxt, got), (want_nxt, want) = (fn(sig, src, dst, mask, block),
+                                        plain(sig, src, dst, mask, block))
+        exact = entry == "or" or sig is rxi
+        if not torch.equal(nxt, want_nxt) or (
+                exact and not torch.equal(got, want)) or not torch.allclose(
+                    got.float(), want.float(), rtol=RTOL, atol=ATOL):
+            fail(f"ring_segment_sum_{entry} differs from its plain version "
+                 f"(stacked-unaligned)")
+
+    for dtype, shape in B2_EDGES:
+        xs = torch.randint(0, 100, shape, generator=gen,
+                           device=dev).to(dtype)
+        for reverse in (False, True):
+            if not torch.equal(ring.ring_shift(xs, reverse=reverse),
+                               ring.ring_shift_plain(xs, reverse=reverse)):
+                fail(f"ring_shift differs from its plain version on "
+                     f"{dtype} {list(shape)} (reverse={reverse})")
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "edges", "b1_sum_max_abs_err": errs,
+                      "b2": [[str(d), list(sh)] for d, sh in B2_EDGES]}),
+          flush=True)
+    return errs
 
 
 def main_path(engine, segsum, device_mod, graph_mod, models):
@@ -478,7 +610,7 @@ def profile_run(run) -> dict:
             "segsum_us": sum(us for us, k, _ in rows
                              if "segsum" in k and "ring" not in k),
             "ring_us": sum(us for us, k, _ in rows if "ring_" in k),
-            "top": [{"kernel": k[:60], "us": us, "count": c}
+            "top": [{"kernel": k[:100], "us": us, "count": c}
                     for us, k, c in rows[:6]]}
 
 
@@ -510,12 +642,13 @@ def main() -> int:
                       "seconds": _build.LAST_BUILD["seconds"],
                       "compiled": _build.LAST_BUILD["compiled"]}), flush=True)
 
-    # 3. Kernel vs plain version.
+    # 3. Kernel vs plain version, edge geometries.
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
     rows, max_err = kernel_phase(segsum, flush)
     ring_rows, ring_err = ring_kernel_phase(ring, segsum, flush)
     for row in rows + ring_rows:
         print(json.dumps({"phase": "kernel", **row}), flush=True)
+    edge_phase(ring, segsum)
     del flush
 
     # 4. Main path.

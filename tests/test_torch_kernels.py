@@ -75,14 +75,55 @@ def test_wrapper_refuses_other_devices():
                          torch.zeros(1, 4, dtype=torch.bool, **meta), 128)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("nb,w,block", [(1954, 640, 512), (7813, 1408, 128)])
-def test_kernel_matches_plain_on_card(nb, w, block):
+#: Row counts around the row engine's persistent grid: whatever the
+#: card's residency m (blocks per SM, at most 8) on its 132 SMs, one count
+#: 2 * 132 * m - 1 leaves the grid's last block one row, and one count
+#: 132 * m + 1 gives its first block a row more than every other.
+_GRID_EDGES = ([(2 * 132 * m - 1, 640, 128, 0) for m in range(1, 9)]
+               + [(132 * m + 1, 640, 128, 0) for m in range(1, 9)])
+
+
+def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (run via chip_smoke.py)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,w,block,offset", [
+    pytest.param(1954, 640, 512, 0, id="1954-640-512"),
+    pytest.param(7813, 1408, 128, 0, id="7813-1408-128"),
+    (5, 7, 128, 0), (9, 33, 128, 0), (300, 1407, 128, 0),
+    (300, 1408, 128, 1), (300, 1408, 128, 4),
+    (245, 128, 512, 0), (245, 32, 512, 0), (50, 4864, 512, 0),
+    (64, 32, 1, 0), (64, 24, 1, 0), (64, 640, 1, 0), (64, 1408, 1, 0),
+    (64, 640, 512, 0),
+    (64, 640, segsum.MAX_BLOCK, 0), (64, 128, segsum.MAX_BLOCK, 0),
+    (1, 1408, 128, 0), (3, 1408, 128, 0), (4, 1408, 128, 0),
+    (7, 1408, 128, 0), (2111, 128, 512, 0), (8447, 128, 512, 0),
+    *_GRID_EDGES,
+], ids=lambda v: str(v))
+def test_kernel_matches_plain_on_card(nb, w, block, offset):
+    # offset: the rows start `offset` elements into their buffers, so a
+    # nonzero one leaves them unaligned (1: the scalar path; 4: src 16-byte
+    # aligned but mask not). block = 1 sums a whole row into one element,
+    # so every thread of a row group (W = 640: 128 threads; W = 1408: the
+    # whole 256-thread block) adds into one shared address. The narrow
+    # block = 1 rows (~20-26 live slots, as many terms per output as the
+    # blocked layout's) are held to the f32 tolerance too; the wide ones
+    # (~500-1,100 terms of N(0, 1) per output) are not, since f32 rounding
+    # of an unordered sum that long leaves outputs near zero outside
+    # rtol = atol = 1e-5 on either side: OR and integer values hold them.
+    _card()
     rng = np.random.default_rng(nb)
     n_pad = 1_000_064
-    src, dst, mask = (torch.from_numpy(a).cuda()
+
+    def on_card(a):
+        flat = torch.zeros(offset + a.size, dtype=torch.from_numpy(a).dtype,
+                           device="cuda")
+        flat[offset:] = torch.from_numpy(a.reshape(-1)).cuda()
+        return flat[offset:].view(a.shape)
+
+    src, dst, mask = (on_card(a)
                       for a in _random_layout(rng, nb, w, block, n_pad))
     sig = torch.from_numpy(rng.random(n_pad) < 0.1).cuda()
     before = segsum.LAUNCHES
@@ -90,9 +131,11 @@ def test_kernel_matches_plain_on_card(nb, w, block):
     assert segsum.LAUNCHES == before + 1
     assert torch.equal(got, segsum.segsum_or_plain(sig, src, dst, mask, block))
     x = torch.from_numpy(rng.standard_normal(n_pad).astype(np.float32)).cuda()
-    torch.testing.assert_close(segsum.segsum_sum(x, src, dst, mask, block),
-                               segsum.segsum_sum_plain(x, src, dst, mask, block),
-                               rtol=RTOL, atol=ATOL)
+    if block > 1 or w <= 64:
+        torch.testing.assert_close(
+            segsum.segsum_sum(x, src, dst, mask, block),
+            segsum.segsum_sum_plain(x, src, dst, mask, block),
+            rtol=RTOL, atol=ATOL)
     xi = torch.round(x * 8)
     assert torch.equal(segsum.segsum_sum(xi, src, dst, mask, block),
                        segsum.segsum_sum_plain(xi, src, dst, mask, block))
@@ -219,17 +262,17 @@ def test_ring_wrappers_refuse_what_the_kernels_do_not_take(call, match):
         call()
 
 
-def _card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card and nvcc (run via chip_smoke.py)")
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype,shape", [
     (torch.bool, (8, 125008)), (torch.float32, (8, 125008)),
     (torch.uint8, (3, 37)), (torch.int32, (5, 7)), (torch.int32, (8, 3, 64)),
-], ids=["bool-1M", "f32-1M", "bytes", "words", "lanes"])
+    (torch.uint8, (8, 1)), (torch.uint8, (8, 15)), (torch.uint8, (8, 17)),
+    (torch.bool, (8, 125007)), (torch.float32, (8, 3, 33)),
+    (torch.int32, (3, 2, 31)),
+], ids=["bool-1M", "f32-1M", "bytes", "words", "lanes", "shard-1B",
+        "shard-15B", "shard-17B", "shard-125007B", "f32-lanes",
+        "i32-lanes"])
 def test_ring_shift_kernel_matches_plain_on_card(reverse, dtype, shape):
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -241,26 +284,36 @@ def test_ring_shift_kernel_matches_plain_on_card(reverse, dtype, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("s,nb,w,block,b", [(8, 4, 640, 512, 2000),
-                                            (3, 5, 256, 128, 300)])
+@pytest.mark.parametrize("s,nb,w,block,b", [
+    (8, 4, 640, 512, 2000), (3, 5, 256, 128, 300),
+    (1, 4, 640, 512, 2000), (2, 7, 1408, 128, 3000), (3, 3, 528, 128, 300),
+    (3, 3, 520, 128, 300), (3, 5, 130, 128, 300), (2, 3, 1407, 128, 300),
+    (3, 5, 33, 128, 300), (2, 3, 32, 1, 50), (2, 3, 20, 1, 50),
+    (8, 245, 128, 512, 125008), (8, 245, 4864, 512, 125008),
+], ids=lambda v: str(v))
 def test_ring_segment_sum_kernel_matches_plain_on_card(s, nb, w, block, b):
+    # Step 1 of [S, S, NB, W] arrays: a strided slice, unaligned where
+    # NB * W is not a multiple of 4 (W = 130, 1407, 33). S = 1 runs B1's
+    # stacked entry alone (B3 refuses a ring of fewer than two shards).
+    # block = 1 rows are narrow, as in test_kernel_matches_plain_on_card.
     _card()
     rng = np.random.default_rng(s)
     (src, dst, mask), flags, vals, ints = (
         tuple(t.cuda() for t in x) if isinstance(x, tuple) else x.cuda()
-        for x in _ring_buckets(rng, s, nb, w, block, b))
-    before = ring.SEGSUM_LAUNCHES
-    got = ring.ring_segment_sum_or(flags, src, dst, mask, block)
-    assert ring.SEGSUM_LAUNCHES == before + 1
-    want = ring.ring_segment_sum_or_plain(flags, src, dst, mask, block)
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    got = ring.ring_segment_sum_sum(vals, src, dst, mask, block)
-    want = ring.ring_segment_sum_sum_plain(vals, src, dst, mask, block)
-    assert torch.equal(got[0], want[0])
-    torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
-    got = ring.ring_segment_sum_sum(ints, src, dst, mask, block)
-    want = ring.ring_segment_sum_sum_plain(ints, src, dst, mask, block)
-    assert torch.equal(got[1], want[1])
+        for x in _ring_buckets(rng, s, nb, w, block, b, step=min(s - 1, 1)))
+    if s >= 2:
+        before = ring.SEGSUM_LAUNCHES
+        got = ring.ring_segment_sum_or(flags, src, dst, mask, block)
+        assert ring.SEGSUM_LAUNCHES == before + 1
+        want = ring.ring_segment_sum_or_plain(flags, src, dst, mask, block)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        got = ring.ring_segment_sum_sum(vals, src, dst, mask, block)
+        want = ring.ring_segment_sum_sum_plain(vals, src, dst, mask, block)
+        assert torch.equal(got[0], want[0])
+        torch.testing.assert_close(got[1], want[1], rtol=RTOL, atol=ATOL)
+        got = ring.ring_segment_sum_sum(ints, src, dst, mask, block)
+        want = ring.ring_segment_sum_sum_plain(ints, src, dst, mask, block)
+        assert torch.equal(got[1], want[1])
     # B1's stacked entry on the same strided buckets.
     before = segsum.LAUNCHES
     assert torch.equal(segsum.segsum_or(flags, src, dst, mask, block),
@@ -269,4 +322,6 @@ def test_ring_segment_sum_kernel_matches_plain_on_card(s, nb, w, block, b):
         segsum.segsum_sum(vals, src, dst, mask, block),
         segsum.segsum_sum_plain(vals, src, dst, mask, block),
         rtol=RTOL, atol=ATOL)
-    assert segsum.LAUNCHES == before + 2
+    assert torch.equal(segsum.segsum_sum(ints, src, dst, mask, block),
+                       segsum.segsum_sum_plain(ints, src, dst, mask, block))
+    assert segsum.LAUNCHES == before + 3
