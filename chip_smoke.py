@@ -26,7 +26,8 @@ Phases, in order; any failure exits non-zero before the result line:
    - B3, the fused ring step, on ``rot [8, 125008]`` with the ``mxu``
      layout's buckets ``[8, 245, 4864]``, block 512: OR and ``rot_next``
      bit-equal, sum within tolerance, integer sum exact. Library call:
-     ``scatter_add_`` on pre-gathered terms.
+     ``scatter_add_`` on pre-gathered terms. ``extent_w_ms``: the same
+     rows given extents all W (the extent path reading every slot).
    Then the row engine's edge geometries, each against its plain version
    (OR bit-equal, integer sums exact, f32 sums within tolerance): B1 at
    an odd width (1407), rows not 16-byte aligned, narrow rows (W = 128,
@@ -34,6 +35,14 @@ Phases, in order; any failure exits non-zero before the result line:
    persistent grid's last block one row, and a strided, unaligned stacked
    slice (with B3); B2 at per-shard sizes that are not multiples of 16
    bytes, both directions.
+3b. B3 on the real buckets: after phase 4b has sharded phase 4's graph
+   with ``mxu=True``, B3 (OR and sum) on ring steps 0 (95.7% live) and 1
+   (1.3% live), sliced ``[:, t]`` as the ring pass slices them, with the
+   rows' extents (``ms``, bound over the slots up to each extent) and at
+   full width (``full_width_ms``, bound over every slot): OR and
+   ``rot_next`` bit-equal to the plain version, sum within tolerance
+   (also with NaN and inf at ``rot[d, 0]``), integer sum exact; timed as
+   in phase 3 (``kernel-real-step`` lines).
 4. Main path: the 1M-node Watts–Strogatz graph flooded from node 0 to 99%
    coverage by ``run_until_coverage`` with ``Flood(pallas)``,
    ``Flood(hybrid)``, ``AdaptiveFlood(hybrid, k=1024)`` and ``k=2048``.
@@ -49,7 +58,9 @@ Phases, in order; any failure exits non-zero before the result line:
    layout's kernels: B2 (segment), B3 and B1 (mxu), B2 and B1 (hybrid).
    On ``mxu`` one integer-valued ``propagate(op="sum")`` must equal the
    ``comm="ppermute"`` result exactly. Then wall, syncs and a profile per
-   layout, as in phase 4.
+   layout, as in phase 4; on ``mxu`` the profile splits B3's device time
+   by ring step, and a second one profiles the same flood with its rows
+   at full width (``profile_full_width``: B3 without extents).
 5. Result: a JSON line of kernel numbers, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -58,6 +69,7 @@ Without a CUDA device it exits 2 and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -159,13 +171,14 @@ def cuda_times(fn, reps: int, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
-def bound(nb, w, live_slots, signal_bytes, out_bytes):
-    """Least device time in ms and what sets it: every mask byte, the src
-    and destination of each live slot, the signal and the output once over
-    the HBM rate, or one operation per slot over the vector rate."""
-    by_bytes = (nb * w + 8 * live_slots + signal_bytes + out_bytes) \
+def bound(slots, live_slots, in_bytes, out_bytes):
+    """Least device time in ms and what sets it: the mask byte of each of
+    the ``slots`` the function must read, the src and destination of each
+    live slot, the other inputs (``in_bytes``) and the output once over
+    the HBM rate, or one operation per slot read over the vector rate."""
+    by_bytes = (slots + 8 * live_slots + in_bytes + out_bytes) \
         / HBM_BYTES_PER_S
-    by_ops = nb * w / VECTOR_OPS_PER_S
+    by_ops = slots / VECTOR_OPS_PER_S
     if by_bytes >= by_ops:
         return 1e3 * by_bytes, "bytes"
     return 1e3 * by_ops, "operations"
@@ -267,7 +280,7 @@ def ring_kernel_phase(ring, segsum, flush):
             out_bytes = RING_SHARDS * nb * block * sig.element_size()
             if kernel == "ring_segsum":  # the hop writes rot_next too
                 out_bytes += sig_bytes
-            least, bound_by = bound(RING_SHARDS * nb, w, live_slots,
+            least, bound_by = bound(RING_SHARDS * nb * w, live_slots,
                                     sig_bytes, out_bytes)
             terms = pregathered(sig, src, mask)
             rows.append({
@@ -279,6 +292,117 @@ def ring_kernel_phase(ring, segsum, flush):
                 "library_ms": cuda_times(
                     lambda: lib_out.scatter_add_(1, dst64, terms), 50, flush),
                 "bound_ms": least, "bound_by": bound_by})
+            if kernel == "ring_segsum":
+                # The same rows on the extent path, every extent W: slower
+                # here than the full-width paths a launch without extents
+                # takes (PERF.md), which is why those stay.
+                full = torch.full(src.shape[:-1], w, dtype=torch.int32,
+                                  device=dev)
+                nxt, got = fn(sig, *args, extent=full)
+                if not torch.equal(nxt, want_next) or not (
+                        torch.equal(got, want) if entry == "or" else
+                        torch.allclose(got, want, rtol=RTOL, atol=ATOL)):
+                    fail(f"ring_segment_sum_{entry} with extents W differs "
+                         f"from its plain version")
+                rows[-1]["extent_w_ms"] = cuda_times(
+                    lambda: fn(sig, *args, extent=full), 50, flush)
+    return rows, max_err
+
+
+#: The ring steps phase 3b times B3 on: the dense first and one of the
+#: sparse ones (steps 1 to S - 2 are alike; S - 1 is peeled, run by B1).
+REAL_STEPS = (0, 1)
+
+
+def real_step_phase(ring, sg) -> tuple:
+    """Phase 3b: B3 on the ring ``mxu`` layout's real buckets of
+    ``REAL_STEPS``, sliced ``[:, t]`` as the ring pass slices them, with
+    each row's extent (``ms``; ``bound_ms`` counts the slots up to each
+    row's extent and the extents) and at full width (``full_width_ms``,
+    the path of a launch without extents, beside ``full_width_bound_ms``
+    over every slot), against its plain version: OR and
+    ``rot_next`` bit-equal, sum within tolerance (NaN where the plain
+    version has it, with non-finite ``rot[d, 0]``), integer sum exact.
+    ``launch_floor_ms`` is a one-element fill timed the same way: the
+    least any launch shows here. Returns the rows and the sum's max abs
+    error."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dev = torch.device("cuda")
+    flags, x, xi = ring_signals(gen)
+    x_bad = x.clone()
+    x_bad[0::2, 0] = torch.nan
+    x_bad[1::2, 0] = torch.inf
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
+    # What any one launch takes under this timing: a one-element fill.
+    tiny = torch.zeros(1, device=dev)
+    floor_ms = cuda_times(lambda: tiny.fill_(1.0), 50, flush)
+    block = sg.mxu_block
+    rows, max_err = [], 0.0
+    for t in REAL_STEPS:
+        src, dst, mask = (a[:, t] for a in (sg.mxu_src, sg.mxu_dst,
+                                            sg.mxu_mask))
+        extent = sg.mxu_extent[:, t]
+        s, nb, w = src.shape
+        args = (src, dst, mask, block)
+        live_slots = int(mask.sum().item())
+        slots = int(extent.sum().item())
+        extent_bytes = extent.numel() * extent.element_size()
+        lib_out = torch.zeros(s * nb, block, device=dev)
+        dst64 = dst.reshape(-1, w).long()
+        for entry, sig in (("or", flags), ("sum", x)):
+            fn = getattr(ring, f"ring_segment_sum_{entry}")
+            plain = getattr(ring, f"ring_segment_sum_{entry}_plain")
+            want_next, want = plain(sig, *args)
+            for ext in (extent, None):
+                nxt, got = fn(sig, *args, extent=ext)
+                label = f"ring_segment_sum_{entry} on real step {t} " \
+                        f"({'extents' if ext is not None else 'full width'})"
+                if not torch.equal(nxt, want_next):
+                    fail(f"{label}: rot_next differs")
+                if entry == "or" and not torch.equal(got, want):
+                    fail(f"{label}: OR differs from its plain version")
+                if entry == "sum":
+                    err = (got - want).abs().max().item()
+                    max_err = max(max_err, err)
+                    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+                        fail(f"{label}: outside rtol=atol={RTOL}: {err}")
+                    if not torch.equal(fn(xi, *args, extent=ext)[1],
+                                       plain(xi, *args)[1]):
+                        fail(f"{label}: inexact on integer values")
+                    got_bad = fn(x_bad, *args, extent=ext)[1]
+                    want_bad = plain(x_bad, *args)[1]
+                    if not torch.equal(got_bad.isnan(), want_bad.isnan()) \
+                            or not torch.allclose(got_bad, want_bad, rtol=RTOL,
+                                                  atol=ATOL, equal_nan=True):
+                        fail(f"{label}: differs from its plain version with "
+                             f"a non-finite rot[d, 0]")
+            torch.cuda.synchronize()
+            sig_bytes = sig.numel() * sig.element_size()
+            out_bytes = s * nb * block * sig.element_size() + sig_bytes
+            # With extents the function reads each row only up to its
+            # extent, plus the extents themselves; at full width, every slot.
+            least, bound_by = bound(slots, live_slots,
+                                    sig_bytes + extent_bytes, out_bytes)
+            full_least, _ = bound(s * nb * w, live_slots, sig_bytes,
+                                  out_bytes)
+            terms = pregathered(sig, src, mask)
+            rows.append({
+                "kernel": "ring_segsum", "layout": "mxu", "step": t,
+                "entry": entry, "shape": [s, nb, w], "block": block,
+                "live_slots": live_slots,
+                "extent_mean": extent.float().mean().item(),
+                "extent_max": int(extent.max().item()),
+                "ms": cuda_times(lambda: fn(sig, *args, extent=extent), 50,
+                                 flush),
+                "full_width_ms": cuda_times(lambda: fn(sig, *args), 50, flush),
+                "plain_ms": cuda_times(lambda: plain(sig, *args), 20, flush),
+                "library_ms": cuda_times(
+                    lambda: lib_out.scatter_add_(1, dst64, terms), 50, flush),
+                "bound_ms": least, "bound_by": bound_by,
+                "full_width_bound_ms": full_least,
+                "launch_floor_ms": floor_ms})
+            print(json.dumps({"phase": "kernel-real-step", **rows[-1]}),
+                  flush=True)
     return rows, max_err
 
 
@@ -329,7 +453,8 @@ def kernel_phase(segsum, flush):
                 ("sum", x, 4 * N_PAD, 4 * nb * block, contrib_sum)):
             kernel = getattr(segsum, f"segsum_{entry}")
             plain = getattr(segsum, f"segsum_{entry}_plain")
-            least, bound_by = bound(nb, w, live_slots, sig_bytes, out_bytes)
+            least, bound_by = bound(nb * w, live_slots, sig_bytes,
+                                    out_bytes)
             rows.append({
                 "layout": layout, "entry": entry, "shape": [nb, w],
                 "block": block, "live_slots": live_slots,
@@ -516,10 +641,12 @@ def reset_counts(ring, segsum, device_mod) -> None:
 
 def ring_path(g, want_seen, ring, segsum, device_mod, sharded, mesh_mod):
     """Phase 4b: phase 4's graph sharded 8 ways on the card, flooded to
-    99% in each layout with the default comm. Returns each kernel's
-    launches summed over the three checked runs."""
+    99% in each layout with the default comm; phase 3b on the ``mxu``
+    shards before their flood. Returns each kernel's launches summed over
+    the three checked runs, and phase 3b's rows and max abs error."""
     mesh = mesh_mod.ring_mesh(RING_SHARDS)
     totals = dict.fromkeys(ring_counts(ring, segsum), 0)
+    step_rows, step_err = [], 0.0
     for layout, kw in RING_LAYOUTS:
         t0 = time.perf_counter()
         sg = sharded.shard_graph(g, mesh, **kw)
@@ -532,7 +659,14 @@ def ring_path(g, want_seen, ring, segsum, device_mod, sharded, mesh_mod):
             "live_slots": int(sg.bkt_mask.sum().item()),
             "mxu_live_slots": None if sg.mxu_mask is None
             else int(sg.mxu_mask.sum().item()),
+            **({} if sg.mxu_extent is None else {
+                "mxu_step_live_slots": sg.mxu_mask.sum((0, 2, 3)).tolist(),
+                "mxu_step_extent_mean":
+                    sg.mxu_extent.float().mean((0, 2)).tolist(),
+                "mxu_step_extent_max": sg.mxu_extent.amax((0, 2)).tolist()}),
             "diag_pieces": len(sg.diag_pieces)}), flush=True)
+        if layout == "mxu":
+            step_rows, step_err = real_step_phase(ring, sg)
 
         def run():
             return sharded.flood_until_coverage(
@@ -578,16 +712,35 @@ def ring_path(g, want_seen, ring, segsum, device_mod, sharded, mesh_mod):
             times.append(time.perf_counter() - t0)
         record["wall_s"] = sorted(times)[len(times) // 2]
         record["wall_s_all"] = times
-        record["profile"] = profile_run(run)
+        steps = RING_SHARDS - 1 if layout == "mxu" else None
+        record["profile"] = profile_run(run, ring_steps=steps)
+        if layout == "mxu":
+            # The same flood with every row at full width (no extents):
+            # B3 on the paths of a launch without them.
+            full = dataclasses.replace(sg, mxu_extent=None)
+
+            def run_full():
+                return sharded.flood_until_coverage(
+                    full, mesh, 0, coverage_target=0.99, max_rounds=64)
+
+            seen_full, out_full = run_full()
+            if out_full != EXPECTED_1M or not torch.equal(seen_full, seen):
+                fail("ring mxu at full width differs from the run with "
+                     "extents")
+            record["profile_full_width"] = profile_run(run_full,
+                                                       ring_steps=steps)
         print(json.dumps({"phase": "ring-path", **record}), flush=True)
         del sg
         torch.cuda.empty_cache()
-    return totals
+    return totals, step_rows, step_err
 
 
-def profile_run(run) -> dict:
+def profile_run(run, ring_steps=None) -> dict:
     """One ``run()`` under torch.profiler: wall time, device kernel time
-    and launches, and the kernels that take the most device time."""
+    and launches, and the kernels that take the most device time. With
+    ``ring_steps`` (the fused steps of a ring pass), B3's device time
+    split by ring step: its launches in device order, step = launch index
+    mod ``ring_steps`` (each pass fuses steps 0 to ring_steps - 1)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -604,6 +757,17 @@ def profile_run(run) -> dict:
                    if ev.device_type == torch.autograd.DeviceType.CUDA
                    and ev.self_device_time_total), reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
+    split = {}
+    if ring_steps:
+        b3 = sorted((ev.time_range.start, ev.time_range.elapsed_us())
+                    for ev in prof.events()
+                    if ev.device_type == torch.autograd.DeviceType.CUDA
+                    and "ring_segsum" in ev.name)
+        per_step = [[us for i, (_, us) in enumerate(b3)
+                     if i % ring_steps == t] for t in range(ring_steps)]
+        split = {"b3_launches": len(b3),
+                 "b3_step_us": [sum(v) for v in per_step],
+                 "b3_step_launches": [len(v) for v in per_step]}
     return {"wall_s": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall,
             "kernel_launches": sum(r[2] for r in rows),
@@ -611,7 +775,7 @@ def profile_run(run) -> dict:
                              if "segsum" in k and "ring" not in k),
             "ring_us": sum(us for us, k, _ in rows if "ring_" in k),
             "top": [{"kernel": k[:100], "us": us, "count": c}
-                    for us, k, c in rows[:6]]}
+                    for us, k, c in rows[:6]], **split}
 
 
 def main() -> int:
@@ -656,13 +820,14 @@ def main() -> int:
                                   (Flood, AdaptiveFlood))
 
     # 4b. Ring.
-    ring_launches = ring_path(g, seen, ring, segsum, _device, sharded,
-                              mesh_mod)
+    ring_launches, step_rows, step_err = ring_path(
+        g, seen, ring, segsum, _device, sharded, mesh_mod)
 
     # 5. Result. Each kernel's row is its main-path use: B1's OR entry on
     # the hybrid remainder (the adaptive and hybrid floods), B2's forward
-    # hop of the bool frontier, B3's OR entry on the mxu buckets; launches
-    # summed over the checked runs of phases 4 and 4b.
+    # hop of the bool frontier, B3's OR entry on the mxu layout's real
+    # step 0 (phase 3b); launches summed over the checked runs of phases 4
+    # and 4b.
     def row(name, source, replaces, at, n, err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
@@ -679,8 +844,10 @@ def main() -> int:
             ring_err["ring_shift"]),
         row("ring_segsum", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:126",
-            next(r for r in ring_rows if r["kernel"] == "ring_segsum"),
-            ring_launches["ring_segsum"], ring_err["ring_segsum"]),
+            next(r for r in step_rows
+                 if r["step"] == 0 and r["entry"] == "or"),
+            ring_launches["ring_segsum"],
+            max(ring_err["ring_segsum"], step_err)),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

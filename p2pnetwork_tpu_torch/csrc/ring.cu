@@ -27,11 +27,36 @@
 // the grid has several blocks per SM. The unit is 16 bytes where a shard's
 // block and both buffers allow it, else 4 or 1 (vec_bytes).
 //
-// B3 is bound by B1's bucket bytes. Its first `n_copy` blocks copy tiles
-// of U = 4 units (n_copy derived from the payload), the rest are the
-// persistent row workers of segsum.cuh; the row path follows the bucket
-// geometry as in B1 (the ring mxu buckets [8, 245, 4864], 13% live, take
-// kSparse for OR and kVector for the sum).
+// B3 on the ring mxu layout at 1M nodes (rot [8, 125008], buckets
+// [8, 245, 4864], block 512) meets two kinds of step. Step 0 holds nearly
+// every edge (a Watts-Strogatz graph's sources sit near their receivers):
+// 95.7% of its slots live, rows used to ~4,656 of 4,864 slots, 9.5 MB of
+// masks and 73 MB of src/local_dst, so bytes bound it (~25 us at
+// 3.35 TB/s). Steps 1 to 6 hold 1.3% each: a row's live slots are a
+// prefix of at most 99, so a kernel that reads every slot (9.5 MB of
+// masks alone) spends nearly all of its time on padding, and what is
+// left is latency: a few dependent DRAM round trips and the launch.
+//
+// So B3 takes each row's extent (ShardedGraph.mxu_extent: every slot from
+// it on is (0, 0, 0)) and reads no further (segsum.cuh, kExtent): a warp
+// per row, 8 rows per block, the extent loaded beside the row's first
+// chunk per lane; a sparse row is then one round trip of loads and one of
+// gathers, and such a launch takes a few microseconds more than an empty
+// one. Dense rows are read four chunks per lane at a time (OR, a flag
+// per live slot) or two (the sum); their local_dst is sorted, so the
+// sum merges each run of equal destinations across a warp into one
+// shared-memory add (f32 atomics are compare-and-swap loops on this
+// card). Step 0 still takes ~1.6x its byte bound (PERF.md). The sum adds
+// rot[d, 0] * 0 once for the padding it skips, as the padding's slots
+// would. Without extents, or where the geometry does not allow the warp
+// rows (rows not 16-byte aligned, or 8 accumulators of `block` over
+// 64 KB), B3 reads every row at full width on B1's paths. Those stay for
+// rows whose live slots spread over the whole width with unsorted
+// destinations (chip_smoke.py's random 13%-live rows): there the warp
+// rows given extents of W were 6% (OR) and 26% (sum) slower than a
+// block per row (H100, chip_smoke.py phase 3, extent_w_ms). Its first
+// `n_copy` blocks copy tiles of U = 4 units (n_copy derived from the
+// payload) before the row workers start.
 //
 // Plain C interface for ctypes; each entry returns a CUDA error code.
 
@@ -79,6 +104,31 @@ __global__ void __launch_bounds__(p2p::kThreads)
 // B3's copy tiles: U = 4 units of `unit` bytes (16, 4 or 1).
 constexpr int kCopyUnits = 4;
 
+// B3's hop: copy tile `tile` of rot into rot_next, forward.
+__device__ __forceinline__ void hop_tile(const void* rot, void* rot_next,
+                                         int64_t per_shard_units, int unit,
+                                         int n_shards, int64_t tile) {
+  const int shift = n_shards - 1;
+  switch (unit) {
+    case 16:
+      ring_copy_tile<uint4, kCopyUnits>(
+          static_cast<const uint4*>(rot), static_cast<uint4*>(rot_next),
+          per_shard_units, n_shards, shift, tile);
+      break;
+    case 4:
+      ring_copy_tile<uint32_t, kCopyUnits>(
+          static_cast<const uint32_t*>(rot), static_cast<uint32_t*>(rot_next),
+          per_shard_units, n_shards, shift, tile);
+      break;
+    default:
+      ring_copy_tile<uint8_t, kCopyUnits>(
+          static_cast<const uint8_t*>(rot), static_cast<uint8_t*>(rot_next),
+          per_shard_units, n_shards, shift, tile);
+  }
+}
+
+// B3: n_copy copy blocks, then the row workers of path P (segsum.cuh);
+// `extent` is not read (the signature is the runs kernel's).
 template <class Op, p2p::Path P>
 __global__ void __launch_bounds__(p2p::kThreads, p2p::kMinBlocks)
     ring_segsum_kernel(const typename Op::T* __restrict__ rot,
@@ -87,33 +137,37 @@ __global__ void __launch_bounds__(p2p::kThreads, p2p::kMinBlocks)
                        const int32_t* __restrict__ src,
                        const int32_t* __restrict__ local_dst,
                        const uint8_t* __restrict__ mask,
+                       const int32_t* __restrict__ extent,
                        typename Op::T* __restrict__ out, p2p::Rows g) {
   extern __shared__ __align__(16) unsigned char smem[];
   if (static_cast<int>(blockIdx.x) < n_copy) {
-    const int shift = g.n_shards - 1;
-    switch (unit) {
-      case 16:
-        ring_copy_tile<uint4, kCopyUnits>(
-            reinterpret_cast<const uint4*>(rot),
-            reinterpret_cast<uint4*>(rot_next), per_shard_units, g.n_shards,
-            shift, blockIdx.x);
-        break;
-      case 4:
-        ring_copy_tile<uint32_t, kCopyUnits>(
-            reinterpret_cast<const uint32_t*>(rot),
-            reinterpret_cast<uint32_t*>(rot_next), per_shard_units,
-            g.n_shards, shift, blockIdx.x);
-        break;
-      default:
-        ring_copy_tile<uint8_t, kCopyUnits>(
-            reinterpret_cast<const uint8_t*>(rot),
-            reinterpret_cast<uint8_t*>(rot_next), per_shard_units,
-            g.n_shards, shift, blockIdx.x);
-    }
+    hop_tile(rot, rot_next, per_shard_units, unit, g.n_shards, blockIdx.x);
     return;
   }
   p2p::run_rows<Op, P>(rot, src, local_dst, mask, out, g, blockIdx.x - n_copy,
                        gridDim.x - n_copy, smem);
+}
+
+// B3 over rows of known extent (segsum.cuh, kExtent): the same copy
+// blocks, then a warp per row. Fewer blocks per SM than the other paths,
+// for the registers of a batch.
+template <class Op>
+__global__ void __launch_bounds__(p2p::kThreads, p2p::kExtentMinBlocks)
+    ring_segsum_runs_kernel(const typename Op::T* __restrict__ rot,
+                            typename Op::T* __restrict__ rot_next,
+                            int64_t per_shard_units, int unit, int n_copy,
+                            const int32_t* __restrict__ src,
+                            const int32_t* __restrict__ local_dst,
+                            const uint8_t* __restrict__ mask,
+                            const int32_t* __restrict__ extent,
+                            typename Op::T* __restrict__ out, p2p::Rows g) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  if (static_cast<int>(blockIdx.x) < n_copy) {
+    hop_tile(rot, rot_next, per_shard_units, unit, g.n_shards, blockIdx.x);
+    return;
+  }
+  p2p::run_rows_extent<Op>(rot, src, local_dst, mask, extent, out, g,
+                           blockIdx.x - n_copy, gridDim.x - n_copy, smem);
 }
 
 // Widest copy unit (16, 4 or 1 bytes) that divides a shard's block and
@@ -157,52 +211,77 @@ int launch_shift(const void* src, void* dst, int64_t shard_bytes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The kernel of B3 for path P: the runs kernel for kExtent.
+template <class Op, p2p::Path P>
+constexpr auto segsum_kernel_of() {
+  if constexpr (P == p2p::kExtent) {
+    return ring_segsum_runs_kernel<Op>;
+  } else {
+    return ring_segsum_kernel<Op, P>;
+  }
+}
+
 template <class Op, p2p::Path P>
 int launch_segsum(const void* rot, void* rot_next, int64_t per_shard_units,
                   int unit, const void* src, const void* local_dst,
-                  const void* mask, void* out, const p2p::Rows& g,
-                  size_t smem, int device, cudaStream_t stream) {
+                  const void* mask, const void* extent, void* out,
+                  const p2p::Rows& g, size_t smem, int device,
+                  cudaStream_t stream) {
   using T = typename Op::T;
+  const auto kernel = segsum_kernel_of<Op, P>();
   static p2p::Residency residency;  // one per kernel instantiation
   int resident = 0;
   const cudaError_t err = residency.blocks(
-      reinterpret_cast<const void*>(ring_segsum_kernel<Op, P>), smem, device,
-      &resident);
+      reinterpret_cast<const void*>(kernel), smem, device, &resident);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_copy =
       static_cast<int>(tiles(per_shard_units * g.n_shards, kCopyUnits));
   const int grid = n_copy + p2p::row_workers(g, resident);
-  ring_segsum_kernel<Op, P><<<grid, p2p::kThreads, smem, stream>>>(
+  kernel<<<grid, p2p::kThreads, smem, stream>>>(
       static_cast<const T*>(rot), static_cast<T*>(rot_next), per_shard_units,
       unit, n_copy, static_cast<const int32_t*>(src),
       static_cast<const int32_t*>(local_dst),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), g);
+      static_cast<const uint8_t*>(mask), static_cast<const int32_t*>(extent),
+      static_cast<T*>(out), g);
   return static_cast<int>(cudaGetLastError());
 }
 
+// B3's entry: rows of known extent take kExtent where its geometry allows
+// (choose_extent), every other launch B1's path for the geometry, reading
+// rows at their full width.
 template <class Op>
 int ring_segsum(const void* rot, void* rot_next, int64_t signal_stride,
                 const void* src, const void* local_dst, const void* mask,
-                void* out, int n_shards, int rows_per_shard, int width,
-                int block, int64_t bucket_stride, int device, void* stream) {
+                const void* extent, int64_t extent_stride, void* out,
+                int n_shards, int rows_per_shard, int width, int block,
+                int64_t bucket_stride, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t shard_bytes =
-      signal_stride * static_cast<int64_t>(sizeof(typename Op::T));
+  constexpr int elem = sizeof(typename Op::T);
+  const int64_t shard_bytes = signal_stride * static_cast<int64_t>(elem);
   const int unit = vec_bytes(rot, rot_next, shard_bytes);
   const int64_t units = shard_bytes / unit;
-  const p2p::Path path = p2p::choose_path(Op::kOr, src, local_dst, mask,
-                                          width, bucket_stride);
+  const p2p::Path path =
+      extent != nullptr && p2p::choose_extent(src, local_dst, mask, width,
+                                              bucket_stride, block, elem)
+          ? p2p::kExtent
+          : p2p::choose_path(Op::kOr, src, local_dst, mask, width,
+                             bucket_stride);
   size_t smem = 0;
-  const p2p::Rows g = p2p::plan_rows(
-      path, sizeof(typename Op::T), n_shards, rows_per_shard, width, block,
-      bucket_stride, signal_stride, out, &smem);
-  return p2p::dispatch<Op>(path, [&](auto p) {
+  p2p::Rows g =
+      p2p::plan_rows(path, elem, n_shards, rows_per_shard, width, block,
+                     bucket_stride, signal_stride, out, &smem);
+  g.extent_stride = extent_stride;
+  auto launch = [&](auto p) {
     return launch_segsum<Op, decltype(p)::value>(rot, rot_next, units, unit,
-                                                 src, local_dst, mask, out, g,
-                                                 smem, device, s);
-  });
+                                                 src, local_dst, mask, extent,
+                                                 out, g, smem, device, s);
+  };
+  if (path == p2p::kExtent) {
+    return launch(std::integral_constant<p2p::Path, p2p::kExtent>());
+  }
+  return p2p::dispatch<Op>(path, launch);
 }
 
 }  // namespace
@@ -231,24 +310,28 @@ int p2p_ring_shift(const void* src, void* dst, int n_shards,
 
 int p2p_ring_segsum_or(const void* rot, void* rot_next,
                        int64_t signal_stride, const void* src,
-                       const void* local_dst, const void* mask, void* out,
-                       int n_shards, int rows_per_shard, int width, int block,
-                       int64_t bucket_stride, int device, void* stream) {
+                       const void* local_dst, const void* mask,
+                       const void* extent, int64_t extent_stride,
+                       void* out, int n_shards, int rows_per_shard,
+                       int width, int block, int64_t bucket_stride,
+                       int device, void* stream) {
   return ring_segsum<p2p::OrOp>(rot, rot_next, signal_stride, src, local_dst,
-                                mask, out, n_shards, rows_per_shard, width,
-                                block, bucket_stride, device, stream);
+                                mask, extent, extent_stride, out, n_shards,
+                                rows_per_shard, width, block, bucket_stride,
+                                device, stream);
 }
 
 int p2p_ring_segsum_sum(const void* rot, void* rot_next,
                         int64_t signal_stride, const void* src,
-                        const void* local_dst, const void* mask, void* out,
-                        int n_shards, int rows_per_shard, int width,
-                        int block, int64_t bucket_stride, int device,
-                        void* stream) {
+                        const void* local_dst, const void* mask,
+                        const void* extent, int64_t extent_stride,
+                        void* out, int n_shards, int rows_per_shard,
+                        int width, int block, int64_t bucket_stride,
+                        int device, void* stream) {
   return ring_segsum<p2p::SumOp>(rot, rot_next, signal_stride, src,
-                                 local_dst, mask, out, n_shards,
-                                 rows_per_shard, width, block, bucket_stride,
-                                 device, stream);
+                                 local_dst, mask, extent, extent_stride, out,
+                                 n_shards, rows_per_shard, width, block,
+                                 bucket_stride, device, stream);
 }
 
 }  // extern "C"

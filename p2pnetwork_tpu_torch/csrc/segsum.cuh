@@ -60,18 +60,26 @@
 //            [7813, 1408]: a row per block; remainder [1954, 640]: two),
 //            the ring hybrid's narrow rows ([8, 245, 128]: a warp per row,
 //            8 rows per block) and the sum over the ring mxu buckets
-//            ([8, 245, 4864]: a row per block). src and local_dst load as
-//            one int4 each, mask as one uchar4, all unconditional; one
-//            chunk per thread at a time, which keeps registers low and more
-//            threads in flight (four at a time was slower for the sum).
-//   kSparse  OR over aligned rows wider than 2048 slots: the mxu buckets,
-//            padded to the widest bucket and 13% live at 1M nodes. The
+//            at full width ([8, 245, 4864]: a row per block). src and
+//            local_dst load as one int4 each, mask as one uchar4, all
+//            unconditional; one chunk per thread at a time, which keeps
+//            registers low and more threads in flight (four at a time was
+//            slower for the sum).
+//   kSparse  OR over aligned rows wider than 2048 slots: the mxu buckets
+//            read at full width (13% live over all steps at 1M nodes). The
 //            masks of a thread's four chunks load first, then src/local_dst
 //            only for chunks with a live slot (padding is each row's tail,
 //            so whole chunks skip); OR needs no signal behind a masked slot.
 //   kScalar  any other geometry (widths or strides not multiples of 4,
 //            rows not aligned): kVector's structure with one element per
 //            load, still all issued before use.
+//   kExtent  B3's entry only, given each row's extent (the ring mxu
+//            layout's steps: step 0 95.7% live, steps 1-6 1.3%, live
+//            slots a prefix of each row) and kVector's geometry: a warp
+//            per row, each row read up to its extent; OR stores a flag
+//            per live slot, the sum merges runs of equal local_dst across
+//            the warp before they update shared memory (run_rows_extent,
+//            below). B1 never takes it.
 //
 // The sum keeps the reference's NaN rule: a masked slot still multiplies
 // its signal (signal * mask), so its src is read and its signal gathered
@@ -97,7 +105,7 @@ constexpr int kWideWidth = 2048;
 // when they fit): the most dynamic shared memory any launch asks for.
 constexpr int kAccBudget = 64 * 1024;
 
-enum Path : int { kVector, kSparse, kScalar };
+enum Path : int { kVector, kSparse, kScalar, kExtent };
 
 // Chunks a thread holds at once on a path.
 __host__ __device__ constexpr int batch_of(Path p) {
@@ -105,6 +113,18 @@ __host__ __device__ constexpr int batch_of(Path p) {
 }
 // Blocks per SM the kernels are built to keep resident.
 constexpr int kMinBlocks = 4;
+// kExtent: a warp per row, so a block holds kWarpRows rows at once.
+constexpr int kWarpRows = kThreads / 32;
+// Chunks a lane holds at once on kExtent rows (after the first): OR four,
+// the sum two, the fastest of 1, 2, 4 and 8 on the ring's step 0
+// (PERF.md).
+template <class Op>
+__host__ __device__ constexpr int extent_batch() {
+  return Op::kOr ? 4 : 2;
+}
+// kExtent kernels keep fewer blocks resident, for the registers of a
+// batch (the rows of the ring's launches fill ~2 blocks per SM).
+constexpr int kExtentMinBlocks = 2;
 
 struct Rows {
   int n_rows, n_shards, rows_per_shard, width, block;
@@ -113,6 +133,7 @@ struct Rows {
   int acc_bytes;   // one accumulator, rounded up to 16 bytes
   int n_acc;       // accumulators per row group: 1 or 2
   int out_vec;     // write rows back with 16-byte stores
+  int64_t extent_stride;  // kExtent: shard stride of the extents (given)
 };
 
 struct OrOp {
@@ -361,6 +382,159 @@ __device__ void run_rows(const typename Op::T* __restrict__ signal,
   }
 }
 
+// ------------------------------------------------ rows of known extent
+//
+// kExtent (B3's entry, given each row's extent: every slot from it on is
+// the layout's padding (0, 0, 0)). A warp owns a row: it loads the row's
+// extent beside its first chunk per lane, drops what lies past the
+// extent, then walks the rest extent_batch chunks per lane at a time.
+// OR stores a flag per live slot, as the other paths do. The sum merges:
+// the lanes of a warp hold consecutive chunks, so on the ring's rows,
+// whose local_dst never decreases, a destination's terms sit in
+// neighbouring slots, and each run of equal local_dst across the warp
+// becomes one atomic add to the warp's own accumulator (add_runs). That
+// holds for any slot order; it only pays where equal destinations are
+// neighbours. Merging OR's flag stores the same way (a lane leaving a
+// run's flag to the next lane) was slower on the ring's step 0 (PERF.md).
+
+// The sum's shared-memory updates of one chunk per lane (a warp's 32
+// consecutive chunks), one per run of equal destinations: runs inside a
+// lane are summed there, a run that crosses lanes by a segmented scan
+// over the lanes (shuffles), and the lane holding a run's last slot adds
+// the whole run.
+__device__ __forceinline__ void add_runs(const Chunk& c, const float (&v)[4],
+                                         float* acc, int lane) {
+  constexpr unsigned kAll = 0xffffffffu;
+  int key[4];  // the slots' destinations; -1 past the chunk's end
+#pragma unroll
+  for (int j = 0; j < 4; ++j) key[j] = j < c.n ? lane_of(c.dst, j) : -1;
+  // Runs that end inside the lane (not its first: the first may take the
+  // previous lane's carry) are added here.
+  float run = v[0], first = 0.0f;
+  bool whole = true;
+#pragma unroll
+  for (int j = 1; j < 4; ++j) {
+    if (key[j] == key[j - 1]) {
+      run += v[j];
+    } else {
+      if (whole) {
+        first = run;
+      } else if (key[j - 1] >= 0 && run != 0.0f) {
+        atomicAdd(&acc[key[j - 1]], run);
+      }
+      whole = false;
+      run = v[j];
+    }
+  }
+  const int prev_key = __shfl_up_sync(kAll, key[3], 1);
+  const bool joins = lane > 0 && key[0] == prev_key;
+  // carry = the run that ends at this lane's last slot, summed over the
+  // lanes it spans: a segmented inclusive scan, a segment starting at
+  // every lane that is not one run continuing the previous lane's.
+  float carry = run;
+  int head = !(whole && joins);
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float up = __shfl_up_sync(kAll, carry, off);
+    const int up_head = __shfl_up_sync(kAll, head, off);
+    if (lane >= off && !head) {
+      carry += up;
+      head = up_head;
+    }
+  }
+  const float prev_carry = __shfl_up_sync(kAll, carry, 1);
+  if (!whole) {
+    const float f = joins ? first + prev_carry : first;
+    if (key[0] >= 0 && f != 0.0f) atomicAdd(&acc[key[0]], f);
+  }
+  const int next_key = __shfl_down_sync(kAll, key[0], 1);
+  if (!(lane < 31 && next_key == key[3]) && key[3] >= 0 && carry != 0.0f) {
+    atomicAdd(&acc[key[3]], carry);
+  }
+}
+
+// The updates of a kExtent batch: OR's flags, the sum's merged runs.
+template <class Op, int B>
+__device__ __forceinline__ void update_batch(const Batch<B>& b,
+                                             const typename Op::T (&v)[B][4],
+                                             typename Op::T* acc, int lane) {
+  if constexpr (Op::kOr) {
+    scatter_batch<Op, B>(b, v, acc);
+  } else {
+#pragma unroll
+    for (int k = 0; k < B; ++k) add_runs(b.c[k], v[k], acc, lane);
+  }
+}
+
+// Rows of worker `worker` of `n_workers`, one per warp, each read up to
+// its extent (clamped to [0, width]). Every thread of the block calls
+// this; the path needs width and the shard stride multiples of 4 slots
+// and kVector's alignment (choose_extent).
+template <class Op>
+__device__ void run_rows_extent(const typename Op::T* __restrict__ signal,
+                                const int32_t* __restrict__ src,
+                                const int32_t* __restrict__ dst,
+                                const uint8_t* __restrict__ mask,
+                                const int32_t* __restrict__ extent,
+                                typename Op::T* __restrict__ out,
+                                const Rows& g, int worker, int n_workers,
+                                unsigned char* smem) {
+  using T = typename Op::T;
+  constexpr int B = extent_batch<Op>();
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  T* acc = reinterpret_cast<T*>(smem + warp * g.acc_bytes);
+  zero_shared(smem, kWarpRows * g.acc_bytes);
+  __syncthreads();
+  const int width_chunks = g.width / 4;
+  for (int row = worker * kWarpRows + warp; row < g.n_rows;
+       row += n_workers * kWarpRows) {
+    const int d = row / g.rows_per_shard;
+    const int r = row - d * g.rows_per_shard;
+    const RowRef at = row_ref(row, g);
+    const T* sig = signal + at.signal;
+    const int32_t* s = src + at.slots;
+    const int32_t* t = dst + at.slots;
+    const uint8_t* m = mask + at.slots;
+    // The first chunk per lane loads beside the extent; what lies past
+    // the extent is dropped unread by the gathers.
+    Batch<1> first;
+    load_batch<kVector, 1>(first, s, t, m, g.width, width_chunks, lane, 32);
+    const int ext =
+        min(max(__ldg(extent + d * g.extent_stride + r), 0), g.width);
+    const int n_chunks = (ext + 3) / 4;
+    if (lane >= n_chunks) {
+      first.c[0].n = 0;
+      first.c[0].mask = 0u;
+    }
+    {
+      T v[1][4];
+      gather_batch<Op, 1>(sig, first, v);
+      update_batch<Op, 1>(first, v, acc, lane);
+    }
+    for (int base = 32; base < n_chunks; base += 32 * B) {
+      Batch<B> b;
+      load_batch<kVector, B>(b, s, t, m, g.width, n_chunks, base + lane, 32);
+      T v[B][4];
+      gather_batch<Op, B>(sig, b, v);
+      update_batch<Op, B>(b, v, acc, lane);
+    }
+    if constexpr (!Op::kOr) {
+      // The padding past the extent: each of its slots adds sig[0] * 0
+      // to acc[0] (the reference's signal * mask); one such term gives
+      // the same sum (NaN where sig[0] is not finite, else nothing).
+      if (lane == 0 && ext < g.width) {
+        const float p = __ldg(sig) * 0.0f;
+        if (p != 0.0f) atomicAdd(&acc[0], p);
+      }
+    }
+    __syncwarp();
+    write_back<T>(acc, out + static_cast<int64_t>(row) * g.block, g, lane,
+                  32);
+    __syncwarp();
+  }
+}
+
 // ------------------------------------------------------------------- host
 
 inline bool aligned(const void* p, int bytes) {
@@ -375,6 +549,17 @@ inline Path choose_path(bool is_or, const void* src, const void* dst,
   if (!vec) return kScalar;
   if (is_or && width > kWideWidth) return kSparse;
   return kVector;
+}
+
+// Whether rows of known extent take kExtent: kVector's geometry, and a
+// warp's accumulator for each of a block's kWarpRows rows within
+// kAccBudget.
+inline bool choose_extent(const void* src, const void* dst, const void* mask,
+                          int width, int64_t bucket_stride, int block,
+                          int elem_bytes) {
+  const int acc_bytes = (block * elem_bytes + 15) / 16 * 16;
+  return width > 0 && kWarpRows * acc_bytes <= kAccBudget &&
+         choose_path(false, src, dst, mask, width, bucket_stride) == kVector;
 }
 
 // The launch geometry of `path`: row groups, accumulators and the dynamic
@@ -394,6 +579,12 @@ inline Rows plan_rows(Path path, int elem_bytes, int n_shards,
   const int row_bytes = block * elem_bytes;
   g.acc_bytes = (row_bytes + 15) / 16 * 16;
   g.out_vec = row_bytes % 16 == 0 && aligned(out, 16);
+  if (path == kExtent) {  // a warp per row, one accumulator each
+    g.group_log2 = 5;
+    g.n_acc = 1;
+    *smem = static_cast<size_t>(kWarpRows) * g.acc_bytes;
+    return g;
+  }
   // Smallest row group (>= one warp) in which no thread takes more than
   // two chunks (batch 1) or one batch of four (batch 4) of a row, larger
   // while the groups' accumulators do not fit.

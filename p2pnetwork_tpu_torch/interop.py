@@ -21,7 +21,7 @@ from p2pnetwork_tpu_torch.models.flood import FloodState
 from p2pnetwork_tpu_torch.ops.blocked import BlockedEdges
 from p2pnetwork_tpu_torch.ops.diag import HybridEdges
 from p2pnetwork_tpu_torch.parallel.mesh import RingMesh
-from p2pnetwork_tpu_torch.parallel.sharded import ShardedGraph
+from p2pnetwork_tpu_torch.parallel.sharded import ShardedGraph, row_extent
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 
@@ -86,7 +86,8 @@ def sharded_graph_from_numpy(fields: dict, mesh: RingMesh) -> ShardedGraph:
     of a sharded JAX array gathers them), the static ints and
     ``diag_pieces``. The neighbor table and the sender-CSR view are
     dropped (nothing ported reads them); a live dynamic region is
-    refused."""
+    refused. ``mxu_extent``, the port's own field, is derived from the
+    MXU arrays as ``shard_graph`` derives it."""
     if fields.get("dyn_src") is not None:
         raise NotImplementedError(
             "the dynamic edge region (runtime connects) is not ported yet")
@@ -104,4 +105,7 @@ def sharded_graph_from_numpy(fields: dict, mesh: RingMesh) -> ShardedGraph:
             kw[f.name] = _t(v, mesh.device)
         else:
             kw[f.name] = v
+    if fields.get("mxu_src") is not None:
+        kw["mxu_extent"] = _t(row_extent(*(np.asarray(fields[k]) for k in (
+            "mxu_src", "mxu_dst", "mxu_mask"))), mesh.device)
     return ShardedGraph(**kw)

@@ -21,6 +21,10 @@ block. Both kernels are bound by device-memory bytes: B2 reads and writes
 each byte once (~0.6 us for the bool ``[8, 125008]`` frontier at
 3.35 TB/s, so launch latency dominates); in B3 the bucket bytes of B1
 dominate and the hop rides in copy blocks beside the row reductions.
+B3 takes each row's extent (``ShardedGraph.mxu_extent``): the ring's
+buckets are padded to the widest, and on a graph whose edges are mostly
+local (the 1M Watts-Strogatz ring) every step's rows but the first are
+nearly all padding, which B3 then does not read.
 
 Exactness: the hop and OR are bit-exact. The f32 sum adds in f32 with
 shared-memory atomics: exact on integer-valued signals, otherwise held to
@@ -59,7 +63,7 @@ def _lib() -> ctypes.CDLL:
         lib.p2p_ring_shift.argtypes = [p, p, i, q, i, i, p]
         lib.p2p_ring_shift.restype = i
         for fn in (lib.p2p_ring_segsum_or, lib.p2p_ring_segsum_sum):
-            fn.argtypes = [p, p, q, p, p, p, p, i, i, i, i, q, i, p]
+            fn.argtypes = [p, p, q, p, p, p, p, q, p, i, i, i, i, q, i, p]
             fn.restype = i
         _bound = lib
     return _bound
@@ -108,20 +112,37 @@ def _check_ring(name: str, rot) -> None:
 
 
 def ring_segment_sum_or_plain(rot, src, local_dst, mask, block: int):
-    """Plain PyTorch version of :func:`ring_segment_sum_or`."""
+    """Plain PyTorch version of :func:`ring_segment_sum_or`, every row at
+    its full width."""
     _check_ring("ring_segment_sum_or", rot)
     return (ring_shift_plain(rot),
             segsum.segsum_or_plain(rot, src, local_dst, mask, block))
 
 
 def ring_segment_sum_sum_plain(rot, src, local_dst, mask, block: int):
-    """Plain PyTorch version of :func:`ring_segment_sum_sum`."""
+    """Plain PyTorch version of :func:`ring_segment_sum_sum`, every row at
+    its full width."""
     _check_ring("ring_segment_sum_sum", rot)
     return (ring_shift_plain(rot),
             segsum.segsum_sum_plain(rot, src, local_dst, mask, block))
 
 
-def _launch(kind: str, rot, src, local_dst, mask, block: int, dtype):
+def _check_extent(name: str, extent, src) -> None:
+    """Hold ``extent`` to ``i32[S, NB]`` for ``[S, NB, W]`` buckets, on
+    their device, each shard's row extents contiguous (any shard
+    stride: the step slice ``[:, t]`` of ``ShardedGraph.mxu_extent``)."""
+    if extent.device != src.device or extent.dtype != torch.int32 or \
+            extent.dim() != 2 or extent.shape != src.shape[:-1]:
+        raise ValueError(f"{name}: extent must be i32[S, NB] on the "
+                         f"buckets' device, got {extent.dtype} "
+                         f"{tuple(extent.shape)} on {extent.device}")
+    if extent.shape[1] > 1 and extent.stride(1) != 1:
+        raise ValueError(f"{name}: extent's rows must be contiguous, got "
+                         f"strides {extent.stride()}")
+
+
+def _launch(kind: str, rot, src, local_dst, mask, block: int, dtype,
+            extent):
     """Check the operands, allocate both outputs and launch B3's ``kind``
     ("or" or "sum") entry on the current stream."""
     global SEGSUM_LAUNCHES
@@ -129,6 +150,8 @@ def _launch(kind: str, rot, src, local_dst, mask, block: int, dtype):
     _check_ring(name, rot)
     if rot.dtype != dtype:
         raise ValueError(f"{name}: rot must be {dtype}, got {rot.dtype}")
+    if extent is not None:
+        _check_extent(name, extent, src)
     s, nb, w, bucket_stride, signal_stride = segsum.bucket_geometry(
         name, rot, src, local_dst, mask, block)
     dev = rot.device
@@ -137,7 +160,9 @@ def _launch(kind: str, rot, src, local_dst, mask, block: int, dtype):
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = getattr(_lib(), f"p2p_ring_segsum_{kind}")(
         rot.data_ptr(), rot_next.data_ptr(), signal_stride, src.data_ptr(),
-        local_dst.data_ptr(), mask.data_ptr(), out.data_ptr(), s, nb, w,
+        local_dst.data_ptr(), mask.data_ptr(),
+        None if extent is None else extent.data_ptr(),
+        0 if extent is None else extent.stride(0), out.data_ptr(), s, nb, w,
         block, bucket_stride, dev.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
@@ -145,20 +170,32 @@ def _launch(kind: str, rot, src, local_dst, mask, block: int, dtype):
     return rot_next, out
 
 
-def ring_segment_sum_or(rot, src, local_dst, mask, block: int):
+def ring_segment_sum_or(rot, src, local_dst, mask, block: int,
+                        extent=None):
     """The fused ring step for OR: ``(ring_shift(rot), out)`` with
     ``out[d, n*block + b] = any(rot[d, src[d, n, w]] & mask[d, n, w]
     for w with local_dst[d, n, w] == b)``. ``rot`` bool ``[S >= 2, B]``;
-    the buckets ``[S, NB, W]`` as in :func:`segsum.segsum_or`."""
+    the buckets ``[S, NB, W]`` as in :func:`segsum.segsum_or`.
+
+    ``extent`` (``i32[S, NB]``, optional; ``ShardedGraph.mxu_extent``
+    sliced as the buckets are) gives each row's extent: every slot from
+    it on must be ``(mask, src, local_dst) = (0, 0, 0)``, the layout's
+    padding, and the kernel reads no further. The result is the same."""
     if rot.device.type == "cpu":
         return ring_segment_sum_or_plain(rot, src, local_dst, mask, block)
-    return _launch("or", rot, src, local_dst, mask, block, torch.bool)
+    return _launch("or", rot, src, local_dst, mask, block, torch.bool,
+                   extent)
 
 
-def ring_segment_sum_sum(rot, src, local_dst, mask, block: int):
+def ring_segment_sum_sum(rot, src, local_dst, mask, block: int,
+                         extent=None):
     """The fused ring step for sums: ``(ring_shift(rot), out)`` with
     ``out[d, n*block + b] = sum(rot[d, src[d, n, w]] * mask[d, n, w]
-    for w with local_dst[d, n, w] == b)``, f32 ``rot [S >= 2, B]``."""
+    for w with local_dst[d, n, w] == b)``, f32 ``rot [S >= 2, B]``.
+    ``extent`` as in :func:`ring_segment_sum_or`: the padding a row's
+    extent skips adds ``rot[d, 0] * 0`` to ``out[d, n*block]`` once, as
+    its slots would (NaN where ``rot[d, 0]`` is not finite)."""
     if rot.device.type == "cpu":
         return ring_segment_sum_sum_plain(rot, src, local_dst, mask, block)
-    return _launch("sum", rot, src, local_dst, mask, block, torch.float32)
+    return _launch("sum", rot, src, local_dst, mask, block, torch.float32,
+                   extent)

@@ -115,17 +115,18 @@ class _RingComm:
             return ring.ring_shift(x, reverse=True)
         return ring.ring_shift_plain(x, reverse=True)
 
-    def fused_segment_sum(self, rot, kind, src, local_dst, mask, block):
+    def fused_segment_sum(self, rot, kind, src, local_dst, mask, block,
+                          extent):
         """``(rot_next, out)`` — the hop fused with the segment sum of the
-        step's MXU bucket (``kind`` "or" or "sum"), or None when this
-        backend has no fused form (the caller then shifts and applies
-        separately)."""
+        step's MXU bucket (``kind`` "or" or "sum"; ``extent`` its rows'
+        extents or None), or None when this backend has no fused form
+        (the caller then shifts and applies separately)."""
         if self.backend != "pallas":
             return None
         self._check_payload(rot, "shift")
         fn = ring.ring_segment_sum_or if kind == "or" \
             else ring.ring_segment_sum_sum
-        return fn(rot, src, local_dst, mask, block)
+        return fn(rot, src, local_dst, mask, block, extent=extent)
 
 
 def _comm_name(comm, device) -> str:
@@ -152,6 +153,10 @@ class ShardedGraph:
     ``(ring_step, local_shift)`` and masks ``[S, P, B]`` are
     ``diag_pieces``/``diag_masks``. The dynamic region (``dyn_*``), the
     neighbor table and the sender-CSR view are not ported and stay None.
+
+    ``mxu_extent`` is the port's own (the reference has no such field):
+    each MXU row's extent (:func:`row_extent`), which kernel B3 reads so
+    that it skips a row's padded tail.
     """
 
     bkt_src: torch.Tensor  # i32[S, S, E_bkt]
@@ -171,6 +176,7 @@ class ShardedGraph:
     mxu_src: Optional[torch.Tensor] = None  # i32[S, S, NB, W]
     mxu_dst: Optional[torch.Tensor] = None  # i32[S, S, NB, W]
     mxu_mask: Optional[torch.Tensor] = None  # bool[S, S, NB, W]
+    mxu_extent: Optional[torch.Tensor] = None  # i32[S, S, NB], port only
     diag_masks: Optional[torch.Tensor] = None  # bool[S, P, B]
     diag_pieces: Tuple[Tuple[int, int], ...] = ()
     mxu_block: int = 128
@@ -236,6 +242,17 @@ def _extract_ring_diagonals(senders, receivers, n, S, block, max_diags,
 
 def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def row_extent(src: np.ndarray, local_dst: np.ndarray,
+               mask: np.ndarray) -> np.ndarray:
+    """``i32[...]`` of the rows of ``[..., W]`` slot arrays: 1 + the index
+    of each row's last slot whose ``(mask, src, local_dst)`` is not
+    ``(0, 0, 0)``, 0 for a row with none. Every slot past a row's extent
+    is the blocked layout's padding."""
+    used = mask | (src != 0) | (local_dst != 0)
+    last = used.shape[-1] - np.argmax(used[..., ::-1], axis=-1)
+    return np.where(used.any(axis=-1), last, 0).astype(np.int32)
 
 
 def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
@@ -328,6 +345,7 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
         return None if a is None else torch.from_numpy(a).to(mesh.device)
 
     mxu_src, mxu_dst, mxu_mask = map(on, mxu_arrays or (None,) * 3)
+    mxu_extent = on(row_extent(*mxu_arrays) if mxu_arrays else None)
     return ShardedGraph(
         bkt_src=on(bkt_src), bkt_dst=on(bkt_dst), bkt_mask=on(bkt_mask),
         node_mask=on(per_node(graph.node_mask)),
@@ -335,8 +353,8 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
         in_degree=on(per_node(graph.in_degree)),
         n_nodes=graph.n_nodes, n_shards=S, block=block,
         mxu_src=mxu_src, mxu_dst=mxu_dst, mxu_mask=mxu_mask,
-        diag_masks=on(diag_masks), diag_pieces=diag_pieces,
-        mxu_block=mxu_block)
+        mxu_extent=mxu_extent, diag_masks=on(diag_masks),
+        diag_pieces=diag_pieces, mxu_block=mxu_block)
 
 
 # --------------------------------------------------------------- ring pass
@@ -392,15 +410,16 @@ def _ring_pass(S, frontier, group, acc0, combine, diag, comm: _RingComm):
         return _ring_pass_unrolled(S, frontier, group, diag, acc0, combine,
                                    comm)
     fn, *arrs = group
-    # The MXU group's fused form: (kind, post, kernel block).
+    # The MXU group's fused form: (kind, post, kernel block, row extents).
     fused = getattr(fn, "fused", None) if comm.fuses else None
     rot, acc = frontier, acc0
     for t in range(S - 1):
         bucket = [a[:, t] for a in arrs]
         if fused is not None:
-            kind, post, kblock = fused
-            rot_next, out = comm.fused_segment_sum(rot, kind, *bucket,
-                                                   kblock)
+            kind, post, kblock, extent = fused
+            rot_next, out = comm.fused_segment_sum(
+                rot, kind, *bucket, kblock,
+                None if extent is None else extent[:, t])
             acc = combine(acc, post(out))
         else:
             rot_next = comm.shift(rot)
@@ -468,10 +487,11 @@ def _bucket_minplus(block):
     return apply
 
 
-def _bucket_mxu(kind, block, mxu_block):
+def _bucket_mxu(kind, block, mxu_block, extent):
     """Bucket OR (``kind="or"``) or sum through the segment-sum kernel B1
     on all shards in one launch; ``apply.fused`` is the form the fusing
-    backend hands to kernel B3 (same reduction, the hop in the launch)."""
+    backend hands to kernel B3 (same reduction, the hop in the launch,
+    rows read up to their ``extent [S, S, NB]``)."""
     kernel = segsum.segsum_or if kind == "or" else segsum.segsum_sum
 
     def post(out):  # [S, NB * mxu_block] -> the block's [S, block]
@@ -480,7 +500,7 @@ def _bucket_mxu(kind, block, mxu_block):
     def apply(rot, src, dst, m):  # rot [S, B]; src/dst/m [S, NB, W]
         return post(kernel(rot, src, dst, m, mxu_block))
 
-    apply.fused = (kind, post, mxu_block)
+    apply.fused = (kind, post, mxu_block, extent)
     return apply
 
 
@@ -489,8 +509,8 @@ def _static_group(sg: ShardedGraph, kind: str):
     present, else the segment buckets — never both, since the segment
     buckets hold every edge."""
     if sg.mxu_src is not None:
-        return (_bucket_mxu(kind, sg.block, sg.mxu_block), sg.mxu_src,
-                sg.mxu_dst, sg.mxu_mask)
+        return (_bucket_mxu(kind, sg.block, sg.mxu_block, sg.mxu_extent),
+                sg.mxu_src, sg.mxu_dst, sg.mxu_mask)
     bucket = _bucket_or if kind == "or" else _bucket_sum
     return (bucket(sg.block), sg.bkt_src, sg.bkt_dst, sg.bkt_mask)
 

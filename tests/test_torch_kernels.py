@@ -255,8 +255,21 @@ def _meta(*shape, dtype):
         _meta(64, dtype=torch.float32), _meta(2, 2, 128, dtype=torch.int32),
         _meta(2, 2, 128, dtype=torch.int32),
         _meta(2, 2, 128, dtype=torch.bool), 128), "src must be"),
+    (lambda: ring.ring_segment_sum_or(
+        _meta(4, 64, dtype=torch.bool), _meta(4, 2, 128, dtype=torch.int32),
+        _meta(4, 2, 128, dtype=torch.int32),
+        _meta(4, 2, 128, dtype=torch.bool), 128,
+        extent=_meta(4, 2, dtype=torch.int64)), "extent must be i32"),
+    (lambda: ring.ring_segment_sum_sum(
+        _meta(4, 64, dtype=torch.float32),
+        _meta(4, 2, 2, 128, dtype=torch.int32)[:, 1],
+        _meta(4, 2, 2, 128, dtype=torch.int32)[:, 1],
+        _meta(4, 2, 2, 128, dtype=torch.bool)[:, 1], 128,
+        extent=_meta(4, 4, dtype=torch.int32)[:, ::2]),
+     "rows must be contiguous"),
 ], ids=["shift-device", "shift-layout", "segsum-device", "segsum-dtype",
-        "segsum-rows", "stacked-shards", "stacked-dims"])
+        "segsum-rows", "stacked-shards", "stacked-dims", "extent-dtype",
+        "extent-layout"])
 def test_ring_wrappers_refuse_what_the_kernels_do_not_take(call, match):
     with pytest.raises(ValueError, match=match):
         call()
@@ -325,3 +338,150 @@ def test_ring_segment_sum_kernel_matches_plain_on_card(s, nb, w, block, b):
     assert torch.equal(segsum.segsum_sum(ints, src, dst, mask, block),
                        segsum.segsum_sum_plain(ints, src, dst, mask, block))
     assert segsum.LAUNCHES == before + 3
+
+
+# -------------------------------------------------------- B3's row extents
+#
+# ``extent`` (``ShardedGraph.mxu_extent``, sliced as the buckets are): from
+# a row's extent on, every slot is the layout's padding ``(0, 0, 0)``,
+# which B3 then skips; the sum adds ``rot[d, 0] * 0`` to the row's first
+# output once, as those slots would. The plain versions read every slot.
+
+from p2pnetwork_tpu_torch.parallel.sharded import row_extent  # noqa: E402
+
+
+def extent_buckets(rng, s, nb, w, block, b, *, ext_lo=0, ext_hi=None,
+                   live=0.6, sort=False):
+    """Step 1 of ``[S, 2, NB, W]`` buckets (strided slices, as the ring
+    passes them) whose rows end at random extents in ``[ext_lo, ext_hi]``
+    (the whole range: the first row 0, the last W). Inside a row, masks
+    are ``live``-random (not a prefix), every source is >= 1 (so the last
+    slot is not padding) and ``sort`` sorts the destinations, as the ring
+    layout has them. Returns ``(src, dst, mask, extent)``."""
+    shape = (s, 2, nb, w)
+    hi = w if ext_hi is None else ext_hi
+    ext = rng.integers(ext_lo, hi + 1, shape[:-1])
+    if ext_lo == 0 and ext_hi is None:
+        ext[:, 1, 0], ext[:, 1, -1] = 0, w
+    inside = np.arange(w) < ext[..., None]
+    src = np.where(inside, rng.integers(1, b, shape), 0)
+    dst = rng.integers(0, block, shape)
+    dst = np.where(inside, np.sort(dst, axis=-1) if sort else dst, 0)
+    mask = inside & (rng.random(shape) < live)
+    return tuple(torch.from_numpy(a.astype(t))[:, 1] for a, t in (
+        (src, np.int32), (dst, np.int32), (mask, np.bool_),
+        (ext, np.int32)))
+
+
+def extent_signal(rng, kind, s, b):
+    """``rot [S, B]``: bool for "or", N(0, 1) for "f32", integer values
+    for "ints", and "nonfinite": N(0, 1) with NaN (even shards) or inf
+    (odd shards) at ``rot[d, 0]``, which only the padding reads."""
+    if kind == "or":
+        return torch.from_numpy(rng.random((s, b)) < 0.3)
+    if kind == "ints":
+        return torch.from_numpy(rng.integers(-8, 8, (s, b)).astype(np.float32))
+    x = rng.standard_normal((s, b)).astype(np.float32)
+    if kind == "nonfinite":
+        x[0::2, 0], x[1::2, 0] = np.nan, np.inf
+    return torch.from_numpy(x)
+
+
+def truncated_reduction(rot, src, dst, mask, extent, block):
+    """B3's output as its rows are read with extents: each row summed
+    (float64) up to its extent, plus one ``rot[d, 0] * 0`` at its first
+    output where the extent is below W; OR is a sum of flags > 0."""
+    rot, src, dst, mask, extent = (t.numpy() for t in (rot, src, dst, mask,
+                                                       extent))
+    s, nb, w = src.shape
+    out = np.zeros((s, nb, block))
+    for d in range(s):
+        for n in range(nb):
+            e = extent[d, n]
+            vals = rot[d][src[d, n, :e]]
+            terms = (vals & mask[d, n, :e] if rot.dtype == np.bool_
+                     else vals.astype(np.float64) * mask[d, n, :e])
+            np.add.at(out[d, n], dst[d, n, :e], terms)
+            if rot.dtype != np.bool_ and e < w:
+                with np.errstate(invalid="ignore"):  # inf * 0 is NaN
+                    out[d, n, 0] += np.float64(rot[d, 0]) * 0.0
+    out = out.reshape(s, nb * block)
+    return out > 0 if rot.dtype == np.bool_ else out
+
+
+def same_bits(a, b) -> bool:
+    """Bit-equal tensors (a NaN equals a NaN of the same bits)."""
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def assert_same_reduction(got, want, kind):
+    """OR and integer sums exactly; f32 sums within tolerance, NaN where
+    and only where ``want`` has it."""
+    got = np.asarray(got, dtype=np.float64 if kind != "or" else np.bool_)
+    if kind in ("or", "ints"):
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["or", "f32", "ints", "nonfinite"])
+def test_truncated_rows_equal_the_plain_version(kind):
+    rng = np.random.default_rng(11)
+    src, dst, mask, extent = extent_buckets(rng, 4, 6, 64, 128, 96)
+    assert torch.equal(extent, torch.from_numpy(row_extent(
+        src.numpy(), dst.numpy(), mask.numpy())))
+    rot = extent_signal(rng, kind, 4, 96)
+    fn = ring.ring_segment_sum_or if kind == "or" else ring.ring_segment_sum_sum
+    rot_next, got = fn(rot, src, dst, mask, 128, extent=extent)
+    assert same_bits(rot_next, torch.roll(rot, 1, 0))
+    want = truncated_reduction(rot, src, dst, mask, extent, 128)
+    assert_same_reduction(got.numpy(), want, kind)
+    if kind == "nonfinite":  # the padding term is what poisons them
+        assert np.isnan(want[:, 0]).all()
+
+
+#: B3 with extents on the card: (s, nb, w, block, b, extent_buckets'
+#: keywords). The ring's real steps at 1M nodes (``real-sparse``: steps
+#: 1 to 6; ``real-dense``: step 0), random rows, rows all padding or all
+#: used, and geometries that do not take the extent path (W = 130: rows
+#: not aligned; MAX_BLOCK: a warp's accumulator per row does not fit),
+#: where B3 reads every row at full width.
+_EXTENT_CASES = {
+    "real-sparse": (8, 245, 4864, 512, 125008,
+                    dict(ext_lo=1, ext_hi=99, live=1.0, sort=True)),
+    "real-dense": (8, 245, 4864, 512, 125008,
+                   dict(ext_lo=4500, ext_hi=4864, live=1.0, sort=True)),
+    "random": (3, 5, 640, 128, 300, {}),
+    "random-sorted": (3, 9, 1408, 128, 3000, dict(sort=True)),
+    "extent-0": (3, 5, 640, 128, 300, dict(ext_hi=0)),
+    "extent-w": (3, 5, 640, 128, 300, dict(ext_lo=640)),
+    "block-1": (2, 3, 32, 1, 50, {}),
+    "unaligned": (3, 5, 130, 128, 300, {}),
+    "block-max": (2, 3, 640, segsum.MAX_BLOCK, 300, {}),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["or", "f32", "ints", "nonfinite"])
+@pytest.mark.parametrize("case", sorted(_EXTENT_CASES))
+def test_ring_segment_sum_extent_kernel_matches_plain_on_card(case, kind):
+    _card()
+    s, nb, w, block, b, kw = _EXTENT_CASES[case]
+    rng = np.random.default_rng(len(case))
+    src, dst, mask, extent = (t.cuda() for t in extent_buckets(
+        rng, s, nb, w, block, b, **kw))
+    rot = extent_signal(rng, kind, s, b).cuda()
+    fn = ring.ring_segment_sum_or if kind == "or" else ring.ring_segment_sum_sum
+    plain = (ring.ring_segment_sum_or_plain if kind == "or"
+             else ring.ring_segment_sum_sum_plain)
+    want_next, want = plain(rot, src, dst, mask, block)
+    # The extents as the ring slices them (strided), contiguous, and none.
+    for ext in (extent, extent.contiguous(), None):
+        before = ring.SEGSUM_LAUNCHES
+        rot_next, got = fn(rot, src, dst, mask, block, extent=ext)
+        assert ring.SEGSUM_LAUNCHES == before + 1
+        assert same_bits(rot_next, want_next)
+        assert_same_reduction(got.cpu().numpy(), want.cpu().numpy().astype(
+            np.float64 if kind != "or" else np.bool_), kind)

@@ -39,6 +39,9 @@ from p2pnetwork_tpu_torch.parallel import auto  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
+from tests.test_torch_kernels import (  # noqa: E402
+    assert_same_reduction, extent_buckets, extent_signal,
+    truncated_reduction)
 
 S = 8
 RTOL = ATOL = 1e-5
@@ -57,6 +60,8 @@ CASE_IDS = [f"{g}-{lay}" for g, lay in CASES]
 COMMS = ("ppermute", "pallas")
 #: Port ShardedGraph fields that stay None (nothing ported reads them).
 UNPORTED = ("neighbors", "neighbors_mask")
+#: Port ShardedGraph fields the reference does not have.
+PORT_ONLY = ("mxu_extent",)
 
 
 @pytest.fixture(scope="module")
@@ -121,11 +126,31 @@ def assert_same_fields(got: dict, want: dict):
             assert g == w, (key, g, w)
 
 
+def _loop_extent(src, dst, mask):
+    """Each row's extent, found by a loop: 1 + the last slot whose
+    (mask, src, local_dst) is not (0, 0, 0), or 0."""
+    out = np.zeros(src.shape[:-1], dtype=np.int32)
+    for row in np.ndindex(*src.shape[:-1]):
+        used = np.flatnonzero(mask[row] | (src[row] != 0) | (dst[row] != 0))
+        out[row] = used[-1] + 1 if used.size else 0
+    return out
+
+
 def _port_fields_vs_reference(tsg, jsg):
+    """Both packages' fields, the port-only ones popped (the extent held
+    against a loop over the reference's MXU arrays)."""
     got, want = sharded_fields(tsg), sharded_fields(jsg)
     for key in UNPORTED:
         assert got.pop(key) is None
         want.pop(key)
+    extent = got.pop("mxu_extent")
+    if want["mxu_src"] is None:
+        assert extent is None
+    else:
+        np.testing.assert_array_equal(extent, _loop_extent(
+            want["mxu_src"], want["mxu_dst"], want["mxu_mask"]))
+    assert set(PORT_ONLY) == set(sharded_fields(tsg)) - set(
+        sharded_fields(jsg))
     return got, want
 
 
@@ -146,6 +171,21 @@ def test_main_path_shapes_at_4096(meshes):
     assert tuple(hyb.mxu_src.shape) == (S, S, 1, 128)
     assert len(hyb.diag_pieces) == 20
     assert tuple(hyb.diag_masks.shape) == (S, 20, 512)
+
+
+def test_mxu_extent_marks_each_rows_padding(meshes):
+    # At 4,096 nodes, as at 1M (PERF.md §4): step 0 holds nearly every
+    # edge, the other steps a few per row; past each extent only padding.
+    _, tsg = _sharded("ws4096", "mxu")
+    ext = tsg.mxu_extent.numpy()
+    assert ext.shape == tuple(tsg.mxu_src.shape[:-1])
+    assert ext[:, 0].min() > 4000 and ext[:, 1:].max() < 200
+    w = np.arange(tsg.mxu_src.shape[-1])
+    past = w >= ext[..., None]
+    for a in (tsg.mxu_src, tsg.mxu_dst, tsg.mxu_mask):
+        assert not a.numpy()[past].any()
+    live = tsg.mxu_mask.numpy()
+    assert (live.sum(-1) == ext).all()  # the real rows: live prefixes
 
 
 def test_ragged_last_shard(meshes):
@@ -341,6 +381,45 @@ def test_ring_segment_sum_matches_ppermute_plus_segsum(meshes, kind):
         np.testing.assert_array_equal(out.numpy(), want > 0)
     else:
         np.testing.assert_allclose(out.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("kind", ["or", "f32", "ints", "nonfinite"])
+def test_truncated_rows_equal_full_width_and_reference(meshes, kind):
+    # B3's reading of rows up to their extent (plus the one padding term
+    # of the sum), modelled in numpy, against the port's full-width plain
+    # version and the reference's Pallas segment sum of each shard, on
+    # rows whose masks are not prefixes. With a non-finite rot[d, 0]
+    # (read only by the padding) the reference's one-hot product spreads
+    # the NaN over its row's outputs, while the port's segment sum keeps
+    # it at the padding's destination: there the port's NaNs must lie
+    # among the reference's, and every output the reference has finite
+    # must agree.
+    rng = np.random.default_rng(13)
+    nb, w, blk, b = 6, 512, 128, 96
+    src, dst, mask, extent = extent_buckets(rng, S, nb, w, blk, b)
+    rot = extent_signal(rng, kind, S, b)
+    model = truncated_reduction(rot, src, dst, mask, extent, blk)
+    fn = (ring.ring_segment_sum_or_plain if kind == "or"
+          else ring.ring_segment_sum_sum_plain)
+    assert_same_reduction(fn(rot, src, dst, mask, blk)[1].numpy(), model,
+                          kind)
+    r, sn, dn, mn = (t.numpy() for t in (rot, src, dst, mask))
+    gathered = np.take_along_axis(r, sn.reshape(S, -1), 1).reshape(sn.shape)
+    with np.errstate(invalid="ignore"):  # inf * 0 in the padding
+        contrib = ((gathered & mn) if kind == "or"
+                   else gathered * mn).astype(np.float32)
+    want = np.stack([np.asarray(segment_sum_pallas_impl(
+        jnp.asarray(contrib[d]), jnp.asarray(dn[d]), blk, exact=False))
+        for d in range(S)]).reshape(S, -1)
+    if kind == "or":
+        want = want > 0
+    if kind != "nonfinite":
+        assert_same_reduction(want, model, kind)
+        return
+    finite = ~np.isnan(want)
+    assert np.isnan(model[~finite]).sum() == np.isnan(model).sum() > 0
+    np.testing.assert_allclose(model[finite], want[finite], rtol=RTOL,
+                               atol=ATOL)
 
 
 # ------------------------------------------------- routing and refusals
