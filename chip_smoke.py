@@ -34,23 +34,31 @@ Phases, in order; any failure exits non-zero before the result line:
    32), ``block`` 1 and ``MAX_BLOCK``, row counts that leave the
    persistent grid's last block one row, and a strided, unaligned stacked
    slice (with B3); B2 at per-shard sizes that are not multiples of 16
-   bytes, both directions.
+   bytes, both directions. C1 (run last, after every timed row): B1's
+   sum on both layouts with NaN, +inf and -inf at live slots and +inf at
+   ``signal[0]``, read by padding slots: the kernel's NaN set must equal
+   its plain version's (the reference's one-hot spread of a non-finite
+   term over its row), every other output within tolerance (``c1``
+   line).
 3b. B3 on the real buckets: after phase 4b has sharded phase 4's graph
    with ``mxu=True``, B3 (OR and sum) on ring steps 0 (95.7% live) and 1
    (1.3% live), sliced ``[:, t]`` as the ring pass slices them, with the
    rows' extents (``ms``, bound over the slots up to each extent) and at
    full width (``full_width_ms``, bound over every slot): OR and
-   ``rot_next`` bit-equal to the plain version, sum within tolerance
-   (also with NaN and inf at ``rot[d, 0]``), integer sum exact; timed as
-   in phase 3 (``kernel-real-step`` lines).
+   ``rot_next`` bit-equal to the plain version, sum within tolerance,
+   integer sum exact; timed as in phase 3 (``kernel-real-step`` lines).
+   After the timed rows, C1 as in phase 3: the sum with NaN and +-inf at
+   live slots, then at ``rot[d, 0]`` (``c1`` line).
 4. Main path: the 1M-node Watts–Strogatz graph flooded from node 0 to 99%
    coverage by ``run_until_coverage`` with ``Flood(pallas)``,
-   ``Flood(hybrid)``, ``AdaptiveFlood(hybrid, k=1024)`` and ``k=2048``.
-   Each must return the JAX reference's numbers exactly, and the kernel
-   must have been launched in each run. Then each method's steady-state
-   wall time (median of 5) and one run under ``torch.profiler``: device
-   kernel time, launches and idle share.
-4b. Ring: the same graph sharded 8 ways on the card
+   ``Flood(hybrid)``, ``AdaptiveFlood(hybrid, k=1024)``, ``k=2048`` and
+   ``Flood(frontier, bitset=True)``. Each must return the JAX reference's
+   numbers exactly and the same final ``seen``; each but ``frontier``
+   (whose dense fallback is ``auto`` -> ``gather``) must launch the
+   kernel, and ``frontier`` must take 9 sparse and 2 dense rounds. Then
+   each method's steady-state wall time (median of 5) and one run under
+   ``torch.profiler``: device kernel time, launches and idle share.
+4b. Ring: phase 4's graph sharded 8 ways on the card
    (``parallel.sharded.shard_graph``) in the ``segment``, ``mxu`` and
    ``hybrid`` layouts, each flooded to 99% by ``flood_until_coverage``
    with the default comm (the CUDA ring kernels). Each must return the
@@ -61,7 +69,23 @@ Phases, in order; any failure exits non-zero before the result line:
    layout, as in phase 4; on ``mxu`` the profile splits B3's device time
    by ring step, and a second one profiles the same flood with its rows
    at full width (``profile_full_width``: B3 without extents).
-5. Result: a JSON line of kernel numbers, then the last line
+4c. Churn: phase 4's graph with 256 slots of dynamic edge region, the
+   64-link connect batch of ``benchmarks/ladder.py`` (undirected) and
+   nodes 5,000 to 14,999 failed (every layout re-masked), flooded by
+   ``pallas``, ``hybrid``, ``AdaptiveFlood(hybrid, k=1024)``,
+   ``frontier`` + bitset and ``segment``; each must return the JAX
+   reference's churn dict (``EXPECTED_CHURN``) and the same ``seen``, and
+   the first three launch B1 on the re-masked layouts. Then ``hybrid``
+   resumed: ``run_from`` 3 rounds and ``run_until_coverage_from``, its
+   stacked stats and resumed dict equal to the reference's, ending on the
+   same ``seen``. Wall, syncs, launches and a profile per method.
+4d. Skew: the ladder's 1M Barabási–Albert rung (``m = 5``, skew table, no
+   neighbor table), flooded by ``skew``, ``auto`` (which must route to
+   ``skew``), ``segment`` and ``AdaptiveFlood(segment, k=2048)``, then
+   with a seeded 1% of its edges cut by ``skew`` and ``segment``: each
+   must return the JAX reference's dict; wall and a profile per method.
+5. Result: a JSON line of kernel numbers (B1's launches summed over
+   phases 4, 4c and 4b), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -75,6 +99,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 #: The JAX reference's run-to-0.99 summary on the 1M-node benchmark graph.
@@ -89,6 +114,54 @@ EXPECTED_1M = {"rounds": 11, "coverage": 0.9997529983520508,
                "frontier_occupancy_mean": 0.09088654816150665}
 N_NODES = 1_000_000
 N_PAD = 1_000_064
+
+#: ``Flood(method="frontier", bitset=True)`` on that graph: its budget
+#: (294,117 nodes; ``max_out_span`` 17) holds the frontiers entering
+#: rounds 1 to 9 (1 to 130,851 nodes), not those of rounds 10 and 11
+#: (352,626 and 402,135), as the JAX package counts them on the CPU.
+FRONTIER_ROUNDS_1M = {"sparse": 9, "dense": 2}
+
+#: The JAX reference on phase 4c's churned graph and phase 4d's BA rung,
+#: made on the CPU with its ``segment`` method (its ``frontier`` +
+#: ``bitset``, ``AdaptiveFlood`` and ``skew`` runs give the same dicts).
+#: Regenerate (about a minute; layouts left out: ``segment`` reads none):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine as E, topology as T, failures as F
+#:   from p2pnetwork_tpu.models import Flood
+#:   k, p, i = jax.random.key(0), Flood(method="segment"), np.arange(64)
+#:   cov = dict(coverage_target=0.99, max_rounds=64)
+#:   g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0, source_csr=True)
+#:   g = T.connect(T.with_capacity(g, extra_edges=256), i * 37 % 99_000, (i * 91 + 13) % 99_000)
+#:   g = F.fail_nodes(g, np.arange(5_000, 15_000))
+#:   print(E.run_until_coverage(g, p, k, **cov)[1])
+#:   s, st = E.run_from(g, p, p.init(g, k), k, 3, donate=False)
+#:   print({n: np.asarray(v).tolist() for n, v in st.items()}, E.run_until_coverage_from(g, p, s, k, donate=False, **cov)[1])
+#:   b = G.barabasi_albert(1_000_000, 5, seed=0, build_neighbor_table=False, source_csr=True, skew_table=True)
+#:   print(b.skew.width, b.skew.n_rows, b.max_out_span, E.run_until_coverage(b, p, k, **cov)[1])
+#:   cut = np.random.default_rng(0).choice(b.n_edges, b.n_edges // 100, replace=False)
+#:   print(E.run_until_coverage(F.fail_edges(b, cut), p, k, **cov)[1])
+#:   EOF
+EXPECTED_CHURN = {"rounds": 11, "coverage": 0.9998626112937927,
+                  "messages": 9409791,
+                  "frontier_occupancy_mean": 0.09089651703834534}
+EXPECTED_CHURN_RUN_FROM = {
+    "messages": [12, 125, 455], "frontier": [12, 45, 181],
+    "coverage": [1.3131312698533293e-05, 5.858585791429505e-05,
+                 0.0002414141345070675],
+    "frontier_occupancy": [1.2121212421334349e-05, 4.545454430626705e-05,
+                           0.00018282828386873007]}
+EXPECTED_CHURN_RESUMED = {"rounds": 8, "coverage": 0.9998626112937927,
+                          "messages": 9409199,
+                          "frontier_occupancy_mean": 0.12495265156030655}
+EXPECTED_BA_SHAPE = {"skew_width": 8, "skew_rows": 1603696,
+                     "max_out_span": 6795}
+EXPECTED_BA = {"rounds": 4, "coverage": 0.9999989867210388,
+               "messages": 9274831,
+               "frontier_occupancy_mean": 0.2499994933605194}
+EXPECTED_BA_CUT = {"rounds": 4, "coverage": 0.9999979734420776,
+                   "messages": 9150030,
+                   "frontier_occupancy_mean": 0.2499992549419403}
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -213,6 +286,38 @@ def pregathered(sig, src, mask):
     return (terms * mask).reshape(-1, src.shape[-1])
 
 
+def poison(x, src, mask, at_zero=True):
+    """``x`` (``[B]`` or ``[S, B]``) with NaN, +inf and -inf at the sources
+    of three live slots of each shard's buckets ``src``/``mask`` and, with
+    ``at_zero``, +inf at source 0, the address padding slots read."""
+    bad = x.clone()
+    rows = bad if bad.dim() == 2 else bad[None]
+    srcs = src if src.dim() == 3 else src[None]
+    masks = mask if mask.dim() == 3 else mask[None]
+    for d in range(rows.shape[0]):
+        live = srcs[d][masks[d]]
+        picks = live[torch.linspace(0, live.numel() - 1, 3,
+                                    device=live.device).long()].long()
+        rows[d, picks] = torch.tensor([float("nan"), float("inf"),
+                                       float("-inf")], device=x.device)
+        if at_zero:
+            rows[d, 0] = float("inf")
+    return bad
+
+
+def check_nonfinite(label, got, want):
+    """C1: the kernel's NaN set must equal its plain version's, every
+    other output within tolerance. Returns the count of NaN outputs."""
+    if not torch.equal(got.isnan(), want.isnan()) or not torch.allclose(
+            got, want, rtol=RTOL, atol=ATOL, equal_nan=True):
+        fail(f"{label}: non-finite terms spread differently from the plain "
+             f"version")
+    n_nan = int(want.isnan().sum().item())
+    if n_nan == 0:
+        fail(f"{label}: the non-finite check put no NaN anywhere")
+    return n_nan
+
+
 def ring_kernel_phase(ring, segsum, flush):
     """Phase 3, the ring's kernels: B1's stacked entry, B2 and B3 against
     their plain versions at the 1M/S=8 shapes."""
@@ -321,23 +426,21 @@ def real_step_phase(ring, sg) -> tuple:
     row's extent and the extents) and at full width (``full_width_ms``,
     the path of a launch without extents, beside ``full_width_bound_ms``
     over every slot), against its plain version: OR and
-    ``rot_next`` bit-equal, sum within tolerance (NaN where the plain
-    version has it, with non-finite ``rot[d, 0]``), integer sum exact.
+    ``rot_next`` bit-equal, sum within tolerance, integer sum exact; after
+    the timed rows, C1: the sum with NaN and +-inf at live slots, and at
+    ``rot[d, 0]``, with the plain version's NaN set.
     ``launch_floor_ms`` is a one-element fill timed the same way: the
     least any launch shows here. Returns the rows and the sum's max abs
     error."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     dev = torch.device("cuda")
     flags, x, xi = ring_signals(gen)
-    x_bad = x.clone()
-    x_bad[0::2, 0] = torch.nan
-    x_bad[1::2, 0] = torch.inf
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device=dev)
     # What any one launch takes under this timing: a one-element fill.
     tiny = torch.zeros(1, device=dev)
     floor_ms = cuda_times(lambda: tiny.fill_(1.0), 50, flush)
     block = sg.mxu_block
-    rows, max_err = [], 0.0
+    rows, max_err, nan_outputs = [], 0.0, {}
     for t in REAL_STEPS:
         src, dst, mask = (a[:, t] for a in (sg.mxu_src, sg.mxu_dst,
                                             sg.mxu_mask))
@@ -369,13 +472,6 @@ def real_step_phase(ring, sg) -> tuple:
                     if not torch.equal(fn(xi, *args, extent=ext)[1],
                                        plain(xi, *args)[1]):
                         fail(f"{label}: inexact on integer values")
-                    got_bad = fn(x_bad, *args, extent=ext)[1]
-                    want_bad = plain(x_bad, *args)[1]
-                    if not torch.equal(got_bad.isnan(), want_bad.isnan()) \
-                            or not torch.allclose(got_bad, want_bad, rtol=RTOL,
-                                                  atol=ATOL, equal_nan=True):
-                        fail(f"{label}: differs from its plain version with "
-                             f"a non-finite rot[d, 0]")
             torch.cuda.synchronize()
             sig_bytes = sig.numel() * sig.element_size()
             out_bytes = s * nb * block * sig.element_size() + sig_bytes
@@ -403,6 +499,31 @@ def real_step_phase(ring, sg) -> tuple:
                 "launch_floor_ms": floor_ms})
             print(json.dumps({"phase": "kernel-real-step", **rows[-1]}),
                   flush=True)
+    # C1, after the timed rows: the sum with NaN and +-inf at live slots
+    # (rot[d, 0] finite), then with NaN or +inf at rot[d, 0], which every
+    # row's padding reads (those rows go all NaN).
+    for t in REAL_STEPS:
+        src, dst, mask = (a[:, t] for a in (sg.mxu_src, sg.mxu_dst,
+                                            sg.mxu_mask))
+        args = (src, dst, mask, block)
+        x_live = poison(x, src, mask, at_zero=False)
+        x_live[:, 0] = x[:, 0]
+        x_pad = x.clone()
+        x_pad[0::2, 0], x_pad[1::2, 0] = torch.nan, torch.inf
+        for ext in (sg.mxu_extent[:, t], None):
+            for tag, bad in (("live", x_live), ("pad", x_pad)):
+                label = (f"ring_segment_sum_sum on real step {t} ("
+                         f"{'extents' if ext is not None else 'full width'}"
+                         f"), non-finite {tag}")
+                nan_outputs[f"step{t}-{tag}-" + (
+                    "extents" if ext is not None else "full")] = \
+                    check_nonfinite(label,
+                                    ring.ring_segment_sum_sum(
+                                        bad, *args, extent=ext)[1],
+                                    ring.ring_segment_sum_sum_plain(
+                                        bad, *args)[1])
+    print(json.dumps({"phase": "c1", "kernel": "ring_segsum",
+                      "nan_outputs": nan_outputs}), flush=True)
     return rows, max_err
 
 
@@ -470,6 +591,31 @@ def kernel_phase(segsum, flush):
                 "bound_ms": least, "bound_by": bound_by,
             })
     return rows, max_err
+
+
+def c1_phase(segsum):
+    """Phase 3, C1 (after the timed rows, which then see the parent's
+    allocations): B1's sum on both layouts with NaN, +inf and -inf at live
+    slots and +inf at source 0, which padding slots read (the last 4
+    slots of every 7th row: source 0 behind a False mask)."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dev = torch.device("cuda")
+    nan_outputs = {}
+    for layout, nb, w, block, live in LAYOUTS:
+        src = torch.randint(0, N_PAD, (nb, w), generator=gen, device=dev,
+                            dtype=torch.int32)
+        dst = torch.randint(0, block, (nb, w), generator=gen, device=dev,
+                            dtype=torch.int32)
+        mask = torch.rand(nb, w, generator=gen, device=dev) < live
+        x = torch.randn(N_PAD, generator=gen, device=dev)
+        bad = poison(x, src, mask)
+        src[::7, -4:], mask[::7, -4:] = 0, False
+        args = (bad, src, dst, mask, block)
+        nan_outputs[layout] = check_nonfinite(
+            f"segsum_sum ({layout}, non-finite terms)",
+            segsum.segsum_sum(*args), segsum.segsum_sum_plain(*args))
+    print(json.dumps({"phase": "c1", "kernel": "segsum",
+                      "nan_outputs": nan_outputs}), flush=True)
 
 
 def check_b1(segsum, label, flags, x, xi, src, dst, mask, block) -> float:
@@ -559,10 +705,19 @@ def edge_phase(ring, segsum) -> dict:
     return errs
 
 
-def main_path(engine, segsum, device_mod, graph_mod, models):
+def bool_seen(state, n_pad):
+    """A flood state's ``seen`` as bool (packed states unpacked)."""
+    from p2pnetwork_tpu_torch.ops import bitset
+
+    seen = state.seen
+    return bitset.unpack_bits(seen, n_pad) if seen.dtype == torch.int32 \
+        else seen
+
+
+def main_path(engine, segsum, device_mod, graph_mod, models, frontier_ops):
     """Phase 4: the 1M-node flood contest through the port's entry points.
-    Returns the kernel launches counted over the four checked runs, the
-    graph and the final ``seen`` every method reached."""
+    Returns the kernel launches counted over the checked runs, the graph
+    and the final ``seen`` every method reached."""
     Flood, AdaptiveFlood = models
     t0 = time.perf_counter()
     g = graph_mod.watts_strogatz(N_NODES, 10, 0.1, seed=0, blocked=True,
@@ -580,35 +735,64 @@ def main_path(engine, segsum, device_mod, graph_mod, models):
                ("adaptive-1024", AdaptiveFlood(source=0, method="hybrid",
                                                k=1024)),
                ("adaptive-2048", AdaptiveFlood(source=0, method="hybrid",
-                                               k=2048))]
+                                               k=2048)),
+               ("frontier", Flood(source=0, method="frontier", bitset=True))]
+    runs, total_launches, seen = flood_runs(
+        "main-path", g, contest, EXPECTED_1M, engine, segsum, device_mod,
+        frontier_ops, kernel_free=("frontier",))
+    if runs[-1]["frontier_rounds"] != FRONTIER_ROUNDS_1M:
+        fail(f"frontier took {runs[-1]['frontier_rounds']} sparse/dense "
+             f"rounds, the reference's budget gives {FRONTIER_ROUNDS_1M}")
+    steady_state(runs, contest, g, engine, "main-path")
+    return total_launches, g, seen
+
+
+def flood_runs(phase, g, contest, expected, engine, segsum, device_mod,
+               frontier_ops, kernel_free=()):
+    """One checked run per method: each must return ``expected`` and
+    reach the same final ``seen``; each but ``kernel_free`` must launch
+    B1. Counts are set to 0 just before each run and read just after.
+    Returns the per-method records, B1's launches over them and the final
+    ``seen``."""
     n_live = g.node_mask.sum()
-    runs = []
-    segsum.LAUNCHES = 0
+    runs, total, seen = [], 0, None
     for name, proto in contest:
-        before, device_mod.SYNCS = segsum.LAUNCHES, 0
+        segsum.LAUNCHES = device_mod.SYNCS = 0
+        frontier_ops.ROUNDS.update(sparse=0, dense=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, out = engine.run_until_coverage(g, proto, coverage_target=0.99,
                                                max_rounds=64)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = segsum.LAUNCHES - before
-        if out != EXPECTED_1M:
-            fail(f"{name} returned {out}, the reference gives {EXPECTED_1M}")
-        cov = ((state.seen & g.node_mask).sum().to(torch.float32)
+        launches = segsum.LAUNCHES
+        if out != expected:
+            fail(f"{phase} {name} returned {out}, the reference gives "
+                 f"{expected}")
+        final = bool_seen(state, g.n_nodes_padded)
+        cov = ((final & g.node_mask).sum().to(torch.float32)
                / n_live.to(torch.float32)).item()
-        if cov != out["coverage"] or state.seen.shape != (N_PAD,):
-            fail(f"{name}: final state disagrees with its summary")
-        if launches == 0:
-            fail(f"{name} never launched the segment-sum kernel")
+        if cov != out["coverage"] or final.shape != (g.n_nodes_padded,):
+            fail(f"{phase} {name}: final state disagrees with its summary")
+        if seen is not None and not torch.equal(final, seen):
+            fail(f"{phase} {name}: final seen differs from "
+                 f"{contest[0][0]}'s")
+        seen = final
+        if launches == 0 and name not in kernel_free:
+            fail(f"{phase} {name} never launched the segment-sum kernel")
+        total += launches
         runs.append({"method": name, "first_run_s": wall,
-                     "launches": launches, "syncs": device_mod.SYNCS})
-        seen = state.seen
-    total_launches = segsum.LAUNCHES
-    # Steady state and device time per method, outside the counted runs.
+                     "launches": launches, "syncs": device_mod.SYNCS,
+                     "frontier_rounds": dict(frontier_ops.ROUNDS)})
+    return runs, total, seen
+
+
+def steady_state(runs, contest, g, engine, phase, reps=5, profile=True):
+    """Each method's steady-state wall (median of ``reps``) and one run
+    under the profiler, outside the counted runs; prints a line each."""
     for run, (_, proto) in zip(runs, contest):
         times = []
-        for _ in range(5):
+        for _ in range(reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             engine.run_until_coverage(g, proto, coverage_target=0.99,
@@ -617,10 +801,137 @@ def main_path(engine, segsum, device_mod, graph_mod, models):
             times.append(time.perf_counter() - t0)
         run["wall_s"] = sorted(times)[len(times) // 2]
         run["wall_s_all"] = times
-        run["profile"] = profile_run(lambda: engine.run_until_coverage(
-            g, proto, coverage_target=0.99, max_rounds=64))
-        print(json.dumps({"phase": "main-path", **run}), flush=True)
-    return total_launches, g, seen
+        if profile:
+            run["profile"] = profile_run(lambda: engine.run_until_coverage(
+                g, proto, coverage_target=0.99, max_rounds=64))
+        print(json.dumps({"phase": phase, **run}), flush=True)
+
+
+def churn_path(g, engine, segsum, device_mod, models, frontier_ops,
+               topology, failures):
+    """Phase 4c: phase 4's graph under churn — 256 slots of dynamic
+    region, the ladder's 64-link connect batch (undirected), nodes 5,000
+    to 14,999 failed — flooded by five methods, then resumed: ``hybrid``
+    by ``run_from`` for 3 rounds and ``run_until_coverage_from``. Returns
+    B1's launches over the checked runs."""
+    Flood, AdaptiveFlood = models
+    t0 = time.perf_counter()
+    gc = topology.with_capacity(g, extra_edges=256)
+    gc = topology.connect(gc, [(i * 37) % 99_000 for i in range(64)],
+                          [(i * 91 + 13) % 99_000 for i in range(64)])
+    gc = failures.fail_nodes(gc, range(5_000, 15_000))
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "phase": "churn-graph", "build_s": time.perf_counter() - t0,
+        "live_nodes": int(gc.node_mask.sum().item()),
+        "live_edges": int(gc.edge_mask.sum().item()),
+        "dynamic_links": int(gc.dyn_mask.sum().item()),
+        "blocked_live_slots": int(gc.blocked.mask.sum().item()),
+        "remainder_live_slots": int(gc.hybrid.remainder.mask.sum().item())}),
+        flush=True)
+    contest = [("pallas", Flood(source=0, method="pallas")),
+               ("hybrid", Flood(source=0, method="hybrid")),
+               ("adaptive-1024", AdaptiveFlood(source=0, method="hybrid",
+                                               k=1024)),
+               ("frontier", Flood(source=0, method="frontier", bitset=True)),
+               ("segment", Flood(source=0, method="segment"))]
+    runs, launches, seen = flood_runs(
+        "churn-path", gc, contest, EXPECTED_CHURN, engine, segsum,
+        device_mod, frontier_ops, kernel_free=("frontier", "segment"))
+
+    # The resumed run: 3 rounds, then to coverage; the dict counts the
+    # resumed rounds only, as the reference's does.
+    proto = contest[1][1]
+    segsum.LAUNCHES = device_mod.SYNCS = 0
+    mid, stats = engine.run_from(gc, proto, proto.init(gc), 3)
+    end, out = engine.run_until_coverage_from(gc, proto, mid,
+                                              coverage_target=0.99,
+                                              max_rounds=64)
+    torch.cuda.synchronize()
+    resumed = {"method": "hybrid-resumed", "launches": segsum.LAUNCHES,
+               "syncs": device_mod.SYNCS,
+               "run_from": {k: v.tolist() for k, v in stats.items()},
+               "resumed": out}
+    if resumed["run_from"] != EXPECTED_CHURN_RUN_FROM:
+        fail(f"churn run_from gave {resumed['run_from']}, the reference "
+             f"gives {EXPECTED_CHURN_RUN_FROM}")
+    if out != EXPECTED_CHURN_RESUMED:
+        fail(f"churn resumed run gave {out}, the reference gives "
+             f"{EXPECTED_CHURN_RESUMED}")
+    if not torch.equal(end.seen, seen):
+        fail("churn resumed run ends elsewhere than the direct runs")
+    if segsum.LAUNCHES == 0:
+        fail("churn resumed run never launched the segment-sum kernel")
+    launches += segsum.LAUNCHES
+    print(json.dumps({"phase": "churn-path", **resumed}), flush=True)
+    steady_state(runs, contest, gc, engine, "churn-path")
+    return launches
+
+
+def skew_path(engine, device_mod, models, graph_mod, failures):
+    """Phase 4d: the ladder's 1M Barabási–Albert rung, flooded to 0.99 by
+    ``skew``, ``auto`` (which must route to ``skew``), ``segment`` and the
+    adaptive flood, then with a seeded 1% of its edges cut, by ``skew``
+    and ``segment``. No kernel runs here: the skew table, segment and the
+    sparse rounds are gathers and scatters."""
+    from p2pnetwork_tpu_torch.ops import segment
+
+    Flood, AdaptiveFlood = models
+    t0 = time.perf_counter()
+    g = graph_mod.barabasi_albert(N_NODES, 5, seed=0,
+                                  build_neighbor_table=False,
+                                  source_csr=True, skew_table=True)
+    torch.cuda.synchronize()
+    shape = {"skew_width": g.skew.width, "skew_rows": g.skew.n_rows,
+             "max_out_span": g.max_out_span}
+    print(json.dumps({"phase": "skew-graph",
+                      "build_s": time.perf_counter() - t0,
+                      "n_edges": g.n_edges, **shape}), flush=True)
+    if shape != EXPECTED_BA_SHAPE:
+        fail(f"BA skew table {shape}, the reference builds "
+             f"{EXPECTED_BA_SHAPE}")
+    if segment._auto_method(g) != "skew":
+        fail(f"auto routes the BA graph to {segment._auto_method(g)}, "
+             f"not skew")
+    ids = np.random.default_rng(0).choice(g.n_edges, g.n_edges // 100,
+                                          replace=False)
+    cut = failures.fail_edges(g, ids)
+    for graph, expected, contest in (
+            (g, EXPECTED_BA, [
+                ("skew", Flood(source=0, method="skew")),
+                ("auto", Flood(source=0, method="auto")),
+                ("segment", Flood(source=0, method="segment")),
+                ("adaptive-2048", AdaptiveFlood(source=0, method="segment",
+                                                k=2048))]),
+            (cut, EXPECTED_BA_CUT, [
+                ("skew-cut", Flood(source=0, method="skew")),
+                ("segment-cut", Flood(source=0, method="segment"))])):
+        seen = None
+        for name, proto in contest:
+            device_mod.SYNCS = 0
+            state, out = engine.run_until_coverage(
+                graph, proto, coverage_target=0.99, max_rounds=64)
+            syncs = device_mod.SYNCS
+            if out != expected:
+                fail(f"BA {name} returned {out}, the reference gives "
+                     f"{expected}")
+            if seen is not None and not torch.equal(state.seen, seen):
+                fail(f"BA {name}: final seen differs from {contest[0][0]}'s")
+            seen = state.seen
+            times = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                engine.run_until_coverage(graph, proto, coverage_target=0.99,
+                                          max_rounds=64)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            print(json.dumps({
+                "phase": "skew-path", "method": name, "syncs": syncs,
+                "wall_s": sorted(times)[2], "wall_s_all": times,
+                "profile": profile_run(lambda: engine.run_until_coverage(
+                    graph, proto, coverage_target=0.99, max_rounds=64))}),
+                flush=True)
 
 
 #: Launches each ring layout must make (> 0): kernel name -> counter.
@@ -785,10 +1096,11 @@ def main() -> int:
     from p2pnetwork_tpu_torch import _build, _device
     from p2pnetwork_tpu_torch.models.adaptive_flood import AdaptiveFlood
     from p2pnetwork_tpu_torch.models.flood import Flood
+    from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
     from p2pnetwork_tpu_torch.ops import ring, segsum
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
-    from p2pnetwork_tpu_torch.sim import engine
+    from p2pnetwork_tpu_torch.sim import engine, failures, topology
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
 
     # 1. Device.
@@ -816,12 +1128,28 @@ def main() -> int:
     del flush
 
     # 4. Main path.
-    launches, g, seen = main_path(engine, segsum, _device, graph_mod,
-                                  (Flood, AdaptiveFlood))
+    models = (Flood, AdaptiveFlood)
+    launches, g, seen = main_path(engine, segsum, _device, graph_mod, models,
+                                  frontier_ops)
 
     # 4b. Ring.
     ring_launches, step_rows, step_err = ring_path(
         g, seen, ring, segsum, _device, sharded, mesh_mod)
+
+    # 4c. Churn on the same graph. The phases new in slice 3 run after the
+    # timed rows and runs that earlier slices had, which so see the same
+    # device allocations as before (phase 3b's small kernels moved by
+    # ~0.3 us when 4c ran before 4b).
+    launches += churn_path(g, engine, segsum, _device, models, frontier_ops,
+                           topology, failures)
+    del g
+    torch.cuda.empty_cache()
+
+    # 4d. Skew: the 1M BA rung.
+    skew_path(engine, _device, models, graph_mod, failures)
+
+    # Phase 3's C1 check of B1 (B3's ran at the end of phase 3b).
+    c1_phase(segsum)
 
     # 5. Result. Each kernel's row is its main-path use: B1's OR entry on
     # the hybrid remainder (the adaptive and hybrid floods), B2's forward

@@ -83,13 +83,25 @@
 //
 // The sum keeps the reference's NaN rule: a masked slot still multiplies
 // its signal (signal * mask), so its src is read and its signal gathered
-// on every path. OR writes flags (idempotent, bit-exact); the sum's
+// on every path. And it keeps the reference's spread of a non-finite
+// term: the TPU kernel multiplies each row's terms by a one-hot matrix,
+// so a term t at destination d also adds t * 0 to every other output of
+// its row, which is NaN when t is not finite. Here out[n, b] is NaN
+// whenever row n holds a non-finite term whose destination is not b, and
+// the plain sum otherwise. Each row group keeps one 64-bit word per
+// accumulator in shared memory for it (note_nonfinite): the row's tag,
+// the first non-finite term's destination and a bit for a second,
+// different one. The hot loop only adds each term into a per-thread
+// screen (screen_of); a thread whose screen is not finite walks its
+// chunks again to note the terms, and every row pays a read of its word
+// at write-back. OR writes flags (idempotent, bit-exact); the sum's
 // atomics add in an order that varies from run to run (exact on integer
 // values below 2^24).
 
 #pragma once
 
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 #include <atomic>
@@ -171,6 +183,63 @@ __device__ __forceinline__ int lane_of(const int4& v, int j) {
 
 __device__ __forceinline__ bool live(uint32_t mask, int j) {
   return (mask >> (8 * j)) & 0xffu;
+}
+
+// ------------------------------------------------ non-finite terms (sum)
+//
+// A row's word: bits 32-63 the row's tag (row + 1; 0 = no non-finite term
+// seen), bits 0-30 the destination of the first non-finite term noted,
+// bit 31 set once a term at another destination was noted too. The tag
+// makes a word valid for one row only, so it is never cleared between
+// rows; the barriers that order an accumulator's rows order its word's.
+constexpr unsigned long long kSecondDst = 1ull << 31;
+constexpr unsigned long long kDstBits = kSecondDst - 1;
+// Words per block: one per accumulator of the most row groups (8 warps,
+// two accumulators each).
+constexpr int kPoisonWords = 2 * (kThreads / 32);
+
+__device__ __forceinline__ bool nonfinite(float v) {
+  return !(fabsf(v) <= FLT_MAX);  // false for NaN too
+}
+
+// Notes a non-finite term at destination d of the row tagged `tag`.
+static __device__ __noinline__ void note_nonfinite(unsigned long long* word,
+                                                   unsigned tag, int d) {
+  const unsigned long long first =
+      static_cast<unsigned long long>(tag) << 32 | static_cast<unsigned>(d);
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(word);
+  while (true) {
+    unsigned long long want;
+    if ((old >> 32) != tag) {
+      want = first;
+    } else if ((old & kSecondDst) || (old & kDstBits) == static_cast<unsigned>(d)) {
+      return;
+    } else {
+      want = old | kSecondDst;
+    }
+    const unsigned long long seen = atomicCAS(word, old, want);
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+// Where the sum's non-finite terms of a row are noted.
+struct Poison {
+  unsigned long long* word;
+  unsigned tag;
+};
+
+// The screen: each thread adds up every term it reduces. The total is not
+// finite whenever a term is not (inf + finite = inf, inf - inf = NaN, NaN
+// stays), so the hot loop pays one add per term and no branch; a thread
+// whose total is not finite (rarely, finite terms that overflow) walks its
+// chunks again with note_terms, off the hot loop.
+template <int B>
+__device__ __forceinline__ float screen_of(const float (&v)[B][4]) {
+  float s = 0.0f;
+#pragma unroll
+  for (int k = 0; k < B; ++k) s += (v[k][0] + v[k][1]) + (v[k][2] + v[k][3]);
+  return s;
 }
 
 // Loads chunk i of a row whose slots start at src/dst/mask.
@@ -295,30 +364,78 @@ __device__ __forceinline__ void scatter_batch(const Batch<B>& b,
   }
 }
 
+// The slow half of the screen: chunks first, first + step, ... of a row
+// loaded and gathered again as reduce_row's path P does (the same terms),
+// each non-finite term noted at its destination.
+template <Path P>
+__device__ __noinline__ void note_terms(const float* __restrict__ signal,
+                                        const int32_t* __restrict__ src,
+                                        const int32_t* __restrict__ dst,
+                                        const uint8_t* __restrict__ mask,
+                                        int width, int n_chunks, int first,
+                                        int step, Poison poison) {
+  for (int i = first; i < n_chunks; i += step) {
+    Batch<1> b;
+    load_batch<P, 1>(b, src, dst, mask, width, n_chunks, i, step);
+    float v[1][4];
+    gather_batch<SumOp, 1>(signal, b, v);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (nonfinite(v[0][j])) {
+        note_nonfinite(poison.word, poison.tag, lane_of(b.c[0].dst, j));
+      }
+    }
+  }
+}
+
 // Reduces chunks first, first + step, ... < n_chunks of one row into acc,
-// batch_of(P) chunks at a time: loads, then gathers, then updates.
+// batch_of(P) chunks at a time: loads, then gathers, then updates. The
+// sum then notes the row's non-finite terms (see screen_of).
 template <class Op, Path P>
 __device__ __forceinline__ void reduce_row(
     const typename Op::T* __restrict__ signal,
     const int32_t* __restrict__ src, const int32_t* __restrict__ dst,
     const uint8_t* __restrict__ mask, int width, int n_chunks, int first,
-    int step, typename Op::T* acc) {
+    int step, typename Op::T* acc, Poison poison) {
   constexpr int B = batch_of(P);
+  float screen = 0.0f;
   for (int base = first; base < n_chunks; base += B * step) {
     Batch<B> b;
     load_batch<P, B>(b, src, dst, mask, width, n_chunks, base, step);
     typename Op::T v[B][4];
     gather_batch<Op, B>(signal, b, v);
     scatter_batch<Op, B>(b, v, acc);
+    if constexpr (!Op::kOr) screen += screen_of<B>(v);
+  }
+  if constexpr (!Op::kOr) {
+    if (nonfinite(screen)) {
+      note_terms<P>(signal, src, dst, mask, width, n_chunks, first, step,
+                    poison);
+    }
   }
 }
 
 // Writes one row's accumulator to out_row and zeroes it; thread `lane` of
-// `threads`.
+// `threads`. For the sum, a row with a non-finite term (its word carries
+// the row's tag) writes NaN to every output but the one destination that
+// may keep its sum.
 template <typename T>
 __device__ __forceinline__ void write_back(T* acc, T* __restrict__ out_row,
                                            const Rows& g, int lane,
-                                           int threads) {
+                                           int threads, Poison poison) {
+  if constexpr (!std::is_same_v<T, uint8_t>) {
+    const unsigned long long p =
+        *reinterpret_cast<volatile unsigned long long*>(poison.word);
+    if ((p >> 32) == poison.tag) {
+      const int keep =
+          (p & kSecondDst) ? -1 : static_cast<int>(p & kDstBits);
+      for (int b = lane; b < g.block; b += threads) {
+        out_row[b] = b == keep ? acc[b] : __int_as_float(0x7fc00000);
+        acc[b] = T(0);
+      }
+      return;
+    }
+  }
   if (g.out_vec) {
     const int n = g.block * static_cast<int>(sizeof(T)) / 16;
     uint4* a = reinterpret_cast<uint4*>(acc);
@@ -364,20 +481,27 @@ __device__ void run_rows(const typename Op::T* __restrict__ signal,
   const int group = threadIdx.x >> g.group_log2;
   const int lane = threadIdx.x & (threads - 1);
   unsigned char* mine = smem + group * g.n_acc * g.acc_bytes;
+  // The sum's non-finite words, one per accumulator (the tag keeps a word
+  // to its row; see note_nonfinite).
+  __shared__ unsigned long long poison_words[kPoisonWords];
   zero_shared(smem, groups * g.n_acc * g.acc_bytes);
+  if (threadIdx.x < kPoisonWords) poison_words[threadIdx.x] = 0ull;
   __syncthreads();
   const int n_chunks = (g.width + 3) / 4;
   int local = 0;
   for (int row = worker * groups + group; row < g.n_rows;
        row += n_workers * groups, ++local) {
-    T* acc = reinterpret_cast<T*>(mine + (local & (g.n_acc - 1)) *
-                                             g.acc_bytes);
+    const int buf = local & (g.n_acc - 1);
+    T* acc = reinterpret_cast<T*>(mine + buf * g.acc_bytes);
+    const Poison poison{&poison_words[group * g.n_acc + buf],
+                        static_cast<unsigned>(row) + 1u};
     const RowRef at = row_ref(row, g);
     reduce_row<Op, P>(signal + at.signal, src + at.slots, dst + at.slots,
-                      mask + at.slots, g.width, n_chunks, lane, threads, acc);
+                      mask + at.slots, g.width, n_chunks, lane, threads, acc,
+                      poison);
     group_sync(group, threads);
     write_back<T>(acc, out + static_cast<int64_t>(row) * g.block, g, lane,
-                  threads);
+                  threads, poison);
     if (g.n_acc == 1) group_sync(group, threads);
   }
 }
@@ -484,7 +608,11 @@ __device__ void run_rows_extent(const typename Op::T* __restrict__ signal,
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   T* acc = reinterpret_cast<T*>(smem + warp * g.acc_bytes);
+  // One non-finite word per warp: the __syncwarp after each write-back
+  // orders it between the warp's rows.
+  __shared__ unsigned long long poison_words[kWarpRows];
   zero_shared(smem, kWarpRows * g.acc_bytes);
+  if (threadIdx.x < kWarpRows) poison_words[threadIdx.x] = 0ull;
   __syncthreads();
   const int width_chunks = g.width / 4;
   for (int row = worker * kWarpRows + warp; row < g.n_rows;
@@ -492,6 +620,7 @@ __device__ void run_rows_extent(const typename Op::T* __restrict__ signal,
     const int d = row / g.rows_per_shard;
     const int r = row - d * g.rows_per_shard;
     const RowRef at = row_ref(row, g);
+    const Poison poison{&poison_words[warp], static_cast<unsigned>(row) + 1u};
     const T* sig = signal + at.signal;
     const int32_t* s = src + at.slots;
     const int32_t* t = dst + at.slots;
@@ -507,10 +636,12 @@ __device__ void run_rows_extent(const typename Op::T* __restrict__ signal,
       first.c[0].n = 0;
       first.c[0].mask = 0u;
     }
+    float screen = 0.0f;
     {
       T v[1][4];
       gather_batch<Op, 1>(sig, first, v);
       update_batch<Op, 1>(first, v, acc, lane);
+      if constexpr (!Op::kOr) screen = screen_of<1>(v);
     }
     for (int base = 32; base < n_chunks; base += 32 * B) {
       Batch<B> b;
@@ -518,19 +649,27 @@ __device__ void run_rows_extent(const typename Op::T* __restrict__ signal,
       T v[B][4];
       gather_batch<Op, B>(sig, b, v);
       update_batch<Op, B>(b, v, acc, lane);
+      if constexpr (!Op::kOr) screen += screen_of<B>(v);
     }
     if constexpr (!Op::kOr) {
+      // The lane's chunks are lane, lane + 32, ... < n_chunks.
+      if (nonfinite(screen)) {
+        note_terms<kVector>(sig, s, t, m, g.width, n_chunks, lane, 32,
+                            poison);
+      }
       // The padding past the extent: each of its slots adds sig[0] * 0
       // to acc[0] (the reference's signal * mask); one such term gives
-      // the same sum (NaN where sig[0] is not finite, else nothing).
+      // the same sum (NaN where sig[0] is not finite, else nothing), and
+      // a non-finite one poisons the row as any other term does.
       if (lane == 0 && ext < g.width) {
         const float p = __ldg(sig) * 0.0f;
         if (p != 0.0f) atomicAdd(&acc[0], p);
+        if (nonfinite(p)) note_nonfinite(poison.word, poison.tag, 0);
       }
     }
     __syncwarp();
     write_back<T>(acc, out + static_cast<int64_t>(row) * g.block, g, lane,
-                  32);
+                  32, poison);
     __syncwarp();
   }
 }
@@ -657,8 +796,12 @@ class Residency {
         return cudaSuccess;
       }
     }
-    cudaError_t err;
-    if (smem > 48 * 1024) {  // opt in to more than the default 48 KB
+    // Opt in to more than the default 48 KB where the accumulators and
+    // the kernel's static shared memory (the non-finite words) need it.
+    cudaFuncAttributes attr;
+    cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+    if (err != cudaSuccess) return err;
+    if (smem + attr.sharedSizeBytes > 48 * 1024) {
       err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kAccBudget);
       if (err != cudaSuccess) return err;

@@ -3,9 +3,12 @@ package.
 
 The port imports nothing of ``p2pnetwork_tpu``; the caller turns the JAX
 objects into plain dicts of numpy arrays and ints (the dataclass fields by
-name, nested dicts for ``blocked`` and ``hybrid``) and these functions
-build the port's objects from them on ``device``. The tests use this to
-run both packages on the very same graph, shards and state.
+name, nested dicts for ``blocked``, ``hybrid`` and ``skew``) and these
+functions build the port's objects from them on ``device``. The tests use
+this to run both packages on the very same graph, shards and state.
+A field the port does not model is refused when it is set, never dropped.
+Packed predicate words (the reference's ``uint32``) arrive as ``int32``
+with the same bits.
 """
 
 from __future__ import annotations
@@ -16,17 +19,33 @@ import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import _device
-from p2pnetwork_tpu_torch.models.adaptive_flood import AdaptiveFloodState
-from p2pnetwork_tpu_torch.models.flood import FloodState
+from p2pnetwork_tpu_torch.models.adaptive_flood import (
+    AdaptiveFloodBitState, AdaptiveFloodState)
+from p2pnetwork_tpu_torch.models.flood import FloodBitState, FloodState
 from p2pnetwork_tpu_torch.ops.blocked import BlockedEdges
 from p2pnetwork_tpu_torch.ops.diag import HybridEdges
+from p2pnetwork_tpu_torch.ops.skew import SkewTable
 from p2pnetwork_tpu_torch.parallel.mesh import RingMesh
 from p2pnetwork_tpu_torch.parallel.sharded import ShardedGraph, row_extent
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 
 def _t(x, dev):
-    return None if x is None else torch.from_numpy(np.array(x)).to(dev)
+    if x is None:
+        return None
+    a = np.array(x)
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                            else a).to(dev)
+
+
+def _refuse_unmodelled(fields: dict, known, what: str) -> None:
+    """Raise for a set field the port's ``what`` does not model."""
+    extra = sorted(k for k, v in fields.items()
+                   if k not in known and v is not None)
+    if extra:
+        raise NotImplementedError(
+            f"the port's {what} does not model {extra}; refusing to drop "
+            f"them")
 
 
 def _blocked(d, dev):
@@ -42,12 +61,14 @@ def graph_from_numpy(fields: dict, device=None) -> Graph:
     ``fields`` maps field names to numpy arrays (or None) and the static
     ints; ``blocked`` is a dict with ``src``/``local_dst``/``mask``/
     ``block``, ``hybrid`` one with ``masks``/``offsets``/``n``/
-    ``remainder`` (a ``blocked``-style dict or None). Fields the port does
-    not model are ignored; non-None dynamic edges are refused."""
+    ``remainder`` (a ``blocked``-style dict or None), ``skew`` one with
+    ``src``/``mask``/``owner``/``start`` (and ``weight``, which must be
+    None). A set field the port does not model (``edge_weight``,
+    ``neighbor_weight``, ``layout_perm``, ``layout_inv``, a skew
+    ``weight``) is refused."""
     dev = _device.resolve(device)
-    if fields.get("dyn_senders") is not None:
-        raise NotImplementedError(
-            "the dynamic edge region (runtime connects) is not ported yet")
+    _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(Graph)},
+                       "Graph")
     kw = {}
     for f in dataclasses.fields(Graph):
         if f.name not in fields:
@@ -55,6 +76,11 @@ def graph_from_numpy(fields: dict, device=None) -> Graph:
         v = fields[f.name]
         if f.name == "blocked":
             kw[f.name] = _blocked(v, dev)
+        elif f.name == "skew" and v is not None:
+            _refuse_unmodelled(v, {f.name for f in dataclasses.fields(
+                SkewTable)}, "SkewTable")
+            kw[f.name] = SkewTable(**{k: _t(v[k], dev) for k in (
+                "src", "mask", "owner", "start")})
         elif f.name == "hybrid":
             kw[f.name] = None if v is None else HybridEdges(
                 masks=_t(v["masks"], dev),
@@ -69,9 +95,16 @@ def graph_from_numpy(fields: dict, device=None) -> Graph:
 
 def flood_state_from_numpy(fields: dict, device=None):
     """A ``FloodState`` (``seen``/``frontier``) or, when the fields carry
-    the work-item lists, an ``AdaptiveFloodState``, on ``device``."""
+    the work-item lists, an ``AdaptiveFloodState``, on ``device``; their
+    packed twins (``FloodBitState``, ``AdaptiveFloodBitState``) when
+    ``seen`` is packed words (``uint32``)."""
     dev = _device.resolve(device)
-    cls = AdaptiveFloodState if "fidx" in fields else FloodState
+    packed = np.asarray(fields["seen"]).dtype == np.uint32
+    cls = {(False, False): FloodState, (False, True): FloodBitState,
+           (True, False): AdaptiveFloodState,
+           (True, True): AdaptiveFloodBitState}["fidx" in fields, packed]
+    _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(cls)},
+                       cls.__name__)
     return cls(**{f.name: _t(fields[f.name], dev)
                   for f in dataclasses.fields(cls)})
 

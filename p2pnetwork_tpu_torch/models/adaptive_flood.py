@@ -7,20 +7,24 @@ mass in work items:
 - **sparse** (item count ``<= k``): the frontier is a list of ``k``
   work items ``(node, slice)``, each naming one ``W``-wide slice of the
   node's out-edge row in the source-CSR view. One round gathers those
-  ``k·W`` slots, dedups new receivers with a scatter-min first claim, marks
-  them seen, and expands the winners back into work items.
+  ``k·W`` slots and the frontier's links in the dynamic edge region
+  (``sim/topology.py``), dedups new receivers with a scatter-min first
+  claim, marks them seen, and expands the winners back into work items.
 - **dense** (item count ``> k``): ``Flood``'s masked OR round, keeping the
   work-item lists ready for the crossing back under ``k``.
 
 Results are bit-identical to ``Flood`` and to the reference, work-item
-lists included (``tests/test_torch_flood.py``).
+lists included (``tests/test_torch_flood.py``). ``bitset=True`` carries
+the seen/frontier predicates packed (``ops/bitset.py``); the rounds
+unpack them and pack their results.
 
 Where the reference branches on the device (``lax.cond``), the port reads
 the item count on the host once per round (one sync, counted in
 ``_device.SYNCS``). The dense round's re-entry compaction is computed
 every dense round and selected with ``torch.where``, so it costs no sync.
 ``jnp.nonzero(size=k, fill_value=...)`` becomes a cumsum + scatter
-compaction with the same ascending order and fill value.
+compaction with the same ascending order and fill value
+(``ops/frontier.py`` ``compact``).
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ import torch
 from p2pnetwork_tpu_torch import _device
 from p2pnetwork_tpu_torch.models import base
 from p2pnetwork_tpu_torch.models.flood import live_coverage
+from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
 from p2pnetwork_tpu_torch.ops import segment
+from p2pnetwork_tpu_torch.ops.frontier import compact, set_true
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 
@@ -47,11 +53,23 @@ class AdaptiveFloodState:
 
 
 @dataclasses.dataclass(frozen=True)
+class AdaptiveFloodBitState:
+    """``AdaptiveFloodState`` with seen/frontier packed 32 nodes per word."""
+
+    seen: torch.Tensor  # i32[N_pad // 32], u32 bit patterns
+    frontier: torch.Tensor  # i32[N_pad // 32]
+    fidx: torch.Tensor  # i32[k]
+    fslice: torch.Tensor  # i32[k]
+    fcount: torch.Tensor  # i32[]
+
+
+@dataclasses.dataclass(frozen=True)
 class AdaptiveFlood:
     """Single-source flood with frontier-sparse small rounds. ``k`` is the
     sparse capacity in work items, ``method`` the dense round's lowering,
     ``slice_width`` the per-item row-slice width (0 = ``min(max_out_span,
-    128)``). ``bitset=True`` is not ported yet."""
+    128)``), ``bitset`` packs the predicates
+    (:class:`AdaptiveFloodBitState`)."""
 
     source: int = 0
     method: str = "auto"
@@ -61,28 +79,40 @@ class AdaptiveFlood:
 
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy")
 
-    def init(self, graph: Graph) -> AdaptiveFloodState:
-        if self.bitset:
-            raise NotImplementedError(
-                "AdaptiveFlood(bitset=True) is not ported yet")
+    def init(self, graph: Graph):
         seed, fidx, fslice, count = _wave_seed(graph, self.source, self.k,
                                                self.slice_width)
+        if self.bitset:
+            packed = bitset.pack_bits(seed)
+            return AdaptiveFloodBitState(seen=packed, frontier=packed,
+                                         fidx=fidx, fslice=fslice,
+                                         fcount=count)
         return AdaptiveFloodState(seen=seed, frontier=seed, fidx=fidx,
                                   fslice=fslice, fcount=count)
 
-    def coverage(self, graph: Graph, state: AdaptiveFloodState):
+    def coverage(self, graph: Graph, state):
         return live_coverage(graph, state.seen)
 
-    def step(self, graph: Graph, state: AdaptiveFloodState):
+    def step(self, graph: Graph, state):
+        packed = isinstance(state, AdaptiveFloodBitState)
+        n_pad = graph.n_nodes_padded
+        seen0, frontier0 = ((bitset.unpack_bits(state.seen, n_pad),
+                             bitset.unpack_bits(state.frontier, n_pad))
+                            if packed else (state.seen, state.frontier))
         seen, frontier, fidx, fslice, fcount, ncount, msgs = _wave_step(
-            graph, self.k, self.slice_width, self.method, state.seen,
-            state.frontier, state.fidx, state.fslice, state.fcount)
+            graph, self.k, self.slice_width, self.method, seen0, frontier0,
+            state.fidx, state.fslice, state.fcount)
         stats = {
             "messages": msgs,
             "coverage": live_coverage(graph, seen),
             "frontier": ncount,
             "frontier_occupancy": frontier_ops.occupancy(graph, frontier),
         }
+        if packed:
+            return AdaptiveFloodBitState(
+                seen=bitset.pack_bits(seen),
+                frontier=bitset.pack_bits(frontier), fidx=fidx,
+                fslice=fslice, fcount=fcount), stats
         return AdaptiveFloodState(seen=seen, frontier=frontier, fidx=fidx,
                                   fslice=fslice, fcount=fcount), stats
 
@@ -106,27 +136,6 @@ def _row_items(graph: Graph, w: int, nodes: torch.Tensor) -> torch.Tensor:
     one item, so every frontier node owns a slice-0 item)."""
     row_len = graph.src_offsets[nodes + 1] - graph.src_offsets[nodes]
     return ((row_len + w - 1) // w).clamp_min(1).to(torch.int32)
-
-
-def _compact(flags: torch.Tensor, k: int, fill: int) -> torch.Tensor:
-    """``jnp.nonzero(flags, size=k, fill_value=fill)``: the positions of
-    the first ``k`` set flags in ascending order, ``fill`` after them —
-    without the host sync of ``torch.nonzero``. i64[k]."""
-    rank = torch.cumsum(flags, 0, dtype=torch.int64) - 1
-    target = torch.where(flags & (rank < k), rank, k)
-    buf = torch.full((k + 1,), fill, dtype=torch.int64, device=flags.device)
-    # Unset flags all land in the spare slot k, which is dropped.
-    buf.scatter_(0, target, torch.arange(flags.shape[0], device=flags.device))
-    return buf[:k]
-
-
-def _set_true(flags: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``flags.at[idx].set(True, mode="drop")`` for ``idx`` in
-    ``[0, len(flags)]``: index ``len(flags)`` is the drop sentinel."""
-    n = flags.shape[0]
-    out = torch.cat([flags, flags.new_zeros(1)])
-    out.index_fill_(0, idx.long(), True)
-    return out[:n]
 
 
 def _expand_items(graph: Graph, w: int, k: int, wnode: torch.Tensor,
@@ -170,6 +179,13 @@ def _sparse_wave_round(graph: Graph, w: int, k: int, seen, frontier, fidx,
     evalid = in_row & fvalid[:, None] & graph.edge_mask[eid]
     cand = torch.where(evalid, graph.receivers[eid], pad_node).reshape(-1)
     fresh = evalid.reshape(-1) & ~seen[cand] & graph.node_mask[cand]
+    if graph.dyn_senders is not None:
+        # The frontier's runtime links: the small region is scanned whole.
+        dsend = frontier[graph.dyn_senders] & graph.dyn_mask
+        dcand = torch.where(dsend, graph.dyn_receivers, pad_node)
+        dfresh = dsend & ~seen[dcand] & graph.node_mask[dcand]
+        cand = torch.cat([cand, dcand])
+        fresh = torch.cat([fresh, dfresh])
 
     # First-claim dedup: each fresh slot claims its candidate with its
     # position; the winners hold the minimum claim.
@@ -181,10 +197,10 @@ def _sparse_wave_round(graph: Graph, w: int, k: int, seen, frontier, fidx,
     winner = fresh & (scratch[cand] == order)
     node_count = winner.sum().to(torch.int32)
 
-    seen = _set_true(seen, torch.where(fresh, cand, n_pad))
-    new_frontier = _set_true(torch.zeros_like(seen),
+    seen = set_true(seen, torch.where(fresh, cand, n_pad))
+    new_frontier = set_true(torch.zeros_like(seen),
                              torch.where(winner, cand, n_pad))
-    pos = _compact(winner, k, fill=cand.shape[0] - 1)
+    pos = compact(winner, k, fill=cand.shape[0] - 1)
     wnode = torch.where(p < node_count, cand[pos], pad_node)
     fidx, fslice, icount = _expand_items(graph, w, k, wnode, node_count)
     # A node_count > k frontier truncated the lists: saturate so dense
@@ -207,7 +223,7 @@ def _dense_wave_round(graph: Graph, w: int, k: int, method: str, seen,
         nodes = torch.arange(graph.n_nodes_padded, device=seen.device)
         icount = torch.where(new, _row_items(graph, w, nodes), 0).sum()
         icount = icount.to(torch.int32)
-    wnode = _compact(new, k, fill=graph.n_nodes_padded - 1).to(torch.int32)
+    wnode = compact(new, k, fill=graph.n_nodes_padded - 1).to(torch.int32)
     cfidx, cfslice, _ = _expand_items(graph, w, k, wnode, node_count)
     refill = icount <= k
     fidx = torch.where(refill, cfidx, fidx)

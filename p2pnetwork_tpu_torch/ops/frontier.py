@@ -1,12 +1,73 @@
-"""Frontier statistics (torch counterpart of the part of
-``p2pnetwork_tpu/ops/frontier.py`` the flood main path reads). The
-frontier-compacted ``method="frontier"`` lowering is not ported yet."""
+"""Frontier-compacted propagation: gather only the active rows (torch
+counterpart of ``p2pnetwork_tpu/ops/frontier.py``).
+
+``method="frontier"`` prices a round by its frontier: the active nodes are
+compacted into a ``k``-slot buffer, their out-edge rows gathered through
+the source-CSR view (``Graph.src_eid``/``src_offsets``) and the receivers
+scattered into the output — ``k * max_out_span`` slots, whatever the edge
+count. Past ``k`` active nodes the round falls back to the dense path.
+The reference picks the branch on the device (``lax.cond``); the port
+reads the active count on the host once per round (one sync, counted in
+``_device.SYNCS``), as ``AdaptiveFlood`` does. The compaction is a cumsum
+and a scatter (``jnp.nonzero(size=k, fill_value=...)``'s order and fill,
+with no sync of its own). OR cannot see the order of its terms, so the
+result is bit-identical to the dense methods.
+
+``ROUNDS`` counts the sparse and dense rounds taken. The max, min-plus and
+lane-packed variants wait for their protocols.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from p2pnetwork_tpu_torch import _device
 from p2pnetwork_tpu_torch.sim.graph import Graph
+
+#: Sparse slots (budget * max_out_span) stay under E_pad / this factor.
+CROSSOVER_SLOT_FACTOR = 2.0
+
+#: Floor of the compaction buffer (the reference's).
+_MIN_BUDGET = 128
+
+#: Rounds :func:`propagate_or_frontier` ran sparse and dense.
+ROUNDS = {"sparse": 0, "dense": 0}
+
+
+def require_csr(graph: Graph) -> None:
+    if graph.src_eid is None:
+        raise ValueError(
+            "method='frontier' requires the source-CSR out-edge view — "
+            "build with from_edges(source_csr=True) or "
+            "graph.with_source_csr()")
+
+
+def budget(graph: Graph, crossover=None) -> int:
+    """Node budget ``k`` of the compaction buffer. ``crossover=None``
+    sizes it from the slot bound and returns 0 (sparse disabled) when even
+    ``_MIN_BUDGET`` breaks it; a float in (0, 1] is a fraction of padded
+    nodes, an int the budget itself. Clamped to ``[_MIN_BUDGET, n_pad]``."""
+    n_pad = graph.n_nodes_padded
+    span = max(graph.max_out_span, 1)
+    if crossover is None:
+        k = graph.n_edges_padded // max(int(CROSSOVER_SLOT_FACTOR * span), 1)
+        if k < _MIN_BUDGET:
+            return 0
+    elif isinstance(crossover, float):
+        if not 0.0 < crossover <= 1.0:
+            raise ValueError(f"crossover fraction must be in (0, 1], got "
+                             f"{crossover}")
+        k = int(crossover * n_pad)
+    else:
+        k = int(crossover)
+    return max(_MIN_BUDGET, min(k, n_pad))
+
+
+def budget_slots(graph: Graph, crossover=None) -> int:
+    """Gathered slots of one sparse round, ``k * max_out_span`` (0 when
+    sparse is disabled)."""
+    k = budget(graph, crossover)
+    return k * max(graph.max_out_span, 1) if k else 0
 
 
 def occupancy(graph: Graph, frontier: torch.Tensor) -> torch.Tensor:
@@ -15,3 +76,61 @@ def occupancy(graph: Graph, frontier: torch.Tensor) -> torch.Tensor:
     n = graph.node_mask.sum().clamp_min(1)
     live = (frontier & graph.node_mask).sum()
     return live.to(torch.float32) / n.to(torch.float32)
+
+
+def compact(flags: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+    """``jnp.nonzero(flags, size=k, fill_value=fill)``: the positions of
+    the first ``k`` set flags in ascending order, ``fill`` after them —
+    without the host sync of ``torch.nonzero``. i64[k]."""
+    rank = torch.cumsum(flags, 0, dtype=torch.int64) - 1
+    target = torch.where(flags & (rank < k), rank, k)
+    buf = torch.full((k + 1,), fill, dtype=torch.int64, device=flags.device)
+    # Unset flags all land in the spare slot k, which is dropped.
+    buf.scatter_(0, target, torch.arange(flags.shape[0], device=flags.device))
+    return buf[:k]
+
+
+def set_true(flags: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``flags.at[idx].set(True, mode="drop")`` for ``idx`` in
+    ``[0, len(flags)]``: index ``len(flags)`` is the drop sentinel."""
+    n = flags.shape[0]
+    out = torch.cat([flags, flags.new_zeros(1)])
+    out.index_fill_(0, idx.long(), True)
+    return out[:n]
+
+
+def _gather_active(graph: Graph, active: torch.Tensor,
+                   n_active: torch.Tensor, k: int):
+    """The ``k`` compacted active node ids and their ``[k, max_out_span]``
+    out-edge ids with the liveness mask (in row, a real slot, a live
+    edge). Only right when ``n_active <= k``."""
+    n_pad = graph.n_nodes_padded
+    valid = torch.arange(k, device=active.device) < n_active
+    # Fill rows can name a real node (n_pad - 1): `valid` masks them.
+    f = torch.where(valid, compact(active, k, n_pad - 1), n_pad - 1)
+    eid, in_row = graph.gather_row_slots(
+        graph.src_offsets[f], graph.src_offsets[f + 1],
+        max(graph.max_out_span, 1))
+    evalid = in_row & valid[:, None] & graph.edge_mask[eid]
+    return f, eid, evalid
+
+
+def propagate_or_frontier(graph: Graph, signal: torch.Tensor, dense_fn,
+                          crossover=None) -> torch.Tensor:
+    """Frontier-compacted neighbor-OR; ``dense_fn(signal)`` is the dense
+    fallback taken when the active count exceeds the budget."""
+    require_csr(graph)
+    k = budget(graph, crossover)
+    if k == 0:  # sparse cannot win on this graph (see budget)
+        ROUNDS["dense"] += 1
+        return dense_fn(signal)
+    n_active = signal.sum()
+    if not _device.host_bool(n_active <= k):
+        ROUNDS["dense"] += 1
+        return dense_fn(signal)
+    ROUNDS["sparse"] += 1
+    n_pad = graph.n_nodes_padded
+    _, eid, evalid = _gather_active(graph, signal, n_active, k)
+    cand = torch.where(evalid, graph.receivers[eid], n_pad).reshape(-1)
+    out = set_true(torch.zeros_like(signal), cand)
+    return out & graph.node_mask

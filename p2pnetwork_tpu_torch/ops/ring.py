@@ -28,7 +28,8 @@ nearly all padding, which B3 then does not read.
 
 Exactness: the hop and OR are bit-exact. The f32 sum adds in f32 with
 shared-memory atomics: exact on integer-valued signals, otherwise held to
-``rtol = atol = 1e-5``. The reference asks for ``exact=False`` there (one
+``rtol = atol = 1e-5``; non-finite terms spread over their row as the
+reference's one-hot product spreads them (``ops/segsum.py``). The reference asks for ``exact=False`` there (one
 bf16 pass on a TPU, f32 on the CPU interpreter); the port always sums
 f32 terms.
 
@@ -194,7 +195,9 @@ def ring_segment_sum_sum(rot, src, local_dst, mask, block: int,
     for w with local_dst[d, n, w] == b)``, f32 ``rot [S >= 2, B]``.
     ``extent`` as in :func:`ring_segment_sum_or`: the padding a row's
     extent skips adds ``rot[d, 0] * 0`` to ``out[d, n*block]`` once, as
-    its slots would (NaN where ``rot[d, 0]`` is not finite)."""
+    its slots would. Non-finite terms spread over their row as in
+    :func:`segsum.segsum_sum` (a non-finite ``rot[d, 0]`` read by the
+    padding makes the whole row NaN)."""
     if rot.device.type == "cpu":
         return ring_segment_sum_sum_plain(rot, src, local_dst, mask, block)
     return _launch("sum", rot, src, local_dst, mask, block, torch.float32,

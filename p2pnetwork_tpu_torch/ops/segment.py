@@ -9,31 +9,38 @@ Methods, as in the reference:
 
 - ``segment``: COO edges -> ``index_add_`` (plain PyTorch, any graph);
 - ``gather``: padded neighbor table -> row gather + reduce;
+- ``skew``: the two-level table of virtual rows (``ops/skew.py``);
 - ``blocked``: the blocked layout, plain PyTorch (``ops/blocked.py``);
 - ``pallas``: the blocked layout through the CUDA segment-sum kernel
   (``ops/segsum.py``; the name is the reference's);
 - ``hybrid`` / ``hybrid-blocked``: diagonals by roll, the remainder by the
   kernel or its plain version (``ops/diag.py``);
+- ``frontier`` (OR only): the active rows through the source-CSR view
+  while the frontier is small, else ``auto`` (``ops/frontier.py``);
 - ``auto``: ``gather`` while the table's padding waste is bounded, else
-  ``segment``.
+  ``skew`` when the graph carries the table, else ``segment``.
 
-``skew`` and ``frontier`` are not ported yet and raise.
+The dynamic edge region of runtime links (``sim/topology.py``) is folded
+in for every method: the static edges go through the method, the region
+through one unsorted scatter, and the two are combined.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from p2pnetwork_tpu_torch.ops import blocked as B
 from p2pnetwork_tpu_torch.ops import diag as D
+from p2pnetwork_tpu_torch.ops import frontier as FR
+from p2pnetwork_tpu_torch.ops import skew as SK
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 #: ``auto`` prefers the neighbor-table gather only while the table's
 #: padding waste (slots / true edges) stays under this bound — the
 #: reference's routing rule, kept so ``auto`` picks the same method.
 _GATHER_WASTE_BOUND = 4.0
-
-_NOT_PORTED = ("skew", "frontier")
 
 
 def _gather_ok(graph: Graph) -> bool:
@@ -44,9 +51,11 @@ def _gather_ok(graph: Graph) -> bool:
 
 
 def _auto_method(graph: Graph) -> str:
-    """``auto``'s routing: the plain table while its waste is bounded,
-    segment otherwise (the port carries no skew table)."""
-    return "gather" if _gather_ok(graph) else "segment"
+    """``auto``'s routing: the plain table while its waste is bounded; the
+    skew table when the graph carries one; segment otherwise."""
+    if _gather_ok(graph):
+        return "gather"
+    return "skew" if graph.skew is not None else "segment"
 
 
 def _require_complete_table(graph: Graph) -> None:
@@ -59,32 +68,71 @@ def _require_complete_table(graph: Graph) -> None:
 
 
 def _resolve(graph: Graph, method: str) -> str:
-    if method in _NOT_PORTED:
-        raise NotImplementedError(f"method={method!r} is not ported yet")
     if method == "auto":
         method = _auto_method(graph)
     if method == "gather":
         _require_complete_table(graph)
+    elif method == "skew" and graph.skew is None:
+        raise ValueError("method='skew' requires the two-level neighbor "
+                         "table — build with from_edges(skew_table=True) "
+                         "or graph.with_skew_table()")
     elif method in ("blocked", "pallas") and graph.blocked is None:
         raise ValueError(f"method={method!r} requires a graph built with "
                          f"blocked=True")
     elif method in ("hybrid", "hybrid-blocked") and graph.hybrid is None:
         raise ValueError(f"method={method!r} requires a graph built with "
                          f"hybrid=True")
-    elif method not in ("segment", "blocked", "pallas", "hybrid",
+    elif method not in ("segment", "skew", "blocked", "pallas", "hybrid",
                         "hybrid-blocked"):
         raise ValueError(f"unknown aggregation method {method!r}")
     return method
 
 
-def propagate_or(graph: Graph, signal: torch.Tensor,
-                 method: str = "auto") -> torch.Tensor:
+def _static(graph: Graph) -> Graph:
+    """``graph`` without its dynamic edge region."""
+    return dataclasses.replace(graph, dyn_senders=None, dyn_receivers=None,
+                               dyn_mask=None)
+
+
+def _dynamic_or(graph: Graph, signal: torch.Tensor) -> torch.Tensor:
+    """OR over the dynamic edge region."""
+    contrib = (signal[graph.dyn_senders] & graph.dyn_mask).to(torch.int32)
+    agg = torch.zeros(graph.n_nodes_padded, dtype=torch.int32,
+                      device=signal.device)
+    agg.index_add_(0, graph.dyn_receivers, contrib)
+    return (agg > 0) & graph.node_mask
+
+
+def _dynamic_sum(graph: Graph, signal: torch.Tensor) -> torch.Tensor:
+    """Sum over the dynamic edge region."""
+    contrib = signal[graph.dyn_senders] * graph.dyn_mask.to(signal.dtype)
+    agg = torch.zeros(graph.n_nodes_padded, dtype=signal.dtype,
+                      device=signal.device)
+    agg.index_add_(0, graph.dyn_receivers, contrib)
+    return agg * graph.node_mask.to(signal.dtype)
+
+
+def propagate_or(graph: Graph, signal: torch.Tensor, method: str = "auto",
+                 *, frontier_crossover=None) -> torch.Tensor:
     """Per-node OR over incoming neighbors: ``out[v] = any(signal[u], u->v)``.
-    ``signal`` is bool[N_pad]; padding edges and nodes contribute nothing."""
+    ``signal`` is bool[N_pad]; padding edges and nodes contribute nothing.
+    ``frontier_crossover`` overrides ``method="frontier"``'s budget
+    (``ops/frontier.py`` ``budget``)."""
+    if graph.dyn_senders is not None:
+        return (propagate_or(_static(graph), signal, method,
+                             frontier_crossover=frontier_crossover)
+                | _dynamic_or(graph, signal))
+    if method == "frontier":
+        return FR.propagate_or_frontier(
+            graph, signal, lambda sig: propagate_or(graph, sig, "auto"),
+            crossover=frontier_crossover)
     method = _resolve(graph, method)
     if method == "gather":
         vals = signal[graph.neighbors] & graph.neighbor_mask
         return vals.any(dim=1) & graph.node_mask
+    if method == "skew":
+        return (SK.or_skew(graph.skew, signal, graph.n_nodes_padded)
+                & graph.node_mask)
     if method == "blocked":
         return B.propagate_or_blocked(graph.blocked, signal, graph.node_mask)
     if method == "pallas":
@@ -104,12 +152,18 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
                   method: str = "auto") -> torch.Tensor:
     """Per-node sum over incoming neighbors: ``out[v] = sum(signal[u], u->v)``.
     The reference's ``exact=False`` (bf16 MXU inputs) has no counterpart:
-    the CUDA kernel always adds f32 terms in f32."""
+    the CUDA kernel always adds f32 terms in f32. ``frontier`` is an OR
+    lowering only, as in the reference."""
+    if graph.dyn_senders is not None:
+        return (propagate_sum(_static(graph), signal, method)
+                + _dynamic_sum(graph, signal))
     method = _resolve(graph, method)
     fmask = graph.node_mask.to(signal.dtype)
     if method == "gather":
         vals = signal[graph.neighbors] * graph.neighbor_mask.to(signal.dtype)
         return vals.sum(dim=1) * fmask
+    if method == "skew":
+        return SK.sum_skew(graph.skew, signal, graph.n_nodes_padded) * fmask
     if method == "blocked":
         return B.propagate_sum_blocked(graph.blocked, signal, graph.node_mask)
     if method == "pallas":

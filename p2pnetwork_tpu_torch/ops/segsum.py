@@ -26,6 +26,13 @@ Two entry points:
   against the plain version (the reference's own tolerance for its
   kernel, ``tests/test_blocked_pallas.py``).
 
+Non-finite terms follow the reference's one-hot product: there each term
+``t`` of row ``n`` at destination ``d`` also adds ``t * 0`` to every other
+output of its row, so ``out[n, b]`` is NaN whenever row ``n`` holds a
+non-finite term (``signal[src] * mask``, masked slots included) whose
+destination is not ``b``; otherwise it is the plain sum, ±inf included.
+Both the kernel and the plain version apply that rule.
+
 Both also take the ring's stacked form (``parallel/sharded.py``): a
 signal ``[S, B]`` and buckets ``[S, NB, W]`` give ``out [S, NB * block]``,
 shard ``d``'s rows reading ``signal[d]``, in one launch. The buckets may
@@ -93,11 +100,26 @@ def segsum_or_plain(signal, src, local_dst, mask, block: int) -> torch.Tensor:
     return _reduce(contrib, local_dst, block) > 0
 
 
+def spread_nonfinite(out, contrib, local_dst, block: int) -> torch.Tensor:
+    """The reference's one-hot spread of non-finite terms over ``out``
+    (``[..., NB * block]``, the sum of ``contrib`` ``[..., NB, W]`` by
+    ``local_dst``): NaN at every output of a row but the one destination
+    of its non-finite terms, and at all of them when those terms have two
+    destinations or more."""
+    bad = ~torch.isfinite(contrib)
+    first = torch.where(bad, local_dst, block).amin(-1, keepdim=True)
+    last = torch.where(bad, local_dst, -1).amax(-1, keepdim=True)
+    b = torch.arange(block, device=out.device)
+    spread = (first < block) & ((b != first) | (first != last))
+    return torch.where(spread.flatten(-2), torch.nan, out)
+
+
 def segsum_sum_plain(signal, src, local_dst, mask, block: int) -> torch.Tensor:
     """Plain PyTorch version of :func:`segsum_sum`: f32[NB * block], or
     f32[S, NB * block] for a stacked signal."""
     contrib = _gather(signal, src) * mask.to(signal.dtype)
-    return _reduce(contrib, local_dst, block)
+    return spread_nonfinite(_reduce(contrib, local_dst, block), contrib,
+                            local_dst, block)
 
 
 def bucket_geometry(name: str, signal, src, local_dst, mask, block: int):
@@ -183,7 +205,8 @@ def segsum_or(signal, src, local_dst, mask, block: int) -> torch.Tensor:
 def segsum_sum(signal, src, local_dst, mask, block: int) -> torch.Tensor:
     """``out[n*block + b] = sum(signal[src[n, w]] * mask[n, w]
     for w with local_dst[n, w] == b)`` — f32[NB * block], or
-    f32[S, NB * block] for a stacked ``[S, B]`` signal."""
+    f32[S, NB * block] for a stacked ``[S, B]`` signal; NaN where a
+    non-finite term of the row has another destination (module doc)."""
     if signal.device.type == "cpu":
         return segsum_sum_plain(signal, src, local_dst, mask, block)
     return _launch("segsum_sum", signal, src, local_dst, mask, block,

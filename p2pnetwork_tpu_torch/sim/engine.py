@@ -1,5 +1,7 @@
-"""Run-to-coverage engine (torch counterpart of the part of
-``p2pnetwork_tpu/sim/engine.py`` the flood main path reads).
+"""Round engine (torch counterpart of the part of
+``p2pnetwork_tpu/sim/engine.py`` the flood protocols use): ``run`` /
+``run_from`` (a fixed number of rounds, per-round stats stacked) and
+``run_until_coverage`` / ``run_until_coverage_from``.
 
 The reference runs the whole loop as one ``lax.while_loop`` on the device.
 PyTorch has no device-side loop, so the port runs super-steps of
@@ -78,6 +80,46 @@ def _stat_while(graph: Graph, protocol, state, *, value0: torch.Tensor,
     out = {"rounds": n_rounds, "coverage": coverage, "messages": n_messages}
     if has_occ:
         out["frontier_occupancy_mean"] = occ_mean
+    return state, out
+
+
+def run(graph: Graph, protocol, rounds: int, *, recorder=None):
+    """Run ``rounds`` rounds from the protocol's initial state. Returns
+    ``(final_state, stats)``, each stat stacked to ``[rounds]`` as the
+    reference's ``lax.scan`` stacks it (see :func:`run_from`)."""
+    return run_from(graph, protocol, protocol.init(graph), rounds,
+                    recorder=recorder)
+
+
+def run_from(graph: Graph, protocol, state, rounds: int, *, recorder=None):
+    """Run ``rounds`` rounds continuing from ``state``. Returns
+    ``(final_state, stats)`` with every stat a ``[rounds]`` tensor on the
+    host, fetched in one transfer at the end (the rounds themselves make
+    no host read of their own; a protocol's branch reads, as
+    ``AdaptiveFlood``'s, still count in ``_device.SYNCS``).
+
+    ``state`` is not modified: torch has no buffer donation, so the
+    reference's ``donate`` has no counterpart here. The flight recorder
+    (``recorder=``) is not ported yet."""
+    if recorder is not None:
+        raise NotImplementedError("the flight recorder is not ported yet")
+    per_round = []
+    for _ in range(int(rounds)):
+        state, stats = protocol.step(graph, state)
+        per_round.append(stats)
+    if not per_round:
+        return state, {}
+    names = list(per_round[0])
+    # One device -> host transfer: every stat of every round, as f64
+    # (exact for the i32/i64 counts and the f32 ratios alike).
+    table = torch.stack([torch.stack([s[n].to(torch.float64)
+                                      for n in names])
+                         for s in per_round]).cpu()
+    out = {}
+    for i, n in enumerate(names):
+        dtype = per_round[0][n].dtype
+        out[n] = table[:, i].to(torch.float32 if dtype.is_floating_point
+                                else torch.int64)
     return state, out
 
 

@@ -9,11 +9,13 @@ end of :func:`from_edges`. The reference sorts with its C++ radix core
 ``argsort`` and ``unique`` as equivalent, and the port uses those, so it
 needs no native build.
 
-Only what the flood main path reads is ported: the COO edges, masks and
-degrees, the padded neighbor table, the source-CSR out-edge view, and the
-blocked / diagonal+remainder layouts. The dynamic edge region, per-edge
-weights, the skew table and node reordering are not (``interop`` refuses
-a reference graph that carries dynamic edges).
+Ported: the COO edges, masks and degrees, the padded neighbor table, the
+source-CSR out-edge view, the blocked / diagonal+remainder layouts, the
+two-level skew table (``ops/skew.py``) and the dynamic edge region of
+runtime links (``sim/topology.py``). Per-edge weights, node reordering
+and the incremental builds (``apply_delta``, ``grow``) are not
+(``interop`` refuses a reference graph that carries weights or a
+relabeling).
 """
 
 from __future__ import annotations
@@ -81,6 +83,12 @@ class Graph:
     max_in_span: int = 0
     blocked: Optional[object] = None  # ops/blocked.py BlockedEdges
     hybrid: Optional[object] = None  # ops/diag.py HybridEdges
+    skew: Optional[object] = None  # ops/skew.py SkewTable
+    # Dynamic edge region (sim/topology.py): unsorted COO slots for links
+    # added at runtime, folded into every aggregation method.
+    dyn_senders: Optional[torch.Tensor] = None  # i32[K]
+    dyn_receivers: Optional[torch.Tensor] = None  # i32[K]
+    dyn_mask: Optional[torch.Tensor] = None  # bool[K]
     # Source-CSR view: src_eid[src_offsets[v]:src_offsets[v+1]] are v's
     # out-edges as indices into senders/receivers/edge_mask.
     src_eid: Optional[torch.Tensor] = None  # i32[E_pad]
@@ -102,6 +110,49 @@ class Graph:
     @property
     def max_degree(self) -> int:
         return 0 if self.neighbors is None else self.neighbors.shape[1]
+
+    def _live_edges(self):
+        """The live static edges as host arrays ``(senders, receivers)``,
+        receiver-sorted."""
+        emask = self.edge_mask.cpu().numpy()
+        return (self.senders.cpu().numpy()[emask],
+                self.receivers.cpu().numpy()[emask])
+
+    def with_blocked(self, block: int = 128) -> "Graph":
+        """A copy carrying the blocked layout of the live edges."""
+        from p2pnetwork_tpu_torch.ops.blocked import build_blocked_from_arrays
+
+        return dataclasses.replace(self, blocked=build_blocked_from_arrays(
+            *self._live_edges(), self.n_nodes_padded, block,
+            device=self.device))
+
+    def with_hybrid(self, block: int = 512, max_diags: int = 64) -> "Graph":
+        """A copy carrying the diagonal+remainder layout of the live
+        edges."""
+        from p2pnetwork_tpu_torch.ops.diag import build_hybrid_from_arrays
+
+        return dataclasses.replace(self, hybrid=build_hybrid_from_arrays(
+            *self._live_edges(), self.n_nodes, self.n_nodes_padded,
+            block=block, max_diags=max_diags, device=self.device))
+
+    def with_source_csr(self) -> "Graph":
+        """A copy carrying the source-CSR out-edge view of the live
+        edges (pulls the edge arrays to the host)."""
+        eid, offsets, span = _build_source_csr(
+            self.senders.cpu().numpy(), self.edge_mask.cpu().numpy(),
+            self.n_nodes_padded, self.n_edges_padded)
+        return dataclasses.replace(
+            self, src_eid=torch.from_numpy(eid).to(self.device),
+            src_offsets=torch.from_numpy(offsets).to(self.device),
+            max_out_span=span)
+
+    def with_skew_table(self, width: int = 0) -> "Graph":
+        """A copy carrying the two-level neighbor table of the ``skew``
+        method (``ops/skew.py``); ``width=0`` picks the width from the
+        degree histogram."""
+        from p2pnetwork_tpu_torch.ops.skew import build_skew
+
+        return dataclasses.replace(self, skew=build_skew(self, width))
 
     def gather_row_slots(self, start: torch.Tensor, end: torch.Tensor,
                          width: int):
@@ -170,18 +221,22 @@ def from_edges(
     blocked: bool = False,
     hybrid: bool = False,
     source_csr: bool = False,
+    skew_table: bool = False,
+    skew_width: int = 0,
     device=None,
 ) -> Graph:
     """Build a :class:`Graph` from host edge arrays (the reference's
-    ``from_edges`` without ``weights``, ``skew_table`` or ``reorder``).
+    ``from_edges`` without ``weights`` or ``reorder``).
 
     Edges are sorted by receiver and padded to ``edge_pad_multiple``; nodes
-    to ``node_pad_multiple``. ``blocked`` / ``hybrid`` / ``source_csr``
-    attach those layouts from the host arrays in hand. ``device`` as in
+    to ``node_pad_multiple``. ``blocked`` / ``hybrid`` / ``source_csr`` /
+    ``skew_table`` (of width ``skew_width``, 0 = picked) attach those
+    layouts from the host arrays in hand. ``device`` as in
     ``_device.resolve``.
     """
     from p2pnetwork_tpu_torch.ops.blocked import build_blocked_from_arrays
     from p2pnetwork_tpu_torch.ops.diag import build_hybrid_from_arrays
+    from p2pnetwork_tpu_torch.ops.skew import build_skew_from_arrays
 
     dev = _device.resolve(device)
     senders = np.asarray(senders, dtype=np.int32)
@@ -227,6 +282,10 @@ def from_edges(
     if hybrid:
         hybrid_rep = build_hybrid_from_arrays(senders, receivers, n_nodes,
                                               n_pad, device=dev)
+    skew_rep = None
+    if skew_table:
+        skew_rep = build_skew_from_arrays(senders, receivers, n_pad, e_pad,
+                                          width=skew_width, device=dev)
     max_out_span = 0
     if source_csr:
         host["src_eid"], host["src_offsets"], max_out_span = \
@@ -243,6 +302,7 @@ def from_edges(
         max_in_span=max_in_span,
         blocked=blocked_rep,
         hybrid=hybrid_rep,
+        skew=skew_rep,
         max_out_span=max_out_span,
     )
 

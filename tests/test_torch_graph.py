@@ -30,8 +30,7 @@ FAMILIES = {
 LAYOUTS = {"blocked": True, "hybrid": True, "source_csr": True}
 
 #: Reference Graph fields the port does not model; None on these builds.
-UNPORTED = ("skew", "dyn_senders", "dyn_receivers", "dyn_mask",
-            "edge_weight", "neighbor_weight", "layout_perm", "layout_inv")
+UNPORTED = ("edge_weight", "neighbor_weight", "layout_perm", "layout_inv")
 
 
 def build_jax(family, **kw):
@@ -59,9 +58,17 @@ def _blocked_fields(b):
             "mask": _np(b.mask), "block": b.block}
 
 
+def _skew_fields(t):
+    if t is None:
+        return None
+    assert getattr(t, "weight", None) is None, "skew weights are not ported"
+    return {k: _np(getattr(t, k)) for k in ("src", "mask", "owner", "start")}
+
+
 def graph_fields(g) -> dict:
     """Either package's Graph as a dict of numpy arrays and static ints,
-    ``blocked``/``hybrid`` as nested dicts (``interop``'s input format)."""
+    ``blocked``/``hybrid``/``skew`` as nested dicts (``interop``'s input
+    format)."""
     out = {}
     for f in dataclasses.fields(g):
         v = getattr(g, f.name)
@@ -69,6 +76,8 @@ def graph_fields(g) -> dict:
             assert v is None, f"{f.name} is set but not ported"
         elif f.name == "blocked":
             out[f.name] = _blocked_fields(v)
+        elif f.name == "skew":
+            out[f.name] = _skew_fields(v)
         elif f.name == "hybrid":
             out[f.name] = None if v is None else {
                 "masks": _np(v.masks), "offsets": tuple(v.offsets), "n": v.n,

@@ -56,14 +56,22 @@ def test_plain_versions_match_a_loop(block):
 
 
 def test_masked_slot_keeps_reference_nan_semantics():
-    # signal * mask: a non-finite signal behind a masked slot still
-    # poisons its destination, as the reference's contrib does.
+    # signal * mask: a non-finite signal behind a masked slot still makes
+    # a NaN term, as the reference's contrib does, and the reference's
+    # one-hot product spreads a non-finite term over its row: NaN at every
+    # other destination, the plain sum (here +inf) at its own. Row 0: a
+    # live +inf at destination 1; row 1: a masked +inf; row 2: finite.
     sig = torch.tensor([np.inf, 1.0])
-    src = torch.tensor([[0, 1]], dtype=torch.int32)
-    dst = torch.tensor([[0, 1]], dtype=torch.int32)
-    mask = torch.tensor([[False, True]])
-    out = segsum.segsum_sum(sig, src, dst, mask, 128)
-    assert torch.isnan(out[0]) and out[1] == 1.0
+    src = torch.tensor([[0, 1], [0, 1], [1, 1]], dtype=torch.int32)
+    dst = torch.tensor([[1, 1], [0, 5], [2, 3]], dtype=torch.int32)
+    mask = torch.tensor([[True, True], [False, True], [True, True]])
+    out = segsum.segsum_sum(sig, src, dst, mask, 128).reshape(3, 128)
+    assert out[0, 1] == np.inf
+    assert torch.isnan(out[0, :1]).all() and torch.isnan(out[0, 2:]).all()
+    assert torch.isnan(out[1]).all()
+    want = torch.zeros(128)
+    want[2] = want[3] = 1.0
+    assert torch.equal(out[2], want)
 
 
 def test_wrapper_refuses_other_devices():
@@ -390,7 +398,9 @@ def extent_signal(rng, kind, s, b):
 def truncated_reduction(rot, src, dst, mask, extent, block):
     """B3's output as its rows are read with extents: each row summed
     (float64) up to its extent, plus one ``rot[d, 0] * 0`` at its first
-    output where the extent is below W; OR is a sum of flags > 0."""
+    output where the extent is below W; OR is a sum of flags > 0. A sum
+    row with non-finite terms is NaN at every output but their one
+    destination (the reference's one-hot spread, ``ops/segsum.py``)."""
     rot, src, dst, mask, extent = (t.numpy() for t in (rot, src, dst, mask,
                                                        extent))
     s, nb, w = src.shape
@@ -399,12 +409,21 @@ def truncated_reduction(rot, src, dst, mask, extent, block):
         for n in range(nb):
             e = extent[d, n]
             vals = rot[d][src[d, n, :e]]
-            terms = (vals & mask[d, n, :e] if rot.dtype == np.bool_
-                     else vals.astype(np.float64) * mask[d, n, :e])
+            if rot.dtype == np.bool_:
+                np.add.at(out[d, n], dst[d, n, :e], vals & mask[d, n, :e])
+                continue
+            terms = vals.astype(np.float64) * mask[d, n, :e]
+            bad = set(dst[d, n, :e][~np.isfinite(terms)].tolist())
             np.add.at(out[d, n], dst[d, n, :e], terms)
-            if rot.dtype != np.bool_ and e < w:
+            if e < w:
                 with np.errstate(invalid="ignore"):  # inf * 0 is NaN
-                    out[d, n, 0] += np.float64(rot[d, 0]) * 0.0
+                    pad = np.float64(rot[d, 0]) * 0.0
+                out[d, n, 0] += pad
+                if not np.isfinite(pad):
+                    bad.add(0)
+            for b in range(block):
+                if bad and (len(bad) > 1 or b not in bad):
+                    out[d, n, b] = np.nan
     out = out.reshape(s, nb * block)
     return out > 0 if rot.dtype == np.bool_ else out
 
@@ -485,3 +504,81 @@ def test_ring_segment_sum_extent_kernel_matches_plain_on_card(case, kind):
         assert same_bits(rot_next, want_next)
         assert_same_reduction(got.cpu().numpy(), want.cpu().numpy().astype(
             np.float64 if kind != "or" else np.bool_), kind)
+
+
+# ------------------------------------------------- non-finite terms (C1)
+
+
+def _poison(rng, x, src, n=3):
+    """NaN, +inf and -inf at the sources of ``n`` random slots of
+    ``src`` (any shape), and +inf at source 0, which the layouts' padding
+    slots read. ``x`` is a numpy signal, ``[B]`` or ``[S, B]``."""
+    flat = src.reshape(src.shape[0], -1) if x.ndim == 2 else src.reshape(1, -1)
+    for d in range(flat.shape[0]):
+        row = x[d] if x.ndim == 2 else x
+        picks = flat[d][rng.choice(flat.shape[1], n, replace=False)]
+        row[picks] = [np.nan, np.inf, -np.inf][:n]
+        row[0] = np.inf
+    return x
+
+
+def _same_nan_and_close(got, want):
+    assert torch.equal(got.isnan(), want.isnan()) and want.isnan().any()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                               equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nb,w,block,offset", [
+    (1954, 640, 512, 0), (7813, 1408, 128, 0), (300, 1407, 128, 0),
+    (300, 1408, 128, 1), (245, 32, 512, 0), (64, 128, segsum.MAX_BLOCK, 0),
+], ids=lambda v: str(v))
+def test_kernel_spreads_nonfinite_terms_as_plain_on_card(nb, w, block,
+                                                         offset):
+    # B1's sum with non-finite terms at live slots and at padding slots
+    # (source 0 behind a False mask, several destinations: their rows go
+    # all NaN): the kernel's NaN set equals the plain version's, every
+    # other output within tolerance.
+    _card()
+    rng = np.random.default_rng(nb + offset)
+    n_pad = 1_000_064
+    src, dst, mask = _random_layout(rng, nb, w, block, n_pad)
+    src[::7, -5:], mask[::7, -5:] = 0, False
+    x = _poison(rng, rng.standard_normal(n_pad).astype(np.float32), src)
+
+    def on_card(a):
+        flat = torch.zeros(offset + a.size, dtype=torch.from_numpy(a).dtype,
+                           device="cuda")
+        flat[offset:] = torch.from_numpy(a.reshape(-1)).cuda()
+        return flat[offset:].view(a.shape)
+
+    args = (on_card(x), on_card(src), on_card(dst), on_card(mask), block)
+    _same_nan_and_close(segsum.segsum_sum(*args),
+                        segsum.segsum_sum_plain(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extents", [False, True])
+@pytest.mark.parametrize("case", ["real-dense", "real-sparse", "random"])
+def test_ring_segment_sum_spreads_nonfinite_terms_on_card(case, extents):
+    # B3's sum (and B1's stacked entry) with non-finite terms at live
+    # slots and at rot[d, 0], read by each row's padding, with and
+    # without the rows' extents.
+    _card()
+    s, nb, w, block, b, kw = _EXTENT_CASES[case]
+    rng = np.random.default_rng(len(case) + extents)
+    src, dst, mask, extent = (t.cuda() for t in extent_buckets(
+        rng, s, nb, w, block, b, **kw))
+    rot = torch.from_numpy(_poison(
+        rng, rng.standard_normal((s, b)).astype(np.float32),
+        src.cpu().numpy())).cuda()
+    want_next, want = ring.ring_segment_sum_sum_plain(rot, src, dst, mask,
+                                                      block)
+    rot_next, got = ring.ring_segment_sum_sum(
+        rot, src, dst, mask, block, extent=extent if extents else None)
+    assert same_bits(rot_next, want_next)
+    _same_nan_and_close(got, want)
+    if not extents:
+        _same_nan_and_close(segsum.segsum_sum(rot, src, dst, mask, block),
+                            segsum.segsum_sum_plain(rot, src, dst, mask,
+                                                    block))

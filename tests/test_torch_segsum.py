@@ -65,3 +65,28 @@ def test_integer_sum_is_exact(graphs, method):
     want = np.asarray(JS.propagate_sum(jg, jnp.asarray(x), method))
     got = TS.propagate_sum(tg, torch.from_numpy(x), method).numpy()
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("where", ["live", "padding"])
+@pytest.mark.parametrize("method", ["pallas", "hybrid"])
+def test_nonfinite_sum_spreads_as_the_reference(graphs, method, where):
+    # The reference's one-hot product spreads a non-finite term over its
+    # node-block row (NaN at every other destination); the port's sum
+    # does the same. "live": NaN, +inf and -inf at three live nodes that
+    # send on real edges; "padding": +inf at node 0, which every padding
+    # slot of the blocked layouts reads (behind a False mask). The NaN
+    # sets must be equal and every other output agree.
+    jg, tg = graphs
+    rng = np.random.default_rng(3)
+    x = (rng.standard_normal(jg.n_nodes_padded).astype(np.float32)
+         * np.asarray(jg.node_mask))
+    if where == "padding":
+        x[0] = np.inf
+    else:
+        senders = np.flatnonzero(np.asarray(jg.out_degree)[1:jg.n_nodes]) + 1
+        x[rng.choice(senders, 3, replace=False)] = [np.nan, np.inf, -np.inf]
+    want = np.asarray(JS.propagate_sum(jg, jnp.asarray(x), method))
+    got = TS.propagate_sum(tg, torch.from_numpy(x), method).numpy()
+    assert np.isnan(want).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
