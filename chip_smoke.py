@@ -84,20 +84,48 @@ Phases, in order; any failure exits non-zero before the result line:
    ``skew``), ``segment`` and ``AdaptiveFlood(segment, k=2048)``, then
    with a seeded 1% of its edges cut by ``skew`` and ``segment``: each
    must return the JAX reference's dict; wall and a profile per method.
-5. Result: a JSON line of kernel numbers (B1's launches summed over
-   phases 4, 4c and 4b), then the last line
-   ``{"ok": true, "device": {...}}``.
+3c. Threefry (``ops/threefry.py``, ``csrc/threefry.cu``; port-only, the
+   counter-based draws of ``prng.py``): bits and the f32 uniform
+   epilogue against the plain version, bit for bit, at odd sizes, a 2-D
+   shape and ``N_PAD``, for three keys; timed at ``N_PAD`` as phase 3
+   times kernels (``kernel-threefry`` lines). Bound by the ALU pipe: the
+   loop's instructions are read from the built kernel's SASS
+   (``cuobjdump -sass``) and printed beside it.
+4e. SIR: the ladder's rung (``beta=0.3, gamma=0.05``, ``key(0)``, 30
+   rounds of ``engine.run``) on phase 4's graph under ``hybrid`` and
+   ``pallas``: the stacked stats and a sha256 of the final ``status``
+   must equal ``EXPECTED_SIR`` exactly; B1's sum entry 30 launches and
+   threefry 60 in each run (``sir-path`` lines: wall, busy, idle share,
+   launches, syncs).
+4f. Push-sum (30 rounds) and PageRank (``run_until_converged`` on the
+   residual) on phase 4's graph under ``hybrid``: ``messages`` and
+   ``rounds`` exact, the f32 sums within ``PUSHSUM_TOL`` /
+   ``PAGERANK_TOL`` of the reference; B1's sum two launches a round and
+   one (``consensus-path`` lines).
+4g. Gossip: the ladder's 100K BA rung, 30 rounds: the first round's
+   partners (sha256) and every round's ``messages`` exact, ``variance``
+   and ``mean`` within ``GOSSIP_TOL`` (``gossip-path`` line).
+   Phases 3c and 4e-4g run after 4d, and phase 3's C1 check after them.
+5. Result: a JSON line of kernel numbers (B1's OR launches summed over
+   phases 4, 4c and 4b; its sum entry's on the hybrid remainder over 4e's
+   ``hybrid`` run and 4f, on the blocked layout over 4e's ``pallas`` run;
+   threefry's over 4e-4g), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -162,6 +190,181 @@ EXPECTED_BA = {"rounds": 4, "coverage": 0.9999989867210388,
 EXPECTED_BA_CUT = {"rounds": 4, "coverage": 0.9999979734420776,
                    "messages": 9150030,
                    "frontier_occupancy_mean": 0.2499992549419403}
+
+#: The keys of every engine call: ``prng.key(0)``'s words, the reference's
+#: ``jax.random.key(0)``.
+KEY = np.array([0, 0], dtype=np.uint32)
+
+#: The keyed protocols at full width (phases 4e-4g): the JAX package on
+#: the CPU, ``method="segment"`` (SIR's pressure sums are integers, so
+#: every method gives its bits; push-sum's and PageRank's f32 sums move
+#: by rounding between methods, hence the tolerances below). PageRank's
+#: threshold lies midway, in log scale, between the reference's residuals
+#: after rounds 20 and 21 (7.0287310336425435e-06 and
+#: 5.405229330790462e-06), since sums in another order move a residual
+#: by ulps. Regenerate (~20 s):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine as E
+#:   from p2pnetwork_tpu.models import SIR, PushSum, PageRank, Gossip
+#:   from p2pnetwork_tpu.models.base import draw_neighbor_slot
+#:   k, g = jax.random.key(0), G.watts_strogatz(1_000_000, 10, 0.1, seed=0)
+#:   s, st = E.run(g, SIR(beta=0.3, gamma=0.05, source=0, method="segment"), k, 30)
+#:   print({n: np.asarray(v).tolist() for n, v in st.items()}, hashlib.sha256(np.asarray(s.status).tobytes()).hexdigest())
+#:   print({n: np.asarray(v).tolist() for n, v in E.run(g, PushSum(method="segment"), k, 30)[1].items()})
+#:   r = np.asarray(E.run(g, PageRank(method="segment"), k, 40)[1]["residual"]); thr = float(np.sqrt(r[19] * r[20]))
+#:   s, o = E.run_until_converged(g, PageRank(method="segment"), k, stat="residual", threshold=thr)
+#:   print(thr, o, float(np.asarray(s.ranks).sum()))
+#:   b = G.barabasi_albert(100_000, 4, seed=0, max_degree=128)
+#:   print({n: np.asarray(v).tolist() for n, v in E.run(b, Gossip(alpha=0.5), k, 30)[1].items()})
+#:   k0 = jax.random.split(jax.random.fold_in(k, 1), 30)[0]
+#:   print(hashlib.sha256(np.asarray(draw_neighbor_slot(b, k0)[1]).tobytes()).hexdigest())
+#:   EOF
+SIR_RUNG = {"beta": 0.3, "gamma": 0.05, "source": 0}
+SIR_ROUNDS = PUSHSUM_ROUNDS = GOSSIP_ROUNDS = 30
+EXPECTED_SIR = {
+    "messages": [
+        11, 63, 184, 429, 859, 1801, 3719, 7924, 17042, 36114, 76188, 157676,
+        328108, 671165, 1336569, 2539644, 4419324, 6629429, 8207523, 8596659,
+        8326723, 7928280, 7532864, 7155276, 6798883, 6456931, 6135664, 5828845,
+        5536587, 5259808],
+    "coverage": [
+        6.000000212225132e-06, 1.8999999156221747e-05, 4.400000034365803e-05,
+        9.100000170292333e-05, 0.0001849999971454963, 0.0003800000122282654,
+        0.0008120000129565597, 0.0017519999528303742, 0.0037360000424087048,
+        0.007871000096201897, 0.016326000913977623, 0.03397199884057045,
+        0.0695509985089302, 0.13875100016593933, 0.2648189961910248,
+        0.4645169973373413, 0.7075240015983582, 0.8998680114746094,
+        0.9812250137329102, 0.9980930089950562, 0.9998739957809448,
+        0.9999949932098389, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0],
+    "s_frac": [
+        0.9999939799308777, 0.9999809861183167, 0.9999560117721558,
+        0.999908983707428, 0.9998149871826172, 0.9996200203895569,
+        0.9991880059242249, 0.9982479810714722, 0.9962639808654785,
+        0.9921290278434753, 0.9836739897727966, 0.9660279750823975,
+        0.9304490089416504, 0.8612490296363831, 0.7351809740066528,
+        0.5354830026626587, 0.29247599840164185, 0.10013200342655182,
+        0.01877499930560589, 0.0019069999689236283, 0.00012599999899975955,
+        4.999999873689376e-06, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    "i_frac": [
+        6.000000212225132e-06, 1.8000000636675395e-05, 4.199999966658652e-05,
+        8.399999933317304e-05, 0.00017699999443721026, 0.0003650000144261867,
+        0.0007789999945089221, 0.0016830000095069408, 0.0035749999806284904,
+        0.007540999911725521, 0.015599999576807022, 0.03249000012874603,
+        0.06647700071334839, 0.13238400220870972, 0.2517879903316498,
+        0.43885400891304016, 0.6600300073623657, 0.8193899989128113,
+        0.8597699999809265, 0.8332390189170837, 0.7934070229530334,
+        0.7538130283355713, 0.7160000205039978, 0.6803489923477173,
+        0.6461349725723267, 0.6139919757843018, 0.5832740068435669,
+        0.5540220141410828, 0.5263329744338989, 0.49985501170158386],
+    "r_frac": [
+        0.0, 9.999999974752427e-07, 1.9999999949504854e-06,
+        7.000000096013537e-06, 7.999999979801942e-06, 1.4999999621068127e-05,
+        3.300000025774352e-05, 6.900000153109431e-05, 0.0001610000035725534,
+        0.00033000000985339284, 0.0007259999983943999, 0.0014819999923929572,
+        0.0030739998910576105, 0.0063669998198747635, 0.013031000271439552,
+        0.025662999600172043, 0.04749400168657303, 0.0804779976606369,
+        0.12145499885082245, 0.1648540049791336, 0.20646700263023376,
+        0.24618199467658997, 0.2840000092983246, 0.3196510076522827,
+        0.35386499762535095, 0.38600799441337585, 0.4167259931564331,
+        0.44597798585891724, 0.4736669957637787, 0.5001450181007385],
+    "status_sha256": (
+        "483f3f1eee67f095d0f5701a2a49f326e5dd03d36e32ec01a9c20977a0eb501c")}
+EXPECTED_PUSHSUM = {
+    "messages": [
+        9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+        9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+        9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+        9999994, 9999994, 9999994, 9999994, 9999994, 9999994],
+    "s_total": [
+        157.4434051513672, 157.4429931640625, 157.4433135986328,
+        157.44338989257812, 157.44332885742188, 157.44309997558594,
+        157.44337463378906, 157.4431915283203, 157.44320678710938,
+        157.443359375, 157.4432373046875, 157.44326782226562, 157.443359375,
+        157.44322204589844, 157.44325256347656, 157.44326782226562,
+        157.4433135986328, 157.44329833984375, 157.44326782226562,
+        157.44332885742188, 157.44334411621094, 157.44326782226562,
+        157.44332885742188, 157.44329833984375, 157.44329833984375,
+        157.44332885742188, 157.44332885742188, 157.44334411621094,
+        157.44334411621094, 157.44338989257812],
+    "w_total": [
+        1000000.0, 1000000.1875, 1000000.0, 1000000.125, 1000000.125,
+        1000000.3125, 1000000.125, 1000000.25, 1000000.1875, 1000000.3125,
+        1000000.3125, 1000000.5625, 1000000.3125, 1000000.4375, 1000000.25,
+        1000000.4375, 1000000.3125, 1000000.5, 1000000.5625, 1000000.5625,
+        1000000.4375, 1000000.5, 1000000.625, 1000000.5, 1000000.75,
+        1000000.6875, 1000000.6875, 1000000.6875, 1000000.6875, 1000000.8125],
+    "variance": [
+        0.09237845242023468, 0.04761618375778198, 0.03338276222348213,
+        0.025163283571600914, 0.01962435431778431, 0.01563839241862297,
+        0.012654215097427368, 0.010358442552387714, 0.008556576445698738,
+        0.007120463997125626, 0.00596182607114315, 0.005017739720642567,
+        0.004242104012519121, 0.003600410185754299, 0.0030663423240184784,
+        0.0026195368263870478, 0.0022440259344875813, 0.0019271568162366748,
+        0.0016588042490184307, 0.001430799369700253, 0.0012365051079541445,
+        0.001070493133738637, 0.0009282976971007884, 0.0008062266861088574,
+        0.0007012130809016526, 0.0006106983637437224, 0.0005325403180904686,
+        0.0004649387556128204, 0.00040637553320266306, 0.0003555674629751593],
+    "mean": [
+        0.00013331579975783825, 0.0001522622478660196, 0.00015338088269345462,
+        0.00015482593153137714, 0.00015564242494292557, 0.00015609068213962018,
+        0.00015642796643078327, 0.00015669070126023144, 0.0001569313317304477,
+        0.00015715706103947014, 0.0001573721965542063, 0.00015757433720864356,
+        0.00015776119835209101, 0.00015793039347045124, 0.00015808027819730341,
+        0.00015821022680029273, 0.0001583205594215542, 0.0001584118144819513,
+        0.00015848511247895658, 0.00015854199591558427, 0.00015858365804888308,
+        0.0001586120924912393, 0.00015862863801885396, 0.00015863482258282602,
+        0.00015863205771893263, 0.00015862175496295094, 0.0001586051075719297,
+        0.0001585830468684435, 0.0001585567370057106, 0.0001585269783390686]}
+EXPECTED_PAGERANK = {
+    "threshold": 6.16375722601741e-06,
+    "rounds": 21,
+    "messages": 209999874,
+    "value": 5.405229330790462e-06,
+    "rank_total": 1.0000001192092896}
+EXPECTED_GOSSIP = {
+    "messages": [
+        200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000,
+        200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000,
+        200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000,
+        200000, 200000, 200000],
+    "variance": [
+        0.5022070407867432, 0.2889656126499176, 0.17356370389461517,
+        0.10707402974367142, 0.06704597920179367, 0.04250214248895645,
+        0.027301691472530365, 0.017428560182452202, 0.011235734447836876,
+        0.0072490144520998, 0.004723094403743744, 0.0030730459839105606,
+        0.002001167042180896, 0.0013217380037531257, 0.0008724357467144728,
+        0.000574061123188585, 0.00037840212462469935, 0.00024819510872475803,
+        0.0001634813379496336, 0.00010820919851539657, 7.122169336071238e-05,
+        4.693190203397535e-05, 3.103880226262845e-05, 2.0503121049841866e-05,
+        1.356362372462172e-05, 9.015850992000196e-06, 5.958348992862739e-06,
+        3.951377948396839e-06, 2.6231041374558117e-06, 1.735616933729034e-06],
+    "mean": [
+        -0.0008120969287119806, 0.001167766167782247, 0.0020948858000338078,
+        0.003614371409639716, 0.004366429056972265, 0.004799111746251583,
+        0.005377727560698986, 0.005247979890555143, 0.005289474502205849,
+        0.00548478402197361, 0.005677328445017338, 0.005378237459808588,
+        0.005095393862575293, 0.005145453382283449, 0.005308592692017555,
+        0.005344639997929335, 0.005377495661377907, 0.005339034367352724,
+        0.005368947051465511, 0.0053900983184576035, 0.0053740087896585464,
+        0.005361414980143309, 0.005362977273762226, 0.005360523238778114,
+        0.005358944181352854, 0.005377057008445263, 0.00539065059274435,
+        0.0053845117799937725, 0.005379116162657738, 0.0053769382648169994],
+    "partners_sha256": (
+        "157f65b5c4134b6c2b94a393249aed76fd01f310e81d89b67055d1bb281916e0")}
+#: (rtol, atol) of each f32 stat against the reference. The port's sums
+#: run in another order (B1's rows and atomics, the diagonals, torch's
+#: reductions) and its normal draws are within 3 ulp of jax's; on the CPU
+#: at these sizes the port is off by: push-sum s_total 3.1e-4 (of ~157,
+#: a sum of 1M terms of size ~1), w_total 0.25 (of 1e6, ulp 0.0625),
+#: variance 2.4e-7 and mean 3.3e-6 relative; PageRank's residual 8.4e-6
+#: relative, rank_total 1.2e-7; gossip's variance 2.1e-7 and mean 8e-7
+#: relative. The bounds leave a margin of 10x or more for the card's
+#: other order.
+PUSHSUM_TOL = {"s_total": (0.0, 1e-2), "w_total": (0.0, 2.0),
+               "variance": (1e-4, 0.0), "mean": (0.0, 1e-8)}
+PAGERANK_TOL = {"value": (1e-4, 0.0), "rank_total": (0.0, 1e-5)}
+GOSSIP_TOL = {"variance": (1e-4, 0.0), "mean": (1e-4, 1e-8)}
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -761,7 +964,8 @@ def flood_runs(phase, g, contest, expected, engine, segsum, device_mod,
         frontier_ops.ROUNDS.update(sparse=0, dense=0)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, out = engine.run_until_coverage(g, proto, coverage_target=0.99,
+        state, out = engine.run_until_coverage(g, proto, KEY,
+                                               coverage_target=0.99,
                                                max_rounds=64)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -787,23 +991,26 @@ def flood_runs(phase, g, contest, expected, engine, segsum, device_mod,
     return runs, total, seen
 
 
-def steady_state(runs, contest, g, engine, phase, reps=5, profile=True):
-    """Each method's steady-state wall (median of ``reps``) and one run
-    under the profiler, outside the counted runs; prints a line each."""
+def timed_runs(run, reps=5) -> dict:
+    """Steady-state wall of ``run()`` (median of ``reps``, the checked run
+    before them the warm-up) and one run under the profiler."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return {"wall_s": sorted(times)[reps // 2], "wall_s_all": times,
+            "profile": profile_run(run)}
+
+
+def steady_state(runs, contest, g, engine, phase):
+    """Each method's steady-state wall and one profiled run
+    (:func:`timed_runs`), outside the counted runs; prints a line each."""
     for run, (_, proto) in zip(runs, contest):
-        times = []
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            engine.run_until_coverage(g, proto, coverage_target=0.99,
-                                      max_rounds=64)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        run["wall_s"] = sorted(times)[len(times) // 2]
-        run["wall_s_all"] = times
-        if profile:
-            run["profile"] = profile_run(lambda: engine.run_until_coverage(
-                g, proto, coverage_target=0.99, max_rounds=64))
+        run.update(timed_runs(lambda: engine.run_until_coverage(
+            g, proto, KEY, coverage_target=0.99, max_rounds=64)))
         print(json.dumps({"phase": phase, **run}), flush=True)
 
 
@@ -843,8 +1050,8 @@ def churn_path(g, engine, segsum, device_mod, models, frontier_ops,
     # resumed rounds only, as the reference's does.
     proto = contest[1][1]
     segsum.LAUNCHES = device_mod.SYNCS = 0
-    mid, stats = engine.run_from(gc, proto, proto.init(gc), 3)
-    end, out = engine.run_until_coverage_from(gc, proto, mid,
+    mid, stats = engine.run_from(gc, proto, proto.init(gc, KEY), KEY, 3)
+    end, out = engine.run_until_coverage_from(gc, proto, mid, KEY,
                                               coverage_target=0.99,
                                               max_rounds=64)
     torch.cuda.synchronize()
@@ -910,7 +1117,7 @@ def skew_path(engine, device_mod, models, graph_mod, failures):
         for name, proto in contest:
             device_mod.SYNCS = 0
             state, out = engine.run_until_coverage(
-                graph, proto, coverage_target=0.99, max_rounds=64)
+                graph, proto, KEY, coverage_target=0.99, max_rounds=64)
             syncs = device_mod.SYNCS
             if out != expected:
                 fail(f"BA {name} returned {out}, the reference gives "
@@ -922,7 +1129,8 @@ def skew_path(engine, device_mod, models, graph_mod, failures):
             for _ in range(5):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                engine.run_until_coverage(graph, proto, coverage_target=0.99,
+                engine.run_until_coverage(graph, proto, KEY,
+                                          coverage_target=0.99,
                                           max_rounds=64)
                 torch.cuda.synchronize()
                 times.append(time.perf_counter() - t0)
@@ -930,8 +1138,303 @@ def skew_path(engine, device_mod, models, graph_mod, failures):
                 "phase": "skew-path", "method": name, "syncs": syncs,
                 "wall_s": sorted(times)[2], "wall_s_all": times,
                 "profile": profile_run(lambda: engine.run_until_coverage(
-                    graph, proto, coverage_target=0.99, max_rounds=64))}),
+                    graph, proto, KEY, coverage_target=0.99,
+                    max_rounds=64))}),
                 flush=True)
+
+
+#: Phase 3c's draw sizes: around the kernel's 256-thread block, an odd
+#: count past 2**20, and ``N_PAD`` (each of SIR's two draws a round at
+#: 1M); and a 2-D shape (row-major flat counters).
+THREEFRY_SIZES = [1, 31, 33, 255, 257, 2**20 + 7, N_PAD]
+THREEFRY_SHAPE_2D = (1000, 1001)
+#: Per-lane issue rates of one H100 SXM at its 1,980 MHz boost clock
+#: (the clock of the data sheet's f32 rate, ``VECTOR_OPS_PER_S``: 132 SMs
+#: x 128 FP32 lanes x 2): the ALU pipe takes 64 lanes per SM per clock
+#: (NVIDIA's Hopper architecture white paper: 64 INT32 units per SM), and
+#: an SM issues 128 lanes' instructions per clock (4 schedulers x 32).
+ALU_LANES_PER_S = 132 * 64 * 1.98e9
+ISSUE_LANES_PER_S = 132 * 128 * 1.98e9
+#: SASS opcodes by pipe, as phase 3c sorts the threefry loop: the ALU
+#: pipe's only (funnel shift, logic, min/max, the epilogue's shift-or),
+#: the adds (ALU or FMA pipe), the f32 ones (FMA pipe); the rest is the
+#: grid-stride loop's own (compare, address, store, branch).
+SASS_ALU = ("SHF", "LOP3", "FMNMX", "LEA.HI")
+SASS_ADD = ("IADD3", "IMAD.IADD")
+SASS_FP = ("FADD", "FFMA", "FMUL")
+
+
+def threefry_sass(build_mod) -> dict:
+    """The built threefry kernels' grid-stride loops, from ``cuobjdump
+    -sass`` of the library: per entry, the opcode counts of one pass (one
+    counter) and their sums by ``SASS_ALU``/``SASS_ADD``/``SASS_FP``."""
+    tool = Path(build_mod._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", build_mod.LAST_BUILD["path"]],
+                          capture_output=True, text=True, check=True).stdout
+    out = {}
+    for func in text.split("Function : ")[1:]:
+        name = func.split("\n", 1)[0]
+        if "threefry_kernel" not in name:
+            continue
+        ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
+            r"([^;]*);", func)]
+        # The loop: from the backward branch's target to the branch.
+        end, start = next((a, int(t, 16)) for a, op, rest in ins
+                          if op == "BRA"
+                          for t in re.findall(r"0x([0-9a-f]+)", rest)
+                          if int(t, 16) < a)
+        ops = collections.Counter(op for a, op, _ in ins
+                                  if start <= a <= end)
+
+        def total(names):  # LEA.HI.X forms an address, not a value
+            return sum(n for op, n in ops.items() if op != "LEA.HI.X" and
+                       any(op == k or op.startswith(k + ".") for k in names))
+        out["uniform" if "ILb1E" in name else "bits"] = {
+            "ops": dict(sorted(ops.items())), "all": sum(ops.values()),
+            "alu_only": total(SASS_ALU), "adds": total(SASS_ADD),
+            "fp": total(SASS_FP)}
+    if sorted(out) != ["bits", "uniform"]:
+        fail(f"threefry kernels not found in the SASS: {sorted(out)}")
+    return out
+
+
+def threefry_phase(prng, threefry, build_mod, flush):
+    """Phase 3c: the threefry kernel against its plain version, bits and
+    the f32 uniform epilogue (unit range and a general one), bit for bit,
+    at ``THREEFRY_SIZES`` and ``THREEFRY_SHAPE_2D`` for three keys; then
+    timed at ``N_PAD`` as phase 3 times kernels. Bound: the work's least
+    instructions per counter (``threefry.ALU_OPS`` etc.) over the ALU
+    pipe's rate for those only it takes, and over the issue rate for all;
+    the built loop's SASS must hold at least those. Returns the timed rows
+    and the largest difference from the plain version (0 or a failure)."""
+    dev = torch.device("cuda")
+    ranges = [(0.0, 1.0), (float(np.float32(-3.3)),
+                           float(np.float32(7.1) - np.float32(-3.3)))]
+    max_err = 0.0
+    for k in (prng.key(0), prng.fold_in(prng.key(0), 1), prng.key(-1)):
+        k0, k1 = int(k[0]), int(k[1])
+        for n in THREEFRY_SIZES:
+            got = threefry.threefry_bits(k0, k1, n, dev)
+            want = threefry.threefry_bits_plain(k0, k1, n, dev)
+            if n:
+                max_err = max(max_err, float(
+                    (got.long() - want.long()).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"threefry bits differ from the plain version "
+                     f"(key {list(k)}, n={n})")
+            for lo, scale in ranges:
+                got = threefry.threefry_uniform(k0, k1, n, lo, scale, dev)
+                want = threefry.threefry_uniform_plain(k0, k1, n, lo, scale,
+                                                       dev)
+                if n:
+                    max_err = max(max_err, (got - want).abs().max().item())
+                if not torch.equal(got.view(torch.int32),
+                                   want.view(torch.int32)):
+                    fail(f"threefry uniform differs from the plain version "
+                         f"(key {list(k)}, n={n}, minval={lo})")
+        got = prng.random_bits(k, THREEFRY_SHAPE_2D, device=dev)
+        want = threefry.threefry_bits_plain(
+            k0, k1, got.numel(), dev).reshape(THREEFRY_SHAPE_2D)
+        if not torch.equal(got, want):
+            fail(f"threefry bits over {THREEFRY_SHAPE_2D} differ")
+    torch.cuda.synchronize()
+    sass = threefry_sass(build_mod)
+    k = prng.key(0)
+    k0, k1 = int(k[0]), int(k[1])
+    rows = []
+    for entry, alu, other, kernel, plain in (
+            ("bits", threefry.ALU_OPS, threefry.ADD_OPS,
+             lambda: threefry.threefry_bits(k0, k1, N_PAD, dev),
+             lambda: threefry.threefry_bits_plain(k0, k1, N_PAD, dev)),
+            ("uniform", threefry.ALU_OPS + threefry.UNIFORM_ALU_OPS,
+             threefry.ADD_OPS + threefry.UNIFORM_FMA_OPS,
+             lambda: threefry.threefry_uniform(k0, k1, N_PAD, 0.0, 1.0, dev),
+             lambda: threefry.threefry_uniform_plain(k0, k1, N_PAD, 0.0,
+                                                     1.0, dev))):
+        built = sass[entry]
+        if built["alu_only"] < alu or built["alu_only"] + built["adds"] + \
+                built["fp"] < alu + other:
+            fail(f"threefry {entry}: the built loop {built} does less than "
+                 f"the bound counts ({alu} ALU-only, {alu + other} in all)")
+        by_bytes = 1e3 * 4 * N_PAD / HBM_BYTES_PER_S
+        by_alu = 1e3 * alu * N_PAD / ALU_LANES_PER_S
+        by_issue = 1e3 * (alu + other) * N_PAD / ISSUE_LANES_PER_S
+        by_ops = max(by_alu, by_issue)
+        row = {"entry": entry, "n": N_PAD, "alu_ops_per_counter": alu,
+               "other_ops_per_counter": other,
+               "ms": cuda_times(kernel, 50, flush),
+               "plain_ms": cuda_times(plain, 10, flush),
+               "library_ms": None,
+               "bound_ms": max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "bytes_bound_ms": by_bytes, "alu_bound_ms": by_alu,
+               "issue_bound_ms": by_issue, "sass": built}
+        rows.append(row)
+        print(json.dumps({"phase": "kernel-threefry", **row}), flush=True)
+    return rows, max_err
+
+
+def counted(run, segsum, threefry, device_mod):
+    """``run()`` once with every count set to 0 just before it; returns
+    its result, its wall and the counts read just after."""
+    segsum.LAUNCHES = threefry.LAUNCHES = device_mod.SYNCS = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = run()
+    torch.cuda.synchronize()
+    return result, {"first_run_s": time.perf_counter() - t0,
+                    "segsum_launches": segsum.LAUNCHES,
+                    "threefry_launches": threefry.LAUNCHES,
+                    "syncs": device_mod.SYNCS}
+
+
+def digest(t: torch.Tensor) -> str:
+    """sha256 of a tensor's bytes."""
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()
+
+
+def sir_path(g, engine, prng, segsum, threefry, device_mod, SIR) -> dict:
+    """Phase 4e: the ladder's SIR rung (benchmarks/ladder.py,
+    ``bench_sir_1m``) on phase 4's graph by ``engine.run``, under
+    ``hybrid`` (B1's sum on the remainder) and ``pallas`` (B1's sum on the
+    blocked layout). The ladder builds its graph without a neighbor table;
+    phase 4's has one, which SIR's ``hybrid`` and ``pallas`` never read
+    (they read the edges' layouts only), so the result is the same. Each
+    must return ``EXPECTED_SIR`` exactly and launch B1's sum entry once a
+    round and the threefry kernel twice. Returns the launches: B1's sum
+    per method (layout), threefry over both runs."""
+    launches = {"hybrid": 0, "pallas": 0, "threefry": 0}
+    for method in ("hybrid", "pallas"):
+        proto = SIR(method=method, **SIR_RUNG)
+        run = lambda: engine.run(g, proto, KEY, SIR_ROUNDS)  # noqa: E731
+        (state, stats), rec = counted(run, segsum, threefry, device_mod)
+        got = {k: v.tolist() for k, v in stats.items()}
+        got["status_sha256"] = digest(state.status)
+        if got != EXPECTED_SIR:
+            bad = sorted(k for k in EXPECTED_SIR if got.get(k) !=
+                         EXPECTED_SIR[k])
+            fail(f"SIR {method} differs from the reference in {bad}: "
+                 f"{ {k: got.get(k) for k in bad} }")
+        if rec["segsum_launches"] != SIR_ROUNDS:
+            fail(f"SIR {method} launched B1's sum {rec['segsum_launches']} "
+                 f"times in {SIR_ROUNDS} rounds")
+        if rec["threefry_launches"] != 2 * SIR_ROUNDS:
+            fail(f"SIR {method} launched threefry "
+                 f"{rec['threefry_launches']} times in {SIR_ROUNDS} rounds")
+        launches[method] += rec["segsum_launches"]
+        launches["threefry"] += rec["threefry_launches"]
+        timed = timed_runs(run)
+        print(json.dumps({"phase": "sir-path", "method": method,
+                          "rounds": SIR_ROUNDS, **rec, **timed,
+                          "wall_per_round_ms":
+                              1e3 * timed["wall_s"] / SIR_ROUNDS,
+                          "final": {k: got[k][-1] for k in
+                                    ("coverage", "s_frac", "i_frac",
+                                     "r_frac")}}), flush=True)
+    return launches
+
+
+def assert_close(label, got, want, rtol, atol):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape or not np.allclose(got, want, rtol=rtol,
+                                                  atol=atol):
+        fail(f"{label}: {got.tolist()} not within rtol={rtol}, atol={atol} "
+             f"of the reference's {want.tolist()}")
+    return float(np.abs(got - want).max())
+
+
+def consensus_path(g, engine, prng, segsum, threefry, device_mod, PushSum,
+                   PageRank) -> dict:
+    """Phase 4f: push-sum (30 rounds by ``engine.run``) and PageRank (by
+    ``run_until_converged`` to ``EXPECTED_PAGERANK``'s threshold) on
+    phase 4's graph under ``hybrid``, B1's sum entry on arbitrary f32
+    terms: two launches a round for push-sum, one for PageRank.
+    ``messages`` and ``rounds`` exact, the sums within ``PUSHSUM_TOL`` /
+    ``PAGERANK_TOL``; each line prints its largest difference from the
+    reference. Returns the launches."""
+    launches = {"segsum": 0, "threefry": 0}
+    proto = PushSum(method="hybrid")
+    run = lambda: engine.run(g, proto, KEY, PUSHSUM_ROUNDS)  # noqa: E731
+    (state, stats), rec = counted(run, segsum, threefry, device_mod)
+    if stats["messages"].tolist() != EXPECTED_PUSHSUM["messages"]:
+        fail(f"push-sum messages {stats['messages'].tolist()}, the "
+             f"reference gives {EXPECTED_PUSHSUM['messages']}")
+    err = max(assert_close(f"push-sum {name}", stats[name].tolist(),
+                           EXPECTED_PUSHSUM[name], rtol, atol)
+              for name, (rtol, atol) in PUSHSUM_TOL.items())
+    if (rec["segsum_launches"], rec["threefry_launches"]) != (
+            2 * PUSHSUM_ROUNDS, 1):
+        fail(f"push-sum launched B1's sum {rec['segsum_launches']} and "
+             f"threefry {rec['threefry_launches']} times")
+    launches["segsum"] += rec["segsum_launches"]
+    launches["threefry"] += rec["threefry_launches"]
+    print(json.dumps({"phase": "consensus-path", "protocol": "push-sum",
+                      "rounds": PUSHSUM_ROUNDS, **rec, **timed_runs(run),
+                      "max_abs_err_vs_reference": err,
+                      "final": {k: stats[k][-1].item() for k in stats}}),
+          flush=True)
+
+    proto = PageRank(method="hybrid")
+    thr = EXPECTED_PAGERANK["threshold"]
+    run = lambda: engine.run_until_converged(  # noqa: E731
+        g, proto, KEY, stat="residual", threshold=thr)
+    (state, out), rec = counted(run, segsum, threefry, device_mod)
+    rank_total = state.ranks.sum().item()
+    for k in ("rounds", "messages"):
+        if out[k] != EXPECTED_PAGERANK[k]:
+            fail(f"PageRank {k} {out[k]}, the reference gives "
+                 f"{EXPECTED_PAGERANK[k]}")
+    err = max(assert_close("PageRank value", out["value"],
+                           EXPECTED_PAGERANK["value"],
+                           *PAGERANK_TOL["value"]),
+              assert_close("PageRank rank_total", rank_total,
+                           EXPECTED_PAGERANK["rank_total"],
+                           *PAGERANK_TOL["rank_total"]))
+    if rec["segsum_launches"] != out["rounds"] or rec["threefry_launches"]:
+        fail(f"PageRank launched B1's sum {rec['segsum_launches']} times in "
+             f"{out['rounds']} rounds, threefry {rec['threefry_launches']}")
+    launches["segsum"] += rec["segsum_launches"]
+    print(json.dumps({"phase": "consensus-path", "protocol": "pagerank",
+                      "threshold": thr, **out, "rank_total": rank_total,
+                      **rec, **timed_runs(run),
+                      "max_abs_err_vs_reference": err}), flush=True)
+    return launches
+
+
+def gossip_path(engine, prng, base, threefry, segsum, device_mod, graph_mod,
+                Gossip) -> int:
+    """Phase 4g: the ladder's gossip rung (``bench_gossip_100k``): BA
+    100K (``m = 4``, table capped at 128), ``Gossip(alpha=0.5)``, 30
+    rounds. The first round's partners (sha256) and every round's
+    ``messages`` exact, ``variance`` and ``mean`` within ``GOSSIP_TOL``.
+    Returns the threefry launches (one normal draw, two bit draws a
+    round)."""
+    t0 = time.perf_counter()
+    b = graph_mod.barabasi_albert(100_000, 4, seed=0, max_degree=128)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    first = prng.split(prng.fold_in(KEY, 1), GOSSIP_ROUNDS)[0]
+    partners = digest(base.draw_neighbor_slot(b, first)[1])
+    if partners != EXPECTED_GOSSIP["partners_sha256"]:
+        fail("gossip's first-round partners differ from the reference's")
+    proto = Gossip(alpha=0.5)
+    run = lambda: engine.run(b, proto, KEY, GOSSIP_ROUNDS)  # noqa: E731
+    (state, stats), rec = counted(run, segsum, threefry, device_mod)
+    if stats["messages"].tolist() != EXPECTED_GOSSIP["messages"]:
+        fail(f"gossip messages {stats['messages'].tolist()}, the reference "
+             f"gives {EXPECTED_GOSSIP['messages']}")
+    err = max(assert_close(f"gossip {name}", stats[name].tolist(),
+                           EXPECTED_GOSSIP[name], rtol, atol)
+              for name, (rtol, atol) in GOSSIP_TOL.items())
+    if rec["threefry_launches"] != 1 + 2 * GOSSIP_ROUNDS:
+        fail(f"gossip launched threefry {rec['threefry_launches']} times")
+    print(json.dumps({"phase": "gossip-path", "build_s": build_s,
+                      "rounds": GOSSIP_ROUNDS, **rec, **timed_runs(run),
+                      "max_abs_err_vs_reference": err,
+                      "final_variance": stats["variance"][-1].item()}),
+          flush=True)
+    return rec["threefry_launches"]
 
 
 #: Launches each ring layout must make (> 0): kernel name -> counter.
@@ -1093,11 +1596,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing checked", file=sys.stderr)
         return 2
-    from p2pnetwork_tpu_torch import _build, _device
-    from p2pnetwork_tpu_torch.models.adaptive_flood import AdaptiveFlood
-    from p2pnetwork_tpu_torch.models.flood import Flood
+    from p2pnetwork_tpu_torch import _build, _device, prng
+    from p2pnetwork_tpu_torch.models import (SIR, AdaptiveFlood, Flood,
+                                             Gossip, PageRank, PushSum, base)
     from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
-    from p2pnetwork_tpu_torch.ops import ring, segsum
+    from p2pnetwork_tpu_torch.ops import ring, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
     from p2pnetwork_tpu_torch.sim import engine, failures, topology
@@ -1142,11 +1645,24 @@ def main() -> int:
     # ~0.3 us when 4c ran before 4b).
     launches += churn_path(g, engine, segsum, _device, models, frontier_ops,
                            topology, failures)
-    del g
-    torch.cuda.empty_cache()
 
     # 4d. Skew: the 1M BA rung.
     skew_path(engine, _device, models, graph_mod, failures)
+
+    # The phases new in slice 4 run after every earlier timed row and run,
+    # for the same reason: 3c (threefry), then the keyed protocols on
+    # phase 4's graph (4e, 4f) and the gossip rung (4g).
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    threefry_rows, threefry_err = threefry_phase(prng, threefry, _build,
+                                                 flush)
+    del flush
+    sir_launches = sir_path(g, engine, prng, segsum, threefry, _device, SIR)
+    cons_launches = consensus_path(g, engine, prng, segsum, threefry,
+                                   _device, PushSum, PageRank)
+    del g
+    torch.cuda.empty_cache()
+    gossip_launches = gossip_path(engine, prng, base, threefry, segsum,
+                                  _device, graph_mod, Gossip)
 
     # Phase 3's C1 check of B1 (B3's ran at the end of phase 3b).
     c1_phase(segsum)
@@ -1156,6 +1672,11 @@ def main() -> int:
     # hop of the bool frontier, B3's OR entry on the mxu layout's real
     # step 0 (phase 3b); launches summed over the checked runs of phases 4
     # and 4b.
+    # B1's sum entry has a row per layout: the hybrid remainder's timing
+    # with its launches in 4e's hybrid run and 4f, the blocked layout's
+    # with those of 4e's pallas run. The threefry row (port-only, no TPU
+    # kernel: it replaces XLA's fused jax.random draw) is its uniform
+    # entry, SIR's draw, launched in 4e, 4f and 4g.
     def row(name, source, replaces, at, n, err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
@@ -1176,6 +1697,17 @@ def main() -> int:
                  if r["step"] == 0 and r["entry"] == "or"),
             ring_launches["ring_segsum"],
             max(ring_err["ring_segsum"], step_err)),
+        row("segsum_sum", "segsum.cu",
+            "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
+            sir_launches["hybrid"] + cons_launches["segsum"], max_err),
+        row("segsum_sum_blocked", "segsum.cu",
+            "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[3],
+            sir_launches["pallas"], max_err),
+        row("threefry", "threefry.cu",
+            "p2pnetwork_tpu/models/sir.py:65 (jax.random.uniform, fused "
+            "by XLA; no TPU kernel)", threefry_rows[1],
+            sir_launches["threefry"] + cons_launches["threefry"]
+            + gossip_launches, threefry_err),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

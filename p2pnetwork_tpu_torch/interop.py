@@ -1,5 +1,5 @@
-"""Carry a graph, a sharded graph or a flood state across from the JAX
-package.
+"""Carry a graph, a sharded graph, a protocol state or a PRNG key across
+from the JAX package.
 
 The port imports nothing of ``p2pnetwork_tpu``; the caller turns the JAX
 objects into plain dicts of numpy arrays and ints (the dataclass fields by
@@ -18,10 +18,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from p2pnetwork_tpu_torch import _device
-from p2pnetwork_tpu_torch.models.adaptive_flood import (
-    AdaptiveFloodBitState, AdaptiveFloodState)
-from p2pnetwork_tpu_torch.models.flood import FloodBitState, FloodState
+from p2pnetwork_tpu_torch import _device, prng
+from p2pnetwork_tpu_torch.models import (AdaptiveFloodBitState,
+                                         AdaptiveFloodState, FloodBitState,
+                                         FloodState, GossipState,
+                                         PageRankState, PushSumState,
+                                         SIRState)
 from p2pnetwork_tpu_torch.ops.blocked import BlockedEdges
 from p2pnetwork_tpu_torch.ops.diag import HybridEdges
 from p2pnetwork_tpu_torch.ops.skew import SkewTable
@@ -107,6 +109,30 @@ def flood_state_from_numpy(fields: dict, device=None):
                        cls.__name__)
     return cls(**{f.name: _t(fields[f.name], dev)
                   for f in dataclasses.fields(cls)})
+
+
+#: The keyed protocols' states, by the class name both packages use.
+_PROTOCOL_STATES = {c.__name__: c for c in (SIRState, GossipState,
+                                            PushSumState, PageRankState)}
+
+
+def protocol_state_from_numpy(name: str, fields: dict, device=None):
+    """The port's state class ``name`` (``"SIRState"``, ``"GossipState"``,
+    ``"PushSumState"`` or ``"PageRankState"``, the reference's names) from
+    the reference state's fields as numpy arrays, on ``device``."""
+    cls = _PROTOCOL_STATES[name]
+    _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(cls)},
+                       name)
+    dev = _device.resolve(device)
+    return cls(**{f.name: _t(fields[f.name], dev)
+                  for f in dataclasses.fields(cls)})
+
+
+def key_from_numpy(data) -> np.ndarray:
+    """The port's key (``prng.py``) from ``jax.random.key_data(k)`` as
+    numpy ``uint32[2]``: the same words, so both packages draw the same
+    numbers from it."""
+    return prng.wrap_key_data(np.asarray(data))
 
 
 #: ``ShardedGraph`` fields the port does not read: carried as None.

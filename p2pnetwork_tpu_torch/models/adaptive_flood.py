@@ -79,7 +79,7 @@ class AdaptiveFlood:
 
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy")
 
-    def init(self, graph: Graph):
+    def init(self, graph: Graph, key):
         seed, fidx, fslice, count = _wave_seed(graph, self.source, self.k,
                                                self.slice_width)
         if self.bitset:
@@ -93,7 +93,7 @@ class AdaptiveFlood:
     def coverage(self, graph: Graph, state):
         return live_coverage(graph, state.seen)
 
-    def step(self, graph: Graph, state):
+    def step(self, graph: Graph, state, key):
         packed = isinstance(state, AdaptiveFloodBitState)
         n_pad = graph.n_nodes_padded
         seen0, frontier0 = ((bitset.unpack_bits(state.seen, n_pad),

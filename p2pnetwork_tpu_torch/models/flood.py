@@ -62,7 +62,7 @@ class Flood:
 
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy")
 
-    def init(self, graph: Graph):
+    def init(self, graph: Graph, key):
         base.validate_source(graph, self.source)
         seed = torch.zeros(graph.n_nodes_padded, dtype=torch.bool,
                            device=graph.device)
@@ -80,9 +80,11 @@ class Flood:
         return segment.propagate_or(graph, frontier_, self.method,
                                     frontier_crossover=self.frontier_crossover)
 
-    def step(self, graph: Graph, state):
+    def step(self, graph: Graph, state, key):
         """One synchronous round: frontier nodes broadcast; receivers that
-        had not seen the message form the next frontier."""
+        had not seen the message form the next frontier. Floods draw no
+        random numbers: ``key`` is taken and ignored, as the reference's
+        floods ignore theirs."""
         if isinstance(state, FloodBitState):
             return self._step_bits(graph, state)
         delivered = self._propagate(graph, state.frontier)

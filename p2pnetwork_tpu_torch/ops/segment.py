@@ -149,11 +149,13 @@ def propagate_or(graph: Graph, signal: torch.Tensor, method: str = "auto",
 
 
 def propagate_sum(graph: Graph, signal: torch.Tensor,
-                  method: str = "auto") -> torch.Tensor:
+                  method: str = "auto", exact: bool = True) -> torch.Tensor:
     """Per-node sum over incoming neighbors: ``out[v] = sum(signal[u], u->v)``.
-    The reference's ``exact=False`` (bf16 MXU inputs) has no counterpart:
-    the CUDA kernel always adds f32 terms in f32. ``frontier`` is an OR
-    lowering only, as in the reference."""
+    ``exact`` is accepted for the reference's signature and has no
+    effect: the reference's ``exact=False`` feeds the MXU bf16 inputs,
+    while the CUDA kernel always adds f32 terms in f32 (0/1 sums, as SIR's,
+    are exact either way). ``frontier`` is an OR lowering only, as in the
+    reference."""
     if graph.dyn_senders is not None:
         return (propagate_sum(_static(graph), signal, method)
                 + _dynamic_sum(graph, signal))

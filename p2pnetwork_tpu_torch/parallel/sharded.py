@@ -40,6 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.models.flood import Flood, FloodState, live_coverage
 from p2pnetwork_tpu_torch.ops import blocked as B
 from p2pnetwork_tpu_torch.ops import frontier as F
@@ -581,7 +582,7 @@ class _RingFlood:
     def coverage(self, sg, state: FloodState) -> torch.Tensor:
         return live_coverage(sg, state.seen)
 
-    def step(self, sg, state: FloodState):
+    def step(self, sg, state: FloodState, key):
         delivered = self.pass_(state.frontier)
         new = delivered & ~state.seen & sg.node_mask
         seen = state.seen | new
@@ -620,7 +621,7 @@ def flood(sg: ShardedGraph, mesh: RingMesh, source: int, rounds: int,
     proto, state = _flood_start(sg, mesh, source, state0, comm)
     msgs, cov = [], []
     for _ in range(rounds):
-        state, stats = proto.step(sg, state)
+        state, stats = proto.step(sg, state, None)  # the flood draws nothing
         msgs.append(stats["messages"])
         cov.append(stats["coverage"])
     empty = torch.zeros(0, device=sg.device)
@@ -651,8 +652,9 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
     if recorder is not None:
         raise NotImplementedError("the flight recorder is not ported yet")
     proto, state = _flood_start(sg, mesh, source, state0, comm)
+    # The flood draws nothing; the engine's key chain runs unread.
     state, out = engine.run_until_coverage_from(
-        sg, proto, state, coverage_target=coverage_target,
+        sg, proto, state, prng.key(0), coverage_target=coverage_target,
         max_rounds=max_rounds)
     if return_state:
         return (state.seen, state.frontier), out

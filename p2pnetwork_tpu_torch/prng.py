@@ -1,0 +1,182 @@
+"""Counter-based random numbers, bit for bit those of ``jax.random``
+(jax 0.9.0's default threefry2x32 with ``jax_threefry_partitionable``
+on), under ``jax.random``'s names.
+
+A key is two u32 words held on the host: numpy ``uint32[2]``, or
+``uint32[..., 2]`` for the keys a :func:`split` returns. ``split`` and
+``fold_in`` hash a handful of words, so they run here in numpy, exactly,
+with no device launch and no sync. Only draws over a shape touch the
+device: the key's two words go to the kernel (``ops/threefry.py``) as
+scalar arguments, and the kernel writes one u32 per element,
+``bits1 ^ bits2`` of ``threefry2x32(key, hi(i), lo(i))`` over the flat
+index ``i`` (jax's ``_threefry_random_bits_partitionable``).
+
+The samplers follow ``jax/_src/random.py``: ``uniform`` sets the top 23
+bits as an f32 mantissa in [1, 2) (``_uniform``), ``randint`` reduces two
+32-bit draws by span and multiplier in wrapping u32 arithmetic
+(``_randint``), ``bernoulli`` is ``uniform < p`` (``_bernoulli``) and
+``normal`` is ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))``
+(``_normal_real``). All but ``normal`` are exact; ``normal``'s
+``erf_inv`` is XLA's single-precision polynomial (Giles), with the fused
+multiply-adds XLA's CPU code makes, evaluated in torch; its ``log1p`` is
+torch's, not XLA's, so about 1% of draws differ from jax's, by at most
+3 ulp (``tests/test_torch_prng.py`` states the tolerance).
+
+This is the port's explicit generator for simulations that must be
+checkable against the reference. It does not replace ``torch.Generator``,
+which gives other numbers. Only f32 floats and i32 integers are drawn,
+the types the protocols use.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from p2pnetwork_tpu_torch import _device
+from p2pnetwork_tpu_torch.ops import threefry as TF
+from p2pnetwork_tpu_torch.ops.threefry import threefry2x32
+
+
+def _check_key(k) -> np.ndarray:
+    k = np.asarray(k)
+    if k.dtype != np.uint32 or k.shape != (2,):
+        raise TypeError(f"expected a single key (uint32[2]), got "
+                        f"{k.dtype}{list(k.shape)}")
+    return k
+
+
+def key(seed: int) -> np.ndarray:
+    """The key of an integer seed: ``[0, seed mod 2**32]``, as jax without
+    x64 makes it (``key(2**32 + 5)`` is ``[0, 5]``, ``key(-1)`` is
+    ``[0, 0xffffffff]``)."""
+    return np.array([0, int(seed) & 0xFFFFFFFF], dtype=np.uint32)
+
+
+PRNGKey = key
+
+
+def key_data(k) -> np.ndarray:
+    """The key's u32 words (a copy)."""
+    return np.array(k, dtype=np.uint32)
+
+
+def wrap_key_data(data) -> np.ndarray:
+    """A key from its u32 words, e.g. ``jax.random.key_data(k)`` as
+    numpy."""
+    data = np.array(data)
+    if data.dtype != np.uint32 or data.shape[-1:] != (2,):
+        raise TypeError(f"key data must be uint32[..., 2], got "
+                        f"{data.dtype}{list(data.shape)}")
+    return data
+
+
+def split(k, num=2) -> np.ndarray:
+    """``num`` new keys (``uint32[*num, 2]``) — jax's fold-like split
+    (``prng.py::_threefry_split_foldlike``): key ``i`` is the hash of the
+    counter pair ``(i >> 32, i & 0xffffffff)`` over the flat index."""
+    k0, k1 = (int(w) for w in _check_key(k))
+    shape = tuple(num) if isinstance(num, (tuple, list)) else (int(num),)
+    words = [threefry2x32(k0, k1, i >> 32, i & 0xFFFFFFFF)
+             for i in range(math.prod(shape))]
+    return np.array(words, dtype=np.uint32).reshape(*shape, 2)
+
+
+def fold_in(k, data: int) -> np.ndarray:
+    """A new key from ``k`` and a 32-bit integer: threefry of the pair
+    ``threefry_seed(data) = [0, data]`` (``prng.py::_threefry_fold_in``)."""
+    k0, k1 = (int(w) for w in _check_key(k))
+    return np.array(threefry2x32(k0, k1, 0, int(data) & 0xFFFFFFFF),
+                    dtype=np.uint32)
+
+
+def _shape(shape) -> tuple:
+    return (int(shape),) if isinstance(shape, int) else tuple(shape)
+
+
+def random_bits(k, shape, *, device=None) -> torch.Tensor:
+    """32 random bits per element, as ``int32`` with the u32 pattern
+    (``jax.random.bits`` viewed as int32)."""
+    k, shape = _check_key(k), _shape(shape)
+    return TF.threefry_bits(int(k[0]), int(k[1]), math.prod(shape),
+                            _device.resolve(device)).reshape(shape)
+
+
+def uniform(k, shape=(), minval=0.0, maxval=1.0, *,
+            device=None) -> torch.Tensor:
+    """f32 uniform on ``[minval, maxval)``: the draw's top 23 bits as a
+    mantissa in [1, 2), minus 1, scaled and shifted in f32, then
+    ``max(minval, .)``."""
+    k, shape = _check_key(k), _shape(shape)
+    lo = np.float32(minval)
+    return TF.threefry_uniform(int(k[0]), int(k[1]), math.prod(shape),
+                               float(lo), float(np.float32(maxval) - lo),
+                               _device.resolve(device)).reshape(shape)
+
+
+#: XLA's single-precision ``erf_inv`` (Giles' polynomials), by branch.
+_ERFINV_SMALL = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+                 -4.39150654e-06, 0.00021858087, -0.00125372503,
+                 -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
+                 -0.00367342844, 0.00573950773, -0.0076224613,
+                 0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``erf_inv`` as XLA computes it: Giles' polynomial in
+    ``w = -log1p(-x*x)``, two branches split at ``w = 5``, ``±inf`` at
+    ``|x| = 1``."""
+    w = -torch.log1p(-x * x)
+    small = w < 5.0
+    # The root taken in f64 and rounded to f32 is the correctly rounded
+    # f32 root, as XLA's is; torch's f32 sqrt on the CPU is one ulp off on
+    # ~0.7% of inputs (ROADMAP section C).
+    w = torch.where(small, w - 2.5, torch.sqrt(w.double()).float() - 3.0)
+    p = torch.where(small, _ERFINV_SMALL[0], _ERFINV_LARGE[0]).to(x.dtype)
+    for a, b in zip(_ERFINV_SMALL[1:], _ERFINV_LARGE[1:]):
+        p = TF.fma_f32(p, w, torch.where(small, a, b))
+    return torch.where(x.abs() == 1.0, x * torch.inf, p * x)
+
+
+def normal(k, shape=(), *, device=None) -> torch.Tensor:
+    """f32 standard normal: ``sqrt(2) * erf_inv(u)`` with ``u`` uniform
+    on ``[nextafter(-1, 0), 1)``."""
+    lo = np.nextafter(np.float32(-1.0), np.float32(0.0))
+    u = uniform(k, shape, lo, 1.0, device=device)
+    return float(np.float32(np.sqrt(2))) * erf_inv(u)
+
+
+_I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
+
+
+def randint(k, shape, minval: int, maxval: int, *,
+            device=None) -> torch.Tensor:
+    """i32 uniform-ish on ``[minval, maxval)`` by jax's reduction: two
+    32-bit draws from ``split(k)``, each taken mod ``span``, combined
+    with ``multiplier = ((2**16 mod span)**2 mod 2**32) mod span``, all in
+    wrapping u32 (so the multiplier is 0 for spans above 2**16)."""
+    shape = _shape(shape)
+    minval, maxval = int(minval), int(maxval)
+    if not _I32_MIN <= min(minval, maxval) <= max(minval, maxval) <= _I32_MAX:
+        raise OverflowError(f"randint bounds must be i32, got "
+                            f"[{minval}, {maxval})")
+    k1, k2 = split(k)
+    # maxval <= minval gives span 1, so minval is always returned.
+    span = maxval - minval if maxval > minval else 1
+    mult = ((2**16 % span) ** 2 & 0xFFFFFFFF) % span  # the square wraps
+    mask = 0xFFFFFFFF
+    higher = random_bits(k1, shape, device=device).long() & mask
+    lower = random_bits(k2, shape, device=device).long() & mask
+    # mult is nonzero only for spans up to 2**16, so the product stays
+    # below 2**32 and i64 holds every step exactly.
+    offset = ((higher % span) * mult + lower % span) & mask
+    offset = offset % span
+    return TF.to_i32((offset + minval) & mask)
+
+
+def bernoulli(k, p: float = 0.5, shape=(), *, device=None) -> torch.Tensor:
+    """bool: ``uniform(k, shape) < f32(p)``."""
+    return uniform(k, shape, device=device) < float(np.float32(p))

@@ -1,20 +1,26 @@
-"""Round engine (torch counterpart of the part of
-``p2pnetwork_tpu/sim/engine.py`` the flood protocols use): ``run`` /
-``run_from`` (a fixed number of rounds, per-round stats stacked) and
-``run_until_coverage`` / ``run_until_coverage_from``.
+"""Round engine (torch counterpart of ``p2pnetwork_tpu/sim/engine.py``):
+``run`` / ``run_from`` (a fixed number of rounds, per-round stats
+stacked), ``run_until_coverage`` / ``run_until_coverage_from`` and
+``run_until_converged``, with the reference's signatures (the key after
+the protocol) and its key chain: ``run`` hands round ``r`` the key
+``split(fold_in(key, 1), rounds)[r]``; the early-exit loops take
+``k, sub = split(k)`` before every step. Keys are host words
+(``prng.py``), so the chain costs no device work and no sync.
 
-The reference runs the whole loop as one ``lax.while_loop`` on the device.
-PyTorch has no device-side loop, so the port runs super-steps of
+The reference runs the early-exit loop as one ``lax.while_loop`` on the
+device. PyTorch has no device-side loop, so the port runs super-steps of
 ``steps_per_round = T`` protocol steps and reads the exit flag on the host
 once per super-step (one sync, counted in ``_device.SYNCS``). Inside a
 super-step the reference's freeze rule holds: each sub-step re-evaluates
-the predicate and applies its step only while it holds, so any ``T`` gives
-results bit-identical to ``T = 1``.
+the predicate and applies its step only while it holds, and the key chain
+advances on frozen sub-steps too, so any ``T`` gives results bit-identical
+to ``T = 1``.
 
-The counters follow the reference's arithmetic: coverage and the running
-occupancy sum are f32, the stop test compares in f32, the occupancy mean
-is the f32 sum divided by the round count. Messages accumulate exactly in
-int64 (the reference's two-limb counter holds the same range).
+The counters follow the reference's arithmetic: the tracked stat and the
+running occupancy sum are f32, the stop test compares in f32, the
+occupancy mean is the f32 sum divided by the round count. Messages
+accumulate exactly in int64 (the reference's two-limb counter holds the
+same range).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ import dataclasses
 
 import torch
 
-from p2pnetwork_tpu_torch import _device
+from p2pnetwork_tpu_torch import _device, prng
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 
@@ -42,57 +48,57 @@ def _freeze(live: torch.Tensor, new, old):
         for f in dataclasses.fields(old)})
 
 
-def _stat_while(graph: Graph, protocol, state, *, value0: torch.Tensor,
-                coverage_target: float, max_rounds: int,
-                steps_per_round: int = 1):
-    """Run protocol rounds while ``coverage < coverage_target`` and
-    ``rounds < max_rounds``. Returns ``(state, summary dict)``."""
+def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
+                keep_going, value0, steps_per_round: int = 1):
+    """Run protocol rounds while ``keep_going(value, rounds)`` holds, where
+    ``value`` is the last round's ``stats[stat]`` (``value0`` before any).
+    Returns ``(state, summary dict)`` with ``rounds``, ``value`` and
+    ``messages`` (and ``frontier_occupancy_mean`` for the flood
+    family)."""
     T = int(steps_per_round)
     if T < 1:
         raise ValueError(f"steps_per_round must be >= 1, got {T}")
-    dev = value0.device
-    target = torch.tensor(coverage_target, dtype=torch.float32, device=dev)
+    dev = graph.device
     rounds = torch.zeros((), dtype=torch.int32, device=dev)
-    value = value0.to(torch.float32)
+    value = torch.as_tensor(value0, dtype=torch.float32).to(dev)
     messages = torch.zeros((), dtype=torch.int64, device=dev)
     occ = torch.zeros((), dtype=torch.float32, device=dev)
     has_occ = "frontier_occupancy" in protocol.STATS
 
-    def keep_going(v, r):
-        return (v < target) & (r < max_rounds)
-
     while _device.host_bool(keep_going(value, rounds)):
         for _ in range(T):
             live = keep_going(value, rounds)
-            new_state, stats = protocol.step(graph, state)
+            key, sub = prng.split(key)
+            new_state, stats = protocol.step(graph, state, sub)
             state = _freeze(live, new_state, state)
             messages = messages + torch.where(live, stats["messages"], 0)
             rounds = rounds + live.to(torch.int32)
-            value = torch.where(live, stats["coverage"].to(torch.float32),
-                                value)
+            value = torch.where(live, stats[stat].to(torch.float32), value)
             if has_occ:
                 occ = occ + torch.where(live, stats["frontier_occupancy"],
                                         0.0)
     occ_mean = occ / rounds.clamp_min(1).to(torch.float32)
     n_rounds, n_messages = torch.stack(
         [rounds.to(torch.int64), messages]).tolist()
-    coverage, occ_mean = torch.stack([value, occ_mean]).tolist()
-    out = {"rounds": n_rounds, "coverage": coverage, "messages": n_messages}
+    value, occ_mean = torch.stack([value, occ_mean]).tolist()
+    out = {"rounds": n_rounds, "value": value, "messages": n_messages}
     if has_occ:
         out["frontier_occupancy_mean"] = occ_mean
     return state, out
 
 
-def run(graph: Graph, protocol, rounds: int, *, recorder=None):
-    """Run ``rounds`` rounds from the protocol's initial state. Returns
+def run(graph: Graph, protocol, key, rounds: int, *, recorder=None):
+    """Run ``rounds`` rounds from ``protocol.init(graph, key)``. Returns
     ``(final_state, stats)``, each stat stacked to ``[rounds]`` as the
     reference's ``lax.scan`` stacks it (see :func:`run_from`)."""
-    return run_from(graph, protocol, protocol.init(graph), rounds,
+    return run_from(graph, protocol, protocol.init(graph, key), key, rounds,
                     recorder=recorder)
 
 
-def run_from(graph: Graph, protocol, state, rounds: int, *, recorder=None):
-    """Run ``rounds`` rounds continuing from ``state``. Returns
+def run_from(graph: Graph, protocol, state, key, rounds: int, *,
+             recorder=None):
+    """Run ``rounds`` rounds continuing from ``state``, round ``r`` with
+    the key ``split(fold_in(key, 1), rounds)[r]``. Returns
     ``(final_state, stats)`` with every stat a ``[rounds]`` tensor on the
     host, fetched in one transfer at the end (the rounds themselves make
     no host read of their own; a protocol's branch reads, as
@@ -103,9 +109,11 @@ def run_from(graph: Graph, protocol, state, rounds: int, *, recorder=None):
     (``recorder=``) is not ported yet."""
     if recorder is not None:
         raise NotImplementedError("the flight recorder is not ported yet")
+    rounds = int(rounds)
+    keys = prng.split(prng.fold_in(key, 1), rounds)
     per_round = []
-    for _ in range(int(rounds)):
-        state, stats = protocol.step(graph, state)
+    for r in range(rounds):
+        state, stats = protocol.step(graph, state, keys[r])
         per_round.append(stats)
     if not per_round:
         return state, {}
@@ -123,29 +131,56 @@ def run_from(graph: Graph, protocol, state, rounds: int, *, recorder=None):
     return state, out
 
 
-def run_until_coverage(graph: Graph, protocol, *,
+def run_until_coverage(graph: Graph, protocol, key, *,
                        coverage_target: float = 0.99, max_rounds: int = 1024,
                        steps_per_round: int = 1):
-    """Run from the protocol's initial state until ``stats['coverage'] >=
-    coverage_target`` (or ``max_rounds``). Returns ``(final_state, dict)``
-    with ``rounds``, ``coverage``, ``messages`` (exact int) and, for the
-    flood family, ``frontier_occupancy_mean`` — the reference's dict."""
+    """Run from ``protocol.init(graph, key)`` until ``stats['coverage'] >=
+    coverage_target`` (or ``max_rounds``), the loop's key chain starting
+    from ``key`` too. Returns ``(final_state, dict)`` with ``rounds``,
+    ``coverage``, ``messages`` (exact int) and, for the flood family,
+    ``frontier_occupancy_mean`` — the reference's dict."""
     return run_until_coverage_from(
-        graph, protocol, protocol.init(graph),
+        graph, protocol, protocol.init(graph, key), key,
         coverage_target=coverage_target, max_rounds=max_rounds,
         steps_per_round=steps_per_round)
 
 
-def run_until_coverage_from(graph: Graph, protocol, state0, *,
+def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
                             coverage_target: float = 0.99,
                             max_rounds: int = 1024,
                             steps_per_round: int = 1):
     """Run-to-coverage continuing from ``state0`` (not modified). The loop
-    starts from ``state0``'s true coverage, so resuming a finished run
-    executes zero rounds."""
+    starts from ``state0``'s true coverage where the protocol can say it,
+    so resuming a finished run executes zero rounds."""
     _require_stats(protocol, ("coverage", "messages"))
-    return _stat_while(graph, protocol, state0,
-                       value0=protocol.coverage(graph, state0),
-                       coverage_target=coverage_target,
-                       max_rounds=max_rounds,
-                       steps_per_round=steps_per_round)
+    target = torch.tensor(coverage_target, dtype=torch.float32,
+                          device=graph.device)
+    cov0 = (protocol.coverage(graph, state0)
+            if hasattr(protocol, "coverage") else 0.0)
+    state, out = _stat_while(
+        graph, protocol, state0, key, stat="coverage",
+        keep_going=lambda v, r: (v < target) & (r < max_rounds),
+        value0=cov0, steps_per_round=steps_per_round)
+    out["coverage"] = out.pop("value")
+    return state, out
+
+
+def run_until_converged(graph: Graph, protocol, key, *, stat: str,
+                        threshold: float, max_rounds: int = 1024,
+                        state0=None, steps_per_round: int = 1):
+    """Run until the scalar ``stats[stat]`` drops below ``threshold`` (or
+    ``max_rounds``): PageRank to a residual, push-sum or gossip to a
+    variance. Starts from ``state0``, or from ``protocol.init(graph, key)``
+    when it is None. Returns ``(state, dict(rounds, value, messages))``
+    where ``value`` is the stat after the final round (inf if no round
+    ran) and ``messages`` an exact int; the test ``value >= threshold``
+    is made in f32, as the reference's."""
+    _require_stats(protocol, (stat, "messages"))
+    if state0 is None:
+        state0 = protocol.init(graph, key)
+    thr = torch.tensor(threshold, dtype=torch.float32, device=graph.device)
+    state, out = _stat_while(
+        graph, protocol, state0, key, stat=stat,
+        keep_going=lambda v, r: (v >= thr) & (r < max_rounds),
+        value0=float("inf"), steps_per_round=steps_per_round)
+    return state, out

@@ -8,10 +8,12 @@ degrees, neighbor table, blocked layout, hybrid diagonals and remainder,
 skew table, dynamic edge region) re-masked consistently on the device;
 the input is not modified, so keeping it is how a failure is undone.
 
-Not ported yet: ``random_node_failures`` / ``random_edge_failures`` (they
-draw from JAX's PRNG, which has no torch twin yet), ``preempt`` (it arms
-the supervised run harness, not ported) and the reference's injected-
-failure counters (its telemetry registry, not ported).
+``random_node_failures`` / ``random_edge_failures`` draw their Bernoulli
+masks from ``prng.py``, bit for bit the reference's.
+
+Not ported yet: ``preempt`` (it arms the supervised run harness, not
+ported) and the reference's injected-failure counters (its telemetry
+registry, not ported).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.ops import skew as SK
 from p2pnetwork_tpu_torch.sim.graph import Graph
 from p2pnetwork_tpu_torch.sim.topology import _check_ids_in_range, _ids
@@ -204,3 +207,18 @@ def partition(graph: Graph, groups) -> Graph:
 #: The names the sockets chaos plane uses for the same failures.
 kill_nodes = fail_nodes
 cut_links = fail_edges
+
+
+def random_node_failures(graph: Graph, key, frac: float) -> Graph:
+    """Fail each live node independently with probability ``frac``."""
+    fail = prng.bernoulli(key, frac, (graph.n_nodes_padded,),
+                          device=graph.device)
+    return with_node_liveness(graph, ~(fail & graph.node_mask))
+
+
+def random_edge_failures(graph: Graph, key, frac: float) -> Graph:
+    """Cut each live directed edge independently with probability
+    ``frac``."""
+    cut = prng.bernoulli(key, frac, (graph.n_edges_padded,),
+                         device=graph.device)
+    return with_edge_liveness(graph, ~cut)

@@ -21,7 +21,7 @@ from p2pnetwork_tpu.models import flood as JF  # noqa: E402
 from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu.sim import failures as JFa  # noqa: E402
 from p2pnetwork_tpu.sim import topology as JT  # noqa: E402
-from p2pnetwork_tpu_torch import interop  # noqa: E402
+from p2pnetwork_tpu_torch import interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import adaptive_flood as TA  # noqa: E402
 from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
 from p2pnetwork_tpu_torch.ops import bitset, segsum  # noqa: E402
@@ -204,8 +204,8 @@ def test_churn_flood_matches(churned, segment_run, name):
     js, jout = JE.run_until_coverage(jg, jproto, jax.random.key(0),
                                      coverage_target=0.99, max_rounds=64)
     before = segsum.LAUNCHES
-    ts, tout = TE.run_until_coverage(tg, tproto, coverage_target=0.99,
-                                     max_rounds=64)
+    ts, tout = TE.run_until_coverage(tg, tproto, prng.key(0),
+                                     coverage_target=0.99, max_rounds=64)
     assert segsum.LAUNCHES == before  # the CPU runs the plain version
     assert tout == jout == seg_out
     assert_same_state(ts, js)

@@ -20,7 +20,7 @@ from p2pnetwork_tpu.models import flood as JF  # noqa: E402
 from p2pnetwork_tpu.ops import frontier as JFR  # noqa: E402
 from p2pnetwork_tpu.ops import segment as JS  # noqa: E402
 from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
-from p2pnetwork_tpu_torch import _device, interop  # noqa: E402
+from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import adaptive_flood as TA  # noqa: E402
 from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
 from p2pnetwork_tpu_torch.ops import frontier as TFR  # noqa: E402
@@ -52,7 +52,8 @@ def run_both(jg, tg, jproto, tproto):
     js, jout = JE.run_until_coverage(jg, jproto, jax.random.key(0),
                                      coverage_target=TARGET,
                                      max_rounds=MAX_ROUNDS)
-    ts, tout = TE.run_until_coverage(tg, tproto, coverage_target=TARGET,
+    ts, tout = TE.run_until_coverage(tg, tproto, prng.key(0),
+                                     coverage_target=TARGET,
                                      max_rounds=MAX_ROUNDS)
     assert tout == jout
     assert_same_state(ts, js)
@@ -129,7 +130,8 @@ def test_interop_carries_packed_states(graphs):
             jg, jproto, js, key, coverage_target=TARGET,
             max_rounds=MAX_ROUNDS, donate=False)
         tend, tout = TE.run_until_coverage_from(
-            tg, tproto, ts, coverage_target=TARGET, max_rounds=MAX_ROUNDS)
+            tg, tproto, ts, prng.key(0), coverage_target=TARGET,
+            max_rounds=MAX_ROUNDS)
         assert tout == jout
         assert_same_state(tend, jend)
 

@@ -6,11 +6,12 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from p2pnetwork_tpu_torch import _device, interop  # noqa: E402
+from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.parallel.mesh import ring_mesh  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
 
@@ -44,7 +45,8 @@ def test_the_walk_sees_the_whole_port():
     names = {p.name for p in PORT_FILES}
     assert {"graph.py", "engine.py", "segsum.py", "adaptive_flood.py",
             "interop.py", "chip_smoke.py", "ring.py", "sharded.py",
-            "mesh.py", "auto.py"} <= names
+            "mesh.py", "auto.py", "prng.py", "threefry.py", "sir.py",
+            "gossip.py", "pushsum.py", "pagerank.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
@@ -67,8 +69,12 @@ def test_import_leaves_jax_unloaded():
     lambda: interop.graph_from_numpy({}),
     lambda: _device.resolve(None),
     lambda: ring_mesh(8),
+    lambda: prng.uniform(prng.key(0), 4),
+    lambda: prng.random_bits(prng.key(0), (2, 3)),
+    lambda: interop.protocol_state_from_numpy(
+        "SIRState", {"status": np.zeros(4, np.int32)}),
 ], ids=["default-device", "explicit-cuda", "interop", "resolve",
-        "ring-mesh"])
+        "ring-mesh", "prng-uniform", "prng-bits", "interop-state"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")

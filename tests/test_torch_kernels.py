@@ -582,3 +582,47 @@ def test_ring_segment_sum_spreads_nonfinite_terms_on_card(case, extents):
         _same_nan_and_close(segsum.segsum_sum(rot, src, dst, mask, block),
                             segsum.segsum_sum_plain(rot, src, dst, mask,
                                                     block))
+
+
+# ------------------------------------------------ threefry (ops/threefry.py)
+
+#: Counter counts around the kernel's block (256) and its grid cap
+#: (132 * 32 blocks, past which threads loop), and the 1M draw.
+_THREEFRY_SIZES = [1, 31, 33, 255, 257, 132 * 32 * 256 + 1, 2**20 + 7]
+
+
+def test_threefry_plain_matches_the_numpy_hash():
+    from p2pnetwork_tpu_torch import prng
+    from p2pnetwork_tpu_torch.ops import threefry
+
+    k0, k1 = (int(w) for w in prng.key(9))
+    want = [np.bitwise_xor(*prng.threefry2x32(k0, k1, 0, i))
+            for i in range(1000)]
+    got = threefry.threefry_bits(k0, k1, 1000, "cpu")
+    np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+def test_threefry_wrapper_refuses_other_devices():
+    from p2pnetwork_tpu_torch.ops import threefry
+
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        threefry.threefry_bits(0, 1, 8, "meta")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", _THREEFRY_SIZES)
+@pytest.mark.parametrize("key", [(0, 0), (0, 0xFFFFFFFF), (0x9E3779B9, 7)])
+def test_threefry_kernel_matches_plain_on_card(n, key):
+    # Bits and the f32 uniform epilogue, bit for bit.
+    from p2pnetwork_tpu_torch.ops import threefry
+
+    _card()
+    dev = torch.device("cuda")
+    got = threefry.threefry_bits(*key, n, dev)
+    assert torch.equal(got.cpu(), threefry.threefry_bits_plain(*key, n, "cpu"))
+    lo, scale = float(np.float32(-3.3)), float(np.float32(10.4))
+    for args in ((0.0, 1.0), (lo, scale)):
+        got = threefry.threefry_uniform(*key, n, *args, dev)
+        want = threefry.threefry_uniform_plain(*key, n, *args, "cpu")
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32))

@@ -21,7 +21,7 @@ from p2pnetwork_tpu.ops import segment as JS  # noqa: E402
 from p2pnetwork_tpu.ops import skew as JSK  # noqa: E402
 from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu.sim import failures as JFa  # noqa: E402
-from p2pnetwork_tpu_torch import interop  # noqa: E402
+from p2pnetwork_tpu_torch import interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
 from p2pnetwork_tpu_torch.ops import segment as TS  # noqa: E402
 from p2pnetwork_tpu_torch.ops import skew as TSK  # noqa: E402
@@ -105,7 +105,8 @@ def test_skew_flood_matches(ba, method):
                                      jax.random.key(0), coverage_target=0.99,
                                      max_rounds=64)
     ts, tout = TE.run_until_coverage(tg, TF.Flood(source=0, method=method),
-                                     coverage_target=0.99, max_rounds=64)
+                                     prng.key(0), coverage_target=0.99,
+                                     max_rounds=64)
     assert tout == jout
     np.testing.assert_array_equal(ts.seen.numpy(), np.asarray(js.seen))
 
