@@ -105,11 +105,31 @@ Phases, in order; any failure exits non-zero before the result line:
 4g. Gossip: the ladder's 100K BA rung, 30 rounds: the first round's
    partners (sha256) and every round's ``messages`` exact, ``variance``
    and ``mean`` within ``GOSSIP_TOL`` (``gossip-path`` line).
-   Phases 3c and 4e-4g run after 4d, and phase 3's C1 check after them.
+4h. Routing: the ladder's weighted rung (``bench_routing``): the 1M WS
+   graph without a neighbor table, ``with_weights`` of its id-hash
+   latency, ``DistanceVector(source=0, method="segment")`` by
+   ``run_until_converged(stat="changed")``; then the same weights on
+   phase 4's graph under ``gather`` and ``frontier``, and on phase 4d's
+   1M BA rung under ``skew``. ``rounds``, ``messages``, ``value`` and the
+   sha256s of ``dist``'s bits, ``parent`` and ``next_hops`` equal the
+   JAX reference's (``EXPECTED_ROUTE``), so every method gives the same
+   bits (``routing-path`` lines). No kernel runs: min-plus is scatters.
+4i. Graph analytics on phase 4's graph: ``HopDistance(hybrid)`` and
+   ``AdaptiveHopDistance(hybrid, k=1024)`` to an empty frontier (B1's
+   OR), ``diameter_bounds(samples=16, hybrid)`` (B1's OR, threefry's
+   bits for the picks), ``LeaderElection``, ``ConnectedComponents`` and
+   ``SpanningTree`` under ``gather``, ``LeaderElection(skew)`` on the BA
+   rung, ``KCore(k=10)`` under ``hybrid`` and ``pallas`` (B1's sum entry
+   on the remainder and the blocked layout), ``LubyMIS(gather, hybrid)``
+   (threefry's bits and B1's OR) and ``color_via_mis``: rounds, messages
+   and the final states' sha256s equal ``EXPECTED_ANALYTICS``
+   (``analytics-path`` lines: wall, busy, idle share, launches, syncs).
+   Phases 3c and 4e-4i run after 4d, and phase 3's C1 check after them.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
-   phases 4, 4c and 4b; its sum entry's on the hybrid remainder over 4e's
-   ``hybrid`` run and 4f, on the blocked layout over 4e's ``pallas`` run;
-   threefry's over 4e-4g), then the last line ``{"ok": true, "device":
+   phases 4, 4c, 4b and 4i; its sum entry's on the hybrid remainder over
+   4e's ``hybrid`` run, 4f and 4i's ``KCore(hybrid)``, on the blocked
+   layout over 4e's ``pallas`` run and ``KCore(pallas)``; threefry's
+   over 4e-4g and 4i), then the last line ``{"ok": true, "device":
    {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -365,6 +385,83 @@ PUSHSUM_TOL = {"s_total": (0.0, 1e-2), "w_total": (0.0, 2.0),
                "variance": (1e-4, 0.0), "mean": (0.0, 1e-8)}
 PAGERANK_TOL = {"value": (1e-4, 0.0), "rank_total": (0.0, 1e-5)}
 GOSSIP_TOL = {"variance": (1e-4, 0.0), "mean": (1e-4, 1e-8)}
+
+#: The ladder's weighted routing rung (phase 4h) and the graph analytics
+#: of phase 4i, by the JAX package on the CPU with ``method="segment"``
+#: (every lowering gives the same bits: a max or min picks one of its
+#: terms, and each min-plus term is the same f32 add). ``LeaderElection``
+#: and ``ConnectedComponents`` end on the same array (one component, all
+#: 999,999). ``KCore(k=10)`` peels the WS graph empty in 6 rounds.
+#: Regenerate (~1 min):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine as E
+#:   from p2pnetwork_tpu.models import AdaptiveHopDistance, DistanceVector, HopDistance, LeaderElection, ConnectedComponents, SpanningTree, KCore, LubyMIS, color_via_mis
+#:   from p2pnetwork_tpu.models.hopdist import diameter_bounds
+#:   k, h = jax.random.key(0), lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()
+#:   def lat(s, r): return 1.0 + ((s.astype(np.uint32) * np.uint32(2654435761) + r.astype(np.uint32)) % 2048).astype(np.float32) / 1024.0
+#:   conv = lambda g, p, stat: E.run_until_converged(g, p, k, stat=stat, threshold=1, max_rounds=256)
+#:   for g in (G.watts_strogatz(1_000_000, 10, 0.1, seed=0, build_neighbor_table=False), G.barabasi_albert(1_000_000, 5, seed=0, build_neighbor_table=False)):
+#:       g, p = g.with_weights(lat), DistanceVector(source=0, method="segment"); s, o = conv(g, p, "changed")
+#:       print(o, h(s.dist), h(s.parent), h(p.next_hops(g, s)))
+#:   s, o = conv(g, LeaderElection(method="segment"), "changed"); print(o, h(s.known))  # the BA rung
+#:   g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0)
+#:   s, o = conv(g, HopDistance(method="segment"), "frontier"); print(o, h(s.dist))
+#:   print(conv(g.with_source_csr(), AdaptiveHopDistance(method="segment", k=1024), "frontier")[1])
+#:   print(diameter_bounds(g, k, 16, "segment"))
+#:   for P, stat, f in ((LeaderElection, "changed", "known"), (ConnectedComponents, "changed", "label"), (SpanningTree, "frontier", "parent")):
+#:       s, o = conv(g, P(method="segment"), stat); print(o, h(getattr(s, f)))
+#:   s, o = conv(g, KCore(k=10, method="segment"), "removed"); print(o, h(s.in_core))
+#:   s, o = conv(g, LubyMIS(method="segment", or_method="segment"), "undecided"); print(o, h(s.in_mis))
+#:   c, n = color_via_mis(g, k, method="segment"); print(n, h(c))
+#:   EOF
+EXPECTED_ROUTE = {
+    "ws": {"rounds": 17, "value": 0.0, "messages": 16546551,
+           "dist_sha256": ("d5a72d7a2f44b7f0875dc4061a235267"
+                           "552396b9eb8be10b5ef4a54b813d0e08"),
+           "parent_sha256": ("4894ac7d8925631527847320da9b5c2c"
+                             "b65a64e68a1cabd683dcaa580e0120a9"),
+           "next_hops_sha256": ("f0afcbf1fd50ded0bcf6f5c3d34b9f98"
+                                "70cb619876e8e32fbcf290bbf0202113")},
+    "ba": {"rounds": 7, "value": 0.0, "messages": 12355126,
+           "dist_sha256": ("62e8089c55cda5d215f9707685b2aca7"
+                           "2d13a3e0173ec3919e1dca7f43b929a0"),
+           "parent_sha256": ("2cda3bc17beb0446ff8dc1a0dd3c7758"
+                             "e2947258f7d00176f94a08b21b611243"),
+           "next_hops_sha256": ("bede07def0a321a0a1bf5c98d490c58d"
+                                "a46d8f136fa74b9d7da30c16714218de")}}
+#: Every live node ends holding 999,999, on either graph.
+_ALL_999999 = ("a158d45205cf66f0edb98de9f75fbf5b"
+               "647867192ee0ecbff0439c9d98c956f6")
+_HOP_DIST = ("d84f8d9ba5301749b536e1cf138a6154"
+             "7fae2dd54cdda43918a34e4c3cc8df66")
+EXPECTED_ANALYTICS = {
+    "hop": {"rounds": 13, "value": 0.0, "messages": 9999994,
+            "sha256": _HOP_DIST},
+    "adaptive_hop": {"rounds": 13, "value": 0.0, "messages": 9999994,
+                     "frontier_occupancy_mean": 0.07692300528287888,
+                     "sha256": _HOP_DIST},
+    "diameter": {"lower": 13, "upper": 24, "radius_upper": 12,
+                 "connected": True},
+    "leader": {"rounds": 13, "value": 0.0, "messages": 105825236,
+               "sha256": _ALL_999999},
+    "leader_ba": {"rounds": 8, "value": 0.0, "messages": 57205697,
+                  "sha256": _ALL_999999},
+    "components": {"rounds": 13, "value": 0.0, "messages": 105825236,
+                   "sha256": _ALL_999999},
+    "spanning": {"rounds": 13, "value": 0.0, "messages": 9999994,
+                 "sha256": ("24497e668dabf64cb92252dee1c5f9ef"
+                            "6c305e810aaff20619fa35a8164ab728")},
+    "kcore": {"rounds": 6, "value": 0.0, "messages": 9999994,
+              "sha256": ("900740ec474a754ebed1c6220612bf1e"
+                         "b0dff672575edbf9f965d80741322593")},
+    "mis": {"rounds": 5, "value": 0.0, "messages": 13837552,
+            "sha256": ("4f750a4ff241695563878bc74b42a255"
+                       "9c0f4e9ad847879228414b3528bb2d71")},
+    "coloring": {"n_colors": 10,
+                 "sha256": ("4620bd53dbc28ec64fb4ba44a8eeb20d"
+                            "d1ecdfb017d5565c07befad62a571dac")}}
+KCORE_K = 10
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -1437,6 +1534,176 @@ def gossip_path(engine, prng, base, threefry, segsum, device_mod, graph_mod,
     return rec["threefry_launches"]
 
 
+def latency(s, r):
+    """The routing rung's link cost (``benchmarks/ladder.py``
+    ``bench_routing``): an id hash of the endpoints, 1 to 3 in steps of
+    1/1024, on the host arrays ``Graph.with_weights`` passes."""
+    h = s.astype(np.uint32) * np.uint32(2654435761) + r.astype(np.uint32)
+    return 1.0 + (h % 2048).astype(np.float32) / 1024.0
+
+
+def check_run(label, got, want):
+    """Fail unless ``got`` equals the reference's ``want``."""
+    if got != want:
+        bad = sorted(k for k in set(got) | set(want)
+                     if got.get(k) != want.get(k))
+        fail(f"{label} differs from the reference in {bad}: "
+             f"{ {k: got.get(k) for k in bad} } (want "
+             f"{ {k: want.get(k) for k in bad} })")
+
+
+def timed_line(phase, name, run, rec, extra=None):
+    """Wall (median of 5) and a profile of ``run``, printed with the
+    checked run's counts ``rec``."""
+    print(json.dumps({"phase": phase, "run": name, **rec, **(extra or {}),
+                      **timed_runs(run)}), flush=True)
+
+
+def routing_path(g, engine, segsum, threefry, device_mod, graph_mod,
+                 frontier_ops, DistanceVector):
+    """Phase 4h: the ladder's weighted routing rung, then the same weights
+    on phase 4's graph under ``gather`` and ``frontier`` and on the 1M BA
+    rung under ``skew``; each must give ``EXPECTED_ROUTE`` (so the same
+    ``dist`` bits on one graph whatever the method). Returns the weighted
+    BA rung, which phase 4i's skew election reuses."""
+    t0 = time.perf_counter()
+    rung = graph_mod.watts_strogatz(N_NODES, 10, 0.1, seed=0,
+                                    build_neighbor_table=False)
+    rung = rung.with_weights(latency)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ba = graph_mod.barabasi_albert(N_NODES, 5, seed=0,
+                                   build_neighbor_table=False,
+                                   source_csr=True, skew_table=True)
+    ba = ba.with_weights(latency)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "routing-graph", "ws_build_s": build_s,
+                      "ba_build_s": time.perf_counter() - t0,
+                      "ws_edges": rung.n_edges, "ba_edges": ba.n_edges,
+                      "ba_skew_width": ba.skew.width}), flush=True)
+    for name, graph, method, want in (
+            ("rung-segment", rung, "segment", EXPECTED_ROUTE["ws"]),
+            ("gather", g.with_weights(latency), "gather",
+             EXPECTED_ROUTE["ws"]),
+            ("frontier", g.with_weights(latency), "frontier",
+             EXPECTED_ROUTE["ws"]),
+            ("ba-skew", ba, "skew", EXPECTED_ROUTE["ba"])):
+        proto = DistanceVector(source=0, method=method)
+        run = lambda: engine.run_until_converged(  # noqa: E731
+            graph, proto, KEY, stat="changed", threshold=1, max_rounds=256)
+        frontier_ops.ROUNDS.update(sparse=0, dense=0)
+        (state, out), rec = counted(run, segsum, threefry, device_mod)
+        rec["frontier_rounds"] = dict(frontier_ops.ROUNDS)
+        got = dict(out, dist_sha256=digest(state.dist),
+                   parent_sha256=digest(state.parent),
+                   next_hops_sha256=digest(proto.next_hops(graph, state)))
+        check_run(f"routing {name}", got, want)
+        if rec["segsum_launches"] or rec["threefry_launches"]:
+            fail(f"routing {name} launched a kernel: {rec}")
+        timed_line("routing-path", name, run, rec, {
+            "method": method, "rounds": out["rounds"],
+            "messages": out["messages"]})
+    return ba
+
+
+def analytics_path(g, ba, engine, prng, segsum, threefry, device_mod,
+                   models) -> dict:
+    """Phase 4i: hop distance (plain and adaptive), diameter bounds,
+    leader election, components, spanning tree, k-core, MIS and coloring
+    at 1M, each equal to ``EXPECTED_ANALYTICS``, each kernel path
+    launching its kernels. Returns the launches of B1's OR, its sum entry
+    on the remainder and on the blocked layout, and threefry's."""
+    M = models
+    launches = {"or": 0, "sum": 0, "sum_blocked": 0, "threefry": 0}
+
+    def conv(graph, proto, stat):
+        return lambda: engine.run_until_converged(  # noqa: E731
+            graph, proto, KEY, stat=stat, threshold=1, max_rounds=256)
+
+    # (name, run, expected entry, state field hashed, launches it must
+    # make: {launch key: exact count, or None for more than 0}).
+    kcore_rounds = EXPECTED_ANALYTICS["kcore"]["rounds"]
+    mis_rounds = EXPECTED_ANALYTICS["mis"]["rounds"]
+    runs = [
+        ("hop-hybrid", conv(g, M.HopDistance(source=0, method="hybrid"),
+                            "frontier"), "hop", "dist",
+         {"or": EXPECTED_ANALYTICS["hop"]["rounds"]}),
+        ("adaptive-hop-1024", conv(g, M.AdaptiveHopDistance(
+            source=0, method="hybrid", k=1024), "frontier"), "adaptive_hop",
+         "dist",
+         {"or": None}),
+        ("leader-gather", conv(g, M.LeaderElection(method="gather"),
+                               "changed"), "leader", "known", {}),
+        ("leader-ba-skew", conv(ba, M.LeaderElection(method="skew"),
+                                "changed"), "leader_ba", "known", {}),
+        ("components-gather", conv(g, M.ConnectedComponents(
+            method="gather"), "changed"), "components", "label", {}),
+        ("spanning-gather", conv(g, M.SpanningTree(source=0,
+                                                   method="gather"),
+                                 "frontier"), "spanning", "parent", {}),
+        ("kcore-hybrid", conv(g, M.KCore(k=KCORE_K, method="hybrid"),
+                              "removed"), "kcore", "in_core",
+         {"sum": kcore_rounds}),
+        ("kcore-pallas", conv(g, M.KCore(k=KCORE_K, method="pallas"),
+                              "removed"), "kcore", "in_core",
+         {"sum_blocked": kcore_rounds}),
+        ("mis-gather-hybrid", conv(g, M.LubyMIS(method="gather",
+                                                or_method="hybrid"),
+                                   "undecided"), "mis", "in_mis",
+         {"or": mis_rounds, "threefry": 2 * mis_rounds}),
+    ]
+    for name, run, key, field, must in runs:
+        (state, out), rec = counted(run, segsum, threefry, device_mod)
+        got = dict(out, sha256=digest(getattr(state, field)))
+        check_run(f"analytics {name}", got, EXPECTED_ANALYTICS[key])
+        n_b1 = rec["segsum_launches"]
+        counts = {"or": 0, "sum": 0, "sum_blocked": 0,
+                  "threefry": rec["threefry_launches"]}
+        entry = next((e for e in ("or", "sum", "sum_blocked") if e in must),
+                     None)
+        if entry:
+            counts[entry] = n_b1
+        elif n_b1:
+            fail(f"analytics {name} launched B1 {n_b1} times")
+        for k, n in must.items():
+            if counts[k] == 0 or (n is not None and counts[k] != n):
+                fail(f"analytics {name}: {counts[k]} launches of {k}, "
+                     f"want {n if n is not None else '> 0'}")
+        if "threefry" not in must and counts["threefry"]:
+            fail(f"analytics {name} launched threefry")
+        for k in launches:
+            launches[k] += counts[k]
+        timed_line("analytics-path", name, run, rec,
+                   {"rounds": out["rounds"], "messages": out["messages"]})
+
+    # diameter_bounds: 16 BFS waves from live nodes drawn by
+    # prng.choice (two rounds of threefry bits over the 1M live ids).
+    run = lambda: M.diameter_bounds(g, KEY, samples=16,  # noqa: E731
+                                    method="hybrid")
+    got, rec = counted(run, segsum, threefry, device_mod)
+    check_run("analytics diameter", got, EXPECTED_ANALYTICS["diameter"])
+    if rec["segsum_launches"] == 0 or rec["threefry_launches"] != 2:
+        fail(f"diameter_bounds launched B1 {rec['segsum_launches']} and "
+             f"threefry {rec['threefry_launches']} times")
+    launches["or"] += rec["segsum_launches"]
+    launches["threefry"] += rec["threefry_launches"]
+    timed_line("analytics-path", "diameter-bounds-16", run, rec, got)
+
+    # color_via_mis: a LubyMIS run (gather, two bit draws a round) per
+    # color class.
+    run = lambda: M.color_via_mis(g, KEY)  # noqa: E731
+    (colors, n_colors), rec = counted(run, segsum, threefry, device_mod)
+    got = {"n_colors": n_colors, "sha256": digest(colors)}
+    check_run("analytics coloring", got, EXPECTED_ANALYTICS["coloring"])
+    if rec["segsum_launches"] or rec["threefry_launches"] < 2 * n_colors:
+        fail(f"color_via_mis launched B1 {rec['segsum_launches']} and "
+             f"threefry {rec['threefry_launches']} times")
+    launches["threefry"] += rec["threefry_launches"]
+    timed_line("analytics-path", "color-via-mis", run, rec, got)
+    return launches
+
+
 #: Launches each ring layout must make (> 0): kernel name -> counter.
 RING_EXPECT = {"segment": ("ring_shift",),
                "mxu": ("ring_segsum", "segsum"),
@@ -1597,6 +1864,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; nothing checked", file=sys.stderr)
         return 2
     from p2pnetwork_tpu_torch import _build, _device, prng
+    from p2pnetwork_tpu_torch import models as models_mod
     from p2pnetwork_tpu_torch.models import (SIR, AdaptiveFlood, Flood,
                                              Gossip, PageRank, PushSum, base)
     from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
@@ -1659,10 +1927,17 @@ def main() -> int:
     sir_launches = sir_path(g, engine, prng, segsum, threefry, _device, SIR)
     cons_launches = consensus_path(g, engine, prng, segsum, threefry,
                                    _device, PushSum, PageRank)
-    del g
-    torch.cuda.empty_cache()
     gossip_launches = gossip_path(engine, prng, base, threefry, segsum,
                                   _device, graph_mod, Gossip)
+
+    # The phases new in slice 5, after every earlier timed row and run:
+    # 4h (the weighted routing rung and its methods), 4i (analytics).
+    ba = routing_path(g, engine, segsum, threefry, _device, graph_mod,
+                      frontier_ops, models_mod.DistanceVector)
+    new_launches = analytics_path(g, ba, engine, prng, segsum, threefry,
+                                  _device, models_mod)
+    del g, ba
+    torch.cuda.empty_cache()
 
     # Phase 3's C1 check of B1 (B3's ran at the end of phase 3b).
     c1_phase(segsum)
@@ -1670,13 +1945,14 @@ def main() -> int:
     # 5. Result. Each kernel's row is its main-path use: B1's OR entry on
     # the hybrid remainder (the adaptive and hybrid floods), B2's forward
     # hop of the bool frontier, B3's OR entry on the mxu layout's real
-    # step 0 (phase 3b); launches summed over the checked runs of phases 4
-    # and 4b.
+    # step 0 (phase 3b); launches summed over the checked runs of phases
+    # 4, 4c, 4b and 4i.
     # B1's sum entry has a row per layout: the hybrid remainder's timing
-    # with its launches in 4e's hybrid run and 4f, the blocked layout's
-    # with those of 4e's pallas run. The threefry row (port-only, no TPU
-    # kernel: it replaces XLA's fused jax.random draw) is its uniform
-    # entry, SIR's draw, launched in 4e, 4f and 4g.
+    # with its launches in 4e's hybrid run, 4f and 4i's KCore(hybrid), the
+    # blocked layout's with those of 4e's pallas run and KCore(pallas).
+    # The threefry row (port-only, no TPU kernel: it replaces XLA's fused
+    # jax.random draw) is its uniform entry, SIR's draw, launched in
+    # 4e-4g and (its bits entry) 4i.
     def row(name, source, replaces, at, n, err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
@@ -1686,7 +1962,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         row("segsum", "segsum.cu", "p2pnetwork_tpu/ops/pallas_edge.py:41",
-            rows[0], launches + ring_launches["segsum"],
+            rows[0], launches + ring_launches["segsum"] + new_launches["or"],
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"],
@@ -1699,15 +1975,16 @@ def main() -> int:
             max(ring_err["ring_segsum"], step_err)),
         row("segsum_sum", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
-            sir_launches["hybrid"] + cons_launches["segsum"], max_err),
+            sir_launches["hybrid"] + cons_launches["segsum"]
+            + new_launches["sum"], max_err),
         row("segsum_sum_blocked", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[3],
-            sir_launches["pallas"], max_err),
+            sir_launches["pallas"] + new_launches["sum_blocked"], max_err),
         row("threefry", "threefry.cu",
             "p2pnetwork_tpu/models/sir.py:65 (jax.random.uniform, fused "
             "by XLA; no TPU kernel)", threefry_rows[1],
             sir_launches["threefry"] + cons_launches["threefry"]
-            + gossip_launches, threefry_err),
+            + gossip_launches + new_launches["threefry"], threefry_err),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -19,11 +19,10 @@ import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import _device, prng
+from p2pnetwork_tpu_torch import models as M
 from p2pnetwork_tpu_torch.models import (AdaptiveFloodBitState,
                                          AdaptiveFloodState, FloodBitState,
-                                         FloodState, GossipState,
-                                         PageRankState, PushSumState,
-                                         SIRState)
+                                         FloodState)
 from p2pnetwork_tpu_torch.ops.blocked import BlockedEdges
 from p2pnetwork_tpu_torch.ops.diag import HybridEdges
 from p2pnetwork_tpu_torch.ops.skew import SkewTable
@@ -64,10 +63,10 @@ def graph_from_numpy(fields: dict, device=None) -> Graph:
     ints; ``blocked`` is a dict with ``src``/``local_dst``/``mask``/
     ``block``, ``hybrid`` one with ``masks``/``offsets``/``n``/
     ``remainder`` (a ``blocked``-style dict or None), ``skew`` one with
-    ``src``/``mask``/``owner``/``start`` (and ``weight``, which must be
-    None). A set field the port does not model (``edge_weight``,
-    ``neighbor_weight``, ``layout_perm``, ``layout_inv``, a skew
-    ``weight``) is refused."""
+    ``src``/``mask``/``owner``/``start``/``weight``. Weights
+    (``edge_weight``, ``neighbor_weight``, the skew ``weight``) are
+    carried; a set field the port does not model (``layout_perm``,
+    ``layout_inv``) is refused."""
     dev = _device.resolve(device)
     _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(Graph)},
                        "Graph")
@@ -81,8 +80,8 @@ def graph_from_numpy(fields: dict, device=None) -> Graph:
         elif f.name == "skew" and v is not None:
             _refuse_unmodelled(v, {f.name for f in dataclasses.fields(
                 SkewTable)}, "SkewTable")
-            kw[f.name] = SkewTable(**{k: _t(v[k], dev) for k in (
-                "src", "mask", "owner", "start")})
+            kw[f.name] = SkewTable(**{k.name: _t(v.get(k.name), dev)
+                                      for k in dataclasses.fields(SkewTable)})
         elif f.name == "hybrid":
             kw[f.name] = None if v is None else HybridEdges(
                 masks=_t(v["masks"], dev),
@@ -111,15 +110,20 @@ def flood_state_from_numpy(fields: dict, device=None):
                   for f in dataclasses.fields(cls)})
 
 
-#: The keyed protocols' states, by the class name both packages use.
-_PROTOCOL_STATES = {c.__name__: c for c in (SIRState, GossipState,
-                                            PushSumState, PageRankState)}
+#: The protocols' states beyond the floods', by the class name both
+#: packages use.
+_PROTOCOL_STATES = {c.__name__: c for c in (
+    M.SIRState, M.GossipState, M.PushSumState, M.PageRankState,
+    M.HopDistanceState, M.AdaptiveHopDistanceState, M.LeaderElectionState,
+    M.ConnectedComponentsState, M.SpanningTreeState, M.LubyMISState,
+    M.KCoreState, M.DistanceVectorState)}
 
 
 def protocol_state_from_numpy(name: str, fields: dict, device=None):
-    """The port's state class ``name`` (``"SIRState"``, ``"GossipState"``,
-    ``"PushSumState"`` or ``"PageRankState"``, the reference's names) from
-    the reference state's fields as numpy arrays, on ``device``."""
+    """The port's state class ``name`` (the reference's name:
+    ``"SIRState"``, ``"DistanceVectorState"``, ... any of
+    ``_PROTOCOL_STATES``) from the reference state's fields as numpy
+    arrays, on ``device``."""
     cls = _PROTOCOL_STATES[name]
     _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(cls)},
                        name)

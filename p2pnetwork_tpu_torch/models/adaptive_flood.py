@@ -25,6 +25,9 @@ every dense round and selected with ``torch.where``, so it costs no sync.
 ``jnp.nonzero(size=k, fill_value=...)`` becomes a cumsum + scatter
 compaction with the same ascending order and fill value
 (``ops/frontier.py`` ``compact``).
+
+``AdaptiveHopDistance`` runs the same wave and records each node's first
+round, as ``HopDistance`` does.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 from p2pnetwork_tpu_torch import _device
 from p2pnetwork_tpu_torch.models import base
 from p2pnetwork_tpu_torch.models.flood import live_coverage
+from p2pnetwork_tpu_torch.models.hopdist import reached_coverage
 from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
 from p2pnetwork_tpu_torch.ops import segment
@@ -240,12 +244,9 @@ def _wave_seed(graph: Graph, source: int, k: int, slice_width: int):
         raise ValueError("AdaptiveFlood requires a source-CSR graph — build "
                          "with from_edges(source_csr=True)")
     w = _slice_width(graph, slice_width)
-    dev = graph.device
-    seed = torch.zeros(graph.n_nodes_padded, dtype=torch.bool, device=dev)
-    seed[source] = True
-    seed = seed & graph.node_mask
+    seed = base.source_seed(graph, source)
     wnode = torch.full((k,), graph.n_nodes_padded - 1, dtype=torch.int32,
-                       device=dev)
+                       device=graph.device)
     wnode[0] = source
     node_count = seed.sum().to(torch.int32)
     fidx, fslice, icount = _expand_items(graph, w, k, wnode, node_count)
@@ -261,3 +262,58 @@ def _wave_step(graph: Graph, k: int, slice_width: int, method: str, seen,
                                   fcount)
     return _dense_wave_round(graph, w, k, method, seen, frontier, fidx,
                              fslice)
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveHopDistanceState:
+    dist: torch.Tensor  # i32[N_pad] — BFS hops from source, -1 = not reached
+    frontier: torch.Tensor  # bool[N_pad]
+    fidx: torch.Tensor  # i32[k]
+    fslice: torch.Tensor  # i32[k]
+    fcount: torch.Tensor  # i32[] — item count (W-slice out-edge mass)
+    round: torch.Tensor  # i32[]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdaptiveHopDistance:
+    """BFS hop distances with frontier-sparse small rounds: the adaptive
+    twin of ``HopDistance`` (the wave is the adaptive flood's; nodes
+    record the first round that reaches them), equal to it round for
+    round."""
+
+    source: int = 0
+    method: str = "auto"
+    k: int = 1024
+    slice_width: int = 0
+
+    STATS = ("messages", "coverage", "frontier", "frontier_occupancy",
+             "max_dist")
+
+    def init(self, graph: Graph, key) -> AdaptiveHopDistanceState:
+        seed, fidx, fslice, count = _wave_seed(graph, self.source, self.k,
+                                               self.slice_width)
+        return AdaptiveHopDistanceState(
+            dist=torch.where(seed, 0, -1).to(torch.int32), frontier=seed,
+            fidx=fidx, fslice=fslice, fcount=count,
+            round=torch.zeros((), dtype=torch.int32, device=graph.device))
+
+    def coverage(self, graph: Graph, state):
+        return reached_coverage(graph, state.dist)
+
+    def step(self, graph: Graph, state: AdaptiveHopDistanceState, key):
+        seen = state.dist >= 0
+        _, frontier, fidx, fslice, fcount, ncount, msgs = _wave_step(
+            graph, self.k, self.slice_width, self.method, seen,
+            state.frontier, state.fidx, state.fslice, state.fcount)
+        rnd = state.round + 1
+        dist = torch.where(frontier, rnd, state.dist)
+        stats = {
+            "messages": msgs,
+            "coverage": reached_coverage(graph, dist),
+            "frontier": ncount,
+            "frontier_occupancy": frontier_ops.occupancy(graph, frontier),
+            "max_dist": dist.max(),
+        }
+        return AdaptiveHopDistanceState(
+            dist=dist, frontier=frontier, fidx=fidx, fslice=fslice,
+            fcount=fcount, round=rnd), stats

@@ -51,3 +51,12 @@ def validate_source(graph: Graph, source: int) -> None:
             f"source {source} out of range for padded id space "
             f"[0, {graph.n_nodes_padded})"
         )
+
+
+def source_seed(graph: Graph, source) -> torch.Tensor:
+    """bool[N_pad]: ``source`` alone, masked by liveness (all False when
+    the source is dead) — the seed of the single-source protocols."""
+    seed = torch.zeros(graph.n_nodes_padded, dtype=torch.bool,
+                       device=graph.device)
+    seed[source] = True
+    return seed & graph.node_mask

@@ -64,10 +64,7 @@ class Flood:
 
     def init(self, graph: Graph, key):
         base.validate_source(graph, self.source)
-        seed = torch.zeros(graph.n_nodes_padded, dtype=torch.bool,
-                           device=graph.device)
-        seed[self.source] = True
-        seed = seed & graph.node_mask
+        seed = base.source_seed(graph, self.source)
         if self.bitset:
             packed = bitset.pack_bits(seed)
             return FloodBitState(seen=packed, frontier=packed)

@@ -83,9 +83,11 @@ def build_blocked_from_arrays(senders: np.ndarray, receivers: np.ndarray,
 def propagate_sum_blocked(blocked: BlockedEdges, signal: torch.Tensor,
                           node_mask: torch.Tensor) -> torch.Tensor:
     """Per-node incoming sum over the blocked layout, plain PyTorch on any
-    device. ``signal`` f32[N_pad] -> f32[N_pad]."""
-    out = segsum.segsum_sum_plain(signal, blocked.src, blocked.local_dst,
-                                  blocked.mask, blocked.block)
+    device. ``signal`` [N_pad] -> f32[N_pad]: the reference's one-hot
+    product accumulates in f32 whatever the signal's type."""
+    out = segsum.segsum_sum_plain(signal.to(torch.float32), blocked.src,
+                                  blocked.local_dst, blocked.mask,
+                                  blocked.block)
     return out[: node_mask.shape[0]] * node_mask.to(out.dtype)
 
 

@@ -10,11 +10,14 @@ The reference picks the branch on the device (``lax.cond``); the port
 reads the active count on the host once per round (one sync, counted in
 ``_device.SYNCS``), as ``AdaptiveFlood`` does. The compaction is a cumsum
 and a scatter (``jnp.nonzero(size=k, fill_value=...)``'s order and fill,
-with no sync of its own). OR cannot see the order of its terms, so the
-result is bit-identical to the dense methods.
+with no sync of its own). OR, max and min cannot see the order of their
+terms (max and min reduce ordered keys, ``ops/extremum.py``), and each
+min-plus term is the dense path's f32 add of the same operands (the
+weight read at the same edge id), so every result is bit-identical to
+the dense methods.
 
-``ROUNDS`` counts the sparse and dense rounds taken. The max, min-plus and
-lane-packed variants wait for their protocols.
+``ROUNDS`` counts the sparse and dense rounds taken. The lane-packed
+variant waits for the batched planes.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from p2pnetwork_tpu_torch import _device
+from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 #: Sparse slots (budget * max_out_span) stay under E_pad / this factor.
@@ -30,7 +34,7 @@ CROSSOVER_SLOT_FACTOR = 2.0
 #: Floor of the compaction buffer (the reference's).
 _MIN_BUDGET = 128
 
-#: Rounds :func:`propagate_or_frontier` ran sparse and dense.
+#: Rounds the frontier lowerings ran sparse and dense.
 ROUNDS = {"sparse": 0, "dense": 0}
 
 
@@ -115,22 +119,78 @@ def _gather_active(graph: Graph, active: torch.Tensor,
     return f, eid, evalid
 
 
+def _sparse_budget(graph: Graph, active: torch.Tensor, crossover):
+    """``(k, n_active)`` when this round runs sparse, else None: the
+    budget is 0 (sparse cannot win on this graph, see :func:`budget`) or
+    the active count, read on the host (one sync), exceeds it."""
+    require_csr(graph)
+    k = budget(graph, crossover)
+    if k:
+        n_active = active.sum()
+        if _device.host_bool(n_active <= k):
+            ROUNDS["sparse"] += 1
+            return k, n_active
+    ROUNDS["dense"] += 1
+    return None
+
+
 def propagate_or_frontier(graph: Graph, signal: torch.Tensor, dense_fn,
                           crossover=None) -> torch.Tensor:
     """Frontier-compacted neighbor-OR; ``dense_fn(signal)`` is the dense
     fallback taken when the active count exceeds the budget."""
-    require_csr(graph)
-    k = budget(graph, crossover)
-    if k == 0:  # sparse cannot win on this graph (see budget)
-        ROUNDS["dense"] += 1
+    sparse = _sparse_budget(graph, signal, crossover)
+    if sparse is None:
         return dense_fn(signal)
-    n_active = signal.sum()
-    if not _device.host_bool(n_active <= k):
-        ROUNDS["dense"] += 1
-        return dense_fn(signal)
-    ROUNDS["sparse"] += 1
     n_pad = graph.n_nodes_padded
-    _, eid, evalid = _gather_active(graph, signal, n_active, k)
+    _, eid, evalid = _gather_active(graph, signal, sparse[1], sparse[0])
     cand = torch.where(evalid, graph.receivers[eid], n_pad).reshape(-1)
     out = set_true(torch.zeros_like(signal), cand)
     return out & graph.node_mask
+
+
+def _scatter_terms(graph: Graph, eid, evalid, terms, dtype,
+                   largest: bool) -> torch.Tensor:
+    """Max (``largest``) or min of the gathered ``[k, span]`` ``terms``
+    into their receivers, the identity elsewhere and on dead nodes. The
+    slots that are not live edges (most of them while the frontier is
+    small) add the identity, which changes nothing, at a node of their
+    own position rather than at one drop slot: millions of atomics on one
+    address would serialize on the card."""
+    n_pad = graph.n_nodes_padded
+    ident = X.identity(dtype, largest)
+    keys = torch.where(evalid, X.encode(terms, largest), ident).reshape(-1)
+    spread = torch.arange(keys.shape[0], device=keys.device) % n_pad
+    cand = torch.where(evalid.reshape(-1), graph.receivers[eid].reshape(-1),
+                       spread)
+    agg = X.scatter(keys, cand, n_pad, ident, largest)
+    return X.decode(torch.where(graph.node_mask, agg, ident), dtype, largest)
+
+
+def propagate_max_frontier(graph: Graph, signal: torch.Tensor, neutral,
+                           dense_fn, crossover=None) -> torch.Tensor:
+    """Frontier-compacted neighbor-max. Active = holding a non-neutral
+    value (``!=`` keeps NaN senders active, as the dense max spreads NaN);
+    neutral senders add the identity either way."""
+    active = signal != neutral
+    sparse = _sparse_budget(graph, active, crossover)
+    if sparse is None:
+        return dense_fn(signal)
+    f, eid, evalid = _gather_active(graph, active, sparse[1], sparse[0])
+    return _scatter_terms(graph, eid, evalid, signal[f][:, None],
+                          signal.dtype, True)
+
+
+def propagate_min_plus_frontier(graph: Graph, dist: torch.Tensor, dense_fn,
+                                crossover=None) -> torch.Tensor:
+    """Frontier-compacted min-plus relaxation (one Bellman-Ford round).
+    Active = a distance other than +inf (NaN included); a +inf sender
+    adds +inf everywhere in the dense path too, so skipping it is
+    exact."""
+    active = dist != torch.inf
+    sparse = _sparse_budget(graph, active, crossover)
+    if sparse is None:
+        return dense_fn(dist)
+    f, eid, evalid = _gather_active(graph, active, sparse[1], sparse[0])
+    w = 1.0 if graph.edge_weight is None else graph.edge_weight[eid]
+    return _scatter_terms(graph, eid, evalid, dist[f][:, None] + w,
+                          dist.dtype, False)

@@ -3,6 +3,10 @@
 
 - ``propagate_or`` — per-receiver OR of a bool node signal (flooding);
 - ``propagate_sum`` — per-receiver sum of an f32 node signal;
+- ``propagate_max`` — per-receiver max (leader election, components);
+- ``propagate_min_plus`` — per-receiver ``min(dist[u] + w(u, v))`` over
+  ``Graph.edge_weight`` (1 a hop without weights): one Bellman-Ford
+  round;
 - ``frontier_messages`` — the point-to-point sends a frontier makes.
 
 Methods, as in the reference:
@@ -15,10 +19,18 @@ Methods, as in the reference:
   (``ops/segsum.py``; the name is the reference's);
 - ``hybrid`` / ``hybrid-blocked``: diagonals by roll, the remainder by the
   kernel or its plain version (``ops/diag.py``);
-- ``frontier`` (OR only): the active rows through the source-CSR view
-  while the frontier is small, else ``auto`` (``ops/frontier.py``);
+- ``frontier`` (OR, max, min-plus): the active rows through the
+  source-CSR view while the frontier is small, else ``auto``
+  (``ops/frontier.py``);
 - ``auto``: ``gather`` while the table's padding waste is bounded, else
   ``skew`` when the graph carries the table, else ``segment``.
+
+Max and min-plus take ``segment``, ``gather``, ``skew``, ``frontier`` and
+``auto`` only, as the reference: its ``blocked``/``pallas``/``hybrid``
+ride a one-hot matrix product, which sums. They are scatters and row
+reductions here too (no kernel), over ordered integer keys so that
+``-0.0``, NaN and the order of the terms come out as XLA's
+(``ops/extremum.py``).
 
 The dynamic edge region of runtime links (``sim/topology.py``) is folded
 in for every method: the static edges go through the method, the region
@@ -33,6 +45,7 @@ import torch
 
 from p2pnetwork_tpu_torch.ops import blocked as B
 from p2pnetwork_tpu_torch.ops import diag as D
+from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.ops import frontier as FR
 from p2pnetwork_tpu_torch.ops import skew as SK
 from p2pnetwork_tpu_torch.sim.graph import Graph
@@ -155,7 +168,11 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
     effect: the reference's ``exact=False`` feeds the MXU bf16 inputs,
     while the CUDA kernel always adds f32 terms in f32 (0/1 sums, as SIR's,
     are exact either way). ``frontier`` is an OR lowering only, as in the
-    reference."""
+    reference. An integer signal (``KCore``'s indicator) keeps its dtype
+    under ``segment``, ``gather`` and ``skew``; ``blocked`` and ``pallas``
+    sum in f32, as the reference's one-hot product does, and ``hybrid``
+    adds that f32 remainder to the integer diagonals (f32 too, unless the
+    graph has no remainder)."""
     if graph.dyn_senders is not None:
         return (propagate_sum(_static(graph), signal, method)
                 + _dynamic_sum(graph, signal))
@@ -163,7 +180,7 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
     fmask = graph.node_mask.to(signal.dtype)
     if method == "gather":
         vals = signal[graph.neighbors] * graph.neighbor_mask.to(signal.dtype)
-        return vals.sum(dim=1) * fmask
+        return vals.sum(dim=1, dtype=signal.dtype) * fmask
     if method == "skew":
         return SK.sum_skew(graph.skew, signal, graph.n_nodes_padded) * fmask
     if method == "blocked":
@@ -179,6 +196,149 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
                       device=signal.device)
     agg.index_add_(0, graph.receivers, contrib)
     return agg * fmask
+
+
+def neutral_min(dtype):
+    """The max-aggregation identity of ``dtype``: ``-inf`` or the integer
+    minimum (a Python number). Bool signals are refused: their max is
+    ``propagate_or``."""
+    if dtype.is_floating_point:
+        return -torch.inf
+    if dtype == torch.bool:
+        raise ValueError(
+            "max-aggregation over bool signals is just OR — use "
+            "propagate_or / sharded.propagate(op='or') instead")
+    return torch.iinfo(dtype).min
+
+
+def _semiring_method(graph: Graph, method: str, op: str) -> str:
+    """``method`` resolved for max (``op="max"``) or min-plus: ``segment``,
+    ``gather`` or ``skew``, with the reference's refusals."""
+    if method == "auto":
+        method = _auto_method(graph)
+    if method not in ("segment", "gather", "skew"):
+        name = "propagate_max" if op == "max" else "propagate_min_plus"
+        raise ValueError(
+            f"{name} supports method 'segment', 'gather', 'skew' or "
+            f"'frontier', got {method!r} ({op} does not ride the "
+            f"one-hot-matmul lowerings)")
+    return _resolve(graph, method)
+
+
+def _dynamic_max(graph: Graph, signal: torch.Tensor) -> torch.Tensor:
+    """Max over the dynamic edge region, as keys (``ops/extremum.py``)."""
+    ident = X.identity(signal.dtype, True)
+    keys = torch.where(graph.dyn_mask,
+                       X.encode(signal, True)[graph.dyn_senders], ident)
+    return X.scatter(keys, graph.dyn_receivers, graph.n_nodes_padded, ident,
+                     True)
+
+
+def propagate_max(graph: Graph, signal: torch.Tensor, method: str = "auto",
+                  *, frontier_crossover=None) -> torch.Tensor:
+    """Per-node max over incoming neighbors: ``out[v] = max(signal[u],
+    u->v)``. Nodes with no live in-edge, and dead nodes, get the dtype's
+    max-identity (``neutral_min``); callers fold the result into their own
+    value, which makes it neutral. Methods: ``segment``, ``gather``,
+    ``skew``, ``frontier`` and ``auto``."""
+    if graph.dyn_senders is not None:
+        static = propagate_max(_static(graph), signal, method,
+                               frontier_crossover=frontier_crossover)
+        return X.decode(torch.maximum(X.encode(static, True),
+                                      _dynamic_max(graph, signal)),
+                        signal.dtype, True)
+    neutral = neutral_min(signal.dtype)
+    if method == "frontier":
+        return FR.propagate_max_frontier(
+            graph, signal, neutral,
+            lambda sig: propagate_max(graph, sig, "auto"),
+            crossover=frontier_crossover)
+    method = _semiring_method(graph, method, "max")
+    if method == "skew":
+        return torch.where(graph.node_mask, SK.max_skew(
+            graph.skew, signal, graph.n_nodes_padded), neutral)
+    ident = X.identity(signal.dtype, True)
+    keys = X.encode(signal, True)
+    if method == "gather":
+        agg = X.rows(torch.where(graph.neighbor_mask, keys[graph.neighbors],
+                                 ident), True)
+    else:
+        agg = X.scatter(torch.where(graph.edge_mask, keys[graph.senders],
+                                    ident),
+                        graph.receivers, graph.n_nodes_padded, ident, True)
+    return X.decode(torch.where(graph.node_mask, agg, ident), signal.dtype,
+                    True)
+
+
+#: Cost of a runtime link (``sim/topology.py`` ``connect``) in weighted
+#: propagation: the dynamic region has no weight channel, so new links
+#: cost 1 until ``topology.consolidate`` folds them in at that cost.
+DYNAMIC_LINK_COST = 1.0
+
+
+def _dynamic_min_plus(graph: Graph, dist: torch.Tensor) -> torch.Tensor:
+    """Min-plus over the dynamic edge region (unit link cost), as keys."""
+    ident = X.identity(dist.dtype, False)
+    keys = torch.where(graph.dyn_mask, X.encode(
+        dist[graph.dyn_senders] + DYNAMIC_LINK_COST, False), ident)
+    return X.scatter(keys, graph.dyn_receivers, graph.n_nodes_padded, ident,
+                     False)
+
+
+def propagate_min_plus(graph: Graph, dist: torch.Tensor,
+                       method: str = "auto", *,
+                       frontier_crossover=None) -> torch.Tensor:
+    """Per-node min-plus relaxation: ``out[v] = min(dist[u] + w(u, v))``
+    over live incoming edges, one Bellman-Ford round. Weights come from
+    ``graph.edge_weight`` (1 a hop without them); each edge's term is one
+    f32 add of the same operands in every method, so all give the same
+    bits. No live in-edge, or a dead node: ``+inf``. ``gather`` on a
+    weighted graph needs ``neighbor_weight`` and ``skew`` the table's
+    ``weight``; ``auto`` falls back to ``segment`` without them."""
+    if graph.dyn_senders is not None:
+        static = propagate_min_plus(_static(graph), dist, method,
+                                    frontier_crossover=frontier_crossover)
+        return X.decode(torch.minimum(X.encode(static, False),
+                                      _dynamic_min_plus(graph, dist)),
+                        dist.dtype, False)
+    if method == "frontier":
+        return FR.propagate_min_plus_frontier(
+            graph, dist, lambda d: propagate_min_plus(graph, d, "auto"),
+            crossover=frontier_crossover)
+    weighted = graph.edge_weight is not None
+    if method == "auto":
+        method = _auto_method(graph)
+        if method == "gather" and weighted and graph.neighbor_weight is None:
+            method = "segment"
+        if method == "skew" and weighted and graph.skew.weight is None:
+            method = "segment"
+    method = _semiring_method(graph, method, "min")
+    ident = X.identity(dist.dtype, False)
+    if method == "gather":
+        if weighted and graph.neighbor_weight is None:
+            raise ValueError(
+                "method='gather' on a weighted graph needs the aligned "
+                "neighbor_weight view — build with from_edges(weights=...) "
+                "or Graph.with_weights, or use method='segment'")
+        w = graph.neighbor_weight if weighted else 1.0
+        agg = X.rows(torch.where(graph.neighbor_mask, X.encode(
+            dist[graph.neighbors] + w, False), ident), False)
+    elif method == "skew":
+        if weighted and graph.skew.weight is None:
+            raise ValueError(
+                "method='skew' on a weighted graph needs the aligned "
+                "weight view — build via from_edges(weights=..., "
+                "skew_table=True) or Graph.with_weights, or use "
+                "method='segment'")
+        return torch.where(graph.node_mask, SK.min_plus_skew(
+            graph.skew, dist, graph.n_nodes_padded), torch.inf)
+    else:
+        w = graph.edge_weight if weighted else 1.0
+        agg = X.scatter(torch.where(graph.edge_mask, X.encode(
+            dist[graph.senders] + w, False), ident),
+            graph.receivers, graph.n_nodes_padded, ident, False)
+    return X.decode(torch.where(graph.node_mask, agg, ident), dist.dtype,
+                    False)
 
 
 def frontier_messages(graph: Graph, frontier: torch.Tensor) -> torch.Tensor:

@@ -11,20 +11,23 @@ lets edge failures re-mask the table exactly (``sim/failures.py``).
 
 The host build is the reference's, byte for byte, including its width
 choice (:func:`pick_width`, a cost model of the reference's hardware kept
-so the port builds the same table). The port has no weighted graphs, so
-the table carries no weight view and the max / min-plus lowerings wait
-for their protocols. OR is exact; the f32 sum adds each owner's row sums
-in another order than the reference's segment sum, so it is held to a
-tolerance (``tests/test_torch_skew.py``).
+so the port builds the same table). On a weighted graph the table
+carries ``weight``, the per-slot view of ``Graph.edge_weight``. OR, max
+and min-plus are exact (the latter two reduce ordered keys,
+``ops/extremum.py``); the f32 sum adds each owner's row sums in another
+order than the reference's segment sum, so it is held to a tolerance
+(``tests/test_torch_skew.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
+from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.sim.graph import _padded_row_fill
 
 #: Candidate virtual-row widths (the reference's).
@@ -41,12 +44,14 @@ class SkewTable:
     """Virtual-row incoming-neighbor table: ``src``/``mask`` ``[R_pad, W]``
     (sender and validity per slot), ``owner[r]`` the receiving node of row
     ``r`` (non-decreasing; padding rows own ``n_pad - 1`` with all-False
-    masks) and ``start[r]`` the row's first COO edge."""
+    masks) and ``start[r]`` the row's first COO edge. ``weight`` is the
+    per-slot cost on a weighted graph (None otherwise)."""
 
     src: torch.Tensor  # i32[R_pad, W]
     mask: torch.Tensor  # bool[R_pad, W]
     owner: torch.Tensor  # i32[R_pad]
     start: torch.Tensor  # i32[R_pad]
+    weight: Optional[torch.Tensor] = None  # f32[R_pad, W]
 
     @property
     def n_rows(self) -> int:
@@ -87,9 +92,11 @@ def pick_width(in_degrees: np.ndarray, candidates=WIDTH_CANDIDATES) -> int:
 def build_skew_from_arrays(senders: np.ndarray, receivers: np.ndarray,
                            n_pad: int, e_pad: int, width: int = 0,
                            row_pad_multiple: int = 8, *,
+                           weights: Optional[np.ndarray] = None,
                            device) -> SkewTable:
     """The table from the receiver-sorted build-time edge list (the
-    unpadded COO prefix), built on the host and moved to ``device``.
+    unpadded COO prefix), built on the host and moved to ``device``;
+    ``weights``, aligned with that list, give its ``weight`` view.
     ``width=0`` picks it (:func:`pick_width`); padding rows start at the
     in-bounds sentinel ``e_pad - 1``."""
     senders = np.asarray(senders, dtype=np.int32)
@@ -107,6 +114,8 @@ def build_skew_from_arrays(senders: np.ndarray, receivers: np.ndarray,
     start = np.full(r_pad, e_pad - 1, dtype=np.int32)
     src = np.zeros((r_pad, width), dtype=np.int32)
     mask = np.zeros((r_pad, width), dtype=bool)
+    weight = (None if weights is None
+              else np.zeros((r_pad, width), dtype=np.float32))
     if r_total:
         node_ids = np.nonzero(rows_per)[0]
         node_starts = np.concatenate(
@@ -125,8 +134,12 @@ def build_skew_from_arrays(senders: np.ndarray, receivers: np.ndarray,
         start[:r_total] = row_start.astype(np.int32)
         src[:r_total] = np.where(valid, pool[take_safe], 0)
         mask[:r_total] = valid
-    return SkewTable(*(torch.from_numpy(a).to(device)
-                       for a in (src, mask, owner, start)))
+        if weights is not None:
+            wpool = (np.asarray(weights, dtype=np.float32)
+                     if e else np.zeros(1, dtype=np.float32))
+            weight[:r_total] = np.where(valid, wpool[take_safe], 0.0)
+    return SkewTable(*(None if a is None else torch.from_numpy(a).to(device)
+                       for a in (src, mask, owner, start, weight)))
 
 
 def build_skew(graph, width: int = 0) -> SkewTable:
@@ -134,9 +147,11 @@ def build_skew(graph, width: int = 0) -> SkewTable:
     rows over the build-time edge prefix, re-masked by the graph's current
     ``edge_mask`` so a table attached after failures keeps them."""
     e = graph.n_edges
+    w = (None if graph.edge_weight is None
+         else graph.edge_weight[:e].cpu().numpy())
     t = build_skew_from_arrays(
         graph.senders[:e].cpu().numpy(), graph.receivers[:e].cpu().numpy(),
-        graph.n_nodes_padded, graph.n_edges_padded, width=width,
+        graph.n_nodes_padded, graph.n_edges_padded, width=width, weights=w,
         device=graph.device)
     return remask_edges(t, graph.edge_mask, graph.n_edges_padded)
 
@@ -151,10 +166,31 @@ def or_skew(t: SkewTable, signal: torch.Tensor, n_pad: int) -> torch.Tensor:
 
 def sum_skew(t: SkewTable, signal: torch.Tensor, n_pad: int) -> torch.Tensor:
     """Per-owner sum of ``signal[src] * mask``. f32[n_pad]."""
-    part = (signal[t.src] * t.mask.to(signal.dtype)).sum(dim=1)
+    part = (signal[t.src] * t.mask.to(signal.dtype)).sum(dim=1,
+                                                         dtype=signal.dtype)
     agg = torch.zeros(n_pad, dtype=signal.dtype, device=signal.device)
     agg.index_add_(0, t.owner, part)
     return agg
+
+
+def max_skew(t: SkewTable, signal: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Per-owner max of the live slots' ``signal[src]``; the dtype's
+    max-identity (-inf / int min) where an owner has none."""
+    ident = X.identity(signal.dtype, True)
+    keys = torch.where(t.mask, X.encode(signal, True)[t.src], ident)
+    agg = X.scatter(X.rows(keys, True), t.owner, n_pad, ident, True)
+    return X.decode(agg, signal.dtype, True)
+
+
+def min_plus_skew(t: SkewTable, dist: torch.Tensor,
+                  n_pad: int) -> torch.Tensor:
+    """Per-owner min of ``dist[src] + weight`` (1 per hop without
+    weights) over the live slots; +inf where an owner has none."""
+    w = t.weight if t.weight is not None else 1.0
+    ident = X.identity(dist.dtype, False)
+    keys = torch.where(t.mask, X.encode(dist[t.src] + w, False), ident)
+    agg = X.scatter(X.rows(keys, False), t.owner, n_pad, ident, False)
+    return X.decode(agg, dist.dtype, False)
 
 
 def remask_nodes(t, node_alive: torch.Tensor):

@@ -14,13 +14,20 @@ index ``i`` (jax's ``_threefry_random_bits_partitionable``).
 The samplers follow ``jax/_src/random.py``: ``uniform`` sets the top 23
 bits as an f32 mantissa in [1, 2) (``_uniform``), ``randint`` reduces two
 32-bit draws by span and multiplier in wrapping u32 arithmetic
-(``_randint``), ``bernoulli`` is ``uniform < p`` (``_bernoulli``) and
-``normal`` is ``sqrt(2) * erf_inv(uniform(nextafter(-1, 0), 1))``
-(``_normal_real``). All but ``normal`` are exact; ``normal``'s
-``erf_inv`` is XLA's single-precision polynomial (Giles), with the fused
-multiply-adds XLA's CPU code makes, evaluated in torch; its ``log1p`` is
-torch's, not XLA's, so about 1% of draws differ from jax's, by at most
-3 ulp (``tests/test_torch_prng.py`` states the tolerance).
+(``_randint``), ``bernoulli`` is ``uniform < p`` (``_bernoulli``),
+``permutation`` sorts by rounds of 32-bit keys (``_shuffle``), ``choice``
+with ``p=None`` is ``randint`` with replacement and a prefix of
+``permutation`` without, and ``normal`` is ``sqrt(2) *
+erf_inv(uniform(nextafter(-1, 0), 1))`` (``_normal_real``). All but
+``normal`` are exact; ``normal``'s ``erf_inv`` is XLA's single-precision
+polynomial (Giles), with the fused multiply-adds XLA's CPU code makes,
+evaluated in torch; its ``log1p`` is torch's, not XLA's, so about 1% of
+draws differ from jax's, by at most 3 ulp (``tests/test_torch_prng.py``
+states the tolerance).
+
+``permutation``'s sorts are stable, as XLA's ``sort_key_val`` is by
+default (``is_stable=True``): two equal 32-bit keys keep their input
+order. A weighted ``choice`` (``p=``) and ``categorical`` are not ported.
 
 This is the port's explicit generator for simulations that must be
 checkable against the reference. It does not replace ``torch.Generator``,
@@ -180,3 +187,60 @@ def randint(k, shape, minval: int, maxval: int, *,
 def bernoulli(k, p: float = 0.5, shape=(), *, device=None) -> torch.Tensor:
     """bool: ``uniform(k, shape) < f32(p)``."""
     return uniform(k, shape, device=device) < float(np.float32(p))
+
+
+def _shuffle(k, x: torch.Tensor) -> torch.Tensor:
+    """``jax.random``'s ``_shuffle`` along axis 0: ``ceil(3 ln(n) /
+    ln(2**32 - 1))`` rounds, each ``k, sub = split(k)`` and a stable sort
+    of ``x`` by 32-bit keys ``random_bits(sub, (n,))`` taken unsigned."""
+    n = x.shape[0]
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k, sub = split(k)
+        bits = random_bits(sub, (n,), device=x.device)
+        # Flipping the sign bit orders the words as unsigned.
+        order = torch.sort(bits ^ _I32_MIN, stable=True).indices
+        x = x[order]
+    return x
+
+
+def permutation(k, x, *, device=None) -> torch.Tensor:
+    """A random permutation of ``arange(x)`` (an int ``x``; i32) or of a
+    1-D tensor's elements, as ``jax.random.permutation`` makes it."""
+    _check_key(k)
+    if isinstance(x, int):
+        x = torch.arange(x, dtype=torch.int32,
+                         device=_device.resolve(device))
+    elif x.dim() != 1:
+        raise ValueError("permutation takes an int or a 1-D tensor")
+    return _shuffle(k, x)
+
+
+def choice(k, a, shape=(), replace: bool = True, p=None, *,
+           device=None) -> torch.Tensor:
+    """``shape`` draws from ``arange(a)`` (an int ``a``) or from a 1-D
+    tensor's elements, uniformly: with replacement ``randint(k, shape, 0,
+    n)`` indexes them, without it the first draws of
+    :func:`permutation`. A weighted ``p`` is not ported."""
+    if p is not None:
+        raise NotImplementedError("choice with weights p is not ported")
+    shape = _shape(shape)
+    n = a if isinstance(a, int) else a.shape[0]
+    if not isinstance(a, int) and a.dim() != 1:
+        raise ValueError("choice takes an int or a 1-D tensor")
+    dev = _device.resolve(device) if isinstance(a, int) else a.device
+    n_draws = math.prod(shape)
+    if n_draws == 0:
+        return torch.zeros(shape, dtype=torch.int32 if isinstance(a, int)
+                           else a.dtype, device=dev)
+    if n <= 0:
+        raise ValueError("a must be greater than 0 unless no samples are "
+                         "taken")
+    if replace:
+        ind = randint(k, shape, 0, n, device=dev)
+        return ind if isinstance(a, int) else a[ind.long()]
+    if n_draws > n:
+        raise ValueError(f"Cannot take a larger sample (size {n_draws}) "
+                         f"than population (size {n}) when 'replace=False'")
+    return permutation(k, a, device=dev)[:n_draws].reshape(shape)

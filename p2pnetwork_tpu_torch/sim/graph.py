@@ -11,10 +11,11 @@ needs no native build.
 
 Ported: the COO edges, masks and degrees, the padded neighbor table, the
 source-CSR out-edge view, the blocked / diagonal+remainder layouts, the
-two-level skew table (``ops/skew.py``) and the dynamic edge region of
-runtime links (``sim/topology.py``). Per-edge weights, node reordering
-and the incremental builds (``apply_delta``, ``grow``) are not
-(``interop`` refuses a reference graph that carries weights or a
+two-level skew table (``ops/skew.py``), the dynamic edge region of
+runtime links (``sim/topology.py``) and per-edge weights with their
+aligned views (``edge_weight``, ``neighbor_weight``, the skew table's
+``weight``). Node reordering and the incremental builds (``apply_delta``,
+``grow``) are not (``interop`` refuses a reference graph that carries a
 relabeling).
 """
 
@@ -94,6 +95,10 @@ class Graph:
     src_eid: Optional[torch.Tensor] = None  # i32[E_pad]
     src_offsets: Optional[torch.Tensor] = None  # i32[N_pad + 1]
     max_out_span: int = 0
+    # Per-edge costs aligned with senders/receivers (None: every hop costs
+    # 1), and their view aligned with the neighbor table's slots.
+    edge_weight: Optional[torch.Tensor] = None  # f32[E_pad]
+    neighbor_weight: Optional[torch.Tensor] = None  # f32[N_pad, max_degree]
 
     @property
     def device(self) -> torch.device:
@@ -146,6 +151,52 @@ class Graph:
             src_offsets=torch.from_numpy(offsets).to(self.device),
             max_out_span=span)
 
+    def with_weights(self, weights) -> "Graph":
+        """A copy carrying per-edge costs. ``weights`` is a callable
+        ``(senders, receivers) -> f32`` evaluated on the padded edge
+        arrays, given as host numpy ``int32`` arrays (a deterministic
+        link-cost model, such as an id-hash latency), or an array aligned
+        with the receiver-sorted padded edge slots. A complete neighbor
+        table gets its aligned ``neighbor_weight`` rebuilt on the host; a
+        width-capped one cannot be re-aligned (pass ``weights=`` to
+        :func:`from_edges`). The skew table's ``weight`` is one gather
+        through its slot -> edge map."""
+        if callable(weights):
+            weights = weights(self.senders.cpu().numpy(),
+                              self.receivers.cpu().numpy())
+        if isinstance(weights, torch.Tensor):
+            weights = weights.cpu().numpy()
+        wh = np.asarray(weights, dtype=np.float32)
+        if wh.shape != tuple(self.senders.shape):
+            raise ValueError("weights must align with the padded edge slots")
+        w = torch.from_numpy(wh).to(self.device)
+        nw = None
+        if self.neighbors is not None:
+            if not self.neighbors_complete:
+                raise ValueError(
+                    "cannot re-align weights to a width-capped neighbor "
+                    "table; rebuild via from_edges(weights=..., "
+                    "max_degree=...)")
+            # Complete rows are the receiver runs of the build-time edge
+            # list, in order (build-time extents, not in_degree: failures
+            # change degrees, not the slot layout).
+            rh = self.receivers[: self.n_edges].cpu().numpy()
+            ids = np.arange(self.n_nodes_padded)
+            starts = np.searchsorted(rh, ids)
+            counts = np.searchsorted(rh, ids, side="right") - starts
+            width = self.neighbors.shape[1]
+            take, valid = _padded_row_fill(starts, np.minimum(counts, width),
+                                           width)
+            nw = torch.from_numpy(np.where(
+                valid, wh[np.minimum(take, max(self.n_edges - 1, 0))], 0.0
+            ).astype(np.float32)).to(self.device)
+        sk = self.skew
+        if sk is not None:
+            sk = dataclasses.replace(sk, weight=torch.where(
+                sk.mask, w[sk.edge_slots(self.n_edges_padded)], 0.0))
+        return dataclasses.replace(self, edge_weight=w, neighbor_weight=nw,
+                                   skew=sk)
+
     def with_skew_table(self, width: int = 0) -> "Graph":
         """A copy carrying the two-level neighbor table of the ``skew``
         method (``ops/skew.py``); ``width=0`` picks the width from the
@@ -181,10 +232,12 @@ def _build_source_csr(senders: np.ndarray, edge_mask: np.ndarray,
     return eid, offsets, span
 
 
-def _neighbor_table(senders, receivers, e, n_pad, width):
-    """Padded incoming-neighbor table ``[n_pad, width]``; over-degree rows
-    get a uniform random ``width``-subset of their in-edges (seed 0, the
-    reference's rule)."""
+def _neighbor_table(senders, receivers, e, n_pad, width, weights=None):
+    """Padded incoming-neighbor table ``[n_pad, width]`` and its mask;
+    over-degree rows get a uniform random ``width``-subset of their
+    in-edges (seed 0, the reference's rule). With ``weights`` (aligned
+    with the sorted edges) also the slot-aligned weight view, else
+    None."""
     starts = np.searchsorted(receivers, np.arange(n_pad))
     ends = np.searchsorted(receivers, np.arange(n_pad), side="right")
     take, valid = _padded_row_fill(starts, np.minimum(ends - starts, width),
@@ -206,7 +259,11 @@ def _neighbor_table(senders, receivers, e, n_pad, width):
         take[capped] = edge_idx[kept][resort].reshape(capped.size, width)
     pool = senders if e else np.zeros(1, dtype=np.int32)
     take_safe = np.minimum(take, max(e - 1, 0))
-    return np.where(valid, pool[take_safe], 0).astype(np.int32), valid
+    nw = None
+    if weights is not None:
+        wpool = weights if e else np.zeros(1, dtype=np.float32)
+        nw = np.where(valid, wpool[take_safe], 0.0).astype(np.float32)
+    return np.where(valid, pool[take_safe], 0).astype(np.int32), valid, nw
 
 
 def from_edges(
@@ -223,15 +280,19 @@ def from_edges(
     source_csr: bool = False,
     skew_table: bool = False,
     skew_width: int = 0,
+    weights=None,
     device=None,
 ) -> Graph:
     """Build a :class:`Graph` from host edge arrays (the reference's
-    ``from_edges`` without ``weights`` or ``reorder``).
+    ``from_edges`` without ``reorder``).
 
     Edges are sorted by receiver and padded to ``edge_pad_multiple``; nodes
     to ``node_pad_multiple``. ``blocked`` / ``hybrid`` / ``source_csr`` /
     ``skew_table`` (of width ``skew_width``, 0 = picked) attach those
-    layouts from the host arrays in hand. ``device`` as in
+    layouts from the host arrays in hand. ``weights`` (f32, aligned with
+    ``senders``/``receivers``) go through the same receiver sort and give
+    ``edge_weight``, the neighbor table's ``neighbor_weight`` (a capped
+    table's too) and the skew table's ``weight``. ``device`` as in
     ``_device.resolve``.
     """
     from p2pnetwork_tpu_torch.ops.blocked import build_blocked_from_arrays
@@ -246,7 +307,15 @@ def from_edges(
     if senders.size and (senders.max() >= n_nodes or receivers.max() >= n_nodes):
         raise ValueError("edge endpoint out of range")
 
-    receivers, senders = sort_pairs(receivers, senders)
+    if weights is not None:
+        weights = np.asarray(weights, dtype=np.float32)
+        if weights.shape != senders.shape:
+            raise ValueError("weights must align with senders/receivers")
+        receivers, perm = sort_pairs(receivers,
+                                     np.arange(senders.size, dtype=np.int32))
+        senders, weights = senders[perm], weights[perm]
+    else:
+        receivers, senders = sort_pairs(receivers, senders)
     n_pad = _round_up(max(n_nodes, 1), node_pad_multiple)
     e = senders.size
     e_pad = _round_up(max(e, 1), edge_pad_multiple)
@@ -265,15 +334,19 @@ def from_edges(
 
     host = dict(senders=s, receivers=r, edge_mask=emask, node_mask=nmask,
                 in_degree=in_deg, out_degree=out_deg, neighbors=None,
-                neighbor_mask=None)
+                neighbor_mask=None, edge_weight=None, neighbor_weight=None)
+    if weights is not None:
+        host["edge_weight"] = np.zeros(e_pad, dtype=np.float32)
+        host["edge_weight"][:e] = weights
     neighbors_complete = True
     if build_neighbor_table:
         width = int(in_deg.max()) if e else 0
         if max_degree is not None:
             neighbors_complete = max_degree >= width
             width = min(width, max_degree)
-        host["neighbors"], host["neighbor_mask"] = _neighbor_table(
-            senders, receivers, e, n_pad, max(width, 1))
+        (host["neighbors"], host["neighbor_mask"],
+         host["neighbor_weight"]) = _neighbor_table(
+            senders, receivers, e, n_pad, max(width, 1), weights)
 
     blocked_rep = hybrid_rep = None
     if blocked:
@@ -285,7 +358,8 @@ def from_edges(
     skew_rep = None
     if skew_table:
         skew_rep = build_skew_from_arrays(senders, receivers, n_pad, e_pad,
-                                          width=skew_width, device=dev)
+                                          width=skew_width, weights=weights,
+                                          device=dev)
     max_out_span = 0
     if source_csr:
         host["src_eid"], host["src_offsets"], max_out_span = \

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from p2pnetwork_tpu_torch.ops.frontier import compact
+from p2pnetwork_tpu_torch.ops.segment import DYNAMIC_LINK_COST
 from p2pnetwork_tpu_torch.sim.graph import Graph, _round_up
 
 
@@ -204,20 +205,30 @@ def consolidate(graph: Graph, *, extra_edges: int = 0, extra_nodes: int = 0,
                 **from_edges_kwargs) -> Graph:
     """Fold runtime links and failures into a fresh static build through
     the port's ``from_edges`` (host-side, one-off): dynamic links become
-    static edges, dead edges go, liveness stays. Layouts (blocked, hybrid,
-    source-CSR) and the neighbor-table settings carry over unless
+    static edges (at ``DYNAMIC_LINK_COST`` on a weighted graph, the cost
+    they propagated at), dead edges go, liveness stays. Layouts (blocked,
+    hybrid, source-CSR) and the neighbor-table settings carry over unless
     ``from_edges_kwargs`` say otherwise; ``extra_edges``/``extra_nodes``
     re-reserve capacity."""
     from p2pnetwork_tpu_torch.sim.failures import with_node_liveness
     from p2pnetwork_tpu_torch.sim.graph import from_edges
 
     senders, receivers = graph._live_edges()
+    weights = None
+    if graph.edge_weight is not None:
+        weights = graph.edge_weight.cpu().numpy()[
+            graph.edge_mask.cpu().numpy()]
     if graph.dyn_mask is not None:
         dm = graph.dyn_mask.cpu().numpy()
         senders = np.concatenate(
             [senders, graph.dyn_senders.cpu().numpy()[dm]])
         receivers = np.concatenate(
             [receivers, graph.dyn_receivers.cpu().numpy()[dm]])
+        if weights is not None:
+            # Runtime links propagated at unit cost; the rebuild keeps it
+            # as their static weight.
+            weights = np.concatenate([weights, np.full(
+                int(dm.sum()), DYNAMIC_LINK_COST, dtype=np.float32)])
     alive = graph.node_mask.cpu().numpy()
     # The rebuilt id space covers joined spare nodes and every endpoint.
     referenced = [graph.n_nodes]
@@ -243,6 +254,8 @@ def consolidate(graph: Graph, *, extra_edges: int = 0, extra_nodes: int = 0,
     defer_layouts = bool(extra_nodes)
     if not defer_layouts:
         from_edges_kwargs.update(layout_kw)
+    if weights is not None:
+        from_edges_kwargs.setdefault("weights", weights)
     g2 = from_edges(senders, receivers, n_eff, **from_edges_kwargs)
     # from_edges marks [0, n_eff) alive; re-apply the real liveness.
     alive2 = np.zeros(g2.n_nodes_padded, dtype=bool)

@@ -161,7 +161,8 @@ def _carry_with(field):
 
 # What is still not ported raises, never runs as something else: the
 # flight recorder of run/run_from, reference graph fields the port does
-# not model (interop refuses them rather than dropping them), and the
+# not model (the node relabeling: interop refuses it rather than
+# dropping it; edge weights are carried since they were ported), and the
 # ring's protocols other than the flood (the single-device SIR, gossip,
 # push-sum and PageRank are ported; their ring forms wait). The flood
 # options this test once held (methods frontier and skew, bitset=True)
@@ -171,7 +172,7 @@ def _carry_with(field):
     lambda tg: TE.run_from(tg, TF.Flood(), TF.Flood().init(tg, prng.key(0)),
                            prng.key(0), 2,
                            recorder=object()),
-    _carry_with("edge_weight"),
+    _carry_with("layout_inv"),
     _carry_with("layout_perm"),
     lambda tg: sharded.init_state(tg, SIR()),
 ])

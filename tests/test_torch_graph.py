@@ -30,7 +30,7 @@ FAMILIES = {
 LAYOUTS = {"blocked": True, "hybrid": True, "source_csr": True}
 
 #: Reference Graph fields the port does not model; None on these builds.
-UNPORTED = ("edge_weight", "neighbor_weight", "layout_perm", "layout_inv")
+UNPORTED = ("layout_perm", "layout_inv")
 
 
 def build_jax(family, **kw):
@@ -61,8 +61,8 @@ def _blocked_fields(b):
 def _skew_fields(t):
     if t is None:
         return None
-    assert getattr(t, "weight", None) is None, "skew weights are not ported"
-    return {k: _np(getattr(t, k)) for k in ("src", "mask", "owner", "start")}
+    return {k: _np(getattr(t, k))
+            for k in ("src", "mask", "owner", "start", "weight")}
 
 
 def graph_fields(g) -> dict:

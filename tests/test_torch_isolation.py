@@ -46,7 +46,9 @@ def test_the_walk_sees_the_whole_port():
     assert {"graph.py", "engine.py", "segsum.py", "adaptive_flood.py",
             "interop.py", "chip_smoke.py", "ring.py", "sharded.py",
             "mesh.py", "auto.py", "prng.py", "threefry.py", "sir.py",
-            "gossip.py", "pushsum.py", "pagerank.py"} <= names
+            "gossip.py", "pushsum.py", "pagerank.py", "extremum.py",
+            "hopdist.py", "leader.py", "components.py", "spanning.py",
+            "mis.py", "coloring.py", "kcore.py", "routing.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
@@ -54,6 +56,7 @@ def test_import_leaves_jax_unloaded():
     code = ("import sys, p2pnetwork_tpu_torch.sim.engine, "
             "p2pnetwork_tpu_torch.models.adaptive_flood, "
             "p2pnetwork_tpu_torch.parallel.sharded, "
+            "p2pnetwork_tpu_torch.models, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'p2pnetwork_tpu')]; "
@@ -73,8 +76,15 @@ def test_import_leaves_jax_unloaded():
     lambda: prng.random_bits(prng.key(0), (2, 3)),
     lambda: interop.protocol_state_from_numpy(
         "SIRState", {"status": np.zeros(4, np.int32)}),
+    lambda: prng.permutation(prng.key(0), 8),
+    lambda: prng.choice(prng.key(0), 8, (3,)),
+    lambda: TG.from_edges([0], [1], 2, weights=[1.0]),
+    lambda: interop.protocol_state_from_numpy(
+        "KCoreState", {"in_core": np.ones(4, bool)}),
 ], ids=["default-device", "explicit-cuda", "interop", "resolve",
-        "ring-mesh", "prng-uniform", "prng-bits", "interop-state"])
+        "ring-mesh", "prng-uniform", "prng-bits", "interop-state",
+        "prng-permutation", "prng-choice", "weighted-build",
+        "interop-kcore-state"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")

@@ -626,3 +626,117 @@ def test_threefry_kernel_matches_plain_on_card(n, key):
         want = threefry.threefry_uniform_plain(*key, n, *args, "cpu")
         assert torch.equal(got.cpu().view(torch.int32),
                            want.view(torch.int32))
+
+
+# ------------------------------------- max, min-plus and analytics on card
+#
+# No kernel of its own: max and min-plus are torch scatters and row
+# reductions over ordered integer keys (ops/extremum.py). Their CUDA
+# lowerings (i32 atomics, row reductions) must give the CPU's bits, NaN
+# and signed zeros included; the protocols on top also launch B1 and
+# threefry. Each is held against the same call on the CPU.
+
+
+def _latency(s, r):
+    h = s.astype(np.uint32) * np.uint32(2654435761) + r.astype(np.uint32)
+    return 1.0 + (h % 2048).astype(np.float32) / 1024.0
+
+
+def _churned_pair():
+    from p2pnetwork_tpu_torch.sim import failures, topology
+    from p2pnetwork_tpu_torch.sim import graph as G
+
+    out = []
+    for dev in ("cpu", "cuda"):
+        g = G.watts_strogatz(4096, 10, 0.1, seed=0, blocked=True,
+                             hybrid=True, source_csr=True, skew_table=True,
+                             device=dev).with_weights(_latency)
+        g = topology.with_capacity(g, extra_edges=128)
+        g = topology.connect(g, np.arange(0, 40, 2), np.arange(900, 940, 2))
+        out.append(failures.fail_nodes(g, np.arange(500, 700)))
+    return out
+
+
+def _bits(t):
+    a = t.cpu().clone()
+    if a.dtype.is_floating_point:
+        a[torch.isnan(a)] = torch.nan
+        return a.view(torch.int32)
+    return a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["segment", "gather", "skew", "frontier"])
+def test_max_and_min_plus_on_card_equal_cpu(method):
+    from p2pnetwork_tpu_torch.ops import segment
+
+    _card()
+    cpu, gpu = _churned_pair()
+    n = cpu.n_nodes_padded
+    rng = np.random.default_rng(0)
+    vals = np.array([np.nan, np.inf, -np.inf, 0.0, -0.0, 1.5, -2.0],
+                    np.float32)
+    sparse = np.full(n, -np.inf, np.float32)
+    sparse[[3, 10, 50]] = [np.nan, -0.0, 0.0]
+    signals = [vals[rng.integers(0, vals.size, n)], sparse,
+               rng.integers(-2**31, 2**31 - 1, n).astype(np.int32),
+               (rng.random(n) * 10).astype(np.float32)]
+    for x in signals:
+        xs = torch.from_numpy(x)
+        for fn in (segment.propagate_max, segment.propagate_min_plus):
+            if fn is segment.propagate_min_plus and x.dtype == np.int32:
+                continue
+            want = fn(cpu, xs, method)
+            got = fn(gpu, xs.cuda(), method)
+            assert got.device.type == "cuda"
+            assert torch.equal(_bits(got), _bits(want)), fn.__name__
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method", ["segment", "gather", "skew", "frontier"])
+def test_routing_on_card_equals_cpu(method):
+    from p2pnetwork_tpu_torch import models, prng
+    from p2pnetwork_tpu_torch.sim import engine
+
+    _card()
+    res = []
+    for g in _churned_pair():
+        proto = models.DistanceVector(source=1, method=method)
+        st, out = engine.run_until_converged(g, proto, prng.key(0),
+                                             stat="changed", threshold=1)
+        res.append((out, _bits(st.dist), st.parent.cpu(),
+                    proto.next_hops(g, st).cpu()))
+    assert res[0][0] == res[1][0]
+    for a, b in zip(res[0][1:], res[1][1:]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_analytics_on_card_equal_cpu():
+    # MIS draws through threefry's bits and announces through B1's OR;
+    # KCore sums through B1's sum entry (f32 under pallas and hybrid);
+    # permutation sorts threefry keys on the card.
+    from p2pnetwork_tpu_torch import models, prng
+    from p2pnetwork_tpu_torch.sim import engine
+
+    _card()
+    cpu, gpu = _churned_pair()
+    runs = [(models.LubyMIS(method="gather", or_method="hybrid"),
+             "undecided", "in_mis"),
+            (models.KCore(k=9, method="pallas"), "removed", "in_core"),
+            (models.KCore(k=9, method="hybrid"), "removed", "in_core"),
+            (models.AdaptiveHopDistance(source=2, method="hybrid", k=64),
+             "frontier", "dist"),
+            (models.SpanningTree(source=2, method="gather"), "frontier",
+             "parent")]
+    for proto, stat, field in runs:
+        (sa, oa), (sb, ob) = (engine.run_until_converged(
+            g, proto, prng.key(3), stat=stat, threshold=1)
+            for g in (cpu, gpu))
+        assert oa == ob, proto
+        assert torch.equal(getattr(sa, field), getattr(sb, field).cpu())
+    a = prng.permutation(prng.key(5), 100_000, device="cpu")
+    assert torch.equal(a, prng.permutation(prng.key(5), 100_000,
+                                           device="cuda").cpu())
+    assert models.diameter_bounds(cpu, prng.key(1), 4, "hybrid") == \
+        models.diameter_bounds(gpu, prng.key(1), 4, "hybrid")

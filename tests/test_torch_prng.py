@@ -1,6 +1,7 @@
 """The port's ``prng`` against ``jax.random`` (jax 0.9.0, threefry2x32,
 partitionable bits): keys, ``split``/``fold_in`` chains, raw bits and the
-``uniform``/``randint``/``bernoulli`` samplers must be equal bit for bit;
+``uniform``/``randint``/``bernoulli``/``permutation``/``choice`` samplers
+must be equal bit for bit;
 ``normal`` within 3 ulp and 4.8e-7 (its ``erf_inv`` is XLA's polynomial,
 but the ``log1p`` inside it is torch's, which differs from XLA's in the
 last bit for about 1% of arguments; the polynomial carries that bit into
@@ -164,3 +165,69 @@ def test_bits_past_two_to_the_32():
             for c in i]
     got = threefry.hash_counters(k0, k1, torch.from_numpy(i))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# The span LubyMIS draws its priorities over, [0, 2**31 - 1): its
+# multiplier squares 2**16 mod span to 2**32, which wraps to 0.
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("shape", [(1,), (1000,), (4096,), (33, 7)])
+def test_randint_at_the_mis_span_equal(seed, shape):
+    want = np.asarray(jax.random.randint(jkey(seed), shape, 0, 2**31 - 1))
+    got = prng.randint(prng.key(seed), shape, 0, 2**31 - 1, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got.min() >= 0
+
+
+# Sizes across the switch from one sort round to two (ceil(3 ln n /
+# ln(2**32 - 1)) is 1 up to 1625, 2 from 1626), where two equal 32-bit
+# keys among n are unlikely (p ~ n**2 / 2**33: 3e-4 at 100,000).
+@pytest.mark.parametrize("seed", SEEDS)
+@pytest.mark.parametrize("n", [1, 2, 7, 1625, 1626, 100_000])
+def test_permutation_equal(seed, n):
+    want = np.asarray(jax.random.permutation(jkey(seed), n))
+    got = prng.permutation(prng.key(seed), n, device="cpu")
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    x = np.arange(n, dtype=np.int32) * 7 - 3
+    np.testing.assert_array_equal(
+        prng.permutation(prng.key(seed), torch.from_numpy(x)).numpy(),
+        np.asarray(jax.random.permutation(jkey(seed), x)))
+
+
+def test_permutation_ties_keep_input_order(monkeypatch):
+    # XLA's sort_key_val is stable (is_stable=True by default), so equal
+    # keys keep their input order; the port's sort is stable too. Equal
+    # keys everywhere leave the input as it was.
+    monkeypatch.setattr(prng, "random_bits", lambda k, shape, device=None:
+                        torch.zeros(shape, dtype=torch.int32, device=device))
+    x = torch.arange(5000, dtype=torch.int32)
+    assert torch.equal(prng.permutation(prng.key(0), x), x)
+
+
+@pytest.mark.parametrize("replace", [True, False])
+@pytest.mark.parametrize("shape", [(), (5,), (2, 3), (40,)])
+@pytest.mark.parametrize("seed", SEEDS)
+def test_choice_equal(seed, shape, replace):
+    want = np.asarray(jax.random.choice(jkey(seed), 50, shape,
+                                        replace=replace))
+    got = prng.choice(prng.key(seed), 50, shape, replace=replace,
+                      device="cpu")
+    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    a = (np.arange(3000, dtype=np.int32) * 3 + 1)
+    want = np.asarray(jax.random.choice(jkey(seed), a, shape,
+                                        replace=replace))
+    got = prng.choice(prng.key(seed), torch.from_numpy(a), shape,
+                      replace=replace)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_choice_refusals():
+    with pytest.raises(ValueError, match="larger sample"):
+        prng.choice(prng.key(0), 3, (4,), replace=False, device="cpu")
+    with pytest.raises(ValueError, match="greater than 0"):
+        prng.choice(prng.key(0), 0, (1,), device="cpu")
+    with pytest.raises(NotImplementedError, match="weights"):
+        prng.choice(prng.key(0), 5, (2,), p=torch.ones(5), device="cpu")
+    assert prng.choice(prng.key(0), 0, (0,), device="cpu").shape == (0,)
