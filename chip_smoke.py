@@ -125,6 +125,26 @@ Phases, in order; any failure exits non-zero before the result line:
    and the final states' sha256s equal ``EXPECTED_ANALYTICS``
    (``analytics-path`` lines: wall, busy, idle share, launches, syncs).
    Phases 3c and 4e-4i run after 4d, and phase 3's C1 check after them.
+4j. Batched floods: ``bench.py``'s batched column at its width — B = 1,024
+   floods to 0.99 on ``watts_strogatz(100_000, 10, 0.1, seed=0,
+   source_csr=True)`` by ``BatchFlood`` through
+   ``run_batch_until_coverage``, by ``auto``, ``gather``, ``segment`` and
+   ``frontier``: rounds, completions, messages, the occupancy's f32 bits,
+   p50/p99 and the sha256s of ``lane_done``, ``lane_rounds``,
+   ``lane_messages`` and the ``seen`` words equal ``EXPECTED_BATCH``; no
+   kernel launches. Four lanes equal single ``Flood`` runs of the port,
+   timed as ``time_batch_flood`` times them (``batch-vs-sequential``
+   line); then every lane retired and the next 1,024 sources admitted
+   into the same batch, held to the reference's second wave
+   (``batch-path`` lines: wall, busy, idle share, launches, syncs).
+4k. Query lanes: ``bench.py``'s query column — ``MinPlusQueries`` (K = 64,
+   ``auto`` and ``segment``) and ``PushSumQueries`` (K = 32) on 4j's
+   graph, ``DhtLookups`` (K = 2,048) on ``chord(100_000)`` (``ring``) and
+   ``kademlia(100_000)`` (``xor``) through ``run_queries_until_done``:
+   equal to ``EXPECTED_QUERIES`` (min-plus answers by bits, DHT cursors,
+   push-sum's rounds, lane rounds and messages exactly, its answers within
+   ``PUSHSUM_QUERY_TOL``; ``query-path`` lines). 4j and 4k run last,
+   after the C1 check.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b and 4i; its sum entry's on the hybrid remainder over
    4e's ``hybrid`` run, 4f and 4i's ``KCore(hybrid)``, on the blocked
@@ -462,6 +482,139 @@ EXPECTED_ANALYTICS = {
                  "sha256": ("4620bd53dbc28ec64fb4ba44a8eeb20d"
                             "d1ecdfb017d5565c07befad62a571dac")}}
 KCORE_K = 10
+
+#: Phase 4j: bench.py's batched column (``time_batch_flood``, ``bench_batched``)
+#: on its 100K WS class: B = 1,024 floods to 0.99 by ``BatchFlood``, the
+#: sources its ``default_rng(0)``'s first ``integers(0, n, 1024)``; every
+#: method returns the same result. Then every lane retired and the
+#: generator's next 1,024 sources admitted into the same batch
+#: (``second_wave``). The sha256s are of ``lane_done`` (bool),
+#: ``lane_rounds`` and ``lane_messages`` (i32) and the final ``seen`` words
+#: (the reference's uint32 bytes). Regenerate on the CPU (~20 s):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine
+#:   from p2pnetwork_tpu.models.messagebatch import BatchFlood, lane_messages
+#:   h = lambda a, t: hashlib.sha256(np.asarray(a).astype(t).tobytes()).hexdigest()
+#:   g = G.watts_strogatz(100_000, 10, 0.1, seed=0, source_csr=True)
+#:   rng = np.random.default_rng(0); src = rng.integers(0, g.n_nodes, 1024)
+#:   nxt = rng.integers(0, g.n_nodes, 1024); p = BatchFlood(method="auto")
+#:   def show(st, o): print({k: o.get(k) for k in ("rounds", "completed", "active_lanes", "messages", "occupancy_mean", "completion_rounds_p50", "completion_rounds_p99")}, h(o["lane_done"], bool), h(o["lane_rounds"], np.int32), h(lane_messages(g, st), np.int32), h(st.seen, np.uint32))
+#:   st, o = engine.run_batch_until_coverage(g, p, p.init(g, src.astype(np.int32)), jax.random.key(0), max_rounds=64, donate=False); show(st, o)
+#:   st, _ = p.admit(g, p.retire(st), nxt.astype(np.int32))
+#:   show(*engine.run_batch_until_coverage(g, p, st, jax.random.key(0), max_rounds=64, donate=False))
+#:   EOF
+BATCH_N, BATCH_B, BATCH_METHODS = 100_000, 1024, ("auto", "gather", "segment",
+                                                   "frontier")
+#: Lanes run again as single floods (``time_batch_flood``'s seq_sample).
+BATCH_SAMPLE = 4
+EXPECTED_BATCH = {
+    "first": {"rounds": 10, "completed": 1024, "active_lanes": 0,
+              "messages": 906310616, "occupancy_mean": 0.7055689692497253,
+              "completion_rounds_p50": 9.0, "completion_rounds_p99": 10.0,
+              "lane_done_sha256": ("5a648d8015900d89664e00e125df1796"
+                                   "36301a2d8fa191c1aa2bd9358ea53a69"),
+              "lane_rounds_sha256": ("b5abd337d96452a6eb967f5bc479ba98"
+                                     "7767d3f3f52cdf0b95e71a85b1eda6e3"),
+              "lane_messages_sha256": ("d89281ff2b54ae00bf92ba885893f418"
+                                       "774dce4f7842781cb7d71dab92b8479e"),
+              "seen_sha256": ("3ffbc438b48cdd790218133ec57f2ce2"
+                              "62db1b265c07eaad5cbabcf64baed3ca")},
+    "second_wave": {
+        "rounds": 10, "completed": 1024, "active_lanes": 0,
+        "messages": 909216814, "occupancy_mean": 0.7048779726028442,
+        "completion_rounds_p50": 9.0, "completion_rounds_p99": 10.0,
+        "lane_done_sha256": ("5a648d8015900d89664e00e125df1796"
+                             "36301a2d8fa191c1aa2bd9358ea53a69"),
+        "lane_rounds_sha256": ("aaa09eea0a8a11f18d6ec6cc6fe8c3ae"
+                               "58835f44964bdcf35d0a8bbfe4dfaee8"),
+        "lane_messages_sha256": ("fb2382e08a052b2718abef30ff636060"
+                                 "3566b696823063fdf1c51dca3e9a6db3"),
+        "seen_sha256": ("af964452d9edd9d713d0f4649194ac6b"
+                        "c2bf51156c2874bc901c35d1a502df6d")}}
+
+#: Phase 4k: bench.py's query column (``bench_queries``,
+#: ``time_query_family``): one ``default_rng(0)`` draws 64 min-plus sources,
+#: then 64 targets; push-sum's seeds are ``arange(32) * 7 + 1``
+#: (threshold 1e-4, ``max_rounds=512``); then 2,048 DHT origins and 2,048
+#: keys, used on ``chord(100_000)`` (``ring``, as the bench) and on
+#: ``kademlia(100_000)`` (``xor``; its table is [100096, 31089]: node
+#: 65,536 is the fallback contact of 31,072 nodes' top bucket). Min-plus
+#: ``max_rounds=256`` by ``auto`` (gather) and ``segment``, DHT 128. The
+#: sha256s are of ``lane_done``, ``lane_rounds`` and ``lane_values`` (f32
+#: bits or i32). Regenerate on the CPU (~90 s, most of it kademlia's table):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine
+#:   from p2pnetwork_tpu.models.querybatch import MinPlusQueries, PushSumQueries, DhtLookups
+#:   h = lambda a, t: hashlib.sha256(np.asarray(a).astype(t).tobytes()).hexdigest()
+#:   def run(g, p, qb, r): o = engine.run_queries_until_done(g, p, qb, jax.random.key(0), max_rounds=r)[1]; print(o, h(o["lane_done"], bool), h(o["lane_rounds"], np.int32), h(o["lane_values"], o["lane_values"].dtype))
+#:   g = G.watts_strogatz(100_000, 10, 0.1, seed=0, source_csr=True); rng = np.random.default_rng(0)
+#:   s = rng.integers(0, g.n_nodes, 64).astype(np.int32); t = rng.integers(0, g.n_nodes, 64).astype(np.int32)
+#:   for m in ("auto", "segment"): p = MinPlusQueries(method=m); run(g, p, p.init(g, s, t), 256)
+#:   p = PushSumQueries(); run(g, p, p.init(g, (np.arange(32) * 7 + 1).astype(np.int32), threshold=1e-4), 512)
+#:   o = rng.integers(0, 100_000, 2048).astype(np.int32); k = rng.integers(0, 100_000, 2048).astype(np.int32)
+#:   for gd, m in ((G.chord(100_000), "ring"), (G.kademlia(100_000), "xor")): p = DhtLookups(metric=m); run(gd, p, p.init(gd, o, k), 128)
+#:   EOF
+_MINPLUS = {"rounds": 9, "completed": 64, "active_lanes": 0,
+            "messages": 40849335, "occupancy_mean": 0.7465277910232544,
+            "completion_rounds_p50": 8.0, "completion_rounds_p99": 9.0,
+            "lane_done_sha256": ("7c8975e1e60a5c8337f28edf8c33c3b1"
+                                 "80360b7279644a9bc1af3c51e6220bf5"),
+            "lane_rounds_sha256": ("c1bfa85b16ac060f11fae62c806bed33"
+                                   "8fcb4fec962d635cb39ba5d1f81cdfa7"),
+            "lane_values_sha256": ("83ab8a01e5f163294f4cb0e1dee3ac1f"
+                                   "6324c4d2127ed1ad2f18b4a4aa2ceb99")}
+_DHT_FOUND = ("7425ce1f54610563648c34393c4cc1c6"
+              "2badd9f1be3570d4a4f43d6f30326e28")
+EXPECTED_QUERIES = {
+    "minplus-auto": _MINPLUS,
+    "minplus-segment": _MINPLUS,
+    "pushsum": {
+        "rounds": 42, "completed": 32, "active_lanes": 0,
+        "messages": 1278000000, "occupancy_mean": 0.9508928656578064,
+        "completion_rounds_p50": 40.0, "completion_rounds_p99": 41.0,
+        "lane_done_sha256": ("72cd6e8422c407fb6d098690f1130b7d"
+                             "ed7ec2f7f5e1d30bd9d521f015363793"),
+        "lane_rounds": [40, 40, 40, 40, 40, 40, 41, 40, 40, 40, 39, 40, 40,
+                        40, 40, 40, 40, 40, 40, 40, 40, 40, 40, 39, 40, 40,
+                        39, 39, 40, 40, 40, 41]},
+    "dht-chord-ring": {
+        "rounds": 14, "completed": 2048, "active_lanes": 0,
+        "messages": 15909, "occupancy_mean": 0.4834333062171936,
+        "completion_rounds_p50": 8.0, "completion_rounds_p99": 12.0,
+        "lane_done_sha256": ("7c7d2eb358671b401d2a5e59bf56e716"
+                             "3e16994a170d4788faad9be5d82363b2"),
+        "lane_rounds_sha256": ("16df347a9be26e843499a9daa5dcc816"
+                               "d576fd96697071e8e34a9a99ecc96bf1"),
+        "lane_values_sha256": _DHT_FOUND, "found": 2048},
+    "dht-kademlia-xor": {
+        "rounds": 15, "completed": 2048, "active_lanes": 0,
+        "messages": 16933, "occupancy_mean": 0.4845377504825592,
+        "completion_rounds_p50": 8.0, "completion_rounds_p99": 13.0,
+        "lane_done_sha256": ("7c7d2eb358671b401d2a5e59bf56e716"
+                             "3e16994a170d4788faad9be5d82363b2"),
+        "lane_rounds_sha256": ("f008d9abf2b1f384195a23d33f06532d"
+                               "2503a8c54fee4ca4abddeb49cb27ce0e"),
+        "lane_values_sha256": _DHT_FOUND, "found": 2048}}
+#: Push-sum's answers (each lane's mean estimate, about 1e-3) against the
+#: reference's: the seed fields are within 3 ulp of jax's and the means
+#: and variances are f32 column sums in another order than XLA's GEMV
+#: (the port's CPU run differs by at most 3.6e-8). Rounds, lane rounds
+#: and messages are held exactly.
+PUSHSUM_QUERY_TOL = (1e-4, 1e-6)
+EXPECTED_PUSHSUM_VALUES = [
+    -0.0039657424204051495, -0.000852118362672627, 0.003924625460058451,
+    0.0003367922909092158, -0.0007090995786711574, 0.0012202756479382515,
+    0.00341115053743124, 0.0013134179171174765, -0.0007324972539208829,
+    0.00212390860542655, 0.0013795527629554272, -0.004416530951857567,
+    0.00039637135341763496, 0.0027708150446414948, 0.0011217595310881734,
+    -0.003395003965124488, -0.0029662884771823883, 5.3600408136844635e-05,
+    -0.005888913758099079, 0.0027591586112976074, -0.003930926788598299,
+    -0.006248841527849436, -0.0032334253191947937, -0.0005782926455140114,
+    -0.0056971777230501175, -0.0004934812313877046, -0.0010143463732674718,
+    0.0016288083279505372, -0.002188502112403512, 0.0021218545734882355,
+    0.000312176562147215, -0.002690378110855818]
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -1704,6 +1857,173 @@ def analytics_path(g, ba, engine, prng, segsum, threefry, device_mod,
     return launches
 
 
+def lane_summary(out, extra=()) -> dict:
+    """The checked part of a batched run's dict: its numbers and the
+    sha256s of its per-lane vectors (``extra`` names more of them)."""
+    got = {k: out.get(k) for k in (
+        "rounds", "completed", "active_lanes", "messages", "occupancy_mean",
+        "completion_rounds_p50", "completion_rounds_p99")}
+    for k in ("lane_done", "lane_rounds", *extra):
+        got[f"{k}_sha256"] = hashlib.sha256(
+            np.ascontiguousarray(out[k]).tobytes()).hexdigest()
+    return got
+
+
+def no_kernels(label, rec, threefry=0):
+    """Fail unless a batched run launched no B1 and ``threefry`` threefry
+    kernels: the lane planes are torch ops (no TPU kernel lowers them)."""
+    if rec["segsum_launches"] or rec["threefry_launches"] != threefry:
+        fail(f"{label} launched B1 {rec['segsum_launches']} and threefry "
+             f"{rec['threefry_launches']} times (want 0 and {threefry})")
+
+
+def batch_path(engine, segsum, threefry, device_mod, graph_mod,
+               frontier_ops, Flood, MB):
+    """Phase 4j: bench.py's batched column at its width, B = 1,024 floods
+    on the 100K WS class by each method, equal to ``EXPECTED_BATCH``; 4
+    lanes against single ``Flood`` runs of the port, timed as
+    ``time_batch_flood`` times them; then the second admit wave."""
+    t0 = time.perf_counter()
+    g = graph_mod.watts_strogatz(BATCH_N, 10, 0.1, seed=0, source_csr=True)
+    torch.cuda.synchronize()
+    print(json.dumps({"phase": "batch-graph",
+                      "build_s": time.perf_counter() - t0,
+                      "n_pad": g.n_nodes_padded, "e_pad": g.n_edges_padded,
+                      "table": list(g.neighbors.shape),
+                      "budget_slots_lanes": frontier_ops.budget_slots_lanes(
+                          g, None, BATCH_B // 32)}), flush=True)
+    rng = np.random.default_rng(0)
+    sources = rng.integers(0, g.n_nodes, size=BATCH_B).astype(np.int32)
+    second = rng.integers(0, g.n_nodes, size=BATCH_B).astype(np.int32)
+    walls = {}
+    for method in BATCH_METHODS:
+        proto = MB.BatchFlood(method=method)
+        run = lambda: engine.run_batch_until_coverage(  # noqa: E731
+            g, proto, proto.init(g, sources, coverage_target=0.99), KEY,
+            max_rounds=64)
+        frontier_ops.ROUNDS.update(sparse=0, dense=0)
+        (state, out), rec = counted(run, segsum, threefry, device_mod)
+        rec["frontier_rounds"] = dict(frontier_ops.ROUNDS)
+        out["lane_messages"] = MB.lane_messages(g, state).cpu().numpy()
+        out["seen"] = state.seen.cpu().numpy()
+        check_run(f"batch {method}", lane_summary(
+            out, ("lane_messages", "seen")), EXPECTED_BATCH["first"])
+        no_kernels(f"batch {method}", rec)
+        timed = timed_runs(run)
+        walls[method] = timed["wall_s"]
+        print(json.dumps({"phase": "batch-path", "run": method, **rec,
+                          **timed, "rounds": out["rounds"],
+                          "messages": out["messages"],
+                          "lanes": BATCH_B}), flush=True)
+        if method == "auto":
+            first = state
+
+    # Four lanes against the port's single floods from their sources,
+    # timed as time_batch_flood times its sequential sample: one untimed
+    # run, then one timed, each.
+    seq = []
+    for lane, src in enumerate(sources[:BATCH_SAMPLE]):
+        proto = Flood(source=int(src))
+        single = lambda: engine.run_until_coverage(  # noqa: E731
+            g, proto, KEY, coverage_target=0.99, max_rounds=64)
+        state, _ = single()
+        if not torch.equal(MB.lane_seen(first, lane), state.seen):
+            fail(f"batch lane {lane} (source {src}) differs from its "
+                 f"single flood")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        single()
+        torch.cuda.synchronize()
+        seq.append(time.perf_counter() - t0)
+    seq_per_run = sum(seq) / len(seq)
+    print(json.dumps({"phase": "batch-vs-sequential",
+                      "sample_sources": sources[:BATCH_SAMPLE].tolist(),
+                      "seq_per_run_s": seq_per_run,
+                      "seq_estimate_s": seq_per_run * BATCH_B,
+                      "batched_wall_s": walls["auto"],
+                      "aggregate_speedup_vs_sequential":
+                          seq_per_run * BATCH_B / walls["auto"]}),
+          flush=True)
+
+    # The serving seam: every lane retired, the next 1,024 admitted.
+    proto = MB.BatchFlood(method="auto")
+    wave, lanes = proto.admit(g, proto.retire(first), second,
+                              coverage_target=0.99)
+    if MB.free_lane_count(wave) != 0 or lanes.tolist() != list(
+            range(BATCH_B)):
+        fail("batch: the second wave did not take every lane")
+    run = lambda: engine.run_batch_until_coverage(  # noqa: E731
+        g, proto, wave, KEY, max_rounds=64)
+    (state, out), rec = counted(run, segsum, threefry, device_mod)
+    out["lane_messages"] = MB.lane_messages(g, state).cpu().numpy()
+    out["seen"] = state.seen.cpu().numpy()
+    check_run("batch second wave", lane_summary(
+        out, ("lane_messages", "seen")), EXPECTED_BATCH["second_wave"])
+    no_kernels("batch second wave", rec)
+    timed_line("batch-path", "auto-second-wave", run, rec, {
+        "rounds": out["rounds"], "messages": out["messages"],
+        "lanes": BATCH_B})
+    return g
+
+
+def query_path(g, engine, segsum, threefry, device_mod, graph_mod, QB):
+    """Phase 4k: bench.py's query column at its widths on phase 4j's
+    graph — min-plus (K = 64, ``auto`` and ``segment``), push-sum (K = 32)
+    — and DHT lookups (K = 2,048) on ``chord(100_000)`` and
+    ``kademlia(100_000)``, each equal to ``EXPECTED_QUERIES`` (push-sum's
+    answers within ``PUSHSUM_QUERY_TOL``). Each timed run admits its
+    batch, as the bench's."""
+    rng = np.random.default_rng(0)
+    srcs = rng.integers(0, g.n_nodes, 64).astype(np.int32)
+    tgts = rng.integers(0, g.n_nodes, 64).astype(np.int32)
+    seeds = (np.arange(32) * 7 + 1).astype(np.int32)
+    orgs = rng.integers(0, BATCH_N, 2048).astype(np.int32)
+    keys = rng.integers(0, BATCH_N, 2048).astype(np.int32)
+
+    def check(name, graph, proto, make, max_rounds, draws=0):
+        run = lambda: engine.run_queries_until_done(  # noqa: E731
+            graph, proto, make(), KEY, max_rounds=max_rounds)
+        (_, out), rec = counted(run, segsum, threefry, device_mod)
+        if name == "pushsum":
+            got = lane_summary(out)
+            del got["lane_rounds_sha256"]
+            got["lane_rounds"] = out["lane_rounds"].tolist()
+            rec["max_abs_err"] = assert_close(
+                "pushsum lane_values", out["lane_values"],
+                EXPECTED_PUSHSUM_VALUES, *PUSHSUM_QUERY_TOL)
+        else:
+            got = lane_summary(out, ("lane_values",))
+            if name.startswith("dht"):
+                got["found"] = int((out["lane_values"] == keys).sum())
+        check_run(f"queries {name}", got, EXPECTED_QUERIES[name])
+        no_kernels(f"queries {name}", rec, draws)
+        timed_line("query-path", name, run, rec, {
+            "rounds": out["rounds"], "messages": out["messages"],
+            "lanes": int(out["lane_done"].size)})
+
+    for method in ("auto", "segment"):
+        mp = QB.MinPlusQueries(method)
+        check(f"minplus-{method}", g, mp, lambda: mp.init(g, srcs, tgts),
+              256)
+    # The seed fields: one normal draw (a threefry launch) per lane.
+    ps = QB.PushSumQueries("auto")
+    check("pushsum", g, ps, lambda: ps.init(g, seeds, threshold=1e-4), 512,
+          draws=len(seeds))
+    for name, metric, build in (("dht-chord-ring", "ring", graph_mod.chord),
+                                ("dht-kademlia-xor", "xor",
+                                 graph_mod.kademlia)):
+        t0 = time.perf_counter()
+        gd = build(BATCH_N)
+        torch.cuda.synchronize()
+        print(json.dumps({"phase": "query-graph", "graph": name,
+                          "build_s": time.perf_counter() - t0,
+                          "table": list(gd.neighbors.shape)}), flush=True)
+        dht = QB.DhtLookups(metric=metric)
+        check(name, gd, dht, lambda: dht.init(gd, orgs, keys), 128)
+        del gd
+        torch.cuda.empty_cache()
+
+
 #: Launches each ring layout must make (> 0): kernel name -> counter.
 RING_EXPECT = {"segment": ("ring_shift",),
                "mxu": ("ring_segsum", "segsum"),
@@ -1866,7 +2186,8 @@ def main() -> int:
     from p2pnetwork_tpu_torch import _build, _device, prng
     from p2pnetwork_tpu_torch import models as models_mod
     from p2pnetwork_tpu_torch.models import (SIR, AdaptiveFlood, Flood,
-                                             Gossip, PageRank, PushSum, base)
+                                             Gossip, PageRank, PushSum, base,
+                                             messagebatch, querybatch)
     from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
     from p2pnetwork_tpu_torch.ops import ring, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
@@ -1941,6 +2262,15 @@ def main() -> int:
 
     # Phase 3's C1 check of B1 (B3's ran at the end of phase 3b).
     c1_phase(segsum)
+
+    # The phases new in slice 6, after every earlier timed row, run and
+    # check: 4j (the batched message plane), 4k (the query plane). They
+    # launch no kernel (push-sum's seed draws aside, which their own lines
+    # count), so the kernels line below is as before.
+    bg = batch_path(engine, segsum, threefry, _device, graph_mod,
+                    frontier_ops, Flood, messagebatch)
+    query_path(bg, engine, segsum, threefry, _device, graph_mod, querybatch)
+    del bg
 
     # 5. Result. Each kernel's row is its main-path use: B1's OR entry on
     # the hybrid remainder (the adaptive and hybrid floods), B2's forward

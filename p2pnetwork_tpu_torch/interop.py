@@ -1,5 +1,5 @@
-"""Carry a graph, a sharded graph, a protocol state or a PRNG key across
-from the JAX package.
+"""Carry a graph, a sharded graph, a protocol state, a batched message or
+query state, or a PRNG key across from the JAX package.
 
 The port imports nothing of ``p2pnetwork_tpu``; the caller turns the JAX
 objects into plain dicts of numpy arrays and ints (the dataclass fields by
@@ -23,6 +23,8 @@ from p2pnetwork_tpu_torch import models as M
 from p2pnetwork_tpu_torch.models import (AdaptiveFloodBitState,
                                          AdaptiveFloodState, FloodBitState,
                                          FloodState)
+from p2pnetwork_tpu_torch.models.messagebatch import MessageBatch
+from p2pnetwork_tpu_torch.models.querybatch import QueryBatch
 from p2pnetwork_tpu_torch.ops.blocked import BlockedEdges
 from p2pnetwork_tpu_torch.ops.diag import HybridEdges
 from p2pnetwork_tpu_torch.ops.skew import SkewTable
@@ -130,6 +132,30 @@ def protocol_state_from_numpy(name: str, fields: dict, device=None):
     dev = _device.resolve(device)
     return cls(**{f.name: _t(fields[f.name], dev)
                   for f in dataclasses.fields(cls)})
+
+
+def message_batch_from_numpy(fields: dict, device=None) -> MessageBatch:
+    """The port's :class:`MessageBatch` from a reference ``MessageBatch``'s
+    fields (the ``uint32`` planes arrive as ``int32`` with the same bits),
+    so a batch the reference admitted resumes in the port."""
+    _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(
+        MessageBatch)}, "MessageBatch")
+    dev = _device.resolve(device)
+    return MessageBatch(**{f.name: _t(fields[f.name], dev)
+                           for f in dataclasses.fields(MessageBatch)})
+
+
+def query_batch_from_numpy(fields: dict, device=None) -> QueryBatch:
+    """The port's :class:`QueryBatch` from a reference ``QueryBatch``'s
+    fields, ``payload`` a dict of numpy arrays (``dist``, ``cur`` or
+    ``s``/``w``)."""
+    _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(
+        QueryBatch)}, "QueryBatch")
+    dev = _device.resolve(device)
+    kw = {f.name: _t(fields[f.name], dev)
+          for f in dataclasses.fields(QueryBatch) if f.name != "payload"}
+    return QueryBatch(payload={k: _t(v, dev)
+                               for k, v in fields["payload"].items()}, **kw)
 
 
 def key_from_numpy(data) -> np.ndarray:

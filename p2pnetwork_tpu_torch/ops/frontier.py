@@ -17,7 +17,9 @@ weight read at the same edge id), so every result is bit-identical to
 the dense methods.
 
 ``ROUNDS`` counts the sparse and dense rounds taken. The lane-packed
-variant waits for the batched planes.
+variant (:func:`propagate_or_lanes_frontier`) compacts the union of every
+word's frontier once and decides sparse or dense for the whole batch with
+one host read.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from p2pnetwork_tpu_torch import _device
+from p2pnetwork_tpu_torch.ops import bitset as BS
 from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
@@ -72,6 +75,15 @@ def budget_slots(graph: Graph, crossover=None) -> int:
     sparse is disabled)."""
     k = budget(graph, crossover)
     return k * max(graph.max_out_span, 1) if k else 0
+
+
+def budget_slots_lanes(graph: Graph, crossover=None, n_words: int = 1) -> int:
+    """The reference's slot bound of one lane-packed sparse round: the
+    ``k * span`` gathered slots, times 32 bit-plane lanes, times the
+    words. (The port scatters no bit planes — see
+    :func:`propagate_or_lanes_frontier` — but keeps the reference's
+    number.)"""
+    return budget_slots(graph, crossover) * BS.WORD * max(n_words, 1)
 
 
 def occupancy(graph: Graph, frontier: torch.Tensor) -> torch.Tensor:
@@ -146,6 +158,32 @@ def propagate_or_frontier(graph: Graph, signal: torch.Tensor, dense_fn,
     cand = torch.where(evalid, graph.receivers[eid], n_pad).reshape(-1)
     out = set_true(torch.zeros_like(signal), cand)
     return out & graph.node_mask
+
+
+def propagate_or_lanes_frontier(graph: Graph, lanes: torch.Tensor,
+                                dense_fn, crossover=None) -> torch.Tensor:
+    """Frontier-compacted lane-packed neighbor-OR (``lanes`` ``i32[W,
+    N_pad]``, ``ops/bitset.py`` lane algebra): a node is in the batch
+    frontier if any lane of any word holds it; that union is compacted
+    once, read once on the host to pick sparse or dense for the whole
+    batch (``dense_fn(lanes)``), and its out-edge rows serve every word.
+    The gathered words go to their receivers through
+    ``bitset.or_scatter_lanes``: sorted once by receiver, OR-scanned
+    within each receiver's run (no run is longer than the widest
+    in-degree), read at each run's end — so the slots that are not live
+    edges, sent to the drop index ``n_pad``, cost no atomics on one
+    address."""
+    active = (lanes != 0).any(dim=0)
+    sparse = _sparse_budget(graph, active, crossover)
+    if sparse is None:
+        return dense_fn(lanes)
+    n_pad = graph.n_nodes_padded
+    f, eid, evalid = _gather_active(graph, active, sparse[1], sparse[0])
+    cand = torch.where(evalid, graph.receivers[eid], n_pad).reshape(-1)
+    vals = torch.where(evalid, lanes[:, f][:, :, None], 0).reshape(
+        lanes.shape[0], -1)
+    out = BS.or_scatter_lanes(n_pad, cand, vals, span=graph.max_in_span)
+    return torch.where(graph.node_mask, out, 0)
 
 
 def _scatter_terms(graph: Graph, eid, evalid, terms, dtype,

@@ -7,6 +7,9 @@
 - ``propagate_min_plus`` — per-receiver ``min(dist[u] + w(u, v))`` over
   ``Graph.edge_weight`` (1 a hop without weights): one Bellman-Ford
   round;
+- ``propagate_or_lanes`` — the lane-packed OR of ``32 W`` messages at
+  once (``ops/bitset.py`` lane algebra; ``gather``, ``segment``,
+  ``frontier`` and ``auto``);
 - ``frontier_messages`` — the point-to-point sends a frontier makes.
 
 Methods, as in the reference:
@@ -43,6 +46,7 @@ import dataclasses
 
 import torch
 
+from p2pnetwork_tpu_torch.ops import bitset as BS
 from p2pnetwork_tpu_torch.ops import blocked as B
 from p2pnetwork_tpu_torch.ops import diag as D
 from p2pnetwork_tpu_torch.ops import extremum as X
@@ -159,6 +163,70 @@ def propagate_or(graph: Graph, signal: torch.Tensor, method: str = "auto",
                       device=signal.device)
     agg.index_add_(0, graph.receivers, contrib)
     return (agg > 0) & graph.node_mask
+
+
+def _dynamic_or_lanes(graph: Graph, lanes: torch.Tensor) -> torch.Tensor:
+    """Lane-packed OR over the dynamic edge region (unsorted slots), every
+    word at once."""
+    contrib = torch.where(graph.dyn_mask, lanes[:, graph.dyn_senders], 0)
+    out = BS.or_scatter_lanes(graph.n_nodes_padded, graph.dyn_receivers,
+                              contrib)
+    return torch.where(graph.node_mask, out, 0)
+
+
+def propagate_or_lanes(graph: Graph, lanes: torch.Tensor,
+                       method: str = "auto", *,
+                       frontier_crossover=None) -> torch.Tensor:
+    """Lane-packed neighbor-OR: ``lanes`` is ``i32[W, N_pad]`` (bit ``L``
+    of word ``w`` at node ``v`` is message ``32 w + L``'s signal) and
+    ``out[w, v] = OR(lanes[w, u], u -> v)``, word-level, every word in one
+    pass. Methods, as the reference's:
+
+    - ``gather``: the neighbor table's columns gathered for every word and
+      OR-ed together column by column (torch has no OR reduction; 16
+      columns at the batched bench's width);
+    - ``segment``: any graph. The reference expands each edge's word into
+      ``[E_pad, 32]`` u8 bit planes for a segment max (1 GB for 32 words on
+      the 100K-node graph); the port never expands: the receiver-sorted
+      edge words are OR-scanned within each receiver's run and the run's
+      last slot read (``ops/bitset.py`` ``or_sorted_lanes``, ``log2`` of the
+      widest run doubling passes over ``[W, E_pad]``);
+    - ``frontier``: one union compaction for all words, one host read
+      (``ops/frontier.py`` ``propagate_or_lanes_frontier``), dense
+      fallback ``auto``;
+    - ``auto``: ``gather`` under the waste bound, else ``segment`` (the
+      skew and one-hot lowerings have no word-level form).
+
+    The dynamic region is folded in for every method."""
+    if graph.dyn_senders is not None:
+        return (propagate_or_lanes(_static(graph), lanes, method,
+                                   frontier_crossover=frontier_crossover)
+                | _dynamic_or_lanes(graph, lanes))
+    if method == "frontier":
+        return FR.propagate_or_lanes_frontier(
+            graph, lanes, lambda ln: propagate_or_lanes(graph, ln, "auto"),
+            crossover=frontier_crossover)
+    if method == "auto":
+        method = "gather" if _gather_ok(graph) else "segment"
+    if method == "gather":
+        _require_complete_table(graph)
+        out = torch.zeros_like(lanes)
+        for d in range(graph.neighbors.shape[1]):
+            out |= torch.where(graph.neighbor_mask[:, d],
+                               lanes[:, graph.neighbors[:, d]], 0)
+    elif method == "segment":
+        contrib = torch.where(graph.edge_mask, lanes[:, graph.senders], 0)
+        # The widest receiver run: a live node's in-degree, plus the
+        # padding slots that all name the last padded node.
+        span = graph.max_in_span + graph.n_edges_padded - graph.n_edges
+        out = BS.or_sorted_lanes(graph.n_nodes_padded, graph.receivers,
+                                 contrib, span)
+    else:
+        raise ValueError(
+            f"propagate_or_lanes supports method 'segment', 'gather', "
+            f"'frontier' or 'auto', got {method!r} (the skew/MXU lowerings "
+            f"have no word-level form)")
+    return torch.where(graph.node_mask, out, 0)
 
 
 def propagate_sum(graph: Graph, signal: torch.Tensor,

@@ -21,16 +21,27 @@ running occupancy sum are f32, the stop test compares in f32, the
 occupancy mean is the f32 sum divided by the round count. Messages
 accumulate exactly in int64 (the reference's two-limb counter holds the
 same range).
+
+The batched planes (``run_batch_until_coverage`` for ``BatchFlood``,
+``run_queries_until_done`` for the query families) read one exit flag a
+round (any lane still running) and hand the whole per-lane summary back in
+one device->host transfer (``utils/accum.py``), both counted in
+``_device.SYNCS``. The reference's telemetry, spans and dispatch gate
+around them are not ported.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import _device, prng
+from p2pnetwork_tpu_torch.ops import bitset
+from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.utils import accum
 
 
 def _require_stats(protocol, required) -> None:
@@ -184,3 +195,126 @@ def run_until_converged(graph: Graph, protocol, key, *, stat: str,
         keep_going=lambda v, r: (v >= thr) & (r < max_rounds),
         value0=float("inf"), steps_per_round=steps_per_round)
     return state, out
+
+
+# ------------------------------------------------------------ batched planes
+
+
+def _lane_loop(graph: Graph, protocol, batch, key, max_rounds: int,
+               messages_of, add_occupancy):
+    """Step every running lane until none runs or ``max_rounds`` global
+    rounds pass: one host read of the exit flag a round, the reference's
+    key chain (``k, sub = split(k)`` before each step). Returns the batch,
+    the rounds (i32), the exact messages (i64) and the occupancy sum
+    (f32), all on the device."""
+    dev = graph.device
+    messages = torch.zeros((), dtype=torch.int64, device=dev)
+    occ = torch.zeros((), dtype=torch.float32, device=dev)
+    r = 0
+    while r < max_rounds and _device.host_bool(
+            (batch.admitted & ~batch.done).any()):
+        key, sub = prng.split(key)
+        batch, stats = protocol.step(graph, batch, sub)
+        messages = messages + messages_of(stats)
+        occ = add_occupancy(occ, batch, stats)
+        r += 1
+    return batch, torch.tensor(r, dtype=torch.int32, device=dev), \
+        messages, occ
+
+
+def _summary(packed: torch.Tensor, done0: torch.Tensor):
+    """The packed summary and the pre-run ``done`` words in one transfer
+    (one sync); returns both on the host."""
+    _device.SYNCS += 1
+    host = torch.cat([packed, bitset.pack_bits(done0)]).cpu().numpy()
+    n = packed.shape[0]
+    bits = (host[n:].view(np.uint32)[:, None]
+            >> np.arange(bitset.WORD, dtype=np.uint32)) & 1
+    return host[:n], bits.reshape(-1).astype(bool)[:done0.shape[0]]
+
+
+def _newly_completed(out: dict, done0: np.ndarray) -> None:
+    """``newly_completed_lanes`` and, when any, the completion-round
+    percentiles over them (numpy's, as the reference computes them)."""
+    newly = out["lane_done"] & ~done0
+    out["newly_completed_lanes"] = np.flatnonzero(newly).astype(np.int32)
+    newly_rounds = out["lane_rounds"][newly]
+    if newly_rounds.size:
+        out["completion_rounds_p50"] = float(np.percentile(newly_rounds, 50))
+        out["completion_rounds_p99"] = float(np.percentile(newly_rounds, 99))
+
+
+def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
+                             max_rounds: int = 1024, donate: bool = True,
+                             recorder=None):
+    """Advance every in-flight message of a lane-packed batch
+    (``models/messagebatch.py``) until each admitted lane reaches its
+    coverage target, or ``max_rounds`` global rounds pass. The batch is
+    refreshed against the current graph first (``BatchFlood.refresh``).
+
+    Returns ``(batch, out)``: ``rounds`` (global rounds of this call),
+    ``messages`` (exact), ``active_lanes``, ``completed``,
+    ``occupancy_mean`` (mean union-frontier occupancy), the per-lane
+    ``lane_done`` and ``lane_rounds`` (cumulative over calls),
+    ``newly_completed_lanes`` and, when any lane completed in this call,
+    ``completion_rounds_p50``/``p99`` over those lanes — the reference's
+    dict. ``donate`` is accepted and has no effect: ``batch`` is not
+    modified (torch has no buffer donation; see :func:`run_from`). The
+    flight recorder (``recorder=``) is not ported."""
+    if recorder is not None:
+        raise NotImplementedError("the flight recorder is not ported yet")
+    done0 = batch.done.clone()
+    batch = protocol.refresh(graph, batch)
+    batch, rounds, messages, occ = _lane_loop(
+        graph, protocol, batch, key, max_rounds,
+        lambda st: st["messages_words"].sum(),
+        lambda occ, b, st: occ + st["batch_occupancy"])
+    packed = accum.pack_batch_summary(
+        rounds, (batch.admitted & ~batch.done).sum(), batch.done.sum(),
+        messages, occ / rounds.clamp_min(1).to(torch.float32),
+        bitset.pack_bits(batch.done), batch.rounds)
+    host, done0 = _summary(packed, done0)
+    out = accum.unpack_batch_summary(host, batch.n_words)
+    _newly_completed(out, done0)
+    return batch, out
+
+
+def run_queries_until_done(graph: Graph, protocol, batch, key, *,
+                           max_rounds: int = 1024, donate: bool = True,
+                           recorder=None):
+    """Advance every in-flight query of a lane-packed ``QueryBatch``
+    (``models/querybatch.py``: ``MinPlusQueries``, ``DhtLookups``,
+    ``PushSumQueries``) until each admitted lane settles, or
+    ``max_rounds`` global rounds pass. ``occupancy_mean`` is the mean
+    running-lane fraction; ``lane_values`` carries each lane's answer (f32
+    or i32 per family); the rest as :func:`run_batch_until_coverage`,
+    whose ``donate`` and ``recorder`` rules hold here too."""
+    if recorder is not None:
+        raise NotImplementedError("the flight recorder is not ported yet")
+    done0 = batch.done.clone()
+    batch = protocol.refresh(graph, batch)
+    capacity = batch.capacity
+
+    # Running lanes over capacity, summed. The reference divides by the
+    # constant capacity, which XLA compiles into a product with its f32
+    # reciprocal, fused with the sum's add: one rounding, as fma_f32's.
+    inv_capacity = float(np.float32(1) / np.float32(capacity))
+
+    def occupancy(occ, b, stats):
+        running = (b.admitted & ~b.done).sum(dtype=torch.int32)
+        return TF.fma_f32(running.to(torch.float32), inv_capacity, occ)
+
+    batch, rounds, messages, occ = _lane_loop(
+        graph, protocol, batch, key, max_rounds,
+        lambda st: st["messages"], occupancy)
+    packed = accum.pack_query_summary(
+        rounds, (batch.admitted & ~batch.done).sum(), batch.done.sum(),
+        messages, occ / rounds.clamp_min(1).to(torch.float32),
+        bitset.pack_bits(batch.done), batch.rounds,
+        protocol.lane_values(graph, batch),
+        values_float=protocol.VALUES_FLOAT)
+    host, done0 = _summary(packed, done0)
+    out = accum.unpack_query_summary(host, capacity,
+                                     values_float=protocol.VALUES_FLOAT)
+    _newly_completed(out, done0)
+    return batch, out

@@ -14,9 +14,11 @@ source-CSR out-edge view, the blocked / diagonal+remainder layouts, the
 two-level skew table (``ops/skew.py``), the dynamic edge region of
 runtime links (``sim/topology.py``) and per-edge weights with their
 aligned views (``edge_weight``, ``neighbor_weight``, the skew table's
-``weight``). Node reordering and the incremental builds (``apply_delta``,
-``grow``) are not (``interop`` refuses a reference graph that carries a
-relabeling).
+``weight``), and the generators: Erdős–Rényi, Barabási–Albert,
+Watts–Strogatz and the structured overlays (``ring``, ``chord``,
+``kademlia``, ``complete``; ``build`` from a topology description). Node
+reordering and the incremental builds (``apply_delta``, ``grow``) are not
+(``interop`` refuses a reference graph that carries a relabeling).
 """
 
 from __future__ import annotations
@@ -53,7 +55,9 @@ def _padded_row_fill(starts: np.ndarray, counts: np.ndarray, width: int):
     starts = starts.astype(dtype, copy=False)
     counts = counts.astype(dtype, copy=False)
     valid = slot[None, :] < counts[:, None]
-    take = np.where(valid, starts[:, None] + slot[None, :], dtype(0))
+    # In place: a kademlia hub row makes these [n_pad, 31k] at 100K nodes.
+    take = starts[:, None] + slot[None, :]
+    take[~valid] = 0
     return take, valid
 
 
@@ -258,12 +262,14 @@ def _neighbor_table(senders, receivers, e, n_pad, width, weights=None):
         resort = np.lexsort((edge_idx[kept], cap_edge[kept]))
         take[capped] = edge_idx[kept][resort].reshape(capped.size, width)
     pool = senders if e else np.zeros(1, dtype=np.int32)
-    take_safe = np.minimum(take, max(e - 1, 0))
+    take_safe = np.minimum(take, max(e - 1, 0), out=take)
     nw = None
     if weights is not None:
         wpool = weights if e else np.zeros(1, dtype=np.float32)
         nw = np.where(valid, wpool[take_safe], 0.0).astype(np.float32)
-    return np.where(valid, pool[take_safe], 0).astype(np.int32), valid, nw
+    table = pool[take_safe].astype(np.int32, copy=False)
+    table[~valid] = 0
+    return table, valid, nw
 
 
 def from_edges(
@@ -470,3 +476,87 @@ def watts_strogatz(n: int, k: int, p: float, seed: int = 0, **kw) -> Graph:
         dsts.append(dst)
     lo, hi = _dedup_undirected(np.concatenate(srcs), np.concatenate(dsts), n)
     return from_edges(*_undirect(lo, hi), n, **kw)
+
+
+def ring(n: int, **kw) -> Graph:
+    """Simple bidirectional ring."""
+    base = np.arange(n, dtype=np.int32)
+    return from_edges(*_undirect(base, (base + 1) % n), n, **kw)
+
+
+def chord(n: int, **kw) -> Graph:
+    """Chord-style structured overlay: the identifier ring plus a finger
+    to ``(v + 2^i) mod n`` for every ``2^i < n`` (O(log n) degree and
+    diameter; the greedy ``ring``-metric lookups of
+    ``models/querybatch.py`` chase these fingers). Undirected."""
+    if n < 2:
+        raise ValueError("chord requires n >= 2 (no fingers exist below that)")
+    base = np.arange(n, dtype=np.int64)
+    srcs, dsts = [], []
+    i = 0
+    while (1 << i) < n:
+        srcs.append(base)
+        dsts.append((base + (1 << i)) % n)
+        i += 1
+    lo, hi = _dedup_undirected(np.concatenate(srcs), np.concatenate(dsts), n)
+    return from_edges(*_undirect(lo, hi), n, **kw)
+
+
+def kademlia(n: int, k: int = 1, **kw) -> Graph:
+    """Kademlia-style structured overlay: for every node ``v`` and XOR
+    bucket ``[2^i, 2^(i+1))`` with ``2^i < n``, edges to the ``k`` closest
+    ids ``v ^ (2^i + j)``; where such an id does not exist (``n`` not a
+    power of two) the edge falls back to the bucket's ``j``-th lowest id,
+    kept when it exists. At ``k = 1`` on a power of two this is the
+    hypercube. Undirected, deterministic."""
+    if n < 2:
+        raise ValueError("kademlia requires n >= 2 (no buckets below that)")
+    if k < 1:
+        raise ValueError("k must be >= 1")
+    v = np.arange(n, dtype=np.int64)
+    srcs, dsts = [], []
+    i = 0
+    while (1 << i) < n:
+        width = 1 << i
+        bucket_base = ((v >> i) ^ 1) << i
+        v_low = v & (width - 1)
+        for j in range(min(k, width)):
+            ideal = bucket_base + (v_low ^ j)
+            cand = np.where(ideal < n, ideal, bucket_base + j)
+            keep = cand < n
+            srcs.append(v[keep])
+            dsts.append(cand[keep])
+        i += 1
+    lo, hi = _dedup_undirected(np.concatenate(srcs), np.concatenate(dsts), n)
+    return from_edges(*_undirect(lo, hi), n, **kw)
+
+
+def complete(n: int, **kw) -> Graph:
+    """Complete graph (every ordered pair) — small ``n`` only."""
+    src, dst = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    keep = src != dst
+    return from_edges(src[keep].astype(np.int32), dst[keep].astype(np.int32),
+                      n, **kw)
+
+
+def build(topology, device=None) -> Graph:
+    """A graph from a topology description: any object with the
+    reference's ``TopologyConfig`` fields (``kind``, ``n_nodes``, ``p``,
+    ``k``, ``seed``)."""
+    kind, n = topology.kind, topology.n_nodes
+    if kind == "erdos_renyi":
+        return erdos_renyi(n, topology.p, topology.seed, device=device)
+    if kind == "barabasi_albert":
+        return barabasi_albert(n, topology.k, topology.seed, device=device)
+    if kind == "watts_strogatz":
+        return watts_strogatz(n, topology.k, topology.p, topology.seed,
+                              device=device)
+    if kind == "ring":
+        return ring(n, device=device)
+    if kind == "chord":
+        return chord(n, device=device)
+    if kind == "kademlia":
+        return kademlia(n, topology.k, device=device)
+    if kind == "complete":
+        return complete(n, device=device)
+    raise ValueError(f"unknown topology kind: {kind!r}")

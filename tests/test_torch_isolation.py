@@ -48,7 +48,8 @@ def test_the_walk_sees_the_whole_port():
             "mesh.py", "auto.py", "prng.py", "threefry.py", "sir.py",
             "gossip.py", "pushsum.py", "pagerank.py", "extremum.py",
             "hopdist.py", "leader.py", "components.py", "spanning.py",
-            "mis.py", "coloring.py", "kcore.py", "routing.py"} <= names
+            "mis.py", "coloring.py", "kcore.py", "routing.py",
+            "messagebatch.py", "querybatch.py", "lanes.py", "accum.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
@@ -57,6 +58,10 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.models.adaptive_flood, "
             "p2pnetwork_tpu_torch.parallel.sharded, "
             "p2pnetwork_tpu_torch.models, "
+            "p2pnetwork_tpu_torch.models.messagebatch, "
+            "p2pnetwork_tpu_torch.models.querybatch, "
+            "p2pnetwork_tpu_torch.ops.lanes, "
+            "p2pnetwork_tpu_torch.utils.accum, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'p2pnetwork_tpu')]; "
@@ -81,10 +86,15 @@ def test_import_leaves_jax_unloaded():
     lambda: TG.from_edges([0], [1], 2, weights=[1.0]),
     lambda: interop.protocol_state_from_numpy(
         "KCoreState", {"in_core": np.ones(4, bool)}),
+    lambda: TG.chord(16),
+    lambda: TG.kademlia(16, 2),
+    lambda: interop.message_batch_from_numpy({}),
+    lambda: interop.query_batch_from_numpy({}),
 ], ids=["default-device", "explicit-cuda", "interop", "resolve",
         "ring-mesh", "prng-uniform", "prng-bits", "interop-state",
         "prng-permutation", "prng-choice", "weighted-build",
-        "interop-kcore-state"])
+        "interop-kcore-state", "chord", "kademlia", "interop-batch",
+        "interop-query-batch"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")
