@@ -143,14 +143,43 @@ Phases, in order; any failure exits non-zero before the result line:
    ``kademlia(100_000)`` (``xor``) through ``run_queries_until_done``:
    equal to ``EXPECTED_QUERIES`` (min-plus answers by bits, DHT cursors,
    push-sum's rounds, lane rounds and messages exactly, its answers within
-   ``PUSHSUM_QUERY_TOL``; ``query-path`` lines). 4j and 4k run last,
-   after the C1 check.
+   ``PUSHSUM_QUERY_TOL``; ``query-path`` lines). 4j and 4k run after
+   the C1 check.
+4l. Discovery: the ladder's rung (``RandomWalks(n_walkers=4096)`` to 0.99
+   of phase 4's graph, ``max_rounds=8192``) at 1 and 32 steps per
+   super-step, then with ``restart_p=0.02``: rounds, messages, the
+   coverage's f32 bits and the sha256s of ``visited`` and ``pos`` equal
+   ``EXPECTED_WALK``; only the restart launches threefry
+   (``discovery-path`` lines).
+4m. Plumtree: the ladder's rung on phase 4h's weighted WS rung — the
+   first broadcast (every stat and the eager set's sha256 exact),
+   ``tree_graph(source_csr=True)`` (host seconds printed) and a flood over
+   it to coverage 1.0, then a second broadcast over the tree, each equal
+   to ``EXPECTED_PLUMTREE``; no kernel (``plumtree-path`` lines).
+4n. The protocol library on phase 4's graph: ``Bracha(f=1, byzantine=(1,
+   2))`` under ``hybrid`` and ``pallas`` (B1's sum, 2 + 4 a round), HITS
+   (``hybrid``, to ``HITS_THRESHOLD``), closeness (B1's OR) and
+   betweenness (B1's sum) over 8 sources, ``LabelPropagation`` and
+   ``BipartiteCheck`` (``gather``), ``count_triangles`` and
+   ``transitivity_sample(65536)`` (threefry), Borůvka and ``Vivaldi(dim=2)``
+   (30 rounds, threefry) on the symmetric latency, ``FailureDetector`` and
+   ``AntiEntropy(n_items=64)`` (threefry) on phase 4c's failed nodes:
+   counts and sha256s equal ``EXPECTED_LIBRARY``, floats within
+   ``EXPECTED_LIBRARY_FLOATS``' tolerances (``library-path`` lines).
+   4l-4n run after 4i, on the same graph.
+4o. Reordered builds: ``reorder="rcm"`` and ``"degree"`` on 4j's 100K WS
+   class: every field's sha256 equals the reference's
+   (``EXPECTED_REORDER``), and ``Flood(hybrid)`` over each, mapped back by
+   ``to_original_order``, equals the plain build's run (B1's OR;
+   ``reorder-path`` lines). 4o runs last.
+   The phases of slice 7 time 3 repeats, not 5.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
-   phases 4, 4c, 4b and 4i; its sum entry's on the hybrid remainder over
-   4e's ``hybrid`` run, 4f and 4i's ``KCore(hybrid)``, on the blocked
-   layout over 4e's ``pallas`` run and ``KCore(pallas)``; threefry's
-   over 4e-4g and 4i), then the last line ``{"ok": true, "device":
-   {...}}``.
+   phases 4, 4c, 4b, 4i, 4n's closeness and 4o; its sum entry's on the
+   hybrid remainder over 4e's ``hybrid`` run, 4f, 4i's ``KCore(hybrid)``
+   and 4n's Bracha, HITS and betweenness, on the blocked layout over 4e's
+   ``pallas`` run, ``KCore(pallas)`` and 4n's ``Bracha(pallas)``;
+   threefry's over 4e-4g, 4i, 4l's restart run and 4n), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
 """
@@ -615,6 +644,224 @@ EXPECTED_PUSHSUM_VALUES = [
     -0.0056971777230501175, -0.0004934812313877046, -0.0010143463732674718,
     0.0016288083279505372, -0.002188502112403512, 0.0021218545734882355,
     0.000312176562147215, -0.002690378110855818]
+
+#: Phase 4l: the ladder's discovery rung (``benchmarks/ladder.py``
+#: ``bench_discovery``): ``RandomWalks(n_walkers=4096)`` to 0.99 of the 1M
+#: WS graph, ``key(0)``, ``max_rounds=8192``; then ``restart_p=0.02``. The
+#: ladder builds the graph without a neighbor table, which the walk never
+#: reads: phase 4's graph gives the same numbers. ``coverage_bits`` is the
+#: f32 coverage's bit pattern; the sha256s are of the final ``visited``
+#: (bool) and ``pos`` (i32). Regenerate (~15 s):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine as E
+#:   from p2pnetwork_tpu.models import RandomWalks
+#:   h = lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()
+#:   g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0, build_neighbor_table=False, source_csr=True)
+#:   for rp in (0.0, 0.02):
+#:       s, o = E.run_until_coverage(g, RandomWalks(n_walkers=4096, restart_p=rp), jax.random.key(0), coverage_target=0.99, max_rounds=8192)
+#:       print(o, int(np.float32(o["coverage"]).view(np.int32)), h(s.visited), h(s.pos))
+#:   EOF
+WALKERS = 4096
+EXPECTED_WALK = {
+    "plain": {"rounds": 1721, "coverage": 0.9900140166282654,
+              "messages": 7049216, "coverage_bits": 1065185679,
+              "visited_sha256": ("6975a1e9fe6e789e7550a5fe6f393757"
+                                 "0739a5e000751ef49f5c750ee53eb67a"),
+              "pos_sha256": ("49acb773e88a8c5b1f3cd0ec7d71fcf8"
+                             "32b222de3e0862ea6b296ad6dc369a99")},
+    "restart": {"rounds": 2046, "coverage": 0.990011990070343,
+                "messages": 8375530, "coverage_bits": 1065185645,
+                "visited_sha256": ("558dd7c70b7508e1339c672aaab6b567"
+                                   "983dce19b67d9093fb2a18abb2f86dd2"),
+                "pos_sha256": ("af57cb37b01620920f7dce72e92dd778"
+                               "ef0736cecf291cead390884e7b5e3bd4")}}
+
+#: Phase 4m: the ladder's Plumtree rung (``bench_plumtree``) on phase 4h's
+#: 1M WS rung (no neighbor table; its latency weights ride into the
+#: tree): the first broadcast (a flood that prunes the eager set to a
+#: tree), ``tree_graph(source_csr=True)`` and a flood over it to coverage
+#: 1.0, then a second broadcast over the tree. ``coverage`` is by its f32
+#: bits, ``eager_sha256`` of the eager set (bool). Regenerate (~10 s):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine as E
+#:   from p2pnetwork_tpu.models import Flood, Plumtree
+#:   def lat(s, r): return 1.0 + ((s.astype(np.uint32) * np.uint32(2654435761) + r.astype(np.uint32)) % 2048).astype(np.float32) / 1024.0
+#:   k, g = jax.random.key(0), G.watts_strogatz(1_000_000, 10, 0.1, seed=0, build_neighbor_table=False).with_weights(lat)
+#:   p = Plumtree(source=0); st = p.init(g, k)
+#:   for i in range(2):
+#:       st, so = jax.jit(p.step)(g, st, k)
+#:       print({n: int(v) if n != "coverage" else int(np.float32(v).view(np.int32)) for n, v in so.items()}, hashlib.sha256(np.asarray(st.eager).tobytes()).hexdigest())
+#:       if i == 0:
+#:           tg = p.tree_graph(g, st, source_csr=True); print(tg.n_edges, E.run_until_coverage(tg, Flood(source=0), k, coverage_target=1.0, max_rounds=256)[1])
+#:   EOF
+_EAGER_TREE = ("a85e077238ebcdc1cbfb841447855863"
+               "237ff1224efc4bfe408721b84374fbd1")
+EXPECTED_PLUMTREE = {
+    "first": {"messages": 9999994, "ihave": 0, "duplicates": 8999994,
+              "grafts": 0, "eager_edges": 999999, "coverage": 1065353216,
+              "eager_sha256": _EAGER_TREE},
+    "tree_edges": 999999,
+    "tree_flood": {"rounds": 12, "coverage": 1.0, "messages": 999999,
+                   "frontier_occupancy_mean": 0.08333325386047363},
+    "second": {"messages": 999999, "ihave": 8999995, "duplicates": 0,
+               "grafts": 0, "eager_edges": 999999, "coverage": 1065353216,
+               "eager_sha256": _EAGER_TREE}}
+
+#: Phase 4n: the protocol library on phase 4's graph, by the JAX package
+#: on the CPU with ``method="segment"`` where a protocol takes one (the
+#: port runs ``hybrid``/``pallas``: Bracha's and the centralities' counts
+#: are integers or the same f32 terms, HITS's and betweenness's sums move
+#: by rounding, hence the tolerances below). Bracha with ``byzantine=(1,
+#: 2)`` does not quiesce on this graph: the two Byzantine nodes' READYs
+#: reach ``f + 1 = 2`` at their common neighbors, and the amplification
+#: creeps along the ring lattice ~14 nodes a round, so the run is held at
+#: its 256-round cap (``value`` is the last round's ``changed``). HITS
+#: stops at a residual threshold midway, in log scale, between the
+#: reference's residuals after rounds 30 and 31. The centralities sample
+#: sources ``125_000 i + 1``; their checks read the sum, the max and 16
+#: nodes ``62_500 j + 7``. Borůvka and Vivaldi run on the routing rung's
+#: latency made symmetric (the cost of the sorted endpoint pair:
+#: Borůvka's minimality needs ``w(u, v) = w(v, u)``); Vivaldi's check is
+#: the median relative error of its predicted latency over the first
+#: 65,536 live edges after 30 rounds. The detector and anti-entropy follow
+#: ``examples/membership_demo.py`` (keys 1 and 2, ``max_rounds=4096``)
+#: with phase 4c's nodes 5,000-14,999 unresponsive or failed.
+#: Regenerate (~2 min):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, jax, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, engine as E, failures as F
+#:   from p2pnetwork_tpu import models as M
+#:   from p2pnetwork_tpu.models import centrality as C, triangles as TR
+#:   k, h = jax.random.key(0), lambda a: hashlib.sha256(np.asarray(a).tobytes()).hexdigest()
+#:   def lat(s, r): return 1.0 + ((s.astype(np.uint32) * np.uint32(2654435761) + r.astype(np.uint32)) % 2048).astype(np.float32) / 1024.0
+#:   sym = lambda s, r: lat(np.minimum(s, r), np.maximum(s, r))
+#:   conv = lambda g, p, stat, thr=1, mr=256, key=k: E.run_until_converged(g, p, key, stat=stat, threshold=thr, max_rounds=mr)
+#:   g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0, source_csr=True)
+#:   s, o = conv(g, M.Bracha(f=1, byzantine=(1, 2), method="segment"), "changed"); print(o, h(s.value), h(s.echo_sent), h(s.ready_sent))
+#:   r = np.asarray(E.run(g, M.HITS(method="segment"), k, 31)[1]["residual"], np.float64); thr = float(np.sqrt(r[29] * r[30]))
+#:   s, o = conv(g, M.HITS(method="segment"), "residual", thr); ids = np.arange(16) * 62_500 + 7
+#:   print(thr, o, np.asarray(s.hub, np.float64).sum(), np.asarray(s.hub).max(), np.asarray(s.hub)[ids].tolist(), np.asarray(s.authority, np.float64).sum(), np.asarray(s.authority)[ids].tolist())
+#:   srcs = np.arange(8, dtype=np.int32) * 125_000 + 1
+#:   for x in (C.closeness_sample(g, srcs, "segment"), C.betweenness_sample(g, srcs, "segment")):
+#:       x = np.asarray(x); print(x.astype(np.float64).sum(), x.max(), x[ids].tolist())
+#:   s, o = conv(g, M.LabelPropagation(), "unsettled", mr=1024); print(o, h(s.label))
+#:   p = M.BipartiteCheck(method="gather"); s, o = conv(g, p, "changed"); print(o, h(s.label), h(s.dist), int(p.odd_edges(g, s)), h(p.component_bipartite(g, s)))
+#:   print(TR.count_triangles(g), TR.transitivity_sample(g, k, 65536))
+#:   gw = g.with_weights(sym); s, o = conv(gw, M.Boruvka(), "changed", mr=64); print(o, h(s.comp), h(s.mst_edge), float(s.mst_weight))
+#:   p = M.Vivaldi(dim=2); s, st = E.run(gw, p, k, 30); em = np.asarray(g.edge_mask)
+#:   a, b, w = (np.asarray(x)[em][:65536] for x in (g.senders, g.receivers, gw.edge_weight))
+#:   print(np.asarray(st["messages"]).tolist(), float(np.median(np.abs(np.asarray(p.predicted(s, a, b)) - w) / w)))
+#:   dead = np.arange(5_000, 15_000)
+#:   s, o = conv(F.mark_unresponsive(g, dead), M.FailureDetector(threshold=3, loss_prob=0.05), "undetected", mr=4096, key=jax.random.key(1)); print(o, h(s.declared), h(s.suspicion))
+#:   s, o = conv(F.fail_nodes(g, dead), M.AntiEntropy(n_items=64), "missing", mr=4096, key=jax.random.key(2)); print(o, h(s.have))
+#:   EOF
+LIB_SOURCES = np.arange(8, dtype=np.int32) * 125_000 + 1
+LIB_SAMPLE = np.arange(16) * 62_500 + 7
+BRACHA = {"f": 1, "byzantine": (1, 2)}
+HITS_THRESHOLD = 0.47715775356211615
+VIVALDI_ROUNDS = 30
+#: Live edges whose predicted latency Vivaldi's check reads.
+VIVALDI_EDGES = 65536
+DEAD = range(5_000, 15_000)
+EXPECTED_LIBRARY = {
+    "bracha": {"rounds": 256, "messages": 24676, "value": 14.0,
+               "value_sha256": ("4efc1773f11f2359204bfe0a0711b540"
+                                "d675f4d22a2743329cee8856e890e7fc"),
+               "echo_sha256": ("54a43a5eec2521c6d18638c69dd43770"
+                               "ddc0d120e4bd968ab0887b6959c5b586"),
+               "ready_sha256": ("5a88fff817177cd8ccb5b1f3e17dbd6f"
+                                "77321c52da08adfa9a2be2baf7f453a2")},
+    "hits": {"rounds": 31, "messages": 619999628},
+    "labelprop": {"rounds": 23, "messages": 229999862, "value": 0.0,
+                  "sha256": ("2baa7d3229ad86efb6500e0f0f49f520"
+                             "e9c0162b23113fca4120a4651578287d")},
+    "bipartite": {"rounds": 13, "messages": 105825236, "value": 0.0,
+                  "label_sha256": _ALL_999999,
+                  "dist_sha256": ("cfbc3c6ca60d7a24f3cd5ec55d2fa8d9"
+                                  "b717dfdeba773eb9bf58fdeeb89d6003"),
+                  "odd_edges": 5085358,
+                  "component_sha256": ("900740ec474a754ebed1c6220612bf1e"
+                                       "b0dff672575edbf9f965d80741322593")},
+    "triangles": {"triangles": 7289240,
+                  "transitivity_sample": 0.47991943359375},
+    "boruvka": {"rounds": 9, "messages": 29831824, "value": 0.0,
+                "mst_edges": 999999,
+                "comp_sha256": ("129256ee3ec90174b1ffc2f481b0ff34"
+                                "e820de704487d52322c0cb1d8d772637"),
+                "mst_edge_sha256": ("09d0284aa57a06d3fc0c4155cc83f5a1"
+                                    "e2732f8127b95248cad8cb3bd05b932a")},
+    "vivaldi_messages": [1_000_000] * VIVALDI_ROUNDS,
+    "detector": {"rounds": 177, "messages": 341540121, "value": 0.0,
+                 "declared_sha256": ("b3c52a4ba017bd09e54db2bb33152999"
+                                     "088cea6ef045bbc12bea03cba8d192aa"),
+                 "suspicion_sha256": ("01d8a018a3460ebf474b95cd8a4228ea"
+                                      "8b084fdc6d3bc23a19c2b758a0d1f9a3")},
+    "antientropy": {"rounds": 33, "messages": 65340000, "value": 0.0,
+                    "have_sha256": ("f844119ca2a02a3606a8395b1f283df2"
+                                    "91feed4fea405c64d23af597d14ca094")}}
+#: The float results, each with its (rtol, atol) and the reference's
+#: values. HITS: scores near 1e-3 after 31 f32 power steps whose sums
+#: add in another order; closeness adds the same terms in the same order
+#: as the reference (its bits are expected equal); betweenness: f32 sums
+#: of path-count ratios; Borůvka's weight: an f32 sum of 999,999
+#: committed weights; Vivaldi: the median over 65,536 edges of a state
+#: iterated 30 rounds from normal draws within 3 ulp of jax's.
+EXPECTED_LIBRARY_FLOATS = {
+    "hits": ((1e-4, 1e-8), {
+        "hub_sum": 977.3579617162759, "hub_max": 0.0028476035222411156,
+        "authority_sum": 977.3771591353288,
+        "hub_sample": [
+            0.0011057478841394186, 0.000860877800732851,
+            0.0012578595196828246, 0.0008134879171848297,
+            0.0008973577641882002, 0.0008778611663728952,
+            0.0007524826214648783, 0.0006757494411431253,
+            0.0008168506319634616, 0.0005914267967455089,
+            0.0012579361209645867, 0.0008122157887555659,
+            0.0005513183423317969, 0.00098920869641006,
+            0.0012128808302804828, 0.0007962094969116151],
+        "authority_sample": [
+            0.0011057411320507526, 0.0008609223878011107,
+            0.0012579933973029256, 0.0008136109099723399,
+            0.0008975202799774706, 0.0008778548217378557,
+            0.0007525185937993228, 0.0006758029921911657,
+            0.0008169093634933233, 0.0005914429202675819,
+            0.0012580124894157052, 0.0008122373837977648,
+            0.0005513849901035428, 0.0009894507238641381,
+            0.0012128792004659772, 0.0007962441886775196]}),
+    "closeness": ((1e-6, 0.0), {
+        "sum": 853615.7341533899, "max": 1.8138889074325562,
+        "sample": [
+            1.2381314039230347, 0.9135642051696777, 1.2873016595840454,
+            0.8055556416511536, 1.1949496269226074, 0.8333333730697632,
+            1.2333333492279053, 0.8242424130439758, 1.258333444595337,
+            0.838131308555603, 1.2242425680160522, 0.8928571939468384,
+            1.2242424488067627, 0.8805555701255798, 1.2555556297302246,
+            0.878210723400116]}),
+    "betweenness": ((1e-5, 1e-6), {
+        "sum": 67993915.23050727, "max": 254300.640625,
+        "sample": [
+            350.6018981933594, 52.11689376831055, 67069.75,
+            2.373340606689453, 32084.646484375, 7.1289777755737305,
+            1116.7283935546875, 0.5469104051589966, 2536.771240234375,
+            1.503929853439331, 4243.4482421875, 79.14372253417969,
+            1234.9468994140625, 30.711227416992188, 282.8295593261719,
+            36.5506591796875]}),
+    "boruvka": ((1e-6, 0.0), {"mst_weight": 1217238.0}),
+    "vivaldi": ((1e-3, 0.0), {"median_rel_err": 0.16674786806106567}),
+}
+
+#: Phase 4o: the reordered builds of phase 4j's 100K WS class (with the
+#: source-CSR view and the hybrid layout), by ``graph_digest`` over every
+#: field, the relabeling included; both packages build the same bytes.
+#: Regenerate (~10 s):
+#:   JAX_PLATFORMS=cpu python -c "import chip_smoke as c; from p2pnetwork_tpu.sim import graph as G; print([c.graph_digest(G.watts_strogatz(100_000, 10, 0.1, seed=0, reorder=s, source_csr=True, hybrid=True)) for s in ('rcm', 'degree')])"
+EXPECTED_REORDER = {
+    "rcm": ("e0557df75fb90801a8261abdb3733622"
+            "d998a6211ff8703b70fb29e21e1db42e"),
+    "degree": ("26c59d0fab9000f8cc2c9b5dd37ba256"
+               "1e8e46fc73687d103c77d83b91f56f3a")}
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -1243,7 +1490,8 @@ def flood_runs(phase, g, contest, expected, engine, segsum, device_mod,
 
 def timed_runs(run, reps=5) -> dict:
     """Steady-state wall of ``run()`` (median of ``reps``, the checked run
-    before them the warm-up) and one run under the profiler."""
+    before them the warm-up) and one run under the profiler
+    (:func:`profile_run`)."""
     times = []
     for _ in range(reps):
         torch.cuda.synchronize()
@@ -1705,11 +1953,12 @@ def check_run(label, got, want):
              f"{ {k: want.get(k) for k in bad} })")
 
 
-def timed_line(phase, name, run, rec, extra=None):
-    """Wall (median of 5) and a profile of ``run``, printed with the
-    checked run's counts ``rec``."""
+def timed_line(phase, name, run, rec, extra=None, reps=5):
+    """Wall (median of ``reps``) and a profile of ``run``, printed with
+    the checked run's counts ``rec`` and the script's time ``t_s``."""
     print(json.dumps({"phase": phase, "run": name, **rec, **(extra or {}),
-                      **timed_runs(run)}), flush=True)
+                      **timed_runs(run, reps),
+                      "t_s": time.perf_counter() - T_START}), flush=True)
 
 
 def routing_path(g, engine, segsum, threefry, device_mod, graph_mod,
@@ -1718,7 +1967,8 @@ def routing_path(g, engine, segsum, threefry, device_mod, graph_mod,
     on phase 4's graph under ``gather`` and ``frontier`` and on the 1M BA
     rung under ``skew``; each must give ``EXPECTED_ROUTE`` (so the same
     ``dist`` bits on one graph whatever the method). Returns the weighted
-    BA rung, which phase 4i's skew election reuses."""
+    BA rung, which phase 4i's skew election reuses, and the weighted WS
+    rung, phase 4m's graph."""
     t0 = time.perf_counter()
     rung = graph_mod.watts_strogatz(N_NODES, 10, 0.1, seed=0,
                                     build_neighbor_table=False)
@@ -1735,12 +1985,11 @@ def routing_path(g, engine, segsum, threefry, device_mod, graph_mod,
                       "ba_build_s": time.perf_counter() - t0,
                       "ws_edges": rung.n_edges, "ba_edges": ba.n_edges,
                       "ba_skew_width": ba.skew.width}), flush=True)
+    gw = g.with_weights(latency)
     for name, graph, method, want in (
             ("rung-segment", rung, "segment", EXPECTED_ROUTE["ws"]),
-            ("gather", g.with_weights(latency), "gather",
-             EXPECTED_ROUTE["ws"]),
-            ("frontier", g.with_weights(latency), "frontier",
-             EXPECTED_ROUTE["ws"]),
+            ("gather", gw, "gather", EXPECTED_ROUTE["ws"]),
+            ("frontier", gw, "frontier", EXPECTED_ROUTE["ws"]),
             ("ba-skew", ba, "skew", EXPECTED_ROUTE["ba"])):
         proto = DistanceVector(source=0, method=method)
         run = lambda: engine.run_until_converged(  # noqa: E731
@@ -1757,7 +2006,7 @@ def routing_path(g, engine, segsum, threefry, device_mod, graph_mod,
         timed_line("routing-path", name, run, rec, {
             "method": method, "rounds": out["rounds"],
             "messages": out["messages"]})
-    return ba
+    return ba, rung
 
 
 def analytics_path(g, ba, engine, prng, segsum, threefry, device_mod,
@@ -1869,12 +2118,15 @@ def lane_summary(out, extra=()) -> dict:
     return got
 
 
-def no_kernels(label, rec, threefry=0):
-    """Fail unless a batched run launched no B1 and ``threefry`` threefry
-    kernels: the lane planes are torch ops (no TPU kernel lowers them)."""
-    if rec["segsum_launches"] or rec["threefry_launches"] != threefry:
-        fail(f"{label} launched B1 {rec['segsum_launches']} and threefry "
-             f"{rec['threefry_launches']} times (want 0 and {threefry})")
+def no_launch(label, rec, **want):
+    """Fail unless B1 and threefry launched as ``want`` says: an exact
+    count, or None for more than 0 (absent: 0)."""
+    for key, counter in (("segsum", "segsum_launches"),
+                         ("threefry", "threefry_launches")):
+        n, w = rec[counter], want.get(key, 0)
+        if (w is None and n == 0) or (w is not None and n != w):
+            fail(f"{label} launched {key} {n} times, want "
+                 f"{'> 0' if w is None else w}")
 
 
 def batch_path(engine, segsum, threefry, device_mod, graph_mod,
@@ -1908,7 +2160,7 @@ def batch_path(engine, segsum, threefry, device_mod, graph_mod,
         out["seen"] = state.seen.cpu().numpy()
         check_run(f"batch {method}", lane_summary(
             out, ("lane_messages", "seen")), EXPECTED_BATCH["first"])
-        no_kernels(f"batch {method}", rec)
+        no_launch(f"batch {method}", rec)
         timed = timed_runs(run)
         walls[method] = timed["wall_s"]
         print(json.dumps({"phase": "batch-path", "run": method, **rec,
@@ -1959,7 +2211,7 @@ def batch_path(engine, segsum, threefry, device_mod, graph_mod,
     out["seen"] = state.seen.cpu().numpy()
     check_run("batch second wave", lane_summary(
         out, ("lane_messages", "seen")), EXPECTED_BATCH["second_wave"])
-    no_kernels("batch second wave", rec)
+    no_launch("batch second wave", rec)
     timed_line("batch-path", "auto-second-wave", run, rec, {
         "rounds": out["rounds"], "messages": out["messages"],
         "lanes": BATCH_B})
@@ -1996,7 +2248,7 @@ def query_path(g, engine, segsum, threefry, device_mod, graph_mod, QB):
             if name.startswith("dht"):
                 got["found"] = int((out["lane_values"] == keys).sum())
         check_run(f"queries {name}", got, EXPECTED_QUERIES[name])
-        no_kernels(f"queries {name}", rec, draws)
+        no_launch(f"queries {name}", rec, threefry=draws)
         timed_line("query-path", name, run, rec, {
             "rounds": out["rounds"], "messages": out["messages"],
             "lanes": int(out["lane_done"].size)})
@@ -2022,6 +2274,334 @@ def query_path(g, engine, segsum, threefry, device_mod, graph_mod, QB):
         check(name, gd, dht, lambda: dht.init(gd, orgs, keys), 128)
         del gd
         torch.cuda.empty_cache()
+
+
+#: Timed repeats of the phases new in slice 7 (5 in the earlier ones), to
+#: keep the script's time.
+NEW_REPS = 3
+
+
+def f32_bits(x: float) -> int:
+    """The bit pattern of ``x`` as an f32."""
+    return int(np.float32(x).view(np.int32))
+
+
+def graph_digest(g) -> str:
+    """sha256 over every field of a graph of either package (tensors or
+    JAX arrays), by sorted field name: array dtype, shape and bytes (packed
+    ``uint32`` words as ``int32``), static values by ``repr``, nested
+    layouts field by field."""
+    h = hashlib.sha256()
+
+    def put(name, v):
+        if v is None or isinstance(v, (bool, int, float, str)):
+            h.update(f"{name}={v!r};".encode())
+        elif isinstance(v, tuple):
+            h.update(f"{name}={tuple(int(x) for x in v)!r};".encode())
+        elif dataclasses.is_dataclass(v):
+            for f in sorted(f.name for f in dataclasses.fields(v)):
+                put(f"{name}.{f}", getattr(v, f))
+        else:
+            a = (v.cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v))
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            h.update(f"{name}:{a.dtype}{list(a.shape)};".encode())
+            h.update(np.ascontiguousarray(a).tobytes())
+
+    put("graph", g)
+    return h.hexdigest()
+
+
+def discovery_path(g, engine, segsum, threefry, device_mod,
+                   RandomWalks) -> int:
+    """Phase 4l: the ladder's discovery rung on phase 4's graph at one and
+    32 steps per super-step (bit-equal: the freeze rule), then with
+    ``restart_p=0.02``; each equal to ``EXPECTED_WALK``. Only the restart
+    draws a random number (one ``uniform`` per step, frozen sub-steps
+    too). Returns the threefry launches."""
+    launches = 0
+    for name, T, restart_p, want in (
+            ("walk-T1", 1, 0.0, EXPECTED_WALK["plain"]),
+            ("walk-T32", 32, 0.0, EXPECTED_WALK["plain"]),
+            ("walk-restart-T32", 32, 0.02, EXPECTED_WALK["restart"])):
+        proto = RandomWalks(n_walkers=WALKERS, restart_p=restart_p)
+        run = lambda: engine.run_until_coverage(  # noqa: E731
+            g, proto, KEY, coverage_target=0.99, max_rounds=8192,
+            steps_per_round=T)
+        (state, out), rec = counted(run, segsum, threefry, device_mod)
+        check_run(f"discovery {name}", dict(
+            out, coverage_bits=f32_bits(out["coverage"]),
+            visited_sha256=digest(state.visited),
+            pos_sha256=digest(state.pos)), want)
+        steps = -(-out["rounds"] // T) * T  # sub-steps, frozen ones too
+        no_launch(f"discovery {name}", rec,
+                  threefry=steps if restart_p else 0)
+        launches += rec["threefry_launches"]
+        timed_line("discovery-path", name, run, rec, {
+            "steps_per_round": T, "rounds": out["rounds"],
+            "messages": out["messages"]}, reps=NEW_REPS)
+    return launches
+
+
+def plumtree_path(rung, engine, segsum, threefry, device_mod, M) -> None:
+    """Phase 4m: the ladder's Plumtree rung on phase 4h's WS rung: the
+    first broadcast, the tree's extraction (host seconds printed) and a
+    flood over it, then a second broadcast over the learned tree; each
+    equal to ``EXPECTED_PLUMTREE``. No kernel runs."""
+    p = M.Plumtree(source=0)
+    st0 = p.init(rung, KEY)
+
+    def broadcast(label, state, want):
+        run = lambda: p.step(rung, state, KEY)  # noqa: E731
+        (st, stats), rec = counted(run, segsum, threefry, device_mod)
+        got = {n: v.item() for n, v in stats.items()}
+        got["coverage"] = f32_bits(got["coverage"])
+        got["eager_sha256"] = digest(st.eager)
+        check_run(f"plumtree {label}", got, want)
+        no_launch(f"plumtree {label}", rec)
+        timed_line("plumtree-path", label, run, rec, {
+            "messages": got["messages"], "duplicates": got["duplicates"]},
+            reps=NEW_REPS)
+        return st
+
+    st1 = broadcast("first-broadcast", st0, EXPECTED_PLUMTREE["first"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tg = p.tree_graph(rung, st1, source_csr=True)
+    torch.cuda.synchronize()
+    extract_s = time.perf_counter() - t0
+    if tg.n_edges != EXPECTED_PLUMTREE["tree_edges"] or \
+            tg.edge_weight is None:
+        fail(f"plumtree tree has {tg.n_edges} edges (weights "
+             f"{tg.edge_weight is not None})")
+    run = lambda: engine.run_until_coverage(  # noqa: E731
+        tg, M.Flood(source=0), KEY, coverage_target=1.0, max_rounds=256)
+    (_, out), rec = counted(run, segsum, threefry, device_mod)
+    check_run("plumtree tree flood", out, EXPECTED_PLUMTREE["tree_flood"])
+    no_launch("plumtree tree flood", rec)
+    timed_line("plumtree-path", "tree-flood", run, rec, {
+        "extract_s": extract_s, "tree_edges": tg.n_edges,
+        "rounds": out["rounds"], "messages": out["messages"]},
+        reps=NEW_REPS)
+    broadcast("second-broadcast", st1, EXPECTED_PLUMTREE["second"])
+
+
+def summary(x: torch.Tensor) -> dict:
+    """The sum (f64), max and ``LIB_SAMPLE`` entries of a float node
+    vector."""
+    return {"sum": x.double().sum().item(), "max": x.max().item(),
+            "sample": x[torch.from_numpy(LIB_SAMPLE).to(x.device)].tolist()}
+
+
+def check_floats(label, got: dict, entry: str) -> float:
+    """Each float of ``got`` within the tolerance of
+    ``EXPECTED_LIBRARY_FLOATS[entry]``; returns the largest relative
+    difference."""
+    (rtol, atol), want = EXPECTED_LIBRARY_FLOATS[entry]
+    worst = 0.0
+    for k, w in want.items():
+        assert_close(f"{label} {k}", got[k], w, rtol, atol)
+        gv, wv = np.asarray(got[k], np.float64), np.asarray(w, np.float64)
+        worst = max(worst, float((np.abs(gv - wv)
+                                  / np.maximum(np.abs(wv), 1e-30)).max()))
+    return worst
+
+
+def symmetric_latency(s, r):
+    """The routing rung's latency of the sorted endpoint pair: the same
+    cost both ways, as Borůvka's minimality needs."""
+    return latency(np.minimum(s, r), np.maximum(s, r))
+
+
+def library_path(g, engine, prng, segsum, threefry, device_mod, M) -> dict:
+    """Phase 4n: Bracha (``hybrid``, ``pallas``), HITS (``hybrid``),
+    closeness and betweenness (``hybrid``), label propagation and the
+    bipartiteness check (``gather``), the triangle counts, Borůvka and
+    Vivaldi on the symmetric latency, the failure detector and
+    anti-entropy on phase 4c's failures — on phase 4's graph at 1M, each
+    against ``EXPECTED_LIBRARY`` (and ``EXPECTED_LIBRARY_FLOATS`` within
+    their tolerances), each kernel path launching its kernels. Returns the
+    launches of B1's OR entry, its sum entry on the remainder and on the
+    blocked layout, and threefry's."""
+    from p2pnetwork_tpu_torch.models import centrality, triangles
+    from p2pnetwork_tpu_torch.sim import failures
+
+    launches = {"or": 0, "sum": 0, "sum_blocked": 0, "threefry": 0}
+    want = EXPECTED_LIBRARY
+
+    def conv(graph, proto, stat, threshold=1, max_rounds=256, key=KEY):
+        return lambda: engine.run_until_converged(  # noqa: E731
+            graph, proto, key, stat=stat, threshold=threshold,
+            max_rounds=max_rounds)
+
+    def record(name, run, rec, entry, extra):
+        """Add the run's launches (B1's to ``entry``) and print its
+        timed line."""
+        if entry:
+            launches[entry] += rec["segsum_launches"]
+        launches["threefry"] += rec["threefry_launches"]
+        timed_line("library-path", name, run, rec, extra, reps=NEW_REPS)
+
+    # Bracha: two sums at init, four a round (ECHO and READY per value).
+    for method, entry in (("hybrid", "sum"), ("pallas", "sum_blocked")):
+        run = conv(g, M.Bracha(method=method, **BRACHA), "changed")
+        (s, out), rec = counted(run, segsum, threefry, device_mod)
+        check_run(f"library bracha-{method}", dict(
+            out, value_sha256=digest(s.value),
+            echo_sha256=digest(s.echo_sent),
+            ready_sha256=digest(s.ready_sent)), want["bracha"])
+        no_launch(f"bracha {method}", rec, segsum=2 + 4 * out["rounds"])
+        record(f"bracha-{method}", run, rec, entry, {
+            "rounds": out["rounds"], "messages": out["messages"]})
+
+    run = lambda: engine.run_until_converged(  # noqa: E731
+        g, M.HITS(method="hybrid"), KEY, stat="residual",
+        threshold=HITS_THRESHOLD)
+    (s, out), rec = counted(run, segsum, threefry, device_mod)
+    check_run("library hits", {k: out[k] for k in ("rounds", "messages")},
+              want["hits"])
+    hub, auth = summary(s.hub), summary(s.authority)
+    err = check_floats("hits", {
+        "hub_sum": hub["sum"], "hub_max": hub["max"],
+        "hub_sample": hub["sample"], "authority_sum": auth["sum"],
+        "authority_sample": auth["sample"]}, "hits")
+    no_launch("hits", rec, segsum=out["rounds"])
+    record("hits-hybrid", run, rec, "sum", {
+        "rounds": out["rounds"], "residual": out["value"],
+        "max_rel_err_vs_reference": err})
+
+    for name, fn, entry in (("closeness", centrality.closeness_sample, "or"),
+                            ("betweenness", centrality.betweenness_sample,
+                             "sum")):
+        run = lambda: fn(g, LIB_SOURCES, "hybrid")  # noqa: E731
+        x, rec = counted(run, segsum, threefry, device_mod)
+        err = check_floats(name, summary(x), name)
+        no_launch(name, rec, segsum=None)
+        record(f"{name}-hybrid-8", run, rec, entry,
+               {"max_rel_err_vs_reference": err})
+
+    run = conv(g, M.LabelPropagation(), "unsettled", max_rounds=1024)
+    (s, out), rec = counted(run, segsum, threefry, device_mod)
+    check_run("library labelprop", dict(out, sha256=digest(s.label)),
+              want["labelprop"])
+    no_launch("labelprop", rec)
+    record("labelprop-gather", run, rec, None, {
+        "rounds": out["rounds"], "messages": out["messages"]})
+
+    bp = M.BipartiteCheck(method="gather")
+    run = conv(g, bp, "changed")
+    (s, out), rec = counted(run, segsum, threefry, device_mod)
+    check_run("library bipartite", dict(
+        out, label_sha256=digest(s.label), dist_sha256=digest(s.dist),
+        odd_edges=bp.odd_edges(g, s).item(),
+        component_sha256=digest(bp.component_bipartite(g, s))),
+        want["bipartite"])
+    no_launch("bipartite", rec)
+    record("bipartite-gather", run, rec, None, {
+        "rounds": out["rounds"], "messages": out["messages"]})
+
+    run = lambda: {  # noqa: E731
+        "triangles": triangles.count_triangles(g),
+        "transitivity_sample": triangles.transitivity_sample(g, KEY,
+                                                             65536)}
+    got, rec = counted(run, segsum, threefry, device_mod)
+    check_run("library triangles", got, want["triangles"])
+    no_launch("triangles", rec, threefry=6)  # three randints, two draws each
+    record("triangles", run, rec, None, got)
+
+    gw = g.with_weights(symmetric_latency)
+    run = conv(gw, M.Boruvka(), "changed", max_rounds=64)
+    (s, out), rec = counted(run, segsum, threefry, device_mod)
+    check_run("library boruvka", dict(
+        out, mst_edges=s.mst_edge.sum().item(), comp_sha256=digest(s.comp),
+        mst_edge_sha256=digest(s.mst_edge)), want["boruvka"])
+    err = check_floats("boruvka", {"mst_weight": s.mst_weight.item()},
+                       "boruvka")
+    no_launch("boruvka", rec)
+    record("boruvka", run, rec, None, {
+        "rounds": out["rounds"], "mst_weight": s.mst_weight.item(),
+        "max_rel_err_vs_reference": err})
+
+    viv = M.Vivaldi(dim=2)
+    run = lambda: engine.run(gw, viv, KEY, VIVALDI_ROUNDS)  # noqa: E731
+    (s, stats), rec = counted(run, segsum, threefry, device_mod)
+    if stats["messages"].tolist() != want["vivaldi_messages"]:
+        fail(f"vivaldi messages {stats['messages'].tolist()}")
+    live = gw.edge_mask
+    a, b = gw.senders[live][:VIVALDI_EDGES], gw.receivers[live][:VIVALDI_EDGES]
+    w = gw.edge_weight[live][:VIVALDI_EDGES]
+    med = float(np.median(((viv.predicted(s, a, b) - w).abs() / w)
+                          .cpu().numpy()))
+    err = check_floats("vivaldi", {"median_rel_err": med}, "vivaldi")
+    no_launch("vivaldi", rec, threefry=1 + 2 * VIVALDI_ROUNDS)
+    record("vivaldi-30", run, rec, None, {
+        "median_rel_err": med, "rmse_last": stats["rmse"][-1].item(),
+        "max_rel_err_vs_reference": err})
+
+    gm = failures.mark_unresponsive(g, DEAD)
+    run = conv(gm, M.FailureDetector(threshold=3, loss_prob=0.05),
+               "undetected", max_rounds=4096, key=prng.key(1))
+    (s, out), rec = counted(run, segsum, threefry, device_mod)
+    check_run("library detector", dict(
+        out, declared_sha256=digest(s.declared),
+        suspicion_sha256=digest(s.suspicion)), want["detector"])
+    no_launch("detector", rec, threefry=4 * out["rounds"])
+    record("detector", run, rec, None, {
+        "rounds": out["rounds"], "messages": out["messages"]})
+
+    gf = failures.fail_nodes(g, DEAD)
+    run = conv(gf, M.AntiEntropy(n_items=64), "missing", max_rounds=4096,
+               key=prng.key(2))
+    (s, out), rec = counted(run, segsum, threefry, device_mod)
+    check_run("library antientropy", dict(out, have_sha256=digest(s.have)),
+              want["antientropy"])
+    no_launch("antientropy", rec, threefry=1 + 2 * out["rounds"])
+    record("antientropy-64", run, rec, None, {
+        "rounds": out["rounds"], "messages": out["messages"]})
+    return launches
+
+
+def reorder_path(engine, segsum, threefry, device_mod, graph_mod, layout,
+                 Flood) -> int:
+    """Phase 4o: ``from_edges(reorder=...)`` by ``"rcm"`` and ``"degree"``
+    on phase 4j's 100K WS class (with the hybrid layout): every field's
+    sha256 equal to the reference's build (``EXPECTED_REORDER``), and a
+    ``Flood(hybrid)`` from node 0's new id, mapped back by
+    ``to_original_order``, equal to the flood over the plain build (its
+    dict and ``seen``). Returns B1's OR launches."""
+    kw = dict(source_csr=True, hybrid=True)
+    plain = graph_mod.watts_strogatz(BATCH_N, 10, 0.1, seed=0, **kw)
+    base_state, base_out = engine.run_until_coverage(
+        plain, Flood(source=0, method="hybrid"), KEY, coverage_target=0.99,
+        max_rounds=64)
+    launches = 0
+    for strategy in ("rcm", "degree"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rg = graph_mod.watts_strogatz(BATCH_N, 10, 0.1, seed=0,
+                                      reorder=strategy, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        sha = graph_digest(rg)
+        if sha != EXPECTED_REORDER[strategy]:
+            fail(f"reorder {strategy}: graph sha256 {sha}, the reference's "
+                 f"is {EXPECTED_REORDER[strategy]}")
+        proto = Flood(source=int(rg.layout_perm[0]), method="hybrid")
+        run = lambda: engine.run_until_coverage(  # noqa: E731
+            rg, proto, KEY, coverage_target=0.99, max_rounds=64)
+        (state, out), rec = counted(run, segsum, threefry, device_mod)
+        if out != base_out or not torch.equal(
+                layout.to_original_order(state.seen, rg), base_state.seen):
+            fail(f"reorder {strategy}: the flood mapped back differs from "
+                 f"the plain build's ({out} against {base_out})")
+        no_launch(f"reorder {strategy}", rec, segsum=None)
+        launches += rec["segsum_launches"]
+        timed_line("reorder-path", strategy, run, rec, {
+            "build_s": build_s, "graph_sha256": sha,
+            "rounds": out["rounds"], "messages": out["messages"]},
+            reps=NEW_REPS)
+    return launches
 
 
 #: Launches each ring layout must make (> 0): kernel name -> counter.
@@ -2141,29 +2721,40 @@ def profile_run(run, ring_steps=None) -> dict:
     and launches, and the kernels that take the most device time. With
     ``ring_steps`` (the fused steps of a ring pass), B3's device time
     split by ring step: its launches in device order, step = launch index
-    mod ``ring_steps`` (each pass fuses steps 0 to ring_steps - 1)."""
+    mod ``ring_steps`` (each pass fuses steps 0 to ring_steps - 1).
+    Only the device's activity is recorded (every number read here is
+    device-side), and its records are summed from the profiler's raw
+    events: on a walk run of 186K launches ``key_averages()`` took 77 s
+    with host events and 38 s without, the raw sum 1.7 s, the device
+    totals within 0.3% (``tools/profiler_cost.py``, H100 80GB HBM3,
+    700.00 W). ``post_s`` is the summing's host time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # Device-side kernel records only (the host-side aten ops carry their
-    # kernels' time as well and would count it twice).
-    rows = sorted(((ev.self_device_time_total, ev.key, ev.count)
-                   for ev in prof.key_averages()
-                   if ev.device_type == torch.autograd.DeviceType.CUDA
-                   and ev.self_device_time_total), reverse=True)
+    t_post = time.perf_counter()
+    by_name, b3 = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        us = ev.duration_ns() / 1e3
+        if not us:
+            continue
+        name = ev.name()
+        total, count = by_name.get(name, (0.0, 0))
+        by_name[name] = (total + us, count + 1)
+        if ring_steps and "ring_segsum" in name:
+            b3.append((ev.start_ns(), us))
+    rows = sorted(((us, k, c) for k, (us, c) in by_name.items()),
+                  reverse=True)
     busy_s = sum(r[0] for r in rows) / 1e6
     split = {}
     if ring_steps:
-        b3 = sorted((ev.time_range.start, ev.time_range.elapsed_us())
-                    for ev in prof.events()
-                    if ev.device_type == torch.autograd.DeviceType.CUDA
-                    and "ring_segsum" in ev.name)
+        b3.sort()
         per_step = [[us for i, (_, us) in enumerate(b3)
                      if i % ring_steps == t] for t in range(ring_steps)]
         split = {"b3_launches": len(b3),
@@ -2171,12 +2762,17 @@ def profile_run(run, ring_steps=None) -> dict:
                  "b3_step_launches": [len(v) for v in per_step]}
     return {"wall_s": wall, "device_busy_s": busy_s,
             "device_idle_share": 1.0 - busy_s / wall,
+            "post_s": time.perf_counter() - t_post,
             "kernel_launches": sum(r[2] for r in rows),
             "segsum_us": sum(us for us, k, _ in rows
                              if "segsum" in k and "ring" not in k),
             "ring_us": sum(us for us, k, _ in rows if "ring_" in k),
             "top": [{"kernel": k[:100], "us": us, "count": c}
                     for us, k, c in rows[:6]], **split}
+
+
+#: The script's start, on the host clock (``t_s`` of the timed lines).
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -2192,7 +2788,7 @@ def main() -> int:
     from p2pnetwork_tpu_torch.ops import ring, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
-    from p2pnetwork_tpu_torch.sim import engine, failures, topology
+    from p2pnetwork_tpu_torch.sim import engine, failures, layout, topology
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
 
     # 1. Device.
@@ -2253,11 +2849,22 @@ def main() -> int:
 
     # The phases new in slice 5, after every earlier timed row and run:
     # 4h (the weighted routing rung and its methods), 4i (analytics).
-    ba = routing_path(g, engine, segsum, threefry, _device, graph_mod,
-                      frontier_ops, models_mod.DistanceVector)
+    ba, rung = routing_path(g, engine, segsum, threefry, _device,
+                            graph_mod, frontier_ops,
+                            models_mod.DistanceVector)
     new_launches = analytics_path(g, ba, engine, prng, segsum, threefry,
                                   _device, models_mod)
-    del g, ba
+    del ba
+
+    # The phases new in slice 7, after every earlier 1M run: 4l (the
+    # discovery rung), 4m (the Plumtree rung), 4n (the protocol library).
+    walk_launches = discovery_path(g, engine, segsum, threefry, _device,
+                                   models_mod.RandomWalks)
+    plumtree_path(rung, engine, segsum, threefry, _device, models_mod)
+    del rung
+    lib_launches = library_path(g, engine, prng, segsum, threefry, _device,
+                                models_mod)
+    del g
     torch.cuda.empty_cache()
 
     # Phase 3's C1 check of B1 (B3's ran at the end of phase 3b).
@@ -2271,6 +2878,10 @@ def main() -> int:
                     frontier_ops, Flood, messagebatch)
     query_path(bg, engine, segsum, threefry, _device, graph_mod, querybatch)
     del bg
+
+    # 4o (slice 7): the reordered builds, last.
+    reorder_launches = reorder_path(engine, segsum, threefry, _device,
+                                    graph_mod, layout, Flood)
 
     # 5. Result. Each kernel's row is its main-path use: B1's OR entry on
     # the hybrid remainder (the adaptive and hybrid floods), B2's forward
@@ -2292,7 +2903,8 @@ def main() -> int:
 
     print(json.dumps({"kernels": [
         row("segsum", "segsum.cu", "p2pnetwork_tpu/ops/pallas_edge.py:41",
-            rows[0], launches + ring_launches["segsum"] + new_launches["or"],
+            rows[0], launches + ring_launches["segsum"] + new_launches["or"]
+            + lib_launches["or"] + reorder_launches,
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"],
@@ -2306,15 +2918,17 @@ def main() -> int:
         row("segsum_sum", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
             sir_launches["hybrid"] + cons_launches["segsum"]
-            + new_launches["sum"], max_err),
+            + new_launches["sum"] + lib_launches["sum"], max_err),
         row("segsum_sum_blocked", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[3],
-            sir_launches["pallas"] + new_launches["sum_blocked"], max_err),
+            sir_launches["pallas"] + new_launches["sum_blocked"]
+            + lib_launches["sum_blocked"], max_err),
         row("threefry", "threefry.cu",
             "p2pnetwork_tpu/models/sir.py:65 (jax.random.uniform, fused "
             "by XLA; no TPU kernel)", threefry_rows[1],
             sir_launches["threefry"] + cons_launches["threefry"]
-            + gossip_launches + new_launches["threefry"], threefry_err),
+            + gossip_launches + new_launches["threefry"] + walk_launches
+            + lib_launches["threefry"], threefry_err),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

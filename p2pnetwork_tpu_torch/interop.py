@@ -66,9 +66,10 @@ def graph_from_numpy(fields: dict, device=None) -> Graph:
     ``block``, ``hybrid`` one with ``masks``/``offsets``/``n``/
     ``remainder`` (a ``blocked``-style dict or None), ``skew`` one with
     ``src``/``mask``/``owner``/``start``/``weight``. Weights
-    (``edge_weight``, ``neighbor_weight``, the skew ``weight``) are
-    carried; a set field the port does not model (``layout_perm``,
-    ``layout_inv``) is refused."""
+    (``edge_weight``, ``neighbor_weight``, the skew ``weight``) and the
+    node relabeling of a reordered build (``layout_perm``,
+    ``layout_inv``) are carried; a set field the port does not model is
+    refused."""
     dev = _device.resolve(device)
     _refuse_unmodelled(fields, {f.name for f in dataclasses.fields(Graph)},
                        "Graph")
@@ -118,7 +119,10 @@ _PROTOCOL_STATES = {c.__name__: c for c in (
     M.SIRState, M.GossipState, M.PushSumState, M.PageRankState,
     M.HopDistanceState, M.AdaptiveHopDistanceState, M.LeaderElectionState,
     M.ConnectedComponentsState, M.SpanningTreeState, M.LubyMISState,
-    M.KCoreState, M.DistanceVectorState)}
+    M.KCoreState, M.DistanceVectorState, M.RandomWalksState,
+    M.PlumtreeState, M.PlumtreeBitState, M.BrachaState, M.HITSState,
+    M.LabelPropagationState, M.BipartiteCheckState, M.BoruvkaState,
+    M.VivaldiState, M.FailureDetectorState, M.AntiEntropyState)}
 
 
 def protocol_state_from_numpy(name: str, fields: dict, device=None):

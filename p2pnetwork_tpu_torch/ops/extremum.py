@@ -81,3 +81,17 @@ def scatter(keys: torch.Tensor, index: torch.Tensor, n: int, init: int,
 def rows(keys: torch.Tensor, largest: bool) -> torch.Tensor:
     """Max/min of each row of a ``[R, W]`` key matrix."""
     return keys.amax(dim=1) if largest else keys.amin(dim=1)
+
+
+def scatter_spread(keys: torch.Tensor, index: torch.Tensor,
+                   valid: torch.Tensor, n: int, init: int,
+                   largest: bool) -> torch.Tensor:
+    """:func:`scatter` of the ``valid`` keys only: the reference's
+    ``.at[where(valid, index, n)].min(..., mode="drop")``. The other slots
+    add ``init`` (which changes nothing) at a slot of their own position
+    rather than at one drop address, where millions of atomics would
+    serialize on the card."""
+    spread = torch.arange(keys.shape[0], device=keys.device) % n
+    return scatter(torch.where(valid, keys, init),
+                   torch.where(valid, index.long(), spread), n, init,
+                   largest)

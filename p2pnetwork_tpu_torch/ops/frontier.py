@@ -194,13 +194,11 @@ def _scatter_terms(graph: Graph, eid, evalid, terms, dtype,
     small) add the identity, which changes nothing, at a node of their
     own position rather than at one drop slot: millions of atomics on one
     address would serialize on the card."""
-    n_pad = graph.n_nodes_padded
     ident = X.identity(dtype, largest)
-    keys = torch.where(evalid, X.encode(terms, largest), ident).reshape(-1)
-    spread = torch.arange(keys.shape[0], device=keys.device) % n_pad
-    cand = torch.where(evalid.reshape(-1), graph.receivers[eid].reshape(-1),
-                       spread)
-    agg = X.scatter(keys, cand, n_pad, ident, largest)
+    keys = X.encode(terms.expand(eid.shape), largest).reshape(-1)
+    agg = X.scatter_spread(keys, graph.receivers[eid].reshape(-1),
+                           evalid.reshape(-1), graph.n_nodes_padded, ident,
+                           largest)
     return X.decode(torch.where(graph.node_mask, agg, ident), dtype, largest)
 
 

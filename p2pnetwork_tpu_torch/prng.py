@@ -27,7 +27,10 @@ states the tolerance).
 
 ``permutation``'s sorts are stable, as XLA's ``sort_key_val`` is by
 default (``is_stable=True``): two equal 32-bit keys keep their input
-order. A weighted ``choice`` (``p=``) and ``categorical`` are not ported.
+order. A weighted ``choice`` (``p=``) with replacement is jax's
+inverse-CDF draw over XLA's CPU prefix sum (:func:`cumsum_f32`); without
+replacement it is not ported, nor is ``categorical`` (nothing in the JAX
+package calls it).
 
 This is the port's explicit generator for simulations that must be
 checkable against the reference. It does not replace ``torch.Generator``,
@@ -159,20 +162,29 @@ def normal(k, shape=(), *, device=None) -> torch.Tensor:
 _I32_MIN, _I32_MAX = -(2**31), 2**31 - 1
 
 
-def randint(k, shape, minval: int, maxval: int, *,
+def randint(k, shape, minval: int, maxval, *,
             device=None) -> torch.Tensor:
     """i32 uniform-ish on ``[minval, maxval)`` by jax's reduction: two
     32-bit draws from ``split(k)``, each taken mod ``span``, combined
     with ``multiplier = ((2**16 mod span)**2 mod 2**32) mod span``, all in
-    wrapping u32 (so the multiplier is 0 for spans above 2**16)."""
+    wrapping u32 (so the multiplier is 0 for spans above 2**16).
+    ``maxval`` may be an integer tensor broadcast against ``shape`` (a
+    bound per element, as the reference's traced ``maxval``); the draws
+    then land on its device."""
     shape = _shape(shape)
-    minval, maxval = int(minval), int(maxval)
-    if not _I32_MIN <= min(minval, maxval) <= max(minval, maxval) <= _I32_MAX:
-        raise OverflowError(f"randint bounds must be i32, got "
-                            f"[{minval}, {maxval})")
+    minval = int(minval)
+    if isinstance(maxval, torch.Tensor):
+        # maxval <= minval gives span 1, so minval is always returned.
+        span = torch.where(maxval > minval, maxval.long() - minval, 1)
+        device = maxval.device
+    else:
+        maxval = int(maxval)
+        if not (_I32_MIN <= min(minval, maxval) <= max(minval, maxval)
+                <= _I32_MAX):
+            raise OverflowError(f"randint bounds must be i32, got "
+                                f"[{minval}, {maxval})")
+        span = maxval - minval if maxval > minval else 1
     k1, k2 = split(k)
-    # maxval <= minval gives span 1, so minval is always returned.
-    span = maxval - minval if maxval > minval else 1
     mult = ((2**16 % span) ** 2 & 0xFFFFFFFF) % span  # the square wraps
     mask = 0xFFFFFFFF
     higher = random_bits(k1, shape, device=device).long() & mask
@@ -217,19 +229,54 @@ def permutation(k, x, *, device=None) -> torch.Tensor:
     return _shuffle(k, x)
 
 
+def cumsum_f32(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive f32 prefix sum of a 1-D tensor with the rounding of
+    ``jnp.cumsum`` on the CPU: XLA rewrites the scan's reduce-window into
+    blocks of 16, each summed left to right from 0, the blocks' totals
+    scanned the same way (recursively), and each block's exclusive prefix
+    added to its sums (``tests/test_torch_membership.py`` pins it against
+    jax). ``torch.cumsum`` rounds in another order."""
+    n = x.shape[0]
+    if n <= _SCAN_BLOCK:
+        return _scan_columns(x[None, :])[0]
+    blocks = torch.nn.functional.pad(x, (0, -n % _SCAN_BLOCK)).reshape(
+        -1, _SCAN_BLOCK)
+    local = _scan_columns(blocks)
+    totals = cumsum_f32(local[:, -1].contiguous())
+    prefix = torch.cat([totals.new_zeros(1), totals[:-1]])
+    return (local + prefix[:, None]).reshape(-1)[:n]
+
+
+#: XLA's CPU reduce-window rewrite block (``cumsum_f32``).
+_SCAN_BLOCK = 16
+
+
+def _scan_columns(rows: torch.Tensor) -> torch.Tensor:
+    """Each row's inclusive prefix sums, left to right from 0."""
+    cols = [rows[:, 0] + 0.0]
+    for j in range(1, rows.shape[1]):
+        cols.append(cols[-1] + rows[:, j])
+    return torch.stack(cols, dim=1)
+
+
 def choice(k, a, shape=(), replace: bool = True, p=None, *,
            device=None) -> torch.Tensor:
     """``shape`` draws from ``arange(a)`` (an int ``a``) or from a 1-D
-    tensor's elements, uniformly: with replacement ``randint(k, shape, 0,
-    n)`` indexes them, without it the first draws of
-    :func:`permutation`. A weighted ``p`` is not ported."""
-    if p is not None:
-        raise NotImplementedError("choice with weights p is not ported")
+    tensor's elements. Uniformly: with replacement ``randint(k, shape, 0,
+    n)`` indexes them, without it the first draws of :func:`permutation`.
+    With weights ``p`` (f32, one per element) and replacement, jax's
+    inverse-CDF draw: ``c = cumsum(p)`` (:func:`cumsum_f32`), ``r = c[-1]
+    * (1 - uniform(k, shape))`` and the first index with ``c >= r``. A
+    weighted draw without replacement (jax's Gumbel top-k) is not
+    ported."""
     shape = _shape(shape)
     n = a if isinstance(a, int) else a.shape[0]
     if not isinstance(a, int) and a.dim() != 1:
         raise ValueError("choice takes an int or a 1-D tensor")
     dev = _device.resolve(device) if isinstance(a, int) else a.device
+    if p is not None and not replace:
+        raise NotImplementedError("choice with weights p and "
+                                  "replace=False is not ported")
     n_draws = math.prod(shape)
     if n_draws == 0:
         return torch.zeros(shape, dtype=torch.int32 if isinstance(a, int)
@@ -237,6 +284,18 @@ def choice(k, a, shape=(), replace: bool = True, p=None, *,
     if n <= 0:
         raise ValueError("a must be greater than 0 unless no samples are "
                          "taken")
+    if p is not None:
+        p = torch.as_tensor(p, device=dev).to(torch.float32)
+        if p.shape != (n,):
+            raise ValueError(
+                f"p must be None or a 1D vector with the same size as "
+                f"a.shape[0]. p has shape {tuple(p.shape)} and a.shape[0] "
+                f"is {n}.")
+        cuml = cumsum_f32(p)
+        r = cuml[-1] * (1.0 - uniform(k, shape, device=dev))
+        ind = torch.searchsorted(cuml, r.reshape(-1)).reshape(shape)
+        ind = ind.to(torch.int32)
+        return ind if isinstance(a, int) else a[ind.long()]
     if replace:
         ind = randint(k, shape, 0, n, device=dev)
         return ind if isinstance(a, int) else a[ind.long()]

@@ -82,7 +82,10 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
             key, sub = prng.split(key)
             new_state, stats = protocol.step(graph, state, sub)
             state = _freeze(live, new_state, state)
-            messages = messages + torch.where(live, stats["messages"], 0)
+            # An f32 count (Bracha's) truncates, as the reference's cast
+            # to its u32 limb does.
+            messages = messages + torch.where(
+                live, stats["messages"], 0).to(torch.int64)
             rounds = rounds + live.to(torch.int32)
             value = torch.where(live, stats[stat].to(torch.float32), value)
             if has_occ:

@@ -12,13 +12,14 @@ needs no native build.
 Ported: the COO edges, masks and degrees, the padded neighbor table, the
 source-CSR out-edge view, the blocked / diagonal+remainder layouts, the
 two-level skew table (``ops/skew.py``), the dynamic edge region of
-runtime links (``sim/topology.py``) and per-edge weights with their
+runtime links (``sim/topology.py``), per-edge weights with their
 aligned views (``edge_weight``, ``neighbor_weight``, the skew table's
-``weight``), and the generators: Erdős–Rényi, Barabási–Albert,
-Watts–Strogatz and the structured overlays (``ring``, ``chord``,
-``kademlia``, ``complete``; ``build`` from a topology description). Node
-reordering and the incremental builds (``apply_delta``, ``grow``) are not
-(``interop`` refuses a reference graph that carries a relabeling).
+``weight``), the node reordering of ``from_edges(reorder=...)``
+(``sim/layout.py``; every generator forwards it), and the generators:
+Erdős–Rényi, Barabási–Albert, Watts–Strogatz and the structured overlays
+(``ring``, ``chord``, ``kademlia``, ``complete``; ``build`` from a
+topology description). The incremental builds (``apply_delta``,
+``grow``) are not.
 """
 
 from __future__ import annotations
@@ -103,6 +104,10 @@ class Graph:
     # 1), and their view aligned with the neighbor table's slots.
     edge_weight: Optional[torch.Tensor] = None  # f32[E_pad]
     neighbor_weight: Optional[torch.Tensor] = None  # f32[N_pad, max_degree]
+    # Node relabeling of a reordered build (``from_edges(reorder=...)``,
+    # ``sim/layout.py``): layout_perm[old] = new, layout_inv[new] = old.
+    layout_perm: Optional[torch.Tensor] = None  # i32[N_pad]
+    layout_inv: Optional[torch.Tensor] = None  # i32[N_pad]
 
     @property
     def device(self) -> torch.device:
@@ -287,10 +292,11 @@ def from_edges(
     skew_table: bool = False,
     skew_width: int = 0,
     weights=None,
+    reorder: Optional[str] = None,
     device=None,
 ) -> Graph:
     """Build a :class:`Graph` from host edge arrays (the reference's
-    ``from_edges`` without ``reorder``).
+    ``from_edges``).
 
     Edges are sorted by receiver and padded to ``edge_pad_multiple``; nodes
     to ``node_pad_multiple``. ``blocked`` / ``hybrid`` / ``source_csr`` /
@@ -298,8 +304,11 @@ def from_edges(
     layouts from the host arrays in hand. ``weights`` (f32, aligned with
     ``senders``/``receivers``) go through the same receiver sort and give
     ``edge_weight``, the neighbor table's ``neighbor_weight`` (a capped
-    table's too) and the skew table's ``weight``. ``device`` as in
-    ``_device.resolve``.
+    table's too) and the skew table's ``weight``. ``reorder``
+    (``"degree"`` or ``"rcm"``, ``sim/layout.py``) relabels the node ids
+    before the build and records the mapping (``layout_perm`` /
+    ``layout_inv``, identity over the padding ids); map results back with
+    ``layout.to_original_order``. ``device`` as in ``_device.resolve``.
     """
     from p2pnetwork_tpu_torch.ops.blocked import build_blocked_from_arrays
     from p2pnetwork_tpu_torch.ops.diag import build_hybrid_from_arrays
@@ -312,6 +321,14 @@ def from_edges(
         raise ValueError("senders and receivers must have the same shape")
     if senders.size and (senders.max() >= n_nodes or receivers.max() >= n_nodes):
         raise ValueError("edge endpoint out of range")
+
+    layout_perm = None
+    if reorder is not None:
+        from p2pnetwork_tpu_torch.sim import layout
+
+        layout_perm = layout.node_permutation(senders, receivers, n_nodes,
+                                              strategy=reorder)
+        senders, receivers = layout_perm[senders], layout_perm[receivers]
 
     if weights is not None:
         weights = np.asarray(weights, dtype=np.float32)
@@ -340,7 +357,16 @@ def from_edges(
 
     host = dict(senders=s, receivers=r, edge_mask=emask, node_mask=nmask,
                 in_degree=in_deg, out_degree=out_deg, neighbors=None,
-                neighbor_mask=None, edge_weight=None, neighbor_weight=None)
+                neighbor_mask=None, edge_weight=None, neighbor_weight=None,
+                layout_perm=None, layout_inv=None)
+    if layout_perm is not None:
+        # The identity over the padding ids: the mapping covers the whole
+        # padded id space.
+        perm = np.concatenate([layout_perm.astype(np.int32),
+                               np.arange(n_nodes, n_pad, dtype=np.int32)])
+        inv = np.empty_like(perm)
+        inv[perm] = np.arange(n_pad, dtype=np.int32)
+        host["layout_perm"], host["layout_inv"] = perm, inv
     if weights is not None:
         host["edge_weight"] = np.zeros(e_pad, dtype=np.float32)
         host["edge_weight"][:e] = weights

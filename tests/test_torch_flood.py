@@ -150,8 +150,8 @@ def test_adaptive_sync_count():
 
 
 def _carry_with(field):
-    """Carry the ER graph across with ``field``, which the port does not
-    model, set."""
+    """Carry the ER graph across with ``field``, which the port's Graph
+    does not model, set."""
     def call(tg):
         fields = graph_fields(build_jax("er"))
         fields[field] = np.ones(tg.n_edges_padded, np.float32)
@@ -160,20 +160,23 @@ def _carry_with(field):
 
 
 # What is still not ported raises, never runs as something else: the
-# flight recorder of run/run_from, reference graph fields the port does
-# not model (the node relabeling: interop refuses it rather than
-# dropping it; edge weights are carried since they were ported), and the
-# ring's protocols other than the flood (the single-device SIR, gossip,
-# push-sum and PageRank are ported; their ring forms wait). The flood
-# options this test once held (methods frontier and skew, bitset=True)
-# are ported and checked in test_torch_frontier.py and test_torch_skew.py.
+# flight recorder of run/run_from, graph fields the port does not model
+# (interop refuses them rather than dropping them; edge weights and the
+# node relabeling are carried since they were ported, in
+# test_torch_semiring.py and test_torch_layout.py), a weighted choice
+# without replacement, and the ring's protocols other than the flood (the
+# single-device SIR, gossip, push-sum and PageRank are ported; their ring
+# forms wait). The flood options this test once held (methods frontier
+# and skew, bitset=True) are ported and checked in test_torch_frontier.py
+# and test_torch_skew.py.
 @pytest.mark.parametrize("proto", [
     lambda tg: TE.run(tg, TF.Flood(), prng.key(0), 2, recorder=object()),
     lambda tg: TE.run_from(tg, TF.Flood(), TF.Flood().init(tg, prng.key(0)),
                            prng.key(0), 2,
                            recorder=object()),
-    _carry_with("layout_inv"),
-    _carry_with("layout_perm"),
+    _carry_with("delta_log"),
+    lambda tg: prng.choice(prng.key(0), 4, (2,), replace=False,
+                           p=torch.ones(4), device="cpu"),
     lambda tg: sharded.init_state(tg, SIR()),
 ])
 def test_unported_options_raise(proto):

@@ -49,7 +49,11 @@ def test_the_walk_sees_the_whole_port():
             "gossip.py", "pushsum.py", "pagerank.py", "extremum.py",
             "hopdist.py", "leader.py", "components.py", "spanning.py",
             "mis.py", "coloring.py", "kcore.py", "routing.py",
-            "messagebatch.py", "querybatch.py", "lanes.py", "accum.py"} <= names
+            "messagebatch.py", "querybatch.py", "lanes.py", "accum.py",
+            "edgehash.py", "walk.py", "plumtree.py", "bracha.py", "hits.py",
+            "centrality.py", "labelprop.py", "bipartite.py", "boruvka.py",
+            "triangles.py", "vivaldi.py", "detector.py", "antientropy.py",
+            "layout.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
@@ -62,6 +66,12 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.models.querybatch, "
             "p2pnetwork_tpu_torch.ops.lanes, "
             "p2pnetwork_tpu_torch.utils.accum, "
+            "p2pnetwork_tpu_torch.utils.edgehash, "
+            "p2pnetwork_tpu_torch.sim.layout, "
+            "p2pnetwork_tpu_torch.models.walk, "
+            "p2pnetwork_tpu_torch.models.plumtree, "
+            "p2pnetwork_tpu_torch.models.triangles, "
+            "p2pnetwork_tpu_torch.models.centrality, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'p2pnetwork_tpu')]; "
@@ -90,11 +100,20 @@ def test_import_leaves_jax_unloaded():
     lambda: TG.kademlia(16, 2),
     lambda: interop.message_batch_from_numpy({}),
     lambda: interop.query_batch_from_numpy({}),
+    lambda: TG.from_edges([0, 1], [1, 0], 2, reorder="rcm"),
+    lambda: prng.choice(prng.key(0), 8, (3,), p=torch.ones(8)),
+    lambda: interop.protocol_state_from_numpy(
+        "PlumtreeBitState", {"eager": np.zeros(4, np.uint32),
+                             "round": np.int32(0)}),
+    lambda: interop.protocol_state_from_numpy(
+        "AntiEntropyState", {"have": np.zeros((4, 2), bool),
+                             "round": np.int32(0)}),
 ], ids=["default-device", "explicit-cuda", "interop", "resolve",
         "ring-mesh", "prng-uniform", "prng-bits", "interop-state",
         "prng-permutation", "prng-choice", "weighted-build",
         "interop-kcore-state", "chord", "kademlia", "interop-batch",
-        "interop-query-batch"])
+        "interop-query-batch", "reordered-build", "prng-weighted-choice",
+        "interop-plumtree-bits", "interop-antientropy"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")

@@ -229,5 +229,6 @@ def test_choice_refusals():
     with pytest.raises(ValueError, match="greater than 0"):
         prng.choice(prng.key(0), 0, (1,), device="cpu")
     with pytest.raises(NotImplementedError, match="weights"):
-        prng.choice(prng.key(0), 5, (2,), p=torch.ones(5), device="cpu")
+        prng.choice(prng.key(0), 5, (2,), replace=False, p=torch.ones(5),
+                    device="cpu")
     assert prng.choice(prng.key(0), 0, (0,), device="cpu").shape == (0,)

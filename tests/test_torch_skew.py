@@ -113,8 +113,8 @@ def test_skew_flood_matches(ba, method):
 
 def test_interop_carries_the_table_and_refuses_weights(ba):
     # Weights are carried since the weighted aggregations were ported
-    # (the table's and the graph's alike); a node relabeling, which the
-    # port does not model, is still refused.
+    # (the table's and the graph's alike), and the node relabeling since
+    # reordered builds were; a field the port does not model is refused.
     jg, tg = ba
     fields = graph_fields(jg)
     assert_same_fields(graph_fields(interop.graph_from_numpy(
@@ -124,8 +124,12 @@ def test_interop_carries_the_table_and_refuses_weights(ba):
     fields["skew"] = dict(fields["skew"], weight=weight)
     carried = interop.graph_from_numpy(fields, device="cpu")
     np.testing.assert_array_equal(carried.skew.weight.numpy(), weight)
-    fields["layout_perm"] = np.arange(tg.n_nodes_padded, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="layout_perm"):
+    perm = np.arange(tg.n_nodes_padded, dtype=np.int32)[::-1].copy()
+    fields["layout_perm"] = fields["layout_inv"] = perm
+    carried = interop.graph_from_numpy(fields, device="cpu")
+    np.testing.assert_array_equal(carried.layout_perm.numpy(), perm)
+    fields["delta_log"] = perm
+    with pytest.raises(NotImplementedError, match="delta_log"):
         interop.graph_from_numpy(fields, device="cpu")
 
 
