@@ -173,13 +173,35 @@ Phases, in order; any failure exits non-zero before the result line:
    ``to_original_order``, equals the plain build's run (B1's OR;
    ``reorder-path`` lines). 4o runs last.
    The phases of slice 7 time 3 repeats, not 5.
+4p. State I/O on phase 4's graph (after 4n; ``state-io`` lines, 3
+   repeats): a churn epoch (``DELTA_PAIRS`` live undirected pairs removed,
+   as many random pairs added) by ``apply_delta``, then again with
+   ``donate=True`` on a copy, each byte-equal (``graph_digest``) to the
+   reference and to the port's ``from_edges`` of the merged list, with
+   the host seconds of each; ``Flood`` ``hybrid`` and ``pallas`` to 0.99
+   on the rebuilt layouts (B1's OR), dict and ``seen`` equal to the
+   reference's; ``grow`` by 64 twice (the second doubles the capacity to
+   2,000,128), the new nodes wired to 2 peers each by a delta, flooded by
+   ``hybrid`` (B1 at the new shapes); phase 4's ``hybrid`` flood with an
+   8-row ``FlightRecorder`` at 1 and 4 steps per super-step (rows equal,
+   3 dropped, dict ``EXPECTED_1M``) and the recorder's cost in wall; the
+   flood stopped at 5 rounds, saved, loaded into a fresh ``init`` and
+   resumed to phase 4's ``seen`` (the file's digest the reference's); SIR
+   ``hybrid`` by ``run_from`` 15 rounds, saved with the chain's key,
+   resumed 15 more (B1's sum, threefry); ``save_graph``/``load_graph``
+   and ``cached_graph``'s miss then hit, in a temporary directory; then
+   ``gather``'s row sum in XLA's order against torch's ``sum`` at phase
+   4's and 4g's table shapes (``row-sum`` lines). After
+   4k, 4j's ``auto`` batch call with a 16-row recorder: rows equal, the
+   result ``EXPECTED_BATCH``'s. All against ``EXPECTED_4P``.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
-   phases 4, 4c, 4b, 4i, 4n's closeness and 4o; its sum entry's on the
-   hybrid remainder over 4e's ``hybrid`` run, 4f, 4i's ``KCore(hybrid)``
-   and 4n's Bracha, HITS and betweenness, on the blocked layout over 4e's
-   ``pallas`` run, ``KCore(pallas)`` and 4n's ``Bracha(pallas)``;
-   threefry's over 4e-4g, 4i, 4l's restart run and 4n), then the last
-   line ``{"ok": true, "device": {...}}``.
+   phases 4, 4c, 4b, 4i, 4n's closeness, 4o and 4p's floods; its sum
+   entry's on the hybrid remainder over 4e's ``hybrid`` run, 4f, 4i's
+   ``KCore(hybrid)``, 4n's Bracha, HITS and betweenness and 4p's SIR, on
+   the blocked layout over 4e's ``pallas`` run, ``KCore(pallas)`` and
+   4n's ``Bracha(pallas)``; threefry's over 4e-4g, 4i, 4l's restart run,
+   4n and 4p's SIR), then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
 """
@@ -193,6 +215,7 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -511,6 +534,94 @@ EXPECTED_ANALYTICS = {
                  "sha256": ("4620bd53dbc28ec64fb4ba44a8eeb20d"
                             "d1ecdfb017d5565c07befad62a571dac")}}
 KCORE_K = 10
+
+#: Phase 4p: a churn epoch on phase 4's graph (``DELTA_PAIRS`` live
+#: undirected pairs removed and as many random pairs added, drawn from
+#: ``default_rng(DELTA_SEED)``), growth by ``GROW_NODES`` nodes wired to
+#: ``GROW_FANOUT`` peers each (the same generator's next draws), the
+#: recorder rings, the checkpoint cuts and the graph file. The reference
+#: values (``EXPECTED_4P``) are the JAX package's on the CPU (its floods
+#: by ``segment``: OR is exact, so every method gives the same bits);
+#: regenerate with the recipe in the comment above ``EXPECTED_4P``.
+DELTA_SEED, DELTA_PAIRS = 11, 50_000
+GROW_NODES, GROW_FANOUT = 64, 2
+REC_CAPACITY, BATCH_REC_CAPACITY = 8, 16
+FLOOD_STOP, SIR_STOP = 5, 15
+#: Regenerate (about 25 s; ``graph_digest`` and the constants above are
+#: this script's):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import hashlib, tempfile, jax, numpy as np
+#:   from chip_smoke import *
+#:   from p2pnetwork_tpu.sim import graph as G, engine as E, checkpoint as C, flightrec as R
+#:   from p2pnetwork_tpu.models import Flood, SIR
+#:   from p2pnetwork_tpu.models.messagebatch import BatchFlood
+#:   h = lambda a: hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+#:   k, p, cov = jax.random.key(0), Flood(source=0, method="segment"), dict(coverage_target=0.99, max_rounds=64)
+#:   def flood(gr): st, o = E.run_until_coverage(gr, p, k, **cov); return {**o, "seen_sha256": h(st.seen)}
+#:   g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0, blocked=True, hybrid=True, source_csr=True); print(graph_digest(g))
+#:   rng = np.random.default_rng(DELTA_SEED); s, r = np.asarray(g.senders)[:g.n_edges], np.asarray(g.receivers)[:g.n_edges]
+#:   pick = rng.choice(np.flatnonzero(s < r), DELTA_PAIRS, replace=False); a = rng.integers(0, g.n_nodes, DELTA_PAIRS)
+#:   b = (a + rng.integers(1, g.n_nodes, DELTA_PAIRS)) % g.n_nodes
+#:   gd = G.apply_delta(g, G.GraphDelta.undirected(add_senders=a, add_receivers=b, remove_senders=s[pick], remove_receivers=r[pick]))
+#:   print(gd.n_edges, graph_digest(gd), flood(gd))
+#:   new = np.arange(g.n_nodes, g.n_nodes + 2 * GROW_NODES); peers = rng.integers(0, g.n_nodes, new.size * GROW_FANOUT)
+#:   gw = G.apply_delta(G.grow(G.grow(gd, GROW_NODES), GROW_NODES), G.GraphDelta.undirected(add_senders=np.repeat(new, GROW_FANOUT), add_receivers=peers))
+#:   print(gw.n_nodes_padded, graph_digest(gw), flood(gw))
+#:   for T in (1, 4): st, o = E.run_until_coverage_from(g, p, p.init(g, k), k, steps_per_round=T, recorder=R.FlightRecorder(REC_CAPACITY), donate=False, **cov); f = o.pop("flight_record"); print(o, f.dropped, h(f.rows))
+#:   d = tempfile.mkdtemp(); dig = lambda f: bytes(np.load(f)["__sha256__"]).decode()
+#:   st5, o5 = E.run_until_coverage_from(g, p, p.init(g, k), k, coverage_target=0.99, max_rounds=FLOOD_STOP, donate=False)
+#:   C.save(d + "/f.npz", st5, k, o5["rounds"], o5["messages"])
+#:   st, o = E.run_until_coverage_from(g, p, C.load(d + "/f.npz", p.init(g, k))[0], k, **cov); print(o5, dig(d + "/f.npz"), o, h(st.seen))
+#:   sp = SIR(method="segment", **SIR_RUNG); s15, st15 = E.run_from(g, sp, sp.init(g, k), k, SIR_STOP, donate=False)
+#:   C.save(d + "/s.npz", s15, jax.random.fold_in(k, SIR_STOP), SIR_STOP, int(np.asarray(st15["messages"]).sum()))
+#:   sl, kl, _, ml = C.load(d + "/s.npz", sp.init(g, k)); s30, st30 = E.run_from(g, sp, sl, kl, SIR_STOP, donate=False)
+#:   print(dig(d + "/s.npz"), ml, h(s30.status), np.asarray(st30["messages"]).tolist())
+#:   bg = G.watts_strogatz(100_000, 10, 0.1, seed=0, source_csr=True); bp = BatchFlood(method="auto")
+#:   src = np.random.default_rng(0).integers(0, bg.n_nodes, 1024).astype(np.int32)
+#:   o = E.run_batch_until_coverage(bg, bp, bp.init(bg, src), k, max_rounds=64, donate=False, recorder=R.FlightRecorder(BATCH_REC_CAPACITY))[1]
+#:   print(h(o["flight_record"].rows))
+#:   EOF
+EXPECTED_4P = {
+    "graph_sha256": ("f705b2fe12777b2f26e49d9b229899cc"
+                    "1a69f2c3b6e03543d4b5500062894438"),
+    "delta": {"n_edges": 9999994, "rounds": 11,
+              "coverage": 0.9999610185623169,
+              "messages": 9733246,
+              "frontier_occupancy_mean": 0.09090545773506165,
+              "graph_sha256": ("76728b4881805f325772f0164bb95a95"
+                    "449f3fdacef76389f5589c9352db2c48"),
+              "seen_sha256": ("31418a3454261b4bcafb795f16dd8d83"
+                    "9071c19a977079ca5f1ca934cdb0ed2c")},
+    "grow": {"n_pad": 2000128, "rounds": 11,
+             "coverage": 0.9999610185623169,
+             "messages": 9733742,
+             "frontier_occupancy_mean": 0.09090545773506165,
+             "graph_sha256": ("75fc4f117475a408f56c28c3ad249bd7"
+                    "0478ea4303591930eab4b22d37a96f3f"),
+             "seen_sha256": ("c04264483cc0fcc9396ab0720548dff8"
+                    "2c1782a5bf54c06e9ba4f886305fedab")},
+    "rec_1": {"dropped": 3,
+              "rows_sha256": ("b849a88d69b03d723312c71c5e008424"
+                    "fcce1125d0d8b9898ac2b265b8fdc242")},
+    "rec_4": {"dropped": 3,
+              "rows_sha256": ("b849a88d69b03d723312c71c5e008424"
+                    "fcce1125d0d8b9898ac2b265b8fdc242")},
+    "ckpt_flood": {
+        "stop": {'rounds': 5, 'coverage': 0.0033650000113993883, 'messages': 8857, 'frontier_occupancy_mean': 0.000672800000756979},
+        "file_sha256": ("7af3cd60f455a7936a2df79a524006b9"
+                    "8c7af13e10d81a3b395e45931d3ff189"),
+        "resumed": {'rounds': 6, 'coverage': 0.9997529983520508, 'messages': 9363543, 'frontier_occupancy_mean': 0.16606466472148895}},
+    "ckpt_sir": {
+        "file_sha256": ("40a81d31a9829c71269c65da2708ae7d"
+                    "4887a335935077f38cac163254bb00f1"),
+        "messages_at_stop": 2637852,
+        "status_sha256": ("79874a9376df937db5c0d468e10b619c"
+                    "82b2d394c87a7157602e08d9227aed1e"),
+        "messages": [2539644, 4418252, 6639477, 8213026, 8600120, 8334420, 7937582, 7543010, 7166840, 6807144, 6464770, 6145843, 5838978, 5546234, 5267499]},
+    "batch_rec": {"rows_sha256": ("53081bc0472999efab88d18ea08672e1"
+                    "f1d7b9f5bf7991504e4e6b6b60ad5005"),
+                  "rows": [[1.0, 0.09757000207901001, 10278.0, 10278.0, 11302.0, 1024.0, 0.0], [2.0, 0.2535000145435333, 103944.0, 114222.0, 40887.0, 1024.0, 0.0], [3.0, 0.7205100059509277, 300405.0, 414627.0, 175613.0, 1024.0, 0.0], [4.0, 0.9841200113296509, 1365434.0, 1780061.0, 678768.0, 1024.0, 0.0], [5.0, 0.9999899864196777, 5097064.0, 6877125.0, 2668546.0, 1024.0, 0.0], [6.0, 1.0, 20150658.0, 27027784.0, 10020809.0, 1024.0, 0.0], [7.0, 1.0, 74403000.0, 101430768.0, 33417312.0, 1024.0, 0.0], [8.0, 1.0, 236135072.0, 337565824.0, 77573864.0, 1024.0, 0.0], [9.0, 1.0, 442073504.0, 779639360.0, 101054424.0, 414.0, 0.0], [10.0, 0.0, 126671256.0, 906310592.0, 102130432.0, 0.0, 0.0]]},
+}
 
 #: Phase 4j: bench.py's batched column (``time_batch_flood``, ``bench_batched``)
 #: on its 100K WS class: B = 1,024 floods to 0.99 by ``BatchFlood``, the
@@ -2562,6 +2673,341 @@ def library_path(g, engine, prng, segsum, threefry, device_mod, M) -> dict:
     return launches
 
 
+def churn_delta(g, graph_mod, rng):
+    """Phase 4p's churn epoch: ``DELTA_PAIRS`` live undirected pairs
+    removed, as many random pairs (no self-loop) added, both directions
+    stored (``GraphDelta.undirected``). Returns the delta and the merged
+    edge list of the equivalence contract (kept + adds). ``g`` is
+    pristine: its live edges are its first ``n_edges``."""
+    s = g.senders[:g.n_edges].cpu().numpy()
+    r = g.receivers[:g.n_edges].cpu().numpy()
+    fwd = np.flatnonzero(s < r)
+    pick = rng.choice(fwd, DELTA_PAIRS, replace=False)
+    a = rng.integers(0, g.n_nodes, DELTA_PAIRS)
+    b = (a + rng.integers(1, g.n_nodes, DELTA_PAIRS)) % g.n_nodes
+    delta = graph_mod.GraphDelta.undirected(
+        add_senders=a, add_receivers=b, remove_senders=s[pick],
+        remove_receivers=r[pick])
+    keys = (r.astype(np.int64) << 32) | s
+    gone = ((delta.remove_receivers.astype(np.int64) << 32)
+            | delta.remove_senders)
+    keep = ~np.isin(keys, gone)
+    merged = (np.concatenate([s[keep], delta.add_senders]),
+              np.concatenate([r[keep], delta.add_receivers]))
+    return delta, merged
+
+
+def host_timed(fn):
+    """``fn()`` and its wall seconds, the device drained at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_graph(label, gr, want_sha):
+    got = graph_digest(gr)
+    if got != want_sha:
+        fail(f"{label}: the graph's arrays differ from the reference's "
+             f"(sha256 {got}, want {want_sha})")
+
+
+def flood_check(label, gr, method, want, engine, segsum, threefry,
+                device_mod, Flood):
+    """A counted ``Flood(method)`` run to 0.99 on ``gr``: its dict and the
+    sha256 of its final ``seen`` must equal ``want``'s, and B1 must
+    launch. Returns the counts and the timed walls."""
+    proto = Flood(source=0, method=method)
+    run = lambda: engine.run_until_coverage(  # noqa: E731
+        gr, proto, KEY, coverage_target=0.99, max_rounds=64)
+    (state, out), rec = counted(run, segsum, threefry, device_mod)
+    out["seen_sha256"] = digest(bool_seen(state, gr.n_nodes_padded))
+    expected = {k: want[k] for k in out}
+    if out != expected:
+        fail(f"{label} {method} returned {out}, the reference gives "
+             f"{expected}")
+    if rec["segsum_launches"] == 0:
+        fail(f"{label} {method} never launched the segment-sum kernel")
+    return rec, timed_runs(run, NEW_REPS)
+
+
+def state_io_path(g, seen, engine, prng, segsum, threefry, device_mod,
+                  graph_mod, Flood, SIR, ckpt, flightrec, layoutcache,
+                  telemetry):
+    """Phase 4p: on phase 4's graph, a churn epoch applied incrementally
+    (``donate`` off, then on a copy in the rolling form), floods on the
+    rebuilt layouts, growth by ``GROW_NODES`` wired by a delta, the flight
+    recorder on phase 4's hybrid flood, checkpoints cut mid-run and
+    resumed (the flood and SIR), and the graph file and layout cache.
+    Every check is against ``EXPECTED_4P``. Returns B1's launches (OR
+    entry: the floods; sum entry: SIR) and threefry's."""
+    want = EXPECTED_4P
+    launches = {"or": 0, "sum": 0, "threefry": 0}
+    cov = dict(coverage_target=0.99, max_rounds=64)
+    rng = np.random.default_rng(DELTA_SEED)
+
+    # The churn epoch.
+    delta, merged = churn_delta(g, graph_mod, rng)
+    gd, apply_s = host_timed(lambda: graph_mod.apply_delta(g, delta))
+    phases = graph_mod.last_build_phases()
+    check_graph("4p apply_delta", gd, want["delta"]["graph_sha256"])
+    base = dataclasses.replace(g, **{n: getattr(g, n).clone() for n in (
+        "neighbors", "neighbor_mask", "in_degree", "out_degree")})
+    rolled, donate_s = host_timed(
+        lambda: graph_mod.apply_delta(base, delta, donate=True))
+    check_graph("4p apply_delta(donate=True)", rolled,
+                want["delta"]["graph_sha256"])
+    del base, rolled
+    fresh, from_edges_s = host_timed(lambda: graph_mod.from_edges(
+        *merged, g.n_nodes, blocked=True, hybrid=True, source_csr=True))
+    check_graph("4p from_edges of the merged list", fresh,
+                want["delta"]["graph_sha256"])
+    del fresh
+    print(json.dumps({
+        "phase": "state-io", "part": "delta", "removed": delta.n_removes,
+        "added": delta.n_adds, "n_edges": gd.n_edges,
+        "apply_delta_s": apply_s, "apply_delta_donate_s": donate_s,
+        "from_edges_s": from_edges_s, "apply_delta_phases": phases,
+        "hybrid_remainder": list(gd.hybrid.remainder.src.shape),
+        "blocked": list(gd.blocked.src.shape)}), flush=True)
+    for method in ("hybrid", "pallas"):
+        rec, timed = flood_check("4p delta", gd, method, want["delta"],
+                                 engine, segsum, threefry, device_mod, Flood)
+        launches["or"] += rec["segsum_launches"]
+        print(json.dumps({"phase": "state-io", "part": "delta-flood",
+                          "method": method, **rec, **timed}), flush=True)
+
+    # Growth, twice by GROW_NODES: the first fills the capacity (64 free
+    # ids; the hybrid layout alone is rebuilt), the second doubles it; the
+    # new nodes are then wired by a delta.
+    gg, grow_s = host_timed(lambda: graph_mod.grow(
+        graph_mod.grow(gd, GROW_NODES), GROW_NODES))
+    new = np.arange(g.n_nodes, g.n_nodes + 2 * GROW_NODES)
+    peers = rng.integers(0, g.n_nodes, new.size * GROW_FANOUT)
+    wire = graph_mod.GraphDelta.undirected(
+        add_senders=np.repeat(new, GROW_FANOUT), add_receivers=peers)
+    gw, wire_s = host_timed(
+        lambda: graph_mod.apply_delta(gg, wire, donate=True))
+    del gg, gd
+    if gw.n_nodes_padded != want["grow"]["n_pad"]:
+        fail(f"4p grow: capacity {gw.n_nodes_padded}, want "
+             f"{want['grow']['n_pad']}")
+    check_graph("4p grow + wiring", gw, want["grow"]["graph_sha256"])
+    rec, timed = flood_check("4p grown", gw, "hybrid", want["grow"], engine,
+                             segsum, threefry, device_mod, Flood)
+    launches["or"] += rec["segsum_launches"]
+    print(json.dumps({"phase": "state-io", "part": "grow-flood",
+                      "method": "hybrid", "grow_s": grow_s,
+                      "wire_s": wire_s, "n_pad": gw.n_nodes_padded,
+                      "hybrid_remainder":
+                          list(gw.hybrid.remainder.src.shape),
+                      **rec, **timed}), flush=True)
+    del gw
+    torch.cuda.empty_cache()
+
+    # The flight recorder on phase 4's hybrid flood: 11 rounds in an
+    # 8-row ring, at 1 and 4 steps per super-step.
+    proto = Flood(source=0, method="hybrid")
+    walls = {}
+    for steps in (1, 4):
+        rec_run = lambda: engine.run_until_coverage_from(  # noqa: E731
+            g, proto, proto.init(g, KEY), KEY, steps_per_round=steps,
+            recorder=flightrec.FlightRecorder(REC_CAPACITY), **cov)
+        (_, out), rec = counted(rec_run, segsum, threefry, device_mod)
+        ring = out.pop("flight_record")
+        exp = want[f"rec_{steps}"]
+        if out != EXPECTED_1M or ring.dropped != exp["dropped"] or \
+                digest(torch.from_numpy(ring.rows)) != exp["rows_sha256"]:
+            fail(f"4p recorder (steps {steps}): {out}, dropped "
+                 f"{ring.dropped}, rows {ring.rows.tolist()}; the "
+                 f"reference gives {exp}")
+        launches["or"] += rec["segsum_launches"]
+        off_run = lambda: engine.run_until_coverage_from(  # noqa: E731
+            g, proto, proto.init(g, KEY), KEY, steps_per_round=steps, **cov)
+        walls[steps] = {"with": timed_runs(rec_run, NEW_REPS),
+                        "without": timed_runs(off_run, NEW_REPS)}
+        print(json.dumps({
+            "phase": "state-io", "part": "recorder", "steps": steps,
+            "capacity": REC_CAPACITY, "dropped": ring.dropped, **rec,
+            "wall_s": walls[steps]["with"]["wall_s"],
+            "wall_s_without": walls[steps]["without"]["wall_s"],
+            "recorder_cost_s": walls[steps]["with"]["wall_s"]
+            - walls[steps]["without"]["wall_s"],
+            "profile": walls[steps]["with"]["profile"],
+            "profile_without": walls[steps]["without"]["profile"]}),
+            flush=True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # The flood checkpointed at FLOOD_STOP rounds and resumed.
+        stop_run = lambda: engine.run_until_coverage_from(  # noqa: E731
+            g, proto, proto.init(g, KEY), KEY, coverage_target=0.99,
+            max_rounds=FLOOD_STOP)
+        (st5, o5), rec = counted(stop_run, segsum, threefry, device_mod)
+        launches["or"] += rec["segsum_launches"]
+        exp = want["ckpt_flood"]
+        if o5 != exp["stop"]:
+            fail(f"4p flood stopped at {FLOOD_STOP}: {o5}, the reference "
+                 f"gives {exp['stop']}")
+        path = f"{tmp}/flood.npz"
+        _, save_s = host_timed(lambda: ckpt.save(path, st5, KEY, o5["rounds"],
+                                                 o5["messages"]))
+        file_sha = file_digest(path)
+        (st, key, rnd, msgs), load_s = host_timed(
+            lambda: ckpt.load(path, proto.init(g, KEY)))
+        (st, out), rec = counted(
+            lambda: engine.run_until_coverage_from(g, proto, st, key, **cov),
+            segsum, threefry, device_mod)
+        launches["or"] += rec["segsum_launches"]
+        if (file_sha != exp["file_sha256"] or out != exp["resumed"]
+                or rnd + out["rounds"] != EXPECTED_1M["rounds"]
+                or msgs + out["messages"] != EXPECTED_1M["messages"]
+                or not torch.equal(bool_seen(st, g.n_nodes_padded), seen)):
+            fail(f"4p flood resume: file {file_sha}, resumed {out} from "
+                 f"round {rnd}; the reference gives {exp} and phase 4's "
+                 f"seen")
+        print(json.dumps({"phase": "state-io", "part": "checkpoint-flood",
+                          "stop_rounds": rnd, "resumed_rounds": out["rounds"],
+                          "save_s": save_s, "load_s": load_s,
+                          "file_bytes": Path(path).stat().st_size,
+                          **rec}), flush=True)
+
+        # SIR by run_from, checkpointed with the chain's key, resumed.
+        sir = SIR(method="hybrid", **SIR_RUNG)
+        (s15, st15), rec1 = counted(lambda: engine.run_from(
+            g, sir, sir.init(g, KEY), KEY, SIR_STOP), segsum, threefry,
+            device_mod)
+        path = f"{tmp}/sir.npz"
+        ckpt.save(path, s15, prng.fold_in(KEY, SIR_STOP), SIR_STOP,
+                  int(st15["messages"].sum()))
+        sl, kl, rl, ml = ckpt.load(path, sir.init(g, KEY))
+        (s30, st30), rec2 = counted(lambda: engine.run_from(
+            g, sir, sl, kl, SIR_STOP), segsum, threefry, device_mod)
+        exp = want["ckpt_sir"]
+        got = {"file_sha256": file_digest(path), "messages_at_stop": ml,
+               "status_sha256": digest(s30.status),
+               "messages": st30["messages"].tolist()}
+        if got != exp or rl != SIR_STOP:
+            fail(f"4p SIR resume: {got}, the reference gives {exp}")
+        for r in (rec1, rec2):
+            launches["sum"] += r["segsum_launches"]
+            launches["threefry"] += r["threefry_launches"]
+        print(json.dumps({"phase": "state-io", "part": "checkpoint-sir",
+                          "rounds": [SIR_STOP, SIR_STOP],
+                          "segsum_launches": rec1["segsum_launches"]
+                          + rec2["segsum_launches"],
+                          "threefry_launches": rec1["threefry_launches"]
+                          + rec2["threefry_launches"]}), flush=True)
+
+        # The graph file and the layout cache.
+        path = f"{tmp}/graph.npz"
+        _, gsave_s = host_timed(lambda: ckpt.save_graph(path, g))
+        loaded, gload_s = host_timed(lambda: ckpt.load_graph(path))
+        check_graph("4p load_graph", loaded, want["graph_sha256"])
+        del loaded
+        reg = telemetry.Registry()
+        prev = telemetry.set_default_registry(reg)
+        try:
+            kw = dict(cache_dir=f"{tmp}/layouts",
+                      params={"n": N_NODES, "k": 10, "p": 0.1, "seed": 0})
+            (_, miss_s, hit0), miss_wall = host_timed(
+                lambda: layoutcache.cached_graph("ws-1m", lambda: g, **kw))
+            (cached, load_cached_s, hit1), hit_wall = host_timed(
+                lambda: layoutcache.cached_graph("ws-1m", lambda: g, **kw))
+        finally:
+            telemetry.set_default_registry(prev)
+        misses = reg.value("layout_cache_miss_total", reason="missing")
+        if (hit0, hit1, misses) != (False, True, 1):
+            fail(f"4p layout cache: hits {hit0}, {hit1}, misses {misses}")
+        check_graph("4p cached_graph", cached, want["graph_sha256"])
+        print(json.dumps({"phase": "state-io", "part": "graph-file",
+                          "save_graph_s": gsave_s, "load_graph_s": gload_s,
+                          "file_bytes": Path(path).stat().st_size,
+                          "cache_miss_s": miss_wall, "cache_hit_s": hit_wall,
+                          "cache_load_s": load_cached_s}), flush=True)
+    return launches
+
+
+#: The f32 row sums that ``gather`` and ``skew`` now add in XLA's order
+#: (``utils/accum.py::row_sum``): phase 4's neighbor table and 4g's BA
+#: table, timed against torch's ``sum(dim=1)``, the form they replaced.
+ROW_SUM_SHAPES = [("ws-1m", N_PAD, 17), ("ba-100k", 100_096, 128)]
+
+
+def row_sum_walls(accum) -> None:
+    """Phase 4p: ``row_sum`` against ``vals.sum(dim=1)`` on seeded random
+    rows at the tables' shapes (CUDA events, 20 launches after a
+    warm-up). Its bits must equal the CPU's (the same f32 adds in the
+    same order)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for name, rows, width in ROW_SUM_SHAPES:
+        vals = torch.rand(rows, width, generator=gen, device="cuda")
+        got = accum.row_sum(vals)
+        want = accum.row_sum(vals.cpu())
+        if not torch.equal(got.cpu().view(torch.int32),
+                           want.view(torch.int32)):
+            fail(f"row_sum {name}: the card's bits differ from the CPU's")
+        ms = {}
+        for label, fn in (("row_sum", lambda: accum.row_sum(vals)),
+                          ("torch_sum", lambda: vals.sum(dim=1))):
+            fn()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(20):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            ms[label] = start.elapsed_time(end) / 20
+        print(json.dumps({"phase": "state-io", "part": "row-sum",
+                          "table": name, "shape": [rows, width],
+                          "row_sum_ms": ms["row_sum"],
+                          "torch_sum_ms": ms["torch_sum"]}), flush=True)
+
+
+def file_digest(path) -> str:
+    """A checkpoint file's embedded ``__sha256__``."""
+    with np.load(path) as data:
+        return bytes(data["__sha256__"]).decode()
+
+
+def batch_recorder(bg, engine, segsum, threefry, device_mod, flightrec,
+                   MB):
+    """Phase 4p on phase 4j's graph: the B = 1,024 ``auto`` batch call
+    with a recorder. The rows must equal the reference's, the results
+    ``EXPECTED_BATCH``'s; prints the recorder's cost in wall."""
+    sources = np.random.default_rng(0).integers(
+        0, bg.n_nodes, size=BATCH_B).astype(np.int32)
+    proto = MB.BatchFlood(method="auto")
+
+    def run(recorder=None):
+        return engine.run_batch_until_coverage(
+            bg, proto, proto.init(bg, sources, coverage_target=0.99), KEY,
+            max_rounds=64, recorder=recorder)
+
+    rec_run = lambda: run(flightrec.FlightRecorder(BATCH_REC_CAPACITY))  # noqa: E731,E501
+    (state, out), rec = counted(rec_run, segsum, threefry, device_mod)
+    ring = out.pop("flight_record")
+    out["lane_messages"] = MB.lane_messages(bg, state).cpu().numpy()
+    out["seen"] = state.seen.cpu().numpy()
+    check_run("4p batch with a recorder", lane_summary(
+        out, ("lane_messages", "seen")), EXPECTED_BATCH["first"])
+    exp = EXPECTED_4P["batch_rec"]
+    if digest(torch.from_numpy(ring.rows)) != exp["rows_sha256"]:
+        fail(f"4p batch recorder rows {ring.rows.tolist()}, the reference "
+             f"gives {exp['rows']}")
+    no_launch("4p batch recorder", rec)
+    with_rec, without = timed_runs(rec_run, NEW_REPS), timed_runs(run,
+                                                                  NEW_REPS)
+    print(json.dumps({"phase": "state-io", "part": "batch-recorder",
+                      "rounds": out["rounds"], "capacity": BATCH_REC_CAPACITY,
+                      **rec, "wall_s": with_rec["wall_s"],
+                      "wall_s_without": without["wall_s"],
+                      "recorder_cost_s": with_rec["wall_s"]
+                      - without["wall_s"], "profile": with_rec["profile"],
+                      "profile_without": without["profile"]}), flush=True)
+
+
 def reorder_path(engine, segsum, threefry, device_mod, graph_mod, layout,
                  Flood) -> int:
     """Phase 4o: ``from_edges(reorder=...)`` by ``"rcm"`` and ``"degree"``
@@ -2788,8 +3234,12 @@ def main() -> int:
     from p2pnetwork_tpu_torch.ops import ring, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
-    from p2pnetwork_tpu_torch.sim import engine, failures, layout, topology
+    from p2pnetwork_tpu_torch import telemetry
+    from p2pnetwork_tpu_torch.sim import (checkpoint, engine, failures,
+                                          flightrec, layout, layoutcache,
+                                          topology)
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
+    from p2pnetwork_tpu_torch.utils import accum
 
     # 1. Device.
     gpu = gpu_line()
@@ -2864,7 +3314,13 @@ def main() -> int:
     del rung
     lib_launches = library_path(g, engine, prng, segsum, threefry, _device,
                                 models_mod)
-    del g
+    # 4p (slice 8), after every earlier 1M run: a churn epoch, growth, the
+    # recorder, checkpoints and graph files on phase 4's graph.
+    io_launches = state_io_path(g, seen, engine, prng, segsum, threefry,
+                                _device, graph_mod, Flood, SIR, checkpoint,
+                                flightrec, layoutcache, telemetry)
+    row_sum_walls(accum)
+    del g, seen
     torch.cuda.empty_cache()
 
     # Phase 3's C1 check of B1 (B3's ran at the end of phase 3b).
@@ -2877,6 +3333,9 @@ def main() -> int:
     bg = batch_path(engine, segsum, threefry, _device, graph_mod,
                     frontier_ops, Flood, messagebatch)
     query_path(bg, engine, segsum, threefry, _device, graph_mod, querybatch)
+    # 4p's batch call with a recorder (slice 8), after 4j's and 4k's runs.
+    batch_recorder(bg, engine, segsum, threefry, _device, flightrec,
+                   messagebatch)
     del bg
 
     # 4o (slice 7): the reordered builds, last.
@@ -2904,7 +3363,7 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("segsum", "segsum.cu", "p2pnetwork_tpu/ops/pallas_edge.py:41",
             rows[0], launches + ring_launches["segsum"] + new_launches["or"]
-            + lib_launches["or"] + reorder_launches,
+            + lib_launches["or"] + reorder_launches + io_launches["or"],
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"],
@@ -2918,7 +3377,8 @@ def main() -> int:
         row("segsum_sum", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
             sir_launches["hybrid"] + cons_launches["segsum"]
-            + new_launches["sum"] + lib_launches["sum"], max_err),
+            + new_launches["sum"] + lib_launches["sum"] + io_launches["sum"],
+            max_err),
         row("segsum_sum_blocked", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[3],
             sir_launches["pallas"] + new_launches["sum_blocked"]
@@ -2928,7 +3388,8 @@ def main() -> int:
             "by XLA; no TPU kernel)", threefry_rows[1],
             sir_launches["threefry"] + cons_launches["threefry"]
             + gossip_launches + new_launches["threefry"] + walk_launches
-            + lib_launches["threefry"], threefry_err),
+            + lib_launches["threefry"] + io_launches["threefry"],
+            threefry_err),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,9 +10,11 @@ the paper's adaptive timestep: confidence ``w = ei/(ei+ej)``, step ``cc
 w``, an EWMA of each node's error, and the height pulled toward the
 residual. The init is ``1e-3 * prng.normal`` (within 3 ulp of jax's).
 
-The state is f32 and iterates: the ulps of ``normal`` and of the norm's
-summation order grow over the rounds, so states agree with the
-reference's to a tolerance, the drawn partners and ``messages`` exactly.
+A step is exact: from the same state it gives the reference's bits (the
+norm as XLA computes it, :func:`_norm`). The init's ``normal`` is within
+3 ulp of jax's, and those ulps grow over the rounds, so runs from
+``init`` agree with the reference's to a tolerance, the drawn partners
+and ``messages`` exactly.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.models import base
+from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 
@@ -36,7 +39,14 @@ class VivaldiState:
 
 
 def _norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt((x * x).sum(dim=-1))
+    """``jnp.linalg.norm(x, axis=-1)`` with XLA's CPU bits: the squares
+    accumulate by fused multiply-adds, ``fma(x1, x1, x0 * x0)`` chained
+    over the dimensions, and the root is correctly rounded (taken in f64,
+    rounded once; torch's f32 ``sqrt`` on the CPU is not)."""
+    acc = x[..., 0] * x[..., 0]
+    for d in range(1, x.shape[-1]):
+        acc = TF.fma_f32(x[..., d], x[..., d], acc)
+    return torch.sqrt(acc.double()).to(torch.float32)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -53,6 +53,7 @@ from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.ops import frontier as FR
 from p2pnetwork_tpu_torch.ops import skew as SK
 from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.utils import accum
 
 #: ``auto`` prefers the neighbor-table gather only while the table's
 #: padding waste (slots / true edges) stays under this bound — the
@@ -248,7 +249,7 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
     fmask = graph.node_mask.to(signal.dtype)
     if method == "gather":
         vals = signal[graph.neighbors] * graph.neighbor_mask.to(signal.dtype)
-        return vals.sum(dim=1, dtype=signal.dtype) * fmask
+        return accum.row_sum(vals) * fmask
     if method == "skew":
         return SK.sum_skew(graph.skew, signal, graph.n_nodes_padded) * fmask
     if method == "blocked":

@@ -650,7 +650,9 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
             "the frontier-adaptive ring loop (adaptive_k > 0) is not ported "
             "yet")
     if recorder is not None:
-        raise NotImplementedError("the flight recorder is not ported yet")
+        raise NotImplementedError(
+            "the ring's flight recorder (its ici_bytes column) is not "
+            "ported yet")
     proto, state = _flood_start(sg, mesh, source, state0, comm)
     # The flood draws nothing; the engine's key chain runs unread.
     state, out = engine.run_until_coverage_from(

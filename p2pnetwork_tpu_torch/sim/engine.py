@@ -28,6 +28,12 @@ round (any lane still running) and hand the whole per-lane summary back in
 one device->host transfer (``utils/accum.py``), both counted in
 ``_device.SYNCS``. The reference's telemetry, spans and dispatch gate
 around them are not ported.
+
+``recorder=`` (a ``sim/flightrec.py`` ``FlightRecorder``) on ``run`` /
+``run_from``, ``run_until_coverage_from`` and the two batched loops keeps
+a per-round ring on the device, one row per applied round (a frozen
+sub-step writes none), with the reference's columns for each loop; the
+results are bit-identical to a run without it.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ import torch
 from p2pnetwork_tpu_torch import _device, prng
 from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import threefry as TF
+from p2pnetwork_tpu_torch.sim import flightrec
 from p2pnetwork_tpu_torch.sim.graph import Graph
 from p2pnetwork_tpu_torch.utils import accum
 
@@ -60,12 +67,15 @@ def _freeze(live: torch.Tensor, new, old):
 
 
 def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
-                keep_going, value0, steps_per_round: int = 1):
+                keep_going, value0, steps_per_round: int = 1, ring=None):
     """Run protocol rounds while ``keep_going(value, rounds)`` holds, where
     ``value`` is the last round's ``stats[stat]`` (``value0`` before any).
     Returns ``(state, summary dict)`` with ``rounds``, ``value`` and
     ``messages`` (and ``frontier_occupancy_mean`` for the flood
-    family)."""
+    family). ``ring`` (a flight-recorder ring) gets a row per applied
+    round: the tracked stat in the ``coverage`` column, the running total
+    through ``flightrec.total_f32``; the summary then carries
+    ``flight_record``."""
     T = int(steps_per_round)
     if T < 1:
         raise ValueError(f"steps_per_round must be >= 1, got {T}")
@@ -86,6 +96,13 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
             # to its u32 limb does.
             messages = messages + torch.where(
                 live, stats["messages"], 0).to(torch.int64)
+            if ring is not None:
+                flightrec.write_row(
+                    ring, rounds, live=live,
+                    occupancy=stats.get("frontier_occupancy", 0.0),
+                    new=stats["messages"],
+                    total=flightrec.total_f32(*flightrec.limbs(messages)),
+                    coverage=stats[stat], active_lanes=1, ici_bytes=0.0)
             rounds = rounds + live.to(torch.int32)
             value = torch.where(live, stats[stat].to(torch.float32), value)
             if has_occ:
@@ -98,13 +115,16 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
     out = {"rounds": n_rounds, "value": value, "messages": n_messages}
     if has_occ:
         out["frontier_occupancy_mean"] = occ_mean
+    if ring is not None:
+        out["flight_record"] = flightrec.trim(ring, n_rounds)
     return state, out
 
 
 def run(graph: Graph, protocol, key, rounds: int, *, recorder=None):
     """Run ``rounds`` rounds from ``protocol.init(graph, key)``. Returns
     ``(final_state, stats)``, each stat stacked to ``[rounds]`` as the
-    reference's ``lax.scan`` stacks it (see :func:`run_from`)."""
+    reference's ``lax.scan`` stacks it, and a ``FlightRecord`` third with
+    a ``recorder`` (see :func:`run_from`)."""
     return run_from(graph, protocol, protocol.init(graph, key), key, rounds,
                     recorder=recorder)
 
@@ -119,18 +139,37 @@ def run_from(graph: Graph, protocol, state, key, rounds: int, *,
     ``AdaptiveFlood``'s, still count in ``_device.SYNCS``).
 
     ``state`` is not modified: torch has no buffer donation, so the
-    reference's ``donate`` has no counterpart here. The flight recorder
-    (``recorder=``) is not ported yet."""
-    if recorder is not None:
-        raise NotImplementedError("the flight recorder is not ported yet")
+    reference's ``donate`` has no counterpart here. With ``recorder`` (a
+    ``FlightRecorder``) each round also writes a ring row (the reference's
+    scan form: the ``total`` column is a running f32 sum of ``messages``)
+    and the return is ``(final_state, stats, FlightRecord)``."""
     rounds = int(rounds)
     keys = prng.split(prng.fold_in(key, 1), rounds)
+    ring = None if recorder is None else recorder.init(graph.device)
+    total = torch.zeros((), dtype=torch.float32, device=graph.device)
     per_round = []
     for r in range(rounds):
         state, stats = protocol.step(graph, state, keys[r])
         per_round.append(stats)
+        if ring is not None:
+            new = torch.as_tensor(stats.get("messages", 0.0),
+                                  device=graph.device).to(torch.float32)
+            total = total + new
+            flightrec.write_row(
+                ring, r, occupancy=stats.get("frontier_occupancy", 0.0),
+                new=new, total=total, coverage=stats.get("coverage", 0.0),
+                active_lanes=1, ici_bytes=0.0)
+    out = _stack_stats(per_round)
+    if ring is None:
+        return state, out
+    return state, out, flightrec.trim(ring, rounds)
+
+
+def _stack_stats(per_round) -> dict:
+    """Every stat of every round as ``[rounds]`` host tensors, in one
+    device -> host transfer."""
     if not per_round:
-        return state, {}
+        return {}
     names = list(per_round[0])
     # One device -> host transfer: every stat of every round, as f64
     # (exact for the i32/i64 counts and the f32 ratios alike).
@@ -142,7 +181,7 @@ def run_from(graph: Graph, protocol, state, key, rounds: int, *,
         dtype = per_round[0][n].dtype
         out[n] = table[:, i].to(torch.float32 if dtype.is_floating_point
                                 else torch.int64)
-    return state, out
+    return out
 
 
 def run_until_coverage(graph: Graph, protocol, key, *,
@@ -162,10 +201,12 @@ def run_until_coverage(graph: Graph, protocol, key, *,
 def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
                             coverage_target: float = 0.99,
                             max_rounds: int = 1024,
-                            steps_per_round: int = 1):
+                            steps_per_round: int = 1, recorder=None):
     """Run-to-coverage continuing from ``state0`` (not modified). The loop
     starts from ``state0``'s true coverage where the protocol can say it,
-    so resuming a finished run executes zero rounds."""
+    so resuming a finished run executes zero rounds. ``recorder`` (a
+    ``FlightRecorder``) adds ``out["flight_record"]``, one row per applied
+    round at any ``steps_per_round``."""
     _require_stats(protocol, ("coverage", "messages"))
     target = torch.tensor(coverage_target, dtype=torch.float32,
                           device=graph.device)
@@ -174,7 +215,8 @@ def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
     state, out = _stat_while(
         graph, protocol, state0, key, stat="coverage",
         keep_going=lambda v, r: (v < target) & (r < max_rounds),
-        value0=cov0, steps_per_round=steps_per_round)
+        value0=cov0, steps_per_round=steps_per_round,
+        ring=None if recorder is None else recorder.init(graph.device))
     out["coverage"] = out.pop("value")
     return state, out
 
@@ -204,12 +246,13 @@ def run_until_converged(graph: Graph, protocol, key, *, stat: str,
 
 
 def _lane_loop(graph: Graph, protocol, batch, key, max_rounds: int,
-               messages_of, add_occupancy):
+               messages_of, add_occupancy, ring=None, row_of=None):
     """Step every running lane until none runs or ``max_rounds`` global
     rounds pass: one host read of the exit flag a round, the reference's
     key chain (``k, sub = split(k)`` before each step). Returns the batch,
     the rounds (i32), the exact messages (i64) and the occupancy sum
-    (f32), all on the device."""
+    (f32), all on the device. With ``ring``, ``row_of(batch, stats,
+    messages)`` gives each round's flight-recorder columns."""
     dev = graph.device
     messages = torch.zeros((), dtype=torch.int64, device=dev)
     occ = torch.zeros((), dtype=torch.float32, device=dev)
@@ -220,6 +263,9 @@ def _lane_loop(graph: Graph, protocol, batch, key, max_rounds: int,
         batch, stats = protocol.step(graph, batch, sub)
         messages = messages + messages_of(stats)
         occ = add_occupancy(occ, batch, stats)
+        if ring is not None:
+            flightrec.write_row(ring, r, ici_bytes=0.0,
+                                **row_of(batch, stats, messages))
         r += 1
     return batch, torch.tensor(r, dtype=torch.int32, device=dev), \
         messages, occ
@@ -262,16 +308,28 @@ def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
     ``newly_completed_lanes`` and, when any lane completed in this call,
     ``completion_rounds_p50``/``p99`` over those lanes — the reference's
     dict. ``donate`` is accepted and has no effect: ``batch`` is not
-    modified (torch has no buffer donation; see :func:`run_from`). The
-    flight recorder (``recorder=``) is not ported."""
-    if recorder is not None:
-        raise NotImplementedError("the flight recorder is not ported yet")
+    modified (torch has no buffer donation; see :func:`run_from`). With
+    ``recorder`` (a ``FlightRecorder``) each global round writes a ring
+    row (union-frontier occupancy, the round's sends, the running total,
+    the lanes' seen counts summed, the running lanes) and ``out`` carries
+    ``flight_record``."""
     done0 = batch.done.clone()
     batch = protocol.refresh(graph, batch)
+    ring = None if recorder is None else recorder.init(graph.device)
+
+    def row(b, st, messages):
+        # f32 sums in XLA's order: the seen counts pass 2^24 at scale.
+        return dict(
+            occupancy=st["batch_occupancy"],
+            new=accum.ordered_sum(st["messages_words"].to(torch.float32)),
+            total=flightrec.total_f32(*flightrec.limbs(messages)),
+            coverage=accum.ordered_sum(b.seen_count.to(torch.float32)),
+            active_lanes=st["active_lanes"])
+
     batch, rounds, messages, occ = _lane_loop(
         graph, protocol, batch, key, max_rounds,
         lambda st: st["messages_words"].sum(),
-        lambda occ, b, st: occ + st["batch_occupancy"])
+        lambda occ, b, st: occ + st["batch_occupancy"], ring, row)
     packed = accum.pack_batch_summary(
         rounds, (batch.admitted & ~batch.done).sum(), batch.done.sum(),
         messages, occ / rounds.clamp_min(1).to(torch.float32),
@@ -279,6 +337,8 @@ def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
     host, done0 = _summary(packed, done0)
     out = accum.unpack_batch_summary(host, batch.n_words)
     _newly_completed(out, done0)
+    if ring is not None:
+        out["flight_record"] = flightrec.trim(ring, out["rounds"])
     return batch, out
 
 
@@ -291,9 +351,9 @@ def run_queries_until_done(graph: Graph, protocol, batch, key, *,
     ``max_rounds`` global rounds pass. ``occupancy_mean`` is the mean
     running-lane fraction; ``lane_values`` carries each lane's answer (f32
     or i32 per family); the rest as :func:`run_batch_until_coverage`,
-    whose ``donate`` and ``recorder`` rules hold here too."""
-    if recorder is not None:
-        raise NotImplementedError("the flight recorder is not ported yet")
+    whose ``donate`` and ``recorder`` rules hold here too (the ring's row:
+    the running-lane fraction, the round's sends, the running total, the
+    finished lanes, the running lanes)."""
     done0 = batch.done.clone()
     batch = protocol.refresh(graph, batch)
     capacity = batch.capacity
@@ -307,9 +367,18 @@ def run_queries_until_done(graph: Graph, protocol, batch, key, *,
         running = (b.admitted & ~b.done).sum(dtype=torch.int32)
         return TF.fma_f32(running.to(torch.float32), inv_capacity, occ)
 
+    def row(b, st, messages):
+        running = (b.admitted & ~b.done).sum(dtype=torch.int32)
+        return dict(
+            occupancy=running.to(torch.float32) * inv_capacity,
+            new=st["messages"],
+            total=flightrec.total_f32(*flightrec.limbs(messages)),
+            coverage=b.done.sum(dtype=torch.int32), active_lanes=running)
+
+    ring = None if recorder is None else recorder.init(graph.device)
     batch, rounds, messages, occ = _lane_loop(
         graph, protocol, batch, key, max_rounds,
-        lambda st: st["messages"], occupancy)
+        lambda st: st["messages"], occupancy, ring, row)
     packed = accum.pack_query_summary(
         rounds, (batch.admitted & ~batch.done).sum(), batch.done.sum(),
         messages, occ / rounds.clamp_min(1).to(torch.float32),
@@ -320,4 +389,6 @@ def run_queries_until_done(graph: Graph, protocol, batch, key, *,
     out = accum.unpack_query_summary(host, capacity,
                                      values_float=protocol.VALUES_FLOAT)
     _newly_completed(out, done0)
+    if ring is not None:
+        out["flight_record"] = flightrec.trim(ring, out["rounds"])
     return batch, out

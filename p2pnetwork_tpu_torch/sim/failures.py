@@ -11,9 +11,11 @@ the input is not modified, so keeping it is how a failure is undone.
 ``random_node_failures`` / ``random_edge_failures`` draw their Bernoulli
 masks from ``prng.py``, bit for bit the reference's.
 
-Not ported yet: ``preempt`` (it arms the supervised run harness, not
-ported) and the reference's injected-failure counters (its telemetry
-registry, not ported).
+Every injection is counted in ``sim_injected_failures_total{kind}``
+(``telemetry/``): the entity count for the deterministic kinds, one per
+call for ``partition``, ``preempt`` and the random draws (``*_draw``).
+:func:`preempt` arms a run harness's preemption (anything with
+``arm_preemption``); the port's supervised runner is not written yet.
 """
 
 from __future__ import annotations
@@ -23,10 +25,25 @@ import dataclasses
 import numpy as np
 import torch
 
-from p2pnetwork_tpu_torch import prng
+from p2pnetwork_tpu_torch import prng, telemetry
 from p2pnetwork_tpu_torch.ops import skew as SK
 from p2pnetwork_tpu_torch.sim.graph import Graph
 from p2pnetwork_tpu_torch.sim.topology import _check_ids_in_range, _ids
+
+
+def _count_injected(kind: str, ids=None) -> None:
+    """Count one injection in ``sim_injected_failures_total{kind}``: the
+    number of ids when given, else 1."""
+    n = 1
+    if isinstance(ids, torch.Tensor):
+        n = ids.numel()
+    elif ids is not None:
+        n = int(np.asarray(ids).size)
+    telemetry.default_registry().counter(
+        "sim_injected_failures_total",
+        "Failures injected into sim graphs, by kind (entity counts for "
+        "deterministic kinds, draw counts for *_draw).",
+        ("kind",)).labels(kind).inc(n)
 
 
 def _degrees(graph: Graph, edge_mask: torch.Tensor, dyn_mask=None):
@@ -110,6 +127,7 @@ def fail_nodes(graph: Graph, node_ids) -> Graph:
     """Fail-stop the given nodes: they neither send nor receive, and their
     edges die with them."""
     _check_ids_in_range(node_ids, graph.n_nodes_padded, "node")
+    _count_injected("node", node_ids)
     ids = _ids(graph, node_ids)
     return with_node_liveness(graph, _flags(graph.n_nodes_padded, ids, False))
 
@@ -119,6 +137,7 @@ def mark_unresponsive(graph: Graph, node_ids) -> Graph:
     degrees or tables: the crashed-but-still-configured view a failure
     detector probes. Other protocols want :func:`fail_nodes`."""
     _check_ids_in_range(node_ids, graph.n_nodes_padded, "node")
+    _count_injected("node_unresponsive", node_ids)
     node_mask = graph.node_mask.clone()
     node_mask[_ids(graph, node_ids).long()] = False
     return dataclasses.replace(graph, node_mask=node_mask)
@@ -162,6 +181,7 @@ def with_edge_liveness(graph: Graph, edge_alive: torch.Tensor) -> Graph:
 def fail_edges(graph: Graph, edge_ids) -> Graph:
     """Cut specific links (indices into the edge arrays)."""
     _check_ids_in_range(edge_ids, graph.n_edges_padded, "edge")
+    _count_injected("edge", edge_ids)
     ids = _ids(graph, edge_ids)
     return with_edge_liveness(graph, _flags(graph.n_edges_padded, ids, False))
 
@@ -172,6 +192,7 @@ def revive_nodes(graph: Graph, node_ids, original: Graph) -> Graph:
     live nodes and the revived ones. Edge cuts made after ``original`` are
     forgotten."""
     _check_ids_in_range(node_ids, graph.n_nodes_padded, "node")
+    _count_injected("node_revive", node_ids)
     revived = _flags(graph.n_nodes_padded, _ids(graph, node_ids), True)
     alive = graph.node_mask | (revived & original.node_mask)
     return with_node_liveness(original, alive)
@@ -186,6 +207,7 @@ def partition(graph: Graph, groups) -> Graph:
         ids = np.asarray(group, dtype=np.int64)
         _check_ids_in_range(ids, graph.n_nodes_padded, "node")
         side[ids] = gi
+    _count_injected("partition")
     side_t = torch.from_numpy(side).to(graph.device)
 
     def crossing(senders, receivers):
@@ -209,8 +231,20 @@ kill_nodes = fail_nodes
 cut_links = fail_edges
 
 
+def preempt(run, at_round: int):
+    """Arm a deterministic preemption of a supervised run harness: ``run``
+    is anything with ``arm_preemption(at_round)``, which raises at the
+    first chunk boundary at or past ``at_round``, before the checkpoint
+    due there. Counted as ``sim_injected_failures_total{kind="preempt"}``.
+    Returns ``run``."""
+    _count_injected("preempt")
+    run.arm_preemption(int(at_round))
+    return run
+
+
 def random_node_failures(graph: Graph, key, frac: float) -> Graph:
     """Fail each live node independently with probability ``frac``."""
+    _count_injected("node_draw")
     fail = prng.bernoulli(key, frac, (graph.n_nodes_padded,),
                           device=graph.device)
     return with_node_liveness(graph, ~(fail & graph.node_mask))
@@ -219,6 +253,7 @@ def random_node_failures(graph: Graph, key, frac: float) -> Graph:
 def random_edge_failures(graph: Graph, key, frac: float) -> Graph:
     """Cut each live directed edge independently with probability
     ``frac``."""
+    _count_injected("edge_draw")
     cut = prng.bernoulli(key, frac, (graph.n_edges_padded,),
                          device=graph.device)
     return with_edge_liveness(graph, ~cut)

@@ -23,6 +23,7 @@ from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
 from p2pnetwork_tpu_torch.models.sir import SIR  # noqa: E402
 from p2pnetwork_tpu_torch.ops import segsum  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded  # noqa: E402
+from p2pnetwork_tpu_torch.sim import checkpoint  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
 from tests.test_torch_graph import (FAMILIES, LAYOUTS, build_jax,  # noqa: E402
                                     build_port, graph_fields, state_fields)
@@ -160,9 +161,12 @@ def _carry_with(field):
 
 
 # What is still not ported raises, never runs as something else: the
-# flight recorder of run/run_from, graph fields the port does not model
-# (interop refuses them rather than dropping them; edge weights and the
-# node relabeling are carried since they were ported, in
+# ring's flight recorder (its ici_bytes column waits for the interconnect
+# census; the single-device recorder is ported and checked in
+# test_torch_flightrec.py), the orbax checkpoints (they need JAX; the npz
+# format is ported, test_torch_checkpoint.py), graph fields the port does
+# not model (interop refuses them rather than dropping them; edge weights
+# and the node relabeling are carried since they were ported, in
 # test_torch_semiring.py and test_torch_layout.py), a weighted choice
 # without replacement, and the ring's protocols other than the flood (the
 # single-device SIR, gossip, push-sum and PageRank are ported; their ring
@@ -170,10 +174,10 @@ def _carry_with(field):
 # and skew, bitset=True) are ported and checked in test_torch_frontier.py
 # and test_torch_skew.py.
 @pytest.mark.parametrize("proto", [
-    lambda tg: TE.run(tg, TF.Flood(), prng.key(0), 2, recorder=object()),
-    lambda tg: TE.run_from(tg, TF.Flood(), TF.Flood().init(tg, prng.key(0)),
-                           prng.key(0), 2,
-                           recorder=object()),
+    lambda tg: sharded.flood_until_coverage(None, None, 0,
+                                            recorder=object()),
+    lambda tg: checkpoint.save_orbax("state", TF.Flood().init(
+        tg, prng.key(0)), prng.key(0), 0),
     _carry_with("delta_log"),
     lambda tg: prng.choice(prng.key(0), 4, (2,), replace=False,
                            p=torch.ones(4), device="cpu"),

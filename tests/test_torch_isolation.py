@@ -13,6 +13,7 @@ torch = pytest.importorskip("torch")
 
 from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.parallel.mesh import ring_mesh  # noqa: E402
+from p2pnetwork_tpu_torch.sim import checkpoint  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -53,7 +54,8 @@ def test_the_walk_sees_the_whole_port():
             "edgehash.py", "walk.py", "plumtree.py", "bracha.py", "hits.py",
             "centrality.py", "labelprop.py", "bipartite.py", "boruvka.py",
             "triangles.py", "vivaldi.py", "detector.py", "antientropy.py",
-            "layout.py"} <= names
+            "layout.py", "checkpoint.py", "flightrec.py", "layoutcache.py",
+            "registry.py", "concurrency.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
@@ -72,6 +74,11 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.models.plumtree, "
             "p2pnetwork_tpu_torch.models.triangles, "
             "p2pnetwork_tpu_torch.models.centrality, "
+            "p2pnetwork_tpu_torch.sim.checkpoint, "
+            "p2pnetwork_tpu_torch.sim.flightrec, "
+            "p2pnetwork_tpu_torch.sim.layoutcache, "
+            "p2pnetwork_tpu_torch.telemetry, "
+            "p2pnetwork_tpu_torch.concurrency, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'p2pnetwork_tpu')]; "
@@ -108,12 +115,13 @@ def test_import_leaves_jax_unloaded():
     lambda: interop.protocol_state_from_numpy(
         "AntiEntropyState", {"have": np.zeros((4, 2), bool),
                              "round": np.int32(0)}),
+    lambda: checkpoint.load_graph("graph.npz"),
 ], ids=["default-device", "explicit-cuda", "interop", "resolve",
         "ring-mesh", "prng-uniform", "prng-bits", "interop-state",
         "prng-permutation", "prng-choice", "weighted-build",
         "interop-kcore-state", "chord", "kademlia", "interop-batch",
         "interop-query-batch", "reordered-build", "prng-weighted-choice",
-        "interop-plumtree-bits", "interop-antientropy"])
+        "interop-plumtree-bits", "interop-antientropy", "load-graph"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")

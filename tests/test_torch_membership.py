@@ -7,10 +7,11 @@ indices exactly, for uniform weights, weights masked by failed nodes and
 skewed weights; its prefix sum must have ``jnp.cumsum``'s f32 bits (XLA's
 CPU scan rounds blockwise, not left to right). The detector and
 anti-entropy, which draw through ``prng`` and count, must equal the
-reference's dicts, stacked stats and states exactly. Vivaldi's state is
-f32 iterated from ``prng.normal`` (within 3 ulp of jax's): its drawn
-partners and ``messages`` are exact, its floats within ``VIVALDI_RTOL`` /
-``VIVALDI_ATOL`` after 3 rounds.
+reference's dicts, stacked stats and states exactly. Vivaldi's step is
+exact: one step from the reference's state gives its bits. Runs from
+``init`` start from ``prng.normal`` (within 3 ulp of jax's): their drawn
+partners and ``messages`` are exact, their floats within
+``VIVALDI_RTOL`` / ``VIVALDI_ATOL`` after 3 rounds.
 """
 
 import numpy as np
@@ -33,12 +34,13 @@ from tests.test_torch_semiring import bits, latency  # noqa: E402
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-#: Vivaldi after 3 rounds: the init's normal draws are within 3 ulp of
-#: jax's and the norms add in another order. The first springs act on
-#: points 1e-3 apart, whose unit vectors turn those ulps into ~1e-7
-#: relative moves of O(1) coordinates; three rounds of springs grow them to
-#: ~1e-5 absolute (measured: 1e-5 on the WS graph at 4,096 nodes), while
-#: the stats stay within ~1e-7 relative.
+#: Vivaldi after 3 rounds from ``init``, and only there: the init's normal
+#: draws are within 3 ulp of jax's (a step from a shared state is exact,
+#: ``test_vivaldi_step_is_exact``). The first springs act on points 1e-3
+#: apart, whose unit vectors turn those ulps into ~1e-7 relative moves of
+#: O(1) coordinates; three rounds of springs grow them to ~1e-5 absolute
+#: (measured: 1e-5 on the WS graph at 4,096 nodes), while the stats stay
+#: within ~1e-7 relative.
 VIVALDI_RTOL, VIVALDI_ATOL = 1e-4, 2e-5
 
 
@@ -153,6 +155,36 @@ def test_vivaldi_equals_reference(weighted, noise):
         rtol=VIVALDI_RTOL, atol=VIVALDI_ATOL)
 
 
+@pytest.mark.parametrize("dim,weighted,noise", [
+    (2, False, 0.0), (2, True, 0.2), (3, False, 0.0), (3, True, 0.0)],
+    ids=["hops", "latency-noise", "hops-dim3", "latency-dim3"])
+def test_vivaldi_step_is_exact(dim, weighted, noise):
+    # One step from a shared state (the reference's after 3 rounds,
+    # carried across): coord, height and ce bit for bit, and predicted.
+    # The stats are f32 sums over all nodes, which add in another order:
+    # messages exact, the rest within 1e-6 relative.
+    jg, tg = graphs("ws", "failed")
+    if weighted:
+        jg, tg = jg.with_weights(latency), tg.with_weights(latency)
+    jp = JM.Vivaldi(dim=dim, noise=noise)
+    tp = TM.Vivaldi(dim=dim, noise=noise)
+    js, _ = JE.run(jg, jp, jax.random.key(0), 3)
+    ts = interop.protocol_state_from_numpy("VivaldiState", state_fields(js),
+                                           device="cpu")
+    js1, jst = jp.step(jg, js, jax.random.key(9))
+    ts1, tst = tp.step(tg, ts, prng.key(9))
+    assert_state_equal(ts1, js1)
+    assert int(tst["messages"]) == int(jst["messages"])
+    for k in ("rmse", "mean_rel_err", "mean_ce"):
+        np.testing.assert_allclose(tst[k].numpy(), np.asarray(jst[k]),
+                                   rtol=1e-6, err_msg=k)
+    i, j = np.arange(0, 400, 3), np.arange(5, 405, 3)
+    np.testing.assert_array_equal(
+        bits(tp.predicted(ts1, torch.from_numpy(i),
+                          torch.from_numpy(j)).numpy()),
+        bits(np.asarray(jp.predicted(js1, jnp.asarray(i), jnp.asarray(j)))))
+
+
 def test_vivaldi_needs_a_complete_table():
     tg = build_port("ba", max_degree=4)
     with pytest.raises(ValueError, match="complete neighbor table"):
@@ -162,7 +194,8 @@ def test_vivaldi_needs_a_complete_table():
 # ------------------------------------------------------ failure detector
 
 
-@pytest.mark.parametrize("family,loss_prob", [("ws", 0.05), ("ba", 0.0)])
+@pytest.mark.parametrize("family,loss_prob", [
+    ("ws", 0.0), ("ws", 0.05), ("ba", 0.0), ("ba", 0.05)])
 def test_failure_detector_equals_reference(family, loss_prob):
     jg, tg = graphs(family, "silent")
     jp = JM.FailureDetector(threshold=3, loss_prob=loss_prob)
