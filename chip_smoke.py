@@ -190,18 +190,24 @@ Phases, in order; any failure exits non-zero before the result line:
    ``hybrid`` by ``run_from`` 15 rounds, saved with the chain's key,
    resumed 15 more (B1's sum, threefry); ``save_graph``/``load_graph``
    and ``cached_graph``'s miss then hit, in a temporary directory; then
-   ``gather``'s row sum in XLA's order against torch's ``sum`` at phase
-   4's and 4g's table shapes (``row-sum`` lines). After
-   4k, 4j's ``auto`` batch call with a 16-row recorder: rows equal, the
-   result ``EXPECTED_BATCH``'s. All against ``EXPECTED_4P``.
+   the row-sum kernel (``csrc/rowsum.cu``, port-only: the f32 sums in
+   XLA's order of adds) against its plain version, bit for bit, at phase
+   4's neighbor table, 4g's BA table shape and the batch recorder's lane
+   sums (``kernel`` lines, ``"kernel": "rowsum"``), and PageRank by
+   ``gather`` on phase 4's graph (the kernel once a round; within
+   ``PAGERANK_TOL`` of ``EXPECTED_PAGERANK``, its wall beside the plain
+   column loop's). After 4k, 4j's ``auto`` batch call with a 16-row
+   recorder: rows equal, the result ``EXPECTED_BATCH``'s, the row-sum
+   kernel twice a round. All against ``EXPECTED_4P``.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o and 4p's floods; its sum
    entry's on the hybrid remainder over 4e's ``hybrid`` run, 4f, 4i's
    ``KCore(hybrid)``, 4n's Bracha, HITS and betweenness and 4p's SIR, on
    the blocked layout over 4e's ``pallas`` run, ``KCore(pallas)`` and
    4n's ``Bracha(pallas)``; threefry's over 4e-4g, 4i, 4l's restart run,
-   4n and 4p's SIR), then the last line ``{"ok": true, "device":
-   {...}}``.
+   4n and 4p's SIR; the row-sum kernel's gather entry over 4p's PageRank
+   and its dense entry over 4p's batch recorder), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
 """
@@ -213,6 +219,7 @@ import dataclasses
 import hashlib
 import json
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -546,6 +553,9 @@ KCORE_K = 10
 DELTA_SEED, DELTA_PAIRS = 11, 50_000
 GROW_NODES, GROW_FANOUT = 64, 2
 REC_CAPACITY, BATCH_REC_CAPACITY = 8, 16
+#: Runs with and without the recorder, taken in turns, for its cost: the
+#: host clock spreads 30-50% between runs, more than the cost itself.
+REC_PAIRS = 9
 FLOOD_STOP, SIR_STOP = 5, 15
 #: Regenerate (about 25 s; ``graph_digest`` and the constants above are
 #: this script's):
@@ -1599,6 +1609,24 @@ def flood_runs(phase, g, contest, expected, engine, segsum, device_mod,
     return runs, total, seen
 
 
+def paired_walls(with_run, without_run, pairs=REC_PAIRS) -> dict:
+    """Medians of ``pairs`` walls of each run, taken in turns, and the
+    median of the pairs' differences: the cost of what ``with_run`` adds."""
+    walls = {"with": [], "without": []}
+    for _ in range(pairs):
+        for name, run in (("with", with_run), ("without", without_run)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    diffs = [a - b for a, b in zip(walls["with"], walls["without"])]
+    return {"wall_s": statistics.median(walls["with"]),
+            "wall_s_without": statistics.median(walls["without"]),
+            "recorder_cost_s": statistics.median(diffs),
+            "walls_with": walls["with"], "walls_without": walls["without"]}
+
+
 def timed_runs(run, reps=5) -> dict:
     """Steady-state wall of ``run()`` (median of ``reps``, the checked run
     before them the warm-up) and one run under the profiler
@@ -1887,7 +1915,10 @@ def threefry_phase(prng, threefry, build_mod, flush):
 def counted(run, segsum, threefry, device_mod):
     """``run()`` once with every count set to 0 just before it; returns
     its result, its wall and the counts read just after."""
+    from p2pnetwork_tpu_torch.ops import rowsum
+
     segsum.LAUNCHES = threefry.LAUNCHES = device_mod.SYNCS = 0
+    rowsum.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     result = run()
@@ -1895,6 +1926,7 @@ def counted(run, segsum, threefry, device_mod):
     return result, {"first_run_s": time.perf_counter() - t0,
                     "segsum_launches": segsum.LAUNCHES,
                     "threefry_launches": threefry.LAUNCHES,
+                    "rowsum_launches": rowsum.LAUNCHES,
                     "syncs": device_mod.SYNCS}
 
 
@@ -2825,15 +2857,18 @@ def state_io_path(g, seen, engine, prng, segsum, threefry, device_mod,
         launches["or"] += rec["segsum_launches"]
         off_run = lambda: engine.run_until_coverage_from(  # noqa: E731
             g, proto, proto.init(g, KEY), KEY, steps_per_round=steps, **cov)
+        _, off_rec = counted(off_run, segsum, threefry, device_mod)
+        # The recorder's one host transfer: the ring's fetch at the end.
+        if rec["syncs"] != off_rec["syncs"] + 1:
+            fail(f"4p recorder (steps {steps}) made {rec['syncs']} syncs, "
+                 f"{off_rec['syncs']} without it")
         walls[steps] = {"with": timed_runs(rec_run, NEW_REPS),
                         "without": timed_runs(off_run, NEW_REPS)}
         print(json.dumps({
             "phase": "state-io", "part": "recorder", "steps": steps,
             "capacity": REC_CAPACITY, "dropped": ring.dropped, **rec,
-            "wall_s": walls[steps]["with"]["wall_s"],
-            "wall_s_without": walls[steps]["without"]["wall_s"],
-            "recorder_cost_s": walls[steps]["with"]["wall_s"]
-            - walls[steps]["without"]["wall_s"],
+            "syncs_without": off_rec["syncs"],
+            **paired_walls(rec_run, off_run),
             "profile": walls[steps]["with"]["profile"],
             "profile_without": walls[steps]["without"]["profile"]}),
             flush=True)
@@ -2928,41 +2963,122 @@ def state_io_path(g, seen, engine, prng, segsum, threefry, device_mod,
     return launches
 
 
-#: The f32 row sums that ``gather`` and ``skew`` now add in XLA's order
-#: (``utils/accum.py::row_sum``): phase 4's neighbor table and 4g's BA
-#: table, timed against torch's ``sum(dim=1)``, the form they replaced.
-ROW_SUM_SHAPES = [("ws-1m", N_PAD, 17), ("ba-100k", 100_096, 128)]
+#: The ordered row sums (``ops/rowsum.py``) at the shapes the main path
+#: gives them: PageRank ``gather``'s pull over phase 4's neighbor table
+#: (``gather`` entry), the batch recorder's two 1-D sums (B = 1,024 lane
+#: counts, 32 message words; dense entry); beside them 4g's BA table shape
+#: ``[100096, 128]``, the widest row that ``gather`` and ``skew`` sum.
+BA_ROWS, BA_WIDTH = 100_096, 128
 
 
-def row_sum_walls(accum) -> None:
-    """Phase 4p: ``row_sum`` against ``vals.sum(dim=1)`` on seeded random
-    rows at the tables' shapes (CUDA events, 20 launches after a
-    warm-up). Its bits must equal the CPU's (the same f32 adds in the
-    same order)."""
+def rowsum_phase(rowsum, g, flush):
+    """Phase 4p: the row-sum kernel against its plain version (one torch
+    launch per column of a window, on the card) on seeded random terms at
+    those shapes: bits equal, and equal to the CPU's plain version. Times
+    each (CUDA events after an L2 flush, 20 launches), and for the dense
+    entry the library call ``sum(dim=1)`` (no one PyTorch call gathers,
+    masks and sums, so the gather entry has none). Prints a ``kernel``
+    line each; returns them by table."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for name, rows, width in ROW_SUM_SHAPES:
-        vals = torch.rand(rows, width, generator=gen, device="cuda")
-        got = accum.row_sum(vals)
-        want = accum.row_sum(vals.cpu())
-        if not torch.equal(got.cpu().view(torch.int32),
-                           want.view(torch.int32)):
-            fail(f"row_sum {name}: the card's bits differ from the CPU's")
-        ms = {}
-        for label, fn in (("row_sum", lambda: accum.row_sum(vals)),
-                          ("torch_sum", lambda: vals.sum(dim=1))):
-            fn()
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(20):
-                fn()
-            end.record()
-            torch.cuda.synchronize()
-            ms[label] = start.elapsed_time(end) / 20
-        print(json.dumps({"phase": "state-io", "part": "row-sum",
-                          "table": name, "shape": [rows, width],
-                          "row_sum_ms": ms["row_sum"],
-                          "torch_sum_ms": ms["torch_sum"]}), flush=True)
+    dev = torch.device("cuda")
+    cases = [
+        ("gather", "ws-1m", (torch.rand(g.n_nodes_padded, generator=gen,
+                                        device=dev),
+                             g.neighbors, g.neighbor_mask)),
+        ("gather", "ba-100k", (
+            torch.rand(BA_ROWS, generator=gen, device=dev),
+            torch.randint(0, BA_ROWS, (BA_ROWS, BA_WIDTH), generator=gen,
+                          device=dev, dtype=torch.int32),
+            torch.rand(BA_ROWS, BA_WIDTH, generator=gen, device=dev) < 0.3)),
+    ] + [("dense", f"lanes-{n}",
+          ((torch.rand(1, n, generator=gen, device=dev) * 1e5).floor(),))
+         for n in (BATCH_B, 32)]
+    rows = {}
+    for entry, name, args in cases:
+        if entry == "gather":
+            kernel, plain = rowsum.gather_row_sum, rowsum.gather_row_sum_plain
+            signal, idx, _ = args
+            shape, terms = list(idx.shape), idx.numel()
+            # Each index and mask byte once, the signal once, two ops a
+            # term (the mask product and the add).
+            in_bytes, ops = 5 * terms + 4 * signal.numel(), 2 * terms
+        else:
+            kernel, plain = rowsum.row_sum, rowsum.row_sum_plain
+            shape, terms = list(args[0].shape), args[0].numel()
+            in_bytes, ops = 4 * terms, terms
+        got, want = kernel(*args), plain(*args)
+        cpu = plain(*(a.cpu() for a in args))
+        for label, ref in (("plain version on the card", want),
+                           ("CPU's plain version", cpu)):
+            if not torch.equal(got.cpu().view(torch.int32),
+                               ref.cpu().view(torch.int32)):
+                fail(f"row-sum {name}: the kernel's bits differ from the "
+                     f"{label}")
+        by_bytes = (in_bytes + 4 * shape[0]) / HBM_BYTES_PER_S
+        by_ops = ops / VECTOR_OPS_PER_S
+        row = {"entry": entry, "table": name, "shape": shape,
+               "ms": cuda_times(lambda: kernel(*args), 20, flush),
+               "plain_ms": cuda_times(lambda: plain(*args), 20, flush),
+               "library_ms": None if entry == "gather" else cuda_times(
+                   lambda: args[0].sum(dim=1), 20, flush),
+               "bound_ms": 1e3 * max(by_bytes, by_ops),
+               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "max_abs_err": float((got - want).abs().max().nan_to_num())}
+        print(json.dumps({"phase": "kernel", "kernel": "rowsum", **row}),
+              flush=True)
+        rows[name] = row
+    return rows
+
+
+def pagerank_gather(g, engine, rowsum, segsum, threefry, device_mod,
+                    PageRank) -> int:
+    """Phase 4p: PageRank by ``gather`` on phase 4's graph to
+    ``EXPECTED_PAGERANK``'s threshold, its pull summed by the row-sum
+    kernel once a round. Rounds and messages exact, the value and the
+    rank total within ``PAGERANK_TOL``. Its wall beside the same run with
+    the plain column loop in the kernel's place (swapped in for that
+    comparison only; the ranks must keep their bits). Returns the
+    kernel's launches."""
+    proto = PageRank(method="gather")
+    thr = EXPECTED_PAGERANK["threshold"]
+    run = lambda: engine.run_until_converged(  # noqa: E731
+        g, proto, KEY, stat="residual", threshold=thr)
+    (state, out), rec = counted(run, segsum, threefry, device_mod)
+    rank_total = state.ranks.sum().item()
+    for k in ("rounds", "messages"):
+        if out[k] != EXPECTED_PAGERANK[k]:
+            fail(f"PageRank gather {k} {out[k]}, the reference gives "
+                 f"{EXPECTED_PAGERANK[k]}")
+    err = max(assert_close("PageRank gather value", out["value"],
+                           EXPECTED_PAGERANK["value"],
+                           *PAGERANK_TOL["value"]),
+              assert_close("PageRank gather rank_total", rank_total,
+                           EXPECTED_PAGERANK["rank_total"],
+                           *PAGERANK_TOL["rank_total"]))
+    if rec["rowsum_launches"] != out["rounds"]:
+        fail(f"PageRank gather launched the row-sum kernel "
+             f"{rec['rowsum_launches']} times in {out['rounds']} rounds")
+    no_launch("PageRank gather", rec)
+    timed = timed_runs(run, NEW_REPS)
+    kernel = rowsum.gather_row_sum
+    rowsum.gather_row_sum = rowsum.gather_row_sum_plain
+    try:
+        plain_state, plain_out = run()
+        plain = timed_runs(run, NEW_REPS)
+    finally:
+        rowsum.gather_row_sum = kernel
+    if plain_out != out or not torch.equal(
+            plain_state.ranks.view(torch.int32),
+            state.ranks.view(torch.int32)):
+        fail("PageRank gather: the plain row sum gives other ranks than the "
+             "kernel")
+    print(json.dumps({"phase": "state-io", "part": "pagerank-gather",
+                      "threshold": thr, **out, "rank_total": rank_total,
+                      **rec, **timed, "max_abs_err_vs_reference": err,
+                      "plain_wall_s": plain["wall_s"],
+                      "plain_wall_s_all": plain["wall_s_all"],
+                      "plain_profile": plain["profile"]}), flush=True)
+    return rec["rowsum_launches"]
 
 
 def file_digest(path) -> str:
@@ -2997,15 +3113,23 @@ def batch_recorder(bg, engine, segsum, threefry, device_mod, flightrec,
         fail(f"4p batch recorder rows {ring.rows.tolist()}, the reference "
              f"gives {exp['rows']}")
     no_launch("4p batch recorder", rec)
+    # Two ordered 1-D sums a round: the sends and the seen counts.
+    if rec["rowsum_launches"] != 2 * out["rounds"]:
+        fail(f"4p batch recorder launched the row-sum kernel "
+             f"{rec['rowsum_launches']} times in {out['rounds']} rounds")
+    _, off_rec = counted(run, segsum, threefry, device_mod)
+    if rec["syncs"] != off_rec["syncs"] + 1:
+        fail(f"4p batch recorder made {rec['syncs']} syncs, "
+             f"{off_rec['syncs']} without it")
     with_rec, without = timed_runs(rec_run, NEW_REPS), timed_runs(run,
                                                                   NEW_REPS)
+    paired = paired_walls(rec_run, run)
     print(json.dumps({"phase": "state-io", "part": "batch-recorder",
                       "rounds": out["rounds"], "capacity": BATCH_REC_CAPACITY,
-                      **rec, "wall_s": with_rec["wall_s"],
-                      "wall_s_without": without["wall_s"],
-                      "recorder_cost_s": with_rec["wall_s"]
-                      - without["wall_s"], "profile": with_rec["profile"],
+                      **rec, "syncs_without": off_rec["syncs"], **paired,
+                      "profile": with_rec["profile"],
                       "profile_without": without["profile"]}), flush=True)
+    return rec["rowsum_launches"]
 
 
 def reorder_path(engine, segsum, threefry, device_mod, graph_mod, layout,
@@ -3231,7 +3355,7 @@ def main() -> int:
                                              Gossip, PageRank, PushSum, base,
                                              messagebatch, querybatch)
     from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
-    from p2pnetwork_tpu_torch.ops import ring, segsum, threefry
+    from p2pnetwork_tpu_torch.ops import ring, rowsum, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
     from p2pnetwork_tpu_torch import telemetry
@@ -3239,7 +3363,6 @@ def main() -> int:
                                           flightrec, layout, layoutcache,
                                           topology)
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
-    from p2pnetwork_tpu_torch.utils import accum
 
     # 1. Device.
     gpu = gpu_line()
@@ -3319,7 +3442,13 @@ def main() -> int:
     io_launches = state_io_path(g, seen, engine, prng, segsum, threefry,
                                 _device, graph_mod, Flood, SIR, checkpoint,
                                 flightrec, layoutcache, telemetry)
-    row_sum_walls(accum)
+    # The row-sum kernel (slice 8's repair of the ordered sums), then
+    # PageRank by ``gather`` on the same graph, its main-path use.
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    rowsum_rows = rowsum_phase(rowsum, g, flush)
+    del flush
+    rowsum_launches = {"gather": pagerank_gather(
+        g, engine, rowsum, segsum, threefry, _device, PageRank)}
     del g, seen
     torch.cuda.empty_cache()
 
@@ -3334,8 +3463,8 @@ def main() -> int:
                     frontier_ops, Flood, messagebatch)
     query_path(bg, engine, segsum, threefry, _device, graph_mod, querybatch)
     # 4p's batch call with a recorder (slice 8), after 4j's and 4k's runs.
-    batch_recorder(bg, engine, segsum, threefry, _device, flightrec,
-                   messagebatch)
+    rowsum_launches["dense"] = batch_recorder(
+        bg, engine, segsum, threefry, _device, flightrec, messagebatch)
     del bg
 
     # 4o (slice 7): the reordered builds, last.
@@ -3390,6 +3519,15 @@ def main() -> int:
             + gossip_launches + new_launches["threefry"] + walk_launches
             + lib_launches["threefry"] + io_launches["threefry"],
             threefry_err),
+        row("gather_row_sum", "rowsum.cu",
+            "p2pnetwork_tpu/ops/segment.py:287 (jnp.sum of the gathered "
+            "row, an XLA reduce; no TPU kernel)", rowsum_rows["ws-1m"],
+            rowsum_launches["gather"], rowsum_rows["ws-1m"]["max_abs_err"]),
+        row("row_sum", "rowsum.cu",
+            "p2pnetwork_tpu/sim/engine.py:556 (jnp.sum of the lanes' "
+            "counts, an XLA reduce; no TPU kernel)",
+            rowsum_rows[f"lanes-{BATCH_B}"], rowsum_launches["dense"],
+            rowsum_rows[f"lanes-{BATCH_B}"]["max_abs_err"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

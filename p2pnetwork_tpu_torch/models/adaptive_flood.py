@@ -60,6 +60,10 @@ class AdaptiveFloodState:
 class AdaptiveFloodBitState:
     """``AdaptiveFloodState`` with seen/frontier packed 32 nodes per word."""
 
+    #: Fields holding the reference's ``uint32`` words as int32 with the
+    #: same bits: checkpoints write them as ``uint32`` (``sim/checkpoint.py``).
+    U32_WORDS = ("seen", "frontier")
+
     seen: torch.Tensor  # i32[N_pad // 32], u32 bit patterns
     frontier: torch.Tensor  # i32[N_pad // 32]
     fidx: torch.Tensor  # i32[k]

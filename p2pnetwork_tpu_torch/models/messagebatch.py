@@ -59,6 +59,10 @@ class MessageBatch:
     which nodes have broadcast for each lane (a flood node sends once), so
     :func:`lane_messages` derives each lane's total on demand."""
 
+    #: Fields holding the reference's ``uint32`` words as int32 with the
+    #: same bits: checkpoints write them as ``uint32`` (``sim/checkpoint.py``).
+    U32_WORDS = ("seen", "frontier", "sent")
+
     seen: torch.Tensor        # i32[W, N_pad]
     frontier: torch.Tensor    # i32[W, N_pad]
     sent: torch.Tensor        # i32[W, N_pad]

@@ -54,6 +54,10 @@ class PlumtreeBitState:
     """:class:`PlumtreeState` with the per-edge eager flags packed 32 to a
     word (``ops/bitset.py``; the reference's ``uint32`` words as int32)."""
 
+    #: Fields holding the reference's ``uint32`` words as int32 with the
+    #: same bits: checkpoints write them as ``uint32`` (``sim/checkpoint.py``).
+    U32_WORDS = ("eager",)
+
     eager: torch.Tensor  # i32[ceil(E_pad / 32)]
     round: torch.Tensor  # i32[]
 

@@ -1,0 +1,145 @@
+"""Row sums of f32 terms in XLA's CPU order: the hand-written CUDA kernel
+(``csrc/rowsum.cu``) and its plain version.
+
+Not a TPU kernel's counterpart: the JAX package's ``gather`` and ``skew``
+sums (a row of gathered terms summed by ``jnp.sum``) and the batch
+recorder's 1-D sums are XLA reduces, and the port gives their bits only by
+adding in their order (:data:`REDUCE_WINDOW`). torch's vectorized ``sum``
+adds in another order and differs in the last bit. The plain version
+below keeps the order with one elementwise launch per column of a window;
+the kernel adds a row's terms in one thread, in that order, and fuses the
+gather and the mask product into the same pass (:func:`gather_row_sum`).
+
+A CPU tensor takes the plain version; a CUDA f32 one launches the kernel,
+and any other CUDA float raises. Integer terms are summed directly (their
+order does not matter). ``LAUNCHES`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from p2pnetwork_tpu_torch import _build
+
+#: Kernel launches made by :func:`row_sum` and :func:`gather_row_sum`.
+LAUNCHES = 0
+
+#: The window of XLA's CPU tree reduction (measured with jax 0.9.0): a
+#: reduced axis longer than this is summed window by window, each window
+#: left to right from 0, and the window sums are reduced the same way.
+REDUCE_WINDOW = 32
+
+_bound = None
+
+
+def _lib() -> ctypes.CDLL:
+    global _bound
+    if _bound is None:
+        lib = _build.library()
+        q, i, p = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
+        lib.p2p_row_sum_f32.argtypes = [p, q, q, p, i, p]
+        lib.p2p_gather_row_sum_f32.argtypes = [p, p, p, q, q, p, i, p]
+        lib.p2p_row_sum_f32.restype = i
+        lib.p2p_gather_row_sum_f32.restype = i
+        _bound = lib
+    return _bound
+
+
+def row_sum_plain(vals: torch.Tensor) -> torch.Tensor:
+    """``vals.sum(dim=1)`` for a ``[rows, W]`` float tensor, in the order
+    XLA's CPU reduce adds: a row of one column is that term, rows of <= 32
+    columns are added left to right from 0, longer ones window by window.
+    One add per column of a window, for all windows at once, and level (32
+    for 1,024 terms, then 32 more). This order is measured for lengths of
+    <= 32 and multiples of 32 (rows up to 256 columns, 1-D sums up to
+    4,096 elements); XLA adds other lengths in yet another order
+    (ROADMAP.md, known differences)."""
+    rows, width = vals.shape
+    if width == 1:
+        # XLA reduces one term to itself: no add, so a -0 stays -0.
+        return vals[:, 0].clone()
+    if width > REDUCE_WINDOW:
+        # Zeros in front make the first window whole: adding them first
+        # leaves its sum's bits as they are.
+        pad = -width % REDUCE_WINDOW
+        if pad:
+            vals = torch.cat([vals.new_zeros(rows, pad), vals], 1)
+        return row_sum_plain(
+            _window_sums(vals.reshape(rows, -1, REDUCE_WINDOW)))
+    return _window_sums(vals[:, None, :])[:, 0]
+
+
+def _window_sums(windows: torch.Tensor) -> torch.Tensor:
+    """``[rows, n, w] -> [rows, n]``: each window added left to right
+    from 0, one add per column for all windows at once."""
+    total = windows.new_zeros(windows.shape[:2])
+    for j in range(windows.shape[2]):
+        total = total + windows[:, :, j]
+    return total
+
+
+def gather_row_sum_plain(signal: torch.Tensor, idx: torch.Tensor,
+                         mask: torch.Tensor) -> torch.Tensor:
+    """``row_sum_plain(signal[idx] * mask)``: the gather, the mask product
+    and the ordered sum as separate launches."""
+    return row_sum_plain(signal[idx] * mask.to(signal.dtype))
+
+
+def _check_f32(name: str, t: torch.Tensor) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name}: the CUDA kernel adds f32 terms, got "
+                        f"{t.dtype}")
+
+
+def _launch(entry: str, rows: int, device, *args) -> torch.Tensor:
+    global LAUNCHES
+    out = torch.empty(rows, dtype=torch.float32, device=device)
+    if rows == 0:
+        return out
+    stream = torch.cuda.current_stream(device).cuda_stream
+    rc = getattr(_lib(), entry)(*args, out.data_ptr(), device.index or 0,
+                                stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
+                           f"{rc}")
+    LAUNCHES += 1
+    return out
+
+
+def row_sum(vals: torch.Tensor) -> torch.Tensor:
+    """The ``[rows]`` sums of a ``[rows, W]`` tensor's rows, f32 ones in
+    XLA's order (:func:`row_sum_plain`)."""
+    if not vals.dtype.is_floating_point:
+        return vals.sum(dim=1, dtype=vals.dtype)
+    if vals.device.type == "cpu":
+        return row_sum_plain(vals)
+    _check_f32("row_sum", vals)
+    vals = vals.contiguous()
+    rows, width = vals.shape
+    return _launch("p2p_row_sum_f32", rows, vals.device, vals.data_ptr(),
+                   rows, width)
+
+
+def gather_row_sum(signal: torch.Tensor, idx: torch.Tensor,
+                   mask: torch.Tensor) -> torch.Tensor:
+    """``out[r] = sum_j signal[idx[r, j]] * mask[r, j]`` over ``[rows, W]``
+    index (i32) and bool mask tables: the ``gather`` and ``skew`` row sums,
+    f32 ones in XLA's order. Every index must lie in ``signal`` (padding
+    slots point at a real id, masked out)."""
+    if not signal.dtype.is_floating_point:
+        return (signal[idx] * mask.to(signal.dtype)).sum(dim=1,
+                                                         dtype=signal.dtype)
+    if signal.device.type == "cpu":
+        return gather_row_sum_plain(signal, idx, mask)
+    _check_f32("gather_row_sum", signal)
+    if idx.dtype != torch.int32 or mask.dtype != torch.bool:
+        raise TypeError(f"gather_row_sum: expected i32 indices and a bool "
+                        f"mask, got {idx.dtype} and {mask.dtype}")
+    signal, idx, mask = signal.contiguous(), idx.contiguous(), \
+        mask.contiguous()
+    rows, width = idx.shape
+    return _launch("p2p_gather_row_sum_f32", rows, signal.device,
+                   signal.data_ptr(), idx.data_ptr(), mask.data_ptr(), rows,
+                   width)

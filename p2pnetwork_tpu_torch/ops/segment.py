@@ -51,9 +51,9 @@ from p2pnetwork_tpu_torch.ops import blocked as B
 from p2pnetwork_tpu_torch.ops import diag as D
 from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.ops import frontier as FR
+from p2pnetwork_tpu_torch.ops import rowsum as RS
 from p2pnetwork_tpu_torch.ops import skew as SK
 from p2pnetwork_tpu_torch.sim.graph import Graph
-from p2pnetwork_tpu_torch.utils import accum
 
 #: ``auto`` prefers the neighbor-table gather only while the table's
 #: padding waste (slots / true edges) stays under this bound — the
@@ -248,8 +248,8 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
     method = _resolve(graph, method)
     fmask = graph.node_mask.to(signal.dtype)
     if method == "gather":
-        vals = signal[graph.neighbors] * graph.neighbor_mask.to(signal.dtype)
-        return accum.row_sum(vals) * fmask
+        return RS.gather_row_sum(signal, graph.neighbors,
+                                 graph.neighbor_mask) * fmask
     if method == "skew":
         return SK.sum_skew(graph.skew, signal, graph.n_nodes_padded) * fmask
     if method == "blocked":

@@ -15,7 +15,7 @@ so the port builds the same table). On a weighted graph the table
 carries ``weight``, the per-slot view of ``Graph.edge_weight``. OR, max
 and min-plus are exact (the latter two reduce ordered keys,
 ``ops/extremum.py``). The f32 sum adds each row left to right, as XLA's
-CPU row reduce does (``utils/accum.py::row_sum``), and the row sums of an
+CPU row reduce does (``ops/rowsum.py``), and the row sums of an
 owner in row order on the CPU; on CUDA ``index_add_`` combines an owner's
 several rows in the order its atomics land.
 """
@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch.ops import extremum as X
+from p2pnetwork_tpu_torch.ops import rowsum as RS
 from p2pnetwork_tpu_torch.sim.graph import _padded_row_fill
-from p2pnetwork_tpu_torch.utils import accum
 
 #: Candidate virtual-row widths (the reference's).
 WIDTH_CANDIDATES = (8, 16, 32, 64, 128)
@@ -168,7 +168,7 @@ def or_skew(t: SkewTable, signal: torch.Tensor, n_pad: int) -> torch.Tensor:
 
 def sum_skew(t: SkewTable, signal: torch.Tensor, n_pad: int) -> torch.Tensor:
     """Per-owner sum of ``signal[src] * mask``. f32[n_pad]."""
-    part = accum.row_sum(signal[t.src] * t.mask.to(signal.dtype))
+    part = RS.gather_row_sum(signal, t.src, t.mask)
     agg = torch.zeros(n_pad, dtype=signal.dtype, device=signal.device)
     agg.index_add_(0, t.owner, part)
     return agg

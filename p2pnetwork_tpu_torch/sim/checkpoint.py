@@ -15,8 +15,9 @@ flattening order, ``__key__`` (the key's ``uint32[2]`` words),
 tree structure as JAX prints it) and ``__sha256__``, a digest of every
 other entry that :func:`load` verifies. The port renders the treedef
 string from its own dataclasses (same class names, same field order), and
-writes the packed predicate words it holds as ``int32`` back as the
-reference's ``uint32``, so a port-written file of a state carries the
+writes the packed predicate words it holds as ``int32`` (the fields a
+state class names in its ``U32_WORDS``) back as the reference's
+``uint32``, so a port-written file of a state carries the
 reference's digest. Loaded leaves land as tensors on the template's
 device.
 
@@ -62,16 +63,6 @@ class CheckpointCorrupt(RuntimeError):
 
 #: npz entry carrying the content digest; excluded from its own hash.
 _DIGEST_KEY = "__sha256__"
-
-#: Fields the reference holds as ``uint32`` words and the port as
-#: ``int32`` with the same bits, by state class.
-_U32_WORDS = {
-    "FloodBitState": ("seen", "frontier"),
-    "AdaptiveFloodBitState": ("seen", "frontier"),
-    "PlumtreeBitState": ("eager",),
-    "MessageBatch": ("seen", "frontier", "sent"),
-}
-
 
 def _payload_digest(payload: Dict[str, np.ndarray]) -> str:
     """sha256 over every entry (name, dtype, shape, raw bytes) in sorted
@@ -142,7 +133,7 @@ def _leaves(tree) -> List[Tuple[Any, bool]]:
         if not _is_node(x):
             out.append((x, words))
             return
-        u32 = _U32_WORDS.get(type(x).__name__, ())
+        u32 = getattr(type(x), "U32_WORDS", ())
         for name, c in _children(x):
             walk(c, name in u32)
     walk(tree)

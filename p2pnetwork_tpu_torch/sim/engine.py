@@ -32,8 +32,10 @@ around them are not ported.
 ``recorder=`` (a ``sim/flightrec.py`` ``FlightRecorder``) on ``run`` /
 ``run_from``, ``run_until_coverage_from`` and the two batched loops keeps
 a per-round ring on the device, one row per applied round (a frozen
-sub-step writes none), with the reference's columns for each loop; the
-results are bit-identical to a run without it.
+sub-step writes none), with the reference's columns for each loop. Its
+rows make no host read and no host -> device copy; its one fetch at the
+end counts in ``_device.SYNCS``. The results are bit-identical to a run
+without it.
 """
 
 from __future__ import annotations
@@ -85,9 +87,15 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
     messages = torch.zeros((), dtype=torch.int64, device=dev)
     occ = torch.zeros((), dtype=torch.float32, device=dev)
     has_occ = "frontier_occupancy" in protocol.STATS
+    if ring is not None:
+        one, zero = ring.new_ones(()), ring.new_zeros(())
 
+    # Rounds applied before this super-step: every earlier super-step ran
+    # all T sub-steps (a frozen one would have ended the loop), so the
+    # recorder's round index is known on the host.
+    applied = 0
     while _device.host_bool(keep_going(value, rounds)):
-        for _ in range(T):
+        for j in range(T):
             live = keep_going(value, rounds)
             key, sub = prng.split(key)
             new_state, stats = protocol.step(graph, state, sub)
@@ -98,16 +106,17 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
                 live, stats["messages"], 0).to(torch.int64)
             if ring is not None:
                 flightrec.write_row(
-                    ring, rounds, live=live,
-                    occupancy=stats.get("frontier_occupancy", 0.0),
+                    ring, applied + j, live=live,
+                    occupancy=stats.get("frontier_occupancy", zero),
                     new=stats["messages"],
                     total=flightrec.total_f32(*flightrec.limbs(messages)),
-                    coverage=stats[stat], active_lanes=1, ici_bytes=0.0)
+                    coverage=stats[stat], active_lanes=one, ici_bytes=zero)
             rounds = rounds + live.to(torch.int32)
             value = torch.where(live, stats[stat].to(torch.float32), value)
             if has_occ:
                 occ = occ + torch.where(live, stats["frontier_occupancy"],
                                         0.0)
+        applied += T
     occ_mean = occ / rounds.clamp_min(1).to(torch.float32)
     n_rounds, n_messages = torch.stack(
         [rounds.to(torch.int64), messages]).tolist()
@@ -146,19 +155,20 @@ def run_from(graph: Graph, protocol, state, key, rounds: int, *,
     rounds = int(rounds)
     keys = prng.split(prng.fold_in(key, 1), rounds)
     ring = None if recorder is None else recorder.init(graph.device)
-    total = torch.zeros((), dtype=torch.float32, device=graph.device)
+    if ring is not None:
+        one, zero = ring.new_ones(()), ring.new_zeros(())
+        total = zero
     per_round = []
     for r in range(rounds):
         state, stats = protocol.step(graph, state, keys[r])
         per_round.append(stats)
         if ring is not None:
-            new = torch.as_tensor(stats.get("messages", 0.0),
-                                  device=graph.device).to(torch.float32)
+            new = stats.get("messages", zero).to(torch.float32)
             total = total + new
             flightrec.write_row(
-                ring, r, occupancy=stats.get("frontier_occupancy", 0.0),
-                new=new, total=total, coverage=stats.get("coverage", 0.0),
-                active_lanes=1, ici_bytes=0.0)
+                ring, r, occupancy=stats.get("frontier_occupancy", zero),
+                new=new, total=total, coverage=stats.get("coverage", zero),
+                active_lanes=one, ici_bytes=zero)
     out = _stack_stats(per_round)
     if ring is None:
         return state, out
@@ -256,6 +266,7 @@ def _lane_loop(graph: Graph, protocol, batch, key, max_rounds: int,
     dev = graph.device
     messages = torch.zeros((), dtype=torch.int64, device=dev)
     occ = torch.zeros((), dtype=torch.float32, device=dev)
+    zero = None if ring is None else ring.new_zeros(())
     r = 0
     while r < max_rounds and _device.host_bool(
             (batch.admitted & ~batch.done).any()):
@@ -264,7 +275,7 @@ def _lane_loop(graph: Graph, protocol, batch, key, max_rounds: int,
         messages = messages + messages_of(stats)
         occ = add_occupancy(occ, batch, stats)
         if ring is not None:
-            flightrec.write_row(ring, r, ici_bytes=0.0,
+            flightrec.write_row(ring, r, ici_bytes=zero,
                                 **row_of(batch, stats, messages))
         r += 1
     return batch, torch.tensor(r, dtype=torch.int32, device=dev), \

@@ -3,11 +3,13 @@ counterpart of ``p2pnetwork_tpu/sim/flightrec.py``).
 
 The run-to-* loops hand back per-run aggregates only. With a
 :class:`FlightRecorder` they also keep a bounded ``f32[capacity, 7]``
-ring of per-round rows on the graph's device: one row write a round, no
-host read, fetched once at the end of the run with the summary. A run
-longer than ``capacity`` keeps its last ``capacity`` rows
-(:func:`trim` puts them oldest first). The recorder only writes its own
-ring, so a run's results are bit-identical with it and without it.
+ring of per-round rows on the graph's device: one row write a round,
+with no host read and no host -> device copy (the loops hand in device
+tensors made once a run), and one transfer at the end of the run,
+counted in ``_device.SYNCS``. A run longer than ``capacity`` keeps its
+last ``capacity`` rows (:func:`trim` puts them oldest first). The
+recorder only writes its own ring, so a run's results are bit-identical
+with it and without it.
 
 Columns (``REC_COLS``), one row per applied round:
 
@@ -32,6 +34,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from p2pnetwork_tpu_torch import _device
 
 __all__ = ["REC_COLS", "FlightRecorder", "FlightRecord", "write_row",
            "total_f32", "limbs", "trim"]
@@ -61,27 +65,33 @@ class FlightRecorder:
 
 
 def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, device=device).to(torch.float32).reshape(())
+    if isinstance(v, torch.Tensor):
+        return v.to(torch.float32).reshape(())
+    # A host number becomes a fill on the device: a host -> device copy
+    # would synchronise the stream.
+    return torch.full((), float(v), dtype=torch.float32, device=device)
 
 
-def write_row(ring: torch.Tensor, round_index, *, occupancy, new, total,
-              coverage, active_lanes, ici_bytes, live=None) -> torch.Tensor:
+def write_row(ring: torch.Tensor, round_index: int, *, occupancy, new,
+              total, coverage, active_lanes, ici_bytes,
+              live=None) -> torch.Tensor:
     """Write one record at ``round_index % capacity`` in place and return
-    ``ring``. ``round_index`` (an int or a 0-d device tensor) counts the
-    rounds executed before this one; the row's ``round`` column is
-    1-based. Values are cast to f32. With ``live`` (a 0-d bool tensor) the
-    write happens only where it holds, with no host read: a frozen
-    sub-step of a super-step writes nothing."""
+    ``ring``. ``round_index`` counts the rounds executed before this one;
+    the row's ``round`` column is 1-based. Values (device tensors or host
+    numbers) are cast to f32. No call reads the device or copies to it,
+    so a row costs no sync. With ``live`` (a 0-d bool tensor) the write
+    happens only where it holds: a frozen sub-step of a super-step writes
+    nothing."""
     dev = ring.device
-    r = torch.as_tensor(round_index, device=dev).to(torch.int64).reshape(1)
+    slot = int(round_index) % ring.shape[0]
     row = torch.stack([
-        (r[0] + 1).to(torch.float32), _f32(occupancy, dev), _f32(new, dev),
-        _f32(total, dev), _f32(coverage, dev), _f32(active_lanes, dev),
-        _f32(ici_bytes, dev)])
-    slot = torch.remainder(r, ring.shape[0])
+        _f32(int(round_index) + 1, dev), _f32(occupancy, dev),
+        _f32(new, dev), _f32(total, dev), _f32(coverage, dev),
+        _f32(active_lanes, dev), _f32(ici_bytes, dev)])
     if live is not None:
-        row = torch.where(live, row, ring.index_select(0, slot)[0])
-    return ring.index_copy_(0, slot, row[None, :])
+        row = torch.where(live, row, ring[slot])
+    ring[slot] = row
+    return ring
 
 
 def total_f32(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -127,6 +137,7 @@ def trim(ring, rounds: int) -> FlightRecord:
     """The ring (a host array or a tensor) oldest first, trimmed to the
     rounds executed."""
     if isinstance(ring, torch.Tensor):
+        _device.SYNCS += 1
         ring = ring.cpu().numpy()
     ring = np.asarray(ring)
     capacity, rounds = int(ring.shape[0]), int(rounds)

@@ -543,33 +543,8 @@ def _delta_neighbor_tables(graph: Graph, out_r, out_s, w_unpadded,
 
     vals = valid = wvals = None
     if rows.size:
-        starts = np.searchsorted(out_r, rows)
-        deg = np.searchsorted(out_r, rows, side="right") - starts
-        take, valid = _padded_row_fill(starts, np.minimum(deg, width), width)
-        capped_local = np.nonzero(deg > width)[0]
-        if capped_local.size:
-            # from_edges' subsample restricted to the capped rows (all in
-            # ``rows``, ascending): same seed, same draw order.
-            cap_rng = np.random.default_rng(0)
-            degc = deg[capped_local]
-            cap_edge = np.repeat(capped_local, degc)
-            offs = np.arange(cap_edge.size) - np.repeat(
-                np.cumsum(degc) - degc, degc)
-            edge_idx = starts[cap_edge] + offs
-            keys = cap_rng.random(edge_idx.size)
-            order = np.lexsort((keys, cap_edge))
-            rank = np.empty_like(offs)
-            rank[order] = offs
-            kept = rank < width
-            resort = np.lexsort((edge_idx[kept], cap_edge[kept]))
-            take[capped_local] = edge_idx[kept][resort].reshape(
-                capped_local.size, width)
-        pool = out_s if e_new else np.zeros(1, dtype=np.int32)
-        take_safe = np.minimum(take, max(e_new - 1, 0))
-        vals = np.where(valid, pool[take_safe], 0).astype(np.int32)
-        if weighted:
-            wpool = w_unpadded if e_new else np.zeros(1, dtype=np.float32)
-            wvals = np.where(valid, wpool[take_safe], 0.0).astype(np.float32)
+        vals, valid, wvals = _neighbor_table(out_s, out_r, e_new, n_pad,
+                                             width, w_unpadded, rows=rows)
 
     if in_place:
         nb, nbm, nw = graph.neighbors, graph.neighbor_mask, \
@@ -801,25 +776,35 @@ def _rebuild_layouts(graph: Graph, senders, receivers, n: int, n_pad: int,
     receiver-sorted edges with their recorded tuning (block sizes, skew
     width); the hybrid diagonal budget re-derives at its defaults."""
     from p2pnetwork_tpu_torch.ops.blocked import build_blocked_from_arrays
-    from p2pnetwork_tpu_torch.ops.diag import build_hybrid_from_arrays
     from p2pnetwork_tpu_torch.ops.skew import build_skew_from_arrays
 
     dev = graph.device
-    blocked, hybrid, skew = graph.blocked, graph.hybrid, graph.skew
+    blocked, skew = graph.blocked, graph.skew
     if blocked is not None:
         blocked = build_blocked_from_arrays(senders, receivers, n_pad,
                                             blocked.block, device=dev)
-    if hybrid is not None:
-        kw = {}
-        if hybrid.remainder is not None:
-            kw["block"] = hybrid.remainder.block
-        hybrid = build_hybrid_from_arrays(senders, receivers, n, n_pad,
-                                          device=dev, **kw)
+    hybrid = _rebuild_hybrid(graph, senders, receivers, n, n_pad)
     if skew is not None:
         skew = build_skew_from_arrays(senders, receivers, n_pad, e_pad,
                                       width=skew.width, weights=weights,
                                       device=dev)
     return blocked, hybrid, skew
+
+
+def _rebuild_hybrid(graph: Graph, senders, receivers, n: int, n_pad: int):
+    """The graph's hybrid layout (None without one) rebuilt from the live
+    receiver-sorted edges at ``n`` nodes of ``n_pad``, keeping its
+    remainder's block size."""
+    from p2pnetwork_tpu_torch.ops.diag import build_hybrid_from_arrays
+
+    hybrid = graph.hybrid
+    if hybrid is None:
+        return None
+    kw = {}
+    if hybrid.remainder is not None:
+        kw["block"] = hybrid.remainder.block
+    return build_hybrid_from_arrays(senders, receivers, n, n_pad,
+                                    device=graph.device, **kw)
 
 
 # ----------------------------------------------------------- live growth
@@ -891,16 +876,7 @@ def _grow(graph: Graph, new_n: int, new_pad: int) -> Graph:
         # rebuilt.
         nm = _host(graph.node_mask).copy()
         nm[n_nodes:new_n] = True
-        hybrid = graph.hybrid
-        if hybrid is not None:
-            kw = {}
-            if hybrid.remainder is not None:
-                kw["block"] = hybrid.remainder.block
-            from p2pnetwork_tpu_torch.ops.diag import \
-                build_hybrid_from_arrays
-
-            hybrid = build_hybrid_from_arrays(s_live, r_live, new_n, n_pad,
-                                              device=dev, **kw)
+        hybrid = _rebuild_hybrid(graph, s_live, r_live, new_n, n_pad)
         return dataclasses.replace(graph, n_nodes=new_n, hybrid=hybrid,
                                    node_mask=_to_device(nm, dev))
 
@@ -940,20 +916,24 @@ def _grow(graph: Graph, new_n: int, new_pad: int) -> Graph:
         **{k: _to_device(v, dev) for k, v in arrays.items()})
 
 
-def _neighbor_table(senders, receivers, e, n_pad, width, weights=None):
-    """Padded incoming-neighbor table ``[n_pad, width]`` and its mask;
-    over-degree rows get a uniform random ``width``-subset of their
-    in-edges (seed 0, the reference's rule). With ``weights`` (aligned
-    with the sorted edges) also the slot-aligned weight view, else
-    None."""
-    starts = np.searchsorted(receivers, np.arange(n_pad))
-    ends = np.searchsorted(receivers, np.arange(n_pad), side="right")
-    take, valid = _padded_row_fill(starts, np.minimum(ends - starts, width),
-                                   width)
-    capped = np.nonzero(ends - starts > width)[0]
+def _neighbor_table(senders, receivers, e, n_pad, width, weights=None,
+                    rows=None):
+    """Padded incoming-neighbor table ``[n_pad, width]`` and its mask, or
+    with ``rows`` (ascending ids) only those rows, ``[len(rows), width]``.
+    Over-degree rows get a uniform random ``width``-subset of their
+    in-edges (seed 0, the reference's rule). The draws run over the capped
+    rows in order, so a ``rows`` that holds every capped row gives the
+    full table's bytes for its rows (:func:`apply_delta` relies on it).
+    With ``weights`` (aligned with the sorted edges) also the slot-aligned
+    weight view, else None."""
+    if rows is None:
+        rows = np.arange(n_pad)
+    starts = np.searchsorted(receivers, rows)
+    deg = np.searchsorted(receivers, rows, side="right") - starts
+    take, valid = _padded_row_fill(starts, np.minimum(deg, width), width)
+    capped = np.nonzero(deg > width)[0]
     if capped.size:
         cap_rng = np.random.default_rng(0)
-        deg = ends - starts
         cap_edge = np.repeat(capped, deg[capped])
         offs = np.arange(cap_edge.size) - np.repeat(
             np.cumsum(deg[capped]) - deg[capped], deg[capped])

@@ -1,6 +1,6 @@
 """The batched planes' one-transfer run summaries (the port's copy of
 ``p2pnetwork_tpu/utils/accum.py``'s batch and query layouts), and
-:func:`row_sum`, the f32 row sum in the reference's order of adds.
+:func:`ordered_sum`, the f32 1-D sum in the reference's order of adds.
 
 A run summary is one ``i32`` vector, so the host gets a whole B-message
 or K-query result in one device->host transfer, in the reference's
@@ -17,52 +17,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from p2pnetwork_tpu_torch.ops import rowsum
+
 #: Fixed slots of the batch summary ahead of the per-lane vectors.
 _BATCH_HEAD = 6
 
 
-#: The window of XLA's CPU tree reduction (measured with jax 0.9.0): a
-#: reduced axis longer than this is summed window by window, each window
-#: left to right from 0, and the window sums are reduced the same way.
-REDUCE_WINDOW = 32
-
-
-def row_sum(vals: torch.Tensor) -> torch.Tensor:
-    """``vals.sum(dim=1)`` for a ``[rows, W]`` float tensor, in the order
-    XLA's CPU reduce adds (:data:`REDUCE_WINDOW`): rows of <= 32 columns
-    left to right from 0, longer ones window by window. torch's vectorized
-    ``sum`` adds in another order and differs in the last bit. One add per
-    column of a window, for all windows at once, and level (32 for 1,024
-    terms, then 32 more). This order is measured for lengths of <= 32 and
-    multiples of 32 (rows up to 256 columns, 1-D sums,
-    :func:`ordered_sum`, up to 4,096 elements); XLA adds other lengths in
-    yet another order (ROADMAP.md, known differences). Integer tensors
-    are summed directly (their order does not matter)."""
-    if not vals.dtype.is_floating_point:
-        return vals.sum(dim=1, dtype=vals.dtype)
-    rows, width = vals.shape
-    if width > REDUCE_WINDOW:
-        # Zeros in front make the first window whole: adding them first
-        # leaves its sum's bits as they are.
-        pad = -width % REDUCE_WINDOW
-        if pad:
-            vals = torch.cat([vals.new_zeros(rows, pad), vals], 1)
-        return row_sum(_window_sums(vals.reshape(rows, -1, REDUCE_WINDOW)))
-    return _window_sums(vals[:, None, :])[:, 0]
-
-
-def _window_sums(windows: torch.Tensor) -> torch.Tensor:
-    """``[rows, n, w] -> [rows, n]``: each window added left to right
-    from 0, one add per column for all windows at once."""
-    total = windows.new_zeros(windows.shape[:2])
-    for j in range(windows.shape[2]):
-        total = total + windows[:, :, j]
-    return total
-
-
 def ordered_sum(x: torch.Tensor) -> torch.Tensor:
-    """The 0-d sum of a 1-D tensor in XLA's CPU order (:func:`row_sum`)."""
-    return row_sum(x.reshape(1, -1))[0]
+    """The 0-d sum of a 1-D tensor in XLA's CPU order
+    (``ops/rowsum.py::row_sum``)."""
+    return rowsum.row_sum(x.reshape(1, -1))[0]
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:

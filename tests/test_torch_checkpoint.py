@@ -87,6 +87,9 @@ def test_treedef_string_is_jax_s(name, none_first):
     jcls, tcls = _cls(JMODS, name), _cls(TMODS, name)
     assert ([f.name for f in dataclasses.fields(tcls)]
             == [f.name for f in dataclasses.fields(jcls)])
+    # The packed word fields a class declares are its own fields.
+    assert set(getattr(tcls, "U32_WORDS", ())) <= {
+        f.name for f in dataclasses.fields(tcls)}
     jobj = _instance(jcls, lambda: jnp.zeros(1), none_first)
     tobj = _instance(tcls, lambda: torch.zeros(1), none_first)
     assert TC.treedef_str(tobj) == str(jax.tree_util.tree_flatten(jobj)[1])

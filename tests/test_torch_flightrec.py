@@ -5,7 +5,8 @@ In every loop that records (``run_from``'s per-round form,
 super-step, the batch loop and the query loop) the ring's rows equal the
 reference's bit for bit, including the wrap (``dropped``) of a ring
 shorter than the run, and the run returns exactly what it returns without
-a recorder.
+a recorder. The recorder's only host transfer is the ring's one fetch at
+the end of the run, counted in ``_device.SYNCS``.
 """
 
 import numpy as np
@@ -20,7 +21,7 @@ from p2pnetwork_tpu.models import querybatch as JQ  # noqa: E402
 from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu.sim import flightrec as JR  # noqa: E402
 from p2pnetwork_tpu_torch import models as TM  # noqa: E402
-from p2pnetwork_tpu_torch import prng  # noqa: E402
+from p2pnetwork_tpu_torch import _device, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import messagebatch as TMB  # noqa: E402
 from p2pnetwork_tpu_torch.models import querybatch as TQ  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
@@ -55,6 +56,13 @@ def assert_same_record(got, want):
     assert got.as_dict() == want.as_dict()
 
 
+def syncs(run):
+    """``(result, host syncs counted during run())``."""
+    before = _device.SYNCS
+    out = run()
+    return out, _device.SYNCS - before
+
+
 def assert_same_state(got, want):
     g, w = state_fields(got), state_fields(want)
     for k in w:
@@ -82,15 +90,16 @@ def test_coverage_loop_rows_equal_reference(name, steps, capacity):
         jg, jp, jp.init(jg, jax.random.key(0)), jax.random.key(0),
         recorder=JR.FlightRecorder(capacity), donate=False, **kw)
     ts0 = tp.init(tg, prng.key(0))
-    ts, tout = TE.run_until_coverage_from(
+    (ts, tout), rec_syncs = syncs(lambda: TE.run_until_coverage_from(
         tg, tp, ts0, prng.key(0), recorder=TR.FlightRecorder(capacity),
-        **kw)
+        **kw))
     assert_same_record(tout.pop("flight_record"), jout.pop("flight_record"))
     assert tout == jout
     assert_same_state(ts, js)
-    off_state, off = TE.run_until_coverage_from(tg, tp, ts0, prng.key(0),
-                                                **kw)
+    (off_state, off), off_syncs = syncs(lambda: TE.run_until_coverage_from(
+        tg, tp, ts0, prng.key(0), **kw))
     assert off == tout
+    assert rec_syncs == off_syncs + 1
     assert_same_state(off_state, ts)
 
 
@@ -126,10 +135,12 @@ def test_batch_loop_rows_equal_reference(capacity):
         jg, jp, jp.init(jg, src), jax.random.key(0), donate=False,
         recorder=JR.FlightRecorder(capacity))
     tb0 = tp.init(tg, src)
-    tb, tout = TE.run_batch_until_coverage(
-        tg, tp, tb0, prng.key(0), recorder=TR.FlightRecorder(capacity))
+    (tb, tout), rec_syncs = syncs(lambda: TE.run_batch_until_coverage(
+        tg, tp, tb0, prng.key(0), recorder=TR.FlightRecorder(capacity)))
     assert_same_record(tout.pop("flight_record"), jout.pop("flight_record"))
-    _, off = TE.run_batch_until_coverage(tg, tp, tb0, prng.key(0))
+    (_, off), off_syncs = syncs(lambda: TE.run_batch_until_coverage(
+        tg, tp, tb0, prng.key(0)))
+    assert rec_syncs == off_syncs + 1
     for k in jout:
         np.testing.assert_array_equal(np.asarray(tout[k]),
                                       np.asarray(jout[k]), err_msg=k)
@@ -156,10 +167,12 @@ def test_query_loop_rows_equal_reference(name, capacity):
         jg, jp, init(jp, jg), jax.random.key(0), donate=False,
         recorder=JR.FlightRecorder(capacity))
     tb0 = init(tp, tg)
-    tb, tout = TE.run_queries_until_done(
-        tg, tp, tb0, prng.key(0), recorder=TR.FlightRecorder(capacity))
+    (tb, tout), rec_syncs = syncs(lambda: TE.run_queries_until_done(
+        tg, tp, tb0, prng.key(0), recorder=TR.FlightRecorder(capacity)))
     assert_same_record(tout.pop("flight_record"), jout.pop("flight_record"))
-    _, off = TE.run_queries_until_done(tg, tp, tb0, prng.key(0))
+    (_, off), off_syncs = syncs(lambda: TE.run_queries_until_done(
+        tg, tp, tb0, prng.key(0)))
+    assert rec_syncs == off_syncs + 1
     for k in jout:
         np.testing.assert_array_equal(bits(np.asarray(tout[k])),
                                       bits(np.asarray(jout[k])), err_msg=k)

@@ -55,7 +55,7 @@ def test_the_walk_sees_the_whole_port():
             "centrality.py", "labelprop.py", "bipartite.py", "boruvka.py",
             "triangles.py", "vivaldi.py", "detector.py", "antientropy.py",
             "layout.py", "checkpoint.py", "flightrec.py", "layoutcache.py",
-            "registry.py", "concurrency.py"} <= names
+            "registry.py", "concurrency.py", "rowsum.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
