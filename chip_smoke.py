@@ -199,8 +199,23 @@ Phases, in order; any failure exits non-zero before the result line:
    column loop's). After 4k, 4j's ``auto`` batch call with a 16-row
    recorder: rows equal, the result ``EXPECTED_BATCH``'s, the row-sum
    kernel twice a round. All against ``EXPECTED_4P``.
+4q. The serving plane (slice 9). On phase 4's graph after 4p: the
+   ``hybrid`` flood under ``SupervisedRun`` in 4-round chunks, preempted
+   at round 8 and resumed from its store (rounds, coverage, messages
+   ``EXPECTED_1M``'s, ``seen`` phase 4's, B1 launched), then its wall
+   against the unsupervised flood's, 3 pairs in turns
+   (``supervise-path`` line). On phase 4j's graph after 4k: bench.py's
+   serving column (a warm service, then ``drive`` of ``SERVE_PATTERN``
+   through ``SimService`` at 1,024 lanes), ``EXPECTED_SERVE`` exactly,
+   no kernel launched; one tick under the profiler; the same drive with
+   a store, the journal and the seen hashes, preempted at tick 8 and
+   finished by a service resumed from the store, its tickets equal to
+   the uninterrupted drive's and the reference's (``serve-path`` lines:
+   wall, lanes/s, tick phases, syncs and launches a tick, checkpoint and
+   journal seconds).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
-   phases 4, 4c, 4b, 4i, 4n's closeness, 4o and 4p's floods; its sum
+   phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods and 4q's
+   supervised flood; its sum
    entry's on the hybrid remainder over 4e's ``hybrid`` run, 4f, 4i's
    ``KCore(hybrid)``, 4n's Bracha, HITS and betweenness and 4p's SIR, on
    the blocked layout over 4e's ``pallas`` run, ``KCore(pallas)`` and
@@ -983,6 +998,47 @@ EXPECTED_REORDER = {
             "d998a6211ff8703b70fb29e21e1db42e"),
     "degree": ("26c59d0fab9000f8cc2c9b5dd37ba256"
                "1e8e46fc73687d103c77d83b91f56f3a")}
+
+#: Phase 4q: bench.py's serving column (``bench_serving`` at its defaults:
+#: capacity and queue depth 1,024, 4 rounds a tick, 16 ticks of
+#: ``SERVE_PATTERN`` drawn by ``generate(..., seed=0)``) on phase 4j's 100K
+#: WS class, by the JAX package's ``SimService`` on the CPU with
+#: ``record_seen_hash=True``. ``tickets_sha256`` is the sha256 of the
+#: canonical JSON (sorted keys, no spaces) of every harvested ticket's
+#: ``SERVE_FIELDS``, ``seen_sha256`` of its ``seen_sha256`` by ticket,
+#: ``shed_sha256`` of the shed list, ``retained_sha256`` of the service's
+#: retained table (``done_retention`` 4,096) with the seen hashes; the
+#: percentiles are ``stats()``'s (its rolling window). Regenerate (~30 s):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import chip_smoke as c
+#:   from p2pnetwork_tpu.sim import graph as G
+#:   from p2pnetwork_tpu.serve import SimService, TrafficPattern, drive, generate
+#:   g = G.watts_strogatz(100_000, 10, 0.1, seed=0, source_csr=True)
+#:   svc = SimService(g, capacity=1024, queue_depth=1024, chunk_rounds=4, seed=0, record_seen_hash=True)
+#:   out = drive(svc, generate(TrafficPattern(**c.SERVE_PATTERN), g.n_nodes, seed=0))
+#:   print(c.serve_summary(out, svc.stats()), c.canon_sha(c.serve_table(svc.tickets(), ("seen_sha256",))))
+#:   EOF
+SERVE_PATTERN = dict(ticks=16, rate=1024 / 3.0, hot_fraction=0.5,
+                     hot_keys=32, diurnal_amplitude=0.3, diurnal_period=8.0,
+                     burst_prob=0.125, burst_mult=3.0, coverage_target=0.99)
+SERVE_FIELDS = ("status", "source", "lane", "rounds", "latency_rounds",
+                "submitted_round", "admitted_round", "seen_count")
+#: The tick at which 4q's stored drive is preempted.
+SERVE_PREEMPT_TICK = 8
+EXPECTED_SERVE = {
+    "submitted": 6144, "completed": 6144, "shed": 758, "drain_ticks": 4,
+    "executed_rounds": 78, "peak_concurrent_lanes": 1024,
+    "completion_rounds_p50": 17.0, "completion_rounds_p99": 18.0,
+    "tickets_sha256": ("d5c9d85730c43960f6751f28a366e185"
+                       "02c9f075eb3d840d7426c6e505a0a6d6"),
+    "shed_sha256": ("50a766e8219595fa15ad47490ea844a7"
+                    "48d22b9d2501081b29b800f1498c0131")}
+EXPECTED_SERVE_RETAINED = ("57bf9fb007dd1640d7274c062f614ad3"
+                           "1ca3e133b8883f20488c32ca8274ffa8")
+#: Phase 4q's supervised flood: phase 4's hybrid flood in 4-round chunks,
+#: preempted at round 8 (its round-4 checkpoint is the last durable one)
+#: and resumed; rounds, coverage and messages are ``EXPECTED_1M``'s.
+SUPERVISE_CHUNK, SUPERVISE_PREEMPT = 4, 8
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -3132,6 +3188,210 @@ def batch_recorder(bg, engine, segsum, threefry, device_mod, flightrec,
     return rec["rowsum_launches"]
 
 
+def canon_sha(doc) -> str:
+    """sha256 of a document's canonical JSON (sorted keys, no spaces)."""
+    return hashlib.sha256(json.dumps(
+        doc, sort_keys=True, separators=(",", ":")).encode()).hexdigest()
+
+
+def serve_table(tickets, extra=()) -> dict:
+    """The checked fields of every ticket record."""
+    return {t: {k: r.get(k) for k in SERVE_FIELDS + tuple(extra)}
+            for t, r in tickets.items()}
+
+
+def serve_summary(out, stats) -> dict:
+    """The checked numbers of a drive (``EXPECTED_SERVE``'s keys)."""
+    got = {k: out[k] for k in ("submitted", "completed", "drain_ticks",
+                               "executed_rounds", "peak_concurrent_lanes")}
+    got.update(shed=len(out["shed"]),
+               completion_rounds_p50=stats.get("completion_rounds_p50"),
+               completion_rounds_p99=stats.get("completion_rounds_p99"),
+               tickets_sha256=canon_sha(serve_table(out["tickets"])),
+               shed_sha256=canon_sha(out["shed"]))
+    return got
+
+
+def time_journal(svc, acc: list) -> None:
+    """Add the wall of every journal call of ``svc`` to ``acc[0]``."""
+    j = svc._journal
+    for name in ("append", "tick_barrier", "rotate", "compact"):
+        def timed(*a, _f=getattr(j, name), **kw):
+            t0 = time.perf_counter()
+            try:
+                return _f(*a, **kw)
+            finally:
+                acc[0] += time.perf_counter() - t0
+        setattr(j, name, timed)
+
+
+def phase_means(svc) -> dict:
+    return {ph: row["mean_s"]
+            for ph, row in svc.tick_phases()["per_phase"].items()}
+
+
+def serve_path(bg, serve, segsum, threefry, device_mod, telemetry):
+    """Phase 4q (after 4k): bench.py's serving column on phase 4j's graph,
+    a warm service first as the bench does, then the drive: its numbers
+    and ticket table equal to ``EXPECTED_SERVE``, no kernel launched;
+    one tick under the profiler; then the same drive with a store, the
+    journal and the seen hashes, preempted at ``SERVE_PREEMPT_TICK`` and
+    finished by a fresh service resumed from the store, its retained
+    ticket table equal to the uninterrupted run's and the reference's."""
+    sched = serve.generate(serve.TrafficPattern(**SERVE_PATTERN),
+                           bg.n_nodes, seed=0)
+
+    def make(**kw):
+        return serve.SimService(bg, capacity=BATCH_B, queue_depth=BATCH_B,
+                                chunk_rounds=4, seed=0, **kw)
+
+    warm = make()
+    warm.submit(0)
+    warm.tick()
+    warm.close()
+    svc = make()
+    out, rec = counted(lambda: serve.drive(svc, sched), segsum, threefry,
+                       device_mod)
+    stats = svc.stats()
+    check_run("serve drive", serve_summary(out, stats), EXPECTED_SERVE)
+    no_launch("serve drive", rec)
+    wall, ticks = rec["first_run_s"], stats["tick"]
+    launches = (rec["segsum_launches"] + rec["threefry_launches"]
+                + rec["rowsum_launches"])
+    print(json.dumps({
+        "phase": "serve-path", "run": "drive", "wall_s": wall,
+        "ticks": ticks, "completed": out["completed"],
+        "shed": len(out["shed"]),
+        "sustained_lanes_per_s": out["completed"] / wall,
+        "executed_rounds": out["executed_rounds"],
+        "peak_concurrent_lanes": out["peak_concurrent_lanes"],
+        "completion_rounds_p50": stats["completion_rounds_p50"],
+        "completion_rounds_p99": stats["completion_rounds_p99"],
+        "syncs": rec["syncs"], "syncs_per_tick": rec["syncs"] / ticks,
+        "launches": launches, "launches_per_tick": launches / ticks,
+        "tick_phase_mean_s": phase_means(svc),
+        "t_s": time.perf_counter() - T_START}), flush=True)
+
+    # One profiled tick: tick 1 of the schedule, tick 0's lanes running.
+    prof = make()
+    for t in (0, 1):
+        for src, tenant in sched.arrivals_at(t):
+            try:
+                prof.submit(src, tenant=tenant)
+            except serve.Rejected:
+                pass
+        if t == 0:
+            prof.tick()
+    device_mod.SYNCS = 0
+    profile = profile_run(prof.tick)
+    print(json.dumps({"phase": "serve-path", "run": "profiled-tick",
+                      "tick_syncs": device_mod.SYNCS,
+                      "running": prof.stats()["active_lanes"],
+                      "profile": profile}), flush=True)
+    prof.close()
+
+    # The stored drive, preempted and resumed.
+    with tempfile.TemporaryDirectory() as d:
+        kw = dict(store=d, journal=True, record_seen_hash=True)
+        journal_s = [0.0]
+        regs = [telemetry.Registry(), telemetry.Registry()]
+        first = make(registry=regs[0], **kw)
+        time_journal(first, journal_s)
+        first.arm_preemption(SERVE_PREEMPT_TICK)
+        t0 = time.perf_counter()
+        try:
+            serve.drive(first, sched)
+            fail("serve: the armed preemption never fired")
+        except serve.service.Preempted:
+            pass
+        t1 = time.perf_counter()
+        again = make(registry=regs[1], **kw)
+        if again.tick_index != SERVE_PREEMPT_TICK - 1:
+            fail(f"serve resume restored tick {again.tick_index}, want "
+                 f"{SERVE_PREEMPT_TICK - 1}")
+        time_journal(again, journal_s)
+        resumed = serve.drive(again, sched)
+        t2 = time.perf_counter()
+        kept = again.tickets()
+        if serve_table(kept) != serve_table(svc.tickets()):
+            fail("serve: the resumed drive's tickets differ from the "
+                 "uninterrupted drive's")
+        if canon_sha(serve_table(kept, ("seen_sha256",))) \
+                != EXPECTED_SERVE_RETAINED:
+            fail("serve: the resumed drive's tickets or seen hashes "
+                 "differ from the reference's")
+        ckpt_s = sum(s.tick_phases()["per_phase"]["checkpoint"]["total_s"]
+                     for s in (first, again))
+        n_ckpt = sum(r.value("supervise_checkpoints_written_total")
+                     for r in regs)
+        again.close()
+    print(json.dumps({
+        "phase": "serve-path", "run": "preempt-resume",
+        "preempted_at_tick": SERVE_PREEMPT_TICK,
+        "first_life_s": t1 - t0, "resumed_life_s": t2 - t1,
+        "replayed": resumed["replayed"], "checkpoints": n_ckpt,
+        "checkpoint_s": ckpt_s, "checkpoint_s_each": ckpt_s / max(n_ckpt, 1),
+        "journal_s": journal_s[0],
+        "journal_records": again.stats()["journal"]["last_seq"],
+        "tick_phase_mean_s": phase_means(again),
+        "t_s": time.perf_counter() - T_START}), flush=True)
+
+
+def supervise_path(g, seen, engine, segsum, threefry, device_mod, Flood,
+                   supervise) -> int:
+    """Phase 4q's supervised flood (on phase 4's graph, after 4p):
+    ``SupervisedRun`` over the ``hybrid`` flood in ``SUPERVISE_CHUNK``-round
+    chunks, preempted at ``SUPERVISE_PREEMPT`` and resumed from its store:
+    rounds, coverage and messages ``EXPECTED_1M``'s, the final ``seen``
+    phase 4's, B1 launched. Then the walls of a fresh supervised run and
+    of the unsupervised flood, in turns. Returns B1's launches."""
+    proto = Flood(source=0, method="hybrid")
+    with tempfile.TemporaryDirectory() as d:
+        def supervised(resume=False, preempt=None):
+            run = supervise.SupervisedRun(g, proto, d,
+                                          chunk_rounds=SUPERVISE_CHUNK)
+            if preempt is not None:
+                run.arm_preemption(preempt)
+            return run.run_until_coverage(KEY, coverage_target=0.99,
+                                          max_rounds=64, resume=resume)
+
+        def preempted_then_resumed():
+            try:
+                supervised(preempt=SUPERVISE_PREEMPT)
+                fail("supervise: the armed preemption never fired")
+            except supervise.Preempted:
+                pass
+            return supervised(resume=True)
+
+        (state, out), rec = counted(preempted_then_resumed, segsum,
+                                    threefry, device_mod)
+        got = {k: out[k] for k in ("rounds", "coverage", "messages")}
+        check_run("supervised flood", got,
+                  {k: EXPECTED_1M[k] for k in got})
+        if out["resumed_from"] != SUPERVISE_PREEMPT - SUPERVISE_CHUNK:
+            fail(f"supervised flood resumed from {out['resumed_from']}")
+        if not torch.equal(bool_seen(state, g.n_nodes_padded), seen):
+            fail("supervised flood: final seen differs from phase 4's")
+        if rec["segsum_launches"] == 0:
+            fail("supervised flood never launched the segment-sum kernel")
+        walls = paired_walls(
+            supervised,
+            lambda: engine.run_until_coverage(g, proto, KEY,
+                                              coverage_target=0.99,
+                                              max_rounds=64), pairs=3)
+    print(json.dumps({
+        "phase": "supervise-path", "run": "hybrid", **rec,
+        "chunks": out["chunks"], "checkpoints": out["checkpoints"],
+        "resumed_from": out["resumed_from"],
+        "supervised_wall_s": walls["wall_s"],
+        "unsupervised_wall_s": walls["wall_s_without"],
+        "supervision_cost_s": walls["recorder_cost_s"],
+        "walls_supervised": walls["walls_with"],
+        "walls_unsupervised": walls["walls_without"],
+        "t_s": time.perf_counter() - T_START}), flush=True)
+    return rec["segsum_launches"]
+
+
 def reorder_path(engine, segsum, threefry, device_mod, graph_mod, layout,
                  Flood) -> int:
     """Phase 4o: ``from_edges(reorder=...)`` by ``"rcm"`` and ``"degree"``
@@ -3358,7 +3618,7 @@ def main() -> int:
     from p2pnetwork_tpu_torch.ops import ring, rowsum, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
-    from p2pnetwork_tpu_torch import telemetry
+    from p2pnetwork_tpu_torch import serve, supervise, telemetry
     from p2pnetwork_tpu_torch.sim import (checkpoint, engine, failures,
                                           flightrec, layout, layoutcache,
                                           topology)
@@ -3449,6 +3709,10 @@ def main() -> int:
     del flush
     rowsum_launches = {"gather": pagerank_gather(
         g, engine, rowsum, segsum, threefry, _device, PageRank)}
+    # 4q's supervised flood (slice 9), after every earlier run on phase
+    # 4's graph: B1's OR launches join the kernels line.
+    sup_launches = supervise_path(g, seen, engine, segsum, threefry,
+                                  _device, Flood, supervise)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -3465,6 +3729,8 @@ def main() -> int:
     # 4p's batch call with a recorder (slice 8), after 4j's and 4k's runs.
     rowsum_launches["dense"] = batch_recorder(
         bg, engine, segsum, threefry, _device, flightrec, messagebatch)
+    # 4q's serving drives (slice 9), after every earlier run on 4j's graph.
+    serve_path(bg, serve, segsum, threefry, _device, telemetry)
     del bg
 
     # 4o (slice 7): the reordered builds, last.
@@ -3492,7 +3758,8 @@ def main() -> int:
     print(json.dumps({"kernels": [
         row("segsum", "segsum.cu", "p2pnetwork_tpu/ops/pallas_edge.py:41",
             rows[0], launches + ring_launches["segsum"] + new_launches["or"]
-            + lib_launches["or"] + reorder_launches + io_launches["or"],
+            + lib_launches["or"] + reorder_launches + io_launches["or"]
+            + sup_launches,
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"],

@@ -13,10 +13,10 @@ lanes freeze: they leave the batch frontier.
 
 Admission is staggered: :meth:`BatchFlood.admit` seeds new messages into
 open lanes between engine calls and :meth:`BatchFlood.retire` recycles
-them, the seam a serving front-end drives; the engine side is
-``sim/engine.py`` ``run_batch_until_coverage``. The reference's trace
-events (``lane_submit``, ``lane_retire``) belong to its telemetry, which
-is not ported.
+them, the seam a serving front-end drives (``serve/service.py``); the
+engine side is ``sim/engine.py`` ``run_batch_until_coverage``. With a
+tracer installed (``telemetry/spans.py``) they emit the reference's
+``lane_submit`` and ``lane_retire`` events.
 
 Per-word send subtotals (``messages_words``) are int64 here; the
 reference's are u32 words folded into a two-limb counter, which holds the
@@ -30,9 +30,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from p2pnetwork_tpu_torch import _device
 from p2pnetwork_tpu_torch.models import base
 from p2pnetwork_tpu_torch.ops import bitset, frontier, segment
 from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.telemetry import spans
 
 
 class LaneExhausted(ValueError):
@@ -126,6 +128,31 @@ def lane_frontier(batch: MessageBatch, lane: int) -> torch.Tensor:
     return ((batch.frontier[w] >> b) & 1).to(torch.bool)
 
 
+def open_lanes_of(admitted: torch.Tensor) -> np.ndarray:
+    """The open lanes of an ``admitted`` vector, in order (one host read,
+    counted in ``_device.SYNCS``)."""
+    _device.SYNCS += 1
+    return np.flatnonzero(~admitted.cpu().numpy())
+
+
+def emit_submits(lanes: np.ndarray, sources: np.ndarray) -> None:
+    """One ``lane_submit`` event per admitted lane (no-op without a
+    tracer)."""
+    if spans.current_tracer() is not None:
+        for lane, src in zip(lanes.tolist(), sources.tolist()):
+            spans.emit("lane_submit", lane=lane, source=src)
+
+
+def emit_retires(release: torch.Tensor) -> None:
+    """One ``lane_retire`` event per released lane (no-op without a
+    tracer; with one, a device release set is read, counted)."""
+    if spans.current_tracer() is not None:
+        if release.device.type != "cpu":
+            _device.SYNCS += 1
+        for lane in np.flatnonzero(release.cpu().numpy()).tolist():
+            spans.emit("lane_retire", lane=lane)
+
+
 def _node_words(graph: Graph) -> torch.Tensor:
     """All 32 lanes set at live nodes, none elsewhere (i32[N_pad])."""
     return torch.where(graph.node_mask, -1, 0).to(torch.int32)
@@ -183,20 +210,24 @@ class BatchFlood:
         return batch
 
     def admit(self, graph: Graph, batch: MessageBatch, sources, *,
-              coverage_target: float = 0.99):
+              coverage_target: float = 0.99, open_lanes=None):
         """Seed new messages into OPEN lanes; returns ``(batch,
         lane_ids)`` (numpy i32, in ``sources`` order). Each lane's seed is
         ``Flood.init``'s: masked by liveness (a dead source seeds nothing
         and spins to ``max_rounds``, as the single run does), and a lane
         already at its target starts ``done``. Raises
-        :class:`LaneExhausted` when open lanes run out."""
+        :class:`LaneExhausted` when open lanes run out. The open lanes are
+        read from the batch (one counted host read) unless the caller
+        keeps them on the host and passes them, in order, as
+        ``open_lanes`` (the serving driver does)."""
         sources = np.asarray(sources, dtype=np.int32).reshape(-1)
         if sources.size == 0:
             return batch, np.zeros(0, dtype=np.int32)
         bad = (sources < 0) | (sources >= graph.n_nodes_padded)
         if bad.any():
             base.validate_source(graph, int(sources[bad.argmax()]))
-        open_lanes = np.flatnonzero(~batch.admitted.cpu().numpy())
+        open_lanes = (open_lanes_of(batch.admitted) if open_lanes is None
+                      else np.asarray(open_lanes))
         if sources.size > open_lanes.size:
             raise LaneExhausted(sources.size, open_lanes.size,
                                 batch.capacity)
@@ -223,6 +254,7 @@ class BatchFlood:
         lanes_t = torch.from_numpy(lanes.astype(np.int64)).to(dev)
         count0 = graph.node_mask[src.long()].to(torch.int32)
         tgt = torch.tensor(coverage_target, dtype=torch.float32, device=dev)
+        emit_submits(lanes, sources)
         # `sent` needs no seed: the source enters it in its first round.
         return dataclasses.replace(
             batch, seen=seen, frontier=front,
@@ -257,6 +289,7 @@ class BatchFlood:
             release = np.zeros(batch.capacity, dtype=bool)
             release[ids] = True
             rel = torch.from_numpy(release).to(batch.done.device)
+        emit_retires(rel)
         keep = ~bitset.pack_bits(rel)[:, None]
         return dataclasses.replace(
             batch, seen=batch.seen & keep, frontier=batch.frontier & keep,

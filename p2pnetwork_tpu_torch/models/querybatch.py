@@ -38,7 +38,8 @@ import torch
 
 from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.models import base
-from p2pnetwork_tpu_torch.models.messagebatch import LaneExhausted
+from p2pnetwork_tpu_torch.models.messagebatch import (
+    LaneExhausted, emit_retires, emit_submits, open_lanes_of)
 from p2pnetwork_tpu_torch.ops import lanes as L
 from p2pnetwork_tpu_torch.ops import segment
 from p2pnetwork_tpu_torch.ops.lanes import LaneBudgetExceeded  # noqa: F401
@@ -96,11 +97,15 @@ def free_query_lanes(qb: QueryBatch) -> int:
     return int(qb.capacity - int(qb.admitted.sum()))
 
 
-def _assign_lanes(qb: QueryBatch, count: int) -> np.ndarray:
-    open_lanes = np.flatnonzero(~qb.admitted.cpu().numpy())
-    if count > open_lanes.size:
-        raise LaneExhausted(count, open_lanes.size, qb.capacity)
-    return open_lanes[:count].astype(np.int32)
+def _assign_lanes(qb: QueryBatch, ids: np.ndarray) -> np.ndarray:
+    """The first open lanes for ``ids`` (one counted host read), with a
+    ``lane_submit`` event each under a tracer."""
+    open_lanes = open_lanes_of(qb.admitted)
+    if ids.size > open_lanes.size:
+        raise LaneExhausted(ids.size, open_lanes.size, qb.capacity)
+    lanes = open_lanes[:ids.size].astype(np.int32)
+    emit_submits(lanes, ids)
+    return lanes
 
 
 def _validate_node_ids(graph: Graph, ids: np.ndarray) -> None:
@@ -113,6 +118,7 @@ def _release_mask(qb: QueryBatch, lanes_arg) -> torch.Tensor:
     """The ``bool[K]`` release set of a retire (default: the done
     lanes), bounds-checked."""
     if lanes_arg is None:
+        emit_retires(qb.done)
         return qb.done
     ids = np.asarray(lanes_arg, dtype=np.int64).reshape(-1)
     bad = (ids < 0) | (ids >= qb.capacity)
@@ -122,6 +128,7 @@ def _release_mask(qb: QueryBatch, lanes_arg) -> torch.Tensor:
             f"batch's capacity {qb.capacity} — stale or foreign lane id?")
     release = np.zeros(qb.capacity, dtype=bool)
     release[ids] = True
+    emit_retires(torch.from_numpy(release))
     return torch.from_numpy(release).to(qb.done.device)
 
 
@@ -239,7 +246,7 @@ class MinPlusQueries:
             return qb, np.zeros(0, dtype=np.int32)
         _validate_node_ids(graph, sources)
         _validate_node_ids(graph, targets)
-        lanes_np = _assign_lanes(qb, sources.size)
+        lanes_np = _assign_lanes(qb, sources)
         dev = graph.device
         src = torch.from_numpy(sources).to(dev)
         tgt = torch.from_numpy(targets).to(dev)
@@ -352,7 +359,7 @@ class DhtLookups:
                 f"lookup key {int(keys[bad.argmax()])} outside the "
                 f"overlay id space [0, {graph.n_nodes}) — keys speak "
                 "the ring/xor metric's modulus, not the padded space")
-        lanes_np = _assign_lanes(qb, origins.size)
+        lanes_np = _assign_lanes(qb, origins)
         dev = graph.device
         org = torch.from_numpy(origins).to(dev)
         key_ids = torch.from_numpy(keys).to(dev)
@@ -447,7 +454,7 @@ class PushSumQueries:
         seeds = np.asarray(seeds, dtype=np.int32).reshape(-1)
         if seeds.size == 0:
             return qb, np.zeros(0, dtype=np.int32)
-        lanes_np = _assign_lanes(qb, seeds.size)
+        lanes_np = _assign_lanes(qb, seeds)
         dev = graph.device
         base_key = prng.key(self.seed_salt)
         n_pad = graph.n_nodes_padded

@@ -26,8 +26,22 @@ The batched planes (``run_batch_until_coverage`` for ``BatchFlood``,
 ``run_queries_until_done`` for the query families) read one exit flag a
 round (any lane still running) and hand the whole per-lane summary back in
 one device->host transfer (``utils/accum.py``), both counted in
-``_device.SYNCS``. The reference's telemetry, spans and dispatch gate
-around them are not ported.
+``_device.SYNCS``.
+
+Every run-to-* loop reports its summary to the telemetry plane as the
+reference's does, under the reference's metric names and ``loop`` labels
+(``coverage``, ``coverage_from``, ``converged``, ``batch``, ``query``):
+runs, rounds, exact messages, wall and transfer seconds, the frontier
+occupancy histogram, the batch and query gauges and completion
+histograms; then one sample of the history ring. The values come from the
+summary the loop already transfers, so telemetry adds no host read. With
+a tracer installed (``telemetry/spans.py``) the batched loops run under a
+``batch_run`` / ``query_run`` span with per-lane ``lane_admit`` /
+``lane_resume`` / ``lane_complete`` / ``lane_freeze`` events (and a
+``batch_summary`` event); their entry snapshot of the lanes' flags and
+rounds is one more transfer, counted in ``_device.SYNCS``. The
+reference's dispatch gate (its chaos plane's preemption seam) is not
+ported.
 
 ``recorder=`` (a ``sim/flightrec.py`` ``FlightRecorder``) on ``run`` /
 ``run_from``, ``run_until_coverage_from`` and the two batched loops keeps
@@ -41,16 +55,92 @@ without it.
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
-from p2pnetwork_tpu_torch import _device, prng
+from p2pnetwork_tpu_torch import _device, concurrency, prng, telemetry
 from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.sim import flightrec
 from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.telemetry import history, spans
 from p2pnetwork_tpu_torch.utils import accum
+
+#: Occupancy is a fraction of live nodes in [0, 1]; geometric buckets from
+#: ~0.1% up resolve the sparse tail.
+_OCCUPANCY_BUCKETS = telemetry.exponential_buckets(1 / 1024, 2.0, 11)
+#: Cardinality bound for sim_frontier_occupancy's (loop, protocol) children.
+_OCCUPANCY_MAX_CHILDREN = 16
+#: Recency order of observed (loop, protocol) pairs: pruning evicts the
+#: least recently observed child. Guarded by its own lock: summaries are
+#: recorded from whatever thread finished the run.
+_occupancy_recency: dict = {}
+_occupancy_lock = concurrency.lock()
+#: Batched completion rounds, 1 .. 2048.
+_COMPLETION_BUCKETS = telemetry.exponential_buckets(1.0, 2.0, 12)
+
+
+def _observe_occupancy(loop: str, protocol_name: str, value: float) -> None:
+    """Record one run's mean per-round frontier occupancy, pruning the
+    least-recently-observed labeled children past the cardinality bound."""
+    hist = telemetry.default_registry().histogram(
+        "sim_frontier_occupancy",
+        "Mean per-round frontier occupancy (active fraction of live nodes) "
+        "per run-to-* invocation.",
+        ("loop", "protocol"), buckets=_OCCUPANCY_BUCKETS)
+    key = (loop, protocol_name)
+    with _occupancy_lock:
+        # Observe inside the lock: a concurrent prune must not evict this
+        # child between the observation and its re-insert.
+        hist.labels(*key).observe(value)
+        _occupancy_recency.pop(key, None)
+        _occupancy_recency[key] = None
+        live = {c.labels for c in hist.children()}
+        for stale in [k for k in _occupancy_recency if k not in live]:
+            del _occupancy_recency[stale]
+        while len(_occupancy_recency) > _OCCUPANCY_MAX_CHILDREN:
+            coldest = next(iter(_occupancy_recency))
+            del _occupancy_recency[coldest]
+            hist.remove(*coldest)
+
+
+def _record_run_summary(loop: str, wall_s: float, transfer_s: float,
+                        transfer_bytes: int, out: dict,
+                        protocol_name: str = "") -> None:
+    """Report one host-side run summary to the registry, after its
+    transfer (the reference's metric names, help strings and labels)."""
+    reg = telemetry.default_registry()
+    reg.counter("sim_runs_total", "Completed run-to-* loop invocations.",
+                ("loop",)).labels(loop).inc()
+    reg.counter("sim_rounds_total", "Protocol rounds executed on device.",
+                ("loop",)).labels(loop).inc(float(out["rounds"]))
+    reg.counter("sim_messages_total",
+                "Messages moved by protocol rounds (exact two-limb totals).",
+                ("loop",)).labels(loop).inc(float(out["messages"]))
+    reg.histogram("sim_run_seconds",
+                  "Wall seconds per run-to-* invocation (dispatch through "
+                  "summary transfer).", ("loop",)).labels(loop).observe(wall_s)
+    reg.counter("sim_transfer_seconds_total",
+                "Seconds blocked on device->host summary transfers (includes "
+                "waiting out the device program on async backends)."
+                ).inc(transfer_s)
+    reg.counter("sim_transfer_bytes_total",
+                "Bytes moved by device->host summary transfers."
+                ).inc(transfer_bytes)
+    if loop.startswith("coverage") and "coverage" in out:
+        reg.gauge("sim_last_coverage", "Coverage reached by the most recent "
+                  "run-to-coverage loop.", ("loop",)).labels(loop).set(
+                      float(out["coverage"]))
+    if "frontier_occupancy_mean" in out:
+        _observe_occupancy(loop, protocol_name,
+                           float(out["frontier_occupancy_mean"]))
+
+
+def _nbytes(*tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors
+               if x is not None)
 
 
 def _require_stats(protocol, required) -> None:
@@ -69,15 +159,18 @@ def _freeze(live: torch.Tensor, new, old):
 
 
 def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
-                keep_going, value0, steps_per_round: int = 1, ring=None):
+                keep_going, value0, loop: str, value_name: str = "value",
+                steps_per_round: int = 1, ring=None):
     """Run protocol rounds while ``keep_going(value, rounds)`` holds, where
     ``value`` is the last round's ``stats[stat]`` (``value0`` before any).
-    Returns ``(state, summary dict)`` with ``rounds``, ``value`` and
-    ``messages`` (and ``frontier_occupancy_mean`` for the flood
-    family). ``ring`` (a flight-recorder ring) gets a row per applied
-    round: the tracked stat in the ``coverage`` column, the running total
-    through ``flightrec.total_f32``; the summary then carries
-    ``flight_record``."""
+    Returns ``(state, summary dict)`` with ``rounds``, ``value_name``
+    (the last value) and ``messages`` (and ``frontier_occupancy_mean``
+    for the flood family), and reports the summary to the registry and
+    the history ring under ``loop``. ``ring`` (a flight-recorder ring)
+    gets a row per applied round: the tracked stat in the ``coverage``
+    column, the running total through ``flightrec.total_f32``; the
+    summary then carries ``flight_record``."""
+    t0 = time.perf_counter()
     T = int(steps_per_round)
     if T < 1:
         raise ValueError(f"steps_per_round must be >= 1, got {T}")
@@ -118,14 +211,19 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
                                         0.0)
         applied += T
     occ_mean = occ / rounds.clamp_min(1).to(torch.float32)
+    t1 = time.perf_counter()
     n_rounds, n_messages = torch.stack(
         [rounds.to(torch.int64), messages]).tolist()
     value, occ_mean = torch.stack([value, occ_mean]).tolist()
-    out = {"rounds": n_rounds, "value": value, "messages": n_messages}
+    out = {"rounds": n_rounds, value_name: value, "messages": n_messages}
     if has_occ:
         out["frontier_occupancy_mean"] = occ_mean
     if ring is not None:
         out["flight_record"] = flightrec.trim(ring, n_rounds)
+    t2 = time.perf_counter()
+    _record_run_summary(loop, t2 - t0, t2 - t1, 24 + _nbytes(ring), out,
+                        type(protocol).__name__)
+    history.default_history().sample()
     return state, out
 
 
@@ -202,8 +300,8 @@ def run_until_coverage(graph: Graph, protocol, key, *,
     from ``key`` too. Returns ``(final_state, dict)`` with ``rounds``,
     ``coverage``, ``messages`` (exact int) and, for the flood family,
     ``frontier_occupancy_mean`` — the reference's dict."""
-    return run_until_coverage_from(
-        graph, protocol, protocol.init(graph, key), key,
+    return _coverage_from(
+        graph, protocol, protocol.init(graph, key), key, "coverage",
         coverage_target=coverage_target, max_rounds=max_rounds,
         steps_per_round=steps_per_round)
 
@@ -211,12 +309,24 @@ def run_until_coverage(graph: Graph, protocol, key, *,
 def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
                             coverage_target: float = 0.99,
                             max_rounds: int = 1024,
-                            steps_per_round: int = 1, recorder=None):
-    """Run-to-coverage continuing from ``state0`` (not modified). The loop
+                            steps_per_round: int = 1, donate: bool = True,
+                            recorder=None):
+    """Run-to-coverage continuing from ``state0`` (not modified; ``donate``
+    is accepted and has no effect, see :func:`run_from`). The loop
     starts from ``state0``'s true coverage where the protocol can say it,
     so resuming a finished run executes zero rounds. ``recorder`` (a
     ``FlightRecorder``) adds ``out["flight_record"]``, one row per applied
     round at any ``steps_per_round``."""
+    return _coverage_from(graph, protocol, state0, key, "coverage_from",
+                          coverage_target=coverage_target,
+                          max_rounds=max_rounds,
+                          steps_per_round=steps_per_round,
+                          recorder=recorder)
+
+
+def _coverage_from(graph: Graph, protocol, state0, key, loop: str, *,
+                   coverage_target: float, max_rounds: int,
+                   steps_per_round: int, recorder=None):
     _require_stats(protocol, ("coverage", "messages"))
     target = torch.tensor(coverage_target, dtype=torch.float32,
                           device=graph.device)
@@ -225,9 +335,9 @@ def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
     state, out = _stat_while(
         graph, protocol, state0, key, stat="coverage",
         keep_going=lambda v, r: (v < target) & (r < max_rounds),
-        value0=cov0, steps_per_round=steps_per_round,
+        value0=cov0, loop=loop, value_name="coverage",
+        steps_per_round=steps_per_round,
         ring=None if recorder is None else recorder.init(graph.device))
-    out["coverage"] = out.pop("value")
     return state, out
 
 
@@ -248,7 +358,8 @@ def run_until_converged(graph: Graph, protocol, key, *, stat: str,
     state, out = _stat_while(
         graph, protocol, state0, key, stat=stat,
         keep_going=lambda v, r: (v >= thr) & (r < max_rounds),
-        value0=float("inf"), steps_per_round=steps_per_round)
+        value0=float("inf"), loop="converged",
+        steps_per_round=steps_per_round)
     return state, out
 
 
@@ -293,15 +404,103 @@ def _summary(packed: torch.Tensor, done0: torch.Tensor):
     return host[:n], bits.reshape(-1).astype(bool)[:done0.shape[0]]
 
 
-def _newly_completed(out: dict, done0: np.ndarray) -> None:
+def _newly_completed(out: dict, done0: np.ndarray) -> np.ndarray:
     """``newly_completed_lanes`` and, when any, the completion-round
-    percentiles over them (numpy's, as the reference computes them)."""
+    percentiles over them (numpy's, as the reference computes them).
+    Returns those lanes' round counts."""
     newly = out["lane_done"] & ~done0
     out["newly_completed_lanes"] = np.flatnonzero(newly).astype(np.int32)
     newly_rounds = out["lane_rounds"][newly]
     if newly_rounds.size:
         out["completion_rounds_p50"] = float(np.percentile(newly_rounds, 50))
         out["completion_rounds_p99"] = float(np.percentile(newly_rounds, 99))
+    return newly_rounds
+
+
+def _lane_snapshot(batch):
+    """The lanes' ``admitted``, ``done`` and ``rounds`` on the host, in one
+    counted transfer (the trace plane's entry snapshot)."""
+    _device.SYNCS += 1
+    host = torch.stack([batch.admitted.to(torch.int32),
+                        batch.done.to(torch.int32), batch.rounds]).cpu()
+    host = host.numpy()
+    return host[0].astype(bool), host[1].astype(bool), host[2]
+
+
+def _emit_batch_entry_events(admitted0, done0, rounds0) -> None:
+    """Per-lane events at a batched run's entry: ``lane_admit`` for lanes
+    this run advances for the first time, ``lane_resume`` for lanes
+    resuming from an earlier call."""
+    running = admitted0 & ~done0
+    for lane in np.flatnonzero(running & (rounds0 == 0)).tolist():
+        spans.emit("lane_admit", lane=lane)
+    for lane in np.flatnonzero(running & (rounds0 > 0)).tolist():
+        spans.emit("lane_resume", lane=lane)
+
+
+def _emit_batch_exit_events(admitted0, done0, out) -> None:
+    """Per-lane events at a batched run's exit: ``lane_complete`` for
+    lanes that reached target in this call (with their cumulative round
+    count), ``lane_freeze`` for running lanes still unfinished."""
+    lane_done = out["lane_done"]
+    newly = np.flatnonzero(lane_done & ~done0)
+    rounds = out["lane_rounds"][newly]
+    for lane, r in zip(newly.tolist(), rounds.tolist()):
+        spans.emit("lane_complete", lane=lane, rounds=r)
+    frozen = np.flatnonzero(admitted0 & ~done0 & ~lane_done)
+    for lane in frozen.tolist():
+        spans.emit("lane_freeze", lane=lane)
+
+
+def _record_batch_summary(wall_s: float, transfer_s: float,
+                          transfer_bytes: int, out: dict,
+                          newly_done_rounds, protocol_name: str) -> None:
+    """The shared run counters under ``loop="batch"``, then the batch
+    plane's own instruments: ``sim_batch_active_lanes`` and one
+    ``sim_batch_completion_rounds`` observation per lane completed in
+    this call; then one history sample."""
+    _record_run_summary("batch", wall_s, transfer_s, transfer_bytes, out,
+                        protocol_name)
+    reg = telemetry.default_registry()
+    reg.gauge("sim_batch_active_lanes",
+              "Lanes still running (admitted, not at target) when the last "
+              "batched loop returned — nonzero means max_rounds froze "
+              "stragglers.").set(float(out["active_lanes"]))
+    hist = reg.histogram(
+        "sim_batch_completion_rounds",
+        "Rounds each batched message took to reach its coverage target "
+        "(one observation per lane completed in a "
+        "run_batch_until_coverage call).", buckets=_COMPLETION_BUCKETS)
+    for r in newly_done_rounds.tolist():
+        hist.observe(r)
+    _observe_occupancy("batch", protocol_name,
+                       float(out["occupancy_mean"]))
+    history.default_history().sample()
+
+
+def _record_query_summary(wall_s: float, transfer_s: float,
+                          transfer_bytes: int, out: dict,
+                          newly_done_rounds, protocol_name: str) -> None:
+    """The shared run counters under ``loop="query"``, then
+    ``sim_query_active_lanes`` and one ``sim_query_completion_rounds``
+    observation per lane settled in this call; then one history
+    sample."""
+    _record_run_summary("query", wall_s, transfer_s, transfer_bytes, out,
+                        protocol_name)
+    reg = telemetry.default_registry()
+    reg.gauge("sim_query_active_lanes",
+              "Query lanes still running (admitted, not settled) when "
+              "the last run_queries_until_done call returned — nonzero "
+              "means max_rounds froze stragglers.").set(
+                  float(out["active_lanes"]))
+    hist = reg.histogram(
+        "sim_query_completion_rounds",
+        "Rounds each batched query took to settle (one observation per "
+        "lane completed in a run_queries_until_done call).",
+        buckets=_COMPLETION_BUCKETS)
+    for r in newly_done_rounds.tolist():
+        hist.observe(r)
+    history.default_history().sample()
 
 
 def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
@@ -323,7 +522,31 @@ def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
     ``recorder`` (a ``FlightRecorder``) each global round writes a ring
     row (union-frontier occupancy, the round's sends, the running total,
     the lanes' seen counts summed, the running lanes) and ``out`` carries
-    ``flight_record``."""
+    ``flight_record``. With a tracer installed the call runs under a
+    ``batch_run`` span with the per-lane events (module doc)."""
+    t0 = time.perf_counter()
+    tracer = spans.current_tracer()
+    with spans.span("batch_run", loop="engine", max_rounds=max_rounds):
+        if tracer is not None:
+            snap = _lane_snapshot(batch)
+            _emit_batch_entry_events(*snap)
+        batch, out, newly_rounds, t1, nbytes = _batch_until_coverage(
+            graph, protocol, batch, key, max_rounds, recorder)
+        t2 = time.perf_counter()
+        if tracer is not None:
+            _emit_batch_exit_events(snap[0], snap[1], out)
+            spans.emit("batch_summary", rounds=int(out["rounds"]),
+                       completed=int(out["completed"]),
+                       active_lanes=int(out["active_lanes"]),
+                       newly_completed=int(
+                           out["newly_completed_lanes"].size))
+        _record_batch_summary(t2 - t0, t2 - t1, nbytes, out, newly_rounds,
+                              type(protocol).__name__)
+    return batch, out
+
+
+def _batch_until_coverage(graph: Graph, protocol, batch, key,
+                          max_rounds: int, recorder):
     done0 = batch.done.clone()
     batch = protocol.refresh(graph, batch)
     ring = None if recorder is None else recorder.init(graph.device)
@@ -345,12 +568,14 @@ def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
         rounds, (batch.admitted & ~batch.done).sum(), batch.done.sum(),
         messages, occ / rounds.clamp_min(1).to(torch.float32),
         bitset.pack_bits(batch.done), batch.rounds)
+    t1 = time.perf_counter()
     host, done0 = _summary(packed, done0)
     out = accum.unpack_batch_summary(host, batch.n_words)
-    _newly_completed(out, done0)
+    newly_rounds = _newly_completed(out, done0)
     if ring is not None:
         out["flight_record"] = flightrec.trim(ring, out["rounds"])
-    return batch, out
+    nbytes = _nbytes(packed, ring) + 4 * bitset.n_words(done0.shape[0])
+    return batch, out, newly_rounds, t1, nbytes
 
 
 def run_queries_until_done(graph: Graph, protocol, batch, key, *,
@@ -364,7 +589,26 @@ def run_queries_until_done(graph: Graph, protocol, batch, key, *,
     or i32 per family); the rest as :func:`run_batch_until_coverage`,
     whose ``donate`` and ``recorder`` rules hold here too (the ring's row:
     the running-lane fraction, the round's sends, the running total, the
-    finished lanes, the running lanes)."""
+    finished lanes, the running lanes). With a tracer installed the call
+    runs under a ``query_run`` span with the per-lane events."""
+    t0 = time.perf_counter()
+    tracer = spans.current_tracer()
+    with spans.span("query_run", loop="engine", max_rounds=max_rounds):
+        if tracer is not None:
+            snap = _lane_snapshot(batch)
+            _emit_batch_entry_events(*snap)
+        batch, out, newly_rounds, t1, nbytes = _queries_until_done(
+            graph, protocol, batch, key, max_rounds, recorder)
+        t2 = time.perf_counter()
+        if tracer is not None:
+            _emit_batch_exit_events(snap[0], snap[1], out)
+        _record_query_summary(t2 - t0, t2 - t1, nbytes, out, newly_rounds,
+                              type(protocol).__name__)
+    return batch, out
+
+
+def _queries_until_done(graph: Graph, protocol, batch, key,
+                        max_rounds: int, recorder):
     done0 = batch.done.clone()
     batch = protocol.refresh(graph, batch)
     capacity = batch.capacity
@@ -396,10 +640,12 @@ def run_queries_until_done(graph: Graph, protocol, batch, key, *,
         bitset.pack_bits(batch.done), batch.rounds,
         protocol.lane_values(graph, batch),
         values_float=protocol.VALUES_FLOAT)
+    t1 = time.perf_counter()
     host, done0 = _summary(packed, done0)
     out = accum.unpack_query_summary(host, capacity,
                                      values_float=protocol.VALUES_FLOAT)
-    _newly_completed(out, done0)
+    newly_rounds = _newly_completed(out, done0)
     if ring is not None:
         out["flight_record"] = flightrec.trim(ring, out["rounds"])
-    return batch, out
+    nbytes = _nbytes(packed, ring) + 4 * bitset.n_words(capacity)
+    return batch, out, newly_rounds, t1, nbytes

@@ -15,7 +15,7 @@ Every injection is counted in ``sim_injected_failures_total{kind}``
 (``telemetry/``): the entity count for the deterministic kinds, one per
 call for ``partition``, ``preempt`` and the random draws (``*_draw``).
 :func:`preempt` arms a run harness's preemption (anything with
-``arm_preemption``); the port's supervised runner is not written yet.
+``arm_preemption``): ``supervise/runner.py``'s ``SupervisedRun``.
 """
 
 from __future__ import annotations

@@ -55,7 +55,9 @@ def test_the_walk_sees_the_whole_port():
             "centrality.py", "labelprop.py", "bipartite.py", "boruvka.py",
             "triangles.py", "vivaldi.py", "detector.py", "antientropy.py",
             "layout.py", "checkpoint.py", "flightrec.py", "layoutcache.py",
-            "registry.py", "concurrency.py", "rowsum.py"} <= names
+            "registry.py", "concurrency.py", "rowsum.py", "spans.py",
+            "history.py", "store.py", "watchdog.py", "runner.py",
+            "journal.py", "service.py", "traffic.py", "standby.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
 
 
@@ -78,6 +80,8 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.sim.flightrec, "
             "p2pnetwork_tpu_torch.sim.layoutcache, "
             "p2pnetwork_tpu_torch.telemetry, "
+            "p2pnetwork_tpu_torch.supervise, "
+            "p2pnetwork_tpu_torch.serve, "
             "p2pnetwork_tpu_torch.concurrency, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
