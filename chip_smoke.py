@@ -203,16 +203,21 @@ Phases, in order; any failure exits non-zero before the result line:
    ``hybrid`` flood under ``SupervisedRun`` in 4-round chunks, preempted
    at round 8 and resumed from its store (rounds, coverage, messages
    ``EXPECTED_1M``'s, ``seen`` phase 4's, B1 launched), then its wall
-   against the unsupervised flood's, 3 pairs in turns
-   (``supervise-path`` line). On phase 4j's graph after 4k: bench.py's
-   serving column (a warm service, then ``drive`` of ``SERVE_PATTERN``
-   through ``SimService`` at 1,024 lanes), ``EXPECTED_SERVE`` exactly,
-   no kernel launched; one tick under the profiler; the same drive with
-   a store, the journal and the seen hashes, preempted at tick 8 and
+   against the unsupervised flood's, 9 pairs in turns, with the host
+   seconds of the engine's telemetry, the store's saves and the garbage
+   collector per run, and a profile of the unsupervised flood after a
+   supervised one (``supervise-path`` line). On phase 4j's graph after
+   4k: bench.py's serving column (a warm service, then ``drive`` of
+   ``SERVE_PATTERN`` through ``SimService`` at 1,024 lanes),
+   ``EXPECTED_SERVE`` exactly, no kernel launched; one tick under the
+   profiler; the same drive with a store, the journal and the seen
+   hashes, preempted at tick 8 and
    finished by a service resumed from the store, its tickets equal to
    the uninterrupted drive's and the reference's (``serve-path`` lines:
    wall, lanes/s, tick phases, syncs and launches a tick, checkpoint and
-   journal seconds).
+   journal seconds); then the background driver (``start``, ``wait``,
+   ``close``) on 100 tickets, each equal to a ticked service's, all done
+   in a service resumed from its store.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods and 4q's
    supervised flood; its sum
@@ -231,6 +236,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import gc
 import hashlib
 import json
 import re
@@ -1039,6 +1045,13 @@ EXPECTED_SERVE_RETAINED = ("57bf9fb007dd1640d7274c062f614ad3"
 #: preempted at round 8 (its round-4 checkpoint is the last durable one)
 #: and resumed; rounds, coverage and messages are ``EXPECTED_1M``'s.
 SUPERVISE_CHUNK, SUPERVISE_PREEMPT = 4, 8
+#: 4q's supervised and unsupervised floods timed in turns, and the
+#: unsupervised flood's back-to-back runs before them.
+SUPERVISE_PAIRS, SUPERVISE_ALONE = 9, 5
+#: The journal calls whose host seconds 4q's stored drive adds up.
+JOURNAL_CALLS = ("append", "tick_barrier", "rotate", "compact")
+#: Tickets of 4q's background driver (sources every n // this nodes).
+SERVE_BACKGROUND = 100
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -2318,10 +2331,11 @@ def lane_summary(out, extra=()) -> dict:
 
 
 def no_launch(label, rec, **want):
-    """Fail unless B1 and threefry launched as ``want`` says: an exact
-    count, or None for more than 0 (absent: 0)."""
+    """Fail unless B1, threefry and the row sum launched as ``want`` says:
+    an exact count, or None for more than 0 (absent: 0)."""
     for key, counter in (("segsum", "segsum_launches"),
-                         ("threefry", "threefry_launches")):
+                         ("threefry", "threefry_launches"),
+                         ("rowsum", "rowsum_launches")):
         n, w = rec[counter], want.get(key, 0)
         if (w is None and n == 0) or (w is not None and n != w):
             fail(f"{label} launched {key} {n} times, want "
@@ -3111,10 +3125,7 @@ def pagerank_gather(g, engine, rowsum, segsum, threefry, device_mod,
               assert_close("PageRank gather rank_total", rank_total,
                            EXPECTED_PAGERANK["rank_total"],
                            *PAGERANK_TOL["rank_total"]))
-    if rec["rowsum_launches"] != out["rounds"]:
-        fail(f"PageRank gather launched the row-sum kernel "
-             f"{rec['rowsum_launches']} times in {out['rounds']} rounds")
-    no_launch("PageRank gather", rec)
+    no_launch("PageRank gather", rec, rowsum=out["rounds"])
     timed = timed_runs(run, NEW_REPS)
     kernel = rowsum.gather_row_sum
     rowsum.gather_row_sum = rowsum.gather_row_sum_plain
@@ -3168,11 +3179,8 @@ def batch_recorder(bg, engine, segsum, threefry, device_mod, flightrec,
     if digest(torch.from_numpy(ring.rows)) != exp["rows_sha256"]:
         fail(f"4p batch recorder rows {ring.rows.tolist()}, the reference "
              f"gives {exp['rows']}")
-    no_launch("4p batch recorder", rec)
     # Two ordered 1-D sums a round: the sends and the seen counts.
-    if rec["rowsum_launches"] != 2 * out["rounds"]:
-        fail(f"4p batch recorder launched the row-sum kernel "
-             f"{rec['rowsum_launches']} times in {out['rounds']} rounds")
+    no_launch("4p batch recorder", rec, rowsum=2 * out["rounds"])
     _, off_rec = counted(run, segsum, threefry, device_mod)
     if rec["syncs"] != off_rec["syncs"] + 1:
         fail(f"4p batch recorder made {rec['syncs']} syncs, "
@@ -3212,17 +3220,9 @@ def serve_summary(out, stats) -> dict:
     return got
 
 
-def time_journal(svc, acc: list) -> None:
-    """Add the wall of every journal call of ``svc`` to ``acc[0]``."""
-    j = svc._journal
-    for name in ("append", "tick_barrier", "rotate", "compact"):
-        def timed(*a, _f=getattr(j, name), **kw):
-            t0 = time.perf_counter()
-            try:
-                return _f(*a, **kw)
-            finally:
-                acc[0] += time.perf_counter() - t0
-        setattr(j, name, timed)
+def journal_clock(svc):
+    """:func:`host_clock` over every journal call of ``svc``."""
+    return host_clock({n: (svc._journal, n) for n in JOURNAL_CALLS})
 
 
 def phase_means(svc) -> dict:
@@ -3237,7 +3237,10 @@ def serve_path(bg, serve, segsum, threefry, device_mod, telemetry):
     one tick under the profiler; then the same drive with a store, the
     journal and the seen hashes, preempted at ``SERVE_PREEMPT_TICK`` and
     finished by a fresh service resumed from the store, its retained
-    ticket table equal to the uninterrupted run's and the reference's."""
+    ticket table equal to the uninterrupted run's and the reference's;
+    then the background driver (``start``/``wait``/``close``) on
+    ``SERVE_BACKGROUND`` tickets, each equal to a ticked service's, and
+    every one of them done in a service resumed from its store."""
     sched = serve.generate(serve.TrafficPattern(**SERVE_PATTERN),
                            bg.n_nodes, seed=0)
 
@@ -3293,10 +3296,9 @@ def serve_path(bg, serve, segsum, threefry, device_mod, telemetry):
     # The stored drive, preempted and resumed.
     with tempfile.TemporaryDirectory() as d:
         kw = dict(store=d, journal=True, record_seen_hash=True)
-        journal_s = [0.0]
         regs = [telemetry.Registry(), telemetry.Registry()]
         first = make(registry=regs[0], **kw)
-        time_journal(first, journal_s)
+        clocks = [journal_clock(first)]
         first.arm_preemption(SERVE_PREEMPT_TICK)
         t0 = time.perf_counter()
         try:
@@ -3309,7 +3311,7 @@ def serve_path(bg, serve, segsum, threefry, device_mod, telemetry):
         if again.tick_index != SERVE_PREEMPT_TICK - 1:
             fail(f"serve resume restored tick {again.tick_index}, want "
                  f"{SERVE_PREEMPT_TICK - 1}")
-        time_journal(again, journal_s)
+        clocks.append(journal_clock(again))
         resumed = serve.drive(again, sched)
         t2 = time.perf_counter()
         kept = again.tickets()
@@ -3325,16 +3327,87 @@ def serve_path(bg, serve, segsum, threefry, device_mod, telemetry):
         n_ckpt = sum(r.value("supervise_checkpoints_written_total")
                      for r in regs)
         again.close()
+        journal_s = sum(acc[n] for acc, _ in clocks for n in JOURNAL_CALLS)
+        for _, undo in clocks:
+            undo()
     print(json.dumps({
         "phase": "serve-path", "run": "preempt-resume",
         "preempted_at_tick": SERVE_PREEMPT_TICK,
         "first_life_s": t1 - t0, "resumed_life_s": t2 - t1,
         "replayed": resumed["replayed"], "checkpoints": n_ckpt,
         "checkpoint_s": ckpt_s, "checkpoint_s_each": ckpt_s / max(n_ckpt, 1),
-        "journal_s": journal_s[0],
+        "journal_s": journal_s,
         "journal_records": again.stats()["journal"]["last_seq"],
         "tick_phase_mean_s": phase_means(again),
         "t_s": time.perf_counter() - T_START}), flush=True)
+
+    # The background driver: the tickets submitted while its thread ticks,
+    # then a clean close, which synchronizes the card before the final
+    # checkpoint. Lanes are independent, so each ticket's rounds and seen
+    # count equal those of the same sources ticked on the main thread.
+    sources = range(0, bg.n_nodes, bg.n_nodes // SERVE_BACKGROUND)
+    ticked = make()
+    want = [ticked.submit(s) for s in sources]
+    while ticked.busy():
+        ticked.tick()
+    want = [("done",) + tuple(ticked.poll(t)[k]
+                              for k in ("rounds", "seen_count"))
+            for t in want]
+    ticked.close()
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        live = make(store=d, idle_wait_s=0.01).start()
+        tids = [live.submit(s) for s in sources]
+        recs = [live.wait(t, timeout=120) for t in tids]
+        live.close()
+        wall = time.perf_counter() - t0
+        got = [tuple(r[k] for k in ("status", "rounds", "seen_count"))
+               for r in recs]
+        if live.driver_running or got != want:
+            fail(f"serve background: {got} against the ticked service's "
+                 f"{want}, driver running {live.driver_running}")
+        again = make(store=d)
+        status = [again.poll(t)["status"] for t in tids]
+        again.close()
+        if status != ["done"] * len(tids):
+            fail(f"serve background: the resumed store holds {status}")
+    print(json.dumps({"phase": "serve-path", "run": "background",
+                      "tickets": len(tids), "done": len(tids),
+                      "wall_s": wall, "ticks": live.stats()["tick"],
+                      "rounds": sorted({g[1] for g in got}),
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+
+
+def host_clock(targets: dict):
+    """Wrap each ``(owner, attribute)`` of ``targets`` so that its host
+    seconds add to ``acc[name]``, and add the garbage collector's seconds
+    to ``acc["gc"]``. Returns ``(acc, undo)``; ``undo()`` unwraps."""
+    acc = dict.fromkeys([*targets, "gc"], 0.0)
+    saved, gc_t0 = [], [0.0]
+    for name, (owner, attr) in targets.items():
+        f = getattr(owner, attr)
+        saved.append((owner, attr, f))
+
+        def timed(*a, _f=f, _n=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _f(*a, **kw)
+            finally:
+                acc[_n] += time.perf_counter() - t0
+        setattr(owner, attr, timed)
+
+    def on_gc(phase, _info):
+        if phase == "start":
+            gc_t0[0] = time.perf_counter()
+        else:
+            acc["gc"] += time.perf_counter() - gc_t0[0]
+    gc.callbacks.append(on_gc)
+
+    def undo():
+        gc.callbacks.remove(on_gc)
+        for owner, attr, f in reversed(saved):
+            setattr(owner, attr, f)
+    return acc, undo
 
 
 def supervise_path(g, seen, engine, segsum, threefry, device_mod, Flood,
@@ -3343,8 +3416,15 @@ def supervise_path(g, seen, engine, segsum, threefry, device_mod, Flood,
     ``SupervisedRun`` over the ``hybrid`` flood in ``SUPERVISE_CHUNK``-round
     chunks, preempted at ``SUPERVISE_PREEMPT`` and resumed from its store:
     rounds, coverage and messages ``EXPECTED_1M``'s, the final ``seen``
-    phase 4's, B1 launched. Then the walls of a fresh supervised run and
-    of the unsupervised flood, in turns. Returns B1's launches."""
+    phase 4's, B1 launched. Then the walls of the unsupervised flood alone
+    (``SUPERVISE_ALONE`` back to back), of a fresh supervised run and of
+    the unsupervised flood in turns (``SUPERVISE_PAIRS``), each with the
+    host seconds of the engine's telemetry (run summary and history
+    sample), of the store's saves and of the garbage collector; and one
+    unsupervised flood profiled right after a supervised one. Returns B1's
+    launches."""
+    from p2pnetwork_tpu_torch.telemetry import history
+
     proto = Flood(source=0, method="hybrid")
     with tempfile.TemporaryDirectory() as d:
         def supervised(resume=False, preempt=None):
@@ -3354,6 +3434,11 @@ def supervise_path(g, seen, engine, segsum, threefry, device_mod, Flood,
                 run.arm_preemption(preempt)
             return run.run_until_coverage(KEY, coverage_target=0.99,
                                           max_rounds=64, resume=resume)
+
+        def unsupervised():
+            return engine.run_until_coverage(g, proto, KEY,
+                                             coverage_target=0.99,
+                                             max_rounds=64)
 
         def preempted_then_resumed():
             try:
@@ -3374,20 +3459,56 @@ def supervise_path(g, seen, engine, segsum, threefry, device_mod, Flood,
             fail("supervised flood: final seen differs from phase 4's")
         if rec["segsum_launches"] == 0:
             fail("supervised flood never launched the segment-sum kernel")
-        walls = paired_walls(
-            supervised,
-            lambda: engine.run_until_coverage(g, proto, KEY,
-                                              coverage_target=0.99,
-                                              max_rounds=64), pairs=3)
+
+        acc, undo = host_clock({
+            "summary": (engine, "_record_run_summary"),
+            "history": (history.default_history(), "sample"),
+            "store_save": (supervise.CheckpointStore, "save")})
+
+        def timed(run):
+            before = dict(acc)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            row = {k: acc[k] - before[k] for k in acc}
+            row["telemetry"] = row.pop("summary") + row.pop("history")
+            return {"wall": time.perf_counter() - t0, **row}
+
+        try:
+            alone = [timed(unsupervised) for _ in range(SUPERVISE_ALONE)]
+            pairs = [(timed(supervised), timed(unsupervised))
+                     for _ in range(SUPERVISE_PAIRS)]
+            supervised()
+            profile = profile_run(unsupervised)
+        finally:
+            undo()
+
+    def med(rows, key):
+        return statistics.median(r[key] for r in rows)
+
+    sup = [p[0] for p in pairs]
+    uns = [p[1] for p in pairs]
+    costs = {f"{name}_{k}_s": med(rows, k)
+             for name, rows in (("alone", alone), ("supervised", sup),
+                                ("unsupervised", uns))
+             for k in ("telemetry", "store_save", "gc")}
     print(json.dumps({
         "phase": "supervise-path", "run": "hybrid", **rec,
         "chunks": out["chunks"], "checkpoints": out["checkpoints"],
         "resumed_from": out["resumed_from"],
-        "supervised_wall_s": walls["wall_s"],
-        "unsupervised_wall_s": walls["wall_s_without"],
-        "supervision_cost_s": walls["recorder_cost_s"],
-        "walls_supervised": walls["walls_with"],
-        "walls_unsupervised": walls["walls_without"],
+        "pairs": SUPERVISE_PAIRS,
+        "supervised_wall_s": med(sup, "wall"),
+        "unsupervised_wall_s": med(uns, "wall"),
+        "alone_wall_s": med(alone, "wall"),
+        "supervision_cost_s": statistics.median(
+            a["wall"] - b["wall"] for a, b in pairs),
+        **costs,
+        "walls_supervised": [r["wall"] for r in sup],
+        "walls_unsupervised": [r["wall"] for r in uns],
+        "walls_alone": [r["wall"] for r in alone],
+        "gc_unsupervised": [r["gc"] for r in uns],
+        "profile_after_supervised": profile,
         "t_s": time.perf_counter() - T_START}), flush=True)
     return rec["segsum_launches"]
 

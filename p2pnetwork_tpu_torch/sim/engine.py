@@ -309,10 +309,8 @@ def run_until_coverage(graph: Graph, protocol, key, *,
 def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
                             coverage_target: float = 0.99,
                             max_rounds: int = 1024,
-                            steps_per_round: int = 1, donate: bool = True,
-                            recorder=None):
-    """Run-to-coverage continuing from ``state0`` (not modified; ``donate``
-    is accepted and has no effect, see :func:`run_from`). The loop
+                            steps_per_round: int = 1, recorder=None):
+    """Run-to-coverage continuing from ``state0`` (not modified). The loop
     starts from ``state0``'s true coverage where the protocol can say it,
     so resuming a finished run executes zero rounds. ``recorder`` (a
     ``FlightRecorder``) adds ``out["flight_record"]``, one row per applied
