@@ -87,10 +87,14 @@ Phases, in order; any failure exits non-zero before the result line:
 3c. Threefry (``ops/threefry.py``, ``csrc/threefry.cu``; port-only, the
    counter-based draws of ``prng.py``): bits and the f32 uniform
    epilogue against the plain version, bit for bit, at odd sizes, a 2-D
-   shape and ``N_PAD``, for three keys; timed at ``N_PAD`` as phase 3
-   times kernels (``kernel-threefry`` lines). Bound by the ALU pipe: the
-   loop's instructions are read from the built kernel's SASS
-   (``cuobjdump -sass``) and printed beside it.
+   shape, ``N_PAD`` and draws from counter offsets across 2**32, for
+   three keys; timed at ``N_PAD``, 100,096 and 4,096 as phase 3 times
+   kernels, beside the launch floor (an empty kernel timed the same way:
+   ``launch_floor_ms``) and the time back to back (``back_to_back_ms``:
+   launches with no flush between them), in ``kernel-threefry`` lines. Bound by the ALU
+   pipe: the loop's instructions are read from the built kernel's SASS
+   (``cuobjdump -sass``) and printed beside it, by pipe and per counter
+   (``sass.per_counter``: ``alu_only``, ``alu_pipe``, ``fma_pipe``).
 4e. SIR: the ladder's rung (``beta=0.3, gamma=0.05``, ``key(0)``, 30
    rounds of ``engine.run``) on phase 4's graph under ``hybrid`` and
    ``pallas``: the stacked stats and a sha256 of the final ``status``
@@ -193,7 +197,8 @@ Phases, in order; any failure exits non-zero before the result line:
    the row-sum kernel (``csrc/rowsum.cu``, port-only: the f32 sums in
    XLA's order of adds) against its plain version, bit for bit, at phase
    4's neighbor table, 4g's BA table shape and the batch recorder's lane
-   sums (``kernel`` lines, ``"kernel": "rowsum"``), and PageRank by
+   sums (``kernel`` lines, ``"kernel": "rowsum"``, with the launch floor
+   and the time back to back), and PageRank by
    ``gather`` on phase 4's graph (the kernel once a round; within
    ``PAGERANK_TOL`` of ``EXPECTED_PAGERANK``, its wall beside the plain
    column loop's). After 4k, 4j's ``auto`` batch call with a 16-row
@@ -235,6 +240,7 @@ Without a CUDA device it exits 2 and prints no result.
 from __future__ import annotations
 
 import collections
+import ctypes
 import dataclasses
 import gc
 import hashlib
@@ -1134,6 +1140,25 @@ def cuda_times(fn, reps: int, flush: torch.Tensor) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / reps
 
 
+def back_to_back_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn()`` over ``reps`` launches enqueued back to
+    back between two events, with no flush between them: each launch's
+    fixed start overlaps the previous one's run, so against
+    :func:`cuda_times` this shows how much of a short kernel's time is its
+    body."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(100_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(slots, live_slots, in_bytes, out_bytes):
     """Least device time in ms and what sets it: the mask byte of each of
     the ``slots`` the function must read, the src and destination of each
@@ -1849,11 +1874,19 @@ def skew_path(engine, device_mod, models, graph_mod, failures):
                 flush=True)
 
 
-#: Phase 3c's draw sizes: around the kernel's 256-thread block, an odd
-#: count past 2**20, and ``N_PAD`` (each of SIR's two draws a round at
-#: 1M); and a 2-D shape (row-major flat counters).
-THREEFRY_SIZES = [1, 31, 33, 255, 257, 2**20 + 7, N_PAD]
+#: Phase 3c's draw sizes: around the kernel's 256-thread block and its 4
+#: counters a thread, the restart draw of the walk rung (4,096), gossip's
+#: 100,096, one past a wave of a counter a thread (132 SMs x 8 blocks of
+#: 256), an odd count past 2**20, and ``N_PAD`` (each of SIR's two draws a
+#: round at 1M); and a 2-D shape (row-major flat counters).
+THREEFRY_SIZES = [1, 3, 31, 33, 255, 257, 4096, 100_096, 132 * 8 * 256 + 1,
+                  2**20 + 7, N_PAD]
 THREEFRY_SHAPE_2D = (1000, 1001)
+#: Draws from a counter offset across 2**32 (two launches; the second
+#: stores from 8 bytes past a 16-byte boundary).
+THREEFRY_OFFSETS = [(2**32 - 6, 4103), (2**32 - 2**19, 2**20 + 3)]
+#: The sizes phase 3c times: SIR's 1M draw, gossip's and the walk's.
+THREEFRY_TIMED = [N_PAD, 100_096, 4096]
 #: Per-lane issue rates of one H100 SXM at its 1,980 MHz boost clock
 #: (the clock of the data sheet's f32 rate, ``VECTOR_OPS_PER_S``: 132 SMs
 #: x 128 FP32 lanes x 2): the ALU pipe takes 64 lanes per SM per clock
@@ -1861,123 +1894,168 @@ THREEFRY_SHAPE_2D = (1000, 1001)
 #: an SM issues 128 lanes' instructions per clock (4 schedulers x 32).
 ALU_LANES_PER_S = 132 * 64 * 1.98e9
 ISSUE_LANES_PER_S = 132 * 128 * 1.98e9
-#: SASS opcodes by pipe, as phase 3c sorts the threefry loop: the ALU
-#: pipe's only (funnel shift, logic, min/max, the epilogue's shift-or),
-#: the adds (ALU or FMA pipe), the f32 ones (FMA pipe); the rest is the
-#: grid-stride loop's own (compare, address, store, branch).
+#: SASS opcodes by pipe, as phase 3c sorts the threefry loop: the value
+#: ops only the ALU pipe takes (funnel shift, logic, min/max, a
+#: shift-or), the adds (IADD3 on the ALU pipe, any IMAD on the FMA pipe),
+#: the f32 ones (FMA pipe). ``alu_pipe`` and ``fma_pipe`` count every
+#: instruction each pipe issues, the loop's own (compares, address
+#: forms, moves) included; the rest (stores, branches) is neither.
 SASS_ALU = ("SHF", "LOP3", "FMNMX", "LEA.HI")
-SASS_ADD = ("IADD3", "IMAD.IADD")
+SASS_ADD = ("IADD3", "IMAD")
 SASS_FP = ("FADD", "FFMA", "FMUL")
+SASS_ALU_PIPE = ("SHF", "LOP3", "FMNMX", "LEA", "IADD3", "ISETP", "SEL",
+                 "MOV", "PRMT", "IMNMX", "IABS")
+SASS_FMA_PIPE = ("IMAD",) + SASS_FP
 
 
-def threefry_sass(build_mod) -> dict:
-    """The built threefry kernels' grid-stride loops, from ``cuobjdump
-    -sass`` of the library: per entry, the opcode counts of one pass (one
-    counter) and their sums by ``SASS_ALU``/``SASS_ADD``/``SASS_FP``."""
+def threefry_sass(build_mod, per_pass: int) -> dict:
+    """The built threefry kernels' persistent loops, from ``cuobjdump
+    -sass`` of the library: per entry, the opcode counts of one pass
+    (``per_pass`` counters, one 16-byte store), their sums by
+    ``SASS_ALU``/``SASS_ADD``/``SASS_FP`` and by pipe, and those sums per
+    counter."""
     tool = Path(build_mod._nvcc()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", build_mod.LAST_BUILD["path"]],
                           capture_output=True, text=True, check=True).stdout
     out = {}
     for func in text.split("Function : ")[1:]:
         name = func.split("\n", 1)[0]
-        if "threefry_kernel" not in name:
+        if "threefry_kernel" not in name or f"Li{per_pass}E" not in name:
             continue
         ins = [(int(a, 16), op, rest) for a, op, rest in re.findall(
             r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)"
             r"([^;]*);", func)]
-        # The loop: from the backward branch's target to the branch.
-        end, start = next((a, int(t, 16)) for a, op, rest in ins
-                          if op == "BRA"
-                          for t in re.findall(r"0x([0-9a-f]+)", rest)
-                          if int(t, 16) < a)
+        # The loop: from a backward branch's target to the branch, the one
+        # that holds the 16-byte store.
+        loops = [(int(t, 16), a) for a, op, rest in ins if op == "BRA"
+                 for t in re.findall(r"0x([0-9a-f]+)", rest)
+                 if int(t, 16) < a]
+        start, end = next(
+            (lo, hi) for lo, hi in loops
+            if any(lo <= a <= hi and op.startswith("STG") and ".128" in op
+                   for a, op, _ in ins))
         ops = collections.Counter(op for a, op, _ in ins
                                   if start <= a <= end)
 
-        def total(names):  # LEA.HI.X forms an address, not a value
-            return sum(n for op, n in ops.items() if op != "LEA.HI.X" and
+        def total(names, values=True):
+            # LEA.HI.X forms an address, not a value.
+            return sum(n for op, n in ops.items()
+                       if not (values and op == "LEA.HI.X") and
                        any(op == k or op.startswith(k + ".") for k in names))
-        out["uniform" if "ILb1E" in name else "bits"] = {
-            "ops": dict(sorted(ops.items())), "all": sum(ops.values()),
-            "alu_only": total(SASS_ALU), "adds": total(SASS_ADD),
-            "fp": total(SASS_FP)}
+        row = {"ops": dict(sorted(ops.items())), "all": sum(ops.values()),
+               "alu_only": total(SASS_ALU), "adds": total(SASS_ADD),
+               "fp": total(SASS_FP),
+               "alu_pipe": total(SASS_ALU_PIPE, values=False),
+               "fma_pipe": total(SASS_FMA_PIPE, values=False)}
+        row["per_counter"] = {k: row[k] / per_pass for k in (
+            "all", "alu_only", "adds", "fp", "alu_pipe", "fma_pipe")}
+        out["uniform" if "ILb1E" in name else "bits"] = row
     if sorted(out) != ["bits", "uniform"]:
         fail(f"threefry kernels not found in the SASS: {sorted(out)}")
     return out
 
 
+def launch_floor_ms(build_mod, flush) -> float:
+    """Device ms of an empty kernel (``p2p_noop``) timed as
+    :func:`cuda_times` times kernels: the part of a short kernel's time
+    that no design of its body removes."""
+    lib = build_mod.library()
+    lib.p2p_noop.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def noop():
+        rc = lib.p2p_noop(torch.cuda.current_device(), stream)
+        if rc:
+            fail(f"the empty kernel failed to launch: CUDA error {rc}")
+    return cuda_times(noop, 50, flush)
+
+
 def threefry_phase(prng, threefry, build_mod, flush):
     """Phase 3c: the threefry kernel against its plain version, bits and
     the f32 uniform epilogue (unit range and a general one), bit for bit,
-    at ``THREEFRY_SIZES`` and ``THREEFRY_SHAPE_2D`` for three keys; then
-    timed at ``N_PAD`` as phase 3 times kernels. Bound: the work's least
+    at ``THREEFRY_SIZES``, ``THREEFRY_OFFSETS`` and ``THREEFRY_SHAPE_2D``
+    for three keys; then timed at ``THREEFRY_TIMED`` as phase 3 times
+    kernels, beside the launch floor. Bound: the work's least
     instructions per counter (``threefry.ALU_OPS`` etc.) over the ALU
     pipe's rate for those only it takes, and over the issue rate for all;
-    the built loop's SASS must hold at least those. Returns the timed rows
-    and the largest difference from the plain version (0 or a failure)."""
+    the built loop's SASS must hold at least those per counter. Returns
+    the timed rows and the largest difference from the plain version (0
+    or a failure)."""
     dev = torch.device("cuda")
     ranges = [(0.0, 1.0), (float(np.float32(-3.3)),
                            float(np.float32(7.1) - np.float32(-3.3)))]
     max_err = 0.0
+    draws = [(n, 0) for n in THREEFRY_SIZES] + \
+        [(n, off) for off, n in THREEFRY_OFFSETS]
     for k in (prng.key(0), prng.fold_in(prng.key(0), 1), prng.key(-1)):
         k0, k1 = int(k[0]), int(k[1])
-        for n in THREEFRY_SIZES:
-            got = threefry.threefry_bits(k0, k1, n, dev)
-            want = threefry.threefry_bits_plain(k0, k1, n, dev)
+        for n, off in draws:
+            got = threefry.threefry_bits(k0, k1, n, dev, offset=off)
+            want = threefry.threefry_bits_plain(k0, k1, n, dev, offset=off)
             if n:
                 max_err = max(max_err, float(
                     (got.long() - want.long()).abs().max()))
             if not torch.equal(got, want):
                 fail(f"threefry bits differ from the plain version "
-                     f"(key {list(k)}, n={n})")
+                     f"(key {list(k)}, n={n}, offset={off})")
             for lo, scale in ranges:
-                got = threefry.threefry_uniform(k0, k1, n, lo, scale, dev)
+                got = threefry.threefry_uniform(k0, k1, n, lo, scale, dev,
+                                                offset=off)
                 want = threefry.threefry_uniform_plain(k0, k1, n, lo, scale,
-                                                       dev)
+                                                       dev, offset=off)
                 if n:
                     max_err = max(max_err, (got - want).abs().max().item())
                 if not torch.equal(got.view(torch.int32),
                                    want.view(torch.int32)):
                     fail(f"threefry uniform differs from the plain version "
-                         f"(key {list(k)}, n={n}, minval={lo})")
+                         f"(key {list(k)}, n={n}, offset={off}, "
+                         f"minval={lo})")
         got = prng.random_bits(k, THREEFRY_SHAPE_2D, device=dev)
         want = threefry.threefry_bits_plain(
             k0, k1, got.numel(), dev).reshape(THREEFRY_SHAPE_2D)
         if not torch.equal(got, want):
             fail(f"threefry bits over {THREEFRY_SHAPE_2D} differ")
     torch.cuda.synchronize()
-    sass = threefry_sass(build_mod)
+    sass = threefry_sass(build_mod, threefry.COUNTERS_PER_THREAD)
+    floor_ms = launch_floor_ms(build_mod, flush)
     k = prng.key(0)
     k0, k1 = int(k[0]), int(k[1])
     rows = []
-    for entry, alu, other, kernel, plain in (
-            ("bits", threefry.ALU_OPS, threefry.ADD_OPS,
-             lambda: threefry.threefry_bits(k0, k1, N_PAD, dev),
-             lambda: threefry.threefry_bits_plain(k0, k1, N_PAD, dev)),
-            ("uniform", threefry.ALU_OPS + threefry.UNIFORM_ALU_OPS,
-             threefry.ADD_OPS + threefry.UNIFORM_FMA_OPS,
-             lambda: threefry.threefry_uniform(k0, k1, N_PAD, 0.0, 1.0, dev),
-             lambda: threefry.threefry_uniform_plain(k0, k1, N_PAD, 0.0,
-                                                     1.0, dev))):
-        built = sass[entry]
-        if built["alu_only"] < alu or built["alu_only"] + built["adds"] + \
-                built["fp"] < alu + other:
-            fail(f"threefry {entry}: the built loop {built} does less than "
-                 f"the bound counts ({alu} ALU-only, {alu + other} in all)")
-        by_bytes = 1e3 * 4 * N_PAD / HBM_BYTES_PER_S
-        by_alu = 1e3 * alu * N_PAD / ALU_LANES_PER_S
-        by_issue = 1e3 * (alu + other) * N_PAD / ISSUE_LANES_PER_S
-        by_ops = max(by_alu, by_issue)
-        row = {"entry": entry, "n": N_PAD, "alu_ops_per_counter": alu,
-               "other_ops_per_counter": other,
-               "ms": cuda_times(kernel, 50, flush),
-               "plain_ms": cuda_times(plain, 10, flush),
-               "library_ms": None,
-               "bound_ms": max(by_bytes, by_ops),
-               "bound_by": "bytes" if by_bytes >= by_ops else "operations",
-               "bytes_bound_ms": by_bytes, "alu_bound_ms": by_alu,
-               "issue_bound_ms": by_issue, "sass": built}
-        rows.append(row)
-        print(json.dumps({"phase": "kernel-threefry", **row}), flush=True)
+    for n in THREEFRY_TIMED:
+        for entry, alu, other, kernel, plain in (
+                ("bits", threefry.ALU_OPS, threefry.ADD_OPS,
+                 lambda: threefry.threefry_bits(k0, k1, n, dev),
+                 lambda: threefry.threefry_bits_plain(k0, k1, n, dev)),
+                ("uniform", threefry.ALU_OPS + threefry.UNIFORM_ALU_OPS,
+                 threefry.ADD_OPS + threefry.UNIFORM_FMA_OPS,
+                 lambda: threefry.threefry_uniform(k0, k1, n, 0.0, 1.0, dev),
+                 lambda: threefry.threefry_uniform_plain(k0, k1, n, 0.0,
+                                                         1.0, dev))):
+            built = sass[entry]["per_counter"]
+            if built["alu_only"] < alu or built["alu_only"] + \
+                    built["adds"] + built["fp"] < alu + other:
+                fail(f"threefry {entry}: the built loop {sass[entry]} does "
+                     f"less a counter than the bound counts ({alu} "
+                     f"ALU-only, {alu + other} in all)")
+            by_bytes = 1e3 * 4 * n / HBM_BYTES_PER_S
+            by_alu = 1e3 * alu * n / ALU_LANES_PER_S
+            by_issue = 1e3 * (alu + other) * n / ISSUE_LANES_PER_S
+            by_ops = max(by_alu, by_issue)
+            row = {"entry": entry, "n": n, "alu_ops_per_counter": alu,
+                   "other_ops_per_counter": other,
+                   "ms": cuda_times(kernel, 50, flush),
+                   "plain_ms": cuda_times(plain, 10, flush),
+                   "library_ms": None,
+                   "bound_ms": max(by_bytes, by_ops),
+                   "bound_by": "bytes" if by_bytes >= by_ops
+                   else "operations",
+                   "bytes_bound_ms": by_bytes, "alu_bound_ms": by_alu,
+                   "issue_bound_ms": by_issue, "launch_floor_ms": floor_ms,
+                   "back_to_back_ms": back_to_back_ms(kernel, 50),
+                   "sass": sass[entry]}
+            rows.append(row)
+            print(json.dumps({"phase": "kernel-threefry", **row}),
+                  flush=True)
     return rows, max_err
 
 
@@ -3041,20 +3119,17 @@ def state_io_path(g, seen, engine, prng, segsum, threefry, device_mod,
 BA_ROWS, BA_WIDTH = 100_096, 128
 
 
-def rowsum_phase(rowsum, g, flush):
-    """Phase 4p: the row-sum kernel against its plain version (one torch
-    launch per column of a window, on the card) on seeded random terms at
-    those shapes: bits equal, and equal to the CPU's plain version. Times
-    each (CUDA events after an L2 flush, 20 launches), and for the dense
-    entry the library call ``sum(dim=1)`` (no one PyTorch call gathers,
-    masks and sums, so the gather entry has none). Prints a ``kernel``
-    line each; returns them by table."""
+def rowsum_cases(neighbors, neighbor_mask) -> list:
+    """Phase 4p's row-sum inputs, ``(entry, table, args)``: seeded random
+    terms over phase 4's neighbor table ``[1,000,064, 17]``, the BA shape
+    (30% of the slots live) and the recorder's lanes. ``tools/
+    kernel_times.py`` times the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     dev = torch.device("cuda")
-    cases = [
-        ("gather", "ws-1m", (torch.rand(g.n_nodes_padded, generator=gen,
+    return [
+        ("gather", "ws-1m", (torch.rand(neighbors.shape[0], generator=gen,
                                         device=dev),
-                             g.neighbors, g.neighbor_mask)),
+                             neighbors, neighbor_mask)),
         ("gather", "ba-100k", (
             torch.rand(BA_ROWS, generator=gen, device=dev),
             torch.randint(0, BA_ROWS, (BA_ROWS, BA_WIDTH), generator=gen,
@@ -3063,6 +3138,18 @@ def rowsum_phase(rowsum, g, flush):
     ] + [("dense", f"lanes-{n}",
           ((torch.rand(1, n, generator=gen, device=dev) * 1e5).floor(),))
          for n in (BATCH_B, 32)]
+
+
+def rowsum_phase(rowsum, build_mod, g, flush):
+    """Phase 4p: the row-sum kernel against its plain version (one torch
+    launch per column of a window, on the card) on :func:`rowsum_cases`:
+    bits equal, and equal to the CPU's plain version. Times each (CUDA
+    events after an L2 flush, 20 launches), and for the dense entry the
+    library call ``sum(dim=1)`` (no one PyTorch call gathers, masks and
+    sums, so the gather entry has none), beside the launch floor. Prints a
+    ``kernel`` line each; returns them by table."""
+    cases = rowsum_cases(g.neighbors, g.neighbor_mask)
+    floor_ms = launch_floor_ms(build_mod, flush)
     rows = {}
     for entry, name, args in cases:
         if entry == "gather":
@@ -3093,6 +3180,8 @@ def rowsum_phase(rowsum, g, flush):
                    lambda: args[0].sum(dim=1), 20, flush),
                "bound_ms": 1e3 * max(by_bytes, by_ops),
                "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+               "launch_floor_ms": floor_ms,
+               "back_to_back_ms": back_to_back_ms(lambda: kernel(*args), 20),
                "max_abs_err": float((got - want).abs().max().nan_to_num())}
         print(json.dumps({"phase": "kernel", "kernel": "rowsum", **row}),
               flush=True)
@@ -3826,7 +3915,7 @@ def main() -> int:
     # The row-sum kernel (slice 8's repair of the ordered sums), then
     # PageRank by ``gather`` on the same graph, its main-path use.
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    rowsum_rows = rowsum_phase(rowsum, g, flush)
+    rowsum_rows = rowsum_phase(rowsum, _build, g, flush)
     del flush
     rowsum_launches = {"gather": pagerank_gather(
         g, engine, rowsum, segsum, threefry, _device, PageRank)}
@@ -3902,7 +3991,9 @@ def main() -> int:
             + lib_launches["sum_blocked"], max_err),
         row("threefry", "threefry.cu",
             "p2pnetwork_tpu/models/sir.py:65 (jax.random.uniform, fused "
-            "by XLA; no TPU kernel)", threefry_rows[1],
+            "by XLA; no TPU kernel)",
+            next(r for r in threefry_rows
+                 if r["entry"] == "uniform" and r["n"] == N_PAD),
             sir_launches["threefry"] + cons_launches["threefry"]
             + gossip_launches + new_launches["threefry"] + walk_launches
             + lib_launches["threefry"] + io_launches["threefry"],

@@ -7,8 +7,11 @@ recorder's 1-D sums are XLA reduces, and the port gives their bits only by
 adding in their order (:data:`REDUCE_WINDOW`). torch's vectorized ``sum``
 adds in another order and differs in the last bit. The plain version
 below keeps the order with one elementwise launch per column of a window;
-the kernel adds a row's terms in one thread, in that order, and fuses the
-gather and the mask product into the same pass (:func:`gather_row_sum`).
+the kernels add in that order too, and fuse the gather and the mask
+product into the sum (:func:`gather_row_sum`): a thread a row of <= 32
+terms; wider rows in tiles (:func:`tile_rows`) staged through shared
+memory. For :func:`row_sum` (the 1-D sums) a warp loads a row once and
+adds its windows.
 
 A CPU tensor takes the plain version; a CUDA f32 one launches the kernel,
 and any other CUDA float raises. Integer terms are summed directly (their
@@ -31,6 +34,13 @@ LAUNCHES = 0
 #: left to right from 0, and the window sums are reduced the same way.
 REDUCE_WINDOW = 32
 
+#: The gather kernel's tile buffers (``csrc/rowsum.cu``, rows of 33 to
+#: 1,024 terms): terms staged a tile, product words (each window padded to
+#: an odd stride) and window sums.
+TILE_TERMS = 2048
+TILE_SLOTS = 2112
+TILE_SUM_SLOTS = 128
+
 _bound = None
 
 
@@ -40,11 +50,25 @@ def _lib() -> ctypes.CDLL:
         lib = _build.library()
         q, i, p = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
         lib.p2p_row_sum_f32.argtypes = [p, q, q, p, i, p]
-        lib.p2p_gather_row_sum_f32.argtypes = [p, p, p, q, q, p, i, p]
+        lib.p2p_gather_row_sum_f32.argtypes = [p, p, p, q, q, q, p, i, p]
         lib.p2p_row_sum_f32.restype = i
         lib.p2p_gather_row_sum_f32.restype = i
         _bound = lib
     return _bound
+
+
+def tile_rows(width: int) -> int:
+    """Rows of ``width`` terms in one of the gather kernel's tiles (rows of
+    33 to 1,024 terms): as many as fit ``TILE_TERMS`` terms,
+    ``TILE_SLOTS`` product words (windows of 32 padded to 33 words) and
+    ``TILE_SUM_SLOTS`` window sums (an odd stride a row); 0 for the widths
+    the tile path does not take. The launch may take fewer, so that every
+    block gets the same number of tiles."""
+    if width <= REDUCE_WINDOW or width > REDUCE_WINDOW ** 2:
+        return 0
+    n = -(-width // REDUCE_WINDOW)
+    return min(TILE_TERMS // width, TILE_SLOTS // (n * (REDUCE_WINDOW + 1)),
+               TILE_SUM_SLOTS // (n | 1))
 
 
 def row_sum_plain(vals: torch.Tensor) -> torch.Tensor:
@@ -142,4 +166,4 @@ def gather_row_sum(signal: torch.Tensor, idx: torch.Tensor,
     rows, width = idx.shape
     return _launch("p2p_gather_row_sum_f32", rows, signal.device,
                    signal.data_ptr(), idx.data_ptr(), mask.data_ptr(), rows,
-                   width)
+                   width, tile_rows(width))

@@ -7,13 +7,16 @@ counters. Without a kernel, the plain torch version below is some 150
 elementwise launches per draw (20 rounds of add, rotate and xor on i64
 masked to 32 bits), which would be most of a round's device time in a
 protocol that draws every round (SIR draws twice). ``csrc/threefry.cu``
-does it in one launch: one thread per counter index ``i``, computing
-``threefry2x32(k0, k1, hi(i), lo(i))`` in registers and writing
-``bits1 ^ bits2`` — jax's ``_threefry_random_bits_partitionable`` — or,
-for :func:`threefry_uniform`, the f32 ``uniform`` of those bits
-(``prng.py``). It is integer work, 68 instructions per 4-byte store, of
+does it in one launch per 2**32 counters: ``COUNTERS_PER_THREAD``
+consecutive counters a thread, computing ``threefry2x32(k0, k1, hi(i),
+lo(i))`` in registers and writing ``bits1 ^ bits2`` — jax's
+``_threefry_random_bits_partitionable`` — or, for
+:func:`threefry_uniform`, the f32 ``uniform`` of those bits (``prng.py``).
+It is integer work, 68 instructions per 4-byte store at the least, of
 which the 41 rotations and xors run only on the ALU pipe, so that pipe
-bounds it, not the bytes.
+bounds it, not the bytes; the kernel's 4-counter loop issues its adds on
+the FMA pipe. A draw of at most one wave of threads takes a counter a
+thread.
 
 A CPU ``device`` takes the plain version; a CUDA one launches the kernel
 or raises. ``LAUNCHES`` counts kernel launches.
@@ -31,12 +34,18 @@ from p2pnetwork_tpu_torch import _build
 #: :func:`threefry_uniform`.
 LAUNCHES = 0
 
+#: Counters a thread of the kernel hashes per pass of its loop (its
+#: ``kPerThread``), stored as one 16-byte vector.
+COUNTERS_PER_THREAD = 4
+
 #: The least instructions per counter on Hopper, by pipe (the built
 #: kernel's SASS holds these and its loop's own, ``chip_smoke.py`` phase
 #: 3c). Only the ALU pipe takes the 20 rotations (one funnel shift each)
 #: and the 21 xors. The 27 adds (20 in the rounds, x1's seeding and its 5
 #: key injections, x0's last injection; x0's seeding and other injections
-#: fold into three-input adds) issue on the ALU or the FMA pipe.
+#: fold into three-input adds) issue on the ALU or the FMA pipe. (The
+#: kernel's 4-counter loop spends 4 more, as IMADs on the FMA pipe, which
+#: has no three-input add.)
 ALU_OPS = 20 + 21
 ADD_OPS = 20 + 1 + 5 + 1
 #: The uniform epilogue: the shift-or (one ``LEA.HI``) and the max on the
@@ -55,10 +64,11 @@ def _lib() -> ctypes.CDLL:
     global _bound
     if _bound is None:
         lib = _build.library()
-        u, q, f, i, p = (ctypes.c_uint32, ctypes.c_int64, ctypes.c_float,
-                         ctypes.c_int, ctypes.c_void_p)
-        lib.p2p_threefry_bits.argtypes = [u, u, q, p, i, p]
-        lib.p2p_threefry_uniform.argtypes = [u, u, q, f, f, p, i, p]
+        u, w, q, f, i, p = (ctypes.c_uint32, ctypes.c_uint64,
+                            ctypes.c_int64, ctypes.c_float, ctypes.c_int,
+                            ctypes.c_void_p)
+        lib.p2p_threefry_bits.argtypes = [u, u, w, q, p, i, p]
+        lib.p2p_threefry_uniform.argtypes = [u, u, w, q, f, f, p, i, p]
         lib.p2p_threefry_bits.restype = lib.p2p_threefry_uniform.restype = i
         _bound = lib
     return _bound
@@ -91,14 +101,17 @@ def hash_counters(k0: int, k1: int, i: torch.Tensor) -> torch.Tensor:
     return x0 ^ x1
 
 
-def _bits_u32(k0: int, k1: int, n: int, device) -> torch.Tensor:
-    return hash_counters(k0, k1, torch.arange(n, dtype=torch.int64,
+def _bits_u32(k0: int, k1: int, n: int, device,
+              offset: int = 0) -> torch.Tensor:
+    return hash_counters(k0, k1, torch.arange(offset, offset + n,
+                                              dtype=torch.int64,
                                               device=device))
 
 
-def threefry_bits_plain(k0: int, k1: int, n: int, device) -> torch.Tensor:
+def threefry_bits_plain(k0: int, k1: int, n: int, device,
+                        offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of :func:`threefry_bits`."""
-    return to_i32(_bits_u32(k0, k1, n, device))
+    return to_i32(_bits_u32(k0, k1, n, device, offset))
 
 
 def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -122,49 +135,72 @@ def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
 
 
 def threefry_uniform_plain(k0: int, k1: int, n: int, minval: float,
-                           scale: float, device) -> torch.Tensor:
+                           scale: float, device,
+                           offset: int = 0) -> torch.Tensor:
     """Plain PyTorch version of :func:`threefry_uniform`."""
-    mant = to_i32((_bits_u32(k0, k1, n, device) >> 9) | 0x3F800000)
+    mant = to_i32((_bits_u32(k0, k1, n, device, offset) >> 9) | 0x3F800000)
     floats = mant.view(torch.float32) - 1.0
     return fma_f32(floats, scale, minval).clamp_min(minval)
 
 
-def _launch(name: str, n: int, dtype, device, k0: int, k1: int,
+def launch_spans(offset: int, n: int) -> list:
+    """The kernel launches of a draw of ``n`` counters from ``offset``:
+    ``(offset, count)`` pieces in order, none crossing a multiple of
+    ``2**32``, so that each launch's counters share their high word and
+    count in 32 bits."""
+    spans = []
+    while n > 0:
+        count = min(n, 2**32 - (offset & _M32))
+        spans.append((offset, count))
+        offset, n = offset + count, n - count
+    return spans
+
+
+def _launch(name: str, n: int, dtype, device, k0: int, k1: int, offset: int,
             *extra) -> torch.Tensor:
     """Allocate the output and launch ``p2p_<name>`` on the current
-    stream: ``(k0, k1, n, *extra, out, device, stream)``."""
+    stream once per :func:`launch_spans` piece: ``(k0, k1, offset, count,
+    *extra, out, device, stream)``."""
     global LAUNCHES
     if device.type != "cuda":
         raise ValueError(f"{name}: expected a CPU or CUDA device, got {device}")
+    if offset < 0 or offset + n > 2**64:
+        raise ValueError(f"{name}: counters [{offset}, {offset + n}) leave "
+                         f"the 64-bit range")
     out = torch.empty(n, dtype=dtype, device=device)
-    if n == 0:
-        return out
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(_lib(), "p2p_" + name)(k0, k1, n, *extra, out.data_ptr(),
-                                        device.index or 0, stream)
-    if rc != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {rc}")
-    LAUNCHES += 1
+    at = 0
+    for start, count in launch_spans(offset, n):
+        rc = getattr(_lib(), "p2p_" + name)(
+            k0, k1, start, count, *extra, out.data_ptr() + 4 * at,
+            device.index or 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"{name}: kernel launch failed with CUDA "
+                               f"error {rc}")
+        LAUNCHES += 1
+        at += count
     return out
 
 
-def threefry_bits(k0: int, k1: int, n: int, device) -> torch.Tensor:
+def threefry_bits(k0: int, k1: int, n: int, device,
+                  offset: int = 0) -> torch.Tensor:
     """i32[n]: the u32 pattern of ``bits1 ^ bits2`` of
     ``threefry2x32((k0, k1), (i >> 32, i & 0xffffffff))`` for each
-    ``i < n``."""
+    counter ``offset <= i < offset + n``."""
     device = torch.device(device)
     if device.type == "cpu":
-        return threefry_bits_plain(k0, k1, n, device)
-    return _launch("threefry_bits", n, torch.int32, device, k0, k1)
+        return threefry_bits_plain(k0, k1, n, device, offset)
+    return _launch("threefry_bits", n, torch.int32, device, k0, k1, offset)
 
 
 def threefry_uniform(k0: int, k1: int, n: int, minval: float, scale: float,
-                     device) -> torch.Tensor:
+                     device, offset: int = 0) -> torch.Tensor:
     """f32[n]: ``max(minval, (mantissa(bits) - 1) * scale + minval)``, the
     f32 ``uniform`` of :func:`threefry_bits` (``scale`` is the f32
     ``maxval - minval``)."""
     device = torch.device(device)
     if device.type == "cpu":
-        return threefry_uniform_plain(k0, k1, n, minval, scale, device)
+        return threefry_uniform_plain(k0, k1, n, minval, scale, device,
+                                      offset)
     return _launch("threefry_uniform", n, torch.float32, device, k0, k1,
-                   minval, scale)
+                   offset, minval, scale)

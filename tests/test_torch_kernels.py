@@ -586,9 +586,23 @@ def test_ring_segment_sum_spreads_nonfinite_terms_on_card(case, extents):
 
 # ------------------------------------------------ threefry (ops/threefry.py)
 
-#: Counter counts around the kernel's block (256) and its grid cap
-#: (132 * 32 blocks, past which threads loop), and the 1M draw.
-_THREEFRY_SIZES = [1, 31, 33, 255, 257, 132 * 32 * 256 + 1, 2**20 + 7]
+#: Counter counts around the kernel's block (256), the draws that narrow
+#: its blocks (fewer than one block an SM), one wave of a counter a thread
+#: (132 SMs x 8 blocks x 256 threads; 6 or 7 blocks if registers allow no
+#: more) and past it, where a thread takes 4 counters (the scalar head and
+#: tail take the rest), one persistent wave of those and past it, where
+#: threads loop, the first design's grid cap (132 * 32 blocks of 256), and
+#: the 1M draw.
+_WAVE = 132 * 8 * 256
+_THREEFRY_SIZES = [1, 2, 3, 4, 5, 31, 33, 255, 257, 4096, 4099, 100_096,
+                   132 * 6 * 256 + 1, 132 * 7 * 256 + 3, _WAVE, _WAVE + 1,
+                   _WAVE + 6, 4 * _WAVE - 1, 4 * _WAVE + 5,
+                   132 * 32 * 256 + 1, 2**20 + 7]
+#: Draws from a counter offset: across 2**32 (two launches, the second
+#: writing from an output address 8 bytes past a 16-byte boundary), at
+#: 2**32 itself and in a higher word.
+_THREEFRY_OFFSETS = [(2**32 - 6, 4103), (2**32 - 1, 2), (2**32, 33),
+                     (2**33 + 5, 1000), (2**32 - 2**20, 2**21 + 3)]
 
 
 def test_threefry_plain_matches_the_numpy_hash():
@@ -600,6 +614,44 @@ def test_threefry_plain_matches_the_numpy_hash():
             for i in range(1000)]
     got = threefry.threefry_bits(k0, k1, 1000, "cpu")
     np.testing.assert_array_equal(got.numpy().view(np.uint32), want)
+
+
+@pytest.mark.parametrize("offset,n,want", [
+    (0, 0, []), (0, 5, [(0, 5)]), (2**32 - 6, 4103, [(2**32 - 6, 6),
+                                                    (2**32, 4097)]),
+    (2**32, 2**32, [(2**32, 2**32)]),
+    (2**33 + 5, 2**33, [(2**33 + 5, 2**32 - 5), (3 * 2**32, 2**32),
+                        (4 * 2**32, 5)])])
+def test_threefry_launch_spans_split_at_multiples_of_two_to_the_32(
+        offset, n, want):
+    from p2pnetwork_tpu_torch.ops import threefry
+
+    spans = threefry.launch_spans(offset, n)
+    assert spans == want
+    assert sum(c for _, c in spans) == n
+    for start, count in spans:
+        assert 0 < count <= 2**32 - (start & 0xFFFFFFFF)
+
+
+@pytest.mark.parametrize("offset,n", _THREEFRY_OFFSETS[:4])
+def test_threefry_plain_draws_from_an_offset(offset, n):
+    # The plain version's offset is the counters' start: its draw is the
+    # tail of a longer one from 0 where that fits, and the hash of those
+    # counters in any case.
+    from p2pnetwork_tpu_torch import prng
+    from p2pnetwork_tpu_torch.ops import threefry
+
+    k0, k1 = (int(w) for w in prng.key(5))
+    got = threefry.threefry_bits(k0, k1, n, "cpu", offset=offset)
+    want = threefry.hash_counters(
+        k0, k1, torch.arange(offset, offset + n, dtype=torch.int64))
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.numpy().astype(np.uint32))
+    got = threefry.threefry_uniform(k0, k1, n, 0.0, 1.0, "cpu",
+                                    offset=offset)
+    np.testing.assert_array_equal(
+        got.numpy(), threefry.threefry_uniform_plain(
+            k0, k1, n + 3, 0.0, 1.0, "cpu", offset=offset - 3).numpy()[3:])
 
 
 def test_threefry_wrapper_refuses_other_devices():
@@ -626,6 +678,29 @@ def test_threefry_kernel_matches_plain_on_card(n, key):
         want = threefry.threefry_uniform_plain(*key, n, *args, "cpu")
         assert torch.equal(got.cpu().view(torch.int32),
                            want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset,n", _THREEFRY_OFFSETS)
+def test_threefry_kernel_draws_across_two_to_the_32_on_card(offset, n):
+    # One launch per 2**32 counters; the counters' high word reaches the
+    # kernel as a launch argument. Held against the hash of the counters.
+    from p2pnetwork_tpu_torch.ops import threefry
+
+    _card()
+    dev = torch.device("cuda")
+    key = (0x9E3779B9, 7)
+    launches = threefry.LAUNCHES
+    got = threefry.threefry_bits(*key, n, dev, offset=offset)
+    assert threefry.LAUNCHES - launches == len(
+        threefry.launch_spans(offset, n))
+    want = threefry.hash_counters(
+        *key, torch.arange(offset, offset + n, dtype=torch.int64))
+    assert torch.equal(got.cpu(), threefry.to_i32(want))
+    got = threefry.threefry_uniform(*key, n, -3.5, 10.5, dev, offset=offset)
+    want = threefry.threefry_uniform_plain(*key, n, -3.5, 10.5, "cpu",
+                                           offset=offset)
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
 
 
 # ------------------------------------- max, min-plus and analytics on card

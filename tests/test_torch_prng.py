@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 jax = pytest.importorskip("jax")
+jnp = pytest.importorskip("jax.numpy")
 
 from p2pnetwork_tpu_torch import interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.ops import threefry  # noqa: E402
@@ -165,6 +166,29 @@ def test_bits_past_two_to_the_32():
             for c in i]
     got = threefry.hash_counters(k0, k1, torch.from_numpy(i))
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("base", [2**32 - 4, 2**32, 2**33 + 7,
+                                  2**40 + 12345, 2**62 - 3])
+def test_hash_counters_past_two_to_the_32_equal_jax(base):
+    # The counters a draw from a launch offset hashes (the kernel takes
+    # their high word as an argument) against jax's own threefry2x32 on
+    # the (hi, lo) words: its count's first half is x0, its second x1.
+    from jax._src import prng as jprng
+
+    k0, k1 = (int(w) for w in prng.key(7))
+    c = np.arange(base, base + 9, dtype=np.uint64)
+    hi = (c >> np.uint64(32)).astype(np.uint32)
+    lo = (c & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    out = np.asarray(jprng.threefry_2x32(
+        (jnp.uint32(k0), jnp.uint32(k1)), jnp.asarray(np.concatenate([hi,
+                                                                       lo]))))
+    got = threefry.hash_counters(k0, k1, torch.from_numpy(c.astype(np.int64)))
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32),
+                                  out[:9] ^ out[9:])
+    bits = threefry.threefry_bits(k0, k1, 9, "cpu", offset=base)
+    np.testing.assert_array_equal(bits.numpy().view(np.uint32),
+                                  out[:9] ^ out[9:])
 
 
 # The span LubyMIS draws its priorities over, [0, 2**31 - 1): its

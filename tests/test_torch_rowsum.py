@@ -103,6 +103,25 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
                           torch.zeros(2, 3, dtype=torch.bool, device="meta"))
 
 
+def test_tile_rows_fit_the_kernel_buffers():
+    # Every width the tile path takes (33 to 1,024 terms) gets at least one
+    # row a tile, and a tile's terms, padded products (windows of 32 at a
+    # stride of 33) and window sums fit the kernel's buffers; one row more
+    # would not (the tile is as large as they let it be).
+    assert RS.tile_rows(0) == RS.tile_rows(32) == RS.tile_rows(1025) == 0
+    for w in range(33, 1025):
+        n = -(-w // 32)
+
+        def fits(r):
+            return (r * w <= RS.TILE_TERMS
+                    and r * n * 33 <= RS.TILE_SLOTS
+                    and r * (n | 1) <= RS.TILE_SUM_SLOTS)
+        r = RS.tile_rows(w)
+        assert r >= 1 and fits(r) and not fits(r + 1), w
+    assert [RS.tile_rows(w) for w in (33, 64, 128, 1000, 1024)] == \
+        [32, 32, 16, 2, 2]
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (run via chip_smoke.py)")
@@ -134,3 +153,68 @@ def test_kernel_matches_plain_on_card(width):
     got = RS.gather_row_sum(signal, idx, mask)
     want = RS.gather_row_sum_plain(signal, idx, mask)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+#: Kernel edges: (width, rows). Narrow rows (17, the 1M table's; 1, 31,
+#: 32) at row counts that are not multiples of the 8-term chunk or of a
+#: block; wide rows (33, 128 the BA shape's, 1,024) that leave the last
+#: tile partial (one row past whole tiles, and fewer rows than a tile);
+#: the recorder's one-row dense sums.
+EDGE_CASES = [(17, 3 * 120 + 1), (17, 7), (128, 5 * 16 + 1), (128, 3),
+              (1024, 2 * 3 + 1), (33, 32 * 4 + 31), (1, 2049), (31, 67),
+              (32, 1), (1024, 1)]
+
+
+def _same_on_cpu(got, want):
+    """``got`` (the kernel's, on the card) against the CPU's plain
+    version: NaN at the same rows (the CPU's inf * 0 sets the sign bit
+    of its NaN, the card's does not), the bits equal elsewhere."""
+    got = got.cpu()
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(
+        got[~nan].view(torch.int32), want[~nan].view(torch.int32))
+
+
+def _view(t, skip):
+    """``t``'s values in a buffer ``skip`` elements in: a view whose base
+    is ``skip`` elements past an aligned allocation."""
+    buf = torch.empty(t.numel() + skip, dtype=t.dtype, device=t.device)
+    view = buf[skip:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("skip", [0, 1, 3])
+@pytest.mark.parametrize("width,rows", EDGE_CASES)
+def test_kernel_edges_on_card(width, rows, skip):
+    # Bases 4 and 12 bytes past a 16-byte boundary for the indices and
+    # values, 1 and 3 for the mask; inf terms (NaN where masked out), -0
+    # terms (a one-term row keeps its -0) and rows of +-0 only. Bit for
+    # bit against the plain version on the card, and against the CPU's.
+    _card()
+    rng = np.random.default_rng(width * 1000 + rows + skip)
+    v = _terms(rng, rows, width)
+    v[rng.random((rows, width)) < 0.1] = -0.0
+    v[rng.random((rows, width)) < 0.02] = np.inf
+    v[0] = -0.0
+    vals = _view(torch.from_numpy(v).cuda(), skip)
+    launches = RS.LAUNCHES
+    got = RS.row_sum(vals)
+    assert RS.LAUNCHES == launches + 1
+    want = RS.row_sum_plain(vals)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert _same_on_cpu(got, RS.row_sum_plain(vals.cpu()))
+    signal = _terms(rng, 1, 4099)[0]
+    signal[::97] = np.inf
+    signal[1::89] = -0.0
+    signal = _view(torch.from_numpy(signal).cuda(), skip)
+    idx = _view(torch.from_numpy(rng.integers(0, 4099, (rows, width))
+                                 .astype(np.int32)).cuda(), skip)
+    mask = _view(torch.from_numpy(rng.random((rows, width)) < 0.7).cuda(),
+                 skip)
+    got = RS.gather_row_sum(signal, idx, mask)
+    want = RS.gather_row_sum_plain(signal, idx, mask)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert _same_on_cpu(got, RS.gather_row_sum_plain(
+        signal.cpu(), idx.cpu(), mask.cpu()))
