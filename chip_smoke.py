@@ -223,14 +223,42 @@ Phases, in order; any failure exits non-zero before the result line:
    journal seconds); then the background driver (``start``, ``wait``,
    ``close``) on 100 tickets, each equal to a ticked service's, all done
    in a service resumed from its store.
+4r. The self-healing and chaos plane (slice 10; ``chaos-path`` lines with
+   each sub-phase's wall). (d) After 4q on phase 4's graph: 4q's
+   supervised ``hybrid`` flood with ``heal=RetryPolicy(**HEAL_POLICY)``
+   and a chip preemption injected at its second chunk: ``EXPECTED_1M``,
+   phase 4's ``seen``, one chunk healed, B1 launched. (e) Phase 4's graph
+   sharded 8 ways (``mxu``) and flooded with ``comm=FaultSpec(
+   FaultSchedule(**RING_FAULTS), "pallas")``: the reference's dict, seen
+   digest and fault counts (``EXPECTED_RING_FAULTED``), the counter equal
+   to the schedule's replay, B2, B1 (stacked) and threefry launched and B3
+   not; an empty schedule equal to the bare B3 flood bit for bit; walls
+   of the faulted and bare floods in turns and a profile. (a) After 4q's
+   drives on 4j's graph: 4q's drive with ``heal=`` under a preempt and a
+   wedge (``SERVE_FAULTS``): ``EXPECTED_SERVE``, the tickets of an
+   unfaulted drive, two chunks healed; then unhealed and healed drives
+   in turns (the healing's cost). (b) The healed, faulted drive with
+   ``slo=SLOEngine(serve_objectives(slo_rounds=SLO_ROUNDS))``:
+   ``EXPECTED_SERVE_SLO``. (g) ``MetricsServer`` on ``127.0.0.1:0`` over
+   (b)'s registry and service: ``/metrics`` parses with the ``serve_``,
+   ``heal_`` and ``chaos_`` families, ``/dashboard.json`` is JSON, a
+   ``POST /submit`` through ``handle_http`` ends done. (c) Last but one:
+   the reference's 100k churn soak (``SOAK_STORM``, ``SOAK_TRAFFIC``)
+   unfaulted, then healed through ``SERVE_FAULTS``: both
+   ``EXPECTED_SOAK``, their tickets equal. (f) Last: the reference's
+   crash-storm campaign (``CAMPAIGN_KILLS``, ``CAMPAIGN_CONFIG``), its
+   seven children on the card: no acknowledged ticket lost, at least 3
+   kills landed, then a ``Standby`` promotes over the trail and fences the
+   zombie primary (``FencedEpoch``).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
-   phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods and 4q's
-   supervised flood; its sum
+   phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
+   supervised flood and 4r's healed and faulted floods; B2's over 4b and
+   4r's faulted flood; its sum
    entry's on the hybrid remainder over 4e's ``hybrid`` run, 4f, 4i's
    ``KCore(hybrid)``, 4n's Bracha, HITS and betweenness and 4p's SIR, on
    the blocked layout over 4e's ``pallas`` run, ``KCore(pallas)`` and
    4n's ``Bracha(pallas)``; threefry's over 4e-4g, 4i, 4l's restart run,
-   4n and 4p's SIR; the row-sum kernel's gather entry over 4p's PageRank
+   4n, 4p's SIR and 4r's corrupt bits; the row-sum kernel's gather entry over 4p's PageRank
    and its dense entry over 4p's batch recorder), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -1058,6 +1086,107 @@ SUPERVISE_PAIRS, SUPERVISE_ALONE = 9, 5
 JOURNAL_CALLS = ("append", "tick_barrier", "rotate", "compact")
 #: Tickets of 4q's background driver (sources every n // this nodes).
 SERVE_BACKGROUND = 100
+
+#: Phase 4r (slice 10): the self-healing and chaos plane. Every healed run
+#: takes this retry policy and the healed drives these one-shot dispatch
+#: faults (the reference's 100k soak's own, tests/test_graftchurn.py).
+HEAL_POLICY = dict(max_attempts=4, backoff_base_s=0.0)
+SERVE_FAULTS = dict(preempt_at=(1,), wedge_at=(3,))
+#: 4r(a): 4q's drive without and with ``heal=`` (no fault), in turns.
+HEAL_PAIRS = 5
+#: 4r(b): the healed, faulted drive with ``slo=SLOEngine(serve_objectives(
+#: slo_rounds=SLO_ROUNDS))``, the other objectives at their defaults (24
+#: is the reference's own test value). 4q's drive completes at p99 18
+#: rounds, so the admission objective holds and the drive is
+#: ``EXPECTED_SERVE``'s, while the shed-rate objective (758 of 6,902
+#: arrivals shed, over its 5% budget) fires and resolves; the admission
+#: path is held to the reference on the CPU (tests/test_torch_slo.py).
+#: The reference's numbers (``serve_summary``,
+#: the final admit budget, the alerts as (objective, transition, tick));
+#: regenerate (~30 s):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import chip_smoke as c
+#:   from p2pnetwork_tpu import telemetry as T
+#:   from p2pnetwork_tpu.sim import graph as G
+#:   from p2pnetwork_tpu.serve import SimService, TrafficPattern, drive, generate
+#:   from p2pnetwork_tpu.supervise.heal import RetryPolicy
+#:   from p2pnetwork_tpu.telemetry.slo import SLOEngine, serve_objectives
+#:   from p2pnetwork_tpu.chaos.device import DispatchChaos, install_dispatch_chaos
+#:   g = G.watts_strogatz(100_000, 10, 0.1, seed=0, source_csr=True)
+#:   reg = T.Registry()
+#:   slo = SLOEngine(serve_objectives(slo_rounds=c.SLO_ROUNDS), registry=reg)
+#:   install_dispatch_chaos(DispatchChaos(registry=reg, **c.SERVE_FAULTS))
+#:   svc = SimService(g, capacity=1024, queue_depth=1024, chunk_rounds=4, seed=0, heal=RetryPolicy(**c.HEAL_POLICY), slo=slo, registry=reg)
+#:   out = drive(svc, generate(TrafficPattern(**c.SERVE_PATTERN), g.n_nodes, seed=0))
+#:   print(c.slo_summary(out, svc, slo))
+#:   EOF
+SLO_ROUNDS = 24
+EXPECTED_SERVE_SLO = dict(
+    EXPECTED_SERVE, admit_budget=1024,
+    alerts=[["shed_rate", "fire", 9], ["shed_rate", "resolve", 12],
+            ["shed_rate", "fire", 15]])
+#: 4r(c): the reference's acceptance soak (tests/test_graftchurn.py
+#: ``TestChurnSoak``) as it stands: ``watts_strogatz(100_000, 6, 0.1,
+#: seed=0)`` grown to 1 << 17 slots, this storm (seed 11) and traffic
+#: (seed 13), capacity 32, chunk 4, seed 1, seen hashes on, healed. The
+#: reference's drive (``soak_summary``; ``tickets_sha256`` over every
+#: record, seen hashes included); regenerate (~20 s):
+#:   JAX_PLATFORMS=cpu python - <<'EOF'
+#:   import chip_smoke as c
+#:   from p2pnetwork_tpu import telemetry as T
+#:   from p2pnetwork_tpu.sim import graph as G
+#:   from p2pnetwork_tpu.serve import SimService, TrafficPattern, generate
+#:   from p2pnetwork_tpu.chaos import storm as S
+#:   from p2pnetwork_tpu.supervise.heal import RetryPolicy
+#:   g = G.grow(G.watts_strogatz(100_000, 6, 0.1, seed=0), 0, node_capacity=1 << 17)
+#:   churn = S.generate(S.ChurnPattern(**c.SOAK_STORM), g.n_nodes, seed=11)
+#:   tr = generate(TrafficPattern(**c.SOAK_TRAFFIC), g.n_nodes, seed=13)
+#:   svc = SimService(g, capacity=32, chunk_rounds=4, seed=1, record_seen_hash=True, heal=RetryPolicy(**c.HEAL_POLICY), registry=T.Registry())
+#:   print(c.soak_summary(S.drive(svc, churn, traffic=tr)))
+#:   EOF
+SOAK_STORM = dict(ticks=10, join_prob=0.5, join_batch=8, fanout=3,
+                  leave_prob=0.3, grow_prob=0.2, grow_batch=16)
+SOAK_TRAFFIC = dict(ticks=10, rate=2.0, hot_fraction=0.5, hot_keys=4,
+                    coverage_target=0.95)
+EXPECTED_SOAK = {
+    "submitted": 22, "completed": 22, "drain_ticks": 3,
+    "executed_rounds": 46, "peak_concurrent_lanes": 12,
+    "events": {"grow": 3, "join": 7, "leave": 5}, "graph_nodes": 100104,
+    "graph_capacity": 131072, "replayed": 0, "shed": 0,
+    "tickets_sha256": ("9c8075cfb2630c44487cacf5bcb35c85"
+                       "ff63c62004e6d22d3d8b974c8b7934af")}
+#: 4r(e): the reference's faulted-flood schedule
+#: (tests/test_graftquake.py ``test_cross_backend_faulted_parity``) on the
+#: 1M ring, S = 8. The reference's dict, the sha256 of its final ``seen``
+#: (``[8, 125008]`` bool) and its fault counts; the sites do not depend
+#: on the layout, so its ``segment`` ring on ``ppermute`` (which it pins
+#: bit-identical to its Pallas hop) gives them. Regenerate (~10 s):
+#:   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 python - <<'EOF'
+#:   import hashlib, numpy as np, chip_smoke as c
+#:   from p2pnetwork_tpu import telemetry as T
+#:   from p2pnetwork_tpu.sim import graph as G
+#:   from p2pnetwork_tpu.parallel import mesh, sharded
+#:   from p2pnetwork_tpu.chaos.device import FaultSchedule, FaultSpec
+#:   m = mesh.ring_mesh(8)
+#:   sg = sharded.shard_graph(G.watts_strogatz(1_000_000, 10, 0.1, seed=0), m)
+#:   seen, out = sharded.flood_until_coverage(sg, m, 0, coverage_target=0.99, max_rounds=64, comm=FaultSpec(FaultSchedule(**c.RING_FAULTS), "ppermute"))
+#:   print(out, hashlib.sha256(np.asarray(seen).tobytes()).hexdigest(), {k: T.default_registry().value("chaos_device_faults_total", kind=k) for k in ("corrupt", "zero", "delay")})
+#:   EOF
+RING_FAULTS = dict(seed=5, corrupt=0.05, zero=0.1, delay=0.1)
+EXPECTED_RING_FAULTED = {
+    "rounds": 7, "coverage": 0.9998120069503784, "messages": 9699142,
+    "frontier_occupancy_mean": 0.14283014833927155,
+    "seen_sha256": ("9294d3b7fac5cf3b9e3ddf761105118f"
+                    "4782eec43d9dc22f112bacbdd7ea7933"),
+    "faults": {"corrupt": 19, "zero": 32, "delay": 42}}
+#: 4r(e)'s faulted and bare floods, timed in turns.
+RING_FAULT_REPS = 3
+#: 4r(f): the reference's crash-storm acceptance campaign
+#: (tests/test_graftdur.py ``TestCrashStormAcceptance``), its children on
+#: the card.
+CAMPAIGN_KILLS = dict(n_kills=5, seed=3, ticks=24)
+CAMPAIGN_CONFIG = {"n_nodes": 100_000, "capacity": 64, "rate": 8.0,
+                   "chunk_rounds": 8, "checkpoint_every_ticks": 4}
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -3602,6 +3731,406 @@ def supervise_path(g, seen, engine, segsum, threefry, device_mod, Flood,
     return rec["segsum_launches"]
 
 
+def slo_summary(out, svc, slo) -> dict:
+    """4r(b)'s checked numbers: ``serve_summary``, the admit budget the
+    drive ends on, and the SLO engine's alerts as (objective, transition,
+    tick)."""
+    got = serve_summary(out, svc.stats())
+    got["admit_budget"] = svc.stats()["admit_budget"]
+    got["alerts"] = [[r.data["objective"], r.data["transition"],
+                      r.data["tick"]] for r in slo.log.snapshot()]
+    return got
+
+
+def soak_summary(out) -> dict:
+    """4r(c)'s checked numbers of a storm drive; ``tickets_sha256`` over
+    every ticket record (seen hashes included)."""
+    got = {k: out[k] for k in (
+        "submitted", "completed", "drain_ticks", "executed_rounds",
+        "peak_concurrent_lanes", "events", "graph_nodes", "graph_capacity",
+        "replayed")}
+    got.update(shed=len(out["shed"]), tickets_sha256=canon_sha(out["tickets"]))
+    return got
+
+
+def fault_counts(reg) -> dict:
+    return {k: int(reg.value("chaos_device_faults_total", kind=k))
+            for k in ("corrupt", "zero", "delay", "preempt", "wedge")}
+
+
+def http_call(port, path, body=None):
+    """``(status, body text)`` of one request to a localhost server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=data,
+                                 method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prometheus_families(text: str) -> set:
+    """The families of a Prometheus exposition; fails unless every sample
+    line parses as ``name{labels} value``."""
+    fams = set()
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            fams.add(line.split()[2])
+        elif line and not line.startswith("#"):
+            m = re.fullmatch(r'([a-zA-Z_:][a-zA-Z0-9_:]*)(\{.*\})? (\S+)',
+                             line)
+            if m is None:
+                fail(f"/metrics line does not parse: {line!r}")
+            float(m.group(3).replace("Inf", "inf"))
+    return fams
+
+
+def chaos_serve_path(bg, serve, chaos, heal, slo_mod, httpd, telemetry,
+                     segsum, threefry, device_mod):
+    """Phase 4r (a), (b) and (g) on 4j's graph, after 4q's drives.
+
+    (a) 4q's drive with ``heal=`` under ``SERVE_FAULTS``: ``EXPECTED_SERVE``
+    exactly, the ticket table an unhealed drive's, one preempt and one
+    wedge injected, two chunks healed, no kernel launched; then
+    ``HEAL_PAIRS`` unhealed and healed drives (no fault) in turns, whose
+    wall difference is the healing's cost (the retained input and one
+    audited host read of the batch per tick). (b) The healed, faulted
+    drive with an SLO engine: ``EXPECTED_SERVE_SLO``. (g) A
+    ``MetricsServer`` on ``127.0.0.1:0`` over (b)'s registry with (b)'s
+    service mounted: ``/metrics`` parses and holds the ``serve_``,
+    ``heal_`` and ``chaos_`` families, ``/dashboard.json`` is JSON, one
+    ``POST /submit`` goes through ``handle_http`` to a done ticket."""
+    sched = serve.generate(serve.TrafficPattern(**SERVE_PATTERN),
+                           bg.n_nodes, seed=0)
+
+    def make(**kw):
+        return serve.SimService(bg, capacity=BATCH_B, queue_depth=BATCH_B,
+                                chunk_rounds=4, seed=0, **kw)
+
+    def faulted(reg, **kw):
+        """A drive under ``SERVE_FAULTS`` counted into ``reg``."""
+        prev = chaos.install_dispatch_chaos(
+            chaos.DispatchChaos(registry=reg, **SERVE_FAULTS))
+        try:
+            svc = make(heal=heal.RetryPolicy(**HEAL_POLICY), registry=reg,
+                       **kw)
+            out, rec = counted(lambda: serve.drive(svc, sched), segsum,
+                               threefry, device_mod)
+        finally:
+            chaos.install_dispatch_chaos(prev)
+        return svc, out, rec
+
+    base = make()
+    serve.drive(base, sched)
+    reg_a = telemetry.Registry()
+    svc, out, rec = faulted(reg_a)
+    check_run("healed serve drive", serve_summary(out, svc.stats()),
+              EXPECTED_SERVE)
+    if serve_table(svc.tickets()) != serve_table(base.tickets()):
+        fail("healed serve drive: its tickets differ from the unfaulted "
+             "drive's")
+    counts = fault_counts(reg_a)
+    healed = reg_a.value("heal_retries_total", outcome="healed")
+    if (counts["preempt"], counts["wedge"], healed) != (1, 1, 2) \
+            or reg_a.value("serve_healed_ticks_total") != 2:
+        fail(f"healed serve drive: faults {counts}, healed {healed}")
+    no_launch("healed serve drive", rec)
+    svc.close()
+    base.close()
+
+    def drive_wall(**kw):
+        s = make(**kw)
+        syncs0 = device_mod.SYNCS
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serve.drive(s, sched)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ticks = s.stats()["tick"]
+        s.close()
+        return wall, (device_mod.SYNCS - syncs0) / ticks
+
+    pairs = [(drive_wall(), drive_wall(heal=heal.RetryPolicy(**HEAL_POLICY)))
+             for _ in range(HEAL_PAIRS)]
+    print(json.dumps({
+        "phase": "chaos-path", "run": "healed-drive",
+        "faulted_wall_s": rec["first_run_s"], "syncs": rec["syncs"],
+        "faults": counts, "healed_chunks": healed,
+        "unhealed_wall_s": statistics.median(p[0][0] for p in pairs),
+        "healed_wall_s": statistics.median(p[1][0] for p in pairs),
+        "healing_cost_s": statistics.median(p[1][0] - p[0][0]
+                                            for p in pairs),
+        "syncs_per_tick": [pairs[0][0][1], pairs[0][1][1]],
+        "walls": [[a[0], b[0]] for a, b in pairs],
+        "t_s": time.perf_counter() - T_START}), flush=True)
+
+    # (b) The same healed, faulted drive with the SLO engine.
+    reg_b = telemetry.Registry()
+    slo = slo_mod.SLOEngine(slo_mod.serve_objectives(slo_rounds=SLO_ROUNDS),
+                            registry=reg_b)
+    svc_b, out_b, rec_b = faulted(reg_b, slo=slo)
+    check_run("slo serve drive", slo_summary(out_b, svc_b, slo),
+              EXPECTED_SERVE_SLO)
+    print(json.dumps({"phase": "chaos-path", "run": "slo-drive",
+                      "wall_s": rec_b["first_run_s"],
+                      "admit_budget": svc_b.stats()["admit_budget"],
+                      "alerts": len(slo.log.snapshot()),
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+
+    # (g) The HTTP mount over (b)'s registry and service.
+    t0 = time.perf_counter()
+    with httpd.MetricsServer(reg_b, host="127.0.0.1", port=0, service=svc_b,
+                             slo=slo) as srv:
+        code, text = http_call(srv.port, "/metrics")
+        fams = prometheus_families(text) if code == 200 else set()
+        missing = [p for p in ("serve_", "heal_", "chaos_")
+                   if not any(f.startswith(p) for f in fams)]
+        if code != 200 or missing:
+            fail(f"/metrics: status {code}, no family of {missing}")
+        code, doc = http_call(srv.port, "/dashboard.json")
+        if code != 200 or "slo" not in json.loads(doc):
+            fail(f"/dashboard.json: status {code}")
+        code, page = http_call(srv.port, "/dashboard")
+        if code != 200 or not page.startswith("<!DOCTYPE html>"):
+            fail(f"/dashboard: status {code}")
+        code, sub = http_call(srv.port, "/submit", {"source": 0})
+        if code != 202:
+            fail(f"/submit: status {code}: {sub}")
+        tid = json.loads(sub)["ticket"]
+        for _ in range(64):
+            if not svc_b.busy():
+                break
+            svc_b.tick()
+        code, rec_t = http_call(srv.port, f"/poll/{tid}")
+        if code != 200 or json.loads(rec_t)["status"] != "done":
+            fail(f"/poll/{tid}: status {code}: {rec_t}")
+    svc_b.close()
+    print(json.dumps({"phase": "chaos-path", "run": "http",
+                      "families": len(fams), "seconds":
+                      time.perf_counter() - t0,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+
+
+def soak_path(serve, storm, chaos, heal, graph_mod, telemetry):
+    """Phase 4r(c): the reference's 100k churn soak on the card: the
+    unfaulted drive, then the same storm under ``SERVE_FAULTS``, healed;
+    both ``EXPECTED_SOAK``, their tickets equal."""
+    t0 = time.perf_counter()
+    g = graph_mod.grow(graph_mod.watts_strogatz(100_000, 6, 0.1, seed=0), 0,
+                       node_capacity=1 << 17)
+    churn = storm.generate(storm.ChurnPattern(**SOAK_STORM), g.n_nodes,
+                           seed=11)
+    tr = serve.generate(serve.TrafficPattern(**SOAK_TRAFFIC), g.n_nodes,
+                        seed=13)
+    build_s = time.perf_counter() - t0
+
+    def drive(reg):
+        svc = serve.SimService(g, capacity=32, chunk_rounds=4, seed=1,
+                               record_seen_hash=True,
+                               heal=heal.RetryPolicy(**HEAL_POLICY),
+                               registry=reg)
+        t0 = time.perf_counter()
+        out = storm.drive(svc, churn, traffic=tr)
+        torch.cuda.synchronize()
+        svc.close()
+        return out, svc.tickets(), time.perf_counter() - t0
+
+    ref, ref_tickets, ref_s = drive(telemetry.Registry())
+    check_run("soak drive", soak_summary(ref), EXPECTED_SOAK)
+    reg = telemetry.Registry()
+    prev = chaos.install_dispatch_chaos(
+        chaos.DispatchChaos(registry=reg, **SERVE_FAULTS))
+    try:
+        got, got_tickets, got_s = drive(reg)
+    finally:
+        chaos.install_dispatch_chaos(prev)
+    if got["tickets"] != ref["tickets"] or got_tickets != ref_tickets:
+        fail("soak: the healed drive's tickets differ from the unfaulted "
+             "drive's")
+    check_run("healed soak drive", soak_summary(got), EXPECTED_SOAK)
+    counts = fault_counts(reg)
+    if (counts["preempt"], counts["wedge"],
+            reg.value("heal_retries_total", outcome="healed"),
+            reg.value("heal_retries_total", outcome="exhausted")) \
+            != (1, 1, 2, 0):
+        fail(f"soak: faults {counts}")
+    if got["completed"] + len(got["shed"]) != got["submitted"]:
+        fail("soak: a ticket was neither completed nor shed")
+    print(json.dumps({"phase": "chaos-path", "run": "soak",
+                      "build_s": build_s, "unfaulted_s": ref_s,
+                      "healed_s": got_s, "events": got["events"],
+                      "submitted": got["submitted"],
+                      "graph_nodes": got["graph_nodes"],
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+
+
+def heal_flood_path(g, seen, segsum, threefry, device_mod, Flood,
+                    supervise, chaos, heal, telemetry) -> int:
+    """Phase 4r(d): 4q's supervised ``hybrid`` flood under ``heal=`` with
+    one chip preemption injected at its second chunk: ``EXPECTED_1M``,
+    phase 4's ``seen``, one chunk healed. Returns B1's launches."""
+    proto = Flood(source=0, method="hybrid")
+    reg = telemetry.Registry()
+    with tempfile.TemporaryDirectory() as d:
+        run = supervise.SupervisedRun(g, proto, d,
+                                      chunk_rounds=SUPERVISE_CHUNK,
+                                      heal=heal.RetryPolicy(**HEAL_POLICY),
+                                      registry=reg)
+        prev = chaos.install_dispatch_chaos(
+            chaos.DispatchChaos(preempt_at=(1,), registry=reg))
+        try:
+            (state, out), rec = counted(
+                lambda: run.run_until_coverage(KEY, coverage_target=0.99,
+                                               max_rounds=64),
+                segsum, threefry, device_mod)
+        finally:
+            chaos.install_dispatch_chaos(prev)
+    got = {k: out[k] for k in ("rounds", "coverage", "messages")}
+    check_run("healed supervised flood", got,
+              {k: EXPECTED_1M[k] for k in got})
+    if not torch.equal(bool_seen(state, g.n_nodes_padded), seen):
+        fail("healed supervised flood: final seen differs from phase 4's")
+    if (fault_counts(reg)["preempt"],
+            reg.value("heal_retries_total", outcome="healed")) != (1, 1):
+        fail(f"healed supervised flood: {fault_counts(reg)}")
+    if rec["segsum_launches"] == 0:
+        fail("healed supervised flood never launched the segment-sum kernel")
+    print(json.dumps({"phase": "chaos-path", "run": "healed-flood", **rec,
+                      "chunks": out["chunks"],
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+    return rec["segsum_launches"]
+
+
+def fault_ring_path(g, want_seen, ring, segsum, threefry, device_mod,
+                    sharded, mesh_mod, chaos, telemetry) -> dict:
+    """Phase 4r(e): phase 4's graph sharded 8 ways (``mxu``) and flooded
+    with ``comm=FaultSpec(FaultSchedule(**RING_FAULTS), "pallas")``: the
+    reference's dict and ``seen``, the counter equal to the schedule's
+    replay; ``FaultyComm`` never fuses, so B2 hops, B1's stacked sum
+    applies and threefry draws the corrupt bits, and B3 never runs. With
+    an empty schedule the flood equals the bare (B3) flood bit for bit.
+    Returns the faulted flood's launches."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    t0 = time.perf_counter()
+    sg = sharded.shard_graph(g, mesh, mxu=True)
+    build_s = time.perf_counter() - t0
+    sched = chaos.FaultSchedule(**RING_FAULTS)
+    spec = chaos.FaultSpec(sched, "pallas")
+    empty = chaos.FaultSpec(chaos.FaultSchedule(seed=RING_FAULTS["seed"]),
+                            "pallas")
+
+    def run(comm):
+        return sharded.flood_until_coverage(sg, mesh, 0, coverage_target=0.99,
+                                            max_rounds=64, comm=comm)
+
+    reg = telemetry.default_registry()
+    before = fault_counts(reg)
+    reset_counts(ring, segsum, device_mod)
+    threefry.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seen, out = run(spec)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = {**ring_counts(ring, segsum), "threefry": threefry.LAUNCHES}
+    syncs = device_mod.SYNCS
+    after = fault_counts(reg)
+    counts = {k: after[k] - before[k] for k in ("corrupt", "zero", "delay")}
+    want = dict(EXPECTED_RING_FAULTED)
+    want_sha, want_counts = want.pop("seen_sha256"), want.pop("faults")
+    check_run("faulted ring flood", out, want)
+    if digest(seen) != want_sha:
+        fail("faulted ring flood: final seen differs from the reference's")
+    replay = sched.counts_between(0, out["rounds"], RING_SHARDS - 1,
+                                  RING_SHARDS)
+    if counts != replay or counts != want_counts:
+        fail(f"faulted ring flood counted {counts}; the schedule's replay "
+             f"gives {replay}, the reference {want_counts}")
+    if launches["ring_segsum"] or not (launches["segsum"]
+                                       and launches["ring_shift"]
+                                       and launches["threefry"]):
+        fail(f"faulted ring flood launched {launches}: B1, B2 and "
+             "threefry must run, B3 must not")
+    seen_b, out_b = run("pallas")
+    seen_e, out_e = run(empty)
+    if out_b != EXPECTED_1M or not torch.equal(
+            seen_b.reshape(-1)[:N_PAD], want_seen):
+        fail(f"bare ring flood returned {out_b}")
+    if out_e != out_b or not torch.equal(seen_e, seen_b):
+        fail("ring flood with an empty schedule differs from the bare one")
+    walls = {"faulted": [], "bare": []}
+    for _ in range(RING_FAULT_REPS):
+        for name, comm in (("faulted", spec), ("bare", "pallas")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(comm)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    print(json.dumps({
+        "phase": "chaos-path", "run": "faulted-ring", "build_s": build_s,
+        "rounds": out["rounds"], "faults": counts, "launches": launches,
+        "syncs": syncs, "first_run_s": first_s,
+        "faulted_wall_s": statistics.median(walls["faulted"]),
+        "bare_wall_s": statistics.median(walls["bare"]), "walls": walls,
+        "profile": profile_run(lambda: run(spec)),
+        "t_s": time.perf_counter() - T_START}), flush=True)
+    del sg
+    torch.cuda.empty_cache()
+    return launches
+
+
+def campaign_path(crashstorm, serve, graph_mod, telemetry) -> None:
+    """Phase 4r(f): the reference's crash-storm acceptance campaign, its
+    subprocess children on the card: no acknowledged ticket lost, the
+    final table the uninterrupted child's (``run_campaign`` raises
+    otherwise), at least 3 kills landed; then a ``Standby`` promotes over
+    the stormed trail and the zombie primary's publish dies as
+    ``FencedEpoch``."""
+    sched = crashstorm.generate(CAMPAIGN_KILLS["n_kills"],
+                                seed=CAMPAIGN_KILLS["seed"],
+                                ticks=CAMPAIGN_KILLS["ticks"])
+    kinds = [k.kind for k in sched.kills]
+    if not {"journal_append", "sidecar_publish"} <= set(kinds):
+        fail(f"crash schedule lacks a required kind: {kinds}")
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        report = crashstorm.run_campaign(d, sched, config=CAMPAIGN_CONFIG,
+                                         timeout=600.0)
+        wall = time.perf_counter() - t0
+        landed = sum(1 for k in report["kills"] if k["landed"])
+        if report["tickets"] <= 0 or landed < 3 \
+                or report["acked_seen"] > report["tickets"]:
+            fail(f"crash campaign: {report}")
+        g = graph_mod.watts_strogatz(CAMPAIGN_CONFIG["n_nodes"], 6, 0.1,
+                                     seed=3)
+        trail = f"{d}/trail"
+        kw = dict(capacity=CAMPAIGN_CONFIG["capacity"],
+                  chunk_rounds=CAMPAIGN_CONFIG["chunk_rounds"], seed=0,
+                  record_seen_hash=True)
+        zombie = serve.SimService(g, store=trail, resume=True,
+                                  registry=telemetry.Registry(), **kw)
+        promoted = serve.Standby(g, trail, registry=telemetry.Registry(),
+                                 **kw).promote()
+        if promoted.stats()["epoch"] != zombie.stats()["epoch"] + 1:
+            fail("crash campaign: the promoted epoch is not the zombie's + 1")
+        try:
+            zombie.checkpoint()
+            fail("crash campaign: the zombie's publish was not fenced")
+        except serve.FencedEpoch:
+            pass
+        promoted.close()
+    print(json.dumps({"phase": "chaos-path", "run": "crash-campaign",
+                      "wall_s": wall, "kills": report["kills"],
+                      "landed": landed, "tickets": report["tickets"],
+                      "acked_seen": report["acked_seen"],
+                      "replayed": report["replayed"],
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+
+
 def reorder_path(engine, segsum, threefry, device_mod, graph_mod, layout,
                  Flood) -> int:
     """Phase 4o: ``from_edges(reorder=...)`` by ``"rcm"`` and ``"degree"``
@@ -3828,7 +4357,11 @@ def main() -> int:
     from p2pnetwork_tpu_torch.ops import ring, rowsum, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
-    from p2pnetwork_tpu_torch import serve, supervise, telemetry
+    from p2pnetwork_tpu_torch import chaos, serve, supervise, telemetry
+    from p2pnetwork_tpu_torch.chaos import crashstorm, storm
+    from p2pnetwork_tpu_torch.supervise import heal
+    from p2pnetwork_tpu_torch.telemetry import httpd
+    from p2pnetwork_tpu_torch.telemetry import slo as slo_mod
     from p2pnetwork_tpu_torch.sim import (checkpoint, engine, failures,
                                           flightrec, layout, layoutcache,
                                           topology)
@@ -3923,6 +4456,13 @@ def main() -> int:
     # 4's graph: B1's OR launches join the kernels line.
     sup_launches = supervise_path(g, seen, engine, segsum, threefry,
                                   _device, Flood, supervise)
+    # 4r (slice 10), after 4q on phase 4's graph: (d) the supervised flood
+    # healed through a chip preemption, (e) the faulted 1M ring flood.
+    heal_launches = heal_flood_path(g, seen, segsum, threefry, _device,
+                                    Flood, supervise, chaos, heal, telemetry)
+    fault_launches = fault_ring_path(g, seen, ring, segsum, threefry,
+                                     _device, sharded, mesh_mod, chaos,
+                                     telemetry)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -3941,11 +4481,19 @@ def main() -> int:
         bg, engine, segsum, threefry, _device, flightrec, messagebatch)
     # 4q's serving drives (slice 9), after every earlier run on 4j's graph.
     serve_path(bg, serve, segsum, threefry, _device, telemetry)
+    # 4r (a), (b), (g) after 4q's drives on the same graph.
+    chaos_serve_path(bg, serve, chaos, heal, slo_mod, httpd, telemetry,
+                     segsum, threefry, _device)
     del bg
 
     # 4o (slice 7): the reordered builds, last.
     reorder_launches = reorder_path(engine, segsum, threefry, _device,
                                     graph_mod, layout, Flood)
+    # 4r (c) and (f), last: the 100k churn soak and the crash campaign,
+    # whose children start CUDA of their own.
+    soak_path(serve, storm, chaos, heal, graph_mod, telemetry)
+    torch.cuda.empty_cache()
+    campaign_path(crashstorm, serve, graph_mod, telemetry)
 
     # 5. Result. Each kernel's row is its main-path use: B1's OR entry on
     # the hybrid remainder (the adaptive and hybrid floods), B2's forward
@@ -3957,7 +4505,10 @@ def main() -> int:
     # blocked layout's with those of 4e's pallas run and KCore(pallas).
     # The threefry row (port-only, no TPU kernel: it replaces XLA's fused
     # jax.random draw) is its uniform entry, SIR's draw, launched in
-    # 4e-4g and (its bits entry) 4i.
+    # 4e-4g and (its bits entry) 4i. Slice 10's 4r adds B1's OR launches
+    # of (d), the healed supervised flood, and (e), the faulted ring flood
+    # (the stacked apply), B2's hops of (e) and threefry's corrupt-bit
+    # draws of (e).
     def row(name, source, replaces, at, n, err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
@@ -3969,11 +4520,11 @@ def main() -> int:
         row("segsum", "segsum.cu", "p2pnetwork_tpu/ops/pallas_edge.py:41",
             rows[0], launches + ring_launches["segsum"] + new_launches["or"]
             + lib_launches["or"] + reorder_launches + io_launches["or"]
-            + sup_launches,
+            + sup_launches + heal_launches + fault_launches["segsum"],
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
-            ring_rows[0], ring_launches["ring_shift"],
-            ring_err["ring_shift"]),
+            ring_rows[0], ring_launches["ring_shift"]
+            + fault_launches["ring_shift"], ring_err["ring_shift"]),
         row("ring_segsum", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:126",
             next(r for r in step_rows
@@ -3996,7 +4547,8 @@ def main() -> int:
                  if r["entry"] == "uniform" and r["n"] == N_PAD),
             sir_launches["threefry"] + cons_launches["threefry"]
             + gossip_launches + new_launches["threefry"] + walk_launches
-            + lib_launches["threefry"] + io_launches["threefry"],
+            + lib_launches["threefry"] + io_launches["threefry"]
+            + fault_launches["threefry"],
             threefry_err),
         row("gather_row_sum", "rowsum.cu",
             "p2pnetwork_tpu/ops/segment.py:287 (jnp.sum of the gathered "

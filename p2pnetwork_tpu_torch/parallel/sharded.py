@@ -23,13 +23,20 @@ the comm seam (:class:`_RingComm`): ``comm="pallas"`` runs the CUDA ring
 kernels (``ops/ring.py``: B2 for the bare hop, B3 fusing the hop with the
 MXU bucket's segment sum), ``"ppermute"`` the plain ``torch.roll``;
 ``"auto"`` (the default) picks the kernels on a CUDA device. Results do
-not depend on the backend, as in the reference.
+not depend on the backend, as in the reference. A ``chaos/device.py``
+``FaultSpec`` as ``comm=`` wraps its backend in a ``FaultyComm`` that
+faults the forward hops its schedule names, keyed on (round, step,
+shard): the ring sets the step before each hop, and
+:func:`flood_until_coverage` the global round ``fault_round0 + r``
+before each pass, then counts the sites the executed rounds hit into
+``chaos_device_faults_total``. A ``FaultyComm`` never fuses, so a faulted
+``mxu`` pass runs B2's hop and B1's stacked sum in place of B3.
 
 Ported: :func:`shard_graph` (``mxu``, ``hybrid``), :func:`flood`,
 :func:`flood_until_coverage` (dense loop) and :func:`propagate` (``or``,
 ``sum``, ``max``, ``minplus``). Not yet: the dynamic edge region, the
 sender-CSR view and the frontier-adaptive loop, liveness re-masking, the
-flight recorder, fault-spec comms and the other ring protocols.
+flight recorder, the batched loop and the other ring protocols.
 """
 
 from __future__ import annotations
@@ -130,11 +137,18 @@ class _RingComm:
         return fn(rot, src, local_dst, mask, block, extent=extent)
 
 
-def _comm_name(comm, device) -> str:
-    if not isinstance(comm, str):
-        raise NotImplementedError(
-            "fault-spec comms are not ported yet; pass a backend name")
-    return resolve_comm(comm, device)
+def _make_ring_comm(comm, axis_name: str, S: int, device):
+    """One ring's comm object: a backend name (resolved for ``device``)
+    builds the bare :class:`_RingComm`; a spec object (a
+    ``chaos/device.FaultSpec``, carrying a concrete backend) builds its
+    wrapper."""
+    if isinstance(comm, str):
+        return _RingComm(resolve_comm(comm, device), S)
+    if not callable(getattr(comm, "make", None)):
+        raise TypeError(
+            f"comm must be a backend name or a spec object with make() "
+            f"(chaos/device.FaultSpec), got {type(comm).__name__}")
+    return comm.make(axis_name, S)
 
 
 # ------------------------------------------------------------ sharded graph
@@ -367,8 +381,11 @@ def _ring_pass_unrolled(S, rot, group, diag, acc0, combine, comm):
     reference's order. The hop is issued before the step's applies."""
     fn, *arrs = group
     pieces, masks, apply_diag = diag
+    wants_step = getattr(comm, "wants_step", False)
     acc = acc0
     for t in range(S):
+        if wants_step and t < S - 1:
+            comm.set_context(step=t)
         rot_next = comm.shift(rot) if t < S - 1 else rot
         acc = combine(acc, fn(rot, *(a[:, t] for a in arrs)))
         for pi, (tp, r) in enumerate(pieces):
@@ -406,15 +423,19 @@ def _ring_pass(S, frontier, group, acc0, combine, diag, comm: _RingComm):
     The hop is issued before the step's apply. When the group is the MXU
     layout and the backend fuses, hop and segment sum are one launch
     (kernel B3). The last bucket is peeled: nothing is left to rotate
-    after it, so a pass makes ``S - 1`` hops."""
+    after it, so a pass makes ``S - 1`` hops. A comm that keys faults on
+    the ring step (``wants_step``) is told the step before each hop."""
     if diag[0]:
         return _ring_pass_unrolled(S, frontier, group, diag, acc0, combine,
                                    comm)
     fn, *arrs = group
     # The MXU group's fused form: (kind, post, kernel block, row extents).
     fused = getattr(fn, "fused", None) if comm.fuses else None
+    wants_step = getattr(comm, "wants_step", False)
     rot, acc = frontier, acc0
     for t in range(S - 1):
+        if wants_step:
+            comm.set_context(step=t)
         bucket = [a[:, t] for a in arrs]
         if fused is not None:
             kind, post, kblock, extent = fused
@@ -516,12 +537,13 @@ def _static_group(sg: ShardedGraph, kind: str):
     return (bucket(sg.block), sg.bkt_src, sg.bkt_dst, sg.bkt_mask)
 
 
-def _make_pass(sg: ShardedGraph, comm: str, op: str):
+def _make_pass(sg: ShardedGraph, comm, op: str, axis_name: str):
     """``pass_(x) -> [S, block]``: one ring rotation aggregating ``x`` over
     every incoming edge with ``op`` (the reference's ``_make_or_pass``,
-    ``_make_sum_pass``, ``_make_max_pass``, ``_make_minplus_pass``)."""
+    ``_make_sum_pass``, ``_make_max_pass``, ``_make_minplus_pass``).
+    ``pass_.comm`` is the ring's comm object."""
     S, block = sg.n_shards, sg.block
-    comm_obj = _RingComm(comm, S)
+    comm_obj = _make_ring_comm(comm, axis_name, S, sg.device)
     if op in ("or", "sum"):
         group = _static_group(sg, op)
     else:  # segment buckets only: a one-hot product computes sums
@@ -542,6 +564,7 @@ def _make_pass(sg: ShardedGraph, comm: str, op: str):
     def pass_(x):
         return _ring_pass(S, x, group, acc0(x), combine, diag, comm_obj)
 
+    pass_.comm = comm_obj
     return pass_
 
 
@@ -573,9 +596,16 @@ def init_state(sg: ShardedGraph, protocol, key=None):
 class _RingFlood:
     """Flood's round on the ring, as a protocol of the port's engine: the
     same stats as ``models/flood.Flood`` (messages, f32 live coverage and
-    occupancy), computed over the stacked ``[S, block]`` state."""
+    occupancy), computed over the stacked ``[S, block]`` state.
+
+    With ``round0`` set (a fault-spec comm under
+    :func:`flood_until_coverage`), each step tells the comm its global
+    round ``round0 + r``, ``r`` counting this run's steps (the loop
+    takes one step per round)."""
 
     pass_: object
+    round0: Optional[int] = None
+    _steps: list = dataclasses.field(default_factory=lambda: [0])
 
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy")
 
@@ -583,6 +613,9 @@ class _RingFlood:
         return live_coverage(sg, state.seen)
 
     def step(self, sg, state: FloodState, key):
+        if self.round0 is not None:
+            self.pass_.comm.set_context(round=self.round0 + self._steps[0])
+            self._steps[0] += 1
         delivered = self.pass_(state.frontier)
         new = delivered & ~state.seen & sg.node_mask
         seen = state.seen | new
@@ -601,16 +634,19 @@ def _check_mesh(sg: ShardedGraph, mesh: RingMesh) -> None:
                          f"mesh has {mesh.n_shards} shards")
 
 
-def _flood_start(sg, mesh, source, state0, comm):
+def _flood_start(sg, mesh, source, state0, comm, fault_round0=None):
     _check_mesh(sg, mesh)
-    proto = _RingFlood(_make_pass(sg, _comm_name(comm, sg.device), "or"))
+    pass_ = _make_pass(sg, comm, "or", mesh.axis_name)
+    wire = fault_round0 is not None and getattr(pass_.comm, "wants_step",
+                                                False)
+    proto = _RingFlood(pass_, int(fault_round0) if wire else None)
     seen0, frontier0 = state0 if state0 is not None \
         else init_state(sg, Flood(source=source))
     return proto, FloodState(seen=seen0, frontier=frontier0)
 
 
 def flood(sg: ShardedGraph, mesh: RingMesh, source: int, rounds: int,
-          state0=None, return_state: bool = False, comm: str = DEFAULT_COMM):
+          state0=None, return_state: bool = False, comm=DEFAULT_COMM):
     """Run ``rounds`` of single-source flood on the ring.
 
     Returns ``(seen [S, block] bool, stats)`` with ``stats`` per-round
@@ -632,11 +668,30 @@ def flood(sg: ShardedGraph, mesh: RingMesh, source: int, rounds: int,
     return state.seen, stats
 
 
+def _record_comm_faults(comm, rounds: int, S: int, *,
+                        round0: int = 0) -> None:
+    """After a fault-spec run: count the faults the executed round window
+    hit into ``chaos_device_faults_total{kind}`` (a host replay of the
+    schedule). No-op for backend names, empty schedules, hop-free rings
+    (S == 1) and zero-round runs."""
+    if isinstance(comm, str) or S <= 1 or not rounds:
+        return
+    schedule = getattr(comm, "schedule", None)
+    if schedule is None or not schedule.active:
+        return
+    from p2pnetwork_tpu_torch.chaos import device as chaos_device
+
+    chaos_device.record_faults(schedule, rounds=int(rounds),
+                               n_steps=S - 1, n_shards=S,
+                               round0=int(round0))
+
+
 def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
                          coverage_target: float = 0.99,
                          max_rounds: int = 1024, state0=None,
                          return_state: bool = False, adaptive_k: int = 0,
-                         comm: str = DEFAULT_COMM, recorder=None):
+                         comm=DEFAULT_COMM, recorder=None,
+                         fault_round0: int = 0):
     """Flood until the live coverage reaches ``coverage_target`` (or
     ``max_rounds``): the dense ring loop, run by the port's engine
     (``sim/engine.py``), so the summary's arithmetic is slice 1's.
@@ -644,7 +699,14 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
     Returns ``(seen [S, block], dict(rounds, coverage, messages,
     frontier_occupancy_mean))`` — the reference's dict, ``messages`` an
     exact int. ``state0``/``return_state`` as in :func:`flood`.
-    ``adaptive_k > 0`` and ``recorder`` are not ported yet."""
+    ``adaptive_k > 0`` and ``recorder`` are not ported yet.
+
+    ``comm`` also takes a ``chaos/device.FaultSpec``: the ring runs on its
+    backend with its schedule's faults injected at the halo hops, keyed
+    on the global round ``fault_round0 + r`` (a chunked or resumed driver
+    passes ``fault_round0`` so each chunk hits the sites an unchunked run
+    would), and the faults the executed rounds hit are counted into
+    ``chaos_device_faults_total{kind}`` after the run."""
     if adaptive_k > 0:
         raise NotImplementedError(
             "the frontier-adaptive ring loop (adaptive_k > 0) is not ported "
@@ -653,11 +715,14 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
         raise NotImplementedError(
             "the ring's flight recorder (its ici_bytes column) is not "
             "ported yet")
-    proto, state = _flood_start(sg, mesh, source, state0, comm)
+    proto, state = _flood_start(sg, mesh, source, state0, comm,
+                                fault_round0)
     # The flood draws nothing; the engine's key chain runs unread.
     state, out = engine.run_until_coverage_from(
         sg, proto, state, prng.key(0), coverage_target=coverage_target,
         max_rounds=max_rounds)
+    _record_comm_faults(comm, out["rounds"], sg.n_shards,
+                        round0=fault_round0)
     if return_state:
         return (state.seen, state.frontier), out
     return state.seen, out
@@ -667,7 +732,7 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
 
 
 def propagate(sg: ShardedGraph, mesh: RingMesh, signal: torch.Tensor,
-              op: str = "sum", comm: str = DEFAULT_COMM) -> torch.Tensor:
+              op: str = "sum", comm=DEFAULT_COMM) -> torch.Tensor:
     """One aggregation pass over every edge of the sharded graph.
 
     ``signal`` is ``[S, block]`` (bool for ``op="or"``, float for
@@ -684,7 +749,7 @@ def propagate(sg: ShardedGraph, mesh: RingMesh, signal: torch.Tensor,
             f"op={op!r} cannot ride the MXU one-hot layout — shard_graph "
             "without hybrid/min_count for max/min-aggregating protocols")
     _check_mesh(sg, mesh)
-    out = _make_pass(sg, _comm_name(comm, sg.device), op)(signal)
+    out = _make_pass(sg, comm, op, mesh.axis_name)(signal)
     if op == "or":
         return out & sg.node_mask
     if op == "max":

@@ -10,7 +10,8 @@ This module is the front-end over it:
   / :meth:`~SimService.cancel`, the blocking :meth:`~SimService.wait` /
   :meth:`~SimService.stream`, and :meth:`~SimService.handle_http` (the
   ``/submit``, ``/poll/<ticket>``, ``/cancel/<ticket>``, ``/stats``
-  routes as a plain method; the port has no HTTP server to mount it on);
+  routes as a plain method, which ``telemetry/httpd.MetricsServer``
+  mounts with ``service=``);
 - **admission control** — a driver loop (:meth:`~SimService.tick`, run
   by a background thread or called synchronously) that admits from a
   bounded FIFO under a pacing budget (AIMD off ``slo_rounds``), runs the
@@ -44,9 +45,11 @@ reference's ``uint32``.
 A store trail does not cross packages: the sidecar's graph fingerprint
 folds each package's own ``sim/layoutcache.py`` sources, so the port
 raises :class:`GraphMismatch` on the reference's trail. The journal
-crosses. ``heal=``, ``slo=`` and ``hbm_budget_bytes=`` raise
-``NotImplementedError``: the self-healing plane, the SLO engine and a
-memory planner fitted on the card are queued in ROADMAP (slice 10).
+crosses. ``heal=`` runs each tick's engine chunk under the self-healing
+plane's ``Healer`` (``supervise/heal.py``) and ``slo=`` feeds an SLO
+engine (``telemetry/slo.py``), as in the reference;
+``hbm_budget_bytes=`` raises ``NotImplementedError``: a memory planner
+fitted on the card is queued in ROADMAP (slice 11).
 
 Threading: control-plane state (tickets, queue, quotas, counters) is
 guarded by one condition; the device-side batch is confined to the
@@ -368,10 +371,28 @@ class SimService:
         words give them) — the bit-identity witness of resumed runs
         (the harvesting tick's one read then carries the ``seen``
         words; off by default).
-    heal / slo / hbm_budget_bytes:
-        Must be ``None``: the self-healing plane, the SLO engine and a
-        memory planner fitted on the card are not ported yet (ROADMAP,
-        slice 10); anything else raises ``NotImplementedError``.
+    heal:
+        A :class:`~p2pnetwork_tpu_torch.supervise.heal.RetryPolicy`: the
+        tick's engine chunk runs under a ``Healer`` — the input retained
+        as the rollback state, end-of-chunk integrity checks (template
+        audit and batch-plane monotonicity, one host read of the batch
+        per tick) and policy-routed retry on detected faults (injected
+        chip preemptions, wedged dispatches, integrity violations). A
+        healed retry re-dispatches the same chunk key against the
+        retained input, so recovered ticks are bit-identical to
+        undisturbed ones and no admitted lane is lost.
+    slo:
+        A :class:`~p2pnetwork_tpu_torch.telemetry.slo.SLOEngine` (or
+        ``None``). The driver feeds it per-ticket completion rounds and
+        wall latency, per-submission shed flags, per-dispatch heal flags
+        and per-tick durability flags, and evaluates it once per tick; a
+        firing objective with ``admission_signal=True`` halves the admit
+        budget that tick. Only deterministic streams may carry the
+        signal, so seeded replays stay identical.
+    hbm_budget_bytes:
+        Must be ``None``: a memory planner fitted on the card is not
+        ported yet (ROADMAP, slice 11); anything else raises
+        ``NotImplementedError``.
     deadline_s / on_stall:
         Optional supervise-plane watchdog over driver ticks (heartbeat
         per tick; see supervise/watchdog.py for the stall modes).
@@ -401,16 +422,12 @@ class SimService:
                  idle_wait_s: float = 0.05,
                  hbm_budget_bytes: Optional[float] = None,
                  registry: Optional[telemetry.Registry] = None):
-        for name, value, what in (
-                ("heal", heal, "the self-healing plane (supervise/heal.py)"),
-                ("slo", slo, "the SLO engine (telemetry/slo.py)"),
-                ("hbm_budget_bytes", hbm_budget_bytes,
-                 "a memory planner fitted on the card (the reference's "
-                 "coefficients were fitted on a TPU)")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{name}= needs {what}, which the port does not have "
-                    "yet: ROADMAP queues it for slice 10")
+        if hbm_budget_bytes is not None:
+            raise NotImplementedError(
+                "hbm_budget_bytes= needs a memory planner fitted on the "
+                "card (the reference's coefficients were fitted on a TPU), "
+                "which the port does not have yet: ROADMAP queues it for "
+                "slice 11")
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         if queue_depth < 0:
@@ -426,6 +443,20 @@ class SimService:
         self._batch = self._protocol.empty(graph, capacity)
         #: Real lane capacity (requested, rounded up to a whole word).
         self.capacity = self._batch.capacity
+        #: SLO engine (telemetry/slo.py) or None: fed per-ticket
+        #: completion rounds/wall, per-submission shed flags, per-dispatch
+        #: heal flags and per-tick durability flags, evaluated once per
+        #: tick (pure in its feeds, so seeded replays stay identical).
+        self._slo = slo
+        self._healer = None
+        if heal is not None:
+            from p2pnetwork_tpu_torch.supervise.heal import (Healer,
+                                                             host_template)
+
+            # Template from the empty batch: every chunk's harvested
+            # batch must keep these exact shapes and dtypes.
+            self._healer = Healer(heal, template=host_template(self._batch),
+                                  monotonic=True, registry=registry)
         self.queue_depth = int(queue_depth)
         self.chunk_rounds = int(chunk_rounds)
         self.max_ticket_rounds = int(max_ticket_rounds)
@@ -828,6 +859,8 @@ class SimService:
                 self._counts["rejected"] += 1
                 self._dirty = True  # shed counts survive resume too
             self._m_rejected.labels(reject.reason).inc()
+            if self._slo is not None:
+                self._slo.record("shed", 1.0)
             raise reject
 
     def grow(self, n_new_nodes: int) -> None:
@@ -872,6 +905,8 @@ class SimService:
                 self._counts["rejected"] += 1
                 self._dirty = True  # shed counts survive resume too
             self._m_rejected.labels(reject.reason).inc()
+            if self._slo is not None:
+                self._slo.record("shed", 1.0)
             raise reject
 
     # ---------------------------------------------------------- request API
@@ -994,6 +1029,8 @@ class SimService:
                     except OSError:
                         pass
             self._m_rejected.labels(reject.reason).inc()
+            if self._slo is not None:
+                self._slo.record("shed", 1.0)
             raise reject
         # Bound metric cardinality: only configured tenants (and the
         # default) get their own label child — arbitrary client-supplied
@@ -1003,6 +1040,8 @@ class SimService:
             else "other"
         self._m_submitted.labels(label).inc()
         self._m_queue.set(float(depth))
+        if self._slo is not None:
+            self._slo.record("shed", 0.0)
         if spans.current_tracer() is not None:
             spans.emit("ticket_submit", trace=ticket_trace(tid),
                        ticket=tid, source=source, tenant=tenant)
@@ -1319,12 +1358,29 @@ class SimService:
         out: dict = {}
         if running:
             chunk_key = prng.fold_in(self._base_key, round0 + 1)
-            self._batch, out = engine.run_batch_until_coverage(
-                self.graph, self._protocol, self._batch, chunk_key,
-                max_rounds=self.chunk_rounds)
+
+            def dispatch(b):
+                return engine.run_batch_until_coverage(
+                    self.graph, self._protocol, b, chunk_key,
+                    max_rounds=self.chunk_rounds)
+
+            if self._healer is not None:
+                # The retained input is the rollback state; a retry
+                # re-runs the same chunk key, so a healed tick's results
+                # are bit-identical to an undisturbed one.
+                self._batch, out = self._healer.run_chunk(
+                    dispatch, self._batch, chunk_index=tick0)
+            else:
+                self._batch, out = dispatch(self._batch)
             executed = int(out["rounds"])
+        heal_report = self._healer.last_report \
+            if (self._healer is not None and running) else None
+        faulted = bool(heal_report and heal_report["events"])
+        if faulted and heal_report["healed"]:
+            self._m_healed_ticks.inc()
         if tracer is not None:
-            self._emit_ticket_chunk_events(lane_tids, tick0, executed)
+            self._emit_ticket_chunk_events(lane_tids, tick0, executed,
+                                           heal_report)
         if self._tick_fault is not None:
             # Crash seam (chaos/crashstorm.py): mid-tick, after the
             # dispatch, before any of its results reach the ticket
@@ -1346,6 +1402,8 @@ class SimService:
                         self._durability_lost = (
                             f"journal fsync failed: "
                             f"{type(e).__name__}: {e}")
+        if self._slo is not None:
+            self._feed_slo(running, faulted, tick0)
         if self._watchdog is not None:
             self._watchdog.heartbeat()
         pc.enter("checkpoint")
@@ -1384,15 +1442,54 @@ class SimService:
                 "executed_rounds": executed, "running": running,
                 "active": active}
 
+    def _feed_slo(self, running: int, faulted: bool, tick0: int) -> None:
+        """One heal observation per dispatching tick (idle ticks are no
+        evidence either way), one durability observation per tick, then
+        the tick's evaluation. A firing admission-signal objective is a
+        multiplicative decrease of the admit budget; recovery rides the
+        AIMD additive increase."""
+        if running:
+            self._slo.record("heal", 1.0 if faulted else 0.0)
+        with self._cond:
+            dur_lost = self._durability_lost is not None
+        self._slo.record("durability", 1.0 if dur_lost else 0.0)
+        self._slo.evaluate(tick0)
+        if self._slo.firing(admission_only=True):
+            with self._cond:
+                self._admit_budget = max(1, self._admit_budget // 2)
+                budget_now = self._admit_budget
+            self._m_budget.set(float(budget_now))
+
     def _emit_ticket_chunk_events(self, lane_tids: List[Tuple[int, str]],
-                                  tick0: int, executed: int) -> None:
-        """One ``ticket_chunk`` event per riding ticket of a dispatched
-        chunk, under its ``tkt-<id>`` trace (tracer on only). The
-        reference's fault and heal events need the self-healing plane,
-        which is not ported: every chunk here reports ``faulted=False``."""
+                                  tick0: int, executed: int,
+                                  heal_report: Optional[dict]) -> None:
+        """Per-ticket trace events of one dispatched chunk (tracer on
+        only): a ``ticket_chunk`` point under each riding ticket's
+        ``tkt-<id>`` trace and, when the Healer's report says the chunk
+        faulted, the fault -> integrity-fail -> heal-retry
+        (-> heal-recovered) chain — the chunk is shared, so a fault on it
+        is an event in every riding ticket's lifecycle."""
+        events = heal_report["events"] if heal_report else []
         for lane, tid in lane_tids:
-            spans.emit("ticket_chunk", trace=ticket_trace(tid), ticket=tid,
-                       lane=lane, tick=tick0, rounds=executed, faulted=False)
+            tr = ticket_trace(tid)
+            spans.emit("ticket_chunk", trace=tr, ticket=tid, lane=lane,
+                       tick=tick0, rounds=executed, faulted=bool(events))
+            for ev in events:
+                spans.emit("ticket_fault", trace=tr, ticket=tid,
+                           kind=ev["failure"], chunk=heal_report["chunk"],
+                           attempt=ev["attempt"])
+                if "integrity_kind" in ev:
+                    spans.emit("ticket_integrity_fail", trace=tr,
+                               ticket=tid, kind=ev["integrity_kind"],
+                               leaf=ev.get("leaf", ""),
+                               chunk=heal_report["chunk"])
+                spans.emit("ticket_heal_retry", trace=tr, ticket=tid,
+                           attempt=ev["attempt"], action=ev["action"],
+                           degraded=ev["degraded"])
+            if events and heal_report["healed"]:
+                spans.emit("ticket_heal_recovered", trace=tr, ticket=tid,
+                           attempts=heal_report["attempts"],
+                           fallback=heal_report["fallback"])
 
     def _record_phases(self, phases: Dict[str, float], tick: int) -> None:
         """Fold one tick's phase walls into the profiler state: the
@@ -1531,8 +1628,13 @@ class SimService:
         for (tid, rec), (_, t_sub) in zip(completions, walls):
             self._m_completed.inc()
             self._m_latency_rounds.observe(rec["latency_rounds"])
+            if self._slo is not None:
+                self._slo.record("completion_rounds",
+                                 rec["latency_rounds"])
             if t_sub is not None:
                 self._m_latency_s.observe(now - t_sub)
+                if self._slo is not None:
+                    self._slo.record("completion_wall_s", now - t_sub)
             if tracer is not None:
                 spans.emit("ticket_done", trace=ticket_trace(tid),
                            ticket=tid, rounds=rec["rounds"],
@@ -1851,6 +1953,10 @@ class SimService:
             # admitted lane touched; latched completions stay latched)
             # and the next dispatch runs at the grown shape.
             self._batch = self._protocol.repad(self._batch, new_pad)
+            if self._healer is not None:
+                from p2pnetwork_tpu_torch.supervise.heal import host_template
+
+                self._healer.template = host_template(self._batch)
         n_live = _live_count(g)
         applied = {seq for _, _, seq in muts if seq is not None}
         with self._cond:

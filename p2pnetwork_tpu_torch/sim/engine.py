@@ -39,9 +39,14 @@ a tracer installed (``telemetry/spans.py``) the batched loops run under a
 ``batch_run`` / ``query_run`` span with per-lane ``lane_admit`` /
 ``lane_resume`` / ``lane_complete`` / ``lane_freeze`` events (and a
 ``batch_summary`` event); their entry snapshot of the lanes' flags and
-rounds is one more transfer, counted in ``_device.SYNCS``. The
-reference's dispatch gate (its chaos plane's preemption seam) is not
-ported.
+rounds is one more transfer, counted in ``_device.SYNCS``.
+
+``run_from``, ``run_until_coverage_from`` and
+``run_batch_until_coverage`` open with the reference's chunk-dispatch
+gate (``chaos/device.dispatch_gate``, loops ``engine-rounds``,
+``engine-coverage`` and ``engine-batch``): an installed
+``DispatchChaos`` raises its armed fault there, before the call reads
+its input.
 
 ``recorder=`` (a ``sim/flightrec.py`` ``FlightRecorder``) on ``run`` /
 ``run_from``, ``run_until_coverage_from`` and the two batched loops keeps
@@ -61,6 +66,7 @@ import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import _device, concurrency, prng, telemetry
+from p2pnetwork_tpu_torch.chaos import device as chaos_device
 from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.sim import flightrec
@@ -232,8 +238,8 @@ def run(graph: Graph, protocol, key, rounds: int, *, recorder=None):
     ``(final_state, stats)``, each stat stacked to ``[rounds]`` as the
     reference's ``lax.scan`` stacks it, and a ``FlightRecord`` third with
     a ``recorder`` (see :func:`run_from`)."""
-    return run_from(graph, protocol, protocol.init(graph, key), key, rounds,
-                    recorder=recorder)
+    return _run_from(graph, protocol, protocol.init(graph, key), key,
+                     rounds, recorder)
 
 
 def run_from(graph: Graph, protocol, state, key, rounds: int, *,
@@ -250,6 +256,11 @@ def run_from(graph: Graph, protocol, state, key, rounds: int, *,
     ``FlightRecorder``) each round also writes a ring row (the reference's
     scan form: the ``total`` column is a running f32 sum of ``messages``)
     and the return is ``(final_state, stats, FlightRecord)``."""
+    chaos_device.dispatch_gate("engine-rounds")
+    return _run_from(graph, protocol, state, key, rounds, recorder)
+
+
+def _run_from(graph: Graph, protocol, state, key, rounds: int, recorder):
     rounds = int(rounds)
     keys = prng.split(prng.fold_in(key, 1), rounds)
     ring = None if recorder is None else recorder.init(graph.device)
@@ -315,6 +326,7 @@ def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
     so resuming a finished run executes zero rounds. ``recorder`` (a
     ``FlightRecorder``) adds ``out["flight_record"]``, one row per applied
     round at any ``steps_per_round``."""
+    chaos_device.dispatch_gate("engine-coverage")
     return _coverage_from(graph, protocol, state0, key, "coverage_from",
                           coverage_target=coverage_target,
                           max_rounds=max_rounds,
@@ -522,6 +534,9 @@ def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
     the lanes' seen counts summed, the running lanes) and ``out`` carries
     ``flight_record``. With a tracer installed the call runs under a
     ``batch_run`` span with the per-lane events (module doc)."""
+    # An armed fault raises before the batch is read, so a healing retry
+    # re-dispatches an intact input.
+    chaos_device.dispatch_gate("engine-batch")
     t0 = time.perf_counter()
     tracer = spans.current_tracer()
     with spans.span("batch_run", loop="engine", max_rounds=max_rounds):

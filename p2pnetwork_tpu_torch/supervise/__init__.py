@@ -10,11 +10,15 @@
 - :class:`~p2pnetwork_tpu_torch.supervise.runner.SupervisedRun` /
   :class:`~p2pnetwork_tpu_torch.supervise.runner.Preempted` — chunked,
   auto-checkpointing, resumable driver of the engine's loops.
-
-The reference's self-healing plane (``heal.py``: ``RetryPolicy``,
-``Healer``, ``IntegrityViolation``) is not ported yet.
+- :class:`~p2pnetwork_tpu_torch.supervise.heal.RetryPolicy` /
+  :class:`~p2pnetwork_tpu_torch.supervise.heal.Healer` /
+  :class:`~p2pnetwork_tpu_torch.supervise.heal.IntegrityViolation` —
+  self-healing: end-of-chunk integrity checks plus policy-routed
+  rollback-and-retry of detected bad state.
 """
 
+from p2pnetwork_tpu_torch.supervise.heal import (  # noqa: F401
+    Healer, IntegrityViolation, RetryPolicy)
 from p2pnetwork_tpu_torch.supervise.runner import (  # noqa: F401
     Preempted, SupervisedRun)
 from p2pnetwork_tpu_torch.supervise.store import (  # noqa: F401
@@ -23,4 +27,4 @@ from p2pnetwork_tpu_torch.supervise.watchdog import (  # noqa: F401
     StallTimeout, Watchdog)
 
 __all__ = ["Watchdog", "StallTimeout", "CheckpointStore", "SupervisedRun",
-           "Preempted"]
+           "Preempted", "RetryPolicy", "Healer", "IntegrityViolation"]

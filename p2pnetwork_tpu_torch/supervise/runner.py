@@ -27,8 +27,10 @@ either package's runner resumes in the other with the same state bits.
 The port has no buffer donation, so a chunk never invalidates its input:
 the input of a checkpoint-feeding chunk is kept as the emergency
 fallback (:meth:`SupervisedRun.emergency_checkpoint`), as the reference
-keeps its undonated input. The reference's ``heal=`` (its self-healing
-plane) is not ported.
+keeps its undonated input. ``heal=`` (a ``supervise/heal.py``
+``RetryPolicy``) runs every chunk under a ``Healer``: a detected fault
+rolls the chunk back to its retained input and re-runs it with the same
+chunk key, so the healed run is bit-identical to an undisturbed one.
 """
 
 from __future__ import annotations
@@ -69,8 +71,9 @@ class SupervisedRun:
     when neither is set); ``deadline_s`` / ``on_stall`` the watchdog
     (``None`` disables it); ``on_chunk(run, info)`` fires after every
     chunk with ``{"round", "executed", "coverage", "checkpointed",
-    "heal"}``. ``heal`` must be ``None``: the self-healing plane is not
-    ported (ROADMAP, slice 10)."""
+    "heal"}``. ``heal`` (a ``RetryPolicy`` of ``supervise/heal.py``) runs
+    every chunk under a ``Healer`` (module doc); the chunk's attempt
+    history is ``info["heal"]``."""
 
     def __init__(self, graph, protocol,
                  store: Union[CheckpointStore, str], *,
@@ -83,11 +86,6 @@ class SupervisedRun:
                  heal=None,
                  on_chunk: Optional[Callable] = None,
                  registry: Optional[telemetry.Registry] = None):
-        if heal is not None:
-            raise NotImplementedError(
-                "heal= needs the self-healing plane (supervise/heal.py), "
-                "which the port does not have yet: ROADMAP queues it for "
-                "slice 10")
         if chunk_rounds < 1:
             raise ValueError("chunk_rounds must be >= 1")
         if checkpoint_every_rounds is not None and checkpoint_every_rounds < 1:
@@ -103,7 +101,7 @@ class SupervisedRun:
         self.checkpoint_every_s = checkpoint_every_s
         self.deadline_s = deadline_s
         self.on_stall = on_stall
-        self.heal = None
+        self.heal = heal
         self.on_chunk = on_chunk
         self._registry = registry
         reg = registry if registry is not None else telemetry.default_registry()
@@ -197,20 +195,25 @@ class SupervisedRun:
                 mode, key, total_target, coverage_target=coverage_target,
                 steps_per_round=steps_per_round, resume=resume)
 
-    def _chunk(self, mode, state, chunk_key, chunk, coverage_target,
-               steps_per_round):
-        """One engine call: ``(state, executed, messages, coverage)``."""
+    def _dispatch(self, mode, chunk_key, chunk, coverage_target,
+                  steps_per_round):
+        """One engine call as ``state -> (state, out)``."""
         if mode == "coverage":
-            state, out = engine.run_until_coverage_from(
-                self.graph, self.protocol, state, chunk_key,
+            return lambda s: engine.run_until_coverage_from(
+                self.graph, self.protocol, s, chunk_key,
                 coverage_target=coverage_target, max_rounds=chunk,
                 steps_per_round=steps_per_round)
-            return (state, int(out["rounds"]), int(out["messages"]),
+        return lambda s: engine.run_from(self.graph, self.protocol, s,
+                                         chunk_key, chunk)
+
+    @staticmethod
+    def _tally(mode, out, chunk):
+        """``(executed, messages, coverage)`` of one engine call."""
+        if mode == "coverage":
+            return (int(out["rounds"]), int(out["messages"]),
                     float(out["coverage"]))
-        state, stats = engine.run_from(self.graph, self.protocol, state,
-                                       chunk_key, chunk)
-        msgs = int(stats["messages"].sum()) if "messages" in stats else 0
-        return state, chunk, msgs, None
+        msgs = int(out["messages"].sum()) if "messages" in out else 0
+        return chunk, msgs, None
 
     def _drive_under_span(self, mode: str, key, total_target: int, *,
                           coverage_target: float = 0.99,
@@ -230,6 +233,15 @@ class SupervisedRun:
             watchdog = Watchdog(self.deadline_s, name=f"supervised-{mode}",
                                 on_stall=self.on_stall,
                                 registry=self._registry).start()
+        healer = None
+        if self.heal is not None:
+            from p2pnetwork_tpu_torch.supervise.heal import Healer
+
+            # Rollback authority is the retained chunk input, never the
+            # store: the store's newest entry can be an older boundary,
+            # and re-executing one chunk from an older round would
+            # corrupt the round accounting this loop owns.
+            healer = Healer(self.heal, registry=self._registry)
         try:
             while total < total_target:
                 chunk = min(self.chunk_rounds, total_target - total)
@@ -242,9 +254,15 @@ class SupervisedRun:
                 if ckpt_feeding:
                     self._set_fallback((state, base_key, total, messages))
                 try:
-                    state, executed, msgs, cov = self._chunk(
-                        mode, state, chunk_key, chunk, coverage_target,
-                        steps_per_round)
+                    dispatch = self._dispatch(mode, chunk_key, chunk,
+                                              coverage_target,
+                                              steps_per_round)
+                    if healer is not None:
+                        state, out = healer.run_chunk(dispatch, state,
+                                                      chunk_index=chunks)
+                    else:
+                        state, out = dispatch(state)
+                    executed, msgs, cov = self._tally(mode, out, chunk)
                 except BaseException:
                     # The dispatch died mid-chunk: make a boundary chunk's
                     # input durable before unwinding.
@@ -286,11 +304,21 @@ class SupervisedRun:
                     spans.emit("checkpoint", round=total, path=last_path)
                 spans.emit("chunk", round=total, executed=executed,
                            checkpointed=checkpointed)
+                # A chunk that needed healing leaves its attempt history
+                # on the healer: surfaced next to the chunk event and to
+                # the on_chunk observer.
+                heal_report = None if healer is None else healer.last_report
+                if heal_report is not None and heal_report["events"]:
+                    spans.emit("heal_report", round=total,
+                               chunk=heal_report["chunk"],
+                               attempts=heal_report["attempts"],
+                               healed=heal_report["healed"],
+                               fallback=heal_report["fallback"])
                 if self.on_chunk is not None:
                     self.on_chunk(self, {
                         "round": total, "executed": executed,
                         "coverage": coverage, "checkpointed": checkpointed,
-                        "heal": None,
+                        "heal": heal_report,
                     })
                 if done:
                     break

@@ -57,8 +57,11 @@ def test_the_walk_sees_the_whole_port():
             "layout.py", "checkpoint.py", "flightrec.py", "layoutcache.py",
             "registry.py", "concurrency.py", "rowsum.py", "spans.py",
             "history.py", "store.py", "watchdog.py", "runner.py",
-            "journal.py", "service.py", "traffic.py", "standby.py"} <= names
+            "journal.py", "service.py", "traffic.py", "standby.py",
+            "device.py", "storm.py", "crashstorm.py", "heal.py", "slo.py",
+            "httpd.py", "export.py", "logging.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
+    assert any(p.parent.name == "chaos" for p in PORT_FILES)
 
 
 def test_import_leaves_jax_unloaded():
@@ -82,6 +85,14 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.telemetry, "
             "p2pnetwork_tpu_torch.supervise, "
             "p2pnetwork_tpu_torch.serve, "
+            "p2pnetwork_tpu_torch.chaos, "
+            "p2pnetwork_tpu_torch.chaos.storm, "
+            "p2pnetwork_tpu_torch.chaos.crashstorm, "
+            "p2pnetwork_tpu_torch.supervise.heal, "
+            "p2pnetwork_tpu_torch.telemetry.slo, "
+            "p2pnetwork_tpu_torch.telemetry.httpd, "
+            "p2pnetwork_tpu_torch.telemetry.export, "
+            "p2pnetwork_tpu_torch.utils.logging, "
             "p2pnetwork_tpu_torch.concurrency, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -90,6 +101,21 @@ def test_import_leaves_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_crash_campaign_child_imports_no_jax():
+    """The crash campaign's child script (a source string the campaign
+    writes out) imports torch and the port, never JAX."""
+    from p2pnetwork_tpu_torch.chaos import crashstorm
+
+    tree = ast.parse(crashstorm._CHILD.format(repo=str(ROOT)))
+    mods = {alias.name for node in ast.walk(tree)
+            if isinstance(node, ast.Import) for alias in node.names}
+    mods |= {node.module for node in ast.walk(tree)
+             if isinstance(node, ast.ImportFrom) and node.module}
+    assert "torch" in mods
+    assert not [m for m in mods if _forbidden(m)], mods
+    assert any(m.startswith("p2pnetwork_tpu_torch") for m in mods)
 
 
 @pytest.mark.parametrize("call", [

@@ -445,7 +445,7 @@ def test_comm_payload_template_is_held(meshes):
     (lambda sg, m: TS.flood_until_coverage(sg, m, 0, recorder=object()),
      NotImplementedError),
     (lambda sg, m: TS.flood_until_coverage(sg, m, 0, comm=object()),
-     NotImplementedError),
+     TypeError),
     (lambda sg, m: TS.flood(sg, m, 0, 1, comm="carrier-pigeon"), ValueError),
     (lambda sg, m: TS.flood(sg, TM.ring_mesh(4, device="cpu"), 0, 1),
      ValueError),

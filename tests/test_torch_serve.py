@@ -12,9 +12,10 @@
   uninterrupted run (``seen_sha256`` included, equal to the reference's);
   ``Standby.promote`` fences the old primary (``FencedEpoch``).
 - The background driver (``start`` / ``wait`` / ``close``); the graph
-  fingerprint refusing the reference's trail (``GraphMismatch``); the
-  refused ``heal`` / ``slo`` / ``hbm_budget_bytes``; the host reads of
-  one tick, counted.
+  fingerprint refusing the reference's trail (``GraphMismatch``);
+  ``heal`` and ``slo`` accepted (``tests/test_torch_heal.py`` and
+  ``tests/test_torch_slo.py`` hold them against the reference) and
+  ``hbm_budget_bytes`` refused; the host reads of one tick, counted.
 
 Every comparison is exact: records hold ints, strings and the f32
 target as a Python float.
@@ -307,12 +308,36 @@ def test_port_refuses_the_reference_trail(graphs, tmp_path):
     assert os.path.exists(tmp_path / "service_state.json")  # trail kept
 
 
-@pytest.mark.parametrize("knob", [{"heal": object()}, {"slo": object()},
-                                  {"hbm_budget_bytes": 1e9}])
+def _heal_policy():
+    from p2pnetwork_tpu_torch.supervise.heal import RetryPolicy
+
+    return RetryPolicy(backoff_base_s=0.0)
+
+
+def _slo_engine():
+    from p2pnetwork_tpu_torch.telemetry.slo import (SLOEngine,
+                                                    serve_objectives)
+
+    return SLOEngine(serve_objectives(slo_rounds=64), registry=PT.Registry())
+
+
+@pytest.mark.parametrize("knob", [{"heal": _heal_policy},
+                                  {"slo": _slo_engine},
+                                  {"hbm_budget_bytes": lambda: 1e9}])
 def test_refused_options_name_the_roadmap(graphs, knob):
+    """Slice 10 ported ``heal`` and ``slo``: a service takes them and
+    ticks. The memory planner behind ``hbm_budget_bytes`` is still
+    refused, naming the slice that queues it."""
     _, g_p = graphs["ring128"]
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        service(PS, g_p, **knob)
+    kw = {k: make() for k, make in knob.items()}
+    if "hbm_budget_bytes" in kw:
+        with pytest.raises(NotImplementedError, match="slice 11"):
+            service(PS, g_p, **kw)
+        return
+    svc = service(PS, g_p, **kw)
+    svc.submit(3)
+    assert svc.tick()["running"] == 1
+    svc.close()
 
 
 def test_one_tick_host_reads_are_counted(graphs):

@@ -9,7 +9,9 @@
 - ``SupervisedRun`` of ``Flood`` (run-to-coverage) and ``SIR`` (a fixed
   number of rounds, keyed chunks): the final state's bits and the
   summary equal the reference's, uninterrupted and after a preemption
-  and resume; ``heal=`` is refused.
+  and resume. ``heal=`` works (``tests/test_torch_heal.py`` holds healed
+  runs against the reference); a failure class its policy routes to
+  ``raise`` is refused healing and propagates.
 """
 
 import json
@@ -214,6 +216,20 @@ def test_supervised_runs_equal_reference(graphs, tmp_path, case):
 
 
 def test_heal_is_refused(graphs, tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        PSV.SupervisedRun(graphs[1], PF.Flood(), str(tmp_path),
-                          heal=object())
+    """A chip loss whose class the policy routes to ``raise`` is refused
+    healing: it propagates from the first attempt, counted as no retry."""
+    from p2pnetwork_tpu_torch.chaos import device as PD
+    from p2pnetwork_tpu_torch.supervise.heal import RetryPolicy
+
+    reg = PT.Registry()
+    run = PSV.SupervisedRun(
+        graphs[1], PF.Flood(), str(tmp_path), chunk_rounds=2,
+        heal=RetryPolicy(routes={"preempt": "raise"}), registry=reg)
+    prev = PD.install_dispatch_chaos(PD.DispatchChaos(preempt_at=(0,)))
+    try:
+        with pytest.raises(PD.ChipLost):
+            run.run_until_coverage(prng.key(0), max_rounds=8)
+    finally:
+        PD.install_dispatch_chaos(prev)
+    assert reg.value("heal_retries_total", outcome="retry") == 0
+    assert reg.value("supervise_runs_total", outcome="error") == 1
