@@ -250,15 +250,36 @@ Phases, in order; any failure exits non-zero before the result line:
    seven children on the card: no acknowledged ticket lost, at least 3
    kills landed, then a ``Standby`` promotes over the trail and fences the
    zombie primary (``FencedEpoch``).
+4s. The user bridge (slice 11; ``simnode-path`` lines), after 4r on phase
+   4's graph: ``TorchSimNode`` started on a real socket, a plain port
+   ``Node`` connected to it and ``SIMNODE_PINGS`` dicts each way, then
+   ``run_rounds``, ``fail_sim_nodes`` (nodes 5,000-14,999),
+   ``inject_sim_churn(0.01)``, ``connect_sim_nodes`` (32 pairs),
+   ``save_checkpoint`` and ``run_until_coverage(0.99)``, each timed; a
+   fresh node loads the file and runs to 0.99. (a) One device, Flood
+   ``hybrid``, 64 runtime-link slots on the graph; (c) on its two socket
+   nodes a ``ChaosPlane`` partitions and heals, its counters read back and
+   the message after the heal delivered. (b) The 8-shard ring, ``mxu``,
+   ``hybrid`` then ``segment``, ``dynamic_edges=64``: the re-mask
+   collects liveness by B2 forward and folds the out-degrees back by B2
+   reversed (each ring node profiles one more re-mask). Every node's
+   event-list digest, summary, ``seen`` digest, live count and checkpoint
+   payload digest equal the reference's (``EXPECTED_SIMNODE*``), each
+   resumed node equals its uninterrupted twin, each ring node the
+   single-device node (topology events, ``seen``, messages, rounds and
+   coverage); B1, B3, B2 both ways and threefry must launch where the
+   node's layout runs them. Then B2 reversed on the Horner payload, i32
+   ``[8, 125008]``, against its plain version and timed (``kernel`` line).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
-   supervised flood and 4r's healed and faulted floods; B2's over 4b and
-   4r's faulted flood; its sum
+   supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
+   over 4b, 4r's faulted flood and 4s's forward hops, B2 reversed's row
+   over 4s's re-masks, B3's over 4b and 4s's ``mxu`` nodes; its sum
    entry's on the hybrid remainder over 4e's ``hybrid`` run, 4f, 4i's
    ``KCore(hybrid)``, 4n's Bracha, HITS and betweenness and 4p's SIR, on
    the blocked layout over 4e's ``pallas`` run, ``KCore(pallas)`` and
    4n's ``Bracha(pallas)``; threefry's over 4e-4g, 4i, 4l's restart run,
-   4n, 4p's SIR and 4r's corrupt bits; the row-sum kernel's gather entry over 4p's PageRank
+   4n, 4p's SIR, 4r's corrupt bits and 4s's churn draws; the row-sum kernel's gather entry over 4p's PageRank
    and its dense entry over 4p's batch recorder), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -278,6 +299,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -1187,6 +1209,91 @@ RING_FAULT_REPS = 3
 CAMPAIGN_KILLS = dict(n_kills=5, seed=3, ticks=24)
 CAMPAIGN_CONFIG = {"n_nodes": 100_000, "capacity": 64, "rate": 8.0,
                    "chunk_rounds": 8, "checkpoint_every_ticks": 4}
+
+#: 4s: the user bridge (slice 11). ``TorchSimNode`` on phase 4's graph,
+#: driven through the Node API by :func:`simnode_sequence`: a real socket
+#: on 127.0.0.1, a plain ``Node`` peer and ``SIMNODE_PINGS`` dict round
+#: trips, then ``run_rounds(SIMNODE_ROUNDS)``, ``fail_sim_nodes`` of
+#: ``SIMNODE_DEAD``, ``inject_sim_churn(SIMNODE_CHURN)``,
+#: ``connect_sim_nodes(*SIMNODE_PAIRS)``, ``save_checkpoint`` and
+#: ``run_until_coverage(SIMNODE_TARGET)``; a fresh node loads the file and
+#: runs to the target (:func:`simnode_resume`). The single-device node
+#: floods ``hybrid`` with ``SIMNODE_DYN`` runtime-link slots on the graph,
+#: the ring nodes flood the 8-shard ring (``mxu``, ``hybrid``, then
+#: ``segment``) with ``dynamic_edges=SIMNODE_DYN``.
+SIMNODE_SEED = 11
+SIMNODE_DYN = 64
+SIMNODE_ROUNDS = 3
+SIMNODE_DEAD = (5_000, 15_000)
+SIMNODE_CHURN = 0.01
+SIMNODE_PAIRS = (
+    [int(v) for v in (np.arange(32) * 30_011 + 20_000) % N_NODES],
+    [int(v) for v in (np.arange(32) * 17_389 + 500_000) % N_NODES])
+SIMNODE_PINGS = 20
+SIMNODE_TARGET = 0.99
+SIMNODE_HOST = "127.0.0.1"
+SIMNODE_RING_LAYOUTS = ("mxu", "hybrid", "segment")
+#: 4s(c): the ChaosPlane's seed and the peers' reconnect cadence.
+SIMNODE_CHAOS_SEED = 5
+SIMNODE_FAST = dict(reconnect_interval=0.05, reconnect_backoff_base=0.1,
+                    reconnect_backoff_max=0.5)
+#: The reference's records of 4s: ``JaxSimNode`` with the JAX package's
+#: ``Node`` through the same :func:`simnode_sequence` and
+#: :func:`simnode_resume` (event-list digests, summaries, final ``seen``
+#: digests, checkpoint payload digests). Regenerate on the CPU (~6 min,
+#: most of it the ``mxu`` ring's one-hot sums in the Pallas interpreter;
+#: the single-device flood runs ``segment``, whose events are every
+#: method's):
+#:   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 python - <<'EOF'
+#:   import tempfile, chip_smoke as c
+#:   from p2pnetwork_tpu import node as N
+#:   from p2pnetwork_tpu.models import Flood
+#:   from p2pnetwork_tpu.parallel import mesh
+#:   from p2pnetwork_tpu.sim import graph as G, topology as T
+#:   from p2pnetwork_tpu.sim.simnode import JaxSimNode
+#:   g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0, blocked=True, hybrid=True, source_csr=True)
+#:   d, p, m = tempfile.mkdtemp(), Flood(source=0, method="segment"), mesh.ring_mesh(8)
+#:   runs = [("single", T.with_capacity(g, extra_edges=c.SIMNODE_DYN), None, {})]
+#:   runs += [(lay, g, m, dict(layout=lay, dynamic_edges=c.SIMNODE_DYN)) for lay in c.SIMNODE_RING_LAYOUTS]
+#:   for name, gr, mm, kw in runs:
+#:       rec, _, (node, peer, _, _) = c.simnode_sequence(JaxSimNode, N.Node, gr, p, f"{d}/{name}.npz", mesh=mm, **kw)
+#:       node.stop(); peer.stop(); node.join(); peer.join()
+#:       res, _ = c.simnode_resume(JaxSimNode, gr, p, f"{d}/{name}.npz", mesh=mm, **kw)
+#:       print(name, {**rec, "resumed_events_sha256": res["events_sha256"]})
+#:   EOF
+_SIMNODE_SUMMARY = {"rounds": 8, "coverage": 0.9995561242103577,
+                    "messages": 8980949,
+                    "frontier_occupancy_mean": 0.12491735070943832}
+_SIMNODE_COMMON = {
+    "n_events": 28, "summary": _SIMNODE_SUMMARY, "alive_nodes": 980043,
+    "seen_sha256": ("7be25c53ad6729147d2e07b22fbd3e15"
+                    "50a88fc1d0cb7214142c1655a4118d60"),
+    "sim_round": 11, "sim_messages": 8981459,
+    "peer_events_sha256": ("8e94e1a1484254b5d0cdbf7866567ee0"
+                           "a84534ad30683aaef948fcd3529fad34"),
+    "resumed_events_sha256": ("b139b605ae986f43f851fcc2d58b3065"
+                              "acd517c2be80a8f0a591b95bce46150b")}
+EXPECTED_SIMNODE = {
+    **_SIMNODE_COMMON,
+    "events_sha256": ("225a387fb6cc840103f1563e6e74af1a"
+                      "95fdf2520316a83f41fdd335f853e028"),
+    "payload_sha256": ("0e1c9242cc13fe88a5a762b745024c59"
+                       "e7473a8cd14368c6bd18354ca5d9bceb")}
+#: The ring nodes' events carry the ring's round stats (messages and
+#: coverage), so their digest is not the single-device node's; the two
+#: layouts differ only in the checkpoint's masks.
+_RING_EVENTS = ("af5d82615ce2bc6f631d75cb89bc7377"
+                "8c96fde23feb741304babcfa8d653951")
+EXPECTED_SIMNODE_RING = {
+    "mxu": {**_SIMNODE_COMMON, "events_sha256": _RING_EVENTS,
+            "payload_sha256": ("2dc87b7927b31ae0f21ad60c0ea2727c"
+                               "cee9e4377e6635aa37da099045b1b970")},
+    "hybrid": {**_SIMNODE_COMMON, "events_sha256": _RING_EVENTS,
+               "payload_sha256": ("e7e496e83663402361f1803c71862edc"
+                                  "fb76ea9084b8ed40169b56fb51bbe85e")},
+    "segment": {**_SIMNODE_COMMON, "events_sha256": _RING_EVENTS,
+                "payload_sha256": ("17fccaf4dc3212102f4c55a5820ae130"
+                                   "980c4e978650bce067a1b9f0d4ea3e37")}}
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -4083,6 +4190,329 @@ def fault_ring_path(g, want_seen, ring, segsum, threefry, device_mod,
     return launches
 
 
+class EventList:
+    """A node callback keeping ``[event, peer id, data]`` in firing order.
+    Socket events fire on the node's loop thread and only append here;
+    :meth:`wait` blocks the driving thread until they have arrived."""
+
+    def __init__(self):
+        self.events = []
+        self._cv = threading.Condition()
+
+    def __call__(self, event, main_node, connected_node, data):
+        with self._cv:
+            self.events.append(
+                [event, getattr(connected_node, "id", None), data])
+            self._cv.notify_all()
+
+    def count(self, event) -> int:
+        with self._cv:
+            return sum(1 for e in self.events if e[0] == event)
+
+    def wait(self, event, n, timeout=10.0) -> None:
+        with self._cv:
+            if not self._cv.wait_for(
+                    lambda: sum(1 for e in self.events if e[0] == event) >= n,
+                    timeout):
+                fail(f"simnode: {event} number {n} did not arrive within "
+                     f"{timeout} s")
+
+
+def node_seen(node) -> np.ndarray:
+    """A flood node's final ``seen`` as host bools, ``[n_pad]`` (the
+    ring's ``[S, block]`` flattened: ``S * block`` is the padded size)."""
+    state = node.sim_state
+    seen = state[0] if isinstance(state, tuple) else state.seen
+    if isinstance(seen, torch.Tensor):
+        seen = seen.cpu()
+    return np.asarray(seen).reshape(-1)
+
+
+def sim_record(node, rec, summary) -> dict:
+    return {"events_sha256": canon_sha(rec.events),
+            "n_events": len(rec.events), "summary": summary,
+            "alive_nodes": int(node.sim_node_alive.sum()),
+            "seen_sha256": hashlib.sha256(
+                node_seen(node).tobytes()).hexdigest(),
+            "sim_round": node.sim_round,
+            "sim_messages": node.sim_message_count}
+
+
+def simnode_sequence(SimNode, Node, graph, proto, path, mesh=None,
+                     sync=lambda: None, before_connect=None, peer_kw=None,
+                     **kw):
+    """Phase 4s's sequence, on either package's classes (the reference's
+    recipe runs it on ``JaxSimNode``): a sim node and a plain ``Node``
+    peer, both started on ``SIMNODE_HOST``; the peer connects,
+    ``SIMNODE_PINGS`` dicts go each way (one round trip each); then the
+    population calls, each timed between ``sync()`` calls. Returns the
+    record the reference's is held to, the timings, and ``(node, peer,
+    events, peer events)``, both nodes still running."""
+    rec, peer_rec = EventList(), EventList()
+    node = SimNode(SIMNODE_HOST, 0, id="sim-node", callback=rec,
+                   graph=graph, protocol=proto, seed=SIMNODE_SEED,
+                   mesh=mesh, **kw)
+    peer = Node(SIMNODE_HOST, 0, id="peer", callback=peer_rec,
+                **(peer_kw or {}))
+    if before_connect is not None:
+        before_connect(node, peer)
+    node.start()
+    peer.start()
+    walls = {}
+
+    def step(name, call):
+        sync()
+        t0 = time.perf_counter()
+        out = call()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    if not peer.connect_with_node(SIMNODE_HOST, node.port, reconnect=True):
+        fail("simnode: the peer could not connect to the sim node")
+    rec.wait("inbound_node_connected", 1)
+    rtts = []
+    for i in range(SIMNODE_PINGS):
+        t0 = time.perf_counter()
+        peer.send_to_nodes({"ping": i})
+        rec.wait("node_message", i + 1)
+        node.send_to_nodes({"pong": i})
+        peer_rec.wait("node_message", i + 1)
+        rtts.append(time.perf_counter() - t0)
+    step("run_rounds", lambda: node.run_rounds(SIMNODE_ROUNDS))
+    step("fail_sim_nodes",
+         lambda: node.fail_sim_nodes(np.arange(*SIMNODE_DEAD)))
+    step("inject_sim_churn", lambda: node.inject_sim_churn(SIMNODE_CHURN))
+    step("connect_sim_nodes", lambda: node.connect_sim_nodes(*SIMNODE_PAIRS))
+    step("save_checkpoint", lambda: node.save_checkpoint(path))
+    summary = step("run_until_coverage", lambda: node.run_until_coverage(
+        SIMNODE_TARGET, max_rounds=64))
+    record = {**sim_record(node, rec, summary),
+              "peer_events_sha256": canon_sha(peer_rec.events),
+              "payload_sha256": file_digest(path)}
+    return record, {"walls": walls, "rtt_s": rtts}, (node, peer, rec,
+                                                     peer_rec)
+
+
+def simnode_resume(SimNode, graph, proto, path, mesh=None,
+                   sync=lambda: None, **kw):
+    """A fresh sim node (never started: no socket traffic) loads
+    ``path`` and runs to ``SIMNODE_TARGET``. Returns its record and its
+    walls."""
+    rec = EventList()
+    node = SimNode(SIMNODE_HOST, 0, id="sim-resumed", callback=rec,
+                   graph=graph, protocol=proto, seed=SIMNODE_SEED, mesh=mesh,
+                   **kw)
+    try:
+        sync()
+        t0 = time.perf_counter()
+        node.load_checkpoint(path)
+        sync()
+        t1 = time.perf_counter()
+        summary = node.run_until_coverage(SIMNODE_TARGET, max_rounds=64)
+        sync()
+        t2 = time.perf_counter()
+        record = sim_record(node, rec, summary)
+    finally:
+        node.stop()
+    return record, {"load_checkpoint": t1 - t0,
+                    "run_until_coverage": t2 - t1}
+
+
+def simnode_counts(ring, segsum, threefry, device_mod) -> dict:
+    return {"segsum": segsum.LAUNCHES, "ring_segsum": ring.SEGSUM_LAUNCHES,
+            "ring_shift": ring.SHIFT_LAUNCHES - ring.SHIFT_BACK_LAUNCHES,
+            "ring_shift_back": ring.SHIFT_BACK_LAUNCHES,
+            "threefry": threefry.LAUNCHES, "syncs": device_mod.SYNCS}
+
+
+def zero_counts(ring, segsum, threefry, device_mod) -> None:
+    reset_counts(ring, segsum, device_mod)
+    ring.SHIFT_BACK_LAUNCHES = threefry.LAUNCHES = 0
+
+
+#: The kernels each 4s node must launch.
+SIMNODE_EXPECT = {"single": ("segsum", "threefry"),
+                  "mxu": ("ring_segsum", "segsum", "ring_shift",
+                          "ring_shift_back", "threefry"),
+                  "hybrid": ("segsum", "ring_shift", "ring_shift_back",
+                             "threefry"),
+                  "segment": ("ring_shift", "ring_shift_back", "threefry")}
+
+
+def topology_events(rec) -> list:
+    return [e[2] for e in rec.events
+            if isinstance(e[2], dict) and "sim_topology" in e[2]]
+
+
+def chaos_check(plane, reg, node, peer, rec) -> dict:
+    """4s(c): a seeded partition of the two socket nodes and its heal;
+    the counters read back, the peer reconnected, and a message sent
+    after the heal delivered."""
+    def until(pred, what, timeout=10.0):
+        deadline = time.perf_counter() + timeout
+        while not pred():
+            if time.perf_counter() > deadline:
+                fail(f"simnode chaos: {what} within {timeout} s")
+            time.sleep(0.005)
+
+    t0 = time.perf_counter()
+    plane.partition([["sim-node"], ["peer"]])
+    until(lambda: not peer.nodes_outbound, "the partition did not sever")
+    t1 = time.perf_counter()
+    plane.heal_partition()
+    until(lambda: any(c.id == "sim-node" for c in peer.nodes_outbound),
+          "the peer did not reconnect after the heal")
+    t2 = time.perf_counter()
+    n = rec.count("node_message")
+    peer.send_to_nodes({"after": "heal"})
+    rec.wait("node_message", n + 1)
+    got = [e[2] for e in rec.events if e[0] == "node_message"][-1]
+    if got != {"after": "heal"}:
+        fail(f"simnode chaos: the sim node got {got} after the heal")
+    counts = {k: reg.value("chaos_injected_failures_total", kind=k)
+              for k in ("partition", "partition_heal")}
+    groups = reg.value("chaos_active_faults", kind="partition_groups")
+    if counts != {"partition": 1, "partition_heal": 1} or groups != 0:
+        fail(f"simnode chaos: counters {counts}, {groups} groups")
+    if [e[0] for e in plane.fault_log()] != ["partition", "partition_heal"]:
+        fail(f"simnode chaos: fault log {plane.fault_log()}")
+    return {"counts": counts, "sever_s": t1 - t0, "reconnect_s": t2 - t1,
+            "delivered_s": time.perf_counter() - t2}
+
+
+def b2_reverse_row(ring, flush) -> dict:
+    """B2 reversed at 4s's shape: the re-mask's Horner payload, i32
+    ``[8, 125008]``, bit-equal to its plain version; timed as phase 3's
+    rows (library call ``torch.roll``)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randint(0, 2**20, (RING_SHARDS, RING_BLOCK), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    if not torch.equal(ring.ring_shift(x, reverse=True),
+                       ring.ring_shift_plain(x, reverse=True)):
+        fail("ring_shift reversed differs from its plain version (i32)")
+    nbytes = x.numel() * x.element_size()
+    return {"kernel": "ring_shift_back", "entry": "i32",
+            "shape": list(x.shape),
+            "ms": cuda_times(lambda: ring.ring_shift(x, reverse=True), 50,
+                             flush),
+            "plain_ms": cuda_times(
+                lambda: ring.ring_shift_plain(x, reverse=True), 50, flush),
+            "library_ms": cuda_times(lambda: torch.roll(x, -1, 0), 50, flush),
+            "back_to_back_ms": back_to_back_ms(
+                lambda: ring.ring_shift(x, reverse=True), 50),
+            "bound_ms": 1e3 * 2 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "max_abs_err": 0.0}
+
+
+def simnode_path(g, ring, segsum, threefry, device_mod, topology, mesh_mod,
+                 sharded, Flood, simnode, node_mod, config_mod, chaos,
+                 telemetry) -> tuple:
+    """Phase 4s: ``TorchSimNode`` on phase 4's graph through the Node API,
+    on one device (with the peer's ChaosPlane, (c)) and on the 8-shard
+    ring under each of ``SIMNODE_RING_LAYOUTS``; each node and its resumed
+    twin against the reference's records, the ring nodes against the
+    single-device node where the reference's
+    ``test_churn_and_events_match`` holds them equal. On each ring node,
+    one more re-mask (every node alive) under the profiler. Returns the
+    launches of every kernel over the checked runs and the B2-reversed
+    row."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    proto = Flood(source=0, method="hybrid")
+    runs = [("single", topology.with_capacity(g, extra_edges=SIMNODE_DYN),
+             None, {})]
+    runs += [(lay, g, mesh, dict(layout=lay, dynamic_edges=SIMNODE_DYN))
+             for lay in SIMNODE_RING_LAYOUTS]
+    totals = collections.Counter()
+    single = None
+    with tempfile.TemporaryDirectory() as d:
+        for name, graph, mm, kw in runs:
+            path = f"{d}/{name}.npz"
+            reg = telemetry.Registry()
+            plane = chaos.ChaosPlane(seed=SIMNODE_CHAOS_SEED, registry=reg)
+            zero_counts(ring, segsum, threefry, device_mod)
+            t0 = time.perf_counter()
+            record, timing, (node, peer, rec, _) = simnode_sequence(
+                simnode.TorchSimNode, node_mod.Node, graph, proto, path,
+                mesh=mm, sync=torch.cuda.synchronize,
+                before_connect=plane.attach if name == "single" else None,
+                peer_kw={"config": config_mod.NodeConfig(**SIMNODE_FAST)},
+                **kw)
+            seq_s = time.perf_counter() - t0
+            launches = simnode_counts(ring, segsum, threefry, device_mod)
+            remask_profile = None if mm is None else profile_run(
+                lambda: sharded.fail_nodes(node.sim_sharded, []))
+            try:
+                chaos_rec = (chaos_check(plane, reg, node, peer, rec)
+                             if name == "single" else None)
+            finally:
+                for n in (node, peer):
+                    n.stop()
+                for n in (node, peer):
+                    n.join(10.0)
+            zero_counts(ring, segsum, threefry, device_mod)
+            resumed, resume_walls = simnode_resume(
+                simnode.TorchSimNode, graph, proto, path, mesh=mm,
+                sync=torch.cuda.synchronize, **kw)
+            resume_launches = simnode_counts(ring, segsum, threefry,
+                                             device_mod)
+            want = (EXPECTED_SIMNODE if name == "single"
+                    else EXPECTED_SIMNODE_RING[name])
+            got = {**record,
+                   "resumed_events_sha256": resumed["events_sha256"]}
+            check_run(f"simnode {name}", got, want)
+            # The uninterrupted node's run summary: its last event before
+            # (c) and the stops added theirs.
+            last = rec.events[record["n_events"] - 1]
+            if canon_sha([last]) != resumed["events_sha256"] or \
+                    {k: v for k, v in resumed.items()
+                     if k not in ("events_sha256", "n_events")} != {
+                        k: record[k] for k in resumed
+                        if k not in ("events_sha256", "n_events")}:
+                fail(f"simnode {name}: the resumed node {resumed} differs "
+                     f"from the uninterrupted one {record}")
+            if single is None:
+                single = (record, topology_events(rec))
+            elif (topology_events(rec) != single[1]
+                  or record["seen_sha256"] != single[0]["seen_sha256"]
+                  or record["sim_messages"] != single[0]["sim_messages"]
+                  or {k: record["summary"][k] for k in (
+                      "rounds", "messages", "coverage")} != {
+                      k: single[0]["summary"][k] for k in (
+                          "rounds", "messages", "coverage")}):
+                fail(f"simnode {name}: the ring node differs from the "
+                     f"single-device node")
+            missing = [k for k in SIMNODE_EXPECT[name] if launches[k] == 0]
+            if missing:
+                fail(f"simnode {name} never launched {missing}")
+            for k, v in launches.items():
+                totals[k] += v
+            for k, v in resume_launches.items():
+                totals[k] += v
+            rtt = sorted(timing["rtt_s"])
+            print(json.dumps({
+                "phase": "simnode-path", "node": name,
+                "sequence_s": seq_s, "walls": timing["walls"],
+                "resume_walls": resume_walls,
+                "socket_rtt_median_s": rtt[len(rtt) // 2],
+                "socket_rtt_max_s": rtt[-1], "launches": launches,
+                "resume_launches": resume_launches,
+                "events": record["n_events"], "summary": record["summary"],
+                "alive_nodes": record["alive_nodes"],
+                **({"chaos": chaos_rec} if chaos_rec else {}),
+                **({"remask_profile": remask_profile} if remask_profile
+                   else {}),
+                "t_s": time.perf_counter() - T_START}), flush=True)
+            del node, peer
+            gc.collect()
+            torch.cuda.empty_cache()
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    back_row = b2_reverse_row(ring, flush)
+    del flush
+    print(json.dumps({"phase": "kernel", **back_row}), flush=True)
+    return dict(totals), back_row
+
+
 def campaign_path(crashstorm, serve, graph_mod, telemetry) -> None:
     """Phase 4r(f): the reference's crash-storm acceptance campaign, its
     subprocess children on the card: no acknowledged ticket lost, the
@@ -4358,6 +4788,8 @@ def main() -> int:
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import sharded
     from p2pnetwork_tpu_torch import chaos, serve, supervise, telemetry
+    from p2pnetwork_tpu_torch import config as config_mod
+    from p2pnetwork_tpu_torch import node as node_mod
     from p2pnetwork_tpu_torch.chaos import crashstorm, storm
     from p2pnetwork_tpu_torch.supervise import heal
     from p2pnetwork_tpu_torch.telemetry import httpd
@@ -4366,6 +4798,7 @@ def main() -> int:
                                           flightrec, layout, layoutcache,
                                           topology)
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
+    from p2pnetwork_tpu_torch.sim import simnode
 
     # 1. Device.
     gpu = gpu_line()
@@ -4463,6 +4896,11 @@ def main() -> int:
     fault_launches = fault_ring_path(g, seen, ring, segsum, threefry,
                                      _device, sharded, mesh_mod, chaos,
                                      telemetry)
+    # 4s (slice 11), after 4r on phase 4's graph: the user bridge, whose
+    # re-mask runs B2 in reverse.
+    sim_launches, back_row = simnode_path(
+        g, ring, segsum, threefry, _device, topology, mesh_mod, sharded,
+        Flood, simnode, node_mod, config_mod, chaos, telemetry)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -4520,16 +4958,20 @@ def main() -> int:
         row("segsum", "segsum.cu", "p2pnetwork_tpu/ops/pallas_edge.py:41",
             rows[0], launches + ring_launches["segsum"] + new_launches["or"]
             + lib_launches["or"] + reorder_launches + io_launches["or"]
-            + sup_launches + heal_launches + fault_launches["segsum"],
-            max(max_err, ring_err["segsum"])),
+            + sup_launches + heal_launches + fault_launches["segsum"]
+            + sim_launches["segsum"], max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"]
-            + fault_launches["ring_shift"], ring_err["ring_shift"]),
+            + fault_launches["ring_shift"] + sim_launches["ring_shift"],
+            ring_err["ring_shift"]),
+        row("ring_shift_back", "ring.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (reverse=True)", back_row,
+            sim_launches["ring_shift_back"], back_row["max_abs_err"]),
         row("ring_segsum", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:126",
             next(r for r in step_rows
                  if r["step"] == 0 and r["entry"] == "or"),
-            ring_launches["ring_segsum"],
+            ring_launches["ring_segsum"] + sim_launches["ring_segsum"],
             max(ring_err["ring_segsum"], step_err)),
         row("segsum_sum", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
@@ -4548,7 +4990,7 @@ def main() -> int:
             sir_launches["threefry"] + cons_launches["threefry"]
             + gossip_launches + new_launches["threefry"] + walk_launches
             + lib_launches["threefry"] + io_launches["threefry"]
-            + fault_launches["threefry"],
+            + fault_launches["threefry"] + sim_launches["threefry"],
             threefry_err),
         row("gather_row_sum", "rowsum.cu",
             "p2pnetwork_tpu/ops/segment.py:287 (jnp.sum of the gathered "

@@ -1,7 +1,14 @@
 """The port's chaos plane (its counterpart of ``p2pnetwork_tpu/chaos``):
-seeded, deterministic fault injection for the device plane and the
-serving plane.
+seeded, deterministic fault injection for the sockets backend, the device
+plane and the serving plane.
 
+- **Sockets** (:mod:`p2pnetwork_tpu_torch.chaos.plane`,
+  :mod:`p2pnetwork_tpu_torch.chaos.streams`): :class:`ChaosPlane` wraps a
+  :class:`~p2pnetwork_tpu_torch.node.Node`'s connection factory, with the
+  sim failures API's names (``kill_nodes`` / ``revive_nodes`` /
+  ``cut_links`` / ``partition``) plus the sockets-only faults (latency,
+  throttle, frame drop/duplicate/corrupt, slow-drain peer), seeded as the
+  reference's.
 - **Device** (:mod:`p2pnetwork_tpu_torch.chaos.device`): seeded halo-hop
   faults for the ring (:class:`FaultSchedule` / :class:`FaultSpec` as a
   ``comm=`` value) and one-shot chunk-dispatch faults
@@ -18,8 +25,7 @@ serving plane.
   soak that asserts zero acknowledged-ticket loss.
 
 ``storm`` and ``crashstorm`` load on first attribute access, as in the
-reference. The reference's sockets chaos (``plane.py``, ``streams.py``)
-is not ported: the port has no sockets backend yet.
+reference.
 """
 
 from p2pnetwork_tpu_torch.chaos.device import (ChipLost, DispatchChaos,
@@ -28,8 +34,11 @@ from p2pnetwork_tpu_torch.chaos.device import (ChipLost, DispatchChaos,
                                                 UnreachableFaultSite,
                                                 WedgedDispatch,
                                                 install_dispatch_chaos)
+from p2pnetwork_tpu_torch.chaos.plane import ChaosPlane
+from p2pnetwork_tpu_torch.chaos.streams import ChaosReader, ChaosWriter
 
 __all__ = [
+    "ChaosPlane", "ChaosReader", "ChaosWriter",
     "FaultSchedule", "FaultSpec", "FaultyComm", "DispatchChaos",
     "ChipLost", "WedgedDispatch", "UnreachableFaultSite",
     "install_dispatch_chaos",

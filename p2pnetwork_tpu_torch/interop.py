@@ -170,20 +170,17 @@ def key_from_numpy(data) -> np.ndarray:
 
 
 #: ``ShardedGraph`` fields the port does not read: carried as None.
-_SHARDED_UNPORTED = ("neighbors", "neighbors_mask", "csr_pos", "csr_offsets")
+_SHARDED_UNPORTED = ("csr_pos", "csr_offsets")
 
 
 def sharded_graph_from_numpy(fields: dict, mesh: RingMesh) -> ShardedGraph:
     """The port's :class:`ShardedGraph` on ``mesh.device`` from a reference
     ``ShardedGraph``'s fields: the global ``[S, ...]`` arrays (``np.asarray``
     of a sharded JAX array gathers them), the static ints and
-    ``diag_pieces``. The neighbor table and the sender-CSR view are
-    dropped (nothing ported reads them); a live dynamic region is
-    refused. ``mxu_extent``, the port's own field, is derived from the
+    ``diag_pieces``. The dynamic region (runtime links) and the neighbor
+    table are carried; the sender-CSR view is dropped (nothing ported
+    reads it). ``mxu_extent``, the port's own field, is derived from the
     MXU arrays as ``shard_graph`` derives it."""
-    if fields.get("dyn_src") is not None:
-        raise NotImplementedError(
-            "the dynamic edge region (runtime connects) is not ported yet")
     if fields["n_shards"] != mesh.n_shards:
         raise ValueError(f"the fields are sharded {fields['n_shards']} ways, "
                          f"the mesh has {mesh.n_shards} shards")

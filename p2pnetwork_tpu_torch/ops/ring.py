@@ -35,7 +35,9 @@ f32 terms.
 
 A CUDA tensor always goes to the kernel (or the wrapper raises); a CPU
 tensor goes to the plain version. ``SHIFT_LAUNCHES`` and
-``SEGSUM_LAUNCHES`` count kernel launches.
+``SEGSUM_LAUNCHES`` count kernel launches; ``SHIFT_BACK_LAUNCHES`` counts
+the reverse hops among B2's (the liveness re-mask's Horner fold,
+``parallel/sharded.py``).
 """
 
 from __future__ import annotations
@@ -47,8 +49,10 @@ import torch
 from p2pnetwork_tpu_torch import _build
 from p2pnetwork_tpu_torch.ops import segsum
 
-#: Kernel launches made by :func:`ring_shift`.
+#: Kernel launches made by :func:`ring_shift`, both directions.
 SHIFT_LAUNCHES = 0
+#: Those of them with ``reverse=True``.
+SHIFT_BACK_LAUNCHES = 0
 #: Kernel launches made by :func:`ring_segment_sum_or` / ``_sum``.
 SEGSUM_LAUNCHES = 0
 
@@ -79,7 +83,7 @@ def ring_shift(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """One ring hop of the stacked ``x [S, ...]`` (any dtype): a new
     tensor with ``out[d] = x[(d - 1) mod S]``, or ``x[(d + 1) mod S]``
     with ``reverse=True``. Returns ``x`` itself at ``S = 1``."""
-    global SHIFT_LAUNCHES
+    global SHIFT_LAUNCHES, SHIFT_BACK_LAUNCHES
     if x.dim() < 1:
         raise ValueError("ring_shift: x must have a leading shard axis")
     if x.shape[0] == 1:
@@ -103,6 +107,7 @@ def ring_shift(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
         raise RuntimeError(f"ring_shift: kernel launch failed with CUDA "
                            f"error {rc}")
     SHIFT_LAUNCHES += 1
+    SHIFT_BACK_LAUNCHES += int(reverse)
     return out
 
 

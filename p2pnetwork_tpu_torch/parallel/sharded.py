@@ -32,11 +32,23 @@ before each pass, then counts the sites the executed rounds hit into
 ``chaos_device_faults_total``. A ``FaultyComm`` never fuses, so a faulted
 ``mxu`` pass runs B2's hop and B1's stacked sum in place of B3.
 
-Ported: :func:`shard_graph` (``mxu``, ``hybrid``), :func:`flood`,
-:func:`flood_until_coverage` (dense loop) and :func:`propagate` (``or``,
-``sum``, ``max``, ``minplus``). Not yet: the dynamic edge region, the
-sender-CSR view and the frontier-adaptive loop, liveness re-masking, the
-flight recorder, the batched loop and the other ring protocols.
+Churn runs on the device through the same seam: the liveness re-mask
+(:func:`with_node_liveness`) collects each ring step's source liveness
+with ``S`` forward hops and carries the out-degree counts back to the
+sender's shard with ``S - 1`` reverse hops (``shift_back``: B2 run the
+other way). Runtime links live in the dynamic region (:func:`with_capacity`,
+:func:`connect`, :func:`disconnect`), whose unsorted bucket every ring
+pass applies beside the static group at each step.
+
+Ported: :func:`shard_graph` (``mxu``, ``hybrid``; a graph's runtime links
+folded into the static buckets, its neighbor table carried),
+:func:`flood`, :func:`flood_until_coverage` (dense loop),
+:func:`propagate` (``or``, ``sum``, ``max``, ``minplus``), the liveness
+re-mask (:func:`with_node_liveness`, :func:`fail_nodes`,
+:func:`random_node_failures`), the dynamic region and
+:func:`topology_state` / :func:`apply_topology_state`. Not yet: the
+sender-CSR view and the frontier-adaptive loop, the flight recorder, the
+batched loop and the other ring protocols.
 """
 
 from __future__ import annotations
@@ -54,7 +66,7 @@ from p2pnetwork_tpu_torch.ops import frontier as F
 from p2pnetwork_tpu_torch.ops import ring, segment, segsum
 from p2pnetwork_tpu_torch.ops.diag import select_diagonals
 from p2pnetwork_tpu_torch.parallel.auto import COMM_BACKENDS, resolve_comm
-from p2pnetwork_tpu_torch.parallel.mesh import RingMesh
+from p2pnetwork_tpu_torch.parallel.mesh import DEFAULT_AXIS, RingMesh
 from p2pnetwork_tpu_torch.sim import engine
 from p2pnetwork_tpu_torch.sim.graph import _round_up
 
@@ -166,8 +178,12 @@ class ShardedGraph:
     destination block (``ops/blocked.py``); under ``hybrid=True`` they hold
     only the edges off the ring-decomposed diagonals, whose pieces
     ``(ring_step, local_shift)`` and masks ``[S, P, B]`` are
-    ``diag_pieces``/``diag_masks``. The dynamic region (``dyn_*``), the
-    neighbor table and the sender-CSR view are not ported and stay None.
+    ``diag_pieces``/``diag_masks``. ``dyn_*`` (:func:`with_capacity`) is
+    the dynamic edge region, ``[S, S, K]`` in the same bucket layout but
+    unsorted: :func:`connect` fills free slots. ``neighbors`` /
+    ``neighbors_mask`` (``[S, B, W]``, global ids) are the graph's
+    neighbor table, re-masked by liveness as the single-device table is.
+    The sender-CSR view is not ported and stays None.
 
     ``mxu_extent`` is the port's own (the reference has no such field):
     each MXU row's extent (:func:`row_extent`), which kernel B3 reads so
@@ -202,6 +218,10 @@ class ShardedGraph:
     @property
     def n_nodes_padded(self) -> int:
         return self.n_shards * self.block
+
+    @property
+    def dyn_capacity(self) -> int:
+        return 0 if self.dyn_src is None else self.dyn_src.shape[-1]
 
     @property
     def device(self) -> torch.device:
@@ -284,9 +304,9 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
     in place of the segment buckets; ``hybrid=True`` first takes the
     dominant circular diagonals out as roll-and-mask pieces and puts only
     the remainder in that layout. ``source_csr=True`` (the sender-CSR
-    view of the frontier-adaptive loop) is not ported yet. The port's
-    ``Graph`` carries no dynamic edge region (``interop`` refuses one), so
-    there are no runtime links to fold in."""
+    view of the frontier-adaptive loop) is not ported yet. A graph's live
+    runtime links (``sim/topology.py``) are folded into the static
+    buckets, as the reference folds them (its consolidation path)."""
     if source_csr:
         raise NotImplementedError(
             "shard_graph(source_csr=True) is not ported yet")
@@ -294,6 +314,11 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
     emask = _np(graph.edge_mask)
     senders = _np(graph.senders)[emask]
     receivers = _np(graph.receivers)[emask]
+    if graph.dyn_mask is not None:
+        dmask = _np(graph.dyn_mask)
+        senders = np.concatenate([senders, _np(graph.dyn_senders)[dmask]])
+        receivers = np.concatenate([receivers,
+                                    _np(graph.dyn_receivers)[dmask]])
     block = _round_up(graph.n_nodes_padded, S) // S
 
     # Diagonal extraction precedes bucketing (its selection indexes the
@@ -356,6 +381,10 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
     def per_node(t):
         return np.pad(_np(t), (0, pad_n)).reshape(S, block)
 
+    def per_row(t):
+        return None if t is None else np.pad(
+            _np(t), ((0, pad_n), (0, 0))).reshape(S, block, -1)
+
     def on(a):
         return None if a is None else torch.from_numpy(a).to(mesh.device)
 
@@ -367,19 +396,330 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
         out_degree=on(per_node(graph.out_degree)),
         in_degree=on(per_node(graph.in_degree)),
         n_nodes=graph.n_nodes, n_shards=S, block=block,
+        neighbors=on(per_row(graph.neighbors)),
+        neighbors_mask=on(per_row(graph.neighbor_mask)),
         mxu_src=mxu_src, mxu_dst=mxu_dst, mxu_mask=mxu_mask,
         mxu_extent=mxu_extent, diag_masks=on(diag_masks),
         diag_pieces=diag_pieces, mxu_block=mxu_block)
 
 
+# --------------------------------------------------------------- churn ops
+
+
+def with_capacity(sg: ShardedGraph, extra_edges: int) -> ShardedGraph:
+    """Reserve ``extra_edges`` dynamic slots per (dst-shard, ring-step)
+    bucket, rounded up to a multiple of 8: any distribution of that many
+    directed links fits whichever bucket it lands in. Growing an existing
+    region keeps every runtime link and adds that many slots again."""
+    K = _round_up(max(extra_edges, 1), 8)
+    S, dev = sg.n_shards, sg.device
+    if sg.dyn_src is not None:
+        def pad(x):
+            return torch.nn.functional.pad(x, (0, K))
+
+        return dataclasses.replace(sg, dyn_src=pad(sg.dyn_src),
+                                   dyn_dst=pad(sg.dyn_dst),
+                                   dyn_mask=pad(sg.dyn_mask))
+    return dataclasses.replace(
+        sg, dyn_src=torch.zeros((S, S, K), dtype=torch.int32, device=dev),
+        dyn_dst=torch.zeros((S, S, K), dtype=torch.int32, device=dev),
+        dyn_mask=torch.zeros((S, S, K), dtype=torch.bool, device=dev))
+
+
+def _remask_group(masks_by_t, nm, src, dst, mask, block):
+    """One bucket group ``[S, S, W]`` re-masked by both endpoints'
+    liveness, with its per-step sender counts ``[S, S, B]`` (on the
+    receiver's shard, for the block resident at each step) and its
+    in-degree counts ``[S, B]``. Only the live slots are counted: the
+    padding slots of a bucket all address one sender and one receiver,
+    and their atomic adds would serialise on those two counters (65 of
+    69 ms of a 1M re-mask on the H100, phase 4s's profile)."""
+    S = src.shape[0]
+    src_alive = masks_by_t.gather(2, src.long())
+    dst_alive = nm.gather(1, dst.reshape(S, -1).long()).reshape(dst.shape)
+    mask = mask & src_alive & dst_alive
+    d, t, w = mask.nonzero(as_tuple=True)
+    one = torch.ones(d.numel(), dtype=torch.int32, device=nm.device)
+    cnt = torch.zeros(S * S * block, dtype=torch.int32, device=nm.device)
+    cnt.scatter_add_(0, (d * S + t) * block + src[d, t, w], one)
+    cnt_in = torch.zeros(S * block, dtype=torch.int32, device=nm.device)
+    cnt_in.scatter_add_(0, d * block + dst[d, t, w], one)
+    return mask, cnt.reshape(S, S, block), cnt_in.reshape(S, block)
+
+
+def with_node_liveness(sg: ShardedGraph, alive, *,
+                       comm=DEFAULT_COMM) -> ShardedGraph:
+    """Apply a liveness mask (False = failed), global ``[S*block]`` or
+    ``[S, block]``: an edge survives iff both endpoints do (the mirror of
+    ``sim/failures.with_node_liveness``; the reference's ``_remask_body``).
+
+    The source block of bucket ``t`` is the one resident after ``t`` ring
+    rotations, so each step's source liveness is collected with ``S``
+    forward hops through the comm seam, as the propagation moves blocks.
+    Out-degree counts are made per bucket on the receiver's shard and
+    carried back to the sender's shard by a Horner fold of ``S - 1``
+    reverse hops (``shift_back``): ``out[s] = sum_t cnt[(s + t) mod S, t]``.
+    The segment buckets, the dynamic region, the MXU layout, the diagonal
+    pieces and the neighbor table are re-masked; shapes are unchanged, and
+    ``mxu_extent`` stays valid (masking only removes slots)."""
+    S, B = sg.n_shards, sg.block
+    alive = torch.as_tensor(alive, device=sg.device).reshape(S, B)
+    comm_obj = _make_ring_comm(comm, DEFAULT_AXIS, S, sg.device)
+    nm = sg.node_mask & alive
+    rot, masks = nm, []
+    for _ in range(S):  # masks[t]: liveness of the block resident at step t
+        masks.append(rot)
+        rot = comm_obj.shift(rot)
+    masks_by_t = torch.stack(masks, dim=1)  # [S (shard), S (step), B]
+
+    bkt_mask, cnt, in_degree = _remask_group(
+        masks_by_t, nm, sg.bkt_src, sg.bkt_dst, sg.bkt_mask, B)
+    dyn_mask = sg.dyn_mask
+    if sg.dyn_capacity:
+        dyn_mask, cnt_d, in_d = _remask_group(
+            masks_by_t, nm, sg.dyn_src, sg.dyn_dst, sg.dyn_mask, B)
+        cnt, in_degree = cnt + cnt_d, in_degree + in_d
+    out_degree = cnt[:, S - 1].contiguous()  # a hop's payload is dense
+    for t in range(S - 2, -1, -1):
+        out_degree = cnt[:, t] + comm_obj.shift_back(out_degree)
+
+    mxu_mask = sg.mxu_mask
+    if mxu_mask is not None:
+        # Sources by ring-step liveness, destinations by the local
+        # mxu_block layout (sim/failures' blocked re-mask).
+        _, _, nb, w = sg.mxu_src.shape
+        src_alive = masks_by_t.gather(
+            2, sg.mxu_src.reshape(S, S, nb * w).long()).reshape(
+                sg.mxu_src.shape)
+        rows = torch.arange(nb, dtype=torch.int32, device=sg.device)
+        gd = torch.clamp(rows[:, None] * sg.mxu_block + sg.mxu_dst,
+                         max=B - 1)
+        dst_alive = nm.gather(1, gd.reshape(S, -1).long()).reshape(gd.shape)
+        mxu_mask = mxu_mask & src_alive & dst_alive
+
+    diag_masks = sg.diag_masks
+    if sg.diag_pieces:
+        # A piece edge u -> v needs v alive and u, which sits at local
+        # (j + r) % B of the block resident at the piece's ring step.
+        diag_masks = torch.stack(
+            [sg.diag_masks[:, pi] & nm
+             & torch.roll(masks_by_t[:, tp], -r, dims=1)
+             for pi, (tp, r) in enumerate(sg.diag_pieces)], dim=1)
+
+    neighbors_mask = sg.neighbors_mask
+    if neighbors_mask is not None:
+        # Global neighbor ids: with every shard on the card, a partner's
+        # liveness is read at its global position (the reference reads the
+        # same bit from the collected ring blocks).
+        flat = nm.reshape(-1)
+        neighbors_mask = (neighbors_mask & nm[..., None]
+                          & flat[sg.neighbors.long()])
+    return dataclasses.replace(
+        sg, bkt_mask=bkt_mask, node_mask=nm, out_degree=out_degree,
+        in_degree=in_degree, dyn_mask=dyn_mask, mxu_mask=mxu_mask,
+        diag_masks=diag_masks, neighbors_mask=neighbors_mask)
+
+
+def _check_ids(sg: ShardedGraph, *arrays) -> None:
+    for a in arrays:
+        if a.size and (a.min() < 0 or a.max() >= sg.n_nodes_padded):
+            raise ValueError(
+                f"node id out of range [0, {sg.n_nodes_padded})")
+
+
+def fail_nodes(sg: ShardedGraph, node_ids) -> ShardedGraph:
+    """Fail-stop the given global node ids (the mirror of
+    ``sim/failures.fail_nodes``)."""
+    ids = np.asarray(node_ids, dtype=np.int64).reshape(-1)
+    _check_ids(sg, ids)
+    alive = torch.ones(sg.n_nodes_padded, dtype=torch.bool, device=sg.device)
+    alive[torch.from_numpy(ids).to(sg.device)] = False
+    return with_node_liveness(sg, alive)
+
+
+def random_node_failures(sg: ShardedGraph, key, frac: float) -> ShardedGraph:
+    """Fail each live node independently with probability ``frac``. The
+    draw covers the whole padded population, so when ``S*block`` equals
+    the graph's padded size the failure set is the single-device
+    ``sim/failures.random_node_failures``'s for the same key."""
+    fail = prng.bernoulli(key, frac, (sg.n_nodes_padded,),
+                          device=sg.device).reshape(sg.n_shards, sg.block)
+    return with_node_liveness(sg, ~(fail & sg.node_mask))
+
+
+def _queries(sg: ShardedGraph, s: np.ndarray, r: np.ndarray):
+    """Each directed pair's bucket: ``(d, t, local sender, local
+    receiver)`` as int64 arrays."""
+    S, B = sg.n_shards, sg.block
+    d = r // B
+    return d, (d - s // B) % S, s % B, r % B
+
+
+#: Slots compared at once by the existence probe of :func:`connect`.
+_PROBE_SLOTS = 1 << 25
+
+
+def _in_buckets(src, dst, mask, d, t, sl, rl) -> torch.Tensor:
+    """bool[Q]: whether each query's pair ``(sl, rl)`` is a live slot of
+    its bucket ``(d, t)`` of ``[S, S, W]`` arrays, in chunks of queries."""
+    w = src.shape[-1]
+    out = torch.zeros(d.numel(), dtype=torch.bool, device=src.device)
+    if not w:
+        return out
+    step = max(1, _PROBE_SLOTS // w)
+    for lo in range(0, d.numel(), step):
+        q = slice(lo, lo + step)
+        hit = ((src[d[q], t[q]] == sl[q, None])
+               & (dst[d[q], t[q]] == rl[q, None]) & mask[d[q], t[q]])
+        out[q] = hit.any(dim=1)
+    return out
+
+
+def connect(sg: ShardedGraph, senders, receivers, *,
+            undirected: bool = True) -> ShardedGraph:
+    """Add links between global node ids at runtime (the mirror of
+    ``sim/topology.connect``).
+
+    Each new directed edge lands in its (dst-shard, ring-step) dynamic
+    bucket. Duplicates within the batch (the first wins), pairs with a
+    dead endpoint and pairs that already exist, static or dynamic, are
+    dropped. The existence probe and the slot writes run on the device;
+    the free slots are chosen on the host from the small ``[S, S, K]``
+    occupancy mask, the lowest free slot of each bucket in query order,
+    as the reference chooses them."""
+    if sg.dyn_src is None:
+        raise ValueError(
+            "no dynamic edge capacity: reserve slots with "
+            "sharded.with_capacity(sg, extra_edges=...) first")
+    S, K, dev = sg.n_shards, sg.dyn_capacity, sg.device
+    s = np.asarray(senders, np.int64).reshape(-1)
+    r = np.asarray(receivers, np.int64).reshape(-1)
+    _check_ids(sg, s, r)
+    if undirected:
+        s, r = np.concatenate([s, r]), np.concatenate([r, s])
+    _, first = np.unique(s * np.int64(sg.n_nodes_padded) + r,
+                         return_index=True)
+    keep = np.zeros(s.size, bool)
+    keep[first] = True
+    alive = _np(sg.node_mask).reshape(-1)
+    keep &= alive[s] & alive[r]
+
+    queries = _queries(sg, s, r)
+    q = [torch.from_numpy(a).to(dev) for a in queries]
+    exists = (_in_buckets(sg.bkt_src, sg.bkt_dst, sg.bkt_mask, *q)
+              | _in_buckets(sg.dyn_src, sg.dyn_dst, sg.dyn_mask, *q))
+    keep &= ~_np(exists)
+    if not keep.any():
+        return sg
+
+    d, t, sl, rl = (a[keep] for a in queries)
+    occupied = _np(sg.dyn_mask).copy()
+    slots = np.empty(d.size, np.int64)
+    for i in range(d.size):
+        free = np.flatnonzero(~occupied[d[i], t[i]])
+        if not free.size:
+            raise ValueError(
+                f"dynamic bucket ({d[i]}, {t[i]}) full ({K} slots); "
+                f"re-shard via shard_graph (consolidation) or reserve more "
+                f"via with_capacity")
+        slots[i] = free[0]
+        occupied[d[i], t[i], free[0]] = True
+
+    d, t, k, sl, rl = (torch.from_numpy(a).to(dev)
+                       for a in (d, t, slots, sl, rl))
+    dyn_src, dyn_dst, dyn_mask = (x.clone() for x in (
+        sg.dyn_src, sg.dyn_dst, sg.dyn_mask))
+    dyn_src[d, t, k] = sl.to(torch.int32)
+    dyn_dst[d, t, k] = rl.to(torch.int32)
+    dyn_mask[d, t, k] = True
+    one = torch.ones(d.numel(), dtype=torch.int32, device=dev)
+    out_degree = sg.out_degree.index_put(((d - t) % S, sl), one,
+                                         accumulate=True)
+    in_degree = sg.in_degree.index_put((d, rl), one, accumulate=True)
+    return dataclasses.replace(sg, dyn_src=dyn_src, dyn_dst=dyn_dst,
+                               dyn_mask=dyn_mask, out_degree=out_degree,
+                               in_degree=in_degree)
+
+
+def disconnect(sg: ShardedGraph, senders, receivers, *,
+               undirected: bool = True) -> ShardedGraph:
+    """Remove runtime links, matched by endpoint pair (static edges are
+    removed with :func:`fail_nodes` or a re-shard). A pair listed twice
+    is removed once."""
+    if sg.dyn_src is None:
+        raise ValueError("graph has no dynamic edge region")
+    S, dev = sg.n_shards, sg.device
+    s = np.asarray(senders, np.int64).reshape(-1)
+    r = np.asarray(receivers, np.int64).reshape(-1)
+    if undirected:
+        s, r = np.concatenate([s, r]), np.concatenate([r, s])
+    _, first = np.unique(s * np.int64(sg.n_nodes_padded) + r,
+                         return_index=True)
+    s, r = s[np.sort(first)], r[np.sort(first)]
+    d, t, sl, rl = (torch.from_numpy(a).to(dev) for a in _queries(sg, s, r))
+    hit = ((sg.dyn_src[d, t] == sl[:, None].to(torch.int32))
+           & (sg.dyn_dst[d, t] == rl[:, None].to(torch.int32))
+           & sg.dyn_mask[d, t])  # [Q, K]
+    cleared = torch.zeros(sg.dyn_mask.shape, dtype=torch.int32, device=dev)
+    cleared.index_put_((d, t), hit.to(torch.int32), accumulate=True)
+    removed = hit.any(dim=1).to(torch.int32)
+    return dataclasses.replace(
+        sg, dyn_mask=sg.dyn_mask & (cleared == 0),
+        out_degree=sg.out_degree.index_put(((d - t) % S, sl), -removed,
+                                           accumulate=True),
+        in_degree=sg.in_degree.index_put((d, rl), -removed,
+                                         accumulate=True))
+
+
+def topology_state(sg: ShardedGraph) -> dict:
+    """The sharded graph's runtime-mutable tensors as a checkpointable
+    dict (the mirror of ``sim/checkpoint.topology_state``), under the
+    reference's keys."""
+    ts = {"bkt_mask": sg.bkt_mask, "node_mask": sg.node_mask,
+          "out_degree": sg.out_degree, "in_degree": sg.in_degree}
+    if sg.dyn_src is not None:
+        ts.update(dyn_src=sg.dyn_src, dyn_dst=sg.dyn_dst,
+                  dyn_mask=sg.dyn_mask)
+    if sg.neighbors_mask is not None:
+        ts["neighbors_mask"] = sg.neighbors_mask
+    if sg.mxu_mask is not None:
+        ts["mxu_mask"] = sg.mxu_mask
+    if sg.diag_masks is not None:
+        ts["diag_masks"] = sg.diag_masks
+    return ts
+
+
+def apply_topology_state(sg: ShardedGraph, ts: dict) -> ShardedGraph:
+    """Re-apply a :func:`topology_state` onto a structurally equal sharded
+    graph (the same shard count, capacity, layout and neighbor table)."""
+    expected = set(topology_state(sg))
+    if expected != set(ts):
+        raise ValueError(
+            f"sharded topology state keys mismatch: checkpoint has "
+            f"{sorted(ts)}, graph expects {sorted(expected)} — shard the "
+            f"same construction (capacity, neighbor table) it came from")
+    kw = {}
+    for name in sorted(expected):
+        cur = getattr(sg, name)
+        if tuple(np.shape(ts[name])) != tuple(cur.shape):
+            raise ValueError(
+                f"sharded topology state mismatch for {name!r}: saved shape "
+                f"{tuple(np.shape(ts[name]))}, graph has {tuple(cur.shape)}")
+        v = ts[name]
+        v = v if isinstance(v, torch.Tensor) else torch.from_numpy(
+            np.array(v))
+        kw[name] = v.to(device=sg.device, dtype=cur.dtype)
+    return dataclasses.replace(sg, **kw)
+
+
 # --------------------------------------------------------------- ring pass
 
 
-def _ring_pass_unrolled(S, rot, group, diag, acc0, combine, comm):
+def _ring_pass_unrolled(S, rot, groups, diag, acc0, combine, comm):
     """The ring with diagonal pieces: each piece applies at its STATIC
     ring step with its STATIC shift, inside its step, so sums fold in the
-    reference's order. The hop is issued before the step's applies."""
-    fn, *arrs = group
+    reference's order (the static group, the dynamic group, the pieces).
+    The hop is issued before the step's applies."""
     pieces, masks, apply_diag = diag
     wants_step = getattr(comm, "wants_step", False)
     acc = acc0
@@ -387,7 +727,8 @@ def _ring_pass_unrolled(S, rot, group, diag, acc0, combine, comm):
         if wants_step and t < S - 1:
             comm.set_context(step=t)
         rot_next = comm.shift(rot) if t < S - 1 else rot
-        acc = combine(acc, fn(rot, *(a[:, t] for a in arrs)))
+        for fn, *arrs in groups:
+            acc = combine(acc, fn(rot, *(a[:, t] for a in arrs)))
         for pi, (tp, r) in enumerate(pieces):
             if tp == t:
                 acc = combine(acc, apply_diag(rot, r, masks[:, pi]))
@@ -413,41 +754,49 @@ def _diag_minplus_piece(rot, r, mask):
     return torch.where(mask, torch.roll(rot, -r, dims=1) + 1.0, torch.inf)
 
 
-def _ring_pass(S, frontier, group, acc0, combine, diag, comm: _RingComm):
+def _ring_pass(S, frontier, groups, acc0, combine, diag, comm: _RingComm):
     """One full ring rotation of the stacked ``frontier [S, B]``.
-    ``group`` is ``(apply_fn, *arrays)``, every array ``[S, S, ...]`` with
-    the ring step on axis 1; at step ``t`` bucket ``[:, t]`` consumes the
-    resident block and ``combine`` folds it in. (The reference also folds
-    in a dynamic-region group, which the port does not have.)
+    ``groups`` are ``(apply_fn, *arrays)`` bucket groups, every array
+    ``[S, S, ...]`` with the ring step on axis 1: the static group (the
+    dst-sorted segment buckets or the MXU layout), then the dynamic
+    region's unsorted buckets when the graph has one. At step ``t`` each
+    group's bucket ``[:, t]`` consumes the resident block and ``combine``
+    folds it in.
 
-    The hop is issued before the step's apply. When the group is the MXU
-    layout and the backend fuses, hop and segment sum are one launch
-    (kernel B3). The last bucket is peeled: nothing is left to rotate
-    after it, so a pass makes ``S - 1`` hops. A comm that keys faults on
-    the ring step (``wants_step``) is told the step before each hop."""
+    The hop is issued before the step's applies. When the static group is
+    the MXU layout and the backend fuses, hop and segment sum are one
+    launch (kernel B3), and the dynamic bucket, which B3 does not see, is
+    applied after it on the same resident block. The last bucket is
+    peeled: nothing is left to rotate after it, so a pass makes ``S - 1``
+    hops. A comm that keys faults on the ring step (``wants_step``) is
+    told the step before each hop."""
     if diag[0]:
-        return _ring_pass_unrolled(S, frontier, group, diag, acc0, combine,
+        return _ring_pass_unrolled(S, frontier, groups, diag, acc0, combine,
                                    comm)
-    fn, *arrs = group
     # The MXU group's fused form: (kind, post, kernel block, row extents).
-    fused = getattr(fn, "fused", None) if comm.fuses else None
+    fused = getattr(groups[0][0], "fused", None) if comm.fuses else None
     wants_step = getattr(comm, "wants_step", False)
+
+    def apply_all(acc, rot, t, skip_first=False):
+        for fn, *arrs in groups[int(skip_first):]:
+            acc = combine(acc, fn(rot, *(a[:, t] for a in arrs)))
+        return acc
+
     rot, acc = frontier, acc0
     for t in range(S - 1):
         if wants_step:
             comm.set_context(step=t)
-        bucket = [a[:, t] for a in arrs]
         if fused is not None:
             kind, post, kblock, extent = fused
             rot_next, out = comm.fused_segment_sum(
-                rot, kind, *bucket, kblock,
+                rot, kind, *(a[:, t] for a in groups[0][1:]), kblock,
                 None if extent is None else extent[:, t])
-            acc = combine(acc, post(out))
+            acc = apply_all(combine(acc, post(out)), rot, t, skip_first=True)
         else:
             rot_next = comm.shift(rot)
-            acc = combine(acc, fn(rot, *bucket))
+            acc = apply_all(acc, rot, t)
         rot = rot_next
-    return combine(acc, fn(rot, *(a[:, S - 1] for a in arrs)))
+    return apply_all(acc, rot, S - 1)
 
 
 def neutral_min(dtype: torch.dtype):
@@ -526,15 +875,26 @@ def _bucket_mxu(kind, block, mxu_block, extent):
     return apply
 
 
-def _static_group(sg: ShardedGraph, kind: str):
-    """The reference's ``_groups_or``/``_groups_sum``: the MXU layout when
-    present, else the segment buckets — never both, since the segment
-    buckets hold every edge."""
-    if sg.mxu_src is not None:
-        return (_bucket_mxu(kind, sg.block, sg.mxu_block, sg.mxu_extent),
-                sg.mxu_src, sg.mxu_dst, sg.mxu_mask)
+def _groups(sg: ShardedGraph, kind: str):
+    """The reference's ``_groups_or``/``_groups_sum``: the static group —
+    the MXU layout when present, else the segment buckets, never both,
+    since the segment buckets hold every edge — then the dynamic region's
+    buckets when the graph has a region. The segment appliers do not rely
+    on sorted destinations, so one applier serves both groups."""
     bucket = _bucket_or if kind == "or" else _bucket_sum
-    return (bucket(sg.block), sg.bkt_src, sg.bkt_dst, sg.bkt_mask)
+    if sg.mxu_src is not None:
+        static = (_bucket_mxu(kind, sg.block, sg.mxu_block, sg.mxu_extent),
+                  sg.mxu_src, sg.mxu_dst, sg.mxu_mask)
+    else:
+        static = (bucket(sg.block), sg.bkt_src, sg.bkt_dst, sg.bkt_mask)
+    return [static] + _dyn_groups(sg, bucket)
+
+
+def _dyn_groups(sg: ShardedGraph, bucket):
+    """The dynamic region's group, or none (no region, or no capacity)."""
+    if not sg.dyn_capacity:
+        return []
+    return [(bucket(sg.block), sg.dyn_src, sg.dyn_dst, sg.dyn_mask)]
 
 
 def _make_pass(sg: ShardedGraph, comm, op: str, axis_name: str):
@@ -545,10 +905,11 @@ def _make_pass(sg: ShardedGraph, comm, op: str, axis_name: str):
     S, block = sg.n_shards, sg.block
     comm_obj = _make_ring_comm(comm, axis_name, S, sg.device)
     if op in ("or", "sum"):
-        group = _static_group(sg, op)
+        groups = _groups(sg, op)
     else:  # segment buckets only: a one-hot product computes sums
         bucket = _bucket_max if op == "max" else _bucket_minplus
-        group = (bucket(block), sg.bkt_src, sg.bkt_dst, sg.bkt_mask)
+        groups = [(bucket(block), sg.bkt_src, sg.bkt_dst, sg.bkt_mask)] \
+            + _dyn_groups(sg, bucket)
     piece = {"or": _diag_or_piece, "sum": _diag_sum_piece,
              "max": _diag_max_piece, "minplus": _diag_minplus_piece}[op]
     diag = (sg.diag_pieces, sg.diag_masks, piece)
@@ -562,7 +923,7 @@ def _make_pass(sg: ShardedGraph, comm, op: str, axis_name: str):
                "max": torch.maximum, "minplus": torch.minimum}[op]
 
     def pass_(x):
-        return _ring_pass(S, x, group, acc0(x), combine, diag, comm_obj)
+        return _ring_pass(S, x, groups, acc0(x), combine, diag, comm_obj)
 
     pass_.comm = comm_obj
     return pass_

@@ -59,7 +59,9 @@ def test_the_walk_sees_the_whole_port():
             "history.py", "store.py", "watchdog.py", "runner.py",
             "journal.py", "service.py", "traffic.py", "standby.py",
             "device.py", "storm.py", "crashstorm.py", "heal.py", "slo.py",
-            "httpd.py", "export.py", "logging.py"} <= names
+            "httpd.py", "export.py", "logging.py", "config.py", "ids.py",
+            "wire.py", "nodeconnection.py", "node.py", "plane.py",
+            "streams.py", "simnode.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
     assert any(p.parent.name == "chaos" for p in PORT_FILES)
 
@@ -94,6 +96,9 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.telemetry.export, "
             "p2pnetwork_tpu_torch.utils.logging, "
             "p2pnetwork_tpu_torch.concurrency, "
+            "p2pnetwork_tpu_torch.node, "
+            "p2pnetwork_tpu_torch.chaos.plane, "
+            "p2pnetwork_tpu_torch.sim.simnode, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'p2pnetwork_tpu')]; "

@@ -298,9 +298,10 @@ def test_ring_shift_kernel_matches_plain_on_card(reverse, dtype, shape):
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randint(0, 100, shape, generator=g, device="cuda").to(dtype)
-    before = ring.SHIFT_LAUNCHES
+    before, back = ring.SHIFT_LAUNCHES, ring.SHIFT_BACK_LAUNCHES
     got = ring.ring_shift(x, reverse=reverse)
     assert ring.SHIFT_LAUNCHES == before + 1
+    assert ring.SHIFT_BACK_LAUNCHES == back + int(reverse)
     assert torch.equal(got, ring.ring_shift_plain(x, reverse=reverse))
 
 

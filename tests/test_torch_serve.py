@@ -331,7 +331,7 @@ def test_refused_options_name_the_roadmap(graphs, knob):
     _, g_p = graphs["ring128"]
     kw = {k: make() for k, make in knob.items()}
     if "hbm_budget_bytes" in kw:
-        with pytest.raises(NotImplementedError, match="slice 11"):
+        with pytest.raises(NotImplementedError, match="slice 12"):
             service(PS, g_p, **kw)
         return
     svc = service(PS, g_p, **kw)
