@@ -270,6 +270,25 @@ Phases, in order; any failure exits non-zero before the result line:
    coverage); B1, B3, B2 both ways and threefry must launch where the
    node's layout runs them. Then B2 reversed on the Horner payload, i32
    ``[8, 125008]``, against its plain version and timed (``kernel`` line).
+4t. The ring's other protocols (slice 12; ``ring-protocol-path`` lines),
+   after 4s on phase 4's graph, 8 shards on the card in each of
+   ``RING_LAYOUTS``: SIR (4e's rung, 30 rounds) with ``exact_rng=True``
+   (equal to ``EXPECTED_SIR``), with the default ``"fold"`` draws and to
+   ``RING_SIR_TARGET``; PageRank and push-sum, fixed rounds and to a
+   threshold, under ``hybrid`` and ``mxu``; hop distance to the end and
+   leader election to quiescence under ``segment`` (``EXPECTED_ANALYTICS``'s
+   digests); the ladder's sharded gossip rung; ``TorchSimNode`` on the
+   ``mxu`` ring through ``examples/mesh_simnode_demo.py``'s story (a
+   checkpoint and a resumed node) and a PageRank node; 4l's cohort walking
+   64 rounds on a ``source_csr=True`` ring. Each run against the JAX
+   ring's records (``EXPECTED_RING*``, ``EXPECTED_MESH_*``; integers,
+   bools and digests exactly, f32 within ``RING_TOL``) and its launches by
+   kernel (B3's sum form, B1's stacked sum, B2 on f32 and i32, threefry,
+   the row sums at ``[8, 125008]``), then once under the profiler (wall,
+   busy, idle share). After 4k: 4j's B = 1,024 batch on the 100K class's
+   ``segment`` ring, the lane words ``[8, 32, 12512]`` B2's payload, equal
+   to ``EXPECTED_BATCH``. Rows: the row sum at the shards' shape, B2 on
+   i32 and on the word stack, each against its plain version.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -279,8 +298,11 @@ Phases, in order; any failure exits non-zero before the result line:
    ``KCore(hybrid)``, 4n's Bracha, HITS and betweenness and 4p's SIR, on
    the blocked layout over 4e's ``pallas`` run, ``KCore(pallas)`` and
    4n's ``Bracha(pallas)``; threefry's over 4e-4g, 4i, 4l's restart run,
-   4n, 4p's SIR, 4r's corrupt bits and 4s's churn draws; the row-sum kernel's gather entry over 4p's PageRank
-   and its dense entry over 4p's batch recorder), then the last line
+   4n, 4p's SIR, 4r's corrupt bits, 4s's churn draws and 4t; the row-sum
+   kernel's gather entry over 4p's PageRank and its dense entry over 4p's
+   batch recorder and 4t's totals over the shards; 4t's rows: B3's sum
+   form, B1's stacked sum, B2 on f32, on i32 and on the lane words, the
+   row sum at ``[8, 125008]``), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -1294,6 +1316,346 @@ EXPECTED_SIMNODE_RING = {
     "segment": {**_SIMNODE_COMMON, "events_sha256": _RING_EVENTS,
                 "payload_sha256": ("17fccaf4dc3212102f4c55a5820ae130"
                                    "980c4e978650bce067a1b9f0d4ea3e37")}}
+
+
+#: 4t: the ring's other protocols (slice 12) on phase 4's graph, 8 shards
+#: on the card, in each of ``RING_LAYOUTS``: SIR (4e's rung) with
+#: ``exact_rng=True`` (then the single device's run, ``EXPECTED_SIR``),
+#: with the default draws (``"fold"``: the block, 125,008, is not a
+#: multiple of 128) and to ``RING_SIR_TARGET``; PageRank
+#: (``RING_PR_ROUNDS``, then to the residual ``RING_PR_TOL``) and push-sum
+#: (``RING_PS_ROUNDS``, then to the variance ``RING_PS_TOL``) under
+#: ``RING_CONSENSUS_LAYOUTS``; hop distance to the end and leader election
+#: to quiescence under ``segment`` (``EXPECTED_ANALYTICS``: the ring's
+#: integer results are the single device's). Then the ladder's sharded
+#: gossip rung (``benchmarks/ladder.py`` ``bench_gossip_sharded``) and
+#: ``TorchSimNode`` on the ``mxu`` ring: ``examples/mesh_simnode_demo.py``'s
+#: story at phase 4's width (``MESH_DEMO``) and a PageRank node.
+RING_SIR_TARGET = 0.5
+RING_PR_ROUNDS = 21
+RING_PS_ROUNDS = 30
+RING_CONSENSUS_LAYOUTS = ("hybrid", "mxu")
+RING_GOSSIP_GRAPH = dict(n=100_000, m=4, seed=0, max_degree=128)
+RING_WALK_ROUNDS = 64
+MESH_DEMO = {"seed": 1, "sir": dict(beta=0.3, gamma=0.1, source=0),
+             "dyn": 16, "rounds": (8, 4), "churn": 0.1,
+             "links": ([4, 9], [15_000, 18_000]), "target": 0.6,
+             "max_rounds": 128}
+#: The reference's records of 4t: the JAX package's ring on the 8-device
+#: virtual CPU mesh, ``segment`` buckets (SIR's draws and sums of 0/1
+#: terms give every layout's bits; PageRank's and push-sum's f32 sums add
+#: in each layout's order, so the port's ``mxu`` and ``hybrid`` runs are
+#: held to ``RING_TOL``), the same :func:`ring_runs`,
+#: :func:`ring_gossip_run`, :func:`mesh_demo` and :func:`mesh_pagerank` on
+#: its classes. ``RING_PR_TOL`` and ``RING_PS_TOL`` are midway, in log
+#: scale, between the reference's residuals of rounds 16 and 17 and its
+#: variances of rounds 20 and 21, so the tolerance cannot move a stopping
+#: round. Regenerate on the CPU (~65 s):
+#:   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 python - <<'EOF'
+#:   import tempfile, numpy as np, jax, chip_smoke as c
+#:   from p2pnetwork_tpu import models as M
+#:   from p2pnetwork_tpu.parallel import mesh, sharded as S
+#:   from p2pnetwork_tpu.sim import graph as G
+#:   from p2pnetwork_tpu.sim.simnode import JaxSimNode
+#:   k, m = jax.random.key(0), mesh.ring_mesh(8)
+#:   g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0)
+#:   sg, out = S.shard_graph(g, m), {}
+#:   for name in ("sir_fold", "sir_coverage", "pagerank", "pushsum"):
+#:       run, rec = c.ring_runs(S, M, sg, m, k, "hybrid")[name]; out[name] = rec(run())
+#:   r, v = (np.asarray(out[n][s], np.float64) for n, s in (("pagerank", "residual"), ("pushsum", "variance")))
+#:   c.RING_PR_TOL, c.RING_PS_TOL = float(np.sqrt(r[15] * r[16])), float(np.sqrt(v[19] * v[20]))
+#:   for name in ("pagerank_until", "pushsum_until"):
+#:       run, rec = c.ring_runs(S, M, sg, m, k, "hybrid")[name]; out[name] = rec(run())
+#:   gba = G.barabasi_albert(**c.RING_GOSSIP_GRAPH)
+#:   run, rec = c.ring_gossip_run(S, M.Gossip, S.shard_graph(gba, m), m, k)
+#:   out["gossip"] = rec(run())
+#:   out["mesh_demo"] = c.mesh_demo(JaxSimNode, g, M.SIR, m, tempfile.mkdtemp() + "/d.npz", layout="segment")[0]
+#:   out["mesh_pagerank"] = c.mesh_pagerank(JaxSimNode, g, M.PageRank, m, layout="segment")
+#:   print(c.RING_PR_TOL, c.RING_PS_TOL, out)
+#:   EOF
+RING_PR_TOL = 1.7984312582749665e-05
+RING_PS_TOL = 0.0013301095341140222
+EXPECTED_RING = {
+    "sir_fold": {
+        "coverage": [
+            6.000000212225132e-06, 1.5999999959603883e-05,
+            3.400000059627928e-05, 7.200000254670158e-05,
+            0.00019099999917671084, 0.00041199999395757914,
+            0.0008370000286959112, 0.0017190000507980585, 0.003656999906525016,
+            0.007734999991953373, 0.016001999378204346, 0.03308799862861633,
+            0.06799600273370743, 0.13646499812602997, 0.26202699542045593,
+            0.4607450067996979, 0.7040780186653137, 0.8970159888267517,
+            0.9804139733314514, 0.9978700280189514, 0.9998559951782227,
+            0.9999949932098389, 0.9999979734420776, 1.0, 1.0, 1.0, 1.0, 1.0,
+            1.0, 1.0],
+        "i_frac": [
+            6.000000212225132e-06, 1.5999999959603883e-05,
+            3.300000025774352e-05, 6.900000153109431e-05,
+            0.0001829999964684248, 0.00039900001138448715,
+            0.0008019999950192869, 0.0016459999606013298,
+            0.0035000001080334187, 0.007402999792248011, 0.015302999876439571,
+            0.031617000699043274, 0.06499399989843369, 0.13018499314785004,
+            0.24918299913406372, 0.4353339970111847, 0.6568949818611145,
+            0.8169649839401245, 0.8596190214157104, 0.833670973777771,
+            0.7939550280570984, 0.754593014717102, 0.7167530059814453,
+            0.6809369921684265, 0.6466479897499084, 0.6142299771308899,
+            0.5835999846458435, 0.554623007774353, 0.5268980264663696,
+            0.500698983669281],
+        "messages": [
+            11, 61, 165, 344, 716, 1865, 4045, 8112, 16617, 35286, 74617,
+            154501, 319415, 656503, 1314025, 2513368, 4383880, 6598780,
+            8184003, 8595288, 8331209, 7933595, 7539914, 7161612, 6803666,
+            6461106, 6137294, 5830963, 5541495, 5264392],
+        "r_frac": [
+            0.0, 0.0, 9.999999974752427e-07, 3.000000106112566e-06,
+            7.999999979801942e-06, 1.2999999853491317e-05,
+            3.5000000934815034e-05, 7.300000288523734e-05,
+            0.00015700000221841037, 0.0003319999959785491,
+            0.0006990000256337225, 0.001471000025048852, 0.003002000041306019,
+            0.006279999855905771, 0.01284400001168251, 0.025411000475287437,
+            0.047182999551296234, 0.0800509974360466, 0.12079499661922455,
+            0.16419899463653564, 0.20590099692344666, 0.245401993393898,
+            0.2832449972629547, 0.3190630078315735, 0.35335201025009155,
+            0.3857699930667877, 0.4163999855518341, 0.445376992225647,
+            0.47310200333595276, 0.4993009865283966],
+        "s_frac": [
+            0.9999939799308777, 0.9999840259552002, 0.999966025352478,
+            0.9999279975891113, 0.9998090267181396, 0.9995880126953125,
+            0.9991629719734192, 0.9982810020446777, 0.9963430166244507,
+            0.992264986038208, 0.9839980006217957, 0.9669119715690613,
+            0.9320039749145508, 0.8635349869728088, 0.7379729747772217,
+            0.5392550230026245, 0.29592201113700867, 0.1029840037226677,
+            0.019586000591516495, 0.0021299999207258224,
+            0.00014400000509340316, 4.999999873689376e-06,
+            1.9999999949504854e-06, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+        "status_sha256": ("9058d9c8ed4f80443093c5bb81c871d3"
+                          "0a240348716fea302022e4b78188cc6b")},
+    "sir_coverage": {
+        "rounds": 17,
+        "coverage": 0.5880200266838074,
+        "messages": 7129503,
+        "status_sha256": ("15d4da606089b5f5ddb692c3c450917c"
+                          "8a0978bf73f2daa235f6ec60c659625e")},
+    "pagerank": {
+        "messages": [
+            9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+            9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+            9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994],
+        "rank_max": [
+            1.5765403986733872e-06, 1.5480181900784373e-06,
+            1.5855230230954476e-06, 1.5817565781617304e-06,
+            1.5859216091484996e-06, 1.58566660957149e-06,
+            1.586197868164163e-06, 1.5861700148889213e-06,
+            1.5862091231610975e-06, 1.5861736528677284e-06,
+            1.586146822774026e-06, 1.5861143083384377e-06,
+            1.5860878193052486e-06, 1.5860649682508665e-06,
+            1.5860471194173442e-06, 1.5860325675021159e-06,
+            1.5860213125051814e-06, 1.5860126723055146e-06,
+            1.5860061921557644e-06, 1.5860013036217424e-06,
+            1.5859975519560976e-06],
+        "rank_total": [
+            1.000000238418579, 1.0000001192092896, 1.0, 1.0000001192092896,
+            1.0000001192092896, 1.0000001192092896, 1.0000001192092896,
+            1.0000001192092896, 1.0000001192092896, 1.0000001192092896,
+            1.000000238418579, 1.000000238418579, 1.0000001192092896,
+            1.0000001192092896, 1.000000238418579, 1.0000001192092896,
+            1.0000001192092896, 1.000000238418579, 1.0000001192092896,
+            1.0000001192092896, 1.000000238418579],
+        "residual": [
+            0.06651322543621063, 0.014935850165784359, 0.004464610945433378,
+            0.0017085449071601033, 0.0008201882592402399,
+            0.0004874782171100378, 0.0003242874226998538,
+            0.00022633076878264546, 0.000162176598678343,
+            0.00011791347787948325, 8.670488750794902e-05,
+            6.428981578210369e-05, 4.800388705916703e-05,
+            3.604989615269005e-05, 2.7206962840864435e-05,
+            2.0619918359443545e-05, 1.568558582221158e-05,
+            1.197051187773468e-05, 9.161031812254805e-06,
+            7.028780146356439e-06, 5.405140200309688e-06]},
+    "pagerank_until": {"rounds": 17, "messages": 169999898, "value": 1.568558582221158e-05},
+    "pushsum": {
+        "mean": [
+            0.00013331585796549916, 0.0001522625534562394,
+            0.0001533810718683526, 0.00015482629532925785,
+            0.00015564245404675603, 0.0001560906966915354,
+            0.00015642817015759647, 0.00015669084677938372,
+            0.00015693155000917614, 0.00015715695917606354,
+            0.00015737215289846063, 0.00015757422079332173,
+            0.00015776118380017579, 0.000157930378918536,
+            0.00015808013267815113, 0.0001582101540407166,
+            0.00015832063218113035, 0.00015841179993003607,
+            0.00015848503971938044, 0.00015854198136366904,
+            0.00015858380356803536, 0.00015861215069890022,
+            0.00015862863801885396, 0.00015863479347899556,
+            0.00015863210137467831, 0.00015862179861869663,
+            0.0001586051075719297, 0.0001585831050761044,
+            0.00015855676610954106, 0.00015852694923523813],
+        "messages": [
+            9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+            9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+            9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+            9999994, 9999994, 9999994, 9999994, 9999994, 9999994, 9999994,
+            9999994, 9999994],
+        "s_total": [
+            157.44332885742188, 157.4430389404297, 157.4430694580078,
+            157.44320678710938, 157.44342041015625, 157.44308471679688,
+            157.4434814453125, 157.44345092773438, 157.44326782226562,
+            157.443359375, 157.44332885742188, 157.44332885742188,
+            157.4432830810547, 157.44338989257812, 157.44334411621094,
+            157.44332885742188, 157.44329833984375, 157.44325256347656,
+            157.4433135986328, 157.44338989257812, 157.44332885742188,
+            157.44332885742188, 157.443359375, 157.443359375,
+            157.44338989257812, 157.44338989257812, 157.4434051513672,
+            157.4434051513672, 157.44332885742188, 157.44342041015625],
+        "variance": [
+            0.09237843751907349, 0.04761618748307228, 0.03338276222348213,
+            0.025163279846310616, 0.01962435245513916, 0.01563839055597782,
+            0.012654215097427368, 0.010358444415032864, 0.008556576445698738,
+            0.007120463997125626, 0.005961827002465725, 0.005017738789319992,
+            0.004242104943841696, 0.003600410185754299, 0.0030663427896797657,
+            0.0026195368263870478, 0.0022440264001488686, 0.001927157281897962,
+            0.0016588042490184307, 0.0014307994861155748, 0.00123650545720011,
+            0.0010704932501539588, 0.0009282978717237711,
+            0.0008062266279011965, 0.0007012129644863307,
+            0.0006106983637437224, 0.0005325403762981296,
+            0.0004649386974051595, 0.0004063755623064935, 0.0003555675211828202],
+        "w_total": [
+            1000000.0, 1000000.0625, 1000000.0625, 1000000.125, 1000000.25,
+            1000000.125, 1000000.25, 1000000.25, 1000000.25, 1000000.25,
+            1000000.25, 1000000.25, 1000000.375, 1000000.3125, 1000000.3125,
+            1000000.375, 1000000.4375, 1000000.5, 1000000.375, 1000000.5,
+            1000000.5625, 1000000.5, 1000000.5625, 1000000.625, 1000000.625,
+            1000000.6875, 1000000.625, 1000000.6875, 1000000.6875, 1000000.8125]},
+    "pushsum_until": {"rounds": 21, "messages": 209999874, "value": 0.00123650545720011}}
+EXPECTED_RING_GOSSIP = {
+    "mean": [
+        0.0030395605135709047, 0.0047042411752045155, 0.007507409900426865,
+        0.009023258462548256, 0.008777610957622528, 0.008666769601404667,
+        0.008878462947905064, 0.008586831390857697, 0.008293570950627327,
+        0.008358314633369446, 0.008258913643658161, 0.008164326660335064,
+        0.008072528056800365, 0.008058162406086922, 0.008053564466536045,
+        0.007971355691552162, 0.007943978533148766, 0.008003068156540394,
+        0.008061734028160572, 0.008070528507232666, 0.008099461905658245,
+        0.008126797154545784, 0.008096510544419289, 0.008103225380182266,
+        0.008109411224722862, 0.00810911227017641, 0.008107979781925678,
+        0.00811090786010027, 0.008105511777102947, 0.008106157183647156],
+    "messages": [
+        200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000,
+        200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000,
+        200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000, 200000,
+        200000, 200000, 200000],
+    "variance": [
+        0.5023915767669678, 0.28681084513664246, 0.17299900949001312,
+        0.10631242394447327, 0.06708265095949173, 0.04245483875274658,
+        0.026887008920311928, 0.017116615548729897, 0.0110307103022933,
+        0.007130569312721491, 0.004589305259287357, 0.0029744186904281378,
+        0.0019324647728353739, 0.0012621531495824456, 0.0008257279987446964,
+        0.0005404214607551694, 0.00035404725349508226, 0.0002321419888176024,
+        0.00015368910680990666, 0.00010195614595431834, 6.812311039539054e-05,
+        4.551235178951174e-05, 3.0123841497697867e-05, 1.9994378817500547e-05,
+        1.3224840586190112e-05, 8.744607839616947e-06, 5.8301352510170545e-06,
+        3.882892542605987e-06, 2.586204800536507e-06, 1.730086182760715e-06],
+    "values_sha256": ("d38c82742c51ce8b97bf6c321ae1bc36"
+                      "480a69de97444bae186704b381c544b9")}
+EXPECTED_MESH_DEMO = {
+    "events_sha256": ("6802ba353e31b0433921a4c71089cfdc"
+                      "7fb7f921927051fec746714264111426"),
+    "n_events": 15,
+    "summary": {"rounds": 7, "coverage": 0.7298459410667419, "messages": 8919679},
+    "alive_nodes": 899657,
+    "status_sha256": ("1c7d1890b076a8fc48319d4083bd6548"
+                      "93cca9caa434ed9adf5958e185af785f"),
+    "sim_round": 19,
+    "sim_messages": 9035661,
+    "resumed_equal": True}
+EXPECTED_MESH_PAGERANK = [
+    {
+        "sim_round": 1,
+        "messages": 9999994,
+        "rank_max": 1.5765403986733872e-06,
+        "rank_total": 1.000000238418579,
+        "residual": 0.06651322543621063},
+    {
+        "sim_round": 2,
+        "messages": 9999994,
+        "rank_max": 1.5480181900784373e-06,
+        "rank_total": 1.0000001192092896,
+        "residual": 0.014935850165784359},
+    {
+        "sim_round": 3,
+        "messages": 9999994,
+        "rank_max": 1.5855230230954476e-06,
+        "rank_total": 1.0,
+        "residual": 0.004464610945433378},
+    {
+        "sim_run": True,
+        "rounds": 14,
+        "messages": 139999916,
+        "value": 1.568558582221158e-05}]
+#: 4t's walk (the JAX package's ring, ``source_csr=True``, the same
+#: :func:`ring_walk_run`; ~40 s on the CPU):
+#:   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 python - <<'EOF'
+#:   import jax, chip_smoke as c
+#:   from p2pnetwork_tpu import models as M
+#:   from p2pnetwork_tpu.parallel import mesh, sharded as S
+#:   from p2pnetwork_tpu.sim import graph as G
+#:   m, g = mesh.ring_mesh(8), G.watts_strogatz(1_000_000, 10, 0.1, seed=0)
+#:   run, rec = c.ring_walk_run(S, M.RandomWalks, S.shard_graph(g, m, source_csr=True), m, jax.random.key(0))
+#:   print(rec(run()))
+#:   EOF
+EXPECTED_RING_WALK = {
+    "coverage": [
+        0.008187999948859215, 0.011877000331878662, 0.01537800021469593,
+        0.018724000081419945, 0.021963000297546387, 0.02504800073802471,
+        0.028108999133110046, 0.031165000051259995, 0.03413400053977966,
+        0.03701300173997879, 0.039877999573946, 0.0427279993891716,
+        0.045485999435186386, 0.04828700050711632, 0.051061999052762985,
+        0.05377399921417236, 0.05647600069642067, 0.05917400121688843,
+        0.061847999691963196, 0.06447599828243256, 0.06708099693059921,
+        0.06969200074672699, 0.07234500348567963, 0.07501400262117386,
+        0.07762499898672104, 0.08022800087928772, 0.08281700313091278,
+        0.08541599661111832, 0.08802399784326553, 0.09059900045394897,
+        0.09309600293636322, 0.09556400030851364, 0.09803999960422516,
+        0.10050000250339508, 0.1029760017991066, 0.10546299815177917,
+        0.1079069972038269, 0.11038800328969955, 0.1128230020403862,
+        0.11525300145149231, 0.11769499629735947, 0.12011600285768509,
+        0.12247800081968307, 0.1249219998717308, 0.12735900282859802,
+        0.12976600229740143, 0.13221000134944916, 0.13458199799060822,
+        0.13702300190925598, 0.13940100371837616, 0.1418139934539795,
+        0.14412400126457214, 0.1464959979057312, 0.14884600043296814,
+        0.1511249989271164, 0.1534470021724701, 0.15573999285697937,
+        0.1580740064382553, 0.16040000319480896, 0.16272799670696259,
+        0.16501100361347198, 0.16726499795913696, 0.16956299543380737,
+        0.1717900037765503],
+    "messages": [
+        4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+        4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+        4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+        4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+        4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096, 4096,
+        4096, 4096, 4096, 4096],
+    "stuck": [
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0,
+        0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0],
+    "pos_sha256": ("6c81cf33466c350788426ac5ee97379d"
+                   "06100f62e143951160af2605d37ca97f"),
+    "visited_sha256": ("045b37133a9bbbcebe136c645ae5b93e"
+                       "5ae1df5ae337e82debcefebfee855cd7")}
+#: 4t's f32 tolerances, (rtol, atol) by stat: the port's ``mxu`` and
+#: ``hybrid`` rings against the reference's ``segment`` ring (its sums of
+#: f32 terms in other orders; ``PUSHSUM_TOL``'s and ``PAGERANK_TOL``'s
+#: orders of magnitude), the gossip rung's (exact on the CPU, the psum
+#: order kept) as 4g's.
+RING_TOL = {
+    "pagerank": {"residual": (1e-3, 0.0), "rank_total": (0.0, 1e-5),
+                 "rank_max": (1e-5, 0.0)},
+    "pagerank_until": {"value": (1e-3, 0.0)},
+    "pushsum": PUSHSUM_TOL,
+    "pushsum_until": {"value": (1e-4, 0.0)},
+    "gossip": GOSSIP_TOL,
+    "mesh_pagerank": {"residual": (1e-3, 0.0), "rank_total": (0.0, 1e-5),
+                      "rank_max": (1e-5, 0.0), "value": (1e-3, 0.0)}}
 
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
@@ -4513,6 +4875,505 @@ def simnode_path(g, ring, segsum, threefry, device_mod, topology, mesh_mod,
     return dict(totals), back_row
 
 
+# --------------------------------------------------------------- phase 4t
+
+
+def host_np(x) -> np.ndarray:
+    """A tensor of either package as numpy."""
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def np_sha(x) -> str:
+    """sha256 of either package's array bytes."""
+    return hashlib.sha256(np.ascontiguousarray(host_np(x)).tobytes()
+                          ).hexdigest()
+
+
+def stat_lists(stats) -> dict:
+    return {k: host_np(v).tolist() for k, v in stats.items()}
+
+
+def ring_runs(sharded, models, sg, mesh, key, layout) -> dict:
+    """Phase 4t's runs of one ring layout, on either package's
+    ``parallel.sharded`` and protocol classes (the reference's recipe
+    runs them on the JAX package): ``name -> (run, record)``, ``record``
+    turning the run's result into what is held to the reference."""
+    SIR, PageRank, PushSum = models.SIR, models.PageRank, models.PushSum
+    sir = SIR(**SIR_RUNG)
+
+    def sir_fixed(**kw):
+        return (lambda: sharded.sir(sg, mesh, sir, key, SIR_ROUNDS, **kw),
+                lambda out: {**stat_lists(out[1]),
+                             "status_sha256": np_sha(out[0])})
+
+    runs = {"sir_exact": sir_fixed(exact_rng=True), "sir_fold": sir_fixed(),
+            "sir_coverage": (
+                lambda: sharded.sir_until_coverage(
+                    sg, mesh, sir, key, coverage_target=RING_SIR_TARGET,
+                    max_rounds=64),
+                lambda out: {**out[1], "status_sha256": np_sha(out[0])})}
+    if layout in RING_CONSENSUS_LAYOUTS:
+        runs["pagerank"] = (
+            lambda: sharded.pagerank(sg, mesh, PageRank(), RING_PR_ROUNDS),
+            lambda out: stat_lists(out[1]))
+        runs["pagerank_until"] = (
+            lambda: sharded.pagerank_until_residual(
+                sg, mesh, PageRank(), tol=RING_PR_TOL),
+            lambda out: dict(out[1]))
+        runs["pushsum"] = (
+            lambda: sharded.pushsum(sg, mesh, PushSum(), key,
+                                    RING_PS_ROUNDS),
+            lambda out: stat_lists(out[1]))
+        runs["pushsum_until"] = (
+            lambda: sharded.pushsum_until_variance(
+                sg, mesh, PushSum(), key, tol=RING_PS_TOL),
+            lambda out: dict(out[1]))
+    if layout == "segment":
+        runs["hopdist"] = (
+            lambda: sharded.hopdist_until_done(
+                sg, mesh, models.HopDistance(source=0)),
+            lambda out: {"rounds": out[1]["rounds"],
+                         "messages": out[1]["messages"],
+                         "sha256": np_sha(out[0][0])})
+        runs["leader"] = (
+            lambda: sharded.leader_until_quiet(sg, mesh),
+            lambda out: {"rounds": out[1]["rounds"],
+                         "messages": out[1]["messages"],
+                         "sha256": np_sha(out[0])})
+    return runs
+
+
+def ring_gossip_run(sharded, Gossip, sg, mesh, key):
+    """4t's gossip rung (``bench_gossip_sharded``): 30 rounds on the
+    ladder's 100K BA graph, ``(run, record)``."""
+    return (lambda: sharded.gossip(sg, mesh, Gossip(alpha=0.5), key,
+                                   GOSSIP_ROUNDS),
+            lambda out: {**stat_lists(out[1]),
+                         "values_sha256": np_sha(out[0])})
+
+
+def mesh_demo(SimNode, graph, SIR, mesh, path, sync=lambda: None, **kw):
+    """``examples/mesh_simnode_demo.py``'s story at phase 4's width, on
+    either package's sim node (not started: the population calls need no
+    socket): SIR rounds, churn, two runtime links, more rounds, the run to
+    the target, a checkpoint, and a fresh node that loads it. Returns the
+    record the reference's is held to and each call's wall."""
+    rec, walls = EventList(), {}
+    make = lambda: SimNode(  # noqa: E731
+        SIMNODE_HOST, 0, id="mesh-demo", callback=rec, graph=graph,
+        protocol=SIR(**MESH_DEMO["sir"]), seed=MESH_DEMO["seed"], mesh=mesh,
+        dynamic_edges=MESH_DEMO["dyn"], **kw)
+
+    def step(name, call):
+        sync()
+        t0 = time.perf_counter()
+        out = call()
+        sync()
+        walls[name] = time.perf_counter() - t0
+        return out
+
+    node = step("attach", make)
+    step("run_rounds", lambda: node.run_rounds(MESH_DEMO["rounds"][0]))
+    step("inject_sim_churn",
+         lambda: node.inject_sim_churn(MESH_DEMO["churn"]))
+    step("connect_sim_nodes",
+         lambda: node.connect_sim_nodes(*MESH_DEMO["links"]))
+    step("run_rounds_2", lambda: node.run_rounds(MESH_DEMO["rounds"][1]))
+    summary = step("run_until_coverage", lambda: node.run_until_coverage(
+        MESH_DEMO["target"], max_rounds=MESH_DEMO["max_rounds"]))
+    step("save_checkpoint", lambda: node.save_checkpoint(path))
+    n_events = len(rec.events)
+    resumed = step("resume", make)
+    step("load_checkpoint", lambda: resumed.load_checkpoint(path))
+    same = (np_sha(resumed.sim_state) == np_sha(node.sim_state)
+            and int(resumed.sim_node_alive.sum())
+            == int(node.sim_node_alive.sum())
+            and (resumed.sim_round, resumed.sim_message_count)
+            == (node.sim_round, node.sim_message_count))
+    record = {"events_sha256": canon_sha(rec.events[:n_events]),
+              "n_events": n_events, "summary": summary,
+              "alive_nodes": int(node.sim_node_alive.sum()),
+              "status_sha256": np_sha(node.sim_state),
+              "sim_round": node.sim_round,
+              "sim_messages": node.sim_message_count,
+              "resumed_equal": bool(same)}
+    return record, walls
+
+
+def mesh_pagerank(SimNode, graph, PageRank, mesh, **kw):
+    """A PageRank node on the ring: ``run_rounds(3)``, then
+    ``run_until_converged("residual", RING_PR_TOL)``. Returns its events
+    (the f32 values are held to the reference's within ``PAGERANK_TOL``)."""
+    rec = EventList()
+    node = SimNode(SIMNODE_HOST, 0, id="mesh-pagerank", callback=rec,
+                   graph=graph, protocol=PageRank(), seed=MESH_DEMO["seed"],
+                   mesh=mesh, **kw)
+    node.run_rounds(3)
+    node.run_until_converged("residual", RING_PR_TOL, max_rounds=64)
+    return [e[2] for e in rec.events]
+
+
+def check_close(label, got, want, tols):
+    """Fail unless ``got`` has ``want``'s keys, the values of ``tols``'
+    keys within their ``(rtol, atol)``, every other value equal. Returns
+    the largest difference of the tolerated values."""
+    if sorted(got) != sorted(want):
+        fail(f"{label}: keys {sorted(got)}, the reference has "
+             f"{sorted(want)}")
+    err = 0.0
+    for k in want:
+        if k in tols:
+            err = max(err, assert_close(f"{label} {k}", got[k], want[k],
+                                        *tols[k]))
+        elif got[k] != want[k]:
+            fail(f"{label} {k}: {got[k]}, the reference gives {want[k]}")
+    return err
+
+
+def ring_counts_4t(ring, segsum, threefry, rowsum, device_mod) -> dict:
+    return {**simnode_counts(ring, segsum, threefry, device_mod),
+            "rowsum": rowsum.LAUNCHES}
+
+
+def zero_counts_4t(ring, segsum, threefry, rowsum, device_mod) -> None:
+    zero_counts(ring, segsum, threefry, device_mod)
+    rowsum.LAUNCHES = 0
+
+
+def ring_launch_want(name, layout, out) -> dict:
+    """The launches a 4t run must make, by kernel (``None``: more than 0):
+    each sum pass is B3 on steps 0-6 and B1 on the peeled step 7
+    (``mxu``), B2's seven f32 hops and B1 at every step (``hybrid``), or
+    B2's seven hops and the segment buckets' scatter (``segment``); the
+    draws one launch a key (``exact``) or a shard (``fold``); each f32
+    ring total two row sums (the ``[S, block]`` shards', then theirs)."""
+    steps = RING_SHARDS - 1
+    if name.startswith("sir"):
+        rounds = SIR_ROUNDS if name != "sir_coverage" else out[1]["rounds"]
+        passes, draws = rounds, 2 * rounds * (
+            1 if name == "sir_exact" else RING_SHARDS)
+        totals = 0
+    elif name.startswith("pagerank"):
+        rounds = (RING_PR_ROUNDS if name == "pagerank"
+                  else out[1]["rounds"])
+        passes, draws, totals = rounds, 0, 3 * rounds
+    elif name.startswith("pushsum"):
+        rounds = (RING_PS_ROUNDS if name == "pushsum"
+                  else out[1]["rounds"])
+        passes, draws, totals = 2 * rounds, 1, 4 * rounds
+    else:  # hop distance and leader: segment, B2 only
+        return {"ring_shift": None}
+    want = {"threefry": draws, "rowsum": 2 * totals}
+    if layout == "mxu":
+        want.update(ring_segsum=steps * passes, segsum=passes)
+    elif layout == "hybrid":
+        want.update(ring_shift=steps * passes, segsum=RING_SHARDS * passes)
+    else:
+        want.update(ring_shift=steps * passes)
+    return want
+
+
+def check_launches(label, launches, want) -> None:
+    for k, w in want.items():
+        n = launches[k]
+        if (w is None and n == 0) or (w is not None and n != w):
+            fail(f"{label} launched {k} {n} times, want "
+                 f"{'> 0' if w is None else w}")
+
+
+def row_sum_shards_row(rowsum, flush) -> dict:
+    """The row sum at the ring's per-shard shape, f32 ``[8, 125008]`` (one
+    thread a row: rows of more than 1,024 terms), bit-equal to its plain
+    version; timed as phase 3's rows beside ``sum(dim=1)``."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.randn((RING_SHARDS, RING_BLOCK), generator=gen, device="cuda")
+    if not torch.equal(rowsum.row_sum(x).view(torch.int32),
+                       rowsum.row_sum_plain(x).view(torch.int32)):
+        fail("row_sum differs from its plain version at [8, 125008]")
+    return {"kernel": "row_sum", "entry": "shards",
+            "shape": list(x.shape),
+            "ms": cuda_times(lambda: rowsum.row_sum(x), 10, flush),
+            "plain_ms": cuda_times(lambda: rowsum.row_sum_plain(x), 5,
+                                   flush),
+            "library_ms": cuda_times(lambda: x.sum(dim=1), 20, flush),
+            "bound_ms": 1e3 * (x.numel() + RING_SHARDS) * 4
+            / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "max_abs_err": 0.0}
+
+
+def b2_i32_row(ring, flush) -> dict:
+    """B2 forward on leader election's payload, i32 ``[8, 125008]``,
+    bit-equal to its plain version; timed as phase 3's rows."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randint(0, 2**20, (RING_SHARDS, RING_BLOCK), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    if not torch.equal(ring.ring_shift(x), ring.ring_shift_plain(x)):
+        fail("ring_shift differs from its plain version (i32)")
+    nbytes = x.numel() * x.element_size()
+    return {"kernel": "ring_shift", "entry": "i32", "shape": list(x.shape),
+            "ms": cuda_times(lambda: ring.ring_shift(x), 50, flush),
+            "plain_ms": cuda_times(lambda: ring.ring_shift_plain(x), 50,
+                                   flush),
+            "library_ms": cuda_times(lambda: torch.roll(x, 1, 0), 50, flush),
+            "bound_ms": 1e3 * 2 * nbytes / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "max_abs_err": 0.0}
+
+
+def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
+                       sharded, mesh_mod, models, graph_mod, simnode):
+    """Phase 4t: the ring's other protocols on phase 4's graph, 8 shards
+    on the card, in each of ``RING_LAYOUTS`` (SIR on all three; PageRank
+    and push-sum on ``RING_CONSENSUS_LAYOUTS``; hop distance and leader
+    election on ``segment``), then the gossip rung, then
+    ``TorchSimNode``'s mesh backend (``mesh_demo`` and a PageRank node on
+    the ``mxu`` ring). Each run is held to the reference
+    (``EXPECTED_SIR`` with ``exact_rng=True``, else ``EXPECTED_RING``,
+    ``EXPECTED_ANALYTICS``, ``EXPECTED_RING_GOSSIP``,
+    ``EXPECTED_MESH_DEMO``, ``EXPECTED_MESH_PAGERANK``) and to its
+    launches (:func:`ring_launch_want`), then timed once more under the
+    profiler. Returns the launches by kernel row and the timed rows of the
+    row sum at the shards' shape and of B2 on i32."""
+    t_phase = time.perf_counter()
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    counts = lambda: ring_counts_4t(  # noqa: E731
+        ring, segsum, threefry, rowsum, device_mod)
+    zero = lambda: zero_counts_4t(  # noqa: E731
+        ring, segsum, threefry, rowsum, device_mod)
+    rows = collections.Counter()
+    err = 0.0
+
+    def checked(label, run):
+        zero()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, counts()
+
+    def timed(label, run, first_s, launches, extra):
+        prof = profile_run(run)
+        print(json.dumps({"phase": "ring-protocol-path", "run": label,
+                          "first_run_s": first_s, "wall_s": prof["wall_s"],
+                          "device_busy_s": prof["device_busy_s"],
+                          "device_idle_share": prof["device_idle_share"],
+                          "kernel_launches": prof["kernel_launches"],
+                          "launches": launches, "top": prof["top"],
+                          **extra, "t_s": time.perf_counter() - T_START}),
+              flush=True)
+
+    for layout, kw in RING_LAYOUTS:
+        t0 = time.perf_counter()
+        sg = sharded.shard_graph(g, mesh, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        for name, (run, record) in ring_runs(sharded, models, sg, mesh, KEY,
+                                             layout).items():
+            label = f"{name}-{layout}"
+            out, first_s, launches = checked(label, run)
+            got = record(out)
+            if name == "sir_exact":
+                check_run(label, got, EXPECTED_SIR)
+            elif name in ("hopdist", "leader"):
+                want = EXPECTED_ANALYTICS["hop" if name == "hopdist"
+                                          else "leader"]
+                check_run(label, got, {k: want[k] for k in got})
+            else:
+                err = max(err, check_close(label, got, EXPECTED_RING[name],
+                                           RING_TOL.get(name, {})))
+            check_launches(label, launches,
+                           ring_launch_want(name, layout, out))
+            f32 = not name.startswith(("hopdist", "leader"))
+            rows["ring_segsum_sum"] += launches["ring_segsum"]
+            rows["segsum_ring_sum"] += launches["segsum"]
+            rows["ring_shift_f32" if f32 else
+                 "ring_shift_i32" if name == "leader"
+                 else "ring_shift"] += launches["ring_shift"]
+            rows["threefry"] += launches["threefry"]
+            rows["row_sum_shards"] += launches["rowsum"] // 2
+            rows["row_sum"] += launches["rowsum"] // 2
+            timed(label, run, first_s, launches,
+                  {"layout": layout, "build_s": build_s})
+        del sg
+        torch.cuda.empty_cache()
+
+    # The gossip rung: the ladder's sharded 100K BA graph, segment buckets
+    # (gossip reads the neighbor table only).
+    gba = graph_mod.barabasi_albert(**RING_GOSSIP_GRAPH)
+    sg = sharded.shard_graph(gba, mesh)
+    run, record = ring_gossip_run(sharded, models.Gossip, sg, mesh, KEY)
+    out, first_s, launches = checked("gossip", run)
+    err = max(err, check_close("gossip", record(out), EXPECTED_RING_GOSSIP,
+                               RING_TOL["gossip"]))
+    # A partner draw a round: randint's two bits launches for each
+    # shard's key ("fold"); the init's normal one.
+    check_launches("gossip", launches, {
+        "threefry": 2 * RING_SHARDS * GOSSIP_ROUNDS + 1,
+        "ring_shift": (RING_SHARDS - 1) * GOSSIP_ROUNDS,
+        "rowsum": 4 * GOSSIP_ROUNDS})
+    rows["ring_shift_f32"] += launches["ring_shift"]
+    rows["threefry"] += launches["threefry"]
+    rows["row_sum_shards"] += launches["rowsum"] // 2
+    rows["row_sum"] += launches["rowsum"] // 2
+    timed("gossip", run, first_s, launches, {"graph": RING_GOSSIP_GRAPH})
+    del sg, gba
+
+    # TorchSimNode's mesh backend on the mxu ring.
+    with tempfile.TemporaryDirectory() as d:
+        zero()
+        t0 = time.perf_counter()
+        record, walls = mesh_demo(simnode.TorchSimNode, g, models.SIR, mesh,
+                                  f"{d}/demo.npz",
+                                  sync=torch.cuda.synchronize, layout="mxu")
+        demo_s = time.perf_counter() - t0
+        launches = counts()
+    check_run("mesh demo", record, EXPECTED_MESH_DEMO)
+    check_launches("mesh demo", launches, {
+        "ring_segsum": None, "segsum": None, "ring_shift": None,
+        "ring_shift_back": None, "threefry": None})
+    rows["ring_segsum_sum"] += launches["ring_segsum"]
+    rows["segsum_ring_sum"] += launches["segsum"]
+    rows["ring_shift"] += launches["ring_shift"]
+    rows["ring_shift_back"] += launches["ring_shift_back"]
+    rows["threefry"] += launches["threefry"]
+    print(json.dumps({"phase": "ring-protocol-path", "run": "mesh-demo",
+                      "layout": "mxu", "wall_s": demo_s, "walls": walls,
+                      "launches": launches, "summary": record["summary"],
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+    zero()
+    t0 = time.perf_counter()
+    events = mesh_pagerank(simnode.TorchSimNode, g, models.PageRank, mesh,
+                           layout="mxu")
+    torch.cuda.synchronize()
+    pr_s = time.perf_counter() - t0
+    launches = counts()
+    if len(events) != len(EXPECTED_MESH_PAGERANK):
+        fail(f"mesh PageRank fired {len(events)} events, the reference "
+             f"{len(EXPECTED_MESH_PAGERANK)}")
+    for i, (e, w) in enumerate(zip(events, EXPECTED_MESH_PAGERANK)):
+        err = max(err, check_close(f"mesh PageRank event {i}", e, w,
+                                   RING_TOL["mesh_pagerank"]))
+    rows["ring_segsum_sum"] += launches["ring_segsum"]
+    rows["segsum_ring_sum"] += launches["segsum"]
+    rows["row_sum_shards"] += launches["rowsum"] // 2
+    rows["row_sum"] += launches["rowsum"] // 2
+    print(json.dumps({"phase": "ring-protocol-path", "run": "mesh-pagerank",
+                      "layout": "mxu", "wall_s": pr_s, "launches": launches,
+                      "summary": events[-1],
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    kernel_rows = {"row_sum_shards": row_sum_shards_row(rowsum, flush),
+                   "ring_shift_i32": b2_i32_row(ring, flush)}
+    del flush
+    for r in kernel_rows.values():
+        print(json.dumps({"phase": "kernel", **r}), flush=True)
+    print(json.dumps({"phase": "ring-protocol-path", "run": "phase",
+                      "phase_s": time.perf_counter() - t_phase,
+                      "max_abs_err_vs_reference": err, "launches": rows}),
+          flush=True)
+    return dict(rows), kernel_rows
+
+
+
+def ring_walk_run(sharded, RandomWalks, sg, mesh, key):
+    """4t's walk: 4l's cohort (``WALKERS``) for ``RING_WALK_ROUNDS`` rounds
+    on a ``source_csr=True`` ring, on either package; ``(run, record)``."""
+    proto = RandomWalks(n_walkers=WALKERS)
+    return (lambda: sharded.walk(sg, mesh, proto, key, RING_WALK_ROUNDS,
+                                 return_state=True),
+            lambda out: {**stat_lists(out[1]),
+                         "pos_sha256": np_sha(out[0][0]),
+                         "visited_sha256": np_sha(out[0][2])})
+
+
+def ring_walk_path(g, ring, segsum, threefry, rowsum, device_mod, sharded,
+                   mesh_mod, RandomWalks) -> dict:
+    """Phase 4t's walk on phase 4's graph: the 8-shard ring with the
+    sender-CSR view, held to ``EXPECTED_RING_WALK``. No kernel runs (the
+    draws are edge hashes); returns the launches."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    t0 = time.perf_counter()
+    sg = sharded.shard_graph(g, mesh, source_csr=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    run, record = ring_walk_run(sharded, RandomWalks, sg, mesh, KEY)
+    zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    check_run("ring walk", record(out), EXPECTED_RING_WALK)
+    check_launches("ring walk", launches, {
+        k: 0 for k in ("segsum", "ring_segsum", "ring_shift", "threefry",
+                       "rowsum")})
+    prof = profile_run(run)
+    print(json.dumps({"phase": "ring-protocol-path", "run": "walk",
+                      "build_s": build_s, "csr_span": sg.csr_span,
+                      "first_run_s": first_s, "wall_s": prof["wall_s"],
+                      "device_busy_s": prof["device_busy_s"],
+                      "device_idle_share": prof["device_idle_share"],
+                      "kernel_launches": prof["kernel_launches"],
+                      "launches": launches, "top": prof["top"],
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+    return launches
+
+
+def ring_batch_path(bg, ring, segsum, threefry, rowsum, device_mod,
+                    sharded, mesh_mod, MB, flush) -> tuple:
+    """Phase 4t's batched call on 4j's graph: the B = 1,024 batch of
+    ``batch_path`` on the 8-shard ``segment`` ring, the lane words
+    (``[8, 32, 12512]``) the halo payload; equal to ``EXPECTED_BATCH``'s
+    first call (the reference's ring loop is its engine loop, lane for
+    lane). Returns B2's launches on the word stack and its timed row."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    sg = sharded.shard_graph(bg, mesh)
+    sources = np.random.default_rng(0).integers(
+        0, bg.n_nodes, size=BATCH_B).astype(np.int32)
+    proto = MB.BatchFlood(method="segment")
+    run = lambda: sharded.run_batch_until_coverage(  # noqa: E731
+        sg, mesh, proto, proto.init(bg, sources, coverage_target=0.99),
+        max_rounds=64)
+    zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, out = run()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    out["lane_messages"] = MB.lane_messages(bg, state).cpu().numpy()
+    out["seen"] = state.seen.cpu().numpy()
+    check_run("ring batch", lane_summary(out, ("lane_messages", "seen")),
+              EXPECTED_BATCH["first"])
+    check_launches("ring batch", launches, {
+        "ring_shift": (RING_SHARDS - 1) * out["rounds"], "segsum": 0,
+        "ring_segsum": 0, "threefry": 0, "rowsum": 0})
+    prof = profile_run(run)
+    print(json.dumps({"phase": "ring-protocol-path", "run": "batch",
+                      "lanes": BATCH_B, "rounds": out["rounds"],
+                      "messages": out["messages"], "first_run_s": first_s,
+                      "wall_s": prof["wall_s"],
+                      "device_busy_s": prof["device_busy_s"],
+                      "device_idle_share": prof["device_idle_share"],
+                      "kernel_launches": prof["kernel_launches"],
+                      "launches": launches, "top": prof["top"],
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+    stack = sharded.shard_lanes(sg, state.seen)
+    if not torch.equal(ring.ring_shift(stack), ring.ring_shift_plain(stack)):
+        fail("ring_shift differs from its plain version on the word stack")
+    nbytes = stack.numel() * stack.element_size()
+    row = {"kernel": "ring_shift", "entry": "lanes",
+           "shape": list(stack.shape),
+           "ms": cuda_times(lambda: ring.ring_shift(stack), 50, flush),
+           "plain_ms": cuda_times(lambda: ring.ring_shift_plain(stack), 50,
+                                  flush),
+           "library_ms": cuda_times(lambda: torch.roll(stack, 1, 0), 50,
+                                    flush),
+           "bound_ms": 1e3 * 2 * nbytes / HBM_BYTES_PER_S,
+           "bound_by": "bytes", "max_abs_err": 0.0}
+    print(json.dumps({"phase": "kernel", **row}), flush=True)
+    return launches["ring_shift"], row
+
 def campaign_path(crashstorm, serve, graph_mod, telemetry) -> None:
     """Phase 4r(f): the reference's crash-storm acceptance campaign, its
     subprocess children on the card: no acknowledged ticket lost, the
@@ -4901,6 +5762,13 @@ def main() -> int:
     sim_launches, back_row = simnode_path(
         g, ring, segsum, threefry, _device, topology, mesh_mod, sharded,
         Flood, simnode, node_mod, config_mod, chaos, telemetry)
+    # 4t (slice 12), after 4s on phase 4's graph: the ring's other
+    # protocols, the gossip rung and TorchSimNode's mesh backend for them.
+    proto_launches, proto_rows = ring_protocol_path(
+        g, ring, segsum, threefry, rowsum, _device, sharded, mesh_mod,
+        models_mod, graph_mod, simnode)
+    ring_walk_path(g, ring, segsum, threefry, rowsum, _device, sharded,
+                   mesh_mod, models_mod.RandomWalks)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -4914,6 +5782,12 @@ def main() -> int:
     bg = batch_path(engine, segsum, threefry, _device, graph_mod,
                     frontier_ops, Flood, messagebatch)
     query_path(bg, engine, segsum, threefry, _device, graph_mod, querybatch)
+    # 4t's batched call on the segment ring of the same graph.
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+    lane_hops, lane_row = ring_batch_path(bg, ring, segsum, threefry, rowsum,
+                                          _device, sharded, mesh_mod,
+                                          messagebatch, flush)
+    del flush
     # 4p's batch call with a recorder (slice 8), after 4j's and 4k's runs.
     rowsum_launches["dense"] = batch_recorder(
         bg, engine, segsum, threefry, _device, flightrec, messagebatch)
@@ -4962,17 +5836,41 @@ def main() -> int:
             + sim_launches["segsum"], max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"]
-            + fault_launches["ring_shift"] + sim_launches["ring_shift"],
-            ring_err["ring_shift"]),
+            + fault_launches["ring_shift"] + sim_launches["ring_shift"]
+            + proto_launches["ring_shift"], ring_err["ring_shift"]),
+        row("ring_shift_f32", "ring.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (f32 payload)",
+            next(r for r in ring_rows if r["kernel"] == "ring_shift"
+                 and r["entry"] == "f32"),
+            proto_launches["ring_shift_f32"], ring_err["ring_shift"]),
+        row("ring_shift_lanes", "ring.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (the lane-word stack)",
+            lane_row, lane_hops, 0.0),
+        row("ring_shift_i32", "ring.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (i32 payload)",
+            proto_rows["ring_shift_i32"], proto_launches["ring_shift_i32"],
+            0.0),
         row("ring_shift_back", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (reverse=True)", back_row,
-            sim_launches["ring_shift_back"], back_row["max_abs_err"]),
+            sim_launches["ring_shift_back"]
+            + proto_launches["ring_shift_back"], back_row["max_abs_err"]),
         row("ring_segsum", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:126",
             next(r for r in step_rows
                  if r["step"] == 0 and r["entry"] == "or"),
             ring_launches["ring_segsum"] + sim_launches["ring_segsum"],
             max(ring_err["ring_segsum"], step_err)),
+        row("ring_segsum_sum", "ring.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:126",
+            next(r for r in step_rows
+                 if r["step"] == 0 and r["entry"] == "sum"),
+            proto_launches["ring_segsum_sum"],
+            max(ring_err["ring_segsum"], step_err)),
+        row("segsum_ring_sum", "segsum.cu",
+            "p2pnetwork_tpu/ops/pallas_edge.py:41",
+            next(r for r in ring_rows if r["kernel"] == "segsum"
+                 and r["entry"] == "sum"),
+            proto_launches["segsum_ring_sum"], ring_err["segsum"]),
         row("segsum_sum", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
             sir_launches["hybrid"] + cons_launches["segsum"]
@@ -4990,8 +5888,8 @@ def main() -> int:
             sir_launches["threefry"] + cons_launches["threefry"]
             + gossip_launches + new_launches["threefry"] + walk_launches
             + lib_launches["threefry"] + io_launches["threefry"]
-            + fault_launches["threefry"] + sim_launches["threefry"],
-            threefry_err),
+            + fault_launches["threefry"] + sim_launches["threefry"]
+            + proto_launches["threefry"], threefry_err),
         row("gather_row_sum", "rowsum.cu",
             "p2pnetwork_tpu/ops/segment.py:287 (jnp.sum of the gathered "
             "row, an XLA reduce; no TPU kernel)", rowsum_rows["ws-1m"],
@@ -4999,8 +5897,14 @@ def main() -> int:
         row("row_sum", "rowsum.cu",
             "p2pnetwork_tpu/sim/engine.py:556 (jnp.sum of the lanes' "
             "counts, an XLA reduce; no TPU kernel)",
-            rowsum_rows[f"lanes-{BATCH_B}"], rowsum_launches["dense"],
+            rowsum_rows[f"lanes-{BATCH_B}"], rowsum_launches["dense"]
+            + proto_launches["row_sum"],
             rowsum_rows[f"lanes-{BATCH_B}"]["max_abs_err"]),
+        row("row_sum_shards", "rowsum.cu",
+            "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "
+            "shard's block, an XLA reduce; no TPU kernel)",
+            proto_rows["row_sum_shards"], proto_launches["row_sum_shards"],
+            0.0),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,12 +7,13 @@
 //
 //   w == 1:  the term itself (no add: a -0 stays -0);
 //   w <= 32: left to right from +0;
-//   w >  32: front-padded with zeros to whole windows of 32, each window
-//            summed left to right from +0, and the window sums reduced
-//            the same way (recursively).
+//   w >  32: padded with p = -w mod 32 zeros to whole windows of 32,
+//            p / 2 in front and the rest behind (XLA's reduce-window
+//            padding), each window summed left to right from +0, and the
+//            window sums reduced the same way (recursively).
 //
-// A zero added to an accumulator that is still +0 leaves it +0, so the
-// padding is skipped, not added. Every add is __fadd_rn (and the gather
+// A sum that starts from +0 is never -0, and adding a zero to it leaves
+// its bits, so the padding is skipped, not added. Every add is __fadd_rn (and the gather
 // entry's mask product __fmul_rn), so nvcc cannot contract a product and a
 // sum into one fma and the bits stay XLA's. The plain version takes one
 // torch launch per column of a window.
@@ -99,25 +100,33 @@ __device__ __forceinline__ float ordered_sum(int64_t w, const Term& term) {
     for (int64_t j = 0; j < w; ++j) acc = __fadd_rn(acc, term(j));
     return acc;
   }
-  // Level l's items sit at pos[l] of its padded sequence; a completed
-  // window carries its sum up one level. The top level has <= 32 items and
-  // is summed whole.
+  // Level l's items sit at pos[l] of its padded sequence, which starts
+  // after the level's front zeros; a completed window carries its sum up
+  // one level. The top level has <= 32 items and is summed whole.
   int64_t pos[kMaxLevels];
   float acc[kMaxLevels + 1];
   int levels = 0;
   for (int64_t n = w; n > kWindow; ++levels) {
-    pos[levels] = (kWindow - n % kWindow) % kWindow;
-    n = (n + pos[levels]) / kWindow;
+    const int64_t pad = (kWindow - n % kWindow) % kWindow;
+    pos[levels] = pad / 2;
+    n = (n + pad) / kWindow;
   }
   for (int l = 0; l <= levels; ++l) acc[l] = 0.0f;
-  for (int64_t j = 0; j < w; ++j) {
-    float x = term(j);
-    for (int l = 0;; ++l) {
+  auto push = [&](int l, float x) {
+    for (;; ++l) {
       acc[l] = __fadd_rn(acc[l], x);
       if (l == levels || pos[l]++ % kWindow != kWindow - 1) break;
       x = acc[l];
       acc[l] = 0.0f;
     }
+  };
+  for (int64_t j = 0; j < w; ++j) push(0, term(j));
+  // A level's last window is open when zeros end it: its sum goes up.
+  for (int l = 0; l < levels; ++l) {
+    if (pos[l] % kWindow == 0) continue;
+    const float x = acc[l];
+    acc[l] = 0.0f;
+    push(l + 1, x);
   }
   return acc[levels];
 }
@@ -279,7 +288,10 @@ __global__ void __launch_bounds__(kTileThreads)
   const int64_t mine =
       tiles > blockIdx.x ? (tiles - 1 - blockIdx.x) / gridDim.x + 1 : 0;
   const int n = (w + kWindow - 1) / kWindow;
-  const int pad = n * kWindow - w;
+  // The row's zeros: `front` before its first term, the rest after its
+  // last.
+  const int front = (n * kWindow - w) / 2;
+  const int end = front + w - (n - 1) * kWindow;
   const int sum_stride = n | 1;
   // Term threadIdx.x + i * kTileThreads of a tile is row r_i, column c_i:
   // (r_0, c_0) once, then steps of kTileThreads = step_r rows + step_c.
@@ -333,7 +345,7 @@ __global__ void __launch_bounds__(kTileThreads)
     for (int i = 0; i < kTermsPerThread; ++i) {
       const int t = threadIdx.x + i * kTileThreads;
       if (t < count) {
-        const int q = c + pad;
+        const int q = c + front;
         prod[(r * n + q / kWindow) * kPadStride + q % kWindow] =
             masked(x[i], sm[t] != 0);
       }
@@ -349,11 +361,12 @@ __global__ void __launch_bounds__(kTileThreads)
     // The adds, in XLA's order: a thread a window, then a thread a row.
     for (int u = threadIdx.x; u < tile_n * n; u += kTileThreads) {
       const float* p = prod + u * kPadStride;
-      const int k = u % n, from = k == 0 ? pad : 0;
+      const int k = u % n, from = k == 0 ? front : 0;
+      const int to = k == n - 1 ? end : kWindow;
       float acc = 0.0f;
 #pragma unroll
       for (int s = 0; s < kWindow; ++s)
-        if (s >= from) acc = __fadd_rn(acc, p[s]);
+        if (s >= from && s < to) acc = __fadd_rn(acc, p[s]);
       wsum[(u / n) * sum_stride + k] = acc;
     }
     __syncthreads();
@@ -397,8 +410,9 @@ __device__ __forceinline__ float lane_sum(float x, int count) {
 
 // The dense entry's rows of 1 to 1,024 terms, one warp a row. Rows of <=
 // 32 terms: lane l loads term l, and the lanes add them left to right
-// through shuffles. Wider rows: the warp loads the row front-padded with
-// zeros, coalesced (load j: padded position 32 j + lane), and turns it
+// through shuffles. Wider rows: the warp loads the row padded with zeros
+// as the file comment says, coalesced (load j: padded position 32 j +
+// lane), and turns it
 // through its padded shared tile so that lane k holds window k; each lane
 // adds its window left to right from +0 (window 0's leading zeros leave
 // +0 as it is), then the lanes add the window sums in order through
@@ -411,7 +425,7 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x % kWindow;
   float* t = turn[threadIdx.x / kWindow];
   const int n = (w + kWindow - 1) / kWindow;
-  const int pad = n * kWindow - w;
+  const int front = (n * kWindow - w) / 2;
   for (int64_t r = static_cast<int64_t>(blockIdx.x) * kWarps +
                    threadIdx.x / kWindow;
        r < rows; r += static_cast<int64_t>(gridDim.x) * kWarps) {
@@ -424,8 +438,8 @@ __global__ void __launch_bounds__(kThreads)
       float x[kWindow];
 #pragma unroll
       for (int j = 0; j < kWindow; ++j) {
-        const int col = j * kWindow + lane - pad;
-        x[j] = j < n && col >= 0 ? row[col] : 0.0f;
+        const int col = j * kWindow + lane - front;
+        x[j] = j < n && col >= 0 && col < w ? row[col] : 0.0f;
       }
 #pragma unroll
       for (int j = 0; j < kWindow; ++j)

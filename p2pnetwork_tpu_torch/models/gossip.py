@@ -5,9 +5,9 @@ Each node holds a value; one synchronous round has every node draw one
 incoming neighbor uniformly from its neighbor row
 (``base.draw_neighbor_slot``, exact against the reference) and move
 ``alpha`` of the way toward that neighbor's value. The initial values are
-``prng.normal`` draws, within an ulp of the reference's (``prng.py``), so
-the values and their variance are held to a tolerance while the partner
-draws and ``messages`` are exact.
+``prng.normal`` draws, the reference's bit for bit (``prng.py``); the
+tests hold the values and their variance to a tolerance, the partner
+draws and ``messages`` exactly.
 
 Requires a graph built with a neighbor table (the default).
 """
@@ -52,7 +52,9 @@ class Gossip:
             raise ValueError("Gossip requires a graph with a neighbor table")
         values = prng.normal(key, (graph.n_nodes_padded,),
                              device=graph.device)
-        return GossipState(values=values * graph.node_mask)
+        # XLA makes the product with a bool mask a select: +0, not -0,
+        # where the node is dead.
+        return GossipState(values=torch.where(graph.node_mask, values, 0.0))
 
     def step(self, graph: Graph, state: GossipState, key):
         _, partner, has_slot = base.draw_neighbor_slot(graph, key)

@@ -16,6 +16,7 @@ import dataclasses
 import torch
 
 from p2pnetwork_tpu_torch.ops import segment
+from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.sim.graph import Graph
 
 
@@ -51,8 +52,10 @@ class PageRank:
         pulled = segment.propagate_sum(graph, contrib, self.method)
         dangling = torch.where(mask & (graph.out_degree == 0), state.ranks,
                                0.0).sum()
-        ranks = ((1.0 - self.damping) / n_real
-                 + self.damping * (pulled + dangling / n_real)) * mask
+        # XLA's CPU code fuses the damped product and its add into one
+        # rounding.
+        ranks = TF.fma_f32(pulled + dangling / n_real, self.damping,
+                           (1.0 - self.damping) / n_real) * mask
         residual = (ranks - state.ranks).abs().sum()
         stats = {
             # Every live node with outgoing links ships one share per edge.

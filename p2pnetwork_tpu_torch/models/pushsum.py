@@ -44,7 +44,9 @@ class PushSum:
         values = prng.normal(key, (graph.n_nodes_padded,),
                              device=graph.device)
         mask = graph.node_mask
-        return PushSumState(s=values * mask, w=mask.to(torch.float32))
+        # A select, as XLA makes the product with a bool mask.
+        return PushSumState(s=torch.where(mask, values, 0.0),
+                            w=mask.to(torch.float32))
 
     def estimate(self, graph: Graph, state: PushSumState) -> torch.Tensor:
         """Per-node mean estimate ``s/w`` (0 on dead/padded nodes)."""

@@ -75,21 +75,21 @@ def row_sum_plain(vals: torch.Tensor) -> torch.Tensor:
     """``vals.sum(dim=1)`` for a ``[rows, W]`` float tensor, in the order
     XLA's CPU reduce adds: a row of one column is that term, rows of <= 32
     columns are added left to right from 0, longer ones window by window.
-    One add per column of a window, for all windows at once, and level (32
-    for 1,024 terms, then 32 more). This order is measured for lengths of
-    <= 32 and multiples of 32 (rows up to 256 columns, 1-D sums up to
-    4,096 elements); XLA adds other lengths in yet another order
-    (ROADMAP.md, known differences)."""
+    A row whose width is not a multiple of 32 is padded with ``p = -W mod
+    32`` zeros, ``p // 2`` in front and the rest behind (XLA's
+    ``reduce-window`` padding), at every level. One add per column of a
+    window, for all windows at once, and level (32 for 1,024 terms, then
+    32 more)."""
     rows, width = vals.shape
     if width == 1:
         # XLA reduces one term to itself: no add, so a -0 stays -0.
         return vals[:, 0].clone()
     if width > REDUCE_WINDOW:
-        # Zeros in front make the first window whole: adding them first
-        # leaves its sum's bits as they are.
+        # A sum that starts from +0 is never -0, so the zeros leave the
+        # bits of every partial sum as they are.
         pad = -width % REDUCE_WINDOW
         if pad:
-            vals = torch.cat([vals.new_zeros(rows, pad), vals], 1)
+            vals = torch.nn.functional.pad(vals, (pad // 2, pad - pad // 2))
         return row_sum_plain(
             _window_sums(vals.reshape(rows, -1, REDUCE_WINDOW)))
     return _window_sums(vals[:, None, :])[:, 0]

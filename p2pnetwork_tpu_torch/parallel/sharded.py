@@ -40,35 +40,63 @@ other way). Runtime links live in the dynamic region (:func:`with_capacity`,
 :func:`connect`, :func:`disconnect`), whose unsorted bucket every ring
 pass applies beside the static group at each step.
 
-Ported: :func:`shard_graph` (``mxu``, ``hybrid``; a graph's runtime links
-folded into the static buckets, its neighbor table carried),
-:func:`flood`, :func:`flood_until_coverage` (dense loop),
+The other protocols run on the same passes: SIR (a sum pass of 0/1
+pressure), gossip (each node's pull from its partner's resident block),
+PageRank and push-sum (sum passes), hop distance (an OR pass) and leader
+election (a max pass of i32 ids), with the single-device models'
+arithmetic and ``engine``'s key schedules and loops. Their f32 totals are
+the reference's: each shard's block summed in XLA's order, then the
+shards left to right (:func:`psum_f32`). The draws are the whole
+population's (``exact_rng``), one key a 128-node tile (``"tile"``) or one
+a shard (``"fold"``). The walk gathers each walker's out-edges through
+the per-shard sender-CSR view; the batched plane moves the lane-word
+stack ``[S, W, block]`` as the halo payload.
+
+Ported: :func:`shard_graph` (``mxu``, ``hybrid``, ``source_csr``; a
+graph's runtime links folded into the static buckets, its neighbor table
+carried), :func:`flood`, :func:`flood_until_coverage` (dense loop),
 :func:`propagate` (``or``, ``sum``, ``max``, ``minplus``), the liveness
 re-mask (:func:`with_node_liveness`, :func:`fail_nodes`,
-:func:`random_node_failures`), the dynamic region and
-:func:`topology_state` / :func:`apply_topology_state`. Not yet: the
-sender-CSR view and the frontier-adaptive loop, the flight recorder, the
-batched loop and the other ring protocols.
+:func:`random_node_failures`), the dynamic region,
+:func:`topology_state` / :func:`apply_topology_state`, :func:`init_state`
+for every ring protocol, :func:`sir`, :func:`gossip`, :func:`pagerank`,
+:func:`pushsum`, :func:`hopdist`, their run-to-* loops,
+:func:`leader_until_quiet`, :func:`walk`, :func:`walk_until_coverage`,
+:func:`propagate_or_lanes` and :func:`run_batch_until_coverage`. Not yet:
+the frontier-adaptive loop and the ring's flight recorder.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
-from p2pnetwork_tpu_torch import prng
+from p2pnetwork_tpu_torch import _device, prng
+from p2pnetwork_tpu_torch.chaos import device as chaos_device
+from p2pnetwork_tpu_torch.models import sir as sir_model
 from p2pnetwork_tpu_torch.models.flood import Flood, FloodState, live_coverage
+from p2pnetwork_tpu_torch.models.gossip import Gossip
+from p2pnetwork_tpu_torch.models.hopdist import HopDistance
+from p2pnetwork_tpu_torch.models.pagerank import PageRank
+from p2pnetwork_tpu_torch.models.pushsum import PushSum
+from p2pnetwork_tpu_torch.models.sir import SIR
+from p2pnetwork_tpu_torch.ops import bitset as BS
 from p2pnetwork_tpu_torch.ops import blocked as B
 from p2pnetwork_tpu_torch.ops import frontier as F
-from p2pnetwork_tpu_torch.ops import ring, segment, segsum
+from p2pnetwork_tpu_torch.ops import ring, rowsum, segment, segsum
+from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.ops.diag import select_diagonals
 from p2pnetwork_tpu_torch.parallel.auto import COMM_BACKENDS, resolve_comm
 from p2pnetwork_tpu_torch.parallel.mesh import DEFAULT_AXIS, RingMesh
 from p2pnetwork_tpu_torch.sim import engine
 from p2pnetwork_tpu_torch.sim.graph import _round_up
+from p2pnetwork_tpu_torch.telemetry import spans
+from p2pnetwork_tpu_torch.utils import accum
+from p2pnetwork_tpu_torch.utils.edgehash import edge_uniform
 
 DEFAULT_COMM = "auto"
 
@@ -183,7 +211,9 @@ class ShardedGraph:
     unsorted: :func:`connect` fills free slots. ``neighbors`` /
     ``neighbors_mask`` (``[S, B, W]``, global ids) are the graph's
     neighbor table, re-masked by liveness as the single-device table is.
-    The sender-CSR view is not ported and stays None.
+    ``csr_pos``/``csr_offsets``/``csr_span`` (``source_csr=True``) are the
+    per-shard sender-CSR view over the segment buckets; it indexes bucket
+    slots, so liveness re-masks and runtime links need no rebuild.
 
     ``mxu_extent`` is the port's own (the reference has no such field):
     each MXU row's extent (:func:`row_extent`), which kernel B3 reads so
@@ -303,13 +333,11 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
     each bucket, which the ring then reduces with the segment-sum kernels
     in place of the segment buckets; ``hybrid=True`` first takes the
     dominant circular diagonals out as roll-and-mask pieces and puts only
-    the remainder in that layout. ``source_csr=True`` (the sender-CSR
-    view of the frontier-adaptive loop) is not ported yet. A graph's live
+    the remainder in that layout. ``source_csr=True`` adds the per-shard
+    sender-CSR view (:func:`_sender_csr`) that :func:`walk` gathers a
+    walker's out-edges through. A graph's live
     runtime links (``sim/topology.py``) are folded into the static
     buckets, as the reference folds them (its consolidation path)."""
-    if source_csr:
-        raise NotImplementedError(
-            "shard_graph(source_csr=True) is not ported yet")
     S = mesh.n_shards
     emask = _np(graph.edge_mask)
     senders = _np(graph.senders)[emask]
@@ -376,6 +404,9 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
             for full, part in zip(mxu_arrays, bucket):
                 full[b // S, b % S, :r, :c] = part
 
+    csr = _sender_csr(bkt_src, bkt_mask, S, block, e_bkt,
+                      edge_pad_multiple) if source_csr else None
+
     pad_n = S * block - graph.n_nodes_padded
 
     def per_node(t):
@@ -400,7 +431,34 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
         neighbors_mask=on(per_row(graph.neighbor_mask)),
         mxu_src=mxu_src, mxu_dst=mxu_dst, mxu_mask=mxu_mask,
         mxu_extent=mxu_extent, diag_masks=on(diag_masks),
-        diag_pieces=diag_pieces, mxu_block=mxu_block)
+        diag_pieces=diag_pieces, mxu_block=mxu_block,
+        **({} if csr is None else dict(csr_pos=on(csr[0]),
+                                       csr_offsets=on(csr[1]),
+                                       csr_span=csr[2])))
+
+
+def _sender_csr(bkt_src, bkt_mask, S, block, e_bkt, pad_multiple):
+    """The per-shard sender-CSR view of the segment buckets (host-side):
+    ``csr_pos [S, E_s]`` lists each shard's live bucket slots (``t *
+    E_bkt + slot``) grouped by GLOBAL sender id (step ``t`` holds the
+    senders of shard ``(d - t) mod S``), slots in order within a sender;
+    ``csr_offsets [S, S * block + 1]`` are the groups' starts;
+    ``csr_span`` the largest group."""
+    n_g = S * block
+    rows, counts = [], np.zeros((S, n_g), dtype=np.int64)
+    for d in range(S):
+        t_idx, slot_idx = np.nonzero(bkt_mask[d])
+        g_send = ((d - t_idx) % S) * block + bkt_src[d, t_idx, slot_idx]
+        pos = (t_idx * e_bkt + slot_idx).astype(np.int32)
+        rows.append(pos[np.argsort(g_send, kind="stable")])
+        counts[d] = np.bincount(g_send, minlength=n_g)
+    e_s = _round_up(max(max(r.size for r in rows), 1), pad_multiple)
+    csr_pos = np.zeros((S, e_s), dtype=np.int32)
+    for d, r in enumerate(rows):
+        csr_pos[d, :r.size] = r
+    csr_offsets = np.zeros((S, n_g + 1), dtype=np.int32)
+    np.cumsum(counts, axis=1, out=csr_offsets[:, 1:])
+    return csr_pos, csr_offsets, int(counts.max()) if counts.size else 0
 
 
 # --------------------------------------------------------------- churn ops
@@ -742,7 +800,9 @@ def _diag_or_piece(rot, r, mask):
 
 
 def _diag_sum_piece(rot, r, mask):
-    return torch.roll(rot, -r, dims=1) * mask.to(rot.dtype)
+    # XLA makes the reference's product with the bool mask a select: a
+    # masked non-finite term gives 0, not NaN.
+    return torch.where(mask, torch.roll(rot, -r, dims=1), 0.0)
 
 
 def _diag_max_piece(rot, r, mask):
@@ -943,14 +1003,40 @@ def _flood_seed(sg: ShardedGraph, source: int) -> torch.Tensor:
 
 
 def init_state(sg: ShardedGraph, protocol, key=None):
-    """The sharded initial state of a protocol, ``[S, block]``: Flood ->
-    ``(seen, frontier)``. The other protocols are not ported yet."""
+    """The sharded initial state of a protocol, what ``protocol.init``
+    makes on the engine path, laid out ``[S, block]``: Flood -> ``(seen,
+    frontier)``; SIR -> ``status``; Gossip -> ``values``; HopDistance ->
+    ``(dist, frontier, round)``; PageRank -> ``ranks``; PushSum -> ``(s,
+    w)``. Gossip and PushSum draw their values from ``key`` over the whole
+    padded population, as the engine does."""
+    S, block, dev = sg.n_shards, sg.block, sg.device
     if isinstance(protocol, Flood):
         seed = _flood_seed(sg, protocol.source)
         return (seed, seed)
-    raise NotImplementedError(
-        f"the port's sharded path implements Flood; got "
-        f"{type(protocol).__name__}")
+    if isinstance(protocol, SIR):
+        seed = _flood_seed(sg, protocol.source)
+        return seed.to(torch.int32) * sg.node_mask
+    if isinstance(protocol, (Gossip, PushSum)):
+        vals = prng.normal(key, (sg.n_nodes_padded,), device=dev).reshape(
+            S, block)
+        if isinstance(protocol, Gossip):
+            # XLA makes the product with a bool mask a select: +0 where
+            # the node is dead.
+            return torch.where(sg.node_mask, vals, 0.0)
+        mask_f = sg.node_mask.to(torch.float32)
+        return (vals * mask_f, mask_f)
+    if isinstance(protocol, HopDistance):
+        seed = _flood_seed(sg, protocol.source)
+        dist = torch.where(seed, 0, -1).to(torch.int32)
+        return (dist, seed, torch.zeros((), dtype=torch.int32, device=dev))
+    if isinstance(protocol, PageRank):
+        mask_f = sg.node_mask.to(torch.float32)
+        return mask_f / mask_f.sum().clamp_min(1.0)
+    raise ValueError(
+        f"the sharded path implements Flood, SIR, Gossip, HopDistance, "
+        f"PageRank and PushSum; got {type(protocol).__name__} — run it on "
+        f"the single-device engine, or write its round body around "
+        f"sharded.propagate")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1118,3 +1204,957 @@ def propagate(sg: ShardedGraph, mesh: RingMesh, signal: torch.Tensor,
     if op == "minplus":
         return torch.where(sg.node_mask, out, torch.inf)
     return out * sg.node_mask.to(out.dtype)
+
+
+# ---------------------------------------------------------- shared helpers
+
+
+def _n_live(sg: ShardedGraph) -> torch.Tensor:
+    """The live node count, at least 1 (the reference's ``psum``)."""
+    return sg.node_mask.sum().clamp_min(1)
+
+
+def _over_live(count: torch.Tensor, sg: ShardedGraph) -> torch.Tensor:
+    """An integer count over the live count, divided in f32."""
+    return count.to(torch.float32) / _n_live(sg).to(torch.float32)
+
+
+def psum_f32(x: torch.Tensor) -> torch.Tensor:
+    """The 0-d sum of an f32 ``[S, block]`` tensor in the reference's ring
+    order: each shard's block summed by ``jnp.sum`` (XLA's CPU order,
+    ``ops/rowsum.py``: one row-sum launch for all shards), then ``psum``
+    over the shards, which on the 8-device CPU mesh adds shard 0, 1, ...,
+    S - 1 left to right (measured: 2,000 of 2,000 draws over eight
+    decades; a pairwise tree matched 1,086)."""
+    return accum.ordered_sum(rowsum.row_sum(x))
+
+
+#: Node tile of the ``"tile"`` draw mode: one key per 128-node tile,
+#: folded from the GLOBAL tile index, so the draws do not depend on the
+#: shard count.
+RNG_TILE = 128
+
+
+def _resolve_rng(sg: ShardedGraph, exact_rng: bool, rng: Optional[str]) -> str:
+    if exact_rng:
+        return "exact"
+    if rng is not None:
+        if rng not in ("exact", "tile", "fold"):
+            raise ValueError(
+                f"rng must be 'exact', 'tile' or 'fold', got {rng!r}")
+        return rng
+    return "tile" if sg.block % RNG_TILE == 0 else "fold"
+
+
+def _make_draw(sg: ShardedGraph, rng: str, sample=None):
+    """``draw(key) -> [S, block]``, every shard's draw for the mode:
+
+    - ``"exact"``: the whole population from ``key``, each shard's block
+      sliced from it (the single-device engine's draw, bit for bit);
+    - ``"tile"``: one key per 128-node tile, ``fold_in(key, global tile
+      index)`` (needs ``block % 128 == 0``);
+    - ``"fold"``: ``fold_in(key, shard)`` for each shard's block.
+
+    One threefry launch serves one key, so a draw is one launch
+    (``"exact"``), ``S`` (``"fold"``) or ``S * block / 128`` (``"tile"``).
+    ``sample(key, n)`` draws ``n`` values (default: f32 uniform on
+    ``[0, 1)``)."""
+    S, block, dev = sg.n_shards, sg.block, sg.device
+    if sample is None:
+        def sample(k, n):
+            return prng.uniform(k, (n,), device=dev)
+    if rng == "tile" and block % RNG_TILE:
+        raise ValueError("tile RNG requires block % 128 == 0")
+
+    def draw(key):
+        if rng == "exact":
+            return sample(key, S * block).reshape(S, block)
+        if rng == "tile":
+            return torch.stack([
+                sample(prng.fold_in(key, i), RNG_TILE)
+                for i in range(S * block // RNG_TILE)]).reshape(S, block)
+        return torch.stack([sample(prng.fold_in(key, d), block)
+                            for d in range(S)])
+
+    return draw
+
+
+# ---------------------------------------------------------------------- SIR
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingSIR:
+    """SIR's round on the ring (``models/sir.py``'s arithmetic): the
+    infection pressure is a ring sum pass of integer-valued f32 (exact in
+    any order), ``(1-beta)^k`` is read from the single-device model's host
+    table (``escape_table_host``), and the two uniform draws per round come
+    from the draw mode's ``draw``."""
+
+    pass_: object
+    draw: object
+    escape: torch.Tensor
+    gamma: float
+
+    STATS = SIR.STATS
+
+    def coverage(self, sg, status):
+        return _over_live(((status != sir_model.SUSCEPTIBLE)
+                           & sg.node_mask).sum(), sg)
+
+    def step(self, sg, status, key):
+        k_inf, k_rec = prng.split(key)
+        nm = sg.node_mask
+        infected = (status == sir_model.INFECTED) & nm
+        susceptible = (status == sir_model.SUSCEPTIBLE) & nm
+        pressure = self.pass_(infected.to(torch.float32))
+        p_infect = 1.0 - self.escape[pressure.long()]
+        newly = susceptible & (self.draw(k_inf) < p_infect)
+        recovers = infected & (self.draw(k_rec) < self.gamma)
+        status = torch.where(newly, sir_model.INFECTED, status)
+        status = torch.where(recovers, sir_model.RECOVERED, status)
+
+        def frac(mask):
+            return _over_live((mask & nm).sum(), sg)
+
+        stats = {
+            "messages": torch.where(infected, sg.out_degree, 0).sum(),
+            "s_frac": frac(status == sir_model.SUSCEPTIBLE),
+            "i_frac": frac(status == sir_model.INFECTED),
+            "r_frac": frac(status == sir_model.RECOVERED),
+            "coverage": frac(status != sir_model.SUSCEPTIBLE),
+        }
+        return status, stats
+
+
+def _max_in_degree(sg: ShardedGraph) -> int:
+    """The largest live in-degree, read once on the host (one counted
+    sync): it bounds a round's pressure, so it sizes the escape table."""
+    _device.SYNCS += 1
+    return max(int(sg.in_degree.max()), 0)
+
+
+def _sir_start(sg, mesh, protocol, key, exact_rng, rng, status0, comm,
+               axis_name):
+    _check_mesh(sg, mesh)
+    proto = _RingSIR(
+        pass_=_make_pass(sg, comm, "sum", axis_name),
+        draw=_make_draw(sg, _resolve_rng(sg, exact_rng, rng)),
+        escape=sir_model._escape_table(float(protocol.beta),
+                                       _max_in_degree(sg), sg.device),
+        gamma=float(np.float32(protocol.gamma)))
+    if status0 is None:
+        status0 = init_state(sg, protocol, key)
+    return proto, status0
+
+
+def sir(sg: ShardedGraph, mesh: RingMesh, protocol, key, rounds: int,
+        axis_name: str = DEFAULT_AXIS, exact_rng: bool = False,
+        rng: Optional[str] = None, status0=None, comm=DEFAULT_COMM):
+    """Run ``rounds`` of SIR (``models/sir.py``) on the ring. Returns
+    ``(status [S, block] i32, stats)``, each stat a ``[rounds]`` tensor.
+    The key schedule is ``engine.run``'s, so with ``exact_rng=True`` and
+    ``S * block`` equal to the graph's padded size the run is the single
+    device's, bit for bit. By default the draws are ``"tile"`` (invariant
+    across shard counts), or ``"fold"`` when the block is not a multiple
+    of 128 (:func:`_make_draw`)."""
+    proto, status0 = _sir_start(sg, mesh, protocol, key, exact_rng, rng,
+                                status0, comm, axis_name)
+    return engine._run_from(sg, proto, status0, key, int(rounds), None)
+
+
+def sir_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, key, *,
+                       coverage_target: float = 0.99, max_rounds: int = 1024,
+                       axis_name: str = DEFAULT_AXIS, exact_rng: bool = False,
+                       rng: Optional[str] = None, status0=None,
+                       comm=DEFAULT_COMM):
+    """SIR until the ever-infected share of the live population reaches
+    ``coverage_target`` (or ``max_rounds``): ``engine.run_until_coverage``'s
+    key schedule (the carried key split each round). Returns ``(status,
+    dict(rounds, coverage, messages))``, ``messages`` an exact int."""
+    proto, status0 = _sir_start(sg, mesh, protocol, key, exact_rng, rng,
+                                status0, comm, axis_name)
+    target = torch.tensor(coverage_target, dtype=torch.float32,
+                          device=sg.device)
+    return engine._stat_while(
+        sg, proto, status0, key, stat="coverage",
+        keep_going=lambda v, r: (v < target) & (r < max_rounds),
+        value0=proto.coverage(sg, status0), loop="coverage_sharded",
+        value_name="coverage")
+
+
+# ------------------------------------------------------------------- gossip
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingGossip:
+    """Push-pull gossip's round on the ring (``models/gossip.py``). Each
+    node draws one valid slot of its (liveness re-masked) neighbor row, as
+    the engine draws it, and pulls its partner's value over the ring: at
+    step ``t`` the resident block is shard ``(d - t) mod S``'s, and a node
+    whose partner lives there takes its value, so every node's sum has
+    exactly one term. The hops run through ``comm`` (B2 on f32)."""
+
+    comm: object
+    draw: object
+    alpha: float
+    count: torch.Tensor  # i32[S, B]: valid slots a row
+    csum: torch.Tensor  # i32[S, B, W]: running count of valid slots
+
+    STATS = Gossip.STATS
+
+    def step(self, sg, values, key):
+        S = sg.n_shards
+        nm = sg.node_mask
+        has_neighbor = (self.count > 0) & nm
+        k = self.draw(key) % self.count.clamp_min(1)
+        hit = (self.csum == (k + 1)[..., None]) & sg.neighbors_mask
+        slot = hit.to(torch.uint8).argmax(dim=2)  # the first hit, else 0
+        partner = sg.neighbors.gather(2, slot[..., None].long())[..., 0]
+        p_shard, p_local = partner // sg.block, (partner % sg.block).long()
+        shards = torch.arange(S, device=sg.device)[:, None]
+        rot, pulled = values, torch.zeros_like(values)
+        for t in range(S):
+            rot_next = self.comm.shift(rot) if t < S - 1 else rot
+            pulled = pulled + torch.where(p_shard == (shards - t) % S,
+                                          rot.gather(1, p_local), 0.0)
+            rot = rot_next
+        mixed = (1.0 - self.alpha) * values + self.alpha * pulled
+        values = torch.where(has_neighbor, mixed, values)
+        n = _n_live(sg).to(torch.float32)
+        mean = psum_f32(values * nm) / n
+        var = psum_f32(torch.where(nm, (values - mean) ** 2, 0.0)) / n
+        stats = {"messages": 2 * has_neighbor.sum(dtype=torch.int32),
+                 "variance": var, "mean": mean}
+        return values, stats
+
+
+def gossip(sg: ShardedGraph, mesh: RingMesh, protocol, key, rounds: int,
+           axis_name: str = DEFAULT_AXIS, exact_rng: bool = False,
+           rng: Optional[str] = None, values0=None, comm=DEFAULT_COMM):
+    """Run ``rounds`` of push-pull gossip averaging (``models/gossip.py``)
+    on the ring. Returns ``(values [S, block] f32, stats)``. The init draw
+    and the round keys are ``engine.run``'s, so with ``exact_rng=True``
+    and ``S * block`` the padded size the partners are the engine's."""
+    if sg.neighbors is None:
+        raise ValueError(
+            "sharded gossip needs a partner table: shard a graph built "
+            "with a neighbor table (from_edges build_neighbor_table=True)")
+    _check_mesh(sg, mesh)
+    dev = sg.device
+    alpha = np.float32(protocol.alpha)
+
+    def sample(k, n):
+        return prng.randint(k, (n,), 0, 2**31 - 1, device=dev)
+
+    proto = _RingGossip(
+        comm=_make_ring_comm(comm, axis_name, sg.n_shards, dev),
+        draw=_make_draw(sg, _resolve_rng(sg, exact_rng, rng), sample),
+        alpha=float(alpha),
+        count=sg.neighbors_mask.sum(dim=2, dtype=torch.int32),
+        csum=sg.neighbors_mask.cumsum(dim=2, dtype=torch.int32))
+    if values0 is None:
+        values0 = init_state(sg, protocol, key)
+    return engine._run_from(sg, proto, values0, key, int(rounds), None)
+
+
+# --------------------------------------------------- PageRank and push-sum
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingPageRank:
+    """Power iteration on the ring (``models/pagerank.py``'s arithmetic,
+    the edge sums by a ring sum pass, the totals by :func:`psum_f32`,
+    the damped update with the reference's fused multiply-add)."""
+
+    pass_: object
+    damping: float
+    one_minus_damping: float
+
+    STATS = PageRank.STATS
+
+    def step(self, sg, ranks, key):
+        nm, deg = sg.node_mask, sg.out_degree
+        mask_f = nm.to(torch.float32)
+        n = _n_live(sg).to(torch.float32)
+        contrib = torch.where(nm & (deg > 0),
+                              ranks / deg.to(torch.float32).clamp_min(1.0),
+                              0.0)
+        pulled = self.pass_(contrib)
+        dangling = psum_f32(torch.where(nm & (deg == 0), ranks, 0.0))
+        # XLA's CPU code fuses this product and add into one rounding.
+        new = TF.fma_f32(pulled + dangling / n, self.damping,
+                         self.one_minus_damping / n) * mask_f
+        stats = {
+            "messages": torch.where(nm, deg, 0).sum(),
+            "residual": psum_f32((new - ranks).abs()),
+            "rank_total": psum_f32(new),
+            "rank_max": new.max(),
+        }
+        return new, stats
+
+
+def _pagerank_start(sg, mesh, protocol, ranks0, comm, axis_name):
+    _check_mesh(sg, mesh)
+    proto = _RingPageRank(
+        pass_=_make_pass(sg, comm, "sum", axis_name),
+        damping=float(np.float32(protocol.damping)),
+        one_minus_damping=float(np.float32(1.0 - protocol.damping)))
+    if ranks0 is None:
+        ranks0 = init_state(sg, protocol)
+    return proto, ranks0
+
+
+def pagerank(sg: ShardedGraph, mesh: RingMesh, protocol, rounds: int,
+             axis_name: str = DEFAULT_AXIS, ranks0=None, comm=DEFAULT_COMM):
+    """Run ``rounds`` of PageRank power iteration on the ring. Returns
+    ``(ranks [S, block] f32, stats)``; no draws."""
+    proto, ranks0 = _pagerank_start(sg, mesh, protocol, ranks0, comm,
+                                    axis_name)
+    # No draws; the engine's key chain runs unread.
+    return engine._run_from(sg, proto, ranks0, prng.key(0), int(rounds),
+                            None)
+
+
+def _until_below(sg, proto, state0, stat, tol, max_rounds,
+                 steps_per_round):
+    """Rounds while ``stats[stat] >= tol`` (and fewer than ``max_rounds``),
+    ``steps_per_round`` a super-step, each sub-step re-checking and
+    freezing the whole state once the test fails (the reference's
+    ``_freeze_while``; bit-exact against ``T = 1``). Returns ``(state,
+    dict(rounds, value, messages))``."""
+    if steps_per_round < 1:
+        raise ValueError(
+            f"steps_per_round must be >= 1, got {steps_per_round}")
+    thr = torch.tensor(tol, dtype=torch.float32, device=sg.device)
+    # The rounds draw nothing; the engine's key chain runs unread.
+    return engine._stat_while(
+        sg, proto, state0, prng.key(0), stat=stat,
+        keep_going=lambda v, r: (v >= thr) & (r < max_rounds),
+        value0=float("inf"), loop="converged_sharded",
+        steps_per_round=steps_per_round)
+
+
+def pagerank_until_residual(sg: ShardedGraph, mesh: RingMesh, protocol, *,
+                            tol: float = 1e-6, max_rounds: int = 1024,
+                            steps_per_round: int = 1,
+                            axis_name: str = DEFAULT_AXIS, ranks0=None,
+                            comm=DEFAULT_COMM):
+    """PageRank until the L1 residual drops below ``tol``
+    (``engine.run_until_converged(stat="residual")`` on the ring), ``T =
+    steps_per_round`` rounds a super-step. Returns ``(ranks, dict(rounds,
+    value, messages))``, ``value`` the last residual."""
+    proto, ranks0 = _pagerank_start(sg, mesh, protocol, ranks0, comm,
+                                    axis_name)
+    return _until_below(sg, proto, ranks0, "residual", tol, max_rounds,
+                        int(steps_per_round))
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingPushSum:
+    """Push-sum's round on the ring (``models/pushsum.py``'s arithmetic):
+    mass split over the out-edges, two ring sum passes a round."""
+
+    pass_: object
+
+    STATS = PushSum.STATS
+
+    def step(self, sg, state, key):
+        s, w = state
+        nm, deg = sg.node_mask, sg.out_degree
+        mask_f = nm.to(torch.float32)
+        shares = 1.0 / (deg.to(torch.float32) + 1.0)
+        s_share, w_share = s * shares, w * shares
+        s = (s_share + self.pass_(s_share)) * mask_f
+        w = (w_share + self.pass_(w_share)) * mask_f
+        est = torch.where(w > 0, s / w.clamp_min(1e-30), 0.0)
+        n = _n_live(sg).to(torch.float32)
+        mean = psum_f32(est * mask_f) / n
+        var = psum_f32(torch.where(nm, (est - mean) ** 2, 0.0)) / n
+        stats = {
+            "messages": torch.where(nm, deg, 0).sum(),
+            "s_total": psum_f32(s),
+            "w_total": psum_f32(w),
+            "variance": var,
+            "mean": mean,
+        }
+        return (s, w), stats
+
+
+def _pushsum_start(sg, mesh, protocol, key, state0, comm, axis_name):
+    _check_mesh(sg, mesh)
+    proto = _RingPushSum(pass_=_make_pass(sg, comm, "sum", axis_name))
+    if state0 is None:
+        state0 = init_state(sg, protocol, key)
+    return proto, tuple(state0)
+
+
+def pushsum(sg: ShardedGraph, mesh: RingMesh, protocol, key, rounds: int,
+            axis_name: str = DEFAULT_AXIS, state0=None, comm=DEFAULT_COMM):
+    """Run ``rounds`` of push-sum on the ring. ``key`` seeds the initial
+    values as the engine does; ``state0 = (s, w)`` continues a run.
+    Returns ``((s, w), stats)``."""
+    proto, state0 = _pushsum_start(sg, mesh, protocol, key, state0, comm,
+                                   axis_name)
+    return engine._run_from(sg, proto, state0, prng.key(0), int(rounds),
+                            None)
+
+
+def pushsum_until_variance(sg: ShardedGraph, mesh: RingMesh, protocol, key,
+                           *, tol: float = 1e-9, max_rounds: int = 1024,
+                           steps_per_round: int = 1,
+                           axis_name: str = DEFAULT_AXIS, state0=None,
+                           comm=DEFAULT_COMM):
+    """Push-sum until the estimates' variance drops below ``tol``
+    (``engine.run_until_converged(stat="variance")`` on the ring). Returns
+    ``((s, w), dict(rounds, value, messages))``."""
+    proto, state0 = _pushsum_start(sg, mesh, protocol, key, state0, comm,
+                                   axis_name)
+    return _until_below(sg, proto, state0, "variance", tol, max_rounds,
+                        int(steps_per_round))
+
+
+# ------------------------------------------------------------ hop distance
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingHopDist:
+    """BFS's round on the ring (``models/hopdist.py``): the flood wave by
+    a ring OR pass; a node records the round that first reaches it."""
+
+    pass_: object
+
+    STATS = HopDistance.STATS
+
+    def step(self, sg, state, key):
+        dist, frontier, rnd = state
+        nm = sg.node_mask
+        new = self.pass_(frontier) & (dist < 0) & nm
+        rnd = rnd + 1
+        dist = torch.where(new, rnd, dist)
+        stats = {
+            "messages": torch.where(frontier, sg.out_degree, 0).sum(),
+            "coverage": _over_live(((dist >= 0) & nm).sum(), sg),
+            "frontier": new.sum(dtype=torch.int32),
+            "max_dist": dist.max(),
+        }
+        return (dist, new, rnd), stats
+
+
+def _hopdist_state0(sg, protocol, state0):
+    return tuple(init_state(sg, protocol) if state0 is None else state0)
+
+
+def hopdist(sg: ShardedGraph, mesh: RingMesh, protocol, rounds: int,
+            axis_name: str = DEFAULT_AXIS, state0=None, comm=DEFAULT_COMM):
+    """Run ``rounds`` of BFS hop distance on the ring. Returns ``((dist,
+    frontier, round), stats)``, ``dist [S, block] i32`` (-1 unreached)."""
+    _check_mesh(sg, mesh)
+    proto = _RingHopDist(_make_pass(sg, comm, "or", axis_name))
+    return engine._run_from(sg, proto, _hopdist_state0(sg, protocol, state0),
+                            prng.key(0), int(rounds), None)
+
+
+def hopdist_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, *,
+                           coverage_target: float = 0.99,
+                           max_rounds: int = 1024,
+                           axis_name: str = DEFAULT_AXIS, state0=None,
+                           adaptive_k: int = 0, comm=DEFAULT_COMM):
+    """BFS until the reached share of the live population reaches
+    ``coverage_target`` or the wave dies out (an empty frontier), or
+    ``max_rounds``. Returns ``((dist, frontier, round), dict(rounds,
+    coverage, messages))``. The loop reads one flag a round.
+    ``adaptive_k > 0`` (the frontier-adaptive ring loop) is not ported
+    yet."""
+    if adaptive_k > 0:
+        raise NotImplementedError(
+            "the frontier-adaptive ring loop (adaptive_k > 0) is not ported "
+            "yet: ROADMAP §A item 9")
+    _check_mesh(sg, mesh)
+    pass_ = _make_pass(sg, comm, "or", axis_name)
+    dist, frontier, rnd = _hopdist_state0(sg, protocol, state0)
+    nm, deg = sg.node_mask, sg.out_degree
+    n = _n_live(sg).to(torch.float32)
+    target = torch.tensor(coverage_target, dtype=torch.float32,
+                          device=sg.device)
+    covered = ((dist >= 0) & nm).sum(dtype=torch.int32)
+    alive = frontier.sum(dtype=torch.int32)
+    messages = torch.zeros((), dtype=torch.int64, device=sg.device)
+    rounds = 0
+    while rounds < max_rounds and _device.host_bool(
+            (alive > 0) & (covered.to(torch.float32) / n < target)):
+        messages = messages + torch.where(frontier, deg, 0).sum()
+        new = pass_(frontier) & (dist < 0) & nm
+        rnd = rnd + 1
+        dist = torch.where(new, rnd, dist)
+        alive = new.sum(dtype=torch.int32)
+        covered = covered + alive
+        frontier = new
+        rounds += 1
+    return (dist, frontier, rnd), {
+        "rounds": rounds, "coverage": float(covered.to(torch.float32) / n),
+        "messages": int(messages)}
+
+
+def hopdist_until_done(sg: ShardedGraph, mesh: RingMesh, protocol, *,
+                       max_rounds: int = 1024, axis_name: str = DEFAULT_AXIS,
+                       state0=None, adaptive_k: int = 0, comm=DEFAULT_COMM):
+    """BFS until the wave dies out (or ``max_rounds``): the coverage loop
+    with an unreachable target. ``rounds`` counts the final round that
+    observes the emptied frontier; the max over ``dist`` is the source's
+    eccentricity."""
+    return hopdist_until_coverage(
+        sg, mesh, protocol, coverage_target=2.0, max_rounds=max_rounds,
+        axis_name=axis_name, state0=state0, adaptive_k=adaptive_k,
+        comm=comm)
+
+
+# ---------------------------------------------------------- leader election
+
+
+def leader_until_quiet(sg: ShardedGraph, mesh: RingMesh, *,
+                       max_rounds: int = 1024, axis_name: str = DEFAULT_AXIS,
+                       comm=DEFAULT_COMM):
+    """Highest-live-id leader election run until no node learns anything
+    (``models/leader.py`` under ``run_until_converged(stat="changed",
+    threshold=1)``): nodes re-broadcast only the round after they learned
+    a better candidate, by a ring max pass of i32 ids; the loop ends on
+    the first quiet round, which is executed and counted. Returns
+    ``(known [S, block] i32, dict(rounds, coverage, messages))``,
+    ``coverage`` the share of live nodes agreeing on the global winner.
+    Needs the segment layout (max aggregation)."""
+    if sg.mxu_src is not None:
+        raise ValueError(
+            "leader_until_quiet cannot ride the MXU one-hot layout — "
+            "shard_graph without hybrid/min_count for max aggregation")
+    _check_mesh(sg, mesh)
+    pass_ = _make_pass(sg, comm, "max", axis_name)
+    nm, deg = sg.node_mask, sg.out_degree
+    neutral = neutral_min(torch.int32)
+    ids = torch.arange(sg.n_nodes_padded, dtype=torch.int32,
+                       device=sg.device).reshape(nm.shape)
+    known, frontier = torch.where(nm, ids, -1), nm
+    changed = nm.sum()
+    messages = torch.zeros((), dtype=torch.int64, device=sg.device)
+    rounds = 0
+    while rounds < max_rounds and _device.host_bool(changed > 0):
+        messages = messages + torch.where(frontier, deg, 0).sum()
+        heard = pass_(torch.where(frontier, known, neutral))
+        new_known = torch.where(nm, torch.maximum(known, heard), -1)
+        frontier = (new_known != known) & nm
+        changed = frontier.sum()
+        known = new_known
+        rounds += 1
+    agreed = ((known == known.max()) & nm).sum()
+    return known, {"rounds": rounds,
+                   "coverage": float(_over_live(agreed, sg)),
+                   "messages": int(messages)}
+
+
+# ------------------------------------------------------------ random walks
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingWalk:
+    """The walker cohort's round on the ring (``models/walk.py``).
+    Positions are replicated ``[W]``; each shard scores the candidates
+    into its own node block through its sender-CSR view over the bucket
+    arrays (re-masks and runtime links need no rebuild). Every candidate's
+    uniform is keyed by the edge's identity (``utils/edgehash.py``), so the
+    global choice is the max over the shards' maxima, ties to the higher
+    receiver id: the reference's ``pmax`` pair, and the engine's draw. The
+    state is ``(pos, visited)``."""
+
+    start: torch.Tensor  # i32[W]
+    alive_start: torch.Tensor  # bool[W]
+    span: int
+    restart_p: float
+
+    STATS = ("messages", "coverage", "stuck")
+
+    def coverage(self, sg, state):
+        return _over_live((state[1] & sg.node_mask).sum(), sg)
+
+    def step(self, sg, state, key):
+        pos, visited = state
+        S, block, dev = sg.n_shards, sg.block, sg.device
+        W = pos.shape[0]
+        k_edge, k_restart = prng.split(key)
+        nm = sg.node_mask
+        shard_base = (torch.arange(S, dtype=torch.int32, device=dev)
+                      * block)[:, None, None]
+        walkers = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
+
+        p = pos.long()
+        base = sg.csr_offsets[:, p]  # [S, W]
+        slot = base[..., None] + torch.arange(self.span, device=dev)
+        svalid = slot < sg.csr_offsets[:, p + 1][..., None]
+        # Out-of-row slots read slot 0 and are masked (the padding of
+        # csr_pos stays in bounds but can alias live slots).
+        at = sg.csr_pos.gather(
+            1, torch.where(svalid, slot, 0).reshape(S, -1).long())
+        flat_dst = sg.bkt_dst.reshape(S, -1)
+        dst_local = flat_dst.gather(1, at.long())
+        live = (svalid.reshape(S, -1)
+                & sg.bkt_mask.reshape(S, -1).gather(1, at.long())
+                & nm.gather(1, dst_local.long())).reshape(svalid.shape)
+        rcv = shard_base + dst_local.reshape(svalid.shape)
+        u = torch.where(live, edge_uniform(k_edge, walkers, pos[:, None],
+                                           rcv), -1.0)
+        m_loc = u.amax(dim=2)
+        r_loc = torch.where(live & (u == m_loc[..., None]), rcv,
+                            -1).amax(dim=2)
+        if sg.dyn_capacity:
+            # Runtime out-edges: global senders from the ring step,
+            # membership-tested against the cohort ([S, W, S * K]).
+            K = sg.dyn_capacity
+            t = torch.arange(S, dtype=torch.int32, device=dev)
+            g_send = (((t[:, None] - t[None, :]) % S)[..., None] * block
+                      + sg.dyn_src).reshape(S, 1, S * K)
+            d_dst = sg.dyn_dst.reshape(S, S * K)
+            member = ((g_send == pos[None, :, None])
+                      & sg.dyn_mask.reshape(S, 1, S * K)
+                      & nm.gather(1, d_dst.long())[:, None])
+            drcv = (shard_base[..., 0] + d_dst)[:, None].expand(member.shape)
+            du = torch.where(member, edge_uniform(k_edge, walkers,
+                                                  pos[:, None], drcv), -1.0)
+            dm = du.amax(dim=2)
+            dr = torch.where(member & (du == dm[..., None]), drcv,
+                             -1).amax(dim=2)
+            r_loc = torch.where(dm > m_loc, dr, torch.where(
+                dm == m_loc, torch.maximum(r_loc, dr), r_loc))
+            m_loc = torch.maximum(m_loc, dm)
+        m = m_loc.amax(dim=0)
+        r = torch.where((m_loc == m) & (m >= 0), r_loc, -1).amax(dim=0)
+        can_move = m >= 0.0
+        dest = torch.where(can_move, r, pos)
+        if self.restart_p > 0.0:
+            restart = ((prng.uniform(k_restart, (W,), device=dev)
+                        < self.restart_p) & self.alive_start)
+            dest = torch.where(restart, self.start, dest)
+            moved = (restart | can_move) & (dest != pos)
+        else:
+            moved = can_move & (dest != pos)
+        visited = visited.clone()
+        visited.view(-1)[dest.long()] = True
+        visited &= nm
+        stats = {"messages": moved.sum(dtype=torch.int32),
+                 "coverage": _over_live(visited.sum(), sg),
+                 "stuck": (~can_move).sum(dtype=torch.int32)}
+        return (dest, visited), stats
+
+
+def _walk_start(sg: ShardedGraph, mesh: RingMesh, protocol, state0):
+    """``(walk round, (pos, visited), start)``: ``RandomWalks.init``'s
+    walkers (evenly spread over the live ids) unless ``state0 = (pos,
+    start, visited)`` resumes a run."""
+    if sg.csr_pos is None:
+        raise ValueError(
+            "the sharded walk requires a sender-CSR sharded graph — build "
+            "with shard_graph(source_csr=True)")
+    _check_mesh(sg, mesh)
+    if state0 is None:
+        live_ids = torch.nonzero(sg.node_mask.reshape(-1)).reshape(-1)
+        W = protocol.n_walkers
+        if live_ids.numel():
+            n_live = live_ids.numel()
+            stride = max(n_live // W, 1)
+            idx = (torch.arange(W, device=sg.device) * stride) % n_live
+            pos = live_ids[idx].to(torch.int32)
+        else:
+            pos = torch.zeros(W, dtype=torch.int32, device=sg.device)
+        visited = torch.zeros_like(sg.node_mask)
+        visited.view(-1)[pos.long()] = True
+        visited &= sg.node_mask
+        start = pos
+    else:
+        pos, start, visited = state0
+    proto = _RingWalk(start=start,
+                      alive_start=sg.node_mask.reshape(-1)[start.long()],
+                      span=max(sg.csr_span, 1),
+                      restart_p=float(np.float32(protocol.restart_p)))
+    return proto, (pos, visited), start
+
+
+def walk(sg: ShardedGraph, mesh: RingMesh, protocol, key, rounds: int,
+         axis_name: str = DEFAULT_AXIS, state0=None,
+         return_state: bool = False):
+    """Run ``rounds`` of the walker cohort (``models/walk.py``
+    ``RandomWalks``) on the ring: ``engine.run``'s run, bit for bit, for
+    any shard count (the draws are keyed by edge identity). Returns
+    ``(visited [S, block] bool, stats)``; with ``return_state=True``
+    ``((pos, start, visited), stats)``, the triple :func:`walk` and
+    :func:`walk_until_coverage` resume from."""
+    proto, state, start = _walk_start(sg, mesh, protocol, state0)
+    (pos, visited), stats = engine._run_from(sg, proto, state, key,
+                                             int(rounds), None)
+    if return_state:
+        return (pos, start, visited), stats
+    return visited, stats
+
+
+def walk_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, key, *,
+                        coverage_target: float = 0.99, max_rounds: int = 1024,
+                        steps_per_round: int = 1,
+                        axis_name: str = DEFAULT_AXIS, state0=None,
+                        return_state: bool = False):
+    """Walk until the cohort has visited ``coverage_target`` of the live
+    population (``engine.run_until_coverage`` with ``RandomWalks``; the
+    key chain split each round), ``steps_per_round`` rounds a super-step.
+    Returns ``(visited, dict(rounds, coverage, messages))``; with
+    ``return_state=True`` ``((pos, start, visited), dict)``."""
+    if steps_per_round < 1:
+        raise ValueError(
+            f"steps_per_round must be >= 1, got {steps_per_round}")
+    proto, state, start = _walk_start(sg, mesh, protocol, state0)
+    target = torch.tensor(coverage_target, dtype=torch.float32,
+                          device=sg.device)
+    (pos, visited), out = engine._stat_while(
+        sg, proto, state, key, stat="coverage",
+        keep_going=lambda v, r: (v < target) & (r < max_rounds),
+        value0=proto.coverage(sg, state), loop="coverage_sharded",
+        value_name="coverage", steps_per_round=int(steps_per_round))
+    if return_state:
+        return (pos, start, visited), out
+    return visited, out
+
+
+# --------------------------------------------------- lane-word batched plane
+#
+# The batched message plane packs 32 concurrent floods per i32 word
+# (``ops/bitset.py``; ``models/messagebatch.py``). Here the lane words are
+# the halo payload: the resident block becomes ``[S, W, block]``, so one
+# hop a ring step (B2 on the whole word stack) moves the boundary state of
+# every in-flight message at once.
+
+
+def _require_lanes_layout(sg: ShardedGraph, what: str) -> None:
+    if sg.mxu_src is not None:
+        raise ValueError(
+            f"{what} cannot ride the MXU one-hot layout — shard_graph "
+            "without hybrid/min_count for the lane-packed batched path "
+            "(word-level OR has no one-hot-matmul form)")
+
+
+def _lane_runs(sg: ShardedGraph):
+    """The segment buckets' receivers as one sorted id space a step:
+    ``seg [S, S, E]`` (shard ``d``'s ids offset by ``d * (block + E)``;
+    the padding slots past each bucket's last used slot get ids of their
+    own past the block, so they join no receiver's run) and the longest
+    run of one receiver (one counted sync), which bounds the OR scan."""
+    S, B = sg.n_shards, sg.block
+    E = sg.bkt_dst.shape[-1]
+    # A slot is used unless it is (src 0, dst block - 1, masked): padding.
+    used = sg.bkt_mask | (sg.bkt_src != 0) | (sg.bkt_dst != B - 1)
+    extent = torch.where(used.any(dim=-1),
+                         E - used.flip(-1).to(torch.uint8).argmax(dim=-1), 0)
+    idx = torch.arange(E, device=sg.device)
+    seg = torch.where(idx >= extent[..., None], B + idx, sg.bkt_dst.long())
+    seg = seg + (torch.arange(S, device=sg.device) * (B + E))[:, None, None]
+    _, counts = torch.unique_consecutive(seg, return_counts=True)
+    _device.SYNCS += 1
+    return seg, max(int(counts.max()), 1) if counts.numel() else 1
+
+
+def _make_or_lanes_pass(sg: ShardedGraph, comm, axis_name: str):
+    """``pass_(lanes [S, W, block] i32) -> [S, W, block]``: one ring
+    rotation OR-ing every lane of every word over every incoming edge
+    (the segment buckets, then the dynamic region's). A bucket's words
+    are OR-reduced within each receiver's run of the sorted buckets
+    (``ops/bitset.py`` ``or_sorted_lanes``: no bit planes, no atomics on
+    the padding's one receiver); the dynamic region's unsorted slots by
+    ``or_scatter_lanes``. The hop moves the whole word stack (B2)."""
+    S, B = sg.n_shards, sg.block
+    E = sg.bkt_dst.shape[-1]
+    comm_obj = _make_ring_comm(comm, axis_name, S, sg.device)
+    seg, span = _lane_runs(sg)
+    n_ids = S * (B + E)
+    shard_off = (torch.arange(S, device=sg.device) * B)[:, None]
+
+    def gathered(rot, src, mask):  # rot [S, W, B]; src/mask [S, K]
+        W = rot.shape[1]
+        idx = src.long()[:, None, :].expand(S, W, src.shape[-1])
+        return torch.where(mask[:, None, :], rot.gather(2, idx), 0)
+
+    def apply(rot, t):
+        W = rot.shape[1]
+        words = gathered(rot, sg.bkt_src[:, t], sg.bkt_mask[:, t])
+        out = BS.or_sorted_lanes(n_ids, seg[:, t].reshape(-1),
+                                 words.transpose(0, 1).reshape(W, -1), span)
+        out = out.reshape(W, S, B + E)[..., :B].transpose(0, 1)
+        if sg.dyn_capacity:
+            dmask = sg.dyn_mask[:, t]
+            dst = torch.where(dmask, shard_off + sg.dyn_dst[:, t],
+                              S * B).reshape(-1)
+            words = gathered(rot, sg.dyn_src[:, t], dmask)
+            dyn = BS.or_scatter_lanes(S * B, dst, words.transpose(
+                0, 1).reshape(W, -1))
+            out = out | dyn.reshape(W, S, B).transpose(0, 1)
+        return out
+
+    def pass_(lanes):
+        acc, rot = torch.zeros_like(lanes), lanes.contiguous()
+        wants_step = getattr(comm_obj, "wants_step", False)
+        for t in range(S):
+            if wants_step and t < S - 1:
+                comm_obj.set_context(step=t)
+            rot_next = comm_obj.shift(rot) if t < S - 1 else rot
+            acc = acc | apply(rot, t)
+            rot = rot_next
+        return acc
+
+    pass_.comm = comm_obj
+    return pass_
+
+
+def _node_lanes(sg: ShardedGraph) -> torch.Tensor:
+    """All 32 lanes set at live nodes, ``i32[S, 1, block]``."""
+    return torch.where(sg.node_mask, -1, 0).to(torch.int32)[:, None]
+
+
+def shard_lanes(sg: ShardedGraph, lanes) -> torch.Tensor:
+    """A lane-word stack ``[W, N_pad]`` (``MessageBatch``'s layout) as
+    ``[S, W, block]``, the node axis zero-padded to the shard grid."""
+    lanes = torch.as_tensor(lanes, device=sg.device)
+    pad = sg.n_nodes_padded - lanes.shape[1]
+    if pad:
+        lanes = torch.nn.functional.pad(lanes, (0, pad))
+    w = lanes.shape[0]
+    return lanes.reshape(w, sg.n_shards, sg.block).transpose(0, 1) \
+        .contiguous()
+
+
+def unshard_lanes(sg: ShardedGraph, lanes: torch.Tensor,
+                  n_pad: Optional[int] = None) -> torch.Tensor:
+    """Inverse of :func:`shard_lanes`: ``[S, W, block] -> [W, n_pad]``
+    (``n_pad`` defaults to the full grid ``S * block``)."""
+    flat = lanes.transpose(0, 1).reshape(lanes.shape[1], -1)
+    return flat if n_pad is None else flat[:, :n_pad].contiguous()
+
+
+def propagate_or_lanes(sg: ShardedGraph, mesh: RingMesh, lanes: torch.Tensor,
+                       axis_name: str = DEFAULT_AXIS,
+                       comm=DEFAULT_COMM) -> torch.Tensor:
+    """Lane-packed neighbor-OR over the sharded graph (the ring's
+    ``ops/segment.propagate_or_lanes``): 32 W boolean signals advanced by
+    one ring pass, the lane words as the halo payload. ``lanes`` is ``[S,
+    W, block]`` (:func:`shard_lanes`); returns the same layout, masked to
+    live nodes. Runtime links fold in; needs the segment layout."""
+    _require_lanes_layout(sg, "propagate_or_lanes")
+    _check_mesh(sg, mesh)
+    pass_ = _make_or_lanes_pass(sg, comm, axis_name)
+    return pass_(lanes) & _node_lanes(sg)
+
+
+def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0):
+    """``engine``'s batched loop on the ring, lane for lane
+    ``BatchFlood.step``: the same dedup against node-masked words, the
+    per-lane coverage numerators by ``lane_counts`` over every shard, the
+    latch, the per-word sends and the union-frontier occupancy. One exit
+    flag read a round. Returns the final ``[S, W, block]`` planes, the
+    lane metadata and the run's device totals."""
+    dev = sg.device
+    wire = fault_round0 is not None and getattr(pass_.comm, "wants_step",
+                                                False)
+    nm, node_lanes = sg.node_mask, _node_lanes(sg)
+    n_live = _n_live(sg).to(torch.float32)
+    deg = sg.out_degree.to(torch.int64)[:, None]
+    seen, frontier, sent = (shard_lanes(sg, getattr(batch, f))
+                            for f in ("seen", "frontier", "sent"))
+    done, rounds_l, seen_count = batch.done, batch.rounds, batch.seen_count
+    admitted, target = batch.admitted, batch.target
+    W = seen.shape[1]
+    messages = torch.zeros((), dtype=torch.int64, device=dev)
+    occ = torch.zeros((), dtype=torch.float32, device=dev)
+    r = 0
+    while r < max_rounds and _device.host_bool((admitted & ~done).any()):
+        if wire:
+            pass_.comm.set_context(round=fault_round0 + r)
+        live = admitted & ~done
+        live_mask = BS.pack_bits(live)[None, :, None]
+        front = frontier & live_mask
+        new = pass_(front) & node_lanes & ~seen & live_mask
+        seen, sent = seen | new, sent | front
+        messages = messages + (deg * BS.popcount_words(front)).sum()
+        seen_count = seen_count + BS.lane_counts(
+            new.transpose(0, 1).reshape(W, -1)).reshape(-1)
+        done = done | (admitted & (seen_count.to(torch.float32) / n_live
+                                   >= target))
+        rounds_l = rounds_l + live.to(torch.int32)
+        frontier = new & BS.pack_bits(admitted & ~done)[None, :, None]
+        occ = occ + ((frontier != 0).any(dim=1) & nm).sum().to(
+            torch.float32) / n_live
+        r += 1
+    return ((seen, frontier, sent), (done, rounds_l, seen_count),
+            (r, messages, occ))
+
+
+def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
+                             batch, key=None, *, max_rounds: int = 1024,
+                             axis_name: str = DEFAULT_AXIS, comm=DEFAULT_COMM,
+                             donate: bool = True, recorder=None,
+                             fault_round0: int = 0):
+    """Advance every in-flight message of a lane-packed batch on the ring
+    until each admitted lane reaches its coverage target (or
+    ``max_rounds``): ``engine.run_batch_until_coverage`` on the sharded
+    graph, its per-lane results, round counts and summary dict those of
+    the single-device loop on the same batch. ``batch`` is a single-device
+    ``MessageBatch`` (admission stays on the host side); it is sharded per
+    call and returned in its own layout, refreshed at entry against the
+    sharded graph's current liveness. ``protocol`` supplies nothing but
+    its name (the ring has one lane lowering); ``key`` is unused, and
+    ``donate`` has no effect (torch has no buffer donation). Needs the
+    segment layout. ``comm`` also takes a ``chaos/device.FaultSpec``, its
+    hop faults keyed on the global round ``fault_round0 + r`` and counted
+    after the run. ``recorder`` (the ring's flight recorder) is not ported
+    yet."""
+    chaos_device.dispatch_gate("sharded-batch")
+    _require_lanes_layout(sg, "sharded run_batch_until_coverage")
+    _check_mesh(sg, mesh)
+    if recorder is not None:
+        raise NotImplementedError(
+            "the ring's flight recorder (its ici_bytes column) is not "
+            "ported yet: ROADMAP §A item 13")
+    del key, donate  # the batched flood draws nothing; no donation
+    t0 = time.perf_counter()
+    n_pad = batch.seen.shape[1]
+    tracer = spans.current_tracer()
+    snap = engine._lane_snapshot(batch) if tracer is not None else None
+    with spans.span("batch_run", loop="sharded", max_rounds=max_rounds):
+        if snap is not None:
+            engine._emit_batch_entry_events(*snap)
+        done0 = batch.done.clone()
+        # Entry refresh (BatchFlood.refresh) against the ring's liveness.
+        nm_flat = sg.node_mask.reshape(-1)[:n_pad]
+        seen_count = BS.lane_counts(
+            batch.seen & torch.where(nm_flat, -1, 0).to(torch.int32)
+        ).reshape(-1)
+        n_live = _n_live(sg).to(torch.float32)
+        batch = dataclasses.replace(
+            batch, seen_count=seen_count,
+            done=batch.done | (batch.admitted & (seen_count.to(
+                torch.float32) / n_live >= batch.target)))
+        pass_ = _make_or_lanes_pass(sg, comm, axis_name)
+        planes, lanes, (r, messages, occ) = _ring_batch_loop(
+            sg, pass_, batch, max_rounds, fault_round0)
+        done, rounds_l, seen_count = lanes
+        rounds = torch.tensor(r, dtype=torch.int32, device=sg.device)
+        packed = accum.pack_batch_summary(
+            rounds, (batch.admitted & ~done).sum(), done.sum(), messages,
+            occ / max(r, 1), BS.pack_bits(done), rounds_l)
+        t1 = time.perf_counter()
+        host, done0 = engine._summary(packed, done0)
+        out = accum.unpack_batch_summary(host, batch.n_words)
+        _record_comm_faults(comm, out["rounds"], sg.n_shards,
+                            round0=fault_round0)
+        seen, frontier, sent = (unshard_lanes(sg, p, n_pad) for p in planes)
+        batch = dataclasses.replace(
+            batch, seen=seen, frontier=frontier, sent=sent, done=done,
+            rounds=rounds_l, seen_count=seen_count)
+        newly_rounds = engine._newly_completed(out, done0)
+        t2 = time.perf_counter()
+        if snap is not None:
+            engine._emit_batch_exit_events(snap[0], snap[1], out)
+        engine._record_batch_summary(
+            t2 - t0, t2 - t1, engine._nbytes(packed), out, newly_rounds,
+            type(protocol).__name__)
+    return batch, out

@@ -18,12 +18,11 @@ bits as an f32 mantissa in [1, 2) (``_uniform``), ``randint`` reduces two
 ``permutation`` sorts by rounds of 32-bit keys (``_shuffle``), ``choice``
 with ``p=None`` is ``randint`` with replacement and a prefix of
 ``permutation`` without, and ``normal`` is ``sqrt(2) *
-erf_inv(uniform(nextafter(-1, 0), 1))`` (``_normal_real``). All but
-``normal`` are exact; ``normal``'s ``erf_inv`` is XLA's single-precision
-polynomial (Giles), with the fused multiply-adds XLA's CPU code makes,
-evaluated in torch; its ``log1p`` is torch's, not XLA's, so about 1% of
-draws differ from jax's, by at most 3 ulp (``tests/test_torch_prng.py``
-states the tolerance).
+erf_inv(uniform(nextafter(-1, 0), 1))`` (``_normal_real``). All are
+exact: ``normal``'s ``erf_inv`` is XLA's single-precision polynomial
+(Giles) and its ``log1p`` the routine XLA's CPU code inlines
+(:func:`log1p_f32`), both with the fused multiply-adds XLA's CPU code
+makes, evaluated in torch.
 
 ``permutation``'s sorts are stable, as XLA's ``sort_key_val`` is by
 default (``is_stable=True``): two equal 32-bit keys keep their input
@@ -135,11 +134,63 @@ _ERFINV_LARGE = (-0.000200214257, 0.000100950558, 0.00134934322,
                  0.00943887047, 1.00167406, 2.83297682)
 
 
+#: XLA's f32 ``log1p``: the rational approximation below ``|x| <
+#: sqrt(2) - 1`` (numerator, then denominator, highest power first after
+#: the leading 1), Cephes' ``logf`` polynomial in three interleaved parts
+#: above it, and the split of ``ln 2`` (``jnp.log1p``'s LLVM IR,
+#: ``XLA_FLAGS=--xla_dump_to``, jax 0.9.0).
+_LOG1P_NUM = (0.00004527, 0.49854103, 6.5787325, 29.911919, 60.94967,
+              57.112965, 20.039553)
+_LOG1P_DEN = (15.062909, 83.04757, 221.7624, 309.09872, 216.42789,
+              60.11866)
+_LOG_POLY = ((0.070376836, -0.1151461, 0.116769984),
+             (-0.12420141, 0.14249323, -0.16668057),
+             (0.20000714, -0.24999994, 0.3333333))
+_LOG1P_SMALL = 0.41421357
+_LN2_HI, _LN2_LO = 0.693359375, -0.00021219444
+
+
+def log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``log1p`` as XLA's CPU code computes it, op for op, with the
+    fused multiply-adds its compiler makes (an add of a product used once
+    is one rounding, :func:`ops.threefry.fma_f32`)."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.float32, device=x.device)
+
+    fma = TF.fma_f32
+    # |x| below sqrt(2) - 1: x - x^2 / 2 + x^3 * P(x) / Q(x).
+    x2 = x * x
+    x0 = x * 0.0  # NaN for an infinite x, as XLA's
+    num, den = x0 + _LOG1P_NUM[0], x0 + 1.0
+    for a in _LOG1P_NUM[1:]:
+        num = fma(num, x, a)
+    for a in _LOG1P_DEN:
+        den = fma(den, x, a)
+    small = x + fma(x2, -0.5, (x * x2) * (num / den))
+    # Otherwise log(1 + x): 1 + x = 2^e * m with m in [sqrt(1/2), sqrt(2)).
+    y = x + 1.0
+    bits = torch.where(y > 1.17549435e-38, y, c(1.17549435e-38)).view(
+        torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)
+    below = m < 0.70710677
+    e = (((bits >> 23) - 127).float() + 1.0) - below.float()
+    f = (m + -1.0) + torch.where(below, m, c(0.0))
+    f2 = f * f
+    f3 = f2 * f
+    p = [fma(fma(f, a0, a1), f, a2) for a0, a1, a2 in _LOG_POLY]
+    poly = fma(fma(p[0], f3, p[1]), f3, p[2])
+    large = fma(e, _LN2_HI, (f - f2 * 0.5) + fma(poly, f3, e * _LN2_LO))
+    large = torch.where(y > 0, large, c(float("nan")))
+    large = torch.where(y == 0, c(-float("inf")), large)
+    large = torch.where(y == float("inf"), c(float("inf")), large)
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
     """f32 ``erf_inv`` as XLA computes it: Giles' polynomial in
     ``w = -log1p(-x*x)``, two branches split at ``w = 5``, ``±inf`` at
     ``|x| = 1``."""
-    w = -torch.log1p(-x * x)
+    w = -log1p_f32(-x * x)
     small = w < 5.0
     # The root taken in f64 and rounded to f32 is the correctly rounded
     # f32 root, as XLA's is; torch's f32 sqrt on the CPU is one ulp off on

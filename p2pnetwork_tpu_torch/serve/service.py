@@ -49,7 +49,7 @@ crosses. ``heal=`` runs each tick's engine chunk under the self-healing
 plane's ``Healer`` (``supervise/heal.py``) and ``slo=`` feeds an SLO
 engine (``telemetry/slo.py``), as in the reference;
 ``hbm_budget_bytes=`` raises ``NotImplementedError``: a memory planner
-fitted on the card is queued in ROADMAP (slice 12).
+fitted on the card is queued in ROADMAP §A item 7.1.
 
 Threading: control-plane state (tickets, queue, quotas, counters) is
 guarded by one condition; the device-side batch is confined to the
@@ -391,7 +391,7 @@ class SimService:
         signal, so seeded replays stay identical.
     hbm_budget_bytes:
         Must be ``None``: a memory planner fitted on the card is not
-        ported yet (ROADMAP, slice 12); anything else raises
+        ported yet (ROADMAP §A item 7.1); anything else raises
         ``NotImplementedError``.
     deadline_s / on_stall:
         Optional supervise-plane watchdog over driver ticks (heartbeat
@@ -426,8 +426,7 @@ class SimService:
             raise NotImplementedError(
                 "hbm_budget_bytes= needs a memory planner fitted on the "
                 "card (the reference's coefficients were fitted on a TPU), "
-                "which the port does not have yet: ROADMAP queues it for "
-                "slice 12")
+                "which the port does not have yet: ROADMAP §A item 7.1")
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         if queue_depth < 0:

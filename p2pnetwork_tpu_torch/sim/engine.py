@@ -158,7 +158,12 @@ def _require_stats(protocol, required) -> None:
 
 
 def _freeze(live: torch.Tensor, new, old):
-    """``new`` where ``live`` holds, else ``old``, field by field."""
+    """``new`` where ``live`` holds, else ``old``, field by field (a
+    tensor, a tuple of states, or a dataclass of tensors)."""
+    if isinstance(old, torch.Tensor):
+        return torch.where(live, new, old)
+    if isinstance(old, tuple):
+        return tuple(_freeze(live, n, o) for n, o in zip(new, old))
     return dataclasses.replace(old, **{
         f.name: torch.where(live, getattr(new, f.name), getattr(old, f.name))
         for f in dataclasses.fields(old)})

@@ -32,7 +32,11 @@ import torch
 
 from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.models.flood import Flood
+from p2pnetwork_tpu_torch.models.gossip import Gossip
 from p2pnetwork_tpu_torch.models.hopdist import HopDistance
+from p2pnetwork_tpu_torch.models.pagerank import PageRank
+from p2pnetwork_tpu_torch.models.pushsum import PushSum
+from p2pnetwork_tpu_torch.models.sir import SIR
 from p2pnetwork_tpu_torch.node import Node
 from p2pnetwork_tpu_torch.parallel import sharded
 from p2pnetwork_tpu_torch.sim import checkpoint as ckpt
@@ -96,9 +100,9 @@ class TorchSimNode(Node):
     Pass ``mesh=parallel.mesh.ring_mesh(S)`` to run the population on the
     ring (``parallel/sharded.py``, every shard on one card): the same
     events and stepping, churn, link and checkpoint methods, on the
-    sharded representation. The port's ring runs ``Flood``; the other
-    protocols and ``adaptive_k`` are refused there (ROADMAP §A items 12
-    and 9).
+    sharded representation, for Flood, SIR, Gossip, HopDistance, PageRank
+    and PushSum as the reference's backend dispatches them. ``adaptive_k``
+    is refused there (ROADMAP §A item 9).
 
     Each completed round fires ``node_message`` with ``{"sim_round": r,
     **round_stats}``. ``sim_message_count`` accumulates the simulated
@@ -168,11 +172,6 @@ class TorchSimNode(Node):
             raise NotImplementedError(
                 "adaptive_k > 0 on the mesh backend (the frontier-adaptive "
                 "ring loop) is not ported yet: ROADMAP §A item 9")
-        if mesh is not None and not isinstance(protocol, Flood):
-            raise NotImplementedError(
-                f"the port's ring runs Flood; {type(protocol).__name__} on "
-                f"the mesh backend is not ported yet: ROADMAP §A item 12 "
-                f"(run it on the single-device backend)")
         self.sim_graph = graph
         self.sim_protocol = protocol
         self._sim_key = prng.key(seed)
@@ -215,6 +214,31 @@ class TorchSimNode(Node):
 
     # ------------------------------------------------------------- stepping
 
+    def _run_rounds_sharded(self, rounds: int, seg_key):
+        """A ``run_rounds`` segment on the ring, by protocol."""
+        sg, mesh, proto = self.sim_sharded, self.sim_mesh, self.sim_protocol
+        if isinstance(proto, Flood):
+            return sharded.flood(sg, mesh, proto.source, rounds,
+                                 state0=self.sim_state, return_state=True)
+        if isinstance(proto, SIR):
+            return sharded.sir(sg, mesh, proto, seg_key, rounds,
+                               rng=self._sim_rng, status0=self.sim_state)
+        if isinstance(proto, Gossip):
+            return sharded.gossip(sg, mesh, proto, seg_key, rounds,
+                                  rng=self._sim_rng, values0=self.sim_state)
+        if isinstance(proto, HopDistance):
+            return sharded.hopdist(sg, mesh, proto, rounds,
+                                   state0=self.sim_state)
+        if isinstance(proto, PageRank):
+            return sharded.pagerank(sg, mesh, proto, rounds,
+                                    ranks0=self.sim_state)
+        if isinstance(proto, PushSum):
+            return sharded.pushsum(sg, mesh, proto, seg_key, rounds,
+                                   state0=self.sim_state)
+        raise ValueError(
+            f"the sharded backend implements Flood, SIR, Gossip, "
+            f"HopDistance, PageRank and PushSum; got {type(proto).__name__}")
+
     def run_rounds(self, rounds: int) -> dict:
         """Advance the population ``rounds`` synchronous rounds, then fire
         ``node_message`` once per round (aggregate stats dict) through the
@@ -223,9 +247,7 @@ class TorchSimNode(Node):
         # Per-segment key: deterministic in (seed, segment start).
         seg_key = prng.fold_in(self._sim_key, self.sim_round)
         if self.sim_mesh is not None:
-            self.sim_state, stats = sharded.flood(
-                self.sim_sharded, self.sim_mesh, self.sim_protocol.source,
-                rounds, state0=self.sim_state, return_state=True)
+            self.sim_state, stats = self._run_rounds_sharded(rounds, seg_key)
         else:
             self.sim_state, stats = engine.run_from(
                 self.sim_graph, self.sim_protocol, self.sim_state, seg_key,
@@ -257,10 +279,27 @@ class TorchSimNode(Node):
         self._require_sim()
         seg_key = prng.fold_in(self._sim_key, self.sim_round)
         if self.sim_mesh is not None:
-            self.sim_state, out = sharded.flood_until_coverage(
-                self.sim_sharded, self.sim_mesh, self.sim_protocol.source,
-                coverage_target=coverage_target, max_rounds=max_rounds,
-                state0=self.sim_state, return_state=True)
+            sg, mesh, proto = (self.sim_sharded, self.sim_mesh,
+                               self.sim_protocol)
+            if isinstance(proto, Flood):
+                self.sim_state, out = sharded.flood_until_coverage(
+                    sg, mesh, proto.source, coverage_target=coverage_target,
+                    max_rounds=max_rounds, state0=self.sim_state,
+                    return_state=True)
+            elif isinstance(proto, HopDistance):
+                self.sim_state, out = sharded.hopdist_until_coverage(
+                    sg, mesh, proto, coverage_target=coverage_target,
+                    max_rounds=max_rounds, state0=self.sim_state)
+            elif isinstance(proto, SIR):
+                self.sim_state, out = sharded.sir_until_coverage(
+                    sg, mesh, proto, seg_key,
+                    coverage_target=coverage_target, max_rounds=max_rounds,
+                    rng=self._sim_rng, status0=self.sim_state)
+            else:
+                raise ValueError(
+                    "run_until_coverage on the sharded backend implements "
+                    "Flood, SIR and HopDistance; the protocol must expose "
+                    "a coverage stat")
         else:
             self.sim_state, out = engine.run_until_coverage_from(
                 self.sim_graph, self.sim_protocol, self.sim_state, seg_key,
@@ -277,17 +316,27 @@ class TorchSimNode(Node):
         self._require_sim()
         seg_key = prng.fold_in(self._sim_key, self.sim_round)
         if self.sim_mesh is not None:
-            raise ValueError(
-                "run_until_converged on the sharded backend implements "
-                "PageRank (stat='residual') and PushSum "
-                "(stat='variance'); run other protocols on the "
-                "single-device backend or step them with run_rounds"
-            )
-        self.sim_state, out = engine.run_until_converged(
-            self.sim_graph, self.sim_protocol, seg_key, stat=stat,
-            threshold=threshold, max_rounds=max_rounds,
-            state0=self.sim_state,
-        )
+            sg, mesh, proto = (self.sim_sharded, self.sim_mesh,
+                               self.sim_protocol)
+            if isinstance(proto, PageRank) and stat == "residual":
+                self.sim_state, out = sharded.pagerank_until_residual(
+                    sg, mesh, proto, tol=threshold, max_rounds=max_rounds,
+                    ranks0=self.sim_state)
+            elif isinstance(proto, PushSum) and stat == "variance":
+                self.sim_state, out = sharded.pushsum_until_variance(
+                    sg, mesh, proto, seg_key, tol=threshold,
+                    max_rounds=max_rounds, state0=self.sim_state)
+            else:
+                raise ValueError(
+                    "run_until_converged on the sharded backend implements "
+                    "PageRank (stat='residual') and PushSum "
+                    "(stat='variance'); run other protocols on the "
+                    "single-device backend or step them with run_rounds")
+        else:
+            self.sim_state, out = engine.run_until_converged(
+                self.sim_graph, self.sim_protocol, seg_key, stat=stat,
+                threshold=threshold, max_rounds=max_rounds,
+                state0=self.sim_state)
         return self._finish_run(out)
 
     # ------------------------------------------------------------- topology

@@ -20,7 +20,7 @@ from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import adaptive_flood as TA  # noqa: E402
 from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
-from p2pnetwork_tpu_torch.models.sir import SIR  # noqa: E402
+from p2pnetwork_tpu_torch.models.hopdist import HopDistance  # noqa: E402
 from p2pnetwork_tpu_torch.ops import segsum  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded  # noqa: E402
 from p2pnetwork_tpu_torch.sim import checkpoint  # noqa: E402
@@ -168,11 +168,11 @@ def _carry_with(field):
 # not model (interop refuses them rather than dropping them; edge weights
 # and the node relabeling are carried since they were ported, in
 # test_torch_semiring.py and test_torch_layout.py), a weighted choice
-# without replacement, and the ring's protocols other than the flood (the
-# single-device SIR, gossip, push-sum and PageRank are ported; their ring
-# forms wait). The flood options this test once held (methods frontier
-# and skew, bitset=True) are ported and checked in test_torch_frontier.py
-# and test_torch_skew.py.
+# without replacement, and the ring's frontier-adaptive loop (the ring's
+# other protocols are ported and checked in test_torch_ring_protocols.py).
+# The flood options this test once held (methods frontier and skew,
+# bitset=True) are ported and checked in test_torch_frontier.py and
+# test_torch_skew.py.
 @pytest.mark.parametrize("proto", [
     lambda tg: sharded.flood_until_coverage(None, None, 0,
                                             recorder=object()),
@@ -181,7 +181,8 @@ def _carry_with(field):
     _carry_with("delta_log"),
     lambda tg: prng.choice(prng.key(0), 4, (2,), replace=False,
                            p=torch.ones(4), device="cpu"),
-    lambda tg: sharded.init_state(tg, SIR()),
+    lambda tg: sharded.hopdist_until_coverage(tg, None, HopDistance(),
+                                              adaptive_k=8),
 ])
 def test_unported_options_raise(proto):
     tg = build_port("er")

@@ -290,10 +290,10 @@ def test_ring_wrappers_refuse_what_the_kernels_do_not_take(call, match):
     (torch.uint8, (3, 37)), (torch.int32, (5, 7)), (torch.int32, (8, 3, 64)),
     (torch.uint8, (8, 1)), (torch.uint8, (8, 15)), (torch.uint8, (8, 17)),
     (torch.bool, (8, 125007)), (torch.float32, (8, 3, 33)),
-    (torch.int32, (3, 2, 31)),
+    (torch.int32, (3, 2, 31)), (torch.int32, (8, 32, 12512)),
 ], ids=["bool-1M", "f32-1M", "bytes", "words", "lanes", "shard-1B",
         "shard-15B", "shard-17B", "shard-125007B", "f32-lanes",
-        "i32-lanes"])
+        "i32-lanes", "lane-stack-1024"])
 def test_ring_shift_kernel_matches_plain_on_card(reverse, dtype, shape):
     _card()
     g = torch.Generator(device="cuda").manual_seed(0)

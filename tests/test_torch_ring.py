@@ -465,11 +465,9 @@ def test_comm_payload_template_is_held(meshes):
      ValueError),
     (lambda sg, m: TS.flood(sg, m, sg.n_nodes_padded, 1), ValueError),
     (lambda sg, m: TS.propagate(sg, m, sg.node_mask, "xor"), ValueError),
-    (lambda sg, m: TS.init_state(sg, object()), NotImplementedError),
-    (lambda sg, m: TS.shard_graph(_graphs("ws512")[1], m, source_csr=True),
-     NotImplementedError),
+    (lambda sg, m: TS.init_state(sg, object()), ValueError),
 ], ids=["adaptive", "recorder", "fault-spec", "bad-comm", "mesh-size",
-        "bad-source", "bad-op", "other-protocol", "source-csr"])
+        "bad-source", "bad-op", "other-protocol"])
 def test_unported_and_bad_arguments_raise(meshes, call, exc):
     _, tsg = _sharded("ws512", "segment")
     with pytest.raises(exc):

@@ -37,9 +37,7 @@ def _terms(rng, rows, width):
             * 10.0 ** rng.uniform(-3, 3, (rows, width))).astype(np.float32)
 
 
-#: Widths whose order XLA's CPU reduce is measured for: <= 32, and
-#: multiples of 32 (ROADMAP.md, known differences).
-WIDTHS = [1, 5, 17, 31, 32, 64, 128, 256]
+WIDTHS = [1, 5, 17, 31, 32, 33, 40, 48, 64, 90, 128, 130, 256, 1000]
 
 
 @pytest.mark.parametrize("width", WIDTHS)
@@ -69,7 +67,7 @@ def test_gather_row_sum_equals_xla(width, nonfinite):
     np.testing.assert_array_equal(bits(got.numpy()), bits(want))
 
 
-@pytest.mark.parametrize("n", [1, 32, 1024, 4096])
+@pytest.mark.parametrize("n", [1, 32, 1000, 1024, 4096, 125008])
 def test_ordered_sum_equals_xla(n):
     jnp = _jnp()
     x = _terms(np.random.default_rng(n), 1, n)[0]
@@ -130,7 +128,7 @@ def _card():
 #: The kernel's paths: one thread a row (<= 32 terms, > 1,024), one lane a
 #: window (33 to 1,024, 1 to 32 rows a warp).
 CARD_WIDTHS = [0, 1, 17, 32, 33, 40, 100, 128, 500, 700, 1000, 1024, 1025,
-               2500, 40000]
+               2500, 40000, 125008]
 
 
 @pytest.mark.cuda
@@ -138,7 +136,8 @@ CARD_WIDTHS = [0, 1, 17, 32, 33, 40, 100, 128, 500, 700, 1000, 1024, 1025,
 def test_kernel_matches_plain_on_card(width):
     _card()
     rng = np.random.default_rng(width)
-    rows = 3 if width > 1024 else 1000
+    # The ring's per-shard sums are 8 rows of a 1M population's blocks.
+    rows = 8 if width == 125008 else 3 if width > 1024 else 1000
     v = torch.from_numpy(_terms(rng, rows, width)).cuda()
     launches = RS.LAUNCHES
     got = RS.row_sum(v)

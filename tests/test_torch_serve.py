@@ -327,11 +327,11 @@ def _slo_engine():
 def test_refused_options_name_the_roadmap(graphs, knob):
     """Slice 10 ported ``heal`` and ``slo``: a service takes them and
     ticks. The memory planner behind ``hbm_budget_bytes`` is still
-    refused, naming the slice that queues it."""
+    refused, naming the ROADMAP item that queues it."""
     _, g_p = graphs["ring128"]
     kw = {k: make() for k, make in knob.items()}
     if "hbm_budget_bytes" in kw:
-        with pytest.raises(NotImplementedError, match="slice 12"):
+        with pytest.raises(NotImplementedError, match="item 7.1"):
             service(PS, g_p, **kw)
         return
     svc = service(PS, g_p, **kw)

@@ -67,6 +67,17 @@ def _capped():
 
 
 def _protocols(name):
+    if name == "mesh-sir":
+        kw = dict(beta=0.4, gamma=0.15, source=3)
+        return JMOD.SIR(**kw), TMOD.SIR(**kw)
+    if name == "gossip":
+        return JMOD.Gossip(alpha=0.5), TMOD.Gossip(alpha=0.5)
+    if name == "hopdist":
+        return JMOD.HopDistance(source=7), TMOD.HopDistance(source=7)
+    if name == "mesh-pagerank":
+        return JMOD.PageRank(), TMOD.PageRank()
+    if name == "pushsum":
+        return JMOD.PushSum(), TMOD.PushSum()
     if name == "sir":
         kw = dict(beta=0.4, gamma=0.15, source=3, method="segment")
         return JMOD.SIR(**kw), TMOD.SIR(**kw)
@@ -268,15 +279,67 @@ def test_resumed_node_equals_uninterrupted(meshes, tmp_path, backend):
         np.testing.assert_array_equal(got, want)
 
 
+#: The mesh backend's other protocols, each a call sequence that drives
+#: its ``run_rounds`` and its run-to-* loop (``examples/mesh_simnode_
+#: demo.py``'s story for SIR: rounds, churn, runtime links, coverage),
+#: and the layout it runs on: SIR, gossip and hop distance give the same
+#: results on every layout (0/1 edge sums), PageRank and push-sum run on
+#: the default hybrid layout, where their f32 sums add in the reference's
+#: order.
+MESH_SCENARIOS = {
+    "mesh-sir": ("segment", lambda n: (
+        n.run_rounds(2), n.inject_sim_churn(0.1),
+        n.connect_sim_nodes([2, 40], [900, 41]),
+        n.run_until_coverage(0.6, max_rounds=64))),
+    "gossip": ("segment", lambda n: (
+        n.run_rounds(2), n.fail_sim_nodes(FAILED), n.run_rounds(2))),
+    "hopdist": ("segment", lambda n: (
+        n.run_rounds(2), n.run_until_coverage(0.9, max_rounds=32))),
+    "mesh-pagerank": ("hybrid", lambda n: (
+        n.run_rounds(2), n.run_until_converged("residual", 2e-3,
+                                               max_rounds=64))),
+    "pushsum": ("hybrid", lambda n: (
+        n.run_rounds(2), n.run_until_converged("variance", 1e-2,
+                                               max_rounds=64))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(MESH_SCENARIOS))
+def test_mesh_protocols_equal_reference(meshes, tmp_path, name):
+    # The ring backend of every protocol the reference's runs, then a
+    # checkpoint crossing from the port's node to a fresh reference node,
+    # which continues as the port's does.
+    layout, calls = MESH_SCENARIOS[name]
+    kw = dict(dynamic_edges=8, layout=layout)
+    (a, jrec), (b, trec) = _node_pair("ws", name, meshes, **kw)
+    calls(a)
+    calls(b)
+    assert_same_nodes(a, b, jrec, trec)
+    runs = [d for d in trec.data_for("node_message") if "sim_run" in d]
+    assert len(runs) == (name != "gossip") and all(
+        0 < d["rounds"] < 64 for d in runs)
+    path = str(tmp_path / f"{name}.npz")
+    b.save_checkpoint(path)
+    (c, crec), _ = _node_pair("ws", name, meshes, **kw)
+    c.load_checkpoint(path)
+    for n in (b, c):
+        n.run_rounds(2)
+    assert (c.sim_round, c.sim_message_count) == (b.sim_round,
+                                                  b.sim_message_count)
+    assert_same_events(trec.events[-2:], crec.events[-2:])
+    for got, want in zip(_state_arrays(b.sim_state),
+                         _state_arrays(c.sim_state), strict=True):
+        np.testing.assert_array_equal(got, want)
+
+
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(protocol="sir", mesh=True), NotImplementedError, "item 12"),
     (dict(mesh=True, adaptive_k=64), NotImplementedError, "item 9"),
     (dict(adaptive_k=64), ValueError, "mesh backend's coverage loop"),
     (dict(protocol="sir", mesh=True, adaptive_k=64), ValueError,
      "applies to Flood and HopDistance"),
     (dict(layout="blocked"), ValueError, "layout must be"),
-], ids=["other-protocol", "adaptive", "adaptive-no-mesh",
-        "adaptive-protocol", "bad-layout"])
+], ids=["adaptive", "adaptive-no-mesh", "adaptive-protocol",
+        "bad-layout"])
 def test_refusals(meshes, kw, exc, match):
     kw = dict(kw)
     proto = _protocols(kw.pop("protocol", "flood"))[1]
@@ -291,6 +354,10 @@ def test_mesh_backend_refuses_run_until_converged(meshes):
                      mesh=meshes[1])
     with pytest.raises(ValueError, match="sharded backend implements"):
         b.run_until_converged("residual", 1e-4)
+    c = TorchSimNode(graph=_graphs()[1], protocol=TMOD.Gossip(),
+                     mesh=meshes[1])
+    with pytest.raises(ValueError, match="Flood, SIR and HopDistance"):
+        c.run_until_coverage(0.5)
     with pytest.raises(RuntimeError, match="no simulation attached"):
         TorchSimNode().run_rounds(1)
 
