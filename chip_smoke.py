@@ -1657,6 +1657,55 @@ RING_TOL = {
     "mesh_pagerank": {"residual": (1e-3, 0.0), "rank_total": (0.0, 1e-5),
                       "rank_max": (1e-5, 0.0), "value": (1e-3, 0.0)}}
 
+#: Phase 4u (slice 13): the JAX ring's records on phase 4's graph sharded
+#: 8 ways with ``source_csr=True`` (``segment``: the reference's results
+#: do not depend on the layout or on ``adaptive_k``), and on 4j's graph's
+#: ``segment`` ring. Regenerate on the CPU (~25 s):
+#:   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 python - <<'EOF'
+#:   import hashlib, numpy as np
+#:   from p2pnetwork_tpu.sim import graph as G, flightrec as FR
+#:   from p2pnetwork_tpu.parallel import mesh, sharded as S
+#:   from p2pnetwork_tpu.models import HopDistance
+#:   from p2pnetwork_tpu.models.messagebatch import BatchFlood
+#:   sha = lambda a: hashlib.sha256(np.ascontiguousarray(np.asarray(a)).tobytes()).hexdigest()
+#:   m = mesh.ring_mesh(8); g = G.watts_strogatz(1_000_000, 10, 0.1, seed=0)
+#:   sg = S.shard_graph(g, m, source_csr=True); cov = dict(coverage_target=0.99, comm="ppermute")
+#:   seen, out = S.flood_until_coverage(sg, m, 0, max_rounds=64, adaptive_k=1024, **cov); print(out, sha(seen))
+#:   seen, out = S.flood_until_coverage(sg, m, 0, max_rounds=64, recorder=FR.FlightRecorder(64), **cov)
+#:   fr = out.pop("flight_record"); print(out, sha(seen), sha(fr.rows), fr.rows[0, -1])
+#:   (d, f, r), out = S.hopdist_until_coverage(sg, m, HopDistance(source=0), adaptive_k=1024, **cov); print(out, sha(d), sha(f), r)
+#:   bg = G.watts_strogatz(100_000, 10, 0.1, seed=0, source_csr=True); src = np.random.default_rng(0).integers(0, bg.n_nodes, size=1024).astype(np.int32)
+#:   p = BatchFlood(method="segment"); b, out = S.run_batch_until_coverage(S.shard_graph(bg, m), m, p, p.init(bg, src, coverage_target=0.99), max_rounds=64, comm="ppermute", donate=False, recorder=FR.FlightRecorder(64))
+#:   print(sha(out["flight_record"].rows), out["flight_record"].rows[0, -1])
+#:   EOF
+ADAPTIVE_K = 1024
+EXPECTED_RING_SEEN = ("250d7db019667ea8ee45e2a0dd392c29"
+                      "1b1b6c2d8082df5cc718a9d8a2fdf982")
+EXPECTED_ADAPTIVE_HOP = {
+    "summary": {"rounds": 11, "coverage": 0.9997529983520508,
+                "messages": 9372400},
+    "dist": ("e1b12f68e47e12baa07c814170201ab9"
+             "4479da4a0fa05e48f00db1b2875333b4"),
+    "frontier": ("1bf5cafa50cdb942796d9529a9c97ec7"
+                 "fbe8fb0d6d4c0ea5a2fea737175a2551"),
+    "round": 11}
+#: The recorded rows (f32 ``[11, 7]``) and ``ici_bytes`` (the reference's
+#: per-round census: 4 scalar ``psum``s and 7 hops of the ``bool[125008]``
+#: frontier), and the lane ring's (``[10, 7]``; 4 ``psum``s and 7 hops of
+#: the ``u32[32, 12512]`` words).
+EXPECTED_RING_REC = {"rows": ("b885ca64c791d464d473faa1073a37c6"
+                              "c7cd4fad4d7b08143900a7640aa5e19b"),
+                     "ici": 875_084, "rounds": 11}
+EXPECTED_LANE_REC = {"rows": ("054ed423ff8b3475311a852179a5c799"
+                              "04d1fd68e18b4105fb0e621ea54e1201"),
+                     "ici": 11_218_158, "rounds": 10}
+#: Kernel launches of one dense ring OR pass, by layout.
+DENSE_PASS = {"hybrid": {"segsum": 8, "ring_shift": 7},
+              "mxu": {"ring_segsum": 7, "segsum": 1},
+              "segment": {"ring_shift": 7}}
+#: 4u(f): nodes a budgeted service is asked to grow by (4j's graph doubled).
+PLAN_GROW = 100_000
+
 #: (layout, rows, width, block, share of live slots) of the main path's
 #: two kernel layouts at 1M nodes; the live shares are those of the real
 #: layouts (0.80 and 0.91 at 100K nodes, measured on the CPU build).
@@ -5465,6 +5514,381 @@ def reorder_path(engine, segsum, threefry, device_mod, graph_mod, layout,
 
 
 #: Launches each ring layout must make (> 0): kernel name -> counter.
+def dense_launches(layout: str, passes: int) -> dict:
+    """Launches by kernel of ``passes`` dense ring OR passes."""
+    want = {"segsum": 0, "ring_shift": 0, "ring_segsum": 0, "threefry": 0,
+            "rowsum": 0}
+    for k, n in DENSE_PASS[layout].items():
+        want[k] = n * passes
+    return want
+
+
+def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
+                       device_mod, sharded, mesh_mod, flightrec,
+                       HopDistance) -> dict:
+    """Phase 4u (a), (b), (d): phase 4's graph sharded 8 ways with its
+    sender-CSR view, in each layout: (a) the frontier-adaptive flood
+    (``adaptive_k=ADAPTIVE_K``) equal to the reference's and to the dense
+    loop's, its sparse rounds, syncs and launches (none in a sparse round,
+    one dense pass a dense round), its wall in turns with the dense
+    flood's and one profiled run; (d) the recorded dense flood, rows and
+    ``ici_bytes`` the reference's, summary and ``seen`` unchanged, its
+    wall in turns with the bare flood's; under ``hybrid`` also (b) the
+    adaptive hop distance. Returns the launches by kernel."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    totals = {"segsum": 0, "ring_shift": 0, "ring_segsum": 0}
+    order = [("hybrid", {"hybrid": True}), ("mxu", {"mxu": True}),
+             ("segment", {})]
+    for layout, kw in order:
+        t0 = time.perf_counter()
+        sg = sharded.shard_graph(g, mesh, source_csr=True, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+
+        def adaptive():
+            return sharded.flood_until_coverage(
+                sg, mesh, 0, coverage_target=0.99, max_rounds=64,
+                adaptive_k=ADAPTIVE_K)
+
+        def dense():
+            return sharded.flood_until_coverage(
+                sg, mesh, 0, coverage_target=0.99, max_rounds=64)
+
+        def recorded():
+            return sharded.flood_until_coverage(
+                sg, mesh, 0, coverage_target=0.99, max_rounds=64,
+                recorder=flightrec.FlightRecorder(64))
+
+        seen_d, out_d = dense()
+        zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seen, out = adaptive()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        counts = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+        sparse = list(sharded.LAST_SPARSE_ROUNDS)
+        if out != EXPECTED_1M or out != out_d:
+            fail(f"adaptive ring {layout} returned {out}, the reference "
+                 f"gives {EXPECTED_1M}, the dense loop {out_d}")
+        if digest(seen) != EXPECTED_RING_SEEN or not torch.equal(
+                seen, seen_d) or not torch.equal(seen.reshape(-1),
+                                                 want_seen):
+            fail(f"adaptive ring {layout}: seen differs from the "
+                 "reference's, the dense loop's or phase 4's")
+        n_dense = out["rounds"] - len(sparse)
+        check_launches(f"adaptive ring {layout}", counts,
+                       dense_launches(layout, n_dense))
+        if counts["syncs"] != 2 * out["rounds"] + 1:
+            fail(f"adaptive ring {layout}: {counts['syncs']} syncs, want "
+                 f"{2 * out['rounds'] + 1}")
+        for k in totals:
+            totals[k] += counts[k]
+        walls = paired_walls(adaptive, dense, pairs=NEW_REPS)
+        prof = profile_run(adaptive)
+        print(json.dumps({
+            "phase": "adaptive-ring-path", "run": "flood", "layout": layout,
+            "k": ADAPTIVE_K, "build_s": build_s, "csr_span": sg.csr_span,
+            "rounds": out["rounds"], "sparse_rounds": sparse,
+            "dense_rounds": n_dense, "launches": counts,
+            "first_run_s": first_s, "wall_s": walls["wall_s"],
+            "dense_wall_s": walls["wall_s_without"],
+            "walls": walls["walls_with"],
+            "dense_walls": walls["walls_without"],
+            "device_busy_s": prof["device_busy_s"],
+            "device_idle_share": prof["device_idle_share"],
+            "kernel_launches": prof["kernel_launches"], "top": prof["top"],
+            "t_s": time.perf_counter() - T_START}), flush=True)
+
+        # (d) The recorder on the dense flood.
+        zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+        seen_r, out_r = recorded()
+        counts = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+        fr = out_r.pop("flight_record")
+        if out_r != out_d or not torch.equal(seen_r, seen_d):
+            fail(f"recorded ring {layout}: the recorder changed the run")
+        if np_sha(fr.rows) != EXPECTED_RING_REC["rows"] or int(
+                fr.rows[0, -1]) != EXPECTED_RING_REC["ici"]:
+            fail(f"recorded ring {layout}: rows differ from the "
+                 f"reference's (ici_bytes {fr.rows[0, -1]}, want "
+                 f"{EXPECTED_RING_REC['ici']})")
+        check_launches(f"recorded ring {layout}", counts,
+                       dense_launches(layout, out_r["rounds"]))
+        if counts["syncs"] != out_r["rounds"] + 2:
+            fail(f"recorded ring {layout}: {counts['syncs']} syncs, want "
+                 f"{out_r['rounds'] + 2} (the exit reads and the fetch)")
+        for k in totals:
+            totals[k] += counts[k]
+        rec_walls = paired_walls(recorded, dense, pairs=NEW_REPS)
+        print(json.dumps({
+            "phase": "adaptive-ring-path", "run": "recorder",
+            "layout": layout, "rows": list(fr.rows.shape),
+            "ici_bytes": int(fr.rows[0, -1]), "launches": counts,
+            **{k: rec_walls[k] for k in ("wall_s", "wall_s_without",
+                                         "recorder_cost_s", "walls_with",
+                                         "walls_without")},
+            "t_s": time.perf_counter() - T_START}), flush=True)
+
+        if layout == "hybrid":
+            totals_hop = adaptive_hop(sg, mesh, ring, segsum, threefry,
+                                      rowsum, device_mod, sharded,
+                                      HopDistance)
+            for k in totals:
+                totals[k] += totals_hop[k]
+        del sg
+        torch.cuda.empty_cache()
+    return totals
+
+
+def adaptive_hop(sg, mesh, ring, segsum, threefry, rowsum, device_mod,
+                 sharded, HopDistance) -> dict:
+    """Phase 4u (b): the adaptive hop distance to 0.99 on the ``hybrid``
+    ring, equal to the reference's and to the dense loop's."""
+    proto = HopDistance(source=0)
+
+    def adaptive():
+        return sharded.hopdist_until_coverage(
+            sg, mesh, proto, coverage_target=0.99, adaptive_k=ADAPTIVE_K)
+
+    def dense():
+        return sharded.hopdist_until_coverage(sg, mesh, proto,
+                                              coverage_target=0.99)
+
+    (dd, fd, rd), out_d = dense()
+    zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    (d, f, r), out = adaptive()
+    counts = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    sparse = list(sharded.LAST_SPARSE_ROUNDS)
+    want = EXPECTED_ADAPTIVE_HOP
+    if out != want["summary"] or out != out_d:
+        fail(f"adaptive ring hop distance returned {out}, the reference "
+             f"gives {want['summary']}, the dense loop {out_d}")
+    if (digest(d), digest(f), int(r)) != (want["dist"], want["frontier"],
+                                          want["round"]) or not (
+            torch.equal(d, dd) and torch.equal(f, fd) and int(r) == int(rd)):
+        fail("adaptive ring hop distance: dist, frontier or round differ "
+             "from the reference's or the dense loop's")
+    check_launches("adaptive ring hop distance", counts,
+                   dense_launches("hybrid", out["rounds"] - len(sparse)))
+    if counts["syncs"] != 2 * out["rounds"] + 1:
+        fail(f"adaptive ring hop distance: {counts['syncs']} syncs")
+    walls = paired_walls(adaptive, dense, pairs=NEW_REPS)
+    print(json.dumps({
+        "phase": "adaptive-ring-path", "run": "hopdist", "layout": "hybrid",
+        "k": ADAPTIVE_K, "rounds": out["rounds"], "sparse_rounds": sparse,
+        "launches": counts, "wall_s": walls["wall_s"],
+        "dense_wall_s": walls["wall_s_without"],
+        "t_s": time.perf_counter() - T_START}), flush=True)
+    return counts
+
+
+def adaptive_node_path(g, ring, segsum, threefry, rowsum, device_mod,
+                       mesh_mod, simnode, node_mod, Flood,
+                       HopDistance) -> dict:
+    """Phase 4u (c): ``TorchSimNode`` on the ``hybrid`` ring with
+    ``adaptive_k``, a plain ``Node`` peer connected over a real socket:
+    ``run_until_coverage`` for Flood (then a checkpoint, loaded by a
+    fresh node whose state and counters equal the first's) and for
+    HopDistance. Summaries and their ``sim_run`` events equal (a)'s and
+    (b)'s. Returns the launches by kernel."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    totals = {"segsum": 0, "ring_shift": 0, "ring_segsum": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "adaptive_node.npz")
+        for name, proto, want in (
+                ("flood", Flood(source=0), EXPECTED_1M),
+                ("hopdist", HopDistance(source=0),
+                 EXPECTED_ADAPTIVE_HOP["summary"])):
+            rec, peer_rec = EventList(), EventList()
+            t0 = time.perf_counter()
+            node = simnode.TorchSimNode(
+                SIMNODE_HOST, 0, id="sim-adaptive", callback=rec,
+                graph=g, protocol=proto, seed=SIMNODE_SEED, mesh=mesh,
+                adaptive_k=ADAPTIVE_K)
+            build_s = time.perf_counter() - t0
+            peer = node_mod.Node(SIMNODE_HOST, 0, id="peer",
+                                 callback=peer_rec)
+            try:
+                node.start()
+                peer.start()
+                if not peer.connect_with_node(SIMNODE_HOST, node.port):
+                    fail("adaptive node: the peer could not connect")
+                rec.wait("inbound_node_connected", 1)
+                peer.send_to_nodes({"ping": name})
+                rec.wait("node_message", 1)
+                zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                summary = node.run_until_coverage(0.99, max_rounds=64)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = ring_counts_4t(ring, segsum, threefry, rowsum,
+                                        device_mod)
+                event = [e[2] for e in rec.events if e[0] == "node_message"
+                         and isinstance(e[2], dict) and e[2].get("sim_run")]
+                if summary != want or event != [{"sim_run": True, **want}]:
+                    fail(f"adaptive node {name}: summary {summary} or its "
+                         f"event {event} differs from {want}")
+                if node.sim_sharded.csr_pos is None:
+                    fail(f"adaptive node {name}: no sender-CSR view")
+                for k in totals:
+                    totals[k] += counts[k]
+                resumed = {}
+                if name == "flood":
+                    node.save_checkpoint(path)
+                    back = simnode.TorchSimNode(
+                        SIMNODE_HOST, 0, id="sim-resumed", graph=g,
+                        protocol=proto, seed=SIMNODE_SEED, mesh=mesh,
+                        adaptive_k=ADAPTIVE_K)
+                    try:
+                        back.load_checkpoint(path)
+                        same = all(torch.equal(a, b) for a, b in zip(
+                            back.sim_state, node.sim_state))
+                        if not same or (back.sim_round,
+                                        back.sim_message_count) != (
+                                node.sim_round, node.sim_message_count):
+                            fail("adaptive node: the resumed node's state "
+                                 "differs from the checkpointed node's")
+                        again = back.run_until_coverage(0.99, max_rounds=64)
+                        if again["rounds"] != 0:
+                            fail(f"adaptive node: the resumed node ran "
+                                 f"{again} past its target")
+                    finally:
+                        back.stop()
+                    resumed = {"checkpoint_bytes": Path(path).stat().st_size,
+                               "resumed_rounds": again["rounds"]}
+                print(json.dumps({
+                    "phase": "adaptive-ring-path", "run": f"node-{name}",
+                    "layout": "hybrid", "build_s": build_s,
+                    "run_until_coverage_s": wall, "summary": summary,
+                    "launches": counts, **resumed,
+                    "t_s": time.perf_counter() - T_START}), flush=True)
+            finally:
+                for n in (peer, node):
+                    n.stop()
+                for n in (peer, node):
+                    if n.ident is not None:
+                        n.join(timeout=10)
+    return totals
+
+
+def lane_recorder_path(bg, ring, segsum, threefry, rowsum, device_mod,
+                       sharded, mesh_mod, engine, flightrec, MB) -> dict:
+    """Phase 4u (e): 4t's batched call (4j's B = 1,024 batch on the 100K
+    class's ``segment`` ring) with the recorder: rows before ``ici_bytes``
+    equal to the single-device engine's on the same batch, all of them
+    the reference's, ``ici_bytes`` its integer; the summary unchanged;
+    its wall in turns with the bare call's. Returns the launches."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    sg = sharded.shard_graph(bg, mesh)
+    sources = np.random.default_rng(0).integers(
+        0, bg.n_nodes, size=BATCH_B).astype(np.int32)
+    proto = MB.BatchFlood(method="segment")
+
+    def call(recorder=None):
+        return sharded.run_batch_until_coverage(
+            sg, mesh, proto, proto.init(bg, sources, coverage_target=0.99),
+            max_rounds=64, recorder=recorder)
+
+    _, bare = call()
+    zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    _, out = call(flightrec.FlightRecorder(64))
+    counts = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
+    fr = out.pop("flight_record")
+    _, eng = engine.run_batch_until_coverage(
+        bg, proto, proto.init(bg, sources, coverage_target=0.99), KEY,
+        max_rounds=64, recorder=flightrec.FlightRecorder(64))
+    ici = len(flightrec.REC_COLS) - 1
+    if lane_summary(out) != lane_summary(bare):
+        fail("recorded lane ring: the recorder changed the summary")
+    if np_sha(fr.rows) != EXPECTED_LANE_REC["rows"] or int(
+            fr.rows[0, ici]) != EXPECTED_LANE_REC["ici"]:
+        fail("recorded lane ring: rows differ from the reference's")
+    if not np.array_equal(fr.rows[:, :ici],
+                          eng["flight_record"].rows[:, :ici]):
+        fail("recorded lane ring: rows differ from the engine's")
+    check_launches("recorded lane ring", counts, {
+        "ring_shift": (RING_SHARDS - 1) * out["rounds"], "segsum": 0,
+        "ring_segsum": 0, "threefry": 0, "rowsum": 2 * out["rounds"]})
+    walls = paired_walls(lambda: call(flightrec.FlightRecorder(64)), call,
+                         pairs=NEW_REPS)
+    print(json.dumps({
+        "phase": "adaptive-ring-path", "run": "lane-recorder",
+        "lanes": BATCH_B, "rounds": out["rounds"],
+        "ici_bytes": int(fr.rows[0, ici]), "launches": counts,
+        **{k: walls[k] for k in ("wall_s", "wall_s_without",
+                                 "recorder_cost_s")},
+        "t_s": time.perf_counter() - T_START}), flush=True)
+    return counts
+
+
+def planner_path(bg, serve, graph_mod, capacity, gpu: str) -> None:
+    """Phase 4u (f): 4q's serving drive (4j's graph, ``BATCH_B`` lanes)
+    measured as ``tools/fit_capacity.py`` measures a fit point: the
+    graph's resident bytes plus the service's peak over its baseline; the
+    plan (the checked-in H100 coefficients) within ``MODEL_TOLERANCE`` of
+    it. Then a service budgeted between the plan now and the plan after a
+    ``PLAN_GROW`` growth: the grow sheds with ``MemoryBudgetExceeded``,
+    nothing queued and nothing allocated."""
+    model = capacity.load_membudgets().get("capacity_model")
+    if not model or not model.get("card"):
+        fail("planner: no capacity model checked in")
+    sched = serve.generate(serve.TrafficPattern(**SERVE_PATTERN),
+                           bg.n_nodes, seed=0)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    svc = serve.SimService(bg, capacity=BATCH_B, queue_depth=BATCH_B,
+                           chunk_rounds=4, seed=0)
+    serve.drive(svc, sched)
+    torch.cuda.synchronize()
+    measured = capacity.resident_bytes(bg) + (
+        torch.cuda.max_memory_allocated() - base)
+    svc.close()
+    del svc
+    words = -(-BATCH_B // capacity.LANES_PER_WORD)
+    planned = capacity.serving_footprint_bytes(
+        bg.n_nodes_padded, bg.n_edges_padded, words)
+    err = abs(planned - measured) / measured
+    if err > capacity.MODEL_TOLERANCE:
+        fail(f"planner: planned {planned} bytes, measured {measured} "
+             f"({err:.1%} off, bound {capacity.MODEL_TOLERANCE:.0%})")
+    grown = graph_mod.growth_capacity(bg.n_nodes + PLAN_GROW,
+                                      bg.n_nodes_padded)
+    after = capacity.serving_footprint_bytes(grown, bg.n_edges_padded,
+                                             words)
+    budget = (planned + after) / 2
+    svc = serve.SimService(bg, capacity=BATCH_B, queue_depth=BATCH_B,
+                           chunk_rounds=4, seed=0, hbm_budget_bytes=budget)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        svc.grow(PLAN_GROW)
+        fail("planner: a growth planned over the budget was queued")
+    except serve.MemoryBudgetExceeded as e:
+        shed = e.to_dict()
+    torch.cuda.synchronize()
+    if torch.cuda.memory_allocated() != before or svc._mutations:
+        fail("planner: the refused growth allocated or queued")
+    if (shed["reason"], shed["planned_bytes"], shed["planned_capacity"]) \
+            != ("memory_budget", after, grown):
+        fail(f"planner: the shed {shed} does not carry the plan")
+    svc.close()
+    print(json.dumps({
+        "phase": "adaptive-ring-path", "run": "planner", "card": gpu,
+        "fitted_on": model["card"].get("nvidia_smi"),
+        "lanes": BATCH_B, "n_pad": bg.n_nodes_padded,
+        "e_pad": bg.n_edges_padded, "planned_bytes": planned,
+        "measured_bytes": measured, "plan_error": err,
+        "max_resid": model["max_resid"], "budget_bytes": budget,
+        "grow_planned_bytes": after, "grow_capacity": grown, "shed": shed,
+        "northstar": {k: capacity.northstar_plan()[k] for k in (
+            "global_bytes", "recommended_shards")},
+        "t_s": time.perf_counter() - T_START}), flush=True)
+
+
 RING_EXPECT = {"segment": ("ring_shift",),
                "mxu": ("ring_segsum", "segsum"),
                "hybrid": ("ring_shift", "segsum")}
@@ -5642,8 +6066,10 @@ def main() -> int:
     from p2pnetwork_tpu_torch import _build, _device, prng
     from p2pnetwork_tpu_torch import models as models_mod
     from p2pnetwork_tpu_torch.models import (SIR, AdaptiveFlood, Flood,
-                                             Gossip, PageRank, PushSum, base,
-                                             messagebatch, querybatch)
+                                             Gossip, HopDistance, PageRank,
+                                             PushSum, base, messagebatch,
+                                             querybatch)
+    from p2pnetwork_tpu_torch.analysis.ir import capacity
     from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
     from p2pnetwork_tpu_torch.ops import ring, rowsum, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
@@ -5769,6 +6195,16 @@ def main() -> int:
         models_mod, graph_mod, simnode)
     ring_walk_path(g, ring, segsum, threefry, rowsum, _device, sharded,
                    mesh_mod, models_mod.RandomWalks)
+    # 4u (slice 13), after 4t on phase 4's graph: the frontier-adaptive
+    # ring loop, the ring's recorder and the adaptive mesh node.
+    adaptive_launches = adaptive_ring_path(
+        g, seen, ring, segsum, threefry, rowsum, _device, sharded, mesh_mod,
+        flightrec, HopDistance)
+    node_launches = adaptive_node_path(
+        g, ring, segsum, threefry, rowsum, _device, mesh_mod, simnode,
+        node_mod, Flood, HopDistance)
+    for k, n in node_launches.items():
+        adaptive_launches[k] += n
     del g, seen
     torch.cuda.empty_cache()
 
@@ -5788,6 +6224,10 @@ def main() -> int:
                                           _device, sharded, mesh_mod,
                                           messagebatch, flush)
     del flush
+    # 4u (e): the same batched call with the ring's recorder.
+    lane_rec = lane_recorder_path(bg, ring, segsum, threefry, rowsum,
+                                  _device, sharded, mesh_mod, engine,
+                                  flightrec, messagebatch)
     # 4p's batch call with a recorder (slice 8), after 4j's and 4k's runs.
     rowsum_launches["dense"] = batch_recorder(
         bg, engine, segsum, threefry, _device, flightrec, messagebatch)
@@ -5796,6 +6236,8 @@ def main() -> int:
     # 4r (a), (b), (g) after 4q's drives on the same graph.
     chaos_serve_path(bg, serve, chaos, heal, slo_mod, httpd, telemetry,
                      segsum, threefry, _device)
+    # 4u (f): the memory planner against 4q's drive, and its gate.
+    planner_path(bg, serve, graph_mod, capacity, gpu)
     del bg
 
     # 4o (slice 7): the reordered builds, last.
@@ -5833,11 +6275,13 @@ def main() -> int:
             rows[0], launches + ring_launches["segsum"] + new_launches["or"]
             + lib_launches["or"] + reorder_launches + io_launches["or"]
             + sup_launches + heal_launches + fault_launches["segsum"]
-            + sim_launches["segsum"], max(max_err, ring_err["segsum"])),
+            + sim_launches["segsum"] + adaptive_launches["segsum"],
+            max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"]
             + fault_launches["ring_shift"] + sim_launches["ring_shift"]
-            + proto_launches["ring_shift"], ring_err["ring_shift"]),
+            + proto_launches["ring_shift"] + adaptive_launches["ring_shift"],
+            ring_err["ring_shift"]),
         row("ring_shift_f32", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (f32 payload)",
             next(r for r in ring_rows if r["kernel"] == "ring_shift"
@@ -5845,7 +6289,7 @@ def main() -> int:
             proto_launches["ring_shift_f32"], ring_err["ring_shift"]),
         row("ring_shift_lanes", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (the lane-word stack)",
-            lane_row, lane_hops, 0.0),
+            lane_row, lane_hops + lane_rec["ring_shift"], 0.0),
         row("ring_shift_i32", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (i32 payload)",
             proto_rows["ring_shift_i32"], proto_launches["ring_shift_i32"],
@@ -5858,7 +6302,8 @@ def main() -> int:
             "p2pnetwork_tpu/ops/pallas_ring.py:126",
             next(r for r in step_rows
                  if r["step"] == 0 and r["entry"] == "or"),
-            ring_launches["ring_segsum"] + sim_launches["ring_segsum"],
+            ring_launches["ring_segsum"] + sim_launches["ring_segsum"]
+            + adaptive_launches["ring_segsum"],
             max(ring_err["ring_segsum"], step_err)),
         row("ring_segsum_sum", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:126",
@@ -5898,7 +6343,7 @@ def main() -> int:
             "p2pnetwork_tpu/sim/engine.py:556 (jnp.sum of the lanes' "
             "counts, an XLA reduce; no TPU kernel)",
             rowsum_rows[f"lanes-{BATCH_B}"], rowsum_launches["dense"]
-            + proto_launches["row_sum"],
+            + proto_launches["row_sum"] + lane_rec["rowsum"],
             rowsum_rows[f"lanes-{BATCH_B}"]["max_abs_err"]),
         row("row_sum_shards", "rowsum.cu",
             "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "

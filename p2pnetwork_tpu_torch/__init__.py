@@ -20,7 +20,12 @@ Layout mirrors the reference so each counterpart is easy to find:
 - ``sim/engine.py`` — ``run`` / ``run_from``, ``run_until_coverage[_from]``
   and ``run_until_converged``, keyed as the reference's;
 - ``parallel/`` — the ring plane, all shards stacked on one card;
-- ``interop.py`` — builds port objects from a JAX graph/state/key's arrays.
+- ``interop.py`` — builds port objects from a JAX graph/state/key's arrays;
+- the sockets backend: ``node.py``, ``nodeconnection.py``, ``wire.py`` and
+  the node subclasses ``crdt.py``, ``phi.py``, ``causal.py``,
+  ``snapshot.py``, ``sync.py``, ``termination.py``, ``securenode.py`` and
+  ``coordnode.py`` (host code; the reference's modules with the imports
+  changed), exported here as the reference exports them.
 
 Every entry point takes ``device=None``, which means ``cuda``; without a
 card it raises unless the caller passes ``device="cpu"`` (see
@@ -28,3 +33,47 @@ card it raises unless the caller passes ``device="cpu"`` (see
 ``p2pnetwork_tpu``; importing it builds nothing (kernels compile on their
 first CUDA call, ``_build.py``).
 """
+
+from p2pnetwork_tpu_torch.config import (
+    MeshConfig,
+    NodeConfig,
+    SimConfig,
+    TopologyConfig,
+)
+from p2pnetwork_tpu_torch.node import Node
+from p2pnetwork_tpu_torch.nodeconnection import NodeConnection
+from p2pnetwork_tpu_torch.causal import CausalNode
+from p2pnetwork_tpu_torch.coordnode import CoordinateNode
+from p2pnetwork_tpu_torch.crdt import (
+    CRDTNode,
+    GCounter,
+    LWWRegister,
+    ORSet,
+    PNCounter,
+)
+from p2pnetwork_tpu_torch.phi import PhiAccrualNode
+from p2pnetwork_tpu_torch.securenode import SecureNode
+from p2pnetwork_tpu_torch.snapshot import SnapshotNode
+from p2pnetwork_tpu_torch.sync import SyncNode
+from p2pnetwork_tpu_torch.termination import TerminationNode
+
+__all__ = [
+    "Node",
+    "NodeConnection",
+    "MeshConfig",
+    "NodeConfig",
+    "SimConfig",
+    "TopologyConfig",
+    "CausalNode",
+    "CoordinateNode",
+    "CRDTNode",
+    "GCounter",
+    "PNCounter",
+    "LWWRegister",
+    "ORSet",
+    "PhiAccrualNode",
+    "SecureNode",
+    "SnapshotNode",
+    "SyncNode",
+    "TerminationNode",
+]

@@ -169,24 +169,20 @@ def key_from_numpy(data) -> np.ndarray:
     return prng.wrap_key_data(np.asarray(data))
 
 
-#: ``ShardedGraph`` fields the port does not read: carried as None.
-_SHARDED_UNPORTED = ("csr_pos", "csr_offsets")
-
-
 def sharded_graph_from_numpy(fields: dict, mesh: RingMesh) -> ShardedGraph:
     """The port's :class:`ShardedGraph` on ``mesh.device`` from a reference
     ``ShardedGraph``'s fields: the global ``[S, ...]`` arrays (``np.asarray``
     of a sharded JAX array gathers them), the static ints and
-    ``diag_pieces``. The dynamic region (runtime links) and the neighbor
-    table are carried; the sender-CSR view is dropped (nothing ported
-    reads it). ``mxu_extent``, the port's own field, is derived from the
-    MXU arrays as ``shard_graph`` derives it."""
+    ``diag_pieces``. The dynamic region (runtime links), the neighbor
+    table and the sender-CSR view are carried. ``mxu_extent``, the port's
+    own field, is derived from the MXU arrays as ``shard_graph`` derives
+    it."""
     if fields["n_shards"] != mesh.n_shards:
         raise ValueError(f"the fields are sharded {fields['n_shards']} ways, "
                          f"the mesh has {mesh.n_shards} shards")
     kw = {}
     for f in dataclasses.fields(ShardedGraph):
-        if f.name not in fields or f.name in _SHARDED_UNPORTED:
+        if f.name not in fields:
             continue
         v = fields[f.name]
         if f.name == "diag_pieces":

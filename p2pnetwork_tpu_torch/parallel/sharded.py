@@ -52,9 +52,19 @@ a shard (``"fold"``). The walk gathers each walker's out-edges through
 the per-shard sender-CSR view; the batched plane moves the lane-word
 stack ``[S, W, block]`` as the halo payload.
 
+Small frontiers skip the ring: ``adaptive_k > 0`` on
+:func:`flood_until_coverage` and :func:`hopdist_until_coverage` runs the
+frontier-adaptive wave (:class:`_AdaptiveWave`), gathering a small
+frontier's out-edges through the sender-CSR view and running a ring pass
+only when the frontier outgrows ``adaptive_k`` work items on some shard.
+The ring's flight recorder (``recorder=``) rides the dense flood and the
+lane ring, its ``ici_bytes`` column the reference's per-round byte
+estimate (``parallel/commviz.py``).
+
 Ported: :func:`shard_graph` (``mxu``, ``hybrid``, ``source_csr``; a
 graph's runtime links folded into the static buckets, its neighbor table
-carried), :func:`flood`, :func:`flood_until_coverage` (dense loop),
+carried), :func:`flood`, :func:`flood_until_coverage` (dense and
+frontier-adaptive loops, the recorder),
 :func:`propagate` (``or``, ``sum``, ``max``, ``minplus``), the liveness
 re-mask (:func:`with_node_liveness`, :func:`fail_nodes`,
 :func:`random_node_failures`), the dynamic region,
@@ -62,8 +72,8 @@ re-mask (:func:`with_node_liveness`, :func:`fail_nodes`,
 for every ring protocol, :func:`sir`, :func:`gossip`, :func:`pagerank`,
 :func:`pushsum`, :func:`hopdist`, their run-to-* loops,
 :func:`leader_until_quiet`, :func:`walk`, :func:`walk_until_coverage`,
-:func:`propagate_or_lanes` and :func:`run_batch_until_coverage`. Not yet:
-the frontier-adaptive loop and the ring's flight recorder.
+:func:`propagate_or_lanes` and :func:`run_batch_until_coverage` (with
+the recorder). Every ring function of the reference's is ported.
 """
 
 from __future__ import annotations
@@ -90,9 +100,10 @@ from p2pnetwork_tpu_torch.ops import frontier as F
 from p2pnetwork_tpu_torch.ops import ring, rowsum, segment, segsum
 from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.ops.diag import select_diagonals
+from p2pnetwork_tpu_torch.parallel import commviz
 from p2pnetwork_tpu_torch.parallel.auto import COMM_BACKENDS, resolve_comm
 from p2pnetwork_tpu_torch.parallel.mesh import DEFAULT_AXIS, RingMesh
-from p2pnetwork_tpu_torch.sim import engine
+from p2pnetwork_tpu_torch.sim import engine, flightrec
 from p2pnetwork_tpu_torch.sim.graph import _round_up
 from p2pnetwork_tpu_torch.telemetry import spans
 from p2pnetwork_tpu_torch.utils import accum
@@ -1066,11 +1077,13 @@ class _RingFlood:
         delivered = self.pass_(state.frontier)
         new = delivered & ~state.seen & sg.node_mask
         seen = state.seen | new
+        covered = (seen & sg.node_mask).sum()
         stats = {
             "messages": segment.frontier_messages(sg, state.frontier),
-            "coverage": live_coverage(sg, seen),
+            "coverage": _over_live(covered, sg),
             "frontier": new.sum(),
             "frontier_occupancy": F.occupancy(sg, new),
+            "covered": covered,
         }
         return FloodState(seen=seen, frontier=new), stats
 
@@ -1146,7 +1159,21 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
     Returns ``(seen [S, block], dict(rounds, coverage, messages,
     frontier_occupancy_mean))`` — the reference's dict, ``messages`` an
     exact int. ``state0``/``return_state`` as in :func:`flood`.
-    ``adaptive_k > 0`` and ``recorder`` are not ported yet.
+
+    ``adaptive_k > 0`` (a graph sharded with ``source_csr=True``) runs the
+    frontier-adaptive loop (:func:`_make_adaptive_wave`): rounds whose
+    frontier fits ``adaptive_k`` work items on every shard skip the ring
+    and gather the frontier's out-edges through the sender-CSR view; the
+    results equal the dense loop's bit for bit. It refuses a recorder and
+    a fault-spec comm, as the reference does.
+
+    ``recorder`` (a ``sim/flightrec.py`` ``FlightRecorder``, dense loop
+    only) keeps a row a round on the device and attaches
+    ``out["flight_record"]``: the round's occupancy, sends and running
+    total, the covered-node COUNT in the ``coverage`` column, and in
+    ``ici_bytes`` the loop's per-round byte estimate
+    (``parallel/commviz.py``, the same for both comms). The results equal
+    a run without it.
 
     ``comm`` also takes a ``chaos/device.FaultSpec``: the ring runs on its
     backend with its schedule's faults injected at the halo hops, keyed
@@ -1155,24 +1182,44 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
     would), and the faults the executed rounds hit are counted into
     ``chaos_device_faults_total{kind}`` after the run."""
     if adaptive_k > 0:
-        raise NotImplementedError(
-            "the frontier-adaptive ring loop (adaptive_k > 0) is not ported "
-            "yet")
-    if recorder is not None:
-        raise NotImplementedError(
-            "the ring's flight recorder (its ici_bytes column) is not "
-            "ported yet")
+        return _flood_adaptive(sg, mesh, source, coverage_target,
+                               max_rounds, state0, return_state, adaptive_k,
+                               comm, recorder)
     proto, state = _flood_start(sg, mesh, source, state0, comm,
                                 fault_round0)
+    row_of = None
+    if recorder is not None:
+        row_of = _flood_row_of(sg, proto.pass_.comm)
     # The flood draws nothing; the engine's key chain runs unread.
     state, out = engine.run_until_coverage_from(
         sg, proto, state, prng.key(0), coverage_target=coverage_target,
-        max_rounds=max_rounds)
+        max_rounds=max_rounds, recorder=recorder, row_of=row_of)
     _record_comm_faults(comm, out["rounds"], sg.n_shards,
                         round0=fault_round0)
     if return_state:
         return (state.seen, state.frontier), out
     return state.seen, out
+
+
+def _flood_row_of(sg: ShardedGraph, comm_obj):
+    """The recorded dense flood's row columns (the reference's): the
+    round's occupancy and sends, the running total's f32 view, the
+    covered-node count, one lane and the per-round byte estimate (one
+    device fill a run, no host -> device copy)."""
+    dev = sg.device
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    ici = torch.full((), float(commviz.ici_round_bytes(
+        "flood", sg.n_shards, sg.block, comm=comm_obj.backend)),
+        dtype=torch.float32, device=dev)
+
+    def row_of(stats, messages):
+        return dict(occupancy=stats["frontier_occupancy"],
+                    new=stats["messages"],
+                    total=flightrec.total_f32(*flightrec.limbs(messages)),
+                    coverage=stats["covered"], active_lanes=one,
+                    ici_bytes=ici)
+
+    return row_of
 
 
 # ------------------------------------------- generic value propagation
@@ -1663,12 +1710,14 @@ def hopdist_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, *,
     ``coverage_target`` or the wave dies out (an empty frontier), or
     ``max_rounds``. Returns ``((dist, frontier, round), dict(rounds,
     coverage, messages))``. The loop reads one flag a round.
-    ``adaptive_k > 0`` (the frontier-adaptive ring loop) is not ported
-    yet."""
+    ``adaptive_k > 0`` (a graph sharded with ``source_csr=True``) runs
+    small-frontier rounds through the frontier-adaptive wave (see
+    :func:`flood_until_coverage`); layers, rounds and messages equal the
+    dense loop's."""
     if adaptive_k > 0:
-        raise NotImplementedError(
-            "the frontier-adaptive ring loop (adaptive_k > 0) is not ported "
-            "yet: ROADMAP §A item 9")
+        return _hopdist_adaptive(sg, mesh, protocol, coverage_target,
+                                 max_rounds, axis_name, state0, adaptive_k,
+                                 comm)
     _check_mesh(sg, mesh)
     pass_ = _make_pass(sg, comm, "or", axis_name)
     dist, frontier, rnd = _hopdist_state0(sg, protocol, state0)
@@ -1706,6 +1755,327 @@ def hopdist_until_done(sg: ShardedGraph, mesh: RingMesh, protocol, *,
         sg, mesh, protocol, coverage_target=2.0, max_rounds=max_rounds,
         axis_name=axis_name, state0=state0, adaptive_k=adaptive_k,
         comm=comm)
+
+
+# ----------------------------------------- frontier-adaptive coverage loop
+#
+# The reference's ``_make_adaptive_wave``: rounds whose global frontier is
+# small skip the ring. The frontier rides as one replicated list of node
+# ids, and each shard gathers only its own edges from those senders
+# through the sender-CSR view, in W-wide work items; the round runs dense
+# (one ring OR pass) when the largest per-shard item count exceeds ``k``.
+# On one card the all-gather of the per-shard lists is the stacked ``[S,
+# k]`` tensor itself. Where the reference branches on the device
+# (``lax.cond``), the port reads the item budget on the host once a round
+# (one sync, counted in ``_device.SYNCS``); every other choice stays on
+# the device: ``nonzero(size=k)`` is a cumsum + scatter compaction and the
+# dense round's re-entry compaction is a ``torch.where`` over both
+# results, exact because the budget saturates past ``k``.
+
+#: The 0-based rounds of the latest frontier-adaptive ring run that took
+#: the sparse path (the host reads the branch each round anyway).
+LAST_SPARSE_ROUNDS: list = []
+
+#: The first-claim dedup's losing claim.
+_BIG = 2**31 - 1
+
+
+def _compact_rows(flags: torch.Tensor, k: int, fill: int) -> torch.Tensor:
+    """``ops/frontier.compact`` along dim 1 of ``flags [S, n]``: each
+    row's first ``k`` set positions, ascending, then ``fill``. i64[S, k].
+    The ranks come from one scan of the flattened flags less each row's
+    start (a scan along rows of 125,008 runs one block a row)."""
+    S, n = flags.shape
+    flat = torch.cumsum(flags.reshape(-1), 0, dtype=torch.int64).reshape(S, n)
+    starts = flat[:, -1] - flags.sum(1, dtype=torch.int64)
+    rank = flat - starts[:, None] - 1
+    target = torch.where(flags & (rank < k), rank, k)
+    buf = torch.full((S, k + 1), fill, dtype=torch.int64, device=flags.device)
+    # Unset flags all land in the spare column k, which is dropped.
+    buf.scatter_(1, target, torch.arange(n, device=flags.device).expand(S, n))
+    return buf[:, :k]
+
+
+def _set_true_rows(flags: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``flags[d].at[idx[d]].set(True, mode="drop")`` per row, index
+    ``n`` the drop sentinel. Contiguous, as the ring's hop needs it."""
+    S, n = flags.shape
+    out = torch.cat([flags, flags.new_zeros(S, 1)], dim=1)
+    out.scatter_(1, idx.long(), torch.ones_like(idx, dtype=torch.bool))
+    return out[:, :n].contiguous()
+
+
+def _pack_global_frontier(k: int, local_ids: torch.Tensor,
+                          local_count: torch.Tensor, pad_id: int):
+    """The per-shard winner lists ``[S, k]`` packed at running offsets
+    into one replicated ``i32[k]`` list, and the total count. Truncation
+    past ``k`` is benign: the total then exceeds ``k`` and the next round
+    runs dense, never reading the list."""
+    S = local_ids.shape[0]
+    counts = local_count.to(torch.int64)
+    offs = torch.cumsum(counts, 0) - counts
+    idx = torch.arange(k, device=local_ids.device)
+    tpos = offs[:, None] + idx
+    valid = (idx < counts[:, None]) & (tpos < k)
+    out = torch.full((k + 1,), pad_id, dtype=torch.int32,
+                     device=local_ids.device)
+    # Valid positions are disjoint across shards; the rest hit slot k.
+    out.scatter_(0, torch.where(valid, tpos, k).reshape(-1),
+                 torch.where(valid, local_ids, pad_id).to(torch.int32)
+                 .reshape(-1))
+    return out[:k], counts.sum().to(torch.int32)
+
+
+class _AdaptiveWave:
+    """The adaptive wave's pieces over the stacked shards (the
+    reference's ``_make_adaptive_wave`` closures): :meth:`my_new_ids`,
+    :meth:`item_budget`, :meth:`sparse_round`, :meth:`dense_round` and
+    :meth:`round`, which picks one by the budget. Both rounds map ``(seen,
+    frontier, F, fncount)`` to ``(seen, frontier, F, fncount, ficount,
+    msgs)``; ``F`` is the replicated ``i32[k]`` frontier list, ``fncount``
+    its node count, ``ficount`` its work-item budget."""
+
+    def __init__(self, sg: ShardedGraph, comm, k: int, axis_name: str):
+        S, block = sg.n_shards, sg.block
+        self.sg, self.k = sg, int(k)
+        self.pass_ = _make_pass(sg, comm, "or", axis_name)
+        self.span = max(sg.csr_span, 1)
+        self.w = max(1, min(self.span, 128))  # work-item slice width
+        self.pad_id = S * block - 1
+        dev = sg.device
+        self.idx_k = torch.arange(self.k, device=dev)
+        self.my = torch.arange(S, device=dev)
+        self.lanes = torch.arange(self.w, device=dev)
+        self.flat_mask = sg.bkt_mask.reshape(S, -1)
+        self.flat_dst = sg.bkt_dst.reshape(S, -1)
+        self.offs = sg.csr_offsets.long()  # gathered twice a sparse round
+        self.n_rounds = 0
+        self.sparse_rounds = []
+
+    def my_new_ids(self, new: torch.Tensor, local_count: torch.Tensor):
+        """Each shard's new nodes as global ids, ``[S, k]``-padded."""
+        lpos = _compact_rows(new, self.k, self.sg.block - 1)
+        ids = self.my[:, None] * self.sg.block + lpos
+        return torch.where(self.idx_k < local_count[:, None], ids,
+                           self.pad_id)
+
+    def pack(self, new: torch.Tensor):
+        """The replicated list and count of the frontier ``new [S,
+        block]``."""
+        count = new.sum(1, dtype=torch.int32)
+        return _pack_global_frontier(self.k, self.my_new_ids(new, count),
+                                     count, self.pad_id)
+
+    def item_budget(self, F: torch.Tensor, ncount: torch.Tensor):
+        """The sparse-mode budget of list ``F``: the largest per-shard
+        W-slice work-item count (the reference's ``pmax``), saturated at
+        ``k + 1`` when the node list itself overflowed."""
+        fvalid = self.idx_k < ncount
+        f = torch.where(fvalid, F, self.pad_id).long()
+        offs = self.sg.csr_offsets
+        row_len = offs[:, f + 1] - offs[:, f]
+        items = torch.where(fvalid, (row_len + self.w - 1) // self.w, 0)
+        icount = items.sum(1).max().to(torch.int32)
+        return torch.where(ncount > self.k, self.k + 1, icount)
+
+    def _slots(self, F, fvalid):
+        """``(slot, svalid)``, ``[S, k, w]`` positions in each shard's
+        sender-CSR rows of the list's work items."""
+        S, k, w = self.sg.n_shards, self.k, self.w
+        f = torch.where(fvalid, F, self.pad_id).long()
+        base_row, row_end = self.offs[:, f], self.offs[:, f + 1]  # [S, k]
+        if self.span <= w:
+            # No row is wider than a slice: item p is list entry p (the
+            # node count is <= k in sparse mode).
+            slot = base_row[..., None] + self.lanes
+            return slot, (slot < row_end[..., None]) & fvalid[:, None]
+        # Rows wider than a slice: expand the list into this shard's work
+        # items (cumsum + searchsorted over k entries).
+        items_per = torch.where(fvalid, (row_end - base_row + w - 1) // w, 0)
+        c = torch.cumsum(items_per, 1)
+        starts = c - items_per
+        idx = self.idx_k.expand(S, k).contiguous()
+        j = torch.searchsorted(c, idx, right=True).clamp(0, k - 1)
+        base = base_row.gather(1, j) + (idx - starts.gather(1, j)) * w
+        slot = base[..., None] + self.lanes
+        svalid = (slot < row_end.gather(1, j)[..., None]) \
+            & (idx < c[:, -1:])[..., None]
+        return slot, svalid
+
+    def sparse_round(self, seen, frontier, F, fncount):
+        sg, k = self.sg, self.k
+        S, block, nm = sg.n_shards, sg.block, sg.node_mask
+        msgs = segment.frontier_messages(sg, frontier)
+        fvalid = self.idx_k < fncount
+        slot, svalid = self._slots(F, fvalid)
+        svalid = svalid.reshape(S, -1)
+        pos = sg.csr_pos.gather(
+            1, torch.where(svalid, slot.reshape(S, -1), 0)).long()
+        evalid = svalid & self.flat_mask.gather(1, pos)
+        cand = torch.where(evalid, self.flat_dst.gather(1, pos),
+                           block - 1).long()
+        fresh = evalid & ~seen.gather(1, cand) & nm.gather(1, cand)
+        if sg.dyn_capacity:
+            # The frontier's runtime links: the global sender from the
+            # ring step, membership by binary search in the sorted list
+            # (the -1 sentinel never matches a node).
+            t = self.my[None, :, None]
+            g_send = (((self.my[:, None, None] - t) % S) * block
+                      + sg.dyn_src).reshape(-1)
+            probe = torch.sort(torch.where(fvalid, F, -1).long()).values
+            j = torch.searchsorted(probe, g_send).clamp(0, k - 1)
+            member = (probe[j] == g_send).reshape(S, -1) \
+                & sg.dyn_mask.reshape(S, -1)
+            dcand = torch.where(member, sg.dyn_dst.reshape(S, -1),
+                                block - 1).long()
+            dfresh = member & ~seen.gather(1, dcand) & nm.gather(1, dcand)
+            cand = torch.cat([cand, dcand], 1)
+            fresh = torch.cat([fresh, dfresh], 1)
+        # First-claim dedup onto each shard's own block: each fresh slot
+        # claims its receiver with its position, the least claim wins.
+        n_slots = cand.shape[1]
+        order = torch.arange(n_slots, dtype=torch.int32, device=sg.device)
+        claim = torch.where(fresh, order, _BIG)
+        scratch = torch.full((S, block), _BIG, dtype=torch.int32,
+                             device=sg.device)
+        scratch.scatter_reduce_(1, cand, claim, "amin")
+        winner = fresh & (scratch.gather(1, cand) == order)
+        local_count = winner.sum(1, dtype=torch.int32)
+        seen = _set_true_rows(seen, torch.where(fresh, cand, block))
+        frontier = _set_true_rows(torch.zeros_like(seen),
+                                  torch.where(winner, cand, block))
+        wpos = _compact_rows(winner, k, n_slots - 1)
+        local_ids = torch.where(self.idx_k < local_count[:, None],
+                                self.my[:, None] * block
+                                + cand.gather(1, wpos), self.pad_id)
+        F, ncount = _pack_global_frontier(k, local_ids, local_count,
+                                          self.pad_id)
+        return seen, frontier, F, ncount, self.item_budget(F, ncount), msgs
+
+    def dense_round(self, seen, frontier, F, fncount):
+        sg = self.sg
+        msgs = segment.frontier_messages(sg, frontier)
+        new = self.pass_(frontier) & ~seen & sg.node_mask
+        seen = seen | new
+        Fc, ncount = self.pack(new)
+        # The budget saturates when ncount > k, so the stale list kept
+        # then is never read.
+        F = torch.where(ncount <= self.k, Fc, F)
+        return seen, new, F, ncount, self.item_budget(F, ncount), msgs
+
+    def round(self, seen, frontier, F, fncount, ficount):
+        """One round, sparse when the budget fits ``k`` (one host read)."""
+        self.n_rounds += 1
+        if _device.host_bool(ficount <= self.k):
+            self.sparse_rounds.append(self.n_rounds - 1)
+            return self.sparse_round(seen, frontier, F, fncount)
+        return self.dense_round(seen, frontier, F, fncount)
+
+
+@dataclasses.dataclass(frozen=True)
+class _AdaptiveFloodState:
+    seen: torch.Tensor  # bool[S, block]
+    frontier: torch.Tensor  # bool[S, block]
+    F: torch.Tensor  # i32[k], replicated frontier list
+    fncount: torch.Tensor  # i32[]
+    ficount: torch.Tensor  # i32[]
+
+
+@dataclasses.dataclass(frozen=True)
+class _RingAdaptiveFlood:
+    """The adaptive wave's round as a protocol of the port's engine, with
+    :class:`_RingFlood`'s stats, so the summary is the dense loop's."""
+
+    wave: _AdaptiveWave
+
+    STATS = _RingFlood.STATS
+
+    def coverage(self, sg, state) -> torch.Tensor:
+        return live_coverage(sg, state.seen)
+
+    def step(self, sg, state: _AdaptiveFloodState, key):
+        seen, frontier, F_, fncount, ficount, msgs = self.wave.round(
+            state.seen, state.frontier, state.F, state.fncount,
+            state.ficount)
+        stats = {
+            "messages": msgs,
+            "coverage": live_coverage(sg, seen),
+            "frontier": fncount,
+            "frontier_occupancy": F.occupancy(sg, frontier),
+        }
+        return _AdaptiveFloodState(seen, frontier, F_, fncount,
+                                   ficount), stats
+
+
+def _adaptive_wave(sg, mesh, comm, adaptive_k, axis_name):
+    """Check the adaptive loop's graph and build its wave."""
+    if sg.csr_pos is None:
+        raise ValueError(
+            "adaptive_k requires a sender-CSR sharded graph — build "
+            "with shard_graph(source_csr=True)")
+    _check_mesh(sg, mesh)
+    return _AdaptiveWave(sg, comm, adaptive_k, axis_name)
+
+
+def _flood_adaptive(sg, mesh, source, coverage_target, max_rounds, state0,
+                    return_state, adaptive_k, comm, recorder):
+    """:func:`flood_until_coverage` on the adaptive wave, through the
+    engine's coverage loop: its exit flag and the wave's branch are the
+    two host reads a round."""
+    if recorder is not None:
+        raise ValueError(
+            "the flight recorder is not supported on the adaptive "
+            "frontier-sparse path — record the dense loop (adaptive_k=0)")
+    if not isinstance(comm, str):
+        raise ValueError(
+            "fault-spec comms are not supported on the adaptive "
+            "frontier-sparse path — inject on the dense loop (adaptive_k=0)")
+    wave = _adaptive_wave(sg, mesh, comm, adaptive_k, mesh.axis_name)
+    seen0, frontier0 = state0 if state0 is not None \
+        else init_state(sg, Flood(source=source))
+    F0, ncount0 = wave.pack(frontier0)
+    state = _AdaptiveFloodState(seen0, frontier0, F0, ncount0,
+                                wave.item_budget(F0, ncount0))
+    state, out = engine.run_until_coverage_from(
+        sg, _RingAdaptiveFlood(wave), state, prng.key(0),
+        coverage_target=coverage_target, max_rounds=max_rounds)
+    LAST_SPARSE_ROUNDS[:] = wave.sparse_rounds
+    if return_state:
+        return (state.seen, state.frontier), out
+    return state.seen, out
+
+
+def _hopdist_adaptive(sg, mesh, protocol, coverage_target, max_rounds,
+                      axis_name, state0, adaptive_k, comm):
+    """:func:`hopdist_until_coverage` on the adaptive wave: the dense BFS
+    loop's exit rule (coverage, wave death or ``max_rounds``), ``seen``
+    carried beside ``dist``, one exit read and one branch read a
+    round."""
+    wave = _adaptive_wave(sg, mesh, comm, adaptive_k, axis_name)
+    dist, frontier, rnd = _hopdist_state0(sg, protocol, state0)
+    nm = sg.node_mask
+    n = _n_live(sg).to(torch.float32)
+    target = torch.tensor(coverage_target, dtype=torch.float32,
+                          device=sg.device)
+    seen = (dist >= 0) & nm
+    F_, fncount = wave.pack(frontier)
+    ficount = wave.item_budget(F_, fncount)
+    covered = seen.sum(dtype=torch.int32)
+    messages = torch.zeros((), dtype=torch.int64, device=sg.device)
+    rounds = 0
+    while rounds < max_rounds and _device.host_bool(
+            (fncount > 0) & (covered.to(torch.float32) / n < target)):
+        seen, frontier, F_, fncount, ficount, msgs = wave.round(
+            seen, frontier, F_, fncount, ficount)
+        messages = messages + msgs
+        rnd = rnd + 1
+        dist = torch.where(frontier, rnd, dist)
+        covered = (seen & nm).sum(dtype=torch.int32)
+        rounds += 1
+    LAST_SPARSE_ROUNDS[:] = wave.sparse_rounds
+    return (dist, frontier, rnd), {
+        "rounds": rounds, "coverage": float(covered.to(torch.float32) / n),
+        "messages": int(messages)}
 
 
 # ---------------------------------------------------------- leader election
@@ -2045,13 +2415,15 @@ def propagate_or_lanes(sg: ShardedGraph, mesh: RingMesh, lanes: torch.Tensor,
     return pass_(lanes) & _node_lanes(sg)
 
 
-def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0):
+def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
     """``engine``'s batched loop on the ring, lane for lane
     ``BatchFlood.step``: the same dedup against node-masked words, the
     per-lane coverage numerators by ``lane_counts`` over every shard, the
     latch, the per-word sends and the union-frontier occupancy. One exit
     flag read a round. Returns the final ``[S, W, block]`` planes, the
-    lane metadata and the run's device totals."""
+    lane metadata and the run's device totals. With ``ring`` (a flight
+    ring) each round writes the engine's batch row, with the loop's
+    per-round byte estimate in ``ici_bytes``."""
     dev = sg.device
     wire = fault_round0 is not None and getattr(pass_.comm, "wants_step",
                                                 False)
@@ -2065,6 +2437,10 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0):
     W = seen.shape[1]
     messages = torch.zeros((), dtype=torch.int64, device=dev)
     occ = torch.zeros((), dtype=torch.float32, device=dev)
+    if ring is not None:
+        ici = torch.full((), float(commviz.ici_round_bytes(
+            "batch", sg.n_shards, sg.block, n_words=W,
+            comm=pass_.comm.backend)), dtype=torch.float32, device=dev)
     r = 0
     while r < max_rounds and _device.host_bool((admitted & ~done).any()):
         if wire:
@@ -2074,15 +2450,26 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0):
         front = frontier & live_mask
         new = pass_(front) & node_lanes & ~seen & live_mask
         seen, sent = seen | new, sent | front
-        messages = messages + (deg * BS.popcount_words(front)).sum()
+        words = (deg * BS.popcount_words(front)).sum(dim=(0, 2))
+        messages = messages + words.sum()
         seen_count = seen_count + BS.lane_counts(
             new.transpose(0, 1).reshape(W, -1)).reshape(-1)
         done = done | (admitted & (seen_count.to(torch.float32) / n_live
                                    >= target))
         rounds_l = rounds_l + live.to(torch.int32)
-        frontier = new & BS.pack_bits(admitted & ~done)[None, :, None]
-        occ = occ + ((frontier != 0).any(dim=1) & nm).sum().to(
+        running = admitted & ~done
+        frontier = new & BS.pack_bits(running)[None, :, None]
+        occ_r = ((frontier != 0).any(dim=1) & nm).sum().to(
             torch.float32) / n_live
+        occ = occ + occ_r
+        if ring is not None:
+            # The engine's batch row; f32 sums in XLA's order.
+            flightrec.write_row(
+                ring, r, occupancy=occ_r,
+                new=accum.ordered_sum(words.to(torch.float32)),
+                total=flightrec.total_f32(*flightrec.limbs(messages)),
+                coverage=accum.ordered_sum(seen_count.to(torch.float32)),
+                active_lanes=running.sum(dtype=torch.int32), ici_bytes=ici)
         r += 1
     return ((seen, frontier, sent), (done, rounds_l, seen_count),
             (r, messages, occ))
@@ -2105,15 +2492,14 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
     ``donate`` has no effect (torch has no buffer donation). Needs the
     segment layout. ``comm`` also takes a ``chaos/device.FaultSpec``, its
     hop faults keyed on the global round ``fault_round0 + r`` and counted
-    after the run. ``recorder`` (the ring's flight recorder) is not ported
-    yet."""
+    after the run. ``recorder`` (a ``FlightRecorder``) writes the engine
+    loop's row a round (the same columns, and in ``ici_bytes`` the
+    loop's per-round byte estimate, ``parallel/commviz.py``) and
+    attaches ``out["flight_record"]``; the results equal a run without
+    it."""
     chaos_device.dispatch_gate("sharded-batch")
     _require_lanes_layout(sg, "sharded run_batch_until_coverage")
     _check_mesh(sg, mesh)
-    if recorder is not None:
-        raise NotImplementedError(
-            "the ring's flight recorder (its ici_bytes column) is not "
-            "ported yet: ROADMAP §A item 13")
     del key, donate  # the batched flood draws nothing; no donation
     t0 = time.perf_counter()
     n_pad = batch.seen.shape[1]
@@ -2134,8 +2520,9 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
             done=batch.done | (batch.admitted & (seen_count.to(
                 torch.float32) / n_live >= batch.target)))
         pass_ = _make_or_lanes_pass(sg, comm, axis_name)
+        ring = None if recorder is None else recorder.init(sg.device)
         planes, lanes, (r, messages, occ) = _ring_batch_loop(
-            sg, pass_, batch, max_rounds, fault_round0)
+            sg, pass_, batch, max_rounds, fault_round0, ring)
         done, rounds_l, seen_count = lanes
         rounds = torch.tensor(r, dtype=torch.int32, device=sg.device)
         packed = accum.pack_batch_summary(
@@ -2146,6 +2533,8 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
         out = accum.unpack_batch_summary(host, batch.n_words)
         _record_comm_faults(comm, out["rounds"], sg.n_shards,
                             round0=fault_round0)
+        if ring is not None:
+            out["flight_record"] = flightrec.trim(ring, out["rounds"])
         seen, frontier, sent = (unshard_lanes(sg, p, n_pad) for p in planes)
         batch = dataclasses.replace(
             batch, seen=seen, frontier=frontier, sent=sent, done=done,
@@ -2155,6 +2544,6 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
         if snap is not None:
             engine._emit_batch_exit_events(snap[0], snap[1], out)
         engine._record_batch_summary(
-            t2 - t0, t2 - t1, engine._nbytes(packed), out, newly_rounds,
+            t2 - t0, t2 - t1, engine._nbytes(packed, ring), out, newly_rounds,
             type(protocol).__name__)
     return batch, out

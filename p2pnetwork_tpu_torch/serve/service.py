@@ -47,9 +47,11 @@ folds each package's own ``sim/layoutcache.py`` sources, so the port
 raises :class:`GraphMismatch` on the reference's trail. The journal
 crosses. ``heal=`` runs each tick's engine chunk under the self-healing
 plane's ``Healer`` (``supervise/heal.py``) and ``slo=`` feeds an SLO
-engine (``telemetry/slo.py``), as in the reference;
-``hbm_budget_bytes=`` raises ``NotImplementedError``: a memory planner
-fitted on the card is queued in ROADMAP §A item 7.1.
+engine (``telemetry/slo.py``), as in the reference.
+``hbm_budget_bytes=`` prices every submit and grow against the memory
+planner (``analysis/ir/capacity.py``, coefficients fitted on the card)
+and sheds what plans past the budget with :class:`MemoryBudgetExceeded`,
+before any allocation.
 
 Threading: control-plane state (tickets, queue, quotas, counters) is
 guarded by one condition; the device-side batch is confined to the
@@ -72,6 +74,7 @@ import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import _device, concurrency, prng, telemetry
+from p2pnetwork_tpu_torch.analysis.ir import capacity as _capacity
 from p2pnetwork_tpu_torch.models.messagebatch import BatchFlood
 from p2pnetwork_tpu_torch.serve.journal import Journal
 from p2pnetwork_tpu_torch.serve.journal import clear_segments as _clear_journal
@@ -229,11 +232,11 @@ class QuotaExceeded(Rejected):
 
 
 class MemoryBudgetExceeded(Rejected):
-    """A memory plan priced this admission (or growth) past the
-    service's ``hbm_budget_bytes``. Kept for the reference's API: the
-    port has no memory planner fitted on the card yet, so
-    ``hbm_budget_bytes`` is refused at construction and nothing raises
-    this."""
+    """The memory plan prices this admission (or growth) past the
+    service's ``hbm_budget_bytes``: refused up front with the planned
+    numbers, never an out-of-memory error mid-tick. The plan comes from
+    the checked-in coefficients (``analysis/ir/capacity.py``), so the
+    check is host arithmetic."""
 
     reason = "memory_budget"
 
@@ -390,9 +393,11 @@ class SimService:
         budget that tick. Only deterministic streams may carry the
         signal, so seeded replays stay identical.
     hbm_budget_bytes:
-        Must be ``None``: a memory planner fitted on the card is not
-        ported yet (ROADMAP §A item 7.1); anything else raises
-        ``NotImplementedError``.
+        Per-card device-memory budget of the serving program, or
+        ``None`` (no gate). Construction refuses a budget of 0 or less,
+        a missing capacity model and a graph that plans over it; submits
+        and grows that plan over it (pending growth included) shed with
+        :class:`MemoryBudgetExceeded`.
     deadline_s / on_stall:
         Optional supervise-plane watchdog over driver ticks (heartbeat
         per tick; see supervise/watchdog.py for the stall modes).
@@ -422,11 +427,6 @@ class SimService:
                  idle_wait_s: float = 0.05,
                  hbm_budget_bytes: Optional[float] = None,
                  registry: Optional[telemetry.Registry] = None):
-        if hbm_budget_bytes is not None:
-            raise NotImplementedError(
-                "hbm_budget_bytes= needs a memory planner fitted on the "
-                "card (the reference's coefficients were fitted on a TPU), "
-                "which the port does not have yet: ROADMAP §A item 7.1")
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         if queue_depth < 0:
@@ -487,6 +487,36 @@ class SimService:
                 raise ValueError("slo_rounds must be > 0 (None disables "
                                  "the AIMD controller)")
         self.slo_rounds = slo_rounds
+        # The memory-plan admission gate: price the serving program's
+        # per-card footprint from the checked-in coefficients and refuse
+        # submits/grows that plan past the budget. `is not None`: 0 must
+        # be a loud error.
+        if hbm_budget_bytes is not None:
+            hbm_budget_bytes = float(hbm_budget_bytes)
+            if hbm_budget_bytes <= 0:
+                raise ValueError("hbm_budget_bytes must be > 0 (None "
+                                 "disables the memory-budget gate)")
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self._cap_model: Optional[dict] = None
+        if hbm_budget_bytes is not None:
+            # Loaded once: admission stays host arithmetic, not a JSON
+            # read per submit.
+            self._cap_model = _capacity.load_membudgets().get(
+                "capacity_model")
+            planned = self._planned_footprint_bytes(graph.n_nodes_padded)
+            if planned is None:
+                raise ValueError(
+                    "hbm_budget_bytes is set but no capacity model is "
+                    "available (membudgets.json lacks `capacity_model`) "
+                    "— fit one on the card with tools/fit_capacity.py "
+                    "or drop the knob")
+            if planned > hbm_budget_bytes:
+                # Construction over budget is operator error, not load:
+                # a shed here would reject every submit forever.
+                raise ValueError(
+                    f"graph plans {planned} bytes/chip at construction, "
+                    f"over hbm_budget_bytes={int(hbm_budget_bytes)} — "
+                    "shard the overlay or raise the budget")
         self._record_seen_hash = bool(record_seen_hash)
         self.idle_wait_s = float(idle_wait_s)
         self.deadline_s = deadline_s
@@ -862,6 +892,28 @@ class SimService:
                 self._slo.record("shed", 1.0)
             raise reject
 
+    def _planned_footprint_bytes(self, n_padded: int) -> Optional[int]:
+        """Per-card planned bytes of the serving program at a node
+        capacity (the planner's closed form, host arithmetic). None when
+        no capacity model is available, which construction refuses
+        whenever the gate is on."""
+        lane_words = -(-self.capacity // 32)
+        return _capacity.serving_footprint_bytes(
+            int(n_padded), int(self.graph.n_edges_padded), lane_words,
+            model=self._cap_model)
+
+    def _planned_capacity_nodes(self, extra_nodes: int = 0) -> int:
+        """Padded node capacity once every queued grow (plus
+        ``extra_nodes``) lands: the geometric repad schedule
+        (``graph.growth_capacity``) applied to the pending demand. Caller
+        holds ``self._cond`` (reads ``_mutations``)."""
+        demand = self.graph.n_nodes + int(extra_nodes) + sum(
+            p for k, p, _s in self._mutations if k == "grow")
+        current = self.graph.n_nodes_padded
+        if demand <= current:
+            return current
+        return graph_mod.growth_capacity(demand, current)
+
     def grow(self, n_new_nodes: int) -> None:
         """Queue live overlay growth: ``n_new_nodes`` fresh live nodes
         (ids continuing from the current count) join at the next tick's
@@ -885,6 +937,21 @@ class SimService:
                     f"durability lost ({self._durability_lost}) — the "
                     "journal cannot acknowledge this growth",
                     detail=self._durability_lost)
+            elif self.hbm_budget_bytes is not None:
+                planned_cap = self._planned_capacity_nodes(n_new_nodes)
+                planned = self._planned_footprint_bytes(planned_cap)
+                if planned is not None and planned > self.hbm_budget_bytes:
+                    # Refused before the mutation queues: a growth planned
+                    # over budget never reaches the mutate phase, where
+                    # the repad would run out of memory mid-tick.
+                    reject = MemoryBudgetExceeded(
+                        f"growth to {planned_cap} padded nodes plans "
+                        f"{planned} bytes/chip, over hbm_budget_bytes="
+                        f"{int(self.hbm_budget_bytes)} — shard or raise "
+                        "the budget",
+                        planned_bytes=int(planned),
+                        hbm_budget_bytes=int(self.hbm_budget_bytes),
+                        planned_capacity=int(planned_cap))
             if reject is None:
                 try:
                     seq = self._journal_append_locked("grow",
@@ -917,8 +984,10 @@ class SimService:
         Sheds instead of erroring when the service is saturated: every
         lane busy and the FIFO at ``queue_depth`` raises
         :class:`QueueFull`; an empty tenant token bucket raises
-        :class:`QuotaExceeded` — both carry the backpressure numbers and
-        count into ``serve_rejected_total{reason}``. A bad
+        :class:`QuotaExceeded`; a planned footprint past
+        ``hbm_budget_bytes`` (pending growth included) raises
+        :class:`MemoryBudgetExceeded` — all carry the backpressure
+        numbers and count into ``serve_rejected_total{reason}``. A bad
         ``source`` is a caller error (plain ``ValueError``), not a
         shed."""
         source = int(source)
@@ -943,6 +1012,10 @@ class SimService:
             if self._closed:
                 raise ServiceClosed(
                     self._driver_error or "service is closed")
+            planned = None
+            if self.hbm_budget_bytes is not None:
+                planned = self._planned_footprint_bytes(
+                    self._planned_capacity_nodes())
             if self._durability_lost is not None:
                 # Loud degradation (graftdur): an un-journalable submit
                 # must never be acknowledged — it would vanish on the
@@ -951,6 +1024,16 @@ class SimService:
                     f"durability lost ({self._durability_lost}) — "
                     "shedding until the service is reconstructed on a "
                     "healthy volume", detail=self._durability_lost)
+            elif planned is not None and planned > self.hbm_budget_bytes:
+                # Over plan (queued growth repads past the budget): stop
+                # taking load before the repad lands.
+                reject = MemoryBudgetExceeded(
+                    f"planned footprint {planned} bytes/chip over "
+                    f"hbm_budget_bytes={int(self.hbm_budget_bytes)} "
+                    "(pending growth repads past the plan) — back off",
+                    planned_bytes=int(planned),
+                    hbm_budget_bytes=int(self.hbm_budget_bytes),
+                    planned_capacity=int(self._planned_capacity_nodes()))
             elif tenant in self._quotas and self._buckets.get(tenant, 0.0) < 1.0:
                 reject = QuotaExceeded(
                     f"tenant {tenant!r} out of quota this tick "

@@ -171,7 +171,7 @@ def _freeze(live: torch.Tensor, new, old):
 
 def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
                 keep_going, value0, loop: str, value_name: str = "value",
-                steps_per_round: int = 1, ring=None):
+                steps_per_round: int = 1, ring=None, row_of=None):
     """Run protocol rounds while ``keep_going(value, rounds)`` holds, where
     ``value`` is the last round's ``stats[stat]`` (``value0`` before any).
     Returns ``(state, summary dict)`` with ``rounds``, ``value_name``
@@ -180,7 +180,9 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
     the history ring under ``loop``. ``ring`` (a flight-recorder ring)
     gets a row per applied round: the tracked stat in the ``coverage``
     column, the running total through ``flightrec.total_f32``; the
-    summary then carries ``flight_record``."""
+    summary then carries ``flight_record``. ``row_of(stats, messages)``,
+    when given, supplies the row's columns in their place (the ring's
+    flood records its own)."""
     t0 = time.perf_counter()
     T = int(steps_per_round)
     if T < 1:
@@ -208,7 +210,10 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
             # to its u32 limb does.
             messages = messages + torch.where(
                 live, stats["messages"], 0).to(torch.int64)
-            if ring is not None:
+            if ring is not None and row_of is not None:
+                flightrec.write_row(ring, applied + j, live=live,
+                                    **row_of(stats, messages))
+            elif ring is not None:
                 flightrec.write_row(
                     ring, applied + j, live=live,
                     occupancy=stats.get("frontier_occupancy", zero),
@@ -325,23 +330,25 @@ def run_until_coverage(graph: Graph, protocol, key, *,
 def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
                             coverage_target: float = 0.99,
                             max_rounds: int = 1024,
-                            steps_per_round: int = 1, recorder=None):
+                            steps_per_round: int = 1, recorder=None,
+                            row_of=None):
     """Run-to-coverage continuing from ``state0`` (not modified). The loop
     starts from ``state0``'s true coverage where the protocol can say it,
     so resuming a finished run executes zero rounds. ``recorder`` (a
     ``FlightRecorder``) adds ``out["flight_record"]``, one row per applied
-    round at any ``steps_per_round``."""
+    round at any ``steps_per_round``; ``row_of`` as in
+    :func:`_stat_while`."""
     chaos_device.dispatch_gate("engine-coverage")
     return _coverage_from(graph, protocol, state0, key, "coverage_from",
                           coverage_target=coverage_target,
                           max_rounds=max_rounds,
                           steps_per_round=steps_per_round,
-                          recorder=recorder)
+                          recorder=recorder, row_of=row_of)
 
 
 def _coverage_from(graph: Graph, protocol, state0, key, loop: str, *,
                    coverage_target: float, max_rounds: int,
-                   steps_per_round: int, recorder=None):
+                   steps_per_round: int, recorder=None, row_of=None):
     _require_stats(protocol, ("coverage", "messages"))
     target = torch.tensor(coverage_target, dtype=torch.float32,
                           device=graph.device)
@@ -352,7 +359,8 @@ def _coverage_from(graph: Graph, protocol, state0, key, loop: str, *,
         keep_going=lambda v, r: (v < target) & (r < max_rounds),
         value0=cov0, loop=loop, value_name="coverage",
         steps_per_round=steps_per_round,
-        ring=None if recorder is None else recorder.init(graph.device))
+        ring=None if recorder is None else recorder.init(graph.device),
+        row_of=row_of)
     return state, out
 
 

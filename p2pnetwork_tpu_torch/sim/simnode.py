@@ -101,8 +101,10 @@ class TorchSimNode(Node):
     ring (``parallel/sharded.py``, every shard on one card): the same
     events and stepping, churn, link and checkpoint methods, on the
     sharded representation, for Flood, SIR, Gossip, HopDistance, PageRank
-    and PushSum as the reference's backend dispatches them. ``adaptive_k``
-    is refused there (ROADMAP §A item 9).
+    and PushSum as the reference's backend dispatches them. There
+    ``adaptive_k > 0`` (Flood and HopDistance) shards the graph with its
+    sender-CSR view and runs ``run_until_coverage`` through the ring's
+    frontier-adaptive loop, with the same results.
 
     Each completed round fires ``node_message`` with ``{"sim_round": r,
     **round_stats}``. ``sim_message_count`` accumulates the simulated
@@ -151,6 +153,9 @@ class TorchSimNode(Node):
         graph; ``layout`` picks its edge layout, ``'hybrid'``, ``'mxu'``
         or ``'segment'`` (all exact). ``rng`` is the reference's sharded
         RNG mode, which only the ring's keyed protocols read.
+        ``adaptive_k > 0`` (mesh only; Flood and HopDistance) also builds
+        the sender-CSR view and runs ``run_until_coverage`` through the
+        ring's frontier-adaptive loop (the same results).
         """
         if layout not in ("hybrid", "mxu", "segment"):
             raise ValueError(
@@ -169,9 +174,6 @@ class TorchSimNode(Node):
                     f"adaptive_k applies to Flood and HopDistance on the "
                     f"mesh backend; got {type(protocol).__name__}"
                 )
-            raise NotImplementedError(
-                "adaptive_k > 0 on the mesh backend (the frontier-adaptive "
-                "ring loop) is not ported yet: ROADMAP §A item 9")
         self.sim_graph = graph
         self.sim_protocol = protocol
         self._sim_key = prng.key(seed)
@@ -180,7 +182,8 @@ class TorchSimNode(Node):
         self._sim_adaptive_k = adaptive_k
         if mesh is not None:
             sg = sharded.shard_graph(graph, mesh, mxu=layout == "mxu",
-                                     hybrid=layout == "hybrid")
+                                     hybrid=layout == "hybrid",
+                                     source_csr=adaptive_k > 0)
             if dynamic_edges:
                 sg = sharded.with_capacity(sg, dynamic_edges)
             self.sim_sharded = sg
@@ -285,11 +288,12 @@ class TorchSimNode(Node):
                 self.sim_state, out = sharded.flood_until_coverage(
                     sg, mesh, proto.source, coverage_target=coverage_target,
                     max_rounds=max_rounds, state0=self.sim_state,
-                    return_state=True)
+                    return_state=True, adaptive_k=self._sim_adaptive_k)
             elif isinstance(proto, HopDistance):
                 self.sim_state, out = sharded.hopdist_until_coverage(
                     sg, mesh, proto, coverage_target=coverage_target,
-                    max_rounds=max_rounds, state0=self.sim_state)
+                    max_rounds=max_rounds, state0=self.sim_state,
+                    adaptive_k=self._sim_adaptive_k)
             elif isinstance(proto, SIR):
                 self.sim_state, out = sharded.sir_until_coverage(
                     sg, mesh, proto, seg_key,

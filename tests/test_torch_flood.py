@@ -20,9 +20,7 @@ from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import adaptive_flood as TA  # noqa: E402
 from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
-from p2pnetwork_tpu_torch.models.hopdist import HopDistance  # noqa: E402
 from p2pnetwork_tpu_torch.ops import segsum  # noqa: E402
-from p2pnetwork_tpu_torch.parallel import sharded  # noqa: E402
 from p2pnetwork_tpu_torch.sim import checkpoint  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
 from tests.test_torch_graph import (FAMILIES, LAYOUTS, build_jax,  # noqa: E402
@@ -161,28 +159,26 @@ def _carry_with(field):
 
 
 # What is still not ported raises, never runs as something else: the
-# ring's flight recorder (its ici_bytes column waits for the interconnect
-# census; the single-device recorder is ported and checked in
-# test_torch_flightrec.py), the orbax checkpoints (they need JAX; the npz
-# format is ported, test_torch_checkpoint.py), graph fields the port does
+# orbax checkpoints, loading and saving (they need JAX; the npz format is
+# ported, test_torch_checkpoint.py), graph and batch fields the port does
 # not model (interop refuses them rather than dropping them; edge weights
 # and the node relabeling are carried since they were ported, in
-# test_torch_semiring.py and test_torch_layout.py), a weighted choice
-# without replacement, and the ring's frontier-adaptive loop (the ring's
-# other protocols are ported and checked in test_torch_ring_protocols.py).
+# test_torch_semiring.py and test_torch_layout.py) and a weighted choice
+# without replacement. The ring's flight recorder and its
+# frontier-adaptive loop, once held here, are ported and checked in
+# test_torch_ring_recorder.py and test_torch_ring_adaptive.py.
 # The flood options this test once held (methods frontier and skew,
 # bitset=True) are ported and checked in test_torch_frontier.py and
 # test_torch_skew.py.
 @pytest.mark.parametrize("proto", [
-    lambda tg: sharded.flood_until_coverage(None, None, 0,
-                                            recorder=object()),
+    lambda tg: checkpoint.load_orbax("state"),
     lambda tg: checkpoint.save_orbax("state", TF.Flood().init(
         tg, prng.key(0)), prng.key(0), 0),
     _carry_with("delta_log"),
     lambda tg: prng.choice(prng.key(0), 4, (2,), replace=False,
                            p=torch.ones(4), device="cpu"),
-    lambda tg: sharded.hopdist_until_coverage(tg, None, HopDistance(),
-                                              adaptive_k=8),
+    lambda tg: interop.message_batch_from_numpy(
+        {"unmodelled": np.ones(2)}, device="cpu"),
 ])
 def test_unported_options_raise(proto):
     tg = build_port("er")

@@ -12,13 +12,15 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
+from p2pnetwork_tpu_torch.models.hopdist import HopDistance  # noqa: E402
+from p2pnetwork_tpu_torch.parallel import sharded  # noqa: E402
 from p2pnetwork_tpu_torch.parallel.mesh import ring_mesh  # noqa: E402
 from p2pnetwork_tpu_torch.sim import checkpoint  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "p2pnetwork_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py", ROOT / "tools" / "fit_capacity.py"]
 
 
 def _imported_modules(path):
@@ -61,7 +63,10 @@ def test_the_walk_sees_the_whole_port():
             "device.py", "storm.py", "crashstorm.py", "heal.py", "slo.py",
             "httpd.py", "export.py", "logging.py", "config.py", "ids.py",
             "wire.py", "nodeconnection.py", "node.py", "plane.py",
-            "streams.py", "simnode.py"} <= names
+            "streams.py", "simnode.py", "commviz.py", "capacity.py",
+            "chash.py", "crdt.py", "phi.py", "causal.py", "snapshot.py",
+            "sync.py", "termination.py", "securenode.py", "coordnode.py",
+            "fit_capacity.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
     assert any(p.parent.name == "chaos" for p in PORT_FILES)
 
@@ -99,6 +104,14 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.node, "
             "p2pnetwork_tpu_torch.chaos.plane, "
             "p2pnetwork_tpu_torch.sim.simnode, "
+            "p2pnetwork_tpu_torch.parallel.commviz, "
+            "p2pnetwork_tpu_torch.analysis.ir.capacity, "
+            "p2pnetwork_tpu_torch.utils.chash, "
+            "p2pnetwork_tpu_torch.crdt, p2pnetwork_tpu_torch.phi, "
+            "p2pnetwork_tpu_torch.causal, p2pnetwork_tpu_torch.snapshot, "
+            "p2pnetwork_tpu_torch.sync, p2pnetwork_tpu_torch.termination, "
+            "p2pnetwork_tpu_torch.securenode, "
+            "p2pnetwork_tpu_torch.coordnode, "
             "p2pnetwork_tpu_torch.interop; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'p2pnetwork_tpu')]; "
@@ -151,12 +164,21 @@ def test_crash_campaign_child_imports_no_jax():
         "AntiEntropyState", {"have": np.zeros((4, 2), bool),
                              "round": np.int32(0)}),
     lambda: checkpoint.load_graph("graph.npz"),
+    lambda: sharded.flood_until_coverage(
+        sharded.shard_graph(TG.watts_strogatz(64, 4, 0.1), ring_mesh(8),
+                            source_csr=True), ring_mesh(8), 0,
+        adaptive_k=16),
+    lambda: sharded.hopdist_until_coverage(
+        sharded.shard_graph(TG.watts_strogatz(64, 4, 0.1), ring_mesh(8),
+                            source_csr=True), ring_mesh(8), HopDistance(),
+        adaptive_k=16),
 ], ids=["default-device", "explicit-cuda", "interop", "resolve",
         "ring-mesh", "prng-uniform", "prng-bits", "interop-state",
         "prng-permutation", "prng-choice", "weighted-build",
         "interop-kcore-state", "chord", "kademlia", "interop-batch",
         "interop-query-batch", "reordered-build", "prng-weighted-choice",
-        "interop-plumtree-bits", "interop-antientropy", "load-graph"])
+        "interop-plumtree-bits", "interop-antientropy", "load-graph",
+        "ring-adaptive-flood", "ring-adaptive-hopdist"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")

@@ -38,6 +38,7 @@ from p2pnetwork_tpu_torch.ops import ring  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import auto  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
+from p2pnetwork_tpu_torch.sim import flightrec  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
 from tests.test_torch_kernels import (  # noqa: E402
     assert_same_reduction, extent_buckets, extent_signal,
@@ -454,10 +455,13 @@ def test_comm_payload_template_is_held(meshes):
 
 
 @pytest.mark.parametrize("call,exc", [
+    # The adaptive loop needs the sender-CSR view, and refuses the
+    # recorder (tests/test_torch_ring_adaptive.py runs it).
     (lambda sg, m: TS.flood_until_coverage(sg, m, 0, adaptive_k=64),
-     NotImplementedError),
-    (lambda sg, m: TS.flood_until_coverage(sg, m, 0, recorder=object()),
-     NotImplementedError),
+     ValueError),
+    (lambda sg, m: TS.flood_until_coverage(
+        sg, m, 0, adaptive_k=64, recorder=flightrec.FlightRecorder()),
+     ValueError),
     (lambda sg, m: TS.flood_until_coverage(sg, m, 0, comm=object()),
      TypeError),
     (lambda sg, m: TS.flood(sg, m, 0, 1, comm="carrier-pigeon"), ValueError),

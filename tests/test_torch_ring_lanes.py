@@ -32,6 +32,7 @@ from p2pnetwork_tpu_torch.models import messagebatch as TMB  # noqa: E402
 from p2pnetwork_tpu_torch.models import walk as TW  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
+from p2pnetwork_tpu_torch.sim import flightrec  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
 from tests.test_torch_graph import one_torch_thread  # noqa: E402,F401
 
@@ -278,9 +279,11 @@ def test_batch_gate_and_refusals(meshes):
         TS.run_batch_until_coverage(tsg, meshes[1], tp, tb)
     assert reg.value("chaos_device_faults_total", kind="preempt") == 1
     PD.install_dispatch_chaos(None)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        TS.run_batch_until_coverage(tsg, meshes[1], tp, tb,
-                                    recorder=object())
+    # The recorder, refused here until the ring's byte model was ported,
+    # now runs (its rows: tests/test_torch_ring_recorder.py).
+    _, out = TS.run_batch_until_coverage(
+        tsg, meshes[1], tp, tb, recorder=flightrec.FlightRecorder(8))
+    assert out["flight_record"].rows.shape[0] == min(out["rounds"], 8)
     mxu = TS.shard_graph(_graphs("ws512")[1], meshes[1], mxu=True)
     with pytest.raises(ValueError, match="MXU one-hot"):
         TS.run_batch_until_coverage(mxu, meshes[1], tp, tb)

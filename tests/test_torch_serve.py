@@ -325,15 +325,13 @@ def _slo_engine():
                                   {"slo": _slo_engine},
                                   {"hbm_budget_bytes": lambda: 1e9}])
 def test_refused_options_name_the_roadmap(graphs, knob):
-    """Slice 10 ported ``heal`` and ``slo``: a service takes them and
-    ticks. The memory planner behind ``hbm_budget_bytes`` is still
-    refused, naming the ROADMAP item that queues it."""
+    """Options once refused, naming the ROADMAP item that queued them,
+    now run: ``heal`` and ``slo`` (slice 10) and ``hbm_budget_bytes``
+    (slice 13, the memory planner fitted on the card; its gate is held to
+    the reference's in ``tests/test_torch_capacity.py``). A service takes
+    each and ticks."""
     _, g_p = graphs["ring128"]
     kw = {k: make() for k, make in knob.items()}
-    if "hbm_budget_bytes" in kw:
-        with pytest.raises(NotImplementedError, match="item 7.1"):
-            service(PS, g_p, **kw)
-        return
     svc = service(PS, g_p, **kw)
     svc.submit(3)
     assert svc.tick()["running"] == 1

@@ -333,7 +333,8 @@ def test_mesh_protocols_equal_reference(meshes, tmp_path, name):
 
 
 @pytest.mark.parametrize("kw,exc,match", [
-    (dict(mesh=True, adaptive_k=64), NotImplementedError, "item 9"),
+    (dict(mesh=True, adaptive_k=64, layout="blocked"), ValueError,
+     "layout must be"),
     (dict(adaptive_k=64), ValueError, "mesh backend's coverage loop"),
     (dict(protocol="sir", mesh=True, adaptive_k=64), ValueError,
      "applies to Flood and HopDistance"),
