@@ -284,11 +284,12 @@ Phases, in order; any failure exits non-zero before the result line:
    ring's records (``EXPECTED_RING*``, ``EXPECTED_MESH_*``; integers,
    bools and digests exactly, f32 within ``RING_TOL``) and its launches by
    kernel (B3's sum form, B1's stacked sum, B2 on f32 and i32, threefry,
-   the row sums at ``[8, 125008]``), then once under the profiler (wall,
-   busy, idle share). After 4k: 4j's B = 1,024 batch on the 100K class's
-   ``segment`` ring, the lane words ``[8, 32, 12512]`` B2's payload, equal
-   to ``EXPECTED_BATCH``. Rows: the row sum at the shards' shape, B2 on
-   i32 and on the word stack, each against its plain version.
+   the row sums at ``[8, 125008]``, gossip's at ``[8, 12512]``), then once
+   under the profiler (wall, busy, idle share). After 4k: 4j's B = 1,024
+   batch on the 100K class's ``segment`` ring, the lane words
+   ``[8, 32, 12512]`` B2's payload, equal to ``EXPECTED_BATCH``. Rows: the
+   row sum at the shards' shapes (1M and 100K), B2 on i32 and on the word
+   stack, each against its plain version.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -302,7 +303,8 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel's gather entry over 4p's PageRank and its dense entry over 4p's
    batch recorder and 4t's totals over the shards; 4t's rows: B3's sum
    form, B1's stacked sum, B2 on f32, on i32 and on the lane words, the
-   row sum at ``[8, 125008]``), then the last line
+   row sums at ``[8, 125008]`` and at gossip's ``[8, 12512]``), then the
+   last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -1719,6 +1721,8 @@ LAYOUTS = [("hybrid-remainder", 1954, 640, 512, 0.8),
 #: shard_graph at 1M on the CPU.
 RING_SHARDS = 8
 RING_BLOCK = 125_008
+#: The 100K gossip rung's shard block (``RING_GOSSIP_GRAPH`` on 8 shards).
+RING_GOSSIP_BLOCK = 12_512
 RING_MXU = ("mxu", 245, 4864, 0.131)
 RING_HYBRID = ("hybrid", 245, 128, 0.498)
 RING_LAYOUTS = [("segment", {}), ("mxu", {"mxu": True}),
@@ -5130,24 +5134,39 @@ def check_launches(label, launches, want) -> None:
                  f"{'> 0' if w is None else w}")
 
 
-def row_sum_shards_row(rowsum, flush) -> dict:
-    """The row sum at the ring's per-shard shape, f32 ``[8, 125008]`` (one
-    thread a row: rows of more than 1,024 terms), bit-equal to its plain
-    version; timed as phase 3's rows beside ``sum(dim=1)``."""
+def shard_rowsum_input(block: int) -> torch.Tensor:
+    """Seeded f32 ``[8, block]`` terms: the ring's per-shard totals' input
+    (``sharded.psum_f32``) at the 1M and 100K blocks. ``tools/
+    kernel_times.py`` times the same inputs."""
     gen = torch.Generator(device="cuda").manual_seed(5)
-    x = torch.randn((RING_SHARDS, RING_BLOCK), generator=gen, device="cuda")
-    if not torch.equal(rowsum.row_sum(x).view(torch.int32),
-                       rowsum.row_sum_plain(x).view(torch.int32)):
-        fail("row_sum differs from its plain version at [8, 125008]")
+    return torch.randn((RING_SHARDS, block), generator=gen, device="cuda")
+
+
+def row_sum_shards_row(rowsum, flush, block: int) -> dict:
+    """The row sum at the ring's per-shard shape, f32 ``[8, block]`` (a
+    warp a level-1 window of 1,024 terms: rows of more than 1,024 terms),
+    bit-equal to its plain version on the card and on the CPU; timed as
+    phase 3's rows beside ``sum(dim=1)``, and back to back."""
+    x = shard_rowsum_input(block)
+    got = rowsum.row_sum(x).view(torch.int32)
+    for label, want in (("on the card", rowsum.row_sum_plain(x)),
+                        ("on the CPU", rowsum.row_sum_plain(x.cpu()))):
+        if not torch.equal(got.cpu(), want.cpu().view(torch.int32)):
+            fail(f"row_sum differs from its plain version {label} at "
+                 f"[{RING_SHARDS}, {block}]")
+    by_bytes = (x.numel() + RING_SHARDS) * 4 / HBM_BYTES_PER_S
+    by_ops = x.numel() / VECTOR_OPS_PER_S
     return {"kernel": "row_sum", "entry": "shards",
             "shape": list(x.shape),
-            "ms": cuda_times(lambda: rowsum.row_sum(x), 10, flush),
+            "ms": cuda_times(lambda: rowsum.row_sum(x), 50, flush),
             "plain_ms": cuda_times(lambda: rowsum.row_sum_plain(x), 5,
                                    flush),
-            "library_ms": cuda_times(lambda: x.sum(dim=1), 20, flush),
-            "bound_ms": 1e3 * (x.numel() + RING_SHARDS) * 4
-            / HBM_BYTES_PER_S,
-            "bound_by": "bytes", "max_abs_err": 0.0}
+            "library_ms": cuda_times(lambda: x.sum(dim=1), 50, flush),
+            "bound_ms": 1e3 * max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "back_to_back_ms": back_to_back_ms(lambda: rowsum.row_sum(x),
+                                               50),
+            "max_abs_err": 0.0}
 
 
 def b2_i32_row(ring, flush) -> dict:
@@ -5249,6 +5268,9 @@ def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
     # (gossip reads the neighbor table only).
     gba = graph_mod.barabasi_albert(**RING_GOSSIP_GRAPH)
     sg = sharded.shard_graph(gba, mesh)
+    if tuple(sg.node_mask.shape) != (RING_SHARDS, RING_GOSSIP_BLOCK):
+        fail(f"the gossip ring's shards are {list(sg.node_mask.shape)}, "
+             f"not the row sum's timed [{RING_SHARDS}, {RING_GOSSIP_BLOCK}]")
     run, record = ring_gossip_run(sharded, models.Gossip, sg, mesh, KEY)
     out, first_s, launches = checked("gossip", run)
     err = max(err, check_close("gossip", record(out), EXPECTED_RING_GOSSIP,
@@ -5261,7 +5283,7 @@ def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
         "rowsum": 4 * GOSSIP_ROUNDS})
     rows["ring_shift_f32"] += launches["ring_shift"]
     rows["threefry"] += launches["threefry"]
-    rows["row_sum_shards"] += launches["rowsum"] // 2
+    rows["row_sum_shards_100k"] += launches["rowsum"] // 2
     rows["row_sum"] += launches["rowsum"] // 2
     timed("gossip", run, first_s, launches, {"graph": RING_GOSSIP_GRAPH})
     del sg, gba
@@ -5310,8 +5332,11 @@ def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
                       "summary": events[-1],
                       "t_s": time.perf_counter() - T_START}), flush=True)
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
-    kernel_rows = {"row_sum_shards": row_sum_shards_row(rowsum, flush),
-                   "ring_shift_i32": b2_i32_row(ring, flush)}
+    kernel_rows = {
+        "row_sum_shards": row_sum_shards_row(rowsum, flush, RING_BLOCK),
+        "row_sum_shards_100k": row_sum_shards_row(rowsum, flush,
+                                                  RING_GOSSIP_BLOCK),
+        "ring_shift_i32": b2_i32_row(ring, flush)}
     del flush
     for r in kernel_rows.values():
         print(json.dumps({"phase": "kernel", **r}), flush=True)
@@ -6350,6 +6375,11 @@ def main() -> int:
             "shard's block, an XLA reduce; no TPU kernel)",
             proto_rows["row_sum_shards"], proto_launches["row_sum_shards"],
             0.0),
+        row("row_sum_shards_100k", "rowsum.cu",
+            "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "
+            "shard's block on the 100K gossip ring, an XLA reduce; no TPU "
+            "kernel)", proto_rows["row_sum_shards_100k"],
+            proto_launches["row_sum_shards_100k"], 0.0),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

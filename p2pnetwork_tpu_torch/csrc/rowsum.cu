@@ -13,9 +13,10 @@
 //            window sums reduced the same way (recursively).
 //
 // A sum that starts from +0 is never -0, and adding a zero to it leaves
-// its bits, so the padding is skipped, not added. Every add is __fadd_rn (and the gather
-// entry's mask product __fmul_rn), so nvcc cannot contract a product and a
-// sum into one fma and the bits stay XLA's. The plain version takes one
+// its bits, so a kernel may skip the padding or add it as zeros alike.
+// Every add is __fadd_rn (and the gather entry's mask product __fmul_rn),
+// so nvcc cannot contract a product and a sum into one fma and the bits
+// stay XLA's. The plain version takes one
 // torch launch per column of a window.
 //
 // What bounds it: each term is one 4-byte read (the gather entry: a 4-byte
@@ -50,19 +51,41 @@
 //     to shared memory with each window padded to 33 words, so a thread
 //     that walks a window hits no bank conflict. Then one thread adds a
 //     window, and one thread a row's window sums.
-//   * The dense entry (the recorder's 1-D sums, one row of 32 or 1,024
-//     lanes) is one trip to memory and its chain of dependent adds: a warp
-//     a row loads the row once, coalesced, turns it through shared memory
-//     so that lane k holds window k, and adds (warp_kernel).
-//   * Rows of more than 1,024 terms (and of none) keep the first design's
-//     one-thread-a-row kernel and its recursive levels, in both entries.
+//   * The dense entry's rows of <= 1,024 terms (the recorder's 1-D sums,
+//     one row of 32 or 1,024 lanes) are one trip to memory and a chain of
+//     dependent adds: a warp a row loads the row once, coalesced, turns it
+//     through shared memory so that lane k holds window k, and adds
+//     (warp_kernel). A row of no terms gives +0 there (the gather entry's:
+//     in narrow_kernel).
+//   * Rows of more than 1,024 terms (the ring's shard totals, [8, 125008]
+//     and [8, 12512]), both entries: one warp a level-1 window, the 1,024
+//     terms of 32 windows (span_kernel). The levels' item counts and front
+//     zeros come from the host (ops/rowsum.py::wide_plan). The warp loads
+//     its span as warp_kernel loads a row (load j of lane l: padded
+//     position 32 j + l), turns it so that lane k holds window k, adds each
+//     window and then the lanes' sums in order, and stores the level-1
+//     window sum. The last warp of a row to finish (an arrival counter a
+//     row: each warp's store, then an acq_rel atomic add, 0.1-0.4 us
+//     less than __threadfence and atomicInc on the H100; the last arrival
+//     resets the count for the next launch) sums the row's n <= 1,024
+//     window sums as warp_kernel sums a row of n terms. Who arrives last
+//     changes nothing: the window sums are read in index order. A row of
+//     more than 32^4 = 1,048,576 terms has more than 1,024 window sums:
+//     the pass stores them, and the next launch takes them as a dense
+//     row, until at most 1,024 are left. The first design gave such a row
+//     one thread, a chain of w dependent adds and uncoalesced loads:
+//     15.9 ms at [8, 125008] on the H100, eight threads of the card at
+//     work; this one takes ~11 us there: the launch floor and two latency
+//     chains (the span's loads and adds; the arrival and the top, ~1.6
+//     us).
 //
 // Plain C interface for ctypes; each entry returns the launch's CUDA error
-// code (cudaErrorInvalidValue, before any launch, for a tile geometry that
-// does not fit).
+// code (cudaErrorInvalidValue, before any launch, for a tile geometry or a
+// plan that does not fit the width).
 
 #include <cstdint>
 
+#include <cuda/atomic>
 #include <cuda_runtime.h>
 
 namespace {
@@ -71,9 +94,8 @@ constexpr int kThreads = 256;
 // Enough blocks to fill 132 SMs many times over; more rows loop.
 constexpr int64_t kMaxBlocks = 132 * 32;
 constexpr int kWindow = 32;
-// Windowed levels a row may need: 32^7 terms, more than an int64 index
-// of a real table reaches.
-constexpr int kMaxLevels = 7;
+// A warp's level-1 window: 32 windows of 32 terms.
+constexpr int kSpan = kWindow * kWindow;
 // Terms of a narrow row whose loads narrow_kernel has in flight at once.
 constexpr int kChunk = 12;
 
@@ -89,47 +111,6 @@ constexpr int kPadStride = kWindow + 1;
 constexpr int kIdxBytes = 4 * kTileTerms + 32;
 constexpr int kMaskBytes = kTileTerms + 32;
 constexpr int kMaxDevices = 64;
-
-// The sum of term(0) .. term(w - 1) in XLA's order (see the file comment),
-// by one thread.
-template <class Term>
-__device__ __forceinline__ float ordered_sum(int64_t w, const Term& term) {
-  if (w == 1) return term(0);
-  if (w <= kWindow) {
-    float acc = 0.0f;
-    for (int64_t j = 0; j < w; ++j) acc = __fadd_rn(acc, term(j));
-    return acc;
-  }
-  // Level l's items sit at pos[l] of its padded sequence, which starts
-  // after the level's front zeros; a completed window carries its sum up
-  // one level. The top level has <= 32 items and is summed whole.
-  int64_t pos[kMaxLevels];
-  float acc[kMaxLevels + 1];
-  int levels = 0;
-  for (int64_t n = w; n > kWindow; ++levels) {
-    const int64_t pad = (kWindow - n % kWindow) % kWindow;
-    pos[levels] = pad / 2;
-    n = (n + pad) / kWindow;
-  }
-  for (int l = 0; l <= levels; ++l) acc[l] = 0.0f;
-  auto push = [&](int l, float x) {
-    for (;; ++l) {
-      acc[l] = __fadd_rn(acc[l], x);
-      if (l == levels || pos[l]++ % kWindow != kWindow - 1) break;
-      x = acc[l];
-      acc[l] = 0.0f;
-    }
-  };
-  for (int64_t j = 0; j < w; ++j) push(0, term(j));
-  // A level's last window is open when zeros end it: its sum goes up.
-  for (int l = 0; l < levels; ++l) {
-    if (pos[l] % kWindow == 0) continue;
-    const float x = acc[l];
-    acc[l] = 0.0f;
-    push(l + 1, x);
-  }
-  return acc[levels];
-}
 
 // A masked-out term is x * 0 (+-0, or NaN for an infinite x), as the plain
 // product.
@@ -195,18 +176,6 @@ __global__ void __launch_bounds__(kThreads)
         if (j0 + j < w) acc = __fadd_rn(acc, masked(x[j], live[j]));
     }
     out[r] = acc;
-  }
-}
-
-// One thread a row: rows of more than 1,024 terms, and of none (both
-// entries).
-template <class Load>
-__global__ void __launch_bounds__(kThreads)
-    row_kernel(Load load, int64_t rows, int64_t w, float* __restrict__ out) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t r = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-       r < rows; r += stride) {
-    out[r] = ordered_sum(w, [&](int64_t c) { return load(r, c); });
   }
 }
 
@@ -408,15 +377,59 @@ __device__ __forceinline__ float lane_sum(float x, int count) {
   return acc;
 }
 
-// The dense entry's rows of 1 to 1,024 terms, one warp a row. Rows of <=
+// Items first .. first + 32 windows - 1 of a row of w items, zeros
+// outside [0, w), summed by one warp: load j of lane l is item first +
+// 32 j + l (coalesced, all in flight), turned through the warp's padded
+// shared tile t so that lane k holds window k; each lane adds its window
+// left to right from +0, then the lanes add the window sums in order
+// through shuffles. Every lane gets the sum.
+template <class Item>
+__device__ __forceinline__ float span_sum(const Item& item, int64_t first,
+                                          int64_t w, int windows, float* t,
+                                          int lane) {
+  float x[kWindow];
+#pragma unroll
+  for (int j = 0; j < kWindow; ++j) {
+    const int64_t c = first + j * kWindow + lane;
+    x[j] = j < windows && c >= 0 && c < w ? item(c) : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < kWindow; ++j)
+    if (j < windows) t[j * kPadStride + lane] = x[j];
+  __syncwarp();
+  const float window =
+      lane < windows ? window_sum(t + lane * kPadStride) : 0.0f;
+  __syncwarp();
+  return lane_sum(window, windows);
+}
+
+// A row of w <= 1,024 items in XLA's order, by one warp (every lane gets
+// the sum), as warp_kernel sums a row: one item is itself; <= 32 items,
+// lane l loads item l and the lanes add them left to right through
+// shuffles; wider rows are padded with zeros as the file comment says
+// (window 0's leading zeros leave +0 as it is) and summed by span_sum.
+template <class Item>
+__device__ __forceinline__ float warp_row_sum(const Item& item, int64_t w,
+                                              float* t, int lane) {
+  if (w <= kWindow) {
+    const float x = lane < w ? item(lane) : 0.0f;
+    return w == 1 ? __shfl_sync(0xffffffffu, x, 0) : lane_sum(x, w);
+  }
+  const int n = static_cast<int>((w + kWindow - 1) / kWindow);
+  return span_sum(item, -((n * kWindow - w) / 2), w, n, t, lane);
+}
+
+// The dense entry's rows of 0 to 1,024 terms, one warp a row. Rows of <=
 // 32 terms: lane l loads term l, and the lanes add them left to right
 // through shuffles. Wider rows: the warp loads the row padded with zeros
 // as the file comment says, coalesced (load j: padded position 32 j +
-// lane), and turns it
-// through its padded shared tile so that lane k holds window k; each lane
-// adds its window left to right from +0 (window 0's leading zeros leave
-// +0 as it is), then the lanes add the window sums in order through
-// shuffles.
+// lane), and turns it through its padded shared tile so that lane k holds
+// window k; each lane adds its window left to right from +0 (window 0's
+// leading zeros leave +0 as it is), then the lanes add the window sums in
+// order through shuffles. (The span kernel's top does the same through
+// warp_row_sum; this kernel keeps its own int arithmetic: the shared
+// template took 80 registers against 48 and 0.4-0.5 us more a launch on
+// the H100.)
 __global__ void __launch_bounds__(kThreads)
     warp_kernel(const float* __restrict__ vals, int64_t rows, int w,
                 float* __restrict__ out) {
@@ -454,6 +467,55 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// One pass over rows of w > 1,024 items whose level-0 windows start after
+// f0 zeros and level-1 windows after f1: warp g sums row g / n2's level-1
+// window m = g % n2, the real items 32 (32 m - f1) - f0 + [0, 1,024), and
+// stores it to part[g]. With `out`, n2 <= 1,024 and the pass is the last:
+// the row's last warp to arrive (count[r], which it leaves at 0) sums the
+// row's n2 window sums in index order into out[r]. Without, the next pass
+// takes part as a dense [rows, n2] table.
+template <class Load>
+__global__ void __launch_bounds__(kThreads)
+    span_kernel(Load load, int64_t rows, int64_t w, int f0, int f1,
+                int64_t n2, float* part, unsigned* __restrict__ count,
+                float* __restrict__ out) {
+  constexpr int kWarps = kThreads / kWindow;
+  __shared__ float turn[kWarps][kWindow * kPadStride];
+  const int lane = threadIdx.x % kWindow;
+  float* t = turn[threadIdx.x / kWindow];
+  for (int64_t g = static_cast<int64_t>(blockIdx.x) * kWarps +
+                   threadIdx.x / kWindow;
+       g < rows * n2; g += static_cast<int64_t>(gridDim.x) * kWarps) {
+    const int64_t r = g / n2, m = g % n2;
+    const float acc = span_sum([&](int64_t c) { return load(r, c); },
+                               kWindow * (kWindow * m - f1) - f0, w, kWindow,
+                               t, lane);
+    unsigned ticket = 0;
+    if (lane == 0) {
+      part[g] = acc;
+      if (out != nullptr) {
+        // Release: the store is seen before the count; acquire: the last
+        // arrival sees every other warp's store. The last one resets the
+        // count for the next launch.
+        cuda::atomic_ref<unsigned, cuda::thread_scope_device> arrivals(
+            count[r]);
+        ticket = arrivals.fetch_add(1u, cuda::memory_order_acq_rel);
+        if (ticket == n2 - 1) arrivals.store(0u, cuda::memory_order_relaxed);
+      }
+    }
+    if (out == nullptr ||
+        __shfl_sync(0xffffffffu, ticket, 0) != static_cast<unsigned>(n2 - 1))
+      continue;
+    // The last warp of row r: lane 0's acquire orders the lanes' reads
+    // after the barrier; they read L2, past L1.
+    __syncwarp();
+    const float* sums = part + r * n2;
+    const float total = warp_row_sum(
+        [&](int64_t c) { return __ldcg(sums + c); }, n2, t, lane);
+    if (lane == 0) out[r] = total;
+  }
+}
+
 int blocks_for(int64_t threads) {
   int64_t blocks = (threads + kThreads - 1) / kThreads;
   return static_cast<int>(blocks > kMaxBlocks ? kMaxBlocks : blocks);
@@ -484,40 +546,79 @@ bool tile_fits(int64_t w, int64_t tile_rows) {
          tile_rows * (n | 1) <= kSumSlots;
 }
 
-// Rows of 0 or of more than 1,024 terms take the row kernel.
-bool by_rows(int64_t w) { return w == 0 || w > kWindow * kWindow; }
+// Rows of more than 1,024 terms take the span passes.
+bool wide(int64_t w) { return w > kSpan; }
+
+// The span passes of a row of plan[0] > 1,024 terms: plan holds each
+// level's item count and front zeros (plan[2 l], plan[2 l + 1], l <
+// levels), then the top's item count (ops/rowsum.py::wide_plan). A pass
+// takes two levels and stores its window sums to `work` (rows x their
+// count, each pass's after the last's), where the next pass, or the last
+// pass's last warp of a row, reads them. One launch a pass.
+template <class Load>
+cudaError_t span_passes(Load load, int64_t rows, int64_t w,
+                        const int64_t* plan, int levels, float* work,
+                        unsigned* count, float* out, cudaStream_t s) {
+  if (plan == nullptr || levels < 2 || plan[0] != w)
+    return cudaErrorInvalidValue;
+  auto items = [&](int l) { return plan[2 * (l < levels ? l : levels)]; };
+  const float* prev = nullptr;
+  for (int l = 0; items(l) > kSpan; l += 2) {
+    const int64_t n2 = items(l + 2);
+    const bool last = n2 <= kSpan;
+    const int blocks = blocks_for(rows * n2 * kWindow);
+    const int f0 = static_cast<int>(plan[2 * l + 1]);
+    const int f1 = static_cast<int>(plan[2 * l + 3]);
+    if (prev == nullptr) {
+      span_kernel<<<blocks, kThreads, 0, s>>>(load, rows, items(l), f0, f1,
+                                              n2, work, count,
+                                              last ? out : nullptr);
+    } else {
+      span_kernel<<<blocks, kThreads, 0, s>>>(Dense{prev, items(l)}, rows,
+                                              items(l), f0, f1, n2, work,
+                                              count, last ? out : nullptr);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || last) return err;
+    prev = work;
+    work += rows * n2;
+  }
+  return cudaErrorInvalidValue;
+}
 
 }  // namespace
 
 extern "C" {
 
+// `plan`, `levels`, `work` and `count` serve rows of more than 1,024
+// terms (span_passes; ignored otherwise): `work` holds the passes' window
+// sums, `count` one zero a row, which the launch leaves at zero.
 int p2p_row_sum_f32(const float* vals, int64_t rows, int64_t width,
-                    float* out, int device, void* stream) {
+                    const int64_t* plan, int levels, float* work,
+                    unsigned* count, float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (by_rows(width)) {
-    row_kernel<<<blocks_for(rows), kThreads, 0, s>>>(Dense{vals, width}, rows,
-                                                     width, out);
-  } else {
-    warp_kernel<<<blocks_for(rows * kWindow), kThreads, 0, s>>>(
-        vals, rows, static_cast<int>(width), out);
-  }
+  if (wide(width))
+    return static_cast<int>(span_passes(Dense{vals, width}, rows, width,
+                                        plan, levels, work, count, out, s));
+  warp_kernel<<<blocks_for(rows * kWindow), kThreads, 0, s>>>(
+      vals, rows, static_cast<int>(width), out);
   return static_cast<int>(cudaGetLastError());
 }
 
 int p2p_gather_row_sum_f32(const float* signal, const int32_t* idx,
                            const bool* mask, int64_t rows, int64_t width,
-                           int64_t tile_rows, float* out, int device,
-                           void* stream) {
+                           int64_t tile_rows, const int64_t* plan,
+                           int levels, float* work, unsigned* count,
+                           float* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (by_rows(width)) {
-    row_kernel<<<blocks_for(rows), kThreads, 0, s>>>(
-        Gathered{signal, idx, mask, width}, rows, width, out);
-    return static_cast<int>(cudaGetLastError());
-  }
+  if (wide(width))
+    return static_cast<int>(span_passes(Gathered{signal, idx, mask, width},
+                                        rows, width, plan, levels, work,
+                                        count, out, s));
   if (width <= kWindow) {
     narrow_kernel<<<blocks_for(rows), kThreads, 0, s>>>(
         signal, idx, mask, rows, static_cast<int>(width), out);

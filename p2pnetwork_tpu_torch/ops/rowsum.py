@@ -9,9 +9,13 @@ adds in another order and differs in the last bit. The plain version
 below keeps the order with one elementwise launch per column of a window;
 the kernels add in that order too, and fuse the gather and the mask
 product into the sum (:func:`gather_row_sum`): a thread a row of <= 32
-terms; wider rows in tiles (:func:`tile_rows`) staged through shared
-memory. For :func:`row_sum` (the 1-D sums) a warp loads a row once and
-adds its windows.
+terms; rows of 33 to 1,024 in tiles (:func:`tile_rows`) staged through
+shared memory. For :func:`row_sum` (the 1-D sums) a warp loads a row of
+<= 1,024 terms once and adds its windows. Rows of more than 1,024 terms
+(the ring's shard totals), in both entries: a warp a level-1 window of
+1,024 terms, and the last warp of a row to finish adds the row's window
+sums, in one launch up to 32^4 terms a row (:func:`wide_plan`,
+:func:`span_outputs`).
 
 A CPU tensor takes the plain version; a CUDA f32 one launches the kernel,
 and any other CUDA float raises. Integer terms are summed directly (their
@@ -34,6 +38,10 @@ LAUNCHES = 0
 #: left to right from 0, and the window sums are reduced the same way.
 REDUCE_WINDOW = 32
 
+#: Terms of a span kernel warp's level-1 window (``csrc/rowsum.cu``): rows
+#: wider than this take the span passes.
+SPAN = REDUCE_WINDOW ** 2
+
 #: The gather kernel's tile buffers (``csrc/rowsum.cu``, rows of 33 to
 #: 1,024 terms): terms staged a tile, product words (each window padded to
 #: an odd stride) and window sums.
@@ -49,8 +57,9 @@ def _lib() -> ctypes.CDLL:
     if _bound is None:
         lib = _build.library()
         q, i, p = ctypes.c_int64, ctypes.c_int, ctypes.c_void_p
-        lib.p2p_row_sum_f32.argtypes = [p, q, q, p, i, p]
-        lib.p2p_gather_row_sum_f32.argtypes = [p, p, p, q, q, q, p, i, p]
+        lib.p2p_row_sum_f32.argtypes = [p, q, q, p, i, p, p, p, i, p]
+        lib.p2p_gather_row_sum_f32.argtypes = [p, p, p, q, q, q, p, i, p, p,
+                                               p, i, p]
         lib.p2p_row_sum_f32.restype = i
         lib.p2p_gather_row_sum_f32.restype = i
         _bound = lib
@@ -69,6 +78,37 @@ def tile_rows(width: int) -> int:
     n = -(-width // REDUCE_WINDOW)
     return min(TILE_TERMS // width, TILE_SLOTS // (n * (REDUCE_WINDOW + 1)),
                TILE_SUM_SLOTS // (n | 1))
+
+
+def wide_plan(width: int) -> tuple[list[tuple[int, int]], int]:
+    """The levels of XLA's window reduction of a row of ``width`` terms:
+    ``([(items, front), ...], top)``, each level of more than 32 items with
+    the zeros padded in front of it (``p // 2`` of ``p = -items mod 32``),
+    then the item count of the top (<= 32, added left to right). 125,008
+    terms: ``([(125008, 8), (3907, 14), (123, 2)], 4)``."""
+    levels, n = [], width
+    while n > REDUCE_WINDOW:
+        pad = -n % REDUCE_WINDOW
+        levels.append((n, pad // 2))
+        n = (n + pad) // REDUCE_WINDOW
+    return levels, n
+
+
+def span_outputs(width: int) -> list[int]:
+    """The window sums a row of ``width`` > :data:`SPAN` terms has after
+    each of the span kernel's passes, one launch each: a pass takes two
+    levels of :func:`wide_plan`, and the last leaves <= 1,024 (125,008
+    terms: ``[123]``; 1,048,577: ``[1025, 2]``). Empty for narrower
+    rows."""
+    levels, top = wide_plan(width)
+    items = [n for n, _ in levels] + [top]
+    return [items[l + 2] for l in range(0, len(items), 2)
+            if items[l] > SPAN]
+
+
+def launches_for(width: int) -> int:
+    """Kernel launches a row sum of rows of ``width`` terms makes."""
+    return max(1, len(span_outputs(width)))
 
 
 def row_sum_plain(vals: torch.Tensor) -> torch.Tensor:
@@ -117,18 +157,48 @@ def _check_f32(name: str, t: torch.Tensor) -> None:
                         f"{t.dtype}")
 
 
-def _launch(entry: str, rows: int, device, *args) -> torch.Tensor:
+#: The span kernel's arrival counters by (device, stream): one zero a row,
+#: which every launch leaves at zero (a row's last warp resets its count),
+#: so they are zeroed once. A buffer a stream, so that launches on two
+#: streams never share a count.
+_COUNTERS: dict = {}
+
+
+def _counters(device, stream, rows: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _COUNTERS.get(key)
+    if buf is None or buf.numel() < rows:
+        buf = torch.zeros(rows, dtype=torch.int32, device=device)
+        _COUNTERS[key] = buf
+    return buf
+
+
+def _launch(entry: str, rows: int, width: int, device,
+            *args) -> torch.Tensor:
     global LAUNCHES
     out = torch.empty(rows, dtype=torch.float32, device=device)
     if rows == 0:
         return out
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(_lib(), entry)(*args, out.data_ptr(), device.index or 0,
-                                stream)
+    # Rows of more than SPAN terms: the plan, the passes' window sums and
+    # the counters (span_passes in csrc/rowsum.cu); null otherwise.
+    plan, levels, work, count = None, 0, None, None
+    outputs = span_outputs(width)
+    if outputs:
+        steps, top = wide_plan(width)
+        flat = [v for level in steps for v in level] + [top]
+        plan, levels = (ctypes.c_int64 * len(flat))(*flat), len(steps)
+        work = torch.empty(rows * sum(outputs), dtype=torch.float32,
+                           device=device)
+        count = _counters(device, stream, rows)
+    rc = getattr(_lib(), entry)(
+        *args, plan, levels, None if work is None else work.data_ptr(),
+        None if count is None else count.data_ptr(), out.data_ptr(),
+        device.index or 0, stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: kernel launch failed with CUDA error "
                            f"{rc}")
-    LAUNCHES += 1
+    LAUNCHES += launches_for(width)
     return out
 
 
@@ -142,8 +212,8 @@ def row_sum(vals: torch.Tensor) -> torch.Tensor:
     _check_f32("row_sum", vals)
     vals = vals.contiguous()
     rows, width = vals.shape
-    return _launch("p2p_row_sum_f32", rows, vals.device, vals.data_ptr(),
-                   rows, width)
+    return _launch("p2p_row_sum_f32", rows, width, vals.device,
+                   vals.data_ptr(), rows, width)
 
 
 def gather_row_sum(signal: torch.Tensor, idx: torch.Tensor,
@@ -164,6 +234,6 @@ def gather_row_sum(signal: torch.Tensor, idx: torch.Tensor,
     signal, idx, mask = signal.contiguous(), idx.contiguous(), \
         mask.contiguous()
     rows, width = idx.shape
-    return _launch("p2p_gather_row_sum_f32", rows, signal.device,
+    return _launch("p2p_gather_row_sum_f32", rows, width, signal.device,
                    signal.data_ptr(), idx.data_ptr(), mask.data_ptr(), rows,
                    width, tile_rows(width))

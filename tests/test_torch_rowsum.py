@@ -4,10 +4,12 @@ its plain version, against XLA's reduce.
 On the CPU the wrappers take the plain version, whose bits are held to
 ``jnp.sum``'s on the CPU (the reduce the JAX package's ``gather`` and
 ``skew`` sums and its 1-D sums make) at every width whose order is
-measured: exact, no tolerance. The ``cuda``-marked tests launch the
-kernel, at those widths and at deeper ones (> 1,024 terms, three
-levels), and hold it bit for bit to the plain version on the card; they
-skip without a card. On the card's machine, which has no JAX:
+measured: exact, no tolerance. The order of the span kernel (rows of
+more than 1,024 terms) is emulated with torch from :func:`RS.wide_plan`
+and held to both. The ``cuda``-marked tests launch the kernel, at those
+widths and at deeper ones (> 1,024 terms, up to 32^4 + 1 in two
+launches), and hold it bit for bit to the plain version on the card;
+they skip without a card. On the card's machine, which has no JAX:
 
     python -m pytest tests/test_torch_rowsum.py -q -m cuda
 """
@@ -120,15 +122,114 @@ def test_tile_rows_fit_the_kernel_buffers():
         [32, 32, 16, 2, 2]
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Torch ops on one thread (xdist's workers share the cores), then the
+    count restored; elementwise f32 adds give the same bits either way."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def test_wide_plan_levels():
+    # Each level's items and front zeros down to the top of <= 32: the
+    # ring's shard blocks at 1M (one span pass: 123 warps a row, a top of
+    # 123 window sums) and 100K (13), and a row past 32^4 in two passes.
+    assert RS.wide_plan(125008) == ([(125008, 8), (3907, 14), (123, 2)], 4)
+    assert RS.wide_plan(12512) == ([(12512, 0), (391, 12)], 13)
+    assert RS.wide_plan(1024) == ([(1024, 0)], 32)
+    assert RS.wide_plan(17) == ([], 17)
+    assert RS.span_outputs(125008) == [123]
+    assert RS.span_outputs(12512) == [13]
+    assert RS.span_outputs(1024) == []
+    assert RS.span_outputs(1025) == [2]
+    assert RS.span_outputs(32 ** 4) == [1024]
+    assert RS.span_outputs(32 ** 4 + 1) == [1025, 2]
+    assert [RS.launches_for(w) for w in (0, 17, 1024, 125008, 32 ** 4,
+                                         32 ** 4 + 1)] == [1, 1, 1, 1, 1, 2]
+
+
+def _sequential(terms):
+    """``[..., k] -> [...]``: left to right from +0, one add a column."""
+    acc = terms.new_zeros(terms.shape[:-1])
+    for j in range(terms.shape[-1]):
+        acc = acc + terms[..., j]
+    return acc
+
+
+def _warp_sum(items, first, count, windows):
+    """One warp of the span kernel on ``[rows, count]`` items: for each
+    of ``first``'s entries (``[spans]`` item offsets), load j of lane l is
+    item ``first + 32 j + l``, zero outside the row; lane k adds window k
+    (its 32 slots) left to right from +0, then the lanes' sums add in lane
+    order. ``[rows, spans]``."""
+    k = torch.arange(windows)[None, :, None]
+    s = torch.arange(32)[None, None, :]
+    c = first[:, None, None] + 32 * k + s
+    terms = torch.where((c >= 0) & (c < count),
+                        items[:, c.clamp(0, count - 1)],
+                        torch.zeros((), dtype=items.dtype))
+    return _sequential(_sequential(terms))
+
+
+def _span_emulation(vals):
+    """The span kernel's order for ``[rows, W > 1,024]`` on the CPU, from
+    :func:`RS.wide_plan` alone: each pass's warp m sums the real items
+    ``32 (32 m - f1) - f0 + [0, 1,024)``; passes repeat on the window sums
+    until <= 1,024 are left, which the row's last warp sums as a row of n
+    items (one is itself, <= 32 left to right, wider windows of the row
+    padded with ``(32 ceil(n / 32) - n) // 2`` zeros in front)."""
+    levels, top = RS.wide_plan(vals.shape[1])
+    items = [n for n, _ in levels] + [top]
+    l, cur = 0, vals
+    while cur.shape[1] > RS.SPAN:
+        m = torch.arange(items[l + 2])
+        cur = _warp_sum(cur, 32 * (32 * m - levels[l + 1][1]) - levels[l][1],
+                        items[l], 32)
+        l += 2
+    n = cur.shape[1]
+    if n == 1:
+        return cur[:, 0]
+    if n <= 32:
+        return _sequential(cur)
+    windows = -(-n // 32)
+    return _warp_sum(cur, torch.tensor([-((32 * windows - n) // 2)]), n,
+                     windows)[:, 0]
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+@pytest.mark.parametrize("width", [1025, 1056, 2500, 12512, 32769, 125008,
+                                   32 ** 4 + 1])
+def test_span_emulation_equals_xla(width):
+    # Rows with inf terms, with -0 terms, and of +-0 only (their sum +0,
+    # as XLA's); one row at the widest.
+    jnp = _jnp()
+    rng = np.random.default_rng(width)
+    rows = 1 if width > 32 ** 4 else 4
+    v = _terms(rng, rows, width)
+    v[0, rng.random(width) < 0.1] = -0.0
+    if rows > 1:
+        v[1, rng.integers(0, width, 3)] = np.inf
+        v[2] = np.where(rng.random(width) < 0.5, 0.0, -0.0)
+    got = _span_emulation(torch.from_numpy(v))
+    np.testing.assert_array_equal(bits(got.numpy()),
+                                  bits(jnp.sum(jnp.asarray(v), axis=1)))
+    np.testing.assert_array_equal(
+        bits(got.numpy()), bits(RS.row_sum_plain(torch.from_numpy(v))))
+
+
 def _card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card and nvcc (run via chip_smoke.py)")
 
 
-#: The kernel's paths: one thread a row (<= 32 terms, > 1,024), one lane a
-#: window (33 to 1,024, 1 to 32 rows a warp).
+#: The kernel's paths: a thread a row (the gather entry's <= 32 terms), a
+#: warp a row (the dense entry's <= 1,024), tiles (the gather entry's 33
+#: to 1,024), a warp a level-1 window (> 1,024: the ring's shard blocks
+#: 12,512 and 125,008; 32^4 in one launch, 32^4 + 1 in two).
 CARD_WIDTHS = [0, 1, 17, 32, 33, 40, 100, 128, 500, 700, 1000, 1024, 1025,
-               2500, 40000, 125008]
+               2500, 12512, 32768, 40000, 125008, 32 ** 4, 32 ** 4 + 1]
 
 
 @pytest.mark.cuda
@@ -136,12 +237,13 @@ CARD_WIDTHS = [0, 1, 17, 32, 33, 40, 100, 128, 500, 700, 1000, 1024, 1025,
 def test_kernel_matches_plain_on_card(width):
     _card()
     rng = np.random.default_rng(width)
-    # The ring's per-shard sums are 8 rows of a 1M population's blocks.
-    rows = 8 if width == 125008 else 3 if width > 1024 else 1000
+    # The ring's per-shard sums are 8 rows of a 1M (100K) population's
+    # blocks.
+    rows = 8 if width in (12512, 125008) else 3 if width > 1024 else 1000
     v = torch.from_numpy(_terms(rng, rows, width)).cuda()
     launches = RS.LAUNCHES
     got = RS.row_sum(v)
-    assert RS.LAUNCHES == launches + 1
+    assert RS.LAUNCHES == launches + RS.launches_for(width)
     assert torch.equal(got.view(torch.int32),
                        RS.row_sum_plain(v).view(torch.int32))
     signal = torch.from_numpy(_terms(rng, 1, 4096)[0]).cuda()
@@ -158,10 +260,12 @@ def test_kernel_matches_plain_on_card(width):
 #: 32) at row counts that are not multiples of the 8-term chunk or of a
 #: block; wide rows (33, 128 the BA shape's, 1,024) that leave the last
 #: tile partial (one row past whole tiles, and fewer rows than a tile);
-#: the recorder's one-row dense sums.
+#: the recorder's one-row dense sums; rows of more than 1,024 terms (the
+#: span passes: the shard blocks, a last window of one term, two passes).
 EDGE_CASES = [(17, 3 * 120 + 1), (17, 7), (128, 5 * 16 + 1), (128, 3),
               (1024, 2 * 3 + 1), (33, 32 * 4 + 31), (1, 2049), (31, 67),
-              (32, 1), (1024, 1)]
+              (32, 1), (1024, 1), (1025, 5), (12512, 8), (125008, 3),
+              (32 ** 4 + 1, 2)]
 
 
 def _same_on_cpu(got, want):
@@ -189,18 +293,21 @@ def _view(t, skip):
 def test_kernel_edges_on_card(width, rows, skip):
     # Bases 4 and 12 bytes past a 16-byte boundary for the indices and
     # values, 1 and 3 for the mask; inf terms (NaN where masked out), -0
-    # terms (a one-term row keeps its -0) and rows of +-0 only. Bit for
-    # bit against the plain version on the card, and against the CPU's.
+    # terms (a one-term row keeps its -0) and rows of +-0 only (-0 alone,
+    # and both). Bit for bit against the plain version on the card, and
+    # against the CPU's.
     _card()
     rng = np.random.default_rng(width * 1000 + rows + skip)
     v = _terms(rng, rows, width)
     v[rng.random((rows, width)) < 0.1] = -0.0
     v[rng.random((rows, width)) < 0.02] = np.inf
     v[0] = -0.0
+    if rows > 1:
+        v[-1] = np.where(rng.random(width) < 0.5, 0.0, -0.0)
     vals = _view(torch.from_numpy(v).cuda(), skip)
     launches = RS.LAUNCHES
     got = RS.row_sum(vals)
-    assert RS.LAUNCHES == launches + 1
+    assert RS.LAUNCHES == launches + RS.launches_for(width)
     want = RS.row_sum_plain(vals)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     assert _same_on_cpu(got, RS.row_sum_plain(vals.cpu()))

@@ -18,6 +18,9 @@ back to back (``-b2b``: ``chip_smoke.back_to_back_ms``, no flush):
   1M WS graph's neighbor table ``[1,000,064, 17]`` and on the BA shape
   ``[100,096, 128]``, the dense entry on ``[1, 1024]`` and ``[1, 32]``
   (beside it, ``-library``: ``sum(dim=1)``);
+- the dense entry on the ring's shard totals, ``[8, 125008]`` (1M) and
+  ``[8, 12512]`` (the 100K gossip ring), ``chip_smoke.shard_rowsum_input``
+  (``rowsum-shards-BLOCK``, with ``-library``);
 - the launch floor (an empty kernel), where the tree's library has one.
 
 The neighbor table is built once, by the first tree's graph module
@@ -102,6 +105,11 @@ def one_tree(tree: str, reps: int, cache: Path) -> dict:
         if entry == "dense":
             out[f"rowsum-{name}-library"] = cs.cuda_times(
                 lambda: args[0].sum(dim=1), reps, flush)
+    for block in (cs.RING_BLOCK, cs.RING_GOSSIP_BLOCK):
+        x = cs.shard_rowsum_input(block)
+        timed(f"rowsum-shards-{block}", lambda: rowsum.row_sum(x))
+        out[f"rowsum-shards-{block}-library"] = cs.cuda_times(
+            lambda: x.sum(dim=1), reps, flush)
     return out
 
 
