@@ -290,6 +290,22 @@ Phases, in order; any failure exits non-zero before the result line:
    ``[8, 32, 12512]`` B2's payload, equal to ``EXPECTED_BATCH``. Rows: the
    row sum at the shards' shapes (1M and 100K), B2 on i32 and on the word
    stack, each against its plain version.
+4v. The ring across processes (slice 14; ``rank-ring-path`` lines),
+   after 4u: in this process the dense 1M floods' walls and syncs at
+   world 1 and the reference worker's churn step (nodes 3 and 500,000
+   failed, 8 dynamic slots, the link 1 - 999,998, flooded to 0.9); then
+   ``multihost.launch`` of 2 and 8 rank processes on the one card (4 and
+   1 shards a rank; the kernels built here first), each building phase
+   4's graph and its own shards: the dense flood to 0.99 on each layout
+   (``EXPECTED_1M``, the gathered ``seen`` against
+   ``EXPECTED_RING_SEEN``, launches per rank ``RANK_LAUNCHES``, walls of
+   3, syncs), the churn step against world 1's, B2 and B3 across ranks
+   against their plain versions and the global roll (``kernel`` lines:
+   bool and f32 ``[n_local, 125008]``, B3 on the real step-0 buckets,
+   ``library_ms`` the same bytes copied into the peer slot by ``copy_``),
+   ``ORDERING_STEPS`` hops with the last rank held back, every block
+   checked, and 4t's gossip rung (``EXPECTED_RING_GOSSIP``). A rank that
+   raises must fail its launch.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -303,7 +319,9 @@ Phases, in order; any failure exits non-zero before the result line:
    kernel's gather entry over 4p's PageRank and its dense entry over 4p's
    batch recorder and 4t's totals over the shards; 4t's rows: B3's sum
    form, B1's stacked sum, B2 on f32, on i32 and on the lane words, the
-   row sums at ``[8, 125008]`` and at gossip's ``[8, 12512]``), then the
+   row sums at ``[8, 125008]`` and at gossip's ``[8, 12512]``; 4v's
+   rows: B2 across ranks at worlds 2 and 8 and on f32, B3 across ranks at
+   worlds 2 and 8, their launches summed over every rank), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
@@ -5914,6 +5932,408 @@ def planner_path(bg, serve, graph_mod, capacity, gpu: str) -> None:
         "t_s": time.perf_counter() - T_START}), flush=True)
 
 
+#: Phase 4v (slice 14): the ring split over rank processes on the one
+#: card. Worlds run, the per-rank time limit of a launch, the ordering
+#: check's hops, and the churn step of the reference worker's phase 3 at
+#: 1M: nodes failed, dynamic slots, the runtime link and the target.
+RANK_WORLDS = (2, 8)
+RANK_TIMEOUT = 420
+ORDERING_STEPS = 256
+RANK_CHURN = dict(fail=(3, N_NODES // 2), capacity=8,
+                  link=([1], [N_NODES - 2]), target=0.9)
+#: Launches of the cross-rank kernels and B1 per rank per 1M flood to
+#: 0.99 (11 rounds, 7 hops a round): B2's put (and its land) under
+#: ``segment`` and ``hybrid``, B3's under ``mxu`` with B1 on the peeled
+#: step; B1 on every step's remainder under ``hybrid``.
+RANK_LAUNCHES = {
+    "segment": {"put": 77, "put_segsum": 0, "land": 77, "segsum": 0},
+    "hybrid": {"put": 77, "put_segsum": 0, "land": 77, "segsum": 88},
+    "mxu": {"put": 0, "put_segsum": 77, "land": 77, "segsum": 11}}
+
+
+def rank_counts(ring, segsum) -> dict:
+    return {"put": ring.PUT_LAUNCHES, "put_segsum": ring.PUT_SEGSUM_LAUNCHES,
+            "land": ring.LAND_LAUNCHES, "segsum": segsum.LAUNCHES}
+
+
+def zero_rank_counts(ring, segsum, device_mod) -> None:
+    ring.PUT_LAUNCHES = ring.PUT_SEGSUM_LAUNCHES = ring.LAND_LAUNCHES = 0
+    segsum.LAUNCHES = 0
+    device_mod.SYNCS = 0
+
+
+def host_ms(fn, reps: int) -> float:
+    """Mean host ms of ``fn()`` with a synchronise after each call: for
+    the plain versions, which wait on the host anyway."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+        torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+class _Interface:
+    """A raw device address as a tensor (``__cuda_array_interface__``)."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 2}
+
+
+def peer_copy(ring, mesh, x, out):
+    """The library yardstick of a forward put: ``copy_`` (a
+    ``cudaMemcpyAsync``) of the local shards into ``out[1:]`` and of the
+    boundary shard into the next rank's slot, the same bytes, no
+    signal."""
+    shard = x[0].numel() * x.element_size()
+    chan = ring.peer_channel(mesh, shard)
+    slot = torch.as_tensor(_Interface(
+        chan.slot_address(mesh.next_rank, False, chan.seq[0] + 1), shard),
+        device=x.device)
+    src = x.view(torch.uint8).reshape(x.shape[0], -1)
+    dst = out.view(torch.uint8).reshape(x.shape[0], -1)
+
+    def run():
+        dst[1:].copy_(src[:-1])
+        slot.copy_(src[-1])
+
+    return run
+
+
+def rank_put_rows(ring, mesh_mod, mesh, flush) -> tuple:
+    """B2 across ranks at this rank's ``[n_local, 125008]``, bool and f32:
+    the kernel and its plain version against the global ``torch.roll``
+    of the stacked blocks (gathered through the group), then timed, with
+    ``hop_floor_ms`` the hop of a 16-byte shard."""
+    import torch.distributed as dist
+
+    gen = torch.Generator(device="cuda").manual_seed(5 + mesh.rank)
+    L, lo = mesh.n_local, mesh.shard_lo
+    rows = []
+    # The same hop with 16 bytes a shard: what a hop costs with no bytes
+    # to speak of (the launches, the waits, the ranks' hand-over).
+    tiny = torch.zeros((L, 16), dtype=torch.bool, device="cuda")
+    floor_ms = cuda_times(lambda: ring.ring_put(tiny, mesh), 50, flush)
+    for entry, dtype in (("bool", torch.bool), ("f32", torch.float32)):
+        bits = torch.randint(0, 1 << 20, (L, RING_BLOCK), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        x = (bits % 2 == 1) if dtype == torch.bool else bits.to(dtype)
+        whole = mesh_mod.gather_shards(mesh, x.view(torch.uint8)
+                                       if dtype == torch.bool else x)
+        want = torch.roll(whole, 1, 0)[lo:lo + L].view(dtype)
+        got, plain = ring.ring_put(x, mesh), ring.ring_put_plain(x, mesh)
+        if not torch.equal(got, want) or not torch.equal(plain, want):
+            fail(f"ring_put {entry} [{L}, {RING_BLOCK}] differs from the "
+                 f"global roll on rank {mesh.rank}")
+        out = torch.empty_like(x)
+        nbytes = 2 * x.numel() * x.element_size()
+        torch.cuda.synchronize()
+        dist.barrier()
+        library = cuda_times(peer_copy(ring, mesh, x, out), 50, flush)
+        torch.cuda.synchronize()
+        dist.barrier()
+        rows.append({
+            "kernel": "ring_put", "entry": entry, "shape": [L, RING_BLOCK],
+            "world": mesh.world,
+            "ms": cuda_times(lambda: ring.ring_put(x, mesh), 50, flush),
+            "plain_ms": host_ms(lambda: ring.ring_put_plain(x, mesh), 10),
+            "library_ms": library,
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+            "hop_floor_ms": floor_ms, "max_abs_err": 0.0})
+    return rows
+
+
+def rank_step_rows(ring, mesh, sg, flush) -> list:
+    """B3 across ranks on this rank's real ``mxu`` buckets of ring step
+    0, with the rows' extents, against its plain version (OR and the hop
+    bit-equal, integer sums exact), then timed."""
+    import torch.distributed as dist
+
+    gen = torch.Generator(device="cuda").manual_seed(9 + mesh.rank)
+    src, dst, mask = (a[:, 0] for a in (sg.mxu_src, sg.mxu_dst,
+                                        sg.mxu_mask))
+    extent = sg.mxu_extent[:, 0]
+    L, nb, w = src.shape
+    args = (src, dst, mask, sg.mxu_block)
+    live_slots = int(mask.sum().item())
+    slots = int(extent.sum().item())
+    rows = []
+    for entry, sig in (
+            ("or", torch.rand((L, sg.block), generator=gen,
+                              device="cuda") < 0.1),
+            ("sum", torch.randint(-8, 8, (L, sg.block), generator=gen,
+                                  device="cuda").to(torch.float32))):
+        fn = getattr(ring, f"ring_put_segsum_{entry}")
+        plain = getattr(ring, f"ring_put_segsum_{entry}_plain")
+        want_next, want = plain(sig, mesh, *args)
+        got_next, got = fn(sig, mesh, *args, extent=extent)
+        if not torch.equal(got_next, want_next) or not torch.equal(got, want):
+            fail(f"ring_put_segsum_{entry} on real step 0 differs from its "
+                 f"plain version on rank {mesh.rank}")
+        sig_bytes = sig.numel() * sig.element_size()
+        out_bytes = L * nb * sg.mxu_block * sig.element_size() + sig_bytes
+        least, bound_by = bound(slots, live_slots,
+                                sig_bytes + extent.numel() * 4, out_bytes)
+        out = torch.empty_like(sig)
+        torch.cuda.synchronize()
+        dist.barrier()
+        library = cuda_times(peer_copy(ring, mesh, sig, out), 50, flush)
+        torch.cuda.synchronize()
+        dist.barrier()
+        rows.append({
+            "kernel": "ring_put_segsum", "entry": entry, "step": 0,
+            "shape": [L, nb, w], "world": mesh.world,
+            "live_slots": live_slots,
+            "ms": cuda_times(lambda: fn(sig, mesh, *args, extent=extent),
+                             50, flush),
+            "plain_ms": host_ms(lambda: plain(sig, mesh, *args), 5),
+            "library_ms": library, "bound_ms": least, "bound_by": bound_by,
+            "max_abs_err": 0.0})
+    return rows
+
+
+def rank_ordering(ring, mesh, steps: int) -> dict:
+    """``steps`` hops of an i32 ``[n_local, 125008]`` payload that names
+    its shard and step, both directions, the last rank held back by a
+    sleep kernel before each put and on the host every 64 steps: every
+    block of every hop against the global roll (one count, read once)."""
+    L, lo, S = mesh.n_local, mesh.shard_lo, mesh.n_shards
+    g = torch.arange(S, device="cuda", dtype=torch.int32)[:, None]
+    j = torch.arange(RING_BLOCK, device="cuda", dtype=torch.int32)[None, :]
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for s in range(steps):
+        if mesh.rank == mesh.world - 1:
+            torch.cuda._sleep(100_000)
+            if s % 64 == 0:
+                time.sleep(0.05)
+        whole = g * 1_000_003 + s * 7919 + j
+        reverse = s % 3 == 2
+        got = ring.ring_put(whole[lo:lo + L].contiguous(), mesh, reverse)
+        bad += (got != torch.roll(whole, -1 if reverse else 1,
+                                  0)[lo:lo + L]).sum()
+    n_bad = int(bad.item())
+    return {"steps": steps, "bad": n_bad, "s": time.perf_counter() - t0}
+
+
+def rank_ring(reps: int) -> dict:
+    """One rank of phase 4v (run by ``multihost.launch``): phase 4's
+    graph, this rank's shards of the 8-shard ring, the dense flood to
+    0.99 on each layout (counts, syncs, walls), the churn step, the
+    kernel rows, the ordering check and 4t's gossip rung. Prints
+    nothing: the parent checks and prints."""
+    import torch.distributed as dist
+
+    from p2pnetwork_tpu_torch import _device
+    from p2pnetwork_tpu_torch.models import Gossip
+    from p2pnetwork_tpu_torch.ops import ring, segsum
+    from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
+    from p2pnetwork_tpu_torch.parallel import multihost, sharded
+    from p2pnetwork_tpu_torch.sim import graph as graph_mod
+
+    mesh = multihost.hierarchical_ring_mesh(n_shards=RING_SHARDS)
+    t0 = time.perf_counter()
+    g = graph_mod.watts_strogatz(N_NODES, 10, 0.1, seed=0)
+    torch.cuda.synchronize()
+    res = {"rank": mesh.rank, "world": mesh.world, "shard_lo": mesh.shard_lo,
+           "device": str(mesh.device), "graph_s": time.perf_counter() - t0,
+           "floods": {}, "rows": []}
+    flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
+
+    def checked(run):
+        zero_rank_counts(ring, segsum, _device)
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, rank_counts(ring, segsum), \
+            _device.SYNCS
+
+    for layout, kw in RING_LAYOUTS:
+        t0 = time.perf_counter()
+        sg = sharded.shard_graph(g, mesh, **kw)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        if layout == "mxu":
+            res["rows"] += rank_step_rows(ring, mesh, sg, flush)
+
+        def run():
+            return sharded.flood_until_coverage(
+                sg, mesh, 0, coverage_target=0.99, max_rounds=64)
+
+        (seen, out), first_s, launches, syncs = checked(run)
+        walls = [checked(run)[1] for _ in range(reps)]
+        rec = {"out": out, "seen": seen.cpu().numpy(), "launches": launches,
+               "syncs": syncs, "build_s": build_s, "first_run_s": first_s,
+               "wall_s": statistics.median(walls), "wall_s_all": walls}
+        if layout == "segment":
+            (seen_c, out_c), churn_s, churn_launches, _ = checked(
+                lambda: rank_churn(sharded, sg, mesh))
+            rec["churn"] = {"out": out_c, "seen": seen_c.cpu().numpy(),
+                            "s": churn_s, "launches": churn_launches}
+        res["floods"][layout] = rec
+        del sg
+        torch.cuda.empty_cache()
+    res["rows"] += rank_put_rows(ring, mesh_mod, mesh, flush)
+    res["ordering"] = rank_ordering(ring, mesh, ORDERING_STEPS)
+    del g, flush
+    torch.cuda.empty_cache()
+    gba = graph_mod.barabasi_albert(**RING_GOSSIP_GRAPH)
+    sg = sharded.shard_graph(gba, mesh)
+    (vals, stats), gossip_s, launches, syncs = checked(
+        lambda: sharded.gossip(sg, mesh, Gossip(alpha=0.5), KEY,
+                               GOSSIP_ROUNDS))
+    res["gossip"] = {"stats": stat_lists(stats),
+                     "values": vals.cpu().numpy(), "first_run_s": gossip_s,
+                     "launches": launches, "syncs": syncs}
+    return res
+
+
+def rank_churn(sharded, sg, mesh):
+    """The reference worker's churn step at 1M: nodes failed, dynamic
+    slots, a runtime link, then the flood to ``RANK_CHURN['target']``."""
+    sgc = sharded.with_capacity(sharded.fail_nodes(
+        sg, list(RANK_CHURN["fail"])), RANK_CHURN["capacity"])
+    sgc = sharded.connect(sgc, *RANK_CHURN["link"])
+    return sharded.flood_until_coverage(
+        sgc, mesh, 0, coverage_target=RANK_CHURN["target"], max_rounds=64)
+
+
+def rank_fails() -> None:
+    """A rank target that raises at once (phase 4v's failure check)."""
+    raise RuntimeError("a rank fails on purpose")
+
+
+def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
+                   multihost, gpu: str) -> dict:
+    """Phase 4v: the ring split over 2 and 8 rank processes on the card
+    (``RANK_WORLDS``; 4 and 1 shards a rank). First, in this process, the
+    dense floods' walls at world 1 and the churn step, on phase 4's graph.
+    Then each world's ranks (``rank_ring``), held to phase 4b's records
+    (``EXPECTED_1M``, ``EXPECTED_RING_SEEN``), 4t's gossip rung
+    (``EXPECTED_RING_GOSSIP``), the world-1 churn step, the launches of
+    ``RANK_LAUNCHES`` and the kernels' checks; a rank that raises must
+    fail its launch. Prints ``rank-ring-path`` lines; returns the kernel
+    rows of rank 0 at each world and, by world, the launches of the
+    checked floods and churn steps (and the gossip rung's f32 puts,
+    ``put_f32``) summed over every rank."""
+    mesh = mesh_mod.ring_mesh(RING_SHARDS)
+    one = {}
+    for layout, kw in RING_LAYOUTS:
+        sg = sharded.shard_graph(g, mesh, **kw)
+
+        def run():
+            return sharded.flood_until_coverage(
+                sg, mesh, 0, coverage_target=0.99, max_rounds=64)
+
+        run()
+        walls = []
+        for _ in range(3):
+            device_mod.SYNCS = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        one[layout] = {"wall_s": statistics.median(walls),
+                       "wall_s_all": walls, "syncs": device_mod.SYNCS}
+        if layout == "segment":
+            seen_c, out_c = rank_churn(sharded, sg, mesh)
+            churn = {"out": out_c, "seen": digest(seen_c)}
+        del sg
+        torch.cuda.empty_cache()
+    print(json.dumps({"phase": "rank-ring-path", "world": 1,
+                      "floods": one, "churn": churn["out"], "gpu": gpu}),
+          flush=True)
+    rows, totals = {}, {}
+    for world in RANK_WORLDS:
+        totals[world] = counts = collections.Counter()
+        t0 = time.perf_counter()
+        try:
+            parts = multihost.launch(f"{Path(__file__).resolve()}:rank_ring",
+                                     world, (3,), timeout=RANK_TIMEOUT,
+                                     device="cuda")
+        except (multihost.RankError, TimeoutError) as e:
+            fail(f"phase 4v at world {world}: {e}")
+        launch_s = time.perf_counter() - t0
+        floods = {}
+        for layout, _ in RING_LAYOUTS:
+            recs = [p["floods"][layout] for p in parts]
+            seen = torch.from_numpy(np.concatenate([r["seen"] for r in recs]))
+            for r in recs:
+                if r["out"] != EXPECTED_1M:
+                    fail(f"rank ring {layout} at world {world} returned "
+                         f"{r['out']}, the reference gives {EXPECTED_1M}")
+                check_launches(f"rank ring {layout} at world {world}",
+                               r["launches"], RANK_LAUNCHES[layout])
+                counts.update(r["launches"])
+            if digest(seen) != EXPECTED_RING_SEEN:
+                fail(f"rank ring {layout} at world {world}: seen differs "
+                     f"from phase 4b's")
+            floods[layout] = {
+                "wall_s": [r["wall_s"] for r in recs],
+                "first_run_s": [r["first_run_s"] for r in recs],
+                "syncs": recs[0]["syncs"], "launches": recs[0]["launches"],
+                "build_s": recs[0]["build_s"]}
+            if layout == "segment":
+                churn_recs = [r["churn"] for r in recs]
+                for r in churn_recs:
+                    if r["out"] != churn["out"]:
+                        fail(f"rank churn step at world {world} returned "
+                             f"{r['out']}, one process {churn['out']}")
+                    counts.update(r["launches"])
+                seen_c = torch.from_numpy(np.concatenate(
+                    [r["seen"] for r in churn_recs]))
+                if digest(seen_c) != churn["seen"]:
+                    fail(f"rank churn step at world {world}: seen differs "
+                         f"from one process's")
+                floods[layout]["churn_s"] = [r["s"] for r in churn_recs]
+        gossip = [p["gossip"] for p in parts]
+        for r in gossip:
+            if r["stats"] != gossip[0]["stats"]:
+                fail(f"rank gossip at world {world}: ranks disagree")
+        record = {**gossip[0]["stats"], "values_sha256": np_sha(
+            np.concatenate([r["values"] for r in gossip]))}
+        check_close(f"rank gossip at world {world}", record,
+                    EXPECTED_RING_GOSSIP, RING_TOL["gossip"])
+        check_launches(f"rank gossip at world {world}",
+                       gossip[0]["launches"],
+                       {"put": (RING_SHARDS - 1) * GOSSIP_ROUNDS})
+        counts["put_f32"] += sum(r["launches"]["put"] for r in gossip)
+        for p in parts:
+            if p["ordering"]["bad"]:
+                fail(f"rank ordering check at world {world}: "
+                     f"{p['ordering']['bad']} elements of rank "
+                     f"{p['rank']}'s landed blocks differ")
+        rows[world] = parts[0]["rows"]
+        for row in parts[0]["rows"]:
+            print(json.dumps({"phase": "kernel", **row}), flush=True)
+        print(json.dumps({
+            "phase": "rank-ring-path", "world": world, "launch_s": launch_s,
+            "graph_s": [p["graph_s"] for p in parts],
+            "devices": sorted({p["device"] for p in parts}),
+            "floods": floods, "gossip_s": [r["first_run_s"] for r in gossip],
+            "gossip_syncs": gossip[0]["syncs"],
+            "ordering": [p["ordering"] for p in parts],
+            "t_s": time.perf_counter() - T_START}), flush=True)
+    t0 = time.perf_counter()
+    try:
+        multihost.launch(f"{Path(__file__).resolve()}:rank_fails", 2,
+                         timeout=120, device="cuda")
+    except multihost.RankError as e:
+        if "fails on purpose" not in str(e):
+            fail(f"phase 4v: a failing rank raised {e}")
+    else:
+        fail("phase 4v: a rank that raises did not fail its launch")
+    print(json.dumps({"phase": "rank-ring-path", "failing_rank_s":
+                      time.perf_counter() - t0}), flush=True)
+    return {"rows": rows, "launches": totals}
+
+
 RING_EXPECT = {"segment": ("ring_shift",),
                "mxu": ("ring_segsum", "segsum"),
                "hybrid": ("ring_shift", "segsum")}
@@ -6098,7 +6518,7 @@ def main() -> int:
     from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
     from p2pnetwork_tpu_torch.ops import ring, rowsum, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
-    from p2pnetwork_tpu_torch.parallel import sharded
+    from p2pnetwork_tpu_torch.parallel import multihost, sharded
     from p2pnetwork_tpu_torch import chaos, serve, supervise, telemetry
     from p2pnetwork_tpu_torch import config as config_mod
     from p2pnetwork_tpu_torch import node as node_mod
@@ -6230,6 +6650,10 @@ def main() -> int:
         node_mod, Flood, HopDistance)
     for k, n in node_launches.items():
         adaptive_launches[k] += n
+    # 4v (slice 14), after 4u: the ring split over 2 and 8 rank processes
+    # on the card, its hops the cross-rank kernels.
+    rank = rank_ring_path(g, ring, segsum, _device, sharded, mesh_mod,
+                          multihost, gpu)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -6288,6 +6712,10 @@ def main() -> int:
     # of (d), the healed supervised flood, and (e), the faulted ring flood
     # (the stacked apply), B2's hops of (e) and threefry's corrupt-bit
     # draws of (e).
+    def rank_row(world, kernel, entry):
+        return next(r for r in rank["rows"][world]
+                    if r["kernel"] == kernel and r["entry"] == entry)
+
     def row(name, source, replaces, at, n, err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
@@ -6375,6 +6803,27 @@ def main() -> int:
             "shard's block, an XLA reduce; no TPU kernel)",
             proto_rows["row_sum_shards"], proto_launches["row_sum_shards"],
             0.0),
+        row("ring_put", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
+            "bool [4, 125008])", rank_row(2, "ring_put", "bool"),
+            rank["launches"][2]["put"], 0.0),
+        row("ring_put_w8", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 8, "
+            "bool [1, 125008])", rank_row(8, "ring_put", "bool"),
+            rank["launches"][8]["put"], 0.0),
+        row("ring_put_f32", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
+            "f32 [4, 125008])", rank_row(2, "ring_put", "f32"),
+            rank["launches"][2]["put_f32"] + rank["launches"][8]["put_f32"],
+            0.0),
+        row("ring_put_segsum", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 2, "
+            "OR, real step 0)", rank_row(2, "ring_put_segsum", "or"),
+            rank["launches"][2]["put_segsum"], 0.0),
+        row("ring_put_segsum_w8", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 8, "
+            "OR, real step 0)", rank_row(8, "ring_put_segsum", "or"),
+            rank["launches"][8]["put_segsum"], 0.0),
         row("row_sum_shards_100k", "rowsum.cu",
             "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "
             "shard's block on the 100K gossip ring, an XLA reduce; no TPU "

@@ -29,6 +29,8 @@ OUT_DIR = _PKG / "_build"
 #: ``sm_90a`` keeps Hopper's wgmma/setmaxnreg available to later kernels.
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 CFLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: libcuda, for ``cuStreamWaitValue32`` (``csrc/ring_peer.cu``).
+LDFLAGS = ["-lcuda"]
 
 _lock = threading.Lock()
 _lib = None
@@ -50,7 +52,7 @@ def _nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(CFLAGS).encode())
+    h = hashlib.sha256(" ".join(CFLAGS + LDFLAGS).encode())
     for src in sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -82,7 +84,8 @@ def _compile(target: Path) -> str:
                 raise RuntimeError(f"nvcc failed on {src.name}:\n{out}")
         lib_tmp = Path(tmp) / target.name
         link = subprocess.run(
-            [nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(lib_tmp)],
+            [nvcc, *ARCH, "-shared", *map(str, objs), "-o", str(lib_tmp),
+             *LDFLAGS],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")

@@ -38,6 +38,34 @@ tensor goes to the plain version. ``SHIFT_LAUNCHES`` and
 ``SEGSUM_LAUNCHES`` count kernel launches; ``SHIFT_BACK_LAUNCHES`` counts
 the reverse hops among B2's (the liveness re-mask's Horner fold,
 ``parallel/sharded.py``).
+
+**Across ranks** (a ring split over processes, ``parallel/multihost.py``:
+each rank holds ``n_local`` consecutive shards of the ``S``), B2 and B3
+have cross-rank forms (``csrc/ring_peer.cu``):
+
+- :func:`ring_put` — B2: the local shards roll by one and the rank's
+  boundary shard (the last forward, the first reverse) goes to the next
+  (previous) rank's receive slot, a CUDA IPC peer write. Its result is
+  this rank's rows of the global hop: ``ring_shift`` of the ``[S, ...]``
+  stack, rows ``shard_lo ..``.
+- :func:`ring_put_segsum_or` / ``_sum`` — B3: the same put fused into
+  the launch of B1's segment sum of the rank's buckets.
+
+The receive slots (two a direction, by step parity) and their flags are
+allocated by ``cudaMalloc`` in each rank and mapped into its two
+neighbours (:class:`PeerChannel`). A call enqueues, on the current
+stream and without a host wait: a stream wait until the peer has taken
+the slot this step overwrites (its acknowledgement of step ``seq - 2``),
+the put kernel, whose last block to finish stores ``seq`` to the peer's
+arrival flag with a system-scope release, a stream wait until this
+rank's own flag shows ``seq``, and the land kernel, which copies the
+slot into its row of the result and acknowledges ``seq`` to the sender.
+The waits are ``cuStreamWaitValue32`` (the GPU's front end polls the
+flag; no kernel spins), so ranks whose contexts time-slice one card
+still make progress. Their plain versions send the boundary shard with
+gloo ``isend``/``irecv`` (on the host) and roll the rest with
+``torch.roll``. ``PUT_LAUNCHES``, ``PUT_SEGSUM_LAUNCHES`` count the put
+kernels, ``LAND_LAUNCHES`` the land kernels of both.
 """
 
 from __future__ import annotations
@@ -55,6 +83,12 @@ SHIFT_LAUNCHES = 0
 SHIFT_BACK_LAUNCHES = 0
 #: Kernel launches made by :func:`ring_segment_sum_or` / ``_sum``.
 SEGSUM_LAUNCHES = 0
+#: Put kernels launched by :func:`ring_put` (both directions).
+PUT_LAUNCHES = 0
+#: Fused put kernels launched by :func:`ring_put_segsum_or` / ``_sum``.
+PUT_SEGSUM_LAUNCHES = 0
+#: Land kernels, one after each put kernel of either.
+LAND_LAUNCHES = 0
 
 _bound = None
 
@@ -69,6 +103,20 @@ def _lib() -> ctypes.CDLL:
         lib.p2p_ring_shift.restype = i
         for fn in (lib.p2p_ring_segsum_or, lib.p2p_ring_segsum_sum):
             fn.argtypes = [p, p, q, p, p, p, p, q, p, i, i, i, i, q, i, p]
+            fn.restype = i
+        u = ctypes.c_uint32
+        lib.p2p_peer_alloc.argtypes = [q, i, ctypes.POINTER(p),
+                                       ctypes.c_char_p]
+        lib.p2p_peer_open.argtypes = [ctypes.c_char_p, i, ctypes.POINTER(p)]
+        lib.p2p_peer_close.argtypes = [p, i]
+        lib.p2p_peer_free.argtypes = [p, i]
+        lib.p2p_ring_put.argtypes = [p, p, i, q, i, u, p, p, p, q, i, p]
+        for fn in (lib.p2p_ring_put_segsum_or, lib.p2p_ring_put_segsum_sum):
+            fn.argtypes = [p, p, q, p, p, p, p, q, p, i, i, i, i, q, u, p,
+                           p, p, q, i, p]
+        for fn in (lib.p2p_peer_alloc, lib.p2p_peer_open, lib.p2p_peer_close,
+                   lib.p2p_peer_free, lib.p2p_ring_put,
+                   lib.p2p_ring_put_segsum_or, lib.p2p_ring_put_segsum_sum):
             fn.restype = i
         _bound = lib
     return _bound
@@ -207,3 +255,224 @@ def ring_segment_sum_sum(rot, src, local_dst, mask, block: int,
         return ring_segment_sum_sum_plain(rot, src, local_dst, mask, block)
     return _launch("sum", rot, src, local_dst, mask, block, torch.float32,
                    extent)
+
+
+# ------------------------------------------------------------ across ranks
+
+#: Bytes of a slot's handle (``cudaIpcMemHandle_t``).
+IPC_HANDLE_BYTES = 64
+#: Bytes of a receive area's flags and counters before its four slots
+#: (``kHeaderBytes`` in ``csrc/ring_peer.cu``).
+AREA_HEADER_BYTES = 512
+
+
+def _check(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what} failed with CUDA error {rc}")
+
+
+class PeerChannel:
+    """This rank's receive area on the card and its two neighbours'
+    mapped areas: two slots of ``slot_bytes`` a direction (by step
+    parity), the arrival and acknowledgement flags, and the kernels'
+    arrival counters (``csrc/ring_peer.cu``). Made by every rank of
+    ``mesh`` together (one exchange of IPC handles through the process
+    group); ``seq`` counts the hops made in each direction, the same on
+    every rank."""
+
+    def __init__(self, mesh, slot_bytes: int):
+        import torch.distributed as dist
+
+        lib = _lib()
+        self.mesh, self.device = mesh, mesh.device.index or 0
+        self.slot_bytes = -(-int(slot_bytes) // 256) * 256
+        area = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+        _check(lib.p2p_peer_alloc(self.slot_bytes, self.device,
+                                  ctypes.byref(area), handle),
+               "p2p_peer_alloc")
+        self.area = area.value
+        handles = [None] * mesh.world
+        dist.all_gather_object(handles, handle.raw, group=mesh.group)
+        self.peers = {}
+        for r in {mesh.next_rank, mesh.prev_rank}:
+            ptr = ctypes.c_void_p()
+            _check(lib.p2p_peer_open(handles[r], self.device,
+                                     ctypes.byref(ptr)), "p2p_peer_open")
+            self.peers[r] = ptr.value
+        dist.barrier(group=mesh.group)
+        self.seq = [0, 0]
+
+    def hop(self, reverse: bool):
+        """The next hop's ``(seq, down, up)`` in a direction: its sequence
+        number, the mapped area of the rank this one sends to and of the
+        rank it receives from."""
+        d = int(reverse)
+        self.seq[d] += 1
+        ahead, behind = self.peers[self.mesh.next_rank], \
+            self.peers[self.mesh.prev_rank]
+        return (self.seq[d],) + ((behind, ahead) if reverse
+                                 else (ahead, behind))
+
+    def slot_address(self, rank: int, reverse: bool, seq: int) -> int:
+        """The device address, mapped here, of the slot of neighbour
+        ``rank`` that hop ``seq`` in a direction writes."""
+        return self.peers[rank] + AREA_HEADER_BYTES + (
+            2 * int(reverse) + seq % 2) * self.slot_bytes
+
+    def close(self) -> None:
+        """Unmap the peers' areas and free this one, after every rank has
+        finished its hops (a barrier)."""
+        import torch.distributed as dist
+
+        torch.cuda.synchronize(self.mesh.device)
+        lib = _lib()
+        for ptr in self.peers.values():
+            _check(lib.p2p_peer_close(ptr, self.device), "p2p_peer_close")
+        dist.barrier(group=self.mesh.group)
+        _check(lib.p2p_peer_free(self.area, self.device), "p2p_peer_free")
+
+
+def peer_channel(mesh, shard_bytes: int) -> PeerChannel:
+    """``mesh``'s channel, made at its first hop with slots for 8 bytes a
+    payload byte of that hop's shard (so the same shard shape fits in any
+    dtype), and made anew (every rank at the same hop) when a payload
+    outgrows it."""
+    chan = mesh.peer.get("channel")
+    if chan is None or chan.slot_bytes < shard_bytes:
+        if chan is not None:
+            chan.close()
+        chan = mesh.peer["channel"] = PeerChannel(mesh, 8 * shard_bytes)
+    return chan
+
+
+def _put_geometry(name: str, x: torch.Tensor):
+    """The rank's stack ``[n_local, ...]`` checked for a CUDA put; its
+    shard bytes."""
+    if x.dim() < 1 or x.shape[0] < 1:
+        raise ValueError(f"{name}: x must have a leading shard axis")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: expected CPU or CUDA tensors, got "
+                         f"{x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name}: x must be contiguous")
+    return x[0].numel() * x.element_size()
+
+
+def ring_put_plain(x: torch.Tensor, mesh, reverse: bool = False
+                   ) -> torch.Tensor:
+    """Plain version of :func:`ring_put`: the boundary shard sent to the
+    next (previous) rank with gloo ``isend``/``irecv`` on the host, the
+    local shards rolled by ``torch.roll``."""
+    import torch.distributed as dist
+
+    n = x.shape[0]
+    boundary, landing = (0, n - 1) if reverse else (n - 1, 0)
+    to, frm = (mesh.prev_rank, mesh.next_rank) if reverse \
+        else (mesh.next_rank, mesh.prev_rank)
+    send = x[boundary].contiguous().cpu()
+    recv = torch.empty_like(send)
+    wire = (lambda t: t.view(torch.uint8)) if x.dtype == torch.bool \
+        else (lambda t: t)
+    reqs = [dist.isend(wire(send), to, group=mesh.group),
+            dist.irecv(wire(recv), frm, group=mesh.group)]
+    for req in reqs:
+        req.wait()
+    out = torch.roll(x, -1 if reverse else 1, dims=0)
+    out[landing] = recv.to(x.device)
+    return out
+
+
+def ring_put(x: torch.Tensor, mesh, reverse: bool = False) -> torch.Tensor:
+    """One ring hop of this rank's stack ``x [n_local, ...]`` on a ring
+    split over ranks: ``out[d] = x[d - 1]`` for ``d >= 1`` and ``out[0]``
+    the previous rank's last shard (``reverse``: ``out[d] = x[d + 1]``,
+    the last row the next rank's first shard), i.e. this rank's rows of
+    :func:`ring_shift` of the whole ``[S, ...]`` stack. Every rank of
+    ``mesh`` makes the same calls in the same order."""
+    global PUT_LAUNCHES, LAND_LAUNCHES
+    if x.device.type == "cpu":
+        return ring_put_plain(x, mesh, reverse)
+    shard_bytes = _put_geometry("ring_put", x)
+    out = torch.empty_like(x)
+    if shard_bytes == 0:
+        return out
+    chan = peer_channel(mesh, shard_bytes)
+    seq, down, up = chan.hop(reverse)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(_lib().p2p_ring_put(x.data_ptr(), out.data_ptr(), x.shape[0],
+                               shard_bytes, int(reverse), seq, chan.area,
+                               down, up, chan.slot_bytes, chan.device,
+                               stream), "ring_put: kernel launch")
+    PUT_LAUNCHES += 1
+    LAND_LAUNCHES += 1
+    return out
+
+
+def ring_put_segsum_or_plain(rot, mesh, src, local_dst, mask, block: int):
+    """Plain version of :func:`ring_put_segsum_or`, every row at its full
+    width."""
+    return (ring_put_plain(rot, mesh),
+            segsum.segsum_or_plain(rot, src, local_dst, mask, block))
+
+
+def ring_put_segsum_sum_plain(rot, mesh, src, local_dst, mask, block: int):
+    """Plain version of :func:`ring_put_segsum_sum`, every row at its full
+    width."""
+    return (ring_put_plain(rot, mesh),
+            segsum.segsum_sum_plain(rot, src, local_dst, mask, block))
+
+
+def _put_launch(kind: str, rot, mesh, src, local_dst, mask, block: int,
+                dtype, extent):
+    """Check the operands, allocate both outputs and launch the fused
+    put's ``kind`` ("or" or "sum") entry on the current stream."""
+    global PUT_SEGSUM_LAUNCHES, LAND_LAUNCHES
+    name = f"ring_put_segsum_{kind}"
+    if rot.dtype != dtype:
+        raise ValueError(f"{name}: rot must be {dtype}, got {rot.dtype}")
+    if extent is not None:
+        _check_extent(name, extent, src)
+    s, nb, w, bucket_stride, signal_stride = segsum.bucket_geometry(
+        name, rot, src, local_dst, mask, block)
+    shard_bytes = _put_geometry(name, rot)
+    dev = rot.device
+    rot_next = torch.empty_like(rot)
+    out = torch.empty(s, nb * block, dtype=dtype, device=dev)
+    chan = peer_channel(mesh, shard_bytes)
+    seq, down, up = chan.hop(False)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    _check(getattr(_lib(), f"p2p_ring_put_segsum_{kind}")(
+        rot.data_ptr(), rot_next.data_ptr(), signal_stride, src.data_ptr(),
+        local_dst.data_ptr(), mask.data_ptr(),
+        None if extent is None else extent.data_ptr(),
+        0 if extent is None else extent.stride(0), out.data_ptr(), s, nb, w,
+        block, bucket_stride, seq, chan.area, down, up, chan.slot_bytes,
+        chan.device, stream), f"{name}: kernel launch")
+    PUT_SEGSUM_LAUNCHES += 1
+    LAND_LAUNCHES += 1
+    return rot_next, out
+
+
+def ring_put_segsum_or(rot, mesh, src, local_dst, mask, block: int,
+                       extent=None):
+    """B3 across ranks for OR: ``(ring_put(rot, mesh), out)`` with ``out``
+    :func:`ring_segment_sum_or`'s segment sum of this rank's buckets
+    (``rot`` bool ``[n_local, B]``, buckets ``[n_local, NB, W]``,
+    ``extent`` as there), the put and the sum in one launch."""
+    if rot.device.type == "cpu":
+        return ring_put_segsum_or_plain(rot, mesh, src, local_dst, mask,
+                                        block)
+    return _put_launch("or", rot, mesh, src, local_dst, mask, block,
+                       torch.bool, extent)
+
+
+def ring_put_segsum_sum(rot, mesh, src, local_dst, mask, block: int,
+                        extent=None):
+    """B3 across ranks for f32 sums (:func:`ring_segment_sum_sum`'s sum,
+    :func:`ring_put`'s hop), in one launch."""
+    if rot.device.type == "cpu":
+        return ring_put_segsum_sum_plain(rot, mesh, src, local_dst, mask,
+                                         block)
+    return _put_launch("sum", rot, mesh, src, local_dst, mask, block,
+                       torch.float32, extent)

@@ -61,6 +61,22 @@ The ring's flight recorder (``recorder=``) rides the dense flood and the
 lane ring, its ``ici_bytes`` column the reference's per-round byte
 estimate (``parallel/commviz.py``).
 
+**Across processes** (``parallel/multihost.py``): on a mesh of ``world``
+ranks :func:`shard_graph` keeps the rank's ``S / world`` shards (a
+:class:`RankShardedGraph`, ``[n_local, ...]`` on axis 0), the hops go
+through :class:`_RankComm` (the cross-rank kernels of ``ops/ring.py``:
+``ring_put``, fused with the MXU bucket's sum in ``ring_put_segsum_*``)
+and every ``psum`` of the reference is a process-group reduction: the
+integer counts of a round in one exchange before any f32 division
+(:func:`_rank_sums`), the f32 totals as the shards' row sums gathered in
+shard order and added left to right (:func:`psum_f32`), so every rank
+holds the same global stats and the engine's loop takes the same exit on
+each. The dense flood, :func:`propagate`, exact-RNG :func:`gossip`,
+:func:`fail_nodes` (the re-mask), :func:`with_capacity`, :func:`connect`
+and :func:`disconnect` run across ranks; the rest raises
+``NotImplementedError`` there (:func:`refuse_ranks`, ROADMAP.md). At one
+rank every path is the one-process ring's.
+
 Ported: :func:`shard_graph` (``mxu``, ``hybrid``, ``source_csr``; a
 graph's runtime links folded into the static buckets, its neighbor table
 carried), :func:`flood`, :func:`flood_until_coverage` (dense and
@@ -102,7 +118,9 @@ from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.ops.diag import select_diagonals
 from p2pnetwork_tpu_torch.parallel import commviz
 from p2pnetwork_tpu_torch.parallel.auto import COMM_BACKENDS, resolve_comm
-from p2pnetwork_tpu_torch.parallel.mesh import DEFAULT_AXIS, RingMesh
+from p2pnetwork_tpu_torch.parallel.mesh import (DEFAULT_AXIS, RingMesh,
+                                                all_sum, gather_shards,
+                                                shard_spec)
 from p2pnetwork_tpu_torch.sim import engine, flightrec
 from p2pnetwork_tpu_torch.sim.graph import _round_up
 from p2pnetwork_tpu_torch.telemetry import spans
@@ -188,18 +206,81 @@ class _RingComm:
         return fn(rot, src, local_dst, mask, block, extent=extent)
 
 
-def _make_ring_comm(comm, axis_name: str, S: int, device):
-    """One ring's comm object: a backend name (resolved for ``device``)
-    builds the bare :class:`_RingComm`; a spec object (a
+class _RankComm(_RingComm):
+    """The halo exchange of a ring split over ranks (``mesh.world > 1``):
+    each rank's ``[n_local, ...]`` stack moves as one ``[S, ...]`` ring
+    would, the local shards by a roll and the boundary shard to the next
+    (``shift``) or previous (``shift_back``) rank. ``"pallas"`` runs the
+    cross-rank kernels (``ops/ring.py::ring_put``, and
+    ``ring_put_segsum_*`` fused with the MXU bucket's segment sum: CUDA
+    IPC peer writes on the card), ``"ppermute"`` their plain versions
+    (gloo ``isend``/``irecv`` of the boundary shard)."""
+
+    __slots__ = ("mesh",)
+
+    def __init__(self, backend: str, mesh: RingMesh):
+        super().__init__(backend, mesh.n_shards)
+        self.mesh = mesh
+
+    def shift(self, x):
+        self._check_payload(x, "shift")
+        if self.backend == "pallas":
+            return ring.ring_put(x, self.mesh)
+        return ring.ring_put_plain(x, self.mesh)
+
+    def shift_back(self, x):
+        self._check_payload(x, "shift_back")
+        if self.backend == "pallas":
+            return ring.ring_put(x, self.mesh, reverse=True)
+        return ring.ring_put_plain(x, self.mesh, reverse=True)
+
+    def fused_segment_sum(self, rot, kind, src, local_dst, mask, block,
+                          extent):
+        if self.backend != "pallas":
+            return None
+        self._check_payload(rot, "shift")
+        fn = ring.ring_put_segsum_or if kind == "or" \
+            else ring.ring_put_segsum_sum
+        return fn(rot, self.mesh, src, local_dst, mask, block, extent=extent)
+
+
+def _rank_mesh(obj) -> Optional[RingMesh]:
+    """The rank mesh of a ring split over processes: ``obj`` is a
+    :class:`RankShardedGraph` or a :class:`RingMesh`; None in one
+    process."""
+    mesh = obj if isinstance(obj, RingMesh) else getattr(obj, "mesh", None)
+    return mesh if mesh is not None and mesh.world > 1 else None
+
+
+def refuse_ranks(obj, what: str) -> None:
+    """Raise for a part of the ring plane not yet ported across ranks
+    (``obj`` a sharded graph or a mesh); nothing in one process."""
+    mesh = _rank_mesh(obj)
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{what} on a ring of {mesh.world} ranks is not ported yet: it "
+            f"waits in ROADMAP.md (the ring across ranks, §A item 14); run "
+            f"it on a ring in one process (mesh.ring_mesh)")
+
+
+def _make_ring_comm(comm, axis_name: str, sg):
+    """One ring's comm object for ``sg``: a backend name (resolved for
+    its device) builds the bare :class:`_RingComm`, or the
+    :class:`_RankComm` of a ring split over ranks; a spec object (a
     ``chaos/device.FaultSpec``, carrying a concrete backend) builds its
     wrapper."""
+    mesh = _rank_mesh(sg)
     if isinstance(comm, str):
-        return _RingComm(resolve_comm(comm, device), S)
+        backend = resolve_comm(comm, sg.device)
+        if mesh is not None:
+            return _RankComm(backend, mesh)
+        return _RingComm(backend, sg.n_shards)
+    refuse_ranks(sg, "a fault-spec comm")
     if not callable(getattr(comm, "make", None)):
         raise TypeError(
             f"comm must be a backend name or a spec object with make() "
             f"(chaos/device.FaultSpec), got {type(comm).__name__}")
-    return comm.make(axis_name, S)
+    return comm.make(axis_name, sg.n_shards)
 
 
 # ------------------------------------------------------------ sharded graph
@@ -267,6 +348,28 @@ class ShardedGraph:
     @property
     def device(self) -> torch.device:
         return self.node_mask.device
+
+    @property
+    def n_local(self) -> int:
+        """Shards held here, on axis 0 of every per-shard tensor."""
+        return self.node_mask.shape[0]
+
+    @property
+    def shard_lo(self) -> int:
+        """The global index of the first shard held here."""
+        mesh = getattr(self, "mesh", None)
+        return 0 if mesh is None else mesh.shard_lo
+
+
+@dataclasses.dataclass(frozen=True)
+class RankShardedGraph(ShardedGraph):
+    """One rank's part of a :class:`ShardedGraph` on a ring split over
+    processes (``mesh.world > 1``): every per-shard tensor holds the
+    ``mesh.n_local`` shards from ``mesh.shard_lo`` on axis 0
+    (``mesh.shard_spec``); ``n_shards`` and ``n_nodes`` stay the whole
+    ring's. ``dataclasses.replace`` keeps the class and the mesh."""
+
+    mesh: Optional[RingMesh] = None
 
 
 def _extract_ring_diagonals(senders, receivers, n, S, block, max_diags,
@@ -348,7 +451,9 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
     sender-CSR view (:func:`_sender_csr`) that :func:`walk` gathers a
     walker's out-edges through. A graph's live
     runtime links (``sim/topology.py``) are folded into the static
-    buckets, as the reference folds them (its consolidation path)."""
+    buckets, as the reference folds them (its consolidation path). On a
+    mesh split over ranks every rank builds the whole host layout and
+    keeps its own shards' rows (``mesh.shard_spec``)."""
     S = mesh.n_shards
     emask = _np(graph.edge_mask)
     senders = _np(graph.senders)[emask]
@@ -427,12 +532,18 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
         return None if t is None else np.pad(
             _np(t), ((0, pad_n), (0, 0))).reshape(S, block, -1)
 
+    rows = shard_spec(mesh)  # every per-shard array: this rank's shards
+
     def on(a):
-        return None if a is None else torch.from_numpy(a).to(mesh.device)
+        return None if a is None else torch.from_numpy(
+            np.ascontiguousarray(a[rows])).to(mesh.device)
 
     mxu_src, mxu_dst, mxu_mask = map(on, mxu_arrays or (None,) * 3)
     mxu_extent = on(row_extent(*mxu_arrays) if mxu_arrays else None)
-    return ShardedGraph(
+    cls, part = ShardedGraph, {}
+    if mesh.world > 1:
+        cls, part = RankShardedGraph, {"mesh": mesh}
+    return cls(
         bkt_src=on(bkt_src), bkt_dst=on(bkt_dst), bkt_mask=on(bkt_mask),
         node_mask=on(per_node(graph.node_mask)),
         out_degree=on(per_node(graph.out_degree)),
@@ -445,7 +556,7 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
         diag_pieces=diag_pieces, mxu_block=mxu_block,
         **({} if csr is None else dict(csr_pos=on(csr[0]),
                                        csr_offsets=on(csr[1]),
-                                       csr_span=csr[2])))
+                                       csr_span=csr[2])), **part)
 
 
 def _sender_csr(bkt_src, bkt_mask, S, block, e_bkt, pad_multiple):
@@ -481,7 +592,7 @@ def with_capacity(sg: ShardedGraph, extra_edges: int) -> ShardedGraph:
     directed links fits whichever bucket it lands in. Growing an existing
     region keeps every runtime link and adds that many slots again."""
     K = _round_up(max(extra_edges, 1), 8)
-    S, dev = sg.n_shards, sg.device
+    S, L, dev = sg.n_shards, sg.n_local, sg.device
     if sg.dyn_src is not None:
         def pad(x):
             return torch.nn.functional.pad(x, (0, K))
@@ -490,30 +601,30 @@ def with_capacity(sg: ShardedGraph, extra_edges: int) -> ShardedGraph:
                                    dyn_dst=pad(sg.dyn_dst),
                                    dyn_mask=pad(sg.dyn_mask))
     return dataclasses.replace(
-        sg, dyn_src=torch.zeros((S, S, K), dtype=torch.int32, device=dev),
-        dyn_dst=torch.zeros((S, S, K), dtype=torch.int32, device=dev),
-        dyn_mask=torch.zeros((S, S, K), dtype=torch.bool, device=dev))
+        sg, dyn_src=torch.zeros((L, S, K), dtype=torch.int32, device=dev),
+        dyn_dst=torch.zeros((L, S, K), dtype=torch.int32, device=dev),
+        dyn_mask=torch.zeros((L, S, K), dtype=torch.bool, device=dev))
 
 
 def _remask_group(masks_by_t, nm, src, dst, mask, block):
-    """One bucket group ``[S, S, W]`` re-masked by both endpoints'
-    liveness, with its per-step sender counts ``[S, S, B]`` (on the
-    receiver's shard, for the block resident at each step) and its
-    in-degree counts ``[S, B]``. Only the live slots are counted: the
+    """One bucket group ``[L, S, W]`` (``L`` shards held here) re-masked
+    by both endpoints' liveness, with its per-step sender counts ``[L, S,
+    B]`` (on the receiver's shard, for the block resident at each step)
+    and its in-degree counts ``[L, B]``. Only the live slots are counted: the
     padding slots of a bucket all address one sender and one receiver,
     and their atomic adds would serialise on those two counters (65 of
     69 ms of a 1M re-mask on the H100, phase 4s's profile)."""
-    S = src.shape[0]
+    L, S = src.shape[:2]
     src_alive = masks_by_t.gather(2, src.long())
-    dst_alive = nm.gather(1, dst.reshape(S, -1).long()).reshape(dst.shape)
+    dst_alive = nm.gather(1, dst.reshape(L, -1).long()).reshape(dst.shape)
     mask = mask & src_alive & dst_alive
     d, t, w = mask.nonzero(as_tuple=True)
     one = torch.ones(d.numel(), dtype=torch.int32, device=nm.device)
-    cnt = torch.zeros(S * S * block, dtype=torch.int32, device=nm.device)
+    cnt = torch.zeros(L * S * block, dtype=torch.int32, device=nm.device)
     cnt.scatter_add_(0, (d * S + t) * block + src[d, t, w], one)
-    cnt_in = torch.zeros(S * block, dtype=torch.int32, device=nm.device)
+    cnt_in = torch.zeros(L * block, dtype=torch.int32, device=nm.device)
     cnt_in.scatter_add_(0, d * block + dst[d, t, w], one)
-    return mask, cnt.reshape(S, S, block), cnt_in.reshape(S, block)
+    return mask, cnt.reshape(L, S, block), cnt_in.reshape(L, block)
 
 
 def with_node_liveness(sg: ShardedGraph, alive, *,
@@ -530,16 +641,19 @@ def with_node_liveness(sg: ShardedGraph, alive, *,
     reverse hops (``shift_back``): ``out[s] = sum_t cnt[(s + t) mod S, t]``.
     The segment buckets, the dynamic region, the MXU layout, the diagonal
     pieces and the neighbor table are re-masked; shapes are unchanged, and
-    ``mxu_extent`` stays valid (masking only removes slots)."""
-    S, B = sg.n_shards, sg.block
-    alive = torch.as_tensor(alive, device=sg.device).reshape(S, B)
-    comm_obj = _make_ring_comm(comm, DEFAULT_AXIS, S, sg.device)
+    ``mxu_extent`` stays valid (masking only removes slots). On a ring
+    split over ranks each rank re-masks its own shards' rows of the
+    global ``alive``."""
+    S, B, L = sg.n_shards, sg.block, sg.n_local
+    alive = torch.as_tensor(alive, device=sg.device).reshape(S, B)[
+        sg.shard_lo:sg.shard_lo + L]
+    comm_obj = _make_ring_comm(comm, DEFAULT_AXIS, sg)
     nm = sg.node_mask & alive
     rot, masks = nm, []
     for _ in range(S):  # masks[t]: liveness of the block resident at step t
         masks.append(rot)
         rot = comm_obj.shift(rot)
-    masks_by_t = torch.stack(masks, dim=1)  # [S (shard), S (step), B]
+    masks_by_t = torch.stack(masks, dim=1)  # [L (shard), S (step), B]
 
     bkt_mask, cnt, in_degree = _remask_group(
         masks_by_t, nm, sg.bkt_src, sg.bkt_dst, sg.bkt_mask, B)
@@ -558,12 +672,12 @@ def with_node_liveness(sg: ShardedGraph, alive, *,
         # mxu_block layout (sim/failures' blocked re-mask).
         _, _, nb, w = sg.mxu_src.shape
         src_alive = masks_by_t.gather(
-            2, sg.mxu_src.reshape(S, S, nb * w).long()).reshape(
+            2, sg.mxu_src.reshape(L, S, nb * w).long()).reshape(
                 sg.mxu_src.shape)
         rows = torch.arange(nb, dtype=torch.int32, device=sg.device)
         gd = torch.clamp(rows[:, None] * sg.mxu_block + sg.mxu_dst,
                          max=B - 1)
-        dst_alive = nm.gather(1, gd.reshape(S, -1).long()).reshape(gd.shape)
+        dst_alive = nm.gather(1, gd.reshape(L, -1).long()).reshape(gd.shape)
         mxu_mask = mxu_mask & src_alive & dst_alive
 
     diag_masks = sg.diag_masks
@@ -577,12 +691,16 @@ def with_node_liveness(sg: ShardedGraph, alive, *,
 
     neighbors_mask = sg.neighbors_mask
     if neighbors_mask is not None:
-        # Global neighbor ids: with every shard on the card, a partner's
-        # liveness is read at its global position (the reference reads the
-        # same bit from the collected ring blocks).
-        flat = nm.reshape(-1)
-        neighbors_mask = (neighbors_mask & nm[..., None]
-                          & flat[sg.neighbors.long()])
+        # Global neighbor ids: a partner's liveness is read from the
+        # collected ring blocks, as the reference reads it: partner v's
+        # block is resident on shard d at ring step (d - v // B) mod S.
+        nbr = sg.neighbors.long()
+        shards = torch.arange(sg.shard_lo, sg.shard_lo + L,
+                              device=sg.device)[:, None, None]
+        at = ((shards - nbr // B) % S) * B + nbr % B
+        partner_alive = masks_by_t.reshape(L, S * B).gather(
+            1, at.reshape(L, -1)).reshape(nbr.shape)
+        neighbors_mask = neighbors_mask & nm[..., None] & partner_alive
     return dataclasses.replace(
         sg, bkt_mask=bkt_mask, node_mask=nm, out_degree=out_degree,
         in_degree=in_degree, dyn_mask=dyn_mask, mxu_mask=mxu_mask,
@@ -613,7 +731,7 @@ def random_node_failures(sg: ShardedGraph, key, frac: float) -> ShardedGraph:
     ``sim/failures.random_node_failures``'s for the same key."""
     fail = prng.bernoulli(key, frac, (sg.n_nodes_padded,),
                           device=sg.device).reshape(sg.n_shards, sg.block)
-    return with_node_liveness(sg, ~(fail & sg.node_mask))
+    return with_node_liveness(sg, ~(fail & _global_node_mask(sg)))
 
 
 def _queries(sg: ShardedGraph, s: np.ndarray, r: np.ndarray):
@@ -644,6 +762,30 @@ def _in_buckets(src, dst, mask, d, t, sl, rl) -> torch.Tensor:
     return out
 
 
+def _global_node_mask(sg: ShardedGraph) -> torch.Tensor:
+    """The whole ring's ``node_mask [S, block]``: gathered from the ranks
+    of a ring split over processes (one exchange)."""
+    mesh = _rank_mesh(sg)
+    if mesh is None:
+        return sg.node_mask
+    return gather_shards(mesh, sg.node_mask.to(torch.uint8)).bool()
+
+
+def _any_rank(sg: ShardedGraph, flags: np.ndarray) -> np.ndarray:
+    """``flags`` (bool) OR-ed over the ranks: every rank computes its own
+    shards' entries, False elsewhere."""
+    mesh = _rank_mesh(sg)
+    if mesh is None:
+        return flags
+    t = torch.from_numpy(flags.astype(np.int64))
+    return all_sum(mesh, t).numpy() > 0
+
+
+def _owned(sg: ShardedGraph, shard: np.ndarray) -> np.ndarray:
+    """bool: which global shard ids are held here."""
+    return (shard >= sg.shard_lo) & (shard < sg.shard_lo + sg.n_local)
+
+
 def connect(sg: ShardedGraph, senders, receivers, *,
             undirected: bool = True) -> ShardedGraph:
     """Add links between global node ids at runtime (the mirror of
@@ -655,12 +797,15 @@ def connect(sg: ShardedGraph, senders, receivers, *,
     dropped. The existence probe and the slot writes run on the device;
     the free slots are chosen on the host from the small ``[S, S, K]``
     occupancy mask, the lowest free slot of each bucket in query order,
-    as the reference chooses them."""
+    as the reference chooses them. On a ring split over ranks every rank
+    takes the same call: the receiver's rank probes and writes the slot,
+    the sender's rank counts the out-degree, and the probe's answers are
+    shared (one exchange, and one for the liveness)."""
     if sg.dyn_src is None:
         raise ValueError(
             "no dynamic edge capacity: reserve slots with "
             "sharded.with_capacity(sg, extra_edges=...) first")
-    S, K, dev = sg.n_shards, sg.dyn_capacity, sg.device
+    S, K, dev, lo = sg.n_shards, sg.dyn_capacity, sg.device, sg.shard_lo
     s = np.asarray(senders, np.int64).reshape(-1)
     r = np.asarray(receivers, np.int64).reshape(-1)
     _check_ids(sg, s, r)
@@ -670,41 +815,57 @@ def connect(sg: ShardedGraph, senders, receivers, *,
                          return_index=True)
     keep = np.zeros(s.size, bool)
     keep[first] = True
-    alive = _np(sg.node_mask).reshape(-1)
+    alive = _np(_global_node_mask(sg)).reshape(-1)
     keep &= alive[s] & alive[r]
 
     queries = _queries(sg, s, r)
-    q = [torch.from_numpy(a).to(dev) for a in queries]
-    exists = (_in_buckets(sg.bkt_src, sg.bkt_dst, sg.bkt_mask, *q)
-              | _in_buckets(sg.dyn_src, sg.dyn_dst, sg.dyn_mask, *q))
-    keep &= ~_np(exists)
+    mine = _owned(sg, queries[0])
+    q = [torch.from_numpy(a[mine]).to(dev)
+         for a in (queries[0] - lo,) + queries[1:]]
+    exists = np.zeros(s.size, bool)
+    exists[mine] = _np(_in_buckets(sg.bkt_src, sg.bkt_dst, sg.bkt_mask, *q)
+                       | _in_buckets(sg.dyn_src, sg.dyn_dst, sg.dyn_mask,
+                                     *q))
+    keep &= ~_any_rank(sg, exists)
     if not keep.any():
         return sg
 
     d, t, sl, rl = (a[keep] for a in queries)
     occupied = _np(sg.dyn_mask).copy()
-    slots = np.empty(d.size, np.int64)
-    for i in range(d.size):
-        free = np.flatnonzero(~occupied[d[i], t[i]])
+    slots = np.zeros(d.size, np.int64)
+    full = np.zeros(1, bool)
+    for i in np.flatnonzero(_owned(sg, d)):
+        free = np.flatnonzero(~occupied[d[i] - lo, t[i]])
         if not free.size:
-            raise ValueError(
-                f"dynamic bucket ({d[i]}, {t[i]}) full ({K} slots); "
-                f"re-shard via shard_graph (consolidation) or reserve more "
-                f"via with_capacity")
+            full[0] = True
+            break
         slots[i] = free[0]
-        occupied[d[i], t[i], free[0]] = True
+        occupied[d[i] - lo, t[i], free[0]] = True
+    if _any_rank(sg, full)[0]:
+        raise ValueError(
+            f"dynamic bucket ({d[i]}, {t[i]}) full ({K} slots); "
+            f"re-shard via shard_graph (consolidation) or reserve more "
+            f"via with_capacity" if full[0] else
+            "a dynamic bucket on another rank is full; re-shard via "
+            "shard_graph (consolidation) or reserve more via with_capacity")
 
-    d, t, k, sl, rl = (torch.from_numpy(a).to(dev)
-                       for a in (d, t, slots, sl, rl))
+    at = _owned(sg, d)
+    dd, tt, kk, rr = (torch.from_numpy(a[at]).to(dev)
+                      for a in (d - lo, t, slots, rl))
     dyn_src, dyn_dst, dyn_mask = (x.clone() for x in (
         sg.dyn_src, sg.dyn_dst, sg.dyn_mask))
-    dyn_src[d, t, k] = sl.to(torch.int32)
-    dyn_dst[d, t, k] = rl.to(torch.int32)
-    dyn_mask[d, t, k] = True
-    one = torch.ones(d.numel(), dtype=torch.int32, device=dev)
-    out_degree = sg.out_degree.index_put(((d - t) % S, sl), one,
-                                         accumulate=True)
-    in_degree = sg.in_degree.index_put((d, rl), one, accumulate=True)
+    dyn_src[dd, tt, kk] = torch.from_numpy(sl[at]).to(dev, torch.int32)
+    dyn_dst[dd, tt, kk] = rr.to(torch.int32)
+    dyn_mask[dd, tt, kk] = True
+    in_degree = sg.in_degree.index_put(
+        (dd, rr), torch.ones(dd.numel(), dtype=torch.int32, device=dev),
+        accumulate=True)
+    ds = (d - t) % S  # the sender's shard
+    sent = _owned(sg, ds)
+    out_degree = sg.out_degree.index_put(
+        tuple(torch.from_numpy(a[sent]).to(dev) for a in (ds - lo, sl)),
+        torch.ones(int(sent.sum()), dtype=torch.int32, device=dev),
+        accumulate=True)
     return dataclasses.replace(sg, dyn_src=dyn_src, dyn_dst=dyn_dst,
                                dyn_mask=dyn_mask, out_degree=out_degree,
                                in_degree=in_degree)
@@ -714,10 +875,12 @@ def disconnect(sg: ShardedGraph, senders, receivers, *,
                undirected: bool = True) -> ShardedGraph:
     """Remove runtime links, matched by endpoint pair (static edges are
     removed with :func:`fail_nodes` or a re-shard). A pair listed twice
-    is removed once."""
+    is removed once. On a ring split over ranks the receiver's rank
+    clears the slot and the sender's rank the out-degree (one
+    exchange)."""
     if sg.dyn_src is None:
         raise ValueError("graph has no dynamic edge region")
-    S, dev = sg.n_shards, sg.device
+    S, dev, lo = sg.n_shards, sg.device, sg.shard_lo
     s = np.asarray(senders, np.int64).reshape(-1)
     r = np.asarray(receivers, np.int64).reshape(-1)
     if undirected:
@@ -725,17 +888,30 @@ def disconnect(sg: ShardedGraph, senders, receivers, *,
     _, first = np.unique(s * np.int64(sg.n_nodes_padded) + r,
                          return_index=True)
     s, r = s[np.sort(first)], r[np.sort(first)]
-    d, t, sl, rl = (torch.from_numpy(a).to(dev) for a in _queries(sg, s, r))
+    queries = _queries(sg, s, r)
+    mine = _owned(sg, queries[0])
+    d, t, sl, rl = (torch.from_numpy(a[mine]).to(dev)
+                    for a in (queries[0] - lo,) + queries[1:])
     hit = ((sg.dyn_src[d, t] == sl[:, None].to(torch.int32))
            & (sg.dyn_dst[d, t] == rl[:, None].to(torch.int32))
            & sg.dyn_mask[d, t])  # [Q, K]
     cleared = torch.zeros(sg.dyn_mask.shape, dtype=torch.int32, device=dev)
     cleared.index_put_((d, t), hit.to(torch.int32), accumulate=True)
-    removed = hit.any(dim=1).to(torch.int32)
+    removed = hit.any(dim=1).to(torch.int32)  # the receivers' side
+    ds = (queries[0] - queries[1]) % S  # the sender's shard
+    sent = _owned(sg, ds)
+    dropped = removed  # in one process every query is this one's
+    if _rank_mesh(sg) is not None:
+        flags = np.zeros(s.size, bool)
+        flags[mine] = _np(removed) > 0
+        dropped = torch.from_numpy(
+            _any_rank(sg, flags)[sent].astype(np.int32)).to(dev)
     return dataclasses.replace(
         sg, dyn_mask=sg.dyn_mask & (cleared == 0),
-        out_degree=sg.out_degree.index_put(((d - t) % S, sl), -removed,
-                                           accumulate=True),
+        out_degree=sg.out_degree.index_put(
+            tuple(torch.from_numpy(a[sent]).to(dev)
+                  for a in (ds - lo, queries[2])), -dropped,
+            accumulate=True),
         in_degree=sg.in_degree.index_put((d, rl), -removed,
                                          accumulate=True))
 
@@ -974,7 +1150,7 @@ def _make_pass(sg: ShardedGraph, comm, op: str, axis_name: str):
     ``_make_sum_pass``, ``_make_max_pass``, ``_make_minplus_pass``).
     ``pass_.comm`` is the ring's comm object."""
     S, block = sg.n_shards, sg.block
-    comm_obj = _make_ring_comm(comm, axis_name, S, sg.device)
+    comm_obj = _make_ring_comm(comm, axis_name, sg)
     if op in ("or", "sum"):
         groups = _groups(sg, op)
     else:  # segment buckets only: a one-hot product computes sums
@@ -988,7 +1164,8 @@ def _make_pass(sg: ShardedGraph, comm, op: str, axis_name: str):
     def acc0(x):
         fill = neutral_min(x.dtype) if op == "max" else (
             torch.inf if op == "minplus" else 0)
-        return torch.full((S, block), fill, dtype=x.dtype, device=x.device)
+        return torch.full((x.shape[0], block), fill, dtype=x.dtype,
+                          device=x.device)
 
     combine = {"or": torch.logical_or, "sum": torch.add,
                "max": torch.maximum, "minplus": torch.minimum}[op]
@@ -1007,9 +1184,11 @@ def _flood_seed(sg: ShardedGraph, source: int) -> torch.Tensor:
     if not 0 <= source < sg.n_nodes_padded:
         raise ValueError(f"source {source} is outside the graph's "
                          f"{sg.n_nodes_padded} padded nodes")
-    seed = torch.zeros((sg.n_shards, sg.block), dtype=torch.bool,
+    seed = torch.zeros((sg.n_local, sg.block), dtype=torch.bool,
                        device=sg.device)
-    seed[source // sg.block, source % sg.block] = True
+    d = source // sg.block - sg.shard_lo  # on a rank's part: its own rows
+    if 0 <= d < sg.n_local:
+        seed[d, source % sg.block] = True
     return seed & sg.node_mask  # a dead source seeds nothing
 
 
@@ -1019,17 +1198,20 @@ def init_state(sg: ShardedGraph, protocol, key=None):
     frontier)``; SIR -> ``status``; Gossip -> ``values``; HopDistance ->
     ``(dist, frontier, round)``; PageRank -> ``ranks``; PushSum -> ``(s,
     w)``. Gossip and PushSum draw their values from ``key`` over the whole
-    padded population, as the engine does."""
+    padded population, as the engine does (a rank's part takes its rows
+    of the whole draw)."""
     S, block, dev = sg.n_shards, sg.block, sg.device
     if isinstance(protocol, Flood):
         seed = _flood_seed(sg, protocol.source)
         return (seed, seed)
+    if not isinstance(protocol, Gossip):
+        refuse_ranks(sg, f"{type(protocol).__name__}'s state")
     if isinstance(protocol, SIR):
         seed = _flood_seed(sg, protocol.source)
         return seed.to(torch.int32) * sg.node_mask
     if isinstance(protocol, (Gossip, PushSum)):
         vals = prng.normal(key, (sg.n_nodes_padded,), device=dev).reshape(
-            S, block)
+            S, block)[sg.shard_lo:sg.shard_lo + sg.n_local]
         if isinstance(protocol, Gossip):
             # XLA makes the product with a bool mask a select: +0 where
             # the node is dead.
@@ -1068,21 +1250,28 @@ class _RingFlood:
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy")
 
     def coverage(self, sg, state: FloodState) -> torch.Tensor:
-        return live_coverage(sg, state.seen)
+        covered, n = _rank_sums(sg, (state.seen & sg.node_mask).sum(),
+                                sg.node_mask.sum())
+        return _ratio(covered, n)
 
     def step(self, sg, state: FloodState, key):
         if self.round0 is not None:
             self.pass_.comm.set_context(round=self.round0 + self._steps[0])
             self._steps[0] += 1
+        nm = sg.node_mask
         delivered = self.pass_(state.frontier)
-        new = delivered & ~state.seen & sg.node_mask
+        new = delivered & ~state.seen & nm
         seen = state.seen | new
-        covered = (seen & sg.node_mask).sum()
+        # The round's counts (one exchange on a ring split over ranks),
+        # divided in f32 as ``live_coverage`` and ``F.occupancy`` divide.
+        messages, covered, fresh, n = _rank_sums(
+            sg, segment.frontier_messages(sg, state.frontier),
+            (seen & nm).sum(), new.sum(), nm.sum())
         stats = {
-            "messages": segment.frontier_messages(sg, state.frontier),
-            "coverage": _over_live(covered, sg),
-            "frontier": new.sum(),
-            "frontier_occupancy": F.occupancy(sg, new),
+            "messages": messages,
+            "coverage": _ratio(covered, n),
+            "frontier": fresh,
+            "frontier_occupancy": _ratio(fresh, n),
             "covered": covered,
         }
         return FloodState(seen=seen, frontier=new), stats
@@ -1092,6 +1281,13 @@ def _check_mesh(sg: ShardedGraph, mesh: RingMesh) -> None:
     if mesh.n_shards != sg.n_shards:
         raise ValueError(f"the graph is sharded {sg.n_shards} ways, the "
                          f"mesh has {mesh.n_shards} shards")
+    part = _rank_mesh(sg)
+    held = (1, 0) if part is None else (part.world, part.shard_lo)
+    if (mesh.world, mesh.shard_lo) != held:
+        raise ValueError(
+            f"the graph holds the shards of rank position {held[1]} of "
+            f"{held[0]}, the mesh is position {mesh.position} of "
+            f"{mesh.world}: shard the graph for this mesh")
 
 
 def _flood_start(sg, mesh, source, state0, comm, fault_round0=None):
@@ -1182,6 +1378,7 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
     would), and the faults the executed rounds hit are counted into
     ``chaos_device_faults_total{kind}`` after the run."""
     if adaptive_k > 0:
+        refuse_ranks(sg, "the frontier-adaptive loop (adaptive_k > 0)")
         return _flood_adaptive(sg, mesh, source, coverage_target,
                                max_rounds, state0, return_state, adaptive_k,
                                comm, recorder)
@@ -1189,6 +1386,7 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
                                 fault_round0)
     row_of = None
     if recorder is not None:
+        refuse_ranks(sg, "the ring's flight recorder (recorder=)")
         row_of = _flood_row_of(sg, proto.pass_.comm)
     # The flood draws nothing; the engine's key chain runs unread.
     state, out = engine.run_until_coverage_from(
@@ -1258,6 +1456,7 @@ def propagate(sg: ShardedGraph, mesh: RingMesh, signal: torch.Tensor,
 
 def _n_live(sg: ShardedGraph) -> torch.Tensor:
     """The live node count, at least 1 (the reference's ``psum``)."""
+    refuse_ranks(sg, "a count of one rank's live nodes")
     return sg.node_mask.sum().clamp_min(1)
 
 
@@ -1266,14 +1465,41 @@ def _over_live(count: torch.Tensor, sg: ShardedGraph) -> torch.Tensor:
     return count.to(torch.float32) / _n_live(sg).to(torch.float32)
 
 
-def psum_f32(x: torch.Tensor) -> torch.Tensor:
+def _rank_sums(sg: ShardedGraph, *counts: torch.Tensor):
+    """The integer ``counts`` (0-d) summed over the ranks of a ring split
+    over processes, in one exchange (the reference's ``psum`` of each);
+    the counts themselves in one process."""
+    mesh = _rank_mesh(sg)
+    if mesh is None:
+        return counts
+    return all_sum(mesh, torch.stack([c.to(torch.int64)
+                                      for c in counts])).unbind()
+
+
+def _ratio(count: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """An integer count over a live count (at least 1), in f32."""
+    return count.to(torch.float32) / n.clamp_min(1).to(torch.float32)
+
+
+def psum_f32(x: torch.Tensor, sg: Optional[ShardedGraph] = None
+             ) -> torch.Tensor:
     """The 0-d sum of an f32 ``[S, block]`` tensor in the reference's ring
     order: each shard's block summed by ``jnp.sum`` (XLA's CPU order,
     ``ops/rowsum.py``: one row-sum launch for all shards), then ``psum``
     over the shards, which on the 8-device CPU mesh adds shard 0, 1, ...,
     S - 1 left to right (measured: 2,000 of 2,000 draws over eight
-    decades; a pairwise tree matched 1,086)."""
-    return accum.ordered_sum(rowsum.row_sum(x))
+    decades; a pairwise tree matched 1,086). On a rank's part (``sg``
+    split over processes) the shards' sums are gathered from the ranks in
+    shard order first (one exchange), so the total is the same."""
+    return accum.ordered_sum(_shard_rows(sg, rowsum.row_sum(x)))
+
+
+def _shard_rows(sg: Optional[ShardedGraph], rows: torch.Tensor
+                ) -> torch.Tensor:
+    """Per-shard values ``[n_local, ...]`` of every rank, in shard order
+    (one exchange on a ring split over processes)."""
+    mesh = None if sg is None else _rank_mesh(sg)
+    return rows if mesh is None else gather_shards(mesh, rows)
 
 
 #: Node tile of the ``"tile"`` draw mode: one key per 128-node tile,
@@ -1305,8 +1531,9 @@ def _make_draw(sg: ShardedGraph, rng: str, sample=None):
     One threefry launch serves one key, so a draw is one launch
     (``"exact"``), ``S`` (``"fold"``) or ``S * block / 128`` (``"tile"``).
     ``sample(key, n)`` draws ``n`` values (default: f32 uniform on
-    ``[0, 1)``)."""
+    ``[0, 1)``). A rank's part draws (or slices) its own shards' rows."""
     S, block, dev = sg.n_shards, sg.block, sg.device
+    lo, hi = sg.shard_lo, sg.shard_lo + sg.n_local
     if sample is None:
         def sample(k, n):
             return prng.uniform(k, (n,), device=dev)
@@ -1315,13 +1542,14 @@ def _make_draw(sg: ShardedGraph, rng: str, sample=None):
 
     def draw(key):
         if rng == "exact":
-            return sample(key, S * block).reshape(S, block)
+            return sample(key, S * block).reshape(S, block)[lo:hi]
         if rng == "tile":
+            per = block // RNG_TILE
             return torch.stack([
                 sample(prng.fold_in(key, i), RNG_TILE)
-                for i in range(S * block // RNG_TILE)]).reshape(S, block)
+                for i in range(lo * per, hi * per)]).reshape(hi - lo, block)
         return torch.stack([sample(prng.fold_in(key, d), block)
-                            for d in range(S)])
+                            for d in range(lo, hi)])
 
     return draw
 
@@ -1382,6 +1610,7 @@ def _max_in_degree(sg: ShardedGraph) -> int:
 
 def _sir_start(sg, mesh, protocol, key, exact_rng, rng, status0, comm,
                axis_name):
+    refuse_ranks(sg, "SIR")
     _check_mesh(sg, mesh)
     proto = _RingSIR(
         pass_=_make_pass(sg, comm, "sum", axis_name),
@@ -1458,7 +1687,8 @@ class _RingGossip:
         slot = hit.to(torch.uint8).argmax(dim=2)  # the first hit, else 0
         partner = sg.neighbors.gather(2, slot[..., None].long())[..., 0]
         p_shard, p_local = partner // sg.block, (partner % sg.block).long()
-        shards = torch.arange(S, device=sg.device)[:, None]
+        shards = torch.arange(sg.shard_lo, sg.shard_lo + sg.n_local,
+                              device=sg.device)[:, None]
         rot, pulled = values, torch.zeros_like(values)
         for t in range(S):
             rot_next = self.comm.shift(rot) if t < S - 1 else rot
@@ -1467,10 +1697,17 @@ class _RingGossip:
             rot = rot_next
         mixed = (1.0 - self.alpha) * values + self.alpha * pulled
         values = torch.where(has_neighbor, mixed, values)
-        n = _n_live(sg).to(torch.float32)
-        mean = psum_f32(values * nm) / n
-        var = psum_f32(torch.where(nm, (values - mean) ** 2, 0.0)) / n
-        stats = {"messages": 2 * has_neighbor.sum(dtype=torch.int32),
+        # Per shard: the mean's f32 sum and the two counts, gathered in
+        # shard order in one exchange on a ring split over ranks (the
+        # variance's sum, which needs the mean, in a second).
+        cols = _shard_rows(sg, torch.stack([
+            rowsum.row_sum(values * nm).to(torch.float64),
+            nm.sum(dim=1, dtype=torch.float64),
+            has_neighbor.sum(dim=1, dtype=torch.float64)], dim=1))
+        n = cols[:, 1].sum().clamp_min(1).to(torch.float32)
+        mean = accum.ordered_sum(cols[:, 0].to(torch.float32)) / n
+        var = psum_f32(torch.where(nm, (values - mean) ** 2, 0.0), sg) / n
+        stats = {"messages": 2 * cols[:, 2].sum().to(torch.int32),
                  "variance": var, "mean": mean}
         return values, stats
 
@@ -1494,7 +1731,7 @@ def gossip(sg: ShardedGraph, mesh: RingMesh, protocol, key, rounds: int,
         return prng.randint(k, (n,), 0, 2**31 - 1, device=dev)
 
     proto = _RingGossip(
-        comm=_make_ring_comm(comm, axis_name, sg.n_shards, dev),
+        comm=_make_ring_comm(comm, axis_name, sg),
         draw=_make_draw(sg, _resolve_rng(sg, exact_rng, rng), sample),
         alpha=float(alpha),
         count=sg.neighbors_mask.sum(dim=2, dtype=torch.int32),
@@ -1541,6 +1778,7 @@ class _RingPageRank:
 
 
 def _pagerank_start(sg, mesh, protocol, ranks0, comm, axis_name):
+    refuse_ranks(sg, "PageRank")
     _check_mesh(sg, mesh)
     proto = _RingPageRank(
         pass_=_make_pass(sg, comm, "sum", axis_name),
@@ -1628,6 +1866,7 @@ class _RingPushSum:
 
 
 def _pushsum_start(sg, mesh, protocol, key, state0, comm, axis_name):
+    refuse_ranks(sg, "push-sum")
     _check_mesh(sg, mesh)
     proto = _RingPushSum(pass_=_make_pass(sg, comm, "sum", axis_name))
     if state0 is None:
@@ -1695,6 +1934,7 @@ def hopdist(sg: ShardedGraph, mesh: RingMesh, protocol, rounds: int,
             axis_name: str = DEFAULT_AXIS, state0=None, comm=DEFAULT_COMM):
     """Run ``rounds`` of BFS hop distance on the ring. Returns ``((dist,
     frontier, round), stats)``, ``dist [S, block] i32`` (-1 unreached)."""
+    refuse_ranks(sg, "hop distance")
     _check_mesh(sg, mesh)
     proto = _RingHopDist(_make_pass(sg, comm, "or", axis_name))
     return engine._run_from(sg, proto, _hopdist_state0(sg, protocol, state0),
@@ -1714,6 +1954,7 @@ def hopdist_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, *,
     small-frontier rounds through the frontier-adaptive wave (see
     :func:`flood_until_coverage`); layers, rounds and messages equal the
     dense loop's."""
+    refuse_ranks(sg, "hop distance")
     if adaptive_k > 0:
         return _hopdist_adaptive(sg, mesh, protocol, coverage_target,
                                  max_rounds, axis_name, state0, adaptive_k,
@@ -2092,6 +2333,7 @@ def leader_until_quiet(sg: ShardedGraph, mesh: RingMesh, *,
     ``(known [S, block] i32, dict(rounds, coverage, messages))``,
     ``coverage`` the share of live nodes agreeing on the global winner.
     Needs the segment layout (max aggregation)."""
+    refuse_ranks(sg, "leader election")
     if sg.mxu_src is not None:
         raise ValueError(
             "leader_until_quiet cannot ride the MXU one-hot layout — "
@@ -2217,6 +2459,7 @@ def _walk_start(sg: ShardedGraph, mesh: RingMesh, protocol, state0):
     """``(walk round, (pos, visited), start)``: ``RandomWalks.init``'s
     walkers (evenly spread over the live ids) unless ``state0 = (pos,
     start, visited)`` resumes a run."""
+    refuse_ranks(sg, "the walk")
     if sg.csr_pos is None:
         raise ValueError(
             "the sharded walk requires a sender-CSR sharded graph — build "
@@ -2333,9 +2576,10 @@ def _make_or_lanes_pass(sg: ShardedGraph, comm, axis_name: str):
     (``ops/bitset.py`` ``or_sorted_lanes``: no bit planes, no atomics on
     the padding's one receiver); the dynamic region's unsorted slots by
     ``or_scatter_lanes``. The hop moves the whole word stack (B2)."""
+    refuse_ranks(sg, "the lane plane")
     S, B = sg.n_shards, sg.block
     E = sg.bkt_dst.shape[-1]
-    comm_obj = _make_ring_comm(comm, axis_name, S, sg.device)
+    comm_obj = _make_ring_comm(comm, axis_name, sg)
     seg, span = _lane_runs(sg)
     n_ids = S * (B + E)
     shard_off = (torch.arange(S, device=sg.device) * B)[:, None]
@@ -2384,6 +2628,7 @@ def _node_lanes(sg: ShardedGraph) -> torch.Tensor:
 def shard_lanes(sg: ShardedGraph, lanes) -> torch.Tensor:
     """A lane-word stack ``[W, N_pad]`` (``MessageBatch``'s layout) as
     ``[S, W, block]``, the node axis zero-padded to the shard grid."""
+    refuse_ranks(sg, "the lane plane")
     lanes = torch.as_tensor(lanes, device=sg.device)
     pad = sg.n_nodes_padded - lanes.shape[1]
     if pad:
@@ -2497,6 +2742,7 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
     loop's per-round byte estimate, ``parallel/commviz.py``) and
     attaches ``out["flight_record"]``; the results equal a run without
     it."""
+    refuse_ranks(sg, "the lane plane")
     chaos_device.dispatch_gate("sharded-batch")
     _require_lanes_layout(sg, "sharded run_batch_until_coverage")
     _check_mesh(sg, mesh)

@@ -442,7 +442,8 @@ def load_orbax(*args, **kwargs):
     """Refused: see :func:`save_orbax`. Use :func:`load`."""
     raise NotImplementedError(
         "load_orbax needs JAX's orbax, which the port does not use; "
-        "use checkpoint.load (the npz format both packages read)")
+        "use checkpoint.load (the npz format both packages read). A "
+        "checkpoint saved and restored across ranks waits in ROADMAP.md")
 
 
 # ------------------------------------------------------ graph persistence

@@ -174,6 +174,8 @@ class TorchSimNode(Node):
                     f"adaptive_k applies to Flood and HopDistance on the "
                     f"mesh backend; got {type(protocol).__name__}"
                 )
+        if mesh is not None:
+            sharded.refuse_ranks(mesh, "TorchSimNode's mesh backend")
         self.sim_graph = graph
         self.sim_protocol = protocol
         self._sim_key = prng.key(seed)

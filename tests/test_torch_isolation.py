@@ -13,7 +13,7 @@ torch = pytest.importorskip("torch")
 
 from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models.hopdist import HopDistance  # noqa: E402
-from p2pnetwork_tpu_torch.parallel import sharded  # noqa: E402
+from p2pnetwork_tpu_torch.parallel import multihost, sharded  # noqa: E402
 from p2pnetwork_tpu_torch.parallel.mesh import ring_mesh  # noqa: E402
 from p2pnetwork_tpu_torch.sim import checkpoint  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
@@ -66,7 +66,7 @@ def test_the_walk_sees_the_whole_port():
             "streams.py", "simnode.py", "commviz.py", "capacity.py",
             "chash.py", "crdt.py", "phi.py", "causal.py", "snapshot.py",
             "sync.py", "termination.py", "securenode.py", "coordnode.py",
-            "fit_capacity.py"} <= names
+            "fit_capacity.py", "multihost.py"} <= names
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
     assert any(p.parent.name == "chaos" for p in PORT_FILES)
 
@@ -172,13 +172,17 @@ def test_crash_campaign_child_imports_no_jax():
         sharded.shard_graph(TG.watts_strogatz(64, 4, 0.1), ring_mesh(8),
                             source_csr=True), ring_mesh(8), HopDistance(),
         adaptive_k=16),
+    lambda: multihost.hierarchical_ring_mesh(),
+    lambda: multihost.rank_device(),
+    lambda: multihost.mesh_2d(),
 ], ids=["default-device", "explicit-cuda", "interop", "resolve",
         "ring-mesh", "prng-uniform", "prng-bits", "interop-state",
         "prng-permutation", "prng-choice", "weighted-build",
         "interop-kcore-state", "chord", "kademlia", "interop-batch",
         "interop-query-batch", "reordered-build", "prng-weighted-choice",
         "interop-plumtree-bits", "interop-antientropy", "load-graph",
-        "ring-adaptive-flood", "ring-adaptive-hopdist"])
+        "ring-adaptive-flood", "ring-adaptive-hopdist",
+        "hierarchical-ring-mesh", "rank-device", "mesh-2d"])
 def test_entry_points_refuse_cpu_fallback(call):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device is real")

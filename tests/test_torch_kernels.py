@@ -816,3 +816,52 @@ def test_analytics_on_card_equal_cpu():
                                            device="cuda").cpu())
     assert models.diameter_bounds(cpu, prng.key(1), 4, "hybrid") == \
         models.diameter_bounds(gpu, prng.key(1), 4, "hybrid")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delay_rank", [0, 1])
+def test_ring_put_across_two_ranks(delay_rank):
+    """B2's and B3's cross-rank forms (``csrc/ring_peer.cu``) at 2 ranks
+    on the card against their plain versions and the global roll, then
+    256 hops with one rank held back before each put, every block
+    checked (``tests/torch_rank_worker.py::card_puts``)."""
+    _card()
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from tests import torch_rank_worker
+
+    steps = 256
+    parts = multihost.launch(f"{torch_rank_worker.__file__}:card_puts", 2,
+                             (8, steps, delay_rank), timeout=300,
+                             device="cuda")
+    for p in parts:
+        assert p["errors"] == []
+        assert p["bad"] == 0
+        assert p["puts"] == p["lands"] == steps
+
+
+@pytest.mark.cuda
+def test_rank_suite_on_the_card_equals_one_process():
+    """The reference worker's suite (``tests/torch_rank_worker.py``) on
+    the card, 2 ranks of 4 shards (the cross-rank kernels), equals the
+    same suite on one process's 8-shard ring (the one-card kernels), bit
+    for bit, but for ``propagate("sum")`` of random f32 values: the card's
+    sums add with atomics in a varying order (``scatter_add_``, B1, B3),
+    so those are held to ``RTOL``/``ATOL``."""
+    _card()
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from tests import torch_rank_worker as W
+
+    one = W.suite(8, "cuda")
+    got = W.gather(multihost.launch(f"{W.__file__}:suite", 2, (8, "cuda"),
+                                    timeout=300, device="cuda"))
+    for phase, fields in got.items():
+        for k, v in fields.items():
+            want = one[phase][k]
+            if isinstance(v, dict):
+                assert v == want, (phase, k)
+            else:
+                assert v.dtype == want.dtype and v.shape == want.shape
+                if k == "sum":
+                    np.testing.assert_allclose(v, want, rtol=RTOL, atol=ATOL)
+                else:
+                    assert v.tobytes() == want.tobytes(), (phase, k)
