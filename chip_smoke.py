@@ -305,7 +305,20 @@ Phases, in order; any failure exits non-zero before the result line:
    ``library_ms`` the same bytes copied into the peer slot by ``copy_``),
    ``ORDERING_STEPS`` hops with the last rank held back, every block
    checked, and 4t's gossip rung (``EXPECTED_RING_GOSSIP``). A rank that
-   raises must fail its launch.
+   raises must fail its launch. Slice 15 (worlds 8 then 2): 4t's
+   protocol runs on the ring split over ranks (``RANK_PROTOCOLS``: at
+   world 2 SIR ``exact``, PageRank and push-sum with their run-to-*
+   loops on ``mxu`` and ``hybrid``, hop distance and election on
+   ``segment``; at world 8 SIR and PageRank on ``mxu`` and election),
+   4t's walk at both, and at world 2 4t's batched call (the lane words
+   ``[4, 32, 12512]`` B2's payload across ranks) and the mesh PageRank
+   node; each held to 4t's records (``EXPECTED_SIR``, ``EXPECTED_RING``
+   within ``RING_TOL``, ``EXPECTED_ANALYTICS``, ``EXPECTED_RING_WALK``,
+   ``EXPECTED_BATCH``, ``EXPECTED_MESH_PAGERANK``) and to 4t's world-1
+   runs, every rank's launches to ``RANK_PROTOCOL_LAUNCHES``; SIR's
+   status saved at world 8 (``save_orbax``) and restored at world 2,
+   equal to the uninterrupted run's; B2 across ranks on i32 and on the
+   lane words, B3's sum form (``kernel`` lines).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -320,8 +333,10 @@ Phases, in order; any failure exits non-zero before the result line:
    batch recorder and 4t's totals over the shards; 4t's rows: B3's sum
    form, B1's stacked sum, B2 on f32, on i32 and on the lane words, the
    row sums at ``[8, 125008]`` and at gossip's ``[8, 12512]``; 4v's
-   rows: B2 across ranks at worlds 2 and 8 and on f32, B3 across ranks at
-   worlds 2 and 8, their launches summed over every rank), then the
+   rows: B2 across ranks at worlds 2 and 8 and on f32, i32 and the lane
+   words, B3 across ranks at worlds 2 and 8 and its sum form, their
+   launches summed over every rank; 4v's protocol runs' B1 sums,
+   threefry draws and row sums join those rows), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
@@ -5071,16 +5086,28 @@ def mesh_demo(SimNode, graph, SIR, mesh, path, sync=lambda: None, **kw):
     return record, walls
 
 
-def mesh_pagerank(SimNode, graph, PageRank, mesh, **kw):
+def mesh_pagerank(SimNode, graph, PageRank, mesh, walls=None, **kw):
     """A PageRank node on the ring: ``run_rounds(3)``, then
     ``run_until_converged("residual", RING_PR_TOL)``. Returns its events
-    (the f32 values are held to the reference's within ``PAGERANK_TOL``)."""
-    rec = EventList()
+    (the f32 values are held to the reference's within ``PAGERANK_TOL``);
+    ``walls`` (a dict), when given, gets each call's host seconds (the
+    card synchronised after each)."""
+    rec, t = EventList(), [time.perf_counter()]
+
+    def lap(name):
+        if walls is not None:
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t[0]
+            t[0] = time.perf_counter()
+
     node = SimNode(SIMNODE_HOST, 0, id="mesh-pagerank", callback=rec,
                    graph=graph, protocol=PageRank(), seed=MESH_DEMO["seed"],
                    mesh=mesh, **kw)
+    lap("attach")
     node.run_rounds(3)
+    lap("run_rounds")
     node.run_until_converged("residual", RING_PR_TOL, max_rounds=64)
+    lap("run_until_converged")
     return [e[2] for e in rec.events]
 
 
@@ -5217,8 +5244,9 @@ def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
     ``EXPECTED_ANALYTICS``, ``EXPECTED_RING_GOSSIP``,
     ``EXPECTED_MESH_DEMO``, ``EXPECTED_MESH_PAGERANK``) and to its
     launches (:func:`ring_launch_want`), then timed once more under the
-    profiler. Returns the launches by kernel row and the timed rows of the
-    row sum at the shards' shape and of B2 on i32."""
+    profiler. Returns the launches by kernel row, the timed rows of the
+    row sum at the shards' shape and of B2 on i32, and each run's record
+    (phase 4v holds its runs across ranks to them)."""
     t_phase = time.perf_counter()
     mesh = mesh_mod.ring_mesh(RING_SHARDS)
     counts = lambda: ring_counts_4t(  # noqa: E731
@@ -5226,6 +5254,7 @@ def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
     zero = lambda: zero_counts_4t(  # noqa: E731
         ring, segsum, threefry, rowsum, device_mod)
     rows = collections.Counter()
+    records = {}
     err = 0.0
 
     def checked(label, run):
@@ -5256,7 +5285,7 @@ def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
                                              layout).items():
             label = f"{name}-{layout}"
             out, first_s, launches = checked(label, run)
-            got = record(out)
+            got = records[label] = record(out)
             if name == "sir_exact":
                 check_run(label, got, EXPECTED_SIR)
             elif name in ("hopdist", "leader"):
@@ -5362,7 +5391,7 @@ def ring_protocol_path(g, ring, segsum, threefry, rowsum, device_mod,
                       "phase_s": time.perf_counter() - t_phase,
                       "max_abs_err_vs_reference": err, "launches": rows}),
           flush=True)
-    return dict(rows), kernel_rows
+    return dict(rows), kernel_rows, records
 
 
 
@@ -5936,7 +5965,7 @@ def planner_path(bg, serve, graph_mod, capacity, gpu: str) -> None:
 #: card. Worlds run, the per-rank time limit of a launch, the ordering
 #: check's hops, and the churn step of the reference worker's phase 3 at
 #: 1M: nodes failed, dynamic slots, the runtime link and the target.
-RANK_WORLDS = (2, 8)
+RANK_WORLDS = (8, 2)  # world 8 saves the checkpoint world 2 restores
 RANK_TIMEOUT = 420
 ORDERING_STEPS = 256
 RANK_CHURN = dict(fail=(3, N_NODES // 2), capacity=8,
@@ -5949,17 +5978,91 @@ RANK_LAUNCHES = {
     "segment": {"put": 77, "put_segsum": 0, "land": 77, "segsum": 0},
     "hybrid": {"put": 77, "put_segsum": 0, "land": 77, "segsum": 88},
     "mxu": {"put": 0, "put_segsum": 77, "land": 77, "segsum": 11}}
+#: 4v's protocol runs (slice 15; 4t's ``ring_runs`` on a ring split over
+#: ranks), by world and layout: at world 2 4t's SIR, PageRank and
+#: push-sum on ``mxu`` and ``hybrid``, hop distance and election on
+#: ``segment``; fewer at world 8. Both worlds walk 4t's cohort; world 2
+#: also runs 4t's batched call on 4j's graph and the mesh PageRank node;
+#: world 8 saves SIR's status (``save_orbax``) and world 2 restores it.
+RANK_PROTOCOLS = {
+    2: {"mxu": ("sir_exact", "pagerank", "pagerank_until", "pushsum",
+                "pushsum_until"),
+        "hybrid": ("sir_exact", "pagerank", "pagerank_until", "pushsum",
+                   "pushsum_until"),
+        "segment": ("hopdist", "leader")},
+    8: {"mxu": ("sir_exact", "pagerank"), "segment": ("leader",)}}
 
 
-def rank_counts(ring, segsum) -> dict:
-    return {"put": ring.PUT_LAUNCHES, "put_segsum": ring.PUT_SEGSUM_LAUNCHES,
-            "land": ring.LAND_LAUNCHES, "segsum": segsum.LAUNCHES}
+def _rank_pass(layout: str, passes: int) -> dict:
+    """A rank's launches for ``passes`` sum passes (S - 1 hops each): B3's
+    sum form across ranks on ``mxu`` with B1 on the peeled step, B2's
+    f32 put with B1 at every step on ``hybrid``; a land after each put."""
+    hops = (RING_SHARDS - 1) * passes
+    if layout == "mxu":
+        return {"put": 0, "put_segsum": hops, "land": hops,
+                "segsum": passes}
+    return {"put": hops, "put_segsum": 0, "land": hops,
+            "segsum": RING_SHARDS * passes}
 
 
-def zero_rank_counts(ring, segsum, device_mod) -> None:
+#: Predicted, before the first run: each protocol run's launches by kernel
+#: on every rank (every rank launches each step's kernel for its own
+#: shards): 4t's counts (``ring_launch_want``) with its hops as puts; the
+#: f32 totals' row sums two a total (the rank's ``[n_local, block]``,
+#: then the gathered ``[1, 8]``); SIR's ``exact`` draws of the whole
+#: population, two a round; push-sum's init draw. Rounds: 4t's records.
+RANK_PROTOCOL_LAUNCHES = {
+    **{f"sir_exact-{lay}": {**_rank_pass(lay, SIR_ROUNDS),
+                            "threefry": 2 * SIR_ROUNDS, "rowsum": 0}
+       for lay in ("mxu", "hybrid")},
+    **{f"{name}-{lay}": {**_rank_pass(lay, rounds), "threefry": 0,
+                         "rowsum": 6 * rounds}
+       for lay in ("mxu", "hybrid")
+       for name, rounds in (
+           ("pagerank", RING_PR_ROUNDS),
+           ("pagerank_until", EXPECTED_RING["pagerank_until"]["rounds"]))},
+    **{f"{name}-{lay}": {**_rank_pass(lay, 2 * rounds), "threefry": 1,
+                         "rowsum": 8 * rounds}
+       for lay in ("mxu", "hybrid")
+       for name, rounds in (
+           ("pushsum", RING_PS_ROUNDS),
+           ("pushsum_until", EXPECTED_RING["pushsum_until"]["rounds"]))},
+    **{f"{name}-segment": {
+        "put": (RING_SHARDS - 1) * EXPECTED_ANALYTICS[key]["rounds"],
+        "put_segsum": 0,
+        "land": (RING_SHARDS - 1) * EXPECTED_ANALYTICS[key]["rounds"],
+        "segsum": 0, "threefry": 0, "rowsum": 0}
+       for name, key in (("hopdist", "hop"), ("leader", "leader"))},
+    "walk": {"put": 0, "put_segsum": 0, "land": 0, "segsum": 0,
+             "threefry": 0, "rowsum": 0},
+    "batch": {"put": 70, "put_segsum": 0, "land": 70, "segsum": 0,
+              "threefry": 0, "rowsum": 0},
+    "mesh_pagerank": {**_rank_pass("mxu", 3 + EXPECTED_MESH_PAGERANK[-1][
+        "rounds"]), "threefry": 0, "rowsum": 6 * (
+            3 + EXPECTED_MESH_PAGERANK[-1]["rounds"])}}
+#: Which kernel row of the ``kernels`` line each protocol run's puts
+#: count in, by payload: B2 on f32 (``hybrid`` sum passes), on i32
+#: (election's ids), on bool (hop distance's OR), on the lane words; B3's
+#: sum form (the ``mxu`` sum passes).
+RANK_PUT_ROW = {"hybrid": "put_f32", "leader": "put_i32", "hopdist": "put",
+                "batch": "put_lanes"}
+
+
+def rank_counts(ring, segsum, threefry=None, rowsum=None) -> dict:
+    out = {"put": ring.PUT_LAUNCHES, "put_segsum": ring.PUT_SEGSUM_LAUNCHES,
+           "land": ring.LAND_LAUNCHES, "segsum": segsum.LAUNCHES}
+    if threefry is not None:
+        out.update(threefry=threefry.LAUNCHES, rowsum=rowsum.LAUNCHES)
+    return out
+
+
+def zero_rank_counts(ring, segsum, device_mod, threefry=None,
+                     rowsum=None) -> None:
     ring.PUT_LAUNCHES = ring.PUT_SEGSUM_LAUNCHES = ring.LAND_LAUNCHES = 0
     segsum.LAUNCHES = 0
     device_mod.SYNCS = 0
+    if threefry is not None:
+        threefry.LAUNCHES = rowsum.LAUNCHES = 0
 
 
 def host_ms(fn, reps: int) -> float:
@@ -6003,8 +6106,9 @@ def peer_copy(ring, mesh, x, out):
     return run
 
 
-def rank_put_rows(ring, mesh_mod, mesh, flush) -> tuple:
-    """B2 across ranks at this rank's ``[n_local, 125008]``, bool and f32:
+def rank_put_rows(ring, mesh_mod, mesh, flush, payloads=None) -> list:
+    """B2 across ranks at this rank's ``[n_local, 125008]``, bool, f32
+    and i32 (election's ids), or on ``payloads`` (``(entry, x)`` pairs):
     the kernel and its plain version against the global ``torch.roll``
     of the stacked blocks (gathered through the group), then timed, with
     ``hop_floor_ms`` the hop of a 16-byte shard."""
@@ -6017,16 +6121,22 @@ def rank_put_rows(ring, mesh_mod, mesh, flush) -> tuple:
     # to speak of (the launches, the waits, the ranks' hand-over).
     tiny = torch.zeros((L, 16), dtype=torch.bool, device="cuda")
     floor_ms = cuda_times(lambda: ring.ring_put(tiny, mesh), 50, flush)
-    for entry, dtype in (("bool", torch.bool), ("f32", torch.float32)):
-        bits = torch.randint(0, 1 << 20, (L, RING_BLOCK), generator=gen,
-                             device="cuda", dtype=torch.int32)
-        x = (bits % 2 == 1) if dtype == torch.bool else bits.to(dtype)
+    if payloads is None:
+        payloads = []
+        for entry, dtype in (("bool", torch.bool), ("f32", torch.float32),
+                             ("i32", torch.int32)):
+            bits = torch.randint(0, 1 << 20, (L, RING_BLOCK), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            payloads.append((entry, (bits % 2 == 1) if dtype == torch.bool
+                             else bits.to(dtype)))
+    for entry, x in payloads:
+        dtype = x.dtype
         whole = mesh_mod.gather_shards(mesh, x.view(torch.uint8)
                                        if dtype == torch.bool else x)
         want = torch.roll(whole, 1, 0)[lo:lo + L].view(dtype)
         got, plain = ring.ring_put(x, mesh), ring.ring_put_plain(x, mesh)
         if not torch.equal(got, want) or not torch.equal(plain, want):
-            fail(f"ring_put {entry} [{L}, {RING_BLOCK}] differs from the "
+            fail(f"ring_put {entry} {list(x.shape)} differs from the "
                  f"global roll on rank {mesh.rank}")
         out = torch.empty_like(x)
         nbytes = 2 * x.numel() * x.element_size()
@@ -6036,7 +6146,7 @@ def rank_put_rows(ring, mesh_mod, mesh, flush) -> tuple:
         torch.cuda.synchronize()
         dist.barrier()
         rows.append({
-            "kernel": "ring_put", "entry": entry, "shape": [L, RING_BLOCK],
+            "kernel": "ring_put", "entry": entry, "shape": list(x.shape),
             "world": mesh.world,
             "ms": cuda_times(lambda: ring.ring_put(x, mesh), 50, flush),
             "plain_ms": host_ms(lambda: ring.ring_put_plain(x, mesh), 10),
@@ -6119,39 +6229,73 @@ def rank_ordering(ring, mesh, steps: int) -> dict:
     return {"steps": steps, "bad": n_bad, "s": time.perf_counter() - t0}
 
 
-def rank_ring(reps: int) -> dict:
+def rank_record(name, out) -> dict:
+    """A rank's record of one of 4t's runs (``ring_runs``): its stats or
+    summary (the whole ring's, the same on every rank) and its state's
+    rows (this rank's shards; the parent stacks them in rank order)."""
+    state, stats = out
+    if name.startswith("pushsum"):
+        state = state[0]
+    elif name == "hopdist":
+        state = state[0]
+    rec = {"rows": host_np(state)}
+    if isinstance(stats, dict) and "rounds" in stats:
+        rec["summary"] = dict(stats)
+    else:
+        rec["stats"] = stat_lists(stats)
+    return rec
+
+
+def rank_protocols(sharded, models, sg, mesh, layout, checked) -> dict:
+    """This world's 4t runs on one layout (``RANK_PROTOCOLS``), each
+    checked (counts, wall) and recorded (:func:`rank_record`)."""
+    runs = ring_runs(sharded, models, sg, mesh, KEY, layout)
+    out = {}
+    for name in RANK_PROTOCOLS[mesh.world].get(layout, ()):
+        got, wall, launches, syncs = checked(runs[name][0])
+        out[f"{name}-{layout}"] = {**rank_record(name, got), "wall_s": wall,
+                                   "launches": launches, "syncs": syncs}
+    return out
+
+
+def rank_ring(reps: int, ckpt_dir: str) -> dict:
     """One rank of phase 4v (run by ``multihost.launch``): phase 4's
     graph, this rank's shards of the 8-shard ring, the dense flood to
     0.99 on each layout (counts, syncs, walls), the churn step, the
-    kernel rows, the ordering check and 4t's gossip rung. Prints
+    kernel rows, the ordering check and 4t's gossip rung; then (slice
+    15) this world's protocol runs (``RANK_PROTOCOLS``), the walk, at
+    world 8 SIR's status saved into ``ckpt_dir`` and at world 2 restored
+    from it, 4t's batched call and the mesh PageRank node. Prints
     nothing: the parent checks and prints."""
     import torch.distributed as dist
 
     from p2pnetwork_tpu_torch import _device
-    from p2pnetwork_tpu_torch.models import Gossip
-    from p2pnetwork_tpu_torch.ops import ring, segsum
+    from p2pnetwork_tpu_torch import models
+    from p2pnetwork_tpu_torch.ops import ring, rowsum, segsum, threefry
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import multihost, sharded
+    from p2pnetwork_tpu_torch.sim import checkpoint, simnode
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
 
+    Gossip = models.Gossip
     mesh = multihost.hierarchical_ring_mesh(n_shards=RING_SHARDS)
     t0 = time.perf_counter()
     g = graph_mod.watts_strogatz(N_NODES, 10, 0.1, seed=0)
     torch.cuda.synchronize()
     res = {"rank": mesh.rank, "world": mesh.world, "shard_lo": mesh.shard_lo,
            "device": str(mesh.device), "graph_s": time.perf_counter() - t0,
-           "floods": {}, "rows": []}
+           "floods": {}, "rows": [], "protocols": {}}
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
 
     def checked(run):
-        zero_rank_counts(ring, segsum, _device)
+        zero_rank_counts(ring, segsum, _device, threefry, rowsum)
         torch.cuda.synchronize()
         dist.barrier()
         t0 = time.perf_counter()
         out = run()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t0, rank_counts(ring, segsum), \
-            _device.SYNCS
+        return out, time.perf_counter() - t0, rank_counts(
+            ring, segsum, threefry, rowsum), _device.SYNCS
 
     for layout, kw in RING_LAYOUTS:
         t0 = time.perf_counter()
@@ -6176,11 +6320,48 @@ def rank_ring(reps: int) -> dict:
             rec["churn"] = {"out": out_c, "seen": seen_c.cpu().numpy(),
                             "s": churn_s, "launches": churn_launches}
         res["floods"][layout] = rec
+        t0 = time.perf_counter()
+        res["protocols"].update(rank_protocols(sharded, models, sg, mesh,
+                                               layout, checked))
+        if layout == "mxu" and mesh.world == 8:
+            # SIR's final status saved by every rank (its own shard).
+            status = torch.from_numpy(
+                res["protocols"]["sir_exact-mxu"]["rows"]).cuda()
+            checkpoint.save_orbax(ckpt_dir, {"status": status}, KEY,
+                                  SIR_ROUNDS)
+        res["floods"][layout]["protocols_s"] = time.perf_counter() - t0
         del sg
         torch.cuda.empty_cache()
+    if mesh.world == 2:
+        t0 = time.perf_counter()
+        template = {"status": torch.zeros((mesh.n_local, RING_BLOCK),
+                                          dtype=torch.int32, device="cuda")}
+        restored, key, rnd, _ = checkpoint.load_orbax(ckpt_dir, template)
+        res["restored"] = {"rows": host_np(restored["status"]),
+                           "key": key.tolist(), "round": rnd,
+                           "s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    sg = sharded.shard_graph(g, mesh, source_csr=True)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    run, _ = ring_walk_run(sharded, models.RandomWalks, sg, mesh, KEY)
+    ((pos, start, visited), stats), wall, launches, syncs = checked(run)
+    res["protocols"]["walk"] = {
+        "rows": host_np(visited), "pos": host_np(pos),
+        "stats": stat_lists(stats), "wall_s": wall, "launches": launches,
+        "syncs": syncs, "build_s": build_s}
+    del sg, pos, start, visited
+    if mesh.world == 2:
+        node_walls = {}
+        events, wall, launches, syncs = checked(lambda: mesh_pagerank(
+            simnode.TorchSimNode, g, models.PageRank, mesh, node_walls,
+            layout="mxu"))
+        res["protocols"]["mesh_pagerank"] = {
+            "events": events, "wall_s": wall, "launches": launches,
+            "syncs": syncs, "node_walls": node_walls}
     res["rows"] += rank_put_rows(ring, mesh_mod, mesh, flush)
     res["ordering"] = rank_ordering(ring, mesh, ORDERING_STEPS)
-    del g, flush
+    del g
     torch.cuda.empty_cache()
     gba = graph_mod.barabasi_albert(**RING_GOSSIP_GRAPH)
     sg = sharded.shard_graph(gba, mesh)
@@ -6190,7 +6371,46 @@ def rank_ring(reps: int) -> dict:
     res["gossip"] = {"stats": stat_lists(stats),
                      "values": vals.cpu().numpy(), "first_run_s": gossip_s,
                      "launches": launches, "syncs": syncs}
+    del sg, gba
+    if mesh.world == 2:
+        res["protocols"]["batch"], lane_row = rank_batch(
+            sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
+            flush)
+        res["rows"].append(lane_row)
+    del flush
     return res
+
+
+def rank_batch(sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
+               flush):
+    """4t's batched call on a ring split over ranks: 4j's graph, its
+    1,024 lanes on the ``segment`` ring, the rank's lane words ``[n_local,
+    32, 12512]`` B2's payload across ranks (``EXPECTED_BATCH``'s first
+    call; the batch comes back whole on every rank). Then B2 across ranks
+    on those words as a kernel row."""
+    from p2pnetwork_tpu_torch.models import messagebatch as MB
+
+    t0 = time.perf_counter()
+    bg = graph_mod.watts_strogatz(BATCH_N, 10, 0.1, seed=0, source_csr=True)
+    sg = sharded.shard_graph(bg, mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sources = np.random.default_rng(0).integers(
+        0, bg.n_nodes, size=BATCH_B).astype(np.int32)
+    proto = MB.BatchFlood(method="segment")
+    (state, out), wall, launches, syncs = checked(
+        lambda: sharded.run_batch_until_coverage(
+            sg, mesh, proto, proto.init(bg, sources, coverage_target=0.99),
+            max_rounds=64))
+    out["lane_messages"] = MB.lane_messages(bg, state).cpu().numpy()
+    out["seen"] = state.seen.cpu().numpy()
+    rec = {"summary": lane_summary(out, ("lane_messages", "seen")),
+           "wall_s": wall, "launches": launches, "syncs": syncs,
+           "build_s": build_s}
+    stack = sharded.shard_lanes(sg, state.seen)
+    row = rank_put_rows(ring, mesh_mod, mesh, flush,
+                        payloads=[("lanes", stack)])[0]
+    return rec, row
 
 
 def rank_churn(sharded, sg, mesh):
@@ -6208,8 +6428,90 @@ def rank_fails() -> None:
     raise RuntimeError("a rank fails on purpose")
 
 
+def canon(value) -> str:
+    """A value as a string that equal values share: an array's sha256,
+    else its JSON."""
+    if isinstance(value, np.ndarray):
+        return np_sha(value)
+    return json.dumps(value, sort_keys=True)
+
+
+def check_rank_protocols(world: int, parts: list, world1: dict):
+    """Slice 15's runs of 4v at ``world`` (``rank_ring``'s
+    ``protocols``): every rank's launches ``RANK_PROTOCOL_LAUNCHES``', its
+    summaries the other ranks', the rows gathered in rank order held to
+    4t's records (``EXPECTED_SIR``, ``EXPECTED_RING`` within ``RING_TOL``,
+    ``EXPECTED_ANALYTICS``, ``EXPECTED_RING_WALK``, ``EXPECTED_BATCH``,
+    ``EXPECTED_MESH_PAGERANK``) and to world 1's (4t's records: the
+    integer results by digest; PageRank's and push-sum's f32 stats within
+    ``RING_TOL``, as the card's f32 atomics add in a varying order).
+    Returns the launches summed over the ranks by kernel row, each run's
+    walls and the largest f32 difference."""
+    counts, walls, err = collections.Counter(), {}, 0.0
+    for name in parts[0]["protocols"]:
+        recs = [p["protocols"][name] for p in parts]
+        label = f"rank {name} at world {world}"
+        base, _, layout = name.partition("-")
+        for key in ("stats", "summary", "events", "pos"):
+            if key in recs[0] and any(canon(r[key]) != canon(recs[0][key])
+                                      for r in recs):
+                fail(f"{label}: the ranks' {key} disagree")
+        for r in recs:
+            check_launches(label, r["launches"],
+                           RANK_PROTOCOL_LAUNCHES[name])
+            row = RANK_PUT_ROW.get(layout, RANK_PUT_ROW.get(base))
+            counts[row or "put"] += r["launches"]["put"]
+            counts["put_segsum_sum"] += r["launches"]["put_segsum"]
+            counts["segsum_sum"] += r["launches"]["segsum"]
+            counts["threefry"] += r["launches"]["threefry"]
+            counts["rowsum"] += r["launches"]["rowsum"]
+        walls[name] = [r["wall_s"] for r in recs]
+        rows = (np.concatenate([r["rows"] for r in recs])
+                if "rows" in recs[0] else None)
+        rec = recs[0]
+        if base == "sir_exact":
+            got = {**rec["stats"], "status_sha256": np_sha(rows)}
+            check_run(label, got, EXPECTED_SIR)
+        elif base in ("pagerank", "pushsum"):
+            err = max(err, check_close(label, rec["stats"],
+                                       EXPECTED_RING[base], RING_TOL[base]))
+            got = rec["stats"]
+        elif base in ("pagerank_until", "pushsum_until"):
+            err = max(err, check_close(label, rec["summary"],
+                                       EXPECTED_RING[base],
+                                       RING_TOL.get(base, {})))
+            got = rec["summary"]
+        elif base in ("hopdist", "leader"):
+            got = {"rounds": rec["summary"]["rounds"],
+                   "messages": rec["summary"]["messages"],
+                   "sha256": np_sha(rows)}
+            want = EXPECTED_ANALYTICS["hop" if base == "hopdist"
+                                      else "leader"]
+            check_run(label, got, {k: want[k] for k in got})
+        elif base == "walk":
+            got = {**rec["stats"], "pos_sha256": np_sha(rec["pos"]),
+                   "visited_sha256": np_sha(rows)}
+            check_run(label, got, EXPECTED_RING_WALK)
+        elif base == "batch":
+            got = rec["summary"]
+            check_run(label, got, EXPECTED_BATCH["first"])
+        else:  # the mesh PageRank node
+            got = rec["events"]
+            if len(got) != len(EXPECTED_MESH_PAGERANK):
+                fail(f"{label} fired {len(got)} events, the reference "
+                     f"{len(EXPECTED_MESH_PAGERANK)}")
+            for i, (e, w) in enumerate(zip(got, EXPECTED_MESH_PAGERANK)):
+                err = max(err, check_close(f"{label} event {i}", e, w,
+                                           RING_TOL["mesh_pagerank"]))
+        one = world1.get(name)
+        if one is not None:  # 4t's run of the same name at world 1
+            check_close(f"{label} against world 1", got, one,
+                        RING_TOL.get(base, {}))
+    return counts, walls, err
+
+
 def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
-                   multihost, gpu: str) -> dict:
+                   multihost, gpu: str, world1: dict) -> dict:
     """Phase 4v: the ring split over 2 and 8 rank processes on the card
     (``RANK_WORLDS``; 4 and 1 shards a rank). First, in this process, the
     dense floods' walls at world 1 and the churn step, on phase 4's graph.
@@ -6220,7 +6522,12 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
     fail its launch. Prints ``rank-ring-path`` lines; returns the kernel
     rows of rank 0 at each world and, by world, the launches of the
     checked floods and churn steps (and the gossip rung's f32 puts,
-    ``put_f32``) summed over every rank."""
+    ``put_f32``) summed over every rank. Slice 15's runs at each world
+    (``RANK_PROTOCOLS``) are held by :func:`check_rank_protocols`, their
+    launches added by kernel row; world 8 saves SIR's status, which world
+    2 restores (equal to ``EXPECTED_SIR``'s, the uninterrupted run's)."""
+    t_phase = time.perf_counter()
+    ckpt = tempfile.TemporaryDirectory(prefix="p2p-rank-ckpt-")
     mesh = mesh_mod.ring_mesh(RING_SHARDS)
     one = {}
     for layout, kw in RING_LAYOUTS:
@@ -6255,8 +6562,8 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
         t0 = time.perf_counter()
         try:
             parts = multihost.launch(f"{Path(__file__).resolve()}:rank_ring",
-                                     world, (3,), timeout=RANK_TIMEOUT,
-                                     device="cuda")
+                                     world, (3, ckpt.name),
+                                     timeout=RANK_TIMEOUT, device="cuda")
         except (multihost.RankError, TimeoutError) as e:
             fail(f"phase 4v at world {world}: {e}")
         launch_s = time.perf_counter() - t0
@@ -6309,6 +6616,33 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
                 fail(f"rank ordering check at world {world}: "
                      f"{p['ordering']['bad']} elements of rank "
                      f"{p['rank']}'s landed blocks differ")
+        proto_counts, proto_walls, proto_err = check_rank_protocols(
+            world, parts, world1)
+        counts.update(proto_counts)
+        if world == 2:
+            got = [p["restored"] for p in parts]
+            if (np_sha(np.concatenate([r["rows"] for r in got]))
+                    != EXPECTED_SIR["status_sha256"]
+                    or any((r["key"], r["round"]) != (KEY.tolist(),
+                                                      SIR_ROUNDS)
+                           for r in got)):
+                fail("SIR's status saved at world 8 and restored at world "
+                     "2 differs from the uninterrupted run's")
+        print(json.dumps({
+            "phase": "rank-ring-path", "run": "protocols", "world": world,
+            "walls": proto_walls, "max_abs_err_vs_reference": proto_err,
+            "launches_rank0": {k: v["launches"]
+                               for k, v in parts[0]["protocols"].items()},
+            "syncs_rank0": {k: v["syncs"]
+                            for k, v in parts[0]["protocols"].items()},
+            "node_walls": [p["protocols"]["mesh_pagerank"]["node_walls"]
+                           for p in parts] if world == 2 else None,
+            "layout_protocols_s": {
+                lay: [p["floods"][lay]["protocols_s"] for p in parts]
+                for lay, _ in RING_LAYOUTS},
+            "restored_s": [p["restored"]["s"] for p in parts]
+            if world == 2 else None,
+            "t_s": time.perf_counter() - T_START}), flush=True)
         rows[world] = parts[0]["rows"]
         for row in parts[0]["rows"]:
             print(json.dumps({"phase": "kernel", **row}), flush=True)
@@ -6330,7 +6664,9 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
     else:
         fail("phase 4v: a rank that raises did not fail its launch")
     print(json.dumps({"phase": "rank-ring-path", "failing_rank_s":
-                      time.perf_counter() - t0}), flush=True)
+                      time.perf_counter() - t0,
+                      "phase_s": time.perf_counter() - t_phase}), flush=True)
+    ckpt.cleanup()
     return {"rows": rows, "launches": totals}
 
 
@@ -6635,7 +6971,7 @@ def main() -> int:
         Flood, simnode, node_mod, config_mod, chaos, telemetry)
     # 4t (slice 12), after 4s on phase 4's graph: the ring's other
     # protocols, the gossip rung and TorchSimNode's mesh backend for them.
-    proto_launches, proto_rows = ring_protocol_path(
+    proto_launches, proto_rows, world1 = ring_protocol_path(
         g, ring, segsum, threefry, rowsum, _device, sharded, mesh_mod,
         models_mod, graph_mod, simnode)
     ring_walk_path(g, ring, segsum, threefry, rowsum, _device, sharded,
@@ -6653,7 +6989,7 @@ def main() -> int:
     # 4v (slice 14), after 4u: the ring split over 2 and 8 rank processes
     # on the card, its hops the cross-rank kernels.
     rank = rank_ring_path(g, ring, segsum, _device, sharded, mesh_mod,
-                          multihost, gpu)
+                          multihost, gpu, world1)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -6716,6 +7052,9 @@ def main() -> int:
         return next(r for r in rank["rows"][world]
                     if r["kernel"] == kernel and r["entry"] == entry)
 
+    def rank_sum(key):  # a kernel row's launches at every world's ranks
+        return sum(rank["launches"][w][key] for w in RANK_WORLDS)
+
     def row(name, source, replaces, at, n, err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
@@ -6768,7 +7107,8 @@ def main() -> int:
             "p2pnetwork_tpu/ops/pallas_edge.py:41",
             next(r for r in ring_rows if r["kernel"] == "segsum"
                  and r["entry"] == "sum"),
-            proto_launches["segsum_ring_sum"], ring_err["segsum"]),
+            proto_launches["segsum_ring_sum"] + rank_sum("segsum_sum"),
+            ring_err["segsum"]),
         row("segsum_sum", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
             sir_launches["hybrid"] + cons_launches["segsum"]
@@ -6787,7 +7127,8 @@ def main() -> int:
             + gossip_launches + new_launches["threefry"] + walk_launches
             + lib_launches["threefry"] + io_launches["threefry"]
             + fault_launches["threefry"] + sim_launches["threefry"]
-            + proto_launches["threefry"], threefry_err),
+            + proto_launches["threefry"] + rank_sum("threefry"),
+            threefry_err),
         row("gather_row_sum", "rowsum.cu",
             "p2pnetwork_tpu/ops/segment.py:287 (jnp.sum of the gathered "
             "row, an XLA reduce; no TPU kernel)", rowsum_rows["ws-1m"],
@@ -6796,13 +7137,14 @@ def main() -> int:
             "p2pnetwork_tpu/sim/engine.py:556 (jnp.sum of the lanes' "
             "counts, an XLA reduce; no TPU kernel)",
             rowsum_rows[f"lanes-{BATCH_B}"], rowsum_launches["dense"]
-            + proto_launches["row_sum"] + lane_rec["rowsum"],
+            + proto_launches["row_sum"] + lane_rec["rowsum"]
+            + rank_sum("rowsum") // 2,
             rowsum_rows[f"lanes-{BATCH_B}"]["max_abs_err"]),
         row("row_sum_shards", "rowsum.cu",
             "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "
             "shard's block, an XLA reduce; no TPU kernel)",
-            proto_rows["row_sum_shards"], proto_launches["row_sum_shards"],
-            0.0),
+            proto_rows["row_sum_shards"], proto_launches["row_sum_shards"]
+            + rank_sum("rowsum") // 2, 0.0),
         row("ring_put", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
             "bool [4, 125008])", rank_row(2, "ring_put", "bool"),
@@ -6814,8 +7156,15 @@ def main() -> int:
         row("ring_put_f32", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
             "f32 [4, 125008])", rank_row(2, "ring_put", "f32"),
-            rank["launches"][2]["put_f32"] + rank["launches"][8]["put_f32"],
-            0.0),
+            rank_sum("put_f32"), 0.0),
+        row("ring_put_i32", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
+            "i32 [4, 125008], election's ids)", rank_row(2, "ring_put", "i32"),
+            rank_sum("put_i32"), 0.0),
+        row("ring_put_lanes", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
+            "the lane words i32 [4, 32, 12512])",
+            rank_row(2, "ring_put", "lanes"), rank_sum("put_lanes"), 0.0),
         row("ring_put_segsum", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 2, "
             "OR, real step 0)", rank_row(2, "ring_put_segsum", "or"),
@@ -6824,6 +7173,11 @@ def main() -> int:
             "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 8, "
             "OR, real step 0)", rank_row(8, "ring_put_segsum", "or"),
             rank["launches"][8]["put_segsum"], 0.0),
+        row("ring_put_segsum_sum", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 2, "
+            "the sum form, real step 0)",
+            rank_row(2, "ring_put_segsum", "sum"),
+            rank_sum("put_segsum_sum"), 0.0),
         row("row_sum_shards_100k", "rowsum.cu",
             "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "
             "shard's block on the 100K gossip ring, an XLA reduce; no TPU "

@@ -14,7 +14,7 @@ CPU mesh) and what one H100 holds. Across processes (``world > 1``,
 moves each rank's boundary shard to the next rank (``sharded._RankComm``:
 a CUDA IPC peer write on the card, gloo on the CPU), and the reductions
 of the reference's ``psum`` go through the process group
-(:func:`all_sum`, :func:`gather_shards`).
+(:func:`all_sum`, :func:`all_max`, :func:`gather_shards`).
 """
 
 from __future__ import annotations
@@ -103,6 +103,21 @@ def all_sum(mesh: RingMesh, x: torch.Tensor) -> torch.Tensor:
     _device.SYNCS += 1
     host = x.cpu()
     dist.all_reduce(host, group=mesh.group)
+    return host.to(x.device)
+
+
+def all_max(mesh: RingMesh, x: torch.Tensor) -> torch.Tensor:
+    """The elementwise max of ``x`` over the ring's ranks (the reference's
+    ``pmax``), on ``x``'s device: ``x`` itself in one process. Across
+    processes one exchange through the process group, counted in
+    ``_device.SYNCS``."""
+    if mesh.world == 1:
+        return x
+    import torch.distributed as dist
+
+    _device.SYNCS += 1
+    host = x.cpu()
+    dist.all_reduce(host, op=dist.ReduceOp.MAX, group=mesh.group)
     return host.to(x.device)
 
 

@@ -339,7 +339,8 @@ def _rank_main(argv) -> int:
     except BaseException:
         err.write_text(traceback.format_exc())
         return 1
-    _dist().destroy_process_group()
+    if _dist().is_initialized():  # a world of 1 joins no group
+        _dist().destroy_process_group()
     return 0
 
 

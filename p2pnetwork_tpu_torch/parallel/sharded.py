@@ -66,16 +66,18 @@ ranks :func:`shard_graph` keeps the rank's ``S / world`` shards (a
 :class:`RankShardedGraph`, ``[n_local, ...]`` on axis 0), the hops go
 through :class:`_RankComm` (the cross-rank kernels of ``ops/ring.py``:
 ``ring_put``, fused with the MXU bucket's sum in ``ring_put_segsum_*``)
-and every ``psum`` of the reference is a process-group reduction: the
-integer counts of a round in one exchange before any f32 division
-(:func:`_rank_sums`), the f32 totals as the shards' row sums gathered in
-shard order and added left to right (:func:`psum_f32`), so every rank
-holds the same global stats and the engine's loop takes the same exit on
-each. The dense flood, :func:`propagate`, exact-RNG :func:`gossip`,
-:func:`fail_nodes` (the re-mask), :func:`with_capacity`, :func:`connect`
-and :func:`disconnect` run across ranks; the rest raises
-``NotImplementedError`` there (:func:`refuse_ranks`, ROADMAP.md). At one
-rank every path is the one-process ring's.
+and every ``psum``/``pmax`` of the reference is a process-group
+reduction: a round's totals ride one exchange of per-shard partials
+gathered in shard order (:func:`_totals`: counts exact, the f32 totals
+added as :func:`psum_f32` adds them, maxima), so every rank holds the
+same global stats and the engine's loop takes the same exit on each; the
+walk takes the reference's two ``pmax`` a round (``mesh.all_max``). The
+rank part keeps the global live count (``RankShardedGraph.live``). Every
+ring protocol, the re-mask, the dynamic region and the lane plane run
+across ranks, bit for bit the one-process ring; the frontier-adaptive
+loop, the recorder and a fault-spec comm raise ``NotImplementedError``
+there (:func:`refuse_ranks`, ROADMAP.md). At one rank every path is the
+one-process ring's.
 
 Ported: :func:`shard_graph` (``mxu``, ``hybrid``, ``source_csr``; a
 graph's runtime links folded into the static buckets, its neighbor table
@@ -119,7 +121,8 @@ from p2pnetwork_tpu_torch.ops.diag import select_diagonals
 from p2pnetwork_tpu_torch.parallel import commviz
 from p2pnetwork_tpu_torch.parallel.auto import COMM_BACKENDS, resolve_comm
 from p2pnetwork_tpu_torch.parallel.mesh import (DEFAULT_AXIS, RingMesh,
-                                                all_sum, gather_shards,
+                                                all_max, all_sum,
+                                                gather_shards,
                                                 shard_spec)
 from p2pnetwork_tpu_torch.sim import engine, flightrec
 from p2pnetwork_tpu_torch.sim.graph import _round_up
@@ -254,13 +257,15 @@ def _rank_mesh(obj) -> Optional[RingMesh]:
 
 def refuse_ranks(obj, what: str) -> None:
     """Raise for a part of the ring plane not yet ported across ranks
-    (``obj`` a sharded graph or a mesh); nothing in one process."""
+    (``obj`` a sharded graph or a mesh): the frontier-adaptive loop, the
+    recorder and a fault-spec comm; nothing in one process."""
     mesh = _rank_mesh(obj)
     if mesh is not None:
         raise NotImplementedError(
             f"{what} on a ring of {mesh.world} ranks is not ported yet: it "
-            f"waits in ROADMAP.md (the ring across ranks, §A item 14); run "
-            f"it on a ring in one process (mesh.ring_mesh)")
+            f"waits in ROADMAP.md (the ring across ranks' next slice, "
+            f"\"Order for the next PRs\" item 5); run it on a ring in one "
+            f"process (mesh.ring_mesh)")
 
 
 def _make_ring_comm(comm, axis_name: str, sg):
@@ -367,9 +372,14 @@ class RankShardedGraph(ShardedGraph):
     processes (``mesh.world > 1``): every per-shard tensor holds the
     ``mesh.n_local`` shards from ``mesh.shard_lo`` on axis 0
     (``mesh.shard_spec``); ``n_shards`` and ``n_nodes`` stay the whole
-    ring's. ``dataclasses.replace`` keeps the class and the mesh."""
+    ring's. ``dataclasses.replace`` keeps the class and the mesh.
+    ``live`` is the whole ring's live node count (i64, 0-d), the
+    reference's ``psum`` of the liveness, kept here so that a round pays
+    no exchange for it: :func:`_replace` renews it wherever the liveness
+    changes."""
 
     mesh: Optional[RingMesh] = None
+    live: Optional[torch.Tensor] = None
 
 
 def _extract_ring_diagonals(senders, receivers, n, S, block, max_diags,
@@ -541,8 +551,9 @@ def shard_graph(graph, mesh: RingMesh, edge_pad_multiple: int = 128,
     mxu_src, mxu_dst, mxu_mask = map(on, mxu_arrays or (None,) * 3)
     mxu_extent = on(row_extent(*mxu_arrays) if mxu_arrays else None)
     cls, part = ShardedGraph, {}
-    if mesh.world > 1:
-        cls, part = RankShardedGraph, {"mesh": mesh}
+    if mesh.world > 1:  # every rank holds the whole host layout: no exchange
+        cls, part = RankShardedGraph, {"mesh": mesh, "live": torch.as_tensor(
+            int(_np(graph.node_mask).sum()), device=mesh.device)}
     return cls(
         bkt_src=on(bkt_src), bkt_dst=on(bkt_dst), bkt_mask=on(bkt_mask),
         node_mask=on(per_node(graph.node_mask)),
@@ -701,10 +712,19 @@ def with_node_liveness(sg: ShardedGraph, alive, *,
         partner_alive = masks_by_t.reshape(L, S * B).gather(
             1, at.reshape(L, -1)).reshape(nbr.shape)
         neighbors_mask = neighbors_mask & nm[..., None] & partner_alive
-    return dataclasses.replace(
+    return _replace(
         sg, bkt_mask=bkt_mask, node_mask=nm, out_degree=out_degree,
         in_degree=in_degree, dyn_mask=dyn_mask, mxu_mask=mxu_mask,
         diag_masks=diag_masks, neighbors_mask=neighbors_mask)
+
+
+def _replace(sg: ShardedGraph, **kw) -> ShardedGraph:
+    """``dataclasses.replace``, renewing a rank part's global live count
+    (one exchange) when ``node_mask`` changes."""
+    mesh = _rank_mesh(sg)
+    if mesh is not None and "node_mask" in kw:
+        kw["live"] = all_sum(mesh, kw["node_mask"].sum())
+    return dataclasses.replace(sg, **kw)
 
 
 def _check_ids(sg: ShardedGraph, *arrays) -> None:
@@ -731,7 +751,7 @@ def random_node_failures(sg: ShardedGraph, key, frac: float) -> ShardedGraph:
     ``sim/failures.random_node_failures``'s for the same key."""
     fail = prng.bernoulli(key, frac, (sg.n_nodes_padded,),
                           device=sg.device).reshape(sg.n_shards, sg.block)
-    return with_node_liveness(sg, ~(fail & _global_node_mask(sg)))
+    return with_node_liveness(sg, ~(fail & global_node_mask(sg)))
 
 
 def _queries(sg: ShardedGraph, s: np.ndarray, r: np.ndarray):
@@ -762,7 +782,7 @@ def _in_buckets(src, dst, mask, d, t, sl, rl) -> torch.Tensor:
     return out
 
 
-def _global_node_mask(sg: ShardedGraph) -> torch.Tensor:
+def global_node_mask(sg: ShardedGraph) -> torch.Tensor:
     """The whole ring's ``node_mask [S, block]``: gathered from the ranks
     of a ring split over processes (one exchange)."""
     mesh = _rank_mesh(sg)
@@ -815,7 +835,7 @@ def connect(sg: ShardedGraph, senders, receivers, *,
                          return_index=True)
     keep = np.zeros(s.size, bool)
     keep[first] = True
-    alive = _np(_global_node_mask(sg)).reshape(-1)
+    alive = _np(global_node_mask(sg)).reshape(-1)
     keep &= alive[s] & alive[r]
 
     queries = _queries(sg, s, r)
@@ -954,7 +974,7 @@ def apply_topology_state(sg: ShardedGraph, ts: dict) -> ShardedGraph:
         v = v if isinstance(v, torch.Tensor) else torch.from_numpy(
             np.array(v))
         kw[name] = v.to(device=sg.device, dtype=cur.dtype)
-    return dataclasses.replace(sg, **kw)
+    return _replace(sg, **kw)
 
 
 # --------------------------------------------------------------- ring pass
@@ -1198,14 +1218,13 @@ def init_state(sg: ShardedGraph, protocol, key=None):
     frontier)``; SIR -> ``status``; Gossip -> ``values``; HopDistance ->
     ``(dist, frontier, round)``; PageRank -> ``ranks``; PushSum -> ``(s,
     w)``. Gossip and PushSum draw their values from ``key`` over the whole
-    padded population, as the engine does (a rank's part takes its rows
-    of the whole draw)."""
+    padded population, as the engine does; on a rank's part every state
+    is its own shards' rows (a seed only where its shard is held, its
+    rows of the whole draw, PageRank's share of the global live count)."""
     S, block, dev = sg.n_shards, sg.block, sg.device
     if isinstance(protocol, Flood):
         seed = _flood_seed(sg, protocol.source)
         return (seed, seed)
-    if not isinstance(protocol, Gossip):
-        refuse_ranks(sg, f"{type(protocol).__name__}'s state")
     if isinstance(protocol, SIR):
         seed = _flood_seed(sg, protocol.source)
         return seed.to(torch.int32) * sg.node_mask
@@ -1222,9 +1241,8 @@ def init_state(sg: ShardedGraph, protocol, key=None):
         seed = _flood_seed(sg, protocol.source)
         dist = torch.where(seed, 0, -1).to(torch.int32)
         return (dist, seed, torch.zeros((), dtype=torch.int32, device=dev))
-    if isinstance(protocol, PageRank):
-        mask_f = sg.node_mask.to(torch.float32)
-        return mask_f / mask_f.sum().clamp_min(1.0)
+    if isinstance(protocol, PageRank):  # over the whole ring's live count
+        return sg.node_mask.to(torch.float32) / _n_live(sg).to(torch.float32)
     raise ValueError(
         f"the sharded path implements Flood, SIR, Gossip, HopDistance, "
         f"PageRank and PushSum; got {type(protocol).__name__} — run it on "
@@ -1454,10 +1472,16 @@ def propagate(sg: ShardedGraph, mesh: RingMesh, signal: torch.Tensor,
 # ---------------------------------------------------------- shared helpers
 
 
+def live_nodes(sg: ShardedGraph) -> torch.Tensor:
+    """The whole ring's live node count (i64, 0-d; the reference's
+    ``psum`` of the liveness): a rank part's kept ``live``, no
+    exchange."""
+    return sg.node_mask.sum() if _rank_mesh(sg) is None else sg.live
+
+
 def _n_live(sg: ShardedGraph) -> torch.Tensor:
-    """The live node count, at least 1 (the reference's ``psum``)."""
-    refuse_ranks(sg, "a count of one rank's live nodes")
-    return sg.node_mask.sum().clamp_min(1)
+    """The live node count, at least 1."""
+    return live_nodes(sg).clamp_min(1)
 
 
 def _over_live(count: torch.Tensor, sg: ShardedGraph) -> torch.Tensor:
@@ -1466,9 +1490,10 @@ def _over_live(count: torch.Tensor, sg: ShardedGraph) -> torch.Tensor:
 
 
 def _rank_sums(sg: ShardedGraph, *counts: torch.Tensor):
-    """The integer ``counts`` (0-d) summed over the ranks of a ring split
-    over processes, in one exchange (the reference's ``psum`` of each);
-    the counts themselves in one process."""
+    """The integer ``counts`` (0-d, or vectors of one shape) summed over
+    the ranks of a ring split over processes, in one exchange (the
+    reference's ``psum`` of each); the counts themselves in one
+    process."""
     mesh = _rank_mesh(sg)
     if mesh is None:
         return counts
@@ -1491,7 +1516,7 @@ def psum_f32(x: torch.Tensor, sg: Optional[ShardedGraph] = None
     decades; a pairwise tree matched 1,086). On a rank's part (``sg``
     split over processes) the shards' sums are gathered from the ranks in
     shard order first (one exchange), so the total is the same."""
-    return accum.ordered_sum(_shard_rows(sg, rowsum.row_sum(x)))
+    return _totals(sg, sums=(x,))[0]
 
 
 def _shard_rows(sg: Optional[ShardedGraph], rows: torch.Tensor
@@ -1500,6 +1525,38 @@ def _shard_rows(sg: Optional[ShardedGraph], rows: torch.Tensor
     (one exchange on a ring split over processes)."""
     mesh = None if sg is None else _rank_mesh(sg)
     return rows if mesh is None else gather_shards(mesh, rows)
+
+
+def _totals(sg: ShardedGraph, sums=(), counts=(), maxes=()) -> list:
+    """A round's totals over the whole ring, in one exchange on a ring
+    split over ranks (none in one process): for each f32 ``[n_local,
+    block]`` of ``sums`` its :func:`psum_f32` (each shard's row sum, then
+    the shards left to right), for each integer or bool tensor of
+    ``counts`` (``[n_local, ...]``) its exact sum (i64), for each of
+    ``maxes`` its max in its own dtype (the reference's ``pmax``). The
+    per-shard partials ride one ``[n_local, k]`` f64 gather in shard
+    order; f64 holds each exactly (f32 row sums and maxima, i32 maxima,
+    counts below 2**53). Returned in that order."""
+    def rows(x):
+        return x.reshape(x.shape[0], -1)
+
+    parts = ([rowsum.row_sum(x) for x in sums]
+             + [rows(c).sum(1, dtype=torch.int64) for c in counts]
+             + [rows(m).amax(1) for m in maxes])
+    cols = _shard_rows(sg, torch.stack([p.to(torch.float64) for p in parts],
+                                       dim=1))
+    i = iter(range(len(parts)))
+    return ([accum.ordered_sum(cols[:, next(i)].to(torch.float32))
+             for _ in sums]
+            + [cols[:, next(i)].sum().to(torch.int64) for _ in counts]
+            + [cols[:, next(i)].amax().to(m.dtype) for m in maxes])
+
+
+def _rank_max(sg: ShardedGraph, x: torch.Tensor) -> torch.Tensor:
+    """``x`` maxed over the ranks of a ring split over processes (one
+    exchange, the reference's ``pmax``); ``x`` itself in one process."""
+    mesh = _rank_mesh(sg)
+    return x if mesh is None else all_max(mesh, x)
 
 
 #: Node tile of the ``"tile"`` draw mode: one key per 128-node tile,
@@ -1573,8 +1630,9 @@ class _RingSIR:
     STATS = SIR.STATS
 
     def coverage(self, sg, status):
-        return _over_live(((status != sir_model.SUSCEPTIBLE)
-                           & sg.node_mask).sum(), sg)
+        covered, = _totals(sg, counts=[(status != sir_model.SUSCEPTIBLE)
+                                       & sg.node_mask])
+        return _over_live(covered, sg)
 
     def step(self, sg, status, key):
         k_inf, k_rec = prng.split(key)
@@ -1587,30 +1645,30 @@ class _RingSIR:
         recovers = infected & (self.draw(k_rec) < self.gamma)
         status = torch.where(newly, sir_model.INFECTED, status)
         status = torch.where(recovers, sir_model.RECOVERED, status)
-
-        def frac(mask):
-            return _over_live((mask & nm).sum(), sg)
-
-        stats = {
-            "messages": torch.where(infected, sg.out_degree, 0).sum(),
-            "s_frac": frac(status == sir_model.SUSCEPTIBLE),
-            "i_frac": frac(status == sir_model.INFECTED),
-            "r_frac": frac(status == sir_model.RECOVERED),
-            "coverage": frac(status != sir_model.SUSCEPTIBLE),
-        }
+        messages, *counts = _totals(sg, counts=[
+            torch.where(infected, sg.out_degree, 0)] + [
+            m & nm for m in (status == sir_model.SUSCEPTIBLE,
+                             status == sir_model.INFECTED,
+                             status == sir_model.RECOVERED,
+                             status != sir_model.SUSCEPTIBLE)])
+        s, i, r, covered = (_over_live(c, sg) for c in counts)
+        stats = {"messages": messages, "s_frac": s, "i_frac": i,
+                 "r_frac": r, "coverage": covered}
         return status, stats
 
 
 def _max_in_degree(sg: ShardedGraph) -> int:
-    """The largest live in-degree, read once on the host (one counted
-    sync): it bounds a round's pressure, so it sizes the escape table."""
+    """The largest live in-degree of the whole ring (maxed over the ranks
+    of a split ring, one exchange), read once on the host (one counted
+    sync): it bounds a round's pressure, so it sizes the escape table,
+    the same length on every rank."""
+    top = _rank_max(sg, sg.in_degree.max())
     _device.SYNCS += 1
-    return max(int(sg.in_degree.max()), 0)
+    return max(int(top), 0)
 
 
 def _sir_start(sg, mesh, protocol, key, exact_rng, rng, status0, comm,
                axis_name):
-    refuse_ranks(sg, "SIR")
     _check_mesh(sg, mesh)
     proto = _RingSIR(
         pass_=_make_pass(sg, comm, "sum", axis_name),
@@ -1764,21 +1822,19 @@ class _RingPageRank:
                               ranks / deg.to(torch.float32).clamp_min(1.0),
                               0.0)
         pulled = self.pass_(contrib)
-        dangling = psum_f32(torch.where(nm & (deg == 0), ranks, 0.0))
+        dangling = psum_f32(torch.where(nm & (deg == 0), ranks, 0.0), sg)
         # XLA's CPU code fuses this product and add into one rounding.
         new = TF.fma_f32(pulled + dangling / n, self.damping,
                          self.one_minus_damping / n) * mask_f
-        stats = {
-            "messages": torch.where(nm, deg, 0).sum(),
-            "residual": psum_f32((new - ranks).abs()),
-            "rank_total": psum_f32(new),
-            "rank_max": new.max(),
-        }
+        residual, total, messages, top = _totals(
+            sg, sums=((new - ranks).abs(), new),
+            counts=(torch.where(nm, deg, 0),), maxes=(new,))
+        stats = {"messages": messages, "residual": residual,
+                 "rank_total": total, "rank_max": top}
         return new, stats
 
 
 def _pagerank_start(sg, mesh, protocol, ranks0, comm, axis_name):
-    refuse_ranks(sg, "PageRank")
     _check_mesh(sg, mesh)
     proto = _RingPageRank(
         pass_=_make_pass(sg, comm, "sum", axis_name),
@@ -1853,20 +1909,17 @@ class _RingPushSum:
         w = (w_share + self.pass_(w_share)) * mask_f
         est = torch.where(w > 0, s / w.clamp_min(1e-30), 0.0)
         n = _n_live(sg).to(torch.float32)
-        mean = psum_f32(est * mask_f) / n
-        var = psum_f32(torch.where(nm, (est - mean) ** 2, 0.0)) / n
-        stats = {
-            "messages": torch.where(nm, deg, 0).sum(),
-            "s_total": psum_f32(s),
-            "w_total": psum_f32(w),
-            "variance": var,
-            "mean": mean,
-        }
+        # The totals in two exchanges: the variance needs the mean.
+        est_total, s_total, w_total, messages = _totals(
+            sg, sums=(est * mask_f, s, w), counts=(torch.where(nm, deg, 0),))
+        mean = est_total / n
+        var = psum_f32(torch.where(nm, (est - mean) ** 2, 0.0), sg) / n
+        stats = {"messages": messages, "s_total": s_total,
+                 "w_total": w_total, "variance": var, "mean": mean}
         return (s, w), stats
 
 
 def _pushsum_start(sg, mesh, protocol, key, state0, comm, axis_name):
-    refuse_ranks(sg, "push-sum")
     _check_mesh(sg, mesh)
     proto = _RingPushSum(pass_=_make_pass(sg, comm, "sum", axis_name))
     if state0 is None:
@@ -1917,12 +1970,11 @@ class _RingHopDist:
         new = self.pass_(frontier) & (dist < 0) & nm
         rnd = rnd + 1
         dist = torch.where(new, rnd, dist)
-        stats = {
-            "messages": torch.where(frontier, sg.out_degree, 0).sum(),
-            "coverage": _over_live(((dist >= 0) & nm).sum(), sg),
-            "frontier": new.sum(dtype=torch.int32),
-            "max_dist": dist.max(),
-        }
+        messages, covered, fresh, far = _totals(
+            sg, counts=(torch.where(frontier, sg.out_degree, 0),
+                        (dist >= 0) & nm, new), maxes=(dist,))
+        stats = {"messages": messages, "coverage": _over_live(covered, sg),
+                 "frontier": fresh.to(torch.int32), "max_dist": far}
         return (dist, new, rnd), stats
 
 
@@ -1934,7 +1986,6 @@ def hopdist(sg: ShardedGraph, mesh: RingMesh, protocol, rounds: int,
             axis_name: str = DEFAULT_AXIS, state0=None, comm=DEFAULT_COMM):
     """Run ``rounds`` of BFS hop distance on the ring. Returns ``((dist,
     frontier, round), stats)``, ``dist [S, block] i32`` (-1 unreached)."""
-    refuse_ranks(sg, "hop distance")
     _check_mesh(sg, mesh)
     proto = _RingHopDist(_make_pass(sg, comm, "or", axis_name))
     return engine._run_from(sg, proto, _hopdist_state0(sg, protocol, state0),
@@ -1953,9 +2004,11 @@ def hopdist_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, *,
     ``adaptive_k > 0`` (a graph sharded with ``source_csr=True``) runs
     small-frontier rounds through the frontier-adaptive wave (see
     :func:`flood_until_coverage`); layers, rounds and messages equal the
-    dense loop's."""
-    refuse_ranks(sg, "hop distance")
+    dense loop's. On a ring split over ranks each round's two counts (the
+    wave's size and its sends) are summed in one exchange, so every rank
+    tests the global frontier."""
     if adaptive_k > 0:
+        refuse_ranks(sg, "the frontier-adaptive loop (adaptive_k > 0)")
         return _hopdist_adaptive(sg, mesh, protocol, coverage_target,
                                  max_rounds, axis_name, state0, adaptive_k,
                                  comm)
@@ -1966,17 +2019,16 @@ def hopdist_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, *,
     n = _n_live(sg).to(torch.float32)
     target = torch.tensor(coverage_target, dtype=torch.float32,
                           device=sg.device)
-    covered = ((dist >= 0) & nm).sum(dtype=torch.int32)
-    alive = frontier.sum(dtype=torch.int32)
+    covered, alive = _totals(sg, counts=((dist >= 0) & nm, frontier))
     messages = torch.zeros((), dtype=torch.int64, device=sg.device)
     rounds = 0
     while rounds < max_rounds and _device.host_bool(
             (alive > 0) & (covered.to(torch.float32) / n < target)):
-        messages = messages + torch.where(frontier, deg, 0).sum()
         new = pass_(frontier) & (dist < 0) & nm
         rnd = rnd + 1
         dist = torch.where(new, rnd, dist)
-        alive = new.sum(dtype=torch.int32)
+        sent, alive = _totals(sg, counts=(torch.where(frontier, deg, 0), new))
+        messages = messages + sent
         covered = covered + alive
         frontier = new
         rounds += 1
@@ -2332,8 +2384,9 @@ def leader_until_quiet(sg: ShardedGraph, mesh: RingMesh, *,
     the first quiet round, which is executed and counted. Returns
     ``(known [S, block] i32, dict(rounds, coverage, messages))``,
     ``coverage`` the share of live nodes agreeing on the global winner.
-    Needs the segment layout (max aggregation)."""
-    refuse_ranks(sg, "leader election")
+    Needs the segment layout (max aggregation). On a ring split over ranks
+    the max pass rides B2 on i32 across ranks and each round's quiet test
+    and sends are one exchange."""
     if sg.mxu_src is not None:
         raise ValueError(
             "leader_until_quiet cannot ride the MXU one-hot layout — "
@@ -2342,21 +2395,24 @@ def leader_until_quiet(sg: ShardedGraph, mesh: RingMesh, *,
     pass_ = _make_pass(sg, comm, "max", axis_name)
     nm, deg = sg.node_mask, sg.out_degree
     neutral = neutral_min(torch.int32)
-    ids = torch.arange(sg.n_nodes_padded, dtype=torch.int32,
+    lo = sg.shard_lo * sg.block
+    ids = torch.arange(lo, lo + nm.numel(), dtype=torch.int32,
                        device=sg.device).reshape(nm.shape)
     known, frontier = torch.where(nm, ids, -1), nm
-    changed = nm.sum()
+    changed, = _totals(sg, counts=(nm,))
     messages = torch.zeros((), dtype=torch.int64, device=sg.device)
     rounds = 0
     while rounds < max_rounds and _device.host_bool(changed > 0):
-        messages = messages + torch.where(frontier, deg, 0).sum()
+        sent = torch.where(frontier, deg, 0)
         heard = pass_(torch.where(frontier, known, neutral))
         new_known = torch.where(nm, torch.maximum(known, heard), -1)
         frontier = (new_known != known) & nm
-        changed = frontier.sum()
+        sent, changed = _totals(sg, counts=(sent, frontier))
+        messages = messages + sent
         known = new_known
         rounds += 1
-    agreed = ((known == known.max()) & nm).sum()
+    top, = _totals(sg, maxes=(known,))
+    agreed, = _totals(sg, counts=((known == top) & nm,))
     return known, {"rounds": rounds,
                    "coverage": float(_over_live(agreed, sg)),
                    "messages": int(messages)}
@@ -2374,7 +2430,10 @@ class _RingWalk:
     uniform is keyed by the edge's identity (``utils/edgehash.py``), so the
     global choice is the max over the shards' maxima, ties to the higher
     receiver id: the reference's ``pmax`` pair, and the engine's draw. The
-    state is ``(pos, visited)``."""
+    state is ``(pos, visited)``. On a ring split over ranks each rank
+    scores the candidates into its own shards, the two maxima are taken
+    over the ranks (:func:`_rank_max`, two exchanges a round), ``visited``
+    holds the rank's rows and its count is summed in a third."""
 
     start: torch.Tensor  # i32[W]
     alive_start: torch.Tensor  # bool[W]
@@ -2384,16 +2443,18 @@ class _RingWalk:
     STATS = ("messages", "coverage", "stuck")
 
     def coverage(self, sg, state):
-        return _over_live((state[1] & sg.node_mask).sum(), sg)
+        visited, = _totals(sg, counts=(state[1] & sg.node_mask,))
+        return _over_live(visited, sg)
 
     def step(self, sg, state, key):
         pos, visited = state
         S, block, dev = sg.n_shards, sg.block, sg.device
+        L, lo = sg.n_local, sg.shard_lo
         W = pos.shape[0]
         k_edge, k_restart = prng.split(key)
         nm = sg.node_mask
-        shard_base = (torch.arange(S, dtype=torch.int32, device=dev)
-                      * block)[:, None, None]
+        shards = torch.arange(lo, lo + L, dtype=torch.int32, device=dev)
+        shard_base = (shards * block)[:, None, None]
         walkers = torch.arange(W, dtype=torch.int32, device=dev)[:, None]
 
         p = pos.long()
@@ -2403,11 +2464,11 @@ class _RingWalk:
         # Out-of-row slots read slot 0 and are masked (the padding of
         # csr_pos stays in bounds but can alias live slots).
         at = sg.csr_pos.gather(
-            1, torch.where(svalid, slot, 0).reshape(S, -1).long())
-        flat_dst = sg.bkt_dst.reshape(S, -1)
+            1, torch.where(svalid, slot, 0).reshape(L, -1).long())
+        flat_dst = sg.bkt_dst.reshape(L, -1)
         dst_local = flat_dst.gather(1, at.long())
-        live = (svalid.reshape(S, -1)
-                & sg.bkt_mask.reshape(S, -1).gather(1, at.long())
+        live = (svalid.reshape(L, -1)
+                & sg.bkt_mask.reshape(L, -1).gather(1, at.long())
                 & nm.gather(1, dst_local.long())).reshape(svalid.shape)
         rcv = shard_base + dst_local.reshape(svalid.shape)
         u = torch.where(live, edge_uniform(k_edge, walkers, pos[:, None],
@@ -2420,11 +2481,11 @@ class _RingWalk:
             # membership-tested against the cohort ([S, W, S * K]).
             K = sg.dyn_capacity
             t = torch.arange(S, dtype=torch.int32, device=dev)
-            g_send = (((t[:, None] - t[None, :]) % S)[..., None] * block
-                      + sg.dyn_src).reshape(S, 1, S * K)
-            d_dst = sg.dyn_dst.reshape(S, S * K)
+            g_send = (((shards[:, None] - t[None, :]) % S)[..., None] * block
+                      + sg.dyn_src).reshape(L, 1, S * K)
+            d_dst = sg.dyn_dst.reshape(L, S * K)
             member = ((g_send == pos[None, :, None])
-                      & sg.dyn_mask.reshape(S, 1, S * K)
+                      & sg.dyn_mask.reshape(L, 1, S * K)
                       & nm.gather(1, d_dst.long())[:, None])
             drcv = (shard_base[..., 0] + d_dst)[:, None].expand(member.shape)
             du = torch.where(member, edge_uniform(k_edge, walkers,
@@ -2435,8 +2496,9 @@ class _RingWalk:
             r_loc = torch.where(dm > m_loc, dr, torch.where(
                 dm == m_loc, torch.maximum(r_loc, dr), r_loc))
             m_loc = torch.maximum(m_loc, dm)
-        m = m_loc.amax(dim=0)
-        r = torch.where((m_loc == m) & (m >= 0), r_loc, -1).amax(dim=0)
+        m = _rank_max(sg, m_loc.amax(dim=0))
+        r = _rank_max(sg, torch.where((m_loc == m) & (m >= 0), r_loc,
+                                      -1).amax(dim=0))
         can_move = m >= 0.0
         dest = torch.where(can_move, r, pos)
         if self.restart_p > 0.0:
@@ -2446,27 +2508,41 @@ class _RingWalk:
             moved = (restart | can_move) & (dest != pos)
         else:
             moved = can_move & (dest != pos)
-        visited = visited.clone()
-        visited.view(-1)[dest.long()] = True
-        visited &= nm
+        visited = _mark(sg, visited, dest)
+        covered, = _totals(sg, counts=(visited,))
+        # The cohort is replicated: its counts need no exchange.
         stats = {"messages": moved.sum(dtype=torch.int32),
-                 "coverage": _over_live(visited.sum(), sg),
+                 "coverage": _over_live(covered, sg),
                  "stuck": (~can_move).sum(dtype=torch.int32)}
         return (dest, visited), stats
+
+
+def _mark(sg: ShardedGraph, flags: torch.Tensor, ids: torch.Tensor
+          ) -> torch.Tensor:
+    """``flags [n_local, block]`` with the global node ``ids`` set where
+    they fall in the shards held here, masked to live nodes (no host
+    read: the ids of other ranks' shards land in a dropped slot)."""
+    n = flags.numel()
+    at = ids.long() - sg.shard_lo * sg.block
+    flat = torch.cat([flags.reshape(-1), flags.new_zeros(1)])
+    flat[torch.where((at >= 0) & (at < n), at, n)] = True
+    return flat[:n].reshape(flags.shape) & sg.node_mask
 
 
 def _walk_start(sg: ShardedGraph, mesh: RingMesh, protocol, state0):
     """``(walk round, (pos, visited), start)``: ``RandomWalks.init``'s
     walkers (evenly spread over the live ids) unless ``state0 = (pos,
-    start, visited)`` resumes a run."""
-    refuse_ranks(sg, "the walk")
+    start, visited)`` resumes a run. On a ring split over ranks the live
+    ids are the whole ring's (one gather of the liveness), the positions
+    replicated and ``visited`` the rank's rows."""
     if sg.csr_pos is None:
         raise ValueError(
             "the sharded walk requires a sender-CSR sharded graph — build "
             "with shard_graph(source_csr=True)")
     _check_mesh(sg, mesh)
+    alive = global_node_mask(sg).reshape(-1)
     if state0 is None:
-        live_ids = torch.nonzero(sg.node_mask.reshape(-1)).reshape(-1)
+        live_ids = torch.nonzero(alive).reshape(-1)
         W = protocol.n_walkers
         if live_ids.numel():
             n_live = live_ids.numel()
@@ -2475,14 +2551,11 @@ def _walk_start(sg: ShardedGraph, mesh: RingMesh, protocol, state0):
             pos = live_ids[idx].to(torch.int32)
         else:
             pos = torch.zeros(W, dtype=torch.int32, device=sg.device)
-        visited = torch.zeros_like(sg.node_mask)
-        visited.view(-1)[pos.long()] = True
-        visited &= sg.node_mask
+        visited = _mark(sg, torch.zeros_like(sg.node_mask), pos)
         start = pos
     else:
         pos, start, visited = state0
-    proto = _RingWalk(start=start,
-                      alive_start=sg.node_mask.reshape(-1)[start.long()],
+    proto = _RingWalk(start=start, alive_start=alive[start.long()],
                       span=max(sg.csr_span, 1),
                       restart_p=float(np.float32(protocol.restart_p)))
     return proto, (pos, visited), start
@@ -2553,8 +2626,11 @@ def _lane_runs(sg: ShardedGraph):
     ``seg [S, S, E]`` (shard ``d``'s ids offset by ``d * (block + E)``;
     the padding slots past each bucket's last used slot get ids of their
     own past the block, so they join no receiver's run) and the longest
-    run of one receiver (one counted sync), which bounds the OR scan."""
-    S, B = sg.n_shards, sg.block
+    run of one receiver (one counted sync), which bounds the OR scan. On
+    a ring split over ranks both are the rank's own (``[n_local, S,
+    E]``): the scan has no collective inside, and a longer bound than
+    another rank's changes no result, so the read stays rank-local."""
+    L, B = sg.n_local, sg.block
     E = sg.bkt_dst.shape[-1]
     # A slot is used unless it is (src 0, dst block - 1, masked): padding.
     used = sg.bkt_mask | (sg.bkt_src != 0) | (sg.bkt_dst != B - 1)
@@ -2562,7 +2638,7 @@ def _lane_runs(sg: ShardedGraph):
                          E - used.flip(-1).to(torch.uint8).argmax(dim=-1), 0)
     idx = torch.arange(E, device=sg.device)
     seg = torch.where(idx >= extent[..., None], B + idx, sg.bkt_dst.long())
-    seg = seg + (torch.arange(S, device=sg.device) * (B + E))[:, None, None]
+    seg = seg + (torch.arange(L, device=sg.device) * (B + E))[:, None, None]
     _, counts = torch.unique_consecutive(seg, return_counts=True)
     _device.SYNCS += 1
     return seg, max(int(counts.max()), 1) if counts.numel() else 1
@@ -2575,18 +2651,18 @@ def _make_or_lanes_pass(sg: ShardedGraph, comm, axis_name: str):
     are OR-reduced within each receiver's run of the sorted buckets
     (``ops/bitset.py`` ``or_sorted_lanes``: no bit planes, no atomics on
     the padding's one receiver); the dynamic region's unsorted slots by
-    ``or_scatter_lanes``. The hop moves the whole word stack (B2)."""
-    refuse_ranks(sg, "the lane plane")
-    S, B = sg.n_shards, sg.block
+    ``or_scatter_lanes``. The hop moves the whole word stack (B2; across
+    ranks ``ring_put`` of the rank's ``[n_local, W, block]``)."""
+    S, L, B = sg.n_shards, sg.n_local, sg.block
     E = sg.bkt_dst.shape[-1]
     comm_obj = _make_ring_comm(comm, axis_name, sg)
     seg, span = _lane_runs(sg)
-    n_ids = S * (B + E)
-    shard_off = (torch.arange(S, device=sg.device) * B)[:, None]
+    n_ids = L * (B + E)
+    shard_off = (torch.arange(L, device=sg.device) * B)[:, None]
 
-    def gathered(rot, src, mask):  # rot [S, W, B]; src/mask [S, K]
+    def gathered(rot, src, mask):  # rot [L, W, B]; src/mask [L, K]
         W = rot.shape[1]
-        idx = src.long()[:, None, :].expand(S, W, src.shape[-1])
+        idx = src.long()[:, None, :].expand(L, W, src.shape[-1])
         return torch.where(mask[:, None, :], rot.gather(2, idx), 0)
 
     def apply(rot, t):
@@ -2594,15 +2670,15 @@ def _make_or_lanes_pass(sg: ShardedGraph, comm, axis_name: str):
         words = gathered(rot, sg.bkt_src[:, t], sg.bkt_mask[:, t])
         out = BS.or_sorted_lanes(n_ids, seg[:, t].reshape(-1),
                                  words.transpose(0, 1).reshape(W, -1), span)
-        out = out.reshape(W, S, B + E)[..., :B].transpose(0, 1)
+        out = out.reshape(W, L, B + E)[..., :B].transpose(0, 1)
         if sg.dyn_capacity:
             dmask = sg.dyn_mask[:, t]
             dst = torch.where(dmask, shard_off + sg.dyn_dst[:, t],
-                              S * B).reshape(-1)
+                              L * B).reshape(-1)
             words = gathered(rot, sg.dyn_src[:, t], dmask)
-            dyn = BS.or_scatter_lanes(S * B, dst, words.transpose(
+            dyn = BS.or_scatter_lanes(L * B, dst, words.transpose(
                 0, 1).reshape(W, -1))
-            out = out | dyn.reshape(W, S, B).transpose(0, 1)
+            out = out | dyn.reshape(W, L, B).transpose(0, 1)
         return out
 
     def pass_(lanes):
@@ -2627,21 +2703,25 @@ def _node_lanes(sg: ShardedGraph) -> torch.Tensor:
 
 def shard_lanes(sg: ShardedGraph, lanes) -> torch.Tensor:
     """A lane-word stack ``[W, N_pad]`` (``MessageBatch``'s layout) as
-    ``[S, W, block]``, the node axis zero-padded to the shard grid."""
-    refuse_ranks(sg, "the lane plane")
+    ``[S, W, block]``, the node axis zero-padded to the shard grid (a
+    rank's part: its own shards' ``[n_local, W, block]``)."""
     lanes = torch.as_tensor(lanes, device=sg.device)
     pad = sg.n_nodes_padded - lanes.shape[1]
     if pad:
         lanes = torch.nn.functional.pad(lanes, (0, pad))
     w = lanes.shape[0]
-    return lanes.reshape(w, sg.n_shards, sg.block).transpose(0, 1) \
-        .contiguous()
+    lo = sg.shard_lo
+    return lanes.reshape(w, sg.n_shards, sg.block).transpose(0, 1)[
+        lo:lo + sg.n_local].contiguous()
 
 
 def unshard_lanes(sg: ShardedGraph, lanes: torch.Tensor,
                   n_pad: Optional[int] = None) -> torch.Tensor:
     """Inverse of :func:`shard_lanes`: ``[S, W, block] -> [W, n_pad]``
-    (``n_pad`` defaults to the full grid ``S * block``)."""
+    (``n_pad`` defaults to the full grid ``S * block``). On a ring split
+    over ranks every rank passes its ``[n_local, W, block]`` and gets the
+    whole stack (one gather)."""
+    lanes = _shard_rows(sg, lanes.contiguous())
     flat = lanes.transpose(0, 1).reshape(lanes.shape[1], -1)
     return flat if n_pad is None else flat[:, :n_pad].contiguous()
 
@@ -2668,7 +2748,10 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
     flag read a round. Returns the final ``[S, W, block]`` planes, the
     lane metadata and the run's device totals. With ``ring`` (a flight
     ring) each round writes the engine's batch row, with the loop's
-    per-round byte estimate in ``ici_bytes``."""
+    per-round byte estimate in ``ici_bytes``. On a ring split over ranks
+    a round's per-lane counts and sends are summed as one vector in one
+    exchange, so admit, retire and exit agree on every rank; the
+    occupancy's per-round counts in one more at the end."""
     dev = sg.device
     wire = fault_round0 is not None and getattr(pass_.comm, "wants_step",
                                                 False)
@@ -2681,7 +2764,7 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
     admitted, target = batch.admitted, batch.target
     W = seen.shape[1]
     messages = torch.zeros((), dtype=torch.int64, device=dev)
-    occ = torch.zeros((), dtype=torch.float32, device=dev)
+    occ_counts = []
     if ring is not None:
         ici = torch.full((), float(commviz.ici_round_bytes(
             "batch", sg.n_shards, sg.block, n_words=W,
@@ -2696,18 +2779,20 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
         new = pass_(front) & node_lanes & ~seen & live_mask
         seen, sent = seen | new, sent | front
         words = (deg * BS.popcount_words(front)).sum(dim=(0, 2))
-        messages = messages + words.sum()
-        seen_count = seen_count + BS.lane_counts(
-            new.transpose(0, 1).reshape(W, -1)).reshape(-1)
+        counts = BS.lane_counts(new.transpose(0, 1).reshape(W, -1)
+                                ).reshape(-1)
+        counts, = _rank_sums(sg, torch.cat([counts.to(torch.int64),
+                                            words.sum().reshape(1)]))
+        messages = messages + counts[-1]
+        seen_count = seen_count + counts[:-1].to(seen_count.dtype)
         done = done | (admitted & (seen_count.to(torch.float32) / n_live
                                    >= target))
         rounds_l = rounds_l + live.to(torch.int32)
         running = admitted & ~done
         frontier = new & BS.pack_bits(running)[None, :, None]
-        occ_r = ((frontier != 0).any(dim=1) & nm).sum().to(
-            torch.float32) / n_live
-        occ = occ + occ_r
-        if ring is not None:
+        occ_counts.append(((frontier != 0).any(dim=1) & nm).sum())
+        if ring is not None:  # one process only: the recorder refuses ranks
+            occ_r = occ_counts[-1].to(torch.float32) / n_live
             # The engine's batch row; f32 sums in XLA's order.
             flightrec.write_row(
                 ring, r, occupancy=occ_r,
@@ -2716,6 +2801,9 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
                 coverage=accum.ordered_sum(seen_count.to(torch.float32)),
                 active_lanes=running.sum(dtype=torch.int32), ici_bytes=ici)
         r += 1
+    occ = torch.zeros((), dtype=torch.float32, device=dev)
+    for c in (_rank_sums(sg, *occ_counts) if occ_counts else ()):
+        occ = occ + c.to(torch.float32) / n_live
     return ((seen, frontier, sent), (done, rounds_l, seen_count),
             (r, messages, occ))
 
@@ -2741,8 +2829,9 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
     loop's row a round (the same columns, and in ``ici_bytes`` the
     loop's per-round byte estimate, ``parallel/commviz.py``) and
     attaches ``out["flight_record"]``; the results equal a run without
-    it."""
-    refuse_ranks(sg, "the lane plane")
+    it. On a ring split over ranks every rank makes the same call with
+    the same ``batch`` (replicated) and gets the same result; the
+    recorder and a fault-spec comm are refused there (ROADMAP.md)."""
     chaos_device.dispatch_gate("sharded-batch")
     _require_lanes_layout(sg, "sharded run_batch_until_coverage")
     _check_mesh(sg, mesh)
@@ -2756,7 +2845,7 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
             engine._emit_batch_entry_events(*snap)
         done0 = batch.done.clone()
         # Entry refresh (BatchFlood.refresh) against the ring's liveness.
-        nm_flat = sg.node_mask.reshape(-1)[:n_pad]
+        nm_flat = global_node_mask(sg).reshape(-1)[:n_pad]
         seen_count = BS.lane_counts(
             batch.seen & torch.where(nm_flat, -1, 0).to(torch.int32)
         ).reshape(-1)
@@ -2766,6 +2855,8 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
             done=batch.done | (batch.admitted & (seen_count.to(
                 torch.float32) / n_live >= batch.target)))
         pass_ = _make_or_lanes_pass(sg, comm, axis_name)
+        if recorder is not None:
+            refuse_ranks(sg, "the ring's flight recorder (recorder=)")
         ring = None if recorder is None else recorder.init(sg.device)
         planes, lanes, (r, messages, occ) = _ring_batch_loop(
             sg, pass_, batch, max_rounds, fault_round0, ring)
@@ -2781,7 +2872,9 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
                             round0=fault_round0)
         if ring is not None:
             out["flight_record"] = flightrec.trim(ring, out["rounds"])
-        seen, frontier, sent = (unshard_lanes(sg, p, n_pad) for p in planes)
+        # The three planes in one gather on a ring split over ranks.
+        seen, frontier, sent = unshard_lanes(
+            sg, torch.cat(planes, dim=1), n_pad).split(planes[0].shape[1])
         batch = dataclasses.replace(
             batch, seen=seen, frontier=frontier, sent=sent, done=done,
             rounds=rounds_l, seen_count=seen_count)

@@ -21,13 +21,20 @@ state class names in its ``U32_WORDS``) back as the reference's
 reference's digest. Loaded leaves land as tensors on the template's
 device.
 
-The reference's ``save_orbax``/``load_orbax`` (sharded, multi-host) need
-JAX's orbax: refused here by name.
+A ring state split over ranks (``parallel/multihost.py``) is saved and
+restored by :func:`save_orbax` / :func:`load_orbax`, the reference's
+names and signatures, into a directory of the port's own format: one
+:func:`save` file a ring shard and a JSON manifest (:data:`MANIFEST`).
+Every rank writes its own shards; a load restores onto the template's
+ring at any world that divides the shard count, one process included.
+The port does not read orbax's format: a directory the JAX package's
+``save_orbax`` wrote has no manifest and is refused by name.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import hashlib
 import json
 import os
@@ -430,20 +437,192 @@ def load_node_payload(path: str, graph, protocol_state_template):
         return payload, key, rnd, msgs
 
 
-def save_orbax(*args, **kwargs):
-    """Refused: the reference's orbax checkpoints need JAX, which the
-    port does not use. Use :func:`save`."""
-    raise NotImplementedError(
-        "save_orbax needs JAX's orbax, which the port does not use; "
-        "use checkpoint.save (the npz format both packages read)")
+# ------------------------------------------------- sharded checkpoints
+#
+# The reference's ``save_orbax``/``load_orbax`` write and read orbax's
+# format with the arrays' shardings. The port keeps the roles in a format
+# of its own: per-shard files in :func:`save`'s format and a manifest.
+
+#: The manifest of a sharded checkpoint directory, and its format tag.
+MANIFEST = "manifest.json"
+SHARDED_FORMAT = "p2pnetwork_tpu_torch.sharded_checkpoint"
 
 
-def load_orbax(*args, **kwargs):
-    """Refused: see :func:`save_orbax`. Use :func:`load`."""
-    raise NotImplementedError(
-        "load_orbax needs JAX's orbax, which the port does not use; "
-        "use checkpoint.load (the npz format both packages read). A "
-        "checkpoint saved and restored across ranks waits in ROADMAP.md")
+def _shard_file(d: int) -> str:
+    return f"shard_{d:05d}.npz"
+
+
+def _per_shard(leaf) -> bool:
+    """Whether a state leaf is per-shard (axis 0 the shards held here):
+    a tensor of two or more dimensions, as every ring state's
+    ``[n_local, block, ...]`` and topology leaf is. Fewer dimensions
+    (walk positions, counters, keys) are replicated on every rank."""
+    return isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
+
+
+def _ring_layout(n_local: Optional[int]):
+    """``(S, shard_lo, n_local, world, group)`` of the ring a state lives
+    on: the process group's ranks, host-major as
+    ``multihost.hierarchical_ring_mesh`` lays them, each holding
+    ``n_local`` shards (the leaves' axis 0); one process holds them
+    all."""
+    if n_local is None:
+        raise ValueError("a state with no per-shard leaf names no ring to "
+                         "save or restore")
+    from p2pnetwork_tpu_torch.parallel import multihost
+
+    rank, world = multihost._world()
+    order = multihost._ranks_host_major()
+    group = None
+    if world > 1:
+        import torch.distributed as dist
+
+        group = dist.group.WORLD
+    return (n_local * world, order.index(rank) * n_local, n_local, world,
+            group)
+
+
+def _n_local(leaves) -> Optional[int]:
+    sizes = {int(x.shape[0]) for x in leaves if _per_shard(x)}
+    if len(sizes) > 1:
+        raise ValueError(f"per-shard leaves disagree on the shards held "
+                         f"here: {sorted(sizes)}")
+    return sizes.pop() if sizes else None
+
+
+def _barrier(world: int, group) -> None:
+    if world > 1:
+        import torch.distributed as dist
+
+        dist.barrier(group=group)
+
+
+def save_orbax(path: str, state: Any, key, round_index: int,
+               message_count: int = 0) -> None:
+    """Checkpoint a ring state (``[n_local, ...]`` leaves on each rank of
+    a ring split over processes, or the whole ``[S, ...]`` in one) into
+    the directory ``path``, created or overwritten. Every rank of the
+    ring calls it together (the reference's collective ``save_orbax``).
+
+    The directory is the port's own, not orbax's: ``shard_<d>.npz`` for
+    each ring shard ``d``, in :func:`save`'s format (the per-shard leaves
+    cut to the shard's row, the replicated leaves whole, its
+    ``__sha256__``), written by the rank that holds it; then, after a
+    barrier, rank 0 writes :data:`MANIFEST` (the shard count, the block,
+    the world at save, the key, round and message counters, the leaves'
+    global shapes and each shard file's digest). The ring is the process
+    group's (``multihost.hierarchical_ring_mesh``'s order)."""
+    leaves = [x for x, _ in _leaves(state)]
+    S, lo, L, world, group = _ring_layout(_n_local(leaves))
+    rank0 = lo == 0
+    if rank0:  # a stale manifest never outlives the files it names
+        os.makedirs(path, exist_ok=True)
+        for old in glob.glob(os.path.join(path, MANIFEST)) + glob.glob(
+                os.path.join(path, "shard_*.npz")):
+            os.unlink(old)
+    _barrier(world, group)
+    digests = {}
+    for i in range(L):
+        row = _unflatten(state, [x[i] if _per_shard(x) else x
+                                 for x in leaves])
+        name = _shard_file(lo + i)
+        save(os.path.join(path, name), row, key, round_index, message_count)
+        digests[name] = _stored_digest(os.path.join(path, name))
+    if world > 1:
+        import torch.distributed as dist
+
+        parts = [None] * world
+        dist.all_gather_object(parts, digests, group=group)
+        digests = {k: v for p in parts for k, v in p.items()}
+    if rank0:
+        blocks = [int(x.shape[1]) for x in leaves
+                  if _per_shard(x) and x.dim() == 2]
+        manifest = {
+            "format": SHARDED_FORMAT, "version": 1, "n_shards": S,
+            "block": blocks[0] if blocks else None, "world": world,
+            "key": [int(k) for k in prng.key_data(key)],
+            "round": int(round_index), "messages": int(message_count),
+            "treedef": treedef_str(state),
+            "leaves": [{"per_shard": _per_shard(x),
+                        "shape": ([S] if _per_shard(x) else [])
+                        + list(_dtype_shape(x)[1][int(_per_shard(x)):]),
+                        "dtype": str(_dtype_shape(x)[0])}
+                       for x in leaves],
+            "files": dict(sorted(digests.items()))}
+        tmp = os.path.join(path, MANIFEST + ".tmp")
+        with open(tmp, "w") as f:
+            json.dump(manifest, f, indent=1)
+        os.replace(tmp, os.path.join(path, MANIFEST))
+    _barrier(world, group)
+
+
+def _stored_digest(path: str) -> str:
+    """The ``__sha256__`` entry of a :func:`save` file."""
+    with np.load(path) as data:
+        return bytes(data[_DIGEST_KEY]).decode()
+
+
+def read_manifest(path: str) -> dict:
+    """The manifest of a :func:`save_orbax` directory. A directory without
+    one, such as the JAX package's orbax checkpoint, is refused."""
+    where = os.path.join(path, MANIFEST)
+    if not os.path.isfile(where):
+        raise ValueError(
+            f"{path!r} is not a sharded checkpoint of the port: it has no "
+            f"{MANIFEST}. The port does not read orbax's format (a "
+            f"directory the JAX package's save_orbax wrote); save with "
+            f"this module's save_orbax, or move single-file states with "
+            f"save/load (the npz format both packages read)")
+    with open(where) as f:
+        manifest = json.load(f)
+    if manifest.get("format") != SHARDED_FORMAT or \
+            manifest.get("version") != 1:
+        raise ValueError(f"{where!r}: unknown manifest format "
+                         f"{manifest.get('format')!r} version "
+                         f"{manifest.get('version')!r}")
+    return manifest
+
+
+def load_orbax(path: str, template: Any) -> Tuple[Any, np.ndarray, int, int]:
+    """Restore a :func:`save_orbax` directory onto ``template``'s ring: a
+    state of the same structure laid out as the resumed run holds it
+    (``[n_local, ...]`` per-shard leaves on each rank, at any world that
+    divides the saved shard count, or ``[S, ...]`` in one process).
+    Every rank reads only its own shards' files, each verified against
+    its own digest and the manifest's. Returns ``(state, key,
+    round_index, message_count)``."""
+    manifest = read_manifest(path)
+    t_leaves = [x for x, _ in _leaves(template)]
+    if treedef_str(template) != manifest["treedef"]:
+        raise ValueError(f"checkpoint structure mismatch:\n  saved: "
+                         f"{manifest['treedef']}\n  template: "
+                         f"{treedef_str(template)}")
+    S, lo, L, world, _ = _ring_layout(_n_local(t_leaves))
+    if S != manifest["n_shards"]:
+        raise ValueError(
+            f"{path!r} holds a ring of {manifest['n_shards']} shards, the "
+            f"template's ring has {S} ({L} a rank at world {world})")
+    for i, (x, saved) in enumerate(zip(t_leaves, manifest["leaves"])):
+        shape = ([S] if _per_shard(x) else []) + list(
+            _dtype_shape(x)[1][int(_per_shard(x)):])
+        if (saved["per_shard"], saved["shape"]) != (_per_shard(x), shape):
+            raise ValueError(f"leaf {i}: saved {saved['shape']}, the "
+                             f"template's ring holds {shape}")
+    row_template = _unflatten(template, [x[0] if _per_shard(x) else x
+                                         for x in t_leaves])
+    rows = []
+    for d in range(lo, lo + L):
+        name = _shard_file(d)
+        where = os.path.join(path, name)
+        if _stored_digest(where) != manifest["files"].get(name):
+            raise CheckpointCorrupt(where, expected=manifest["files"].get(
+                name), actual=_stored_digest(where))
+        rows.append([x for x, _ in _leaves(load(where, row_template)[0])])
+    leaves = [torch.stack([r[i] for r in rows]) if _per_shard(x) else
+              rows[0][i] for i, x in enumerate(t_leaves)]
+    key = prng.wrap_key_data(np.asarray(manifest["key"], dtype=np.uint32))
+    return (_unflatten(template, leaves), key, int(manifest["round"]),
+            int(manifest["messages"]))
 
 
 # ------------------------------------------------------ graph persistence

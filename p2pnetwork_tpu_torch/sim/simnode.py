@@ -25,6 +25,7 @@ tensor.
 
 from __future__ import annotations
 
+import os
 from typing import Any, Optional
 
 import numpy as np
@@ -106,6 +107,17 @@ class TorchSimNode(Node):
     sender-CSR view and runs ``run_until_coverage`` through the ring's
     frontier-adaptive loop, with the same results.
 
+    On a ring split over ranks (``parallel.multihost.
+    hierarchical_ring_mesh``) every rank runs its own node over its
+    shards, and the population calls are collective: every rank makes
+    the same calls in the same order (``run_rounds``,
+    ``run_until_coverage``, ``run_until_converged``, ``fail_sim_nodes``,
+    ``connect_sim_nodes``, ``inject_sim_churn``, ``save_checkpoint``,
+    ``load_checkpoint`` and ``sim_node_alive``). Each rank's events and
+    summaries are the whole ring's, the one-process node's. There a
+    checkpoint is a directory (``checkpoint.save_orbax``: each rank
+    writes its own shards), which a node of any world loads.
+
     Each completed round fires ``node_message`` with ``{"sim_round": r,
     **round_stats}``. ``sim_message_count`` accumulates the simulated
     message volume; the socket counters stay reserved for socket traffic.
@@ -174,8 +186,6 @@ class TorchSimNode(Node):
                     f"adaptive_k applies to Flood and HopDistance on the "
                     f"mesh backend; got {type(protocol).__name__}"
                 )
-        if mesh is not None:
-            sharded.refuse_ranks(mesh, "TorchSimNode's mesh backend")
         self.sim_graph = graph
         self.sim_protocol = protocol
         self._sim_key = prng.key(seed)
@@ -211,10 +221,12 @@ class TorchSimNode(Node):
     def sim_node_alive(self) -> np.ndarray:
         """Liveness of the simulated population (bool, one entry per padded
         node) from whichever backend is active: on the ring the live
-        topology is ``sim_sharded``, ``sim_graph`` the pristine build."""
+        topology is ``sim_sharded``, ``sim_graph`` the pristine build (on
+        a ring split over ranks, gathered from every rank: collective)."""
         self._require_sim()
         if self.sim_mesh is not None:
-            return _host(self.sim_sharded.node_mask).reshape(-1)
+            return _host(sharded.global_node_mask(
+                self.sim_sharded)).reshape(-1)
         return _host(self.sim_graph.node_mask)
 
     # ------------------------------------------------------------- stepping
@@ -351,9 +363,9 @@ class TorchSimNode(Node):
         """Population topology changes surface through ``node_message``,
         like round stats; SimPeer is in no socket registry, so the
         disconnect dispatcher ignores it."""
-        mask = (self.sim_sharded.node_mask if self.sim_mesh is not None
-                else self.sim_graph.node_mask)
-        alive = int(mask.sum().item())
+        alive = int((sharded.live_nodes(self.sim_sharded)
+                     if self.sim_mesh is not None
+                     else self.sim_graph.node_mask.sum()).item())
         self.node_message(
             self.sim_peer, {"sim_topology": change, "alive_nodes": alive}
         )
@@ -414,15 +426,20 @@ class TorchSimNode(Node):
         topology mutation state (failed nodes, cut edges, runtime links,
         churn counter) in the reference's format (``sim/checkpoint.py``),
         so a restored run sees the network as it was, not as it was
-        built."""
+        built. On a ring split over ranks ``path`` is a directory
+        (``checkpoint.save_orbax``, collective): each rank writes its own
+        shards of the same payload."""
         self._require_sim()
         payload = {
             "protocol": self.sim_state,
             "topology": self._topology_state(),
             "churn_count": np.int64(self._churn_count),
         }
-        ckpt.save(path, payload, self._sim_key, self.sim_round,
-                  self.sim_message_count)
+        save = ckpt.save
+        if self.sim_mesh is not None and self.sim_mesh.world > 1:
+            save = ckpt.save_orbax
+        save(path, payload, self._sim_key, self.sim_round,
+             self.sim_message_count)
 
     def _topology_state(self):
         if self.sim_mesh is not None:
@@ -435,7 +452,9 @@ class TorchSimNode(Node):
         topology state is re-applied onto the attached graph, and the churn
         counter is restored, so the next ``inject_sim_churn()`` draws
         fresh randomness. Everything is validated before the node
-        changes."""
+        changes. A directory (``save_checkpoint`` on a ring split over
+        ranks) loads onto the ring of this node at any world that divides
+        its shard count."""
         self._require_sim()
         if self.sim_mesh is not None:
             template = {
@@ -445,7 +464,10 @@ class TorchSimNode(Node):
                 "topology": sharded.topology_state(self.sim_sharded),
                 "churn_count": np.int64(0),
             }
-            payload, key, rnd, msgs = ckpt.load(path, template)
+            if os.path.isdir(path):
+                payload, key, rnd, msgs = ckpt.load_orbax(path, template)
+            else:
+                payload, key, rnd, msgs = ckpt.load(path, template)
             self.sim_sharded = sharded.apply_topology_state(
                 self.sim_sharded, payload["topology"]
             )

@@ -242,11 +242,16 @@ def test_structure_mismatch_and_corrupt_files(tmp_path):
         TC.load(str(tmp_path / "bare.npz"), ttemplate)
 
 
-def test_orbax_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="save_orbax"):
-        TC.save_orbax("x", None, prng.key(0), 0)
-    with pytest.raises(NotImplementedError, match="load_orbax"):
-        TC.load_orbax("x", None)
+def test_orbax_is_refused_by_name(tmp_path):
+    # save_orbax/load_orbax write and read the port's own sharded format
+    # (tests/test_torch_multihost_protocols.py); a directory without its
+    # manifest, as JAX's orbax writes one, is refused by name, and a
+    # state with no per-shard leaf names no ring to save.
+    (tmp_path / "_METADATA").write_text("{}")
+    with pytest.raises(ValueError, match="manifest.json.*orbax"):
+        TC.load_orbax(str(tmp_path), None)
+    with pytest.raises(ValueError, match="no per-shard leaf"):
+        TC.save_orbax(str(tmp_path), None, prng.key(0), 0)
 
 
 @pytest.mark.parametrize("family", ["ws", "er", "ba"])

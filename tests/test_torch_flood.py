@@ -21,8 +21,10 @@ from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import adaptive_flood as TA  # noqa: E402
 from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
 from p2pnetwork_tpu_torch.ops import segsum  # noqa: E402
-from p2pnetwork_tpu_torch.sim import checkpoint  # noqa: E402
+from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
+from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
+from p2pnetwork_tpu_torch.sim import flightrec  # noqa: E402
 from tests.test_torch_graph import (FAMILIES, LAYOUTS, build_jax,  # noqa: E402
                                     build_port, graph_fields, state_fields)
 
@@ -148,6 +150,12 @@ def test_adaptive_sync_count():
     assert _device.SYNCS - before == 2 * out["rounds"] + 1
 
 
+#: Rank 0's place on a ring of 8 shards over 2 ranks, with no group.
+RANK0 = TM.RingMesh(n_shards=8, axis_name=TM.DEFAULT_AXIS,
+                    device=torch.device("cpu"), rank=0, world=2,
+                    order=(0, 1))
+
+
 def _carry_with(field):
     """Carry the ER graph across with ``field``, which the port's Graph
     does not model, set."""
@@ -159,21 +167,26 @@ def _carry_with(field):
 
 
 # What is still not ported raises, never runs as something else: the
-# orbax checkpoints, loading and saving (they need JAX; the npz format is
-# ported, test_torch_checkpoint.py), graph and batch fields the port does
+# frontier-adaptive loop and the flight recorder on a ring split over
+# ranks (rank 0's part of a 2-rank ring, which raises before any
+# exchange), graph and batch fields the port does
 # not model (interop refuses them rather than dropping them; edge weights
 # and the node relabeling are carried since they were ported, in
 # test_torch_semiring.py and test_torch_layout.py) and a weighted choice
 # without replacement. The ring's flight recorder and its
 # frontier-adaptive loop, once held here, are ported and checked in
-# test_torch_ring_recorder.py and test_torch_ring_adaptive.py.
-# The flood options this test once held (methods frontier and skew,
-# bitset=True) are ported and checked in test_torch_frontier.py and
-# test_torch_skew.py.
+# test_torch_ring_recorder.py and test_torch_ring_adaptive.py, and in
+# one process they run. The flood options this test once held (methods
+# frontier and skew, bitset=True) are ported and checked in
+# test_torch_frontier.py and test_torch_skew.py, and the orbax
+# checkpoints (the port's own sharded format, save_orbax/load_orbax) in
+# test_torch_checkpoint.py and test_torch_multihost_protocols.py.
 @pytest.mark.parametrize("proto", [
-    lambda tg: checkpoint.load_orbax("state"),
-    lambda tg: checkpoint.save_orbax("state", TF.Flood().init(
-        tg, prng.key(0)), prng.key(0), 0),
+    lambda tg: TS.flood_until_coverage(
+        TS.shard_graph(tg, RANK0, source_csr=True), RANK0, 0, adaptive_k=16),
+    lambda tg: TS.flood_until_coverage(
+        TS.shard_graph(tg, RANK0), RANK0, 0,
+        recorder=flightrec.FlightRecorder(8)),
     _carry_with("delta_log"),
     lambda tg: prng.choice(prng.key(0), 4, (2,), replace=False,
                            p=torch.ones(4), device="cpu"),

@@ -840,6 +840,66 @@ def test_ring_put_across_two_ranks(delay_rank):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("payload", ["i32", "lanes", "segsum_sum"])
+def test_protocol_payloads_across_two_ranks(payload):
+    """The cross-rank kernels on the ring protocols' payloads at 2 ranks:
+    B2 on election's i32 ids and on the lane plane's 3-D word stack
+    ``[4, 32, 12512]``, B3's sum form (SIR, PageRank, push-sum on
+    ``mxu``), each against its plain version and the global roll, bit
+    for bit (``tests/torch_rank_worker.py::card_payload``)."""
+    _card()
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from tests import torch_rank_worker
+
+    parts = multihost.launch(f"{torch_rank_worker.__file__}:card_payload",
+                             2, (8, payload), timeout=300, device="cuda")
+    for p in parts:
+        assert p["errors"] == [] and p["checked"] > 0
+
+
+def _close(got, want, what):
+    """Equal, but f32 within ``RTOL``/``ATOL``: the card's f32 sums add
+    with atomics in a varying order."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), what
+        for k in want:
+            _close(got[k], want[k], f"{what}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), what
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{what}[{i}]")
+    elif isinstance(want, (float, np.floating)) or (
+            isinstance(want, np.ndarray) and want.dtype.kind == "f"):
+        np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+                                   err_msg=what)
+    elif isinstance(want, np.ndarray):
+        assert got.dtype == want.dtype and np.array_equal(got, want), what
+    else:
+        assert got == want, what
+
+
+@pytest.mark.cuda
+def test_rank_protocols_on_the_card_equal_one_process(tmp_path):
+    """The ring's protocols (``tests/torch_rank_worker.py::protocols``) on
+    the card at 2 ranks of 4 shards (B2 and B3 across ranks on f32, i32,
+    bool and the lane words), equal to the same runs on one process's
+    8-shard ring: integers, bools and digests exactly, f32 within
+    ``RTOL``/``ATOL`` (the card's sums add in a varying order)."""
+    _card()
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from tests import torch_rank_worker as W
+
+    one = W.gather_runs([W.protocols(8, str(tmp_path / "one"), True,
+                                     "cuda")])
+    got = W.gather_runs(multihost.launch(
+        f"{W.__file__}:protocols", 2, (8, str(tmp_path / "ranks"), True,
+                                       "cuda"), timeout=600, device="cuda"))
+    assert sorted(got) == sorted(one)
+    for name in one:
+        _close(got[name], one[name], name)
+
+
+@pytest.mark.cuda
 def test_rank_suite_on_the_card_equals_one_process():
     """The reference worker's suite (``tests/torch_rank_worker.py``) on
     the card, 2 ranks of 4 shards (the cross-rank kernels), equals the

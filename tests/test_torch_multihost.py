@@ -39,17 +39,14 @@ from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu.sim import graph as JG  # noqa: E402
 from p2pnetwork_tpu_torch import prng  # noqa: E402
 from p2pnetwork_tpu_torch.chaos import device as chaos_device  # noqa: E402
-from p2pnetwork_tpu_torch.models import (SIR, Flood, Gossip,  # noqa: E402
-                                         HopDistance, PageRank, PushSum,
-                                         RandomWalks)
+from p2pnetwork_tpu_torch.models import Flood  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import auto as TA  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import multihost  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
-from p2pnetwork_tpu_torch.sim import checkpoint, flightrec  # noqa: E402
+from p2pnetwork_tpu_torch.sim import flightrec  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
-from p2pnetwork_tpu_torch.sim import simnode  # noqa: E402
 from tests import torch_rank_worker as W  # noqa: E402
 from tests.test_torch_graph import one_torch_thread  # noqa: E402,F401
 
@@ -264,11 +261,6 @@ def _rank_part(**kw):
     return TS.shard_graph(g, mesh, **kw), mesh, g
 
 
-def _lanes(sg, mesh, g):
-    return TS.propagate_or_lanes(sg, mesh, TS.shard_lanes(
-        sg, torch.zeros(1, g.n_nodes_padded, dtype=torch.int32)))
-
-
 REFUSALS = {
     "adaptive_k": lambda: TS.flood_until_coverage(
         *_rank_part(source_csr=True)[:2], 0, adaptive_k=16),
@@ -277,19 +269,6 @@ REFUSALS = {
     "fault-spec": lambda: TS.flood_until_coverage(
         *_rank_part()[:2], 0, comm=chaos_device.FaultSpec(
             chaos_device.FaultSchedule(seed=1, zero=0.5), "ppermute")),
-    "lanes": lambda: _lanes(*_rank_part()),
-    "walk": lambda: TS.walk(*_rank_part(source_csr=True)[:2],
-                            RandomWalks(n_walkers=8), prng.key(0), 2),
-    "sir": lambda: TS.sir(*_rank_part()[:2], SIR(), prng.key(0), 2),
-    "pagerank": lambda: TS.pagerank(*_rank_part()[:2], PageRank(), 2),
-    "pushsum": lambda: TS.pushsum(*_rank_part()[:2], PushSum(),
-                                  prng.key(0), 2),
-    "hopdist": lambda: TS.hopdist(*_rank_part()[:2], HopDistance(), 2),
-    "election": lambda: TS.leader_until_quiet(*_rank_part()[:2]),
-    "simnode-mesh": lambda: simnode.TorchSimNode(
-        "127.0.0.1", 0, graph=_rank_part()[2], protocol=Flood(source=0),
-        mesh=_rank_part()[1]),
-    "load-orbax": lambda: checkpoint.load_orbax("ckpt"),
     "auto": lambda: TA.shard_graph_auto(_rank_part()[2], _rank_part()[1]),
 }
 

@@ -153,18 +153,21 @@ def card_puts(n_shards: int, steps: int, delay_rank: int) -> dict:
             errors.append(name)
 
     # A 16-byte shard first: the rank's IPC channel is made for it, then
-    # made anew (on every rank at the same hop) for the wider payloads.
-    for dtype, width in ((torch.bool, 16), (torch.bool, 125008),
-                         (torch.float32, 125008), (torch.int32, 1001),
-                         (torch.bool, 1001), (torch.bool, 125007)):
-        x = torch.randint(0, 1 << 20, (L, width), generator=gen, device=dev,
-                          dtype=torch.int32)
+    # made anew (on every rank at the same hop) for the wider payloads:
+    # the protocols' (election's i32 ids, the lane plane's i32 word stack
+    # [L, 32, 12512] of the 100K ring) among them.
+    for dtype, shape in ((torch.bool, (16,)), (torch.bool, (125008,)),
+                         (torch.float32, (125008,)), (torch.int32, (1001,)),
+                         (torch.int32, (125008,)), (torch.int32, (32, 12512)),
+                         (torch.bool, (1001,)), (torch.bool, (125007,))):
+        x = torch.randint(0, 1 << 20, (L, *shape), generator=gen,
+                          device=dev, dtype=torch.int32)
         x = (x % 2 == 1) if dtype == torch.bool else x.to(dtype)
         for reverse in (False, True):
             expect = want(x, reverse)
-            check(f"ring_put {dtype} {width} reverse={reverse}",
+            check(f"ring_put {dtype} {shape} reverse={reverse}",
                   ring.ring_put(x, mesh, reverse), expect)
-            check(f"ring_put_plain {dtype} {width} reverse={reverse}",
+            check(f"ring_put_plain {dtype} {shape} reverse={reverse}",
                   ring.ring_put_plain(x, mesh, reverse), expect)
 
     nb, w, block = 245, 64, 512
@@ -207,3 +210,302 @@ def card_puts(n_shards: int, steps: int, delay_rank: int) -> dict:
     return {"errors": errors, "bad": int(bad), "steps": steps,
             "puts": ring.PUT_LAUNCHES - counts0[0],
             "lands": ring.LAND_LAUNCHES - counts0[1]}
+
+
+# ------------------------------------------- the ring's protocols by rank
+
+#: ``protocols``' parameters (``tests/test_torch_multihost_protocols.py``
+#: runs the JAX ring and the one-process port on the same ones).
+SIR_KW = dict(beta=0.3, gamma=0.1, source=0)
+SIR_TARGET = 0.5
+ROUNDS = 5
+#: Keys, by run (``prng.key`` seeds).
+KEYS = dict(sir=0, pushsum=1, gossip=1, walk=2, ckpt=2)
+#: Run-to-threshold levels: on ``mxu`` and ``hybrid`` the f32 stats are
+#: the reference's bits, so the stopping round is too.
+PR_TOL, PS_TOL = 1e-4, 1e-3
+HOP_ROUNDS = 3
+WALKERS, WALK_ROUNDS, RESTART_P = 64, 8, 0.1
+LANES = 64
+LANE_SEED = 0
+#: The PageRank node's call sequence (``node_calls``) and its threshold.
+NODE_LINKS = ([1, 40], [300, 41])
+NODE_CHURN = 0.05
+NODE_TOL = 1e-4
+#: Which of each layout's runs: consensus on the MXU layouts, max and OR
+#: passes (and the lane plane) on ``segment``.
+CONSENSUS_LAYOUTS = ("mxu", "hybrid")
+
+
+def lane_sources(n_nodes: int) -> np.ndarray:
+    return np.random.default_rng(LANE_SEED).integers(
+        0, n_nodes, size=LANES).astype(np.int32)
+
+
+class NodeEvents:
+    """A sim node's ``node_message`` payloads (its callback)."""
+
+    def __init__(self):
+        self.events = []
+
+    def __call__(self, event, node, other, data):
+        if event == "node_message":
+            self.events.append(data)
+
+
+def node_calls(node, path: str) -> None:
+    """The PageRank node's population calls, each collective on a ring
+    split over ranks: rounds, failures, runtime links, churn, a
+    checkpoint (a directory across ranks, a file in one process), then
+    the run to the residual."""
+    node.run_rounds(2)
+    node.fail_sim_nodes(list(FAIL_IDS))
+    node.connect_sim_nodes(*NODE_LINKS)
+    node.inject_sim_churn(NODE_CHURN)
+    node.run_rounds(1)
+    node.save_checkpoint(path)
+    node.run_until_converged("residual", NODE_TOL, max_rounds=64)
+
+
+def _rows_and_same(rows=None, **same) -> dict:
+    """A run's record: ``rows`` the rank's per-shard arrays (stacked in
+    rank order by :func:`gather_runs`), ``same`` the values every rank
+    holds whole (checked equal)."""
+    return {"rows": {k: _np(v) for k, v in (rows or {}).items()},
+            "same": {k: _np(v) if isinstance(v, torch.Tensor) else v
+                     for k, v in same.items()}}
+
+
+def _stats(stats) -> dict:
+    return {k: _np(v) for k, v in stats.items()}
+
+
+def protocols(n_shards: int, ckpt_dir: str, save: bool = False,
+              device: str = "cpu") -> dict:
+    """The ring's protocols on this rank's shards of ``n_shards`` (all of
+    them in one process): SIR on every layout and to a coverage,
+    PageRank and push-sum with their run-to-threshold loops on the MXU
+    layouts, hop distance (fixed rounds and to the end) and leader
+    election on ``segment``, the walk with and without restarts, the
+    lane plane, the reference worker's fourth phase (gossip values saved
+    with ``save_orbax`` when ``save``, then restored) and, at world 2 and
+    in one process, a PageRank ``TorchSimNode`` on the ``mxu`` ring."""
+    torch.set_num_threads(1)
+    from p2pnetwork_tpu_torch import prng
+    from p2pnetwork_tpu_torch.models import (SIR, Gossip, HopDistance,
+                                             PageRank, PushSum, RandomWalks)
+    from p2pnetwork_tpu_torch.models.messagebatch import BatchFlood
+    from p2pnetwork_tpu_torch.parallel import multihost, sharded
+    from p2pnetwork_tpu_torch.sim import checkpoint
+    from p2pnetwork_tpu_torch.sim import graph as G
+
+    multihost.initialize_distributed()
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards,
+                                            device=device)
+    g = G.watts_strogatz(*GRAPH, seed=0, device=mesh.device)
+    out = {"rank": mesh.rank, "world": mesh.world}
+    for layout, kw in LAYOUTS.items():
+        sg = sharded.shard_graph(g, mesh, **kw)
+        status, st = sharded.sir(sg, mesh, SIR(**SIR_KW),
+                                 prng.key(KEYS["sir"]), ROUNDS,
+                                 exact_rng=True)
+        out[f"sir-{layout}"] = _rows_and_same({"status": status},
+                                              **_stats(st))
+        if layout in CONSENSUS_LAYOUTS:
+            ranks, st = sharded.pagerank(sg, mesh, PageRank(), ROUNDS)
+            out[f"pagerank-{layout}"] = _rows_and_same({"ranks": ranks},
+                                                       **_stats(st))
+            ranks, res = sharded.pagerank_until_residual(
+                sg, mesh, PageRank(), tol=PR_TOL, max_rounds=64)
+            out[f"pagerank_until-{layout}"] = _rows_and_same(
+                {"ranks": ranks}, out=res)
+            key = prng.key(KEYS["pushsum"])
+            (s, w), st = sharded.pushsum(sg, mesh, PushSum(), key, ROUNDS)
+            out[f"pushsum-{layout}"] = _rows_and_same({"s": s, "w": w},
+                                                      **_stats(st))
+            (s, w), res = sharded.pushsum_until_variance(
+                sg, mesh, PushSum(), key, tol=PS_TOL, max_rounds=64)
+            out[f"pushsum_until-{layout}"] = _rows_and_same(
+                {"s": s, "w": w}, out=res)
+            continue
+        status, res = sharded.sir_until_coverage(
+            sg, mesh, SIR(**SIR_KW), prng.key(KEYS["sir"]),
+            coverage_target=SIR_TARGET, max_rounds=64)
+        out["sir_until"] = _rows_and_same({"status": status}, out=res)
+        hop = HopDistance(source=0)
+        (dist, front, rnd), st = sharded.hopdist(sg, mesh, hop, HOP_ROUNDS)
+        out["hopdist"] = _rows_and_same({"dist": dist, "frontier": front},
+                                        round=rnd, **_stats(st))
+        (dist, front, rnd), res = sharded.hopdist_until_done(sg, mesh, hop)
+        out["hopdist_until_done"] = _rows_and_same(
+            {"dist": dist, "frontier": front}, round=rnd, out=res)
+        known, res = sharded.leader_until_quiet(sg, mesh)
+        out["leader"] = _rows_and_same({"known": known}, out=res)
+        proto = BatchFlood(method="segment")
+        batch, res = sharded.run_batch_until_coverage(
+            sg, mesh, proto, proto.init(g, lane_sources(g.n_nodes),
+                                        coverage_target=0.99),
+            max_rounds=64)
+        out["lanes"] = _rows_and_same(out=res, **{
+            f: getattr(batch, f) for f in ("seen", "frontier", "sent",
+                                           "done", "rounds", "seen_count")})
+    sg = sharded.shard_graph(g, mesh, source_csr=True)
+    for name, p in (("walk", 0.0), ("walk_restart", RESTART_P)):
+        (pos, start, visited), st = sharded.walk(
+            sg, mesh, RandomWalks(n_walkers=WALKERS, restart_p=p),
+            prng.key(KEYS["walk"]), WALK_ROUNDS, return_state=True)
+        out[name] = _rows_and_same({"visited": visited}, pos=pos,
+                                   start=start, **_stats(st))
+    # The reference worker's fourth phase: the gossip values saved
+    # collectively, restored onto this ring, equal to the engine's.
+    sg = sharded.shard_graph(g, mesh)
+    vals, _ = sharded.gossip(sg, mesh, Gossip(alpha=GOSSIP["alpha"]),
+                             prng.key(GOSSIP["key"]), GOSSIP["rounds"],
+                             exact_rng=True)
+    if save:
+        checkpoint.save_orbax(ckpt_dir, {"vals": vals},
+                              prng.key(KEYS["ckpt"]), GOSSIP["rounds"])
+    restored, key, rnd, msgs = checkpoint.load_orbax(ckpt_dir,
+                                                     {"vals": vals})
+    out["ckpt"] = _rows_and_same({"vals": restored["vals"]}, key=key,
+                                 round=rnd, messages=msgs,
+                                 equal=bool(torch.equal(restored["vals"],
+                                                        vals)))
+    if mesh.world <= 2:
+        out["node"] = node_run(g, mesh, ckpt_dir)
+    return out
+
+
+def node_run(g, mesh, ckpt_dir: str) -> dict:
+    """The PageRank node's record: its events and final ranks, then a
+    fresh node restored from the mid-run checkpoint, run to the same
+    residual."""
+    import os
+
+    from p2pnetwork_tpu_torch.models import PageRank
+    from p2pnetwork_tpu_torch.sim.simnode import TorchSimNode
+
+    path = os.path.join(ckpt_dir, f"node-{mesh.world}" + (
+        "" if mesh.world > 1 else ".npz"))
+
+    def make(rec):
+        return TorchSimNode(graph=g, protocol=PageRank(), seed=3,
+                            callback=rec, mesh=mesh, dynamic_edges=8,
+                            layout="mxu")
+
+    rec, again = NodeEvents(), NodeEvents()
+    node = make(rec)
+    node_calls(node, path)
+    fresh = make(again)
+    fresh.load_checkpoint(path)
+    fresh.run_until_converged("residual", NODE_TOL, max_rounds=64)
+    return _rows_and_same(
+        {"ranks": node.sim_state, "resumed": fresh.sim_state},
+        events=rec.events, resumed_events=again.events,
+        alive=node.sim_node_alive, counters=(
+            node.sim_round, node.sim_message_count, node._churn_count,
+            fresh.sim_round, fresh.sim_message_count, fresh._churn_count))
+
+
+def restore(n_shards: int, ckpt_dir: str) -> dict:
+    """The checkpoint of :func:`protocols` restored onto this rank's
+    shards of a fresh ring (world 1 through the launcher)."""
+    torch.set_num_threads(1)
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from p2pnetwork_tpu_torch.sim import checkpoint
+
+    multihost.initialize_distributed()
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards, device="cpu")
+    manifest = checkpoint.read_manifest(ckpt_dir)
+    template = {"vals": torch.zeros((mesh.n_local, manifest["block"]))}
+    restored, key, rnd, msgs = checkpoint.load_orbax(ckpt_dir, template)
+    return {"ckpt": _rows_and_same({"vals": restored["vals"]}, key=key,
+                                   round=rnd, messages=msgs,
+                                   world=mesh.world)}
+
+
+def gather_runs(parts: list) -> dict:
+    """The ranks' records of :func:`protocols`: each run's ``rows``
+    stacked in rank order (``[S, ...]``), its ``same`` values checked
+    equal on every rank."""
+    out = {}
+    for name in parts[0]:
+        if not isinstance(parts[0][name], dict):
+            continue
+        same = parts[0][name]["same"]
+        for p in parts[1:]:
+            assert _equal_tree(p[name]["same"], same), name
+        out[name] = {**{k: np.concatenate([p[name]["rows"][k]
+                                           for p in parts])
+                        for k in parts[0][name]["rows"]}, **same}
+    return out
+
+
+def _equal_tree(a, b) -> bool:
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_equal_tree(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_equal_tree(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return (a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+    return a == b
+
+
+def card_payload(n_shards: int, payload: str) -> dict:
+    """The cross-rank kernels on one of the protocols' payloads on the
+    card, both directions, against their plain versions and the global
+    ``torch.roll`` (gathered through the group): ``"i32"`` election's ids
+    ``[n_local, 125008]``, ``"lanes"`` the lane plane's words ``[n_local,
+    32, 12512]`` (B2), ``"segsum_sum"`` B3's sum form on integer-valued
+    f32 (exact in any order), with and without the rows' extents."""
+    from p2pnetwork_tpu_torch.ops import ring
+    from p2pnetwork_tpu_torch.parallel import mesh as M
+    from p2pnetwork_tpu_torch.parallel import multihost
+
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards)
+    dev, lo, L = mesh.device, mesh.shard_lo, mesh.n_local
+    gen = torch.Generator(device=dev).manual_seed(17 + mesh.rank)
+    errors, checked = [], 0
+
+    def roll(x, reverse):
+        whole = M.gather_shards(mesh, x)
+        return torch.roll(whole, -1 if reverse else 1, 0)[lo:lo + L]
+
+    if payload in ("i32", "lanes"):
+        shape = (125008,) if payload == "i32" else (32, 12512)
+        x = torch.randint(-2**31, 2**31 - 1, (L, *shape), generator=gen,
+                          device=dev, dtype=torch.int32)
+        for reverse in (False, True):
+            want = roll(x, reverse)
+            for name in ("ring_put", "ring_put_plain"):
+                checked += 1
+                if not torch.equal(getattr(ring, name)(x, mesh, reverse),
+                                   want):
+                    errors.append(f"{name} {payload} reverse={reverse}")
+    else:
+        nb, w, block, B = 245, 64, 512, 125008
+        src = torch.randint(0, B, (L, nb, w), generator=gen, device=dev,
+                            dtype=torch.int32)
+        dst = torch.randint(0, block, (L, nb, w), generator=gen, device=dev,
+                            dtype=torch.int32).sort(dim=2).values
+        mask = torch.rand((L, nb, w), generator=gen, device=dev) < 0.7
+        rot = torch.randint(-8, 8, (L, B), generator=gen, device=dev).to(
+            torch.float32)
+        want_next, want = ring.ring_put_segsum_sum_plain(rot, mesh, src, dst,
+                                                         mask, block)
+        if not torch.equal(want_next, roll(rot, False)):
+            errors.append("ring_put_segsum_sum_plain hop")
+        extent = torch.full((L, nb), w, dtype=torch.int32, device=dev)
+        for ext in (None, extent):
+            got_next, got = ring.ring_put_segsum_sum(rot, mesh, src, dst,
+                                                     mask, block, extent=ext)
+            checked += 1
+            if not (torch.equal(got_next, want_next)
+                    and torch.equal(got, want)):
+                errors.append(f"ring_put_segsum_sum extent="
+                              f"{ext is not None}")
+    torch.cuda.synchronize()
+    return {"errors": errors, "checked": checked}
