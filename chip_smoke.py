@@ -318,7 +318,20 @@ Phases, in order; any failure exits non-zero before the result line:
    runs, every rank's launches to ``RANK_PROTOCOL_LAUNCHES``; SIR's
    status saved at world 8 (``save_orbax``) and restored at world 2,
    equal to the uninterrupted run's; B2 across ranks on i32 and on the
-   lane words, B3's sum form (``kernel`` lines).
+   lane words, B3's sum form (``kernel`` lines). Phase 4w (slice 16), in
+   the same rank processes after each layout's 4v runs
+   (``ADAPTIVE_RANK_RUNS``): at world 2 the frontier-adaptive flood
+   (``adaptive_k=ADAPTIVE_K``) on every layout, the adaptive hop distance
+   on ``hybrid``, the recorded dense floods on every layout and 4t's lane
+   ring recorded, 4r(e)'s faulted flood on ``mxu``; at world 8 the
+   adaptive and faulted ``mxu`` floods and the hop census by host (4
+   ranks a host). Each is held to 4u's and 4r(e)'s records, its sparse
+   rounds to 4u's, its fault counts on every rank to 4r(e)'s, the census
+   to the reference's (``EXPECTED_RING_HOP_CENSUS``), every rank's
+   launches and exchanges to their prediction (``rank-adaptive-path``
+   lines). Then, in this process, ``utils/trace.run_traced`` of phase
+   4's ``hybrid`` flood, its records against phase 4's stats and its
+   profile naming B1's kernel.
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -336,7 +349,10 @@ Phases, in order; any failure exits non-zero before the result line:
    rows: B2 across ranks at worlds 2 and 8 and on f32, i32 and the lane
    words, B3 across ranks at worlds 2 and 8 and its sum form, their
    launches summed over every rank; 4v's protocol runs' B1 sums,
-   threefry draws and row sums join those rows), then the
+   threefry draws and row sums join those rows; 4w's B2 and B3 puts join
+   the cross-rank rows of their world, its B1 OR launches (with 4v's
+   floods' and the traced flood's), corrupt-bit draws and lane puts and
+   row sums theirs), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
@@ -5597,7 +5613,7 @@ def dense_launches(layout: str, passes: int) -> dict:
 
 def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
                        device_mod, sharded, mesh_mod, flightrec,
-                       HopDistance) -> dict:
+                       HopDistance, sparse1: dict) -> dict:
     """Phase 4u (a), (b), (d): phase 4's graph sharded 8 ways with its
     sender-CSR view, in each layout: (a) the frontier-adaptive flood
     (``adaptive_k=ADAPTIVE_K``) equal to the reference's and to the dense
@@ -5606,7 +5622,9 @@ def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
     flood's and one profiled run; (d) the recorded dense flood, rows and
     ``ici_bytes`` the reference's, summary and ``seen`` unchanged, its
     wall in turns with the bare flood's; under ``hybrid`` also (b) the
-    adaptive hop distance. Returns the launches by kernel."""
+    adaptive hop distance. Returns the launches by kernel, and keeps each
+    adaptive run's sparse rounds in ``sparse1`` (``adaptive-<layout>``,
+    ``adaptive_hop-hybrid``), which 4w holds the rank ring to."""
     mesh = mesh_mod.ring_mesh(RING_SHARDS)
     totals = {"segsum": 0, "ring_shift": 0, "ring_segsum": 0}
     order = [("hybrid", {"hybrid": True}), ("mxu", {"mxu": True}),
@@ -5639,7 +5657,8 @@ def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         counts = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
-        sparse = list(sharded.LAST_SPARSE_ROUNDS)
+        sparse = sparse1[f"adaptive-{layout}"] = list(
+            sharded.LAST_SPARSE_ROUNDS)
         if out != EXPECTED_1M or out != out_d:
             fail(f"adaptive ring {layout} returned {out}, the reference "
                  f"gives {EXPECTED_1M}, the dense loop {out_d}")
@@ -5704,7 +5723,7 @@ def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
         if layout == "hybrid":
             totals_hop = adaptive_hop(sg, mesh, ring, segsum, threefry,
                                       rowsum, device_mod, sharded,
-                                      HopDistance)
+                                      HopDistance, sparse1)
             for k in totals:
                 totals[k] += totals_hop[k]
         del sg
@@ -5713,7 +5732,7 @@ def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
 
 
 def adaptive_hop(sg, mesh, ring, segsum, threefry, rowsum, device_mod,
-                 sharded, HopDistance) -> dict:
+                 sharded, HopDistance, sparse1: dict) -> dict:
     """Phase 4u (b): the adaptive hop distance to 0.99 on the ``hybrid``
     ring, equal to the reference's and to the dense loop's."""
     proto = HopDistance(source=0)
@@ -5730,7 +5749,8 @@ def adaptive_hop(sg, mesh, ring, segsum, threefry, rowsum, device_mod,
     zero_counts_4t(ring, segsum, threefry, rowsum, device_mod)
     (d, f, r), out = adaptive()
     counts = ring_counts_4t(ring, segsum, threefry, rowsum, device_mod)
-    sparse = list(sharded.LAST_SPARSE_ROUNDS)
+    sparse = sparse1["adaptive_hop-hybrid"] = list(
+        sharded.LAST_SPARSE_ROUNDS)
     want = EXPECTED_ADAPTIVE_HOP
     if out != want["summary"] or out != out_d:
         fail(f"adaptive ring hop distance returned {out}, the reference "
@@ -5879,9 +5899,11 @@ def lane_recorder_path(bg, ring, segsum, threefry, rowsum, device_mod,
     if not np.array_equal(fr.rows[:, :ici],
                           eng["flight_record"].rows[:, :ici]):
         fail("recorded lane ring: rows differ from the engine's")
+    # The row sums: a round's coverage column, and the rows' sends column
+    # once a run (a ring split over ranks sums its sends at the end).
     check_launches("recorded lane ring", counts, {
         "ring_shift": (RING_SHARDS - 1) * out["rounds"], "segsum": 0,
-        "ring_segsum": 0, "threefry": 0, "rowsum": 2 * out["rounds"]})
+        "ring_segsum": 0, "threefry": 0, "rowsum": out["rounds"] + 1})
     walls = paired_walls(lambda: call(flightrec.FlightRecorder(64)), call,
                          pairs=NEW_REPS)
     print(json.dumps({
@@ -6046,6 +6068,111 @@ RANK_PROTOCOL_LAUNCHES = {
 #: sum form (the ``mxu`` sum passes).
 RANK_PUT_ROW = {"hybrid": "put_f32", "leader": "put_i32", "hopdist": "put",
                 "batch": "put_lanes"}
+
+
+#: Phase 4w (slice 16): what the ring split over ranks once refused, run
+#: in 4v's rank processes after each layout's 4v runs, on the same shards
+#: (built with their sender-CSR view where 4w runs): at world 2 the
+#: ladder's adaptive rung (``benchmarks/ladder.py:495-520``,
+#: ``adaptive_k=ADAPTIVE_K``) on every layout, the adaptive hop distance
+#: on ``hybrid``, the recorded dense floods on every layout and (in the
+#: batched call) 4t's lane ring recorded, and 4r(e)'s faulted flood on
+#: ``mxu``; at world 8 the adaptive and faulted ``mxu`` floods and the hop
+#: census by host. Each is held to 4u's and 4r(e)'s records.
+ADAPTIVE_RANK_RUNS = {
+    2: {"hybrid": ("adaptive", "adaptive_hop", "recorded"),
+        "mxu": ("adaptive", "recorded", "faulted"),
+        "segment": ("adaptive", "recorded")},
+    8: {"mxu": ("adaptive", "faulted", "census")}}
+#: The census's hosts at world 8: 4 ranks a host, as the reference's
+#: ``examples/hierarchical_mesh_demo.py`` emulates 2 hosts of 4 chips.
+CENSUS_PER_HOST = 4
+#: The reference's hop classes of its lowered ring flood on 8 devices,
+#: hosts of 4 (``tests/test_mesh2d_comm.py`` pins them): 6 pairs within a
+#: host, 2 across, one permute. Regenerate (~5 s):
+#:   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 python -c "from p2pnetwork_tpu.parallel import commviz as C; print(C.ring_hop_classes(C.lower_ring_flood_hlo(), lambda d: d // 4))"
+EXPECTED_RING_HOP_CENSUS = {
+    "within": 6, "cross": 2,
+    "per_permute": [[(0, 1), (1, 2), (2, 3), (3, 4), (4, 5), (5, 6), (6, 7),
+                     (7, 0)]]}
+
+
+def _rank_or(layout: str, passes: int) -> dict:
+    """A rank's launches for ``passes`` ring OR passes across ranks (S - 1
+    hops each, a land after each put): B2's put under ``segment`` and
+    ``hybrid`` (B1 at every step on the ``hybrid`` remainder), B3's put
+    under ``mxu`` with B1 on the peeled step."""
+    hops = (RING_SHARDS - 1) * passes
+    if layout == "mxu":
+        return {"put": 0, "put_segsum": hops, "land": hops,
+                "segsum": passes, "threefry": 0, "rowsum": 0}
+    return {"put": hops, "put_segsum": 0, "land": hops,
+            "segsum": RING_SHARDS * passes if layout == "hybrid" else 0,
+            "threefry": 0, "rowsum": 0}
+
+
+def rank_adaptive(sharded, mesh_mod, flightrec, chaos, telemetry, commviz,
+                  multihost, models, sg, mesh, layout, checked) -> dict:
+    """One rank's 4w runs on one layout (``ADAPTIVE_RANK_RUNS``): each
+    checked (launches, syncs, wall), with its exchanges through the
+    process group and its record (the rank's rows of the final state, the
+    whole ring's summary)."""
+    out = {}
+    for name in ADAPTIVE_RANK_RUNS.get(mesh.world, {}).get(layout, ()):
+        if name == "adaptive":
+            def run():
+                return sharded.flood_until_coverage(
+                    sg, mesh, 0, coverage_target=0.99, max_rounds=64,
+                    adaptive_k=ADAPTIVE_K)
+        elif name == "adaptive_hop":
+            def run():
+                return sharded.hopdist_until_coverage(
+                    sg, mesh, models.HopDistance(source=0),
+                    coverage_target=0.99, adaptive_k=ADAPTIVE_K)
+        elif name == "recorded":
+            def run():
+                return sharded.flood_until_coverage(
+                    sg, mesh, 0, coverage_target=0.99, max_rounds=64,
+                    recorder=flightrec.FlightRecorder(64))
+        elif name == "faulted":
+            spec = chaos.FaultSpec(chaos.FaultSchedule(**RING_FAULTS),
+                                   "pallas")
+
+            def run():
+                return sharded.flood_until_coverage(
+                    sg, mesh, 0, coverage_target=0.99, max_rounds=64,
+                    comm=spec)
+        else:  # the hop census by host
+            def run():
+                return commviz.ring_hop_census(
+                    sg, mesh, multihost.host_of(mesh, CENSUS_PER_HOST))
+        reg = telemetry.default_registry()
+        before, e0 = fault_counts(reg), mesh_mod.EXCHANGES
+        got, first_s, launches, syncs = checked(run)
+        exchanges = mesh_mod.EXCHANGES - e0
+        after = fault_counts(reg)
+        rec = {"first_run_s": first_s, "launches": launches, "syncs": syncs,
+               "exchanges": exchanges}
+        if name == "census":
+            rec["census"] = got
+        else:
+            state, res = got
+            if name == "adaptive_hop":
+                rec.update(dist=host_np(state[0]), frontier=host_np(state[1]),
+                           round=int(state[2]))
+            else:
+                rec["seen"] = host_np(state)
+            if name == "recorded":
+                rec["rows"] = res.pop("flight_record").rows
+            rec["out"] = res
+            if name.startswith("adaptive"):
+                rec["sparse"] = list(sharded.LAST_SPARSE_ROUNDS)
+            if name == "faulted":
+                rec["faults"] = {k: after[k] - before[k]
+                                 for k in ("corrupt", "zero", "delay")}
+            rec["wall_s"] = checked(run)[1]
+        out[f"{name}-{layout}"] = rec
+    return out
 
 
 def rank_counts(ring, segsum, threefry=None, rowsum=None) -> dict:
@@ -6269,12 +6396,13 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
     nothing: the parent checks and prints."""
     import torch.distributed as dist
 
-    from p2pnetwork_tpu_torch import _device
-    from p2pnetwork_tpu_torch import models
+    from p2pnetwork_tpu_torch import _device, models, telemetry
+    from p2pnetwork_tpu_torch.chaos import device as chaos
     from p2pnetwork_tpu_torch.ops import ring, rowsum, segsum, threefry
+    from p2pnetwork_tpu_torch.parallel import commviz
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import multihost, sharded
-    from p2pnetwork_tpu_torch.sim import checkpoint, simnode
+    from p2pnetwork_tpu_torch.sim import checkpoint, flightrec, simnode
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
 
     Gossip = models.Gossip
@@ -6284,7 +6412,8 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
     torch.cuda.synchronize()
     res = {"rank": mesh.rank, "world": mesh.world, "shard_lo": mesh.shard_lo,
            "device": str(mesh.device), "graph_s": time.perf_counter() - t0,
-           "floods": {}, "rows": [], "protocols": {}}
+           "floods": {}, "rows": [], "protocols": {}, "adaptive": {}}
+    csr = ADAPTIVE_RANK_RUNS.get(mesh.world, {})
     flush = torch.empty(128 * 2**20, dtype=torch.uint8, device="cuda")
 
     def checked(run):
@@ -6299,7 +6428,8 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
 
     for layout, kw in RING_LAYOUTS:
         t0 = time.perf_counter()
-        sg = sharded.shard_graph(g, mesh, **kw)
+        # 4w's runs on this layout need the sender-CSR view.
+        sg = sharded.shard_graph(g, mesh, source_csr=layout in csr, **kw)
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         if layout == "mxu":
@@ -6330,6 +6460,11 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
             checkpoint.save_orbax(ckpt_dir, {"status": status}, KEY,
                                   SIR_ROUNDS)
         res["floods"][layout]["protocols_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        res["adaptive"].update(rank_adaptive(
+            sharded, mesh_mod, flightrec, chaos, telemetry, commviz,
+            multihost, models, sg, mesh, layout, checked))
+        res["floods"][layout]["adaptive_s"] = time.perf_counter() - t0
         del sg
         torch.cuda.empty_cache()
     if mesh.world == 2:
@@ -6373,9 +6508,10 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
                      "launches": launches, "syncs": syncs}
     del sg, gba
     if mesh.world == 2:
-        res["protocols"]["batch"], lane_row = rank_batch(
+        res["protocols"]["batch"], lane_row, lanes_rec = rank_batch(
             sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
             flush)
+        res["adaptive"]["lanes_recorded-segment"] = lanes_rec
         res["rows"].append(lane_row)
     del flush
     return res
@@ -6387,8 +6523,10 @@ def rank_batch(sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
     1,024 lanes on the ``segment`` ring, the rank's lane words ``[n_local,
     32, 12512]`` B2's payload across ranks (``EXPECTED_BATCH``'s first
     call; the batch comes back whole on every rank). Then B2 across ranks
-    on those words as a kernel row."""
+    on those words as a kernel row. Then (4w) the same call with the
+    ring's recorder, its record third."""
     from p2pnetwork_tpu_torch.models import messagebatch as MB
+    from p2pnetwork_tpu_torch.sim import flightrec
 
     t0 = time.perf_counter()
     bg = graph_mod.watts_strogatz(BATCH_N, 10, 0.1, seed=0, source_csr=True)
@@ -6398,19 +6536,32 @@ def rank_batch(sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
     sources = np.random.default_rng(0).integers(
         0, bg.n_nodes, size=BATCH_B).astype(np.int32)
     proto = MB.BatchFlood(method="segment")
-    (state, out), wall, launches, syncs = checked(
-        lambda: sharded.run_batch_until_coverage(
+
+    def call(recorder=None):
+        return sharded.run_batch_until_coverage(
             sg, mesh, proto, proto.init(bg, sources, coverage_target=0.99),
-            max_rounds=64))
+            max_rounds=64, recorder=recorder)
+
+    e0 = mesh_mod.EXCHANGES
+    (state, out), wall, launches, syncs = checked(call)
+    exchanges = mesh_mod.EXCHANGES - e0
     out["lane_messages"] = MB.lane_messages(bg, state).cpu().numpy()
     out["seen"] = state.seen.cpu().numpy()
     rec = {"summary": lane_summary(out, ("lane_messages", "seen")),
            "wall_s": wall, "launches": launches, "syncs": syncs,
-           "build_s": build_s}
+           "build_s": build_s, "exchanges": exchanges}
+    e0 = mesh_mod.EXCHANGES
+    (_, out_r), wall_r, launches_r, syncs_r = checked(
+        lambda: call(flightrec.FlightRecorder(64)))
+    lanes_rec = {"rows": out_r.pop("flight_record").rows,
+                 "summary": lane_summary(out_r), "bare": lane_summary(out),
+                 "first_run_s": wall_r, "launches": launches_r,
+                 "syncs": syncs_r, "exchanges": mesh_mod.EXCHANGES - e0,
+                 "bare_exchanges": exchanges}
     stack = sharded.shard_lanes(sg, state.seen)
     row = rank_put_rows(ring, mesh_mod, mesh, flush,
                         payloads=[("lanes", stack)])[0]
-    return rec, row
+    return rec, row, lanes_rec
 
 
 def rank_churn(sharded, sg, mesh):
@@ -6510,8 +6661,145 @@ def check_rank_protocols(world: int, parts: list, world1: dict):
     return counts, walls, err
 
 
+def check_rank_adaptive(world: int, parts: list, sparse1: dict):
+    """Phase 4w's runs at ``world`` (``rank_ring``'s ``adaptive``): every
+    rank's summaries, sparse rounds, census and exchanges the other
+    ranks', the rows gathered in rank order held to 4u's records
+    (``EXPECTED_1M``, ``EXPECTED_RING_SEEN``, ``EXPECTED_ADAPTIVE_HOP``,
+    ``EXPECTED_RING_REC``, ``EXPECTED_LANE_REC``) and 4r(e)'s
+    (``EXPECTED_RING_FAULTED``, its fault counts on every rank), the
+    sparse rounds to 4u's one-process run's (``sparse1``), the census to
+    the reference's (``EXPECTED_RING_HOP_CENSUS``), each rank's launches
+    and exchanges to their prediction. Prints a ``rank-adaptive-path``
+    line; returns the launches summed over the ranks by kernel row."""
+    counts = collections.Counter()
+    record = {}
+    sched_sites = None
+    for name in parts[0]["adaptive"]:
+        recs = [p["adaptive"][name] for p in parts]
+        base, _, layout = name.partition("-")
+        label = f"rank {name} at world {world}"
+        for key in ("out", "sparse", "census", "summary", "exchanges",
+                    "round", "faults", "rows"):
+            if key in recs[0] and any(canon(r[key]) != canon(recs[0][key])
+                                      for r in recs):
+                fail(f"{label}: the ranks' {key} disagree")
+        rec = recs[0]
+
+        def rows(key):
+            return np.concatenate([r[key] for r in recs])
+
+        rounds = (rec["out"]["rounds"] if "out" in rec else
+                  rec["summary"]["rounds"] if "summary" in rec else 1)
+        threefry = [0] * len(recs)
+        if base == "adaptive":
+            if rec["out"] != EXPECTED_1M or np_sha(rows("seen")) \
+                    != EXPECTED_RING_SEEN:
+                fail(f"{label} returned {rec['out']}: not 4u's records")
+            want_x = 2 * rounds + 3
+        elif base == "adaptive_hop":
+            want = EXPECTED_ADAPTIVE_HOP
+            if (rec["out"], np_sha(rows("dist")), np_sha(rows("frontier")),
+                    rec["round"]) != (want["summary"], want["dist"],
+                                      want["frontier"], want["round"]):
+                fail(f"{label} returned {rec['out']}: not 4u's records")
+            want_x = 2 * rounds + 2
+        elif base == "recorded":
+            if rec["out"] != EXPECTED_1M or np_sha(rows("seen")) \
+                    != EXPECTED_RING_SEEN:
+                fail(f"{label} returned {rec['out']}: not 4u's records")
+            ici = rec["rows"][0, -1]
+            if np_sha(rec["rows"]) != EXPECTED_RING_REC["rows"] or int(
+                    ici) != EXPECTED_RING_REC["ici"]:
+                fail(f"{label}: rows differ from 4u's (ici_bytes {ici})")
+            want_x = rounds + 1
+        elif base == "faulted":
+            want = dict(EXPECTED_RING_FAULTED)
+            want_sha, want_faults = want.pop("seen_sha256"), want.pop(
+                "faults")
+            check_run(label, rec["out"], want)
+            if np_sha(rows("seen")) != want_sha:
+                fail(f"{label}: seen differs from 4r(e)'s")
+            for r in recs:  # every rank replays the whole ring's sites
+                if r["faults"] != want_faults:
+                    fail(f"{label} counted {r['faults']}, 4r(e) "
+                         f"{want_faults}")
+            if sched_sites is None:
+                from p2pnetwork_tpu_torch.chaos import device as chaos
+
+                sched_sites = chaos.FaultSchedule(**RING_FAULTS) \
+                    .sites_between(0, rounds, RING_SHARDS - 1, RING_SHARDS)
+            n_local = RING_SHARDS // world
+            threefry = [sum(1 for _, _, d, kind in sched_sites
+                            if kind == "corrupt"
+                            and d // n_local == p["shard_lo"] // n_local)
+                        for p in parts]
+            want_x = rounds + 1
+        elif base == "census":
+            got = rec["census"]
+            if {k: got[k] for k in EXPECTED_RING_HOP_CENSUS} \
+                    != EXPECTED_RING_HOP_CENSUS or (
+                        got["hops"], got["hops_within"], got["hops_cross"],
+                        got["exchanges"], got["exchanges_cross"]) != (
+                        RING_SHARDS - 1, 6 * (RING_SHARDS - 1),
+                        2 * (RING_SHARDS - 1), 1, 1):
+                fail(f"{label}: {got} differs from the reference's "
+                     f"{EXPECTED_RING_HOP_CENSUS}")
+            want_x = 1
+        else:  # the recorded lane ring
+            if rec["summary"] != rec["bare"]:
+                fail(f"{label}: the recorder changed the summary")
+            ici = rec["rows"][0, -1]
+            if np_sha(rec["rows"]) != EXPECTED_LANE_REC["rows"] or int(
+                    ici) != EXPECTED_LANE_REC["ici"]:
+                fail(f"{label}: rows differ from 4u's (ici_bytes {ici})")
+            want_x = rec["bare_exchanges"]
+        if base.startswith("adaptive") and rec["sparse"] != sparse1.get(
+                name):
+            fail(f"{label}: sparse rounds {rec['sparse']}, one process "
+                 f"{sparse1.get(name)}")
+        if rec["exchanges"] != want_x:
+            fail(f"{label}: {rec['exchanges']} exchanges, want {want_x}")
+        for r, n3 in zip(recs, threefry):
+            if base == "lanes_recorded":
+                want_l = {"put": (RING_SHARDS - 1) * rounds,
+                          "land": (RING_SHARDS - 1) * rounds,
+                          "put_segsum": 0, "segsum": 0, "threefry": 0,
+                          "rowsum": rounds + 1}
+            elif base == "faulted":
+                hops = (RING_SHARDS - 1) * rounds
+                want_l = {"put": hops, "land": hops, "put_segsum": 0,
+                          "segsum": RING_SHARDS * rounds, "threefry": n3,
+                          "rowsum": 0}
+            else:
+                dense = rounds - len(r.get("sparse", ()))
+                want_l = _rank_or(layout, dense)
+            check_launches(label, r["launches"], want_l)
+            lane = base == "lanes_recorded"
+            counts["put_lanes" if lane else "put"] += r["launches"]["put"]
+            counts["put_segsum"] += r["launches"]["put_segsum"]
+            counts["segsum"] += r["launches"]["segsum"]
+            counts["threefry"] += r["launches"]["threefry"]
+            counts["rowsum_lanes"] += r["launches"]["rowsum"]
+        record[name] = {
+            "rounds": rounds, "sparse": rec.get("sparse"),
+            "exchanges": rec["exchanges"], "syncs": rec["syncs"],
+            "launches": rec["launches"],
+            "first_run_s": [r["first_run_s"] for r in recs],
+            "wall_s": [r.get("wall_s") for r in recs],
+            **({"census": rec["census"]} if base == "census" else {}),
+            **({"faults": rec["faults"]} if base == "faulted" else {})}
+    print(json.dumps({
+        "phase": "rank-adaptive-path", "world": world, "runs": record,
+        "adaptive_s": {lay: [p["floods"][lay].get("adaptive_s")
+                             for p in parts] for lay, _ in RING_LAYOUTS},
+        "t_s": time.perf_counter() - T_START}), flush=True)
+    return counts
+
+
 def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
-                   multihost, gpu: str, world1: dict) -> dict:
+                   multihost, gpu: str, world1: dict,
+                   sparse1: dict) -> dict:
     """Phase 4v: the ring split over 2 and 8 rank processes on the card
     (``RANK_WORLDS``; 4 and 1 shards a rank). First, in this process, the
     dense floods' walls at world 1 and the churn step, on phase 4's graph.
@@ -6619,6 +6907,7 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
         proto_counts, proto_walls, proto_err = check_rank_protocols(
             world, parts, world1)
         counts.update(proto_counts)
+        counts.update(check_rank_adaptive(world, parts, sparse1))
         if world == 2:
             got = [p["restored"] for p in parts]
             if (np_sha(np.concatenate([r["rows"] for r in got]))
@@ -6668,6 +6957,57 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
                       "phase_s": time.perf_counter() - t_phase}), flush=True)
     ckpt.cleanup()
     return {"rows": rows, "launches": totals}
+
+
+def traced_path(g, segsum, Flood) -> int:
+    """Phase 4w (g): ``utils/trace.run_traced`` of phase 4's ``hybrid``
+    flood for its rounds, the JSON lines into a temporary file and the
+    profile into a temporary directory. Each round's record against phase
+    4's stats (``EXPECTED_1M``: the rounds, the messages summed, the last
+    coverage, the occupancy's f32 mean), the summary line the reference's
+    fields, B1 once a round, the trace non-empty and naming B1's kernel.
+    Returns B1's launches."""
+    from p2pnetwork_tpu_torch.utils import trace
+
+    rounds = EXPECTED_1M["rounds"]
+    with tempfile.TemporaryDirectory(prefix="p2p-trace-") as tmp:
+        sink, prof = Path(tmp) / "rounds.jsonl", Path(tmp) / "profile"
+        segsum.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, records = trace.run_traced(
+            g, Flood(source=0, method="hybrid"), KEY, rounds, sink=str(sink),
+            label="4w", profile_dir=str(prof))
+        wall = time.perf_counter() - t0
+        launches = segsum.LAUNCHES
+        lines = [json.loads(line) for line in sink.read_text().splitlines()]
+        traces = sorted(prof.glob("trace-*.json"))
+        text = traces[0].read_text() if traces else ""
+    occ = np.float32(0.0)
+    for r in records:  # the engine's running f32 sum, then the mean
+        occ = np.float32(occ + np.float32(r["frontier_occupancy"]))
+    got = {"rounds": len(records), "coverage": records[-1]["coverage"],
+           "messages": int(sum(r["messages"] for r in records)),
+           "frontier_occupancy_mean": float(occ / np.float32(rounds))}
+    check_run("traced flood", got, EXPECTED_1M)
+    summary = lines[-1]
+    if lines[:-1] != records or [r["round"] for r in records] != list(
+            range(rounds)) or not summary.get("summary") or (
+            summary["rounds"], summary["compile_seconds"],
+            summary["device_transfer_bytes"], summary["n_nodes"]) != (
+            rounds, 0.0, 4 * rounds * len(Flood.STATS), g.n_nodes):
+        fail(f"traced flood: its JSON lines are not its records and the "
+             f"reference's summary ({summary})")
+    if launches != rounds:
+        fail(f"traced flood launched B1 {launches} times, want {rounds}")
+    if "segsum_kernel" not in text:
+        fail("traced flood: the profile's trace does not name B1's kernel")
+    print(json.dumps({
+        "phase": "rank-adaptive-path", "run": "traced", "rounds": rounds,
+        "launches": launches, "wall_s": wall, "trace_bytes": len(text),
+        "summary": summary, "t_s": time.perf_counter() - T_START}),
+        flush=True)
+    return launches
 
 
 RING_EXPECT = {"segment": ("ring_shift",),
@@ -6978,9 +7318,10 @@ def main() -> int:
                    mesh_mod, models_mod.RandomWalks)
     # 4u (slice 13), after 4t on phase 4's graph: the frontier-adaptive
     # ring loop, the ring's recorder and the adaptive mesh node.
+    sparse1 = {}
     adaptive_launches = adaptive_ring_path(
         g, seen, ring, segsum, threefry, rowsum, _device, sharded, mesh_mod,
-        flightrec, HopDistance)
+        flightrec, HopDistance, sparse1)
     node_launches = adaptive_node_path(
         g, ring, segsum, threefry, rowsum, _device, mesh_mod, simnode,
         node_mod, Flood, HopDistance)
@@ -6989,7 +7330,9 @@ def main() -> int:
     # 4v (slice 14), after 4u: the ring split over 2 and 8 rank processes
     # on the card, its hops the cross-rank kernels.
     rank = rank_ring_path(g, ring, segsum, _device, sharded, mesh_mod,
-                          multihost, gpu, world1)
+                          multihost, gpu, world1, sparse1)
+    # 4w (slice 16): its rank runs rode 4v's launches; the traced flood.
+    traced_launches = traced_path(g, segsum, Flood)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -7067,7 +7410,8 @@ def main() -> int:
             rows[0], launches + ring_launches["segsum"] + new_launches["or"]
             + lib_launches["or"] + reorder_launches + io_launches["or"]
             + sup_launches + heal_launches + fault_launches["segsum"]
-            + sim_launches["segsum"] + adaptive_launches["segsum"],
+            + sim_launches["segsum"] + adaptive_launches["segsum"]
+            + rank_sum("segsum") + traced_launches,
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"]
@@ -7138,7 +7482,7 @@ def main() -> int:
             "counts, an XLA reduce; no TPU kernel)",
             rowsum_rows[f"lanes-{BATCH_B}"], rowsum_launches["dense"]
             + proto_launches["row_sum"] + lane_rec["rowsum"]
-            + rank_sum("rowsum") // 2,
+            + rank_sum("rowsum") // 2 + rank_sum("rowsum_lanes"),
             rowsum_rows[f"lanes-{BATCH_B}"]["max_abs_err"]),
         row("row_sum_shards", "rowsum.cu",
             "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "

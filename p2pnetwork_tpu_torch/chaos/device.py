@@ -309,10 +309,13 @@ class FaultSpec:
                 f"FaultSpec.backend must be one of {_BACKENDS} (resolve "
                 f"'auto' before building the spec), got {self.backend!r}")
 
-    def make(self, axis_name: str, axis_size: int) -> "FaultyComm":
+    def make(self, axis_name: str, axis_size: int, *,
+             mesh=None) -> "FaultyComm":
         """The ring's comm seam: this spec's comm object for one ring of
-        ``axis_size`` shards. Explicit sites whose step or shard lies
-        outside ``[0, axis_size)`` can never fire and draw an
+        ``axis_size`` shards; ``mesh`` is the rank mesh of a ring split
+        over processes (``parallel/mesh.RingMesh``, ``world > 1``), None
+        in one process. Explicit sites whose step or shard lies outside
+        ``[0, axis_size)`` can never fire and draw an
         :class:`UnreachableFaultSite` warning."""
         import warnings
 
@@ -330,7 +333,7 @@ class FaultSpec:
                 spans.emit("fault_sites_unreachable", axis=axis_name,
                            axis_size=int(axis_size), n_stale=len(stale),
                            sites=[list(s) for s in stale[:16]])
-        return FaultyComm(self, axis_name, axis_size)
+        return FaultyComm(self, axis_name, axis_size, mesh=mesh)
 
 
 class FaultyComm:
@@ -341,9 +344,16 @@ class FaultyComm:
     keyed on ``(round, step, shard)``: round and step arrive through
     :meth:`set_context` (the ring pass sets the step before each hop,
     the flood loop the round before each pass), the shard is the row of
-    the stacked payload. The kinds of every (step, shard) of the current
-    round are hashed together at its first hop: the numpy key chain
-    costs about the same for one site as for a round's.
+    the stacked payload (on a ring split over ranks, ``mesh.shard_lo``
+    plus the row: the global shard). The kinds of every (step, shard)
+    this process holds in the current round are hashed together on the
+    host at its first hop, no device work and no sync: the numpy key
+    chain costs about the same for one site as for a round's.
+
+    Across ranks the inner backend is the rank comm
+    (``parallel/sharded.py::_RankComm``): every hop's cross-rank put
+    runs, faulted or not, so no peer waits on a put that never comes,
+    and the fault rewrites what landed.
 
     ``shift_back`` stays clean (the sites name forward hops). ``fuses``
     is False: the fused hop-and-sum kernel (B3) never exposes the hop's
@@ -355,17 +365,24 @@ class FaultyComm:
     wants_step = True
     fuses = False
 
-    def __init__(self, spec: FaultSpec, axis_name: str, axis_size: int):
-        from p2pnetwork_tpu_torch.parallel.sharded import _RingComm
+    def __init__(self, spec: FaultSpec, axis_name: str, axis_size: int,
+                 *, mesh=None):
+        from p2pnetwork_tpu_torch.parallel.sharded import _RankComm, _RingComm
 
-        self._inner = _RingComm(spec.backend, axis_size)
+        if mesh is not None and mesh.world > 1:
+            self._inner = _RankComm(spec.backend, mesh)
+            self._shards = np.arange(mesh.shard_lo,
+                                     mesh.shard_lo + mesh.n_local)
+        else:
+            self._inner = _RingComm(spec.backend, axis_size)
+            self._shards = np.arange(axis_size)
         self.backend = spec.backend
         self.axis_name = axis_name
         self.axis_size = axis_size
         self.schedule = spec.schedule
         self._round = None
         self._step = None
-        # This round's kinds and site key words, [axis_size, axis_size].
+        # This round's kinds and site key words, [step, shard held here].
         self._round_sites = None
 
     def set_context(self, round=None, step=None):
@@ -392,23 +409,23 @@ class FaultyComm:
         rnd = self._round if self._round is not None else 0
         step = self._step if self._step is not None else 0
         if self._round_sites is None:
-            n = np.arange(self.axis_size)
-            self._round_sites = sched._kinds_and_keys(rnd, n[:, None],
-                                                      n[None, :])
+            self._round_sites = sched._kinds_and_keys(
+                rnd, np.arange(self.axis_size)[:, None],
+                self._shards[None, :])
         kinds, (k0, k1) = self._round_sites
         kinds = kinds[step]
         if not kinds.any():
             return shifted
         out = shifted.clone()
-        for shard in np.flatnonzero(kinds).tolist():
-            kind = int(kinds[shard])
+        for row in np.flatnonzero(kinds).tolist():  # a shard held here
+            kind = int(kinds[row])
             if kind == 1:
-                out[shard] = sched._corrupt(shifted[shard], k0[step, shard],
-                                            k1[step, shard])
+                out[row] = sched._corrupt(shifted[row], k0[step, row],
+                                          k1[step, row])
             elif kind == 2:
-                out[shard] = 0
+                out[row] = 0
             else:
-                out[shard] = prev[shard]
+                out[row] = prev[row]
         return out
 
 

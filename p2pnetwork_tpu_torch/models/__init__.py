@@ -2,7 +2,7 @@
 PageRank, hop distance, leader election, components, spanning tree, MIS,
 k-core, distance-vector routing, random walks, Plumtree, Bracha, HITS,
 label propagation, bipartiteness, Borůvka, Vivaldi, the failure detector
-and anti-entropy, each behind the ``models/base.py`` seam;
+and anti-entropy, each behind the ``models/base.py`` seam (``Protocol``);
 ``color_via_mis`` iterates the MIS; ``centrality`` and ``triangles`` hold
 the sampled centralities and the triangle counts."""
 
@@ -32,6 +32,7 @@ from p2pnetwork_tpu_torch.models.spanning import (  # noqa: F401
     SpanningTree, SpanningTreeState)
 from p2pnetwork_tpu_torch.models.antientropy import (  # noqa: F401
     AntiEntropy, AntiEntropyState)
+from p2pnetwork_tpu_torch.models.base import Protocol  # noqa: F401
 from p2pnetwork_tpu_torch.models.bipartite import (  # noqa: F401
     BipartiteCheck, BipartiteCheckState)
 from p2pnetwork_tpu_torch.models.boruvka import Boruvka, BoruvkaState  # noqa: F401

@@ -7,14 +7,34 @@ stats)``, where ``stats`` maps names to 0-d device tensors and ``key`` is
 a host key of ``prng.py`` (numpy ``uint32[2]``). ``STATS`` names the
 stats ``step`` returns, so the engine knows them before any round runs.
 Floods take their key and ignore it, as the reference's do.
+:class:`Protocol` is that interface as a structural type.
 """
 
 from __future__ import annotations
 
+from typing import Any, Dict
+from typing import Protocol as TypingProtocol
+from typing import Tuple
+
+import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.sim.graph import Graph
+
+State = Any
+Stats = Dict[str, torch.Tensor]
+
+
+class Protocol(TypingProtocol):
+    """Structural interface every sim protocol implements (the
+    reference's ``models/base.py::Protocol``; ``key`` a host key of
+    ``prng.py``)."""
+
+    def init(self, graph: Graph, key: np.ndarray) -> State: ...
+
+    def step(self, graph: Graph, state: State,
+             key: np.ndarray) -> Tuple[State, Stats]: ...
 
 
 def draw_neighbor_slot(graph: Graph, key):

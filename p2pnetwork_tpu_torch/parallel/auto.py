@@ -64,8 +64,8 @@ def shard_graph_auto(graph, mesh, axis_name: str = "shards"):
         raise NotImplementedError(
             f"shard_graph_auto over {ring.world} ranks: the reference's "
             f"GSPMD partitioning has no eager-torch counterpart; it waits "
-            f"in ROADMAP.md. Use the ring (parallel/sharded.py) across "
-            f"ranks")
+            f"in ROADMAP.md, section A, \"auto.shard_graph_auto across "
+            f"ranks\". Use the ring (parallel/sharded.py) across ranks")
     return _to(graph, ring.device)
 
 

@@ -15,12 +15,20 @@ the same shapes would move a round.
 
 The ``pallas`` comm's hops (the ring-DMA kernels) are priced as
 ``ppermute``'s: one payload copy a hop, listed under ``"ring_dma"``.
+
+:func:`ring_hop_census` is the port's form of the reference's
+``ring_hop_classes(lower_ring_flood_hlo(), host_of)`` (its
+``examples/hierarchical_mesh_demo.py``): where the reference reads the
+source -> target pairs of the compiled flood's collective-permutes, the
+port runs a flood round on a ring of ranks and records the rank pairs of
+every hop it makes, and counts the round's exchanges through the process
+group, classified by host.
 """
 
 from __future__ import annotations
 
 __all__ = ["RING_DMA_KEY", "ring_model_bytes", "ring_census",
-           "ici_round_bytes"]
+           "ici_round_bytes", "ring_hop_census"]
 
 #: The census key of a ring-DMA hop (the ``pallas`` comm).
 RING_DMA_KEY = "ring_dma"
@@ -97,3 +105,108 @@ def ici_round_bytes(loop: str, n_shards: int, block: int, *,
             rec["bytes"] for rec in ring_census(
                 loop, n_shards, block, n_words=n_words, comm=comm).values())
     return est
+
+
+class _HopLog:
+    """A ``comm=`` spec for ``parallel/sharded.py`` whose comm runs the
+    named backend and logs the rank pairs of every hop it makes: one list
+    a hop, a pair for each shard held here, ``(its rank, the rank of the
+    shard it moves to)``."""
+
+    def __init__(self, backend: str):
+        self.backend = backend
+        self.hops = []
+
+    def make(self, axis_name: str, axis_size: int, *, mesh=None):
+        from p2pnetwork_tpu_torch.parallel import sharded
+
+        inner = (sharded._RankComm(self.backend, mesh) if mesh is not None
+                 else sharded._RingComm(self.backend, axis_size))
+        return _LoggedComm(self, inner, mesh, axis_size)
+
+
+class _LoggedComm:
+    """The comm of a :class:`_HopLog`: the inner backend's hops, each
+    logged before it runs."""
+
+    def __init__(self, log: _HopLog, inner, mesh, n_shards: int):
+        self._log, self._inner = log, inner
+        self.backend, self.fuses = inner.backend, inner.fuses
+        lo, n_local = (0, n_shards) if mesh is None else (mesh.shard_lo,
+                                                          mesh.n_local)
+        order = (0,) if mesh is None else mesh.order
+
+        def rank(d):
+            return order[(d % n_shards) // n_local]
+
+        shards = range(lo, lo + n_local)
+        self._fwd = [(rank(d), rank(d + 1)) for d in shards]
+        self._back = [(rank(d), rank(d - 1)) for d in shards]
+
+    def shift(self, x):
+        self._log.hops.append(self._fwd)
+        return self._inner.shift(x)
+
+    def shift_back(self, x):
+        self._log.hops.append(self._back)
+        return self._inner.shift_back(x)
+
+    def fused_segment_sum(self, *args, **kwargs):
+        out = self._inner.fused_segment_sum(*args, **kwargs)
+        if out is not None:
+            self._log.hops.append(self._fwd)
+        return out
+
+
+def ring_hop_census(sg, mesh, host_of, *, source: int = 0,
+                    comm: str = "auto") -> dict:
+    """The hops of one round of the ring's flood on ``mesh`` (a ring of
+    ranks, ``parallel/multihost.hierarchical_ring_mesh``, and ``sg`` this
+    rank's part of it), by rank pair and host (``host_of``: rank -> host,
+    ``multihost.host_of``). Every rank calls it together, and every rank
+    gets the whole ring's census:
+
+    - ``per_permute``: the hops grouped into permutes by their pair list,
+      one entry a distinct list, each pair ``(source rank, target
+      rank)`` for every shard in ring order, as the reference's compiled
+      flood lists its collective-permutes (its ring loop's body holds one
+      permute, which runs ``S - 1`` times a pass);
+    - ``within`` / ``cross``: the pairs of ``per_permute`` whose two ranks
+      share a host / do not (the reference's ``ring_hop_classes``);
+    - ``hops``, ``hops_within``, ``hops_cross``: the hops the round made
+      and their pairs by class (``S - 1`` hops a pass);
+    - ``exchanges``, ``exchanges_cross``: the round's exchanges through
+      the process group, and those whose group spans more than one host.
+
+    One exchange more gathers the ranks' hop logs; it is not counted."""
+    from p2pnetwork_tpu_torch.parallel import mesh as M, sharded
+
+    log = _HopLog(sharded.resolve_comm(comm, sg.device))
+    before = M.EXCHANGES
+    sharded.flood(sg, mesh, source, 1, comm=log)
+    exchanges = M.EXCHANGES - before
+    logs = [log.hops]
+    if mesh.world > 1:
+        import torch.distributed as dist
+
+        logs = [None] * mesh.world
+        dist.all_gather_object(logs, log.hops, group=mesh.group)
+        logs = [logs[r] for r in mesh.order]
+    hops = [[p for part in parts for p in part] for parts in zip(*logs)]
+    per_permute = []
+    for pairs in hops:
+        if pairs not in per_permute:
+            per_permute.append(pairs)
+
+    def split(lists):
+        cross = sum(host_of(a) != host_of(b) for pairs in lists
+                    for a, b in pairs)
+        return sum(len(pairs) for pairs in lists) - cross, cross
+
+    within, cross = split(per_permute)
+    hops_within, hops_cross = split(hops)
+    spans_hosts = len({host_of(r) for r in range(mesh.world)}) > 1
+    return {"within": within, "cross": cross, "per_permute": per_permute,
+            "hops": len(hops), "hops_within": hops_within,
+            "hops_cross": hops_cross, "exchanges": exchanges,
+            "exchanges_cross": exchanges if spans_hosts else 0}

@@ -14,7 +14,8 @@ CPU mesh) and what one H100 holds. Across processes (``world > 1``,
 moves each rank's boundary shard to the next rank (``sharded._RankComm``:
 a CUDA IPC peer write on the card, gloo on the CPU), and the reductions
 of the reference's ``psum`` go through the process group
-(:func:`all_sum`, :func:`all_max`, :func:`gather_shards`).
+(:func:`all_sum`, :func:`all_max`, :func:`gather_shards`,
+:func:`gather_lists`).
 """
 
 from __future__ import annotations
@@ -27,6 +28,11 @@ import torch
 from p2pnetwork_tpu_torch import _device
 
 DEFAULT_AXIS = "shards"
+
+#: Exchanges through the process group so far (every :func:`all_sum`,
+#: :func:`all_max`, :func:`gather_shards` and :func:`gather_lists` across
+#: ranks): ``parallel/commviz.py::ring_hop_census`` reads a round's.
+EXCHANGES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,6 +97,14 @@ def shard_spec(mesh: RingMesh) -> slice:
     return slice(mesh.shard_lo, mesh.shard_lo + mesh.n_local)
 
 
+def _exchanged() -> None:
+    """Count one exchange through the process group (a host round trip:
+    also a sync)."""
+    global EXCHANGES
+    EXCHANGES += 1
+    _device.SYNCS += 1
+
+
 def all_sum(mesh: RingMesh, x: torch.Tensor) -> torch.Tensor:
     """The elementwise sum of ``x`` (integers) over the ring's ranks, on
     ``x``'s device: ``x`` itself in one process. Across processes one
@@ -100,7 +114,7 @@ def all_sum(mesh: RingMesh, x: torch.Tensor) -> torch.Tensor:
         return x
     import torch.distributed as dist
 
-    _device.SYNCS += 1
+    _exchanged()
     host = x.cpu()
     dist.all_reduce(host, group=mesh.group)
     return host.to(x.device)
@@ -115,7 +129,7 @@ def all_max(mesh: RingMesh, x: torch.Tensor) -> torch.Tensor:
         return x
     import torch.distributed as dist
 
-    _device.SYNCS += 1
+    _exchanged()
     host = x.cpu()
     dist.all_reduce(host, op=dist.ReduceOp.MAX, group=mesh.group)
     return host.to(x.device)
@@ -130,8 +144,30 @@ def gather_shards(mesh: RingMesh, x: torch.Tensor) -> torch.Tensor:
         return x
     import torch.distributed as dist
 
-    _device.SYNCS += 1
+    _exchanged()
     host = x.contiguous().cpu()
     parts = [torch.empty_like(host) for _ in range(mesh.world)]
     dist.all_gather(parts, host, group=mesh.group)
     return torch.cat([parts[r] for r in mesh.order]).to(x.device)
+
+
+def gather_lists(mesh: Optional[RingMesh], ids: torch.Tensor,
+                 counts: torch.Tensor, *cols: torch.Tensor):
+    """Every shard's id list, ``ids [n_local, k]`` of which the first
+    ``counts [n_local]`` are set (the rest padding), and per-shard integer
+    columns ``cols`` (each ``[n_local]``), gathered from every rank in
+    ring order: ``(ids [S, k], counts [S], [col [S], ...])``, so that
+    shard ``d``'s list is row ``d`` on every rank (the reference's
+    ``all_gather`` of the lists and counts). The inputs themselves in one
+    process (``mesh`` None or of one rank). Across processes one
+    all-gather of an i64 ``[n_local, k + 1 + len(cols)]`` block, counted
+    in ``_device.SYNCS``."""
+    if mesh is None or mesh.world == 1:
+        return ids, counts, list(cols)
+    k = ids.shape[1]
+    block = torch.cat([ids.to(torch.int64), counts.to(torch.int64)[:, None]]
+                      + [c.to(torch.int64).reshape(-1, 1) for c in cols],
+                      dim=1)
+    whole = gather_shards(mesh, block)
+    return (whole[:, :k], whole[:, k],
+            [whole[:, k + 1 + i] for i in range(len(cols))])

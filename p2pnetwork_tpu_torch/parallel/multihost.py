@@ -17,6 +17,9 @@ rank of a ring on it.
   rank ``r`` holds ``S / world`` consecutive shards (``mesh.shard_spec``);
 - :func:`mesh_2d` is the ``[processes, shards a process]`` grid of the
   reference's 2-D mesh, for ``parallel/auto.py``;
+- :func:`host_of` maps a rank to its host in a layout of ``per_host``
+  ranks a host, which ``parallel/commviz.py::ring_hop_census`` classifies
+  the ring's hops by;
 - :func:`launch` starts ``world`` rank processes on this host and returns
   their results, failing (never hanging) when a rank fails or hangs.
 """
@@ -112,6 +115,17 @@ def _ranks_host_major() -> Tuple[int, ...]:
     for r, h in enumerate(hosts):
         first.setdefault(h, r)
     return tuple(sorted(range(world), key=lambda r: (first[hosts[r]], r)))
+
+
+def host_of(mesh: RingMesh, per_host: int):
+    """``rank -> host index`` for a layout of ``per_host`` ranks a host,
+    ``rank // per_host``: how the reference's
+    ``examples/hierarchical_mesh_demo.py`` lays hosts over one machine
+    (``d // PER_HOST``)."""
+    if per_host < 1 or mesh.world % per_host:
+        raise ValueError(f"{mesh.world} ranks do not split into hosts of "
+                         f"{per_host}")
+    return lambda r: int(r) // int(per_host)
 
 
 def local_rank() -> int:

@@ -73,11 +73,13 @@ added as :func:`psum_f32` adds them, maxima), so every rank holds the
 same global stats and the engine's loop takes the same exit on each; the
 walk takes the reference's two ``pmax`` a round (``mesh.all_max``). The
 rank part keeps the global live count (``RankShardedGraph.live``). Every
-ring protocol, the re-mask, the dynamic region and the lane plane run
-across ranks, bit for bit the one-process ring; the frontier-adaptive
-loop, the recorder and a fault-spec comm raise ``NotImplementedError``
-there (:func:`refuse_ranks`, ROADMAP.md). At one rank every path is the
-one-process ring's.
+ring protocol, the re-mask, the dynamic region, the lane plane, the
+frontier-adaptive loop (its replicated frontier list an all-gather of
+the ranks' compacted ids in ring order, its item budget a ``pmax``), the
+recorder (rows from the round's exchanged totals; the lane ring's
+per-word sends and occupancy summed once a run) and a fault-spec comm
+(faults keyed on the global shard) run across ranks, bit for bit the
+one-process ring. At one rank every path is the one-process ring's.
 
 Ported: :func:`shard_graph` (``mxu``, ``hybrid``, ``source_csr``; a
 graph's runtime links folded into the static buckets, its neighbor table
@@ -106,7 +108,7 @@ import torch
 from p2pnetwork_tpu_torch import _device, prng
 from p2pnetwork_tpu_torch.chaos import device as chaos_device
 from p2pnetwork_tpu_torch.models import sir as sir_model
-from p2pnetwork_tpu_torch.models.flood import Flood, FloodState, live_coverage
+from p2pnetwork_tpu_torch.models.flood import Flood, FloodState
 from p2pnetwork_tpu_torch.models.gossip import Gossip
 from p2pnetwork_tpu_torch.models.hopdist import HopDistance
 from p2pnetwork_tpu_torch.models.pagerank import PageRank
@@ -114,7 +116,6 @@ from p2pnetwork_tpu_torch.models.pushsum import PushSum
 from p2pnetwork_tpu_torch.models.sir import SIR
 from p2pnetwork_tpu_torch.ops import bitset as BS
 from p2pnetwork_tpu_torch.ops import blocked as B
-from p2pnetwork_tpu_torch.ops import frontier as F
 from p2pnetwork_tpu_torch.ops import ring, rowsum, segment, segsum
 from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.ops.diag import select_diagonals
@@ -122,6 +123,7 @@ from p2pnetwork_tpu_torch.parallel import commviz
 from p2pnetwork_tpu_torch.parallel.auto import COMM_BACKENDS, resolve_comm
 from p2pnetwork_tpu_torch.parallel.mesh import (DEFAULT_AXIS, RingMesh,
                                                 all_max, all_sum,
+                                                gather_lists,
                                                 gather_shards,
                                                 shard_spec)
 from p2pnetwork_tpu_torch.sim import engine, flightrec
@@ -255,36 +257,24 @@ def _rank_mesh(obj) -> Optional[RingMesh]:
     return mesh if mesh is not None and mesh.world > 1 else None
 
 
-def refuse_ranks(obj, what: str) -> None:
-    """Raise for a part of the ring plane not yet ported across ranks
-    (``obj`` a sharded graph or a mesh): the frontier-adaptive loop, the
-    recorder and a fault-spec comm; nothing in one process."""
-    mesh = _rank_mesh(obj)
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what} on a ring of {mesh.world} ranks is not ported yet: it "
-            f"waits in ROADMAP.md (the ring across ranks' next slice, "
-            f"\"Order for the next PRs\" item 5); run it on a ring in one "
-            f"process (mesh.ring_mesh)")
-
-
 def _make_ring_comm(comm, axis_name: str, sg):
     """One ring's comm object for ``sg``: a backend name (resolved for
     its device) builds the bare :class:`_RingComm`, or the
     :class:`_RankComm` of a ring split over ranks; a spec object (a
     ``chaos/device.FaultSpec``, carrying a concrete backend) builds its
-    wrapper."""
+    wrapper, handed the rank mesh on a ring split over ranks."""
     mesh = _rank_mesh(sg)
     if isinstance(comm, str):
         backend = resolve_comm(comm, sg.device)
         if mesh is not None:
             return _RankComm(backend, mesh)
         return _RingComm(backend, sg.n_shards)
-    refuse_ranks(sg, "a fault-spec comm")
     if not callable(getattr(comm, "make", None)):
         raise TypeError(
             f"comm must be a backend name or a spec object with make() "
             f"(chaos/device.FaultSpec), got {type(comm).__name__}")
+    if mesh is not None:
+        return comm.make(axis_name, sg.n_shards, mesh=mesh)
     return comm.make(axis_name, sg.n_shards)
 
 
@@ -1281,7 +1271,8 @@ class _RingFlood:
         new = delivered & ~state.seen & nm
         seen = state.seen | new
         # The round's counts (one exchange on a ring split over ranks),
-        # divided in f32 as ``live_coverage`` and ``F.occupancy`` divide.
+        # divided in f32 as ``live_coverage`` and ``frontier.occupancy``
+        # divide.
         messages, covered, fresh, n = _rank_sums(
             sg, segment.frontier_messages(sg, state.frontier),
             (seen & nm).sum(), new.sum(), nm.sum())
@@ -1387,25 +1378,28 @@ def flood_until_coverage(sg: ShardedGraph, mesh: RingMesh, source: int, *,
     total, the covered-node COUNT in the ``coverage`` column, and in
     ``ici_bytes`` the loop's per-round byte estimate
     (``parallel/commviz.py``, the same for both comms). The results equal
-    a run without it.
+    a run without it. On a ring split over ranks every column is made
+    from the round's totals, which the round already sums over the ranks
+    in its one exchange, so each rank writes the whole ring's rows with
+    no exchange of its own.
 
     ``comm`` also takes a ``chaos/device.FaultSpec``: the ring runs on its
     backend with its schedule's faults injected at the halo hops, keyed
     on the global round ``fault_round0 + r`` (a chunked or resumed driver
     passes ``fault_round0`` so each chunk hits the sites an unchunked run
     would), and the faults the executed rounds hit are counted into
-    ``chaos_device_faults_total{kind}`` after the run."""
+    ``chaos_device_faults_total{kind}`` after the run. On a ring split
+    over ranks the faults are keyed on the global shard, and every rank
+    counts the whole ring's sites (the reference's host replay runs in
+    every process)."""
     if adaptive_k > 0:
-        refuse_ranks(sg, "the frontier-adaptive loop (adaptive_k > 0)")
         return _flood_adaptive(sg, mesh, source, coverage_target,
                                max_rounds, state0, return_state, adaptive_k,
                                comm, recorder)
     proto, state = _flood_start(sg, mesh, source, state0, comm,
                                 fault_round0)
-    row_of = None
-    if recorder is not None:
-        refuse_ranks(sg, "the ring's flight recorder (recorder=)")
-        row_of = _flood_row_of(sg, proto.pass_.comm)
+    row_of = None if recorder is None else _flood_row_of(sg,
+                                                         proto.pass_.comm)
     # The flood draws nothing; the engine's key chain runs unread.
     state, out = engine.run_until_coverage_from(
         sg, proto, state, prng.key(0), coverage_target=coverage_target,
@@ -2008,7 +2002,6 @@ def hopdist_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol, *,
     wave's size and its sends) are summed in one exchange, so every rank
     tests the global frontier."""
     if adaptive_k > 0:
-        refuse_ranks(sg, "the frontier-adaptive loop (adaptive_k > 0)")
         return _hopdist_adaptive(sg, mesh, protocol, coverage_target,
                                  max_rounds, axis_name, state0, adaptive_k,
                                  comm)
@@ -2057,13 +2050,19 @@ def hopdist_until_done(sg: ShardedGraph, mesh: RingMesh, protocol, *,
 # ids, and each shard gathers only its own edges from those senders
 # through the sender-CSR view, in W-wide work items; the round runs dense
 # (one ring OR pass) when the largest per-shard item count exceeds ``k``.
-# On one card the all-gather of the per-shard lists is the stacked ``[S,
-# k]`` tensor itself. Where the reference branches on the device
-# (``lax.cond``), the port reads the item budget on the host once a round
-# (one sync, counted in ``_device.SYNCS``); every other choice stays on
-# the device: ``nonzero(size=k)`` is a cumsum + scatter compaction and the
-# dense round's re-entry compaction is a ``torch.where`` over both
-# results, exact because the budget saturates past ``k``.
+# The list is an all-gather of the shards' compacted ids in ring order:
+# on one card the stacked ``[S, k]`` tensor itself, across ranks one
+# gather through the process group (``mesh.gather_lists``), which also
+# carries each shard's sends and covered count; the item budget is a
+# ``pmax`` (``mesh.all_max`` across ranks). So a round costs two
+# exchanges across ranks and none in one process, and every rank holds
+# the same list, budget, counts and branch. Where the reference branches
+# on the device (``lax.cond``), the port reads the item budget on the
+# host once a round (one sync, counted in ``_device.SYNCS``); every other
+# choice stays on the device: ``nonzero(size=k)`` is a cumsum + scatter
+# compaction and the dense round's re-entry compaction is a
+# ``torch.where`` over both results, exact because the budget saturates
+# past ``k``.
 
 #: The 0-based rounds of the latest frontier-adaptive ring run that took
 #: the sparse path (the host reads the branch each round anyway).
@@ -2120,63 +2119,87 @@ def _pack_global_frontier(k: int, local_ids: torch.Tensor,
 
 
 class _AdaptiveWave:
-    """The adaptive wave's pieces over the stacked shards (the
-    reference's ``_make_adaptive_wave`` closures): :meth:`my_new_ids`,
+    """The adaptive wave's pieces over the shards held here (the
+    reference's ``_make_adaptive_wave`` closures): :meth:`pack`,
     :meth:`item_budget`, :meth:`sparse_round`, :meth:`dense_round` and
     :meth:`round`, which picks one by the budget. Both rounds map ``(seen,
     frontier, F, fncount)`` to ``(seen, frontier, F, fncount, ficount,
-    msgs)``; ``F`` is the replicated ``i32[k]`` frontier list, ``fncount``
-    its node count, ``ficount`` its work-item budget."""
+    msgs, covered)``; ``F`` is the replicated ``i32[k]`` frontier list,
+    ``fncount`` its node count, ``ficount`` its work-item budget, ``msgs``
+    the round's sends and ``covered`` the covered live nodes, each the
+    whole ring's (i64 counts)."""
 
     def __init__(self, sg: ShardedGraph, comm, k: int, axis_name: str):
-        S, block = sg.n_shards, sg.block
+        S, L, block = sg.n_shards, sg.n_local, sg.block
         self.sg, self.k = sg, int(k)
+        self.mesh = _rank_mesh(sg)
         self.pass_ = _make_pass(sg, comm, "or", axis_name)
         self.span = max(sg.csr_span, 1)
         self.w = max(1, min(self.span, 128))  # work-item slice width
         self.pad_id = S * block - 1
         dev = sg.device
         self.idx_k = torch.arange(self.k, device=dev)
-        self.my = torch.arange(S, device=dev)
+        # The global ids of the shards held here, and the ring steps.
+        self.my = torch.arange(sg.shard_lo, sg.shard_lo + L, device=dev)
+        self.steps = torch.arange(S, device=dev)
         self.lanes = torch.arange(self.w, device=dev)
-        self.flat_mask = sg.bkt_mask.reshape(S, -1)
-        self.flat_dst = sg.bkt_dst.reshape(S, -1)
+        self.flat_mask = sg.bkt_mask.reshape(L, -1)
+        self.flat_dst = sg.bkt_dst.reshape(L, -1)
         self.offs = sg.csr_offsets.long()  # gathered twice a sparse round
         self.n_rounds = 0
         self.sparse_rounds = []
 
     def my_new_ids(self, new: torch.Tensor, local_count: torch.Tensor):
-        """Each shard's new nodes as global ids, ``[S, k]``-padded."""
+        """Each shard's new nodes as global ids, ``[L, k]``-padded."""
         lpos = _compact_rows(new, self.k, self.sg.block - 1)
         ids = self.my[:, None] * self.sg.block + lpos
         return torch.where(self.idx_k < local_count[:, None], ids,
                            self.pad_id)
 
-    def pack(self, new: torch.Tensor):
-        """The replicated list and count of the frontier ``new [S,
-        block]``."""
-        count = new.sum(1, dtype=torch.int32)
-        return _pack_global_frontier(self.k, self.my_new_ids(new, count),
-                                     count, self.pad_id)
+    def _covered(self, seen: torch.Tensor) -> torch.Tensor:
+        """Each shard's covered live nodes, ``[L]``."""
+        return (seen & self.sg.node_mask).sum(1)
+
+    def _sends(self, frontier: torch.Tensor) -> torch.Tensor:
+        """Each shard's sends of a round from ``frontier``, ``[L]``."""
+        return torch.where(frontier, self.sg.out_degree, 0).sum(1)
+
+    def _share(self, local_ids, local_count, *partials):
+        """The replicated list and node count packed from every shard's
+        ``[L, k]`` ids and ``[L]`` counts, and the whole ring's sum of
+        each ``[L]`` partial: one exchange across ranks."""
+        lists, counts, cols = gather_lists(self.mesh, local_ids,
+                                           local_count, *partials)
+        F, ncount = _pack_global_frontier(self.k, lists, counts, self.pad_id)
+        return F, ncount, [c.sum() for c in cols]
+
+    def pack(self, frontier: torch.Tensor, seen: torch.Tensor):
+        """``(F, fncount, covered)`` of the frontier ``[L, block]`` and the
+        covered live nodes of ``seen``."""
+        count = frontier.sum(1, dtype=torch.int32)
+        F, ncount, (covered,) = self._share(
+            self.my_new_ids(frontier, count), count, self._covered(seen))
+        return F, ncount, covered
 
     def item_budget(self, F: torch.Tensor, ncount: torch.Tensor):
         """The sparse-mode budget of list ``F``: the largest per-shard
-        W-slice work-item count (the reference's ``pmax``), saturated at
-        ``k + 1`` when the node list itself overflowed."""
+        W-slice work-item count (the reference's ``pmax``: one exchange
+        across ranks), saturated at ``k + 1`` when the node list itself
+        overflowed."""
         fvalid = self.idx_k < ncount
         f = torch.where(fvalid, F, self.pad_id).long()
         offs = self.sg.csr_offsets
         row_len = offs[:, f + 1] - offs[:, f]
         items = torch.where(fvalid, (row_len + self.w - 1) // self.w, 0)
-        icount = items.sum(1).max().to(torch.int32)
+        icount = _rank_max(self.sg, items.sum(1).max().to(torch.int32))
         return torch.where(ncount > self.k, self.k + 1, icount)
 
     def _slots(self, F, fvalid):
-        """``(slot, svalid)``, ``[S, k, w]`` positions in each shard's
+        """``(slot, svalid)``, ``[L, k, w]`` positions in each shard's
         sender-CSR rows of the list's work items."""
-        S, k, w = self.sg.n_shards, self.k, self.w
+        L, k, w = self.sg.n_local, self.k, self.w
         f = torch.where(fvalid, F, self.pad_id).long()
-        base_row, row_end = self.offs[:, f], self.offs[:, f + 1]  # [S, k]
+        base_row, row_end = self.offs[:, f], self.offs[:, f + 1]  # [L, k]
         if self.span <= w:
             # No row is wider than a slice: item p is list entry p (the
             # node count is <= k in sparse mode).
@@ -2187,7 +2210,7 @@ class _AdaptiveWave:
         items_per = torch.where(fvalid, (row_end - base_row + w - 1) // w, 0)
         c = torch.cumsum(items_per, 1)
         starts = c - items_per
-        idx = self.idx_k.expand(S, k).contiguous()
+        idx = self.idx_k.expand(L, k).contiguous()
         j = torch.searchsorted(c, idx, right=True).clamp(0, k - 1)
         base = base_row.gather(1, j) + (idx - starts.gather(1, j)) * w
         slot = base[..., None] + self.lanes
@@ -2197,13 +2220,13 @@ class _AdaptiveWave:
 
     def sparse_round(self, seen, frontier, F, fncount):
         sg, k = self.sg, self.k
-        S, block, nm = sg.n_shards, sg.block, sg.node_mask
-        msgs = segment.frontier_messages(sg, frontier)
+        S, L, block, nm = sg.n_shards, sg.n_local, sg.block, sg.node_mask
+        sends = self._sends(frontier)
         fvalid = self.idx_k < fncount
         slot, svalid = self._slots(F, fvalid)
-        svalid = svalid.reshape(S, -1)
+        svalid = svalid.reshape(L, -1)
         pos = sg.csr_pos.gather(
-            1, torch.where(svalid, slot.reshape(S, -1), 0)).long()
+            1, torch.where(svalid, slot.reshape(L, -1), 0)).long()
         evalid = svalid & self.flat_mask.gather(1, pos)
         cand = torch.where(evalid, self.flat_dst.gather(1, pos),
                            block - 1).long()
@@ -2212,14 +2235,13 @@ class _AdaptiveWave:
             # The frontier's runtime links: the global sender from the
             # ring step, membership by binary search in the sorted list
             # (the -1 sentinel never matches a node).
-            t = self.my[None, :, None]
-            g_send = (((self.my[:, None, None] - t) % S) * block
-                      + sg.dyn_src).reshape(-1)
+            g_send = (((self.my[:, None, None] - self.steps[None, :, None])
+                       % S) * block + sg.dyn_src).reshape(-1)
             probe = torch.sort(torch.where(fvalid, F, -1).long()).values
             j = torch.searchsorted(probe, g_send).clamp(0, k - 1)
-            member = (probe[j] == g_send).reshape(S, -1) \
-                & sg.dyn_mask.reshape(S, -1)
-            dcand = torch.where(member, sg.dyn_dst.reshape(S, -1),
+            member = (probe[j] == g_send).reshape(L, -1) \
+                & sg.dyn_mask.reshape(L, -1)
+            dcand = torch.where(member, sg.dyn_dst.reshape(L, -1),
                                 block - 1).long()
             dfresh = member & ~seen.gather(1, dcand) & nm.gather(1, dcand)
             cand = torch.cat([cand, dcand], 1)
@@ -2229,7 +2251,7 @@ class _AdaptiveWave:
         n_slots = cand.shape[1]
         order = torch.arange(n_slots, dtype=torch.int32, device=sg.device)
         claim = torch.where(fresh, order, _BIG)
-        scratch = torch.full((S, block), _BIG, dtype=torch.int32,
+        scratch = torch.full((L, block), _BIG, dtype=torch.int32,
                              device=sg.device)
         scratch.scatter_reduce_(1, cand, claim, "amin")
         winner = fresh & (scratch.gather(1, cand) == order)
@@ -2241,23 +2263,28 @@ class _AdaptiveWave:
         local_ids = torch.where(self.idx_k < local_count[:, None],
                                 self.my[:, None] * block
                                 + cand.gather(1, wpos), self.pad_id)
-        F, ncount = _pack_global_frontier(k, local_ids, local_count,
-                                          self.pad_id)
-        return seen, frontier, F, ncount, self.item_budget(F, ncount), msgs
+        F, ncount, (msgs, covered) = self._share(
+            local_ids, local_count, sends, self._covered(seen))
+        return (seen, frontier, F, ncount, self.item_budget(F, ncount),
+                msgs, covered)
 
     def dense_round(self, seen, frontier, F, fncount):
         sg = self.sg
-        msgs = segment.frontier_messages(sg, frontier)
+        sends = self._sends(frontier)
         new = self.pass_(frontier) & ~seen & sg.node_mask
         seen = seen | new
-        Fc, ncount = self.pack(new)
+        count = new.sum(1, dtype=torch.int32)
+        Fc, ncount, (msgs, covered) = self._share(
+            self.my_new_ids(new, count), count, sends, self._covered(seen))
         # The budget saturates when ncount > k, so the stale list kept
         # then is never read.
         F = torch.where(ncount <= self.k, Fc, F)
-        return seen, new, F, ncount, self.item_budget(F, ncount), msgs
+        return (seen, new, F, ncount, self.item_budget(F, ncount), msgs,
+                covered)
 
     def round(self, seen, frontier, F, fncount, ficount):
-        """One round, sparse when the budget fits ``k`` (one host read)."""
+        """One round, sparse when the budget fits ``k`` (one host read of
+        the budget, which every rank holds whole)."""
         self.n_rounds += 1
         if _device.host_bool(ficount <= self.k):
             self.sparse_rounds.append(self.n_rounds - 1)
@@ -2267,8 +2294,8 @@ class _AdaptiveWave:
 
 @dataclasses.dataclass(frozen=True)
 class _AdaptiveFloodState:
-    seen: torch.Tensor  # bool[S, block]
-    frontier: torch.Tensor  # bool[S, block]
+    seen: torch.Tensor  # bool[L, block]
+    frontier: torch.Tensor  # bool[L, block]
     F: torch.Tensor  # i32[k], replicated frontier list
     fncount: torch.Tensor  # i32[]
     ficount: torch.Tensor  # i32[]
@@ -2277,24 +2304,27 @@ class _AdaptiveFloodState:
 @dataclasses.dataclass(frozen=True)
 class _RingAdaptiveFlood:
     """The adaptive wave's round as a protocol of the port's engine, with
-    :class:`_RingFlood`'s stats, so the summary is the dense loop's."""
+    :class:`_RingFlood`'s stats, so the summary is the dense loop's: the
+    frontier's live count is the list's node count (every new node is
+    live), and the round's counts come with the list's exchange."""
 
     wave: _AdaptiveWave
 
     STATS = _RingFlood.STATS
 
     def coverage(self, sg, state) -> torch.Tensor:
-        return live_coverage(sg, state.seen)
+        return _RingFlood.coverage(self, sg, state)
 
     def step(self, sg, state: _AdaptiveFloodState, key):
-        seen, frontier, F_, fncount, ficount, msgs = self.wave.round(
-            state.seen, state.frontier, state.F, state.fncount,
-            state.ficount)
+        seen, frontier, F_, fncount, ficount, msgs, covered = \
+            self.wave.round(state.seen, state.frontier, state.F,
+                            state.fncount, state.ficount)
+        n = live_nodes(sg)
         stats = {
             "messages": msgs,
-            "coverage": live_coverage(sg, seen),
+            "coverage": _ratio(covered, n),
             "frontier": fncount,
-            "frontier_occupancy": F.occupancy(sg, frontier),
+            "frontier_occupancy": _ratio(fncount, n),
         }
         return _AdaptiveFloodState(seen, frontier, F_, fncount,
                                    ficount), stats
@@ -2326,7 +2356,7 @@ def _flood_adaptive(sg, mesh, source, coverage_target, max_rounds, state0,
     wave = _adaptive_wave(sg, mesh, comm, adaptive_k, mesh.axis_name)
     seen0, frontier0 = state0 if state0 is not None \
         else init_state(sg, Flood(source=source))
-    F0, ncount0 = wave.pack(frontier0)
+    F0, ncount0, _ = wave.pack(frontier0, seen0)
     state = _AdaptiveFloodState(seen0, frontier0, F0, ncount0,
                                 wave.item_budget(F0, ncount0))
     state, out = engine.run_until_coverage_from(
@@ -2346,24 +2376,21 @@ def _hopdist_adaptive(sg, mesh, protocol, coverage_target, max_rounds,
     round."""
     wave = _adaptive_wave(sg, mesh, comm, adaptive_k, axis_name)
     dist, frontier, rnd = _hopdist_state0(sg, protocol, state0)
-    nm = sg.node_mask
     n = _n_live(sg).to(torch.float32)
     target = torch.tensor(coverage_target, dtype=torch.float32,
                           device=sg.device)
-    seen = (dist >= 0) & nm
-    F_, fncount = wave.pack(frontier)
+    seen = (dist >= 0) & sg.node_mask
+    F_, fncount, covered = wave.pack(frontier, seen)
     ficount = wave.item_budget(F_, fncount)
-    covered = seen.sum(dtype=torch.int32)
     messages = torch.zeros((), dtype=torch.int64, device=sg.device)
     rounds = 0
     while rounds < max_rounds and _device.host_bool(
             (fncount > 0) & (covered.to(torch.float32) / n < target)):
-        seen, frontier, F_, fncount, ficount, msgs = wave.round(
+        seen, frontier, F_, fncount, ficount, msgs, covered = wave.round(
             seen, frontier, F_, fncount, ficount)
         messages = messages + msgs
         rnd = rnd + 1
         dist = torch.where(frontier, rnd, dist)
-        covered = (seen & nm).sum(dtype=torch.int32)
         rounds += 1
     LAST_SPARSE_ROUNDS[:] = wave.sparse_rounds
     return (dist, frontier, rnd), {
@@ -2747,11 +2774,13 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
     latch, the per-word sends and the union-frontier occupancy. One exit
     flag read a round. Returns the final ``[S, W, block]`` planes, the
     lane metadata and the run's device totals. With ``ring`` (a flight
-    ring) each round writes the engine's batch row, with the loop's
-    per-round byte estimate in ``ici_bytes``. On a ring split over ranks
-    a round's per-lane counts and sends are summed as one vector in one
-    exchange, so admit, retire and exit agree on every rank; the
-    occupancy's per-round counts in one more at the end."""
+    ring) the run writes the engine's batch row for each round, with the
+    loop's per-round byte estimate in ``ici_bytes``. On a ring split over
+    ranks a round's per-lane counts and sends are summed as one vector in
+    one exchange, so admit, retire and exit agree on every rank; the
+    occupancy's per-round counts (and, recorded, the per-word sends the
+    rows' ``new`` column adds) in one more at the end, integer numerators
+    summed before any division."""
     dev = sg.device
     wire = fault_round0 is not None and getattr(pass_.comm, "wants_step",
                                                 False)
@@ -2764,11 +2793,9 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
     admitted, target = batch.admitted, batch.target
     W = seen.shape[1]
     messages = torch.zeros((), dtype=torch.int64, device=dev)
-    occ_counts = []
-    if ring is not None:
-        ici = torch.full((), float(commviz.ici_round_bytes(
-            "batch", sg.n_shards, sg.block, n_words=W,
-            comm=pass_.comm.backend)), dtype=torch.float32, device=dev)
+    # A round's rank-local numerators (the union frontier's live count,
+    # recorded: the per-word sends) and, recorded, its whole-ring columns.
+    local, rows = [], []
     r = 0
     while r < max_rounds and _device.host_bool((admitted & ~done).any()):
         if wire:
@@ -2790,20 +2817,32 @@ def _ring_batch_loop(sg, pass_, batch, max_rounds, fault_round0, ring=None):
         rounds_l = rounds_l + live.to(torch.int32)
         running = admitted & ~done
         frontier = new & BS.pack_bits(running)[None, :, None]
-        occ_counts.append(((frontier != 0).any(dim=1) & nm).sum())
-        if ring is not None:  # one process only: the recorder refuses ranks
-            occ_r = occ_counts[-1].to(torch.float32) / n_live
-            # The engine's batch row; f32 sums in XLA's order.
-            flightrec.write_row(
-                ring, r, occupancy=occ_r,
-                new=accum.ordered_sum(words.to(torch.float32)),
-                total=flightrec.total_f32(*flightrec.limbs(messages)),
-                coverage=accum.ordered_sum(seen_count.to(torch.float32)),
-                active_lanes=running.sum(dtype=torch.int32), ici_bytes=ici)
+        occ_count = ((frontier != 0).any(dim=1) & nm).sum().reshape(1)
+        if ring is None:
+            local.append(occ_count)
+        else:
+            local.append(torch.cat([occ_count, words]))
+            # The engine's batch row's whole-ring columns; f32 sums in
+            # XLA's order.
+            rows.append(torch.stack([
+                flightrec.total_f32(*flightrec.limbs(messages)),
+                accum.ordered_sum(seen_count.to(torch.float32)),
+                running.sum().to(torch.float32)]))
         r += 1
     occ = torch.zeros((), dtype=torch.float32, device=dev)
-    for c in (_rank_sums(sg, *occ_counts) if occ_counts else ()):
-        occ = occ + c.to(torch.float32) / n_live
+    if local:
+        summed = _rank_sums(sg, torch.stack(local))[0]
+        for c in summed[:, 0]:
+            occ = occ + c.to(torch.float32) / n_live
+        if ring is not None:
+            total, coverage, active = torch.stack(rows).unbind(1)
+            flightrec.write_rows(
+                ring, 0, occupancy=summed[:, 0].to(torch.float32) / n_live,
+                new=rowsum.row_sum(summed[:, 1:].to(torch.float32)),
+                total=total, coverage=coverage, active_lanes=active,
+                ici_bytes=float(commviz.ici_round_bytes(
+                    "batch", sg.n_shards, sg.block, n_words=W,
+                    comm=pass_.comm.backend)))
     return ((seen, frontier, sent), (done, rounds_l, seen_count),
             (r, messages, occ))
 
@@ -2830,8 +2869,8 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
     loop's per-round byte estimate, ``parallel/commviz.py``) and
     attaches ``out["flight_record"]``; the results equal a run without
     it. On a ring split over ranks every rank makes the same call with
-    the same ``batch`` (replicated) and gets the same result; the
-    recorder and a fault-spec comm are refused there (ROADMAP.md)."""
+    the same ``batch`` (replicated) and gets the same result, its
+    recorded rows included."""
     chaos_device.dispatch_gate("sharded-batch")
     _require_lanes_layout(sg, "sharded run_batch_until_coverage")
     _check_mesh(sg, mesh)
@@ -2855,8 +2894,6 @@ def run_batch_until_coverage(sg: ShardedGraph, mesh: RingMesh, protocol,
             done=batch.done | (batch.admitted & (seen_count.to(
                 torch.float32) / n_live >= batch.target)))
         pass_ = _make_or_lanes_pass(sg, comm, axis_name)
-        if recorder is not None:
-            refuse_ranks(sg, "the ring's flight recorder (recorder=)")
         ring = None if recorder is None else recorder.init(sg.device)
         planes, lanes, (r, messages, occ) = _ring_batch_loop(
             sg, pass_, batch, max_rounds, fault_round0, ring)

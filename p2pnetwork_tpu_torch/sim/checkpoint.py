@@ -453,11 +453,32 @@ def _shard_file(d: int) -> str:
 
 
 def _per_shard(leaf) -> bool:
-    """Whether a state leaf is per-shard (axis 0 the shards held here):
-    a tensor of two or more dimensions, as every ring state's
-    ``[n_local, block, ...]`` and topology leaf is. Fewer dimensions
-    (walk positions, counters, keys) are replicated on every rank."""
+    """The default placement of a state leaf: per-shard (axis 0 the
+    shards held here) for a tensor of two or more dimensions, as every
+    ring state's ``[n_local, block, ...]`` and topology leaf is;
+    replicated on every rank otherwise (walk positions, counters, keys).
+    A state with another layout names it (``per_shard=``)."""
     return isinstance(leaf, torch.Tensor) and leaf.dim() >= 2
+
+
+def _placement(state, per_shard) -> List[bool]:
+    """Each leaf's placement, in flattening order: from ``per_shard`` (a
+    tree of the state's structure holding a bool a leaf, True for a
+    leaf split over the ring's shards on axis 0) when given, else
+    :func:`_per_shard`'s default."""
+    leaves = [x for x, _ in _leaves(state)]
+    if per_shard is None:
+        return [_per_shard(x) for x in leaves]
+    if treedef_str(per_shard) != treedef_str(state):
+        raise ValueError(f"per_shard does not match the state's structure:"
+                         f"\n  per_shard: {treedef_str(per_shard)}\n  "
+                         f"state: {treedef_str(state)}")
+    flags = [bool(f) for f, _ in _leaves(per_shard)]
+    for i, (x, f) in enumerate(zip(leaves, flags)):
+        if f and not (isinstance(x, torch.Tensor) and x.dim() >= 1):
+            raise ValueError(f"leaf {i} is placed per-shard but has no "
+                             f"shard axis (a tensor of >= 1 dimension)")
+    return flags
 
 
 def _ring_layout(n_local: Optional[int]):
@@ -482,12 +503,20 @@ def _ring_layout(n_local: Optional[int]):
             group)
 
 
-def _n_local(leaves) -> Optional[int]:
-    sizes = {int(x.shape[0]) for x in leaves if _per_shard(x)}
+def _n_local(leaves, flags) -> Optional[int]:
+    sizes = {int(x.shape[0]) for x, f in zip(leaves, flags) if f}
     if len(sizes) > 1:
         raise ValueError(f"per-shard leaves disagree on the shards held "
-                         f"here: {sorted(sizes)}")
+                         f"here: {sorted(sizes)}; a state of other leaves "
+                         f"names each leaf's placement (per_shard=)")
     return sizes.pop() if sizes else None
+
+
+def _global_shape(x, per_shard: bool, S: int) -> list:
+    """A leaf's shape in the whole ring: axis 0 the ``S`` shards for a
+    per-shard leaf, its own shape for a replicated one."""
+    shape = list(_dtype_shape(x)[1])
+    return [S] + shape[1:] if per_shard else shape
 
 
 def _barrier(world: int, group) -> None:
@@ -498,7 +527,7 @@ def _barrier(world: int, group) -> None:
 
 
 def save_orbax(path: str, state: Any, key, round_index: int,
-               message_count: int = 0) -> None:
+               message_count: int = 0, *, per_shard=None) -> None:
     """Checkpoint a ring state (``[n_local, ...]`` leaves on each rank of
     a ring split over processes, or the whole ``[S, ...]`` in one) into
     the directory ``path``, created or overwritten. Every rank of the
@@ -511,9 +540,17 @@ def save_orbax(path: str, state: Any, key, round_index: int,
     barrier, rank 0 writes :data:`MANIFEST` (the shard count, the block,
     the world at save, the key, round and message counters, the leaves'
     global shapes and each shard file's digest). The ring is the process
-    group's (``multihost.hierarchical_ring_mesh``'s order)."""
+    group's (``multihost.hierarchical_ring_mesh``'s order).
+
+    Each leaf's placement, the counterpart of the reference's array
+    sharding, is per-shard (axis 0 the shards held here) or replicated
+    (the same whole value on every rank): ``per_shard`` names it, a tree
+    of the state's structure with a bool a leaf; by default a tensor of
+    two or more dimensions is per-shard and any other leaf replicated.
+    The manifest records it."""
     leaves = [x for x, _ in _leaves(state)]
-    S, lo, L, world, group = _ring_layout(_n_local(leaves))
+    flags = _placement(state, per_shard)
+    S, lo, L, world, group = _ring_layout(_n_local(leaves, flags))
     rank0 = lo == 0
     if rank0:  # a stale manifest never outlives the files it names
         os.makedirs(path, exist_ok=True)
@@ -523,8 +560,8 @@ def save_orbax(path: str, state: Any, key, round_index: int,
     _barrier(world, group)
     digests = {}
     for i in range(L):
-        row = _unflatten(state, [x[i] if _per_shard(x) else x
-                                 for x in leaves])
+        row = _unflatten(state, [x[i] if f else x
+                                 for x, f in zip(leaves, flags)])
         name = _shard_file(lo + i)
         save(os.path.join(path, name), row, key, round_index, message_count)
         digests[name] = _stored_digest(os.path.join(path, name))
@@ -535,19 +572,17 @@ def save_orbax(path: str, state: Any, key, round_index: int,
         dist.all_gather_object(parts, digests, group=group)
         digests = {k: v for p in parts for k, v in p.items()}
     if rank0:
-        blocks = [int(x.shape[1]) for x in leaves
-                  if _per_shard(x) and x.dim() == 2]
+        blocks = [int(x.shape[1]) for x, f in zip(leaves, flags)
+                  if f and x.dim() == 2]
         manifest = {
             "format": SHARDED_FORMAT, "version": 1, "n_shards": S,
             "block": blocks[0] if blocks else None, "world": world,
             "key": [int(k) for k in prng.key_data(key)],
             "round": int(round_index), "messages": int(message_count),
             "treedef": treedef_str(state),
-            "leaves": [{"per_shard": _per_shard(x),
-                        "shape": ([S] if _per_shard(x) else [])
-                        + list(_dtype_shape(x)[1][int(_per_shard(x)):]),
+            "leaves": [{"per_shard": f, "shape": _global_shape(x, f, S),
                         "dtype": str(_dtype_shape(x)[0])}
-                       for x in leaves],
+                       for x, f in zip(leaves, flags)],
             "files": dict(sorted(digests.items()))}
         tmp = os.path.join(path, MANIFEST + ".tmp")
         with open(tmp, "w") as f:
@@ -583,11 +618,16 @@ def read_manifest(path: str) -> dict:
     return manifest
 
 
-def load_orbax(path: str, template: Any) -> Tuple[Any, np.ndarray, int, int]:
+def load_orbax(path: str, template: Any, *, per_shard=None
+               ) -> Tuple[Any, np.ndarray, int, int]:
     """Restore a :func:`save_orbax` directory onto ``template``'s ring: a
     state of the same structure laid out as the resumed run holds it
     (``[n_local, ...]`` per-shard leaves on each rank, at any world that
     divides the saved shard count, or ``[S, ...]`` in one process).
+    Each leaf lands as the template places it, the reference's restore by
+    the template's sharding: ``per_shard`` (as in :func:`save_orbax`)
+    names the template's layout, by default the one the manifest
+    recorded at save; a leaf placed otherwise than saved is refused.
     Every rank reads only its own shards' files, each verified against
     its own digest and the manifest's. Returns ``(state, key,
     round_index, message_count)``."""
@@ -597,19 +637,24 @@ def load_orbax(path: str, template: Any) -> Tuple[Any, np.ndarray, int, int]:
         raise ValueError(f"checkpoint structure mismatch:\n  saved: "
                          f"{manifest['treedef']}\n  template: "
                          f"{treedef_str(template)}")
-    S, lo, L, world, _ = _ring_layout(_n_local(t_leaves))
+    flags = ([bool(leaf["per_shard"]) for leaf in manifest["leaves"]]
+             if per_shard is None else _placement(template, per_shard))
+    S, lo, L, world, _ = _ring_layout(_n_local(t_leaves, flags))
     if S != manifest["n_shards"]:
         raise ValueError(
             f"{path!r} holds a ring of {manifest['n_shards']} shards, the "
             f"template's ring has {S} ({L} a rank at world {world})")
-    for i, (x, saved) in enumerate(zip(t_leaves, manifest["leaves"])):
-        shape = ([S] if _per_shard(x) else []) + list(
-            _dtype_shape(x)[1][int(_per_shard(x)):])
-        if (saved["per_shard"], saved["shape"]) != (_per_shard(x), shape):
-            raise ValueError(f"leaf {i}: saved {saved['shape']}, the "
-                             f"template's ring holds {shape}")
-    row_template = _unflatten(template, [x[0] if _per_shard(x) else x
-                                         for x in t_leaves])
+    for i, (x, f, saved) in enumerate(zip(t_leaves, flags,
+                                          manifest["leaves"])):
+        shape = _global_shape(x, f, S)
+        if (saved["per_shard"], saved["shape"]) != (f, shape):
+            raise ValueError(
+                f"leaf {i}: saved {saved['shape']} "
+                f"({'per-shard' if saved['per_shard'] else 'replicated'}), "
+                f"the template's ring holds {shape} "
+                f"({'per-shard' if f else 'replicated'})")
+    row_template = _unflatten(template, [x[0] if f else x
+                                         for x, f in zip(t_leaves, flags)])
     rows = []
     for d in range(lo, lo + L):
         name = _shard_file(d)
@@ -618,8 +663,8 @@ def load_orbax(path: str, template: Any) -> Tuple[Any, np.ndarray, int, int]:
             raise CheckpointCorrupt(where, expected=manifest["files"].get(
                 name), actual=_stored_digest(where))
         rows.append([x for x, _ in _leaves(load(where, row_template)[0])])
-    leaves = [torch.stack([r[i] for r in rows]) if _per_shard(x) else
-              rows[0][i] for i, x in enumerate(t_leaves)]
+    leaves = [torch.stack([r[i] for r in rows]) if f else rows[0][i]
+              for i, f in enumerate(flags)]
     key = prng.wrap_key_data(np.asarray(manifest["key"], dtype=np.uint32))
     return (_unflatten(template, leaves), key, int(manifest["round"]),
             int(manifest["messages"]))

@@ -38,7 +38,7 @@ import torch
 from p2pnetwork_tpu_torch import _device
 
 __all__ = ["REC_COLS", "FlightRecorder", "FlightRecord", "write_row",
-           "total_f32", "limbs", "trim"]
+           "write_rows", "total_f32", "limbs", "trim"]
 
 #: Column order of one per-round record.
 REC_COLS = ("round", "occupancy", "new", "total", "coverage",
@@ -91,6 +91,34 @@ def write_row(ring: torch.Tensor, round_index: int, *, occupancy, new,
     if live is not None:
         row = torch.where(live, row, ring[slot])
     ring[slot] = row
+    return ring
+
+
+def write_rows(ring: torch.Tensor, round0: int, *, occupancy, new, total,
+               coverage, active_lanes, ici_bytes) -> torch.Tensor:
+    """Write the rows of rounds ``round0 .. round0 + R - 1`` at once, in
+    place, and return ``ring``: each column a ``[R]`` tensor or a host
+    number for every row, as :func:`write_row` would write them one by
+    one (a run longer than the capacity keeps its last rows). A loop that
+    learns a column only at the end of its run (a ring split over ranks
+    sums its rows' numerators in one exchange a run) writes its rows
+    here, in one indexed store."""
+    dev, cap = ring.device, ring.shape[0]
+    cols = (occupancy, new, total, coverage, active_lanes, ici_bytes)
+    n = next(int(c.numel()) for c in cols if isinstance(c, torch.Tensor))
+    keep = min(n, cap)
+    first = int(round0) + n - keep
+    rounds = torch.arange(first + 1, first + keep + 1, dtype=torch.float32,
+                          device=dev)
+
+    def col(v):
+        if isinstance(v, torch.Tensor):
+            return v.to(torch.float32).reshape(-1)[n - keep:]
+        return torch.full((keep,), float(v), dtype=torch.float32, device=dev)
+
+    rows = torch.stack([rounds] + [col(c) for c in cols], dim=1)
+    slots = torch.arange(first, first + keep, device=dev) % cap
+    ring[slots] = rows
     return ring
 
 

@@ -105,7 +105,8 @@ class TorchSimNode(Node):
     and PushSum as the reference's backend dispatches them. There
     ``adaptive_k > 0`` (Flood and HopDistance) shards the graph with its
     sender-CSR view and runs ``run_until_coverage`` through the ring's
-    frontier-adaptive loop, with the same results.
+    frontier-adaptive loop, with the same results (on a ring split over
+    ranks too).
 
     On a ring split over ranks (``parallel.multihost.
     hierarchical_ring_mesh``) every rank runs its own node over its

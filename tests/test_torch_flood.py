@@ -21,10 +21,10 @@ from p2pnetwork_tpu_torch import _device, interop, prng  # noqa: E402
 from p2pnetwork_tpu_torch.models import adaptive_flood as TA  # noqa: E402
 from p2pnetwork_tpu_torch.models import flood as TF  # noqa: E402
 from p2pnetwork_tpu_torch.ops import segsum  # noqa: E402
+from p2pnetwork_tpu_torch.parallel import auto as TAUTO  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
-from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
+from p2pnetwork_tpu_torch.parallel import multihost as TMH  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
-from p2pnetwork_tpu_torch.sim import flightrec  # noqa: E402
 from tests.test_torch_graph import (FAMILIES, LAYOUTS, build_jax,  # noqa: E402
                                     build_port, graph_fields, state_fields)
 
@@ -166,27 +166,26 @@ def _carry_with(field):
     return call
 
 
-# What is still not ported raises, never runs as something else: the
-# frontier-adaptive loop and the flight recorder on a ring split over
-# ranks (rank 0's part of a 2-rank ring, which raises before any
-# exchange), graph and batch fields the port does
-# not model (interop refuses them rather than dropping them; edge weights
-# and the node relabeling are carried since they were ported, in
+# What is still not ported raises, never runs as something else: GSPMD's
+# automatic partitioning over a ring split over ranks, on a ring mesh and
+# on the 2-D mesh (rank 0's part of a 2-rank ring, which raises before
+# any exchange), graph and batch fields the port does not model (interop
+# refuses them rather than dropping them; edge weights and the node
+# relabeling are carried since they were ported, in
 # test_torch_semiring.py and test_torch_layout.py) and a weighted choice
 # without replacement. The ring's flight recorder and its
 # frontier-adaptive loop, once held here, are ported and checked in
-# test_torch_ring_recorder.py and test_torch_ring_adaptive.py, and in
-# one process they run. The flood options this test once held (methods
-# frontier and skew, bitset=True) are ported and checked in
-# test_torch_frontier.py and test_torch_skew.py, and the orbax
+# test_torch_ring_recorder.py and test_torch_ring_adaptive.py, and across
+# ranks in test_torch_multihost_adaptive.py. The flood options this test
+# once held (methods frontier and skew, bitset=True) are ported and
+# checked in test_torch_frontier.py and test_torch_skew.py, and the orbax
 # checkpoints (the port's own sharded format, save_orbax/load_orbax) in
 # test_torch_checkpoint.py and test_torch_multihost_protocols.py.
 @pytest.mark.parametrize("proto", [
-    lambda tg: TS.flood_until_coverage(
-        TS.shard_graph(tg, RANK0, source_csr=True), RANK0, 0, adaptive_k=16),
-    lambda tg: TS.flood_until_coverage(
-        TS.shard_graph(tg, RANK0), RANK0, 0,
-        recorder=flightrec.FlightRecorder(8)),
+    lambda tg: TAUTO.shard_graph_auto(tg, RANK0),
+    lambda tg: TAUTO.shard_graph_auto(tg, TMH.Mesh2D(
+        grid=np.arange(8).reshape(2, 4), axis_names=("dcn", "ici"),
+        ring=RANK0), axis_name="ici"),
     _carry_with("delta_log"),
     lambda tg: prng.choice(prng.key(0), 4, (2,), replace=False,
                            p=torch.ones(4), device="cpu"),

@@ -38,13 +38,11 @@ from p2pnetwork_tpu.parallel import sharded as JS  # noqa: E402
 from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu.sim import graph as JG  # noqa: E402
 from p2pnetwork_tpu_torch import prng  # noqa: E402
-from p2pnetwork_tpu_torch.chaos import device as chaos_device  # noqa: E402
 from p2pnetwork_tpu_torch.models import Flood  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import auto as TA  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import multihost  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
-from p2pnetwork_tpu_torch.sim import flightrec  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
 from tests import torch_rank_worker as W  # noqa: E402
@@ -261,14 +259,10 @@ def _rank_part(**kw):
     return TS.shard_graph(g, mesh, **kw), mesh, g
 
 
+# The adaptive loop, the recorder and a fault-spec comm, once refused
+# here, run across ranks: tests/test_torch_multihost_adaptive.py holds
+# them to the JAX ring and the one-process port.
 REFUSALS = {
-    "adaptive_k": lambda: TS.flood_until_coverage(
-        *_rank_part(source_csr=True)[:2], 0, adaptive_k=16),
-    "recorder": lambda: TS.flood_until_coverage(
-        *_rank_part()[:2], 0, recorder=flightrec.FlightRecorder(8)),
-    "fault-spec": lambda: TS.flood_until_coverage(
-        *_rank_part()[:2], 0, comm=chaos_device.FaultSpec(
-            chaos_device.FaultSchedule(seed=1, zero=0.5), "ppermute")),
     "auto": lambda: TA.shard_graph_auto(_rank_part()[2], _rank_part()[1]),
 }
 

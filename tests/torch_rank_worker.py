@@ -509,3 +509,200 @@ def card_payload(n_shards: int, payload: str) -> dict:
                               f"{ext is not None}")
     torch.cuda.synchronize()
     return {"errors": errors, "checked": checked}
+
+
+# ---------------------------------- the ring's last refusals, by rank
+
+#: ``adaptive``'s parameters (``tests/test_torch_multihost_adaptive.py``
+#: runs the JAX ring and the one-process port on the same ones).
+ADAPTIVE_K = 16
+#: The recorders' ring: shorter than the runs, so the rows wrap.
+REC_CAPACITY = 4
+#: The reference's faulted-flood schedule (``chip_smoke.py``
+#: ``RING_FAULTS``, from its ``tests/test_graftquake.py``).
+RING_FAULTS = dict(seed=5, corrupt=0.05, zero=0.1, delay=0.1)
+FAULT_KINDS = ("corrupt", "zero", "delay")
+#: The placed checkpoint's layout: the flood's seen set and each shard's
+#: covered count per shard (a leaf of two dimensions and one of one), the
+#: lane batch's seen words (``[words, nodes]``) replicated.
+PLACED = {"seen": True, "lanes": False, "counts": True}
+
+
+def _fault_counts() -> dict:
+    from p2pnetwork_tpu_torch import telemetry
+
+    reg = telemetry.default_registry()
+    return {k: reg.value("chaos_device_faults_total", kind=k)
+            for k in FAULT_KINDS}
+
+
+def _record(fr) -> dict:
+    """A flight record's rows (compared by bits) and wrap accounting."""
+    return {"rows": fr.rows, "rounds": fr.rounds, "dropped": fr.dropped}
+
+
+def placed_state(sg, seen, batch_seen) -> dict:
+    """The placed checkpoint's state on this rank (``PLACED``)."""
+    return {"seen": seen.to(torch.int32), "lanes": batch_seen,
+            "counts": (seen & sg.node_mask).sum(1)}
+
+
+def adaptive(n_shards: int, ckpt_dir: str, save: bool = False,
+             device: str = "cpu") -> dict:
+    """What the ring refused across ranks before, on this rank's shards
+    of ``n_shards`` (all of them in one process): on every layout the
+    frontier-adaptive flood and hop distance, the recorded dense flood
+    and the faulted flood (``RING_FAULTS``); on ``segment`` the recorded
+    lane ring beside its plain run; the hop census by host (``per_host``
+    half the world); the placed checkpoint saved when ``save``, then
+    restored. Each run also says how many exchanges it made."""
+    torch.set_num_threads(1)
+    from p2pnetwork_tpu_torch.chaos import device as chaos_device
+    from p2pnetwork_tpu_torch.models import HopDistance
+    from p2pnetwork_tpu_torch.models.messagebatch import BatchFlood
+    from p2pnetwork_tpu_torch.parallel import commviz
+    from p2pnetwork_tpu_torch.parallel import mesh as M
+    from p2pnetwork_tpu_torch.parallel import multihost, sharded
+    from p2pnetwork_tpu_torch.sim import checkpoint, flightrec
+    from p2pnetwork_tpu_torch.sim import graph as G
+
+    multihost.initialize_distributed()
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards,
+                                            device=device)
+    g = G.watts_strogatz(*GRAPH, seed=0, device=mesh.device)
+    out = {"rank": mesh.rank, "world": mesh.world}
+
+    def run(name, fn, rows, same):
+        """Record run ``name``: ``rows(result)`` its per-shard arrays,
+        ``same(result)`` its whole-ring values, and its exchanges."""
+        e0 = M.EXCHANGES
+        result = fn()
+        out[name] = _rows_and_same(rows(result), exchanges=M.EXCHANGES - e0,
+                                   **same(result))
+
+    for layout, kw in LAYOUTS.items():
+        sg = sharded.shard_graph(g, mesh, source_csr=True, **kw)
+        run(f"adaptive-{layout}",
+            lambda: sharded.flood_until_coverage(sg, mesh, 0,
+                                                 adaptive_k=ADAPTIVE_K),
+            lambda r: {"seen": r[0]},
+            lambda r: dict(out=r[1], sparse=list(sharded.LAST_SPARSE_ROUNDS)))
+        run(f"adaptive_hop-{layout}",
+            lambda: sharded.hopdist_until_coverage(
+                sg, mesh, HopDistance(source=0), adaptive_k=ADAPTIVE_K),
+            lambda r: {"dist": r[0][0], "frontier": r[0][1]},
+            lambda r: dict(round=r[0][2], out=r[1],
+                           sparse=list(sharded.LAST_SPARSE_ROUNDS)))
+        run(f"recorded-{layout}",
+            lambda: sharded.flood_until_coverage(
+                sg, mesh, 0, recorder=flightrec.FlightRecorder(
+                    REC_CAPACITY)),
+            lambda r: {"seen": r[0]},
+            lambda r: dict(out={k: v for k, v in r[1].items()
+                                if k != "flight_record"},
+                           record=_record(r[1]["flight_record"])))
+        c0 = _fault_counts()
+        spec = chaos_device.FaultSpec(
+            chaos_device.FaultSchedule(**RING_FAULTS), "ppermute")
+        run(f"faulted-{layout}",
+            lambda: sharded.flood_until_coverage(sg, mesh, 0, max_rounds=64,
+                                                 comm=spec),
+            lambda r: {"seen": r[0]},
+            lambda r: dict(out=r[1], faults={
+                k: v - c0[k] for k, v in _fault_counts().items()}))
+    sg = sharded.shard_graph(g, mesh, source_csr=True)
+    proto = BatchFlood(method="segment")
+    for name, rec in (("lanes", None), ("lanes_recorded",
+                                        flightrec.FlightRecorder(
+                                            REC_CAPACITY))):
+        run(name, lambda: sharded.run_batch_until_coverage(
+            sg, mesh, proto, proto.init(g, lane_sources(g.n_nodes),
+                                        coverage_target=0.99),
+            max_rounds=64, recorder=rec),
+            lambda r: {},
+            lambda r: dict(seen=r[0].seen, out={
+                k: v for k, v in r[1].items() if k != "flight_record"},
+                record=(_record(r[1]["flight_record"])
+                        if "flight_record" in r[1] else None)))
+    out["census"] = commviz.ring_hop_census(
+        sg, mesh, multihost.host_of(mesh, max(mesh.world // 2, 1)))
+    out["node"] = adaptive_node(g, mesh)
+    seen, _ = sharded.flood_until_coverage(sg, mesh, 0, adaptive_k=ADAPTIVE_K)
+    state = placed_state(sg, seen, out["lanes"]["same"]["seen"])
+    state["lanes"] = torch.from_numpy(state["lanes"]).to(mesh.device)
+    path = f"{ckpt_dir}/placed"
+    if save:
+        checkpoint.save_orbax(path, state, prng_key(), 3, 7,
+                              per_shard=PLACED)
+    restored, key, rnd, msgs = checkpoint.load_orbax(path, state,
+                                                     per_shard=PLACED)
+    out["placed"] = _rows_and_same(
+        {k: restored[k] for k in ("seen", "counts")},
+        lanes=restored["lanes"], key=key, round=rnd, messages=msgs,
+        equal=all(torch.equal(restored[k], state[k]) for k in state))
+    return out
+
+
+def adaptive_node(g, mesh) -> dict:
+    """A Flood ``TorchSimNode`` on the ring with ``adaptive_k``: a round,
+    then the run to 0.99 through the frontier-adaptive loop. Its events,
+    summary, rows and sparse rounds."""
+    from p2pnetwork_tpu_torch.models import Flood
+    from p2pnetwork_tpu_torch.parallel import sharded
+    from p2pnetwork_tpu_torch.sim.simnode import TorchSimNode
+
+    rec = NodeEvents()
+    node = TorchSimNode(graph=g, protocol=Flood(source=0), seed=0,
+                        callback=rec, mesh=mesh, adaptive_k=ADAPTIVE_K)
+    node.run_rounds(1)
+    summary = node.run_until_coverage(0.99)
+    return _rows_and_same({"seen": node.sim_state[0]}, summary=summary,
+                          events=rec.events,
+                          sparse=list(sharded.LAST_SPARSE_ROUNDS),
+                          counters=(node.sim_round, node.sim_message_count))
+
+
+def prng_key():
+    from p2pnetwork_tpu_torch import prng
+
+    return prng.key(KEYS["ckpt"])
+
+
+def census(n_shards: int, per_host: int, device: str = "cpu") -> dict:
+    """The hop census by host of the flood on this rank's ring."""
+    torch.set_num_threads(1)
+    from p2pnetwork_tpu_torch.parallel import commviz, multihost, sharded
+    from p2pnetwork_tpu_torch.sim import graph as G
+
+    multihost.initialize_distributed()
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards,
+                                            device=device)
+    g = G.watts_strogatz(256, 6, 0.2, seed=0, device=mesh.device)
+    return commviz.ring_hop_census(sharded.shard_graph(g, mesh), mesh,
+                                   multihost.host_of(mesh, per_host))
+
+
+def restore_placed(n_shards: int, ckpt_dir: str) -> dict:
+    """The placed checkpoint of :func:`adaptive` restored onto this
+    rank's shards of a fresh ring (world 1 through the launcher): the
+    template the rank's own zeros, laid out as ``PLACED``."""
+    torch.set_num_threads(1)
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from p2pnetwork_tpu_torch.sim import checkpoint
+
+    multihost.initialize_distributed()
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards, device="cpu")
+    path = f"{ckpt_dir}/placed"
+    manifest = checkpoint.read_manifest(path)
+    shapes = {k: leaf["shape"] for k, leaf in zip(sorted(PLACED),
+                                                  manifest["leaves"])}
+    template = {
+        "seen": torch.zeros((mesh.n_local, manifest["block"]),
+                            dtype=torch.int32),
+        "lanes": torch.zeros(shapes["lanes"], dtype=torch.int32),
+        "counts": torch.zeros(mesh.n_local, dtype=torch.int64)}
+    restored, key, rnd, msgs = checkpoint.load_orbax(path, template,
+                                                     per_shard=PLACED)
+    return {"placed": _rows_and_same(
+        {k: restored[k] for k in ("seen", "counts")},
+        lanes=restored["lanes"], key=key, round=rnd, messages=msgs)}
