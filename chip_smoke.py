@@ -300,11 +300,19 @@ Phases, in order; any failure exits non-zero before the result line:
    (``EXPECTED_1M``, the gathered ``seen`` against
    ``EXPECTED_RING_SEEN``, launches per rank ``RANK_LAUNCHES``, walls of
    3, syncs), the churn step against world 1's, B2 and B3 across ranks
-   against their plain versions and the global roll (``kernel`` lines:
-   bool and f32 ``[n_local, 125008]``, B3 on the real step-0 buckets,
-   ``library_ms`` the same bytes copied into the peer slot by ``copy_``),
-   ``ORDERING_STEPS`` hops with the last rank held back, every block
-   checked, and 4t's gossip rung (``EXPECTED_RING_GOSSIP``). A rank that
+   against their plain versions (``kernel`` lines): a pass's one exchange
+   (``ring_gather``: bool ``[n_local, 125008]`` at both worlds, f32 and
+   i32 at world 2, against the ring's stack; ``library_ms`` NCCL's
+   ``all_gather_into_tensor`` where NCCL takes the ranks, else its error
+   in ``library_error``), the pass kernel (``ring_pass_segsum_*`` on the
+   real ``mxu`` buckets of every step, ``library_ms`` one ``scatter_add_``
+   of every step's terms), the hop (``ring_put``, bool, against the
+   global roll; ``library_ms`` the same bytes copied into the peer slot
+   by ``copy_``), a pass's movement both ways (``move``: 7 hops against
+   one gather, each with 16-byte shards too, in turns),
+   ``ORDERING_STEPS`` hops and ``GATHER_ORDERING_STEPS`` gathers with the
+   last rank held back, every block checked, and 4t's gossip rung
+   (``EXPECTED_RING_GOSSIP``). A rank that
    raises must fail its launch. Slice 15 (worlds 8 then 2): 4t's
    protocol runs on the ring split over ranks (``RANK_PROTOCOLS``: at
    world 2 SIR ``exact``, PageRank and push-sum with their run-to-*
@@ -317,8 +325,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``EXPECTED_BATCH``, ``EXPECTED_MESH_PAGERANK``) and to 4t's world-1
    runs, every rank's launches to ``RANK_PROTOCOL_LAUNCHES``; SIR's
    status saved at world 8 (``save_orbax``) and restored at world 2,
-   equal to the uninterrupted run's; B2 across ranks on i32 and on the
-   lane words, B3's sum form (``kernel`` lines). Phase 4w (slice 16), in
+   equal to the uninterrupted run's; the gather on the lane words, the
+   pass kernel's sum form (``kernel`` lines). Phase 4w (slice 16), in
    the same rank processes after each layout's 4v runs
    (``ADAPTIVE_RANK_RUNS``): at world 2 the frontier-adaptive flood
    (``adaptive_k=ADAPTIVE_K``) on every layout, the adaptive hop distance
@@ -346,13 +354,14 @@ Phases, in order; any failure exits non-zero before the result line:
    batch recorder and 4t's totals over the shards; 4t's rows: B3's sum
    form, B1's stacked sum, B2 on f32, on i32 and on the lane words, the
    row sums at ``[8, 125008]`` and at gossip's ``[8, 12512]``; 4v's
-   rows: B2 across ranks at worlds 2 and 8 and on f32, i32 and the lane
-   words, B3 across ranks at worlds 2 and 8 and its sum form, their
-   launches summed over every rank; 4v's protocol runs' B1 sums,
-   threefry draws and row sums join those rows; 4w's B2 and B3 puts join
-   the cross-rank rows of their world, its B1 OR launches (with 4v's
-   floods' and the traced flood's), corrupt-bit draws and lane puts and
-   row sums theirs), then the
+   rows: B2's hop across ranks at worlds 2 and 8 (the re-mask's, the
+   faulted floods' and the census's hops), the gather at worlds 2 and 8
+   and on f32, i32 and the lane words, the pass kernel at worlds 2 and 8
+   and its sum form, their launches summed over every rank; 4v's
+   protocol runs' B1 sums, threefry draws and row sums join those rows;
+   4w's hops, gathers and pass kernels join the cross-rank rows of their
+   world, its B1 OR launches (with 4v's floods' and the traced flood's),
+   corrupt-bit draws and lane gathers and row sums theirs), then the
    last line
    ``{"ok": true, "device": {...}}``.
 
@@ -5990,16 +5999,21 @@ def planner_path(bg, serve, graph_mod, capacity, gpu: str) -> None:
 RANK_WORLDS = (8, 2)  # world 8 saves the checkpoint world 2 restores
 RANK_TIMEOUT = 420
 ORDERING_STEPS = 256
+GATHER_ORDERING_STEPS = 64
 RANK_CHURN = dict(fail=(3, N_NODES // 2), capacity=8,
                   link=([1], [N_NODES - 2]), target=0.9)
 #: Launches of the cross-rank kernels and B1 per rank per 1M flood to
-#: 0.99 (11 rounds, 7 hops a round): B2's put (and its land) under
-#: ``segment`` and ``hybrid``, B3's under ``mxu`` with B1 on the peeled
-#: step; B1 on every step's remainder under ``hybrid``.
+#: 0.99 (11 rounds, a pass a round): one gather a pass (B2 across ranks:
+#: the pass's blocks in one exchange, no hop), and on the MXU layouts
+#: (``mxu``; ``hybrid``'s remainder) one pass kernel a pass (B3 across
+#: ranks: every step's sums in one launch), no B1.
 RANK_LAUNCHES = {
-    "segment": {"put": 77, "put_segsum": 0, "land": 77, "segsum": 0},
-    "hybrid": {"put": 77, "put_segsum": 0, "land": 77, "segsum": 88},
-    "mxu": {"put": 0, "put_segsum": 77, "land": 77, "segsum": 11}}
+    "segment": {"put": 0, "land": 0, "gather": 11, "pass_segsum": 0,
+                "segsum": 0},
+    "hybrid": {"put": 0, "land": 0, "gather": 11, "pass_segsum": 11,
+               "segsum": 0},
+    "mxu": {"put": 0, "land": 0, "gather": 11, "pass_segsum": 11,
+            "segsum": 0}}
 #: 4v's protocol runs (slice 15; 4t's ``ring_runs`` on a ring split over
 #: ranks), by world and layout: at world 2 4t's SIR, PageRank and
 #: push-sum on ``mxu`` and ``hybrid``, hop distance and election on
@@ -6016,15 +6030,11 @@ RANK_PROTOCOLS = {
 
 
 def _rank_pass(layout: str, passes: int) -> dict:
-    """A rank's launches for ``passes`` sum passes (S - 1 hops each): B3's
-    sum form across ranks on ``mxu`` with B1 on the peeled step, B2's
-    f32 put with B1 at every step on ``hybrid``; a land after each put."""
-    hops = (RING_SHARDS - 1) * passes
-    if layout == "mxu":
-        return {"put": 0, "put_segsum": hops, "land": hops,
-                "segsum": passes}
-    return {"put": hops, "put_segsum": 0, "land": hops,
-            "segsum": RING_SHARDS * passes}
+    """A rank's launches for ``passes`` sum passes on the MXU layouts
+    (``mxu``, ``hybrid``): a gather and a pass kernel each, no hop, no
+    B1."""
+    return {"put": 0, "land": 0, "gather": passes, "pass_segsum": passes,
+            "segsum": 0}
 
 
 #: Predicted, before the first run: each protocol run's launches by kernel
@@ -6050,24 +6060,22 @@ RANK_PROTOCOL_LAUNCHES = {
            ("pushsum", RING_PS_ROUNDS),
            ("pushsum_until", EXPECTED_RING["pushsum_until"]["rounds"]))},
     **{f"{name}-segment": {
-        "put": (RING_SHARDS - 1) * EXPECTED_ANALYTICS[key]["rounds"],
-        "put_segsum": 0,
-        "land": (RING_SHARDS - 1) * EXPECTED_ANALYTICS[key]["rounds"],
-        "segsum": 0, "threefry": 0, "rowsum": 0}
+        "put": 0, "land": 0, "gather": EXPECTED_ANALYTICS[key]["rounds"],
+        "pass_segsum": 0, "segsum": 0, "threefry": 0, "rowsum": 0}
        for name, key in (("hopdist", "hop"), ("leader", "leader"))},
-    "walk": {"put": 0, "put_segsum": 0, "land": 0, "segsum": 0,
-             "threefry": 0, "rowsum": 0},
-    "batch": {"put": 70, "put_segsum": 0, "land": 70, "segsum": 0,
-              "threefry": 0, "rowsum": 0},
+    "walk": {"put": 0, "land": 0, "gather": 0, "pass_segsum": 0,
+             "segsum": 0, "threefry": 0, "rowsum": 0},
+    "batch": {"put": 0, "land": 0, "gather": 10, "pass_segsum": 0,
+              "segsum": 0, "threefry": 0, "rowsum": 0},
     "mesh_pagerank": {**_rank_pass("mxu", 3 + EXPECTED_MESH_PAGERANK[-1][
         "rounds"]), "threefry": 0, "rowsum": 6 * (
             3 + EXPECTED_MESH_PAGERANK[-1]["rounds"])}}
-#: Which kernel row of the ``kernels`` line each protocol run's puts
-#: count in, by payload: B2 on f32 (``hybrid`` sum passes), on i32
-#: (election's ids), on bool (hop distance's OR), on the lane words; B3's
-#: sum form (the ``mxu`` sum passes).
-RANK_PUT_ROW = {"hybrid": "put_f32", "leader": "put_i32", "hopdist": "put",
-                "batch": "put_lanes"}
+#: Which kernel row of the ``kernels`` line each protocol run's gathers
+#: count in, by payload: f32 (the sum passes on ``mxu`` and ``hybrid``),
+#: i32 (election's ids), bool (hop distance's OR), the lane words.
+RANK_GATHER_ROW = {"mxu": "gather_f32", "hybrid": "gather_f32",
+                   "mesh_pagerank": "gather_f32", "leader": "gather_i32",
+                   "hopdist": "gather", "batch": "gather_lanes"}
 
 
 #: Phase 4w (slice 16): what the ring split over ranks once refused, run
@@ -6098,17 +6106,21 @@ EXPECTED_RING_HOP_CENSUS = {
 
 
 def _rank_or(layout: str, passes: int) -> dict:
-    """A rank's launches for ``passes`` ring OR passes across ranks (S - 1
-    hops each, a land after each put): B2's put under ``segment`` and
-    ``hybrid`` (B1 at every step on the ``hybrid`` remainder), B3's put
-    under ``mxu`` with B1 on the peeled step."""
-    hops = (RING_SHARDS - 1) * passes
-    if layout == "mxu":
-        return {"put": 0, "put_segsum": hops, "land": hops,
-                "segsum": passes, "threefry": 0, "rowsum": 0}
-    return {"put": hops, "put_segsum": 0, "land": hops,
-            "segsum": RING_SHARDS * passes if layout == "hybrid" else 0,
+    """A rank's launches for ``passes`` ring OR passes across ranks: a
+    gather each, and a pass kernel each on the MXU layouts."""
+    return {**RANK_LAUNCHES[layout], "gather": passes,
+            "pass_segsum": 0 if layout == "segment" else passes,
             "threefry": 0, "rowsum": 0}
+
+
+def _rank_hops(passes: int, segsum: int, threefry: int = 0) -> dict:
+    """A rank's launches for ``passes`` passes hop by hop (a comm that
+    wraps the rank comm: the faulted flood, the hop census): ``S - 1``
+    puts and lands each, no gather, B1's stacked apply ``segsum``
+    times."""
+    hops = (RING_SHARDS - 1) * passes
+    return {"put": hops, "land": hops, "gather": 0, "pass_segsum": 0,
+            "segsum": segsum, "threefry": threefry, "rowsum": 0}
 
 
 def rank_adaptive(sharded, mesh_mod, flightrec, chaos, telemetry, commviz,
@@ -6176,8 +6188,10 @@ def rank_adaptive(sharded, mesh_mod, flightrec, chaos, telemetry, commviz,
 
 
 def rank_counts(ring, segsum, threefry=None, rowsum=None) -> dict:
-    out = {"put": ring.PUT_LAUNCHES, "put_segsum": ring.PUT_SEGSUM_LAUNCHES,
-           "land": ring.LAND_LAUNCHES, "segsum": segsum.LAUNCHES}
+    out = {"put": ring.PUT_LAUNCHES, "land": ring.LAND_LAUNCHES,
+           "gather": ring.GATHER_LAUNCHES,
+           "pass_segsum": ring.PASS_SEGSUM_LAUNCHES,
+           "segsum": segsum.LAUNCHES}
     if threefry is not None:
         out.update(threefry=threefry.LAUNCHES, rowsum=rowsum.LAUNCHES)
     return out
@@ -6185,7 +6199,8 @@ def rank_counts(ring, segsum, threefry=None, rowsum=None) -> dict:
 
 def zero_rank_counts(ring, segsum, device_mod, threefry=None,
                      rowsum=None) -> None:
-    ring.PUT_LAUNCHES = ring.PUT_SEGSUM_LAUNCHES = ring.LAND_LAUNCHES = 0
+    ring.PUT_LAUNCHES = ring.LAND_LAUNCHES = 0
+    ring.GATHER_LAUNCHES = ring.PASS_SEGSUM_LAUNCHES = 0
     segsum.LAUNCHES = 0
     device_mod.SYNCS = 0
     if threefry is not None:
@@ -6204,15 +6219,6 @@ def host_ms(fn, reps: int) -> float:
     return 1e3 * (time.perf_counter() - t0) / reps
 
 
-class _Interface:
-    """A raw device address as a tensor (``__cuda_array_interface__``)."""
-
-    def __init__(self, ptr: int, nbytes: int):
-        self.__cuda_array_interface__ = {
-            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
-            "version": 2}
-
-
 def peer_copy(ring, mesh, x, out):
     """The library yardstick of a forward put: ``copy_`` (a
     ``cudaMemcpyAsync``) of the local shards into ``out[1:]`` and of the
@@ -6220,7 +6226,7 @@ def peer_copy(ring, mesh, x, out):
     signal."""
     shard = x[0].numel() * x.element_size()
     chan = ring.peer_channel(mesh, shard)
-    slot = torch.as_tensor(_Interface(
+    slot = torch.as_tensor(ring._Interface(
         chan.slot_address(mesh.next_rank, False, chan.seq[0] + 1), shard),
         device=x.device)
     src = x.view(torch.uint8).reshape(x.shape[0], -1)
@@ -6233,102 +6239,215 @@ def peer_copy(ring, mesh, x, out):
     return run
 
 
-def rank_put_rows(ring, mesh_mod, mesh, flush, payloads=None) -> list:
-    """B2 across ranks at this rank's ``[n_local, 125008]``, bool, f32
-    and i32 (election's ids), or on ``payloads`` (``(entry, x)`` pairs):
-    the kernel and its plain version against the global ``torch.roll``
-    of the stacked blocks (gathered through the group), then timed, with
+def rank_put_rows(ring, mesh_mod, mesh, flush) -> list:
+    """B2's hop across ranks (``ring_put``: the faulted hops and the
+    re-mask's) at this rank's bool ``[n_local, 125008]``: the kernel and
+    its plain version against the global ``torch.roll`` of the stacked
+    blocks (gathered through the group), then timed, with
     ``hop_floor_ms`` the hop of a 16-byte shard."""
     import torch.distributed as dist
 
     gen = torch.Generator(device="cuda").manual_seed(5 + mesh.rank)
     L, lo = mesh.n_local, mesh.shard_lo
-    rows = []
     # The same hop with 16 bytes a shard: what a hop costs with no bytes
     # to speak of (the launches, the waits, the ranks' hand-over).
     tiny = torch.zeros((L, 16), dtype=torch.bool, device="cuda")
     floor_ms = cuda_times(lambda: ring.ring_put(tiny, mesh), 50, flush)
-    if payloads is None:
-        payloads = []
-        for entry, dtype in (("bool", torch.bool), ("f32", torch.float32),
-                             ("i32", torch.int32)):
-            bits = torch.randint(0, 1 << 20, (L, RING_BLOCK), generator=gen,
-                                 device="cuda", dtype=torch.int32)
-            payloads.append((entry, (bits % 2 == 1) if dtype == torch.bool
-                             else bits.to(dtype)))
+    bits = torch.randint(0, 1 << 20, (L, RING_BLOCK), generator=gen,
+                         device="cuda", dtype=torch.int32)
+    x = bits % 2 == 1
+    whole = mesh_mod.gather_shards(mesh, x.view(torch.uint8))
+    want = torch.roll(whole, 1, 0)[lo:lo + L].view(torch.bool)
+    got, plain = ring.ring_put(x, mesh), ring.ring_put_plain(x, mesh)
+    if not torch.equal(got, want) or not torch.equal(plain, want):
+        fail(f"ring_put bool {list(x.shape)} differs from the global roll "
+             f"on rank {mesh.rank}")
+    out = torch.empty_like(x)
+    nbytes = 2 * x.numel() * x.element_size()
+    torch.cuda.synchronize()
+    dist.barrier()
+    library = cuda_times(peer_copy(ring, mesh, x, out), 50, flush)
+    torch.cuda.synchronize()
+    dist.barrier()
+    return [{
+        "kernel": "ring_put", "entry": "bool", "shape": list(x.shape),
+        "world": mesh.world,
+        "ms": cuda_times(lambda: ring.ring_put(x, mesh), 50, flush),
+        "plain_ms": host_ms(lambda: ring.ring_put_plain(x, mesh), 10),
+        "library_ms": library,
+        "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
+        "hop_floor_ms": floor_ms, "max_abs_err": 0.0}]
+
+
+def rank_move_row(ring, mesh, flush) -> dict:
+    """A pass's movement both ways at this rank's bool ``[n_local,
+    125008]`` frontier: ``S - 1`` chained ``ring_put`` hops against one
+    ``ring_gather``, each also with 16-byte shards (what the hand-overs
+    cost with no bytes to speak of), in turns (hops, gather, gather,
+    hops; the means of each pair)."""
+    L, S = mesh.n_local, mesh.n_shards
+    x = torch.zeros((L, RING_BLOCK), dtype=torch.bool, device="cuda")
+    tiny = torch.zeros((L, 16), dtype=torch.bool, device="cuda")
+
+    def hops(y):
+        def run():
+            z = y
+            for _ in range(S - 1):
+                z = ring.ring_put(z, mesh)
+        return run
+
+    def gather(y):
+        return lambda: ring.ring_gather(y, mesh)
+
+    out = {"kernel": "ring_move", "world": mesh.world,
+           "shape": [L, RING_BLOCK], "hops": S - 1}
+    for name, y in (("", x), ("floor_", tiny)):
+        first = cuda_times(hops(y), 20, flush)
+        g1 = cuda_times(gather(y), 20, flush)
+        g2 = cuda_times(gather(y), 20, flush)
+        last = cuda_times(hops(y), 20, flush)
+        out[f"{name}hops_ms"] = (first + last) / 2
+        out[f"{name}gather_ms"] = (g1 + g2) / 2
+        out[f"{name}turns_ms"] = [first, g1, g2, last]
+    return out
+
+
+def nccl_group(mesh):
+    """An NCCL group over the ranks (the gather's library call), or the
+    error NCCL gave: two ranks on one card are refused."""
+    import torch.distributed as dist
+
+    try:
+        grp = dist.new_group(backend="nccl")
+        probe = torch.zeros(mesh.world, device="cuda")
+        dist.all_gather_into_tensor(probe, probe[mesh.rank:mesh.rank + 1],
+                                    group=grp)
+        torch.cuda.synchronize()
+        return grp, None
+    except Exception as e:  # noqa: BLE001 - the row records NCCL's answer
+        return None, f"{type(e).__name__}: {' '.join(str(e).split())[:400]}"
+
+
+def rank_gather_rows(ring, mesh_mod, mesh, flush, payloads, nccl) -> list:
+    """B2 across ranks a pass at a time (``ring_gather``) on ``payloads``
+    (``(entry, x)`` pairs, this rank's stacks): the kernel and its plain
+    version against the whole ring's stack in ring order, twice (gathered
+    through the group), then timed; the library call is NCCL's
+    ``all_gather_into_tensor`` where ``nccl`` holds a group, else the row
+    carries NCCL's error (``library_error``)."""
+    import torch.distributed as dist
+
+    grp, err = nccl
+    rows = []
     for entry, x in payloads:
-        dtype = x.dtype
-        whole = mesh_mod.gather_shards(mesh, x.view(torch.uint8)
-                                       if dtype == torch.bool else x)
-        want = torch.roll(whole, 1, 0)[lo:lo + L].view(dtype)
-        got, plain = ring.ring_put(x, mesh), ring.ring_put_plain(x, mesh)
+        wire = x.view(torch.uint8) if x.dtype == torch.bool else x
+        whole = mesh_mod.gather_shards(mesh, wire)
+        want = torch.cat([whole, whole]).view(x.dtype)
+        got = ring.ring_gather(x, mesh)
+        plain = ring.ring_gather_plain(x, mesh)
         if not torch.equal(got, want) or not torch.equal(plain, want):
-            fail(f"ring_put {entry} {list(x.shape)} differs from the "
-                 f"global roll on rank {mesh.rank}")
-        out = torch.empty_like(x)
-        nbytes = 2 * x.numel() * x.element_size()
-        torch.cuda.synchronize()
-        dist.barrier()
-        library = cuda_times(peer_copy(ring, mesh, x, out), 50, flush)
-        torch.cuda.synchronize()
-        dist.barrier()
+            fail(f"ring_gather {entry} {list(x.shape)} differs from the "
+                 f"ring's stack on rank {mesh.rank}")
+        shard = x[0].numel() * x.element_size()
+        library = None
+        if grp is not None:
+            flat = wire.reshape(-1)
+            out = torch.empty(mesh.world * flat.numel(), dtype=flat.dtype,
+                              device="cuda")
+            torch.cuda.synchronize()
+            dist.barrier()
+            library = cuda_times(lambda: dist.all_gather_into_tensor(
+                out, flat, group=grp), 50, flush)
+            torch.cuda.synchronize()
+            dist.barrier()
         rows.append({
-            "kernel": "ring_put", "entry": entry, "shape": list(x.shape),
+            "kernel": "ring_gather", "entry": entry, "shape": list(x.shape),
             "world": mesh.world,
-            "ms": cuda_times(lambda: ring.ring_put(x, mesh), 50, flush),
-            "plain_ms": host_ms(lambda: ring.ring_put_plain(x, mesh), 10),
-            "library_ms": library,
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S, "bound_by": "bytes",
-            "hop_floor_ms": floor_ms, "max_abs_err": 0.0})
+            "ms": cuda_times(lambda: ring.ring_gather(x, mesh), 50, flush),
+            "plain_ms": host_ms(lambda: ring.ring_gather_plain(x, mesh), 10),
+            "library_ms": library, "library_error": err,
+            # The rank's stack read once, its [2S, ...] slab written once.
+            "bound_ms": 1e3 * (mesh.n_local + 2 * mesh.n_shards) * shard
+            / HBM_BYTES_PER_S, "bound_by": "bytes", "max_abs_err": 0.0})
     return rows
 
 
-def rank_step_rows(ring, mesh, sg, flush) -> list:
-    """B3 across ranks on this rank's real ``mxu`` buckets of ring step
-    0, with the rows' extents, against its plain version (OR and the hop
-    bit-equal, integer sums exact), then timed."""
+def one_rank_at_a_time(mesh, fn):
+    """``fn()``'s value, run by each rank in turn while the others wait in
+    a barrier: a kernel that waits on no peer timed without the other
+    ranks' contexts on the card."""
     import torch.distributed as dist
 
+    value = None
+    for r in range(mesh.world):
+        torch.cuda.synchronize()
+        dist.barrier()
+        if mesh.rank == r:
+            value = fn()
+    torch.cuda.synchronize()
+    dist.barrier()
+    return value
+
+
+def rank_pass_rows(ring, mesh, sg, flush) -> list:
+    """B3 across ranks a pass at a time (``ring_pass_segsum_*``) on this
+    rank's real ``mxu`` buckets of every ring step, with the rows'
+    extents, over a gathered slab, against its plain version (OR
+    bit-equal, integer sums exact), then timed one rank at a time (it
+    waits on no peer); the library call one ``scatter_add_`` of every
+    step's terms, gathered up front."""
     gen = torch.Generator(device="cuda").manual_seed(9 + mesh.rank)
-    src, dst, mask = (a[:, 0] for a in (sg.mxu_src, sg.mxu_dst,
-                                        sg.mxu_mask))
-    extent = sg.mxu_extent[:, 0]
-    L, nb, w = src.shape
-    args = (src, dst, mask, sg.mxu_block)
+    src, dst, mask, extent = (sg.mxu_src, sg.mxu_dst, sg.mxu_mask,
+                              sg.mxu_extent)
+    L, S, nb, w = src.shape
+    lo, block = mesh.shard_lo, sg.mxu_block
+    args = (src, dst, mask, block)
     live_slots = int(mask.sum().item())
     slots = int(extent.sum().item())
+    dst64 = dst.permute(0, 2, 1, 3).reshape(L * nb, S * w).long()
     rows = []
     for entry, sig in (
             ("or", torch.rand((L, sg.block), generator=gen,
                               device="cuda") < 0.1),
             ("sum", torch.randint(-8, 8, (L, sg.block), generator=gen,
                                   device="cuda").to(torch.float32))):
-        fn = getattr(ring, f"ring_put_segsum_{entry}")
-        plain = getattr(ring, f"ring_put_segsum_{entry}_plain")
-        want_next, want = plain(sig, mesh, *args)
-        got_next, got = fn(sig, mesh, *args, extent=extent)
-        if not torch.equal(got_next, want_next) or not torch.equal(got, want):
-            fail(f"ring_put_segsum_{entry} on real step 0 differs from its "
-                 f"plain version on rank {mesh.rank}")
-        sig_bytes = sig.numel() * sig.element_size()
-        out_bytes = L * nb * sg.mxu_block * sig.element_size() + sig_bytes
+        fn = getattr(ring, f"ring_pass_segsum_{entry}")
+        plain = getattr(ring, f"ring_pass_segsum_{entry}_plain")
+        slab = ring.ring_gather(sig, mesh).clone()
+        want = plain(ring.ring_gather_plain(sig, mesh), lo, *args)
+        for ext in (extent, None):
+            if not torch.equal(fn(slab, lo, *args, extent=ext), want):
+                fail(f"ring_pass_segsum_{entry} on the real buckets "
+                     f"(extents {ext is not None}) differs from its plain "
+                     f"version on rank {mesh.rank}")
+        elem = sig.element_size()
+        sig_bytes = S * sg.block * elem  # the pass reads each block once
         least, bound_by = bound(slots, live_slots,
-                                sig_bytes + extent.numel() * 4, out_bytes)
-        out = torch.empty_like(sig)
-        torch.cuda.synchronize()
-        dist.barrier()
-        library = cuda_times(peer_copy(ring, mesh, sig, out), 50, flush)
-        torch.cuda.synchronize()
-        dist.barrier()
+                                sig_bytes + extent.numel() * 4,
+                                L * nb * block * elem)
+        terms = torch.stack([pregathered(ring.ring_rows(slab, lo, L, t),
+                                         src[:, t], mask[:, t]).reshape(
+                                             L, nb, w) for t in range(S)],
+                            dim=2).reshape(L * nb, S * w)
+        lib_out = torch.zeros(L * nb, block, device="cuda")
+
+        def timed():
+            return {
+                "ms": cuda_times(lambda: fn(slab, lo, *args, extent=extent),
+                                 50, flush),
+                "full_width_ms": cuda_times(lambda: fn(slab, lo, *args), 20,
+                                            flush),
+                "plain_ms": host_ms(lambda: plain(slab, lo, *args), 3),
+                "library_ms": cuda_times(
+                    lambda: lib_out.scatter_add_(1, dst64, terms), 50,
+                    flush)}
+
         rows.append({
-            "kernel": "ring_put_segsum", "entry": entry, "step": 0,
-            "shape": [L, nb, w], "world": mesh.world,
-            "live_slots": live_slots,
-            "ms": cuda_times(lambda: fn(sig, mesh, *args, extent=extent),
-                             50, flush),
-            "plain_ms": host_ms(lambda: plain(sig, mesh, *args), 5),
-            "library_ms": library, "bound_ms": least, "bound_by": bound_by,
-            "max_abs_err": 0.0})
+            "kernel": "ring_pass_segsum", "entry": entry,
+            "shape": [L, S, nb, w], "world": mesh.world,
+            "live_slots": live_slots, "slots": slots,
+            **one_rank_at_a_time(mesh, timed),
+            "bound_ms": least, "bound_by": bound_by, "max_abs_err": 0.0})
     return rows
 
 
@@ -6352,6 +6471,44 @@ def rank_ordering(ring, mesh, steps: int) -> dict:
         got = ring.ring_put(whole[lo:lo + L].contiguous(), mesh, reverse)
         bad += (got != torch.roll(whole, -1 if reverse else 1,
                                   0)[lo:lo + L]).sum()
+    n_bad = int(bad.item())
+    return {"steps": steps, "bad": n_bad, "s": time.perf_counter() - t0}
+
+
+def rank_payloads(mesh) -> list:
+    """The gather's kernel rows' payloads, this rank's ``[n_local,
+    125008]`` stacks: the bool frontier at every world, and at world 2 the
+    f32 sum passes' and election's i32 ids."""
+    gen = torch.Generator(device="cuda").manual_seed(7 + mesh.rank)
+    bits = torch.randint(0, 1 << 20, (mesh.n_local, RING_BLOCK),
+                         generator=gen, device="cuda", dtype=torch.int32)
+    out = [("bool", bits % 2 == 1)]
+    if mesh.world == 2:
+        out += [("f32", bits.to(torch.float32)), ("i32", bits)]
+    return out
+
+
+def rank_gather_ordering(ring, mesh, steps: int) -> dict:
+    """``steps`` gathers of an i32 ``[n_local, 125008]`` payload that names
+    its shard and gather, the last rank held back by a sleep kernel before
+    each and on the host every 16: every step's rows of every gather
+    against the global roll (one count, read once). Two gathers may be in
+    flight; the third waits for the first's readers."""
+    L, lo, S = mesh.n_local, mesh.shard_lo, mesh.n_shards
+    g = torch.arange(S, device="cuda", dtype=torch.int32)[:, None]
+    j = torch.arange(RING_BLOCK, device="cuda", dtype=torch.int32)[None, :]
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    t0 = time.perf_counter()
+    for s in range(steps):
+        if mesh.rank == mesh.world - 1:
+            torch.cuda._sleep(100_000)
+            if s % 16 == 0:
+                time.sleep(0.05)
+        whole = g * 1_000_003 + s * 7919 + j
+        slab = ring.ring_gather(whole[lo:lo + L].contiguous(), mesh)
+        for t in range(S):
+            bad += (ring.ring_rows(slab, lo, L, t)
+                    != torch.roll(whole, t, 0)[lo:lo + L]).sum()
     n_bad = int(bad.item())
     return {"steps": steps, "bad": n_bad, "s": time.perf_counter() - t0}
 
@@ -6433,7 +6590,7 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
         torch.cuda.synchronize()
         build_s = time.perf_counter() - t0
         if layout == "mxu":
-            res["rows"] += rank_step_rows(ring, mesh, sg, flush)
+            res["rows"] += rank_pass_rows(ring, mesh, sg, flush)
 
         def run():
             return sharded.flood_until_coverage(
@@ -6494,8 +6651,14 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
         res["protocols"]["mesh_pagerank"] = {
             "events": events, "wall_s": wall, "launches": launches,
             "syncs": syncs, "node_walls": node_walls}
+    nccl = nccl_group(mesh)
     res["rows"] += rank_put_rows(ring, mesh_mod, mesh, flush)
+    res["rows"] += rank_gather_rows(
+        ring, mesh_mod, mesh, flush, rank_payloads(mesh), nccl)
+    res["move"] = rank_move_row(ring, mesh, flush)
     res["ordering"] = rank_ordering(ring, mesh, ORDERING_STEPS)
+    res["gather_ordering"] = rank_gather_ordering(ring, mesh,
+                                                  GATHER_ORDERING_STEPS)
     del g
     torch.cuda.empty_cache()
     gba = graph_mod.barabasi_albert(**RING_GOSSIP_GRAPH)
@@ -6510,7 +6673,7 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
     if mesh.world == 2:
         res["protocols"]["batch"], lane_row, lanes_rec = rank_batch(
             sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
-            flush)
+            flush, nccl)
         res["adaptive"]["lanes_recorded-segment"] = lanes_rec
         res["rows"].append(lane_row)
     del flush
@@ -6518,12 +6681,12 @@ def rank_ring(reps: int, ckpt_dir: str) -> dict:
 
 
 def rank_batch(sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
-               flush):
+               flush, nccl):
     """4t's batched call on a ring split over ranks: 4j's graph, its
     1,024 lanes on the ``segment`` ring, the rank's lane words ``[n_local,
     32, 12512]`` B2's payload across ranks (``EXPECTED_BATCH``'s first
     call; the batch comes back whole on every rank). Then B2 across ranks
-    on those words as a kernel row. Then (4w) the same call with the
+    (the gather) on those words as a kernel row. Then (4w) the same call with the
     ring's recorder, its record third."""
     from p2pnetwork_tpu_torch.models import messagebatch as MB
     from p2pnetwork_tpu_torch.sim import flightrec
@@ -6559,8 +6722,8 @@ def rank_batch(sharded, models, graph_mod, mesh, mesh_mod, ring, checked,
                  "syncs": syncs_r, "exchanges": mesh_mod.EXCHANGES - e0,
                  "bare_exchanges": exchanges}
     stack = sharded.shard_lanes(sg, state.seen)
-    row = rank_put_rows(ring, mesh_mod, mesh, flush,
-                        payloads=[("lanes", stack)])[0]
+    row = rank_gather_rows(ring, mesh_mod, mesh, flush, [("lanes", stack)],
+                           nccl)[0]
     return rec, row, lanes_rec
 
 
@@ -6610,9 +6773,10 @@ def check_rank_protocols(world: int, parts: list, world1: dict):
         for r in recs:
             check_launches(label, r["launches"],
                            RANK_PROTOCOL_LAUNCHES[name])
-            row = RANK_PUT_ROW.get(layout, RANK_PUT_ROW.get(base))
-            counts[row or "put"] += r["launches"]["put"]
-            counts["put_segsum_sum"] += r["launches"]["put_segsum"]
+            row = RANK_GATHER_ROW.get(layout, RANK_GATHER_ROW.get(base))
+            counts[row or "gather"] += r["launches"]["gather"]
+            counts["put"] += r["launches"]["put"]
+            counts["pass_segsum_sum"] += r["launches"]["pass_segsum"]
             counts["segsum_sum"] += r["launches"]["segsum"]
             counts["threefry"] += r["launches"]["threefry"]
             counts["rowsum"] += r["launches"]["rowsum"]
@@ -6762,22 +6926,24 @@ def check_rank_adaptive(world: int, parts: list, sparse1: dict):
             fail(f"{label}: {rec['exchanges']} exchanges, want {want_x}")
         for r, n3 in zip(recs, threefry):
             if base == "lanes_recorded":
-                want_l = {"put": (RING_SHARDS - 1) * rounds,
-                          "land": (RING_SHARDS - 1) * rounds,
-                          "put_segsum": 0, "segsum": 0, "threefry": 0,
+                want_l = {"put": 0, "land": 0, "gather": rounds,
+                          "pass_segsum": 0, "segsum": 0, "threefry": 0,
                           "rowsum": rounds + 1}
             elif base == "faulted":
-                hops = (RING_SHARDS - 1) * rounds
-                want_l = {"put": hops, "land": hops, "put_segsum": 0,
-                          "segsum": RING_SHARDS * rounds, "threefry": n3,
-                          "rowsum": 0}
+                # A fault-spec comm hops one step at a time (ring_put) and
+                # applies B1's stacked sum at every step.
+                want_l = _rank_hops(rounds, RING_SHARDS * rounds, n3)
+            elif base == "census":
+                want_l = _rank_hops(1, RING_SHARDS)
             else:
                 dense = rounds - len(r.get("sparse", ()))
                 want_l = _rank_or(layout, dense)
             check_launches(label, r["launches"], want_l)
             lane = base == "lanes_recorded"
-            counts["put_lanes" if lane else "put"] += r["launches"]["put"]
-            counts["put_segsum"] += r["launches"]["put_segsum"]
+            counts["gather_lanes" if lane else "gather"] += \
+                r["launches"]["gather"]
+            counts["put"] += r["launches"]["put"]
+            counts["pass_segsum"] += r["launches"]["pass_segsum"]
             counts["segsum"] += r["launches"]["segsum"]
             counts["threefry"] += r["launches"]["threefry"]
             counts["rowsum_lanes"] += r["launches"]["rowsum"]
@@ -6810,7 +6976,7 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
     fail its launch. Prints ``rank-ring-path`` lines; returns the kernel
     rows of rank 0 at each world and, by world, the launches of the
     checked floods and churn steps (and the gossip rung's f32 puts,
-    ``put_f32``) summed over every rank. Slice 15's runs at each world
+    ``gather_f32``) summed over every rank. Slice 15's runs at each world
     (``RANK_PROTOCOLS``) are held by :func:`check_rank_protocols`, their
     launches added by kernel row; world 8 saves SIR's status, which world
     2 restores (equal to ``EXPECTED_SIR``'s, the uninterrupted run's)."""
@@ -6897,13 +7063,14 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
                     EXPECTED_RING_GOSSIP, RING_TOL["gossip"])
         check_launches(f"rank gossip at world {world}",
                        gossip[0]["launches"],
-                       {"put": (RING_SHARDS - 1) * GOSSIP_ROUNDS})
-        counts["put_f32"] += sum(r["launches"]["put"] for r in gossip)
+                       {"put": 0, "gather": GOSSIP_ROUNDS})
+        counts["gather_f32"] += sum(r["launches"]["gather"] for r in gossip)
         for p in parts:
-            if p["ordering"]["bad"]:
-                fail(f"rank ordering check at world {world}: "
-                     f"{p['ordering']['bad']} elements of rank "
-                     f"{p['rank']}'s landed blocks differ")
+            for key in ("ordering", "gather_ordering"):
+                if p[key]["bad"]:
+                    fail(f"rank {key} check at world {world}: "
+                         f"{p[key]['bad']} elements of rank "
+                         f"{p['rank']}'s landed blocks differ")
         proto_counts, proto_walls, proto_err = check_rank_protocols(
             world, parts, world1)
         counts.update(proto_counts)
@@ -6942,6 +7109,8 @@ def rank_ring_path(g, ring, segsum, device_mod, sharded, mesh_mod,
             "floods": floods, "gossip_s": [r["first_run_s"] for r in gossip],
             "gossip_syncs": gossip[0]["syncs"],
             "ordering": [p["ordering"] for p in parts],
+            "gather_ordering": [p["gather_ordering"] for p in parts],
+            "move": [p["move"] for p in parts],
             "t_s": time.perf_counter() - T_START}), flush=True)
     t0 = time.perf_counter()
     try:
@@ -7497,31 +7666,44 @@ def main() -> int:
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 8, "
             "bool [1, 125008])", rank_row(8, "ring_put", "bool"),
             rank["launches"][8]["put"], 0.0),
-        row("ring_put_f32", "ring_peer.cu",
-            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
-            "f32 [4, 125008])", rank_row(2, "ring_put", "f32"),
-            rank_sum("put_f32"), 0.0),
-        row("ring_put_i32", "ring_peer.cu",
-            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
-            "i32 [4, 125008], election's ids)", rank_row(2, "ring_put", "i32"),
-            rank_sum("put_i32"), 0.0),
-        row("ring_put_lanes", "ring_peer.cu",
-            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks: world 2, "
-            "the lane words i32 [4, 32, 12512])",
-            rank_row(2, "ring_put", "lanes"), rank_sum("put_lanes"), 0.0),
-        row("ring_put_segsum", "ring_peer.cu",
-            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 2, "
-            "OR, real step 0)", rank_row(2, "ring_put_segsum", "or"),
-            rank["launches"][2]["put_segsum"], 0.0),
-        row("ring_put_segsum_w8", "ring_peer.cu",
-            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 8, "
-            "OR, real step 0)", rank_row(8, "ring_put_segsum", "or"),
-            rank["launches"][8]["put_segsum"], 0.0),
-        row("ring_put_segsum_sum", "ring_peer.cu",
-            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks: world 2, "
-            "the sum form, real step 0)",
-            rank_row(2, "ring_put_segsum", "sum"),
-            rank_sum("put_segsum_sum"), 0.0),
+        row("ring_gather", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass's "
+            "blocks in one exchange: world 2, bool [4, 125008])",
+            rank_row(2, "ring_gather", "bool"),
+            rank["launches"][2]["gather"], 0.0),
+        row("ring_gather_w8", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass's "
+            "blocks in one exchange: world 8, bool [1, 125008])",
+            rank_row(8, "ring_gather", "bool"),
+            rank["launches"][8]["gather"], 0.0),
+        row("ring_gather_f32", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
+            "at a time: world 2, f32 [4, 125008])",
+            rank_row(2, "ring_gather", "f32"), rank_sum("gather_f32"), 0.0),
+        row("ring_gather_i32", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
+            "at a time: world 2, i32 [4, 125008], election's ids)",
+            rank_row(2, "ring_gather", "i32"), rank_sum("gather_i32"), 0.0),
+        row("ring_gather_lanes", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
+            "at a time: world 2, the lane words i32 [4, 32, 12512])",
+            rank_row(2, "ring_gather", "lanes"), rank_sum("gather_lanes"),
+            0.0),
+        row("ring_pass_segsum", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks, every "
+            "step of a pass in one launch: world 2, OR [4, 8, 245, 4864])",
+            rank_row(2, "ring_pass_segsum", "or"),
+            rank["launches"][2]["pass_segsum"], 0.0),
+        row("ring_pass_segsum_w8", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks, every "
+            "step of a pass in one launch: world 8, OR [1, 8, 245, 4864])",
+            rank_row(8, "ring_pass_segsum", "or"),
+            rank["launches"][8]["pass_segsum"], 0.0),
+        row("ring_pass_segsum_sum", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:126 (across ranks, every "
+            "step of a pass in one launch: world 2, the sum form)",
+            rank_row(2, "ring_pass_segsum", "sum"),
+            rank_sum("pass_segsum_sum"), 0.0),
         row("row_sum_shards_100k", "rowsum.cu",
             "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "
             "shard's block on the 100K gossip ring, an XLA reduce; no TPU "

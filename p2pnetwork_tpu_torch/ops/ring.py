@@ -41,36 +41,51 @@ the reverse hops among B2's (the liveness re-mask's Horner fold,
 
 **Across ranks** (a ring split over processes, ``parallel/multihost.py``:
 each rank holds ``n_local`` consecutive shards of the ``S``), B2 and B3
-have cross-rank forms (``csrc/ring_peer.cu``):
+have cross-rank forms (``csrc/ring_peer.cu``). A ring pass rotates a
+block that stays fixed for the pass, so it moves it in one exchange:
 
-- :func:`ring_put` — B2: the local shards roll by one and the rank's
-  boundary shard (the last forward, the first reverse) goes to the next
-  (previous) rank's receive slot, a CUDA IPC peer write. Its result is
-  this rank's rows of the global hop: ``ring_shift`` of the ``[S, ...]``
-  stack, rows ``shard_lo ..``.
-- :func:`ring_put_segsum_or` / ``_sum`` — B3: the same put fused into
-  the launch of B1's segment sum of the rank's buckets.
+- :func:`ring_gather` — B2 a pass at a time: every rank's stack written
+  into every rank's ``[2S, ...]`` slab in ring order (each block twice,
+  so :func:`ring_rows` gives any step's rows as a view), one put kernel
+  of CUDA IPC peer writes and one stream wait a pass, where ``S - 1``
+  hops took ``S - 1`` hand-overs between the ranks' contexts;
+- :func:`ring_pass_segsum_or` / ``_sum`` — B3 a pass at a time: every
+  step's segment sum of the rank's MXU buckets over the gathered slab in
+  one launch, each output row owned by one worker that loops over the
+  steps;
+- :func:`ring_put` — B2 a hop at a time, for payloads that change from
+  hop to hop (a faulted hop, the re-mask's reverse fold): the local
+  shards roll by one and the rank's boundary shard (the last forward,
+  the first reverse) goes to the next (previous) rank's receive slot.
+  Its result is this rank's rows of ``ring_shift`` of the ``[S, ...]``
+  stack.
 
-The receive slots (two a direction, by step parity) and their flags are
-allocated by ``cudaMalloc`` in each rank and mapped into its two
-neighbours (:class:`PeerChannel`). A call enqueues, on the current
-stream and without a host wait: a stream wait until the peer has taken
-the slot this step overwrites (its acknowledgement of step ``seq - 2``),
-the put kernel, whose last block to finish stores ``seq`` to the peer's
-arrival flag with a system-scope release, a stream wait until this
-rank's own flag shows ``seq``, and the land kernel, which copies the
-slot into its row of the result and acknowledges ``seq`` to the sender.
-The waits are ``cuStreamWaitValue32`` (the GPU's front end polls the
-flag; no kernel spins), so ranks whose contexts time-slice one card
-still make progress. Their plain versions send the boundary shard with
-gloo ``isend``/``irecv`` (on the host) and roll the rest with
-``torch.roll``. ``PUT_LAUNCHES``, ``PUT_SEGSUM_LAUNCHES`` count the put
-kernels, ``LAND_LAUNCHES`` the land kernels of both.
+Memory a rank: the gather's two slabs (by pass parity) of ``2S`` blocks
+of the largest payload gathered, e.g. 4 MB for the 1M bool frontier
+(``[8, 125008]``), 16 MB for f32, 51.2 MB for the 100K ring's lane words
+(``[8, 32, 12512]`` i32); a hop's four slots of the largest shard.
+
+The gather areas (:class:`GatherChannel`) and the hops' receive slots
+(:class:`PeerChannel`) are allocated by ``cudaMalloc`` in each rank and
+mapped into its peers (every peer, the two neighbours). A call enqueues,
+on the current stream and without a host wait, a stream wait until the
+peers have released the slab or slot it overwrites (their
+acknowledgements of ``seq - 2``), the put kernel, whose last block to
+finish signals the receivers with a system-scope release, and a stream
+wait until this rank's own counter or flag shows that every sender's
+put has landed (a hop then lands its slot with a copy kernel). The waits
+are ``cuStreamWaitValue32`` (the GPU's front end polls the word; no
+kernel spins), so ranks whose contexts time-slice one card still make
+progress. The plain versions run on the host through gloo: an
+``all_gather`` a pass, ``isend``/``irecv`` of the boundary shard a hop.
+``GATHER_LAUNCHES``, ``PASS_SEGSUM_LAUNCHES`` and ``PUT_LAUNCHES`` count
+the kernels, ``LAND_LAUNCHES`` the hops' land kernels.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -85,10 +100,12 @@ SHIFT_BACK_LAUNCHES = 0
 SEGSUM_LAUNCHES = 0
 #: Put kernels launched by :func:`ring_put` (both directions).
 PUT_LAUNCHES = 0
-#: Fused put kernels launched by :func:`ring_put_segsum_or` / ``_sum``.
-PUT_SEGSUM_LAUNCHES = 0
-#: Land kernels, one after each put kernel of either.
+#: Land kernels, one after each put kernel.
 LAND_LAUNCHES = 0
+#: Put kernels launched by :func:`ring_gather`, one a ring pass.
+GATHER_LAUNCHES = 0
+#: Pass kernels launched by :func:`ring_pass_segsum_or` / ``_sum``.
+PASS_SEGSUM_LAUNCHES = 0
 
 _bound = None
 
@@ -111,12 +128,19 @@ def _lib() -> ctypes.CDLL:
         lib.p2p_peer_close.argtypes = [p, i]
         lib.p2p_peer_free.argtypes = [p, i]
         lib.p2p_ring_put.argtypes = [p, p, i, q, i, u, p, p, p, q, i, p]
-        for fn in (lib.p2p_ring_put_segsum_or, lib.p2p_ring_put_segsum_sum):
-            fn.argtypes = [p, p, q, p, p, p, p, q, p, i, i, i, i, q, u, p,
-                           p, p, q, i, p]
+        lib.p2p_gather_alloc.argtypes = [q, i, ctypes.POINTER(p),
+                                         ctypes.c_char_p]
+        lib.p2p_gather_table.argtypes = [p, ctypes.POINTER(ctypes.c_uint64),
+                                         i, i]
+        lib.p2p_ring_gather.argtypes = [p, i, q, i, i, u, p, i, i, q, i, p]
+        for fn in (lib.p2p_ring_pass_segsum_or, lib.p2p_ring_pass_segsum_sum):
+            fn.argtypes = [p, q, p, p, p, p, q, q, p, i, i, i, i, i, i, q, q,
+                           i, p]
         for fn in (lib.p2p_peer_alloc, lib.p2p_peer_open, lib.p2p_peer_close,
-                   lib.p2p_peer_free, lib.p2p_ring_put,
-                   lib.p2p_ring_put_segsum_or, lib.p2p_ring_put_segsum_sum):
+                   lib.p2p_peer_free, lib.p2p_ring_put, lib.p2p_gather_alloc,
+                   lib.p2p_gather_table, lib.p2p_ring_gather,
+                   lib.p2p_ring_pass_segsum_or,
+                   lib.p2p_ring_pass_segsum_sum):
             fn.restype = i
         _bound = lib
     return _bound
@@ -409,70 +433,274 @@ def ring_put(x: torch.Tensor, mesh, reverse: bool = False) -> torch.Tensor:
     return out
 
 
-def ring_put_segsum_or_plain(rot, mesh, src, local_dst, mask, block: int):
-    """Plain version of :func:`ring_put_segsum_or`, every row at its full
+# ------------------------------------------------- a pass's one exchange
+
+#: Bytes of a gather area's header (``kGatherHeaderBytes`` in
+#: ``csrc/ring_peer.cu``): flags, acknowledgements, the ranks' areas.
+GATHER_HEADER_BYTES = 4096
+#: Ranks a gather channel can join (``kMaxWorld``).
+GATHER_MAX_WORLD = 128
+
+
+class _Interface:
+    """A device address range as an object torch can wrap without a copy
+    (``__cuda_array_interface__``, bytes)."""
+
+    def __init__(self, ptr: int, nbytes: int):
+        self.__cuda_array_interface__ = {
+            "shape": (nbytes,), "typestr": "|u1", "data": (ptr, False),
+            "version": 2}
+
+
+class GatherChannel:
+    """This rank's gather area on the card and every peer's, mapped: two
+    slabs of ``slab_bytes`` (by pass parity), the pass counter, the
+    acknowledgements and the table of the ranks' areas by ring position
+    (``csrc/ring_peer.cu``). Made by every rank of ``mesh`` together (one
+    exchange of IPC handles through the process group, every peer's
+    handle opened); ``seq`` counts the gathers, the same on every rank.
+    :meth:`slab` wraps a pass's slab as a tensor without a copy."""
+
+    def __init__(self, mesh, slab_bytes: int):
+        import torch.distributed as dist
+
+        if mesh.world > GATHER_MAX_WORLD:
+            raise ValueError(f"ring_gather joins at most {GATHER_MAX_WORLD} "
+                             f"ranks, the mesh has {mesh.world}")
+        lib = _lib()
+        self.mesh, self.device = mesh, mesh.device.index or 0
+        self.slab_bytes = -(-int(slab_bytes) // 256) * 256
+        area = ctypes.c_void_p()
+        handle = ctypes.create_string_buffer(IPC_HANDLE_BYTES)
+        _check(lib.p2p_gather_alloc(self.slab_bytes, self.device,
+                                    ctypes.byref(area), handle),
+               "p2p_gather_alloc")
+        self.area = area.value
+        handles = [None] * mesh.world
+        if mesh.world > 1:
+            dist.all_gather_object(handles, handle.raw, group=mesh.group)
+        self.peers = {}
+        table = (ctypes.c_uint64 * mesh.world)()
+        for pos, r in enumerate(mesh.order):
+            if r == mesh.rank:
+                table[pos] = self.area
+                continue
+            ptr = ctypes.c_void_p()
+            _check(lib.p2p_peer_open(handles[r], self.device,
+                                     ctypes.byref(ptr)), "p2p_peer_open")
+            self.peers[r] = table[pos] = ptr.value
+        _check(lib.p2p_gather_table(self.area, table, mesh.world,
+                                    self.device), "p2p_gather_table")
+        if mesh.world > 1:
+            dist.barrier(group=mesh.group)
+        self.seq = 0
+        self._bytes = torch.as_tensor(
+            _Interface(self.area + GATHER_HEADER_BYTES, 2 * self.slab_bytes),
+            device=mesh.device)
+
+    def slab(self, seq: int, dtype: torch.dtype, shape) -> torch.Tensor:
+        """Gather ``seq``'s slab as a ``dtype`` tensor of ``shape`` (a view
+        of this rank's area: valid until the gather two after it)."""
+        lo = (seq % 2) * self.slab_bytes
+        nbytes = math.prod(shape) * torch.empty((), dtype=dtype
+                                                ).element_size()
+        return self._bytes[lo:lo + nbytes].view(dtype).view(shape)
+
+    def close(self) -> None:
+        """Unmap the peers' areas and free this one, after every rank has
+        finished its gathers (a barrier)."""
+        import torch.distributed as dist
+
+        torch.cuda.synchronize(self.mesh.device)
+        self._bytes = None
+        lib = _lib()
+        for ptr in self.peers.values():
+            _check(lib.p2p_peer_close(ptr, self.device), "p2p_peer_close")
+        if self.mesh.world > 1:
+            dist.barrier(group=self.mesh.group)
+        _check(lib.p2p_peer_free(self.area, self.device), "p2p_peer_free")
+
+
+def gather_channel(mesh, slab_bytes: int) -> GatherChannel:
+    """``mesh``'s gather channel, made at its first gather with slabs of
+    that gather's size, and made anew (every rank at the same gather)
+    when a payload outgrows it."""
+    chan = mesh.peer.get("gather")
+    if chan is None or chan.slab_bytes < slab_bytes:
+        if chan is not None:
+            chan.close()
+        chan = mesh.peer["gather"] = GatherChannel(mesh, slab_bytes)
+    return chan
+
+
+def ring_rows(slab: torch.Tensor, shard_lo: int, n_local: int,
+              t: int) -> torch.Tensor:
+    """The rows a rank's ``n_local`` shards from ``shard_lo`` hold at ring
+    step ``t`` of a pass, from its gathered ``[2S, ...]`` slab: row ``d``
+    is global shard ``(shard_lo + d - t) mod S``, what ``t`` hops of
+    :func:`ring_put` bring. A view (the slab holds every shard twice)."""
+    start = (shard_lo - t) % (slab.shape[0] // 2)
+    return slab[start:start + n_local]
+
+
+def ring_gather_plain(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Plain version of :func:`ring_gather`: the ranks' stacks by a gloo
+    ``all_gather`` on the host, stacked in ring order (as
+    ``mesh.gather_shards``, without counting an exchange), twice."""
+    import torch.distributed as dist
+
+    wire = x.view(torch.uint8) if x.dtype == torch.bool else x
+    host = wire.contiguous().cpu()
+    whole = host
+    if mesh.world > 1:
+        parts = [torch.empty_like(host) for _ in range(mesh.world)]
+        dist.all_gather(parts, host, group=mesh.group)
+        whole = torch.cat([parts[r] for r in mesh.order])
+    return torch.cat([whole, whole]).to(x.device).view(x.dtype)
+
+
+def ring_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's stack ``x [n_local, ...]`` (any dtype) gathered in ring
+    order on a ring split over ranks, twice: ``out [2S, ...]`` with
+    ``out[r]`` global shard ``r mod S`` (the ``[S, ...]`` stack of the
+    whole ring, then again), so that the rows of any ring step are one
+    view (:func:`ring_rows`). One exchange replaces the ``S - 1`` hops of
+    :func:`ring_put` a pass. Every rank of ``mesh`` makes the same calls
+    in the same order.
+
+    On the card the result is a view of the rank's gather area (no copy;
+    ``2 * 2S`` blocks of the payload a rank, both parities): it stays
+    valid until the gather two after it on the same mesh, which may
+    overwrite it; clone what must live longer."""
+    global GATHER_LAUNCHES
+    if x.device.type == "cpu":
+        return ring_gather_plain(x, mesh)
+    shard_bytes = _put_geometry("ring_gather", x)
+    S = mesh.n_shards
+    shape = (2 * S,) + tuple(x.shape[1:])
+    if x.shape[0] != mesh.n_local:
+        raise ValueError(f"ring_gather: x must hold the rank's "
+                         f"{mesh.n_local} shards, got {x.shape[0]}")
+    if shard_bytes == 0:
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+    chan = gather_channel(mesh, 2 * S * shard_bytes)
+    chan.seq += 1
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _check(_lib().p2p_ring_gather(
+        x.data_ptr(), x.shape[0], shard_bytes, S, mesh.shard_lo, chan.seq,
+        chan.area, mesh.world, mesh.position, chan.slab_bytes, chan.device,
+        stream), "ring_gather: kernel launch")
+    GATHER_LAUNCHES += 1
+    return chan.slab(chan.seq, x.dtype, shape)
+
+
+def _fold_steps(kind: str, slab, shard_lo: int, src, local_dst, mask,
+                block: int):
+    """The pass's fold of B1's plain sum over each step's rows, from
+    zeros, steps ascending (the reference's order)."""
+    plain = segsum.segsum_or_plain if kind == "or" \
+        else segsum.segsum_sum_plain
+    L, S, nb = src.shape[:3]
+    out = torch.zeros((L, nb * block), device=slab.device,
+                      dtype=torch.bool if kind == "or" else torch.float32)
+    for t in range(S):
+        step = plain(ring_rows(slab, shard_lo, L, t), src[:, t],
+                     local_dst[:, t], mask[:, t], block)
+        out = out | step if kind == "or" else out + step
+    return out
+
+
+def ring_pass_segsum_or_plain(slab, shard_lo: int, src, local_dst, mask,
+                              block: int):
+    """Plain version of :func:`ring_pass_segsum_or`, every row at its full
     width."""
-    return (ring_put_plain(rot, mesh),
-            segsum.segsum_or_plain(rot, src, local_dst, mask, block))
+    return _fold_steps("or", slab, shard_lo, src, local_dst, mask, block)
 
 
-def ring_put_segsum_sum_plain(rot, mesh, src, local_dst, mask, block: int):
-    """Plain version of :func:`ring_put_segsum_sum`, every row at its full
-    width."""
-    return (ring_put_plain(rot, mesh),
-            segsum.segsum_sum_plain(rot, src, local_dst, mask, block))
+def ring_pass_segsum_sum_plain(slab, shard_lo: int, src, local_dst, mask,
+                               block: int):
+    """Plain version of :func:`ring_pass_segsum_sum`: f32 sums folded step
+    by step from zeros, steps ascending."""
+    return _fold_steps("sum", slab, shard_lo, src, local_dst, mask, block)
 
 
-def _put_launch(kind: str, rot, mesh, src, local_dst, mask, block: int,
-                dtype, extent):
-    """Check the operands, allocate both outputs and launch the fused
-    put's ``kind`` ("or" or "sum") entry on the current stream."""
-    global PUT_SEGSUM_LAUNCHES, LAND_LAUNCHES
-    name = f"ring_put_segsum_{kind}"
-    if rot.dtype != dtype:
-        raise ValueError(f"{name}: rot must be {dtype}, got {rot.dtype}")
-    if extent is not None:
-        _check_extent(name, extent, src)
-    s, nb, w, bucket_stride, signal_stride = segsum.bucket_geometry(
-        name, rot, src, local_dst, mask, block)
-    shard_bytes = _put_geometry(name, rot)
-    dev = rot.device
-    rot_next = torch.empty_like(rot)
-    out = torch.empty(s, nb * block, dtype=dtype, device=dev)
-    chan = peer_channel(mesh, shard_bytes)
-    seq, down, up = chan.hop(False)
+def _pass_geometry(name: str, slab, src, local_dst, mask, block, extent):
+    """Check a pass kernel's operands: the ``[2S, B]`` slab, the rank's
+    ``[L, S, NB, W]`` buckets (each step's ``[NB, W]`` rows contiguous,
+    one set of strides for the three), ``extent`` ``i32[L, S, NB]`` with
+    contiguous rows. Returns ``(L, S, NB, W, shard stride, step stride,
+    slab row stride)`` in elements."""
+    if slab.dim() != 2 or slab.shape[0] % 2 or src.dim() != 4 or \
+            src.shape[1] != slab.shape[0] // 2:
+        raise ValueError(f"{name}: needs a [2S, B] slab and [L, S, NB, W] "
+                         f"buckets, got {tuple(slab.shape)} and "
+                         f"{tuple(src.shape)}")
+    L, S = src.shape[:2]
+    for a, what in ((local_dst, "local_dst"), (mask, "mask")):
+        if a.shape != src.shape or a.stride() != src.stride():
+            raise ValueError(f"{name}: {what} must have src's shape and "
+                             f"strides")
+    _, nb, w, shard_stride, signal_stride = segsum.bucket_geometry(
+        name, slab[:L], src[:, 0], local_dst[:, 0], mask[:, 0], block)
+    if extent is not None and (
+            extent.device != src.device or extent.dtype != torch.int32
+            or extent.shape != src.shape[:3]
+            or (nb > 1 and extent.stride(2) != 1)):
+        raise ValueError(f"{name}: extent must be i32[L, S, NB] on the "
+                         f"buckets' device with contiguous rows, got "
+                         f"{extent.dtype} {tuple(extent.shape)}")
+    return L, S, nb, w, shard_stride, src.stride(1), signal_stride
+
+
+def _pass_launch(kind: str, slab, shard_lo, src, local_dst, mask,
+                 block: int, dtype, extent):
+    global PASS_SEGSUM_LAUNCHES
+    name = f"ring_pass_segsum_{kind}"
+    if slab.dtype != dtype:
+        raise ValueError(f"{name}: slab must be {dtype}, got {slab.dtype}")
+    L, S, nb, w, shard_stride, step_stride, signal_stride = _pass_geometry(
+        name, slab, src, local_dst, mask, block, extent)
+    dev = slab.device
+    out = torch.empty(L, nb * block, dtype=dtype, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    _check(getattr(_lib(), f"p2p_ring_put_segsum_{kind}")(
-        rot.data_ptr(), rot_next.data_ptr(), signal_stride, src.data_ptr(),
-        local_dst.data_ptr(), mask.data_ptr(),
-        None if extent is None else extent.data_ptr(),
-        0 if extent is None else extent.stride(0), out.data_ptr(), s, nb, w,
-        block, bucket_stride, seq, chan.area, down, up, chan.slot_bytes,
-        chan.device, stream), f"{name}: kernel launch")
-    PUT_SEGSUM_LAUNCHES += 1
-    LAND_LAUNCHES += 1
-    return rot_next, out
+    _check(getattr(_lib(), f"p2p_ring_pass_segsum_{kind}")(
+        slab.data_ptr(), signal_stride, src.data_ptr(), local_dst.data_ptr(),
+        mask.data_ptr(), None if extent is None else extent.data_ptr(),
+        0 if extent is None else extent.stride(0),
+        0 if extent is None else extent.stride(1), out.data_ptr(), L, S,
+        int(shard_lo), nb, w, block, shard_stride, step_stride,
+        dev.index or 0, stream), f"{name}: kernel launch")
+    PASS_SEGSUM_LAUNCHES += 1
+    return out
 
 
-def ring_put_segsum_or(rot, mesh, src, local_dst, mask, block: int,
-                       extent=None):
-    """B3 across ranks for OR: ``(ring_put(rot, mesh), out)`` with ``out``
-    :func:`ring_segment_sum_or`'s segment sum of this rank's buckets
-    (``rot`` bool ``[n_local, B]``, buckets ``[n_local, NB, W]``,
-    ``extent`` as there), the put and the sum in one launch."""
-    if rot.device.type == "cpu":
-        return ring_put_segsum_or_plain(rot, mesh, src, local_dst, mask,
-                                        block)
-    return _put_launch("or", rot, mesh, src, local_dst, mask, block,
-                       torch.bool, extent)
+def ring_pass_segsum_or(slab, shard_lo: int, src, local_dst, mask,
+                        block: int, extent=None):
+    """B3 across ranks for OR, a whole pass in one launch: ``out [L, NB *
+    block]`` with ``out[d]`` the OR over ring steps ``t`` of
+    :func:`segsum.segsum_or` of the rank's bucket ``[d, t]`` over the
+    block resident at step ``t`` (:func:`ring_rows` of the gathered
+    ``slab [2S, B]`` bool). ``src``, ``local_dst``, ``mask`` are the
+    rank's ``[L, S, NB, W]`` MXU buckets; ``extent`` (``i32[L, S, NB]``,
+    optional: ``ShardedGraph.mxu_extent``) each row's extent at each step,
+    as :func:`ring_segment_sum_or` reads it."""
+    if slab.device.type == "cpu":
+        return ring_pass_segsum_or_plain(slab, shard_lo, src, local_dst,
+                                         mask, block)
+    return _pass_launch("or", slab, shard_lo, src, local_dst, mask, block,
+                        torch.bool, extent)
 
 
-def ring_put_segsum_sum(rot, mesh, src, local_dst, mask, block: int,
-                        extent=None):
-    """B3 across ranks for f32 sums (:func:`ring_segment_sum_sum`'s sum,
-    :func:`ring_put`'s hop), in one launch."""
-    if rot.device.type == "cpu":
-        return ring_put_segsum_sum_plain(rot, mesh, src, local_dst, mask,
-                                         block)
-    return _put_launch("sum", rot, mesh, src, local_dst, mask, block,
-                       torch.float32, extent)
+def ring_pass_segsum_sum(slab, shard_lo: int, src, local_dst, mask,
+                         block: int, extent=None):
+    """B3 across ranks for f32 sums, a whole pass in one launch: the sum
+    over ring steps of :func:`segsum.segsum_sum` of each step's bucket
+    (as :func:`ring_pass_segsum_or`). On the card every step's terms add
+    into one accumulator with atomics, in an order that varies from run
+    to run (exact on integer values); a non-finite term at any step
+    spreads over its row as in that step's sum."""
+    if slab.device.type == "cpu":
+        return ring_pass_segsum_sum_plain(slab, shard_lo, src, local_dst,
+                                          mask, block)
+    return _pass_launch("sum", slab, shard_lo, src, local_dst, mask, block,
+                        torch.float32, extent)

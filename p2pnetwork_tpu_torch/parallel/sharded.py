@@ -63,10 +63,13 @@ estimate (``parallel/commviz.py``).
 
 **Across processes** (``parallel/multihost.py``): on a mesh of ``world``
 ranks :func:`shard_graph` keeps the rank's ``S / world`` shards (a
-:class:`RankShardedGraph`, ``[n_local, ...]`` on axis 0), the hops go
-through :class:`_RankComm` (the cross-rank kernels of ``ops/ring.py``:
-``ring_put``, fused with the MXU bucket's sum in ``ring_put_segsum_*``)
-and every ``psum``/``pmax`` of the reference is a process-group
+:class:`RankShardedGraph`, ``[n_local, ...]`` on axis 0), the blocks
+move through :class:`_RankComm` (the cross-rank kernels of
+``ops/ring.py``: a pass reads its rotations from one exchange,
+``ring_gather``, and sums the MXU group over every step in one launch,
+``ring_pass_segsum_*``; payloads that change from hop to hop, a faulted
+hop and the re-mask's reverse fold, hop by ``ring_put``) and every
+``psum``/``pmax`` of the reference is a process-group
 reduction: a round's totals ride one exchange of per-shard partials
 gathered in shard order (:func:`_totals`: counts exact, the f32 totals
 added as :func:`psum_f32` adds them, maxima), so every rank holds the
@@ -212,20 +215,30 @@ class _RingComm:
 
 
 class _RankComm(_RingComm):
-    """The halo exchange of a ring split over ranks (``mesh.world > 1``):
-    each rank's ``[n_local, ...]`` stack moves as one ``[S, ...]`` ring
-    would, the local shards by a roll and the boundary shard to the next
-    (``shift``) or previous (``shift_back``) rank. ``"pallas"`` runs the
-    cross-rank kernels (``ops/ring.py::ring_put``, and
-    ``ring_put_segsum_*`` fused with the MXU bucket's segment sum: CUDA
-    IPC peer writes on the card), ``"ppermute"`` their plain versions
-    (gloo ``isend``/``irecv`` of the boundary shard)."""
+    """The halo exchange of a ring split over ranks (``mesh.world > 1``).
+    A pass rotates a block that stays fixed for the pass, so the passes
+    read their rotations from one exchange: :meth:`gather` puts every
+    rank's ``[n_local, ...]`` stack into every rank's ``[2S, ...]`` slab,
+    :meth:`rows` gives a step's rows, :meth:`pass_segment_sum` the MXU
+    group's sums over every step in one launch. ``shift`` and
+    ``shift_back`` move one hop (the local shards by a roll, the boundary
+    shard to the next or previous rank) for payloads that change from hop
+    to hop. ``"pallas"`` runs the cross-rank kernels (``ops/ring.py``:
+    ``ring_gather``, ``ring_pass_segsum_*``, ``ring_put``; CUDA IPC peer
+    writes on the card), ``"ppermute"`` their plain versions (gloo). No
+    hop fuses with a sum here (``fuses`` is False): a comm that wraps
+    this one (a fault spec, the hop census) moves the hops one at a time
+    and applies each step's buckets apart."""
 
     __slots__ = ("mesh",)
 
     def __init__(self, backend: str, mesh: RingMesh):
         super().__init__(backend, mesh.n_shards)
         self.mesh = mesh
+
+    @property
+    def fuses(self) -> bool:
+        return False
 
     def shift(self, x):
         self._check_payload(x, "shift")
@@ -241,12 +254,33 @@ class _RankComm(_RingComm):
 
     def fused_segment_sum(self, rot, kind, src, local_dst, mask, block,
                           extent):
-        if self.backend != "pallas":
-            return None
-        self._check_payload(rot, "shift")
-        fn = ring.ring_put_segsum_or if kind == "or" \
-            else ring.ring_put_segsum_sum
-        return fn(rot, self.mesh, src, local_dst, mask, block, extent=extent)
+        return None
+
+    def gather(self, x):
+        """The pass's ``[2S, ...]`` slab of every rank's stack ``x`` (held
+        to the forward template: a pass moves one payload)."""
+        self._check_payload(x, "shift")
+        if self.backend == "pallas":
+            return ring.ring_gather(x, self.mesh)
+        return ring.ring_gather_plain(x, self.mesh)
+
+    def rows(self, slab, t: int):
+        """This rank's rows at ring step ``t`` of the pass, a view."""
+        return ring.ring_rows(slab, self.mesh.shard_lo, self.mesh.n_local, t)
+
+    def pass_segment_sum(self, slab, kind, src, local_dst, mask, block,
+                         extent):
+        """The MXU group's sums over every step of the pass (``kind`` "or"
+        or "sum"; the ``[L, S, NB, W]`` buckets, ``extent`` their rows'
+        extents or None), ``[L, NB * block]``."""
+        if self.backend == "pallas":
+            fn = ring.ring_pass_segsum_or if kind == "or" \
+                else ring.ring_pass_segsum_sum
+            return fn(slab, self.mesh.shard_lo, src, local_dst, mask, block,
+                      extent=extent)
+        fn = ring.ring_pass_segsum_or_plain if kind == "or" \
+            else ring.ring_pass_segsum_sum_plain
+        return fn(slab, self.mesh.shard_lo, src, local_dst, mask, block)
 
 
 def _rank_mesh(obj) -> Optional[RingMesh]:
@@ -970,24 +1004,19 @@ def apply_topology_state(sg: ShardedGraph, ts: dict) -> ShardedGraph:
 # --------------------------------------------------------------- ring pass
 
 
-def _ring_pass_unrolled(S, rot, groups, diag, acc0, combine, comm):
-    """The ring with diagonal pieces: each piece applies at its STATIC
-    ring step with its STATIC shift, inside its step, so sums fold in the
-    reference's order (the static group, the dynamic group, the pieces).
-    The hop is issued before the step's applies."""
+def _step_fold(blocks, groups, diag, acc, combine):
+    """Fold a pass step by step: at step ``t`` (the ``t``-th block of
+    ``blocks``, the one resident there) each group's bucket ``[:, t]``,
+    then each diagonal piece of step ``t`` with its static shift, so sums
+    fold in the reference's order (the static group, the dynamic group,
+    the pieces)."""
     pieces, masks, apply_diag = diag
-    wants_step = getattr(comm, "wants_step", False)
-    acc = acc0
-    for t in range(S):
-        if wants_step and t < S - 1:
-            comm.set_context(step=t)
-        rot_next = comm.shift(rot) if t < S - 1 else rot
+    for t, rot in enumerate(blocks):
         for fn, *arrs in groups:
             acc = combine(acc, fn(rot, *(a[:, t] for a in arrs)))
         for pi, (tp, r) in enumerate(pieces):
             if tp == t:
                 acc = combine(acc, apply_diag(rot, r, masks[:, pi]))
-        rot = rot_next
     return acc
 
 
@@ -1026,10 +1055,13 @@ def _ring_pass(S, frontier, groups, acc0, combine, diag, comm: _RingComm):
     applied after it on the same resident block. The last bucket is
     peeled: nothing is left to rotate after it, so a pass makes ``S - 1``
     hops. A comm that keys faults on the ring step (``wants_step``) is
-    told the step before each hop."""
-    if diag[0]:
-        return _ring_pass_unrolled(S, frontier, groups, diag, acc0, combine,
-                                   comm)
+    told the step before each hop. A ring split over ranks reads the
+    pass from one exchange (:func:`_gathered_pass`)."""
+    if isinstance(comm, _RankComm):
+        return _gathered_pass(S, frontier, groups, acc0, combine, diag, comm)
+    if diag[0]:  # the diagonal pieces: every step unrolled, no fusion
+        return _step_fold(_rotations(comm, frontier, S), groups, diag, acc0,
+                          combine)
     # The MXU group's fused form: (kind, post, kernel block, row extents).
     fused = getattr(groups[0][0], "fused", None) if comm.fuses else None
     wants_step = getattr(comm, "wants_step", False)
@@ -1054,6 +1086,50 @@ def _ring_pass(S, frontier, groups, acc0, combine, diag, comm: _RingComm):
             acc = apply_all(acc, rot, t)
         rot = rot_next
     return apply_all(acc, rot, S - 1)
+
+
+def _gathered_pass(S, x, groups, acc0, combine, diag, comm: _RankComm):
+    """:func:`_ring_pass` on a ring split over ranks: the pass's blocks
+    from one gather (:meth:`_RankComm.gather`), each step's rows a view of
+    it. The MXU group takes the pass kernel, every step's sums in one
+    launch; the other groups (the dynamic region) and the diagonal pieces
+    apply at their steps on the step's rows. The plain backend keeps the
+    reference's fold order where it shows: an f32 sum with another group
+    or pieces beside the MXU group folds step by step (static, dynamic,
+    pieces at each step), bit for bit the one-process ring; on the card
+    the pass kernel's atomics add in no fixed order anyway (and OR in any
+    order is exact)."""
+    slab = comm.gather(x)
+    fused = getattr(groups[0][0], "fused", None)
+    acc, rest = acc0, groups
+    if fused is not None and (comm.backend == "pallas" or fused[0] == "or"
+                              or (len(groups) == 1 and not diag[0])):
+        kind, post, kblock, extent = fused
+        acc = combine(acc, post(comm.pass_segment_sum(
+            slab, kind, *groups[0][1:], kblock, extent)))
+        rest = groups[1:]
+    return _step_fold((comm.rows(slab, t) for t in range(S)), rest, diag,
+                      acc, combine)
+
+
+def _rotations(comm, x, S, set_step: bool = True):
+    """The blocks resident at ring steps ``0 .. S - 1`` of a pass of
+    ``x``: on a ring split over ranks views of one gather, else ``S - 1``
+    hops, each issued before its step's block is used (and, with
+    ``set_step``, a comm that keys faults on the step told it first)."""
+    if isinstance(comm, _RankComm):
+        slab = comm.gather(x)
+        for t in range(S):
+            yield comm.rows(slab, t)
+        return
+    wants_step = set_step and getattr(comm, "wants_step", False)
+    rot = x
+    for t in range(S):
+        if wants_step and t < S - 1:
+            comm.set_context(step=t)
+        rot_next = comm.shift(rot) if t < S - 1 else rot
+        yield rot
+        rot = rot_next
 
 
 def neutral_min(dtype: torch.dtype):
@@ -1720,7 +1796,8 @@ class _RingGossip:
     the engine draws it, and pulls its partner's value over the ring: at
     step ``t`` the resident block is shard ``(d - t) mod S``'s, and a node
     whose partner lives there takes its value, so every node's sum has
-    exactly one term. The hops run through ``comm`` (B2 on f32)."""
+    exactly one term. The hops run through ``comm`` (B2 on f32; across
+    ranks one gather a round)."""
 
     comm: object
     draw: object
@@ -1741,12 +1818,11 @@ class _RingGossip:
         p_shard, p_local = partner // sg.block, (partner % sg.block).long()
         shards = torch.arange(sg.shard_lo, sg.shard_lo + sg.n_local,
                               device=sg.device)[:, None]
-        rot, pulled = values, torch.zeros_like(values)
-        for t in range(S):
-            rot_next = self.comm.shift(rot) if t < S - 1 else rot
+        pulled = torch.zeros_like(values)
+        for t, rot in enumerate(_rotations(self.comm, values, S,
+                                           set_step=False)):
             pulled = pulled + torch.where(p_shard == (shards - t) % S,
                                           rot.gather(1, p_local), 0.0)
-            rot = rot_next
         mixed = (1.0 - self.alpha) * values + self.alpha * pulled
         values = torch.where(has_neighbor, mixed, values)
         # Per shard: the mean's f32 sum and the two counts, gathered in
@@ -2679,7 +2755,8 @@ def _make_or_lanes_pass(sg: ShardedGraph, comm, axis_name: str):
     (``ops/bitset.py`` ``or_sorted_lanes``: no bit planes, no atomics on
     the padding's one receiver); the dynamic region's unsorted slots by
     ``or_scatter_lanes``. The hop moves the whole word stack (B2; across
-    ranks ``ring_put`` of the rank's ``[n_local, W, block]``)."""
+    ranks one ``ring_gather`` a pass of the rank's ``[n_local, W,
+    block]``)."""
     S, L, B = sg.n_shards, sg.n_local, sg.block
     E = sg.bkt_dst.shape[-1]
     comm_obj = _make_ring_comm(comm, axis_name, sg)
@@ -2709,14 +2786,9 @@ def _make_or_lanes_pass(sg: ShardedGraph, comm, axis_name: str):
         return out
 
     def pass_(lanes):
-        acc, rot = torch.zeros_like(lanes), lanes.contiguous()
-        wants_step = getattr(comm_obj, "wants_step", False)
-        for t in range(S):
-            if wants_step and t < S - 1:
-                comm_obj.set_context(step=t)
-            rot_next = comm_obj.shift(rot) if t < S - 1 else rot
+        acc = torch.zeros_like(lanes)
+        for t, rot in enumerate(_rotations(comm_obj, lanes.contiguous(), S)):
             acc = acc | apply(rot, t)
-            rot = rot_next
         return acc
 
     pass_.comm = comm_obj

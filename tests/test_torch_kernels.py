@@ -821,10 +821,10 @@ def test_analytics_on_card_equal_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("delay_rank", [0, 1])
 def test_ring_put_across_two_ranks(delay_rank):
-    """B2's and B3's cross-rank forms (``csrc/ring_peer.cu``) at 2 ranks
-    on the card against their plain versions and the global roll, then
-    256 hops with one rank held back before each put, every block
-    checked (``tests/torch_rank_worker.py::card_puts``)."""
+    """B2's and B3's cross-rank forms (``csrc/ring_peer.cu``: the hop, the
+    pass kernel) at 2 ranks on the card against their plain versions and
+    the global roll, then 256 hops with one rank held back before each
+    put, every block checked (``tests/torch_rank_worker.py::card_puts``)."""
     _card()
     from p2pnetwork_tpu_torch.parallel import multihost
     from tests import torch_rank_worker
@@ -840,13 +840,36 @@ def test_ring_put_across_two_ranks(delay_rank):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("world", [2, 8])
+def test_ring_gather_across_ranks(world):
+    """A pass's one exchange (``ring_gather``) at 2 and 8 ranks on the
+    card: bool, f32, i32 and the lane words against its plain version and
+    the global stack, every step's rows against the global roll, the pass
+    kernel of both kinds against its plain version and the fold from
+    hops, then 128 gathers with the last rank held back, every step's
+    rows checked (``tests/torch_rank_worker.py::card_gather``)."""
+    _card()
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from tests import torch_rank_worker
+
+    steps = 128
+    parts = multihost.launch(f"{torch_rank_worker.__file__}:card_gather",
+                             world, (8, steps), timeout=600, device="cuda")
+    for p in parts:
+        assert p["errors"] == []
+        assert p["bad"] == 0
+        assert p["gathers"] == steps
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("payload", ["i32", "lanes", "segsum_sum"])
 def test_protocol_payloads_across_two_ranks(payload):
     """The cross-rank kernels on the ring protocols' payloads at 2 ranks:
     B2 on election's i32 ids and on the lane plane's 3-D word stack
-    ``[4, 32, 12512]``, B3's sum form (SIR, PageRank, push-sum on
-    ``mxu``), each against its plain version and the global roll, bit
-    for bit (``tests/torch_rank_worker.py::card_payload``)."""
+    ``[4, 32, 12512]``, B3's sum form across ranks (the pass kernel: SIR,
+    PageRank, push-sum on ``mxu``), each against its plain version and
+    the global roll or the fold from hops, bit for bit
+    (``tests/torch_rank_worker.py::card_payload``)."""
     _card()
     from p2pnetwork_tpu_torch.parallel import multihost
     from tests import torch_rank_worker

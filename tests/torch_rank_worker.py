@@ -128,9 +128,11 @@ def _global_stack(mesh, step: int, width: int, device) -> torch.Tensor:
 def card_puts(n_shards: int, steps: int, delay_rank: int) -> dict:
     """The cross-rank kernels on the card against their plain versions and
     the global ``torch.roll`` of the stacked blocks (gathered through the
-    group), then ``steps`` hops of a payload that names its shard and step,
-    one rank held back by a sleep kernel before each put (and on the host
-    every 64 steps), every landed block checked."""
+    group), the pass kernel against its plain version
+    (:func:`pass_kernel_errors`), then ``steps`` hops of a payload that
+    names its shard and step, one rank held back by a sleep kernel before
+    each put (and on the host every 64 steps), every landed block
+    checked."""
     import time
 
     from p2pnetwork_tpu_torch.ops import ring, segsum
@@ -170,28 +172,8 @@ def card_puts(n_shards: int, steps: int, delay_rank: int) -> dict:
             check(f"ring_put_plain {dtype} {shape} reverse={reverse}",
                   ring.ring_put_plain(x, mesh, reverse), expect)
 
-    nb, w, block = 245, 64, 512
-    B = 125008
-    src = torch.randint(0, B, (L, nb, w), generator=gen, device=dev,
-                        dtype=torch.int32)
-    dst = torch.randint(0, block, (L, nb, w), generator=gen, device=dev,
-                        dtype=torch.int32).sort(dim=2).values
-    mask = torch.rand((L, nb, w), generator=gen, device=dev) < 0.7
-    extent = torch.full((L, nb), w, dtype=torch.int32, device=dev)
-    rot_or = torch.rand((L, B), generator=gen, device=dev) < 0.3
-    rot_sum = torch.randint(-8, 8, (L, B), generator=gen, device=dev).to(
-        torch.float32)  # integer-valued: exact in any order
-    for kind, rot in (("or", rot_or), ("sum", rot_sum)):
-        fused = getattr(ring, f"ring_put_segsum_{kind}")
-        plain = getattr(ring, f"ring_put_segsum_{kind}_plain")
-        p_next, p_out = plain(rot, mesh, src, dst, mask, block)
-        check(f"ring_put_segsum_{kind}_plain hop", p_next, want(rot, False))
-        for ext in (None, extent):
-            got_next, got_out = fused(rot, mesh, src, dst, mask, block,
-                                      extent=ext)
-            tag = f"ring_put_segsum_{kind} extent={ext is not None}"
-            check(f"{tag} hop", got_next, p_next)
-            check(f"{tag} sum", got_out, p_out)
+    for kind in ("or", "sum"):
+        errors += pass_kernel_errors(mesh, kind)
 
     width = 125008
     bad = torch.zeros((), dtype=torch.int64, device=dev)
@@ -459,8 +441,8 @@ def card_payload(n_shards: int, payload: str) -> dict:
     card, both directions, against their plain versions and the global
     ``torch.roll`` (gathered through the group): ``"i32"`` election's ids
     ``[n_local, 125008]``, ``"lanes"`` the lane plane's words ``[n_local,
-    32, 12512]`` (B2), ``"segsum_sum"`` B3's sum form on integer-valued
-    f32 (exact in any order), with and without the rows' extents."""
+    32, 12512]`` (B2), ``"segsum_sum"`` B3's sum form, the pass kernel
+    (:func:`pass_kernel_errors`)."""
     from p2pnetwork_tpu_torch.ops import ring
     from p2pnetwork_tpu_torch.parallel import mesh as M
     from p2pnetwork_tpu_torch.parallel import multihost
@@ -486,27 +468,8 @@ def card_payload(n_shards: int, payload: str) -> dict:
                                    want):
                     errors.append(f"{name} {payload} reverse={reverse}")
     else:
-        nb, w, block, B = 245, 64, 512, 125008
-        src = torch.randint(0, B, (L, nb, w), generator=gen, device=dev,
-                            dtype=torch.int32)
-        dst = torch.randint(0, block, (L, nb, w), generator=gen, device=dev,
-                            dtype=torch.int32).sort(dim=2).values
-        mask = torch.rand((L, nb, w), generator=gen, device=dev) < 0.7
-        rot = torch.randint(-8, 8, (L, B), generator=gen, device=dev).to(
-            torch.float32)
-        want_next, want = ring.ring_put_segsum_sum_plain(rot, mesh, src, dst,
-                                                         mask, block)
-        if not torch.equal(want_next, roll(rot, False)):
-            errors.append("ring_put_segsum_sum_plain hop")
-        extent = torch.full((L, nb), w, dtype=torch.int32, device=dev)
-        for ext in (None, extent):
-            got_next, got = ring.ring_put_segsum_sum(rot, mesh, src, dst,
-                                                     mask, block, extent=ext)
-            checked += 1
-            if not (torch.equal(got_next, want_next)
-                    and torch.equal(got, want)):
-                errors.append(f"ring_put_segsum_sum extent="
-                              f"{ext is not None}")
+        checked += 1
+        errors += pass_kernel_errors(mesh, "sum")
     torch.cuda.synchronize()
     return {"errors": errors, "checked": checked}
 
@@ -706,3 +669,237 @@ def restore_placed(n_shards: int, ckpt_dir: str) -> dict:
     return {"placed": _rows_and_same(
         {k: restored[k] for k in ("seen", "counts")},
         lanes=restored["lanes"], key=key, round=rnd, messages=msgs)}
+
+
+# ------------------------------------------- a pass's one exchange, by rank
+
+#: ``rotations``' payloads: ``(dtype, shape of a shard)``.
+ROTATION_PAYLOADS = ((torch.int32, (2, 33)), (torch.bool, (65,)),
+                     (torch.float32, (17,)))
+#: The pass kernel's buckets on the CPU: rows a shard, slots a row (a
+#: multiple of 4: the extent path's geometry), receivers a row, signal
+#: width a shard.
+PASS_GEOMETRY = dict(nb=5, w=24, block=16, width=80)
+#: The same on the card: the 1M ring's ``mxu`` step geometry.
+CARD_PASS_GEOMETRY = dict(nb=245, w=64, block=512, width=125008)
+#: The dynamic region of ``rotations``' propagate runs: runtime links.
+DYN_LINKS = ([1, 5, 300], [GRAPH[0] - 2, 200, 7])
+DYN_LAYOUTS = ("mxu", "hybrid")
+
+
+def swapped(order) -> tuple:
+    """A ring order with each pair of neighbours swapped: the ranks around
+    the ring no longer in rank order (a hierarchical mesh's host-major
+    order in miniature)."""
+    order = list(order)
+    for i in range(0, len(order) - 1, 2):
+        order[i], order[i + 1] = order[i + 1], order[i]
+    return tuple(order)
+
+
+def global_payload(n_shards: int, dtype, shape) -> torch.Tensor:
+    """The whole ring's ``[S, *shape]`` payload, each element a function
+    of its shard and offset."""
+    n = int(np.prod(shape))
+    v = (torch.arange(n_shards)[:, None] * 1009
+         + torch.arange(n)[None, :] * 7).reshape(n_shards, *shape)
+    return (v % 3 == 1) if dtype == torch.bool else v.to(dtype)
+
+
+def pass_buckets(n_shards: int, seed: int, geometry=None) -> dict:
+    """The whole ring's ``[S, S, NB, W]`` buckets in the MXU layout's form
+    (each row's live slots a prefix up to its extent, the padding ``(0,
+    0, 0)``), their extents ``[S, S, NB]`` and integer-valued f32 and
+    bool signals ``[S, width]`` (f32 sums exact in any order), as numpy
+    arrays."""
+    g = geometry or PASS_GEOMETRY
+    rng = np.random.default_rng(seed)
+    shape = (n_shards, n_shards, g["nb"], g["w"])
+    ext = rng.integers(0, g["w"] + 1, shape[:3]).astype(np.int32)
+    live = np.arange(g["w"]) < ext[..., None]
+    src = np.where(live, rng.integers(0, g["width"], shape), 0)
+    dst = np.where(live, np.sort(rng.integers(0, g["block"], shape), -1), 0)
+    mask = live & (rng.random(shape) < 0.8)
+    return {"src": src.astype(np.int32), "dst": dst.astype(np.int32),
+            "mask": mask, "extent": ext,
+            "sum": rng.integers(-8, 8, (n_shards, g["width"])).astype(
+                np.float32),
+            "or": rng.random((n_shards, g["width"])) < 0.3}
+
+
+def hop_fold(mesh, kind: str, x, src, dst, mask, block: int):
+    """The pass's fold step by step from ``S - 1`` :func:`ring_put` hops
+    (their plain versions on the CPU) and B1's plain sum a step: what
+    the pass kernel computes from one gather."""
+    from p2pnetwork_tpu_torch.ops import ring, segsum
+
+    plain = segsum.segsum_or_plain if kind == "or" \
+        else segsum.segsum_sum_plain
+    acc, rot = None, x
+    for t in range(mesh.n_shards):
+        step = plain(rot, src[:, t], dst[:, t], mask[:, t], block)
+        acc = step if acc is None else (acc | step if kind == "or"
+                                        else acc + step)
+        if t < mesh.n_shards - 1:
+            rot = ring.ring_put(rot, mesh)
+    return acc
+
+
+def pass_kernel_errors(mesh, kind: str) -> list:
+    """The pass kernel of ``kind`` on the card at the 1M ring's step
+    geometry (``CARD_PASS_GEOMETRY``), with and without extents, against
+    its plain version and the fold from ``S - 1`` hops: OR and the
+    integer-valued sums bit for bit. The names of what differs."""
+    from p2pnetwork_tpu_torch.ops import ring
+
+    g = CARD_PASS_GEOMETRY
+    lo, L = mesh.shard_lo, mesh.n_local
+    b = pass_buckets(mesh.n_shards, 1234, g)
+    dev = mesh.device
+    src, dst, mask, ext, x = (
+        torch.from_numpy(b[k][lo:lo + L]).to(dev).contiguous()
+        for k in ("src", "dst", "mask", "extent", kind))
+    slab = ring.ring_gather(x, mesh).clone()
+    errors = []
+    plain_slab = ring.ring_gather_plain(x, mesh)
+    if not torch.equal(slab, plain_slab):
+        errors.append(f"ring_gather {kind} slab")
+    fn = getattr(ring, f"ring_pass_segsum_{kind}")
+    want = getattr(ring, f"ring_pass_segsum_{kind}_plain")(
+        plain_slab, lo, src, dst, mask, g["block"])
+    folded = hop_fold(mesh, kind, x, src, dst, mask, g["block"])
+    if not torch.equal(want, folded):
+        errors.append(f"ring_pass_segsum_{kind}_plain against the hops")
+    for e in (None, ext):
+        got = fn(slab, lo, src, dst, mask, g["block"], extent=e)
+        if not torch.equal(got, want):
+            errors.append(f"ring_pass_segsum_{kind} extent={e is not None}")
+    return errors
+
+
+def rotations(n_shards: int, device: str = "cpu") -> dict:
+    """A pass's one exchange on this rank's shards of ``n_shards``, on the
+    hierarchical mesh's ring order and on one with neighbours swapped
+    (:func:`swapped`): for each of ``ROTATION_PAYLOADS`` the gathered
+    slab, each step's rows and the same step from chained ``ring_put``
+    hops; the pass kernel of each kind on :func:`pass_buckets` (extents
+    given and not) and the fold from hops; then ``propagate`` of a sum
+    and an OR on the reference worker's graph with failures and runtime
+    links (a dynamic region) on the MXU layouts."""
+    torch.set_num_threads(1)
+    import dataclasses
+
+    from p2pnetwork_tpu_torch.ops import ring
+    from p2pnetwork_tpu_torch.parallel import multihost
+
+    multihost.initialize_distributed()
+    base = multihost.hierarchical_ring_mesh(n_shards=n_shards,
+                                            device=device)
+    S = n_shards
+    out = {"rank": base.rank, "world": base.world}
+    for name, order in (("ring", base.order), ("swapped",
+                                              swapped(base.order))):
+        mesh = dataclasses.replace(base, order=order, peer={})
+        lo, L = mesh.shard_lo, mesh.n_local
+        rec = {"shard_lo": lo, "payloads": []}
+        for dtype, shape in ROTATION_PAYLOADS:
+            x = global_payload(S, dtype, shape)[lo:lo + L].to(mesh.device)
+            slab = ring.ring_gather(x, mesh)
+            rows, hops, rot = [], [], x
+            for t in range(S):
+                rows.append(_np(ring.ring_rows(slab, lo, L, t)))
+                hops.append(_np(rot))
+                rot = ring.ring_put(rot, mesh)
+            rec["payloads"].append({"slab": _np(slab), "rows": rows,
+                                    "hops": hops})
+        b = pass_buckets(S, 5)
+        src, dst, mask, ext = (torch.from_numpy(b[k][lo:lo + L]).to(
+            mesh.device) for k in ("src", "dst", "mask", "extent"))
+        for kind in ("or", "sum"):
+            x = torch.from_numpy(b[kind][lo:lo + L]).to(mesh.device)
+            slab = ring.ring_gather(x, mesh)
+            fn = getattr(ring, f"ring_pass_segsum_{kind}")
+            block = PASS_GEOMETRY["block"]
+            rec[f"pass_{kind}"] = _np(fn(slab, lo, src, dst, mask, block))
+            rec[f"pass_{kind}_extent"] = _np(fn(slab, lo, src, dst, mask,
+                                                block, extent=ext))
+            rec[f"hops_{kind}"] = _np(hop_fold(mesh, kind, x, src, dst,
+                                               mask, block))
+        out[name] = rec
+    out.update(dyn_propagate(base))
+    return out
+
+
+def dyn_propagate(mesh) -> dict:
+    """``propagate`` of a sum and an OR on the reference worker's graph
+    with failures and runtime links (a dynamic region) on the MXU
+    layouts, this rank's rows (every row in one process)."""
+    from p2pnetwork_tpu_torch.parallel import sharded
+    from p2pnetwork_tpu_torch.sim import graph as G
+
+    g = G.watts_strogatz(*GRAPH, seed=0, device=mesh.device)
+    out = {}
+    for layout in DYN_LAYOUTS:
+        sg = sharded.shard_graph(g, mesh, **LAYOUTS[layout])
+        sgc = sharded.with_capacity(sharded.fail_nodes(sg, list(FAIL_IDS)),
+                                    8)
+        sgc = sharded.connect(sgc, *DYN_LINKS)
+        sig = torch.from_numpy(signal(sg.n_nodes_padded)).reshape(
+            mesh.n_shards, sg.block)[sg.shard_lo:sg.shard_lo + sg.n_local]
+        sig = sig.to(mesh.device)
+        out[f"dyn-{layout}"] = {
+            "sum": _np(sharded.propagate(sgc, mesh, sig, "sum")),
+            "or": _np(sharded.propagate(sgc, mesh, sig > 1.0, "or"))}
+    return out
+
+
+def card_gather(n_shards: int, steps: int) -> dict:
+    """The pass's exchange on the card: ``ring_gather`` of bool, f32, i32
+    and the lane words against its plain version and the global stack
+    (each step's rows too), the pass kernel of both kinds
+    (:func:`pass_kernel_errors`), then ``steps`` gathers of an i32
+    payload that names its shard and gather, the last rank held back by a
+    sleep kernel before each (and on the host every 64), every step's
+    rows of every gather checked, with the launches counted."""
+    import time
+
+    from p2pnetwork_tpu_torch.ops import ring
+    from p2pnetwork_tpu_torch.parallel import multihost
+
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards)
+    dev, lo, L, S = mesh.device, mesh.shard_lo, mesh.n_local, n_shards
+    errors = []
+    for dtype, shape in ((torch.bool, (16,)), (torch.bool, (125008,)),
+                         (torch.float32, (125008,)),
+                         (torch.int32, (125008,)), (torch.int32, (32, 12512)),
+                         (torch.bool, (125007,))):
+        whole = global_payload(S, dtype, shape).to(dev)
+        x = whole[lo:lo + L].contiguous()
+        slab = ring.ring_gather(x, mesh)
+        if not torch.equal(slab, torch.cat([whole, whole])):
+            errors.append(f"ring_gather {dtype} {shape}")
+        if not torch.equal(ring.ring_gather_plain(x, mesh), slab):
+            errors.append(f"ring_gather_plain {dtype} {shape}")
+        for t in range(S):
+            if not torch.equal(ring.ring_rows(slab, lo, L, t),
+                               torch.roll(whole, t, 0)[lo:lo + L]):
+                errors.append(f"ring_rows {dtype} {shape} step {t}")
+    for kind in ("or", "sum"):
+        errors += pass_kernel_errors(mesh, kind)
+    g = torch.arange(S, device=dev, dtype=torch.int32)[:, None]
+    j = torch.arange(125008, device=dev, dtype=torch.int32)[None, :]
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    launches0 = ring.GATHER_LAUNCHES
+    for s in range(steps):
+        if mesh.rank == mesh.world - 1:
+            torch.cuda._sleep(100_000)
+            if s % 64 == 0:
+                time.sleep(0.05)
+        whole = g * 1_000_003 + s * 7919 + j
+        slab = ring.ring_gather(whole[lo:lo + L].contiguous(), mesh)
+        for t in range(S):
+            bad += (ring.ring_rows(slab, lo, L, t)
+                    != torch.roll(whole, t, 0)[lo:lo + L]).sum()
+    torch.cuda.synchronize()
+    return {"errors": errors, "bad": int(bad), "steps": steps,
+            "gathers": ring.GATHER_LAUNCHES - launches0}
