@@ -7179,6 +7179,144 @@ def traced_path(g, segsum, Flood) -> int:
     return launches
 
 
+# --------------------------------------------------------------- phase 4x
+
+#: Phase 4x (c): schedules of serve_admit_storm's body on phase 4's graph.
+RACE_1M_SCHEDULES = 4
+#: Phase 4q's SimService settings, and the seen hashes that make a ticket's
+#: result its bits.
+RACE_1M_SERVICE = dict(capacity=BATCH_B, queue_depth=BATCH_B, chunk_rounds=4,
+                       seed=0, record_seen_hash=True)
+#: A done ticket's result: the same source's in every schedule.
+RACE_RESULT = ("source", "status", "rounds", "seen_count", "seen_sha256")
+#: Phase 4x's wall bound (seconds).
+RACE_PHASE_S = 60.0
+
+
+def lint_tree(root: Path) -> dict:
+    """Phase 4x (a): graftlint's CLI over the port tree in a process of
+    its own; it must exit 0 with no finding and the empty baseline."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "p2pnetwork_tpu_torch.analysis",
+         "p2pnetwork_tpu_torch", "--json", "--no-suppressions"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"graftlint exited {res.returncode}:\n{res.stdout[-4000:]}"
+             f"{res.stderr[-4000:]}")
+    doc = json.loads(res.stdout)
+    files = len(list((root / "p2pnetwork_tpu_torch").rglob("*.py")))
+    if not doc["ok"] or doc["findings"] or doc["baselined"]:
+        fail(f"graftlint: the port tree is not clean ({doc['findings']}, "
+             f"{doc['baselined']} baselined)")
+    return {"files": files, "findings": len(doc["findings"]),
+            "suppressions": len(doc["suppressed"]), "wall_s": wall,
+            "python": sys.version.split()[0]}
+
+
+def admit_results(explore, scenarios, g, seeds) -> list:
+    """serve_admit_storm's body on ``g`` with ``RACE_1M_SERVICE``, drained,
+    under each seed's schedule; each schedule's ticket records."""
+    out = []
+    for seed in seeds:
+        records = []
+        body = scenarios.admit_storm(g, service=RACE_1M_SERVICE, drain=True,
+                                     results=records)
+        res = explore(body, seed=seed)
+        if res.findings or res.errors:
+            fail(f"serve_admit_storm on phase 4's graph, seed {seed}: "
+                 f"{[f.render() for f in res.findings]} {res.errors}")
+        out.append((res, records))
+    return out
+
+
+def unscheduled_results(serve, g, sources) -> dict:
+    """Each source's result from a service driven with no scheduler."""
+    svc = serve.SimService(g, **RACE_1M_SERVICE)
+    for s in sources:
+        svc.submit(s)
+    while svc.busy():
+        svc.tick()
+    recs = {r["source"]: {k: r.get(k) for k in RACE_RESULT}
+            for r in svc.tickets().values()}
+    svc.close()
+    return recs
+
+
+def analysis_path(g, serve, telemetry, segsum, threefry, rowsum,
+                  device="cuda") -> None:
+    """Phase 4x (slice 17), after 4w: the threaded plane's analysers.
+    (a) graftlint over the port tree exits 0 (``lint_tree``); (b)
+    graftrace's ten builtins at its default 8 schedules, the watchdog and
+    serving scenarios' graphs and state on ``device``, each clean and none
+    unavailable, a line a scenario; (c) serve_admit_storm's body on phase
+    4's graph with 4q's service settings over ``RACE_1M_SCHEDULES``
+    schedules: every ticket done under a schedule equals, field for field
+    (its seen bits' hash among them), the same source's from a service
+    driven with no scheduler. The phase's kernel launches are counted on
+    its last line."""
+    from p2pnetwork_tpu_torch.analysis.race import __main__ as race_cli
+    from p2pnetwork_tpu_torch.analysis.race import explore, scenarios
+
+    t_phase = time.perf_counter()
+    segsum.LAUNCHES = threefry.LAUNCHES = rowsum.LAUNCHES = 0
+    lint = lint_tree(Path(__file__).resolve().parent)
+    print(json.dumps({"phase": "race-path", "run": "graftlint", **lint,
+                      "t_s": time.perf_counter() - T_START}), flush=True)
+
+    for name in scenarios.builtin_names():
+        entry = scenarios.SCENARIOS[name]
+        t0 = time.perf_counter()
+        findings, stats = race_cli.run_battery(
+            [name], seed=0, schedules=race_cli.DEFAULT_SCHEDULES,
+            device=device, registry=telemetry.Registry())
+        wall = time.perf_counter() - t0
+        row = stats[0]
+        if row["skipped"] or findings or row["errors"] \
+                or row["schedules"] != race_cli.DEFAULT_SCHEDULES:
+            fail(f"graftrace {name}: skipped={row['skipped']} "
+                 f"{[f.render() for f in findings]} {row['errors']}")
+        print(json.dumps({
+            "phase": "race-path", "run": "battery", "scenario": name,
+            "device": device if entry.device else "host",
+            "schedules": row["schedules"], "steps": row["steps"],
+            "wall_s": wall, "t_s": time.perf_counter() - T_START}),
+            flush=True)
+
+    t0 = time.perf_counter()
+    runs = admit_results(explore, scenarios, g, range(RACE_1M_SCHEDULES))
+    t1 = time.perf_counter()
+    want = unscheduled_results(serve, g, range(1, 6))
+    t2 = time.perf_counter()
+    done = []
+    for seed, (res, records) in enumerate(runs):
+        mine = [r for r in records if r["status"] == "done"]
+        for r in mine:
+            got = {k: r.get(k) for k in RACE_RESULT}
+            if got != want.get(r["source"]) or got["seen_sha256"] is None:
+                fail(f"serve_admit_storm seed {seed}: ticket {r['ticket']} "
+                     f"{got} != the unscheduled service's "
+                     f"{want.get(r['source'])}")
+        done.append(len(mine))
+    if not all(done):
+        fail(f"serve_admit_storm on phase 4's graph: a schedule completed "
+             f"no ticket ({done})")
+    launches = segsum.LAUNCHES + threefry.LAUNCHES + rowsum.LAUNCHES
+    wall = time.perf_counter() - t_phase
+    print(json.dumps({
+        "phase": "race-path", "run": "admit-storm-1m",
+        "n_nodes": g.n_nodes, "schedules": RACE_1M_SCHEDULES,
+        "done_per_schedule": done,
+        "steps": [res.steps for res, _ in runs],
+        "sources": {str(s): want[s]["rounds"] for s in sorted(want)},
+        "scheduled_s": t1 - t0, "unscheduled_s": t2 - t1,
+        "phase_s": wall, "launches": launches,
+        "t_s": time.perf_counter() - T_START}), flush=True)
+    if wall > RACE_PHASE_S:
+        fail(f"phase 4x took {wall:.1f} s, over its {RACE_PHASE_S:g} s")
+
+
 RING_EXPECT = {"segment": ("ring_shift",),
                "mxu": ("ring_segsum", "segsum"),
                "hybrid": ("ring_shift", "segsum")}
@@ -7502,6 +7640,9 @@ def main() -> int:
                           multihost, gpu, world1, sparse1)
     # 4w (slice 16): its rank runs rode 4v's launches; the traced flood.
     traced_launches = traced_path(g, segsum, Flood)
+    # 4x (slice 17): graftlint, graftrace's battery on the card, and the
+    # admission storm's schedules on phase 4's graph.
+    analysis_path(g, serve, telemetry, segsum, threefry, rowsum)
     del g, seen
     torch.cuda.empty_cache()
 

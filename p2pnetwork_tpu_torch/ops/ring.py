@@ -85,6 +85,7 @@ the kernels, ``LAND_LAUNCHES`` the hops' land kernels.
 from __future__ import annotations
 
 import ctypes
+import datetime
 import math
 
 import torch
@@ -370,6 +371,11 @@ def peer_channel(mesh, shard_bytes: int) -> PeerChannel:
     return chan
 
 
+#: Bound on one gloo exchange of :func:`ring_put_plain`: a wedged rank
+#: raises ``RuntimeError`` after this long instead of hanging its peers.
+PLAIN_WAIT_S = 300.0
+
+
 def _put_geometry(name: str, x: torch.Tensor):
     """The rank's stack ``[n_local, ...]`` checked for a CUDA put; its
     shard bytes."""
@@ -401,7 +407,7 @@ def ring_put_plain(x: torch.Tensor, mesh, reverse: bool = False
     reqs = [dist.isend(wire(send), to, group=mesh.group),
             dist.irecv(wire(recv), frm, group=mesh.group)]
     for req in reqs:
-        req.wait()
+        req.wait(timeout=datetime.timedelta(seconds=PLAIN_WAIT_S))
     out = torch.roll(x, -1 if reverse else 1, dims=0)
     out[landing] = recv.to(x.device)
     return out
@@ -524,13 +530,44 @@ class GatherChannel:
 def gather_channel(mesh, slab_bytes: int) -> GatherChannel:
     """``mesh``'s gather channel, made at its first gather with slabs of
     that gather's size, and made anew (every rank at the same gather)
-    when a payload outgrows it."""
+    when a payload outgrows it. The outgrown channel is retired, not
+    closed: the last gather's view on it keeps the lifetime
+    :func:`ring_gather` promises, and :func:`close_retired` frees it at
+    the gather two after that one (``mesh.peer["gathers"]`` counts the
+    mesh's gathers, this one included)."""
     chan = mesh.peer.get("gather")
     if chan is None or chan.slab_bytes < slab_bytes:
         if chan is not None:
-            chan.close()
+            # Its last view came from the gather before this one.
+            mesh.peer.setdefault("retired", []).append(
+                (chan, mesh.peer.get("gathers", 0) + 1))
         chan = mesh.peer["gather"] = GatherChannel(mesh, slab_bytes)
     return chan
+
+
+def next_gather(mesh, slab_bytes: int) -> GatherChannel:
+    """The channel of ``mesh``'s next gather, its ``seq`` advanced, after
+    closing the retired channels whose views that gather expires."""
+    n = mesh.peer["gathers"] = mesh.peer.get("gathers", 0) + 1
+    close_retired(mesh, n)
+    chan = gather_channel(mesh, slab_bytes)
+    chan.seq += 1
+    return chan
+
+
+def close_retired(mesh, gathers: int) -> None:
+    """Close the retired gather channels whose last views expire at the
+    mesh's gather number ``gathers`` (every rank at the same gather)."""
+    retired = mesh.peer.get("retired")
+    if not retired:
+        return
+    keep = []
+    for chan, close_at in retired:
+        if gathers >= close_at:
+            chan.close()
+        else:
+            keep.append((chan, close_at))
+    mesh.peer["retired"] = keep
 
 
 def ring_rows(slab: torch.Tensor, shard_lo: int, n_local: int,
@@ -571,7 +608,8 @@ def ring_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     On the card the result is a view of the rank's gather area (no copy;
     ``2 * 2S`` blocks of the payload a rank, both parities): it stays
     valid until the gather two after it on the same mesh, which may
-    overwrite it; clone what must live longer."""
+    overwrite it (or, after a payload outgrew the area, free it); clone
+    what must live longer."""
     global GATHER_LAUNCHES
     if x.device.type == "cpu":
         return ring_gather_plain(x, mesh)
@@ -583,8 +621,7 @@ def ring_gather(x: torch.Tensor, mesh) -> torch.Tensor:
                          f"{mesh.n_local} shards, got {x.shape[0]}")
     if shard_bytes == 0:
         return torch.empty(shape, dtype=x.dtype, device=x.device)
-    chan = gather_channel(mesh, 2 * S * shard_bytes)
-    chan.seq += 1
+    chan = next_gather(mesh, 2 * S * shard_bytes)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _check(_lib().p2p_ring_gather(
         x.data_ptr(), x.shape[0], shard_bytes, S, mesh.shard_lo, chan.seq,

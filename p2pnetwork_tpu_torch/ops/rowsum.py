@@ -161,7 +161,7 @@ def _check_f32(name: str, t: torch.Tensor) -> None:
 #: which every launch leaves at zero (a row's last warp resets its count),
 #: so they are zeroed once. A buffer a stream, so that launches on two
 #: streams never share a count.
-_COUNTERS: dict = {}
+_COUNTERS: dict = {}  # graftlint: ignore[unbounded-cache] -- one buffer per (device, stream) that launches the span kernel: a process has a fixed few, and a buffer must outlive its launches
 
 
 def _counters(device, stream, rows: int) -> torch.Tensor:

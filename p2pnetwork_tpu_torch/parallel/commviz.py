@@ -27,6 +27,8 @@ group, classified by host.
 
 from __future__ import annotations
 
+import functools
+
 __all__ = ["RING_DMA_KEY", "ring_model_bytes", "ring_census",
            "ici_round_bytes", "ring_hop_census"]
 
@@ -35,12 +37,6 @@ RING_DMA_KEY = "ring_dma"
 
 #: Bytes of one i32/u32 scalar.
 _WORD = 4
-
-#: Per-round estimates already computed, keyed on the shape config (the
-#: estimate depends on the block, the shard count and the lane words, not
-#: on the graph's contents): a finite vocabulary per process.
-_CACHE: dict = {}
-
 
 def ring_model_bytes(prim: str, nbytes: int, axis_size: int) -> int:
     """The static byte model of one collective on an ``axis_size``-way
@@ -98,13 +94,16 @@ def ici_round_bytes(loop: str, n_shards: int, block: int, *,
                     n_words: int = 0, comm: str = "ppermute") -> int:
     """The per-round byte estimate of a recorded ring loop (the sum of
     :func:`ring_census`), cached per shape config."""
-    key = (loop, int(n_shards), int(block), int(n_words), comm)
-    est = _CACHE.get(key)
-    if est is None:
-        est = _CACHE[key] = sum(
-            rec["bytes"] for rec in ring_census(
-                loop, n_shards, block, n_words=n_words, comm=comm).values())
-    return est
+    return _round_bytes(loop, int(n_shards), int(block), int(n_words), comm)
+
+
+#: The estimate depends on the block, the shard count and the lane words,
+#: not on the graph's contents; a bounded cache keeps the recent configs.
+@functools.lru_cache(maxsize=256)
+def _round_bytes(loop: str, n_shards: int, block: int, n_words: int,
+                 comm: str) -> int:
+    return sum(rec["bytes"] for rec in ring_census(
+        loop, n_shards, block, n_words=n_words, comm=comm).values())
 
 
 class _HopLog:

@@ -44,7 +44,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from p2pnetwork_tpu_torch import _device
+from p2pnetwork_tpu_torch import _device, concurrency
 from p2pnetwork_tpu_torch.parallel.mesh import DEFAULT_AXIS, RingMesh
 
 #: Shards of a ring when the caller names no count: the reference's tests
@@ -53,6 +53,8 @@ DEFAULT_SHARDS = 8
 
 #: Seconds a collective may wait before the group gives up on a peer.
 GROUP_TIMEOUT_S = 300
+#: Bound on reaping a killed rank (SIGKILL ends it at once).
+KILL_WAIT_S = 60.0
 
 
 def _dist():
@@ -278,13 +280,13 @@ def _run_ranks(target: str, world: int, out: str, timeout: float,
             if failed or all(p.poll() == 0 for p in procs) \
                     or time.monotonic() > deadline:
                 break
-            time.sleep(0.05)
+            concurrency.sleep(0.05)
     finally:
         alive = [r for r, p in enumerate(procs) if p.poll() is None]
         for p in procs:
             if p.poll() is None:
                 p.kill()
-            p.wait()
+            p.wait(timeout=KILL_WAIT_S)
     if failed:
         if retry and all(procs[r].returncode == RENDEZVOUS_EXIT
                          for r in failed):

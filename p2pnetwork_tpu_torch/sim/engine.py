@@ -100,10 +100,10 @@ def _observe_occupancy(loop: str, protocol_name: str, value: float) -> None:
     with _occupancy_lock:
         # Observe inside the lock: a concurrent prune must not evict this
         # child between the observation and its re-insert.
-        hist.labels(*key).observe(value)
+        hist.labels(*key).observe(value)  # graftlint: ignore[lock-open-call] -- must be atomic with the recency re-insert (comment above); metric locks never take this one
         _occupancy_recency.pop(key, None)
         _occupancy_recency[key] = None
-        live = {c.labels for c in hist.children()}
+        live = {c.labels for c in hist.children()}  # graftlint: ignore[lock-open-call] -- same atomicity; children() is a leaf lock
         for stale in [k for k in _occupancy_recency if k not in live]:
             del _occupancy_recency[stale]
         while len(_occupancy_recency) > _OCCUPANCY_MAX_CHILDREN:

@@ -339,13 +339,13 @@ class MetricsServer:
                             "tracer": self.tracer,
                             "service": self.service,
                             "slo": self.slo})
-            self._httpd = http.server.ThreadingHTTPServer(
+            self._httpd = http.server.ThreadingHTTPServer(  # graftlint: ignore[lock-open-call] -- the bind must be atomic with the started-state publish, or two racing starts double-bind
                 (self.host, self._requested_port), handler)
             self.port = self._httpd.server_address[1]
-            self._thread = concurrency.thread(
+            self._thread = concurrency.thread(  # graftlint: ignore[lock-open-call] -- same lifecycle atomicity; the seam factory only constructs
                 target=self._httpd.serve_forever,
                 name=f"MetricsServer({self.host}:{self.port})", daemon=True)
-            self._thread.start()
+            self._thread.start()  # graftlint: ignore[lock-open-call] -- same lifecycle atomicity; start() does not block on the serve loop
         return self
 
     def stop(self) -> None:
@@ -357,10 +357,10 @@ class MetricsServer:
             self._httpd = self._thread = None
             if httpd is None:
                 return
-            httpd.shutdown()
-            httpd.server_close()
+            httpd.shutdown()  # graftlint: ignore[lock-open-call] -- teardown must be atomic with the stopped-state publish; bounded (serve loop poll interval)
+            httpd.server_close()  # graftlint: ignore[lock-open-call] -- same teardown atomicity
             if thread is not None:
-                thread.join(timeout=5.0)
+                thread.join(timeout=5.0)  # graftlint: ignore[lock-open-call] -- same teardown atomicity; bounded join
 
     def close(self) -> None:
         """Alias of :meth:`stop` (idempotent)."""

@@ -66,7 +66,13 @@ def test_the_walk_sees_the_whole_port():
             "streams.py", "simnode.py", "commviz.py", "capacity.py",
             "chash.py", "crdt.py", "phi.py", "causal.py", "snapshot.py",
             "sync.py", "termination.py", "securenode.py", "coordnode.py",
-            "fit_capacity.py", "multihost.py"} <= names
+            "fit_capacity.py", "multihost.py", "core.py", "torchrules.py",
+            "__main__.py", "sched.py", "scenarios.py"} <= names
+    assert {"core.py", "concurrency.py", "torchrules.py", "__main__.py"} \
+        <= {p.name for p in PORT_FILES if p.parent.name == "analysis"}
+    assert {"sched.py", "detector.py", "scenarios.py", "__main__.py",
+            "__init__.py"} <= {p.name for p in PORT_FILES
+                               if p.parent.name == "race"}
     assert any(p.parent.name == "parallel" for p in PORT_FILES)
     assert any(p.parent.name == "chaos" for p in PORT_FILES)
 
@@ -106,6 +112,12 @@ def test_import_leaves_jax_unloaded():
             "p2pnetwork_tpu_torch.sim.simnode, "
             "p2pnetwork_tpu_torch.parallel.commviz, "
             "p2pnetwork_tpu_torch.analysis.ir.capacity, "
+            "p2pnetwork_tpu_torch.analysis, "
+            "p2pnetwork_tpu_torch.analysis.__main__, "
+            "p2pnetwork_tpu_torch.analysis.torchrules, "
+            "p2pnetwork_tpu_torch.analysis.race, "
+            "p2pnetwork_tpu_torch.analysis.race.scenarios, "
+            "p2pnetwork_tpu_torch.analysis.race.__main__, "
             "p2pnetwork_tpu_torch.utils.chash, "
             "p2pnetwork_tpu_torch.crdt, p2pnetwork_tpu_torch.phi, "
             "p2pnetwork_tpu_torch.causal, p2pnetwork_tpu_torch.snapshot, "

@@ -158,3 +158,39 @@ def test_rank_pass_with_a_dynamic_region(world, layout, op,
     got = np.concatenate([p[f"dyn-{layout}"][op] for p in parts])
     _same(got, _dyn_one_process()[f"dyn-{layout}"][op], "one process")
     _same(got, _dyn_jax(layout)[op], "the JAX ring")
+
+
+def test_outgrown_gather_channel_lives_two_gathers(monkeypatch):
+    """C10: a gather whose payload outgrows the mesh's gather area makes a
+    new one; the old area holds the previous gather's slab view, which
+    ``ring_gather`` promises until the gather two after it, so the old
+    area is retired and closed only then (it was closed at once, freeing
+    a live view). The bookkeeping of ``ring.next_gather``, with a channel
+    that records its closes in place of the CUDA IPC area."""
+    from types import SimpleNamespace
+
+    from p2pnetwork_tpu_torch.ops import ring
+
+    closed = []
+
+    class Area:
+        def __init__(self, mesh, slab_bytes):
+            self.slab_bytes, self.seq = slab_bytes, 0
+
+        def close(self):
+            closed.append(self)
+
+    monkeypatch.setattr(ring, "GatherChannel", Area)
+    mesh = SimpleNamespace(peer={})
+    a = ring.next_gather(mesh, 100)       # gather 1: view on a
+    assert (a.seq, closed) == (1, [])
+    b = ring.next_gather(mesh, 400)       # gather 2 outgrows a
+    assert b is not a and b.seq == 1 and closed == []
+    assert ring.next_gather(mesh, 400) is b and closed == [a]  # gather 3
+    c = ring.next_gather(mesh, 800)       # gather 4 outgrows b
+    assert closed == [a]                  # b's gather-3 view lives on
+    d = ring.next_gather(mesh, 1600)      # gather 5 outgrows c
+    assert closed == [a, b]               # ... until gather 5
+    assert ring.next_gather(mesh, 1600) is d   # gather 6
+    assert closed == [a, b, c] and d.seq == 2
+    assert ring.next_gather(mesh, 16) is d and closed == [a, b, c]

@@ -860,7 +860,8 @@ def card_gather(n_shards: int, steps: int) -> dict:
     (:func:`pass_kernel_errors`), then ``steps`` gathers of an i32
     payload that names its shard and gather, the last rank held back by a
     sleep kernel before each (and on the host every 64), every step's
-    rows of every gather checked, with the launches counted."""
+    rows of every gather checked, with the launches counted; last, a
+    view read after a gather that outgrew the gather area (C10)."""
     import time
 
     from p2pnetwork_tpu_torch.ops import ring
@@ -901,5 +902,15 @@ def card_gather(n_shards: int, steps: int) -> dict:
             bad += (ring.ring_rows(slab, lo, L, t)
                     != torch.roll(whole, t, 0)[lo:lo + L]).sum()
     torch.cuda.synchronize()
+    gathers = ring.GATHER_LAUNCHES - launches0
+    # C10: a view read after the next gather outgrew the gather area (the
+    # old area retired, not freed, until the gather two after the view).
+    small = global_payload(S, torch.int32, (4, 125008)).to(dev)
+    view = ring.ring_gather(small[lo:lo + L].contiguous(), mesh)
+    big = global_payload(S, torch.int32, (64, 12512)).to(dev)
+    ring.ring_gather(big[lo:lo + L].contiguous(), mesh)
+    torch.cuda.synchronize()
+    if not torch.equal(view, torch.cat([small, small])):
+        errors.append("a view read after a gather that outgrew the area")
     return {"errors": errors, "bad": int(bad), "steps": steps,
-            "gathers": ring.GATHER_LAUNCHES - launches0}
+            "gathers": gathers}
