@@ -303,8 +303,9 @@ Phases, in order; any failure exits non-zero before the result line:
    against their plain versions (``kernel`` lines): a pass's one exchange
    (``ring_gather``: bool ``[n_local, 125008]`` at both worlds, f32 and
    i32 at world 2, against the ring's stack; ``library_ms`` NCCL's
-   ``all_gather_into_tensor`` where NCCL takes the ranks, else its error
-   in ``library_error``), the pass kernel (``ring_pass_segsum_*`` on the
+   ``all_gather_into_tensor`` where NCCL takes the ranks, else gloo's
+   ``all_gather``, the plain version's time, with NCCL's error in
+   ``library_error``), the pass kernel (``ring_pass_segsum_*`` on the
    real ``mxu`` buckets of every step, ``library_ms`` one ``scatter_add_``
    of every step's terms), the hop (``ring_put``, bool, against the
    global roll; ``library_ms`` the same bytes copied into the peer slot
@@ -340,6 +341,17 @@ Phases, in order; any failure exits non-zero before the result line:
    lines). Then, in this process, ``utils/trace.run_traced`` of phase
    4's ``hybrid`` flood, its records against phase 4's stats and its
    profile naming B1's kernel.
+4x. graftlint's CLI, graftrace's battery on the card, and the admission
+   storm's schedules on phase 4's graph (``race-path`` lines).
+4y. graftaudit, under ``retrace_guard(budget=0)`` (no kernel build after
+   phase 2): its CLI on the card against the budgets, membudgets and
+   baseline blessed on the CPU, then each registry entry on the card,
+   warm: its census beside each hand-written kernel's own counter (equal,
+   or the phase fails), the profiler's device kernels, the sync debug
+   mode's synchronizing calls against the census's host reads and
+   uploads (equal, or a difference named in ``AUDIT_SYNC_DIFFS``), and
+   the tracker's peak bytes beside the ``max_memory_allocated`` delta
+   (``audit-path`` lines; ``AUDIT_PHASE_S``).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -361,8 +373,8 @@ Phases, in order; any failure exits non-zero before the result line:
    protocol runs' B1 sums, threefry draws and row sums join those rows;
    4w's hops, gathers and pass kernels join the cross-rank rows of their
    world, its B1 OR launches (with 4v's floods' and the traced flood's),
-   corrupt-bit draws and lane gathers and row sums theirs), then the
-   last line
+   corrupt-bit draws and lane gathers and row sums theirs; 4y's census
+   runs add their B1, B3 and row-sum launches), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -5679,9 +5691,11 @@ def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
         n_dense = out["rounds"] - len(sparse)
         check_launches(f"adaptive ring {layout}", counts,
                        dense_launches(layout, n_dense))
-        if counts["syncs"] != 2 * out["rounds"] + 1:
+        # Two reads a round, the last exit read and the summary's one
+        # transfer.
+        if counts["syncs"] != 2 * out["rounds"] + 2:
             fail(f"adaptive ring {layout}: {counts['syncs']} syncs, want "
-                 f"{2 * out['rounds'] + 1}")
+                 f"{2 * out['rounds'] + 2}")
         for k in totals:
             totals[k] += counts[k]
         walls = paired_walls(adaptive, dense, pairs=NEW_REPS)
@@ -5714,9 +5728,10 @@ def adaptive_ring_path(g, want_seen, ring, segsum, threefry, rowsum,
                  f"{EXPECTED_RING_REC['ici']})")
         check_launches(f"recorded ring {layout}", counts,
                        dense_launches(layout, out_r["rounds"]))
-        if counts["syncs"] != out_r["rounds"] + 2:
+        if counts["syncs"] != out_r["rounds"] + 3:
             fail(f"recorded ring {layout}: {counts['syncs']} syncs, want "
-                 f"{out_r['rounds'] + 2} (the exit reads and the fetch)")
+                 f"{out_r['rounds'] + 3} (the exit reads, the summary and "
+                 "the fetch)")
         for k in totals:
             totals[k] += counts[k]
         rec_walls = paired_walls(recorded, dense, pairs=NEW_REPS)
@@ -6333,8 +6348,10 @@ def rank_gather_rows(ring, mesh_mod, mesh, flush, payloads, nccl) -> list:
     (``(entry, x)`` pairs, this rank's stacks): the kernel and its plain
     version against the whole ring's stack in ring order, twice (gathered
     through the group), then timed; the library call is NCCL's
-    ``all_gather_into_tensor`` where ``nccl`` holds a group, else the row
-    carries NCCL's error (``library_error``)."""
+    ``all_gather_into_tensor`` where ``nccl`` holds a group, else gloo's
+    ``all_gather``, the one PyTorch call for the function there, timed as
+    the plain version (``library``; the row carries NCCL's error in
+    ``library_error``)."""
     import torch.distributed as dist
 
     grp, err = nccl
@@ -6349,8 +6366,10 @@ def rank_gather_rows(ring, mesh_mod, mesh, flush, payloads, nccl) -> list:
             fail(f"ring_gather {entry} {list(x.shape)} differs from the "
                  f"ring's stack on rank {mesh.rank}")
         shard = x[0].numel() * x.element_size()
-        library = None
+        plain_ms = host_ms(lambda: ring.ring_gather_plain(x, mesh), 10)
+        library, library_name = plain_ms, "gloo all_gather"
         if grp is not None:
+            library_name = "nccl all_gather_into_tensor"
             flat = wire.reshape(-1)
             out = torch.empty(mesh.world * flat.numel(), dtype=flat.dtype,
                               device="cuda")
@@ -6364,8 +6383,8 @@ def rank_gather_rows(ring, mesh_mod, mesh, flush, payloads, nccl) -> list:
             "kernel": "ring_gather", "entry": entry, "shape": list(x.shape),
             "world": mesh.world,
             "ms": cuda_times(lambda: ring.ring_gather(x, mesh), 50, flush),
-            "plain_ms": host_ms(lambda: ring.ring_gather_plain(x, mesh), 10),
-            "library_ms": library, "library_error": err,
+            "plain_ms": plain_ms, "library_ms": library,
+            "library": library_name, "library_error": err,
             # The rank's stack read once, its [2S, ...] slab written once.
             "bound_ms": 1e3 * (mesh.n_local + 2 * mesh.n_shards) * shard
             / HBM_BYTES_PER_S, "bound_by": "bytes", "max_abs_err": 0.0})
@@ -7317,6 +7336,178 @@ def analysis_path(g, serve, telemetry, segsum, threefry, rowsum,
         fail(f"phase 4x took {wall:.1f} s, over its {RACE_PHASE_S:g} s")
 
 
+# --------------------------------------------------------------- phase 4y
+
+#: Phase 4y's wall bound (seconds).
+AUDIT_PHASE_S = 90.0
+#: Entries whose syncs under the sync debug mode differ from the census's
+#: host reads plus uploads, by the difference, each with its reason.
+AUDIT_SYNC_DIFFS = {}
+
+
+def audit_cli(root: Path) -> dict:
+    """Phase 4y (a): graftaudit's CLI in a process of its own on the card
+    (no ``--device``), against the checked-in budgets, membudgets and
+    baseline blessed on the CPU; it must exit 0."""
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "p2pnetwork_tpu_torch.analysis.ir", "--json"],
+        cwd=root, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"graftaudit on the card exited {res.returncode}:\n"
+             f"{res.stdout[-6000:]}{res.stderr[-4000:]}")
+    doc = json.loads(res.stdout)
+    if not doc["ok"] or not doc["device"].startswith("cuda"):
+        fail(f"graftaudit: not clean on the card ({doc['findings']}, "
+             f"device {doc['device']})")
+    return {"lowerings": len(doc["lowerings"]), "baselined": doc["baselined"],
+            "device": doc["device"], "torch": doc["torch"], "wall_s": wall}
+
+
+def _kernel_counts(mods) -> dict:
+    """Every hand-written kernel's launch counter, by census name."""
+    from p2pnetwork_tpu_torch.analysis.ir.registry import KERNEL_COUNTERS
+
+    return {name: getattr(mods[mod], attr)
+            for name, (mod, attr) in KERNEL_COUNTERS.items()}
+
+
+def _counter_groups() -> dict:
+    """Census names grouped by the counter they share."""
+    from p2pnetwork_tpu_torch.analysis.ir.registry import KERNEL_COUNTERS
+
+    groups: dict = {}
+    for name, key in KERNEL_COUNTERS.items():
+        groups.setdefault(key, []).append(name)
+    return groups
+
+
+def _device_events(run) -> dict:
+    """Device kernels, copies and fills of one ``run()`` under the
+    profiler (device activity only, summed from the raw events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = copies = 0
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != torch.autograd.DeviceType.CUDA:
+            continue
+        if ev.name().startswith(("Memcpy", "Memset")):
+            copies += 1
+        else:
+            kernels += 1
+    return {"kernels": kernels, "copies": copies}
+
+
+def _debug_syncs(run) -> list:
+    """The warnings of the synchronizing CUDA calls of one ``run()``, as
+    the sync debug mode gives them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    # The mode's one-time notice that it is a prototype is not a sync.
+    return [str(w.message) for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def audit_path(segsum, ring, rowsum, threefry) -> dict:
+    """Phase 4y (slice 18), after 4x, under ``retrace_guard(budget=0)``:
+    no kernel builds after phase 2. (a) graftaudit's CLI on the card
+    against the CPU-blessed budgets (``audit_cli``); (b) every registry
+    entry on the card, warm: its census (launches, kernel launches, host
+    reads and uploads, the tracker's peak bytes) beside each hand-written
+    kernel's own launch counter, the profiler's device kernels, the sync
+    debug mode's synchronizing calls and the ``max_memory_allocated``
+    delta (``audit-path`` lines). Fails where a kernel's counter differs
+    from the census, or where the syncs differ from the census's reads
+    and uploads by other than a difference named in
+    ``AUDIT_SYNC_DIFFS``. Returns the census's kernel launches, summed
+    over the checked runs."""
+    from p2pnetwork_tpu_torch.analysis.ir import census as C
+    from p2pnetwork_tpu_torch.analysis.ir import registry
+    from p2pnetwork_tpu_torch.analysis.retrace_guard import retrace_guard
+    from p2pnetwork_tpu_torch.telemetry import buildhooks
+
+    mods = {"segsum": segsum, "ring": ring, "rowsum": rowsum,
+            "threefry": threefry}
+    t_phase = time.perf_counter()
+    totals: dict = {}
+    with retrace_guard("phase-4y", budget=0) as guard:
+        cli = audit_cli(Path(__file__).resolve().parent)
+        print(json.dumps({"phase": "audit-path", "run": "graftaudit-cli",
+                          **cli, "t_s": time.perf_counter() - T_START}),
+              flush=True)
+        for entry in registry.all_lowerings():
+            fn, args, _ = entry.build("cuda")
+            fn(*args)  # warm
+            torch.cuda.synchronize()
+            before = _kernel_counts(mods)
+            with C.run_census("cuda", track=True,
+                              inputs=registry.flatten(args)) as c:
+                fn(*args)
+            torch.cuda.synchronize()
+            after = _kernel_counts(mods)
+            rec, peak = c.record, c.tracker.peak
+            counters = {}
+            for (mod, attr), names in _counter_groups().items():
+                n = after[names[0]] - before[names[0]]
+                want = sum(rec.kernels.get(k, 0) for k in names)
+                if n or want:
+                    counters[f"{mod}.{attr}"] = n
+                if n != want:
+                    fail(f"4y {entry.name}: {mod}.{attr} counted {n} "
+                         f"launches, the census {want} ({rec.kernels})")
+            for k, n in rec.kernels.items():
+                totals[k] = totals.get(k, 0) + n
+            warned = _debug_syncs(lambda: fn(*args))
+            syncs = len(warned)
+            diff = syncs - rec.syncs - rec.uploads
+            if diff and AUDIT_SYNC_DIFFS.get(entry.name, (None,))[0] != diff:
+                fail(f"4y {entry.name}: {syncs} synchronizing calls, the "
+                     f"census {rec.syncs} reads and {rec.uploads} uploads "
+                     f"({rec.reads}; warned: {sorted(set(warned))[:4]})")
+            events = _device_events(lambda: fn(*args))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            fn(*args)
+            torch.cuda.synchronize()
+            cuda_peak = torch.cuda.max_memory_allocated() - base
+            print(json.dumps({
+                "phase": "audit-path", "entry": entry.name,
+                "launches": rec.launches, "kernels": rec.kernels,
+                "counters": counters, "device_kernels": events["kernels"],
+                "device_copies": events["copies"], "syncs": rec.syncs,
+                "uploads": rec.uploads, "debug_syncs": syncs,
+                "sync_diff": diff, "peak_bytes": peak,
+                "cuda_peak_bytes": cuda_peak,
+                "t_s": time.perf_counter() - T_START}), flush=True)
+    wall = time.perf_counter() - t_phase
+    print(json.dumps({
+        "phase": "audit-path", "run": "summary", "phase_s": wall,
+        "entries": len(registry.all_lowerings()),
+        "builds_in_phase": guard.compiles,
+        "kernel_builds_total": buildhooks.compile_count(),
+        "kernel_build_seconds": {
+            s: buildhooks.compile_seconds(stage=s)
+            for s in buildhooks.STAGES},
+        "launches": totals, "t_s": time.perf_counter() - T_START}), flush=True)
+    if wall > AUDIT_PHASE_S:
+        fail(f"phase 4y took {wall:.1f} s, over its {AUDIT_PHASE_S:g} s")
+    return totals
+
+
 RING_EXPECT = {"segment": ("ring_shift",),
                "mxu": ("ring_segsum", "segsum"),
                "hybrid": ("ring_shift", "segsum")}
@@ -7523,7 +7714,9 @@ def main() -> int:
                       "name": torch.cuda.get_device_name(0),
                       "count": torch.cuda.device_count()}), flush=True)
 
-    # 2. Build.
+    # 2. Build (counted by the build hooks, which phase 4y reads).
+    from p2pnetwork_tpu_torch.telemetry import buildhooks
+    buildhooks.install()
     _build.library()
     print(_build.LAST_BUILD["log"], flush=True)
     print(json.dumps({"phase": "build",
@@ -7643,6 +7836,9 @@ def main() -> int:
     # 4x (slice 17): graftlint, graftrace's battery on the card, and the
     # admission storm's schedules on phase 4's graph.
     analysis_path(g, serve, telemetry, segsum, threefry, rowsum)
+    # 4y (slice 18): graftaudit on the card against the CPU-blessed
+    # budgets, each registry entry's census held to the kernels' counters.
+    audit = audit_path(segsum, ring, rowsum, threefry)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -7721,7 +7917,8 @@ def main() -> int:
             + lib_launches["or"] + reorder_launches + io_launches["or"]
             + sup_launches + heal_launches + fault_launches["segsum"]
             + sim_launches["segsum"] + adaptive_launches["segsum"]
-            + rank_sum("segsum") + traced_launches,
+            + rank_sum("segsum") + traced_launches
+            + audit.get("segsum_or", 0),
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"]
@@ -7749,7 +7946,8 @@ def main() -> int:
             next(r for r in step_rows
                  if r["step"] == 0 and r["entry"] == "or"),
             ring_launches["ring_segsum"] + sim_launches["ring_segsum"]
-            + adaptive_launches["ring_segsum"],
+            + adaptive_launches["ring_segsum"]
+            + audit.get("ring_segsum_or", 0),
             max(ring_err["ring_segsum"], step_err)),
         row("ring_segsum_sum", "ring.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:126",
@@ -7766,8 +7964,8 @@ def main() -> int:
         row("segsum_sum", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
             sir_launches["hybrid"] + cons_launches["segsum"]
-            + new_launches["sum"] + lib_launches["sum"] + io_launches["sum"],
-            max_err),
+            + new_launches["sum"] + lib_launches["sum"] + io_launches["sum"]
+            + audit.get("segsum_sum", 0), max_err),
         row("segsum_sum_blocked", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[3],
             sir_launches["pallas"] + new_launches["sum_blocked"]
@@ -7786,13 +7984,15 @@ def main() -> int:
         row("gather_row_sum", "rowsum.cu",
             "p2pnetwork_tpu/ops/segment.py:287 (jnp.sum of the gathered "
             "row, an XLA reduce; no TPU kernel)", rowsum_rows["ws-1m"],
-            rowsum_launches["gather"], rowsum_rows["ws-1m"]["max_abs_err"]),
+            rowsum_launches["gather"] + audit.get("gather_row_sum", 0),
+            rowsum_rows["ws-1m"]["max_abs_err"]),
         row("row_sum", "rowsum.cu",
             "p2pnetwork_tpu/sim/engine.py:556 (jnp.sum of the lanes' "
             "counts, an XLA reduce; no TPU kernel)",
             rowsum_rows[f"lanes-{BATCH_B}"], rowsum_launches["dense"]
             + proto_launches["row_sum"] + lane_rec["rowsum"]
-            + rank_sum("rowsum") // 2 + rank_sum("rowsum_lanes"),
+            + rank_sum("rowsum") // 2 + rank_sum("rowsum_lanes")
+            + audit.get("row_sum", 0),
             rowsum_rows[f"lanes-{BATCH_B}"]["max_abs_err"]),
         row("row_sum_shards", "rowsum.cu",
             "p2pnetwork_tpu/parallel/sharded.py:2446 (jnp.sum of a "

@@ -9,6 +9,10 @@ a changed source rebuilds and an unchanged one loads what is there.
 Nothing happens at import: the CPU tests import every module on machines
 without ``nvcc``. The first CUDA call of a kernel wrapper builds.
 
+Each build reports to ``telemetry/buildhooks.py``: a build that runs
+``nvcc`` counts in ``kernel_builds_total``, and the seconds of the
+compile and of the load in ``kernel_build_seconds_total{stage}``.
+
 One caller builds, outside the module lock; callers that arrive meanwhile
 wait for it (bounded by ``BUILD_WAIT_S``) and raise if it failed. Every
 ``nvcc`` wait is bounded by ``NVCC_TIMEOUT_S``: a compiler that hangs
@@ -137,13 +141,20 @@ class _Build:
 
 def _load() -> ctypes.CDLL:
     """Build the library if its digest has none yet, then load it."""
+    from p2pnetwork_tpu_torch.telemetry import buildhooks
+
     t0 = time.perf_counter()
     target = OUT_DIR / f"libp2p_kernels-{_digest()}.so"
     compiled = not target.exists()
     log = _compile(target) if compiled else ""
+    t1 = time.perf_counter()
+    if compiled:
+        buildhooks.report("nvcc", t1 - t0, built=True)
     lib = ctypes.CDLL(str(target))
+    t2 = time.perf_counter()
+    buildhooks.report("load", t2 - t1)
     LAST_BUILD.update(path=str(target), compiled=compiled, log=log,
-                      seconds=time.perf_counter() - t0)
+                      seconds=t2 - t0)
     return lib
 
 

@@ -8,6 +8,12 @@ rule                      sev    fires on
                                  inside a function with no eviction anywhere
                                  in the module — every distinct key resident
                                  forever
+``host-sync-in-loop``     P1     ``.item()``, ``.tolist()``, ``.cpu()``,
+                                 ``.numpy()``, or ``bool()``/``int()``/
+                                 ``float()`` of a reduction, inside the body
+                                 of a ``for``/``while`` of a module that
+                                 imports torch — a device->host sync a
+                                 round
 ========================  =====  ==============================================
 
 The JAX rules have no counterpart here, because the port runs eager
@@ -24,9 +30,14 @@ torch and compiles nothing:
 - ``carry-no-donate`` asks ``lax`` loops to donate their carry; the
   port's loops update tensors in place, with no donation to ask for.
 
-``host-sync-in-loop``'s torch role (``.item()``, ``.tolist()``,
-``.cpu()``, ``bool(t)`` inside a loop) is not built yet; it is queued
-with the compile and capture counters, which wait for a captured loop.
+``host-sync-in-loop`` is the reference's rule in torch's terms. It
+cannot see types, so it flags the four reading methods on anything, and
+``bool()``/``int()``/``float()`` only of a reduction call (``.sum()``,
+``.any()``, ``.max()``... or a ``torch.*`` call), where the argument is
+a tensor in all but name. A ``for`` loop's iterable is evaluated once, so
+only a loop's body (and a ``while``'s test) is searched. A read the loop
+needs (an exit flag, counted in ``_device.SYNCS``) or a read of host
+numpy is suppressed on its line with the reason.
 
 Stdlib only: no torch import, like the rest of the linter.
 """
@@ -39,6 +50,13 @@ from typing import Dict, Iterable, List, Optional, Sequence, Set, Tuple
 from p2pnetwork_tpu_torch.analysis.core import Module, register_rule
 
 __all__ = ["dotted_name", "resolve_dotted"]
+
+#: Methods that read a tensor's values on the host.
+SYNC_METHODS = ("item", "tolist", "cpu", "numpy")
+#: Reductions whose ``bool()``/``int()``/``float()`` is a host read.
+_REDUCTIONS = frozenset({
+    "sum", "any", "all", "max", "min", "amax", "amin", "mean", "prod",
+    "count_nonzero", "argmax", "argmin", "norm", "item"})
 
 
 def dotted_name(node: ast.AST) -> Optional[str]:
@@ -170,3 +188,57 @@ def rule_unbounded_cache(module: Module) -> Iterable[Tuple[ast.AST, str]]:
             "eviction anywhere in the module — bound it (maxsize + "
             "pop/clear, or functools.lru_cache) or suppress here with "
             "the rationale for why its key space is finite")
+
+
+def _loop_parts(loop: ast.AST) -> List[ast.AST]:
+    """What a loop runs each iteration: its body and ``else`` (and a
+    ``while``'s test); a ``for``'s iterable is evaluated once."""
+    parts: List[ast.AST] = list(loop.body) + list(loop.orelse)
+    if isinstance(loop, ast.While):
+        parts.append(loop.test)
+    return parts
+
+
+def _reduction_call(node: ast.AST) -> bool:
+    return (isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and (node.func.attr in _REDUCTIONS
+                 or (isinstance(node.func.value, ast.Name)
+                     and node.func.value.id == "torch")))
+
+
+@register_rule(
+    "host-sync-in-loop", "P1",
+    "Host-synchronizing read inside a loop of a torch module: each "
+    "iteration blocks on a device->host transfer, serializing the loop "
+    "with the card.")
+def rule_host_sync_in_loop(module: Module) -> Iterable[Tuple[ast.AST, str]]:
+    if not module.imports_package("torch"):
+        return
+    seen: Set[int] = set()  # a call nested in N loops is still ONE finding
+    for loop in ast.walk(module.tree):
+        if not isinstance(loop, (ast.For, ast.AsyncFor, ast.While)):
+            continue
+        for part in _loop_parts(loop):
+            for node in ast.walk(part):
+                if not isinstance(node, ast.Call) or id(node) in seen:
+                    continue
+                fn = node.func
+                msg = None
+                if isinstance(fn, ast.Attribute) and \
+                        fn.attr in SYNC_METHODS and not node.args \
+                        and not node.keywords:
+                    msg = (f".{fn.attr}() in a loop — a device->host sync "
+                           "per iteration on a tensor; keep the value on the "
+                           "device, or read once after the loop")
+                elif (isinstance(fn, ast.Name)
+                      and fn.id in ("bool", "int", "float")
+                      and len(node.args) == 1
+                      and _reduction_call(node.args[0])):
+                    msg = (f"{fn.id}() of a reduction in a loop — a "
+                           "device->host sync per iteration; keep the "
+                           "predicate on the device, or count the read "
+                           "where the loop needs it")
+                if msg is not None:
+                    seen.add(id(node))
+                    yield node, msg

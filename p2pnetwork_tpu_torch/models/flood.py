@@ -111,7 +111,9 @@ class Flood:
         stats = {
             "messages": segment.frontier_messages(graph, frontier_),
             "coverage": _over_live(bitset.popcount(seen & node_bits), graph),
-            "frontier": n_new,
+            # i64, as the dense round's count: the two carries give one
+            # stats signature.
+            "frontier": n_new.to(torch.int64),
             "frontier_occupancy": _over_live(n_new, graph),
         }
         return FloodBitState(seen=seen, frontier=new), stats

@@ -131,8 +131,8 @@ def lane_frontier(batch: MessageBatch, lane: int) -> torch.Tensor:
 def open_lanes_of(admitted: torch.Tensor) -> np.ndarray:
     """The open lanes of an ``admitted`` vector, in order (one host read,
     counted in ``_device.SYNCS``)."""
-    _device.SYNCS += 1
-    return np.flatnonzero(~admitted.cpu().numpy())
+    with _device.counted_syncs():
+        return np.flatnonzero(~admitted.cpu().numpy())
 
 
 def emit_submits(lanes: np.ndarray, sources: np.ndarray) -> None:
@@ -147,9 +147,9 @@ def emit_retires(release: torch.Tensor) -> None:
     """One ``lane_retire`` event per released lane (no-op without a
     tracer; with one, a device release set is read, counted)."""
     if spans.current_tracer() is not None:
-        if release.device.type != "cpu":
-            _device.SYNCS += 1
-        for lane in np.flatnonzero(release.cpu().numpy()).tolist():
+        with _device.counted_syncs(int(release.device.type != "cpu")):
+            host = release.cpu().numpy()
+        for lane in np.flatnonzero(host).tolist():
             spans.emit("lane_retire", lane=lane)
 
 

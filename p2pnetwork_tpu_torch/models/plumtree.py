@@ -167,8 +167,8 @@ class Plumtree:
             unreached = graph.node_mask & (dist < 0)
             lazy_cand = live_edge & ~eager & (dist[s] >= 0) & unreached[r]
             graft_edge = _lowest_eid(lazy_cand, r, eids, n_pad)
-            _device.SYNCS += 1
-            n_graft = int(graft_edge.sum().item())
+            with _device.counted_syncs():
+                n_graft = int(graft_edge.sum().item())  # graftlint: ignore[host-sync-in-loop] -- the wave's exit read: a graft round ends the loop when none is left, counted in _device.SYNCS
             if n_graft == 0:
                 break
             eager = eager | graft_edge

@@ -67,8 +67,8 @@ def count_triangles(graph: Graph, *, edge_block: int = None) -> int:
     _require_complete_table(graph)
     _require_static(graph, "count_triangles")
     cnt = _edge_common_counts(graph, edge_block or _edge_block(graph))
-    _device.SYNCS += 1
-    total = int(cnt.sum(dtype=torch.int64).item())
+    with _device.counted_syncs():
+        total = int(cnt.sum(dtype=torch.int64).item())
     assert total % 6 == 0, "directed slot closure must come in sixes"
     return total // 6
 
@@ -141,6 +141,6 @@ def transitivity_sample(graph: Graph, key, samples: int = 65536) -> float:
     if int((d * (d - 1)).sum()) >= 2**31:
         raise ValueError("wedge count exceeds int32 sampling range")
     closed, valid = _sample_closed(graph, key, samples)
-    _device.SYNCS += 1
-    closed, valid = torch.stack([closed, valid]).tolist()
+    with _device.counted_syncs():
+        closed, valid = torch.stack([closed, valid]).tolist()
     return closed / valid if valid else 0.0

@@ -90,7 +90,7 @@ import math
 
 import torch
 
-from p2pnetwork_tpu_torch import _build
+from p2pnetwork_tpu_torch import _build, _device
 from p2pnetwork_tpu_torch.ops import segsum
 
 #: Kernel launches made by :func:`ring_shift`, both directions.
@@ -152,6 +152,17 @@ def ring_shift_plain(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     return torch.roll(x, -1 if reverse else 1, dims=0)
 
 
+def _shift_launches(x, *args, **kwargs) -> int:
+    """A hop launches unless the ring has one shard or empty shards."""
+    return int(x.dim() < 1 or (x.shape[0] > 1 and x[0].numel() > 0))
+
+
+def _any_launches(x, *args, **kwargs) -> int:
+    """One launch unless the payload is empty."""
+    return int(x.numel() > 0)
+
+
+@_device.kernel("ring_shift", _shift_launches)
 def ring_shift(x: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """One ring hop of the stacked ``x [S, ...]`` (any dtype): a new
     tensor with ``out[d] = x[(d - 1) mod S]``, or ``x[(d + 1) mod S]``
@@ -249,6 +260,7 @@ def _launch(kind: str, rot, src, local_dst, mask, block: int, dtype,
     return rot_next, out
 
 
+@_device.kernel("ring_segsum_or")
 def ring_segment_sum_or(rot, src, local_dst, mask, block: int,
                         extent=None):
     """The fused ring step for OR: ``(ring_shift(rot), out)`` with
@@ -266,6 +278,7 @@ def ring_segment_sum_or(rot, src, local_dst, mask, block: int,
                    extent)
 
 
+@_device.kernel("ring_segsum_sum")
 def ring_segment_sum_sum(rot, src, local_dst, mask, block: int,
                          extent=None):
     """The fused ring step for sums: ``(ring_shift(rot), out)`` with
@@ -413,6 +426,7 @@ def ring_put_plain(x: torch.Tensor, mesh, reverse: bool = False
     return out
 
 
+@_device.kernel("ring_put", _any_launches)
 def ring_put(x: torch.Tensor, mesh, reverse: bool = False) -> torch.Tensor:
     """One ring hop of this rank's stack ``x [n_local, ...]`` on a ring
     split over ranks: ``out[d] = x[d - 1]`` for ``d >= 1`` and ``out[0]``
@@ -596,6 +610,7 @@ def ring_gather_plain(x: torch.Tensor, mesh) -> torch.Tensor:
     return torch.cat([whole, whole]).to(x.device).view(x.dtype)
 
 
+@_device.kernel("ring_gather", _any_launches)
 def ring_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     """Every rank's stack ``x [n_local, ...]`` (any dtype) gathered in ring
     order on a ring split over ranks, twice: ``out [2S, ...]`` with
@@ -711,6 +726,7 @@ def _pass_launch(kind: str, slab, shard_lo, src, local_dst, mask,
     return out
 
 
+@_device.kernel("ring_pass_segsum_or")
 def ring_pass_segsum_or(slab, shard_lo: int, src, local_dst, mask,
                         block: int, extent=None):
     """B3 across ranks for OR, a whole pass in one launch: ``out [L, NB *
@@ -728,6 +744,7 @@ def ring_pass_segsum_or(slab, shard_lo: int, src, local_dst, mask,
                         torch.bool, extent)
 
 
+@_device.kernel("ring_pass_segsum_sum")
 def ring_pass_segsum_sum(slab, shard_lo: int, src, local_dst, mask,
                          block: int, extent=None):
     """B3 across ranks for f32 sums, a whole pass in one launch: the sum

@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from p2pnetwork_tpu_torch import _build
+from p2pnetwork_tpu_torch import _build, _device
 
 #: Kernel launches made by :func:`row_sum` and :func:`gather_row_sum`.
 LAUNCHES = 0
@@ -202,6 +202,19 @@ def _launch(entry: str, rows: int, width: int, device,
     return out
 
 
+def _row_sum_launches(vals, *args, **kwargs) -> int:
+    if not vals.dtype.is_floating_point or vals.dim() != 2:
+        return 0
+    return launches_for(vals.shape[1]) if vals.shape[0] else 0
+
+
+def _gather_launches(signal, idx, *args, **kwargs) -> int:
+    if not signal.dtype.is_floating_point or idx.dim() != 2:
+        return 0
+    return launches_for(idx.shape[1]) if idx.shape[0] else 0
+
+
+@_device.kernel("row_sum", _row_sum_launches)
 def row_sum(vals: torch.Tensor) -> torch.Tensor:
     """The ``[rows]`` sums of a ``[rows, W]`` tensor's rows, f32 ones in
     XLA's order (:func:`row_sum_plain`)."""
@@ -216,6 +229,7 @@ def row_sum(vals: torch.Tensor) -> torch.Tensor:
                    vals.data_ptr(), rows, width)
 
 
+@_device.kernel("gather_row_sum", _gather_launches)
 def gather_row_sum(signal: torch.Tensor, idx: torch.Tensor,
                    mask: torch.Tensor) -> torch.Tensor:
     """``out[r] = sum_j signal[idx[r, j]] * mask[r, j]`` over ``[rows, W]``

@@ -47,10 +47,11 @@ tensor goes to the plain version. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
-from p2pnetwork_tpu_torch import _build
+from p2pnetwork_tpu_torch import _build, _device
 
 #: Kernel launches made by :func:`segsum_or` and :func:`segsum_sum`.
 LAUNCHES = 0
@@ -192,6 +193,12 @@ def _launch(name: str, signal, src, local_dst, mask, block: int,
     return out
 
 
+def _launches(signal, src, *args, **kwargs) -> int:
+    """The kernel launches of one call: none for zero rows."""
+    return int(math.prod(src.shape[:-1]) > 0)
+
+
+@_device.kernel("segsum_or", _launches)
 def segsum_or(signal, src, local_dst, mask, block: int) -> torch.Tensor:
     """``out[n*block + b] = any(signal[src[n, w]] & mask[n, w]
     for w with local_dst[n, w] == b)`` — bool[NB * block], or
@@ -202,6 +209,7 @@ def segsum_or(signal, src, local_dst, mask, block: int) -> torch.Tensor:
                    torch.bool, torch.bool)
 
 
+@_device.kernel("segsum_sum", _launches)
 def segsum_sum(signal, src, local_dst, mask, block: int) -> torch.Tensor:
     """``out[n*block + b] = sum(signal[src[n, w]] * mask[n, w]
     for w with local_dst[n, w] == b)`` — f32[NB * block], or

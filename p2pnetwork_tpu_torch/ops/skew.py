@@ -84,8 +84,9 @@ def pick_width(in_degrees: np.ndarray, candidates=WIDTH_CANDIDATES) -> int:
     best_w, best_cost = candidates[0], np.inf
     for w in candidates:
         rows = (d + w - 1) // w
-        cost = (_GATHER_CYCLES_PER_SLOT * float(rows.sum()) * w
-                + _SEGMENT_CYCLES_PER_ELEM * float(rows.sum()))
+        n_rows = float(rows.sum())  # graftlint: ignore[host-sync-in-loop] -- numpy on the host: the degree histogram, no tensor
+        cost = (_GATHER_CYCLES_PER_SLOT * n_rows * w
+                + _SEGMENT_CYCLES_PER_ELEM * n_rows)
         if cost < best_cost:
             best_w, best_cost = w, cost
     return best_w

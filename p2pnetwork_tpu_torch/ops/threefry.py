@@ -28,7 +28,7 @@ import ctypes
 
 import torch
 
-from p2pnetwork_tpu_torch import _build
+from p2pnetwork_tpu_torch import _build, _device
 
 #: Kernel launches made by :func:`threefry_bits` and
 #: :func:`threefry_uniform`.
@@ -182,6 +182,15 @@ def _launch(name: str, n: int, dtype, device, k0: int, k1: int, offset: int,
     return out
 
 
+def _bits_launches(k0, k1, n, device, offset=0) -> int:
+    return len(launch_spans(offset, n))
+
+
+def _uniform_launches(k0, k1, n, minval, scale, device, offset=0) -> int:
+    return len(launch_spans(offset, n))
+
+
+@_device.kernel("threefry_bits", _bits_launches)
 def threefry_bits(k0: int, k1: int, n: int, device,
                   offset: int = 0) -> torch.Tensor:
     """i32[n]: the u32 pattern of ``bits1 ^ bits2`` of
@@ -193,6 +202,7 @@ def threefry_bits(k0: int, k1: int, n: int, device,
     return _launch("threefry_bits", n, torch.int32, device, k0, k1, offset)
 
 
+@_device.kernel("threefry_uniform", _uniform_launches)
 def threefry_uniform(k0: int, k1: int, n: int, minval: float, scale: float,
                      device, offset: int = 0) -> torch.Tensor:
     """f32[n]: ``max(minval, (mantissa(bits) - 1) * scale + minval)``, the

@@ -1733,8 +1733,8 @@ def _max_in_degree(sg: ShardedGraph) -> int:
     sync): it bounds a round's pressure, so it sizes the escape table,
     the same length on every rank."""
     top = _rank_max(sg, sg.in_degree.max())
-    _device.SYNCS += 1
-    return max(int(top), 0)
+    with _device.counted_syncs():
+        return max(int(top), 0)
 
 
 def _sir_start(sg, mesh, protocol, key, exact_rng, rng, status0, comm,
@@ -2742,9 +2742,9 @@ def _lane_runs(sg: ShardedGraph):
     idx = torch.arange(E, device=sg.device)
     seg = torch.where(idx >= extent[..., None], B + idx, sg.bkt_dst.long())
     seg = seg + (torch.arange(L, device=sg.device) * (B + E))[:, None, None]
-    _, counts = torch.unique_consecutive(seg, return_counts=True)
-    _device.SYNCS += 1
-    return seg, max(int(counts.max()), 1) if counts.numel() else 1
+    with _device.counted_syncs():
+        _, counts = torch.unique_consecutive(seg, return_counts=True)
+        return seg, max(int(counts.max()), 1) if counts.numel() else 1
 
 
 def _make_or_lanes_pass(sg: ShardedGraph, comm, axis_name: str):

@@ -1642,7 +1642,7 @@ class SimService:
                 self.graph, self._batch, sources, coverage_target=target,
                 open_lanes=np.flatnonzero(~self._admitted))
             self._admitted[lanes] = True
-            assigned.extend(zip(lanes.tolist(), [tid for tid, _ in entries]))
+            assigned.extend(zip(lanes.tolist(), [tid for tid, _ in entries]))  # graftlint: ignore[host-sync-in-loop] -- `lanes` is admit's numpy lane ids, on the host
         # Lanes whose SEED already meets the target start done at
         # admission: the engine excludes pre-run-done lanes from
         # ``newly_completed_lanes``, so complete their tickets HERE. The
@@ -2070,7 +2070,7 @@ class SimService:
             _device.SYNCS += 1
             h = hashlib.sha256()
             for arr in (g.senders, g.receivers, g.edge_mask):
-                h.update(np.ascontiguousarray(arr.cpu().numpy()).tobytes())
+                h.update(np.ascontiguousarray(arr.cpu().numpy()).tobytes())  # graftlint: ignore[host-sync-in-loop] -- counted in _device.SYNCS above; the graph's edge hash, once a graph, cached
             self._edges_sha = h.hexdigest()[:16]
         self._graph_fp = layoutcache.fingerprint(params={"serve_graph": {
             "n_nodes": int(g.n_nodes), "n_edges": int(g.n_edges),

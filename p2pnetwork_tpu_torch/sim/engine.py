@@ -10,7 +10,8 @@ the protocol) and its key chain: ``run`` hands round ``r`` the key
 The reference runs the early-exit loop as one ``lax.while_loop`` on the
 device. PyTorch has no device-side loop, so the port runs super-steps of
 ``steps_per_round = T`` protocol steps and reads the exit flag on the host
-once per super-step (one sync, counted in ``_device.SYNCS``). Inside a
+once per super-step (one sync, counted in ``_device.SYNCS``), then the
+run's summary in one more counted transfer. Inside a
 super-step the reference's freeze rule holds: each sub-step re-evaluates
 the predicate and applies its step only while it holds, and the key chain
 advances on frozen sub-steps too, so any ``T`` gives results bit-identical
@@ -206,6 +207,9 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
             key, sub = prng.split(key)
             new_state, stats = protocol.step(graph, state, sub)
             state = _freeze(live, new_state, state)
+            # The step's own output is frozen into `state`: a live binding
+            # would pin a second carry through the next step.
+            del new_state
             # An f32 count (Bracha's) truncates, as the reference's cast
             # to its u32 limb does.
             messages = messages + torch.where(
@@ -228,9 +232,14 @@ def _stat_while(graph: Graph, protocol, state, key, *, stat: str,
         applied += T
     occ_mean = occ / rounds.clamp_min(1).to(torch.float32)
     t1 = time.perf_counter()
-    n_rounds, n_messages = torch.stack(
-        [rounds.to(torch.int64), messages]).tolist()
-    value, occ_mean = torch.stack([value, occ_mean]).tolist()
+    # The summary in one counted transfer: the two f32s by their bits.
+    with _device.counted_syncs():
+        n_rounds, n_messages, value, occ_mean = torch.stack(
+            [rounds.to(torch.int64), messages,
+             value.to(torch.float32).view(torch.int32).to(torch.int64),
+             occ_mean.view(torch.int32).to(torch.int64)]).tolist()
+    value, occ_mean = np.array([value, occ_mean], dtype=np.int64).astype(
+        np.int32).view(np.float32).tolist()
     out = {"rounds": n_rounds, value_name: value, "messages": n_messages}
     if has_occ:
         out["frontier_occupancy_mean"] = occ_mean
@@ -419,8 +428,8 @@ def _lane_loop(graph: Graph, protocol, batch, key, max_rounds: int,
 def _summary(packed: torch.Tensor, done0: torch.Tensor):
     """The packed summary and the pre-run ``done`` words in one transfer
     (one sync); returns both on the host."""
-    _device.SYNCS += 1
-    host = torch.cat([packed, bitset.pack_bits(done0)]).cpu().numpy()
+    with _device.counted_syncs():
+        host = torch.cat([packed, bitset.pack_bits(done0)]).cpu().numpy()
     n = packed.shape[0]
     bits = (host[n:].view(np.uint32)[:, None]
             >> np.arange(bitset.WORD, dtype=np.uint32)) & 1
@@ -443,9 +452,9 @@ def _newly_completed(out: dict, done0: np.ndarray) -> np.ndarray:
 def _lane_snapshot(batch):
     """The lanes' ``admitted``, ``done`` and ``rounds`` on the host, in one
     counted transfer (the trace plane's entry snapshot)."""
-    _device.SYNCS += 1
-    host = torch.stack([batch.admitted.to(torch.int32),
-                        batch.done.to(torch.int32), batch.rounds]).cpu()
+    with _device.counted_syncs():
+        host = torch.stack([batch.admitted.to(torch.int32),
+                            batch.done.to(torch.int32), batch.rounds]).cpu()
     host = host.numpy()
     return host[0].astype(bool), host[1].astype(bool), host[2]
 

@@ -165,8 +165,8 @@ def trim(ring, rounds: int) -> FlightRecord:
     """The ring (a host array or a tensor) oldest first, trimmed to the
     rounds executed."""
     if isinstance(ring, torch.Tensor):
-        _device.SYNCS += 1
-        ring = ring.cpu().numpy()
+        with _device.counted_syncs():
+            ring = ring.cpu().numpy()
     ring = np.asarray(ring)
     capacity, rounds = int(ring.shape[0]), int(rounds)
     if rounds <= capacity:

@@ -271,9 +271,9 @@ class TorchSimNode(Node):
                 self.sim_graph, self.sim_protocol, self.sim_state, seg_key,
                 rounds,
             )
-        host_stats = {k: _host(v) for k, v in stats.items()}
+        host_stats = {k: _host(v).tolist() for k, v in stats.items()}
         for r in range(rounds):
-            round_stats = {k: host_stats[k][r].item() for k in host_stats}
+            round_stats = {k: host_stats[k][r] for k in host_stats}
             if "messages" in round_stats:
                 self.sim_message_count += int(round_stats["messages"])
             self.sim_round += 1

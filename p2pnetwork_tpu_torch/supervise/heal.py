@@ -150,7 +150,7 @@ def _pull(leaves) -> List[np.ndarray]:
         if isinstance(leaf, torch.Tensor):
             leaf = leaf.detach()
             if leaf.device.type == "cpu":
-                out.append(leaf.numpy())
+                out.append(leaf.numpy())  # graftlint: ignore[host-sync-in-loop] -- a CPU leaf: a view, no transfer
                 continue
             host = torch.empty(leaf.shape, dtype=leaf.dtype,
                                pin_memory=True)

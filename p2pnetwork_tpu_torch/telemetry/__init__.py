@@ -17,8 +17,10 @@
   declarative objectives over rolling windows, multi-window burn-rate
   alerts.
 
-The reference's JAX compile hooks (``jaxhooks.py``) have no counterpart
-yet: nothing in the port is compiled or captured.
+- :mod:`~p2pnetwork_tpu_torch.telemetry.buildhooks` — the kernel
+  library's builds (``kernel_builds_total``,
+  ``kernel_build_seconds_total{stage}``), the role of the reference's
+  JAX compile hooks (``jaxhooks.py``).
 """
 
 from p2pnetwork_tpu_torch.telemetry.export import (  # noqa: F401

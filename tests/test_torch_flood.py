@@ -145,9 +145,9 @@ def test_adaptive_sync_count():
     tg = build_port("ws", **LAYOUTS)
     before = _device.SYNCS
     _, out = run_port(tg, TA.AdaptiveFlood(source=0, method="hybrid", k=64))
-    # One branch read per round plus one exit-flag read per round and the
-    # final one.
-    assert _device.SYNCS - before == 2 * out["rounds"] + 1
+    # One branch read per round plus one exit-flag read per round, the
+    # final one and the summary's one transfer.
+    assert _device.SYNCS - before == 2 * out["rounds"] + 2
 
 
 #: Rank 0's place on a ring of 8 shards over 2 ranks, with no group.

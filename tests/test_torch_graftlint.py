@@ -36,6 +36,10 @@ ROOT = Path(__file__).resolve().parent.parent
 PORTED = ("lock-order-cycle", "lock-across-await", "blocking-under-lock",
           "async-blocking-call", "lock-guard", "lock-open-call",
           "raw-concurrency-primitive", "wait-untimed", "unbounded-cache")
+#: The port's torch form of a reference rule: the reference's
+#: ``host-sync-in-loop`` reads modules that import jax, the port's those
+#: that import torch, so the two never judge one module alike.
+PORT_ONLY = ("host-sync-in-loop",)
 
 
 def ref_rules():
@@ -474,7 +478,7 @@ LEAK = BLOCKING.format(suffix="") + """\
 
 
 def test_rule_set_is_the_ported_nine():
-    assert set(core.all_rules()) == set(PORTED)
+    assert set(core.all_rules()) == set(PORTED) | set(PORT_ONLY)
     ref = ref_core.all_rules()
     for rid, rule in core.all_rules().items():
         assert rule.severity == ref[rid].severity

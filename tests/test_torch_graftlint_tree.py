@@ -26,7 +26,8 @@ from p2pnetwork_tpu_torch.analysis.__main__ import (  # noqa: E402
 from p2pnetwork_tpu_torch.analysis.race.__main__ import (  # noqa: E402
     default_baseline_path as race_baseline_path,
 )
-from tests.test_torch_graftlint import PORTED, ref_rules, rows  # noqa: E402
+from tests.test_torch_graftlint import (  # noqa: E402
+    PORT_ONLY, PORTED, ref_rules, rows)
 from tests.test_torch_graph import one_torch_thread  # noqa: E402,F401
 
 pytestmark = [pytest.mark.analysis, pytest.mark.usefixtures("one_torch_thread")]
@@ -39,9 +40,11 @@ PORT_FILES = sorted(str(p.relative_to(ROOT)) for p in PORT.rglob("*.py")
 #: Findings that inline suppressions silence in the port: the reference's
 #: rationales carried onto the code the port copied (the seam, the
 #: serving front end, telemetry's server, the store, the engine's
-#: occupancy histogram, crdt's merge, the analysers' own internals) and
-#: one of the port's own (the row sum's arrival counters).
-SUPPRESSED = 60
+#: occupancy histogram, crdt's merge, the analysers' own internals), the
+#: port's own (the row sum's arrival counters, graftaudit's graph cache
+#: and rule registry), and the host reads in loops that are counted exit
+#: reads or read host numpy (``host-sync-in-loop``, seven findings).
+SUPPRESSED = 69
 
 _MARKER = re.compile(r"#\s*graftlint:\s*ignore")
 
@@ -144,7 +147,7 @@ def test_reference_linter_agrees_on_the_port(respect):
             return r[:5]
         port_keys = {key(r) for r in rows(port)}
         assert {key(r) for r in rows(ref)} <= port_keys
-        assert {r[0] for r in rows(port)} <= set(PORTED)
+        assert {r[0] for r in rows(port)} <= set(PORTED) | set(PORT_ONLY)
 
 
 # ------------------------------------------------- the kernel build's lock

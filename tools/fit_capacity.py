@@ -22,8 +22,9 @@ runs at a second density (``PROBES``) at two sizes, which separates the
 node slope from the edge slope.
 
 The fit (``capacity.fit_capacity_model``) goes to ``--out`` (default: the
-package's ``analysis/ir/membudgets.json``) as ``{"capacity_model": ...}``,
-with the fit points, ``max_resid`` and the card (its ``nvidia-smi`` name
+package's ``analysis/ir/membudgets.json``) as the package document's
+``capacity_model`` (its other keys, graftaudit's memory budgets, kept as
+they are), with the fit points, ``max_resid`` and the card (its ``nvidia-smi`` name
 and power limit, and its memory). A line per point, then a ``summary``
 line, go to standard output. Needs one CUDA card; exits 2 without one.
 """
@@ -138,8 +139,10 @@ def main() -> int:
                             "bytes")}
          for r in records], card=the_card)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    doc = capacity.load_membudgets()
+    doc["capacity_model"] = model
     with open(args.out, "w", encoding="utf-8") as f:
-        json.dump({"capacity_model": model}, f, indent=1, sort_keys=True)
+        json.dump(doc, f, indent=1, sort_keys=True)
         f.write("\n")
     print(json.dumps({"phase": "summary", "out": args.out,
                       "points": len(records),
