@@ -352,6 +352,23 @@ Phases, in order; any failure exits non-zero before the result line:
    uploads (equal, or a difference named in ``AUDIT_SYNC_DIFFS``), and
    the tracker's peak bytes beside the ``max_memory_allocated`` delta
    (``audit-path`` lines; ``AUDIT_PHASE_S``).
+4z. The auto-sharded engine across ranks (``parallel/auto.py``): at
+   worlds 2 and 8 on the one card (``multihost.launch``, ``auto_rank``)
+   each rank builds phase 4's graph and keeps its part (the edges whose
+   receiver it owns); every aggregation assembles the owned slices in one
+   ``ring_gather``. The flood to 0.99 under ``segment``, ``hybrid`` (B1
+   on the rank's own blocks) and ``hybrid-blocked`` at both worlds
+   (``EXPECTED_1M``, phase 4b's ``seen``); at world 2 also phases 4d,
+   4e, 4h, 4i and 4n's skew flood, SIR, components, k-core, MIS, HITS,
+   label propagation, routing, Borůvka and Bracha on their graphs,
+   against their expected values. Every rank's final state bit-equal to
+   rank 0's; each run's gathers and B1 launches equal to its count of
+   aggregations; on every rank at both worlds, ``assemble`` (bool, f32)
+   and ``combine`` (i32 with a trailing dim) equal to
+   ``ring_gather_plain``'s and B1 on the part's remainder to its plain
+   version (``auto_plain_check``). Rank 0's wall, median of 3, beside the
+   one-process wall of the same run in turns (``auto-path`` lines;
+   ``AUTO_PHASE_S``).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -374,7 +391,9 @@ Phases, in order; any failure exits non-zero before the result line:
    4w's hops, gathers and pass kernels join the cross-rank rows of their
    world, its B1 OR launches (with 4v's floods' and the traced flood's),
    corrupt-bit draws and lane gathers and row sums theirs; 4y's census
-   runs add their B1, B3 and row-sum launches), then the last line
+   runs add their B1, B3 and row-sum launches; 4z's B1 launches join
+   B1's OR and remainder-sum rows, its gathers the gather rows of their
+   world and payload), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -7508,6 +7527,380 @@ def audit_path(segsum, ring, rowsum, threefry) -> dict:
     return totals
 
 
+# --------------------------------------------------------------- phase 4z
+
+#: Phase 4z (slice 19): the auto-sharded engine across ranks
+#: (``parallel/auto.py``: ``shard_graph_auto`` on the rank ring, each rank
+#: its part, every aggregation one assembling ``ring_gather``). World 2
+#: runs every protocol below, world 8 the floods.
+AUTO_WORLDS = (2, 8)
+AUTO_TIMEOUT = 600
+#: Phase 4z's wall bound (seconds), both worlds' launches included.
+AUTO_PHASE_S = 240.0
+AUTO_REPS = 3
+AUTO_FLOODS = ("segment", "hybrid", "hybrid-blocked")
+#: The kernels line's ``ring_gather`` row of each ``(world, payload
+#: dtype)`` 4z gathers.
+AUTO_GATHER_ROWS = {(2, "bool"): "ring_gather", (8, "bool"): "ring_gather_w8",
+                    (2, "float32"): "ring_gather_f32",
+                    (2, "int32"): "ring_gather_i32"}
+
+
+def _auto_runs(M, full: bool) -> list:
+    """Phase 4z's runs: ``(name, graph key, run(graph), gathers(out),
+    B1 launches(out) with its entry, all_sums(out), check(state, out,
+    extra))`` where ``out`` is the run's summary and ``extra`` what the
+    run returns beside it (routing's next hops). The protocols and their
+    checks are phases 4, 4d, 4e, 4h, 4i and 4n's, on the same graphs."""
+    from p2pnetwork_tpu_torch.sim import engine
+
+    def cover(proto):
+        return lambda gr: engine.run_until_coverage(
+            gr, proto, KEY, coverage_target=0.99, max_rounds=64)
+
+    def conv(proto, stat, threshold=1, max_rounds=256):
+        return lambda gr: engine.run_until_converged(
+            gr, proto, KEY, stat=stat, threshold=threshold,
+            max_rounds=max_rounds)
+
+    def rounds(k=1, extra=0):
+        return lambda out: k * out["rounds"] + extra
+
+    none = lambda out: 0  # noqa: E731
+    runs = [(f"flood-{m}", "g", cover(M.Flood(source=0, method=m)),
+             rounds(), (rounds() if m == "hybrid" else none, "or"), none,
+             lambda s, out, _: {"out": out, "seen": digest(s.seen)})
+            for m in AUTO_FLOODS]
+    if not full:
+        return runs
+    sir = M.SIR(method="hybrid", **SIR_RUNG)
+    bp = M.Bracha(method="hybrid", **BRACHA)
+    dv = M.DistanceVector(source=0, method="segment")
+    runs += [
+        ("flood-skew-ba", "ba", cover(M.Flood(source=0, method="skew")),
+         rounds(), (none, "or"), none,
+         lambda s, out, _: {"out": out, "seen": digest(s.seen)}),
+        ("sir-hybrid", "g", lambda gr: engine.run(gr, sir, KEY, SIR_ROUNDS),
+         lambda out: SIR_ROUNDS, (lambda out: SIR_ROUNDS, "sum"), none,
+         lambda s, st, _: dict({k: v.tolist() for k, v in st.items()},
+                            status_sha256=digest(s.status))),
+        ("components-gather", "g",
+         conv(M.ConnectedComponents(method="gather"), "changed"), rounds(),
+         (none, "or"), none,
+         lambda s, out, _: dict(out, sha256=digest(s.label))),
+        ("kcore-hybrid", "g", conv(M.KCore(k=KCORE_K, method="hybrid"),
+                                   "removed"), rounds(),
+         (rounds(), "sum"), none,
+         lambda s, out, _: dict(out, sha256=digest(s.in_core))),
+        ("mis-gather-hybrid", "g",
+         conv(M.LubyMIS(method="gather", or_method="hybrid"), "undecided"),
+         rounds(2), (rounds(), "or"), none,
+         lambda s, out, _: dict(out, sha256=digest(s.in_mis))),
+        ("hits-hybrid", "g", conv(M.HITS(method="hybrid"), "residual",
+                                  threshold=HITS_THRESHOLD),
+         rounds(2), (rounds(), "sum"), none,
+         lambda s, out, _: {"out": {k: out[k] for k in ("rounds",
+                                                          "messages")},
+                         "hub": summary(s.hub),
+                         "authority": summary(s.authority)}),
+        ("labelprop-gather", "g",
+         conv(M.LabelPropagation(), "unsettled", max_rounds=1024),
+         rounds(), (none, "or"), rounds(),
+         lambda s, out, _: dict(out, sha256=digest(s.label))),
+        ("routing-segment", "gw", lambda gr: (lambda r: (*r, dv.next_hops(
+            gr, r[0])))(conv(dv, "changed")(gr)),
+         rounds(2, 1), (none, "or"), none,
+         lambda s, out, hops: dict(out, dist_sha256=digest(s.dist),
+                                   parent_sha256=digest(s.parent),
+                                   next_hops_sha256=digest(hops))),
+        ("boruvka", "gsym", conv(M.Boruvka(), "changed", max_rounds=64),
+         rounds(5), (none, "or"), rounds(),
+         lambda s, out, _: dict(out, mst_edges=s.mst_edge.sum().item(),
+                             comp_sha256=digest(s.comp),
+                             mst_edge_sha256=digest(s.mst_edge),
+                             mst_weight=s.mst_weight.item())),
+        ("bracha-hybrid", "g", conv(bp, "changed"), rounds(4, 2),
+         (rounds(4, 2), "sum"), none,
+         lambda s, out, _: dict(out, value_sha256=digest(s.value),
+                             echo_sha256=digest(s.echo_sent),
+                             ready_sha256=digest(s.ready_sent)))]
+    return runs
+
+
+def _auto_state_sha(state) -> str:
+    """One digest over every tensor of a run's final state: every rank's
+    must be rank 0's bit for bit."""
+    h = hashlib.sha256()
+    for f in dataclasses.fields(state):
+        h.update(getattr(state, f.name).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def auto_rank(full: bool) -> dict:
+    """One rank of phase 4z (run by ``multihost.launch``): phase 4's
+    graph (and at world 2 its weighted forms and the 1M BA rung), this
+    rank's part of each on the 8-shard rank ring, and each run of
+    ``_auto_runs`` ``AUTO_REPS`` times, the first checked (every count
+    set to 0 just before it and read just after); rank 0 runs the same
+    protocol on the whole graph in turns, the other ranks waiting. First
+    the path's kernels at its shapes are held to their plain versions
+    (``auto_plain_check``). Prints nothing: the parent checks and
+    prints."""
+    import torch.distributed as dist
+
+    from p2pnetwork_tpu_torch import _device, models
+    from p2pnetwork_tpu_torch.ops import ring, segsum
+    from p2pnetwork_tpu_torch.parallel import auto
+    from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
+    from p2pnetwork_tpu_torch.parallel import multihost
+    from p2pnetwork_tpu_torch.sim import graph as graph_mod
+
+    sync = torch.cuda.synchronize
+    mesh = multihost.hierarchical_ring_mesh(n_shards=RING_SHARDS,
+                                            device="cuda")
+    t0 = time.perf_counter()
+    whole = {"g": graph_mod.watts_strogatz(
+        N_NODES, 10, 0.1, seed=0, blocked=True, hybrid=True,
+        source_csr=True, device="cuda")}
+    if full:
+        whole["gw"] = whole["g"].with_weights(latency)
+        whole["gsym"] = whole["g"].with_weights(symmetric_latency)
+        whole["ba"] = graph_mod.barabasi_albert(
+            N_NODES, 5, seed=0, build_neighbor_table=False,
+            source_csr=True, skew_table=True, device="cuda")
+    sync()
+    graphs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parts = {k: auto.shard_graph_auto(g, mesh) for k, g in whole.items()}
+    sync()
+    res = {"rank": mesh.rank, "world": mesh.world, "device": str(mesh.device),
+           "graphs_s": graphs_s, "parts_s": time.perf_counter() - t0,
+           "owned": [parts["g"].part.lo, parts["g"].part.hi],
+           "edges": {k: p.n_edges for k, p in parts.items()}, "runs": {}}
+    by_dtype = collections.Counter()
+    gather = ring.ring_gather
+
+    def tallied(x, m):  # a gather's kernel launch, by payload dtype
+        if x.numel():
+            by_dtype[str(x.dtype).replace("torch.", "")] += 1
+        return gather(x, m)
+
+    ring.ring_gather = tallied
+    res["plain_check"] = auto_plain_check(parts["g"])
+    for name, key, run, gathers, (b1, entry), sums, check in _auto_runs(
+            models, full):
+        part, one = parts[key], whole[key]
+        walls, one_walls = [], []
+        for rep in range(AUTO_REPS):
+            if rep == 0:
+                ring.GATHER_LAUNCHES = segsum.LAUNCHES = 0
+                mesh_mod.EXCHANGES = _device.SYNCS = 0
+                by_dtype.clear()
+            sync()
+            dist.barrier()
+            t0 = time.perf_counter()
+            state, out, *extra = run(part)
+            sync()
+            walls.append(time.perf_counter() - t0)
+            if rep == 0:
+                counts = {"gathers": ring.GATHER_LAUNCHES,
+                          "exchanges": mesh_mod.EXCHANGES,
+                          "b1": segsum.LAUNCHES, "syncs": _device.SYNCS,
+                          "by_dtype": dict(by_dtype)}
+                rec = {"state_sha": _auto_state_sha(state),
+                       "got": check(state, out, *(extra or [None])),
+                       "counts": counts,
+                       "want": {"gathers": gathers(out), "b1": b1(out),
+                                "b1_entry": entry, "sums": sums(out)}}
+            del state, out, extra
+            if mesh.rank == 0:
+                sync()
+                t0 = time.perf_counter()
+                run(one)
+                sync()
+                one_walls.append(time.perf_counter() - t0)
+            dist.barrier()
+        rec.update(wall_s=statistics.median(walls), wall_s_all=walls,
+                   one_process_wall_s=statistics.median(one_walls)
+                   if one_walls else None, one_process_walls=one_walls)
+        res["runs"][name] = rec
+    ring.ring_gather = gather
+    return res
+
+
+def auto_plain_check(gpart) -> dict:
+    """4z's kernels at the path's shapes on this rank, against their plain
+    versions on the same inputs: ``assemble``'s ``ring_gather`` of a bool
+    and an f32 owned slice, and ``combine``'s of an i32 partial with a
+    trailing dim (Borůvka's), against ``ring_gather_plain`` (gloo) bit for
+    bit; B1's OR and sum on the part's hybrid remainder (destinations
+    counted from ``lo``) against ``propagate_or_blocked`` bit for bit and
+    ``propagate_sum_blocked`` within rtol = atol = ``RTOL``. Returns each
+    check's count of differing entries."""
+    from p2pnetwork_tpu_torch.ops import blocked as B
+    from p2pnetwork_tpu_torch.ops import ring
+    from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
+
+    part, dev = gpart.part, gpart.node_mask.device
+    mesh = part.mesh
+    gen = torch.Generator().manual_seed(7 + mesh.rank)
+
+    def plain(x, rows):  # the rank's [n, ...] through the plain gather
+        x = torch.cat([x, x.new_zeros((mesh.n_local * rows - x.shape[0],)
+                                      + x.shape[1:])])
+        return ring.ring_gather_plain(x.reshape(
+            (mesh.n_local, rows) + x.shape[1:]).contiguous(),
+            mesh)[:mesh.n_shards].reshape((-1,) + x.shape[1:])
+
+    bad = {}
+    for dtype in (torch.bool, torch.float32):
+        owned = torch.randn(part.hi - part.lo, generator=gen)
+        owned = (owned > 0 if dtype == torch.bool else owned).to(dev)
+        got = mesh_mod.assemble(part, owned)
+        want = plain(owned, part.block)[:part.n_pad]
+        bad[f"assemble-{str(dtype)[6:]}"] = int((got != want).sum())
+    partial = torch.randint(-2**31, 2**31 - 1, (2, part.n_pad),
+                            generator=gen, dtype=torch.int32).to(dev)
+    got = mesh_mod.combine(part, partial, "max")
+    rows = -(-part.n_pad // mesh.n_local)
+    whole = plain(partial.T, rows).reshape(mesh.world, -1, 2)
+    want = whole[:, :part.n_pad].amax(dim=0).T
+    bad["combine-int32"] = int((got != want).sum())
+    rem = gpart.hybrid.remainder
+    nmask = gpart.node_mask[part.lo:part.hi]
+    sig = torch.rand(part.n_pad, generator=gen).to(dev)
+    bad["b1-or"] = int((B.propagate_or_kernel(rem, sig > 0.5, nmask)
+                        != B.propagate_or_blocked(rem, sig > 0.5,
+                                                  nmask)).sum())
+    got = B.propagate_sum_kernel(rem, sig, nmask)
+    want = B.propagate_sum_blocked(rem, sig, nmask)
+    bad["b1-sum"] = int((~torch.isclose(got, want, rtol=RTOL,
+                                        atol=ATOL)).sum())
+    return bad
+
+
+def auto_path(multihost, gpu: str) -> dict:
+    """Phase 4z: ``auto_rank`` at worlds 2 and 8 on the one card, held to
+    phases 4, 4d, 4e, 4h, 4i and 4n's expected values (exact for bool
+    and int, the f32 tolerances those phases state), every rank's state
+    bit-equal to rank 0's, each run's gathers and B1 launches to its
+    count of aggregations, and each rank's ``auto_plain_check`` clean.
+    Prints an ``auto-path`` line a run (rank
+    0's wall, median of 3, beside the one-process wall in turns) and a
+    line a world. Returns B1's launches by entry and the gathers by
+    ``(world, dtype)``, summed over every rank, for the kernels line."""
+    t_phase = time.perf_counter()
+    totals = {"or": 0, "sum": 0, "gather": collections.Counter()}
+    for world in AUTO_WORLDS:
+        t0 = time.perf_counter()
+        try:
+            parts = multihost.launch(f"{Path(__file__).resolve()}:auto_rank",
+                                     world, (world == 2,),
+                                     timeout=AUTO_TIMEOUT, device="cuda")
+        except (multihost.RankError, TimeoutError) as e:
+            fail(f"phase 4z at world {world}: {e}")
+        launch_s = time.perf_counter() - t0
+        if any(n for p in parts for n in p["plain_check"].values()):
+            fail(f"4z at world {world}: a kernel differs from its plain "
+                 f"version ({[p['plain_check'] for p in parts]})")
+        for name, rec in parts[0]["runs"].items():
+            recs = [p["runs"][name] for p in parts]
+            if any(r["state_sha"] != rec["state_sha"] for r in recs):
+                fail(f"4z {name} at world {world}: the ranks' final states "
+                     f"differ")
+            check_auto_run(name, world, rec["got"])
+            for r in recs:
+                c, w = r["counts"], r["want"]
+                if c["gathers"] != w["gathers"] or sum(
+                        c["by_dtype"].values()) != c["gathers"]:
+                    fail(f"4z {name} at world {world}: {c['gathers']} "
+                         f"gathers ({c['by_dtype']}), {w['gathers']} "
+                         f"aggregations")
+                if c["exchanges"] != w["gathers"] + w["sums"]:
+                    fail(f"4z {name} at world {world}: {c['exchanges']} "
+                         f"exchanges, want {w['gathers'] + w['sums']}")
+                if c["b1"] != w["b1"]:
+                    fail(f"4z {name} at world {world}: B1 launched "
+                         f"{c['b1']} times, want {w['b1']}")
+                totals[w["b1_entry"]] += c["b1"]
+                for dt, n in c["by_dtype"].items():
+                    totals["gather"][(world, dt)] += n
+            if not set(totals["gather"]) <= AUTO_GATHER_ROWS.keys():
+                fail(f"4z {name} at world {world}: a gather payload with "
+                     f"no kernel row ({sorted(totals['gather'])})")
+            print(json.dumps({
+                "phase": "auto-path", "world": world, "run": name,
+                "wall_s": rec["wall_s"], "wall_s_all": rec["wall_s_all"],
+                "one_process_wall_s": rec["one_process_wall_s"],
+                "one_process_walls": rec["one_process_walls"],
+                "wall_s_ranks": [r["wall_s"] for r in recs],
+                "gathers": rec["counts"]["gathers"],
+                "gathers_by_dtype": rec["counts"]["by_dtype"],
+                "exchanges": rec["counts"]["exchanges"],
+                "b1_launches": rec["counts"]["b1"],
+                "syncs": rec["counts"]["syncs"], "gpu": gpu,
+                "t_s": time.perf_counter() - T_START}), flush=True)
+        print(json.dumps({
+            "phase": "auto-path", "world": world, "launch_s": launch_s,
+            "graphs_s": [p["graphs_s"] for p in parts],
+            "parts_s": [p["parts_s"] for p in parts],
+            "owned": [p["owned"] for p in parts],
+            "edges": [p["edges"] for p in parts],
+            "devices": sorted({p["device"] for p in parts}),
+            "plain_check": [p.get("plain_check") for p in parts],
+            "gpu": gpu, "t_s": time.perf_counter() - T_START}), flush=True)
+    wall = time.perf_counter() - t_phase
+    print(json.dumps({"phase": "auto-path", "run": "summary",
+                      "phase_s": wall, "gpu": gpu,
+                      "b1": {k: totals[k] for k in ("or", "sum")},
+                      "gathers": {f"{w}-{d}": n for (w, d), n in
+                                  sorted(totals["gather"].items())}}),
+          flush=True)
+    if wall > AUTO_PHASE_S:
+        fail(f"phase 4z took {wall:.1f} s, over its {AUTO_PHASE_S:g} s")
+    return totals
+
+
+def check_auto_run(name: str, world: int, got: dict) -> None:
+    """A 4z run's checked fields against its phase's expected values."""
+    label = f"4z {name} at world {world}"
+    if name.startswith("flood-"):
+        ba = name == "flood-skew-ba"
+        want = EXPECTED_BA if ba else EXPECTED_1M
+        if got["out"] != want:
+            fail(f"{label} returned {got['out']}, the reference gives "
+                 f"{want}")
+        if not ba and got["seen"] != EXPECTED_RING_SEEN:
+            fail(f"{label}: seen differs from phase 4b's")
+        return
+    if name == "sir-hybrid":
+        check_run(label, got, EXPECTED_SIR)
+    elif name == "routing-segment":
+        check_run(label, got, EXPECTED_ROUTE["ws"])
+    elif name == "hits-hybrid":
+        check_run(label, got["out"], EXPECTED_LIBRARY["hits"])
+        hub, auth = got["hub"], got["authority"]
+        check_floats(label, {
+            "hub_sum": hub["sum"], "hub_max": hub["max"],
+            "hub_sample": hub["sample"], "authority_sum": auth["sum"],
+            "authority_sample": auth["sample"]}, "hits")
+    elif name == "boruvka":
+        got = dict(got)
+        check_floats(label, {"mst_weight": got.pop("mst_weight")},
+                     "boruvka")
+        check_run(label, got, EXPECTED_LIBRARY["boruvka"])
+    else:
+        key = {"components-gather": ("analytics", "components"),
+               "kcore-hybrid": ("analytics", "kcore"),
+               "mis-gather-hybrid": ("analytics", "mis"),
+               "labelprop-gather": ("library", "labelprop"),
+               "bracha-hybrid": ("library", "bracha")}[name]
+        table = EXPECTED_ANALYTICS if key[0] == "analytics" \
+            else EXPECTED_LIBRARY
+        check_run(label, got, table[key[1]])
+
+
+
 RING_EXPECT = {"segment": ("ring_shift",),
                "mxu": ("ring_segsum", "segsum"),
                "hybrid": ("ring_shift", "segsum")}
@@ -7839,6 +8232,9 @@ def main() -> int:
     # 4y (slice 18): graftaudit on the card against the CPU-blessed
     # budgets, each registry entry's census held to the kernels' counters.
     audit = audit_path(segsum, ring, rowsum, threefry)
+    # 4z (slice 19): the auto-sharded engine across 2 and 8 rank
+    # processes, each rank its part of phase 4's graph.
+    auto = auto_path(multihost, gpu)
     del g, seen
     torch.cuda.empty_cache()
 
@@ -7904,6 +8300,10 @@ def main() -> int:
     def rank_sum(key):  # a kernel row's launches at every world's ranks
         return sum(rank["launches"][w][key] for w in RANK_WORLDS)
 
+    def auto_gathers(row):  # 4z's gathers on a ring_gather row
+        return sum(n for k, n in auto["gather"].items()
+                   if AUTO_GATHER_ROWS[k] == row)
+
     def row(name, source, replaces, at, n, err):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         return {"name": name, "route": "cuda",
@@ -7918,7 +8318,7 @@ def main() -> int:
             + sup_launches + heal_launches + fault_launches["segsum"]
             + sim_launches["segsum"] + adaptive_launches["segsum"]
             + rank_sum("segsum") + traced_launches
-            + audit.get("segsum_or", 0),
+            + audit.get("segsum_or", 0) + auto["or"],
             max(max_err, ring_err["segsum"])),
         row("ring_shift", "ring.cu", "p2pnetwork_tpu/ops/pallas_ring.py:72",
             ring_rows[0], ring_launches["ring_shift"]
@@ -7965,7 +8365,7 @@ def main() -> int:
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[1],
             sir_launches["hybrid"] + cons_launches["segsum"]
             + new_launches["sum"] + lib_launches["sum"] + io_launches["sum"]
-            + audit.get("segsum_sum", 0), max_err),
+            + audit.get("segsum_sum", 0) + auto["sum"], max_err),
         row("segsum_sum_blocked", "segsum.cu",
             "p2pnetwork_tpu/ops/pallas_edge.py:41", rows[3],
             sir_launches["pallas"] + new_launches["sum_blocked"]
@@ -8011,20 +8411,23 @@ def main() -> int:
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass's "
             "blocks in one exchange: world 2, bool [4, 125008])",
             rank_row(2, "ring_gather", "bool"),
-            rank["launches"][2]["gather"], 0.0),
+            rank["launches"][2]["gather"] + auto_gathers("ring_gather"), 0.0),
         row("ring_gather_w8", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass's "
             "blocks in one exchange: world 8, bool [1, 125008])",
             rank_row(8, "ring_gather", "bool"),
-            rank["launches"][8]["gather"], 0.0),
+            rank["launches"][8]["gather"] + auto_gathers("ring_gather_w8"),
+            0.0),
         row("ring_gather_f32", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
             "at a time: world 2, f32 [4, 125008])",
-            rank_row(2, "ring_gather", "f32"), rank_sum("gather_f32"), 0.0),
+            rank_row(2, "ring_gather", "f32"),
+            rank_sum("gather_f32") + auto_gathers("ring_gather_f32"), 0.0),
         row("ring_gather_i32", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
             "at a time: world 2, i32 [4, 125008], election's ids)",
-            rank_row(2, "ring_gather", "i32"), rank_sum("gather_i32"), 0.0),
+            rank_row(2, "ring_gather", "i32"),
+            rank_sum("gather_i32") + auto_gathers("ring_gather_i32"), 0.0),
         row("ring_gather_lanes", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
             "at a time: world 2, the lane words i32 [4, 32, 12512])",

@@ -20,7 +20,8 @@ import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import prng
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel.mesh import assemble
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 State = Any
 Stats = Dict[str, torch.Tensor]
@@ -47,11 +48,18 @@ def draw_neighbor_slot(graph: Graph, key):
 
     Returns ``(slot, partner, has_neighbor)``: the drawn column (i32), the
     neighbor id it holds (row 0's entry where no valid slot exists), and
-    whether the row had a valid slot. Callers gate on ``has_neighbor``."""
+    whether the row had a valid slot. Callers gate on ``has_neighbor``.
+
+    On a rank's part (``sim/graph.py`` ``GraphPart``) the owned rows draw
+    from the same ``N_pad`` counters as the whole graph's and the three
+    are assembled in one exchange (``parallel/mesh.py``)."""
+    part = part_of(graph)
     mask = graph.neighbor_mask
     count = mask.sum(dim=1, dtype=torch.int32)
     u = prng.randint(key, (graph.n_nodes_padded,), 0, 2**31 - 1,
                      device=graph.device)
+    if part is not None:  # the owned rows' counters
+        u = u[part.lo:part.hi]
     k = u % count.clamp_min(1)
     csum = mask.cumsum(dim=1, dtype=torch.int32)
     hit = (csum == (k + 1)[:, None]) & mask
@@ -59,6 +67,10 @@ def draw_neighbor_slot(graph: Graph, key):
     # jnp.argmax does.
     slot = hit.to(torch.uint8).argmax(dim=1)
     partner = graph.neighbors.gather(1, slot[:, None])[:, 0]
+    if part is not None:
+        whole = assemble(part, torch.stack(
+            [slot.to(torch.int32), partner, (count > 0).to(torch.int32)]))
+        return whole[0], whole[1], whole[2] > 0
     return slot.to(torch.int32), partner, count > 0
 
 

@@ -20,7 +20,8 @@ import torch
 
 from p2pnetwork_tpu_torch.models.leader import max_flood_step
 from p2pnetwork_tpu_torch.ops import extremum as X
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,8 +49,11 @@ def _odd(label, dist, s, r, mask) -> torch.Tensor:
 
 def _odd_edge_slots(graph: Graph, label: torch.Tensor,
                     dist: torch.Tensor) -> torch.Tensor:
-    """Directed edge slots violating parity (valid at quiescence)."""
-    return sum(_odd(label, dist, *e).sum() for e in _edge_sets(graph))
+    """Directed edge slots violating parity (valid at quiescence); on a
+    rank's part every rank's count, summed."""
+    count = sum(_odd(label, dist, *e).sum() for e in _edge_sets(graph))
+    part = part_of(graph)
+    return count if part is None else mesh.all_sum(part.mesh, count)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,6 +64,7 @@ class BipartiteCheck:
     method: str = "auto"
 
     STATS = ("messages", "changed")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> BipartiteCheckState:
         ids = torch.arange(graph.n_nodes_padded, dtype=torch.int32,
@@ -86,6 +91,9 @@ class BipartiteCheck:
             odd = _odd(state.label, state.dist, s, r, mask)
             bad |= X.scatter_spread(odd.to(torch.int32), state.label[s], odd,
                                     graph.n_nodes_padded, 0, True) > 0
+        part = part_of(graph)
+        if part is not None:  # any rank's edges may flag a component
+            bad = mesh.combine(part, bad, "or")
         return graph.node_mask & ~bad[state.label.clamp_min(0).long()]
 
     def step(self, graph: Graph, state: BipartiteCheckState, key):

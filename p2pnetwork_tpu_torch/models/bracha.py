@@ -51,6 +51,7 @@ class Bracha:
     method: str = "auto"
 
     STATS = ("messages", "changed", "delivered", "coverage", "agreement")
+    RUNS_ON_PART = True
 
     def __post_init__(self):
         if self.source_value not in (0, 1):

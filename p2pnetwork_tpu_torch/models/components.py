@@ -33,6 +33,7 @@ class ConnectedComponents:
     method: str = "auto"
 
     STATS = ("messages", "changed", "components")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> ConnectedComponentsState:
         return ConnectedComponentsState(label=own_ids(graph),

@@ -65,6 +65,7 @@ class Flood:
     frontier_crossover: object = None
 
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key):
         base.validate_source(graph, self.source)

@@ -46,6 +46,7 @@ class Gossip:
     alpha: float = 0.5
 
     STATS = ("messages", "variance", "mean")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> GossipState:
         if graph.neighbors is None:

@@ -22,7 +22,8 @@ import dataclasses
 import torch
 
 from p2pnetwork_tpu_torch.ops import segment
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel.mesh import combine
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +45,7 @@ class HITS:
     method: str = "auto"
 
     STATS = ("messages", "residual")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> HITSState:
         mask_f = graph.node_mask.to(torch.float32)
@@ -73,6 +75,9 @@ class HITS:
             out.index_add_(0, graph.dyn_senders,
                            torch.where(dlive, signal[graph.dyn_receivers],
                                        0.0))
+        part = part_of(graph)
+        if part is not None:  # every rank's out-edge partial, folded
+            out = combine(part, out, "sum")
         return out * graph.node_mask
 
     def step(self, graph: Graph, state: HITSState, key):

@@ -34,6 +34,7 @@ class KCore:
     method: str = "auto"
 
     STATS = ("messages", "removed", "core_size")
+    RUNS_ON_PART = True
 
     def __post_init__(self):
         if self.k < 1:

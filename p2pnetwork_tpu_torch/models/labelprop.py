@@ -11,7 +11,9 @@ of the ascending row, which ``argmax`` returns on every device) and the
 on odd rounds; ``unsettled`` (adopters over the last two rounds) reaches
 0 only when both halves held still: ``engine.run_until_converged(...,
 stat="unsettled", threshold=1)``. Gather layout only (a complete neighbor
-table); deterministic.
+table); deterministic. On a rank's part (``sim/graph.py`` ``GraphPart``)
+the owned rows vote, the labels are assembled in one exchange and the
+vote count is summed over the ranks.
 """
 
 from __future__ import annotations
@@ -20,7 +22,8 @@ import dataclasses
 
 import torch
 
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 _SENTINEL = 2**31 - 1
 
@@ -47,6 +50,7 @@ class LabelPropagation:
     """Community detection by iterated neighborhood-majority voting."""
 
     STATS = ("messages", "changed", "unsettled", "communities")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> LabelPropagationState:
         if graph.neighbors is None or not graph.neighbors_complete:
@@ -73,21 +77,30 @@ class LabelPropagation:
     def step(self, graph: Graph, state: LabelPropagationState, key):
         ids = torch.arange(graph.n_nodes_padded, dtype=torch.int32,
                            device=graph.device)
+        node_mask, label = graph.node_mask, state.label
+        part = part_of(graph)
+        if part is not None:  # the owned rows vote
+            ids, node_mask, label = (x[part.lo:part.hi]
+                                     for x in (ids, node_mask, label))
         live_vote = graph.neighbor_mask & graph.node_mask[graph.neighbors]
         votes = torch.where(live_vote, state.label[graph.neighbors],
                             _SENTINEL)
-        own = torch.where(graph.node_mask, state.label, _SENTINEL)
+        own = torch.where(node_mask, label, _SENTINEL)
         votes = torch.cat([votes, own[:, None]], dim=1)
         mode = _row_mode(torch.sort(votes, dim=1).values)
         # Parity schedule: half the population holds still each round.
         turn = (ids % 2) == (state.round % 2)
-        adopt = turn & graph.node_mask & (mode != _SENTINEL)
-        label = torch.where(adopt, mode, state.label)
+        adopt = turn & node_mask & (mode != _SENTINEL)
+        label = torch.where(adopt, mode, label)
+        messages = live_vote.sum()
+        if part is not None:
+            label = mesh.assemble(part, label)
+            messages = mesh.all_sum(part.mesh, messages)
         changed = (label != state.label).sum().to(torch.int32)
         new_state = LabelPropagationState(label=label, changed_prev=changed,
                                           round=state.round + 1)
         return new_state, {
-            "messages": live_vote.sum(),
+            "messages": messages,
             "changed": changed,
             "unsettled": changed + state.changed_prev,
             "communities": self.communities(graph, new_state),

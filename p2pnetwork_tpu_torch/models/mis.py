@@ -37,6 +37,7 @@ class LubyMIS:
     or_method: str = "auto"
 
     STATS = ("messages", "undecided", "mis_size")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> LubyMISState:
         return LubyMISState(in_mis=torch.zeros_like(graph.node_mask),

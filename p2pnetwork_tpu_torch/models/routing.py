@@ -24,7 +24,8 @@ from p2pnetwork_tpu_torch.models import base
 from p2pnetwork_tpu_torch.models.flood import _over_live
 from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.ops import segment
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel.mesh import assemble
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 _I32_MAX = 2**31 - 1
 
@@ -54,6 +55,7 @@ class DistanceVector:
     method: str = "auto"
 
     STATS = ("messages", "changed", "coverage", "max_cost")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> DistanceVectorState:
         base.validate_source(graph, self.source)
@@ -91,6 +93,9 @@ class DistanceVector:
                 graph.dyn_senders, graph.dyn_receivers, graph.dyn_mask,
                 signal[graph.dyn_senders] + segment.DYNAMIC_LINK_COST,
                 incoming, n_pad))
+        part = part_of(graph)
+        if part is not None:  # the owned receivers' achievers, assembled
+            best = assemble(part, best[part.lo:part.hi])
         return best
 
     def step(self, graph: Graph, state: DistanceVectorState, key):

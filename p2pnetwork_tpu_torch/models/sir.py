@@ -72,6 +72,7 @@ class SIR:
     method: str = "auto"
 
     STATS = ("messages", "s_frac", "i_frac", "r_frac", "coverage")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> SIRState:
         base.validate_source(graph, self.source)

@@ -110,19 +110,34 @@ def build_hybrid_from_arrays(senders: np.ndarray, receivers: np.ndarray,
                        remainder=remainder, offsets=tuple(kept), n=n)
 
 
-def _diag_or(hybrid: HybridEdges, core: torch.Tensor) -> torch.Tensor:
-    """OR-aggregate the diagonal edges. ``core`` is bool[n] (unpadded)."""
-    acc = torch.zeros(hybrid.n, dtype=torch.bool, device=core.device)
+def _shifted(core: torch.Tensor, off: int, lo: int, m: int) -> torch.Tensor:
+    """``core[(v + off) mod n]`` at the mask columns' nodes ``v`` in
+    ``[lo, lo + m)``: every node of the whole graph (``m = n``), or a
+    rank's owned columns (``sim/graph.py`` ``GraphPart``)."""
+    x = torch.roll(core, -off)
+    return x if m == core.shape[0] else x[lo:lo + m]
+
+
+def _diag_or(hybrid: HybridEdges, core: torch.Tensor,
+             lo: int = 0) -> torch.Tensor:
+    """OR-aggregate the diagonal edges at the mask columns' nodes, the
+    first ``lo``. ``core`` is bool[n] (unpadded)."""
+    m = hybrid.masks.shape[1]
+    acc = torch.zeros(m, dtype=torch.bool, device=core.device)
     for d, off in enumerate(hybrid.offsets):
-        acc = acc | (torch.roll(core, -off) & hybrid.masks[d])
+        acc = acc | (_shifted(core, off, lo, m) & hybrid.masks[d])
     return acc
 
 
-def _diag_sum(hybrid: HybridEdges, core: torch.Tensor) -> torch.Tensor:
-    """Sum-aggregate the diagonal edges. ``core`` is f32[n] (unpadded)."""
-    acc = torch.zeros(hybrid.n, dtype=core.dtype, device=core.device)
+def _diag_sum(hybrid: HybridEdges, core: torch.Tensor,
+              lo: int = 0) -> torch.Tensor:
+    """Sum-aggregate the diagonal edges, as :func:`_diag_or`. ``core`` is
+    f32[n] (unpadded)."""
+    m = hybrid.masks.shape[1]
+    acc = torch.zeros(m, dtype=core.dtype, device=core.device)
     for d, off in enumerate(hybrid.offsets):
-        acc = acc + torch.roll(core, -off) * hybrid.masks[d].to(core.dtype)
+        acc = acc + _shifted(core, off, lo, m) * hybrid.masks[d].to(
+            core.dtype)
     return acc
 
 
@@ -132,15 +147,17 @@ def _check_kernel(kernel: str) -> None:
 
 
 def propagate_or_hybrid(hybrid: HybridEdges, signal: torch.Tensor,
-                        node_mask: torch.Tensor,
-                        kernel: str = "pallas") -> torch.Tensor:
+                        node_mask: torch.Tensor, kernel: str = "pallas",
+                        lo: int = 0) -> torch.Tensor:
     """Per-node OR over incoming edges: diagonals by roll, the remainder by
     the segment-sum kernel (``"pallas"``) or its plain version
-    (``"blocked"``)."""
+    (``"blocked"``). On a rank's part the result covers the owned nodes
+    from ``lo`` (``node_mask`` theirs): the owned mask columns and the
+    remainder whose destinations count from ``lo``."""
     _check_kernel(kernel)
-    n_pad = node_mask.shape[0]
-    out = torch.nn.functional.pad(_diag_or(hybrid, signal[: hybrid.n]),
-                                  (0, n_pad - hybrid.n))
+    diag = _diag_or(hybrid, signal[: hybrid.n], lo)
+    out = torch.nn.functional.pad(diag, (0, node_mask.shape[0] -
+                                         diag.shape[0]))
     if hybrid.remainder is not None:
         fn = B.propagate_or_kernel if kernel == "pallas" else B.propagate_or_blocked
         out = out | fn(hybrid.remainder, signal, node_mask)
@@ -148,16 +165,17 @@ def propagate_or_hybrid(hybrid: HybridEdges, signal: torch.Tensor,
 
 
 def propagate_sum_hybrid(hybrid: HybridEdges, signal: torch.Tensor,
-                         node_mask: torch.Tensor,
-                         kernel: str = "pallas") -> torch.Tensor:
+                         node_mask: torch.Tensor, kernel: str = "pallas",
+                         lo: int = 0) -> torch.Tensor:
     """Per-node sum over incoming edges: diagonals by roll, the remainder
-    as in :func:`propagate_or_hybrid`."""
+    and ``lo`` as in :func:`propagate_or_hybrid`."""
     _check_kernel(kernel)
-    n_pad = node_mask.shape[0]
-    out = torch.nn.functional.pad(_diag_sum(hybrid, signal[: hybrid.n]),
-                                  (0, n_pad - hybrid.n))
+    diag = _diag_sum(hybrid, signal[: hybrid.n], lo)
+    out = torch.nn.functional.pad(diag, (0, node_mask.shape[0] -
+                                         diag.shape[0]))
     if hybrid.remainder is not None:
         fn = (B.propagate_sum_kernel if kernel == "pallas"
               else B.propagate_sum_blocked)
         out = out + fn(hybrid.remainder, signal, node_mask)
     return out * node_mask.to(out.dtype)
+

@@ -3,9 +3,30 @@
 
 The reference's :func:`shard_graph_auto`/:func:`run_auto` place a graph's
 arrays on a mesh with named shardings and let GSPMD partition the
-unchanged engine. Eager torch has no such compiler, so the port has their
-one-rank form: the graph goes to the mesh's device and ``run_auto`` is
-``engine.run``. A mesh of more than one rank is refused (ROADMAP.md).
+unchanged engine. The collectives GSPMD inserts there are node-extent
+only (one frontier all-gather a flood round, the f32 pressure for SIR,
+scalar stats; the reference's ``tests/test_auto_comm.py``). Eager torch
+has no such compiler, so the port writes that partition out as
+owner-computes:
+
+- in one process the graph goes to the mesh's device, whole;
+- on a ring split over ranks (``multihost.hierarchical_ring_mesh``) each
+  rank keeps its part (``sim/graph.py`` ``graph_part``): the node-extent
+  fields whole, and the edges whose receiver lies in its nodes ``[lo,
+  hi)``, the ``n_local`` shards it holds on the ring. Every aggregation
+  (``ops/segment.py``) computes the owned slice from those edges and one
+  ``parallel/mesh.py`` ``assemble`` (``ring_gather``, B2's pass form)
+  makes the whole result on every rank; sums keyed by sender or by
+  component fold every rank's partial (``mesh.combine``). The node state
+  is replicated, bit for bit on every rank, so every rank takes the same
+  branches and makes the same exchanges in the same order.
+
+``run_auto`` is ``engine.run`` either way, as the reference's is, and
+``engine.run_until_coverage``/``run_until_converged`` take a part too,
+for the twelve protocols held to the reference's auto path (those with
+``RUNS_ON_PART``). Refused across ranks, each by name and queued in
+ROADMAP.md: a ``multihost.Mesh2D``, the dynamic edge region,
+``method="frontier"``, and every other protocol (``sim/engine.py``).
 
 The port keeps the reference's backend names so that call sites carry
 over, with these meanings:
@@ -23,6 +44,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from p2pnetwork_tpu_torch.sim.graph import graph_part
 
 COMM_BACKENDS = ("ppermute", "pallas")
 
@@ -53,26 +76,31 @@ def _to(x, device):
 
 def shard_graph_auto(graph, mesh, axis_name: str = "shards"):
     """``graph`` placed on ``mesh`` (a ``RingMesh`` or
-    ``multihost.Mesh2D``) for :func:`run_auto`: in one process, on the
-    mesh's device. ``axis_name`` must name one of the mesh's axes."""
+    ``multihost.Mesh2D``) for :func:`run_auto`: in one process the whole
+    graph on the mesh's device; on a ring split over ranks the rank's
+    part (``sim/graph.py`` ``graph_part``), which every rank of the ring
+    builds from the same whole graph. ``axis_name`` must name one of the
+    mesh's axes."""
     ring = getattr(mesh, "ring", mesh)
     names = getattr(mesh, "axis_names", (ring.axis_name,))
     if axis_name not in names:
         raise ValueError(f"axis {axis_name!r} is not one of the mesh's "
                          f"{names}")
-    if ring.world > 1:
+    if ring.world == 1:
+        return _to(graph, ring.device)
+    if ring is not mesh:
         raise NotImplementedError(
-            f"shard_graph_auto over {ring.world} ranks: the reference's "
-            f"GSPMD partitioning has no eager-torch counterpart; it waits "
-            f"in ROADMAP.md, section A, \"auto.shard_graph_auto across "
-            f"ranks\". Use the ring (parallel/sharded.py) across ranks")
-    return _to(graph, ring.device)
+            f"shard_graph_auto on a 2-D mesh over {ring.world} ranks: "
+            f"queued in ROADMAP.md, section A; pass the rank ring "
+            f"(multihost.hierarchical_ring_mesh) instead")
+    return graph_part(graph, ring)
 
 
 def run_auto(graph, protocol, key, rounds: int):
-    """Run ``rounds`` protocol rounds on a :func:`shard_graph_auto` graph:
-    ``engine.run`` (the reference's is ``engine.run`` too, with GSPMD
-    partitioning the compiled program)."""
+    """Run ``rounds`` protocol rounds on a :func:`shard_graph_auto` graph
+    or part: ``engine.run`` (the reference's is ``engine.run`` too, with
+    GSPMD partitioning the compiled program). On a part every rank of the
+    ring calls it with the same arguments."""
     from p2pnetwork_tpu_torch.sim import engine
 
     return engine.run(graph, protocol, key, rounds)

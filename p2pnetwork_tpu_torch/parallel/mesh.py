@@ -16,6 +16,13 @@ a CUDA IPC peer write on the card, gloo on the CPU), and the reductions
 of the reference's ``psum`` go through the process group
 (:func:`all_sum`, :func:`all_max`, :func:`gather_shards`,
 :func:`gather_lists`).
+
+The auto-sharded path across ranks (``parallel/auto.py``) exchanges
+node-extent results: :func:`assemble` puts every rank's owned slice of an
+aggregation together, :func:`combine` folds every rank's whole partial
+(sums keyed by sender or by component), each in one ``ops/ring.py``
+``ring_gather`` (B2's pass form on the card, its gloo plain version on
+the CPU).
 """
 
 from __future__ import annotations
@@ -29,9 +36,10 @@ from p2pnetwork_tpu_torch import _device
 
 DEFAULT_AXIS = "shards"
 
-#: Exchanges through the process group so far (every :func:`all_sum`,
-#: :func:`all_max`, :func:`gather_shards` and :func:`gather_lists` across
-#: ranks): ``parallel/commviz.py::ring_hop_census`` reads a round's.
+#: Exchanges across ranks so far: every :func:`all_sum`, :func:`all_max`,
+#: :func:`gather_shards` and :func:`gather_lists` through the process
+#: group (``parallel/commviz.py::ring_hop_census`` reads a round's), and
+#: every :func:`assemble` and :func:`combine`.
 EXCHANGES = 0
 
 
@@ -171,3 +179,54 @@ def gather_lists(mesh: Optional[RingMesh], ids: torch.Tensor,
     whole = gather_shards(mesh, block)
     return (whole[:, :k], whole[:, k],
             [whole[:, k + 1 + i] for i in range(len(cols))])
+
+
+#: The folds :func:`combine` takes, by name.
+_FOLDS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
+          "or": torch.logical_or}
+
+
+def _gathered(mesh: RingMesh, x: torch.Tensor, rows: int) -> torch.Tensor:
+    """``x [n, ...]`` (``n <= mesh.n_local * rows``, zero-padded to it) as
+    the rank's ``[n_local, rows, ...]`` stack, ring-gathered: every rank's
+    stack in ring order, ``[S * rows, ...]``. A view of the gather area
+    on the card (valid until the gather two after it)."""
+    from p2pnetwork_tpu_torch.ops import ring
+
+    global EXCHANGES
+    span = mesh.n_local * rows
+    if x.shape[0] < span:
+        x = torch.cat([x, x.new_zeros((span - x.shape[0],) + x.shape[1:])])
+    x = x.reshape((mesh.n_local, rows) + x.shape[1:]).contiguous()
+    EXCHANGES += 1
+    slab = ring.ring_gather(x, mesh)
+    return slab[:mesh.n_shards].reshape((-1,) + x.shape[2:])
+
+
+def assemble(part, owned: torch.Tensor) -> torch.Tensor:
+    """The whole ``[..., N_pad]`` result on every rank from every rank's
+    owned slice ``owned [..., hi - lo]`` (``part``: a
+    ``sim/graph.py`` ``Part``): one exchange, the slice viewed as the
+    rank's ``[n_local, N_pad / S, ...]`` shards through ``ring_gather``.
+    Every owned slice has one author, so every rank gets the same bits.
+    The result is a copy (the gather's view is not kept)."""
+    whole = _gathered(part.mesh, owned.movedim(-1, 0), part.block)
+    return whole[:part.n_pad].movedim(0, -1).clone(
+        memory_format=torch.contiguous_format)
+
+
+def combine(part, partial: torch.Tensor, fold: str) -> torch.Tensor:
+    """Every rank's whole partial ``partial [..., N_pad]`` folded by
+    ``fold`` (``"sum"``, ``"min"``, ``"max"`` or ``"or"``) in ring order,
+    the same on every rank: one exchange of ``ring_gather``. For results
+    keyed by sender or by component, which any rank's edges may feed."""
+    mesh, n = part.mesh, partial.shape[-1]
+    rows = -(-n // mesh.n_local)
+    whole = _gathered(mesh, partial.movedim(-1, 0), rows)
+    parts = whole.reshape((mesh.world, mesh.n_local * rows)
+                          + whole.shape[1:])[:, :n]
+    op = _FOLDS[fold]
+    acc = parts[0]
+    for w in range(1, mesh.world):
+        acc = op(acc, parts[w])
+    return acc.movedim(0, -1).clone(memory_format=torch.contiguous_format)

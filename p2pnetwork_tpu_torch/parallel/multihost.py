@@ -215,20 +215,22 @@ def _free_port() -> int:
 
 
 def launch(target: str, world: int, args: tuple = (), *,
-           timeout: float = 300.0, device: str = "cpu") -> list:
+           timeout: float = 300.0, device=None) -> list:
     """Run ``target(*args)`` in ``world`` rank processes on this host,
     joined by a gloo group on a free loopback port, and return each
     rank's result (pickled back), in rank order.
 
     ``target`` is ``"module:function"`` or ``"path/to/file.py:function"``;
-    the ranks import it and nothing else of the caller. With
-    ``device="cuda"`` the kernels are built here first, so that the ranks
-    load the built library and do not run ``world`` compilers. Every rank
+    the ranks import it and nothing else of the caller. ``device`` is
+    resolved as ``_device.resolve`` resolves it: the card unless the
+    caller names another (``"cpu"``, as the CPU tests do). On the card
+    the kernels are built here first, so that the ranks load the built
+    library and do not run ``world`` compilers. Every rank
     is joined with the time limit: when one fails or the limit passes,
     the others are killed and the failure is raised (:class:`RankError`
     with the rank's traceback, or ``TimeoutError``). A failed rendezvous
     is retried once on a new port."""
-    if device != "cpu":
+    if _device.resolve(device).type == "cuda":
         from p2pnetwork_tpu_torch import _build
 
         _build.library()

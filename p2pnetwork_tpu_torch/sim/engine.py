@@ -56,6 +56,12 @@ sub-step writes none), with the reference's columns for each loop. Its
 rows make no host read and no host -> device copy; its one fetch at the
 end counts in ``_device.SYNCS``. The results are bit-identical to a run
 without it.
+
+Every entry point takes a rank's part of a graph (``parallel/auto.py``'s
+auto path across ranks) only for a protocol that says it runs there
+(``RUNS_ON_PART``: the twelve held to the reference's auto path). Any
+other protocol may read edge arrays past the op layer, which on a part
+would see the rank's edges alone, so it is refused by name.
 """
 
 from __future__ import annotations
@@ -71,7 +77,7 @@ from p2pnetwork_tpu_torch.chaos import device as chaos_device
 from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import threefry as TF
 from p2pnetwork_tpu_torch.sim import flightrec
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 from p2pnetwork_tpu_torch.telemetry import history, spans
 from p2pnetwork_tpu_torch.utils import accum
 
@@ -156,6 +162,15 @@ def _require_stats(protocol, required) -> None:
         raise ValueError(f"{type(protocol).__name__} exposes stats "
                          f"{sorted(protocol.STATS)}; this loop needs "
                          f"{sorted(missing)}")
+
+
+def _require_runs_on_part(graph: Graph, protocol) -> None:
+    if part_of(graph) is not None and not getattr(protocol, "RUNS_ON_PART",
+                                                  False):
+        raise NotImplementedError(
+            f"{type(protocol).__name__} on a rank's part: only the "
+            f"protocols held to the auto path across ranks run there; the "
+            f"others are queued in ROADMAP.md, section A")
 
 
 def _freeze(live: torch.Tensor, new, old):
@@ -257,6 +272,7 @@ def run(graph: Graph, protocol, key, rounds: int, *, recorder=None):
     ``(final_state, stats)``, each stat stacked to ``[rounds]`` as the
     reference's ``lax.scan`` stacks it, and a ``FlightRecord`` third with
     a ``recorder`` (see :func:`run_from`)."""
+    _require_runs_on_part(graph, protocol)
     return _run_from(graph, protocol, protocol.init(graph, key), key,
                      rounds, recorder)
 
@@ -275,6 +291,7 @@ def run_from(graph: Graph, protocol, state, key, rounds: int, *,
     ``FlightRecorder``) each round also writes a ring row (the reference's
     scan form: the ``total`` column is a running f32 sum of ``messages``)
     and the return is ``(final_state, stats, FlightRecord)``."""
+    _require_runs_on_part(graph, protocol)
     chaos_device.dispatch_gate("engine-rounds")
     return _run_from(graph, protocol, state, key, rounds, recorder)
 
@@ -330,6 +347,7 @@ def run_until_coverage(graph: Graph, protocol, key, *,
     from ``key`` too. Returns ``(final_state, dict)`` with ``rounds``,
     ``coverage``, ``messages`` (exact int) and, for the flood family,
     ``frontier_occupancy_mean`` — the reference's dict."""
+    _require_runs_on_part(graph, protocol)
     return _coverage_from(
         graph, protocol, protocol.init(graph, key), key, "coverage",
         coverage_target=coverage_target, max_rounds=max_rounds,
@@ -347,6 +365,7 @@ def run_until_coverage_from(graph: Graph, protocol, state0, key, *,
     ``FlightRecorder``) adds ``out["flight_record"]``, one row per applied
     round at any ``steps_per_round``; ``row_of`` as in
     :func:`_stat_while`."""
+    _require_runs_on_part(graph, protocol)
     chaos_device.dispatch_gate("engine-coverage")
     return _coverage_from(graph, protocol, state0, key, "coverage_from",
                           coverage_target=coverage_target,
@@ -383,6 +402,7 @@ def run_until_converged(graph: Graph, protocol, key, *, stat: str,
     where ``value`` is the stat after the final round (inf if no round
     ran) and ``messages`` an exact int; the test ``value >= threshold``
     is made in f32, as the reference's."""
+    _require_runs_on_part(graph, protocol)
     _require_stats(protocol, (stat, "messages"))
     if state0 is None:
         state0 = protocol.init(graph, key)
@@ -558,6 +578,7 @@ def run_batch_until_coverage(graph: Graph, protocol, batch, key, *,
     ``batch_run`` span with the per-lane events (module doc)."""
     # An armed fault raises before the batch is read, so a healing retry
     # re-dispatches an intact input.
+    _require_runs_on_part(graph, protocol)
     chaos_device.dispatch_gate("engine-batch")
     t0 = time.perf_counter()
     tracer = spans.current_tracer()
@@ -626,6 +647,7 @@ def run_queries_until_done(graph: Graph, protocol, batch, key, *,
     the running-lane fraction, the round's sends, the running total, the
     finished lanes, the running lanes). With a tracer installed the call
     runs under a ``query_run`` span with the per-lane events."""
+    _require_runs_on_part(graph, protocol)
     t0 = time.perf_counter()
     tracer = spans.current_tracer()
     with spans.span("query_run", loop="engine", max_rounds=max_rounds):

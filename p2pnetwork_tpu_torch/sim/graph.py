@@ -1278,3 +1278,175 @@ def build(topology, device=None) -> Graph:
     if kind == "complete":
         return complete(n, device=device)
     raise ValueError(f"unknown topology kind: {kind!r}")
+
+
+# ------------------------------------------------- a rank's part of a graph
+#
+# The auto-sharded path across ranks (``parallel/auto.py``) is
+# owner-computes: each rank owns a contiguous node range, keeps the
+# node-extent fields whole and only the edges whose receiver it owns.
+# Every aggregation computes the owned slice of its result and ends in one
+# node-extent exchange that assembles the whole result on every rank
+# (``parallel/mesh.py::assemble``).
+
+
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """Where a :class:`GraphPart` sits in the whole graph: the owned node
+    range ``[lo, hi)`` (the rank's ``n_local`` shards of ``block`` nodes)
+    of the whole ``n_pad``, its first edge slot ``edge_lo`` in the whole
+    graph's receiver-sorted edges, the whole graph's edge slots
+    ``n_edges_padded``, ``auto``'s choice of the neighbor table on the
+    whole graph (``gather_ok``), and the rank ``mesh`` the exchanges go
+    through."""
+
+    lo: int
+    hi: int
+    block: int
+    n_pad: int
+    edge_lo: int
+    n_edges_padded: int
+    gather_ok: bool
+    mesh: object = dataclasses.field(compare=False, repr=False)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphPart(Graph):
+    """One rank's part of a graph (:func:`graph_part`). The node-extent
+    fields (``node_mask``, the degrees, ``layout_perm``/``layout_inv``)
+    and the scalars ``n_nodes``/``max_in_span`` are the whole graph's;
+    the edge-extent fields hold only the edges whose receiver lies in
+    ``part.lo <= v < part.hi``: ``senders``/``receivers`` keep global
+    ids, ``n_edges`` counts the owned edges, the neighbor table holds the
+    owned rows, ``blocked`` and the hybrid remainder count destinations
+    from ``part.lo``, the hybrid masks hold the owned columns and the
+    skew table the owned rows."""
+
+    part: Optional[Part] = None
+
+
+def part_of(graph) -> Optional[Part]:
+    """``graph``'s :class:`Part`, or None for a whole graph."""
+    return getattr(graph, "part", None)
+
+
+def edge_slots(graph) -> int:
+    """The whole graph's padded edge count (a part's too)."""
+    part = part_of(graph)
+    return graph.n_edges_padded if part is None else part.n_edges_padded
+
+
+def graph_part(graph: Graph, mesh) -> GraphPart:
+    """The rank's part of ``graph`` on ``mesh`` (a ``RingMesh`` split over
+    ranks), on the mesh's device, built on the host in numpy: the rank
+    owns ``[lo, hi)``, its ``n_local`` shards of ``ceil(N_pad / S)``
+    nodes. The dynamic edge region is refused (ROADMAP.md)."""
+    from p2pnetwork_tpu_torch.ops import blocked as B
+    from p2pnetwork_tpu_torch.ops import segment
+    from p2pnetwork_tpu_torch.ops.diag import HybridEdges
+    from p2pnetwork_tpu_torch.ops.skew import SkewTable
+
+    if graph.dyn_senders is not None:
+        raise NotImplementedError(
+            "the dynamic edge region on a rank's part: queued in "
+            "ROADMAP.md, section A (consolidate the runtime links into "
+            "the static edges first, sim/topology.py)")
+    n_pad, dev = graph.n_nodes_padded, mesh.device
+    block = _round_up(n_pad, mesh.n_shards) // mesh.n_shards
+    lo = min(mesh.shard_lo * block, n_pad)
+    hi = min(lo + mesh.n_local * block, n_pad)
+    rh = _host(graph.receivers)
+    e_lo = int(np.searchsorted(rh, lo))
+    e_hi = min(int(np.searchsorted(rh, hi)), graph.n_edges)
+    e_hi = max(e_hi, e_lo)
+    e = e_hi - e_lo
+    e_pad = _round_up(max(e, 1), graph.edge_pad_multiple)
+
+    def edges(t, fill):
+        if t is None:
+            return None
+        h = _host(t[e_lo:e_hi])
+        out = np.full(e_pad, fill, dtype=h.dtype)
+        out[:e] = h
+        return out
+
+    s = edges(graph.senders, 0)
+    r = edges(graph.receivers, max(hi - 1, 0))
+    emask = edges(graph.edge_mask, False)
+    host = dict(senders=s, receivers=r, edge_mask=emask,
+                edge_weight=edges(graph.edge_weight, 0.0))
+    for name in ("neighbors", "neighbor_mask", "neighbor_weight"):
+        t = getattr(graph, name)
+        host[name] = None if t is None else _host(t[lo:hi])
+    max_out_span = 0
+    if graph.src_eid is not None:
+        host["src_eid"], host["src_offsets"], max_out_span = \
+            _build_source_csr(s, emask, n_pad, e_pad)
+    live_s, live_r = s[emask], r[emask] - lo
+
+    blocked = None
+    if graph.blocked is not None:
+        blocked = B.build_blocked_from_arrays(
+            live_s, live_r, hi - lo, graph.blocked.block, device=dev)
+    hybrid = None
+    if graph.hybrid is not None:
+        hy = graph.hybrid
+        remainder = None
+        if hy.remainder is not None:
+            rb = hy.remainder
+            rmask = _host(rb.mask)
+            rows = np.nonzero(rmask)[0]
+            rem_r = (rows * rb.block + _host(rb.local_dst)[rmask])
+            keep = (rem_r >= lo) & (rem_r < hi)
+            if keep.any():
+                remainder = B.build_blocked_from_arrays(
+                    _host(rb.src)[rmask][keep],
+                    (rem_r[keep] - lo).astype(np.int32), hi - lo, rb.block,
+                    device=dev)
+        hybrid = HybridEdges(
+            masks=torch.from_numpy(np.ascontiguousarray(_host(
+                hy.masks)[:, min(lo, hy.n):min(hi, hy.n)])).to(dev),
+            remainder=remainder, offsets=hy.offsets, n=hy.n)
+    skew = None
+    if graph.skew is not None:
+        skew = _skew_part(graph.skew, lo, hi, e_lo, e_pad, SkewTable, dev)
+
+    return GraphPart(
+        **{k: None if v is None else torch.from_numpy(
+            np.ascontiguousarray(v)).to(dev) for k, v in host.items()},
+        **{k: getattr(graph, k).to(dev) for k in (
+            "node_mask", "in_degree", "out_degree")},
+        **{k: None if getattr(graph, k) is None else getattr(graph, k).to(
+            dev) for k in ("layout_perm", "layout_inv")},
+        n_nodes=graph.n_nodes, n_edges=e,
+        neighbors_complete=graph.neighbors_complete,
+        max_degree_cap=graph.max_degree_cap,
+        edge_pad_multiple=graph.edge_pad_multiple,
+        max_in_span=graph.max_in_span, blocked=blocked, hybrid=hybrid,
+        skew=skew, max_out_span=max_out_span,
+        part=Part(lo=lo, hi=hi, block=block, n_pad=n_pad, edge_lo=e_lo,
+                  n_edges_padded=graph.n_edges_padded,
+                  gather_ok=segment._gather_ok(graph), mesh=mesh))
+
+
+def _skew_part(t, lo: int, hi: int, e_lo: int, e_pad: int, cls, dev):
+    """The skew table's rows owned by ``[lo, hi)``, padded to a multiple
+    of 8 rows that own ``hi - 1`` with no valid slot; ``start`` counts
+    from the part's first edge."""
+    owner = _host(t.owner)
+    a, b = np.searchsorted(owner, lo), np.searchsorted(owner, hi)
+    n = b - a
+    r_pad = max(-(-n // 8) * 8, 8)
+
+    def rows(x, fill):
+        if x is None:
+            return None
+        h = _host(x)
+        out = np.full((r_pad,) + h.shape[1:], fill, dtype=h.dtype)
+        out[:n] = h[a:b]
+        return torch.from_numpy(out).to(dev)
+
+    start = rows(t.start, e_pad - 1 + e_lo)
+    return cls(src=rows(t.src, 0), mask=rows(t.mask, False),
+               owner=rows(t.owner, max(hi - 1, 0)), start=start - e_lo,
+               weight=rows(t.weight, 0.0))

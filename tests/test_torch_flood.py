@@ -25,6 +25,7 @@ from p2pnetwork_tpu_torch.parallel import auto as TAUTO  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import multihost as TMH  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
+from p2pnetwork_tpu_torch.sim import topology  # noqa: E402
 from tests.test_torch_graph import (FAMILIES, LAYOUTS, build_jax,  # noqa: E402
                                     build_port, graph_fields, state_fields)
 
@@ -166,10 +167,11 @@ def _carry_with(field):
     return call
 
 
-# What is still not ported raises, never runs as something else: GSPMD's
-# automatic partitioning over a ring split over ranks, on a ring mesh and
-# on the 2-D mesh (rank 0's part of a 2-rank ring, which raises before
-# any exchange), graph and batch fields the port does not model (interop
+# What is still not ported raises, never runs as something else: the
+# auto-sharded path across ranks (which runs since it was ported, in
+# test_torch_auto_ranks.py) on a graph with a dynamic edge region and on
+# the 2-D mesh (rank 0's part of a 2-rank ring, which raises before any
+# exchange), graph and batch fields the port does not model (interop
 # refuses them rather than dropping them; edge weights and the node
 # relabeling are carried since they were ported, in
 # test_torch_semiring.py and test_torch_layout.py) and a weighted choice
@@ -182,7 +184,7 @@ def _carry_with(field):
 # checkpoints (the port's own sharded format, save_orbax/load_orbax) in
 # test_torch_checkpoint.py and test_torch_multihost_protocols.py.
 @pytest.mark.parametrize("proto", [
-    lambda tg: TAUTO.shard_graph_auto(tg, RANK0),
+    lambda tg: TAUTO.shard_graph_auto(topology.with_capacity(tg, 8), RANK0),
     lambda tg: TAUTO.shard_graph_auto(tg, TMH.Mesh2D(
         grid=np.arange(8).reshape(2, 4), axis_names=("dcn", "ici"),
         ring=RANK0), axis_name="ici"),

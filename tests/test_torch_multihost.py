@@ -45,6 +45,7 @@ from p2pnetwork_tpu_torch.parallel import multihost  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import sharded as TS  # noqa: E402
 from p2pnetwork_tpu_torch.sim import engine as TE  # noqa: E402
 from p2pnetwork_tpu_torch.sim import graph as TG  # noqa: E402
+from p2pnetwork_tpu_torch.sim import topology  # noqa: E402
 from tests import torch_rank_worker as W  # noqa: E402
 from tests.test_torch_graph import one_torch_thread  # noqa: E402,F401
 
@@ -117,7 +118,7 @@ def _ranks(world: int) -> dict:
     """The rank suite at ``world``, the ranks' rows gathered in rank order
     (``[S, block]``), the summaries checked equal on every rank."""
     parts = multihost.launch(f"{WORKER}:suite", world, (S,),
-                             timeout=RANK_TIMEOUT)
+                             timeout=RANK_TIMEOUT, device="cpu")
     assert [p["rank"] for p in parts] == list(range(world))
     assert [p["shard_lo"] for p in parts] == [r * S // world
                                               for r in range(world)]
@@ -261,9 +262,20 @@ def _rank_part(**kw):
 
 # The adaptive loop, the recorder and a fault-spec comm, once refused
 # here, run across ranks: tests/test_torch_multihost_adaptive.py holds
-# them to the JAX ring and the one-process port.
+# them to the JAX ring and the one-process port. The auto-sharded path
+# runs across ranks too (tests/test_torch_auto_ranks.py); what it still
+# refuses is held here: a graph with a dynamic edge region, a 2-D mesh
+# over ranks and the frontier method on a part.
 REFUSALS = {
-    "auto": lambda: TA.shard_graph_auto(_rank_part()[2], _rank_part()[1]),
+    "auto": lambda: TA.shard_graph_auto(
+        topology.with_capacity(_rank_part()[2], 8), _rank_part()[1]),
+    "auto-mesh2d": lambda: TA.shard_graph_auto(
+        _rank_part()[2], multihost.Mesh2D(
+            grid=np.arange(S).reshape(2, S // 2), axis_names=("dcn", "ici"),
+            ring=_rank_part()[1]), axis_name="ici"),
+    "auto-frontier": lambda: TA.run_auto(
+        TA.shard_graph_auto(_rank_part()[2], _rank_part()[1]),
+        Flood(source=0, method="frontier"), prng.key(0), 1),
 }
 
 
@@ -289,7 +301,7 @@ def test_rank_part_holds_its_shards(one_torch_thread):
 def test_a_rank_that_raises_fails_the_launch(tmp_path):
     with pytest.raises(multihost.RankError, match="fails on purpose"):
         multihost.launch(f"{WORKER}:fail_on", 2, (1, str(tmp_path)),
-                         timeout=60)
+                         timeout=60, device="cpu")
     pids = [int(p.read_text()) for p in tmp_path.glob("pid*")]
     assert len(pids) == 2
     for pid in pids:  # every rank was stopped and reaped
@@ -297,10 +309,37 @@ def test_a_rank_that_raises_fails_the_launch(tmp_path):
             os.kill(pid, 0)
 
 
+def test_launch_defaults_to_the_card(monkeypatch):
+    """``launch`` resolves its device as ``_device.resolve`` does: the
+    card unless the caller names another. It once defaulted to the CPU,
+    so a run on the card skipped the one build it makes up front and
+    left each rank to build the library."""
+    from p2pnetwork_tpu_torch import _build
+
+    class Stop(Exception):
+        pass
+
+    built = []
+    monkeypatch.setattr(_build, "library", lambda: built.append(1))
+    monkeypatch.setattr(multihost, "_run_ranks",
+                        lambda *a, **k: (_ for _ in ()).throw(Stop()))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    with pytest.raises(Stop):
+        multihost.launch(f"{WORKER}:fail_on", 2, (1, "unused"))
+    assert built == [1]  # the card by default: built here, once
+    with pytest.raises(Stop):
+        multihost.launch(f"{WORKER}:fail_on", 2, (1, "unused"),
+                         device="cpu")
+    assert built == [1]  # the CPU by name: nothing to build
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        multihost.launch(f"{WORKER}:fail_on", 2, (1, "unused"))
+
+
 def test_a_hung_rank_times_out(tmp_path):
     with pytest.raises(TimeoutError, match="did not finish"):
         multihost.launch(f"{WORKER}:fail_on", 2, (-1, str(tmp_path)),
-                         timeout=8)
+                         timeout=8, device="cpu")
     for p in tmp_path.glob("pid*"):
         with pytest.raises(ProcessLookupError):
             os.kill(int(p.read_text()), 0)

@@ -83,7 +83,7 @@ def _launch_all(ckpt_dir: str) -> dict:
     for world in WORLDS:
         parts = multihost.launch(f"{WORKER}:adaptive", world,
                                  (S, ckpt_dir, world == 2),
-                                 timeout=RANK_TIMEOUT)
+                                 timeout=RANK_TIMEOUT, device="cpu")
         assert [(p["rank"], p["world"]) for p in parts] == [
             (r, world) for r in range(world)]
         census = [p.pop("census") for p in parts]
@@ -91,9 +91,10 @@ def _launch_all(ckpt_dir: str) -> dict:
         out[world] = W.gather_runs(parts)
         out[world]["census"] = census[0]
     out[1] = W.gather_runs(multihost.launch(
-        f"{WORKER}:restore_placed", 1, (S, ckpt_dir), timeout=RANK_TIMEOUT))
+        f"{WORKER}:restore_placed", 1, (S, ckpt_dir), timeout=RANK_TIMEOUT,
+        device="cpu"))
     parts = multihost.launch(f"{WORKER}:census", 8, (S, PER_HOST),
-                             timeout=RANK_TIMEOUT)
+                             timeout=RANK_TIMEOUT, device="cpu")
     assert all(p == parts[0] for p in parts)
     out[8] = {"census": parts[0]}
     return out

@@ -45,7 +45,7 @@ RANK_TIMEOUT = 240
 @functools.lru_cache(maxsize=None)
 def _ranks(world: int) -> list:
     return multihost.launch(f"{WORKER}:rotations", world, (S,),
-                            timeout=RANK_TIMEOUT)
+                            timeout=RANK_TIMEOUT, device="cpu")
 
 
 def _by_position(parts, order: str, key):

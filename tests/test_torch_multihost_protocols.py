@@ -71,12 +71,13 @@ def _launch_all(ckpt_dir: str) -> dict:
     for world in (2,) + tuple(w for w in WORLDS if w != 2):
         parts = multihost.launch(f"{WORKER}:protocols", world,
                                  (S, ckpt_dir, world == 2),
-                                 timeout=RANK_TIMEOUT)
+                                 timeout=RANK_TIMEOUT, device="cpu")
         assert [(p["rank"], p["world"]) for p in parts] == [
             (r, world) for r in range(world)]
         out[world] = W.gather_runs(parts)
     out[1] = W.gather_runs(multihost.launch(
-        f"{WORKER}:restore", 1, (S, ckpt_dir), timeout=RANK_TIMEOUT))
+        f"{WORKER}:restore", 1, (S, ckpt_dir), timeout=RANK_TIMEOUT,
+        device="cpu"))
     return out
 
 

@@ -1,0 +1,220 @@
+"""The rank side of ``tests/test_torch_auto_ranks.py``: the reference's
+auto-parity cases (``parallel/auto.py``'s ``shard_graph_auto`` and
+``run_auto``) on the port's rank ring, run in each rank process by
+``parallel/multihost.launch``. It imports torch and the port only.
+
+Each rank returns every case's final state (replicated: the test holds
+every rank's bits equal), its stats, the exchanges it made (counted in
+``parallel/mesh.EXCHANGES``) and the payload of each (recorded from
+``ops/ring.ring_gather_plain``, which the CPU path runs).
+"""
+
+import numpy as np
+import torch
+
+#: The twelve protocols of the reference's auto tests, as ``(graph,
+#: protocol, rounds, key)``: ``graph`` a generator call of both packages,
+#: ``protocol`` a constructor call by name. The cited inputs:
+#: ``tests/test_sharded.py::TestAutoSharding`` (WS 512 with k = 6),
+#: ``tests/test_skew.py::TestAutoPath``, ``tests/test_routing.py``
+#: (``_ws_weighted(512, 10)``), ``tests/test_hits.py``,
+#: ``tests/test_labelprop.py``, ``tests/test_boruvka.py``
+#: (``_ws_weighted(128, 13)``), ``tests/test_bracha.py`` and
+#: ``tests/test_auto_comm.py::TestHybridBlockedAuto``.
+WS512 = ("watts_strogatz", (512, 6, 0.2), {"seed": 0})
+CASES = {
+    "flood": (WS512, ("Flood", {"source": 0, "method": "segment"}), 5, 0),
+    "sir": (WS512, ("SIR", {"beta": 0.3, "gamma": 0.1,
+                            "method": "segment"}), 5, 0),
+    "gossip": (WS512, ("Gossip", {"alpha": 0.5}), 5, 0),
+    "components": (WS512, ("ConnectedComponents", {"method": "segment"}),
+                   5, 0),
+    "mis": (WS512, ("LubyMIS", {"method": "segment",
+                                "or_method": "segment"}), 5, 0),
+    "kcore": (WS512, ("KCore", {"k": 4, "method": "segment"}), 5, 0),
+    "bipartite": (WS512, ("BipartiteCheck", {"method": "segment"}), 5, 0),
+    "skew_flood": (("barabasi_albert", (4096, 4), {"seed": 0,
+                                                   "skew_table": True}),
+                   ("Flood", {"source": 0, "method": "skew"}), 5, 1),
+    "routing": (("ws_weighted", (512, 10), {}),
+                ("DistanceVector", {"source": 0, "method": "segment"}), 6,
+                0),
+    "hits": (("watts_strogatz", (256, 4, 0.2), {"seed": 1}),
+             ("HITS", {"method": "segment"}), 8, 0),
+    "labelprop": (("watts_strogatz", (256, 4, 0.2), {"seed": 1}),
+                  ("LabelPropagation", {}), 16, 0),
+    "boruvka": (("ws_weighted", (128, 13), {}), ("Boruvka", {}), 10, 0),
+    "bracha": (("complete", (16,), {}),
+               ("Bracha", {"source": 0, "f": 2, "byzantine": (3, 5),
+                           "method": "segment"}), 8, 0),
+    "flood_hybrid_blocked": (
+        ("watts_strogatz", (4096, 6, 0.2), {"seed": 0, "hybrid": True}),
+        ("Flood", {"source": 0, "method": "hybrid-blocked"}), 8, 0),
+    "sir_hybrid_blocked": (
+        ("watts_strogatz", (2048, 6, 0.2), {"seed": 1, "hybrid": True}),
+        ("SIR", {"beta": 0.3, "gamma": 0.1, "method": "hybrid-blocked"}),
+        6, 0),
+}
+#: The flood under the kernel methods (B1 on the rank's own blocks;
+#: its plain version on the CPU), on the hybrid-blocked case's graph with
+#: the blocked layout too.
+KERNEL_FLOODS = {
+    "flood_hybrid": "hybrid",
+    "flood_pallas": "pallas",
+}
+KERNEL_GRAPH = ("watts_strogatz", (4096, 6, 0.2),
+                {"seed": 0, "hybrid": True, "blocked": True})
+#: What world 4 runs: the flood family and SIR.
+FLOOD_FAMILY = ("flood", "sir", "skew_flood", "flood_hybrid_blocked",
+                "sir_hybrid_blocked", "flood_hybrid", "flood_pallas")
+
+
+def ws_weighted_costs(s, r):
+    """The reference's ``tests/test_routing.py::_ws_weighted`` link costs
+    (deterministic, from the edge endpoints)."""
+    return 0.25 + ((s * 7919 + r * 104729) % 97) / 50.0
+
+
+def build(G, spec, **kw):
+    """A graph of either package from a ``CASES`` graph spec (``G`` that
+    package's ``sim.graph``)."""
+    kind, args, extra = spec
+    if kind == "ws_weighted":
+        n, seed = args
+        return G.watts_strogatz(n, 4, 0.2, seed=seed, **kw).with_weights(
+            ws_weighted_costs)
+    return getattr(G, kind)(*args, **extra, **kw)
+
+
+def case(name: str):
+    """``(graph spec, (protocol name, kwargs), rounds, key)`` of a case,
+    the kernel floods included."""
+    if name in KERNEL_FLOODS:
+        return (KERNEL_GRAPH, ("Flood", {"source": 0,
+                                         "method": KERNEL_FLOODS[name]}),
+                8, 0)
+    return CASES[name]
+
+
+def state_np(state) -> dict:
+    """A protocol state's fields as numpy arrays."""
+    import dataclasses
+
+    return {f.name: getattr(state, f.name).cpu().numpy()
+            for f in dataclasses.fields(state)}
+
+
+def run_case(name: str, g, models, run_auto, prng) -> tuple:
+    """``(state fields, stats)`` of case ``name`` on ``g`` (a whole graph
+    or a part)."""
+    _, (cls, kw), rounds, key = case(name)
+    proto = getattr(models, cls)(**kw)
+    state, stats = run_auto(g, proto, prng.key(key), rounds)
+    return state_np(state), {k: v.numpy() for k, v in stats.items()}
+
+
+def auto_runs(n_shards: int, names: tuple, device: str = "cpu") -> dict:
+    """Every case of ``names`` on this rank's part of a ring of
+    ``n_shards`` shards: its state, stats, exchanges and payloads."""
+    torch.set_num_threads(1)
+    from p2pnetwork_tpu_torch import models, prng
+    from p2pnetwork_tpu_torch.ops import ring
+    from p2pnetwork_tpu_torch.parallel import auto, mesh as M, multihost
+    from p2pnetwork_tpu_torch.sim import graph as G
+
+    multihost.initialize_distributed()
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards,
+                                            device=device)
+    payloads = []
+    plain = ring.ring_gather_plain
+
+    def recorded(x, m):
+        payloads.append((tuple(x.shape), str(x.dtype),
+                         x.numel() * x.element_size()))
+        return plain(x, m)
+
+    ring.ring_gather_plain = recorded
+    out = {"rank": mesh.rank, "world": mesh.world, "runs": {}}
+    for name in names:
+        part = auto.shard_graph_auto(build(G, case(name)[0], device="cpu"),
+                                     mesh)
+        assert G.part_of(part) is not None
+        before, payloads[:] = M.EXCHANGES, []
+        state, stats = run_case(name, part, models, auto.run_auto, prng)
+        out["runs"][name] = {"state": state, "stats": stats,
+                             "exchanges": M.EXCHANGES - before,
+                             "payloads": list(payloads),
+                             "n_pad": part.n_nodes_padded,
+                             "block": part.part.block}
+    ring.ring_gather_plain = plain
+    return out
+
+
+#: Every op of ``ops/segment.py`` by every method it takes on a part,
+#: on a graph that carries every layout and weights.
+OPS_GRAPH = ("watts_strogatz", (1024, 6, 0.2),
+             {"seed": 3, "hybrid": True, "blocked": True, "skew_table": True,
+              "source_csr": True})
+OP_METHODS = {
+    "or": ("segment", "gather", "skew", "blocked", "pallas", "hybrid",
+           "hybrid-blocked", "auto"),
+    "sum": ("segment", "gather", "skew", "blocked", "pallas", "hybrid",
+            "hybrid-blocked", "auto"),
+    "sum_i32": ("segment", "gather", "skew", "auto"),
+    "max": ("segment", "gather", "skew", "auto"),
+    "min_plus": ("segment", "gather", "skew", "auto"),
+    "or_lanes": ("segment", "gather", "auto"),
+}
+
+
+def ops_graph(G, device="cpu"):
+    """``OPS_GRAPH`` with the routing rung's weights."""
+    return build(G, OPS_GRAPH, device=device).with_weights(
+        ws_weighted_costs)
+
+
+def op_signals(n_pad: int) -> dict:
+    """Seeded inputs of every op (numpy): bools, 0/1 floats (exact sums
+    in any order), ints, costs and lane words."""
+    rng = np.random.default_rng(5)
+    dist = rng.uniform(0, 8, n_pad).astype(np.float32)
+    dist[rng.random(n_pad) < 0.3] = np.inf
+    return {"or": rng.random(n_pad) < 0.2,
+            "sum": (rng.random(n_pad) < 0.5).astype(np.float32),
+            "sum_i32": rng.integers(0, 5, n_pad, dtype=np.int32),
+            "max": rng.integers(-2**20, 2**20, n_pad, dtype=np.int32),
+            "min_plus": dist,
+            "or_lanes": rng.integers(-2**31, 2**31, (3, n_pad),
+                                     dtype=np.int64).astype(np.int32)}
+
+
+def run_ops(g) -> dict:
+    """Every ``(op, method)`` of ``OP_METHODS`` on ``g`` (whole or a
+    part), and one neighbor draw, as numpy."""
+    from p2pnetwork_tpu_torch import prng
+    from p2pnetwork_tpu_torch.models import base
+    from p2pnetwork_tpu_torch.ops import segment
+
+    fns = {"or": segment.propagate_or, "sum": segment.propagate_sum,
+           "sum_i32": segment.propagate_sum, "max": segment.propagate_max,
+           "min_plus": segment.propagate_min_plus,
+           "or_lanes": segment.propagate_or_lanes}
+    sig = {k: torch.from_numpy(v) for k, v in op_signals(
+        g.n_nodes_padded).items()}
+    out = {(op, m): fns[op](g, sig[op], m).numpy()
+           for op, methods in OP_METHODS.items() for m in methods}
+    out[("draw", "")] = tuple(
+        t.numpy() for t in base.draw_neighbor_slot(g, prng.key(4)))
+    return out
+
+
+def ops_runs(n_shards: int) -> dict:
+    """:func:`run_ops` on this rank's part of :func:`ops_graph`."""
+    torch.set_num_threads(1)
+    from p2pnetwork_tpu_torch.parallel import auto, multihost
+    from p2pnetwork_tpu_torch.sim import graph as G
+
+    multihost.initialize_distributed()
+    mesh = multihost.hierarchical_ring_mesh(n_shards=n_shards, device="cpu")
+    return {"rank": mesh.rank,
+            "ops": run_ops(auto.shard_graph_auto(ops_graph(G), mesh))}
