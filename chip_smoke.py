@@ -357,18 +357,24 @@ Phases, in order; any failure exits non-zero before the result line:
    each rank builds phase 4's graph and keeps its part (the edges whose
    receiver it owns); every aggregation assembles the owned slices in one
    ``ring_gather``. The flood to 0.99 under ``segment``, ``hybrid`` (B1
-   on the rank's own blocks) and ``hybrid-blocked`` at both worlds
+   on the rank's own blocks) and ``hybrid-blocked``, and phase 4's
+   ``AdaptiveFlood(hybrid, k=1024)`` (a sparse round's one exchange its
+   winners' i32 claims, B1 in its 6 dense rounds), at both worlds
    (``EXPECTED_1M``, phase 4b's ``seen``); at world 2 also phases 4d,
    4e, 4h, 4i and 4n's skew flood, SIR, components, k-core, MIS, HITS,
-   label propagation, routing, Borůvka and Bracha on their graphs,
-   against their expected values. Every rank's final state bit-equal to
-   rank 0's; each run's gathers and B1 launches equal to its count of
-   aggregations; on every rank at both worlds, ``assemble`` (bool, f32)
-   and ``combine`` (i32 with a trailing dim) equal to
-   ``ring_gather_plain``'s and B1 on the part's remainder to its plain
-   version (``auto_plain_check``). Rank 0's wall, median of 3, beside the
-   one-process wall of the same run in turns (``auto-path`` lines;
-   ``AUTO_PHASE_S``).
+   label propagation, routing, Borůvka and Bracha, 4u's adaptive hop
+   distance, 4f's PageRank and push-sum (``hybrid``), 4i's hop distance,
+   election and spanning tree, 4j's B = 1,024 batched flood
+   (``frontier``) and 4k's min-plus (K = 64), push-sum (K = 32) and
+   chord DHT (K = 2,048) queries on their graphs, against their expected
+   values. Every rank's final state bit-equal to rank 0's; each run's
+   gathers and B1 launches equal to its count of aggregations; on every
+   rank at both worlds, ``assemble`` (bool, f32, i32, the lanes' f32
+   rows along axis 0) and ``combine`` (i32 with a trailing dim, the
+   DHT's answers) equal to ``ring_gather_plain``'s and B1 on the part's
+   remainder to its plain version (``auto_plain_check``). Rank 0's wall,
+   median of 3, beside the one-process wall of the same run in turns
+   (``auto-path`` lines; ``AUTO_PHASE_S``).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -6523,6 +6529,8 @@ def rank_payloads(mesh) -> list:
     out = [("bool", bits % 2 == 1)]
     if mesh.world == 2:
         out += [("f32", bits.to(torch.float32)), ("i32", bits)]
+    else:  # 4z's adaptive flood: its sparse rounds' claims
+        out += [("i32", bits)]
     return out
 
 
@@ -7529,10 +7537,10 @@ def audit_path(segsum, ring, rowsum, threefry) -> dict:
 
 # --------------------------------------------------------------- phase 4z
 
-#: Phase 4z (slice 19): the auto-sharded engine across ranks
+#: Phase 4z (slices 19 and 20): the auto-sharded engine across ranks
 #: (``parallel/auto.py``: ``shard_graph_auto`` on the rank ring, each rank
 #: its part, every aggregation one assembling ``ring_gather``). World 2
-#: runs every protocol below, world 8 the floods.
+#: runs every protocol below, world 8 the floods and the adaptive flood.
 AUTO_WORLDS = (2, 8)
 AUTO_TIMEOUT = 600
 #: Phase 4z's wall bound (seconds), both worlds' launches included.
@@ -7543,7 +7551,12 @@ AUTO_FLOODS = ("segment", "hybrid", "hybrid-blocked")
 #: dtype)`` 4z gathers.
 AUTO_GATHER_ROWS = {(2, "bool"): "ring_gather", (8, "bool"): "ring_gather_w8",
                     (2, "float32"): "ring_gather_f32",
-                    (2, "int32"): "ring_gather_i32"}
+                    (2, "int32"): "ring_gather_i32",
+                    (8, "int32"): "ring_gather_w8_i32"}
+#: The dense rounds of phase 4's ``adaptive-1024`` flood (and of the
+#: adaptive hop distance's wave): B1's launches a run, the rest of its 11
+#: rounds sparse (phase 4's ``main-path`` line).
+AUTO_ADAPTIVE_DENSE = 6
 
 
 def _auto_runs(M, full: bool) -> list:
@@ -7552,6 +7565,8 @@ def _auto_runs(M, full: bool) -> list:
     extra))`` where ``out`` is the run's summary and ``extra`` what the
     run returns beside it (routing's next hops). The protocols and their
     checks are phases 4, 4d, 4e, 4h, 4i and 4n's, on the same graphs."""
+    from p2pnetwork_tpu_torch.models import messagebatch as MB
+    from p2pnetwork_tpu_torch.models import querybatch as QB
     from p2pnetwork_tpu_torch.sim import engine
 
     def cover(proto):
@@ -7567,10 +7582,16 @@ def _auto_runs(M, full: bool) -> list:
         return lambda out: k * out["rounds"] + extra
 
     none = lambda out: 0  # noqa: E731
+    dense = lambda out: AUTO_ADAPTIVE_DENSE  # noqa: E731
     runs = [(f"flood-{m}", "g", cover(M.Flood(source=0, method=m)),
              rounds(), (rounds() if m == "hybrid" else none, "or"), none,
              lambda s, out, _: {"out": out, "seen": digest(s.seen)})
             for m in AUTO_FLOODS]
+    # Phase 4's adaptive-1024: a sparse round's one exchange is its
+    # winners' claims (i32), a dense round's the frontier (B1).
+    runs.append(("flood-adaptive-1024", "g", cover(M.AdaptiveFlood(
+        source=0, method="hybrid", k=ADAPTIVE_K)), rounds(), (dense, "or"),
+        none, lambda s, out, _: {"out": out, "seen": digest(s.seen)}))
     if not full:
         return runs
     sir = M.SIR(method="hybrid", **SIR_RUNG)
@@ -7624,7 +7645,97 @@ def _auto_runs(M, full: bool) -> list:
          lambda s, out, _: dict(out, value_sha256=digest(s.value),
                              echo_sha256=digest(s.echo_sent),
                              ready_sha256=digest(s.ready_sent)))]
+    runs += _auto_runs_20(M, MB, QB, engine, cover, conv, rounds, none,
+                          dense)
     return runs
+
+
+def _auto_runs_20(M, MB, QB, engine, cover, conv, rounds, none, dense):
+    """Slice 20's world-2 runs in ``_auto_runs``' form: phase 4u's
+    adaptive hop distance, 4f's PageRank and push-sum under ``hybrid``,
+    4i's hop distance, election and spanning tree, 4j's B = 1,024 batched
+    flood (``frontier``: sparse rounds while the lanes' union fits the
+    budget) and 4k's min-plus, push-sum and chord DHT queries, on their
+    phases' graphs and inputs."""
+    batch_src = np.random.default_rng(0).integers(
+        0, BATCH_N, size=BATCH_B).astype(np.int32)
+    rng = np.random.default_rng(0)
+    srcs = rng.integers(0, BATCH_N, 64).astype(np.int32)
+    tgts = rng.integers(0, BATCH_N, 64).astype(np.int32)
+    seeds = (np.arange(32) * 7 + 1).astype(np.int32)
+    orgs = rng.integers(0, BATCH_N, 2048).astype(np.int32)
+    keys = rng.integers(0, BATCH_N, 2048).astype(np.int32)
+    pr = M.PageRank(method="hybrid")
+    ps = M.PushSum(method="hybrid")
+    bf = MB.BatchFlood(method="frontier")
+    mp = QB.MinPlusQueries("auto")
+    psq = QB.PushSumQueries("auto")
+    dht = QB.DhtLookups(metric="ring")
+
+    def batch(gr):
+        st, out = engine.run_batch_until_coverage(
+            gr, bf, bf.init(gr, batch_src, coverage_target=0.99), KEY,
+            max_rounds=64)
+        return st, out, MB.lane_messages(gr, st)
+
+    def batch_check(s, out, msgs):
+        out = dict(out, lane_messages=msgs.cpu().numpy(),
+                   seen=s.seen.cpu().numpy())
+        return lane_summary(out, ("lane_messages", "seen"))
+
+    def queries(proto, make, max_rounds):
+        return lambda gr: engine.run_queries_until_done(
+            gr, proto, make(gr), KEY, max_rounds=max_rounds)
+
+    def pushsum_check(s, out, _):
+        got = lane_summary(out)
+        del got["lane_rounds_sha256"]
+        got["lane_rounds"] = out["lane_rounds"].tolist()
+        return {"got": got, "values": out["lane_values"].tolist()}
+
+    def dht_check(s, out, _):
+        got = lane_summary(out, ("lane_values",))
+        got["found"] = int((out["lane_values"] == keys).sum())
+        return got
+
+    return [
+        ("adaptive-hop-1024", "g", cover(M.AdaptiveHopDistance(
+            source=0, method="hybrid", k=ADAPTIVE_K)), rounds(),
+         (dense, "or"), none,
+         lambda s, out, _: {"out": {k: out[k] for k in (
+             "rounds", "coverage", "messages")}, "dist": digest(s.dist),
+             "frontier": digest(s.frontier), "round": int(s.round)}),
+        ("pagerank-hybrid", "g", conv(pr, "residual",
+                                      threshold=EXPECTED_PAGERANK[
+                                          "threshold"]),
+         rounds(), (rounds(), "sum"), none,
+         lambda s, out, _: dict(out, rank_total=s.ranks.sum().item())),
+        ("pushsum-hybrid", "g", lambda gr: engine.run(gr, ps, KEY,
+                                                      PUSHSUM_ROUNDS),
+         lambda out: 2 * PUSHSUM_ROUNDS,
+         (lambda out: 2 * PUSHSUM_ROUNDS, "sum"), none,
+         lambda s, st, _: {k: v.tolist() for k, v in st.items()}),
+        ("hop-hybrid", "g", conv(M.HopDistance(source=0, method="hybrid"),
+                                 "frontier"), rounds(), (rounds(), "or"),
+         none, lambda s, out, _: dict(out, sha256=digest(s.dist))),
+        ("leader-gather", "g", conv(M.LeaderElection(method="gather"),
+                                    "changed"), rounds(), (none, "or"),
+         none, lambda s, out, _: dict(out, sha256=digest(s.known))),
+        ("spanning-gather", "g", conv(M.SpanningTree(source=0,
+                                                     method="gather"),
+                                      "frontier"), rounds(), (none, "or"),
+         none, lambda s, out, _: dict(out, sha256=digest(s.parent))),
+        ("batch-frontier", "bg", batch, rounds(), (none, "or"), none,
+         batch_check),
+        ("minplus-auto", "bg", queries(mp, lambda gr: mp.init(
+            gr, srcs, tgts), 256), rounds(), (none, "or"), none,
+         lambda s, out, _: lane_summary(out, ("lane_values",))),
+        ("pushsum-queries", "bg", queries(psq, lambda gr: psq.init(
+            gr, seeds, threshold=1e-4), 512), rounds(2), (none, "or"), none,
+         pushsum_check),
+        ("dht-chord-ring", "chord", queries(dht, lambda gr: dht.init(
+            gr, orgs, keys), 128), rounds(), (none, "or"), none,
+         dht_check)]
 
 
 def _auto_state_sha(state) -> str:
@@ -7632,13 +7743,17 @@ def _auto_state_sha(state) -> str:
     must be rank 0's bit for bit."""
     h = hashlib.sha256()
     for f in dataclasses.fields(state):
-        h.update(getattr(state, f.name).cpu().numpy().tobytes())
+        v = getattr(state, f.name)
+        for t in ([v[k] for k in sorted(v)] if isinstance(v, dict)
+                  else [v]):  # a query batch's payload by name
+            h.update(t.cpu().numpy().tobytes())
     return h.hexdigest()
 
 
 def auto_rank(full: bool) -> dict:
     """One rank of phase 4z (run by ``multihost.launch``): phase 4's
-    graph (and at world 2 its weighted forms and the 1M BA rung), this
+    graph (and at world 2 its weighted forms, the 1M BA rung, phase
+    4j's 100K WS graph and 4k's chord overlay), this
     rank's part of each on the 8-shard rank ring, and each run of
     ``_auto_runs`` ``AUTO_REPS`` times, the first checked (every count
     set to 0 just before it and read just after); rank 0 runs the same
@@ -7668,6 +7783,9 @@ def auto_rank(full: bool) -> dict:
         whole["ba"] = graph_mod.barabasi_albert(
             N_NODES, 5, seed=0, build_neighbor_table=False,
             source_csr=True, skew_table=True, device="cuda")
+        whole["bg"] = graph_mod.watts_strogatz(
+            BATCH_N, 10, 0.1, seed=0, source_csr=True, device="cuda")
+        whole["chord"] = graph_mod.chord(BATCH_N, device="cuda")
     sync()
     graphs_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -7730,13 +7848,15 @@ def auto_rank(full: bool) -> dict:
 
 def auto_plain_check(gpart) -> dict:
     """4z's kernels at the path's shapes on this rank, against their plain
-    versions on the same inputs: ``assemble``'s ``ring_gather`` of a bool
-    and an f32 owned slice, and ``combine``'s of an i32 partial with a
-    trailing dim (Borůvka's), against ``ring_gather_plain`` (gloo) bit for
-    bit; B1's OR and sum on the part's hybrid remainder (destinations
-    counted from ``lo``) against ``propagate_or_blocked`` bit for bit and
-    ``propagate_sum_blocked`` within rtol = atol = ``RTOL``. Returns each
-    check's count of differing entries."""
+    versions on the same inputs: ``assemble``'s ``ring_gather`` of a bool,
+    an f32 and an i32 owned slice (the adaptive flood's claims), of the
+    query lanes' node-major ``[hi - lo, 64]`` f32 rows along axis 0, and
+    ``combine``'s of an i32 partial with a trailing dim (Borůvka's) and of
+    the DHT's ``[2, 2048]`` answers, against ``ring_gather_plain`` (gloo)
+    bit for bit; B1's OR and sum on the part's hybrid remainder
+    (destinations counted from ``lo``) against ``propagate_or_blocked``
+    bit for bit and ``propagate_sum_blocked`` within rtol = atol =
+    ``RTOL``. Returns each check's count of differing entries."""
     from p2pnetwork_tpu_torch.ops import blocked as B
     from p2pnetwork_tpu_torch.ops import ring
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
@@ -7753,19 +7873,27 @@ def auto_plain_check(gpart) -> dict:
             mesh)[:mesh.n_shards].reshape((-1,) + x.shape[1:])
 
     bad = {}
-    for dtype in (torch.bool, torch.float32):
+    for dtype in (torch.bool, torch.float32, torch.int32):
         owned = torch.randn(part.hi - part.lo, generator=gen)
-        owned = (owned > 0 if dtype == torch.bool else owned).to(dev)
+        owned = (owned > 0 if dtype == torch.bool else (
+            owned * 2**20).to(dtype)).to(dev)
         got = mesh_mod.assemble(part, owned)
         want = plain(owned, part.block)[:part.n_pad]
         bad[f"assemble-{str(dtype)[6:]}"] = int((got != want).sum())
-    partial = torch.randint(-2**31, 2**31 - 1, (2, part.n_pad),
-                            generator=gen, dtype=torch.int32).to(dev)
-    got = mesh_mod.combine(part, partial, "max")
-    rows = -(-part.n_pad // mesh.n_local)
-    whole = plain(partial.T, rows).reshape(mesh.world, -1, 2)
-    want = whole[:, :part.n_pad].amax(dim=0).T
-    bad["combine-int32"] = int((got != want).sum())
+    lanes = torch.randn((part.hi - part.lo, 64), generator=gen).to(dev)
+    got = mesh_mod.assemble(part, lanes, axis=0)
+    want = plain(lanes, part.block)[:part.n_pad]
+    bad["assemble-lanes-float32"] = int((got != want).sum())
+    for name, n, fold in (("combine-int32", part.n_pad, "max"),
+                          ("combine-dht-int32", 2048, "sum")):
+        partial = torch.randint(-2**31, 2**31 - 1, (2, n), generator=gen,
+                                dtype=torch.int32).to(dev)
+        got = mesh_mod.combine(part, partial, fold)
+        rows = -(-n // mesh.n_local)
+        whole = plain(partial.T, rows).reshape(mesh.world, -1, 2)[:, :n]
+        want = (whole.amax(dim=0) if fold == "max" else whole.sum(
+            dim=0, dtype=torch.int32)).T
+        bad[name] = int((got != want).sum())
     rem = gpart.hybrid.remainder
     nmask = gpart.node_mask[part.lo:part.hi]
     sig = torch.rand(part.n_pad, generator=gen).to(dev)
@@ -7781,7 +7909,7 @@ def auto_plain_check(gpart) -> dict:
 
 def auto_path(multihost, gpu: str) -> dict:
     """Phase 4z: ``auto_rank`` at worlds 2 and 8 on the one card, held to
-    phases 4, 4d, 4e, 4h, 4i and 4n's expected values (exact for bool
+    phases 4, 4d-4f, 4h-4k, 4n and 4u's expected values (exact for bool
     and int, the f32 tolerances those phases state), every rank's state
     bit-equal to rank 0's, each run's gathers and B1 launches to its
     count of aggregations, and each rank's ``auto_plain_check`` clean.
@@ -7864,6 +7992,39 @@ def auto_path(multihost, gpu: str) -> dict:
 def check_auto_run(name: str, world: int, got: dict) -> None:
     """A 4z run's checked fields against its phase's expected values."""
     label = f"4z {name} at world {world}"
+    if name == "adaptive-hop-1024":
+        want = EXPECTED_ADAPTIVE_HOP
+        if (got["out"], got["dist"], got["frontier"], got["round"]) != (
+                want["summary"], want["dist"], want["frontier"],
+                want["round"]):
+            fail(f"{label} returned {got['out']} (round {got['round']}): "
+                 f"dist, frontier or summary differ from the reference's")
+        return
+    if name == "pagerank-hybrid":
+        check_run(label, {k: got[k] for k in ("rounds", "messages")},
+                  {k: EXPECTED_PAGERANK[k] for k in ("rounds", "messages")})
+        for k in ("value", "rank_total"):
+            assert_close(f"{label} {k}", got[k], EXPECTED_PAGERANK[k],
+                         *PAGERANK_TOL[k])
+        return
+    if name == "pushsum-hybrid":
+        if got["messages"] != EXPECTED_PUSHSUM["messages"]:
+            fail(f"{label} messages differ from the reference's")
+        for k, (rtol, atol) in PUSHSUM_TOL.items():
+            assert_close(f"{label} {k}", got[k], EXPECTED_PUSHSUM[k], rtol,
+                         atol)
+        return
+    if name == "pushsum-queries":
+        check_run(label, got["got"], EXPECTED_QUERIES["pushsum"])
+        assert_close(f"{label} lane_values", got["values"],
+                     EXPECTED_PUSHSUM_VALUES, *PUSHSUM_QUERY_TOL)
+        return
+    if name in ("batch-frontier", "minplus-auto", "dht-chord-ring"):
+        want = {"batch-frontier": EXPECTED_BATCH["first"],
+                "minplus-auto": EXPECTED_QUERIES["minplus-auto"],
+                "dht-chord-ring": EXPECTED_QUERIES["dht-chord-ring"]}[name]
+        check_run(label, got, want)
+        return
     if name.startswith("flood-"):
         ba = name == "flood-skew-ba"
         want = EXPECTED_BA if ba else EXPECTED_1M
@@ -7891,6 +8052,9 @@ def check_auto_run(name: str, world: int, got: dict) -> None:
         check_run(label, got, EXPECTED_LIBRARY["boruvka"])
     else:
         key = {"components-gather": ("analytics", "components"),
+               "hop-hybrid": ("analytics", "hop"),
+               "leader-gather": ("analytics", "leader"),
+               "spanning-gather": ("analytics", "spanning"),
                "kcore-hybrid": ("analytics", "kcore"),
                "mis-gather-hybrid": ("analytics", "mis"),
                "labelprop-gather": ("library", "labelprop"),
@@ -8418,6 +8582,11 @@ def main() -> int:
             rank_row(8, "ring_gather", "bool"),
             rank["launches"][8]["gather"] + auto_gathers("ring_gather_w8"),
             0.0),
+        row("ring_gather_w8_i32", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, one "
+            "exchange: world 8, i32 [1, 125008], the adaptive flood's "
+            "claims)", rank_row(8, "ring_gather", "i32"),
+            auto_gathers("ring_gather_w8_i32"), 0.0),
         row("ring_gather_f32", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
             "at a time: world 2, f32 [4, 125008])",

@@ -28,6 +28,20 @@ compaction with the same ascending order and fill value
 
 ``AdaptiveHopDistance`` runs the same wave and records each node's first
 round, as ``HopDistance`` does.
+
+On a rank's part of a graph (``sim/graph.py`` ``GraphPart``, the auto
+path across ranks) the state is replicated, every decision reads the
+whole graph's rows (``out_span``, ``row_lengths``) and every rank takes
+the same branch. A dense round is ``propagate_or``'s (one assembling
+exchange). A sparse round scans the rank's own run of each item's
+slice (``row_slots``): every candidate keeps its whole-graph position
+``p·W + j`` as its claim, and since every edge into a node is its
+owner's, the first-claim dedup is the rank's own. One exchange
+(``parallel/mesh.py`` ``assemble``, an ``i32`` node-extent slice: each
+owned node's winning claim) then gives every rank every winner, all of
+them even past ``k``, and scattering the winners by claim lists them in
+the one-process order: ``seen``, the frontier and the work items come
+out bit-equal to the one-process run's.
 """
 
 from __future__ import annotations
@@ -44,7 +58,9 @@ from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import frontier as frontier_ops
 from p2pnetwork_tpu_torch.ops import segment
 from p2pnetwork_tpu_torch.ops.frontier import compact, set_true
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh as M
+from p2pnetwork_tpu_torch.sim.graph import (Graph, out_span, part_of,
+                                            row_lengths, row_slots)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +102,7 @@ class AdaptiveFlood:
     bitset: bool = False
 
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key):
         seed, fidx, fslice, count = _wave_seed(graph, self.source, self.k,
@@ -130,19 +147,19 @@ def _slice_width(graph: Graph, slice_width: int) -> int:
     chunked."""
     if slice_width > 0:
         return slice_width
-    return max(1, min(graph.max_out_span, 128))
+    return max(1, min(out_span(graph), 128))
 
 
 def _one_item_per_node(graph: Graph, w: int) -> bool:
     """No build-time row is wider than ``w``: item expansion is the
     identity and item mass equals node count."""
-    return graph.max_out_span <= w
+    return out_span(graph) <= w
 
 
 def _row_items(graph: Graph, w: int, nodes: torch.Tensor) -> torch.Tensor:
     """Work items per node: its CSR row in W-wide slices (empty rows cost
     one item, so every frontier node owns a slice-0 item)."""
-    row_len = graph.src_offsets[nodes + 1] - graph.src_offsets[nodes]
+    row_len = row_lengths(graph, nodes)
     return ((row_len + w - 1) // w).clamp_min(1).to(torch.int32)
 
 
@@ -182,8 +199,7 @@ def _sparse_wave_round(graph: Graph, w: int, k: int, seen, frontier, fidx,
     # Each frontier node owns exactly one slice-0 item, so counting
     # out_degree through those matches frontier_messages send for send.
     msgs = torch.where(fvalid & (fslice == 0), graph.out_degree[f], 0).sum()
-    eid, in_row = graph.gather_row_slots(
-        graph.src_offsets[f] + fslice * w, graph.src_offsets[f + 1], w)
+    eid, in_row = row_slots(graph, f, fslice * w, w)
     evalid = in_row & fvalid[:, None] & graph.edge_mask[eid]
     cand = torch.where(evalid, graph.receivers[eid], pad_node).reshape(-1)
     fresh = evalid.reshape(-1) & ~seen[cand] & graph.node_mask[cand]
@@ -202,6 +218,10 @@ def _sparse_wave_round(graph: Graph, w: int, k: int, seen, frontier, fidx,
     claim = torch.where(fresh, order, big)
     scratch = torch.full((n_pad,), big, dtype=torch.int32, device=dev)
     scratch.scatter_reduce_(0, cand.long(), claim, reduce="amin")
+    part = part_of(graph)
+    if part is not None:
+        return _part_winners(graph, part, w, k, seen, scratch, cand.shape[0],
+                             msgs)
     winner = fresh & (scratch[cand] == order)
     node_count = winner.sum().to(torch.int32)
 
@@ -215,6 +235,34 @@ def _sparse_wave_round(graph: Graph, w: int, k: int, seen, frontier, fidx,
     # mode takes over.
     icount = torch.where(node_count > k, k + 1, icount)
     return seen, new_frontier, fidx, fslice, icount, node_count, msgs
+
+
+def _part_winners(graph: Graph, part, w: int, k: int, seen, scratch,
+                  slots: int, msgs):
+    """The sparse round's end on a rank's part: ``scratch`` holds each
+    owned node's winning claim (a position among the round's ``slots``
+    candidate slots; ``2**31 - 1`` where none). One exchange assembles
+    every node's; the winners scattered by claim and compacted list the
+    first ``k`` in claim order, as the one-process round's ``compact`` of
+    its winning slots does."""
+    n_pad = graph.n_nodes_padded
+    dev = seen.device
+    claims = M.assemble(part, scratch[part.lo:part.hi])
+    new_frontier = claims != 2**31 - 1
+    node_count = new_frontier.sum().to(torch.int32)
+    nodes = torch.arange(n_pad, dtype=torch.int32, device=dev)
+    # Each node writes to a slot of its own: its claim, or past the slots.
+    at = torch.full((slots + n_pad,), -1, dtype=torch.int32, device=dev)
+    at.scatter_(0, torch.where(new_frontier, claims, slots + nodes).long(),
+                nodes)
+    at = at[:slots]
+    pos = compact(at >= 0, k, fill=slots - 1)
+    p = torch.arange(k, dtype=torch.int32, device=dev)
+    wnode = torch.where(p < node_count, at[pos], n_pad - 1)
+    fidx, fslice, icount = _expand_items(graph, w, k, wnode, node_count)
+    icount = torch.where(node_count > k, k + 1, icount)
+    return (seen | new_frontier, new_frontier, fidx, fslice, icount,
+            node_count, msgs)
 
 
 def _dense_wave_round(graph: Graph, w: int, k: int, method: str, seen,
@@ -292,6 +340,7 @@ class AdaptiveHopDistance:
 
     STATS = ("messages", "coverage", "frontier", "frontier_occupancy",
              "max_dist")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> AdaptiveHopDistanceState:
         seed, fidx, fslice, count = _wave_seed(graph, self.source, self.k,

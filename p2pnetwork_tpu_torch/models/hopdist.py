@@ -47,6 +47,7 @@ class HopDistance:
     method: str = "auto"
 
     STATS = ("messages", "coverage", "frontier", "max_dist")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> HopDistanceState:
         base.validate_source(graph, self.source)

@@ -55,6 +55,7 @@ class LeaderElection:
     method: str = "auto"
 
     STATS = ("messages", "changed", "coverage")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> LeaderElectionState:
         return LeaderElectionState(known=own_ids(graph),

@@ -173,6 +173,8 @@ class BatchFlood:
     method: str = "auto"
     frontier_crossover: object = None
 
+    RUNS_ON_PART = True
+
     # ------------------------------------------------------------ lifecycle
 
     def empty(self, graph: Graph, capacity: int) -> MessageBatch:

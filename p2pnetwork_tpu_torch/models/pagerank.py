@@ -36,6 +36,7 @@ class PageRank:
     method: str = "auto"  # aggregation lowering, see ops/segment.py
 
     STATS = ("messages", "residual", "rank_total", "rank_max")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> PageRankState:
         mask_f = graph.node_mask.to(torch.float32)

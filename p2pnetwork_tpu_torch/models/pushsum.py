@@ -39,6 +39,7 @@ class PushSum:
     method: str = "auto"  # aggregation lowering, see ops/segment.py
 
     STATS = ("messages", "s_total", "w_total", "variance", "mean")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> PushSumState:
         values = prng.normal(key, (graph.n_nodes_padded,),

@@ -214,6 +214,7 @@ class MinPlusQueries:
     budget_bytes: int = None
 
     VALUES_FLOAT = True
+    RUNS_ON_PART = True
 
     def _budget(self, graph: Graph, capacity: int) -> None:
         L.lane_budget(capacity, torch.float32, graph.n_nodes_padded,
@@ -317,6 +318,7 @@ class DhtLookups:
     budget_bytes: int = None
 
     VALUES_FLOAT = False
+    RUNS_ON_PART = True
 
     def __post_init__(self):
         if self.metric not in L.DHT_METRICS:
@@ -420,6 +422,7 @@ class PushSumQueries:
     budget_bytes: int = None
 
     VALUES_FLOAT = True
+    RUNS_ON_PART = True
 
     def _budget(self, graph: Graph, capacity: int) -> None:
         L.lane_budget(capacity, torch.float32, graph.n_nodes_padded,

@@ -38,6 +38,7 @@ class SpanningTree:
     method: str = "auto"
 
     STATS = ("messages", "coverage", "frontier")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> SpanningTreeState:
         base.validate_source(graph, self.source)

@@ -20,6 +20,14 @@ the dense methods.
 variant (:func:`propagate_or_lanes_frontier`) compacts the union of every
 word's frontier once and decides sparse or dense for the whole batch with
 one host read.
+
+On a rank's part of a graph (``sim/graph.py`` ``GraphPart``, the auto
+path across ranks) the budget is the whole graph's (``out_span``,
+``edge_slots``) and the signal is replicated, so every rank reads the
+same active count and takes the same branch. A sparse round gathers the
+active nodes' owned out-edges (the rank's own source-CSR rows, whose
+receivers it owns) and one ``parallel/mesh.py`` ``assemble`` makes the
+whole result on every rank, as the dense methods do.
 """
 
 from __future__ import annotations
@@ -29,7 +37,8 @@ import torch
 from p2pnetwork_tpu_torch import _device
 from p2pnetwork_tpu_torch.ops import bitset as BS
 from p2pnetwork_tpu_torch.ops import extremum as X
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh as M
+from p2pnetwork_tpu_torch.sim.graph import Graph, edge_slots, out_span
 
 #: Sparse slots (budget * max_out_span) stay under E_pad / this factor.
 CROSSOVER_SLOT_FACTOR = 2.0
@@ -55,9 +64,9 @@ def budget(graph: Graph, crossover=None) -> int:
     ``_MIN_BUDGET`` breaks it; a float in (0, 1] is a fraction of padded
     nodes, an int the budget itself. Clamped to ``[_MIN_BUDGET, n_pad]``."""
     n_pad = graph.n_nodes_padded
-    span = max(graph.max_out_span, 1)
+    span = max(out_span(graph), 1)
     if crossover is None:
-        k = graph.n_edges_padded // max(int(CROSSOVER_SLOT_FACTOR * span), 1)
+        k = edge_slots(graph) // max(int(CROSSOVER_SLOT_FACTOR * span), 1)
         if k < _MIN_BUDGET:
             return 0
     elif isinstance(crossover, float):
@@ -74,7 +83,7 @@ def budget_slots(graph: Graph, crossover=None) -> int:
     """Gathered slots of one sparse round, ``k * max_out_span`` (0 when
     sparse is disabled)."""
     k = budget(graph, crossover)
-    return k * max(graph.max_out_span, 1) if k else 0
+    return k * max(out_span(graph), 1) if k else 0
 
 
 def budget_slots_lanes(graph: Graph, crossover=None, n_words: int = 1) -> int:
@@ -115,11 +124,19 @@ def set_true(flags: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out[:n]
 
 
+def _whole(graph: Graph, out: torch.Tensor) -> torch.Tensor:
+    """``out [..., N_pad]`` as is, or on a rank's part its owned slice
+    from every rank (the rank's gathered edges reach only the nodes it
+    owns)."""
+    return M.assembled(graph, M.owned(graph, out))
+
+
 def _gather_active(graph: Graph, active: torch.Tensor,
                    n_active: torch.Tensor, k: int):
     """The ``k`` compacted active node ids and their ``[k, max_out_span]``
     out-edge ids with the liveness mask (in row, a real slot, a live
-    edge). Only right when ``n_active <= k``."""
+    edge): on a part the rank's own rows and its own span. Only right
+    when ``n_active <= k``."""
     n_pad = graph.n_nodes_padded
     valid = torch.arange(k, device=active.device) < n_active
     # Fill rows can name a real node (n_pad - 1): `valid` masks them.
@@ -157,7 +174,7 @@ def propagate_or_frontier(graph: Graph, signal: torch.Tensor, dense_fn,
     _, eid, evalid = _gather_active(graph, signal, sparse[1], sparse[0])
     cand = torch.where(evalid, graph.receivers[eid], n_pad).reshape(-1)
     out = set_true(torch.zeros_like(signal), cand)
-    return out & graph.node_mask
+    return _whole(graph, out & graph.node_mask)
 
 
 def propagate_or_lanes_frontier(graph: Graph, lanes: torch.Tensor,
@@ -183,7 +200,7 @@ def propagate_or_lanes_frontier(graph: Graph, lanes: torch.Tensor,
     vals = torch.where(evalid, lanes[:, f][:, :, None], 0).reshape(
         lanes.shape[0], -1)
     out = BS.or_scatter_lanes(n_pad, cand, vals, span=graph.max_in_span)
-    return torch.where(graph.node_mask, out, 0)
+    return _whole(graph, torch.where(graph.node_mask, out, 0))
 
 
 def _scatter_terms(graph: Graph, eid, evalid, terms, dtype,
@@ -199,7 +216,8 @@ def _scatter_terms(graph: Graph, eid, evalid, terms, dtype,
     agg = X.scatter_spread(keys, graph.receivers[eid].reshape(-1),
                            evalid.reshape(-1), graph.n_nodes_padded, ident,
                            largest)
-    return X.decode(torch.where(graph.node_mask, agg, ident), dtype, largest)
+    return _whole(graph, X.decode(torch.where(graph.node_mask, agg, ident),
+                                  dtype, largest))
 
 
 def propagate_max_frontier(graph: Graph, signal: torch.Tensor, neutral,

@@ -22,6 +22,15 @@ refused with :class:`LaneBudgetExceeded`). Lane matrices are node-major,
   largest (as an i32 it would be -1 and win the ``argmin``).
 
 The dynamic edge region is refused here, as the reference refuses it.
+
+On a rank's part of a graph (``sim/graph.py`` ``GraphPart``, the auto
+path across ranks) the lane carriers are replicated. The two propagations
+compute the owned rows ``[lo, hi)`` from the rank's own edges (or its
+rows of the table) and assemble the whole ``[N_pad, K]`` in one
+exchange along axis 0 (``parallel/mesh.py`` ``assemble``). A DHT hop is
+answered by the rank that owns the cursor, from its rows of the table,
+and one ``K``-extent exchange (``mesh.combine``) gives every rank every
+answer.
 """
 
 from __future__ import annotations
@@ -33,7 +42,8 @@ import torch
 
 from p2pnetwork_tpu_torch.ops import extremum as X
 from p2pnetwork_tpu_torch.ops import segment
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh as M
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 __all__ = [
     "DEFAULT_LANE_BUDGET_BYTES",
@@ -161,8 +171,8 @@ def propagate_min_plus_lanes(graph: Graph, dist: torch.Tensor,
                 "method='gather' on a weighted graph needs the aligned "
                 "neighbor_weight view — build with from_edges(weights=...)"
                 " or Graph.with_weights, or use method='segment'")
-        out = torch.full(dist.shape, ident, dtype=torch.int32,
-                         device=dist.device)
+        out = torch.full(M.owned(graph, dist, 0).shape, ident,
+                         dtype=torch.int32, device=dist.device)
         for d in range(graph.neighbors.shape[1]):
             w = graph.neighbor_weight[:, d, None] if weighted else 1.0
             keys = X.encode(dist[graph.neighbors[:, d]] + w, False)
@@ -175,9 +185,11 @@ def propagate_min_plus_lanes(graph: Graph, dist: torch.Tensor,
         out = torch.full(dist.shape, ident, dtype=torch.int32,
                          device=dist.device)
         index = graph.receivers.long()[:, None].expand(keys.shape)
-        out.scatter_reduce_(0, index, keys, reduce="amin")
-    out = torch.where(graph.node_mask[:, None], out, ident)
-    return X.decode(out, torch.float32, False)
+        out = M.owned(graph, out.scatter_reduce_(0, index, keys,
+                                                 reduce="amin"), 0)
+    out = torch.where(M.owned(graph, graph.node_mask)[:, None], out,
+                      ident)
+    return M.assembled(graph, X.decode(out, torch.float32, False), 0)
 
 
 def propagate_sum_lanes(graph: Graph, vals: torch.Tensor,
@@ -187,15 +199,17 @@ def propagate_sum_lanes(graph: Graph, vals: torch.Tensor,
     columns (receiver-sorted edge order) from zero, term by term."""
     method = _lane_method(graph, method, "propagate_sum_lanes")
     if method == "gather":
-        out = torch.zeros_like(vals)
+        out = torch.zeros_like(M.owned(graph, vals, 0))
         for d in range(graph.neighbors.shape[1]):
             out = out + torch.where(graph.neighbor_mask[:, d, None],
                                     vals[graph.neighbors[:, d]], 0.0)
     else:
         contrib = torch.where(graph.edge_mask[:, None], vals[graph.senders],
                               0.0)
-        out = torch.zeros_like(vals).index_add_(0, graph.receivers, contrib)
-    return out * graph.node_mask.to(vals.dtype)[:, None]
+        out = M.owned(graph, torch.zeros_like(vals).index_add_(
+            0, graph.receivers, contrib), 0)
+    return M.assembled(graph, out * M.owned(
+        graph, graph.node_mask).to(vals.dtype)[:, None], 0)
 
 
 #: Distance of a masked DHT hop candidate: above any real distance.
@@ -232,7 +246,11 @@ def dht_hop_lanes(graph: Graph, cur: torch.Tensor, keys: torch.Tensor,
         raise ValueError(
             f"unknown DHT metric {metric!r} — one of {DHT_METRICS}")
     n = graph.n_nodes
+    part = part_of(graph)
     cur_l = cur.long()
+    if part is not None:  # the owned cursors, from the rank's own rows
+        owns = (cur_l >= part.lo) & (cur_l < part.hi)
+        cur_l = torch.where(owns, cur_l - part.lo, 0)
     nbrs = graph.neighbors[cur_l]                     # i32[K, D]
     valid = graph.neighbor_mask[cur_l] & graph.node_mask[nbrs.long()]
     d_nbr = torch.where(valid, dht_distance(nbrs, keys[:, None], n, metric),
@@ -242,4 +260,9 @@ def dht_hop_lanes(graph: Graph, cur: torch.Tensor, keys: torch.Tensor,
     best = d_nbr.gather(1, slot[:, None])[:, 0]
     hopped = best < d_cur
     nxt = nbrs.gather(1, slot[:, None])[:, 0]
+    if part is not None:  # each cursor's owner answers it, 0 elsewhere
+        ans = torch.where(owns, torch.stack([nxt, hopped.to(torch.int32)]),
+                          0)
+        nxt, hopped = M.combine(part, ans, "sum")
+        hopped = hopped.to(torch.bool)
     return torch.where(hopped, nxt, cur), hopped

@@ -43,10 +43,12 @@ On a rank's part of a graph (``sim/graph.py`` ``GraphPart``, the
 auto-sharded path across ranks of ``parallel/auto.py``) every aggregation
 is owner-computes, through the same code: the method computes the owned
 slice ``[lo, hi)`` from the rank's own edges (``pallas`` and ``hybrid``
-launch the segment-sum kernel on the rank's own blocks; ``_owned``), and
-one ``parallel/mesh.py`` ``assemble`` makes the whole result on every
-rank (``_assembled``). Every method but ``frontier`` runs there; ``auto``
-decides on the whole graph, so every rank takes the same method.
+launch the segment-sum kernel on the rank's own blocks;
+``parallel/mesh.py`` ``owned``), and one ``assemble`` makes the whole
+result on every rank (``mesh.assembled``). Every method runs there:
+``auto`` decides on the whole graph, and so does ``frontier``'s budget
+(``ops/frontier.py``), so every rank takes the same method and the same
+branch.
 """
 
 from __future__ import annotations
@@ -119,33 +121,10 @@ def _resolve(graph: Graph, method: str) -> str:
     return method
 
 
-def _owned(graph: Graph, full: torch.Tensor) -> torch.Tensor:
-    """The nodes this process aggregates of a whole ``[..., N_pad]``
-    tensor: all of them, or on a rank's part the owned ``[lo, hi)``."""
-    part = part_of(graph)
-    return full if part is None else full[..., part.lo:part.hi]
-
-
-def _assembled(graph: Graph, out: torch.Tensor) -> torch.Tensor:
-    """The whole result from ``out``, of :func:`_owned`'s extent: on a
-    rank's part every rank's owned slice, assembled in one exchange."""
-    part = part_of(graph)
-    return out if part is None else M.assemble(part, out)
-
-
 def _lo(graph: Graph) -> int:
-    """The first node :func:`_owned` keeps."""
+    """The first node ``parallel/mesh.py`` ``owned`` keeps."""
     part = part_of(graph)
     return 0 if part is None else part.lo
-
-
-def _frontier(graph: Graph, name: str) -> None:
-    """``method="frontier"`` is refused on a rank's part."""
-    if part_of(graph) is not None:
-        raise NotImplementedError(
-            f"{name}(method='frontier') on a rank's part: the sparse "
-            f"source-CSR round is queued in ROADMAP.md, section A; use "
-            f"'auto' or a dense method")
 
 
 def _static(graph: Graph) -> Graph:
@@ -183,17 +162,16 @@ def propagate_or(graph: Graph, signal: torch.Tensor, method: str = "auto",
                              frontier_crossover=frontier_crossover)
                 | _dynamic_or(graph, signal))
     if method == "frontier":
-        _frontier(graph, "propagate_or")
         return FR.propagate_or_frontier(
             graph, signal, lambda sig: propagate_or(graph, sig, "auto"),
             crossover=frontier_crossover)
     method = _resolve(graph, method)
-    nmask = _owned(graph, graph.node_mask)
+    nmask = M.owned(graph, graph.node_mask)
     if method == "gather":
         vals = signal[graph.neighbors] & graph.neighbor_mask
         out = vals.any(dim=1) & nmask
     elif method == "skew":
-        out = _owned(graph, SK.or_skew(graph.skew, signal,
+        out = M.owned(graph, SK.or_skew(graph.skew, signal,
                                        graph.n_nodes_padded)) & nmask
     elif method == "blocked":
         out = B.propagate_or_blocked(graph.blocked, signal, nmask)
@@ -208,8 +186,8 @@ def propagate_or(graph: Graph, signal: torch.Tensor, method: str = "auto",
         agg = torch.zeros(graph.n_nodes_padded, dtype=torch.int32,
                           device=signal.device)
         agg.index_add_(0, graph.receivers, contrib)
-        out = (_owned(graph, agg) > 0) & nmask
-    return _assembled(graph, out)
+        out = (M.owned(graph, agg) > 0) & nmask
+    return M.assembled(graph, out)
 
 
 def _dynamic_or_lanes(graph: Graph, lanes: torch.Tensor) -> torch.Tensor:
@@ -250,7 +228,6 @@ def propagate_or_lanes(graph: Graph, lanes: torch.Tensor,
                                    frontier_crossover=frontier_crossover)
                 | _dynamic_or_lanes(graph, lanes))
     if method == "frontier":
-        _frontier(graph, "propagate_or_lanes")
         return FR.propagate_or_lanes_frontier(
             graph, lanes, lambda ln: propagate_or_lanes(graph, ln, "auto"),
             crossover=frontier_crossover)
@@ -258,7 +235,7 @@ def propagate_or_lanes(graph: Graph, lanes: torch.Tensor,
         method = "gather" if _gather_ok(graph) else "segment"
     if method == "gather":
         _require_complete_table(graph)
-        out = torch.zeros_like(_owned(graph, lanes))
+        out = torch.zeros_like(M.owned(graph, lanes))
         for d in range(graph.neighbors.shape[1]):
             out |= torch.where(graph.neighbor_mask[:, d],
                                lanes[:, graph.neighbors[:, d]], 0)
@@ -267,14 +244,14 @@ def propagate_or_lanes(graph: Graph, lanes: torch.Tensor,
         # The widest receiver run: a live node's in-degree, plus the
         # padding slots that all name the last padded node.
         span = graph.max_in_span + graph.n_edges_padded - graph.n_edges
-        out = _owned(graph, BS.or_sorted_lanes(
+        out = M.owned(graph, BS.or_sorted_lanes(
             graph.n_nodes_padded, graph.receivers, contrib, span))
     else:
         raise ValueError(
             f"propagate_or_lanes supports method 'segment', 'gather', "
             f"'frontier' or 'auto', got {method!r} (the skew/MXU lowerings "
             f"have no word-level form)")
-    return _assembled(graph, torch.where(_owned(graph, graph.node_mask),
+    return M.assembled(graph, torch.where(M.owned(graph, graph.node_mask),
                                          out, 0))
 
 
@@ -294,13 +271,13 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
         return (propagate_sum(_static(graph), signal, method)
                 + _dynamic_sum(graph, signal))
     method = _resolve(graph, method)
-    nmask = _owned(graph, graph.node_mask)
+    nmask = M.owned(graph, graph.node_mask)
     fmask = nmask.to(signal.dtype)
     if method == "gather":
         out = RS.gather_row_sum(signal, graph.neighbors,
                                 graph.neighbor_mask) * fmask
     elif method == "skew":
-        out = _owned(graph, SK.sum_skew(graph.skew, signal,
+        out = M.owned(graph, SK.sum_skew(graph.skew, signal,
                                         graph.n_nodes_padded)) * fmask
     elif method == "blocked":
         out = B.propagate_sum_blocked(graph.blocked, signal, nmask)
@@ -315,8 +292,8 @@ def propagate_sum(graph: Graph, signal: torch.Tensor,
         agg = torch.zeros(graph.n_nodes_padded, dtype=signal.dtype,
                           device=signal.device)
         agg.index_add_(0, graph.receivers, contrib)
-        out = _owned(graph, agg) * fmask
-    return _assembled(graph, out)
+        out = M.owned(graph, agg) * fmask
+    return M.assembled(graph, out)
 
 
 def neutral_min(dtype):
@@ -370,26 +347,26 @@ def propagate_max(graph: Graph, signal: torch.Tensor, method: str = "auto",
                         signal.dtype, True)
     neutral = neutral_min(signal.dtype)
     if method == "frontier":
-        _frontier(graph, "propagate_max")
         return FR.propagate_max_frontier(
             graph, signal, neutral,
             lambda sig: propagate_max(graph, sig, "auto"),
             crossover=frontier_crossover)
     method = _semiring_method(graph, method, "max")
-    nmask = _owned(graph, graph.node_mask)
+    nmask = M.owned(graph, graph.node_mask)
     if method == "skew":
-        return _assembled(graph, torch.where(nmask, _owned(graph, SK.max_skew(
-            graph.skew, signal, graph.n_nodes_padded)), neutral))
+        return M.assembled(graph, torch.where(nmask, M.owned(
+            graph, SK.max_skew(graph.skew, signal, graph.n_nodes_padded)),
+            neutral))
     ident = X.identity(signal.dtype, True)
     keys = X.encode(signal, True)
     if method == "gather":
         agg = X.rows(torch.where(graph.neighbor_mask, keys[graph.neighbors],
                                  ident), True)
     else:
-        agg = _owned(graph, X.scatter(
+        agg = M.owned(graph, X.scatter(
             torch.where(graph.edge_mask, keys[graph.senders], ident),
             graph.receivers, graph.n_nodes_padded, ident, True))
-    return _assembled(graph, X.decode(torch.where(nmask, agg, ident),
+    return M.assembled(graph, X.decode(torch.where(nmask, agg, ident),
                                       signal.dtype, True))
 
 
@@ -425,7 +402,6 @@ def propagate_min_plus(graph: Graph, dist: torch.Tensor,
                                       _dynamic_min_plus(graph, dist)),
                         dist.dtype, False)
     if method == "frontier":
-        _frontier(graph, "propagate_min_plus")
         return FR.propagate_min_plus_frontier(
             graph, dist, lambda d: propagate_min_plus(graph, d, "auto"),
             crossover=frontier_crossover)
@@ -437,7 +413,7 @@ def propagate_min_plus(graph: Graph, dist: torch.Tensor,
         if method == "skew" and weighted and graph.skew.weight is None:
             method = "segment"
     method = _semiring_method(graph, method, "min")
-    nmask = _owned(graph, graph.node_mask)
+    nmask = M.owned(graph, graph.node_mask)
     ident = X.identity(dist.dtype, False)
     if method == "gather":
         if weighted and graph.neighbor_weight is None:
@@ -455,15 +431,15 @@ def propagate_min_plus(graph: Graph, dist: torch.Tensor,
                 "weight view — build via from_edges(weights=..., "
                 "skew_table=True) or Graph.with_weights, or use "
                 "method='segment'")
-        return _assembled(graph, torch.where(nmask, _owned(
+        return M.assembled(graph, torch.where(nmask, M.owned(
             graph, SK.min_plus_skew(graph.skew, dist, graph.n_nodes_padded)),
             torch.inf))
     else:
         w = graph.edge_weight if weighted else 1.0
-        agg = _owned(graph, X.scatter(torch.where(graph.edge_mask, X.encode(
+        agg = M.owned(graph, X.scatter(torch.where(graph.edge_mask, X.encode(
             dist[graph.senders] + w, False), ident),
             graph.receivers, graph.n_nodes_padded, ident, False))
-    return _assembled(graph, X.decode(torch.where(nmask, agg, ident),
+    return M.assembled(graph, X.decode(torch.where(nmask, agg, ident),
                                       dist.dtype, False))
 
 

@@ -22,11 +22,16 @@ owner-computes:
   branches and makes the same exchanges in the same order.
 
 ``run_auto`` is ``engine.run`` either way, as the reference's is, and
-``engine.run_until_coverage``/``run_until_converged`` take a part too,
-for the twelve protocols held to the reference's auto path (those with
-``RUNS_ON_PART``). Refused across ranks, each by name and queued in
-ROADMAP.md: a ``multihost.Mesh2D``, the dynamic edge region,
-``method="frontier"``, and every other protocol (``sim/engine.py``).
+``engine.run_until_coverage``/``run_until_converged`` and the batch and
+query loops take a part too, for the 23 protocols held to the
+reference's auto path (those with ``RUNS_ON_PART``), by every method,
+``frontier`` included: its budget, like the adaptive wave's slice width
+and work items, is decided on the whole graph's rows (``sim/graph.py``
+``Part``), so every rank takes the same branch. Refused across ranks,
+each by name and queued in ROADMAP.md: a ``multihost.Mesh2D``, the
+dynamic edge region, and every other protocol (``sim/engine.py``: the
+walks, Plumtree, the failure detector, anti-entropy, Vivaldi and the
+rest).
 
 The port keeps the reference's backend names so that call sites carry
 over, with these meanings:
@@ -51,11 +56,11 @@ COMM_BACKENDS = ("ppermute", "pallas")
 
 
 def resolve_comm(comm: str = "auto", device=None) -> str:
-    """The backend ``comm`` names on ``device``; raises on an unknown
-    name."""
+    """The backend ``comm`` names on ``device`` (the card unless named, as
+    ``_device.resolve`` defaults); raises on an unknown name."""
     if comm == "auto":
-        return "pallas" if torch.device(device or "cpu").type == "cuda" \
-            else "ppermute"
+        dev = torch.device("cuda" if device is None else device)
+        return "pallas" if dev.type == "cuda" else "ppermute"
     if comm not in COMM_BACKENDS:
         raise ValueError(
             f"comm must be one of {COMM_BACKENDS + ('auto',)}, got {comm!r}")

@@ -33,6 +33,7 @@ from typing import Optional, Tuple
 import torch
 
 from p2pnetwork_tpu_torch import _device
+from p2pnetwork_tpu_torch.sim.graph import part_of
 
 DEFAULT_AXIS = "shards"
 
@@ -203,16 +204,35 @@ def _gathered(mesh: RingMesh, x: torch.Tensor, rows: int) -> torch.Tensor:
     return slab[:mesh.n_shards].reshape((-1,) + x.shape[2:])
 
 
-def assemble(part, owned: torch.Tensor) -> torch.Tensor:
-    """The whole ``[..., N_pad]`` result on every rank from every rank's
-    owned slice ``owned [..., hi - lo]`` (``part``: a
-    ``sim/graph.py`` ``Part``): one exchange, the slice viewed as the
-    rank's ``[n_local, N_pad / S, ...]`` shards through ``ring_gather``.
-    Every owned slice has one author, so every rank gets the same bits.
-    The result is a copy (the gather's view is not kept)."""
-    whole = _gathered(part.mesh, owned.movedim(-1, 0), part.block)
-    return whole[:part.n_pad].movedim(0, -1).clone(
+def assemble(part, owned: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The whole result, ``N_pad`` along ``axis`` (the last by default;
+    0 for the node-major ``[N_pad, K]`` query lanes), on every rank from
+    every rank's owned slice ``owned``, ``hi - lo`` along ``axis``
+    (``part``: a ``sim/graph.py`` ``Part``): one exchange, the slice
+    viewed as the rank's ``[n_local, N_pad / S, ...]`` shards through
+    ``ring_gather``. Every owned slice has one author, so every rank gets
+    the same bits. The result is a copy (the gather's view is not
+    kept)."""
+    whole = _gathered(part.mesh, owned.movedim(axis, 0), part.block)
+    return whole[:part.n_pad].movedim(0, axis).clone(
         memory_format=torch.contiguous_format)
+
+
+def owned(graph, full: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The nodes this process aggregates of a whole tensor, ``N_pad``
+    along ``axis``: all of them, or on a rank's part of a graph
+    (``sim/graph.py`` ``GraphPart``) the owned ``[lo, hi)``."""
+    part = part_of(graph)
+    return full if part is None else full.narrow(axis, part.lo,
+                                                  part.hi - part.lo)
+
+
+def assembled(graph, out: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The whole result from ``out``, of :func:`owned`'s extent along
+    ``axis``: on a rank's part every rank's owned slice, assembled in one
+    exchange (:func:`assemble`)."""
+    part = part_of(graph)
+    return out if part is None else assemble(part, out, axis)
 
 
 def combine(part, partial: torch.Tensor, fold: str) -> torch.Tensor:

@@ -59,9 +59,12 @@ without it.
 
 Every entry point takes a rank's part of a graph (``parallel/auto.py``'s
 auto path across ranks) only for a protocol that says it runs there
-(``RUNS_ON_PART``: the twelve held to the reference's auto path). Any
-other protocol may read edge arrays past the op layer, which on a part
-would see the rank's edges alone, so it is refused by name.
+(``RUNS_ON_PART``: the 23 held to the reference's auto path or to its
+loops, among them the adaptive wave, the batched flood and the query
+families). Any other protocol (the walks, Plumtree, the failure
+detector, anti-entropy, Vivaldi and the rest) may read edge arrays or
+the neighbor table past the op layer, which on a part would see the
+rank's edges alone, so it is refused by name.
 """
 
 from __future__ import annotations

@@ -1298,7 +1298,16 @@ class Part:
     graph's receiver-sorted edges, the whole graph's edge slots
     ``n_edges_padded``, ``auto``'s choice of the neighbor table on the
     whole graph (``gather_ok``), and the rank ``mesh`` the exchanges go
-    through."""
+    through.
+
+    What every rank must decide from the whole graph's source-CSR view
+    (the frontier budget, the adaptive flood's slice width and work
+    items) it reads here: ``max_out_span``, the widest whole row, and
+    two node-extent ``i32[N_pad]`` fields (None without the view):
+    ``row_len``, each sender's whole row length, and ``row_lo``, where
+    the sender's owned run begins in that row. The rank's own row of a
+    sender (its ``src_offsets``) is that run: its edges are one
+    contiguous run of the whole row (:func:`graph_part`)."""
 
     lo: int
     hi: int
@@ -1308,6 +1317,11 @@ class Part:
     n_edges_padded: int
     gather_ok: bool
     mesh: object = dataclasses.field(compare=False, repr=False)
+    max_out_span: int = 0
+    row_len: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    row_lo: Optional[torch.Tensor] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1334,6 +1348,38 @@ def edge_slots(graph) -> int:
     """The whole graph's padded edge count (a part's too)."""
     part = part_of(graph)
     return graph.n_edges_padded if part is None else part.n_edges_padded
+
+
+def out_span(graph) -> int:
+    """The whole graph's widest source-CSR row (a part's too)."""
+    part = part_of(graph)
+    return graph.max_out_span if part is None else part.max_out_span
+
+
+def row_lengths(graph, nodes: torch.Tensor) -> torch.Tensor:
+    """The whole graph's source-CSR row length of each of ``nodes`` (a
+    part's too)."""
+    part = part_of(graph)
+    if part is None:
+        return graph.src_offsets[nodes + 1] - graph.src_offsets[nodes]
+    return part.row_len[nodes]
+
+
+def row_slots(graph, nodes: torch.Tensor, first: torch.Tensor, width: int):
+    """``(eid, valid)``, ``[K, width]``: the slots at positions ``first +
+    j`` (``j < width``) of each of ``nodes``' whole source-CSR rows. On a
+    part only those of the rank's own run of the row are valid, and
+    ``eid`` counts in the rank's own edges."""
+    begin, end = graph.src_offsets[nodes], graph.src_offsets[nodes + 1]
+    part = part_of(graph)
+    if part is None:
+        return graph.gather_row_slots(begin + first, end, width)
+    start = begin + first - part.row_lo[nodes]
+    slot = start[:, None] + torch.arange(width, device=start.device)
+    valid = (slot >= begin[:, None]) & (slot < end[:, None])
+    eid = graph.src_eid[torch.where(valid, slot,
+                                    graph.n_edges_padded - 1)]
+    return eid, valid
 
 
 def graph_part(graph: Graph, mesh) -> GraphPart:
@@ -1378,10 +1424,10 @@ def graph_part(graph: Graph, mesh) -> GraphPart:
     for name in ("neighbors", "neighbor_mask", "neighbor_weight"):
         t = getattr(graph, name)
         host[name] = None if t is None else _host(t[lo:hi])
-    max_out_span = 0
+    max_out_span, csr_rows = 0, {}
     if graph.src_eid is not None:
-        host["src_eid"], host["src_offsets"], max_out_span = \
-            _build_source_csr(s, emask, n_pad, e_pad)
+        host["src_eid"], host["src_offsets"], max_out_span, csr_rows = \
+            _csr_part(graph, e_lo, e_hi, e_pad, dev)
     live_s, live_r = s[emask], r[emask] - lo
 
     blocked = None
@@ -1426,7 +1472,34 @@ def graph_part(graph: Graph, mesh) -> GraphPart:
         skew=skew, max_out_span=max_out_span,
         part=Part(lo=lo, hi=hi, block=block, n_pad=n_pad, edge_lo=e_lo,
                   n_edges_padded=graph.n_edges_padded,
-                  gather_ok=segment._gather_ok(graph), mesh=mesh))
+                  gather_ok=segment._gather_ok(graph), mesh=mesh,
+                  max_out_span=graph.max_out_span, **csr_rows))
+
+
+def _csr_part(graph: Graph, e_lo: int, e_hi: int, e_pad: int, dev):
+    """The rank's source-CSR view, cut from the whole graph's: each row
+    keeps the entries of the owned edges ``[e_lo, e_hi)``, renumbered from
+    ``e_lo``. A whole row lists its edge ids in ascending order (the
+    stable sort by sender), so those entries are one contiguous run of
+    it. Returns ``(src_eid, src_offsets, max_out_span)`` of the part and
+    ``Part``'s ``row_len``/``row_lo``."""
+    offsets = _host(graph.src_offsets).astype(np.int64)
+    row_len = np.diff(offsets)
+    eid = _host(graph.src_eid)[:offsets[-1]]
+    sender = np.repeat(np.arange(row_len.shape[0]), row_len)
+    keep = (eid >= e_lo) & (eid < e_hi)
+    counts = np.bincount(sender[keep], minlength=row_len.shape[0])
+    own_eid = np.full(e_pad, e_pad - 1, dtype=np.int32)
+    own_eid[:counts.sum()] = eid[keep] - e_lo
+    own_off = np.zeros(row_len.shape[0] + 1, dtype=np.int32)
+    np.cumsum(counts, out=own_off[1:])
+    row_lo = np.bincount(sender[eid < e_lo], minlength=row_len.shape[0])
+
+    def dev_i32(a):
+        return torch.from_numpy(a.astype(np.int32)).to(dev)
+
+    return (own_eid, own_off, int(counts.max()) if counts.size else 0,
+            {"row_len": dev_i32(row_len), "row_lo": dev_i32(row_lo)})
 
 
 def _skew_part(t, lo: int, hi: int, e_lo: int, e_pad: int, cls, dev):

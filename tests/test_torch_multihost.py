@@ -38,7 +38,7 @@ from p2pnetwork_tpu.parallel import sharded as JS  # noqa: E402
 from p2pnetwork_tpu.sim import engine as JE  # noqa: E402
 from p2pnetwork_tpu.sim import graph as JG  # noqa: E402
 from p2pnetwork_tpu_torch import prng  # noqa: E402
-from p2pnetwork_tpu_torch.models import Flood  # noqa: E402
+from p2pnetwork_tpu_torch.models import AntiEntropy, Flood  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import auto as TA  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import mesh as TM  # noqa: E402
 from p2pnetwork_tpu_torch.parallel import multihost  # noqa: E402
@@ -263,9 +263,10 @@ def _rank_part(**kw):
 # The adaptive loop, the recorder and a fault-spec comm, once refused
 # here, run across ranks: tests/test_torch_multihost_adaptive.py holds
 # them to the JAX ring and the one-process port. The auto-sharded path
-# runs across ranks too (tests/test_torch_auto_ranks.py); what it still
-# refuses is held here: a graph with a dynamic edge region, a 2-D mesh
-# over ranks and the frontier method on a part.
+# runs across ranks too (tests/test_torch_auto_ranks.py), the frontier
+# method included; what it still refuses is held here: a graph with a
+# dynamic edge region, a 2-D mesh over ranks and a protocol that reads
+# the neighbor table past the op layer (anti-entropy).
 REFUSALS = {
     "auto": lambda: TA.shard_graph_auto(
         topology.with_capacity(_rank_part()[2], 8), _rank_part()[1]),
@@ -273,9 +274,9 @@ REFUSALS = {
         _rank_part()[2], multihost.Mesh2D(
             grid=np.arange(S).reshape(2, S // 2), axis_names=("dcn", "ici"),
             ring=_rank_part()[1]), axis_name="ici"),
-    "auto-frontier": lambda: TA.run_auto(
+    "auto-antientropy": lambda: TA.run_auto(
         TA.shard_graph_auto(_rank_part()[2], _rank_part()[1]),
-        Flood(source=0, method="frontier"), prng.key(0), 1),
+        AntiEntropy(), prng.key(0), 1),
 }
 
 

@@ -4,9 +4,11 @@ auto-parity cases (``parallel/auto.py``'s ``shard_graph_auto`` and
 ``parallel/multihost.launch``. It imports torch and the port only.
 
 Each rank returns every case's final state (replicated: the test holds
-every rank's bits equal), its stats, the exchanges it made (counted in
-``parallel/mesh.EXCHANGES``) and the payload of each (recorded from
-``ops/ring.ring_gather_plain``, which the CPU path runs).
+every rank's bits equal), its stats (or its loop's summary), the
+exchanges it made (counted in ``parallel/mesh.EXCHANGES``), the payload
+of each (recorded from ``ops/ring.ring_gather_plain``, which the CPU path
+runs) and the sparse and dense rounds of the frontier lowerings
+(``ops/frontier.ROUNDS``).
 """
 
 import numpy as np
@@ -55,6 +57,56 @@ CASES = {
         ("SIR", {"beta": 0.3, "gamma": 0.1, "method": "hybrid-blocked"}),
         6, 0),
 }
+#: The protocols that read the op layer, the adaptive wave (``k`` small
+#: enough that it runs sparse and overflows ``k``), the frontier
+#: lowering, the batched flood and the query families, on graphs of the
+#: reference's tests' sizes. Those named in ``LOOPS`` run through their
+#: loop (``max_rounds`` in the rounds column) from the batch ``LOOPS``
+#: makes.
+WS_CSR = ("watts_strogatz", (4096, 6, 0.2),
+          {"seed": 0, "hybrid": True, "source_csr": True})
+CASES.update({
+    "adaptive_flood": (WS_CSR, ("AdaptiveFlood", {
+        "source": 0, "method": "hybrid", "k": 32}), 8, 0),
+    "adaptive_hop": (WS_CSR, ("AdaptiveHopDistance", {
+        "source": 0, "method": "hybrid", "k": 32}), 8, 0),
+    "flood_frontier": (WS_CSR, ("Flood", {"source": 0,
+                                          "method": "frontier"}), 8, 0),
+    "hopdist": (WS512, ("HopDistance", {"source": 0,
+                                        "method": "segment"}), 6, 0),
+    "leader": (WS512, ("LeaderElection", {"method": "gather"}), 6, 0),
+    "pagerank": (WS512, ("PageRank", {"method": "segment"}), 8, 0),
+    "pushsum": (WS512, ("PushSum", {"method": "segment"}), 8, 0),
+    "spanning": (WS512, ("SpanningTree", {"source": 0,
+                                          "method": "gather"}), 6, 0),
+    "batch_flood": (WS_CSR, ("BatchFlood", {"method": "frontier"}), 64, 0),
+    "minplus": (("ws_latency", (512, 3), {}),
+                ("MinPlusQueries", {"method": "auto"}), 256, 0),
+    "pushsum_queries": (WS512, ("PushSumQueries", {"method": "auto"}), 512,
+                        0),
+    "dht": (("chord", (1000,), {}), ("DhtLookups", {"metric": "ring"}), 128,
+            0),
+})
+
+
+def _draws(n: int, *sizes: int) -> list:
+    """Seeded node ids in ``[0, n)``, one i32 array a size."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, n, k).astype(np.int32) for k in sizes]
+
+
+#: The loop and the batch of each loop case: ``(loop, init(n_nodes) ->
+#: (args, kwargs))``, ``loop`` ``"batch"`` (``run_batch_until_coverage``)
+#: or ``"queries"`` (``run_queries_until_done``).
+LOOPS = {
+    "batch_flood": ("batch", lambda n: (_draws(n, 40), {})),
+    "minplus": ("queries", lambda n: (_draws(n, 16, 16), {})),
+    "pushsum_queries": ("queries", lambda n: (
+        [(np.arange(6) * 7 + 1).astype(np.int32)],
+        {"threshold": 1e-4, "capacity": 8})),
+    "dht": ("queries", lambda n: (_draws(n, 200, 200), {})),
+}
+
 #: The flood under the kernel methods (B1 on the rank's own blocks;
 #: its plain version on the CPU), on the hybrid-blocked case's graph with
 #: the blocked layout too.
@@ -66,13 +118,22 @@ KERNEL_GRAPH = ("watts_strogatz", (4096, 6, 0.2),
                 {"seed": 0, "hybrid": True, "blocked": True})
 #: What world 4 runs: the flood family and SIR.
 FLOOD_FAMILY = ("flood", "sir", "skew_flood", "flood_hybrid_blocked",
-                "sir_hybrid_blocked", "flood_hybrid", "flood_pallas")
+                "sir_hybrid_blocked", "flood_hybrid", "flood_pallas",
+                "adaptive_flood")
 
 
 def ws_weighted_costs(s, r):
     """The reference's ``tests/test_routing.py::_ws_weighted`` link costs
     (deterministic, from the edge endpoints)."""
     return 0.25 + ((s * 7919 + r * 104729) % 97) / 50.0
+
+
+def latency_costs(s, r):
+    """The ladder's id-hash link latency (``benchmarks/ladder.py``
+    ``bench_routing``): multiples of 1/1024, the same f32 in either
+    package."""
+    h = s.astype(np.uint32) * np.uint32(2654435761) + r.astype(np.uint32)
+    return 1.0 + (h % 2048).astype(np.float32) / 1024.0
 
 
 def build(G, spec, **kw):
@@ -83,6 +144,10 @@ def build(G, spec, **kw):
         n, seed = args
         return G.watts_strogatz(n, 4, 0.2, seed=seed, **kw).with_weights(
             ws_weighted_costs)
+    if kind == "ws_latency":
+        n, seed = args
+        return G.watts_strogatz(n, 6, 0.2, seed=seed, **kw).with_weights(
+            latency_costs)
     return getattr(G, kind)(*args, **extra, **kw)
 
 
@@ -97,20 +162,51 @@ def case(name: str):
 
 
 def state_np(state) -> dict:
-    """A protocol state's fields as numpy arrays."""
+    """A protocol state's fields as numpy arrays (a batch's ``payload``
+    dict as ``payload.<name>``)."""
     import dataclasses
 
-    return {f.name: getattr(state, f.name).cpu().numpy()
-            for f in dataclasses.fields(state)}
+    out = {}
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if isinstance(v, dict):
+            out.update({f"{f.name}.{k}": np.asarray(x.cpu())
+                        for k, x in v.items()})
+        else:
+            out[f.name] = v.cpu().numpy()
+    return out
+
+
+def protocol(models, cls: str, kw: dict):
+    """Protocol ``cls`` of a package's ``models`` (its batch and query
+    families from their modules)."""
+    import importlib
+
+    for mod in ("", ".messagebatch", ".querybatch"):
+        m = importlib.import_module(models.__name__ + mod)
+        if hasattr(m, cls):
+            return getattr(m, cls)(**kw)
+    raise AttributeError(cls)
 
 
 def run_case(name: str, g, models, run_auto, prng) -> tuple:
     """``(state fields, stats)`` of case ``name`` on ``g`` (a whole graph
-    or a part)."""
+    or a part): its loop's summary for the cases of ``LOOPS``."""
+    from p2pnetwork_tpu_torch.sim import engine
+
     _, (cls, kw), rounds, key = case(name)
-    proto = getattr(models, cls)(**kw)
-    state, stats = run_auto(g, proto, prng.key(key), rounds)
-    return state_np(state), {k: v.numpy() for k, v in stats.items()}
+    proto = protocol(models, cls, kw)
+    if name not in LOOPS:
+        state, stats = run_auto(g, proto, prng.key(key), rounds)
+        return state_np(state), {k: v.numpy() for k, v in stats.items()}
+    loop, init = LOOPS[name]
+    args, kwargs = init(g.n_nodes)
+    run = (engine.run_batch_until_coverage if loop == "batch"
+           else engine.run_queries_until_done)
+    state, out = run(g, proto, proto.init(g, *args, **kwargs),
+                     prng.key(key), max_rounds=rounds)
+    return state_np(state), {k: np.asarray(v.cpu() if isinstance(
+        v, torch.Tensor) else v) for k, v in out.items()}
 
 
 def auto_runs(n_shards: int, names: tuple, device: str = "cpu") -> dict:
@@ -118,7 +214,7 @@ def auto_runs(n_shards: int, names: tuple, device: str = "cpu") -> dict:
     ``n_shards`` shards: its state, stats, exchanges and payloads."""
     torch.set_num_threads(1)
     from p2pnetwork_tpu_torch import models, prng
-    from p2pnetwork_tpu_torch.ops import ring
+    from p2pnetwork_tpu_torch.ops import frontier, ring
     from p2pnetwork_tpu_torch.parallel import auto, mesh as M, multihost
     from p2pnetwork_tpu_torch.sim import graph as G
 
@@ -140,10 +236,12 @@ def auto_runs(n_shards: int, names: tuple, device: str = "cpu") -> dict:
                                      mesh)
         assert G.part_of(part) is not None
         before, payloads[:] = M.EXCHANGES, []
+        frontier.ROUNDS.update(sparse=0, dense=0)
         state, stats = run_case(name, part, models, auto.run_auto, prng)
         out["runs"][name] = {"state": state, "stats": stats,
                              "exchanges": M.EXCHANGES - before,
                              "payloads": list(payloads),
+                             "frontier_rounds": dict(frontier.ROUNDS),
                              "n_pad": part.n_nodes_padded,
                              "block": part.part.block}
     ring.ring_gather_plain = plain
@@ -164,7 +262,14 @@ OP_METHODS = {
     "max": ("segment", "gather", "skew", "auto"),
     "min_plus": ("segment", "gather", "skew", "auto"),
     "or_lanes": ("segment", "gather", "auto"),
+    "min_plus_lanes": ("segment", "gather", "auto"),
+    "sum_lanes": ("segment", "gather", "auto"),
+    "dht": ("ring", "xor"),
 }
+#: The ops that take ``method="frontier"``: each run on its ``op_signals``
+#: input and on a sparse one (``sparse_signals``), so that both branches
+#: run.
+FRONTIER_OPS = ("or", "max", "min_plus", "or_lanes")
 
 
 def ops_graph(G, device="cpu"):
@@ -179,30 +284,68 @@ def op_signals(n_pad: int) -> dict:
     rng = np.random.default_rng(5)
     dist = rng.uniform(0, 8, n_pad).astype(np.float32)
     dist[rng.random(n_pad) < 0.3] = np.inf
+    lane_dist = rng.uniform(0, 8, (n_pad, 4)).astype(np.float32)
+    lane_dist[rng.random(lane_dist.shape) < 0.5] = np.inf
     return {"or": rng.random(n_pad) < 0.2,
             "sum": (rng.random(n_pad) < 0.5).astype(np.float32),
             "sum_i32": rng.integers(0, 5, n_pad, dtype=np.int32),
             "max": rng.integers(-2**20, 2**20, n_pad, dtype=np.int32),
             "min_plus": dist,
             "or_lanes": rng.integers(-2**31, 2**31, (3, n_pad),
-                                     dtype=np.int64).astype(np.int32)}
+                                     dtype=np.int64).astype(np.int32),
+            "min_plus_lanes": lane_dist,
+            "sum_lanes": rng.standard_normal((n_pad, 4)).astype(np.float32),
+            "dht": rng.integers(0, n_pad, (2, 64)).astype(np.int32)}
+
+
+def sparse_signals(n_pad: int) -> dict:
+    """``FRONTIER_OPS``' inputs with 2% of the nodes active (the rest
+    false, the integer minimum, ``+inf``, zero words)."""
+    rng = np.random.default_rng(6)
+    on = rng.random(n_pad) < 0.02
+    dense = op_signals(n_pad)
+    return {"or": on,
+            "max": np.where(on, dense["max"], np.iinfo(np.int32).min).astype(
+                np.int32),
+            "min_plus": np.where(on, dense["min_plus"], np.inf).astype(
+                np.float32),
+            "or_lanes": np.where(on, dense["or_lanes"], 0).astype(np.int32)}
 
 
 def run_ops(g) -> dict:
     """Every ``(op, method)`` of ``OP_METHODS`` on ``g`` (whole or a
-    part), and one neighbor draw, as numpy."""
+    part); ``("frontier", op)`` for ``FRONTIER_OPS``: the results on both
+    inputs and the sparse and dense rounds taken; and one neighbor draw,
+    as numpy."""
     from p2pnetwork_tpu_torch import prng
     from p2pnetwork_tpu_torch.models import base
-    from p2pnetwork_tpu_torch.ops import segment
+    from p2pnetwork_tpu_torch.ops import frontier, lanes, segment
+
+    def dht(g, sig, metric):
+        return lanes.dht_hop_lanes(g, sig[0], sig[1], metric)
 
     fns = {"or": segment.propagate_or, "sum": segment.propagate_sum,
            "sum_i32": segment.propagate_sum, "max": segment.propagate_max,
            "min_plus": segment.propagate_min_plus,
-           "or_lanes": segment.propagate_or_lanes}
-    sig = {k: torch.from_numpy(v) for k, v in op_signals(
-        g.n_nodes_padded).items()}
-    out = {(op, m): fns[op](g, sig[op], m).numpy()
+           "or_lanes": segment.propagate_or_lanes,
+           "min_plus_lanes": lanes.propagate_min_plus_lanes,
+           "sum_lanes": lanes.propagate_sum_lanes, "dht": dht}
+    n_pad = g.n_nodes_padded
+    sig = {k: torch.from_numpy(v) for k, v in op_signals(n_pad).items()}
+    sparse = {k: torch.from_numpy(v) for k, v in sparse_signals(
+        n_pad).items()}
+
+    def as_np(x):
+        return tuple(t.numpy() for t in x) if isinstance(x, tuple) \
+            else x.numpy()
+
+    out = {(op, m): as_np(fns[op](g, sig[op], m))
            for op, methods in OP_METHODS.items() for m in methods}
+    for op in FRONTIER_OPS:
+        frontier.ROUNDS.update(sparse=0, dense=0)
+        got = [fns[op](g, x[op], "frontier").numpy() for x in (sig, sparse)]
+        out[("frontier", op)] = (*got, np.array(
+            [frontier.ROUNDS["sparse"], frontier.ROUNDS["dense"]]))
     out[("draw", "")] = tuple(
         t.numpy() for t in base.draw_neighbor_slot(g, prng.key(4)))
     return out
