@@ -366,15 +366,27 @@ Phases, in order; any failure exits non-zero before the result line:
    distance, 4f's PageRank and push-sum (``hybrid``), 4i's hop distance,
    election and spanning tree, 4j's B = 1,024 batched flood
    (``frontier``) and 4k's min-plus (K = 64), push-sum (K = 32) and
-   chord DHT (K = 2,048) queries on their graphs, against their expected
-   values. Every rank's final state bit-equal to rank 0's; each run's
-   gathers and B1 launches equal to its count of aggregations; on every
-   rank at both worlds, ``assemble`` (bool, f32, i32, the lanes' f32
+   chord DHT (K = 2,048) queries on their graphs, and (slice 21) 4l's
+   restarting walk at ``T = 32``, 4m's Plumtree broadcasts and tree
+   flood, 4n's detector, anti-entropy, Vivaldi, triangles with the wedge
+   sample, closeness and betweenness, 4i's ``color_via_mis`` and 4c's
+   churned graph (256 runtime slots, 64 links, 10,000 failed) under
+   ``segment`` and ``hybrid``, against their expected values; at world 8
+   also the ``hybrid`` flood on a ``mesh_2d(hosts=2)`` part (the ring's
+   host-major cut, so the same part and flood as world 8's ``hybrid``
+   run), with one round's bytes across hosts (``commviz.auto_hop_census``:
+   ``(W - W / H) * N_pad`` for its bool assemble, ``4 * N_pad`` here).
+   Every rank's final state bit-equal to rank 0's; each
+   run's gathers, B1 launches and (slice 21's) threefry draws equal to
+   its count of aggregations and draws; on every rank at both worlds,
+   ``assemble`` (bool, f32, i32, the lanes' f32 rows and the table's i32
    rows along axis 0) and ``combine`` (i32 with a trailing dim, the
-   DHT's answers) equal to ``ring_gather_plain``'s and B1 on the part's
-   remainder to its plain version (``auto_plain_check``). Rank 0's wall,
-   median of 3, beside the one-process wall of the same run in turns
-   (``auto-path`` lines; ``AUTO_PHASE_S``).
+   DHT's answers, the walk's i64 keys, bools, i64 sums) equal to
+   ``ring_gather_plain``'s and B1 on the part's remainder to its plain
+   version (``auto_plain_check``). Rank 0's wall, median of 3 (once for
+   the runs of ``AUTO_ONCE``, each over 1 s), beside the one-process
+   wall of the same run in turns (``auto-path`` lines;
+   ``AUTO_PHASE_S``).
 5. Result: a JSON line of kernel numbers (B1's OR launches summed over
    phases 4, 4c, 4b, 4i, 4n's closeness, 4o, 4p's floods, 4q's
    supervised flood, 4r's healed and faulted floods and 4s's nodes; B2's
@@ -398,8 +410,9 @@ Phases, in order; any failure exits non-zero before the result line:
    world, its B1 OR launches (with 4v's floods' and the traced flood's),
    corrupt-bit draws and lane gathers and row sums theirs; 4y's census
    runs add their B1, B3 and row-sum launches; 4z's B1 launches join
-   B1's OR and remainder-sum rows, its gathers the gather rows of their
-   world and payload), then the last line
+   B1's OR and remainder-sum rows, its threefry draws threefry's row,
+   its gathers the gather rows of their world and payload, the i64 ones
+   4v's world-2 i64 row), then the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device it exits 2 and prints no result.
@@ -6527,8 +6540,9 @@ def rank_payloads(mesh) -> list:
     bits = torch.randint(0, 1 << 20, (mesh.n_local, RING_BLOCK),
                          generator=gen, device="cuda", dtype=torch.int32)
     out = [("bool", bits % 2 == 1)]
-    if mesh.world == 2:
-        out += [("f32", bits.to(torch.float32)), ("i32", bits)]
+    if mesh.world == 2:  # i64: 4z's walk keys and edge-extent sums
+        out += [("f32", bits.to(torch.float32)), ("i32", bits),
+                ("i64", bits.to(torch.int64))]
     else:  # 4z's adaptive flood: its sparse rounds' claims
         out += [("i32", bits)]
     return out
@@ -7552,7 +7566,19 @@ AUTO_FLOODS = ("segment", "hybrid", "hybrid-blocked")
 AUTO_GATHER_ROWS = {(2, "bool"): "ring_gather", (8, "bool"): "ring_gather_w8",
                     (2, "float32"): "ring_gather_f32",
                     (2, "int32"): "ring_gather_i32",
-                    (8, "int32"): "ring_gather_w8_i32"}
+                    (8, "int32"): "ring_gather_w8_i32",
+                    (2, "int64"): "ring_gather_i64"}
+#: The runs (slice 21's) over 1 s on the card: timed once beside one
+#: process, not ``AUTO_REPS`` times.
+AUTO_ONCE = ("walk-restart-T32", "plumtree", "detector", "triangles")
+#: Phase 4z's hosts at world 8 (``mesh_2d(hosts=2)``, 4 ranks a host).
+AUTO_HOSTS = 2
+#: ``color_via_mis``'s Luby rounds over its 10 classes on phase 4's
+#: graph (phase 4i's 66 threefry launches, two a round).
+COLOR_MIS_ROUNDS = 33
+#: The BFS layers of closeness' 8 waves on phase 4's graph (phase 4n's B1
+#: launches); betweenness runs each layer forward and back.
+CLOSENESS_LAYERS = 107
 #: The dense rounds of phase 4's ``adaptive-1024`` flood (and of the
 #: adaptive hop distance's wave): B1's launches a run, the rest of its 11
 #: rounds sparse (phase 4's ``main-path`` line).
@@ -7593,6 +7619,10 @@ def _auto_runs(M, full: bool) -> list:
         source=0, method="hybrid", k=ADAPTIVE_K)), rounds(), (dense, "or"),
         none, lambda s, out, _: {"out": out, "seen": digest(s.seen)}))
     if not full:
+        # Slice 21: the hybrid flood on the rank's part of a 2-D mesh.
+        runs.append(("flood-hybrid-mesh2d", "g2d", cover(M.Flood(
+            source=0, method="hybrid")), rounds(), (rounds(), "or"), none,
+            lambda s, out, _: {"out": out, "seen": digest(s.seen)}))
         return runs
     sir = M.SIR(method="hybrid", **SIR_RUNG)
     bp = M.Bracha(method="hybrid", **BRACHA)
@@ -7647,6 +7677,7 @@ def _auto_runs(M, full: bool) -> list:
                              ready_sha256=digest(s.ready_sent)))]
     runs += _auto_runs_20(M, MB, QB, engine, cover, conv, rounds, none,
                           dense)
+    runs += _auto_runs_21(M, engine, cover, rounds, none)
     return runs
 
 
@@ -7738,12 +7769,188 @@ def _auto_runs_20(M, MB, QB, engine, cover, conv, rounds, none, dense):
          dht_check)]
 
 
-def _auto_state_sha(state) -> str:
-    """One digest over every tensor of a run's final state: every rank's
-    must be rank 0's bit for bit."""
+def _auto_runs_21(M, engine, cover, rounds, none) -> list:
+    """Slice 21's world-2 runs in ``_auto_runs``' form: 4l's restarting
+    walk at ``T = 32``, 4m's Plumtree broadcasts and tree flood, 4n's
+    detector, anti-entropy, Vivaldi, triangles with the wedge sample,
+    closeness and betweenness, 4i's ``color_via_mis`` and 4c's churned
+    graph flooded under ``segment`` and ``hybrid``, on their phases'
+    graphs and inputs. Their threefry draws are ``AUTO_DRAWS``'."""
+    from p2pnetwork_tpu_torch import prng
+    from p2pnetwork_tpu_torch.models import centrality, coloring, triangles
+    from p2pnetwork_tpu_torch.sim import failures
+    from p2pnetwork_tpu_torch.sim.graph import part_of
+
+    walker = M.RandomWalks(n_walkers=WALKERS, restart_p=0.02)
+    pt, viv = M.Plumtree(source=0), M.Vivaldi(dim=2)
+
+    def walk(gr):
+        return engine.run_until_coverage(
+            gr, walker, KEY, coverage_target=0.99, max_rounds=8192,
+            steps_per_round=32)
+
+    def plumtree(gr):
+        st1, first = pt.step(gr, pt.init(gr, KEY), KEY)
+        tg = pt.tree_graph(gr, st1, source_csr=True)
+        _, flood = engine.run_until_coverage(
+            tg, M.Flood(source=0), KEY, coverage_target=1.0, max_rounds=256)
+        st2, second = pt.step(gr, st1, KEY)
+        return st2, {"first": (first, st1), "second": (second, st2),
+                     "tree_edges": tg.n_edges, "tree_flood": flood,
+                     "weighted": tg.edge_weight is not None}, gr
+
+    def plumtree_check(s, out, gr):
+        got = {k: out[k] for k in ("tree_edges", "tree_flood", "weighted")}
+        for k in ("first", "second"):
+            stats, st = out[k]
+            got[k] = {n: v.item() for n, v in stats.items()}
+            got[k]["coverage"] = f32_bits(got[k]["coverage"])
+            got[k]["eager_sha256"] = digest(_whole_eager(gr, st))
+        return got
+
+    def converged(proto, stat, key, graph_of=lambda gr: gr):
+        return lambda gr: engine.run_until_converged(
+            graph_of(gr), proto, key, stat=stat, threshold=1,
+            max_rounds=4096)
+
+    def vivaldi(gr):
+        return (*engine.run(gr, viv, KEY, VIVALDI_ROUNDS), gr)
+
+    def vivaldi_check(s, stats, gr):
+        got = {"messages": stats["messages"].tolist()}
+        part = part_of(gr)
+        if part is None or part.lo == 0:  # rank 0 holds the first edges
+            live = gr.edge_mask
+            a, b = (x[live][:VIVALDI_EDGES] for x in (gr.senders,
+                                                      gr.receivers))
+            w = gr.edge_weight[live][:VIVALDI_EDGES]
+            got["median_rel_err"] = float(np.median(
+                ((viv.predicted(s, a, b) - w).abs() / w).cpu().numpy()))
+        return got
+
+    def tri(gr):
+        got = {"triangles": triangles.count_triangles(gr),
+               "transitivity_sample": triangles.transitivity_sample(
+                   gr, KEY, 65536)}
+        return got, got
+
+    def sample(fn):
+        return lambda gr: (fn(gr, LIB_SOURCES, "hybrid"), None)
+
+    def color(gr):
+        colors, n = coloring.color_via_mis(gr, KEY)
+        return colors, {"n_colors": n}
+
+    layers = lambda k: (lambda out: k * CLOSENESS_LAYERS)  # noqa: E731
+    churn = [(f"churn-{m}", "gc", cover(M.Flood(source=0, method=m)),
+              rounds(), (rounds() if m == "hybrid" else none, "or"), none,
+              lambda s, out, _: {"out": out, "seen": digest(s.seen)})
+             for m in ("segment", "hybrid")]
+    return [
+        ("walk-restart-T32", "g", walk,
+         lambda out: -(-out["rounds"] // 32) * 32, (none, "or"), none,
+         lambda s, out, _: dict(out, coverage_bits=f32_bits(out["coverage"]),
+                                visited_sha256=digest(s.visited),
+                                pos_sha256=digest(s.pos))),
+        ("plumtree", "gw", plumtree,
+         lambda out: 2 * (out["tree_flood"]["rounds"] + 3), (none, "or"),
+         lambda out: 2, plumtree_check),
+        ("detector", "g", converged(
+            M.FailureDetector(threshold=3, loss_prob=0.05), "undetected",
+            prng.key(1), lambda gr: failures.mark_unresponsive(gr, DEAD)),
+         rounds(2), (none, "or"), none,
+         lambda s, out, _: dict(out, declared_sha256=digest(s.declared),
+                                suspicion_sha256=digest(s.suspicion))),
+        ("antientropy", "g", converged(
+            M.AntiEntropy(n_items=64), "missing", prng.key(2),
+            lambda gr: failures.fail_nodes(gr, DEAD)),
+         rounds(1, 1), (none, "or"), none,
+         lambda s, out, _: dict(out, have_sha256=digest(s.have))),
+        ("vivaldi", "gsym", vivaldi, lambda out: VIVALDI_ROUNDS,
+         (none, "or"), none, vivaldi_check),
+        ("triangles", "g", tri, lambda out: 4, (none, "or"), none,
+         lambda s, out, _: out),
+        ("closeness-hybrid-8", "g", sample(centrality.closeness_sample),
+         layers(1), (layers(1), "or"), none,
+         lambda x, out, _: summary(x)),
+        ("betweenness-hybrid-8", "g", sample(centrality.betweenness_sample),
+         layers(2), (layers(2), "sum"), none,
+         lambda x, out, _: summary(x)),
+        ("coloring", "g", color,
+         lambda out: 2 * COLOR_MIS_ROUNDS + out["n_colors"], (none, "or"),
+         none, lambda c, out, _: dict(out, sha256=digest(c)))] + churn
+
+
+#: The threefry launches of slice 21's runs (a rank draws every
+#: population-wide draw whole): the walk's restart ``uniform`` a step
+#: (frozen sub-steps too), the detector's slot draw and two loss draws a
+#: round (the slot draw's ``randint`` is two launches), anti-entropy's
+#: partner draw a round and its holders' ``choice``, Vivaldi's pick and
+#: jitter draws a round and its init, the wedge sample's three
+#: ``randint``s, two bit draws a Luby round; none for the others.
+AUTO_DRAWS = {
+    "walk-restart-T32": lambda out: -(-out["rounds"] // 32) * 32,
+    "plumtree": lambda out: 0,
+    "detector": lambda out: 4 * out["rounds"],
+    "antientropy": lambda out: 1 + 2 * out["rounds"],
+    "vivaldi": lambda out: 1 + 2 * VIVALDI_ROUNDS,
+    "triangles": lambda out: 6,
+    "closeness-hybrid-8": lambda out: 0,
+    "betweenness-hybrid-8": lambda out: 0,
+    "coloring": lambda out: 2 * COLOR_MIS_ROUNDS,
+    "churn-segment": lambda out: 0,
+    "churn-hybrid": lambda out: 0,
+    "flood-hybrid-mesh2d": lambda out: 0}
+
+
+def _whole_eager(graph, state) -> torch.Tensor:
+    """Plumtree's whole eager set (bool) of ``state`` on ``graph``: on a
+    rank's part every rank's flags of its own edges, gathered in ring
+    order (``parallel/mesh.py`` ``gather_ragged``) and put together by
+    ``interop.plumtree_whole_eager``'s rule; the set itself in one
+    process. Every rank calls it together."""
+    from p2pnetwork_tpu_torch import interop, models
+    from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
+    from p2pnetwork_tpu_torch.sim.graph import part_of
+
+    eager = models.Plumtree._eager_bool(graph, state)
+    part = part_of(graph)
+    if part is None:
+        return eager
+    flags = mesh_mod.gather_ragged(part.mesh, eager[:graph.n_edges].to(
+        torch.int64)[:, None])[:, 0] != 0
+    return torch.from_numpy(interop.plumtree_whole_eager(
+        flags.cpu().numpy(), part.n_edges_padded)).to(eager.device)
+
+
+def _auto_churned(gr):
+    """Phase 4c's churn on ``gr`` (a whole graph or a rank's part): 256
+    runtime slots, the ladder's 64-link connect batch, nodes 5,000 to
+    14,999 failed."""
+    from p2pnetwork_tpu_torch.sim import failures, topology
+
+    gc = topology.with_capacity(gr, extra_edges=256)
+    gc = topology.connect(gc, [(i * 37) % 99_000 for i in range(64)],
+                          [(i * 91 + 13) % 99_000 for i in range(64)])
+    return failures.fail_nodes(gc, range(5_000, 15_000))
+
+
+def _auto_state_sha(state, graph=None) -> str:
+    """One digest over every tensor of a run's final state (a protocol
+    state, a tensor, or a dict of Python results): every rank's must be
+    rank 0's bit for bit. Plumtree's eager set on a part (``graph``) is
+    its whole set (``_whole_eager``)."""
     h = hashlib.sha256()
+    if isinstance(state, torch.Tensor):
+        h.update(state.cpu().numpy().tobytes())
+        return h.hexdigest()
+    if not dataclasses.is_dataclass(state):
+        h.update(json.dumps(state, sort_keys=True).encode())
+        return h.hexdigest()
     for f in dataclasses.fields(state):
         v = getattr(state, f.name)
+        if f.name == "eager" and graph is not None:
+            v = _whole_eager(graph, state)
         for t in ([v[k] for k in sorted(v)] if isinstance(v, dict)
                   else [v]):  # a query batch's payload by name
             h.update(t.cpu().numpy().tobytes())
@@ -7765,7 +7972,8 @@ def auto_rank(full: bool) -> dict:
 
     from p2pnetwork_tpu_torch import _device, models
     from p2pnetwork_tpu_torch.ops import ring, segsum
-    from p2pnetwork_tpu_torch.parallel import auto
+    from p2pnetwork_tpu_torch.ops import threefry as TF
+    from p2pnetwork_tpu_torch.parallel import auto, commviz
     from p2pnetwork_tpu_torch.parallel import mesh as mesh_mod
     from p2pnetwork_tpu_torch.parallel import multihost
     from p2pnetwork_tpu_torch.sim import graph as graph_mod
@@ -7790,6 +7998,16 @@ def auto_rank(full: bool) -> dict:
     graphs_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     parts = {k: auto.shard_graph_auto(g, mesh) for k, g in whole.items()}
+    mesh2d = multihost.Mesh2D(
+        grid=np.arange(RING_SHARDS).reshape(AUTO_HOSTS, -1),
+        axis_names=("dcn", "ici"), ring=mesh)
+    if full:  # phase 4c's churn, on the part and on the whole graph
+        whole["gc"], parts["gc"] = (_auto_churned(whole["g"]),
+                                    _auto_churned(parts["g"]))
+    else:  # the rank's part of the same graph on a 2-D mesh
+        whole["g2d"] = whole["g"]
+        parts["g2d"] = auto.shard_graph_auto(whole["g"], mesh2d,
+                                             axis_name="ici")
     sync()
     res = {"rank": mesh.rank, "world": mesh.world, "device": str(mesh.device),
            "graphs_s": graphs_s, "parts_s": time.perf_counter() - t0,
@@ -7809,9 +8027,9 @@ def auto_rank(full: bool) -> dict:
             models, full):
         part, one = parts[key], whole[key]
         walls, one_walls = [], []
-        for rep in range(AUTO_REPS):
+        for rep in range(1 if name in AUTO_ONCE else AUTO_REPS):
             if rep == 0:
-                ring.GATHER_LAUNCHES = segsum.LAUNCHES = 0
+                ring.GATHER_LAUNCHES = segsum.LAUNCHES = TF.LAUNCHES = 0
                 mesh_mod.EXCHANGES = _device.SYNCS = 0
                 by_dtype.clear()
             sync()
@@ -7824,12 +8042,15 @@ def auto_rank(full: bool) -> dict:
                 counts = {"gathers": ring.GATHER_LAUNCHES,
                           "exchanges": mesh_mod.EXCHANGES,
                           "b1": segsum.LAUNCHES, "syncs": _device.SYNCS,
+                          "threefry": TF.LAUNCHES,
                           "by_dtype": dict(by_dtype)}
-                rec = {"state_sha": _auto_state_sha(state),
+                rec = {"state_sha": _auto_state_sha(state, part),
                        "got": check(state, out, *(extra or [None])),
                        "counts": counts,
                        "want": {"gathers": gathers(out), "b1": b1(out),
-                                "b1_entry": entry, "sums": sums(out)}}
+                                "b1_entry": entry, "sums": sums(out),
+                                "draws": AUTO_DRAWS[name](out)
+                                if name in AUTO_DRAWS else None}}
             del state, out, extra
             if mesh.rank == 0:
                 sync()
@@ -7842,6 +8063,11 @@ def auto_rank(full: bool) -> dict:
                    one_process_wall_s=statistics.median(one_walls)
                    if one_walls else None, one_process_walls=one_walls)
         res["runs"][name] = rec
+    if not full:  # one flood round's exchanges on the 2-D mesh, by host
+        flood = models.Flood(source=0, method="hybrid")
+        res["census"] = commviz.auto_hop_census(
+            mesh, multihost.host_of(mesh, mesh.world // AUTO_HOSTS),
+            lambda: auto.run_auto(parts["g2d"], flood, KEY, 1))
     ring.ring_gather = gather
     return res
 
@@ -7894,6 +8120,30 @@ def auto_plain_check(gpart) -> dict:
         want = (whole.amax(dim=0) if fold == "max" else whole.sum(
             dim=0, dtype=torch.int32)).T
         bad[name] = int((got != want).sum())
+    # Slice 21's payloads: the detector's and the triangles' owned table
+    # rows (i32 along axis 0), the walk's i64 keys (max), the edge test's
+    # bools (or), Plumtree's i64 stats (sum).
+    table = torch.randint(-2**31, 2**31 - 1, (part.hi - part.lo, 17),
+                          generator=gen, dtype=torch.int32).to(dev)
+    got = mesh_mod.assemble(part, table, axis=0)
+    bad["assemble-table-int32"] = int(
+        (got != plain(table, part.block)[:part.n_pad]).sum())
+    for name, partial, fold in (
+            ("combine-walk-int64", torch.randint(
+                -1, 2**62, (WALKERS,), generator=gen), "max"),
+            ("combine-edges-bool", torch.rand(65536, generator=gen) > 0.9,
+             "or"),
+            ("combine-stats-int64", torch.randint(
+                0, 2**40, (4,), generator=gen), "sum")):
+        partial = partial.to(dev)
+        n = partial.shape[0]
+        got = mesh_mod.combine(part, partial, fold)
+        whole = plain(partial, -(-n // mesh.n_local)).reshape(
+            mesh.world, -1)[:, :n]
+        want = {"max": lambda x: x.amax(dim=0),
+                "or": lambda x: x.any(dim=0),
+                "sum": lambda x: x.sum(dim=0)}[fold](whole)
+        bad[name] = int((got != want).sum())
     rem = gpart.hybrid.remainder
     nmask = gpart.node_mask[part.lo:part.hi]
     sig = torch.rand(part.n_pad, generator=gen).to(dev)
@@ -7918,7 +8168,8 @@ def auto_path(multihost, gpu: str) -> dict:
     line a world. Returns B1's launches by entry and the gathers by
     ``(world, dtype)``, summed over every rank, for the kernels line."""
     t_phase = time.perf_counter()
-    totals = {"or": 0, "sum": 0, "gather": collections.Counter()}
+    totals = {"or": 0, "sum": 0, "threefry": 0,
+              "gather": collections.Counter()}
     for world in AUTO_WORLDS:
         t0 = time.perf_counter()
         try:
@@ -7950,7 +8201,12 @@ def auto_path(multihost, gpu: str) -> dict:
                 if c["b1"] != w["b1"]:
                     fail(f"4z {name} at world {world}: B1 launched "
                          f"{c['b1']} times, want {w['b1']}")
+                if w.get("draws") is not None and \
+                        c["threefry"] != w["draws"]:
+                    fail(f"4z {name} at world {world}: threefry launched "
+                         f"{c['threefry']} times, want {w['draws']}")
                 totals[w["b1_entry"]] += c["b1"]
+                totals["threefry"] += c["threefry"]
                 for dt, n in c["by_dtype"].items():
                     totals["gather"][(world, dt)] += n
             if not set(totals["gather"]) <= AUTO_GATHER_ROWS.keys():
@@ -7966,10 +8222,23 @@ def auto_path(multihost, gpu: str) -> dict:
                 "gathers_by_dtype": rec["counts"]["by_dtype"],
                 "exchanges": rec["counts"]["exchanges"],
                 "b1_launches": rec["counts"]["b1"],
+                "threefry_launches": rec["counts"]["threefry"],
                 "syncs": rec["counts"]["syncs"], "gpu": gpu,
                 "t_s": time.perf_counter() - T_START}), flush=True)
+        census = [p.get("census") for p in parts]
+        # A gather puts each rank's owned slice into every rank of the
+        # other hosts: (W - W / H) * N_pad bytes across hosts for a bool
+        # round, one node-extent array at world 8 on two hosts.
+        cross = (world - world // AUTO_HOSTS) * N_PAD
+        if world != 2 and any(
+                c is None or c["exchanges"] != 1
+                or c["bytes_cross"] != cross or cross > 4 * N_PAD
+                for c in census):
+            fail(f"4z at world {world}: a 2-D mesh flood round's bytes "
+                 f"across hosts are not {cross} ({census})")
         print(json.dumps({
             "phase": "auto-path", "world": world, "launch_s": launch_s,
+            "census": census[0],
             "graphs_s": [p["graphs_s"] for p in parts],
             "parts_s": [p["parts_s"] for p in parts],
             "owned": [p["owned"] for p in parts],
@@ -7981,6 +8250,7 @@ def auto_path(multihost, gpu: str) -> dict:
     print(json.dumps({"phase": "auto-path", "run": "summary",
                       "phase_s": wall, "gpu": gpu,
                       "b1": {k: totals[k] for k in ("or", "sum")},
+                      "threefry": totals["threefry"],
                       "gathers": {f"{w}-{d}": n for (w, d), n in
                                   sorted(totals["gather"].items())}}),
           flush=True)
@@ -7992,6 +8262,28 @@ def auto_path(multihost, gpu: str) -> dict:
 def check_auto_run(name: str, world: int, got: dict) -> None:
     """A 4z run's checked fields against its phase's expected values."""
     label = f"4z {name} at world {world}"
+    if name in ("walk-restart-T32", "plumtree", "churn-segment",
+                "churn-hybrid", "detector", "antientropy", "triangles",
+                "coloring"):
+        want = {"walk-restart-T32": EXPECTED_WALK["restart"],
+                "plumtree": dict(EXPECTED_PLUMTREE, weighted=True),
+                "churn-segment": {"out": EXPECTED_CHURN},
+                "churn-hybrid": {"out": EXPECTED_CHURN},
+                "detector": EXPECTED_LIBRARY["detector"],
+                "antientropy": EXPECTED_LIBRARY["antientropy"],
+                "triangles": EXPECTED_LIBRARY["triangles"],
+                "coloring": EXPECTED_ANALYTICS["coloring"]}[name]
+        check_run(label, {k: got[k] for k in want}, want)
+        return
+    if name == "vivaldi":
+        if got["messages"] != EXPECTED_LIBRARY["vivaldi_messages"]:
+            fail(f"{label} messages {got['messages']}")
+        check_floats(label, {"median_rel_err": got["median_rel_err"]},
+                     "vivaldi")
+        return
+    if name in ("closeness-hybrid-8", "betweenness-hybrid-8"):
+        check_floats(label, got, name.split("-")[0])
+        return
     if name == "adaptive-hop-1024":
         want = EXPECTED_ADAPTIVE_HOP
         if (got["out"], got["dist"], got["frontier"], got["round"]) != (
@@ -8543,8 +8835,8 @@ def main() -> int:
             + gossip_launches + new_launches["threefry"] + walk_launches
             + lib_launches["threefry"] + io_launches["threefry"]
             + fault_launches["threefry"] + sim_launches["threefry"]
-            + proto_launches["threefry"] + rank_sum("threefry"),
-            threefry_err),
+            + proto_launches["threefry"] + rank_sum("threefry")
+            + auto["threefry"], threefry_err),
         row("gather_row_sum", "rowsum.cu",
             "p2pnetwork_tpu/ops/segment.py:287 (jnp.sum of the gathered "
             "row, an XLA reduce; no TPU kernel)", rowsum_rows["ws-1m"],
@@ -8587,6 +8879,11 @@ def main() -> int:
             "exchange: world 8, i32 [1, 125008], the adaptive flood's "
             "claims)", rank_row(8, "ring_gather", "i32"),
             auto_gathers("ring_gather_w8_i32"), 0.0),
+        row("ring_gather_i64", "ring_peer.cu",
+            "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, one "
+            "exchange: world 2, i64 [4, 125008], the walk's keys and the "
+            "edge-extent sums)", rank_row(2, "ring_gather", "i64"),
+            auto_gathers("ring_gather_i64"), 0.0),
         row("ring_gather_f32", "ring_peer.cu",
             "p2pnetwork_tpu/ops/pallas_ring.py:72 (across ranks, a pass "
             "at a time: world 2, f32 [4, 125008])",

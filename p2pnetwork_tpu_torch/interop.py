@@ -138,6 +138,72 @@ def protocol_state_from_numpy(name: str, fields: dict, device=None):
                   for f in dataclasses.fields(cls)})
 
 
+def _eager_bits(eager: np.ndarray, n_bits: int, packed: bool) -> np.ndarray:
+    """A Plumtree eager set as ``bool[n_bits]`` (unpacked from its words
+    when ``packed``)."""
+    eager = np.asarray(eager)
+    if not packed:
+        return eager.astype(bool)
+    words = eager.view(np.uint32) if eager.dtype == np.int32 else eager
+    bits = (words[:, None] >> np.arange(32, dtype=np.uint32)) & 1
+    return bits.reshape(-1)[:n_bits].astype(bool)
+
+
+def _eager_words(bits: np.ndarray, packed: bool) -> np.ndarray:
+    """``bits`` as a state's ``eager`` field: packed 32 to an int32 word
+    (a ragged tail as zeros) when ``packed``, else itself."""
+    if not packed:
+        return bits
+    padded = np.zeros(-(-bits.shape[0] // 32) * 32, dtype=np.uint32)
+    padded[:bits.shape[0]] = bits
+    weights = np.uint32(1) << np.arange(32, dtype=np.uint32)
+    return (padded.reshape(-1, 32) * weights).sum(
+        axis=1, dtype=np.uint32).view(np.int32)
+
+
+def plumtree_whole_eager(flags: np.ndarray, n_edges_padded: int):
+    """The whole graph's Plumtree eager flags, ``bool[n_edges_padded]``,
+    from ``flags``: every rank's flags of its own edges (a part's first
+    ``n_edges`` slots) concatenated in rank order. The one rule of the
+    edge-extent eager set on parts: a part's edges are the whole graph's
+    slots ``[edge_lo, edge_lo + n_edges)``, so the concatenation is the
+    whole graph's edges in order, and every padding slot behind them (the
+    whole graph's or a part's) is set, as a padding slot's flag never
+    changes from its initial True."""
+    whole = np.ones(n_edges_padded, dtype=bool)
+    whole[:flags.shape[0]] = flags
+    return whole
+
+
+def plumtree_state_to_part(name: str, fields: dict, part_graph):
+    """The port's Plumtree state (``"PlumtreeState"`` or
+    ``"PlumtreeBitState"``) for a rank's part (``sim/graph.py``
+    ``graph_part``) from the whole graph's state fields: the eager flags
+    of the part's edges, cut by :func:`plumtree_whole_eager`'s rule."""
+    packed = name == "PlumtreeBitState"
+    part = part_graph.part
+    whole = _eager_bits(fields["eager"], part.n_edges_padded, packed)
+    own = plumtree_whole_eager(
+        whole[part.edge_lo:part.edge_lo + part_graph.n_edges],
+        part_graph.n_edges_padded)
+    return protocol_state_from_numpy(name, {
+        "eager": _eager_words(own, packed), "round": fields["round"]},
+        device=part_graph.device)
+
+
+def plumtree_state_from_parts(name: str, pieces, n_edges_padded: int):
+    """The whole graph's Plumtree state fields (numpy) from every rank's,
+    in rank order: ``pieces`` lists ``(fields, n_edges, e_pad)`` of each
+    rank's state and part. The inverse of :func:`plumtree_state_to_part`;
+    ``n_edges_padded`` is the whole graph's."""
+    packed = name == "PlumtreeBitState"
+    flags = np.concatenate([_eager_bits(f["eager"], e_pad, packed)[:n]
+                            for f, n, e_pad in pieces])
+    return {"eager": _eager_words(plumtree_whole_eager(
+        flags, n_edges_padded), packed),
+            "round": np.asarray(pieces[0][0]["round"])}
+
+
 def message_batch_from_numpy(fields: dict, device=None) -> MessageBatch:
     """The port's :class:`MessageBatch` from a reference ``MessageBatch``'s
     fields (the ``uint32`` planes arrive as ``int32`` with the same bits),

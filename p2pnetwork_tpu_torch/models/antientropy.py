@@ -9,6 +9,10 @@ merges sets both ways: pull as a gather-OR of the partner's row, push as
 a scatter-OR onto it (torch has no OR scatter: a per-cell count of
 senders, ``index_add_``, then ``> 0``; exact in any order). Converge with
 ``engine.run_until_converged(..., stat="missing", threshold=1)``.
+
+On a rank's part (``parallel/auto.py``) the state stays whole on every
+rank: the draw's one exchange gives every rank every partner, and the
+merge reads nothing else of the table.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ class AntiEntropy:
     pull: bool = True
 
     STATS = ("messages", "missing", "coverage", "complete_items")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> AntiEntropyState:
         if graph.neighbors is None:

@@ -38,7 +38,7 @@ class Protocol(TypingProtocol):
              key: np.ndarray) -> Tuple[State, Stats]: ...
 
 
-def draw_neighbor_slot(graph: Graph, key):
+def draw_neighbor_slot(graph: Graph, key, weights=None):
     """One uniform draw per node over its valid neighbor-table slots: the
     k-th-set-bit sampler of the reference (``randint`` over ``[0, 2**31 -
     1)``, taken mod the row's valid count, then the slot whose running
@@ -49,10 +49,13 @@ def draw_neighbor_slot(graph: Graph, key):
     Returns ``(slot, partner, has_neighbor)``: the drawn column (i32), the
     neighbor id it holds (row 0's entry where no valid slot exists), and
     whether the row had a valid slot. Callers gate on ``has_neighbor``.
+    With ``weights`` (an f32 table aligned with the neighbor table, such
+    as ``neighbor_weight``) a fourth value is the drawn slot's weight.
 
     On a rank's part (``sim/graph.py`` ``GraphPart``) the owned rows draw
     from the same ``N_pad`` counters as the whole graph's and the three
-    are assembled in one exchange (``parallel/mesh.py``)."""
+    (four) are assembled in one exchange (``parallel/mesh.py``), the
+    weight as its f32 bits."""
     part = part_of(graph)
     mask = graph.neighbor_mask
     count = mask.sum(dim=1, dtype=torch.int32)
@@ -67,11 +70,18 @@ def draw_neighbor_slot(graph: Graph, key):
     # jnp.argmax does.
     slot = hit.to(torch.uint8).argmax(dim=1)
     partner = graph.neighbors.gather(1, slot[:, None])[:, 0]
+    out = [slot.to(torch.int32), partner, count > 0]
+    if weights is not None:
+        out.append(weights.gather(1, slot[:, None])[:, 0])
     if part is not None:
-        whole = assemble(part, torch.stack(
-            [slot.to(torch.int32), partner, (count > 0).to(torch.int32)]))
-        return whole[0], whole[1], whole[2] > 0
-    return slot.to(torch.int32), partner, count > 0
+        cols = [out[0], out[1], out[2].to(torch.int32)]
+        if weights is not None:
+            cols.append(out[3].view(torch.int32))
+        whole = assemble(part, torch.stack(cols))
+        out = [whole[0], whole[1], whole[2] > 0]
+        if weights is not None:
+            out.append(whole[3].contiguous().view(torch.float32))
+    return tuple(out)
 
 
 def validate_source(graph: Graph, source: int) -> None:

@@ -9,6 +9,12 @@ probability ``loss_prob`` (two ``prng.uniform`` draws; with the slot draw,
 three threefry draws a round, from ``split(key, 3)``). Run against
 ``failures.mark_unresponsive`` (the dead stay in the tables) with
 ``engine.run_until_converged(..., stat="undetected", threshold=1)``.
+
+On a rank's part (``parallel/auto.py``) the slot state ``[N_pad, d]``
+stays whole and bit-equal on every rank: a rank updates the rows of the
+table it owns, and one exchange a round beyond the draw's assembles the
+owned rows' suspicion, declarations, dead slots and table mask (packed
+in one i32 a slot) along axis 0; the stats are read from whole tensors.
 """
 
 from __future__ import annotations
@@ -20,7 +26,9 @@ import torch
 
 from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.models import base
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh as M
+from p2pnetwork_tpu_torch.parallel.mesh import assemble
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,12 +49,13 @@ class FailureDetector:
 
     STATS = ("messages", "undetected", "detected", "dead_slots",
              "false_positives")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> FailureDetectorState:
         if graph.neighbors is None:
             raise ValueError(
                 "FailureDetector requires a graph with a neighbor table")
-        shape = graph.neighbors.shape
+        shape = (graph.n_nodes_padded, graph.neighbors.shape[1])
         return FailureDetectorState(
             suspicion=torch.zeros(shape, dtype=torch.int32,
                                   device=graph.device),
@@ -56,12 +65,13 @@ class FailureDetector:
 
     def _dead_watched(self, graph: Graph) -> torch.Tensor:
         """bool[N_pad, d]: watched slots whose target is unresponsive,
-        seen from a responsive watcher."""
+        seen from a responsive watcher (the owned rows on a part)."""
         return (graph.neighbor_mask & ~graph.node_mask[graph.neighbors]
-                & graph.node_mask[:, None])
+                & M.owned(graph, graph.node_mask)[:, None])
 
     def step(self, graph: Graph, state: FailureDetectorState, key):
         n_pad, dev = graph.n_nodes_padded, graph.device
+        part = part_of(graph)
         mask = graph.neighbor_mask
         k1, k2, k3 = prng.split(key, 3)
         slot, target, has_slot = base.draw_neighbor_slot(graph, k1)
@@ -72,14 +82,26 @@ class FailureDetector:
         ack_ok = prng.uniform(k3, (n_pad,), device=dev) >= loss
         acked = responsive & ping_ok & ack_ok
 
-        probed = ((torch.arange(mask.shape[1], device=dev)[None, :]
-                   == slot[:, None]) & mask & pinger[:, None])
-        suspicion = torch.where(
-            probed, torch.where(acked[:, None], 0, state.suspicion + 1),
-            state.suspicion).to(torch.int32)
-        declared = state.declared | (suspicion >= self.threshold)
+        def own(x):
+            return M.owned(graph, x, axis=0)
 
+        probed = ((torch.arange(mask.shape[1], device=dev)[None, :]
+                   == own(slot)[:, None]) & mask & own(pinger)[:, None])
+        old = own(state.suspicion)
+        suspicion = torch.where(
+            probed, torch.where(own(acked)[:, None], 0, old + 1),
+            old).to(torch.int32)
+        declared = own(state.declared) | (suspicion >= self.threshold)
         dead = self._dead_watched(graph)
+        if part is not None:
+            # The owned rows' state, dead slots and table mask in one
+            # exchange: every rank holds the whole of each.
+            whole = assemble(part, suspicion * 8 + declared.to(torch.int32)
+                             * 4 + dead.to(torch.int32) * 2
+                             + mask.to(torch.int32), axis=0)
+            suspicion = whole // 8
+            declared, dead, mask = ((whole & b) != 0 for b in (4, 2, 1))
+
         n_dead = dead.sum()
         detected = (declared & dead).sum()
         false_pos = (declared & mask & ~dead & graph.node_mask[:, None]).sum()

@@ -25,12 +25,24 @@ address.
 :meth:`Plumtree.tree_graph` extracts the learned eager set as a compact
 graph of its own: the eager edges are compacted on the device and only
 they (about N) cross to the host for ``from_edges``.
+
+On a rank's part (``parallel/auto.py``) the eager set is edge-extent: a
+rank keeps the flags of its own edges, the whole graph's slots
+``[edge_lo, edge_lo + n_edges)``, so the ranks' flags in rank order are
+the whole set (``interop.py`` cuts the reference's to a part and back).
+A layer's delivery is one bool ``assemble``; the lowest-id picks are the
+rank's own (every candidate edge into a receiver lies on its owner, and
+the owned edges keep the whole graph's order); a graft round is one
+``combine`` of the grafts by sender, and the stats' edge sums one more a
+broadcast. :meth:`Plumtree.tree_graph` gathers the picked edges of every
+rank (about N) and every rank builds the same whole tree graph.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from p2pnetwork_tpu_torch import _device
@@ -38,7 +50,8 @@ from p2pnetwork_tpu_torch.models import base
 from p2pnetwork_tpu_torch.models.flood import _over_live
 from p2pnetwork_tpu_torch.ops import bitset
 from p2pnetwork_tpu_torch.ops import extremum as X
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh as M
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of
 
 _BIG = 2**31 - 1
 
@@ -93,6 +106,7 @@ class Plumtree:
 
     STATS = ("messages", "ihave", "duplicates", "grafts", "eager_edges",
              "coverage")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key):
         base.validate_source(graph, self.source)
@@ -121,11 +135,20 @@ class Plumtree:
         _refuse_dynamic(graph)
         em = _eager_mask(graph, self._eager_bool(graph, state))
         idx = torch.nonzero(em).reshape(-1)
-        picked = torch.stack([graph.senders[idx],
-                              graph.receivers[idx]]).cpu().numpy()
+        cols = [graph.senders[idx], graph.receivers[idx]]
         if graph.edge_weight is not None:
-            from_edges_kwargs.setdefault(
-                "weights", graph.edge_weight[idx].cpu().numpy())
+            cols.append(graph.edge_weight[idx].view(torch.int32))
+        picked = torch.stack(cols)
+        part = part_of(graph)
+        if part is not None:
+            # Every rank's picked edges in ring order: the whole graph's
+            # edge order, as one process picks them.
+            picked = M.gather_ragged(part.mesh, picked.T.to(
+                torch.int64)).T.to(torch.int32)
+        picked = picked.cpu().numpy()
+        if graph.edge_weight is not None:
+            from_edges_kwargs.setdefault("weights",
+                                         picked[2].view(np.float32))
         from_edges_kwargs.setdefault("node_pad_multiple",
                                      graph.n_nodes_padded)
         from_edges_kwargs.setdefault("device", graph.device)
@@ -139,6 +162,7 @@ class Plumtree:
         return dataclasses.replace(g, node_mask=graph.node_mask & g.node_mask)
 
     def step(self, graph: Graph, state, key):
+        part = part_of(graph)
         eager = self._eager_bool(graph, state)
         n_pad, e_pad = graph.n_nodes_padded, graph.n_edges_padded
         s, r = graph.senders, graph.receivers
@@ -149,7 +173,8 @@ class Plumtree:
         def seg_or(signal, emask):
             contrib = (signal[s] & emask).to(torch.int32)
             agg = torch.zeros(n_pad, dtype=torch.int32, device=graph.device)
-            return agg.index_add_(0, r, contrib) > 0
+            agg.index_add_(0, r, contrib)
+            return M.assembled(graph, M.owned(graph, agg) > 0)
 
         seed = base.source_seed(graph, self.source)
         dist = torch.where(seed, 0, -1).to(torch.int32)
@@ -163,21 +188,28 @@ class Plumtree:
                 frontier = new
                 continue
             # The wave died: graft the lowest-id lazy edge from a reached
-            # sender into each unreached receiver (IHAVE -> GRAFT).
+            # sender into each unreached receiver (IHAVE -> GRAFT). Every
+            # candidate into a receiver lies on its owner, so on a part
+            # the pick is the rank's own.
             unreached = graph.node_mask & (dist < 0)
             lazy_cand = live_edge & ~eager & (dist[s] >= 0) & unreached[r]
             graft_edge = _lowest_eid(lazy_cand, r, eids, n_pad)
+            # The grafts by sender (on a part summed over the ranks in one
+            # exchange): their count and the senders that rejoin.
+            by_sender = torch.zeros(n_pad, dtype=torch.int32,
+                                    device=graph.device)
+            by_sender.index_add_(0, s, graft_edge.to(torch.int32))
+            if part is not None:
+                by_sender = M.combine(part, by_sender, "sum")
+            regrow, n_graft = by_sender > 0, by_sender.sum()
             with _device.counted_syncs():
-                n_graft = int(graft_edge.sum().item())  # graftlint: ignore[host-sync-in-loop] -- the wave's exit read: a graft round ends the loop when none is left, counted in _device.SYNCS
+                n_graft = int(n_graft.item())  # graftlint: ignore[host-sync-in-loop] -- the wave's exit read: a graft round ends the loop when none is left, counted in _device.SYNCS
             if n_graft == 0:
                 break
             eager = eager | graft_edge
             # Grafted edges deliver next layer: their senders rejoin the
             # frontier.
-            regrow = torch.zeros(n_pad + 1, dtype=torch.bool,
-                                 device=graph.device)
-            regrow[torch.where(graft_edge, s, n_pad).long()] = True
-            frontier = (dist >= 0) & regrow[:n_pad]
+            frontier = (dist >= 0) & regrow
             grafts += n_graft
 
         reached = dist >= 0
@@ -205,13 +237,17 @@ class Plumtree:
                                          round=rnd)
         else:
             new_state = PlumtreeState(eager=eager, round=rnd)
+        sums = torch.stack([fired.sum(), ihave, duplicates,
+                            (live_edge & eager).sum()])
+        if part is not None:  # the edge-extent sums over every rank
+            sums = M.combine(part, sums, "sum")
         stats = {
-            "messages": fired.sum(),
-            "ihave": ihave,
-            "duplicates": duplicates,
+            "messages": sums[0],
+            "ihave": sums[1],
+            "duplicates": sums[2],
             "grafts": torch.tensor(grafts, dtype=torch.int32,
                                    device=graph.device),
-            "eager_edges": (live_edge & eager).sum(),
+            "eager_edges": sums[3],
             "coverage": _over_live((reached & graph.node_mask).sum(), graph),
         }
         return new_state, stats

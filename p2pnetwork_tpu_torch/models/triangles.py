@@ -16,6 +16,14 @@
 Counts are exact on the symmetric graphs the builders make; graphs with
 a dynamic edge region are refused (fold runtime links in with
 ``topology.consolidate``).
+
+On a rank's part (``parallel/auto.py``) every function runs: a rank
+counts its own edges, whose receiver rows it owns, against the senders'
+rows of the whole table (one ``assemble`` a call); the per-node counts
+keyed by sender are a ``combine(..., "sum")``, and the totals whole sums.
+The wedge sample's two slots are answered by the ranks whose run of the
+center's row holds them (one ``combine``), and the closing edge by its
+receiver's owner (one more, ``topology.static_edge_exists``).
 """
 
 from __future__ import annotations
@@ -25,7 +33,8 @@ import torch
 
 from p2pnetwork_tpu_torch import _device, prng
 from p2pnetwork_tpu_torch.ops.segment import _require_complete_table
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel.mesh import assemble, combine
+from p2pnetwork_tpu_torch.sim.graph import Graph, part_of, row_slots
 
 #: Target compares per ``[B, d, d]`` block (the reference's bound on a
 #: block's memory).
@@ -46,20 +55,44 @@ def _edge_block(graph: Graph) -> int:
     return int(np.clip(_BLOCK_BUDGET // (d * d), 1, 4096))
 
 
+def _sender_table(graph: Graph):
+    """The neighbor table and mask the senders' rows are read from: the
+    graph's own, or on a rank's part the whole table, the owned rows of
+    every rank assembled in one exchange (an i32 a slot, the id doubled
+    and the mask in its low bit)."""
+    part = part_of(graph)
+    if part is None:
+        return graph.neighbors, graph.neighbor_mask
+    whole = assemble(part, graph.neighbors * 2
+                     + graph.neighbor_mask.to(torch.int32), axis=0)
+    return whole // 2, (whole & 1) != 0
+
+
 def _edge_common_counts(graph: Graph, edge_block: int) -> torch.Tensor:
     """i32[E_pad]: per directed edge slot, the live third vertices
-    adjacent to both endpoints (0 on masked slots)."""
+    adjacent to both endpoints (0 on masked slots). On a rank's part the
+    slots are the rank's own edges: the receiver's row is owned, the
+    sender's comes from the whole table (:func:`_sender_table`)."""
+    neighbors, neighbor_mask = _sender_table(graph)
+    lo = 0 if part_of(graph) is None else part_of(graph).lo
     out = []
-    for lo in range(0, graph.n_edges_padded, edge_block):
-        s = graph.senders[lo:lo + edge_block]
-        r = graph.receivers[lo:lo + edge_block]
-        ns, ms = graph.neighbors[s], graph.neighbor_mask[s]
+    for at in range(0, graph.n_edges_padded, edge_block):
+        s = graph.senders[at:at + edge_block]
+        r = graph.receivers[at:at + edge_block] - lo
+        ns, ms = neighbors[s], neighbor_mask[s]
         nr, mr = graph.neighbors[r], graph.neighbor_mask[r]
         eq = ((ns[:, :, None] == nr[:, None, :]) & ms[:, :, None]
               & mr[:, None, :])
         out.append(eq.sum(dim=(1, 2), dtype=torch.int32)
-                   * graph.edge_mask[lo:lo + edge_block])
+                   * graph.edge_mask[at:at + edge_block])
     return torch.cat(out)
+
+
+def _whole_sum(graph: Graph, x: torch.Tensor) -> torch.Tensor:
+    """``x``, a partial keyed by node (or a count), summed over every
+    rank's on a part (one ``combine``)."""
+    part = part_of(graph)
+    return x if part is None else combine(part, x, "sum")
 
 
 def count_triangles(graph: Graph, *, edge_block: int = None) -> int:
@@ -67,8 +100,9 @@ def count_triangles(graph: Graph, *, edge_block: int = None) -> int:
     _require_complete_table(graph)
     _require_static(graph, "count_triangles")
     cnt = _edge_common_counts(graph, edge_block or _edge_block(graph))
+    total = _whole_sum(graph, cnt.sum(dtype=torch.int64)[None])
     with _device.counted_syncs():
-        total = int(cnt.sum(dtype=torch.int64).item())
+        total = int(total.item())
     assert total % 6 == 0, "directed slot closure must come in sixes"
     return total // 6
 
@@ -82,7 +116,7 @@ def triangles_per_node(graph: Graph, *,
     two_tri = torch.zeros(graph.n_nodes_padded, dtype=torch.int32,
                           device=graph.device)
     two_tri.index_add_(0, graph.senders, cnt)
-    return two_tri // 2
+    return _whole_sum(graph, two_tri) // 2
 
 
 def local_clustering(graph: Graph, *,
@@ -119,12 +153,25 @@ def _sample_closed(graph: Graph, key, samples: int):
     j1 = prng.randint(k2, (samples,), 0, dc.clamp_min(1))
     j2 = prng.randint(k3, (samples,), 0, (dc - 1).clamp_min(1))
     j2 = torch.where(j2 >= j1, j2 + 1, j2)  # distinct second slot
-    row0 = graph.src_offsets[centers]
-    last = graph.n_edges_padded - 1
-    e1 = graph.src_eid[(row0 + j1).clamp_max(last)]
-    e2 = graph.src_eid[(row0 + j2).clamp_max(last)]
-    a, b = graph.receivers[e1], graph.receivers[e2]
-    valid = (dc >= 2) & graph.edge_mask[e1] & graph.edge_mask[e2]
+    # The rank whose run of each center's row holds slot j1 (j2) answers
+    # its receiver, doubled, with the edge's liveness in the low bit, -1
+    # elsewhere (``sim/graph.py`` ``row_slots``: one process holds every
+    # whole row); on a part one ``combine`` gives every rank both answers.
+    ans = []
+    for j in (j1, j2):
+        eid, ok = row_slots(graph, centers, j.to(centers.dtype), 1)
+        eid, ok = eid[:, 0], ok[:, 0]
+        ans.append(torch.where(ok, graph.receivers[eid] * 2
+                               + graph.edge_mask[eid].to(torch.int32), -1))
+    ans = torch.stack(ans)
+    part = part_of(graph)
+    if part is not None:
+        ans = combine(part, ans, "max")
+    live = (ans[0] >= 0) & (ans[1] >= 0) & ((ans[0] & ans[1] & 1) != 0)
+    a, b = ans[0].clamp_min(0) // 2, ans[1].clamp_min(0) // 2
+    valid = (dc >= 2) & live
+    # On a part the closing edge (a, b) lives on b's owner: one more
+    # ``combine`` (``static_edge_exists``).
     closed = static_edge_exists(graph, a, b) & valid
     return closed.sum(), valid.sum()
 

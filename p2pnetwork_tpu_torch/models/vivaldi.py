@@ -14,6 +14,10 @@ A step is exact: from the same state it gives the reference's bits (the
 norm as XLA computes it, :func:`_norm`). The tests hold runs from
 ``init`` to the reference's within a tolerance, the drawn partners and
 ``messages`` exactly.
+
+On a rank's part (``parallel/auto.py``) the drawn link's weight rides the
+draw's one exchange (``base.draw_neighbor_slot(weights=...)``), so the
+state stays whole and bit-equal on every rank.
 """
 
 from __future__ import annotations
@@ -62,6 +66,7 @@ class Vivaldi:
     height_min: float = 1e-3
 
     STATS = ("messages", "rmse", "mean_rel_err", "mean_ce")
+    RUNS_ON_PART = True
 
     def init(self, graph: Graph, key) -> VivaldiState:
         if graph.neighbors is None or not graph.neighbors_complete:
@@ -85,14 +90,15 @@ class Vivaldi:
 
     def step(self, graph: Graph, state: VivaldiState, key):
         k_pick, k_noise = prng.split(key)
-        slot, partner, has = base.draw_neighbor_slot(graph, k_pick)
-        active = has & graph.node_mask & graph.node_mask[partner]
-
+        # The link's weight rides the draw (on a part, its one exchange).
         if graph.neighbor_weight is not None:
-            rtt = graph.neighbor_weight.gather(1, slot[:, None].long())[:, 0]
+            _, partner, has, rtt = base.draw_neighbor_slot(
+                graph, k_pick, weights=graph.neighbor_weight)
         else:
+            _, partner, has = base.draw_neighbor_slot(graph, k_pick)
             rtt = torch.ones(graph.n_nodes_padded, dtype=torch.float32,
                              device=graph.device)
+        active = has & graph.node_mask & graph.node_mask[partner]
         if self.noise > 0.0:
             rtt = rtt * (1.0 + self.noise * prng.uniform(
                 k_noise, rtt.shape, -1.0, 1.0, device=graph.device))

@@ -13,6 +13,14 @@ discovery progress for ``engine.run_until_coverage``.
 The uniform choice is the largest of per-edge uniforms keyed by the edge's
 identity (``utils/edgehash.py``), ties to the higher receiver id, as the
 reference's. Requires a graph with the source-CSR view.
+
+On a rank's part (``parallel/auto.py``) a sender's out-row is split
+across ranks (a part keeps the edges whose receiver it owns, one
+contiguous run of each whole row: ``sim/graph.py`` ``row_slots``). Each
+rank takes its best live slot of its run, and one ``combine(..., "max")``
+of a packed i64 key a walker gives every rank the whole row's winner,
+the tie rule included. The restart draw and ``visited`` are whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ import torch
 
 from p2pnetwork_tpu_torch import prng
 from p2pnetwork_tpu_torch.models.flood import _over_live
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh as M
+from p2pnetwork_tpu_torch.parallel.mesh import combine
+from p2pnetwork_tpu_torch.sim.graph import Graph, out_span, part_of, row_slots
 from p2pnetwork_tpu_torch.utils.edgehash import edge_uniform
 
 
@@ -45,6 +55,7 @@ class RandomWalks:
     restart_p: float = 0.0
 
     STATS = ("messages", "coverage", "stuck")
+    RUNS_ON_PART = True
 
     def __post_init__(self):
         if self.n_walkers < 1:
@@ -79,20 +90,23 @@ class RandomWalks:
 
     def step(self, graph: Graph, state: RandomWalksState, key):
         self._require_csr(graph)
-        w = max(graph.max_out_span, 1)
+        part = part_of(graph)
+        w = max(out_span(graph), 1)
         k_edge, k_restart = prng.split(key)
         pos = state.pos.long()
 
-        # Each walker's out-edge row, liveness-masked [W, w].
-        eid, svalid = graph.gather_row_slots(
-            graph.src_offsets[pos], graph.src_offsets[pos + 1], w)
+        # Each walker's out-edge row, liveness-masked [W, w] (on a part
+        # the slots of the rank's own run of the row).
+        eid, svalid = row_slots(graph, pos, torch.zeros_like(pos), w)
         rcv = graph.receivers[eid]
         live = svalid & graph.edge_mask[eid] & graph.node_mask[rcv]
 
-        # Runtime links ride along, membership-tested per walker ([W, D]).
+        # Runtime links ride along, membership-tested per walker ([W, D]);
+        # on a part those whose receiver the rank owns.
         if graph.dyn_senders is not None:
             dmember = ((graph.dyn_senders[None, :] == state.pos[:, None])
-                       & graph.dyn_mask[None, :]
+                       & (graph.dyn_mask & M.owns(graph, graph.dyn_receivers)
+                          )[None, :]
                        & graph.node_mask[graph.dyn_receivers][None, :])
             rcv = torch.cat([rcv, graph.dyn_receivers[None, :].expand(
                 dmember.shape)], dim=1)
@@ -107,6 +121,17 @@ class RandomWalks:
         m = u.amax(dim=1)
         can_move = m >= 0.0
         best_rcv = torch.where(live & (u == m[:, None]), rcv, -1).amax(dim=1)
+        if part is not None:
+            # Every rank's best slot of its run, as one key a walker: the
+            # uniform's f32 bits (non-negative, so ordered as the values)
+            # above the receiver, -1 without a live slot. Their max is the
+            # whole row's winner, ties to the higher receiver.
+            best = torch.where(can_move, (m.view(torch.int32).to(torch.int64)
+                                          << 32) | best_rcv.to(torch.int64),
+                               -1)
+            best = combine(part, best, "max")
+            can_move = best >= 0
+            best_rcv = (best & 0xFFFFFFFF).to(torch.int32)
         dest = torch.where(can_move, best_rcv, state.pos)
 
         if self.restart_p > 0.0:

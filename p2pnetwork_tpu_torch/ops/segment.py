@@ -37,7 +37,9 @@ reductions here too (no kernel), over ordered integer keys so that
 
 The dynamic edge region of runtime links (``sim/topology.py``) is folded
 in for every method: the static edges go through the method, the region
-through one unsorted scatter, and the two are combined.
+through one unsorted scatter, and the two are combined. On a rank's part
+the region is whole on every rank (``sim/graph.py`` ``graph_part``), so
+its scatter gives every rank the whole fold with no exchange of its own.
 
 On a rank's part of a graph (``sim/graph.py`` ``GraphPart``, the
 auto-sharded path across ranks of ``parallel/auto.py``) every aggregation

@@ -23,15 +23,21 @@ owner-computes:
 
 ``run_auto`` is ``engine.run`` either way, as the reference's is, and
 ``engine.run_until_coverage``/``run_until_converged`` and the batch and
-query loops take a part too, for the 23 protocols held to the
-reference's auto path (those with ``RUNS_ON_PART``), by every method,
-``frontier`` included: its budget, like the adaptive wave's slice width
-and work items, is decided on the whole graph's rows (``sim/graph.py``
-``Part``), so every rank takes the same branch. Refused across ranks,
-each by name and queued in ROADMAP.md: a ``multihost.Mesh2D``, the
-dynamic edge region, and every other protocol (``sim/engine.py``: the
-walks, Plumtree, the failure detector, anti-entropy, Vivaldi and the
-rest).
+query loops take a part too, for every protocol of ``models/`` (each
+carries ``RUNS_ON_PART``), by every method, ``frontier`` included: its
+budget, like the adaptive wave's slice width and work items, is decided
+on the whole graph's rows (``sim/graph.py`` ``Part``), so every rank
+takes the same branch. The library functions of ``models/`` (hop
+distances and diameter bounds, centrality, triangles and the wedge
+sample, coloring) take a part as well, and so do the dynamic edge region
+(whole on every rank: ``sim/topology.py``) and the failures
+(``sim/failures.py``). A ``multihost.Mesh2D`` is cut along its ring's
+host-major shard order, whichever axis is named: the reference's
+``P("ici")`` replicates the graph across hosts where the port splits it
+over every rank, a difference of placement, not of result. The engine
+still refuses, by name, a protocol without ``RUNS_ON_PART`` (a user's
+own, which may read the edge arrays or the neighbor table past the op
+layer and would see the rank's edges alone).
 
 The port keeps the reference's backend names so that call sites carry
 over, with these meanings:
@@ -85,7 +91,9 @@ def shard_graph_auto(graph, mesh, axis_name: str = "shards"):
     graph on the mesh's device; on a ring split over ranks the rank's
     part (``sim/graph.py`` ``graph_part``), which every rank of the ring
     builds from the same whole graph. ``axis_name`` must name one of the
-    mesh's axes."""
+    mesh's axes; on a ``Mesh2D`` either axis cuts the part along the
+    ring's host-major shard order (``multihost.hierarchical_ring_mesh``),
+    so the ranks of a host hold consecutive nodes."""
     ring = getattr(mesh, "ring", mesh)
     names = getattr(mesh, "axis_names", (ring.axis_name,))
     if axis_name not in names:
@@ -93,11 +101,6 @@ def shard_graph_auto(graph, mesh, axis_name: str = "shards"):
                          f"{names}")
     if ring.world == 1:
         return _to(graph, ring.device)
-    if ring is not mesh:
-        raise NotImplementedError(
-            f"shard_graph_auto on a 2-D mesh over {ring.world} ranks: "
-            f"queued in ROADMAP.md, section A; pass the rank ring "
-            f"(multihost.hierarchical_ring_mesh) instead")
     return graph_part(graph, ring)
 
 

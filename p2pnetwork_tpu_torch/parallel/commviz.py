@@ -22,7 +22,11 @@ The ``pallas`` comm's hops (the ring-DMA kernels) are priced as
 source -> target pairs of the compiled flood's collective-permutes, the
 port runs a flood round on a ring of ranks and records the rank pairs of
 every hop it makes, and counts the round's exchanges through the process
-group, classified by host.
+group, classified by host. :func:`auto_hop_census` is its form for the
+auto path across ranks (``parallel/auto.py``), whose exchanges are
+gathers: the bytes a round moves between ranks of one host and of two,
+the counterpart of the reference's DCN bound on its 2-D mesh
+(``tests/test_mesh2d_comm.py``).
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ from __future__ import annotations
 import functools
 
 __all__ = ["RING_DMA_KEY", "ring_model_bytes", "ring_census",
-           "ici_round_bytes", "ring_hop_census"]
+           "ici_round_bytes", "ring_hop_census", "auto_hop_census"]
 
 #: The census key of a ring-DMA hop (the ``pallas`` comm).
 RING_DMA_KEY = "ring_dma"
@@ -209,3 +213,29 @@ def ring_hop_census(sg, mesh, host_of, *, source: int = 0,
             "hops": len(hops), "hops_within": hops_within,
             "hops_cross": hops_cross, "exchanges": exchanges,
             "exchanges_cross": exchanges if spans_hosts else 0}
+
+
+def auto_hop_census(mesh, host_of, run_round) -> dict:
+    """The exchanges of ``run_round()`` (one round of an auto-path
+    protocol on this rank's part, every rank calling it together) by
+    host (``host_of``: rank -> host, ``multihost.host_of``). The bytes
+    are worked out from the gather's design, not observed on a link:
+    each of the round's ``assemble``/``combine`` gathers puts the rank's
+    stack into every other rank's slab (``csrc/ring_peer.cu``), and every
+    rank's stack is the same size. So a node-extent gather of ``elem``
+    bytes a node moves ``(W - W / H) * N_pad * elem`` bytes between hosts
+    (``W`` ranks on ``H`` hosts): it grows with the world and the
+    payload's width. Returns ``exchanges``, ``rank_bytes`` (this rank's
+    payload), ``bytes_within`` and ``bytes_cross``: the bytes the round
+    moves between two ranks of one host, and of two hosts, summed over
+    every ordered pair of ranks."""
+    from p2pnetwork_tpu_torch.parallel import mesh as M
+
+    before, nbytes = M.EXCHANGES, M.GATHERED_BYTES
+    run_round()
+    exchanges, nbytes = M.EXCHANGES - before, M.GATHERED_BYTES - nbytes
+    pairs = [(a, b) for a in mesh.order for b in mesh.order if a != b]
+    cross = sum(host_of(a) != host_of(b) for a, b in pairs)
+    return {"exchanges": exchanges, "rank_bytes": nbytes,
+            "bytes_within": (len(pairs) - cross) * nbytes,
+            "bytes_cross": cross * nbytes}

@@ -42,6 +42,10 @@ DEFAULT_AXIS = "shards"
 #: group (``parallel/commviz.py::ring_hop_census`` reads a round's), and
 #: every :func:`assemble` and :func:`combine`.
 EXCHANGES = 0
+#: Bytes this rank has put into :func:`assemble` and :func:`combine`'s
+#: gathers so far (its own stack a gather; every other rank receives it
+#: whole). ``parallel/commviz.py::auto_hop_census`` reads a round's.
+GATHERED_BYTES = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +186,27 @@ def gather_lists(mesh: Optional[RingMesh], ids: torch.Tensor,
             [whole[:, k + 1 + i] for i in range(len(cols))])
 
 
+def gather_ragged(mesh: Optional[RingMesh], rows: torch.Tensor):
+    """Every rank's ``rows [m, c]`` (i64; ``m`` may differ from rank to
+    rank) stacked in ring order, ``[sum m, c]``, on ``rows``' device:
+    ``rows`` itself in one process. Across processes two exchanges through
+    the process group, each counted in ``_device.SYNCS``: the most rows
+    any rank holds (:func:`all_max`), then one all-gather of every rank's
+    rows padded to it, their count ahead (:func:`gather_shards`). For the
+    host rebuilds that need every rank's edges (Plumtree's tree graph,
+    ``sim/topology.py`` ``consolidate`` on a part)."""
+    if mesh is None or mesh.world == 1:
+        return rows
+    m, c = rows.shape
+    k = int(all_max(mesh, torch.tensor([m], dtype=torch.int64))[0])
+    block = torch.zeros((1, k + 1, max(c, 1)), dtype=torch.int64)
+    block[0, 0, 0] = m
+    block[0, 1:m + 1, :c] = rows.cpu()
+    whole = gather_shards(mesh, block)
+    return torch.cat([w[1:int(w[0, 0]) + 1, :c] for w in whole]).to(
+        rows.device)
+
+
 #: The folds :func:`combine` takes, by name.
 _FOLDS = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum,
           "or": torch.logical_or}
@@ -194,12 +219,13 @@ def _gathered(mesh: RingMesh, x: torch.Tensor, rows: int) -> torch.Tensor:
     on the card (valid until the gather two after it)."""
     from p2pnetwork_tpu_torch.ops import ring
 
-    global EXCHANGES
+    global EXCHANGES, GATHERED_BYTES
     span = mesh.n_local * rows
     if x.shape[0] < span:
         x = torch.cat([x, x.new_zeros((span - x.shape[0],) + x.shape[1:])])
     x = x.reshape((mesh.n_local, rows) + x.shape[1:]).contiguous()
     EXCHANGES += 1
+    GATHERED_BYTES += x.numel() * x.element_size()
     slab = ring.ring_gather(x, mesh)
     return slab[:mesh.n_shards].reshape((-1,) + x.shape[2:])
 
@@ -225,6 +251,15 @@ def owned(graph, full: torch.Tensor, axis: int = -1) -> torch.Tensor:
     part = part_of(graph)
     return full if part is None else full.narrow(axis, part.lo,
                                                   part.hi - part.lo)
+
+
+def owns(graph, nodes: torch.Tensor) -> torch.Tensor:
+    """bool, ``nodes``' shape: which of ``nodes`` this process aggregates
+    (all of them, or on a rank's part those in ``[lo, hi)``)."""
+    part = part_of(graph)
+    if part is None:
+        return torch.ones_like(nodes, dtype=torch.bool)
+    return (nodes >= part.lo) & (nodes < part.hi)
 
 
 def assembled(graph, out: torch.Tensor, axis: int = -1) -> torch.Tensor:

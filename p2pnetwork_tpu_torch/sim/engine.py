@@ -59,12 +59,11 @@ without it.
 
 Every entry point takes a rank's part of a graph (``parallel/auto.py``'s
 auto path across ranks) only for a protocol that says it runs there
-(``RUNS_ON_PART``: the 23 held to the reference's auto path or to its
-loops, among them the adaptive wave, the batched flood and the query
-families). Any other protocol (the walks, Plumtree, the failure
-detector, anti-entropy, Vivaldi and the rest) may read edge arrays or
-the neighbor table past the op layer, which on a part would see the
-rank's edges alone, so it is refused by name.
+(``RUNS_ON_PART``: every protocol of ``models/``, the batched flood and
+the query families among them). Any other protocol, such as a user's
+own, may read edge arrays or the neighbor table past the op layer,
+which on a part would see the rank's edges alone, so it is refused by
+name.
 """
 
 from __future__ import annotations
@@ -171,9 +170,10 @@ def _require_runs_on_part(graph: Graph, protocol) -> None:
     if part_of(graph) is not None and not getattr(protocol, "RUNS_ON_PART",
                                                   False):
         raise NotImplementedError(
-            f"{type(protocol).__name__} on a rank's part: only the "
-            f"protocols held to the auto path across ranks run there; the "
-            f"others are queued in ROADMAP.md, section A")
+            f"{type(protocol).__name__} on a rank's part: it does not set "
+            f"RUNS_ON_PART, so it may read the edge arrays or the neighbor "
+            f"table past the op layer, where a part holds the rank's edges "
+            f"alone")
 
 
 def _freeze(live: torch.Tensor, new, old):

@@ -11,6 +11,11 @@ the input is not modified, so keeping it is how a failure is undone.
 ``random_node_failures`` / ``random_edge_failures`` draw their Bernoulli
 masks from ``prng.py``, bit for bit the reference's.
 
+On a rank's part (``sim/graph.py`` ``graph_part``, the auto path across
+ranks) every function takes the whole graph's ids and draws, updates the
+whole node fields (the degrees in one exchange) and re-masks the part's
+own edges, rows and layouts.
+
 Every injection is counted in ``sim_injected_failures_total{kind}``
 (``telemetry/``): the entity count for the deterministic kinds, one per
 call for ``partition``, ``preempt`` and the random draws (``*_draw``).
@@ -27,7 +32,9 @@ import torch
 
 from p2pnetwork_tpu_torch import prng, telemetry
 from p2pnetwork_tpu_torch.ops import skew as SK
-from p2pnetwork_tpu_torch.sim.graph import Graph
+from p2pnetwork_tpu_torch.parallel import mesh as M
+from p2pnetwork_tpu_torch.parallel.mesh import combine
+from p2pnetwork_tpu_torch.sim.graph import Graph, edge_slots, part_of
 from p2pnetwork_tpu_torch.sim.topology import _check_ids_in_range, _ids
 
 
@@ -48,12 +55,18 @@ def _count_injected(kind: str, ids=None) -> None:
 
 def _degrees(graph: Graph, edge_mask: torch.Tensor, dyn_mask=None):
     """``(in_degree, out_degree)`` recomputed from the surviving static
-    edges and, when present, dynamic links."""
+    edges and, when present, dynamic links. On a rank's part the static
+    edges are the rank's own: every rank's counts are summed in one
+    ``combine`` (the dynamic region is whole on every rank)."""
     live = edge_mask.to(torch.int32)
     zeros = torch.zeros(graph.n_nodes_padded, dtype=torch.int32,
                         device=edge_mask.device)
     in_degree = zeros.index_add(0, graph.receivers, live)
     out_degree = zeros.index_add(0, graph.senders, live)
+    part = part_of(graph)
+    if part is not None:
+        in_degree, out_degree = combine(
+            part, torch.stack([in_degree, out_degree]), "sum")
     if dyn_mask is not None:
         dlive = dyn_mask.to(torch.int32)
         in_degree = in_degree.index_add(0, graph.dyn_receivers, dlive)
@@ -61,21 +74,25 @@ def _degrees(graph: Graph, edge_mask: torch.Tensor, dyn_mask=None):
     return in_degree, out_degree
 
 
-def _remask_blocked(blocked, node_alive: torch.Tensor):
-    """A blocked layout re-masked to slots whose two endpoints live."""
+def _remask_blocked(blocked, node_alive: torch.Tensor, lo: int = 0):
+    """A blocked layout re-masked to slots whose two endpoints live
+    (destinations counted from ``lo``, a part's first owned node)."""
     if blocked is None:
         return None
     nb = blocked.src.shape[0]
     base = torch.arange(nb, dtype=torch.int32,
                         device=node_alive.device)[:, None] * blocked.block
-    global_dst = (base + blocked.local_dst).clamp_max(node_alive.shape[0] - 1)
+    global_dst = (base + blocked.local_dst + lo).clamp_max(
+        node_alive.shape[0] - 1)
     mask = blocked.mask & node_alive[blocked.src] & node_alive[global_dst]
     return dataclasses.replace(blocked, mask=mask)
 
 
-def _remask_hybrid(hybrid, node_alive: torch.Tensor):
+def _remask_hybrid(hybrid, node_alive: torch.Tensor, lo: int = 0,
+                   hi: int = None):
     """Diagonal masks need both endpoints alive; the remainder as
-    :func:`_remask_blocked`."""
+    :func:`_remask_blocked`. On a rank's part the masks hold the owned
+    columns ``[lo, hi)``."""
     if hybrid is None:
         return None
     masks = hybrid.masks
@@ -84,17 +101,24 @@ def _remask_hybrid(hybrid, node_alive: torch.Tensor):
         # mask[d, v] needs v alive and (v + off) % n alive.
         src_alive = torch.stack([torch.roll(core, -off)
                                  for off in hybrid.offsets])
-        masks = masks & core[None, :] & src_alive
+        a = min(lo, hybrid.n)
+        b = hybrid.n if hi is None else min(hi, hybrid.n)
+        masks = masks & core[None, a:b] & src_alive[:, a:b]
     return dataclasses.replace(
         hybrid, masks=masks,
-        remainder=_remask_blocked(hybrid.remainder, node_alive))
+        remainder=_remask_blocked(hybrid.remainder, node_alive, lo))
 
 
 def with_node_liveness(graph: Graph, node_alive: torch.Tensor) -> Graph:
     """Apply a liveness mask (bool[N_pad], False = failed): an edge or
     dynamic link lives iff it did and both endpoints live; degrees are
     recomputed; the neighbor table and the blocked, hybrid and skew
-    layouts are re-masked in place (shapes unchanged)."""
+    layouts are re-masked in place (shapes unchanged). On a rank's part
+    the whole ``node_mask`` is updated, the owned rows and columns of the
+    layouts are re-masked, and the degrees take one exchange
+    (:func:`_degrees`)."""
+    part = part_of(graph)
+    lo, hi = (0, None) if part is None else (part.lo, part.hi)
     node_mask = graph.node_mask & node_alive
     edge_mask = (graph.edge_mask & node_mask[graph.senders]
                  & node_mask[graph.receivers])
@@ -105,14 +129,14 @@ def with_node_liveness(graph: Graph, node_alive: torch.Tensor) -> Graph:
     in_degree, out_degree = _degrees(graph, edge_mask, dyn_mask)
     neighbor_mask = graph.neighbor_mask
     if neighbor_mask is not None:
-        neighbor_mask = (neighbor_mask & node_mask[:, None]
+        neighbor_mask = (neighbor_mask & M.owned(graph, node_mask)[:, None]
                          & node_mask[graph.neighbors])
     return dataclasses.replace(
         graph, node_mask=node_mask, edge_mask=edge_mask, dyn_mask=dyn_mask,
         in_degree=in_degree, out_degree=out_degree,
         neighbor_mask=neighbor_mask,
-        blocked=_remask_blocked(graph.blocked, node_mask),
-        hybrid=_remask_hybrid(graph.hybrid, node_mask),
+        blocked=_remask_blocked(graph.blocked, node_mask, lo),
+        hybrid=_remask_hybrid(graph.hybrid, node_mask, lo, hi),
         skew=SK.remask_nodes(graph.skew, node_mask))
 
 
@@ -149,7 +173,9 @@ def with_edge_liveness(graph: Graph, edge_alive: torch.Tensor) -> Graph:
     re-masked exactly, a width-capped one dropped (its slot -> edge map is
     gone); the skew table re-masks through its slot -> edge map. Refused
     on graphs carrying blocked/hybrid layouts, whose edge order differs:
-    use node failures or rebuild."""
+    use node failures or rebuild. On a rank's part ``edge_alive`` is
+    aligned with the part's own edge slots (:func:`fail_edges` and
+    :func:`random_edge_failures` cut the whole graph's to them)."""
     if graph.blocked is not None or graph.hybrid is not None:
         raise ValueError(
             "edge-level failures on a graph with blocked/hybrid "
@@ -161,10 +187,9 @@ def with_edge_liveness(graph: Graph, edge_alive: torch.Tensor) -> Graph:
     if neighbor_mask is not None:
         if graph.neighbors_complete:
             dev = edge_mask.device
-            starts = torch.searchsorted(
-                graph.receivers,
-                torch.arange(graph.n_nodes_padded, dtype=torch.int32,
-                             device=dev))
+            starts = torch.searchsorted(graph.receivers, M.owned(
+                graph, torch.arange(graph.n_nodes_padded, dtype=torch.int32,
+                                    device=dev)))
             take = starts[:, None] + torch.arange(neighbors.shape[1],
                                                   device=dev)
             take = take.clamp_max(graph.n_edges_padded - 1)
@@ -178,12 +203,28 @@ def with_edge_liveness(graph: Graph, edge_alive: torch.Tensor) -> Graph:
         skew=SK.remask_edges(graph.skew, edge_mask, graph.n_edges_padded))
 
 
+def _own_slots(graph: Graph, flags: torch.Tensor) -> torch.Tensor:
+    """Per-edge ``flags`` of the whole graph (``edge_slots`` long) as the
+    graph's own: themselves, or on a rank's part those of its edges, the
+    whole graph's slots ``[edge_lo, edge_lo + n_edges)`` (its padding
+    slots set)."""
+    part = part_of(graph)
+    if part is None:
+        return flags
+    out = torch.ones(graph.n_edges_padded, dtype=torch.bool,
+                     device=flags.device)
+    out[:graph.n_edges] = flags[part.edge_lo:part.edge_lo + graph.n_edges]
+    return out
+
+
 def fail_edges(graph: Graph, edge_ids) -> Graph:
-    """Cut specific links (indices into the edge arrays)."""
-    _check_ids_in_range(edge_ids, graph.n_edges_padded, "edge")
+    """Cut specific links (indices into the edge arrays; on a rank's part
+    into the whole graph's)."""
+    n = edge_slots(graph)
+    _check_ids_in_range(edge_ids, n, "edge")
     _count_injected("edge", edge_ids)
     ids = _ids(graph, edge_ids)
-    return with_edge_liveness(graph, _flags(graph.n_edges_padded, ids, False))
+    return with_edge_liveness(graph, _own_slots(graph, _flags(n, ids, False)))
 
 
 def revive_nodes(graph: Graph, node_ids, original: Graph) -> Graph:
@@ -254,6 +295,6 @@ def random_edge_failures(graph: Graph, key, frac: float) -> Graph:
     """Cut each live directed edge independently with probability
     ``frac``."""
     _count_injected("edge_draw")
-    cut = prng.bernoulli(key, frac, (graph.n_edges_padded,),
+    cut = prng.bernoulli(key, frac, (edge_slots(graph),),
                          device=graph.device)
-    return with_edge_liveness(graph, ~cut)
+    return with_edge_liveness(graph, _own_slots(graph, ~cut))

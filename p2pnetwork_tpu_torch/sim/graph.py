@@ -1386,17 +1386,16 @@ def graph_part(graph: Graph, mesh) -> GraphPart:
     """The rank's part of ``graph`` on ``mesh`` (a ``RingMesh`` split over
     ranks), on the mesh's device, built on the host in numpy: the rank
     owns ``[lo, hi)``, its ``n_local`` shards of ``ceil(N_pad / S)``
-    nodes. The dynamic edge region is refused (ROADMAP.md)."""
+    nodes. The dynamic edge region of runtime links stays whole on every
+    rank (``K`` slots, a few hundred): every rank applies every
+    ``topology.connect``/``disconnect``, so slot allocation and the
+    degrees stay bit-equal, and an aggregation folds the region in on
+    every rank (``ops/segment.py``)."""
     from p2pnetwork_tpu_torch.ops import blocked as B
     from p2pnetwork_tpu_torch.ops import segment
     from p2pnetwork_tpu_torch.ops.diag import HybridEdges
     from p2pnetwork_tpu_torch.ops.skew import SkewTable
 
-    if graph.dyn_senders is not None:
-        raise NotImplementedError(
-            "the dynamic edge region on a rank's part: queued in "
-            "ROADMAP.md, section A (consolidate the runtime links into "
-            "the static edges first, sim/topology.py)")
     n_pad, dev = graph.n_nodes_padded, mesh.device
     block = _round_up(n_pad, mesh.n_shards) // mesh.n_shards
     lo = min(mesh.shard_lo * block, n_pad)
@@ -1463,7 +1462,8 @@ def graph_part(graph: Graph, mesh) -> GraphPart:
         **{k: getattr(graph, k).to(dev) for k in (
             "node_mask", "in_degree", "out_degree")},
         **{k: None if getattr(graph, k) is None else getattr(graph, k).to(
-            dev) for k in ("layout_perm", "layout_inv")},
+            dev) for k in ("layout_perm", "layout_inv", "dyn_senders",
+                           "dyn_receivers", "dyn_mask")},
         n_nodes=graph.n_nodes, n_edges=e,
         neighbors_complete=graph.neighbors_complete,
         max_degree_cap=graph.max_degree_cap,

@@ -12,6 +12,13 @@ blocked, hybrid, skew) keep serving the static edges. :func:`consolidate`
 rebuilds through ``from_edges`` with the merged live edges.
 
 Every function returns a new ``Graph``; the input is not modified.
+
+On a rank's part (``sim/graph.py`` ``graph_part``, the auto path across
+ranks) the region is whole on every rank: every rank applies every
+call, so slot allocation and the whole degree fields stay bit-equal.
+:func:`connect`'s test of an existing static edge asks the receiver's
+owner (one exchange, :func:`static_edge_exists`), and :func:`consolidate`
+gathers the live static edges once and cuts the rebuilt graph again.
 """
 
 from __future__ import annotations
@@ -24,7 +31,8 @@ import torch.nn.functional as F
 
 from p2pnetwork_tpu_torch.ops.frontier import compact
 from p2pnetwork_tpu_torch.ops.segment import DYNAMIC_LINK_COST
-from p2pnetwork_tpu_torch.sim.graph import Graph, _round_up
+from p2pnetwork_tpu_torch.parallel.mesh import combine, gather_ragged
+from p2pnetwork_tpu_torch.sim.graph import Graph, _round_up, part_of
 
 
 def _check_ids_in_range(ids, bound: int, what: str) -> None:
@@ -49,6 +57,11 @@ def with_capacity(graph: Graph, extra_edges: int = 0,
     layouts."""
     g = graph
     if extra_nodes:
+        if part_of(g) is not None:
+            raise ValueError(
+                "with_capacity(extra_nodes=...) on a rank's part changes "
+                "the node extent the ranks split: grow the whole graph, "
+                "then cut it (parallel/auto.py shard_graph_auto)")
         if g.blocked is not None or g.hybrid is not None:
             raise ValueError(
                 "with_capacity(extra_nodes=...) on a graph carrying "
@@ -98,18 +111,23 @@ def static_edge_exists(graph: Graph, s: torch.Tensor,
                        r: torch.Tensor) -> torch.Tensor:
     """bool[B]: is each directed ``(s, r)`` a live static edge? One
     ``searchsorted`` into the receiver-sorted COO per query and a
-    ``[B, max_in_span]`` window scan."""
+    ``[B, max_in_span]`` window scan. On a rank's part an edge lives on
+    its receiver's owner: each rank answers for its own receivers and
+    one ``combine(..., "or")`` gives every rank every answer."""
     if graph.max_in_span > 0:
         lo = torch.searchsorted(graph.receivers, r)
         idx = lo[:, None] + torch.arange(graph.max_in_span,
                                          device=r.device)
         idx = idx.clamp_max(graph.n_edges_padded - 1)
-        return ((graph.receivers[idx] == r[:, None])
-                & (graph.senders[idx] == s[:, None])
-                & graph.edge_mask[idx]).any(dim=1)
-    return ((graph.senders[None, :] == s[:, None])
-            & (graph.receivers[None, :] == r[:, None])
-            & graph.edge_mask[None, :]).any(dim=1)
+        found = ((graph.receivers[idx] == r[:, None])
+                 & (graph.senders[idx] == s[:, None])
+                 & graph.edge_mask[idx]).any(dim=1)
+    else:
+        found = ((graph.senders[None, :] == s[:, None])
+                 & (graph.receivers[None, :] == r[:, None])
+                 & graph.edge_mask[None, :]).any(dim=1)
+    part = part_of(graph)
+    return found if part is None else combine(part, found, "or")
 
 
 def _edge_exists(graph: Graph, s: torch.Tensor, r: torch.Tensor):
@@ -209,15 +227,29 @@ def consolidate(graph: Graph, *, extra_edges: int = 0, extra_nodes: int = 0,
     they propagated at), dead edges go, liveness stays. Layouts (blocked,
     hybrid, source-CSR) and the neighbor-table settings carry over unless
     ``from_edges_kwargs`` say otherwise; ``extra_edges``/``extra_nodes``
-    re-reserve capacity."""
+    re-reserve capacity. On a rank's part every rank gathers every rank's
+    live static edges (``parallel/mesh.py`` ``gather_ragged``), rebuilds
+    the whole graph as one process does, and returns its part of it."""
     from p2pnetwork_tpu_torch.sim.failures import with_node_liveness
-    from p2pnetwork_tpu_torch.sim.graph import from_edges
+    from p2pnetwork_tpu_torch.sim.graph import from_edges, graph_part
 
     senders, receivers = graph._live_edges()
     weights = None
     if graph.edge_weight is not None:
         weights = graph.edge_weight.cpu().numpy()[
             graph.edge_mask.cpu().numpy()]
+    part = part_of(graph)
+    if part is not None:
+        # Every rank's live static edges in ring order (the whole graph's
+        # order): the rebuild is the whole graph's on every rank, cut to
+        # the rank's part again at the end.
+        cols = [senders, receivers] + ([] if weights is None
+                                       else [weights.view(np.int32)])
+        rows = gather_ragged(part.mesh, torch.from_numpy(
+            np.stack(cols, axis=1).astype(np.int64))).numpy()
+        senders, receivers = (rows[:, i].astype(np.int32) for i in (0, 1))
+        if weights is not None:
+            weights = rows[:, 2].astype(np.int32).view(np.float32)
     if graph.dyn_mask is not None:
         dm = graph.dyn_mask.cpu().numpy()
         senders = np.concatenate(
@@ -272,4 +304,4 @@ def consolidate(graph: Graph, *, extra_edges: int = 0, extra_nodes: int = 0,
             g2 = g2.with_hybrid()
         if layout_kw["source_csr"]:
             g2 = g2.with_source_csr()
-    return g2
+    return g2 if part is None else graph_part(g2, part.mesh)

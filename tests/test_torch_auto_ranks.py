@@ -41,8 +41,8 @@ aggregation assembles its owned slices in one exchange
    shard; the adaptive wave's sparse round one too, of ``N_pad / S``
    i32 claims a shard; and no exchange of the flood family carries more
    than ``4 * N_pad`` bytes;
-6. what stays refused: every protocol but the 23 (``RUNS_ON_PART``), by
-   name.
+6. what stays refused: a protocol without ``RUNS_ON_PART`` (a user's
+   own; every protocol of ``models/`` carries it), by name.
 """
 
 import concurrent.futures
@@ -424,35 +424,50 @@ def _rank0_part(**kw):
     return _parts(g, 2)[0]
 
 
-#: The protocols held to the reference's auto path: the only ones the
-#: engine takes on a part (the twelve of the reference's auto tests, and
-#: since they were ported across ranks the op-layer protocols, the
-#: adaptive wave, the batched flood and the query families).
+#: The protocols the engine takes on a part: every protocol of
+#: ``models/`` (the twelve of the reference's auto tests, then the
+#: op-layer protocols, the adaptive wave, the batched flood and the query
+#: families, and since the library was ported across ranks the walks,
+#: Plumtree, the failure detector, anti-entropy and Vivaldi).
 RUNS_ON_PART = {"Flood", "SIR", "Gossip", "ConnectedComponents", "LubyMIS",
                 "KCore", "BipartiteCheck", "DistanceVector", "HITS",
                 "LabelPropagation", "Boruvka", "Bracha", "AdaptiveFlood",
                 "AdaptiveHopDistance", "HopDistance", "LeaderElection",
                 "PageRank", "PushSum", "SpanningTree", "BatchFlood",
-                "MinPlusQueries", "DhtLookups", "PushSumQueries"}
+                "MinPlusQueries", "DhtLookups", "PushSumQueries",
+                "RandomWalks", "Plumtree", "FailureDetector", "AntiEntropy",
+                "Vivaldi"}
 
 
 def test_only_the_twelve_protocols_run_on_a_part():
-    """The protocols marked ``RUNS_ON_PART`` are exactly the 23."""
-    marked = {n for mod in (models, messagebatch, querybatch)
-              for n in dir(mod) if isinstance(getattr(mod, n), type)
-              and getattr(getattr(mod, n), "RUNS_ON_PART", False)}
-    assert marked == RUNS_ON_PART
+    """The protocols marked ``RUNS_ON_PART`` are exactly the 28: every
+    protocol class of ``models/`` (a class with ``init`` and ``step``,
+    the structural ``Protocol`` aside)."""
+    classes = [getattr(mod, n) for mod in (models, messagebatch, querybatch)
+               for n in dir(mod) if isinstance(getattr(mod, n), type)]
+    marked = {c.__name__ for c in classes
+              if getattr(c, "RUNS_ON_PART", False)}
+    protocols = {c.__name__ for c in classes if hasattr(c, "init")
+                 and hasattr(c, "step") and c is not models.Protocol}
+    assert marked == RUNS_ON_PART == protocols
 
 
-@pytest.mark.parametrize("proto", [
-    models.Plumtree(source=0), models.RandomWalks(n_walkers=8),
-    models.FailureDetector(), models.AntiEntropy(),
-    models.Vivaldi()], ids=lambda p: type(p).__name__)
+@dataclasses.dataclass(frozen=True)
+class UserProtocol(models.Flood):
+    """A user's own protocol: a flood that does not say it runs on a
+    part."""
+
+    RUNS_ON_PART = False
+
+
+@pytest.mark.parametrize("proto", [UserProtocol(source=0)],
+                         ids=lambda p: type(p).__name__)
 def test_other_protocols_on_a_part_are_refused(proto, one_torch_thread):
-    """A protocol that reads edge arrays past the op layer would see the
-    rank's edges alone: the engine refuses it by name, at every entry."""
+    """A protocol without ``RUNS_ON_PART`` may read edge arrays past the
+    op layer and would see the rank's edges alone: the engine refuses it
+    by name, at every entry."""
     part = _rank0_part(source_csr=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="RUNS_ON_PART"):
         TA.run_auto(part, proto, prng.key(0), 1)
     with pytest.raises(NotImplementedError, match=type(proto).__name__):
         engine.run_until_converged(part, proto, prng.key(0),

@@ -167,11 +167,13 @@ def _carry_with(field):
     return call
 
 
-# What is still not ported raises, never runs as something else: the
-# auto-sharded path across ranks (which runs since it was ported, in
-# test_torch_auto_ranks.py) on a graph with a dynamic edge region and on
-# the 2-D mesh (rank 0's part of a 2-rank ring, which raises before any
-# exchange), graph and batch fields the port does not model (interop
+# What is still not ported raises, never runs as something else: a
+# protocol that does not say it runs on a rank's part (a user's own, here
+# a flood with the mark taken off) on the auto-sharded path across ranks,
+# whose placement of a graph with a dynamic edge region and on the 2-D
+# mesh runs since it was ported (test_torch_auto_library.py; rank 0's
+# part of a 2-rank ring, refused before any exchange), graph and batch
+# fields the port does not model (interop
 # refuses them rather than dropping them; edge weights and the node
 # relabeling are carried since they were ported, in
 # test_torch_semiring.py and test_torch_layout.py) and a weighted choice
@@ -183,11 +185,20 @@ def _carry_with(field):
 # checked in test_torch_frontier.py and test_torch_skew.py, and the orbax
 # checkpoints (the port's own sharded format, save_orbax/load_orbax) in
 # test_torch_checkpoint.py and test_torch_multihost_protocols.py.
+class _UserFlood(TF.Flood):
+    RUNS_ON_PART = False
+
+
+def _user_run(part):
+    return TE.run(part, _UserFlood(source=0), prng.key(0), 1)
+
+
 @pytest.mark.parametrize("proto", [
-    lambda tg: TAUTO.shard_graph_auto(topology.with_capacity(tg, 8), RANK0),
-    lambda tg: TAUTO.shard_graph_auto(tg, TMH.Mesh2D(
+    lambda tg: _user_run(TAUTO.shard_graph_auto(
+        topology.with_capacity(tg, 8), RANK0)),
+    lambda tg: _user_run(TAUTO.shard_graph_auto(tg, TMH.Mesh2D(
         grid=np.arange(8).reshape(2, 4), axis_names=("dcn", "ici"),
-        ring=RANK0), axis_name="ici"),
+        ring=RANK0), axis_name="ici")),
     _carry_with("delta_log"),
     lambda tg: prng.choice(prng.key(0), 4, (2,), replace=False,
                            p=torch.ones(4), device="cpu"),

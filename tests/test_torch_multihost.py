@@ -263,26 +263,36 @@ def _rank_part(**kw):
 # The adaptive loop, the recorder and a fault-spec comm, once refused
 # here, run across ranks: tests/test_torch_multihost_adaptive.py holds
 # them to the JAX ring and the one-process port. The auto-sharded path
-# runs across ranks too (tests/test_torch_auto_ranks.py), the frontier
-# method included; what it still refuses is held here: a graph with a
-# dynamic edge region, a 2-D mesh over ranks and a protocol that reads
-# the neighbor table past the op layer (anti-entropy).
+# runs across ranks too (tests/test_torch_auto_ranks.py,
+# tests/test_torch_auto_library.py): every protocol of models/, a graph
+# with a dynamic edge region and a 2-D mesh over ranks. What it still
+# refuses is held here, on each of those parts: a protocol without
+# RUNS_ON_PART (a user's own; here anti-entropy's class with the mark
+# taken off), by name.
+class _UserAntiEntropy(AntiEntropy):
+    RUNS_ON_PART = False
+
+
+def _user_run(part):
+    return TA.run_auto(part, _UserAntiEntropy(), prng.key(0), 1)
+
+
 REFUSALS = {
-    "auto": lambda: TA.shard_graph_auto(
-        topology.with_capacity(_rank_part()[2], 8), _rank_part()[1]),
-    "auto-mesh2d": lambda: TA.shard_graph_auto(
+    "auto": lambda: _user_run(TA.shard_graph_auto(
+        topology.with_capacity(_rank_part()[2], 8), _rank_part()[1])),
+    "auto-mesh2d": lambda: _user_run(TA.shard_graph_auto(
         _rank_part()[2], multihost.Mesh2D(
             grid=np.arange(S).reshape(2, S // 2), axis_names=("dcn", "ici"),
-            ring=_rank_part()[1]), axis_name="ici"),
-    "auto-antientropy": lambda: TA.run_auto(
-        TA.shard_graph_auto(_rank_part()[2], _rank_part()[1]),
-        AntiEntropy(), prng.key(0), 1),
+            ring=_rank_part()[1]), axis_name="ici")),
+    "auto-antientropy": lambda: _user_run(
+        TA.shard_graph_auto(_rank_part()[2], _rank_part()[1])),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_rank_ring_refusals(name, one_torch_thread):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="_UserAntiEntropy.*"
+                       "RUNS_ON_PART"):
         REFUSALS[name]()
 
 
